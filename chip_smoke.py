@@ -1,0 +1,374 @@
+"""Smoke run of the PyTorch port on one NVIDIA GPU.
+
+Drives the port's main path, transformer-LM inference through ``Predictor``,
+at the repo's accelerator width (vocab 32768, hidden 1024, 16 heads, 12
+layers, T=2048, fp32) and holds every CUDA kernel on that path against its
+plain PyTorch version. Phases, in order; any failed check ends the run with a
+non-zero exit and no result line:
+
+1. device: the card's name and power limit; TF32 off for fp32 parity;
+2. build: the kernels from ``mxnet_tpu_torch/csrc`` with nvcc (set-up);
+3. kernel vs plain: the flash-attention kernel against its plain version at
+   the main path's shape, at ragged shapes with ``q_offset``, and in bf16,
+   timed beside the plain version and a library attention call;
+4. the slice: a Predictor bound at data=(2, 2048) on cuda:0 answers 4
+   requests; probabilities checked and the kernel's launches counted;
+5. card vs CPU: the same weights at depth 2 on cuda:0 (kernel, launched
+   once per layer) and on the CPU (plain versions) must agree, in
+   probabilities and in log-probabilities.
+
+Run from the repo root: ``python3 chip_smoke.py [--seed N]``.
+The last line of standard output is ``{"ok": true, "device": {...}}``.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+
+# H100 SXM peaks (NVIDIA data sheet, dense): fp32 without tensor cores,
+# bf16 on tensor cores, and HBM3 bandwidth.
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+PEAK_BYTES = 3.35e12
+
+VOCAB, HIDDEN, HEADS, LAYERS, SEQ, BATCH = 32768, 1024, 16, 12, 2048, 2
+REQUESTS = 4
+OUT_DIR = "chiprun_out"
+
+
+class CheckFailed(RuntimeError):
+    pass
+
+
+def check(cond, what):
+    if not cond:
+        raise CheckFailed(what)
+    print(f"  ok: {what}", flush=True)
+
+
+# ---------------------------------------------------------------- measuring
+
+def time_cuda(fn, reps=20, warmup=3):
+    """Median milliseconds of ``fn`` over ``reps`` launches, each between
+    two CUDA events, after ``warmup`` calls."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def attention_bound(b, t_q, t_k, h, d, causal, q_offset, dtype_name):
+    """Least time (ms) the card could take for one attention forward on
+    these inputs, and what bounds it. Operations: 2*d for each scored
+    (query, key) pair in Q K^T and 2*d in P V, counting only the pairs the
+    causal mask keeps. Bytes: q, k, v read once, o written once."""
+    rows = q_offset + np.arange(t_q)
+    keys = np.clip(rows + 1, 0, t_k) if causal else np.full(t_q, t_k)
+    pairs = float(b * h * keys.sum())
+    flops = 4.0 * d * pairs
+    item = 4 if dtype_name == "float32" else 2
+    nbytes = float(item * (2 * b * t_q * h * d + 2 * b * t_k * h * d))
+    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+# ------------------------------------------------------------------ phases
+
+def phase_device():
+    import torch
+
+    print("phase 1: device", flush=True)
+    if not torch.cuda.is_available():
+        raise CheckFailed("torch.cuda.is_available() is false: this script "
+                          "needs an NVIDIA GPU")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 \
+        and smi.stdout.strip() else "nvidia-smi unavailable"
+    print(card, flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"  torch {torch.__version__} cuda {torch.version.cuda}; "
+          f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
+          f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}", flush=True)
+    return card
+
+
+def phase_build():
+    from mxnet_tpu_torch import _native
+
+    print("phase 2: build", flush=True)
+    t0 = time.perf_counter()
+    path = _native.build("flash_attention_fwd")
+    secs = time.perf_counter() - t0
+    log = _native.BUILD_LOGS.get("flash_attention_fwd", "(reused)")
+    for line in log.splitlines():
+        if "registers" in line or "spill" in line or "error" in line:
+            print("  ptxas: " + line.strip(), flush=True)
+    print(f"  built {os.path.relpath(path)} in {secs:.2f} s", flush=True)
+    return secs
+
+
+def _qkv(shape_q, t_k, dtype, seed):
+    import torch
+
+    b, t_q, h, d = shape_q
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn((b, t_q, h, d), generator=g, device="cuda")
+    k = torch.randn((b, t_k, h, d), generator=g, device="cuda")
+    v = torch.randn((b, t_k, h, d), generator=g, device="cuda")
+    return q.to(dtype), k.to(dtype), v.to(dtype)
+
+
+def phase_kernel_vs_plain(seed):
+    import torch
+    import torch.nn.functional as F
+
+    from mxnet_tpu_torch.ops.flash_attention import (
+        flash_attention, flash_attention_reference)
+
+    print("phase 3: kernel vs plain", flush=True)
+    cases = [
+        # name, q shape, t_k, causal, q_offset, dtype, tolerance
+        ("slice_fp32_causal", (BATCH, SEQ, HEADS, HIDDEN // HEADS), SEQ,
+         True, 0, torch.float32, 1e-4),
+        ("ragged_fp32_causal_qoff", (1, 200, 3, 64), 264, True, 64,
+         torch.float32, 1e-4),
+        ("ragged_fp32_noncausal_qoff", (1, 200, 3, 64), 264, False, 64,
+         torch.float32, 1e-4),
+        ("slice_bf16_causal", (BATCH, SEQ, HEADS, HIDDEN // HEADS), SEQ,
+         True, 0, torch.bfloat16, 2e-2),
+    ]
+    results = {}
+    for i, (name, shp, t_k, causal, q_off, dtype, tol) in enumerate(cases):
+        q, k, v = _qkv(shp, t_k, dtype, seed + i)
+        got = flash_attention(q, k, v, causal=causal, q_offset=q_off)
+        torch.cuda.synchronize()
+        # the plain version in fp32 on the same (rounded) inputs
+        want = flash_attention_reference(q.float(), k.float(), v.float(),
+                                         causal=causal, q_offset=q_off)
+        err = float((got.float() - want).abs().max())
+        dname = str(dtype).replace("torch.", "")
+        bound_ms, bound_by = attention_bound(shp[0], shp[1], t_k, shp[2],
+                                             shp[3], causal, q_off, dname)
+        ms = time_cuda(lambda: flash_attention(q, k, v, causal=causal,
+                                               q_offset=q_off))
+        plain_ms = time_cuda(lambda: flash_attention_reference(
+            q, k, v, causal=causal, q_offset=q_off))
+        # yardstick only: one library call computing the same function
+        # (the port never calls it); with q_offset > 0 the causal mask is
+        # not the library's, so there is no single call for that case
+        library_ms = None
+        if not (causal and q_off):
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            library_ms = time_cuda(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal))
+        row = {"case": name, "q": list(shp), "t_k": t_k, "causal": causal,
+               "q_offset": q_off, "dtype": dname, "max_abs_err": err,
+               "tol": tol, "ms": ms, "plain_ms": plain_ms,
+               "library_ms": library_ms, "bound_ms": bound_ms,
+               "bound_by": bound_by}
+        print("  " + json.dumps(row), flush=True)
+        check(np.isfinite(err) and err <= tol,
+              f"{name}: max abs err {err:.3g} <= {tol}")
+        results[name] = row
+        del q, k, v, got, want
+    torch.cuda.empty_cache()
+    return results
+
+
+def make_weights(symbol, input_shapes, seed):
+    """Random weights for every parameter of ``symbol``, from ``seed`` with
+    numpy. Scales keep the attention scores and the logits spread, so the
+    probabilities are peaked enough for the argmax check to mean something."""
+    rng = np.random.default_rng(seed)
+    arg_shapes, _, _ = symbol.infer_shape(**input_shapes)
+    weights = {}
+    for name, shape in zip(symbol.list_arguments(), arg_shapes):
+        if name in input_shapes:
+            continue
+        z = rng.standard_normal(shape, dtype=np.float32)
+        if name.endswith("_gamma"):
+            w = 1.0 + 0.1 * z
+        elif name.endswith(("_beta", "_bias")):
+            w = 0.02 * z
+        elif name == "tok_embed_weight":
+            w = z
+        elif name == "transformer_pos_weight":
+            w = 0.1 * z
+        elif name == "head_weight":
+            w = 0.125 * z
+        else:
+            w = 0.03 * z
+        weights[name] = w.astype(np.float32)
+    return weights
+
+
+def lm_predictor(mx, layers, batch, weights, ctx):
+    symbol = mx.models.transformer_lm.get_symbol(
+        vocab_size=VOCAB, num_layers=layers, hidden=HIDDEN, heads=HEADS,
+        seq_len=SEQ)
+    shapes = {"data": (batch, SEQ), "softmax_label": (batch, SEQ)}
+    names = [n for n in symbol.list_arguments() if n not in shapes]
+    arg, aux = mx.convert.params_from_numpy(
+        {n: weights[n] for n in names}, {}, ctx)
+    return mx.Predictor.from_arrays(symbol, arg, aux, shapes, ctx=ctx)
+
+
+def phase_slice(mx, layers, seed):
+    import torch
+
+    from mxnet_tpu_torch.ops.flash_attention import flash_attention
+
+    print(f"phase 4: the slice ({layers} layers, batch {BATCH}, T {SEQ}, "
+          f"vocab {VOCAB}, {REQUESTS} requests)", flush=True)
+    symbol = mx.models.transformer_lm.get_symbol(
+        vocab_size=VOCAB, num_layers=layers, hidden=HIDDEN, heads=HEADS,
+        seq_len=SEQ)
+    shapes = {"data": (BATCH, SEQ), "softmax_label": (BATCH, SEQ)}
+    t0 = time.perf_counter()
+    weights = make_weights(symbol, shapes, seed)
+    n_params = sum(w.size for w in weights.values())
+    pred = lm_predictor(mx, layers, BATCH, weights, mx.gpu(0))
+    torch.cuda.synchronize()
+    print(f"  {n_params / 1e6:.1f} M parameters; weights made and bound in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    check(pred.output_shapes == [(BATCH * SEQ, VOCAB)],
+          f"output shape {pred.output_shapes} == [({BATCH * SEQ}, {VOCAB})]")
+
+    rng = np.random.default_rng(seed + 1)
+    batches = [rng.integers(0, VOCAB, (BATCH, SEQ)).astype(np.float32)
+               for _ in range(REQUESTS)]
+    flash_attention.launches = 0
+    request_ms = []
+    for x in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pred.forward(data=x)
+        probs = pred.get_output_nd(0).data
+        torch.cuda.synchronize()
+        request_ms.append((time.perf_counter() - t0) * 1e3)
+        check(tuple(probs.shape) == (BATCH * SEQ, VOCAB),
+              f"probs shape {tuple(probs.shape)}")
+        check(bool(torch.isfinite(probs).all()), "probs all finite")
+        row_err = float((probs.sum(dim=1) - 1).abs().max())
+        check(row_err <= 1e-4, f"rows sum to 1 within 1e-4 ({row_err:.2e})")
+    launches = flash_attention.launches
+    check(launches == layers * REQUESTS,
+          f"flash kernel launched {launches} == {layers} x {REQUESTS} times")
+    steady = float(np.median(request_ms[1:]))
+    out = {"layers": layers, "request_ms": request_ms,
+           "steady_request_ms": steady,
+           "tokens_per_s": BATCH * SEQ / (steady / 1e3),
+           "launches": launches,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    print("  " + json.dumps(out), flush=True)
+    del pred, probs
+    torch.cuda.empty_cache()
+    return out, weights
+
+
+def phase_card_vs_cpu(mx, weights, seed):
+    import torch
+
+    from mxnet_tpu_torch.ops.flash_attention import flash_attention
+
+    print("phase 5: card vs CPU at depth 2 (batch 1, T 2048)", flush=True)
+    x = np.random.default_rng(seed + 2).integers(
+        0, VOCAB, (1, SEQ)).astype(np.float32)
+    outs, launches = {}, {}
+    for label, ctx in (("gpu", mx.gpu(0)), ("cpu", mx.cpu())):
+        pred = lm_predictor(mx, 2, 1, weights, ctx)
+        flash_attention.launches = 0
+        pred.forward(data=x)
+        outs[label] = pred.get_output(0)
+        launches[label] = flash_attention.launches
+        del pred
+    torch.cuda.empty_cache()
+    check(launches == {"gpu": 2, "cpu": 0},
+          f"flash kernel launched {launches['gpu']} == 2 times on the card "
+          f"and {launches['cpu']} == 0 on the CPU")
+    err = float(np.abs(outs["gpu"] - outs["cpu"]).max())
+    # log-probabilities hold every probability, the small ones too, to a
+    # relative tolerance; underflows clamp alike on both sides
+    tiny = np.finfo(np.float32).tiny
+    log_err = float(np.abs(np.log(np.maximum(outs["gpu"], tiny))
+                           - np.log(np.maximum(outs["cpu"], tiny))).max())
+    agree = float((outs["gpu"].argmax(1) == outs["cpu"].argmax(1)).mean())
+    print(f"  max prob {float(outs['cpu'].max()):.3f}; max abs err "
+          f"{err:.3g}; max abs log-prob err {log_err:.3g}; argmax "
+          f"agreement {agree:.5f}", flush=True)
+    check(err <= 1e-4, f"card vs CPU max abs err {err:.3g} <= 1e-4")
+    check(log_err <= 1e-3,
+          f"card vs CPU max abs log-prob err {log_err:.3g} <= 1e-3")
+    check(agree >= 0.999, f"argmax agreement {agree:.5f} >= 0.999")
+    return {"max_abs_err": err, "max_abs_log_err": log_err,
+            "argmax_agreement": agree, "launches": launches}
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+
+    import torch
+
+    import mxnet_tpu_torch as mx
+
+    t_start = time.perf_counter()
+    card = phase_device()
+    build_s = phase_build()
+    cases = phase_kernel_vs_plain(args.seed)
+    slice_out, weights = phase_slice(mx, LAYERS, args.seed)
+    parity = phase_card_vs_cpu(mx, weights, args.seed)
+
+    main_case = cases["slice_fp32_causal"]
+    kernels = [{
+        "name": "flash_attention_fwd",
+        "route": "cuda",
+        "source": "mxnet_tpu_torch/csrc/flash_attention_fwd.cu",
+        "replaces": "mxnet_tpu/ops/flash_attention.py:47",
+        "launches": slice_out["launches"],
+        "max_abs_err": main_case["max_abs_err"],
+        "ms": main_case["ms"],
+        "plain_ms": main_case["plain_ms"],
+        "bound_ms": main_case["bound_ms"],
+        "bound_by": main_case["bound_by"],
+        "library_ms": main_case["library_ms"],
+    }]
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
+        json.dump({"card": card, "build_s": build_s, "cases": cases,
+                   "slice": slice_out, "card_vs_cpu": parity,
+                   "kernels": kernels,
+                   "seconds": time.perf_counter() - t_start}, f, indent=1)
+    print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(card)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

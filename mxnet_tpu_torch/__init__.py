@@ -1,0 +1,30 @@
+"""mxnet_tpu_torch: the PyTorch and CUDA port of mxnet_tpu.
+
+The same public names as ``mxnet_tpu`` (``nd``, ``sym``, ``Predictor``,
+contexts), over ``torch.Tensor``s. Entry points run on ``gpu(0)`` unless the
+caller passes ``mx.cpu()``; importing the package does not initialise CUDA.
+Kernels that the JAX package wrote in Pallas are hand-written CUDA here
+(``csrc/``), built at first use.
+"""
+from __future__ import annotations
+
+__version__ = "0.1.0"
+
+from .base import MXNetError
+from .context import Context, cpu, gpu, current_context
+from .attribute import AttrScope
+from .name import NameManager, Prefix
+
+from . import ndarray
+from . import nd
+from .ndarray import NDArray
+
+from . import symbol
+from . import symbol as sym
+from .symbol import Symbol, Variable
+from . import executor
+from .executor import Executor
+from . import predictor
+from .predictor import Predictor
+from . import convert
+from . import models

@@ -1,0 +1,123 @@
+"""Neural-network layer operators (reference: mxnet_tpu/ops/nn.py), the subset
+that the transformer LM's inference graph reaches. Matrix products go to
+``torch.nn.functional.linear`` (cuBLAS on the card), as the reference leaves
+them to XLA. Forward only: the loss layers' backward waits for the training
+slice.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from .registry import register_op
+
+
+# ---------------------------------------------------------------------------
+# FullyConnected (reference: src/operator/fully_connected-inl.h:46-134)
+
+
+def _fc_infer(attrs, shapes):
+    data = shapes.get("data")
+    if data is not None:
+        in_dim = int(np.prod(data[1:]))
+        nh = int(attrs["num_hidden"])
+        shapes.setdefault("weight", (nh, in_dim))
+        if not attrs.get("no_bias", False):
+            shapes.setdefault("bias", (nh,))
+    return shapes
+
+
+@register_op(
+    "FullyConnected",
+    inputs=lambda attrs: ["data", "weight"] if attrs.get("no_bias", False) else ["data", "weight", "bias"],
+    infer_param_shapes=_fc_infer,
+)
+def _fully_connected(ctx, attrs, data, weight, bias=None):
+    x = data.reshape(data.shape[0], -1) if data.dim() > 2 else data
+    return F.linear(x, weight, bias)
+
+
+# ---------------------------------------------------------------------------
+# Activations
+
+
+@register_op("Activation")
+def _activation(ctx, attrs, data):
+    act = attrs.get("act_type", "relu")
+    if act == "relu":
+        return torch.relu(data)
+    if act == "sigmoid":
+        return torch.sigmoid(data)
+    if act == "tanh":
+        return torch.tanh(data)
+    if act == "softrelu":
+        return F.softplus(data)
+    raise ValueError(f"unknown act_type {act}")
+
+
+# ---------------------------------------------------------------------------
+# LayerNorm
+
+
+def _ln_infer(attrs, shapes):
+    d = shapes.get("data")
+    if d is not None:
+        c = d[int(attrs.get("axis", -1))]
+        shapes.setdefault("gamma", (c,))
+        shapes.setdefault("beta", (c,))
+    return shapes
+
+
+@register_op("LayerNorm", inputs=("data", "gamma", "beta"),
+             infer_param_shapes=_ln_infer)
+def _layer_norm(ctx, attrs, data, gamma, beta):
+    """Normalize over the last (or given) axis; stats in fp32."""
+    eps = float(attrs.get("eps", 1e-5))
+    axis = int(attrs.get("axis", -1))
+    x32 = data.float()
+    mean = x32.mean(dim=axis, keepdim=True)
+    var = x32.var(dim=axis, unbiased=False, keepdim=True)
+    out = (x32 - mean) * torch.rsqrt(var + eps)
+    shape = [1] * data.dim()
+    shape[axis] = data.shape[axis]
+    out = out * gamma.float().reshape(shape) + beta.float().reshape(shape)
+    return out.to(data.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Embedding (reference: src/operator/tensor/indexing_op.cc Embedding)
+
+
+def _embed_infer(attrs, shapes):
+    shapes.setdefault("weight", (int(attrs["input_dim"]), int(attrs["output_dim"])))
+    return shapes
+
+
+@register_op("Embedding", inputs=("data", "weight"), infer_param_shapes=_embed_infer)
+def _embedding(ctx, attrs, data, weight):
+    """Token ids may arrive as floats (Predictor inputs are float32); they
+    are cast to integers, as the reference casts to int32."""
+    return F.embedding(data.long(), weight)
+
+
+# ---------------------------------------------------------------------------
+# SoftmaxOutput (reference: src/operator/softmax_output-inl.h)
+
+
+def _softmax_label_infer(attrs, shapes):
+    d = shapes.get("data")
+    if d is not None:
+        multi = bool(attrs.get("multi_output", False)) or len(d) > 2
+        shapes.setdefault("label", (d[0],) + (tuple(d[2:]) if multi else ()))
+    return shapes
+
+
+@register_op("SoftmaxOutput", inputs=("data", "label"), alias=("Softmax",),
+             infer_param_shapes=_softmax_label_infer)
+def _softmax_output(ctx, attrs, data, label):
+    """Forward softmax in fp32 over the class axis; the label is read only
+    by the backward, which waits for the training slice."""
+    multi = bool(attrs.get("multi_output", False))
+    axis = 1 if (multi or data.dim() > 2) else -1
+    return torch.softmax(data.float(), dim=axis)

@@ -1,0 +1,135 @@
+"""Operator registry: ops as functions over ``torch.Tensor``s with declared
+metadata (reference: mxnet_tpu/ops/registry.py, the same contract).
+
+An op is ``fn(ctx, attrs, *inputs) -> outputs``. Output shapes are not
+declared per op: :mod:`mxnet_tpu_torch.symbol` runs the body on ``meta``
+tensors, which carry shape and dtype and no data, where the reference runs
+abstract evaluation. Only *parameter* shapes (weights inferred from the data
+shape and attrs, e.g. FullyConnected's ``num_hidden``) need a per-op
+``infer_param_shapes`` rule, because evaluation cannot run backward. Ops with
+aux states return ``(outputs, new_aux)``.
+"""
+from __future__ import annotations
+
+import ast
+from dataclasses import dataclass, field
+from typing import Callable, Sequence
+
+from ..base import MXNetError
+
+__all__ = ["OpCtx", "OpDef", "register_op", "get_op", "list_ops", "coerce_attrs"]
+
+
+@dataclass
+class OpCtx:
+    """Execution context threaded into op bodies.
+
+    ``is_train`` mirrors the reference's ``ctx.is_train`` (OpContext,
+    include/mxnet/operator.h:46); ``rng`` is an explicit ``torch.Generator``
+    for ops that draw random numbers; ``mesh`` is the device mesh the
+    enclosing program is partitioned over (None off mesh).
+    """
+
+    is_train: bool = False
+    rng: object | None = None
+    mesh: object | None = None
+
+
+@dataclass
+class OpDef:
+    name: str
+    fn: Callable  # fn(ctx: OpCtx, attrs: dict, *inputs) -> out | tuple | (outs, new_aux)
+    input_names: Callable[[dict], list[str]]
+    aux_names: Callable[[dict], list[str]]
+    num_outputs: Callable[[dict], int]
+    infer_param_shapes: Callable | None = None  # (attrs, shapes: dict[str, tuple|None]) -> dict
+    attr_defaults: dict = field(default_factory=dict)
+    alias: Sequence[str] = ()
+
+    def normalized_call(self, ctx, attrs, inputs, aux):
+        """Run the body; always return (list_of_outputs, list_of_new_aux)."""
+        out = self.fn(ctx, attrs, *inputs, *aux)
+        n_aux = len(self.aux_names(attrs))
+        if n_aux:
+            outs, new_aux = out
+            outs = list(outs) if isinstance(outs, (tuple, list)) else [outs]
+            return outs, list(new_aux)
+        outs = list(out) if isinstance(out, (tuple, list)) else [out]
+        return outs, []
+
+
+_OPS: dict[str, OpDef] = {}
+
+
+def _const(value):
+    return lambda attrs: value
+
+
+def register_op(
+    name,
+    inputs=("data",),
+    aux=(),
+    num_outputs=1,
+    infer_param_shapes=None,
+    attr_defaults=None,
+    alias=(),
+):
+    """Decorator registering an op body.
+
+    `inputs` / `aux` / `num_outputs` may be static values or callables of the
+    attr dict (the reference's variable-arity ops, e.g. Concat's ``num_args``).
+    """
+
+    def _do(fn):
+        op = OpDef(
+            name=name,
+            fn=fn,
+            input_names=inputs if callable(inputs) else _const(list(inputs)),
+            aux_names=aux if callable(aux) else _const(list(aux)),
+            num_outputs=num_outputs if callable(num_outputs) else _const(num_outputs),
+            infer_param_shapes=infer_param_shapes,
+            attr_defaults=attr_defaults or {},
+            alias=alias,
+        )
+        _OPS[name] = op
+        for a in alias:
+            _OPS[a] = op
+        return fn
+
+    return _do
+
+
+def get_op(name: str) -> OpDef:
+    op = _OPS.get(name)
+    if op is None:
+        raise MXNetError(f"operator '{name}' is not registered")
+    return op
+
+
+def list_ops():
+    return sorted(_OPS)
+
+
+# -- attribute coercion -------------------------------------------------------
+# Symbol JSON serializes attrs as strings (the reference's dmlc::Parameter
+# parses them, e.g. fully_connected-inl.h:29-44); accept both native values and
+# their string forms so graphs round-trip through JSON.
+
+def coerce_attr(value):
+    if not isinstance(value, str):
+        return value
+    low = value.strip()
+    if low in ("True", "true"):
+        return True
+    if low in ("False", "false"):
+        return False
+    if low in ("None", ""):
+        return None
+    try:
+        return ast.literal_eval(low)
+    except (ValueError, SyntaxError):
+        return value
+
+
+def coerce_attrs(attrs: dict) -> dict:
+    return {k: coerce_attr(v) for k, v in attrs.items()}

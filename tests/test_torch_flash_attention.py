@@ -1,0 +1,113 @@
+"""The port's flash attention (mxnet_tpu_torch.ops.flash_attention) against
+the JAX package's Pallas kernel run in interpret mode, on the same inputs
+made with numpy. On the CPU the port's wrapper takes its plain version; the
+CUDA kernel itself is held against that plain version on the card by
+tests/test_torch_cuda_kernels.py and chip_smoke.py."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mxnet_tpu.ops.flash_attention import flash_attention as jax_flash
+from mxnet_tpu_torch import MXNetError
+from mxnet_tpu_torch import _native
+from mxnet_tpu_torch.ops import flash_attention as tfa
+
+RTOL, ATOL = 2e-5, 2e-6   # the reference's own (tests/test_flash_attention.py)
+
+
+def _inputs(seed, shapes):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(s).astype(np.float32) for s in shapes]
+
+
+def _both(q, k, v, **kw):
+    want = jax_flash(*(jnp.asarray(a) for a in (q, k, v)), interpret=True,
+                     **kw)
+    got = tfa.flash_attention(*(torch.from_numpy(a) for a in (q, k, v)), **kw)
+    return got.numpy(), np.asarray(want)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("t,block", [(16, 8), (32, 16)])
+def test_plain_matches_pallas_interpret(causal, t, block):
+    q, k, v = _inputs(0, [(2, t, 3, 8)] * 3)
+    got, want = _both(q, k, v, causal=causal, block_q=block, block_k=block)
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+
+
+def test_q_offset_matches_pallas_interpret():
+    """q_offset masks as for ring-attention K/V blocks
+    (tests/test_flash_attention.py::test_flash_q_offset_matches_ring_blocks)."""
+    q, k, v = _inputs(2, [(1, 8, 1, 4), (1, 16, 1, 4), (1, 16, 1, 4)])
+    got, want = _both(q, k, v, causal=True, block_q=8, block_k=8, q_offset=8)
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+
+
+def test_meta_tensors_give_shape_without_launch():
+    before = tfa.flash_attention.launches
+    q = torch.empty((2, 256, 4, 32), device="meta")
+    k = torch.empty((2, 300, 4, 32), device="meta")
+    out = tfa.flash_attention(q, k, k, causal=True)
+    assert out.device.type == "meta"
+    assert tuple(out.shape) == (2, 256, 4, 32) and out.dtype == q.dtype
+    assert tfa.flash_attention.launches == before
+
+
+def test_cpu_use_never_touches_library_loader(monkeypatch):
+    def refuse(name):
+        raise AssertionError(f"library loader called for {name}")
+
+    cuda_was_up = torch.cuda.is_initialized()
+    monkeypatch.setattr(_native, "load", refuse)
+    monkeypatch.setattr(_native, "build", refuse)
+    before = tfa.flash_attention.launches
+    q, k, v = (torch.from_numpy(a) for a in _inputs(3, [(1, 16, 2, 8)] * 3))
+    tfa.flash_attention(q, k, v, causal=True)
+    assert tfa.flash_attention.launches == before
+    assert torch.cuda.is_initialized() == cuda_was_up
+
+
+def test_bfloat16_output_keeps_q_dtype():
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16)
+               for a in _inputs(4, [(1, 16, 2, 8)] * 3))
+    out = tfa.flash_attention(q, k, v, causal=True)
+    assert out.dtype == torch.bfloat16
+    want = tfa.flash_attention_reference(q.float(), k.float(), v.float(),
+                                         causal=True)
+    np.testing.assert_allclose(out.float().numpy(), want.numpy(), atol=2e-2)
+
+
+@pytest.mark.parametrize("bad", ["rank", "heads", "kv", "offset"])
+def test_wrapper_rejects_bad_inputs(bad):
+    q = torch.zeros((1, 8, 2, 4))
+    k = torch.zeros((1, 8, 2, 4))
+    v = torch.zeros((1, 8, 2, 4))
+    kw = {}
+    if bad == "rank":
+        q = q[0]
+    elif bad == "heads":
+        k = torch.zeros((1, 8, 3, 4))
+    elif bad == "kv":
+        v = torch.zeros((1, 9, 2, 4))
+    else:
+        kw["q_offset"] = -1
+    with pytest.raises(MXNetError):
+        tfa.flash_attention(q, k, v, **kw)
+
+
+@pytest.mark.parametrize("flag,t_len,on_accel,want", [
+    (None, 2048, True, True), (None, 2048, False, False),
+    (None, 64, True, True), (None, 200, True, True),
+    ("0", 2048, True, True), ("1", 32, False, False),
+    ("1", 200, False, False),
+])
+def test_use_flash_rule(monkeypatch, flag, t_len, on_accel, want):
+    """The kernel runs for every tensor on the card, whatever T and
+    MXTPU_FLASH_ATTENTION (the reference's T % block rule exists only for
+    its Pallas kernel); off the card the plain version runs."""
+    if flag is None:
+        monkeypatch.delenv("MXTPU_FLASH_ATTENTION", raising=False)
+    else:
+        monkeypatch.setenv("MXTPU_FLASH_ATTENTION", flag)
+    assert tfa.use_flash(t_len, on_accel=on_accel) is want
