@@ -15,7 +15,19 @@ non-zero exit and no result line:
    requests; probabilities checked and the kernel's launches counted;
 5. card vs CPU: the same weights at depth 2 on cuda:0 (kernel, launched
    once per layer) and on the CPU (plain versions) must agree, in
-   probabilities and in log-probabilities.
+   probabilities and in log-probabilities;
+6. rtc kernel vs plain: the two user kernels compiled through NVRTC
+   (``mxnet_tpu_torch/rtc_examples.py``): axpy through ``CudaKernel`` at the
+   phase-4 logits shape and at a ragged size (exact), and SGD-momentum
+   through ``Rtc`` over the (32768, 1024) embedding (<= 1e-6), timed beside
+   their plain versions and the library call where there is one;
+7. the imperative path at full width: ``mx.random`` draws the LM's 220.3 M
+   parameters, gradients and momenta on the card; one ``mx.nd.sgd_mom_update``
+   and one ``mx.nd.adam_update`` over every parameter; the Rtc SGD-momentum
+   kernel over copies, held to the op; a chain of ``mx.nd`` ops on the
+   phase-4 log-probabilities, held to the CPU on one row block; and a
+   ``CustomOp`` that pushes the axpy kernel, imperatively and in a Symbol
+   through ``Executor.forward``. Kernel launches are counted over this run.
 
 Run from the repo root: ``python3 chip_smoke.py [--seed N]``.
 The last line of standard output is ``{"ok": true, "device": {...}}``.
@@ -34,9 +46,14 @@ import numpy as np
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 # H100 SXM peaks (NVIDIA data sheet, dense): fp32 without tensor cores,
-# bf16 on tensor cores, and HBM3 bandwidth.
+# bf16 on tensor cores.
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
-PEAK_BYTES = 3.35e12
+# HBM bandwidth by the card name nvidia-smi prints (NVIDIA data sheets:
+# H100 SXM5 80GB HBM3 3.35 TB/s, H100 PCIe 2.0 TB/s, H100 NVL 3.9 TB/s,
+# H200 4.8 TB/s); the first name found in the card's wins
+HBM_BYTES_PER_S = [("H100 PCIe", 2.0e12), ("H100 NVL", 3.9e12),
+                   ("H200", 4.8e12), ("H100", 3.35e12)]
+PEAK_BYTES = 3.35e12   # the card of phase 1 sets it (hbm_bytes_per_s)
 
 VOCAB, HIDDEN, HEADS, LAYERS, SEQ, BATCH = 32768, 1024, 16, 12, 2048, 2
 REQUESTS = 4
@@ -91,6 +108,21 @@ def attention_bound(b, t_q, t_k, h, d, causal, q_offset, dtype_name):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def hbm_bytes_per_s(card):
+    for name, rate in HBM_BYTES_PER_S:
+        if name in card:
+            return rate
+    raise CheckFailed(f"no HBM bandwidth on record for card {card!r}")
+
+
+def bytes_bound(nbytes, flops):
+    """(ms, what bounds it) for work that moves ``nbytes`` and does
+    ``flops`` fp32 operations."""
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = flops / PEAK_FLOPS["float32"] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 # ------------------------------------------------------------------ phases
 
 def phase_device():
@@ -106,6 +138,10 @@ def phase_device():
     card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 \
         and smi.stdout.strip() else "nvidia-smi unavailable"
     print(card, flush=True)
+    global PEAK_BYTES
+    PEAK_BYTES = hbm_bytes_per_s(card)
+    print(f"  HBM {PEAK_BYTES / 1e12:.2f} TB/s (data sheet, by name)",
+          flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(f"  torch {torch.__version__} cuda {torch.version.cuda}; "
@@ -283,9 +319,10 @@ def phase_slice(mx, layers, seed):
            "launches": launches,
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
     print("  " + json.dumps(out), flush=True)
+    last_probs = probs.clone()
     del pred, probs
     torch.cuda.empty_cache()
-    return out, weights
+    return out, weights, last_probs
 
 
 def phase_card_vs_cpu(mx, weights, seed):
@@ -326,6 +363,259 @@ def phase_card_vs_cpu(mx, weights, seed):
             "argmax_agreement": agree, "launches": launches}
 
 
+def timed(fn):
+    """(result, host ms) of ``fn``, between two device synchronisations."""
+    import torch
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    return res, (time.perf_counter() - t) * 1e3
+
+
+def device_busy_ms(fn):
+    """Milliseconds the card spent in kernels and copies during ``fn``, from
+    the profiler's device-side events (None if it records none)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
+            as prof:
+        fn()
+        torch.cuda.synchronize()
+    # host-side op entries also carry the device time of what they
+    # launched; count only the device's own events
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA)
+    return us / 1e3 if us > 0 else None
+
+
+def phase_rtc_vs_plain(seed):
+    """The user kernels through NVRTC against their plain versions."""
+    import torch
+
+    from mxnet_tpu_torch import rtc
+    from mxnet_tpu_torch import rtc_examples as ex
+
+    print("phase 6: rtc kernel vs plain", flush=True)
+    print(f"  NVRTC {rtc.nvrtc_version()}, target {rtc.ARCH}", flush=True)
+    g = torch.Generator(device="cuda").manual_seed(seed + 6)
+    results = {}
+    axpy = ex.axpy_kernel("float32")
+    for name, shape in (("axpy_logits_fp32", (BATCH * SEQ, VOCAB)),
+                        ("axpy_ragged_fp32", (1000003,))):
+        x = torch.randn(shape, generator=g, device="cuda")
+        y = torch.randn(shape, generator=g, device="cuda")
+        got = axpy(x, y)
+        torch.cuda.synchronize()
+        err = float((got - ex.axpy_reference(x, y)).abs().max())
+        n = x.numel()
+        bound_ms, bound_by = bytes_bound(3 * 4 * n, 2 * n)
+        row = {"case": name, "shape": list(shape), "dtype": "float32",
+               "max_abs_err": err, "tol": 0.0,
+               "compile_s": axpy.compile_s,
+               "ms": time_cuda(lambda: axpy(x, y)),
+               "plain_ms": time_cuda(lambda: ex.axpy_reference(x, y)),
+               # yardstick only: one library call for 2x + y
+               "library_ms": time_cuda(lambda: torch.add(y, x, alpha=2.0)),
+               "bound_ms": bound_ms, "bound_by": bound_by}
+        print("  " + json.dumps(row), flush=True)
+        check(err == 0.0, f"{name}: axpy exact against 2x + y (err {err})")
+        results[name] = row
+        del x, y, got
+    w, gr, m = (torch.randn((VOCAB, HIDDEN), generator=g, device="cuda")
+                for _ in range(3))
+    w2, m2 = w.clone(), m.clone()
+    sgd = ex.sgd_mom_rtc(gr, w2, m2)
+    sgd.push([gr], [w2, m2])
+    torch.cuda.synchronize()
+    want_w, want_m = ex.sgd_mom_reference(w, gr, m)
+    err = max(float((w2 - want_w).abs().max()),
+              float((m2 - want_m).abs().max()))
+    n = w.numel()
+    bound_ms, bound_by = bytes_bound(5 * 4 * n, 9 * n)
+    row = {"case": "sgd_mom_embedding_fp32", "shape": [VOCAB, HIDDEN],
+           "dtype": "float32", "max_abs_err": err, "tol": 1e-6,
+           "compile_s": sgd.compile_s,
+           "ms": time_cuda(lambda: sgd.push([gr], [w2, m2])),
+           "plain_ms": time_cuda(lambda: ex.sgd_mom_reference(w, gr, m)),
+           "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by}
+    print("  " + json.dumps(row), flush=True)
+    check(err <= 1e-6, f"sgd_mom Rtc vs sgd_mom_update max abs err "
+          f"{err:.3g} <= 1e-6")
+    results["sgd_mom_embedding_fp32"] = row
+    del w, gr, m, w2, m2, want_w, want_m
+    torch.cuda.empty_cache()
+    return results
+
+
+def _chain(mx, logp, embed):
+    """The mx.nd chain of phase 7 on (rows, VOCAB) log-probabilities and
+    the (VOCAB, HIDDEN) embedding: the scores of the first HIDDEN columns,
+    centred, against every embedding row, and what a sampler reads."""
+    h = mx.nd.slice_axis(logp, axis=1, begin=0, end=HIDDEN)
+    h = mx.nd.broadcast_sub(h, mx.nd.mean(h, axis=1, keepdims=True))
+    scores = mx.nd.dot(h, embed, transpose_b=True) * (1.0 / HIDDEN ** 0.5)
+    p = mx.nd.softmax(scores)
+    vals, idx = mx.nd.topk(p, k=8, ret_typ="both")
+    top = mx.nd.argmax(p, axis=1)
+    kth = mx.nd.slice_axis(vals, axis=1, begin=7, end=8)
+    kept = mx.nd.where(mx.nd.broadcast_greater_equal(p, kth), p,
+                       mx.nd.zeros_like(p))
+    return {"scores": scores, "p": p, "vals": vals, "idx": idx,
+            "top": top, "kept_mass": mx.nd.sum(kept, axis=1)}
+
+
+def phase_imperative(mx, weights, probs, seed):
+    """The imperative path over the LM's full parameter set."""
+    import torch
+
+    from mxnet_tpu_torch import rtc_examples as ex
+
+    print("phase 7: the imperative path at full width", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    gpu, args = mx.gpu(0), ex.SGD_MOM_ARGS
+    shapes = {n: w.shape for n, w in weights.items()}
+    n_params = sum(int(np.prod(s)) for s in shapes.values())
+    t0 = time.perf_counter()
+    mx.random.seed(seed)
+    w = {n: mx.random.normal(0.0, 0.05, s, ctx=gpu) for n, s in shapes.items()}
+    g = {n: mx.random.normal(0.0, 1.0, s, ctx=gpu) for n, s in shapes.items()}
+    m = {n: mx.random.normal(0.0, 0.01, s, ctx=gpu) for n, s in shapes.items()}
+    mx.nd.waitall()
+    out = {"params": len(shapes), "elements": n_params,
+           "draw_s": time.perf_counter() - t0}
+    check(all(a.context == gpu and a.dtype == torch.float32
+              for d in (w, g, m) for a in d.values()),
+          f"{3 * len(shapes)} arrays drawn on {gpu}, float32")
+    sample = w["tok_embed_weight"].data
+    check(abs(float(sample.std()) - 0.05) < 1e-3
+          and abs(float(sample.mean())) < 1e-3,
+          f"normal(0, 0.05) moments ({float(sample.mean()):.2e}, "
+          f"{float(sample.std()):.5f})")
+
+    # the main path's kernels, counted over this run only
+    sgd_rtc = ex.sgd_mom_rtc(g["tok_embed_weight"], w["tok_embed_weight"],
+                             m["tok_embed_weight"])
+    axpy = ex.axpy_kernel("float32")
+    sgd_rtc.launches = axpy.launches = 0
+
+    def passes(key, fn):
+        """Run a pass three times: the first (the caching allocator grows),
+        a steady one, and one under the profiler for the device's busy
+        time; keeps the host times and returns the steady result."""
+        first, out[key + "_first_ms"] = timed(fn)
+        del first
+        res, out[key + "_ms"] = timed(fn)
+        out[key + "_device_busy_ms"] = device_busy_ms(fn)
+        return res
+
+    new = passes("sgd_mom_update", lambda: {
+        n: mx.nd.sgd_mom_update(w[n], g[n], m[n], **args) for n in shapes})
+    copies = {n: (w[n].copy(), m[n].copy()) for n in shapes}
+    _, out["rtc_sgd_mom_pass_ms"] = timed(lambda: [
+        sgd_rtc.push([g[n]], list(copies[n])) for n in shapes])
+    out["rtc_nvrtc_compiles_s"] = sgd_rtc.compile_s
+    err = max(max(float((copies[n][0].data - new[n][0].data).abs().max()),
+                  float((copies[n][1].data - new[n][1].data).abs().max()))
+              for n in shapes)
+    out["rtc_vs_op_max_abs_err"] = err
+    check(err <= 1e-6, f"Rtc sgd_mom over {len(shapes)} parameters vs "
+          f"mx.nd.sgd_mom_update: max abs err {err:.3g} <= 1e-6")
+    # again, compiled: the pass's steady host time
+    _, out["rtc_sgd_mom_pass_steady_ms"] = timed(lambda: [
+        sgd_rtc.push([g[n]], list(copies[n])) for n in shapes])
+    del copies, new
+    mean = {n: mx.nd.zeros(s, gpu) for n, s in shapes.items()}
+    var = {n: mx.nd.zeros(s, gpu) for n, s in shapes.items()}
+    adam_args = dict(lr=1e-3, beta1=0.9, beta2=0.999, epsilon=1e-8, wd=1e-4,
+                     rescale_grad=0.5, clip_gradient=1.0)
+    adam = passes("adam_update", lambda: {
+        n: mx.nd.adam_update(w[n], g[n], mean[n], var[n], **adam_args)
+        for n in shapes})
+    check(all(bool(torch.isfinite(a.data).all())
+              for outs in adam.values() for a in outs),
+          "adam_update outputs all finite")
+    small = "layer0_ln1_gamma" if "layer0_ln1_gamma" in shapes else \
+        min(shapes, key=lambda n: int(np.prod(shapes[n])))
+    cpu_outs = mx.nd.adam_update(
+        *(d[small].as_in_context(mx.cpu()) for d in (w, g, mean, var)),
+        **adam_args)
+    adam_err = max(float(np.abs(a.asnumpy() - b.asnumpy()).max())
+                   for a, b in zip(adam[small], cpu_outs))
+    check(adam_err <= 1e-6, f"adam_update on {small}: card vs CPU max abs "
+          f"err {adam_err:.3g} <= 1e-6")
+    del adam, mean, var, g, m
+
+    # a chain of mx.nd ops on the phase-4 log-probabilities (4096, 32768)
+    logp = mx.nd.log(mx.nd.maximum(mx.nd.NDArray(probs), 1e-30))
+    embed = w["tok_embed_weight"]
+    chain = passes("chain", lambda: _chain(mx, logp, embed))
+    rows = 64
+    ref = _chain(mx, logp.slice(0, rows).as_in_context(mx.cpu()),
+                 embed.as_in_context(mx.cpu()))
+    errs = {k: float(np.abs(chain[k].slice(0, rows).asnumpy()
+                            - ref[k].asnumpy()).max())
+            for k in ("scores", "p", "vals", "kept_mass")}
+    agree = float(np.mean(chain["top"].slice(0, rows).asnumpy()
+                          == ref["top"].asnumpy()))
+    idx_agree = float(np.mean(chain["idx"].slice(0, rows).asnumpy()
+                              == ref["idx"].asnumpy()))
+    out.update(chain_max_abs_err=errs, chain_argmax_agreement=agree,
+               chain_topk_index_agreement=idx_agree)
+    print(f"  chain card vs CPU on rows 0-{rows - 1}: {errs}; argmax "
+          f"agreement {agree}, top-8 index agreement {idx_agree}",
+          flush=True)
+    check(all(chain[k].context == mx.gpu(0) for k in chain),
+          "chain outputs on the card")
+    check(errs["scores"] <= 1e-3 and errs["p"] <= 1e-6
+          and errs["vals"] <= 1e-6 and errs["kept_mass"] <= 1e-5,
+          "chain card vs CPU: scores <= 1e-3, probabilities <= 1e-6, "
+          "kept mass <= 1e-5")
+    check(agree >= 0.98 and idx_agree >= 0.95,
+          f"chain argmax agreement {agree} >= 0.98, top-8 indices "
+          f"{idx_agree} >= 0.95")
+    check(bool(torch.isfinite(chain["kept_mass"].data).all()),
+          "chain outputs finite")
+    del chain, ref, logp
+
+    # a CustomOp whose forward pushes the axpy kernel
+    class Axpy(mx.operator.CustomOp):
+        def forward(self, is_train, req, in_data, out_data, aux):
+            self.assign(out_data[0], req[0], axpy.push(in_data))
+
+    @mx.operator.register("chip_smoke_axpy")
+    class AxpyProp(mx.operator.CustomOpProp):
+        def list_arguments(self):
+            return ["x", "y"]
+
+        def create_operator(self, ctx, in_shapes, in_dtypes):
+            return Axpy()
+
+    x, y = w["head_weight"], embed
+    want = ex.axpy_reference(x.data, y.data)
+    imperative = mx.nd.Custom(x, y, op_type="chip_smoke_axpy")
+    symbol = mx.sym.Custom(mx.sym.Variable("x"), mx.sym.Variable("y"),
+                           op_type="chip_smoke_axpy")
+    (graph,) = symbol.bind(gpu, {"x": x, "y": y}).forward()
+    torch.cuda.synchronize()
+    check(torch.equal(imperative.data, want) and torch.equal(graph.data, want),
+          "CustomOp pushing the axpy kernel: imperative and Executor.forward "
+          "equal 2x + y")
+    out["launches"] = {"rtc_sgd_mom": sgd_rtc.launches,
+                       "rtc_axpy": axpy.launches}
+    check(sgd_rtc.launches == 2 * len(shapes) and axpy.launches == 2,
+          f"kernel launches on this path: sgd_mom {sgd_rtc.launches} == "
+          f"2 x {len(shapes)}, axpy {axpy.launches} == 2")
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    print("  " + json.dumps(out), flush=True)
+    del w, imperative, graph
+    torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -339,8 +629,10 @@ def main(argv=None):
     card = phase_device()
     build_s = phase_build()
     cases = phase_kernel_vs_plain(args.seed)
-    slice_out, weights = phase_slice(mx, LAYERS, args.seed)
+    slice_out, weights, probs = phase_slice(mx, LAYERS, args.seed)
     parity = phase_card_vs_cpu(mx, weights, args.seed)
+    rtc_cases = phase_rtc_vs_plain(args.seed)
+    imperative = phase_imperative(mx, weights, probs, args.seed)
 
     main_case = cases["slice_fp32_causal"]
     kernels = [{
@@ -356,10 +648,21 @@ def main(argv=None):
         "bound_by": main_case["bound_by"],
         "library_ms": main_case["library_ms"],
     }]
+    for name, case in (("rtc_axpy", "axpy_logits_fp32"),
+                       ("rtc_sgd_mom", "sgd_mom_embedding_fp32")):
+        row = rtc_cases[case]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "mxnet_tpu_torch/rtc_examples.py",
+            "replaces": "mxnet_tpu/rtc.py:41",
+            "launches": imperative["launches"][name],
+            **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                   "bound_ms", "bound_by", "library_ms")}})
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "build_s": build_s, "cases": cases,
                    "slice": slice_out, "card_vs_cpu": parity,
+                   "rtc_cases": rtc_cases, "imperative": imperative,
                    "kernels": kernels,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)

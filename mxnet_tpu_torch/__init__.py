@@ -3,21 +3,27 @@
 The same public names as ``mxnet_tpu`` (``nd``, ``sym``, ``Predictor``,
 contexts), over ``torch.Tensor``s. Entry points run on ``gpu(0)`` unless the
 caller passes ``mx.cpu()``; importing the package does not initialise CUDA.
-Kernels that the JAX package wrote in Pallas are hand-written CUDA here
-(``csrc/``), built at first use.
+Kernels that the JAX package wrote in Pallas are hand-written CUDA here:
+``csrc/`` built with nvcc at first use, and users' own kernels compiled at
+run time through NVRTC (``rtc``).
 """
 from __future__ import annotations
 
 __version__ = "0.1.0"
 
 from .base import MXNetError
-from .context import Context, cpu, gpu, current_context
+from .context import Context, cpu, gpu, current_context, num_gpus
 from .attribute import AttrScope
 from .name import NameManager, Prefix
 
 from . import ndarray
+from . import operator  # registers Custom before nd/sym list the ops
+from .operator import CustomOp, CustomOpProp, register as register_custom_op
 from . import nd
 from .ndarray import NDArray
+from . import random
+from . import storage
+from . import rtc
 
 from . import symbol
 from . import symbol as sym

@@ -1,7 +1,8 @@
 """Device contexts mapped onto ``torch.device``s.
 
 The reference's ``Context{dev_type, dev_id}`` names a CUDA device or the CPU.
-Here ``gpu(i)`` is ``torch.device("cuda", i)`` and ``cpu()`` the host. The
+Here ``gpu(i)`` is ``torch.device("cuda", i)`` and ``cpu()`` the host
+(``cpu_pinned`` too: pinning is a property of a host allocation). The
 default context is ``gpu(0)``: the port's entry points run on the card unless
 the caller passes ``mx.cpu()``. Asking for a CUDA device where there is none
 raises; nothing falls back to the CPU. Building a Context does not touch CUDA,
@@ -13,14 +14,14 @@ import threading
 
 from .base import MXNetError
 
-__all__ = ["Context", "cpu", "gpu", "current_context"]
+__all__ = ["Context", "cpu", "gpu", "current_context", "num_gpus"]
 
 
 class Context:
     """A device context. Usable as a ``with`` block to set the default device."""
 
-    devtype2str = {1: "cpu", 2: "gpu"}
-    devstr2type = {"cpu": 1, "gpu": 2}
+    devtype2str = {1: "cpu", 2: "gpu", 3: "cpu_pinned"}
+    devstr2type = {"cpu": 1, "gpu": 2, "cpu_pinned": 3}
     _default = threading.local()
 
     def __init__(self, device_type, device_id: int = 0):
@@ -65,7 +66,7 @@ class Context:
         device that this host does not have."""
         import torch
 
-        if self.device_type == "cpu":
+        if self.device_type in ("cpu", "cpu_pinned"):
             return torch.device("cpu")
         if not torch.cuda.is_available():
             raise MXNetError(
@@ -84,6 +85,14 @@ def cpu(device_id: int = 0) -> Context:
 
 def gpu(device_id: int = 0) -> Context:
     return Context("gpu", device_id)
+
+
+def num_gpus() -> int:
+    """CUDA devices on this host (the reference's ``num_tpus``); does not
+    initialise CUDA."""
+    import torch
+
+    return torch.cuda.device_count()
 
 
 def context_of(device) -> Context:

@@ -57,7 +57,7 @@ class Executor:
             if k not in self.arg_dict:
                 raise MXNetError(f"forward: unknown argument {k}")
             self.arg_dict[k][:] = v
-        op_ctx = OpCtx(is_train=False)
+        op_ctx = OpCtx(is_train=False, device=self._ctx.torch_device)
         vals = {}
         with torch.inference_mode():
             for node in self._topo:

@@ -27,12 +27,15 @@ class OpCtx:
     ``is_train`` mirrors the reference's ``ctx.is_train`` (OpContext,
     include/mxnet/operator.h:46); ``rng`` is an explicit ``torch.Generator``
     for ops that draw random numbers; ``mesh`` is the device mesh the
-    enclosing program is partitioned over (None off mesh).
+    enclosing program is partitioned over (None off mesh); ``device`` is the
+    ``torch.device`` on which ops with no inputs create their result (None:
+    the current context's).
     """
 
     is_train: bool = False
     rng: object | None = None
     mesh: object | None = None
+    device: object | None = None
 
 
 @dataclass

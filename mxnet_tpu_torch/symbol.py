@@ -195,7 +195,8 @@ class Symbol:
                 vals[id(node)] = [None] * node.num_outputs()
                 continue
             try:
-                outs, _ = op.normalized_call(OpCtx(), attrs, ins, aux)
+                outs, _ = op.normalized_call(
+                    OpCtx(device=torch.device("meta")), attrs, ins, aux)
             except Exception as e:
                 raise MXNetError(
                     f"shape inference failed for op {op.name} with shapes "

@@ -56,3 +56,168 @@ def test_full_attention_launches_kernel_at_any_t(monkeypatch, flag, t):
     assert tfa.flash_attention.launches == before + 1
     want = tfa.flash_attention_reference(q, k, v, causal=True)
     assert float((got - want).abs().max()) <= 1e-4
+
+
+# -- runtime-compiled user kernels (mxnet_tpu_torch.rtc) ---------------------
+
+def _cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and NVRTC; runs on the card")
+    return torch.Generator(device="cuda").manual_seed(0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(512, 384), (1000003,)])
+def test_rtc_axpy_cuda_kernel_exact(dtype, shape):
+    """axpy through CudaKernel equals its plain version exactly (one
+    rounding of 2x + y either way), at a ragged size too."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import rtc_examples as ex
+
+    g = _cuda()
+    tdt = getattr(torch, dtype)
+    x = torch.randn(shape, generator=g, device="cuda").to(tdt)
+    y = torch.randn(shape, generator=g, device="cuda").to(tdt)
+    k = ex.axpy_kernel(dtype)
+    out = k.push([mx.nd.NDArray(x), mx.nd.NDArray(y)])
+    torch.cuda.synchronize()
+    assert k.launches == 1
+    assert out.context == mx.gpu(0) and out.dtype == tdt
+    assert out.shape == tuple(shape)
+    assert torch.equal(out.data, ex.axpy_reference(x, y))
+
+
+@pytest.mark.gpu
+def test_rtc_explicit_grid_and_block():
+    from mxnet_tpu_torch import rtc_examples as ex
+
+    g = _cuda()
+    x = torch.randn(100003, generator=g, device="cuda")
+    y = torch.randn(100003, generator=g, device="cuda")
+    k = ex.axpy_kernel()
+    for grid, block in (((7,), (128,)), ((1, 1, 1), (1024, 1, 1)),
+                        ((4000,), (32,))):
+        out = k(x, y, grid_dims=grid, block_dims=block)
+        torch.cuda.synchronize()
+        assert torch.equal(out, ex.axpy_reference(x, y))
+    assert k.launches == 3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rtc_sgd_mom_matches_op(dtype):
+    """The Rtc SGD-momentum kernel against the sgd_mom_update op body: bit
+    for bit in fp32 (contraction off, same rounding points); in bf16 within
+    one bf16 rounding of the fp32 math on the same rounded inputs."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import rtc_examples as ex
+
+    g = _cuda()
+    tdt = getattr(torch, dtype)
+    w, gr, m = (torch.randn((3000, 257), generator=g, device="cuda").to(tdt)
+                for _ in range(3))
+    w_nd, m_nd = mx.nd.NDArray(w.clone()), mx.nd.NDArray(m.clone())
+    k = ex.sgd_mom_rtc(gr, w_nd, m_nd)
+    res = k.push([mx.nd.NDArray(gr)], [w_nd, m_nd])
+    torch.cuda.synchronize()
+    assert res == [w_nd, m_nd] and k.launches == 1
+    if dtype == "float32":
+        want_w, want_m = ex.sgd_mom_reference(w, gr, m)
+        assert torch.equal(w_nd.data, want_w)
+        assert torch.equal(m_nd.data, want_m)
+    else:
+        want_w, want_m = ex.sgd_mom_reference(w.float(), gr.float(),
+                                              m.float())
+        for got, want in ((w_nd.data, want_w), (m_nd.data, want_m)):
+            err = (got.float() - want).abs()
+            assert bool((err <= 2 ** -8 * want.abs() + 1e-6).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rtc_axpy_as_rtc_body(dtype):
+    """The same axpy as an MXNet-form Rtc body over in-place outputs."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import rtc_examples as ex
+
+    g = _cuda()
+    tdt = getattr(torch, dtype)
+    x = torch.randn(70001, generator=g, device="cuda").to(tdt)
+    y = torch.randn(70001, generator=g, device="cuda").to(tdt)
+    o = mx.nd.NDArray(torch.empty_like(x))
+    body = """
+  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < o_size)
+    o[i] = mx_from_float<o_t>(2.0f * mx_to_float(x[i]) + mx_to_float(y[i]));
+"""
+    k = mx.rtc.Rtc("axpy_rtc", [("x", x), ("y", y)], [("o", o)], body)
+    k.push([x, y], [o])
+    torch.cuda.synchronize()
+    assert torch.equal(o.data, ex.axpy_reference(x, y))
+
+
+@pytest.mark.gpu
+def test_rtc_errors_raise():
+    """A compile error carries the NVRTC log; a refused launch carries its
+    CUresult; a CPU or strided tensor is refused before launch."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import rtc_examples as ex
+
+    _cuda()
+    x = torch.ones(1000, device="cuda")
+    bad = mx.rtc.CudaKernel(
+        "bad", 'extern "C" __global__ void bad(const float* x, float* o, '
+        'long long n) { o[0] = no_such_name; }')
+    with pytest.raises(mx.MXNetError, match="no_such_name"):
+        bad(x)
+    unnamed = mx.rtc.CudaKernel(
+        "mangled", '__global__ void mangled(const float* x, float* o, '
+        'long long n) {}')
+    with pytest.raises(mx.MXNetError, match="mangled"):
+        unnamed(x)
+    k = ex.axpy_kernel()
+    with pytest.raises(mx.MXNetError, match="CUDA_ERROR_INVALID_VALUE"):
+        k(x, x, block_dims=(2048,))
+    with pytest.raises(mx.MXNetError, match="only on the card"):
+        k(x.cpu(), x.cpu())
+    with pytest.raises(mx.MXNetError, match="contiguous"):
+        k(x.reshape(10, 100).t(), x.reshape(10, 100).t())
+    assert k.launches == 0
+
+
+@pytest.mark.gpu
+def test_custom_op_pushes_cuda_kernel():
+    """A CustomOp whose forward pushes the axpy CudaKernel, imperatively
+    and in a one-op Symbol through Executor.forward, on the card."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import rtc_examples as ex
+
+    g = _cuda()
+    kern = ex.axpy_kernel()
+
+    class Axpy(mx.operator.CustomOp):
+        def forward(self, is_train, req, in_data, out_data, aux):
+            self.assign(out_data[0], req[0], kern.push(in_data))
+
+    @mx.operator.register("cuda_axpy_test")
+    class AxpyProp(mx.operator.CustomOpProp):
+        def list_arguments(self):
+            return ["x", "y"]
+
+        def create_operator(self, ctx, in_shapes, in_dtypes):
+            return Axpy()
+
+    x = torch.randn((64, 33), generator=g, device="cuda")
+    y = torch.randn((64, 33), generator=g, device="cuda")
+    want = ex.axpy_reference(x, y)
+    out = mx.nd.Custom(mx.nd.NDArray(x), mx.nd.NDArray(y),
+                       op_type="cuda_axpy_test")
+    assert torch.equal(out.data, want) and kern.launches == 1
+    sym = mx.sym.Custom(mx.sym.Variable("x"), mx.sym.Variable("y"),
+                        op_type="cuda_axpy_test")
+    ex_ = sym.bind(mx.gpu(0), {"x": mx.nd.NDArray(x),
+                               "y": mx.nd.NDArray(y)})
+    (res,) = ex_.forward()
+    torch.cuda.synchronize()
+    assert torch.equal(res.data, want) and kern.launches == 2
