@@ -9,10 +9,13 @@ non-zero exit and no result line:
 1. device: the card's name and power limit; TF32 off for fp32 parity;
 2. build: the kernels from ``mxnet_tpu_torch/csrc`` with nvcc (set-up);
 3. kernel vs plain: the flash-attention kernel against its plain version at
-   the main path's shape, at ragged shapes with ``q_offset``, and in bf16,
-   timed beside the plain version and a library attention call;
+   the main path's shape, at ragged shapes with ``q_offset``, at head dims
+   128 and 50 (the 4-byte copy path), and in bf16, timed beside the plain
+   version and a library attention call, with its share of the bound;
 4. the slice: a Predictor bound at data=(2, 2048) on cuda:0 answers 4
-   requests; probabilities checked and the kernel's launches counted;
+   requests; probabilities checked and the kernel's launches counted; one
+   more steady request under ``torch.profiler`` splits the device time into
+   the flash kernel, the GEMMs and the rest, beside the idle share;
 5. card vs CPU: the same weights at depth 2 on cuda:0 (kernel, launched
    once per layer) and on the CPU (plain versions) must agree, in
    probabilities and in log-probabilities;
@@ -37,6 +40,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -58,6 +62,9 @@ PEAK_BYTES = 3.35e12   # the card of phase 1 sets it (hbm_bytes_per_s)
 VOCAB, HIDDEN, HEADS, LAYERS, SEQ, BATCH = 32768, 1024, 16, 12, 2048, 2
 REQUESTS = 4
 OUT_DIR = "chiprun_out"
+# device kernels counted as matrix products in the traced request (cuBLAS
+# and CUTLASS kernel names)
+GEMM_NAME = re.compile(r"gemm|gemv", re.IGNORECASE)
 
 
 class CheckFailed(RuntimeError):
@@ -192,6 +199,10 @@ def phase_kernel_vs_plain(seed):
          torch.float32, 1e-4),
         ("ragged_fp32_noncausal_qoff", (1, 200, 3, 64), 264, False, 64,
          torch.float32, 1e-4),
+        ("d128_fp32_causal", (BATCH, SEQ, HEADS // 2, 128), SEQ, True, 0,
+         torch.float32, 1e-4),
+        ("ragged_d50_fp32_causal", (BATCH, 1500, HEADS, 50), 1500, True, 0,
+         torch.float32, 1e-4),
         ("slice_bf16_causal", (BATCH, SEQ, HEADS, HIDDEN // HEADS), SEQ,
          True, 0, torch.bfloat16, 2e-2),
     ]
@@ -223,7 +234,8 @@ def phase_kernel_vs_plain(seed):
                "q_offset": q_off, "dtype": dname, "max_abs_err": err,
                "tol": tol, "ms": ms, "plain_ms": plain_ms,
                "library_ms": library_ms, "bound_ms": bound_ms,
-               "bound_by": bound_by}
+               "bound_by": bound_by, "frac_of_bound": bound_ms / ms,
+               "vs_library": ms / library_ms if library_ms else None}
         print("  " + json.dumps(row), flush=True)
         check(np.isfinite(err) and err <= tol,
               f"{name}: max abs err {err:.3g} <= {tol}")
@@ -319,6 +331,27 @@ def phase_slice(mx, layers, seed):
            "launches": launches,
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
     print("  " + json.dumps(out), flush=True)
+
+    # one more steady request, traced (after the launch count was read)
+    traced_ms = []
+    by_name = device_ms_by_kernel(lambda: traced_ms.append(
+        timed(lambda: pred.forward(data=batches[-1]))[1]))
+    check(by_name, "the profiler recorded device events for one request")
+    flash_ms = sum(t for n, t in by_name.items() if "flash_fwd" in n)
+    gemm_ms = sum(t for n, t in by_name.items()
+                  if "flash_fwd" not in n and GEMM_NAME.search(n))
+    busy = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    out["traced_request"] = {
+        "host_ms": traced_ms[0], "device_busy_ms": busy,
+        "flash_ms": flash_ms, "gemm_ms": gemm_ms,
+        "rest_ms": busy - flash_ms - gemm_ms,
+        "idle_share": 1.0 - busy / steady,
+        "idle_share_traced": 1.0 - busy / traced_ms[0],
+        "top_kernels": [[n[:80], t] for n, t in top]}
+    print("  traced request: " + json.dumps(out["traced_request"]),
+          flush=True)
+    check(flash_ms > 0, "the traced request ran the flash kernel")
     last_probs = probs.clone()
     del pred, probs
     torch.cuda.empty_cache()
@@ -374,9 +407,9 @@ def timed(fn):
     return res, (time.perf_counter() - t) * 1e3
 
 
-def device_busy_ms(fn):
-    """Milliseconds the card spent in kernels and copies during ``fn``, from
-    the profiler's device-side events (None if it records none)."""
+def device_ms_by_kernel(fn):
+    """Milliseconds the card spent in each kernel or copy (by name) during
+    ``fn``, from the profiler's device-side events."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -387,9 +420,15 @@ def device_busy_ms(fn):
         torch.cuda.synchronize()
     # host-side op entries also carry the device time of what they
     # launched; count only the device's own events
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA)
-    return us / 1e3 if us > 0 else None
+    return {e.key: e.self_device_time_total / 1e3 for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0}
+
+
+def device_busy_ms(fn):
+    """Milliseconds the card spent in kernels and copies during ``fn``
+    (None if the profiler records none)."""
+    return sum(device_ms_by_kernel(fn).values()) or None
 
 
 def phase_rtc_vs_plain(seed):

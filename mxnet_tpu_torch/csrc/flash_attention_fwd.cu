@@ -4,9 +4,10 @@
 // (launched by _flash_fwd through pl.pallas_call). It computes the same
 // function: for each (batch, head), softmax(scale * Q K^T) V over
 // (B, T, H, D) tensors, with an optional causal mask that keeps
-// q_offset + row >= col, an online softmax (running max m, running sum l,
-// fp32 accumulator) over K/V tiles, and o / max(l, 1e-20) written in q's
-// dtype. The scores never leave the block.
+// q_offset + row >= col (a masked score is the reference's -1e30), an online
+// softmax (running max m, running sum l, fp32 accumulator) over K/V tiles,
+// and o / max(l, 1e-20) written in q's dtype. Columns past T_k score -inf
+// (weight 0). The scores never leave the block.
 //
 // Bound on an H100 SXM at the transformer LM's shape, q/k/v (2, 2048, 16, 64)
 // fp32 causal, per forward and layer: the causal pairs are
@@ -16,42 +17,86 @@
 // 3.35 TB/s that is 0.26 ms against 0.02 ms: the kernel is bound by
 // operations, not by memory.
 //
-// Design (a simple, correct first kernel):
-//   * one block of 256 threads per (64-row Q tile, batch*head); heavy causal
-//     tiles are scheduled first;
-//   * the scaled Q tile and each 64-row K and V tile are staged in shared
-//     memory as fp32, rows padded by one float so that the strided reads
-//     hit distinct banks;
-//   * each thread owns a 4x4 patch of the 64x64 score tile (rows ty+16i,
-//     columns tx+16j) and 4 x D/16 of the output accumulator, all fp32 FMA
-//     in registers; row max and row sum reduce over the 16 threads of a
-//     half-warp with shuffles;
+// fp32 design (flash_fwd_f32), laid out so that the FMA pipes, not shared
+// memory, set the pace.
+//   * one block of 128 threads (4 warps) per (Q tile, batch*head): 128 Q
+//     rows up to D=64, 64 at D=128; K/V tiles of 32 rows. The grid is
+//     (batch*head, Q tile) and Q tiles run from the last, so the first
+//     blocks the card schedules are the heaviest causal tiles of every head;
+//   * register tiling: thread (ty, tx) = (tid / 8, tid % 8) owns score rows
+//     ty + 16i (i < MI: 8, or 4 at D=128) x columns tx + 8j (j < 4), and
+//     output rows ty + 16i x columns 32g + 4tx + {0..3} (g < D/32). Q, K
+//     and V stay row-major in shared memory, rows padded by 4 floats, P
+//     row-major with rows of 40. Q K^T reads 4 consecutive d of a Q or K row
+//     with one 16-byte LDS.128; P V reads 4 consecutive keys of a P row and
+//     4 consecutive columns of a V row the same way. A warp's LDS.128
+//     touches 4 (Q, P) or 8 (K) distinct rows, whose 16-byte chunks fall in
+//     distinct banks, or 128 contiguous bytes (V): one shared wavefront
+//     each, read as a broadcast by the 8 or 4 threads that share a row. At
+//     D=64 a thread issues 12 LDS.128 per 128 FMAs in Q K^T and 16 per 256
+//     in P V: one wavefront per 10.7 and per 16 warp FMAs;
+//   * cp.async double buffering: K and V tiles go through a two-stage ring;
+//     tile n+1 is copied while tile n is computed (commit_group /
+//     wait_group, two __syncthreads per tile). Copies are 16 bytes when
+//     d % 4 == 0 and the base pointers are 16-byte aligned, else 4 bytes
+//     (the VEC template parameter, picked by
+//     ops/flash_attention.py::copy_bytes); rows past T and columns past d
+//     are zero-filled with src-size 0;
+//   * softmax: log2(e) is folded into the scale and exp2f used; the row max
+//     reduces over the 8 threads of a row with 3 shuffles per tile, the row
+//     sum stays a per-thread partial until the end; masks are applied only
+//     on tiles that cross the diagonal or T_k;
 //   * K tiles wholly above the causal diagonal are skipped: in the reference
 //     their contribution is exactly 0, because column 0 of the first tile is
 //     never masked for q_offset >= 0;
-//   * ragged T: rows past T_q are computed on zeros and not written; columns
-//     past T_k get probability 0 and zero-filled V rows.
-// What it leaves on the table: no tensor cores (wgmma), no asynchronous
-// copies (cp.async or TMA), no double buffering of K/V tiles, and scalar
-// shared-memory reads, which bound the inner products at about half the
-// fp32 FMA rate.
+//   * shared memory: Q tile, 4 K/V tiles and P: 90.1 KB at D=64 and
+//     111.6 KB at D=128 (two blocks, 8 warps an SM), 57.3 KB at D=32. The
+//     dynamic-size attribute is set once per device and instantiation, not
+//     at every launch;
+//   * head dims: D=32/64/128 instantiations; any d <= 128 runs in the
+//     smallest that holds it, the columns past d zero in shared memory.
+//   The tile sizes were chosen on the card among 64/128 Q rows and 32/64
+//   keys (mxnet_tpu_torch/tools/flash_tile_sweep.py; PERF.md).
+// Measured on an H100 SXM at 700 W: 0.54-0.58 ms at the shape above, 44-48 %
+// of the bound, against 0.70-0.72 ms for scaled_dot_product_attention
+// (chip_smoke.py, PERF.md). What stalls it further is not measured.
+// What it leaves on the table: no tensor cores (3xTF32 on wgmma or mma.sync
+// would change the bound itself), no TMA, and a P round trip through shared
+// memory.
+//
+// bf16 (flash_fwd_kernel) keeps the first, simple design until its
+// tensor-core redesign: 256 threads per 64-row Q tile, 4x4 score patches
+// from scalar shared reads, synchronous tile copies, 64-110 registers; it
+// is an order of magnitude slower than the tensor-core library call.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace {
 
 constexpr int BQ = 64;        // Q rows per block
 constexpr int BK = 64;        // K/V rows per tile
-constexpr int THREADS = 256;  // 16 x 16
+constexpr int THREADS = 256;  // 16 x 16 (bf16 kernel)
 constexpr float MASKED = -1e30f;  // the reference's masked score
+constexpr float LOG2E = 1.4426950408889634f;
 
-__device__ __forceinline__ float to_float(float x) { return x; }
+// fp32 kernel (flash_fwd_f32)
+constexpr int F_THREADS = 128;     // 16 row x 8 column groups
+constexpr int F_BK = 32;           // K/V rows per tile
+constexpr int NJ = F_BK / 8;       // score columns per thread
+constexpr int F_PAD = 4;           // floats of padding per Q/K/V row
+constexpr int P_STRIDE = F_BK + 8; // P row stride: scalar stores hit 32 banks
+// Q rows per block: 128 up to D=64 (8 rows a thread); 64 at D=128, where
+// 128 rows would not leave two blocks' shared memory on an SM
+template <int DP>
+__host__ __device__ constexpr int f32_bq() { return DP <= 64 ? 128 : 64; }
+
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
 }
@@ -208,15 +253,320 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ---------------------------------------------------------------- fp32
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Copy VEC bytes from global src to shared dst asynchronously; with
+// valid == false nothing is read and dst is zero-filled (src-size 0).
+template <int VEC>
+__device__ __forceinline__ void cp_async(float* dst, const float* src,
+                                         bool valid) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  const int n = valid ? VEC : 0;
+  if constexpr (VEC == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+                 "l"(src), "r"(n)
+                 : "memory");
+  } else {
+    static_assert(VEC == 4, "copies are 16 or 4 bytes");
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+                 "l"(src), "r"(n)
+                 : "memory");
+  }
+}
+
+// Start copying rows [row0, row0 + ROWS) of one (batch, head) of a
+// (B, T, H, D) fp32 tensor into a ROWS x (DP + F_PAD) shared tile; rows
+// past t_len and columns past d are zero-filled.
+template <int ROWS, int DP, int VEC>
+__device__ __forceinline__ void stage_tile(float* dst, const float* src,
+                                           int row0, int t_len,
+                                           int row_stride, int d) {
+  constexpr int W = VEC / 4;          // floats per copy
+  constexpr int PER_ROW = DP / W;
+  static_assert(ROWS * PER_ROW % F_THREADS == 0, "whole copies per thread");
+#pragma unroll 8
+  for (int it = 0; it < ROWS * PER_ROW / F_THREADS; ++it) {
+    const int e = it * F_THREADS + threadIdx.x;
+    const int r = e / PER_ROW;
+    const int c = (e % PER_ROW) * W;
+    const int row = row0 + r;
+    const bool ok = row < t_len && c < d;
+    cp_async<VEC>(dst + r * (DP + F_PAD) + c,
+                  ok ? src + (int64_t)row * row_stride + c : src, ok);
+  }
+}
+
+template <int DP>
+constexpr size_t f32_smem_bytes() {
+  return sizeof(float) * ((size_t)(f32_bq<DP>() + 4 * F_BK) * (DP + F_PAD) +
+                          (size_t)f32_bq<DP>() * P_STRIDE);
+}
+
+template <int DP, int VEC>
+__global__ void __launch_bounds__(F_THREADS, 2)
+flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, float* __restrict__ o, int t_q,
+              int t_k, int heads, int d, float scale_log2, int causal,
+              int q_offset) {
+  constexpr int F_BQ = f32_bq<DP>();
+  constexpr int MI = F_BQ / 16;   // score and output rows per thread
+  constexpr int DS = DP + F_PAD;  // shared row stride of Q, K, V
+  constexpr int NG = DP / 32;     // float4 output column groups per thread
+  constexpr int STAGE = 2 * F_BK * DS;
+  extern __shared__ float4 smem4[];
+  float* q_s = reinterpret_cast<float*>(smem4);  // F_BQ x DS
+  float* kv_s = q_s + F_BQ * DS;   // 2 stages of [K tile, V tile], F_BK x DS
+  float* p_s = kv_s + 2 * STAGE; // F_BQ x P_STRIDE
+
+  const int tx = threadIdx.x & 7;   // columns tx + 8j; output 32g + 4tx
+  const int ty = threadIdx.x >> 3;  // rows ty + 16i
+  const int bh = blockIdx.x;
+  const int q_tile = gridDim.y - 1 - blockIdx.y;   // heaviest causal first
+  const int b = bh / heads;
+  const int h = bh % heads;
+  const int q0 = q_tile * F_BQ;
+  const int rs = heads * d;         // row stride of (B, T, H, D)
+
+  // (b, row, h, :) lives at ((b * T + row) * H + h) * D
+  const float* q_bh = q + ((int64_t)b * t_q * heads + h) * d;
+  const float* k_bh = k + ((int64_t)b * t_k * heads + h) * d;
+  const float* v_bh = v + ((int64_t)b * t_k * heads + h) * d;
+  float* o_bh = o + ((int64_t)b * t_q * heads + h) * d;
+
+  int n_tiles = (t_k + F_BK - 1) / F_BK;
+  if (causal) {
+    // last query row of this tile, in key coordinates
+    const int last = q_offset + min(q0 + F_BQ, t_q) - 1;
+    n_tiles = min(n_tiles, last / F_BK + 1);
+  }
+
+  stage_tile<F_BQ, DP, VEC>(q_s, q_bh, q0, t_q, rs, d);
+  stage_tile<F_BK, DP, VEC>(kv_s, k_bh, 0, t_k, rs, d);
+  stage_tile<F_BK, DP, VEC>(kv_s + F_BK * DS, v_bh, 0, t_k, rs, d);
+  cp_async_commit();
+
+  float acc[MI][NG][4];
+  float m[MI], l[MI];   // l: this thread's partial row sums
+#pragma unroll
+  for (int i = 0; i < MI; ++i) {
+    m[i] = MASKED;
+    l[i] = 0.f;
+#pragma unroll
+    for (int g = 0; g < NG; ++g)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][g][e] = 0.f;
+  }
+
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    const int k0 = kt * F_BK;
+    const float* k_s = kv_s + (kt & 1) * STAGE;
+    const float* v_s = k_s + F_BK * DS;
+    cp_async_wait_all();
+    // tile kt is in for every thread, and every thread is done with
+    // tile kt - 1's stage and with p_s
+    __syncthreads();
+    if (kt + 1 < n_tiles) {
+      float* nxt = kv_s + ((kt + 1) & 1) * STAGE;
+      stage_tile<F_BK, DP, VEC>(nxt, k_bh, k0 + F_BK, t_k, rs, d);
+      stage_tile<F_BK, DP, VEC>(nxt + F_BK * DS, v_bh, k0 + F_BK, t_k, rs, d);
+      cp_async_commit();
+    }
+
+    // S = Q K^T: per 4 d, MI + NJ LDS.128 for 4 MI NJ FMAs
+    float s[MI][NJ];
+#pragma unroll
+    for (int i = 0; i < MI; ++i)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) s[i][j] = 0.f;
+#pragma unroll
+    for (int c = 0; c < DP; c += 4) {
+      float4 qv[MI];
+#pragma unroll
+      for (int i = 0; i < MI; ++i)
+        qv[i] = *reinterpret_cast<const float4*>(q_s + (ty + 16 * i) * DS + c);
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const float4 kv =
+            *reinterpret_cast<const float4*>(k_s + (tx + 8 * j) * DS + c);
+#pragma unroll
+        for (int i = 0; i < MI; ++i) {
+          s[i][j] = fmaf(qv[i].x, kv.x, s[i][j]);
+          s[i][j] = fmaf(qv[i].y, kv.y, s[i][j]);
+          s[i][j] = fmaf(qv[i].z, kv.z, s[i][j]);
+          s[i][j] = fmaf(qv[i].w, kv.w, s[i][j]);
+        }
+      }
+    }
+
+    // online softmax in the log2 domain
+    const bool edge =
+        k0 + F_BK > t_k || (causal && q_offset + q0 < k0 + F_BK - 1);
+#pragma unroll
+    for (int i = 0; i < MI; ++i) {
+      const int row = q_offset + q0 + ty + 16 * i;
+      float mx = __int_as_float(0xff800000);
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        float x = s[i][j] * scale_log2;
+        if (edge) {
+          const int col = k0 + tx + 8 * j;
+          if (col >= t_k) {
+            x = __int_as_float(0xff800000);  // -inf: not a key, weight 0
+          } else if (causal && row < col) {
+            x = MASKED;
+          }
+        }
+        s[i][j] = x;
+        mx = fmaxf(mx, x);
+      }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+      const float m_new = fmaxf(m[i], mx);
+      const float corr = exp2f(m[i] - m_new);
+      m[i] = m_new;
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const float p = exp2f(s[i][j] - m_new);
+        sum += p;
+        p_s[(ty + 16 * i) * P_STRIDE + tx + 8 * j] = p;
+      }
+      l[i] = l[i] * corr + sum;
+#pragma unroll
+      for (int g = 0; g < NG; ++g)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][g][e] *= corr;
+    }
+    __syncthreads();   // P is in
+
+    // O += P V: per 4 keys, MI + 4 NG LDS.128 for 16 MI NG FMAs
+#pragma unroll
+    for (int j = 0; j < F_BK; j += 4) {
+      float4 pv[MI];
+#pragma unroll
+      for (int i = 0; i < MI; ++i)
+        pv[i] = *reinterpret_cast<const float4*>(
+            p_s + (ty + 16 * i) * P_STRIDE + j);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+#pragma unroll
+        for (int g = 0; g < NG; ++g) {
+          const float4 vv = *reinterpret_cast<const float4*>(
+              v_s + (j + u) * DS + 32 * g + 4 * tx);
+#pragma unroll
+          for (int i = 0; i < MI; ++i) {
+            const float p = u == 0 ? pv[i].x
+                          : u == 1 ? pv[i].y
+                          : u == 2 ? pv[i].z
+                                   : pv[i].w;
+            acc[i][g][0] = fmaf(p, vv.x, acc[i][g][0]);
+            acc[i][g][1] = fmaf(p, vv.y, acc[i][g][1]);
+            acc[i][g][2] = fmaf(p, vv.z, acc[i][g][2]);
+            acc[i][g][3] = fmaf(p, vv.w, acc[i][g][3]);
+          }
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < MI; ++i) {
+    float li = l[i];
+    li += __shfl_xor_sync(0xffffffffu, li, 1);
+    li += __shfl_xor_sync(0xffffffffu, li, 2);
+    li += __shfl_xor_sync(0xffffffffu, li, 4);
+    const int r = q0 + ty + 16 * i;
+    if (r >= t_q) continue;
+    const float inv = 1.f / fmaxf(li, 1e-20f);
+    float* o_row = o_bh + (int64_t)r * rs;
+#pragma unroll
+    for (int g = 0; g < NG; ++g) {
+      const int col = 32 * g + 4 * tx;
+      if constexpr (VEC == 16) {
+        if (col < d)
+          *reinterpret_cast<float4*>(o_row + col) =
+              make_float4(acc[i][g][0] * inv, acc[i][g][1] * inv,
+                          acc[i][g][2] * inv, acc[i][g][3] * inv);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (col + e < d) o_row[col + e] = acc[i][g][e] * inv;
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------- launch
+
+// Let `kernel` use `bytes` of dynamic shared memory on the current device;
+// the attribute is set once per device and kernel (one static per
+// instantiation of the caller), not at every launch.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes,
+                       std::atomic<uint64_t>& done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const uint64_t bit = dev < 64 ? uint64_t{1} << dev : 0;
+  if (bit && (done.load(std::memory_order_acquire) & bit)) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)bytes);
+  if (err == cudaSuccess) {
+    done.fetch_or(bit, std::memory_order_release);
+  } else {
+    cudaGetLastError();   // returned here; not left for a later launch
+  }
+  return err;
+}
+
+template <int DP, int VEC>
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
+                       int batch, int t_q, int t_k, int heads, int d,
+                       float scale, int causal, int q_offset,
+                       cudaStream_t stream) {
+  static std::atomic<uint64_t> smem_set{0};
+  constexpr size_t smem = f32_smem_bytes<DP>();
+  cudaError_t err = allow_smem(flash_fwd_f32<DP, VEC>, smem, smem_set);
+  if (err != cudaSuccess) return err;
+  dim3 grid(batch * heads, (t_q + f32_bq<DP>() - 1) / f32_bq<DP>());
+  flash_fwd_f32<DP, VEC><<<grid, F_THREADS, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), t_q, t_k, heads,
+      d, scale * LOG2E, causal, q_offset);
+  return cudaGetLastError();
+}
+
+template <int VEC>
+cudaError_t dispatch_f32(const void* q, const void* k, const void* v, void* o,
+                         int batch, int t_q, int t_k, int heads, int d,
+                         float scale, int causal, int q_offset,
+                         cudaStream_t stream) {
+  if (d <= 32)
+    return launch_f32<32, VEC>(q, k, v, o, batch, t_q, t_k, heads, d, scale,
+                               causal, q_offset, stream);
+  if (d <= 64)
+    return launch_f32<64, VEC>(q, k, v, o, batch, t_q, t_k, heads, d, scale,
+                               causal, q_offset, stream);
+  return launch_f32<128, VEC>(q, k, v, o, batch, t_q, t_k, heads, d, scale,
+                              causal, q_offset, stream);
+}
+
 template <typename T, int DP>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int batch, int t_q, int t_k, int heads, int d, float scale,
                    int causal, int q_offset, cudaStream_t stream) {
+  static std::atomic<uint64_t> smem_set{0};
   const size_t smem =
       sizeof(float) * (size_t)(BQ * (DP + 1) + 2 * BK * (DP + 1) + BQ * (BK + 1));
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  cudaError_t err = allow_smem(flash_fwd_kernel<T, DP>, smem, smem_set);
   if (err != cudaSuccess) return err;
   dim3 grid((t_q + BQ - 1) / BQ, batch * heads);
   flash_fwd_kernel<T, DP><<<grid, THREADS, smem, stream>>>(
@@ -245,20 +595,33 @@ cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o,
 
 // q: (batch, t_q, heads, d), k/v: (batch, t_k, heads, d), o like q; all
 // contiguous, on the current device. dtype 0 is float32, 1 is bfloat16.
+// copy_bytes (16 or 4) is the fp32 kernel's cp.async width: 16 needs
+// d % 4 == 0 and 16-byte aligned q, k, v and o (bf16 ignores it).
 // Returns the cudaError_t of the launch (0 on success).
 extern "C" int mxtt_flash_attention_fwd(const void* q, const void* k,
                                         const void* v, void* o, int batch,
                                         int t_q, int t_k, int heads, int d,
                                         float scale, int causal, int q_offset,
-                                        int dtype, void* stream) {
+                                        int dtype, int copy_bytes,
+                                        void* stream) {
   if (batch <= 0 || t_q <= 0 || t_k <= 0 || heads <= 0 || d <= 0 || d > 128 ||
       q_offset < 0 || (dtype != 0 && dtype != 1) ||
-      (int64_t)batch * heads > 65535)
+      (int64_t)batch * heads > 65535 ||
+      (dtype == 0 && (t_q + BQ - 1) / BQ > 65535) ||
+      (copy_bytes != 16 && copy_bytes != 4))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return (int)dispatch_d<float>(q, k, v, o, batch, t_q, t_k, heads, d, scale,
-                                  causal, q_offset, s);
-  return (int)dispatch_d<__nv_bfloat16>(q, k, v, o, batch, t_q, t_k, heads, d,
-                                        scale, causal, q_offset, s);
+  if (dtype == 1)
+    return (int)dispatch_d<__nv_bfloat16>(q, k, v, o, batch, t_q, t_k, heads,
+                                          d, scale, causal, q_offset, s);
+  if (copy_bytes == 4)
+    return (int)dispatch_f32<4>(q, k, v, o, batch, t_q, t_k, heads, d, scale,
+                                causal, q_offset, s);
+  const uintptr_t any = reinterpret_cast<uintptr_t>(q) |
+                        reinterpret_cast<uintptr_t>(k) |
+                        reinterpret_cast<uintptr_t>(v) |
+                        reinterpret_cast<uintptr_t>(o);
+  if (d % 4 != 0 || any % 16 != 0) return (int)cudaErrorInvalidValue;
+  return (int)dispatch_f32<16>(q, k, v, o, batch, t_q, t_k, heads, d, scale,
+                               causal, q_offset, s);
 }

@@ -21,7 +21,8 @@ import torch
 
 from ..base import MXNetError
 
-__all__ = ["flash_attention", "flash_attention_reference", "use_flash"]
+__all__ = ["copy_bytes", "flash_attention", "flash_attention_reference",
+           "use_flash"]
 
 _KERNEL = "flash_attention_fwd"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -52,6 +53,15 @@ def flash_attention_reference(q, k, v, causal=False, scale=None, block_q=128,
                               q_offset=q_offset, scale=scale)
     out = o / l.clamp(min=1e-20).transpose(1, 2)[..., None]
     return out.to(q.dtype)
+
+
+def copy_bytes(d: int, *ptrs: int) -> int:
+    """Width in bytes of the fp32 kernel's ``cp.async`` copies for head dim
+    ``d`` and the tensors' base addresses ``ptrs``: 16 when every row of
+    ``d`` floats starts 16-byte aligned (``d % 4 == 0`` and each base
+    pointer a multiple of 16), else 4. The kernel is instantiated for both;
+    a contiguous view at a 4-byte offset (``buf[1:].view(...)``) takes 4."""
+    return 16 if d % 4 == 0 and all(p % 16 == 0 for p in ptrs) else 4
 
 
 def _check(q, k, v, q_offset):
@@ -85,22 +95,29 @@ def _check_cuda(q, k, v):
         raise MXNetError("flash_attention: batch * heads > 65535")
 
 
+def entry(lib):
+    """``mxtt_flash_attention_fwd`` of a loaded kernel library, typed for
+    ``ctypes``: (q, k, v, o, batch, t_q, t_k, heads, d, scale, causal,
+    q_offset, dtype, copy_bytes, stream) -> cudaError_t."""
+    fn = lib.mxtt_flash_attention_fwd
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
+        ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def _launch(q, k, v, causal, scale, q_offset):
     from .. import _native
 
-    lib = _native.load(_KERNEL)
-    fn = lib.mxtt_flash_attention_fwd
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = entry(_native.load(_KERNEL))
     b, t_q, h, d = q.shape
     out = torch.empty_like(q)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 b, t_q, k.shape[1], h, d, float(scale), int(bool(causal)),
-                 int(q_offset), _DTYPE_CODES[q.dtype], stream)
+        err = fn(*ptrs, b, t_q, k.shape[1], h, d, float(scale),
+                 int(bool(causal)), int(q_offset), _DTYPE_CODES[q.dtype],
+                 copy_bytes(d, *ptrs), stream)
     if err != 0:
         raise MXNetError(f"flash_attention: CUDA kernel launch failed "
                          f"(cudaError_t {err})")
@@ -114,7 +131,7 @@ def flash_attention(q, k, v, causal=False, scale=None, block_q=128,
 
     Same signature as the reference minus ``interpret``. ``block_q`` and
     ``block_k`` are the reference's tiling; the CUDA kernel uses its own
-    64-row tiles and the result does not depend on them."""
+    tiles and the result does not depend on them."""
     _check(q, k, v, q_offset)
     if scale is None:
         scale = 1.0 / (q.shape[-1] ** 0.5)

@@ -12,19 +12,44 @@ from mxnet_tpu_torch.ops import attention as tattn
 from mxnet_tpu_torch.ops import flash_attention as tfa
 
 
+def _at_offset(x, offset):
+    """``x`` copied into a contiguous view ``offset`` elements into a
+    buffer: at offset 1 (4 bytes in fp32) its base is not 16-byte aligned."""
+    if not offset:
+        return x
+    buf = torch.empty(x.numel() + offset, dtype=x.dtype, device=x.device)
+    view = buf[offset:].view(x.shape)
+    view.copy_(x)
+    return view
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("causal,q_offset,t_q,t_k,d", [
-    (True, 0, 256, 256, 64), (True, 64, 200, 264, 64),
-    (False, 0, 100, 70, 32), (True, 0, 128, 128, 128)])
-def test_cuda_kernel_matches_plain(dtype, tol, causal, q_offset, t_q, t_k, d):
+@pytest.mark.parametrize("causal,q_offset,t_q,t_k,d,offset", [
+    (True, 0, 256, 256, 64, 0), (True, 64, 200, 264, 64, 0),
+    (False, 0, 100, 70, 32, 0), (True, 0, 128, 128, 128, 0),
+    # edges of the fp32 kernel's tiles (128 Q rows, 64 at D=128; 32 K/V
+    # rows): t_q below one Q tile, T not a multiple of the tiles, t_k > t_q
+    # with q_offset, d in {32, 50, 64, 128}
+    (True, 0, 37, 37, 64, 0), (False, 0, 37, 101, 64, 0),
+    (True, 0, 300, 300, 32, 0), (True, 100, 150, 250, 64, 0),
+    (True, 64, 200, 264, 50, 0), (False, 0, 130, 190, 50, 0),
+    (True, 0, 257, 257, 128, 0), (True, 5, 70, 75, 128, 0),
+    # contiguous views at a 4-byte offset: the 4-byte copy path
+    (True, 0, 200, 200, 64, 1), (False, 0, 100, 70, 48, 1),
+    (True, 16, 90, 106, 128, 1)])
+def test_cuda_kernel_matches_plain(dtype, tol, causal, q_offset, t_q, t_k, d,
+                                   offset):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU and nvcc; runs on the card")
     g = torch.Generator(device="cuda").manual_seed(0)
-    q = torch.randn((2, t_q, 3, d), generator=g, device="cuda").to(dtype)
-    k = torch.randn((2, t_k, 3, d), generator=g, device="cuda").to(dtype)
-    v = torch.randn((2, t_k, 3, d), generator=g, device="cuda").to(dtype)
+    q, k, v = (_at_offset(torch.randn((2, t, 3, d), generator=g,
+                                      device="cuda").to(dtype), offset)
+               for t in (t_q, t_k, t_k))
+    aligned = d % 4 == 0 and not offset
+    assert tfa.copy_bytes(d, q.data_ptr(), k.data_ptr(),
+                          v.data_ptr()) == (16 if aligned else 4)
     before = tfa.flash_attention.launches
     got = tfa.flash_attention(q, k, v, causal=causal, q_offset=q_offset)
     torch.cuda.synchronize()

@@ -111,3 +111,18 @@ def test_use_flash_rule(monkeypatch, flag, t_len, on_accel, want):
     else:
         monkeypatch.setenv("MXTPU_FLASH_ATTENTION", flag)
     assert tfa.use_flash(t_len, on_accel=on_accel) is want
+
+
+@pytest.mark.parametrize("d,offset,want", [
+    (64, 0, 16), (48, 0, 16), (128, 0, 16), (50, 0, 4), (33, 0, 4),
+    (64, 1, 4), (64, 2, 4), (64, 4, 16), (32, 3, 4)])
+def test_copy_bytes_rule(d, offset, want):
+    """The fp32 kernel copies 16 bytes at a time only when every row of
+    every tensor starts 16-byte aligned: d % 4 == 0 and aligned bases, so a
+    contiguous view at a 4-byte offset takes the 4-byte copies."""
+    buf = torch.zeros(2 * 5 * 3 * d + offset)
+    x = buf[offset:].view(2, 5, 3, d)
+    assert x.is_contiguous()
+    aligned = torch.zeros((2, 5, 3, d))
+    assert tfa.copy_bytes(d, x.data_ptr(), aligned.data_ptr()) == want
+    assert tfa.copy_bytes(d, aligned.data_ptr()) == (16 if d % 4 == 0 else 4)
