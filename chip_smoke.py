@@ -1,17 +1,20 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU.
 
-Drives the port's main path, transformer-LM inference through ``Predictor``,
-at the repo's accelerator width (vocab 32768, hidden 1024, 16 heads, 12
-layers, T=2048, fp32) and holds every CUDA kernel on that path against its
-plain PyTorch version. Phases, in order; any failed check ends the run with a
+Drives the port's main paths at the repo's accelerator width (vocab 32768,
+hidden 1024, 16 heads, 12 layers, T=2048): transformer-LM inference through
+``Predictor`` in fp32, the imperative path, and the LM through
+``Executor(amp_dtype="bfloat16")``; holds every CUDA kernel on those paths
+against its plain PyTorch version. Phases, in order; any failed check ends the run with a
 non-zero exit and no result line:
 
 1. device: the card's name and power limit; TF32 off for fp32 parity;
 2. build: the kernels from ``mxnet_tpu_torch/csrc`` with nvcc (set-up);
-3. kernel vs plain: the flash-attention kernel against its plain version at
-   the main path's shape, at ragged shapes with ``q_offset``, at head dims
-   128 and 50 (the 4-byte copy path), and in bf16, timed beside the plain
-   version and a library attention call, with its share of the bound;
+3. kernel vs plain: the flash-attention kernels against their plain version
+   at the main path's shape, at ragged shapes with ``q_offset``, at head
+   dims 128 and 50 (the 4-byte copy path in fp32, the element-wise path of
+   the tensor-core kernel in bf16), in fp32 (CUDA cores), bf16 and fp16
+   (tensor cores), timed beside the plain version and a library attention
+   call, with its share of the bound;
 4. the slice: a Predictor bound at data=(2, 2048) on cuda:0 answers 4
    requests; probabilities checked and the kernel's launches counted; one
    more steady request under ``torch.profiler`` splits the device time into
@@ -30,7 +33,14 @@ non-zero exit and no result line:
    kernel over copies, held to the op; a chain of ``mx.nd`` ops on the
    phase-4 log-probabilities, held to the CPU on one row block; and a
    ``CustomOp`` that pushes the axpy kernel, imperatively and in a Symbol
-   through ``Executor.forward``. Kernel launches are counted over this run.
+   through ``Executor.forward``. Kernel launches are counted over this run;
+8. the amp path: the phase-4 weights bound through
+   ``Executor(..., amp_dtype="bfloat16")`` with int32 token ids answer 4
+   requests of 2 x 2048 tokens; probabilities checked, the tensor-core
+   kernel's launches counted (12 a request, none of the fp32 kernel); one
+   more request traced into flash, GEMMs, the amp casts and the rest, beside
+   the idle share; then bf16 on the card against bf16 on the CPU at depth 2
+   (batch 1, T 512).
 
 Run from the repo root: ``python3 chip_smoke.py [--seed N]``.
 The last line of standard output is ``{"ok": true, "device": {...}}``.
@@ -50,8 +60,8 @@ import numpy as np
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 # H100 SXM peaks (NVIDIA data sheet, dense): fp32 without tensor cores,
-# bf16 on tensor cores.
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+# bf16 and fp16 on tensor cores.
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "float16": 989e12}
 # HBM bandwidth by the card name nvidia-smi prints (NVIDIA data sheets:
 # H100 SXM5 80GB HBM3 3.35 TB/s, H100 PCIe 2.0 TB/s, H100 NVL 3.9 TB/s,
 # H200 4.8 TB/s); the first name found in the card's wins
@@ -63,8 +73,11 @@ VOCAB, HIDDEN, HEADS, LAYERS, SEQ, BATCH = 32768, 1024, 16, 12, 2048, 2
 REQUESTS = 4
 OUT_DIR = "chiprun_out"
 # device kernels counted as matrix products in the traced request (cuBLAS
-# and CUTLASS kernel names)
-GEMM_NAME = re.compile(r"gemm|gemv", re.IGNORECASE)
+# and CUTLASS kernel names; cuBLAS's Hopper bf16 kernels are named nvjet_*)
+GEMM_NAME = re.compile(r"gemm|gemv|nvjet|cutlass", re.IGNORECASE)
+KERNEL_LIBS = ("flash_attention_fwd", "flash_attention_fwd_tc")
+AMP_REQUESTS = 4
+AMP_CPU_SEQ = 512   # T of the card-vs-CPU check under amp
 
 
 class CheckFailed(RuntimeError):
@@ -79,9 +92,44 @@ def check(cond, what):
 
 # ---------------------------------------------------------------- measuring
 
-def time_cuda(fn, reps=20, warmup=3):
-    """Median milliseconds of ``fn`` over ``reps`` launches, each between
-    two CUDA events, after ``warmup`` calls."""
+def time_cuda(fn, reps=20, warmup=3, rounds=3):
+    """Milliseconds of one call of ``fn`` on the device: the median over
+    ``rounds`` of the mean over ``reps`` back-to-back calls between two CUDA
+    events, after ``warmup`` calls. Each round's calls are queued behind a
+    sleep kernel, so that the events time the device's work and not the
+    host's dispatch, which for a short kernel takes longer than the kernel
+    (a round whose sleep ended before its calls were queued is redone with
+    a longer sleep)."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times, cycles = [], 20_000_000   # about 10 ms at the H100's clocks
+    while len(times) < rounds:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        queued_in_time = not start.query()
+        end.synchronize()
+        if queued_in_time:
+            times.append(start.elapsed_time(end) / reps)
+        elif cycles > 2_000_000_000:
+            raise CheckFailed(f"time_cuda: the host could not queue {reps} "
+                              f"calls within a sleep of {cycles} cycles")
+        else:
+            cycles *= 4
+    return float(np.median(times))
+
+
+def time_call(fn, reps=20, warmup=3):
+    """Median milliseconds of ``fn`` over ``reps`` calls, each between two
+    CUDA events recorded around the call on an idle device: the host's
+    dispatch where it is longer than the device's work."""
     import torch
 
     for _ in range(warmup):
@@ -158,18 +206,31 @@ def phase_device():
 
 
 def phase_build():
+    """Both kernel libraries, one nvcc each, started together."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from mxnet_tpu_torch import _native
 
     print("phase 2: build", flush=True)
+
+    def build(name):
+        t = time.perf_counter()
+        return _native.build(name), time.perf_counter() - t
+
     t0 = time.perf_counter()
-    path = _native.build("flash_attention_fwd")
+    with ThreadPoolExecutor(len(KERNEL_LIBS)) as pool:
+        built = dict(zip(KERNEL_LIBS, pool.map(build, KERNEL_LIBS)))
     secs = time.perf_counter() - t0
-    log = _native.BUILD_LOGS.get("flash_attention_fwd", "(reused)")
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line or "error" in line:
-            print("  ptxas: " + line.strip(), flush=True)
-    print(f"  built {os.path.relpath(path)} in {secs:.2f} s", flush=True)
-    return secs
+    out = {"wall_s": secs}
+    for name, (path, lib_s) in built.items():
+        log = _native.BUILD_LOGS.get(name, "(reused)")
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line or "error" in line:
+                print(f"  ptxas {name}: " + line.strip(), flush=True)
+        print(f"  built {os.path.relpath(path)} in {lib_s:.2f} s", flush=True)
+        out[name + "_s"] = lib_s
+    print(f"  both in {secs:.2f} s", flush=True)
+    return out
 
 
 def _qkv(shape_q, t_k, dtype, seed):
@@ -203,8 +264,19 @@ def phase_kernel_vs_plain(seed):
          torch.float32, 1e-4),
         ("ragged_d50_fp32_causal", (BATCH, 1500, HEADS, 50), 1500, True, 0,
          torch.float32, 1e-4),
+        # bf16/fp16: the tensor-core kernel, held to the fp32 plain version
+        # on the same rounded inputs; the error is mostly the rounding of
+        # the O(1) output and of P to the 16-bit type, and fp16 carries 3
+        # more mantissa bits than bf16, hence its tighter limit
         ("slice_bf16_causal", (BATCH, SEQ, HEADS, HIDDEN // HEADS), SEQ,
          True, 0, torch.bfloat16, 2e-2),
+        ("slice_fp16_causal", (BATCH, SEQ, HEADS, HIDDEN // HEADS), SEQ,
+         True, 0, torch.float16, 1e-2),
+        ("d128_bf16_causal", (BATCH, SEQ, HEADS // 2, 128), SEQ, True, 0,
+         torch.bfloat16, 2e-2),
+        # d = 50: rows of 100 bytes, the element-wise load path
+        ("ragged_d50_bf16_causal", (BATCH, 1500, HEADS, 50), 1500, True, 0,
+         torch.bfloat16, 2e-2),
     ]
     results = {}
     for i, (name, shp, t_k, causal, q_off, dtype, tol) in enumerate(cases):
@@ -218,8 +290,12 @@ def phase_kernel_vs_plain(seed):
         dname = str(dtype).replace("torch.", "")
         bound_ms, bound_by = attention_bound(shp[0], shp[1], t_k, shp[2],
                                              shp[3], causal, q_off, dname)
-        ms = time_cuda(lambda: flash_attention(q, k, v, causal=causal,
-                                               q_offset=q_off))
+
+        def run():
+            return flash_attention(q, k, v, causal=causal, q_offset=q_off)
+
+        ms = time_cuda(run)
+        call_ms = time_call(run)
         plain_ms = time_cuda(lambda: flash_attention_reference(
             q, k, v, causal=causal, q_offset=q_off))
         # yardstick only: one library call computing the same function
@@ -232,7 +308,7 @@ def phase_kernel_vs_plain(seed):
                 qt, kt, vt, is_causal=causal))
         row = {"case": name, "q": list(shp), "t_k": t_k, "causal": causal,
                "q_offset": q_off, "dtype": dname, "max_abs_err": err,
-               "tol": tol, "ms": ms, "plain_ms": plain_ms,
+               "tol": tol, "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
                "library_ms": library_ms, "bound_ms": bound_ms,
                "bound_by": bound_by, "frac_of_bound": bound_ms / ms,
                "vs_library": ms / library_ms if library_ms else None}
@@ -286,7 +362,8 @@ def lm_predictor(mx, layers, batch, weights, ctx):
 def phase_slice(mx, layers, seed):
     import torch
 
-    from mxnet_tpu_torch.ops.flash_attention import flash_attention
+    from mxnet_tpu_torch.ops.flash_attention import (flash_attention,
+                                                     reset_launches)
 
     print(f"phase 4: the slice ({layers} layers, batch {BATCH}, T {SEQ}, "
           f"vocab {VOCAB}, {REQUESTS} requests)", flush=True)
@@ -307,7 +384,7 @@ def phase_slice(mx, layers, seed):
     rng = np.random.default_rng(seed + 1)
     batches = [rng.integers(0, VOCAB, (BATCH, SEQ)).astype(np.float32)
                for _ in range(REQUESTS)]
-    flash_attention.launches = 0
+    reset_launches()
     request_ms = []
     for x in batches:
         torch.cuda.synchronize()
@@ -322,8 +399,10 @@ def phase_slice(mx, layers, seed):
         row_err = float((probs.sum(dim=1) - 1).abs().max())
         check(row_err <= 1e-4, f"rows sum to 1 within 1e-4 ({row_err:.2e})")
     launches = flash_attention.launches
-    check(launches == layers * REQUESTS,
-          f"flash kernel launched {launches} == {layers} x {REQUESTS} times")
+    check(launches == layers * REQUESTS
+          and flash_attention.launches_by_dtype["float32"] == launches,
+          f"fp32 flash kernel launched {launches} == {layers} x {REQUESTS} "
+          "times, and no other")
     steady = float(np.median(request_ms[1:]))
     out = {"layers": layers, "request_ms": request_ms,
            "steady_request_ms": steady,
@@ -361,7 +440,8 @@ def phase_slice(mx, layers, seed):
 def phase_card_vs_cpu(mx, weights, seed):
     import torch
 
-    from mxnet_tpu_torch.ops.flash_attention import flash_attention
+    from mxnet_tpu_torch.ops.flash_attention import (flash_attention,
+                                                     reset_launches)
 
     print("phase 5: card vs CPU at depth 2 (batch 1, T 2048)", flush=True)
     x = np.random.default_rng(seed + 2).integers(
@@ -369,7 +449,7 @@ def phase_card_vs_cpu(mx, weights, seed):
     outs, launches = {}, {}
     for label, ctx in (("gpu", mx.gpu(0)), ("cpu", mx.cpu())):
         pred = lm_predictor(mx, 2, 1, weights, ctx)
-        flash_attention.launches = 0
+        reset_launches()
         pred.forward(data=x)
         outs[label] = pred.get_output(0)
         launches[label] = flash_attention.launches
@@ -655,6 +735,176 @@ def phase_imperative(mx, weights, probs, seed):
     return out
 
 
+def host_profile(fn, top=12):
+    """Where the host's time goes in one call of ``fn`` (ended by a device
+    synchronisation): the ``top`` functions by own time under cProfile, as
+    [file:line(function), calls, own ms, cumulative ms]."""
+    import cProfile
+    import pstats
+
+    import torch
+
+    torch.cuda.synchronize()
+    prof = cProfile.Profile()
+    prof.enable()
+    fn()
+    torch.cuda.synchronize()
+    prof.disable()
+    stats = pstats.Stats(prof).stats
+    rows = sorted(stats.items(), key=lambda kv: -kv[1][2])[:top]
+    return [[f"{os.path.basename(f)}:{line}({name})", calls, tt * 1e3,
+             ct * 1e3] for (f, line, name), (_, calls, tt, ct, _) in rows]
+
+
+def lm_executor(mx, layers, batch, seq, weights, ctx, amp_dtype):
+    """The LM bound through ``Executor(..., amp_dtype=...)``, as the
+    reference's executor group binds it under ``Module(amp=...)``: fp32
+    weights (the first ``seq`` learned positions), int32 token ids and an
+    fp32 label."""
+    symbol = mx.models.transformer_lm.get_symbol(
+        vocab_size=VOCAB, num_layers=layers, hidden=HIDDEN, heads=HEADS,
+        seq_len=seq)
+    shapes = {"data": (batch, seq), "softmax_label": (batch, seq)}
+    names = [n for n in symbol.list_arguments() if n not in shapes]
+    params = {n: weights[n] for n in names}
+    params["transformer_pos_weight"] = params["transformer_pos_weight"][:seq]
+    args, _ = mx.convert.params_from_numpy(params, {}, ctx)
+    args["data"] = mx.nd.zeros(shapes["data"], ctx, dtype="int32")
+    args["softmax_label"] = mx.nd.zeros(shapes["softmax_label"], ctx)
+    return mx.executor.Executor(symbol, ctx, args, amp_dtype=amp_dtype)
+
+
+def phase_amp(mx, weights, seed):
+    """The LM under bf16 mixed precision at full width: the tensor-core
+    flash kernel's main path."""
+    import torch
+
+    from mxnet_tpu_torch.executor import _amp_cast
+    from mxnet_tpu_torch.ops.flash_attention import (flash_attention,
+                                                     reset_launches)
+
+    print(f"phase 8: the amp path (bf16; {LAYERS} layers, batch {BATCH}, T "
+          f"{SEQ}, vocab {VOCAB}, {AMP_REQUESTS} requests)", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    exe = lm_executor(mx, LAYERS, BATCH, SEQ, weights, mx.gpu(0), "bfloat16")
+    torch.cuda.synchronize()
+    print(f"  bound in {time.perf_counter() - t0:.1f} s", flush=True)
+    rng = np.random.default_rng(seed + 8)
+    # int32 ids pass the amp cast untouched (float32 ids would round in bf16)
+    batches = [rng.integers(0, VOCAB, (BATCH, SEQ)).astype(np.int32)
+               for _ in range(AMP_REQUESTS)]
+    reset_launches()
+    request_ms = []
+    for x in batches:
+        (probs,), ms = timed(lambda: exe.forward(data=x))
+        request_ms.append(ms)
+        p = probs.data
+        check(tuple(p.shape) == (BATCH * SEQ, VOCAB)
+              and p.dtype == torch.float32,
+              f"probs {tuple(p.shape)} {p.dtype}")
+        check(bool(torch.isfinite(p).all()), "probs all finite")
+        row_err = float((p.sum(dim=1) - 1).abs().max())
+        check(row_err <= 1e-4, f"rows sum to 1 within 1e-4 ({row_err:.2e})")
+    launches = dict(flash_attention.launches_by_dtype)
+    check(launches["bfloat16"] == LAYERS * AMP_REQUESTS
+          and launches["float32"] == 0 and launches["float16"] == 0,
+          f"tensor-core flash kernel launched {launches['bfloat16']} == "
+          f"{LAYERS} x {AMP_REQUESTS} times (bf16), fp32 kernel "
+          f"{launches['float32']} == 0")
+    steady = float(np.median(request_ms[1:]))
+    out = {"layers": LAYERS, "request_ms": request_ms,
+           "first_request_ms": request_ms[0], "steady_request_ms": steady,
+           "tokens_per_s": BATCH * SEQ / (steady / 1e3),
+           "launches": launches}
+
+    # one more steady request, traced (after the launch count was read),
+    # and one under cProfile; then the casts of the bound arguments, the
+    # same kernels the request runs first, timed apart on the device to
+    # split them out of the rest
+    traced_ms = []
+    by_name = device_ms_by_kernel(lambda: traced_ms.append(
+        timed(lambda: exe.forward(data=batches[-1]))[1]))
+    out["host_profile"] = host_profile(lambda: exe.forward(data=batches[-1]))
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    cast_ms = time_cuda(lambda: [_amp_cast(n, a.data, torch.bfloat16)
+                                 for n, a in exe.arg_dict.items()],
+                        reps=3, warmup=1)
+    check(by_name, "the profiler recorded device events for one request")
+    flash_ms = sum(t for n, t in by_name.items() if "flash_fwd_tc" in n)
+    other_flash = sum(t for n, t in by_name.items()
+                      if "flash_fwd" in n and "flash_fwd_tc" not in n)
+    gemm_ms = sum(t for n, t in by_name.items()
+                  if "flash_fwd" not in n and GEMM_NAME.search(n))
+    busy = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    out["traced_request"] = {
+        "host_ms": traced_ms[0], "device_busy_ms": busy,
+        "flash_ms": flash_ms, "gemm_ms": gemm_ms, "amp_cast_ms": cast_ms,
+        "rest_ms": busy - flash_ms - gemm_ms - cast_ms,
+        "idle_share": 1.0 - busy / steady,
+        "idle_share_traced": 1.0 - busy / traced_ms[0],
+        "device_kernels": len(by_name),
+        "top_kernels": [[n[:80], t] for n, t in top]}
+    print("  " + json.dumps({k: v for k, v in out.items()
+                             if k not in ("traced_request", "host_profile")}),
+          flush=True)
+    print("  host profile of one request (own ms): " + json.dumps(
+        out["host_profile"]), flush=True)
+    print("  traced request: " + json.dumps(out["traced_request"]),
+          flush=True)
+    check(flash_ms > 0 and other_flash == 0,
+          "the traced request ran the tensor-core flash kernel and no other")
+    del exe, probs, p
+    torch.cuda.empty_cache()
+
+    # bf16 on the card against bf16 on the CPU, at depth 2
+    x = np.random.default_rng(seed + 9).integers(
+        0, VOCAB, (1, AMP_CPU_SEQ)).astype(np.int32)
+    outs, by_ctx = {}, {}
+    for label, ctx in (("gpu", mx.gpu(0)), ("cpu", mx.cpu())):
+        exe = lm_executor(mx, 2, 1, AMP_CPU_SEQ, weights, ctx, "bfloat16")
+        reset_launches()
+        t0 = time.perf_counter()
+        (res,) = exe.forward(data=x)
+        outs[label] = res.asnumpy()
+        by_ctx[label] = dict(flash_attention.launches_by_dtype)
+        print(f"  depth 2 on {label}: {time.perf_counter() - t0:.2f} s",
+              flush=True)
+        del exe, res
+    torch.cuda.empty_cache()
+    check(by_ctx["gpu"]["bfloat16"] == 2 and sum(by_ctx["gpu"].values()) == 2
+          and sum(by_ctx["cpu"].values()) == 0,
+          f"flash launches at depth 2: card {by_ctx['gpu']}, CPU "
+          f"{by_ctx['cpu']}")
+    tiny = np.finfo(np.float32).tiny
+    log_err = np.abs(np.log(np.maximum(outs["gpu"], tiny))
+                     - np.log(np.maximum(outs["cpu"], tiny)))
+    agree = float((outs["gpu"].argmax(1) == outs["cpu"].argmax(1)).mean())
+    parity = {"max_abs_err": float(np.abs(outs["gpu"] - outs["cpu"]).max()),
+              "max_abs_log_err": float(log_err.max()),
+              "p999_abs_log_err": float(np.quantile(log_err, 0.999)),
+              "mean_abs_log_err": float(log_err.mean()),
+              "argmax_agreement": agree, "launches": by_ctx}
+    out["card_vs_cpu"] = parity
+    print("  card vs CPU (bf16, depth 2, batch 1, T "
+          f"{AMP_CPU_SEQ}): " + json.dumps(parity), flush=True)
+    # The limit is on the mean: logits are bf16 in both evaluations (the
+    # head's FullyConnected returns bf16, as in the reference), and one bf16
+    # step of a logit is 0.0625 at |logit| in [8, 16) and 0.125 in [16, 32),
+    # where this model's largest logits lie (std about 4). Two correct bf16
+    # evaluations that sum in another order round some of those logits one
+    # step apart, and a top logit's step shifts its whole row through the
+    # normaliser, so the max and the 99.9th percentile read bf16's step
+    # (0.21 and 0.13 when only P's rounding in attention differs, on the
+    # CPU); the mean reads the bulk (0.018 there).
+    check(parity["mean_abs_log_err"] <= 5e-2,
+          f"card vs CPU mean abs log-prob err "
+          f"{parity['mean_abs_log_err']:.3g} <= 5e-2")
+    check(agree >= 0.98, f"argmax agreement {agree:.5f} >= 0.98")
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -666,12 +916,13 @@ def main(argv=None):
 
     t_start = time.perf_counter()
     card = phase_device()
-    build_s = phase_build()
+    build = phase_build()
     cases = phase_kernel_vs_plain(args.seed)
     slice_out, weights, probs = phase_slice(mx, LAYERS, args.seed)
     parity = phase_card_vs_cpu(mx, weights, args.seed)
     rtc_cases = phase_rtc_vs_plain(args.seed)
     imperative = phase_imperative(mx, weights, probs, args.seed)
+    amp = phase_amp(mx, weights, args.seed)
 
     main_case = cases["slice_fp32_causal"]
     kernels = [{
@@ -687,6 +938,15 @@ def main(argv=None):
         "bound_by": main_case["bound_by"],
         "library_ms": main_case["library_ms"],
     }]
+    tc_case = cases["slice_bf16_causal"]
+    kernels.append({
+        "name": "flash_attention_fwd_tc",
+        "route": "cuda",
+        "source": "mxnet_tpu_torch/csrc/flash_attention_fwd_tc.cu",
+        "replaces": "mxnet_tpu/ops/flash_attention.py:47",
+        "launches": amp["launches"]["bfloat16"],
+        **{k: tc_case[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                   "bound_ms", "bound_by", "library_ms")}})
     for name, case in (("rtc_axpy", "axpy_logits_fp32"),
                        ("rtc_sgd_mom", "sgd_mom_embedding_fp32")):
         row = rtc_cases[case]
@@ -699,9 +959,10 @@ def main(argv=None):
                                    "bound_ms", "bound_by", "library_ms")}})
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
-        json.dump({"card": card, "build_s": build_s, "cases": cases,
+        json.dump({"card": card, "build": build, "cases": cases,
                    "slice": slice_out, "card_vs_cpu": parity,
                    "rtc_cases": rtc_cases, "imperative": imperative,
+                   "amp": amp,
                    "kernels": kernels,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)

@@ -7,19 +7,45 @@ op body on the bound tensors under ``torch.inference_mode()``; the op bodies
 launch their kernels on the current CUDA stream. The reference's graph
 rewrites at bind (graphopt) do not change fp32 math and are not ported;
 backward and the fused training step wait for the training slice.
+
+``amp_dtype`` (e.g. ``"bfloat16"``) is the reference's mixed precision: the
+bound fp32 arrays stay fp32 master copies, and each ``forward`` casts them
+to the compute dtype as they enter the graph walk (:func:`_amp_cast`).
 """
 from __future__ import annotations
 
 from .base import MXNetError
+from .ndarray import _torch_dtype
 from .ops import OpCtx, get_op
 
 __all__ = ["Executor"]
 
 
+def _amp_cast(name, v, amp_dtype):
+    """The reference's argument cast under mixed precision
+    (mxnet_tpu/executor.py ``_amp_cast``): labels pass through; uint8
+    (raw image pixels) goes to the compute dtype, float32 without amp;
+    without amp nothing else changes; float32 goes to ``amp_dtype``; every
+    other dtype (int32 token ids among them) passes through."""
+    import torch
+
+    if name.endswith("label"):
+        return v
+    if v.dtype == torch.uint8:
+        return v.to(amp_dtype or torch.float32)
+    if amp_dtype is None:
+        return v
+    if v.dtype == torch.float32:
+        return v.to(amp_dtype)
+    return v
+
+
 class Executor:
-    def __init__(self, symbol, ctx, args, aux_states=None):
+    def __init__(self, symbol, ctx, args, aux_states=None, amp_dtype=None):
         self._symbol = symbol
         self._ctx = ctx
+        self._amp_dtype = None if amp_dtype is None \
+            else _torch_dtype(amp_dtype)
         self.arg_names = symbol.list_arguments()
         self.aux_names = symbol.list_auxiliary_states()
         self.output_names = symbol.list_outputs()
@@ -62,12 +88,14 @@ class Executor:
         with torch.inference_mode():
             for node in self._topo:
                 if node.is_variable:
-                    holder = self.arg_dict.get(node.name)
-                    if holder is None:
-                        holder = self.aux_dict.get(node.name)
-                    if holder is None:
+                    if node.name in self.arg_dict:
+                        vals[(id(node), 0)] = _amp_cast(
+                            node.name, self.arg_dict[node.name].data,
+                            self._amp_dtype)
+                    elif node.name in self.aux_dict:
+                        vals[(id(node), 0)] = self.aux_dict[node.name].data
+                    else:
                         raise MXNetError(f"unbound variable '{node.name}'")
-                    vals[(id(node), 0)] = holder.data
                     continue
                 op = get_op(node.op)
                 ins = [vals[(id(n), i)] for n, i in node.inputs]

@@ -1,17 +1,20 @@
 """Flash attention forward as a hand-written CUDA kernel for Hopper.
 
 Port of mxnet_tpu/ops/flash_attention.py, whose forward is a Pallas TPU kernel
-(``_fwd_kernel``). Here the kernel is ``csrc/flash_attention_fwd.cu``: it
-streams K/V tiles through shared memory with an online softmax, so the
-(T, T) score matrix never reaches device memory. It is built with ``nvcc``
-at first use and called through ``ctypes``.
+(``_fwd_kernel``). Here there are two kernels, one for each kind of input:
+fp32 runs on CUDA cores (``csrc/flash_attention_fwd.cu``), bf16 and fp16 on
+the tensor cores (``csrc/flash_attention_fwd_tc.cu``). Both stream K/V tiles
+through shared memory with an online softmax, so the (T, T) score matrix
+never reaches device memory. Each is built with ``nvcc`` at first use and
+called through ``ctypes``.
 
 Layout is (B, T, H, D), as in the reference. :func:`flash_attention` routes
 by the device of its inputs: a CUDA tensor launches the kernel (or raises),
 a CPU tensor takes the plain version :func:`flash_attention_reference`, and a
 ``meta`` tensor returns an empty result of the right shape for shape
-inference. Only CUDA launches count in ``flash_attention.launches``. The
-backward waits for the training slice.
+inference. Only CUDA launches count: in ``flash_attention.launches``, and
+by input dtype in ``flash_attention.launches_by_dtype``, which tells which
+of the two kernels a path ran. The backward waits for the training slice.
 """
 from __future__ import annotations
 
@@ -20,12 +23,19 @@ import ctypes
 import torch
 
 from ..base import MXNetError
+from ..ndarray import _dtype_name
 
 __all__ = ["copy_bytes", "flash_attention", "flash_attention_reference",
-           "use_flash"]
+           "reset_launches", "use_flash"]
 
-_KERNEL = "flash_attention_fwd"
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# dtype -> (library, C entry, the entry's dtype code)
+_KERNELS = {
+    torch.float32: ("flash_attention_fwd", "mxtt_flash_attention_fwd", 0),
+    torch.bfloat16: ("flash_attention_fwd_tc", "mxtt_flash_attention_fwd_tc",
+                     1),
+    torch.float16: ("flash_attention_fwd_tc", "mxtt_flash_attention_fwd_tc",
+                    2),
+}
 _MAX_HEAD_DIM = 128
 
 
@@ -55,13 +65,18 @@ def flash_attention_reference(q, k, v, causal=False, scale=None, block_q=128,
     return out.to(q.dtype)
 
 
-def copy_bytes(d: int, *ptrs: int) -> int:
-    """Width in bytes of the fp32 kernel's ``cp.async`` copies for head dim
-    ``d`` and the tensors' base addresses ``ptrs``: 16 when every row of
-    ``d`` floats starts 16-byte aligned (``d % 4 == 0`` and each base
-    pointer a multiple of 16), else 4. The kernel is instantiated for both;
-    a contiguous view at a 4-byte offset (``buf[1:].view(...)``) takes 4."""
-    return 16 if d % 4 == 0 and all(p % 16 == 0 for p in ptrs) else 4
+def copy_bytes(d: int, *ptrs: int, itemsize: int = 4) -> int:
+    """Width in bytes of a kernel's copies of one element group, for head
+    dim ``d``, elements of ``itemsize`` bytes and the tensors' base
+    addresses ``ptrs``: 16 (``cp.async`` of 16 bytes) when every row of
+    ``d`` elements starts 16-byte aligned (``d * itemsize % 16 == 0`` and
+    each base pointer a multiple of 16), else ``itemsize``. The fp32 kernel
+    then copies 4 bytes with ``cp.async``; the tensor-core kernel (2-byte
+    types) loads element by element, since ``cp.async`` has no 2-byte copy.
+    A contiguous view at an offset of one element (``buf[1:].view(...)``)
+    takes the narrow path."""
+    aligned = d * itemsize % 16 == 0 and all(p % 16 == 0 for p in ptrs)
+    return 16 if aligned else itemsize
 
 
 def _check(q, k, v, q_offset):
@@ -82,9 +97,9 @@ def _check(q, k, v, q_offset):
 
 
 def _check_cuda(q, k, v):
-    if q.dtype not in _DTYPE_CODES:
-        raise MXNetError(f"flash_attention: the CUDA kernel takes float32 or "
-                         f"bfloat16, got {q.dtype}")
+    if q.dtype not in _KERNELS:
+        raise MXNetError(f"flash_attention: the CUDA kernels take float32, "
+                         f"bfloat16 or float16, got {q.dtype}")
     if q.shape[-1] > _MAX_HEAD_DIM:
         raise MXNetError(f"flash_attention: head dim {q.shape[-1]} > "
                          f"{_MAX_HEAD_DIM}")
@@ -95,11 +110,12 @@ def _check_cuda(q, k, v):
         raise MXNetError("flash_attention: batch * heads > 65535")
 
 
-def entry(lib):
-    """``mxtt_flash_attention_fwd`` of a loaded kernel library, typed for
-    ``ctypes``: (q, k, v, o, batch, t_q, t_k, heads, d, scale, causal,
-    q_offset, dtype, copy_bytes, stream) -> cudaError_t."""
-    fn = lib.mxtt_flash_attention_fwd
+def entry(lib, name="mxtt_flash_attention_fwd"):
+    """The C entry ``name`` of a loaded kernel library, typed for
+    ``ctypes``. Both libraries' entries take (q, k, v, o, batch, t_q, t_k,
+    heads, d, scale, causal, q_offset, dtype, copy_bytes, stream) and return
+    a cudaError_t."""
+    fn = getattr(lib, name)
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
         ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -109,19 +125,21 @@ def entry(lib):
 def _launch(q, k, v, causal, scale, q_offset):
     from .. import _native
 
-    fn = entry(_native.load(_KERNEL))
+    lib, name, code = _KERNELS[q.dtype]
+    fn = entry(_native.load(lib), name)
     b, t_q, h, d = q.shape
     out = torch.empty_like(q)
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(*ptrs, b, t_q, k.shape[1], h, d, float(scale),
-                 int(bool(causal)), int(q_offset), _DTYPE_CODES[q.dtype],
-                 copy_bytes(d, *ptrs), stream)
+                 int(bool(causal)), int(q_offset), code,
+                 copy_bytes(d, *ptrs, itemsize=q.element_size()), stream)
     if err != 0:
         raise MXNetError(f"flash_attention: CUDA kernel launch failed "
                          f"(cudaError_t {err})")
     flash_attention.launches += 1
+    flash_attention.launches_by_dtype[_dtype_name(q.dtype)] += 1
     return out
 
 
@@ -148,4 +166,11 @@ def flash_attention(q, k, v, causal=False, scale=None, block_q=128,
     return _launch(q, k, v, causal, scale, q_offset)
 
 
-flash_attention.launches = 0
+def reset_launches():
+    """Set every launch count of :func:`flash_attention` to 0."""
+    flash_attention.launches = 0
+    flash_attention.launches_by_dtype = {
+        _dtype_name(t): 0 for t in _KERNELS}
+
+
+reset_launches()

@@ -14,7 +14,8 @@ from mxnet_tpu_torch.ops import flash_attention as tfa
 
 def _at_offset(x, offset):
     """``x`` copied into a contiguous view ``offset`` elements into a
-    buffer: at offset 1 (4 bytes in fp32) its base is not 16-byte aligned."""
+    buffer: at offset 1 (4 bytes in fp32, 2 in bf16 and fp16) its base is
+    not 16-byte aligned."""
     if not offset:
         return x
     buf = torch.empty(x.numel() + offset, dtype=x.dtype, device=x.device)
@@ -25,7 +26,8 @@ def _at_offset(x, offset):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
-                                       (torch.bfloat16, 2e-2)])
+                                       (torch.bfloat16, 2e-2),
+                                       (torch.float16, 1e-2)])
 @pytest.mark.parametrize("causal,q_offset,t_q,t_k,d,offset", [
     (True, 0, 256, 256, 64, 0), (True, 64, 200, 264, 64, 0),
     (False, 0, 100, 70, 32, 0), (True, 0, 128, 128, 128, 0),
@@ -36,9 +38,19 @@ def _at_offset(x, offset):
     (True, 0, 300, 300, 32, 0), (True, 100, 150, 250, 64, 0),
     (True, 64, 200, 264, 50, 0), (False, 0, 130, 190, 50, 0),
     (True, 0, 257, 257, 128, 0), (True, 5, 70, 75, 128, 0),
-    # contiguous views at a 4-byte offset: the 4-byte copy path
+    # contiguous views at an offset of one element: the 4-byte copy path
+    # in fp32, the element-wise path of the tensor-core kernel
     (True, 0, 200, 200, 64, 1), (False, 0, 100, 70, 48, 1),
-    (True, 16, 90, 106, 128, 1)])
+    (True, 16, 90, 106, 128, 1),
+    # edges of the tensor-core kernel's tiles (64 Q rows, 16 a warp; 64
+    # K/V rows): t_q below one warp's rows, T not a multiple of 64, t_k >
+    # t_q with q_offset, d in {16, 48, 80} (50 and 128 above), and d = 50
+    # with an offset of 1 element
+    (True, 0, 1, 1, 64, 0), (True, 0, 5, 5, 64, 0), (False, 0, 5, 70, 32, 0),
+    (True, 0, 65, 65, 64, 0), (False, 0, 127, 127, 64, 0),
+    (True, 0, 127, 127, 128, 0), (True, 130, 60, 190, 64, 0),
+    (True, 0, 100, 100, 16, 0), (True, 3, 96, 99, 48, 0),
+    (False, 0, 150, 150, 80, 0), (True, 0, 70, 70, 50, 1)])
 def test_cuda_kernel_matches_plain(dtype, tol, causal, q_offset, t_q, t_k, d,
                                    offset):
     if not torch.cuda.is_available():
@@ -47,9 +59,10 @@ def test_cuda_kernel_matches_plain(dtype, tol, causal, q_offset, t_q, t_k, d,
     q, k, v = (_at_offset(torch.randn((2, t, 3, d), generator=g,
                                       device="cuda").to(dtype), offset)
                for t in (t_q, t_k, t_k))
-    aligned = d % 4 == 0 and not offset
-    assert tfa.copy_bytes(d, q.data_ptr(), k.data_ptr(),
-                          v.data_ptr()) == (16 if aligned else 4)
+    item = q.element_size()
+    aligned = d * item % 16 == 0 and not offset
+    assert tfa.copy_bytes(d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                          itemsize=item) == (16 if aligned else item)
     before = tfa.flash_attention.launches
     got = tfa.flash_attention(q, k, v, causal=causal, q_offset=q_offset)
     torch.cuda.synchronize()
@@ -58,6 +71,23 @@ def test_cuda_kernel_matches_plain(dtype, tol, causal, q_offset, t_q, t_k, d,
                                          causal=causal, q_offset=q_offset)
     assert got.dtype == dtype
     assert float((got.float() - want).abs().max()) <= tol
+
+
+@pytest.mark.gpu
+def test_launches_counted_by_dtype():
+    """A bf16 and an fp16 launch count in the per-dtype counter beside the
+    total; an fp32 launch in its own."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc; runs on the card")
+    tfa.reset_launches()
+    for dtype in (torch.bfloat16, torch.float16, torch.float16,
+                  torch.float32):
+        q = torch.randn((1, 80, 2, 64), device="cuda").to(dtype)
+        tfa.flash_attention(q, q, q, causal=True)
+    torch.cuda.synchronize()
+    assert tfa.flash_attention.launches == 4
+    assert tfa.flash_attention.launches_by_dtype == {
+        "float32": 1, "bfloat16": 1, "float16": 2}
 
 
 @pytest.mark.gpu
