@@ -4,8 +4,8 @@ Drives the port's main paths at the repo's accelerator width (vocab 32768,
 hidden 1024, 16 heads, 12 layers, T=2048): transformer-LM inference through
 ``Predictor`` in fp32, the imperative path, and the LM through
 ``Executor(amp_dtype="bfloat16")``; holds every CUDA kernel on those paths
-against its plain PyTorch version. Phases, in order; any failed check ends the run with a
-non-zero exit and no result line:
+against its plain PyTorch version. Phases, in order; any failed check ends
+the run with a non-zero exit and no result line:
 
 1. device: the card's name and power limit; TF32 off for fp32 parity;
 2. build: the kernels from ``mxnet_tpu_torch/csrc`` with nvcc (set-up);
@@ -13,8 +13,9 @@ non-zero exit and no result line:
    at the main path's shape, at ragged shapes with ``q_offset``, at head
    dims 128 and 50 (the 4-byte copy path in fp32, the element-wise path of
    the tensor-core kernel in bf16), in fp32 (CUDA cores), bf16 and fp16
-   (tensor cores), timed beside the plain version and a library attention
-   call, with its share of the bound;
+   (tensor cores), timed per call (as in earlier slices) and on the device
+   alone, beside the plain version and a library attention call, with its
+   share of the bound;
 4. the slice: a Predictor bound at data=(2, 2048) on cuda:0 answers 4
    requests; probabilities checked and the kernel's launches counted; one
    more steady request under ``torch.profiler`` splits the device time into
@@ -78,6 +79,12 @@ GEMM_NAME = re.compile(r"gemm|gemv|nvjet|cutlass", re.IGNORECASE)
 KERNEL_LIBS = ("flash_attention_fwd", "flash_attention_fwd_tc")
 AMP_REQUESTS = 4
 AMP_CPU_SEQ = 512   # T of the card-vs-CPU check under amp
+# a kernel's numbers in the `kernels` line: `ms`, `plain_ms` and `library_ms`
+# time one call between two events (the host's dispatch where it is longer
+# than the kernel), as in every earlier slice; `device_ms` and
+# `library_device_ms` time the device's work alone (time_device)
+KERNEL_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+               "library_ms", "device_ms", "library_device_ms")
 
 
 class CheckFailed(RuntimeError):
@@ -92,14 +99,33 @@ def check(cond, what):
 
 # ---------------------------------------------------------------- measuring
 
-def time_cuda(fn, reps=20, warmup=3, rounds=3):
-    """Milliseconds of one call of ``fn`` on the device: the median over
-    ``rounds`` of the mean over ``reps`` back-to-back calls between two CUDA
-    events, after ``warmup`` calls. Each round's calls are queued behind a
-    sleep kernel, so that the events time the device's work and not the
-    host's dispatch, which for a short kernel takes longer than the kernel
-    (a round whose sleep ended before its calls were queued is redone with
-    a longer sleep)."""
+def time_cuda(fn, reps=20, warmup=3):
+    """Median milliseconds of ``fn`` over ``reps`` launches, each between
+    two CUDA events, after ``warmup`` calls."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def time_device(fn, reps=20, warmup=3, rounds=3):
+    """Milliseconds of one call of ``fn`` on the device alone: the median
+    over ``rounds`` of the mean over ``reps`` back-to-back calls between
+    two CUDA events, queued behind a sleep kernel so that the events time
+    the device's work and not the host's dispatch (``time_cuda`` times the
+    dispatch where it is the longer). A round whose sleep ended before its
+    calls were queued is redone with a longer sleep."""
     import torch
 
     for _ in range(warmup):
@@ -119,31 +145,10 @@ def time_cuda(fn, reps=20, warmup=3, rounds=3):
         if queued_in_time:
             times.append(start.elapsed_time(end) / reps)
         elif cycles > 2_000_000_000:
-            raise CheckFailed(f"time_cuda: the host could not queue {reps} "
+            raise CheckFailed(f"time_device: the host could not queue {reps} "
                               f"calls within a sleep of {cycles} cycles")
         else:
             cycles *= 4
-    return float(np.median(times))
-
-
-def time_call(fn, reps=20, warmup=3):
-    """Median milliseconds of ``fn`` over ``reps`` calls, each between two
-    CUDA events recorded around the call on an idle device: the host's
-    dispatch where it is longer than the device's work."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
     return float(np.median(times))
 
 
@@ -266,12 +271,14 @@ def phase_kernel_vs_plain(seed):
          torch.float32, 1e-4),
         # bf16/fp16: the tensor-core kernel, held to the fp32 plain version
         # on the same rounded inputs; the error is mostly the rounding of
-        # the O(1) output and of P to the 16-bit type, and fp16 carries 3
-        # more mantissa bits than bf16, hence its tighter limit
+        # the O(1) output and of P to the 16-bit type. fp16 carries 3 more
+        # mantissa bits than bf16: its limit lies between its own reading
+        # (1.1e-3 at this shape) and the bf16 kernel's (8.1e-3), so an fp16
+        # path that lost precision to bf16's level fails
         ("slice_bf16_causal", (BATCH, SEQ, HEADS, HIDDEN // HEADS), SEQ,
          True, 0, torch.bfloat16, 2e-2),
         ("slice_fp16_causal", (BATCH, SEQ, HEADS, HIDDEN // HEADS), SEQ,
-         True, 0, torch.float16, 1e-2),
+         True, 0, torch.float16, 3e-3),
         ("d128_bf16_causal", (BATCH, SEQ, HEADS // 2, 128), SEQ, True, 0,
          torch.bfloat16, 2e-2),
         # d = 50: rows of 100 bytes, the element-wise load path
@@ -295,22 +302,28 @@ def phase_kernel_vs_plain(seed):
             return flash_attention(q, k, v, causal=causal, q_offset=q_off)
 
         ms = time_cuda(run)
-        call_ms = time_call(run)
+        device_ms = time_device(run)
         plain_ms = time_cuda(lambda: flash_attention_reference(
             q, k, v, causal=causal, q_offset=q_off))
         # yardstick only: one library call computing the same function
         # (the port never calls it); with q_offset > 0 the causal mask is
         # not the library's, so there is no single call for that case
-        library_ms = None
+        library_ms = library_device_ms = None
         if not (causal and q_off):
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-            library_ms = time_cuda(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=causal))
+
+            def library():
+                return F.scaled_dot_product_attention(qt, kt, vt,
+                                                      is_causal=causal)
+
+            library_ms = time_cuda(library)
+            library_device_ms = time_device(library)
         row = {"case": name, "q": list(shp), "t_k": t_k, "causal": causal,
                "q_offset": q_off, "dtype": dname, "max_abs_err": err,
-               "tol": tol, "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
-               "library_ms": library_ms, "bound_ms": bound_ms,
-               "bound_by": bound_by, "frac_of_bound": bound_ms / ms,
+               "tol": tol, "ms": ms, "plain_ms": plain_ms,
+               "library_ms": library_ms, "device_ms": device_ms,
+               "library_device_ms": library_device_ms, "bound_ms": bound_ms,
+               "bound_by": bound_by, "frac_of_bound": bound_ms / device_ms,
                "vs_library": ms / library_ms if library_ms else None}
         print("  " + json.dumps(row), flush=True)
         check(np.isfinite(err) and err <= tol,
@@ -539,6 +552,9 @@ def phase_rtc_vs_plain(seed):
                "plain_ms": time_cuda(lambda: ex.axpy_reference(x, y)),
                # yardstick only: one library call for 2x + y
                "library_ms": time_cuda(lambda: torch.add(y, x, alpha=2.0)),
+               "device_ms": time_device(lambda: axpy(x, y)),
+               "library_device_ms": time_device(
+                   lambda: torch.add(y, x, alpha=2.0)),
                "bound_ms": bound_ms, "bound_by": bound_by}
         print("  " + json.dumps(row), flush=True)
         check(err == 0.0, f"{name}: axpy exact against 2x + y (err {err})")
@@ -560,7 +576,10 @@ def phase_rtc_vs_plain(seed):
            "compile_s": sgd.compile_s,
            "ms": time_cuda(lambda: sgd.push([gr], [w2, m2])),
            "plain_ms": time_cuda(lambda: ex.sgd_mom_reference(w, gr, m)),
-           "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by}
+           "library_ms": None,
+           "device_ms": time_device(lambda: sgd.push([gr], [w2, m2])),
+           "library_device_ms": None,
+           "bound_ms": bound_ms, "bound_by": bound_by}
     print("  " + json.dumps(row), flush=True)
     check(err <= 1e-6, f"sgd_mom Rtc vs sgd_mom_update max abs err "
           f"{err:.3g} <= 1e-6")
@@ -735,27 +754,6 @@ def phase_imperative(mx, weights, probs, seed):
     return out
 
 
-def host_profile(fn, top=12):
-    """Where the host's time goes in one call of ``fn`` (ended by a device
-    synchronisation): the ``top`` functions by own time under cProfile, as
-    [file:line(function), calls, own ms, cumulative ms]."""
-    import cProfile
-    import pstats
-
-    import torch
-
-    torch.cuda.synchronize()
-    prof = cProfile.Profile()
-    prof.enable()
-    fn()
-    torch.cuda.synchronize()
-    prof.disable()
-    stats = pstats.Stats(prof).stats
-    rows = sorted(stats.items(), key=lambda kv: -kv[1][2])[:top]
-    return [[f"{os.path.basename(f)}:{line}({name})", calls, tt * 1e3,
-             ct * 1e3] for (f, line, name), (_, calls, tt, ct, _) in rows]
-
-
 def lm_executor(mx, layers, batch, seq, weights, ctx, amp_dtype):
     """The LM bound through ``Executor(..., amp_dtype=...)``, as the
     reference's executor group binds it under ``Module(amp=...)``: fp32
@@ -818,16 +816,14 @@ def phase_amp(mx, weights, seed):
            "tokens_per_s": BATCH * SEQ / (steady / 1e3),
            "launches": launches}
 
-    # one more steady request, traced (after the launch count was read),
-    # and one under cProfile; then the casts of the bound arguments, the
-    # same kernels the request runs first, timed apart on the device to
-    # split them out of the rest
+    # one more steady request, traced (after the launch count was read);
+    # then the casts of the bound arguments, the same kernels the request
+    # runs first, timed apart on the device to split them out of the rest
     traced_ms = []
     by_name = device_ms_by_kernel(lambda: traced_ms.append(
         timed(lambda: exe.forward(data=batches[-1]))[1]))
-    out["host_profile"] = host_profile(lambda: exe.forward(data=batches[-1]))
     out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
-    cast_ms = time_cuda(lambda: [_amp_cast(n, a.data, torch.bfloat16)
+    cast_ms = time_device(lambda: [_amp_cast(n, a.data, torch.bfloat16)
                                  for n, a in exe.arg_dict.items()],
                         reps=3, warmup=1)
     check(by_name, "the profiler recorded device events for one request")
@@ -847,10 +843,7 @@ def phase_amp(mx, weights, seed):
         "device_kernels": len(by_name),
         "top_kernels": [[n[:80], t] for n, t in top]}
     print("  " + json.dumps({k: v for k, v in out.items()
-                             if k not in ("traced_request", "host_profile")}),
-          flush=True)
-    print("  host profile of one request (own ms): " + json.dumps(
-        out["host_profile"]), flush=True)
+                             if k != "traced_request"}), flush=True)
     print("  traced request: " + json.dumps(out["traced_request"]),
           flush=True)
     check(flash_ms > 0 and other_flash == 0,
@@ -897,10 +890,16 @@ def phase_amp(mx, weights, seed):
     # step apart, and a top logit's step shifts its whole row through the
     # normaliser, so the max and the 99.9th percentile read bf16's step
     # (0.21 and 0.13 when only P's rounding in attention differs, on the
-    # CPU); the mean reads the bulk (0.018 there).
+    # CPU); the mean reads the bulk (0.018 there). The tail is held at two
+    # bf16 steps of a logit in [16, 32): a fault in one 64-row Q tile of
+    # the 512 rows moves an eighth of the entries, past the 99.9th
+    # percentile (0.128 on the card).
     check(parity["mean_abs_log_err"] <= 5e-2,
           f"card vs CPU mean abs log-prob err "
           f"{parity['mean_abs_log_err']:.3g} <= 5e-2")
+    check(parity["p999_abs_log_err"] <= 0.25,
+          f"card vs CPU 99.9th percentile abs log-prob err "
+          f"{parity['p999_abs_log_err']:.3g} <= 0.25")
     check(agree >= 0.98, f"argmax agreement {agree:.5f} >= 0.98")
     return out
 
@@ -937,6 +936,8 @@ def main(argv=None):
         "bound_ms": main_case["bound_ms"],
         "bound_by": main_case["bound_by"],
         "library_ms": main_case["library_ms"],
+        "device_ms": main_case["device_ms"],
+        "library_device_ms": main_case["library_device_ms"],
     }]
     tc_case = cases["slice_bf16_causal"]
     kernels.append({
@@ -945,8 +946,7 @@ def main(argv=None):
         "source": "mxnet_tpu_torch/csrc/flash_attention_fwd_tc.cu",
         "replaces": "mxnet_tpu/ops/flash_attention.py:47",
         "launches": amp["launches"]["bfloat16"],
-        **{k: tc_case[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                   "bound_ms", "bound_by", "library_ms")}})
+        **{k: tc_case[k] for k in KERNEL_KEYS}})
     for name, case in (("rtc_axpy", "axpy_logits_fp32"),
                        ("rtc_sgd_mom", "sgd_mom_embedding_fp32")):
         row = rtc_cases[case]
@@ -955,8 +955,7 @@ def main(argv=None):
             "source": "mxnet_tpu_torch/rtc_examples.py",
             "replaces": "mxnet_tpu/rtc.py:41",
             "launches": imperative["launches"][name],
-            **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                   "bound_ms", "bound_by", "library_ms")}})
+            **{k: row[k] for k in KERNEL_KEYS}})
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "build": build, "cases": cases,

@@ -23,8 +23,20 @@ from mxnet_tpu_torch.ops import flash_attention as tfa
 VOCAB, LAYERS, HIDDEN, HEADS, SEQ, BATCH = 512, 2, 64, 4, 32, 2
 SHAPES = {"data": (BATCH, SEQ), "softmax_label": (BATCH, SEQ)}
 # the reference's own bf16 tolerance (tests/test_amp.py,
-# test_amp_bf16_tracks_fp32)
+# test_amp_bf16_tracks_fp32), for single ops with O(1) outputs
 RTOL, ATOL = 2e-2, 2e-2
+# Whole-LM limits on |log p| differences (p about 1/512, log p spread about
+# 1), as (mean, max). On the CPU, seeds 0 and 2, the port's bf16 run reads
+# mean 6.8e-3-7.1e-3, max 4.1e-2-4.3e-2 from the reference's bf16 run:
+# the same gap as either package's bf16 run from its own fp32 run (mean
+# 6.4e-3-7.7e-3, max 3.7e-2-4.8e-2), since XLA on the CPU computes bf16
+# elementwise ops in fp32 and skips some of the roundings the port makes.
+# ``PYTHONPATH=. python tests/test_torch_amp.py`` prints these readings. The
+# limits are about twice them; fp16 (3 more mantissa bits)
+# read mean 8.4e-4-9.4e-4, max 5.4e-3-6.0e-3 from fp32.
+LOGP_LIMITS = {"bfloat16": (1.5e-2, 1e-1), "float16": (2e-3, 1.5e-2),
+               None: (1e-5, 1e-4)}   # fp32 against fp32 reads max 2.9e-6
+ARGMAX_FLOOR = 0.95                  # 62 of 64 rows; the readings 63-64
 
 
 def _lm(pkg):
@@ -53,48 +65,88 @@ def _tokens(seed=1):
 
 
 def _port_probs(weights, tokens, amp_dtype):
+    """The port's Executor on the LM, and each op's output dtypes in its
+    graph walk: under amp every op computes in the amp dtype, except the
+    fp32 softmax and the reshape of the fp32 label."""
+    import mxnet_tpu_torch.executor as texe
+
+    seen = {}
+    get_op = texe.get_op
+
+    class _Spy:
+        def __init__(self, name):
+            self.name, self.op = name, get_op(name)
+
+        def normalized_call(self, *a):
+            outs, aux = self.op.normalized_call(*a)
+            seen.setdefault(self.name, set()).update(
+                _dtype_name(o.dtype) for o in outs)
+            return outs, aux
+
     symbol = _lm(mxt)
     args, _ = mxt.convert.params_from_numpy(weights, {}, mxt.cpu())
     args["data"] = mxt.nd.array(tokens, mxt.cpu(), dtype=np.int32)
     args["softmax_label"] = mxt.nd.zeros(SHAPES["softmax_label"], mxt.cpu())
     exe = mxt.executor.Executor(symbol, mxt.cpu(), args, amp_dtype=amp_dtype)
-    (out,) = exe.forward()
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(texe, "get_op", _Spy)
+        (out,) = exe.forward()
     # the bound fp32 arrays stay fp32 master copies under amp
     assert all(exe.arg_dict[n].dtype == torch.float32 for n in weights)
     assert exe.arg_dict["data"].dtype == torch.int32
-    return out
+    compute = amp_dtype or "float32"
+    want = {op: {compute} for op in seen}
+    want.update(SoftmaxOutput={"float32"}, Reshape={compute, "float32"})
+    assert seen == want
+    assert out.dtype == torch.float32
+    return out.asnumpy()
+
+
+def _jax_probs(weights, tokens, amp_dtype):
+    args = {n: mxj.nd.array(w) for n, w in weights.items()}
+    args["data"] = mxj.nd.array(tokens, dtype=np.int32)
+    args["softmax_label"] = mxj.nd.zeros(SHAPES["softmax_label"])
+    return JExecutor(_lm(mxj), mxj.cpu(), args,
+                     amp_dtype=amp_dtype).forward()[0].asnumpy()
+
+
+def _logp_gap(got, want):
+    """(mean, max) of |log got - log want|, and the share of rows whose
+    argmax agrees."""
+    err = np.abs(np.log(got) - np.log(want))
+    return err.mean(), err.max(), (got.argmax(1) == want.argmax(1)).mean()
+
+
+def _assert_logp_close(got, want, dtype):
+    mean_lim, max_lim = LOGP_LIMITS[dtype]
+    mean, top, agree = _logp_gap(got, want)
+    assert mean <= mean_lim and top <= max_lim, (mean, top)
+    assert agree >= ARGMAX_FLOOR
 
 
 def test_amp_executor_matches_jax_executor(monkeypatch):
     """The LM under bf16 amp, same weights and int32 ids, through both
-    packages' Executors: probabilities within the reference's bf16
-    tolerance, fp32 out of the fp32 softmax, rows summing to 1."""
+    packages' Executors: every op of the port's walk in bf16 but the fp32
+    softmax, and log-probabilities within twice the measured bf16 gap."""
     monkeypatch.delenv("MXTPU_FLASH_ATTENTION", raising=False)
     weights, tokens = _weights(_lm(mxt)), _tokens()
-
-    args = {n: mxj.nd.array(w) for n, w in weights.items()}
-    args["data"] = mxj.nd.array(tokens, dtype=np.int32)
-    args["softmax_label"] = mxj.nd.zeros(SHAPES["softmax_label"])
-    want = JExecutor(_lm(mxj), mxj.cpu(), args,
-                     amp_dtype="bfloat16").forward()[0].asnumpy()
-
+    want = _jax_probs(weights, tokens, "bfloat16")
     got = _port_probs(weights, tokens, "bfloat16")
-    assert got.dtype == torch.float32
-    got = got.asnumpy()
     assert got.shape == want.shape == (BATCH * SEQ, VOCAB)
     np.testing.assert_allclose(got.sum(1), 1.0, atol=1e-5)
-    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+    _assert_logp_close(got, want, "bfloat16")
 
 
 @pytest.mark.parametrize("amp", ["bfloat16", "float16"])
 def test_amp_tracks_fp32(amp):
-    """The port's 16-bit run stays within bf16 tolerance of its fp32 run
-    (the reference's check_consistency-across-dtypes pattern)."""
+    """The port's 16-bit run stays within its type's measured gap of its
+    fp32 run (the reference's check_consistency-across-dtypes pattern),
+    and that fp32 run within 1e-4 of the reference's fp32 Executor."""
     weights, tokens = _weights(_lm(mxt), seed=2), _tokens(seed=3)
-    full = _port_probs(weights, tokens, None).asnumpy()
-    half = _port_probs(weights, tokens, amp).asnumpy()
-    np.testing.assert_allclose(half, full, rtol=RTOL, atol=ATOL)
-    assert (half.argmax(1) == full.argmax(1)).mean() >= 0.95
+    full = _port_probs(weights, tokens, None)
+    _assert_logp_close(full, _jax_probs(weights, tokens, None), None)
+    half = _port_probs(weights, tokens, amp)
+    _assert_logp_close(half, full, amp)
 
 
 @pytest.mark.parametrize("name,dtype,amp,want", [
@@ -221,3 +273,21 @@ def test_cpu_16bit_flash_does_not_count_launches():
     assert tfa.flash_attention.launches == 0
     assert tfa.flash_attention.launches_by_dtype == {
         "float32": 0, "bfloat16": 0, "float16": 0}
+
+
+if __name__ == "__main__":
+    # the readings LOGP_LIMITS was set from: (mean, max, argmax share)
+    for w_seed, t_seed in ((0, 1), (2, 3)):
+        weights = _weights(_lm(mxt), seed=w_seed)
+        tokens = _tokens(seed=t_seed)
+        port = {a: _port_probs(weights, tokens, a)
+                for a in (None, "bfloat16", "float16")}
+        ref = {a: _jax_probs(weights, tokens, a) for a in (None, "bfloat16")}
+        for name, got, want in (
+                ("port bf16 vs jax bf16", port["bfloat16"], ref["bfloat16"]),
+                ("port bf16 vs port fp32", port["bfloat16"], port[None]),
+                ("jax bf16 vs jax fp32", ref["bfloat16"], ref[None]),
+                ("port fp16 vs port fp32", port["float16"], port[None]),
+                ("port fp32 vs jax fp32", port[None], ref[None])):
+            print(f"seed {w_seed}: {name}: "
+                  + " ".join(f"{x:.3g}" for x in _logp_gap(got, want)))

@@ -25,9 +25,11 @@ def _at_offset(x, offset):
 
 
 @pytest.mark.gpu
+# fp16 is held between its own reading and the bf16 kernel's (1.1e-3 and
+# 8.1e-3 at the LM's shape), so an fp16 path at bf16's precision fails
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 2e-2),
-                                       (torch.float16, 1e-2)])
+                                       (torch.float16, 3e-3)])
 @pytest.mark.parametrize("causal,q_offset,t_q,t_k,d,offset", [
     (True, 0, 256, 256, 64, 0), (True, 64, 200, 264, 64, 0),
     (False, 0, 100, 70, 32, 0), (True, 0, 128, 128, 128, 0),
