@@ -12,10 +12,10 @@ the run with a non-zero exit and no result line:
 3. kernel vs plain: the flash-attention kernels against their plain version
    at the main path's shape, at ragged shapes with ``q_offset``, at head
    dims 128 and 50 (the 4-byte copy path in fp32, the element-wise path of
-   the tensor-core kernel in bf16), in fp32 (CUDA cores), bf16 and fp16
-   (tensor cores), timed per call (as in earlier slices) and on the device
-   alone, beside the plain version and a library attention call, with its
-   share of the bound;
+   the tensor-core kernel in bf16) and 256 (the split over d), in fp32
+   (CUDA cores), bf16 and fp16 (tensor cores), timed per call (as in
+   earlier slices) and on the device alone, beside the plain version and a
+   library attention call, with its share of the bound;
 4. the slice: a Predictor bound at data=(2, 2048) on cuda:0 answers 4
    requests; probabilities checked and the kernel's launches counted; one
    more steady request under ``torch.profiler`` splits the device time into
@@ -25,9 +25,11 @@ the run with a non-zero exit and no result line:
    probabilities and in log-probabilities;
 6. rtc kernel vs plain: the two user kernels compiled through NVRTC
    (``mxnet_tpu_torch/rtc_examples.py``): axpy through ``CudaKernel`` at the
-   phase-4 logits shape and at a ragged size (exact), and SGD-momentum
-   through ``Rtc`` over the (32768, 1024) embedding (<= 1e-6), timed beside
-   their plain versions and the library call where there is one;
+   phase-4 logits shape in fp32 and bf16, at a ragged size and on inputs
+   viewed at a 4-byte offset (exact), and SGD-momentum through ``Rtc`` over
+   the (32768, 1024) embedding (<= 1e-6), timed beside their plain
+   versions and the library call where there is one; and the host's
+   microseconds per launch of each front end;
 7. the imperative path at full width: ``mx.random`` draws the LM's 220.3 M
    parameters, gradients and momenta on the card; one ``mx.nd.sgd_mom_update``
    and one ``mx.nd.adam_update`` over every parameter; the Rtc SGD-momentum
@@ -35,13 +37,16 @@ the run with a non-zero exit and no result line:
    phase-4 log-probabilities, held to the CPU on one row block; and a
    ``CustomOp`` that pushes the axpy kernel, imperatively and in a Symbol
    through ``Executor.forward``. Kernel launches are counted over this run;
+   the Rtc pass reports the device's busy time beside the host's;
 8. the amp path: the phase-4 weights bound through
    ``Executor(..., amp_dtype="bfloat16")`` with int32 token ids answer 4
    requests of 2 x 2048 tokens; probabilities checked, the tensor-core
    kernel's launches counted (12 a request, none of the fp32 kernel); one
    more request traced into flash, GEMMs, the amp casts and the rest, beside
    the idle share; then bf16 on the card against bf16 on the CPU at depth 2
-   (batch 1, T 512).
+   (batch 1, T 512), and int32 ids above 256 fed into a float32-bound
+   ``data`` against the same feed bound as int32 (the ids must not round
+   in bf16).
 
 Run from the repo root: ``python3 chip_smoke.py [--seed N]``.
 The last line of standard output is ``{"ok": true, "device": {...}}``.
@@ -284,6 +289,13 @@ def phase_kernel_vs_plain(seed):
         # d = 50: rows of 100 bytes, the element-wise load path
         ("ragged_d50_bf16_causal", (BATCH, 1500, HEADS, 50), 1500, True, 0,
          torch.bfloat16, 2e-2),
+        # head dim 256 (hidden 1024 in 4 heads): the split-over-d kernels
+        ("d256_fp32_causal", (BATCH, SEQ, HEADS // 4, 256), SEQ, True, 0,
+         torch.float32, 1e-4),
+        ("d256_bf16_causal", (BATCH, SEQ, HEADS // 4, 256), SEQ, True, 0,
+         torch.bfloat16, 2e-2),
+        ("d256_fp16_causal", (BATCH, SEQ, HEADS // 4, 256), SEQ, True, 0,
+         torch.float16, 3e-3),
     ]
     results = {}
     for i, (name, shp, t_k, causal, q_off, dtype, tol) in enumerate(cases):
@@ -535,19 +547,28 @@ def phase_rtc_vs_plain(seed):
     print(f"  NVRTC {rtc.nvrtc_version()}, target {rtc.ARCH}", flush=True)
     g = torch.Generator(device="cuda").manual_seed(seed + 6)
     results = {}
-    axpy = ex.axpy_kernel("float32")
-    for name, shape in (("axpy_logits_fp32", (BATCH * SEQ, VOCAB)),
-                        ("axpy_ragged_fp32", (1000003,))):
-        x = torch.randn(shape, generator=g, device="cuda")
-        y = torch.randn(shape, generator=g, device="cuda")
+    for name, shape, dtype, offset in (
+            ("axpy_logits_fp32", (BATCH * SEQ, VOCAB), "float32", 0),
+            ("axpy_ragged_fp32", (1000003,), "float32", 0),
+            ("axpy_logits_bf16", (BATCH * SEQ, VOCAB), "bfloat16", 0),
+            # inputs at a 4-byte offset, the output aligned: no 16-byte
+            # vector serves all three, the scalar loop runs
+            ("axpy_offset_fp32", (BATCH * SEQ * VOCAB,), "float32", 1)):
+        axpy = ex.axpy_kernel(dtype)
+        tdt = getattr(torch, dtype)
+        x, y = (_at_offset(torch.randn(shape, generator=g, device="cuda")
+                           .to(tdt), offset) for _ in range(2))
         got = axpy(x, y)
         torch.cuda.synchronize()
-        err = float((got - ex.axpy_reference(x, y)).abs().max())
+        err = float((got.float() - ex.axpy_reference(x, y).float())
+                    .abs().max())
         n = x.numel()
-        bound_ms, bound_by = bytes_bound(3 * 4 * n, 2 * n)
-        row = {"case": name, "shape": list(shape), "dtype": "float32",
+        bound_ms, bound_by = bytes_bound(3 * x.element_size() * n, 2 * n)
+        row = {"case": name, "shape": list(shape), "dtype": dtype,
+               "offset_bytes": offset * x.element_size(),
                "max_abs_err": err, "tol": 0.0,
                "compile_s": axpy.compile_s,
+               "launch": ex.axpy_dims(n, x.element_size()),
                "ms": time_cuda(lambda: axpy(x, y)),
                "plain_ms": time_cuda(lambda: ex.axpy_reference(x, y)),
                # yardstick only: one library call for 2x + y
@@ -556,6 +577,8 @@ def phase_rtc_vs_plain(seed):
                "library_device_ms": time_device(
                    lambda: torch.add(y, x, alpha=2.0)),
                "bound_ms": bound_ms, "bound_by": bound_by}
+        row["frac_of_bound"] = bound_ms / row["device_ms"]
+        row["vs_library_device"] = row["device_ms"] / row["library_device_ms"]
         print("  " + json.dumps(row), flush=True)
         check(err == 0.0, f"{name}: axpy exact against 2x + y (err {err})")
         results[name] = row
@@ -585,8 +608,50 @@ def phase_rtc_vs_plain(seed):
           f"{err:.3g} <= 1e-6")
     results["sgd_mom_embedding_fp32"] = row
     del w, gr, m, w2, m2, want_w, want_m
+
+    # the launch path: host microseconds a launch on 4096 elements, where
+    # the device's work is shorter than the host's
+    xs, ys = (torch.randn(4096, generator=g, device="cuda")
+              for _ in range(2))
+    axpy = ex.axpy_kernel("float32")
+    sgd = ex.sgd_mom_rtc(xs, ys.clone(), ys.clone())
+    ws, ms_ = ys.clone(), ys.clone()
+    host = {"cuda_kernel_axpy_us": host_us_per_launch(lambda: axpy(xs, ys)),
+            "rtc_sgd_mom_push_us": host_us_per_launch(
+                lambda: sgd.push([xs], [ws, ms_]))}
+    print("  host per launch: " + json.dumps(host), flush=True)
+    results["host_per_launch"] = host
     torch.cuda.empty_cache()
     return results
+
+
+def _at_offset(x, offset):
+    """``x`` copied into a contiguous view ``offset`` elements into a
+    buffer (at offset 1 its base is not 16-byte aligned)."""
+    if not offset:
+        return x
+    import torch
+
+    buf = torch.empty(x.numel() + offset, dtype=x.dtype, device=x.device)
+    view = buf[offset:].view(x.shape)
+    view.copy_(x)
+    return view
+
+
+def host_us_per_launch(fn, reps=300, warmup=20):
+    """Host microseconds of one call of ``fn``: the mean over ``reps``
+    calls queued back to back, with no synchronisation among them."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    us = (time.perf_counter() - t) / reps * 1e6
+    torch.cuda.synchronize()
+    return us
 
 
 def _chain(mx, logp, embed):
@@ -662,9 +727,15 @@ def phase_imperative(mx, weights, probs, seed):
     out["rtc_vs_op_max_abs_err"] = err
     check(err <= 1e-6, f"Rtc sgd_mom over {len(shapes)} parameters vs "
           f"mx.nd.sgd_mom_update: max abs err {err:.3g} <= 1e-6")
-    # again, compiled: the pass's steady host time
-    _, out["rtc_sgd_mom_pass_steady_ms"] = timed(lambda: [
-        sgd_rtc.push([g[n]], list(copies[n])) for n in shapes])
+    # again, compiled: the pass's steady host time, and the device's busy
+    # time over a third pass
+    def rtc_pass():
+        return [sgd_rtc.push([g[n]], list(copies[n])) for n in shapes]
+
+    _, out["rtc_sgd_mom_pass_steady_ms"] = timed(rtc_pass)
+    out["rtc_sgd_mom_pass_device_busy_ms"] = device_busy_ms(rtc_pass)
+    out["rtc_sgd_mom_push_us"] = \
+        out["rtc_sgd_mom_pass_steady_ms"] * 1e3 / len(shapes)
     del copies, new
     mean = {n: mx.nd.zeros(s, gpu) for n, s in shapes.items()}
     var = {n: mx.nd.zeros(s, gpu) for n, s in shapes.items()}
@@ -744,9 +815,9 @@ def phase_imperative(mx, weights, probs, seed):
           "equal 2x + y")
     out["launches"] = {"rtc_sgd_mom": sgd_rtc.launches,
                        "rtc_axpy": axpy.launches}
-    check(sgd_rtc.launches == 2 * len(shapes) and axpy.launches == 2,
+    check(sgd_rtc.launches == 3 * len(shapes) and axpy.launches == 2,
           f"kernel launches on this path: sgd_mom {sgd_rtc.launches} == "
-          f"2 x {len(shapes)}, axpy {axpy.launches} == 2")
+          f"3 x {len(shapes)}, axpy {axpy.launches} == 2")
     out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
     print("  " + json.dumps(out), flush=True)
     del w, imperative, graph
@@ -754,11 +825,12 @@ def phase_imperative(mx, weights, probs, seed):
     return out
 
 
-def lm_executor(mx, layers, batch, seq, weights, ctx, amp_dtype):
+def lm_executor(mx, layers, batch, seq, weights, ctx, amp_dtype,
+                data_dtype="int32"):
     """The LM bound through ``Executor(..., amp_dtype=...)``, as the
     reference's executor group binds it under ``Module(amp=...)``: fp32
-    weights (the first ``seq`` learned positions), int32 token ids and an
-    fp32 label."""
+    weights (the first ``seq`` learned positions), token ids bound as
+    ``data_dtype`` and an fp32 label."""
     symbol = mx.models.transformer_lm.get_symbol(
         vocab_size=VOCAB, num_layers=layers, hidden=HIDDEN, heads=HEADS,
         seq_len=seq)
@@ -767,7 +839,7 @@ def lm_executor(mx, layers, batch, seq, weights, ctx, amp_dtype):
     params = {n: weights[n] for n in names}
     params["transformer_pos_weight"] = params["transformer_pos_weight"][:seq]
     args, _ = mx.convert.params_from_numpy(params, {}, ctx)
-    args["data"] = mx.nd.zeros(shapes["data"], ctx, dtype="int32")
+    args["data"] = mx.nd.zeros(shapes["data"], ctx, dtype=data_dtype)
     args["softmax_label"] = mx.nd.zeros(shapes["softmax_label"], ctx)
     return mx.executor.Executor(symbol, ctx, args, amp_dtype=amp_dtype)
 
@@ -901,6 +973,31 @@ def phase_amp(mx, weights, seed):
           f"card vs CPU 99.9th percentile abs log-prob err "
           f"{parity['p999_abs_log_err']:.3g} <= 0.25")
     check(agree >= 0.98, f"argmax agreement {agree:.5f} >= 0.98")
+
+    # int32 ids above 256 fed into a float32-bound data: the feed rebinds
+    # data, so the ids reach the embedding unrounded (bf16 holds integers
+    # exactly only up to 256), as when data is bound as int32
+    x = np.random.default_rng(seed + 10).integers(
+        256, VOCAB, (1, AMP_CPU_SEQ)).astype(np.int32)
+    fed = {}
+    for data_dtype in ("float32", "int32"):
+        exe = lm_executor(mx, 2, 1, AMP_CPU_SEQ, weights, mx.gpu(0),
+                          "bfloat16", data_dtype)
+        (res,) = exe.forward(data=x)
+        fed[data_dtype] = (res.asnumpy(), str(exe.arg_dict["data"].dtype))
+        del exe, res
+    torch.cuda.empty_cache()
+    agree = float((fed["float32"][0].argmax(1)
+                   == fed["int32"][0].argmax(1)).mean())
+    out["fed_ids"] = {"argmax_agreement": agree,
+                      "max_abs_err": float(np.abs(fed["float32"][0]
+                                                  - fed["int32"][0]).max()),
+                      "bound_dtype_after_feed": fed["float32"][1]}
+    print("  int32 ids fed into float32-bound data vs int32-bound: "
+          + json.dumps(out["fed_ids"]), flush=True)
+    check(agree == 1.0 and fed["float32"][1] == "torch.int32",
+          f"fed int32 ids: data rebound as {fed['float32'][1]}, argmax "
+          f"agreement with the int32 binding {agree} == 1")
     return out
 
 

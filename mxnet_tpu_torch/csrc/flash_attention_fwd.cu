@@ -55,7 +55,8 @@
 //     dynamic-size attribute is set once per device and instantiation, not
 //     at every launch;
 //   * head dims: D=32/64/128 instantiations; any d <= 128 runs in the
-//     smallest that holds it, the columns past d zero in shared memory.
+//     smallest that holds it, the columns past d zero in shared memory. A
+//     d above 128 runs flash_fwd_f32_split, a split over d (below).
 //   The tile sizes were chosen on the card among 64/128 Q rows and 32/64
 //   keys (mxnet_tpu_torch/tools/flash_tile_sweep.py; PERF.md).
 // Measured on an H100 SXM at 700 W: 0.54-0.58 ms at the shape above, 44-48 %
@@ -337,6 +338,214 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+// ------------------------------------------------- fp32, head dim > 128
+
+// flash_fwd_f32_split: any d > 128, split over d. The output's columns go
+// in chunks of S_DC = 128 on gridDim.z; each block accumulates S = Q K^T
+// over the 128-wide d-chunks of Q and K, staged through shared memory one
+// chunk at a time, then adds P V for its own chunk of V's columns. The
+// thread layout, online softmax and masks are flash_fwd_f32's at 64 Q rows
+// and 128 columns. Each of the ceil(d / 128) column chunks computes S
+// again, and the copies of a K/V tile do not overlap its compute: this
+// path is right for any d, not tuned. Shared memory: Q, K and V chunks and
+// P, 77.8 KB.
+constexpr int S_DC = 128;   // d-chunk width
+constexpr int S_BQ = 64;    // Q rows per block
+
+constexpr size_t f32_split_smem_bytes() {
+  return sizeof(float) * ((size_t)(S_BQ + 2 * F_BK) * (S_DC + F_PAD) +
+                          (size_t)S_BQ * P_STRIDE);
+}
+
+template <int VEC>
+__global__ void __launch_bounds__(F_THREADS)
+flash_fwd_f32_split(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, float* __restrict__ o,
+                    int t_q, int t_k, int heads, int d, float scale_log2,
+                    int causal, int q_offset) {
+  constexpr int MI = S_BQ / 16;   // score and output rows per thread
+  constexpr int DS = S_DC + F_PAD;
+  constexpr int NG = S_DC / 32;   // float4 output column groups per thread
+  extern __shared__ float4 smem4[];
+  float* q_s = reinterpret_cast<float*>(smem4);  // S_BQ x DS, one d-chunk
+  float* k_s = q_s + S_BQ * DS;    // F_BK x DS, one d-chunk
+  float* v_s = k_s + F_BK * DS;    // F_BK x DS, this block's columns
+  float* p_s = v_s + F_BK * DS;    // S_BQ x P_STRIDE
+
+  const int tx = threadIdx.x & 7;
+  const int ty = threadIdx.x >> 3;
+  const int bh = blockIdx.x;
+  const int q_tile = gridDim.y - 1 - blockIdx.y;   // heaviest causal first
+  const int c_out = blockIdx.z * S_DC;   // first output column of the block
+  const int b = bh / heads;
+  const int h = bh % heads;
+  const int q0 = q_tile * S_BQ;
+  const int rs = heads * d;
+  const int n_dc = (d + S_DC - 1) / S_DC;
+
+  const float* q_bh = q + ((int64_t)b * t_q * heads + h) * d;
+  const float* k_bh = k + ((int64_t)b * t_k * heads + h) * d;
+  const float* v_bh = v + ((int64_t)b * t_k * heads + h) * d;
+  float* o_bh = o + ((int64_t)b * t_q * heads + h) * d;
+
+  int n_tiles = (t_k + F_BK - 1) / F_BK;
+  if (causal) {
+    const int last = q_offset + min(q0 + S_BQ, t_q) - 1;
+    n_tiles = min(n_tiles, last / F_BK + 1);
+  }
+
+  float acc[MI][NG][4];
+  float m[MI], l[MI];
+#pragma unroll
+  for (int i = 0; i < MI; ++i) {
+    m[i] = MASKED;
+    l[i] = 0.f;
+#pragma unroll
+    for (int g = 0; g < NG; ++g)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][g][e] = 0.f;
+  }
+
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    const int k0 = kt * F_BK;
+    float s[MI][NJ];
+#pragma unroll
+    for (int i = 0; i < MI; ++i)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) s[i][j] = 0.f;
+    for (int dc = 0; dc < n_dc; ++dc) {
+      const int c0 = dc * S_DC;
+      // every thread is done with the last chunk, and with the last
+      // tile's V and P
+      __syncthreads();
+      stage_tile<S_BQ, S_DC, VEC>(q_s, q_bh + c0, q0, t_q, rs, d - c0);
+      stage_tile<F_BK, S_DC, VEC>(k_s, k_bh + c0, k0, t_k, rs, d - c0);
+      if (dc == 0)
+        stage_tile<F_BK, S_DC, VEC>(v_s, v_bh + c_out, k0, t_k, rs,
+                                    d - c_out);
+      cp_async_commit();
+      cp_async_wait_all();
+      __syncthreads();
+#pragma unroll 4
+      for (int c = 0; c < S_DC; c += 4) {
+        float4 qv[MI];
+#pragma unroll
+        for (int i = 0; i < MI; ++i)
+          qv[i] =
+              *reinterpret_cast<const float4*>(q_s + (ty + 16 * i) * DS + c);
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          const float4 kv =
+              *reinterpret_cast<const float4*>(k_s + (tx + 8 * j) * DS + c);
+#pragma unroll
+          for (int i = 0; i < MI; ++i) {
+            s[i][j] = fmaf(qv[i].x, kv.x, s[i][j]);
+            s[i][j] = fmaf(qv[i].y, kv.y, s[i][j]);
+            s[i][j] = fmaf(qv[i].z, kv.z, s[i][j]);
+            s[i][j] = fmaf(qv[i].w, kv.w, s[i][j]);
+          }
+        }
+      }
+    }
+
+    // online softmax in the log2 domain, as in flash_fwd_f32
+    const bool edge =
+        k0 + F_BK > t_k || (causal && q_offset + q0 < k0 + F_BK - 1);
+#pragma unroll
+    for (int i = 0; i < MI; ++i) {
+      const int row = q_offset + q0 + ty + 16 * i;
+      float mx = __int_as_float(0xff800000);
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        float x = s[i][j] * scale_log2;
+        if (edge) {
+          const int col = k0 + tx + 8 * j;
+          if (col >= t_k) {
+            x = __int_as_float(0xff800000);
+          } else if (causal && row < col) {
+            x = MASKED;
+          }
+        }
+        s[i][j] = x;
+        mx = fmaxf(mx, x);
+      }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+      const float m_new = fmaxf(m[i], mx);
+      const float corr = exp2f(m[i] - m_new);
+      m[i] = m_new;
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const float p = exp2f(s[i][j] - m_new);
+        sum += p;
+        p_s[(ty + 16 * i) * P_STRIDE + tx + 8 * j] = p;
+      }
+      l[i] = l[i] * corr + sum;
+#pragma unroll
+      for (int g = 0; g < NG; ++g)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][g][e] *= corr;
+    }
+    __syncthreads();   // P is in
+
+#pragma unroll
+    for (int j = 0; j < F_BK; j += 4) {
+      float4 pv[MI];
+#pragma unroll
+      for (int i = 0; i < MI; ++i)
+        pv[i] = *reinterpret_cast<const float4*>(
+            p_s + (ty + 16 * i) * P_STRIDE + j);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+#pragma unroll
+        for (int g = 0; g < NG; ++g) {
+          const float4 vv = *reinterpret_cast<const float4*>(
+              v_s + (j + u) * DS + 32 * g + 4 * tx);
+#pragma unroll
+          for (int i = 0; i < MI; ++i) {
+            const float p = u == 0 ? pv[i].x
+                          : u == 1 ? pv[i].y
+                          : u == 2 ? pv[i].z
+                                   : pv[i].w;
+            acc[i][g][0] = fmaf(p, vv.x, acc[i][g][0]);
+            acc[i][g][1] = fmaf(p, vv.y, acc[i][g][1]);
+            acc[i][g][2] = fmaf(p, vv.z, acc[i][g][2]);
+            acc[i][g][3] = fmaf(p, vv.w, acc[i][g][3]);
+          }
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < MI; ++i) {
+    float li = l[i];
+    li += __shfl_xor_sync(0xffffffffu, li, 1);
+    li += __shfl_xor_sync(0xffffffffu, li, 2);
+    li += __shfl_xor_sync(0xffffffffu, li, 4);
+    const int r = q0 + ty + 16 * i;
+    if (r >= t_q) continue;
+    const float inv = 1.f / fmaxf(li, 1e-20f);
+    float* o_row = o_bh + (int64_t)r * rs;
+#pragma unroll
+    for (int g = 0; g < NG; ++g) {
+      const int col = c_out + 32 * g + 4 * tx;
+      if constexpr (VEC == 16) {
+        if (col < d)
+          *reinterpret_cast<float4*>(o_row + col) =
+              make_float4(acc[i][g][0] * inv, acc[i][g][1] * inv,
+                          acc[i][g][2] * inv, acc[i][g][3] * inv);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (col + e < d) o_row[col + e] = acc[i][g][e] * inv;
+      }
+    }
+  }
+}
+
 // ---------------------------------------------------------------- launch
 
 // Let `kernel` use `bytes` of dynamic shared memory on the current device;
@@ -378,10 +587,30 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
 }
 
 template <int VEC>
+cudaError_t launch_f32_split(const void* q, const void* k, const void* v,
+                             void* o, int batch, int t_q, int t_k, int heads,
+                             int d, float scale, int causal, int q_offset,
+                             cudaStream_t stream) {
+  static std::atomic<uint64_t> smem_set{0};
+  constexpr size_t smem = f32_split_smem_bytes();
+  cudaError_t err = allow_smem(flash_fwd_f32_split<VEC>, smem, smem_set);
+  if (err != cudaSuccess) return err;
+  dim3 grid(batch * heads, (t_q + S_BQ - 1) / S_BQ, (d + S_DC - 1) / S_DC);
+  flash_fwd_f32_split<VEC><<<grid, F_THREADS, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), t_q, t_k, heads,
+      d, scale * LOG2E, causal, q_offset);
+  return cudaGetLastError();
+}
+
+template <int VEC>
 cudaError_t dispatch_f32(const void* q, const void* k, const void* v, void* o,
                          int batch, int t_q, int t_k, int heads, int d,
                          float scale, int causal, int q_offset,
                          cudaStream_t stream) {
+  if (d > S_DC)
+    return launch_f32_split<VEC>(q, k, v, o, batch, t_q, t_k, heads, d, scale,
+                                 causal, q_offset, stream);
   if (d <= 32)
     return launch_f32<32, VEC>(q, k, v, o, batch, t_q, t_k, heads, d, scale,
                                causal, q_offset, stream);
@@ -405,9 +634,12 @@ extern "C" int mxtt_flash_attention_fwd(const void* q, const void* k,
                                         float scale, int causal, int q_offset,
                                         int dtype, int copy_bytes,
                                         void* stream) {
-  if (batch <= 0 || t_q <= 0 || t_k <= 0 || heads <= 0 || d <= 0 || d > 128 ||
-      q_offset < 0 || dtype != 0 || (int64_t)batch * heads > 65535 ||
-      (t_q + 63) / 64 > 65535 || (copy_bytes != 16 && copy_bytes != 4))
+  // grid: batch * heads on x (< 2^31), Q tiles of at least 64 rows on y and
+  // 128-wide d-chunks on z (each <= 65535)
+  if (batch <= 0 || t_q <= 0 || t_k <= 0 || heads <= 0 || d <= 0 ||
+      q_offset < 0 || dtype != 0 || (int64_t)batch * heads > INT32_MAX ||
+      (t_q + 63) / 64 > 65535 || (d + S_DC - 1) / S_DC > 65535 ||
+      (copy_bytes != 16 && copy_bytes != 4))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (copy_bytes == 4)

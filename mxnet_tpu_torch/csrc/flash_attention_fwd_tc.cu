@@ -61,7 +61,8 @@
 //     dynamic-size attribute is set once per device and instantiation;
 //   * head dims: D=32/64/128 instantiations for each of bf16 and fp16; any
 //     d <= 128 runs in the smallest that holds it, the columns past d zero
-//     in shared memory.
+//     in shared memory; a d above 128 runs flash_fwd_tc_split, a split
+//     over d (below).
 // Precision: S and O accumulate in fp32, as in the JAX kernel, but P is
 // rounded to the 16-bit input type before P V, where the JAX kernel keeps p
 // in fp32 (mxnet_tpu/ops/flash_attention.py:69,72). The row sum l is taken
@@ -421,6 +422,200 @@ flash_fwd_tc(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
   }
 }
 
+// ------------------------------------------------------ head dim > 128
+
+// flash_fwd_tc_split: any d > 128, split over d. The output's columns go in
+// chunks of DC = 128 on gridDim.z; each block accumulates S = Q K^T over the
+// 128-wide d-chunks of Q and K, staged through shared memory one chunk at a
+// time (Q's A fragments are read again from shared memory for every
+// chunk), then adds P V for its own chunk of V's columns. Warps, fragments,
+// online softmax and masks are flash_fwd_tc's at D=128. Each of the
+// ceil(d / 128) column chunks computes S again, and the copies of a K/V
+// tile do not overlap its compute: this path is right for any d, not
+// tuned. Shared memory: Q, K and V chunks, 51 KB.
+constexpr int DC = 128;   // d-chunk width
+
+constexpr size_t split_smem_bytes() {
+  return sizeof(uint16_t) * (size_t)(BQ + 2 * BK) * (DC + PAD);
+}
+
+template <typename T, int VEC>
+__global__ void __launch_bounds__(THREADS)
+flash_fwd_tc_split(const uint16_t* __restrict__ q,
+                   const uint16_t* __restrict__ k,
+                   const uint16_t* __restrict__ v, uint16_t* __restrict__ o,
+                   int t_q, int t_k, int heads, int d, float scale_log2,
+                   int causal, int q_offset) {
+  constexpr int DS = DC + PAD;   // shared row stride, elements
+  constexpr int KS = DC / 16;    // k-steps of Q K^T per d-chunk
+  constexpr int NS = BK / 8;     // 8-column n-tiles of S
+  constexpr int NO = DC / 8;     // 8-column n-tiles of this block's O
+  extern __shared__ uint4 smem16[];
+  uint16_t* q_s = reinterpret_cast<uint16_t*>(smem16);  // BQ x DS, a chunk
+  uint16_t* k_s = q_s + BQ * DS;   // BK x DS, a chunk
+  uint16_t* v_s = k_s + BK * DS;   // BK x DS, this block's columns
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = lane >> 2;
+  const int tq = lane & 3;
+  const int bh = blockIdx.x;
+  const int q_tile = gridDim.y - 1 - blockIdx.y;   // heaviest causal first
+  const int c_out = blockIdx.z * DC;   // first output column of the block
+  const int b = bh / heads;
+  const int h = bh % heads;
+  const int q0 = q_tile * BQ;
+  const int rs = heads * d;
+  const int n_dc = (d + DC - 1) / DC;
+
+  const uint16_t* q_bh = q + ((int64_t)b * t_q * heads + h) * d;
+  const uint16_t* k_bh = k + ((int64_t)b * t_k * heads + h) * d;
+  const uint16_t* v_bh = v + ((int64_t)b * t_k * heads + h) * d;
+  uint16_t* o_bh = o + ((int64_t)b * t_q * heads + h) * d;
+
+  int n_tiles = (t_k + BK - 1) / BK;
+  if (causal) {
+    const int last = q_offset + min(q0 + BQ, t_q) - 1;
+    n_tiles = min(n_tiles, last / BK + 1);
+  }
+
+  const int lr = lane & 7;
+  const int l8 = (lane >> 3) & 1;
+  const int l16 = lane >> 4;
+
+  float acc[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  float m[2] = {MASKED, MASKED};
+  float l[2] = {0.f, 0.f};
+  const int row_g = q_offset + q0 + warp * 16 + g;
+
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    const int k0 = kt * BK;
+    float s[NS][4];
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+    for (int dc = 0; dc < n_dc; ++dc) {
+      const int c0 = dc * DC;
+      // every thread is done with the last chunk, and with the last
+      // tile's V
+      __syncthreads();
+      stage_tile<BQ, DC, VEC>(q_s, q_bh + c0, q0, t_q, rs, d - c0);
+      stage_tile<BK, DC, VEC>(k_s, k_bh + c0, k0, t_k, rs, d - c0);
+      if (dc == 0)
+        stage_tile<BK, DC, VEC>(v_s, v_bh + c_out, k0, t_k, rs, d - c_out);
+      cp_async_commit();
+      cp_async_wait_all();
+      __syncthreads();
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        uint32_t qf[4];
+        ldmatrix_x4(qf, smem_addr(q_s + (warp * 16 + lr + 8 * l8) * DS +
+                                  ks * 16 + 8 * l16));
+#pragma unroll
+        for (int n = 0; n < NS; n += 2) {
+          uint32_t kf[4];
+          ldmatrix_x4(kf, smem_addr(k_s + (n * 8 + lr + 8 * l16) * DS +
+                                    ks * 16 + 8 * l8));
+          mma16816<T>(s[n], qf, kf[0], kf[1]);
+          mma16816<T>(s[n + 1], qf, kf[2], kf[3]);
+        }
+      }
+    }
+
+    // online softmax in the log2 domain, as in flash_fwd_tc
+    const bool edge = k0 + BK > t_k || (causal && q_offset + q0 < k0 + BK - 1);
+    float mx[2] = {neg_inf(), neg_inf()};
+#pragma unroll
+    for (int n = 0; n < NS; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[n][e] * scale_log2;
+        if (edge) {
+          const int col = k0 + n * 8 + 2 * tq + (e & 1);
+          const int row = row_g + 8 * (e >> 1);
+          if (col >= t_k) {
+            x = neg_inf();
+          } else if (causal && row < col) {
+            x = MASKED;
+          }
+        }
+        s[n][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    }
+    float corr[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      const float m_new = fmaxf(m[i], mx[i]);
+      corr[i] = exp2f(m[i] - m_new);
+      m[i] = m_new;
+      l[i] *= corr[i];
+    }
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      acc[n][0] *= corr[0];
+      acc[n][1] *= corr[0];
+      acc[n][2] *= corr[1];
+      acc[n][3] *= corr[1];
+    }
+
+#pragma unroll
+    for (int j = 0; j < BK / 16; ++j) {
+      uint32_t pf[4];
+#pragma unroll
+      for (int t = 0; t < 2; ++t) {
+        const float p0 = exp2f(s[2 * j + t][0] - m[0]);
+        const float p1 = exp2f(s[2 * j + t][1] - m[0]);
+        const float p2 = exp2f(s[2 * j + t][2] - m[1]);
+        const float p3 = exp2f(s[2 * j + t][3] - m[1]);
+        l[0] += p0 + p1;
+        l[1] += p2 + p3;
+        pf[2 * t] = pack2<T>(p0, p1);
+        pf[2 * t + 1] = pack2<T>(p2, p3);
+      }
+#pragma unroll
+      for (int n = 0; n < NO; n += 2) {
+        uint32_t vf[4];
+        ldmatrix_x4_trans(vf, smem_addr(v_s + (j * 16 + lr + 8 * l8) * DS +
+                                        n * 8 + 8 * l16));
+        mma16816<T>(acc[n], pf, vf[0], vf[1]);
+        mma16816<T>(acc[n + 1], pf, vf[2], vf[3]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float li = l[i];
+    li += __shfl_xor_sync(0xffffffffu, li, 1);
+    li += __shfl_xor_sync(0xffffffffu, li, 2);
+    const int r = q0 + warp * 16 + g + 8 * i;
+    if (r >= t_q) continue;
+    const float inv = 1.f / fmaxf(li, 1e-20f);
+    uint16_t* o_row = o_bh + (int64_t)r * rs;
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      const int col = c_out + n * 8 + 2 * tq;
+      const float x0 = acc[n][2 * i] * inv;
+      const float x1 = acc[n][2 * i + 1] * inv;
+      if constexpr (VEC == 16) {
+        if (col < d)
+          *reinterpret_cast<uint32_t*>(o_row + col) = pack2<T>(x0, x1);
+      } else {
+        if (col < d) o_row[col] = to_bits<T>(x0);
+        if (col + 1 < d) o_row[col + 1] = to_bits<T>(x1);
+      }
+    }
+  }
+}
+
 // ---------------------------------------------------------------- launch
 
 // Let `kernel` use `bytes` of dynamic shared memory on the current device;
@@ -461,10 +656,30 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 }
 
 template <typename T, int VEC>
+cudaError_t launch_split(const void* q, const void* k, const void* v, void* o,
+                         int batch, int t_q, int t_k, int heads, int d,
+                         float scale, int causal, int q_offset,
+                         cudaStream_t stream) {
+  static std::atomic<uint64_t> smem_set{0};
+  constexpr size_t smem = split_smem_bytes();
+  cudaError_t err = allow_smem(flash_fwd_tc_split<T, VEC>, smem, smem_set);
+  if (err != cudaSuccess) return err;
+  dim3 grid(batch * heads, (t_q + BQ - 1) / BQ, (d + DC - 1) / DC);
+  flash_fwd_tc_split<T, VEC><<<grid, THREADS, smem, stream>>>(
+      static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(k),
+      static_cast<const uint16_t*>(v), static_cast<uint16_t*>(o), t_q, t_k,
+      heads, d, scale * LOG2E, causal, q_offset);
+  return cudaGetLastError();
+}
+
+template <typename T, int VEC>
 cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o,
                        int batch, int t_q, int t_k, int heads, int d,
                        float scale, int causal, int q_offset,
                        cudaStream_t stream) {
+  if (d > DC)
+    return launch_split<T, VEC>(q, k, v, o, batch, t_q, t_k, heads, d, scale,
+                                causal, q_offset, stream);
   if (d <= 32)
     return launch<T, 32, VEC>(q, k, v, o, batch, t_q, t_k, heads, d, scale,
                               causal, q_offset, stream);
@@ -501,10 +716,12 @@ extern "C" int mxtt_flash_attention_fwd_tc(const void* q, const void* k,
                                            float scale, int causal,
                                            int q_offset, int dtype,
                                            int copy_bytes, void* stream) {
-  if (batch <= 0 || t_q <= 0 || t_k <= 0 || heads <= 0 || d <= 0 || d > 128 ||
+  // grid: batch * heads on x (< 2^31), 64-row Q tiles on y and 128-wide
+  // d-chunks on z (each <= 65535)
+  if (batch <= 0 || t_q <= 0 || t_k <= 0 || heads <= 0 || d <= 0 ||
       q_offset < 0 || (dtype != 1 && dtype != 2) ||
-      (int64_t)batch * heads > 65535 || (t_q + BQ - 1) / BQ > 65535 ||
-      (copy_bytes != 16 && copy_bytes != 2))
+      (int64_t)batch * heads > INT32_MAX || (t_q + BQ - 1) / BQ > 65535 ||
+      (d + DC - 1) / DC > 65535 || (copy_bytes != 16 && copy_bytes != 2))
     return (int)cudaErrorInvalidValue;
   const uintptr_t any = reinterpret_cast<uintptr_t>(q) |
                         reinterpret_cast<uintptr_t>(k) |

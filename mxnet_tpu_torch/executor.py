@@ -14,6 +14,8 @@ to the compute dtype as they enter the graph walk (:func:`_amp_cast`).
 """
 from __future__ import annotations
 
+import numpy as np
+
 from .base import MXNetError
 from .ndarray import _torch_dtype
 from .ops import OpCtx, get_op
@@ -38,6 +40,25 @@ def _amp_cast(name, v, amp_dtype):
     if v.dtype == torch.float32:
         return v.to(amp_dtype)
     return v
+
+
+# the dtypes jax.numpy makes of numpy's 64-bit ones (64-bit mode off)
+_CANONICAL = {np.dtype(np.float64): np.float32, np.dtype(np.int64): np.int32}
+
+
+def _fed_tensor(v, device):
+    """A fed array (NDArray, or array-like read with ``np.asarray``, 64-bit
+    types narrowed as jax.numpy does) as a tensor on ``device``, with its
+    own dtype and shape."""
+    import torch
+
+    from .ndarray import NDArray
+
+    if isinstance(v, NDArray):
+        return v.data.to(device)
+    a = np.asarray(v)
+    a = a.astype(_CANONICAL.get(a.dtype, a.dtype), copy=False)
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device, copy=True)
 
 
 class Executor:
@@ -70,8 +91,10 @@ class Executor:
         return dict(zip(names, arrays))
 
     def forward(self, is_train=False, **kwargs):
-        """Evaluate the graph; ``kwargs`` are written into the bound
-        arguments first. Returns the output NDArrays."""
+        """Evaluate the graph; each of ``kwargs`` rebinds its bound argument
+        first, as in the reference: the bound NDArray now holds the fed
+        array, with the feed's dtype and shape, on the executor's device.
+        Returns the output NDArrays."""
         import torch
 
         from .ndarray import NDArray
@@ -82,7 +105,7 @@ class Executor:
         for k, v in kwargs.items():
             if k not in self.arg_dict:
                 raise MXNetError(f"forward: unknown argument {k}")
-            self.arg_dict[k][:] = v
+            self.arg_dict[k]._data = _fed_tensor(v, self._ctx.torch_device)
         op_ctx = OpCtx(is_train=False, device=self._ctx.torch_device)
         vals = {}
         with torch.inference_mode():

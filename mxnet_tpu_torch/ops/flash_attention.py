@@ -5,7 +5,9 @@ Port of mxnet_tpu/ops/flash_attention.py, whose forward is a Pallas TPU kernel
 fp32 runs on CUDA cores (``csrc/flash_attention_fwd.cu``), bf16 and fp16 on
 the tensor cores (``csrc/flash_attention_fwd_tc.cu``). Both stream K/V tiles
 through shared memory with an online softmax, so the (T, T) score matrix
-never reaches device memory. Each is built with ``nvcc`` at first use and
+never reaches device memory. Any head dim runs: up to 128 in the tuned
+instantiations, above it in each source's split-over-d kernel
+(:func:`launch_plan`). Each is built with ``nvcc`` at first use and
 called through ``ctypes``.
 
 Layout is (B, T, H, D), as in the reference. :func:`flash_attention` routes
@@ -26,7 +28,7 @@ from ..base import MXNetError
 from ..ndarray import _dtype_name
 
 __all__ = ["copy_bytes", "flash_attention", "flash_attention_reference",
-           "reset_launches", "use_flash"]
+           "launch_plan", "reset_launches", "use_flash"]
 
 # dtype -> (library, C entry, the entry's dtype code)
 _KERNELS = {
@@ -36,7 +38,9 @@ _KERNELS = {
     torch.float16: ("flash_attention_fwd_tc", "mxtt_flash_attention_fwd_tc",
                     2),
 }
-_MAX_HEAD_DIM = 128
+# the kernels' grid limits: batch * heads on x, Q tiles on y, d-chunks on z
+_MAX_GRID = (2 ** 31 - 1, 65535, 65535)
+_SPLIT_D = 128   # a head dim above this runs the split-over-d kernel
 
 
 def use_flash(t_len: int, block: int = 128, on_accel: bool = False) -> bool:
@@ -96,18 +100,39 @@ def _check(q, k, v, q_offset):
         raise MXNetError(f"flash_attention: q_offset {q_offset} < 0")
 
 
+def launch_plan(dtype, batch, t_q, heads, d):
+    """``(kernel, width, grid)`` of a CUDA launch, as the C entries choose
+    them: a head dim up to 128 runs the smallest instantiation (``width``
+    32, 64 or 128) that holds it, on ``(batch * heads, Q tiles, 1)``; a
+    larger one runs the split-over-d kernel (``*_split``, width 128) with
+    its 128-wide chunks of d on the grid's z. Q tiles are 128 rows in fp32
+    up to width 64 and 64 rows otherwise. Raises where a grid dimension
+    passes the card's limit (x < 2^31, y and z <= 65535)."""
+    base = "flash_fwd_f32" if dtype == torch.float32 else "flash_fwd_tc"
+    if d > _SPLIT_D:
+        name, width, rows = base + "_split", _SPLIT_D, 64
+    else:
+        width = 32 if d <= 32 else 64 if d <= 64 else 128
+        name = base
+        rows = 128 if dtype == torch.float32 and width <= 64 else 64
+    grid = (batch * heads, -(-t_q // rows), -(-d // width))
+    for n, lim, what in zip(grid, _MAX_GRID,
+                            ("batch * heads", "Q tiles", "d-chunks")):
+        if n > lim:
+            raise MXNetError(f"flash_attention: {what} {n} > {lim}, the "
+                             "kernel grid's limit")
+    return name, width, grid
+
+
 def _check_cuda(q, k, v):
     if q.dtype not in _KERNELS:
         raise MXNetError(f"flash_attention: the CUDA kernels take float32, "
                          f"bfloat16 or float16, got {q.dtype}")
-    if q.shape[-1] > _MAX_HEAD_DIM:
-        raise MXNetError(f"flash_attention: head dim {q.shape[-1]} > "
-                         f"{_MAX_HEAD_DIM}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise MXNetError("flash_attention: the CUDA kernel needs contiguous "
                          "q, k, v")
-    if q.shape[0] * q.shape[2] > 65535:
-        raise MXNetError("flash_attention: batch * heads > 65535")
+    b, t_q, h, d = q.shape
+    launch_plan(q.dtype, b, t_q, h, d)
 
 
 def entry(lib, name="mxtt_flash_attention_fwd"):

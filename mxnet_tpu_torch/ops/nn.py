@@ -11,6 +11,7 @@ import torch
 import torch.nn.functional as F
 
 from .registry import register_op
+from .tensor import take_fill
 
 
 # ---------------------------------------------------------------------------
@@ -96,9 +97,11 @@ def _embed_infer(attrs, shapes):
 
 @register_op("Embedding", inputs=("data", "weight"), infer_param_shapes=_embed_infer)
 def _embedding(ctx, attrs, data, weight):
-    """Token ids may arrive as floats (Predictor inputs are float32); they
-    are cast to integers, as the reference casts to int32."""
-    return F.embedding(data.long(), weight)
+    """``jnp.take(weight, data.astype(int32), axis=0)``, as the reference:
+    ids may arrive as floats (Predictor inputs are float32); a NaN id is 0,
+    a negative id in [-n, 0) wraps, and an id outside [-n, n) gives a NaN
+    row (:func:`~.tensor.take_fill`)."""
+    return take_fill(weight, data, 0)
 
 
 # ---------------------------------------------------------------------------

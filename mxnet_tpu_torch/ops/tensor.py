@@ -51,6 +51,52 @@ def _float(x):
     return x if x.is_floating_point() else x.to(torch.float32)
 
 
+def float_to_int(x, dtype):
+    """``x.astype(dtype)`` for a float ``x`` and an integer ``dtype`` as
+    XLA converts: NaN to 0, values past the type's range (the infinities
+    among them) to its limits, the rest truncated. CUDA's conversion
+    saturates and the CPU's does not, so the rule is written out here and
+    both devices agree."""
+    info = torch.iinfo(dtype)
+    # 16-bit floats widen exactly; the limits' neighbours are exact in fp32
+    t = torch.trunc(x.float() if x.element_size() < 4 else x)
+    big = t >= float(info.max) + 1.0
+    small = t < float(info.min)
+    out = torch.where(big | small | torch.isnan(t), 0, t).to(dtype)
+    return torch.where(big, info.max, torch.where(small, info.min, out))
+
+
+def as_int32(x):
+    """Indices as the reference's ``astype(int32)`` makes them."""
+    if x.is_floating_point():
+        return float_to_int(x, torch.int32)
+    return x.to(torch.int32)
+
+
+def take_fill(a, indices, axis):
+    """``jnp.take(a, indices, axis)`` with its default mode: an index in
+    [-n, 0) wraps, one outside [-n, n) gives the fill value (NaN for
+    floats, the least value for signed integers, the largest for unsigned,
+    True for bool). The gather sees clamped indices only, so no index
+    kernel is asked for a row that is not there."""
+    n = a.shape[axis]
+    idx = as_int32(indices).to(torch.int64)
+    idx = torch.where(idx < 0, idx + n, idx)
+    valid = (idx >= 0) & (idx < n)
+    out = torch.index_select(a, axis, torch.where(valid, idx, 0).reshape(-1))
+    out = out.reshape(a.shape[:axis] + idx.shape + a.shape[axis + 1:])
+    if a.dtype == torch.bool:
+        fill = True
+    elif a.is_floating_point():
+        fill = float("nan")
+    else:
+        info = torch.iinfo(a.dtype)
+        fill = info.min if info.min < 0 else info.max
+    mask = valid.reshape((1,) * axis + idx.shape
+                         + (1,) * (a.dim() - axis - 1))
+    return torch.where(mask, out, fill)
+
+
 def _out_device(ctx):
     from ..context import current_context
 
@@ -74,7 +120,8 @@ def _like(data, value):
 # unary math family (reference: src/operator/tensor/elemwise_unary_op.cc)
 
 _unary("abs", torch.abs)
-_unary("sign", torch.sign)
+_unary("sign", lambda x: torch.where(torch.isnan(x), x, torch.sign(x))
+       if x.is_floating_point() else torch.sign(x))   # NaN stays NaN
 _unary("round", torch.round)   # half to even, as jnp.round
 _unary("ceil", torch.ceil)
 _unary("floor", torch.floor)
@@ -126,7 +173,11 @@ def _block_grad(ctx, attrs, data):
 
 @register_op("Cast", alias=("cast",))
 def _cast(ctx, attrs, data):
-    return data.to(_dtype(attrs.get("dtype")))
+    dtype = _dtype(attrs.get("dtype"))
+    if data.is_floating_point() and not dtype.is_floating_point \
+            and dtype != torch.bool:
+        return float_to_int(data, dtype)
+    return data.to(dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -344,18 +395,44 @@ def _argmax_channel(ctx, attrs, data):
     return torch.argmax(data, dim=1).to(torch.float32)
 
 
+def _order_key(x):
+    """``x`` as integers in ``lax.top_k``'s total order: a float's bits
+    made monotone (-NaN < -inf < ... < -0.0 < 0.0 < ... < inf < NaN; 16-bit
+    floats widen exactly), integers as they are."""
+    if not x.is_floating_point():
+        return x.to(torch.int8) if x.dtype == torch.bool else x
+    if x.dtype == torch.float64:
+        bits, flip = x.view(torch.int64), 0x7FFFFFFFFFFFFFFF
+    else:
+        bits, flip = x.float().view(torch.int32), 0x7FFFFFFF
+    return torch.where(bits < 0, bits ^ flip, bits)
+
+
 @register_op("topk", num_outputs=lambda attrs: 2 if attrs.get(
     "ret_typ", "indices") == "both" else 1)
 def _topk(ctx, attrs, data):
-    """Reference: src/operator/tensor/ordering_op.cc TopK. Ties may come
-    back in another order than ``lax.top_k``'s."""
+    """Reference: src/operator/tensor/ordering_op.cc TopK, through
+    ``lax.top_k`` (of ``-x`` for ``is_ascend``): the total order of
+    :func:`_order_key`, and among equal values the lowest index first.
+    Value and index go into one int64 key for ``torch.topk``; 64-bit
+    inputs, whose values fill it alone, take a stable sort."""
     k = int(attrs.get("k", 1))
     axis = attrs.get("axis", -1)
     ret_typ = attrs.get("ret_typ", "indices")
     is_ascend = bool(attrs.get("is_ascend", False))
     x = torch.movedim(data, axis, -1)
-    vals, raw_idx = torch.topk(x, k, dim=-1, largest=not is_ascend,
-                               sorted=True)
+    key = _order_key(-x if is_ascend else x)
+    n = x.shape[-1]
+    if key.dtype == torch.int64:
+        raw_idx = torch.sort(key, dim=-1, descending=True,
+                             stable=True)[1][..., :k]
+    else:
+        comp = key.to(torch.int64)
+        comp <<= 32
+        comp |= torch.arange(n - 1, -1, -1, device=x.device)
+        raw_idx = (n - 1) - (torch.topk(comp, k, dim=-1).values
+                             & 0xFFFFFFFF)
+    vals = x.gather(-1, raw_idx)
     if ret_typ == "value":
         return torch.movedim(vals, -1, axis)
     if ret_typ == "mask":
@@ -517,22 +594,25 @@ def _clip(ctx, attrs, data):
 
 @register_op("take", inputs=("a", "indices"))
 def _take(ctx, attrs, a, indices):
-    axis = int(attrs.get("axis", 0)) % a.dim()
-    idx = indices.to(torch.int64)
-    out = torch.index_select(a, axis, idx.reshape(-1))
-    return out.reshape(a.shape[:axis] + idx.shape + a.shape[axis + 1:])
+    return take_fill(a, indices, int(attrs.get("axis", 0)) % a.dim())
 
 
 @register_op("batch_take", inputs=("a", "indices"))
 def _batch_take(ctx, attrs, a, indices):
+    """``a[arange(B), indices]`` as the reference indexes: a negative index
+    wraps, then every index is clamped into the row."""
+    n = a.shape[1]
+    idx = as_int32(indices).to(torch.int64)
+    idx = torch.where(idx < 0, idx + n, idx).clamp(0, n - 1)
     rows = torch.arange(a.shape[0], device=a.device)
-    return a[rows, indices.to(torch.int64)]
+    return a[rows, idx]
 
 
 def _one_hot_f32(indices, depth):
-    """``jax.nn.one_hot``: an index outside [0, depth) gives a zero row."""
+    """``jax.nn.one_hot(indices.astype(int32))``: a NaN index is 0, and an
+    index outside [0, depth) gives a zero row."""
     cols = torch.arange(depth, device=indices.device)
-    return (indices.to(torch.int64)[..., None] == cols).to(torch.float32)
+    return (as_int32(indices)[..., None] == cols).to(torch.float32)
 
 
 @register_op("one_hot", inputs=("indices",))

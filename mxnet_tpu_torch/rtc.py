@@ -12,7 +12,7 @@ launches; two front ends sit on it:
   ``extern "C" __global__`` function named ``name`` whose parameters are one
   pointer per input, the output pointer, then ``long long n`` (the output's
   element count). The default launch is 256 threads a block over
-  ``ceil(n / 256)`` blocks.
+  ``ceil(n / 256)`` blocks; ``launch_dims`` gives a kernel its own.
 - :class:`Rtc` is MXNet's form: ``(name, NDArray)`` pairs for inputs and
   outputs and a kernel *body*; the class writes the signature
   ``extern "C" __global__ void name(const T* x, ..., T* y)`` around it, ``T``
@@ -27,7 +27,10 @@ The core: ``nvrtcCompileProgram`` for ``sm_90a`` to a CUBIN (so the driver
 does no JIT), ``cuModuleLoadData`` in the device's primary context (the one
 PyTorch uses) and ``cuLaunchKernel`` on PyTorch's current stream, all through
 ``ctypes``. Compiled kernels are cached in the process by source, options,
-device and name. NVRTC comes from ``$CUDA_HOME/lib64`` (default
+device and name; each front end keeps, per device and signature, a launch
+record (:class:`_Launcher`) that holds what a launch needs, so that a
+repeated launch builds no source and sets no context that is current.
+NVRTC comes from ``$CUDA_HOME/lib64`` (default
 ``/usr/local/cuda``) and the driver library from the system (``libcuda.so.1``,
 which PyTorch has loaded); a missing library, a compile error (with the NVRTC
 log), a failed load or a failed launch (with its ``CUresult``) raise
@@ -44,7 +47,7 @@ import threading
 import time
 
 from .base import MXNetError
-from .ndarray import NDArray
+from .ndarray import NDArray, _torch_dtype
 
 __all__ = ["CudaKernel", "Rtc", "ARCH", "cuda_home", "nvrtc_version"]
 
@@ -107,6 +110,7 @@ def _libs():
             (cuda, "cuInit", [c.c_uint]),
             (cuda, "cuDeviceGet", [c.POINTER(c.c_int), c.c_int]),
             (cuda, "cuDevicePrimaryCtxRetain", [pvp, c.c_int]),
+            (cuda, "cuCtxGetCurrent", [pvp]),
             (cuda, "cuCtxSetCurrent", [vp]),
             (cuda, "cuModuleLoadData", [pvp, vp]),
             (cuda, "cuModuleGetFunction", [pvp, vp, ccp]),
@@ -173,9 +177,8 @@ def _compile(source: str, options: tuple) -> bytes:
         nvrtc.nvrtcDestroyProgram(ctypes.byref(prog))
 
 
-def _make_current(cuda, index: int):
-    """Make device ``index``'s primary context, PyTorch's, current on this
-    thread."""
+def _primary_context(cuda, index: int):
+    """Device ``index``'s primary context, PyTorch's, retained once."""
     ctx = _CONTEXTS.get(index)
     if ctx is None:
         _cu_check(cuda, cuda.cuInit(0), "init")
@@ -187,7 +190,7 @@ def _make_current(cuda, index: int):
                                                       dev.value),
                   "primary context retain")
         _CONTEXTS[index] = ctx
-    _cu_check(cuda, cuda.cuCtxSetCurrent(ctx), "context set current")
+    return ctx
 
 
 def default_options() -> tuple:
@@ -200,9 +203,62 @@ def default_options() -> tuple:
     return tuple(opts)
 
 
+class _Launcher:
+    """One compiled function on one device, ready to launch: the
+    ``CUfunction``, the device's primary context and the kernel's parameter
+    array, all made once. A launch writes the parameter values into the
+    array (under a lock, as the array is shared), reads the current
+    context and makes the device's current only when it is not, reads the
+    raw handle of PyTorch's current stream, and builds its error message
+    only when the launch fails, and then raises."""
+
+    __slots__ = ("fn", "ctx", "index", "name", "_values", "_params",
+                 "_lock", "_cuda", "_stream")
+
+    def __init__(self, fn, ctx, index, name, n_params, cuda):
+        import torch
+
+        self.fn, self.ctx, self.index, self.name = fn, ctx, index, name
+        # each parameter is 8 bytes (a device pointer or ``long long n``);
+        # _params holds the address of each slot of _values
+        params_t = ctypes.c_void_p * n_params
+        self._values = params_t()
+        base = ctypes.addressof(self._values)
+        self._params = params_t(*range(base, base + 8 * n_params, 8))
+        self._lock = threading.Lock()
+        self._cuda = cuda
+        self._stream = torch._C._cuda_getCurrentRawStream
+
+    def __call__(self, values, grid, block):
+        """Launch with parameter ``values`` (device addresses, then
+        integers) on ``grid`` x ``block`` (3-tuples)."""
+        cuda = self._cuda
+        cur = ctypes.c_void_p()
+        with self._lock:
+            self._values[:] = values
+            cuda.cuCtxGetCurrent(ctypes.byref(cur))
+            if cur.value == self.ctx.value:
+                res = cuda.cuLaunchKernel(self.fn, *grid, *block, 0,
+                                          self._stream(self.index),
+                                          self._params, None)
+            else:
+                import torch
+
+                # as PyTorch's device guard: the caller's device comes back
+                with torch.cuda.device(self.index):
+                    _cu_check(cuda, cuda.cuCtxSetCurrent(self.ctx),
+                              "context set current")
+                    res = cuda.cuLaunchKernel(self.fn, *grid, *block, 0,
+                                              self._stream(self.index),
+                                              self._params, None)
+        if res:
+            _cu_check(cuda, res, f"launch of '{self.name}' (grid {grid}, "
+                      f"block {block})")
+
+
 class _Program:
-    """One kernel source: compiles per device on first use, launches, and
-    keeps the NVRTC seconds it spent."""
+    """One kernel name and set of options: compiles a source per device on
+    first use and keeps the NVRTC seconds it spent."""
 
     def __init__(self, name: str, options=None):
         self.name = name
@@ -210,54 +266,36 @@ class _Program:
             else default_options()
         self.compile_s = 0.0
 
-    def function(self, source: str, index: int):
-        """The CUfunction of ``source`` on device ``index``, compiled and
-        loaded on first use."""
-        key = (source, self.options, index, self.name)
-        fn = _FUNCTIONS.get(key)
-        if fn is not None:
-            return fn
+    def launcher(self, source: str, device, n_params: int) -> _Launcher:
+        """A :class:`_Launcher` of ``source`` on ``device``, compiled and
+        loaded on first use (the CUfunction is cached in the process by
+        source, options, device and name)."""
         import torch
 
+        index = device.index or 0
+        key = (source, self.options, index, self.name)
         torch.cuda.init()
         _, cuda = _libs()
         with _LOCK:
+            ctx = _primary_context(cuda, index)
             fn = _FUNCTIONS.get(key)
             if fn is None:
-                _make_current(cuda, index)
-                t0 = time.perf_counter()
-                cubin = _compile(source, self.options)
-                self.compile_s += time.perf_counter() - t0
-                module = ctypes.c_void_p()
-                image = ctypes.create_string_buffer(cubin, len(cubin))
-                _cu_check(cuda, cuda.cuModuleLoadData(ctypes.byref(module),
-                                                      image), "module load")
-                fn = ctypes.c_void_p()
-                _cu_check(cuda, cuda.cuModuleGetFunction(
-                    ctypes.byref(fn), module, self.name.encode()),
-                    f"get function '{self.name}' (is it extern \"C\"?)")
+                with torch.cuda.device(index):
+                    _cu_check(cuda, cuda.cuCtxSetCurrent(ctx),
+                              "context set current")
+                    t0 = time.perf_counter()
+                    cubin = _compile(source, self.options)
+                    self.compile_s += time.perf_counter() - t0
+                    module = ctypes.c_void_p()
+                    image = ctypes.create_string_buffer(cubin, len(cubin))
+                    _cu_check(cuda, cuda.cuModuleLoadData(
+                        ctypes.byref(module), image), "module load")
+                    fn = ctypes.c_void_p()
+                    _cu_check(cuda, cuda.cuModuleGetFunction(
+                        ctypes.byref(fn), module, self.name.encode()),
+                        f"get function '{self.name}' (is it extern \"C\"?)")
                 _FUNCTIONS[key] = fn
-        return fn
-
-    def launch(self, source, device, pointers, scalars, grid, block):
-        """Launch on ``device``'s current PyTorch stream. ``pointers`` are
-        device addresses, ``scalars`` ``ctypes`` values appended after
-        them."""
-        import torch
-
-        grid, block = _dims(grid, "grid_dims"), _dims(block, "block_dims")
-        fn = self.function(source, device.index or 0)
-        _, cuda = _libs()
-        args = [ctypes.c_void_p(p) for p in pointers] + list(scalars)
-        params = (ctypes.c_void_p * len(args))(
-            *(ctypes.addressof(a) for a in args))
-        with torch.cuda.device(device):
-            _make_current(cuda, device.index or 0)
-            stream = torch.cuda.current_stream(device).cuda_stream
-            res = cuda.cuLaunchKernel(fn, *grid, *block, 0, stream, params,
-                                      None)
-        _cu_check(cuda, res, f"launch of '{self.name}' (grid {grid}, "
-                  f"block {block})")
+        return _Launcher(fn, ctx, index, self.name, n_params, cuda)
 
 
 def _dims(dims, what):
@@ -282,7 +320,7 @@ def _check_cuda_tensors(what, tensors):
         if not isinstance(t, torch.Tensor):
             raise MXNetError(f"{what}: expected tensors or NDArrays, got "
                              f"{type(t)}")
-        if t.device.type != "cuda":
+        if not t.is_cuda:
             raise MXNetError(
                 f"{what}: a runtime-compiled CUDA kernel runs only on the "
                 f"card, got a tensor on {t.device}; move it with "
@@ -291,10 +329,10 @@ def _check_cuda_tensors(what, tensors):
             raise MXNetError(f"{what}: tensors must be contiguous (got a "
                              f"strided view of shape {tuple(t.shape)}); "
                              "copy it first")
-    device = tensors[0].device
-    if any(t.device != device for t in tensors):
+    index = tensors[0].get_device()
+    if any(t.get_device() != index for t in tensors):
         raise MXNetError(f"{what}: tensors on different devices")
-    return device
+    return tensors[0].device
 
 
 def _tensor(x):
@@ -303,16 +341,23 @@ def _tensor(x):
 
 class CudaKernel:
     """A user kernel with the ``PallasKernel`` contract (see the module
-    docstring for what ``source`` must hold)."""
+    docstring for what ``source`` must hold). ``launch_dims``, the
+    counterpart of ``PallasKernel``'s ``grid``, is a function of the output
+    tensor that returns ``(grid_dims, block_dims)``; without it a launch is
+    one thread per element. ``grid_dims`` / ``block_dims`` given to a call
+    win over both."""
 
     def __init__(self, name, source, out_like=0, out_shape=None,
-                 out_dtype=None, options=None):
+                 out_dtype=None, options=None, launch_dims=None):
         self.name = name
         self.source = source
         self.out_like = out_like
         self.out_shape = tuple(out_shape) if out_shape is not None else None
         self.out_dtype = out_dtype
+        self.launch_dims = launch_dims
         self._program = _Program(name, options)
+        self._launchers: dict = {}   # (device index, tensors) -> _Launcher
+        self._what = f"CudaKernel '{name}'"
         self.launches = 0
 
     @property
@@ -323,20 +368,25 @@ class CudaKernel:
     def _call(self, tensors, grid_dims=None, block_dims=None):
         import torch
 
-        from .ndarray import _torch_dtype
-
-        device = _check_cuda_tensors(f"CudaKernel '{self.name}'", tensors)
+        device = _check_cuda_tensors(self._what, tensors)
         ref = tensors[self.out_like]
         shape = self.out_shape if self.out_shape is not None else ref.shape
         dtype = _torch_dtype(self.out_dtype) if self.out_dtype is not None \
             else ref.dtype
         out = torch.empty(shape, dtype=dtype, device=device)
         n = out.numel()
-        grid, block = _default_grid(n)
-        self._program.launch(
-            self.source, device, [t.data_ptr() for t in tensors] +
-            [out.data_ptr()], [ctypes.c_longlong(n)],
-            grid_dims or grid, block_dims or block)
+        grid, block = self.launch_dims(out) if self.launch_dims \
+            else _default_grid(n)
+        key = (device.index, len(tensors))
+        launcher = self._launchers.get(key)
+        if launcher is None:
+            launcher = self._program.launcher(self.source, device,
+                                              len(tensors) + 2)
+            self._launchers[key] = launcher
+        launcher([*(t.data_ptr() for t in tensors), out.data_ptr(), n],
+                 grid if grid_dims is None else _dims(grid_dims, "grid_dims"),
+                 block if block_dims is None
+                 else _dims(block_dims, "block_dims"))
         self.launches += 1
         return out
 
@@ -393,8 +443,10 @@ class Rtc:
     """MXNet's runtime kernel: a body over named input and output arrays.
 
     ``inputs`` and ``outputs`` are ``(name, NDArray)`` pairs; their dtypes
-    (and sizes) fix the source shown in :attr:`source`. ``push`` with arrays
-    of other dtypes or sizes compiles that variant once and caches it."""
+    (and sizes) fix the source shown in :attr:`source`. ``push`` keys its
+    compiled variants by the arrays' (dtype, size) and the device: arrays
+    of another signature compile that variant once, and a push of a known
+    signature builds no source."""
 
     def __init__(self, name, inputs, outputs, kernel, options=None):
         self.name = name
@@ -409,6 +461,10 @@ class Rtc:
         self._program = _Program(name, options)
         self.source = self._source([_tensor(a) for _, a in inputs],
                                    [_tensor(a) for _, a in outputs])
+        # (device index, ((dtype, numel) of each array)) ->
+        # (_Launcher, default (grid, block))
+        self._variants: dict = {}
+        self._what = f"Rtc '{name}'"
         self.launches = 0
 
     @property
@@ -432,10 +488,19 @@ class Rtc:
                 f"Rtc '{self.name}': expected {len(self.input_names)} inputs "
                 f"and {len(self.output_names)} outputs, got {len(ins)} and "
                 f"{len(outs)}")
-        device = _check_cuda_tensors(f"Rtc '{self.name}'", ins + outs)
-        grid, block = _default_grid(outs[0].numel())
-        self._program.launch(self._source(ins, outs), device,
-                             [t.data_ptr() for t in ins + outs], [],
-                             grid_dims or grid, block_dims or block)
+        tensors = ins + outs
+        device = _check_cuda_tensors(self._what, tensors)
+        key = (device.index, tuple([(t.dtype, t.numel()) for t in tensors]))
+        variant = self._variants.get(key)
+        if variant is None:
+            variant = (self._program.launcher(self._source(ins, outs), device,
+                                              len(tensors)),
+                       _default_grid(outs[0].numel()))
+            self._variants[key] = variant
+        launcher, (grid, block) = variant
+        launcher([t.data_ptr() for t in tensors],
+                 grid if grid_dims is None else _dims(grid_dims, "grid_dims"),
+                 block if block_dims is None
+                 else _dims(block_dims, "block_dims"))
         self.launches += 1
         return outputs

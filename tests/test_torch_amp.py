@@ -149,6 +149,85 @@ def test_amp_tracks_fp32(amp):
     _assert_logp_close(half, full, amp)
 
 
+# a feed through Executor.forward(data=...) into a float32-bound ``data``,
+# with ids past 256 (bf16 holds integers exactly only up to 256)
+FEED_LM = dict(vocab_size=2048, num_layers=1, hidden=64, heads=4,
+               seq_len=16)
+FEED_SHAPES = {"data": (2, 16), "softmax_label": (2, 16)}
+# Its 32 rows over 2048 classes hold near-ties: the reference's own bf16 run
+# picks another argmax than its fp32 run on 2 of 32 rows, and the port's
+# bf16 run agrees with the reference's on 30 of 32 (ids of seed 5), within
+# LOGP_LIMITS. A copy of these ids into the float32 binding rounds them in
+# bf16: 16 rows read id 2048, past the table (NaN), and the other 16 are
+# 0.76 off in mean log-probability, argmax agreeing on none. The floor is
+# 29 of 32.
+FEED_ARGMAX_FLOOR = 0.9
+
+
+def _feed_executors(amp_dtype):
+    """The port's and the JAX package's Executor on a 1-layer LM with the
+    same weights, ``data`` bound as float32 zeros in both, as
+    ``nd.zeros`` and ``Predictor`` bind it."""
+    symbol = mxt.models.transformer_lm.get_symbol(**FEED_LM)
+    rng = np.random.default_rng(4)
+    arg_shapes, _, _ = symbol.infer_shape(**FEED_SHAPES)
+    weights = {}
+    for name, shape in zip(symbol.list_arguments(), arg_shapes):
+        if name not in FEED_SHAPES:
+            scale = 1.0 / np.sqrt(shape[-1]) if len(shape) == 2 else 0.1
+            weights[name] = (rng.standard_normal(shape) * scale).astype(
+                np.float32) + (1.0 if name.endswith("_gamma") else 0.0)
+    args, _ = mxt.convert.params_from_numpy(weights, {}, mxt.cpu())
+    jargs = {n: mxj.nd.array(w) for n, w in weights.items()}
+    for n, shape in FEED_SHAPES.items():
+        args[n] = mxt.nd.zeros(shape, mxt.cpu())
+        jargs[n] = mxj.nd.zeros(shape)
+    port = mxt.executor.Executor(symbol, mxt.cpu(), args,
+                                 amp_dtype=amp_dtype)
+    ref = JExecutor(mxj.models.transformer_lm.get_symbol(**FEED_LM),
+                    mxj.cpu(), jargs, amp_dtype=amp_dtype)
+    return port, ref
+
+
+@pytest.mark.parametrize("as_ndarray", [False, True])
+def test_amp_feed_keeps_int32_ids(monkeypatch, as_ndarray):
+    """int32 ids in [1500, 2048) fed into a float32-bound ``data`` under
+    bf16 amp: the port rebinds ``data`` to the fed int32 array, as the
+    reference does, so the ids pass the amp cast unrounded, and the
+    log-probabilities meet the bf16 limits against the reference. (A copy
+    into the bound float32 buffer would round them in bf16.)"""
+    monkeypatch.delenv("MXTPU_FLASH_ATTENTION", raising=False)
+    port, ref = _feed_executors("bfloat16")
+    ids = np.random.default_rng(5).integers(
+        1500, 2048, FEED_SHAPES["data"]).astype(np.int32)
+    bound = port.arg_dict["data"]
+    feed = mxt.nd.array(ids, mxt.cpu(), dtype=np.int32) if as_ndarray \
+        else ids
+    (got,) = port.forward(data=feed)
+    want = ref.forward(data=ids)[0].asnumpy()
+    assert port.arg_dict["data"] is bound and bound.dtype == torch.int32
+    np.testing.assert_array_equal(bound.asnumpy(), ids)
+    assert got.shape == want.shape == (32, 2048)
+    mean, top, agree = _logp_gap(got.asnumpy(), want)
+    mean_lim, max_lim = LOGP_LIMITS["bfloat16"]
+    assert mean <= mean_lim and top <= max_lim, (mean, top)
+    assert agree >= FEED_ARGMAX_FLOOR
+
+
+def test_feed_of_another_shape_rebinds(monkeypatch):
+    """Batch-1 ids fed into a batch-2 binding: the output follows the feed,
+    (16, V), as in the reference, in place of a broadcast to the binding."""
+    monkeypatch.delenv("MXTPU_FLASH_ATTENTION", raising=False)
+    port, ref = _feed_executors(None)
+    ids = np.random.default_rng(6).integers(0, 2048, (1, 16)).astype(
+        np.int32)
+    (got,) = port.forward(data=ids)
+    want = ref.forward(data=ids)[0].asnumpy()
+    assert got.shape == want.shape == (16, 2048)
+    assert port.arg_dict["data"].shape == (1, 16)
+    _assert_logp_close(got.asnumpy(), want, None)
+
+
 @pytest.mark.parametrize("name,dtype,amp,want", [
     ("fc1_weight", torch.float32, torch.bfloat16, torch.bfloat16),
     ("softmax_label", torch.float32, torch.bfloat16, torch.float32),

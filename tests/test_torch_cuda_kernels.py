@@ -52,7 +52,16 @@ def _at_offset(x, offset):
     (True, 0, 65, 65, 64, 0), (False, 0, 127, 127, 64, 0),
     (True, 0, 127, 127, 128, 0), (True, 130, 60, 190, 64, 0),
     (True, 0, 100, 100, 16, 0), (True, 3, 96, 99, 48, 0),
-    (False, 0, 150, 150, 80, 0), (True, 0, 70, 70, 50, 1)])
+    (False, 0, 150, 150, 80, 0), (True, 0, 70, 70, 50, 1),
+    # head dims above 128: the split-over-d kernels, 128-wide chunks of d
+    # (160 and 200 end in a partial chunk), causal and not, with q_offset,
+    # 130 on the tensor-core kernel's element-wise loads, and views at an
+    # offset of one element
+    (True, 32, 100, 132, 160, 0), (False, 16, 90, 70, 160, 0),
+    (True, 0, 129, 129, 200, 0), (False, 8, 64, 77, 200, 0),
+    (True, 64, 130, 194, 256, 0), (False, 0, 70, 140, 256, 0),
+    (True, 0, 100, 100, 130, 0), (True, 0, 70, 70, 200, 1),
+    (True, 5, 33, 38, 256, 1)])
 def test_cuda_kernel_matches_plain(dtype, tol, causal, q_offset, t_q, t_k, d,
                                    offset):
     if not torch.cuda.is_available():
@@ -72,6 +81,26 @@ def test_cuda_kernel_matches_plain(dtype, tol, causal, q_offset, t_q, t_k, d,
     want = tfa.flash_attention_reference(q.float(), k.float(), v.float(),
                                          causal=causal, q_offset=q_offset)
     assert got.dtype == dtype
+    assert float((got.float() - want).abs().max()) <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2),
+                                       (torch.float16, 3e-3)])
+def test_batch_heads_above_65535(dtype, tol):
+    """batch * heads lies on the grid's x (limit 2^31 - 1): 65 600 heads
+    run in one launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc; runs on the card")
+    g = torch.Generator(device="cuda").manual_seed(2)
+    q, k, v = (torch.randn((16400, 9, 4, 16), generator=g,
+                           device="cuda").to(dtype) for _ in range(3))
+    assert tfa.launch_plan(dtype, 16400, 9, 4, 16)[2][0] == 65600
+    got = tfa.flash_attention(q, k, v, causal=True, q_offset=3)
+    torch.cuda.synchronize()
+    want = tfa.flash_attention_reference(q.float(), k.float(), v.float(),
+                                         causal=True, q_offset=3)
     assert float((got.float() - want).abs().max()) <= tol
 
 
@@ -143,6 +172,57 @@ def test_rtc_axpy_cuda_kernel_exact(dtype, shape):
     assert out.context == mx.gpu(0) and out.dtype == tdt
     assert out.shape == tuple(shape)
     assert torch.equal(out.data, ex.axpy_reference(x, y))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(1,), (3,), (7,), (1000003,),
+                                   (4096, 32768)])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_rtc_axpy_exact_any_n_and_offset(dtype, shape, offset):
+    """The vector axpy on its own launch (a thread a 16-byte vector)
+    equals 2x + y exactly for any n, and for inputs viewed at an offset of
+    one element (4 bytes in fp32, 2 in bf16), where the output, aligned,
+    does not share their alignment and the scalar loop runs."""
+    from mxnet_tpu_torch import rtc_examples as ex
+
+    g = _cuda()
+    tdt = getattr(torch, dtype)
+    x, y = (_at_offset(torch.randn(shape, generator=g, device="cuda")
+                       .to(tdt), offset) for _ in range(2))
+    k = ex.axpy_kernel(dtype)
+    out = k(x, y)
+    torch.cuda.synchronize()
+    assert k.launches == 1
+    assert torch.equal(out, ex.axpy_reference(x, y))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n", [1, 3, 7, 1000003])
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_rtc_axpy_head_vectors_tail(dtype, n, offset):
+    """x, y and o all at one offset: the scalar head up to the 16-byte
+    boundary, the vectors and the scalar tail together write every element
+    once, exactly."""
+    from mxnet_tpu_torch import rtc_examples as ex
+
+    g = _cuda()
+    tdt = getattr(torch, dtype)
+    x, y = (_at_offset(torch.randn(n, generator=g, device="cuda").to(tdt),
+                       offset) for _ in range(2))
+    o = _at_offset(torch.full((n,), float("nan"), device="cuda").to(tdt),
+                   offset)
+    head, vectors, tail = ex.axpy_split(n, x.data_ptr(), y.data_ptr(),
+                                        o.data_ptr(), x.element_size())
+    assert head == min(n, (16 - offset * x.element_size()) // x.element_size())
+    assert head + vectors * 16 // x.element_size() + tail == n
+    k = ex.axpy_kernel(dtype)
+    launcher = k._program.launcher(k.source, x.device, 4)
+    grid, block = ex.axpy_dims(n, x.element_size())
+    launcher([x.data_ptr(), y.data_ptr(), o.data_ptr(), n], grid, block)
+    torch.cuda.synchronize()
+    assert torch.equal(o, ex.axpy_reference(x, y))
 
 
 @pytest.mark.gpu
@@ -278,3 +358,55 @@ def test_custom_op_pushes_cuda_kernel():
     (res,) = ex_.forward()
     torch.cuda.synchronize()
     assert torch.equal(res.data, want) and kern.launches == 2
+
+
+# -- index and cast ops on the card: the CPU's results, no device assert ----
+
+def _specials():
+    return torch.tensor([float("nan"), float("inf"), -float("inf"), 3e9,
+                         -3e9, 2.7, -2.7, 2147483520.0, -2147483648.0, 0.0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,attrs,make", [
+    ("Cast", {"dtype": "int32"}, lambda: [_specials()]),
+    ("Cast", {"dtype": "uint8"}, lambda: [_specials()]),
+    ("Cast", {"dtype": "int32"}, lambda: [_specials().half()]),
+    ("sign", {}, lambda: [_specials()]),
+    ("one_hot", {"depth": 4},
+     lambda: [torch.tensor([float("nan"), 1.0, 5.0, -1.0, 3e9])]),
+    ("take", {}, lambda: [torch.arange(12.0).reshape(4, 3),
+                          torch.tensor([-1.0, 5, 1, -4, -5, 4, float("nan"),
+                                        3e9])]),
+    ("take", {"axis": 1}, lambda: [torch.arange(12.0).reshape(4, 3),
+                                   torch.tensor([-1.0, 3, -4, 2])]),
+    ("take", {}, lambda: [torch.arange(12, dtype=torch.int32).reshape(4, 3),
+                          torch.tensor([-1.0, 5, 1, -5])]),
+    ("batch_take", {}, lambda: [torch.arange(12.0).reshape(4, 3),
+                                torch.tensor([-1.0, 5, float("nan"), -7])]),
+    ("Embedding", {"input_dim": 4, "output_dim": 3},
+     lambda: [torch.tensor([[float("nan"), -1.0, 4.0], [2.0, -5.0, 0.0]]),
+              torch.arange(12.0).reshape(4, 3)]),
+    ("topk", {"k": 2}, lambda: [torch.tensor([[0.0, 1, 1, 0, 1, 0]])]),
+    ("topk", {"k": 2, "ret_typ": "mask", "is_ascend": True},
+     lambda: [torch.tensor([[0.0, 1, 1, 0, 1, 0]])]),
+])
+def test_index_and_cast_ops_match_cpu(name, attrs, make):
+    """Out-of-range, negative and NaN indices, and float-to-int casts of
+    NaN, infinities and values past int32, give on the card what the port
+    gives on the CPU (held to the JAX package by tests/test_torch_nd_ops.py
+    and tests/test_torch_ops.py), and end in no device-side assert."""
+    from mxnet_tpu_torch import ops as tops
+
+    _cuda()
+    inputs = make()
+    op = tops.get_op(name)
+    want = op.fn(tops.OpCtx(device=torch.device("cpu")), dict(attrs),
+                 *inputs)
+    got = op.fn(tops.OpCtx(device=torch.device("cuda")), dict(attrs),
+                *(t.cuda() for t in inputs))
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype and got.shape == want.shape
+    if want.is_floating_point():
+        assert torch.equal(got.cpu().isnan(), want.isnan())
+    assert torch.equal(torch.nan_to_num(got.cpu()), torch.nan_to_num(want))

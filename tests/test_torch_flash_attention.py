@@ -126,3 +126,62 @@ def test_copy_bytes_rule(d, offset, want):
     aligned = torch.zeros((2, 5, 3, d))
     assert tfa.copy_bytes(d, x.data_ptr(), aligned.data_ptr()) == want
     assert tfa.copy_bytes(d, aligned.data_ptr()) == (16 if d % 4 == 0 else 4)
+
+
+@pytest.mark.parametrize("dtype,d,want", [
+    (torch.float32, 16, ("flash_fwd_f32", 32, (6, 2, 1))),
+    (torch.float32, 64, ("flash_fwd_f32", 64, (6, 2, 1))),
+    (torch.float32, 100, ("flash_fwd_f32", 128, (6, 4, 1))),
+    (torch.float32, 128, ("flash_fwd_f32", 128, (6, 4, 1))),
+    (torch.float32, 129, ("flash_fwd_f32_split", 128, (6, 4, 2))),
+    (torch.float32, 256, ("flash_fwd_f32_split", 128, (6, 4, 2))),
+    (torch.float32, 300, ("flash_fwd_f32_split", 128, (6, 4, 3))),
+    (torch.bfloat16, 64, ("flash_fwd_tc", 64, (6, 4, 1))),
+    (torch.bfloat16, 128, ("flash_fwd_tc", 128, (6, 4, 1))),
+    (torch.float16, 160, ("flash_fwd_tc_split", 128, (6, 4, 2))),
+    (torch.bfloat16, 256, ("flash_fwd_tc_split", 128, (6, 4, 2))),
+    (torch.bfloat16, 1000, ("flash_fwd_tc_split", 128, (6, 4, 8)))])
+def test_launch_plan_by_head_dim(dtype, d, want):
+    """Which kernel each head dim runs (t_q 200, batch 2, heads 3): the
+    smallest of the 32/64/128 instantiations up to 128; above it the split
+    over d, one 128-wide chunk of the output's columns on each grid z. fp32
+    Q tiles are 128 rows up to width 64, else 64."""
+    assert tfa.launch_plan(dtype, 2, 200, 3, d) == want
+
+
+@pytest.mark.parametrize("batch,heads,ok", [
+    (1, 65535, True), (16400, 4, True), (4100, 16, True),
+    (2 ** 16, 2 ** 15 - 1, True), (2 ** 16, 2 ** 15, False)])
+def test_launch_plan_batch_heads(batch, heads, ok):
+    """batch * heads lies on the grid's x, whose limit is 2^31 - 1: 65 600
+    heads are taken, 2^31 are refused."""
+    if ok:
+        grid = tfa.launch_plan(torch.float32, batch, 64, heads, 64)[2]
+        assert grid[0] == batch * heads
+    else:
+        with pytest.raises(MXNetError, match="batch \\* heads"):
+            tfa.launch_plan(torch.float32, batch, 64, heads, 64)
+
+
+def test_launch_plan_q_tiles_and_chunks_capped():
+    """Q tiles (grid y) and d-chunks (grid z) stay within 65535."""
+    assert tfa.launch_plan(torch.bfloat16, 1, 64 * 65535, 1, 64)[2][1] \
+        == 65535
+    with pytest.raises(MXNetError, match="Q tiles"):
+        tfa.launch_plan(torch.bfloat16, 1, 64 * 65535 + 1, 1, 64)
+    with pytest.raises(MXNetError, match="d-chunks"):
+        tfa.launch_plan(torch.float32, 1, 64, 1, 128 * 65535 + 1)
+
+
+@pytest.mark.parametrize("d", [160, 256])
+@pytest.mark.parametrize("causal", [False, True])
+def test_head_dim_above_128_matches_pallas_interpret(monkeypatch, d, causal):
+    """Head dims the CUDA path runs by its split over d: the port's wrapper
+    (its plain version on the CPU) against the JAX kernel in interpret mode,
+    as the JAX package's own tests run it (T a multiple of its 128 block),
+    with q_offset on the causal case."""
+    monkeypatch.setenv("MXTPU_FLASH_ATTENTION", "1")
+    q, k, v = _inputs(7, [(1, 128, 2, d), (1, 256, 2, d), (1, 256, 2, d)])
+    kw = dict(causal=causal, q_offset=128 if causal else 0)
+    got, want = _both(q, k, v, **kw)
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)

@@ -1,8 +1,10 @@
 """Every op that mxnet_tpu/ops/tensor.py registers, and every alias, run
 through the port's body (mxnet_tpu_torch.ops) and the JAX package's body on
 the same numpy inputs, on the CPU. Values at rtol 1e-5 / atol 1e-6 (fp32),
-and the result dtype, must match. Inputs are drawn inside each op's domain,
-and without ties where torch and jax.numpy may order ties differently (topk).
+NaN positions included, and the result dtype, must match. Inputs are drawn
+inside each op's domain; fixed cases add what lies outside it: NaN and
+infinite values, casts past int32's range, negative, out-of-range and NaN
+indices, and ties (``topk`` orders them as ``lax.top_k``).
 The sampling ops cannot match values (threefry vs mt19937/Philox): they are
 held to shape, dtype, mean and variance, and to same-seed reproducibility."""
 import jax.numpy as jnp
@@ -44,6 +46,23 @@ def _with_nans(*shape):
     return make
 
 
+def _fixed(values, dtype=np.float32):
+    """These exact values (NaN, infinities, ties, out-of-range ids)."""
+    return lambda rng: np.array(values, dtype)
+
+
+# NaN, the infinities, values past int32 and its limits, and a few in range
+SPECIALS = [np.nan, np.inf, -np.inf, 3e9, -3e9, 2.7, -2.7, 2147483520.0,
+            -2147483648.0, 0.0, -0.0, 1e-3]
+# ids for a 5-row table: negative ones wrap, -6 and 5 are out of range,
+# NaN is 0, 3e9 saturates and is out of range
+ODD_IDS = [-1, -5, -6, 5, 7, np.nan, 3e9, 2, 0]
+TIES = [[0, 1, 1, 0, 1, 0], [2, 2, 2, 2, 2, 2], [1, 0, 1, 0, 0, 1]]
+# lax.top_k's total order: -NaN < -inf < -0.0 < 0.0 < inf < NaN
+SIGNED = [[-0.0, 0.0, -0.0, 1.0, np.nan, -np.nan, np.inf, -np.inf],
+          [0.0, -0.0, np.nan, np.nan, -1.0, -np.inf, -np.nan, 0.0]]
+
+
 def _distinct(*shape):
     """Values without ties (a permutation of a spread grid)."""
     return lambda rng: (rng.permutation(int(np.prod(shape))).reshape(shape)
@@ -59,7 +78,8 @@ OPT = dict(lr=0.05, wd=1e-3, rescale_grad=0.5, clip_gradient=1.0)
 
 # canonical op name -> list of (attrs, input makers); aliases take the first
 CASES = {
-    "abs": [({}, [X])], "sign": [({}, [X])],
+    "abs": [({}, [X])],
+    "sign": [({}, [X]), ({}, [_fixed(SPECIALS)])],
     "round": [({}, [_randn(3, 4, scale=3)])],
     "ceil": [({}, [_randn(3, 4, scale=3)])],
     "floor": [({}, [_randn(3, 4, scale=3)])],
@@ -82,7 +102,13 @@ CASES = {
     "_copy": [({}, [X])], "_CrossDeviceCopy": [({}, [X])],
     "BlockGrad": [({}, [X])],
     "Cast": [({"dtype": "int32"}, [_randn(3, 4, scale=4)]),
-             ({"dtype": "float16"}, [X]), ({}, [_ints((3, 4))])],
+             ({"dtype": "float16"}, [X]), ({}, [_ints((3, 4))]),
+             ({"dtype": "int32"}, [_fixed(SPECIALS)]),
+             ({"dtype": "uint8"}, [_fixed(SPECIALS + [255.5, 256.0, -1.0])]),
+             ({"dtype": "int8"}, [_fixed(SPECIALS + [127.9, -128.9])]),
+             ({"dtype": "int32"}, [_fixed([np.nan, np.inf, -np.inf, 65504.0,
+                                           -65504.0, 2.7, -2.7, 0.0],
+                                          np.float16)])],
     "elemwise_add": [({}, TWO)], "elemwise_sub": [({}, TWO)],
     "elemwise_mul": [({}, TWO)],
     "elemwise_div": [({}, [X, POS]), ({}, [_ints((3, 4)), _ints((3, 4), 1)])],
@@ -144,7 +170,21 @@ CASES = {
              ({"k": 3, "ret_typ": "value", "is_ascend": True},
               [_distinct(3, 6)]),
              ({"k": 2, "ret_typ": "both", "axis": 0}, [_distinct(4, 3)]),
-             ({"k": 2, "ret_typ": "mask"}, [_distinct(3, 6)])],
+             ({"k": 2, "ret_typ": "mask"}, [_distinct(3, 6)]),
+             # ties: lax.top_k puts the lowest index first
+             ({"k": 2}, [_fixed(TIES)]),
+             ({"k": 3, "ret_typ": "both"}, [_fixed(TIES)]),
+             ({"k": 2, "ret_typ": "mask"}, [_fixed(TIES)]),
+             ({"k": 4, "ret_typ": "value", "is_ascend": True},
+              [_fixed(TIES)]),
+             ({"k": 2, "ret_typ": "both", "is_ascend": True},
+              [_fixed(TIES)]),
+             ({"k": 2, "ret_typ": "mask", "is_ascend": True, "axis": 0},
+              [_fixed(np.array(TIES).T)]),
+             ({"k": 8, "ret_typ": "both"}, [_fixed(SIGNED)]),
+             ({"k": 5, "ret_typ": "both", "is_ascend": True},
+              [_fixed(SIGNED)]),
+             ({"k": 3}, [_fixed([[3, 1, 3, 2, -7, 3]], np.int32)])],
     "sort": [({}, [_distinct(3, 5)]), ({"is_ascend": False, "axis": 0},
                                        [_distinct(3, 5)])],
     "argsort": [({}, [_distinct(3, 5)]),
@@ -177,11 +217,17 @@ CASES = {
                    ({"axis": 0, "begin": 1, "end": None}, [_randn(3, 5)])],
     "clip": [({"a_min": -0.5, "a_max": 0.5}, [X])],
     "take": [({}, [_randn(5, 3), _ids((2, 4), 5)]),
-             ({"axis": 1}, [_randn(2, 5, 3), _ids((4,), 5)])],
-    "batch_take": [({}, [_randn(4, 5), _ids((4,), 5)])],
+             ({"axis": 1}, [_randn(2, 5, 3), _ids((4,), 5)]),
+             ({}, [_randn(5, 3), _fixed(ODD_IDS)]),
+             ({"axis": 1}, [_randn(2, 5, 3), _fixed(ODD_IDS)]),
+             ({}, [_ints((5, 3)), _fixed(ODD_IDS)]),
+             ({}, [_randn(5, 3), _fixed([-1, 7, -6, 4], np.int32)])],
+    "batch_take": [({}, [_randn(4, 5), _ids((4,), 5)]),
+                   ({}, [_randn(9, 5), _fixed(ODD_IDS)])],
     "one_hot": [({"depth": 6}, [_ids((2, 3), 6)]),
                 ({"depth": 4, "on_value": 2.0, "off_value": -1.0},
-                 [_ids((5,), 4)])],
+                 [_ids((5,), 4)]),
+                ({"depth": 5}, [_fixed(ODD_IDS)])],
     "SwapAxis": [({"dim1": 0, "dim2": 2}, [_randn(2, 3, 4)])],
     "where": [({}, [_ids((3, 4), 2), _randn(3, 4), _randn(3, 4)])],
     "ElementWiseSum": [({"num_args": 3}, [X, X, _randn(3, 4)])],

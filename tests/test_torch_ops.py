@@ -27,12 +27,19 @@ def _ids(shape, n):
     return lambda rng: rng.integers(0, n, shape).astype(np.float32)
 
 
+def _fixed(values):
+    return lambda rng: np.array(values, np.float32)
+
+
 _W = [_weight(12, 12)] * 4   # RingAttention q/k/v/out weights
 
 # op name, attrs, input makers
 CASES = [
     ("Embedding", {"input_dim": 10, "output_dim": 4},
      [_ids((2, 5), 10), _randn(10, 4)]),
+    # negative ids wrap, ids outside [-10, 10) give NaN rows, NaN is id 0
+    ("Embedding", {"input_dim": 10, "output_dim": 4},
+     [_fixed([[-1, -10, -11, 10], [np.nan, 3e9, -3e9, 9]]), _randn(10, 4)]),
     ("LayerNorm", {}, [_randn(2, 5, 8), _randn(8), _randn(8)]),
     ("LayerNorm", {"axis": 1, "eps": 1e-3},
      [_randn(3, 6, 2), _randn(6), _randn(6)]),

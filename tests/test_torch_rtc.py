@@ -150,3 +150,119 @@ def test_sgd_mom_plain_matches_jax_op():
     for a, b in zip(got, want):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-6,
                                    atol=1e-7)
+
+
+@pytest.mark.parametrize("n,itemsize,want", [
+    (4096 * 32768, 4, 131072), (4096 * 32768, 2, 65536), (1000003, 4, 977),
+    (1, 4, 1), (7, 2, 1), (1024, 4, 1), (1028, 4, 2), (2048, 2, 1),
+    (2056, 2, 2), (0, 4, 1)])
+def test_axpy_grid_a_thread_a_vector(n, itemsize, want):
+    """The axpy launch: one thread for each 16-byte vector (a partial one
+    counts), in blocks of 256; a function of n and the element size."""
+    grid, block = ex.axpy_dims(n, itemsize)
+    assert grid == (want, 1, 1) and block == (256, 1, 1)
+
+
+@pytest.mark.parametrize("n,offset,itemsize,want", [
+    # x, y and o at one byte offset: the head runs to the 16-byte boundary
+    (1000003, 0, 4, (0, 250000, 3)), (1000003, 4, 4, (3, 250000, 0)),
+    (1000003, 8, 4, (2, 250000, 1)), (1000003, 12, 4, (1, 250000, 2)),
+    (1000003, 2, 2, (7, 124999, 4)), (1000003, 14, 2, (1, 125000, 2)),
+    (1, 4, 4, (1, 0, 0)), (3, 0, 4, (0, 0, 3)), (7, 0, 2, (0, 0, 7)),
+    (7, 6, 2, (5, 0, 2)), (8, 0, 2, (0, 1, 0)), (0, 4, 4, (0, 0, 0))])
+def test_axpy_head_vectors_tail(n, offset, itemsize, want):
+    base = 1 << 20
+    got = ex.axpy_split(n, base + offset, base + 4096 + offset,
+                        base + 8192 + offset, itemsize)
+    assert got == want
+    head, vectors, tail = got
+    assert head + vectors * (16 // itemsize) + tail == n
+
+
+@pytest.mark.parametrize("offsets", [(4, 0, 0), (0, 4, 0), (0, 0, 8),
+                                     (2, 2, 0)])
+def test_axpy_unlike_alignment_runs_scalar(offsets):
+    """Inputs viewed at an offset while the output is aligned (or any other
+    mix): no 16-byte vector can serve all three, so all of it is head."""
+    base = 1 << 20
+    x, y, o = (base + 4096 * i + off for i, off in enumerate(offsets))
+    assert ex.axpy_split(1000003, x, y, o, 2) == (1000003, 0, 0)
+
+
+def test_axpy_source_vectors():
+    for dtype, ve in (("float32", 4), ("bfloat16", 8)):
+        src = ex.axpy_source(dtype)
+        assert f"#define VE {ve}" in src
+        assert "ov[i] = axpy4(xv[i], yv[i])" in src
+        assert 'extern "C" __global__' in src
+    assert "#include <cuda_bf16.h>" in ex.axpy_source("bfloat16")
+
+
+class _FakeLauncher:
+    def __init__(self, log):
+        self.log = log
+
+    def __call__(self, values, grid, block):
+        self.log.append((list(values), grid, block))
+
+
+def _stub_card(monkeypatch, log, device=torch.device("cuda", 0)):
+    """Launches without a card: tensors pass as if on ``device``, and each
+    compile returns a launcher that records its calls."""
+    built = []
+
+    def launcher(self, source, device, n_params):
+        built.append((source, device.index, n_params))
+        return _FakeLauncher(log)
+
+    monkeypatch.setattr(rtc, "_check_cuda_tensors",
+                        lambda what, tensors: device)
+    monkeypatch.setattr(rtc._Program, "launcher", launcher)
+    return built
+
+
+def test_rtc_push_builds_source_once_per_signature(monkeypatch):
+    """A repeated push with the same (dtype, size) signature builds no
+    source and compiles nothing; another signature builds its own."""
+    log, calls = [], []
+    real = rtc.rtc_source
+
+    def counting(*args):
+        calls.append(args[0])
+        return real(*args)
+
+    built = _stub_card(monkeypatch, log)
+    g, w, m = (torch.zeros(10) for _ in range(3))
+    k = ex.sgd_mom_rtc(g, w, m)
+    monkeypatch.setattr(rtc, "rtc_source", counting)
+    for _ in range(3):
+        k.push([g], [w, m])
+    assert len(calls) == 1 and len(built) == 1 and len(log) == 3
+    assert built[0][1:] == (0, 3)
+    assert log[0][1:] == ((1, 1, 1), (256, 1, 1))
+    assert log[0][0] == [t.data_ptr() for t in (g, w, m)]
+    g2, w2, m2 = (torch.zeros(300) for _ in range(3))
+    k.push([g2], [w2, m2])
+    k.push([g2], [w2, m2], grid_dims=(5,), block_dims=(32,))
+    k.push([g], [w, m])
+    assert len(calls) == 2 and len(built) == 2 and k.launches == 6
+    assert "weight_size = 300LL" in built[1][0]
+    assert log[4][1:] == ((5, 1, 1), (32, 1, 1))
+
+
+def test_cuda_kernel_launch_record_reused(monkeypatch):
+    """CudaKernel keeps one launch record per (device, argument count);
+    axpy's launch is a thread a vector; a call's grid_dims win. (The
+    output is allocated on the CPU here, where the stub puts it.)"""
+    log = []
+    built = _stub_card(monkeypatch, log, torch.device("cpu"))
+    k = ex.axpy_kernel("bfloat16")
+    x = torch.zeros(1000003, dtype=torch.bfloat16)
+    for _ in range(3):
+        out = k(x, x)
+    k(x, x, grid_dims=(7,))
+    assert len(built) == 1 and built[0][2] == 4 and k.launches == 4
+    assert out.dtype == torch.bfloat16 and out.shape == x.shape
+    assert log[0][1:] == ((489, 1, 1), (256, 1, 1))   # 125001 vectors
+    assert log[0][0][3] == 1000003
+    assert log[3][1:] == ((7, 1, 1), (256, 1, 1))
