@@ -2,9 +2,10 @@
 
 Drives the port's main paths at the repo's accelerator width (vocab 32768,
 hidden 1024, 16 heads, 12 layers, T=2048): transformer-LM inference through
-``Predictor`` in fp32, the imperative path, and the LM through
-``Executor(amp_dtype="bfloat16")``; holds every CUDA kernel on those paths
-against its plain PyTorch version. Phases, in order; any failed check ends
+``Predictor`` in fp32, the imperative path, the LM through
+``Executor(amp_dtype="bfloat16")``, and its training through
+``Module(amp="bfloat16")``; holds every CUDA kernel on those paths against
+its plain PyTorch version. Phases, in order; any failed check ends
 the run with a non-zero exit and no result line:
 
 1. device: the card's name and power limit; TF32 off for fp32 parity;
@@ -46,7 +47,20 @@ the run with a non-zero exit and no result line:
    the idle share; then bf16 on the card against bf16 on the CPU at depth 2
    (batch 1, T 512), and int32 ids above 256 fed into a float32-bound
    ``data`` against the same feed bound as int32 (the ids must not round
-   in bf16).
+   in bf16);
+9. training: ``Module(amp="bfloat16")`` over the LM with the fused head
+   and Adam at lr 1e-4, batch 4 x 2048 int32 tokens, the phase-4 weights
+   through ``init_params(arg_params=...)``; five steps of
+   forward(is_train=True) / backward() / update() on one repeated batch
+   (step 1 apart, the median of steps 2-5 as the steady step, tokens/s),
+   12 bf16 flash launches a step, finite gradients, a falling NLL; a sixth
+   step traced into the flash forward, the attention backward's recompute,
+   the GEMMs, the fused head, the amp casts, the Adam update and the rest,
+   beside the idle share and peak memory; one fp32 step at depth 2 (batch
+   1, T 512) on the card against the CPU, fused and dense heads (NLL within
+   1e-4, each gradient within 1e-3 of its max-abs); and
+   ``mxnet_tpu_torch/examples/train_lm.py`` at its defaults (perplexity
+   below 3.5 after 800 steps).
 
 Run from the repo root: ``python3 chip_smoke.py [--seed N]``.
 The last line of standard output is ``{"ok": true, "device": {...}}``.
@@ -76,6 +90,7 @@ HBM_BYTES_PER_S = [("H100 PCIe", 2.0e12), ("H100 NVL", 3.9e12),
 PEAK_BYTES = 3.35e12   # the card of phase 1 sets it (hbm_bytes_per_s)
 
 VOCAB, HIDDEN, HEADS, LAYERS, SEQ, BATCH = 32768, 1024, 16, 12, 2048, 2
+TRAIN_BATCH, TRAIN_LR, TRAIN_STEPS = 4, 1e-4, 5   # phase 9 (bench.py)
 REQUESTS = 4
 OUT_DIR = "chiprun_out"
 # device kernels counted as matrix products in the traced request (cuBLAS
@@ -284,6 +299,9 @@ def phase_kernel_vs_plain(seed):
          True, 0, torch.bfloat16, 2e-2),
         ("slice_fp16_causal", (BATCH, SEQ, HEADS, HIDDEN // HEADS), SEQ,
          True, 0, torch.float16, 3e-3),
+        # phase 9's shape: the training step's batch of 4
+        ("train_bf16_causal", (TRAIN_BATCH, SEQ, HEADS, HIDDEN // HEADS),
+         SEQ, True, 0, torch.bfloat16, 2e-2),
         ("d128_bf16_causal", (BATCH, SEQ, HEADS // 2, 128), SEQ, True, 0,
          torch.bfloat16, 2e-2),
         # d = 50: rows of 100 bytes, the element-wise load path
@@ -1001,6 +1019,333 @@ def phase_amp(mx, weights, seed):
     return out
 
 
+TRAIN_CPU_SEQ = 512   # T of the card-vs-CPU training step
+TRAIN_ROWS_OFF = 4    # rows a ReLU at 0 may move there (train_card_vs_cpu)
+# device-time groups of the traced training step, by the host range that
+# launched the kernels: the autograd engine names each backward node, and
+# the script wraps the fused head's forward, the amp casts and the update
+TRAIN_RANGES = {
+    "attn_bwd_recompute": ("autograd::engine::evaluate_function: "
+                           "_FlashAttentionBackward",),
+    "fused_head": ("chip_smoke::fused_head_forward",
+                   "autograd::engine::evaluate_function: _FusedCEBackward"),
+    "amp_cast": ("chip_smoke::amp_cast",),
+    "adam_update": ("chip_smoke::adam_update",),
+}
+
+
+def lm_module(mx, layers, batch, seq, weights, ctx, amp, fused, lr=TRAIN_LR):
+    """The LM as ``bench.py`` trains it: ``Module(amp=...)`` bound at
+    (batch, seq), the given fp32 weights (the first ``seq`` learned
+    positions) through ``init_params(arg_params=...)``, Adam at ``lr``."""
+    symbol = mx.models.transformer_lm.get_symbol(
+        vocab_size=VOCAB, num_layers=layers, hidden=HIDDEN, heads=HEADS,
+        seq_len=seq, fused_head=fused)
+    mod = mx.mod.Module(symbol, context=ctx, amp=amp)
+    mod.bind(data_shapes=[("data", (batch, seq))],
+             label_shapes=[("softmax_label", (batch, seq))])
+    params = {n: weights[n] for n in mod._param_names}
+    params["transformer_pos_weight"] = params["transformer_pos_weight"][:seq]
+    args, _ = mx.convert.params_from_numpy(params, {}, ctx)
+    mod.init_params(arg_params=args)
+    mod.init_optimizer(optimizer="adam",
+                       optimizer_params={"learning_rate": lr})
+    return mod
+
+
+def lm_batch(mx, rng, batch, seq, ctx):
+    """Random int32 tokens; labels the next token, -1 at the end."""
+    x = rng.integers(0, VOCAB, (batch, seq)).astype(np.int32)
+    y = np.roll(x, -1, axis=1).astype(np.float32)
+    y[:, -1] = -1
+    return mx.io.DataBatch(data=[mx.nd.array(x, ctx, dtype="int32")],
+                           label=[mx.nd.array(y, ctx)]), y
+
+
+def _kernels_under(evt):
+    """Device kernels launched by a host event and its children."""
+    out = list(evt.kernels)
+    for child in evt.cpu_children:
+        out += _kernels_under(child)
+    return out
+
+
+def traced_groups(fn):
+    """Device ms of ``fn`` by kernel name, and the kernels (name, ms) under
+    each host range of TRAIN_RANGES, from one profiler run."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
+            as prof:
+        fn()
+        torch.cuda.synchronize()
+    # the record_function ranges also show as device-side annotations that
+    # span their kernels: count kernels and copies only
+    by_name = {e.key: e.self_device_time_total / 1e3
+               for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)
+               and not e.key.startswith("chip_smoke::")
+               and e.self_device_time_total > 0}
+    groups = {g: [] for g in TRAIN_RANGES}
+    for evt in prof.events():
+        for g, names in TRAIN_RANGES.items():
+            if evt.name in names:
+                groups[g] += [(k.name, k.duration / 1e3)
+                              for k in _kernels_under(evt)]
+    return by_name, groups
+
+
+def phase_train(mx, weights, seed):
+    """The transformer LM training through Module(amp="bfloat16") at
+    bench.py's accelerator width: fused head, Adam, a repeated batch."""
+    import torch
+
+    from mxnet_tpu_torch import executor as texe
+    from mxnet_tpu_torch.ops import get_op
+    from mxnet_tpu_torch.ops.flash_attention import (flash_attention,
+                                                     reset_launches)
+
+    print(f"phase 9: training (bf16 amp, fused head, Adam lr {TRAIN_LR}; "
+          f"{LAYERS} layers, batch {TRAIN_BATCH}, T {SEQ}, vocab {VOCAB}, "
+          f"{TRAIN_STEPS} steps)", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    gpu = mx.gpu(0)
+    t0 = time.perf_counter()
+    mod = lm_module(mx, LAYERS, TRAIN_BATCH, SEQ, weights, gpu, "bfloat16",
+                    True)
+    torch.cuda.synchronize()
+    ex = mod._exec_group._executor
+    n_params = sum(a.size for n, a in ex.arg_dict.items()
+                   if n in mod._param_names)
+    out = {"layers": LAYERS, "batch": TRAIN_BATCH, "seq": SEQ,
+           "params": n_params, "bind_s": time.perf_counter() - t0,
+           # parameters, gradients and Adam's two moments, fp32
+           "expected_state_gb": 4 * 4 * n_params / 1e9,
+           # one fp32 score tensor of the attention recompute
+           "expected_scores_gb": 4 * TRAIN_BATCH * HEADS * SEQ * SEQ / 1e9}
+    print(f"  {n_params / 1e6:.1f} M parameters bound in "
+          f"{out['bind_s']:.1f} s", flush=True)
+    batch, y = lm_batch(mx, np.random.default_rng(seed + 11), TRAIN_BATCH,
+                        SEQ, gpu)
+    valid = torch.from_numpy(y.reshape(-1) != -1).to(gpu.torch_device)
+    tokens = TRAIN_BATCH * SEQ
+
+    reset_launches()
+    step_ms, losses, per_step = [], [], []
+    for i in range(TRAIN_STEPS):
+        before = flash_attention.launches_by_dtype["bfloat16"]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        mod.forward(batch, is_train=True)
+        mod.backward()
+        mod.update()
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        per_step.append(flash_attention.launches_by_dtype["bfloat16"]
+                        - before)
+        losses.append(float(mod.get_outputs()[0].data[valid].mean()))
+        if i == 0:
+            # the grad arrays keep step 1's gradients through the update
+            bad = [n for n, g in ex.grad_dict.items()
+                   if not bool(torch.isfinite(g.data).all())]
+            check(not bad and len(ex.grad_dict) == len(mod._param_names),
+                  f"all {len(ex.grad_dict)} gradients of step 1 finite")
+    launches = dict(flash_attention.launches_by_dtype)
+    check(all(np.isfinite(losses)), f"mean NLL finite: {losses}")
+    check(per_step == [LAYERS] * TRAIN_STEPS
+          and launches["float32"] == 0 and launches["float16"] == 0,
+          f"bf16 flash kernel launched {per_step} times a step == "
+          f"{LAYERS}, no other")
+    check(losses[-1] < losses[0], f"mean NLL on the repeated batch at step "
+          f"{TRAIN_STEPS} {losses[-1]:.4f} < step 1's {losses[0]:.4f}")
+    steady = float(np.median(step_ms[1:]))
+    out.update(step_ms=step_ms, first_step_ms=step_ms[0],
+               steady_step_ms=steady, tokens_per_s=tokens / (steady / 1e3),
+               launches=launches["bfloat16"], mean_nll=losses)
+
+    # a sixth step under the profiler, its groups by host range
+    fused_op = get_op("FusedCrossEntropyHead")
+    fused_fn, amp_cast = fused_op.fn, texe._amp_cast
+
+    def fused_traced(*a):
+        with torch.profiler.record_function("chip_smoke::fused_head_forward"):
+            return fused_fn(*a)
+
+    def cast_traced(*a):
+        with torch.profiler.record_function("chip_smoke::amp_cast"):
+            return amp_cast(*a)
+
+    def step():
+        mod.forward(batch, is_train=True)
+        mod.backward()
+        with torch.profiler.record_function("chip_smoke::adam_update"):
+            mod.update()
+
+    traced_ms = []
+    fused_op.fn, texe._amp_cast = fused_traced, cast_traced
+    try:
+        by_name, groups = traced_groups(
+            lambda: traced_ms.append(timed(step)[1]))
+    finally:
+        fused_op.fn, texe._amp_cast = fused_fn, amp_cast
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    check(by_name, "the profiler recorded device events for one step")
+    bad = [n for n, g in ex.grad_dict.items()
+           if not bool(torch.isfinite(g.data).all())]
+    check(not bad, "all gradients of the traced step finite")
+    busy = sum(by_name.values())
+    split = {"flash_fwd": sum(t for n, t in by_name.items()
+                              if "flash_fwd_tc" in n)}
+    for g, ks in groups.items():
+        split[g] = sum(t for _, t in ks)
+    # GEMMs of the forward and the backward outside those groups (the
+    # recompute's and the head's products are in theirs)
+    grouped_gemm = sum(t for ks in groups.values() for n, t in ks
+                       if GEMM_NAME.search(n))
+    split["gemm"] = sum(t for n, t in by_name.items()
+                        if GEMM_NAME.search(n) and "flash" not in n) \
+        - grouped_gemm
+    split["rest"] = busy - sum(split.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    out["traced_step"] = {
+        "host_ms": traced_ms[0], "device_busy_ms": busy, "split_ms": split,
+        "idle_share": 1.0 - busy / steady,
+        "idle_share_traced": 1.0 - busy / traced_ms[0],
+        "device_kernels": len(by_name),
+        "top_kernels": [[n[:80], t] for n, t in top]}
+    print("  " + json.dumps({k: v for k, v in out.items()
+                             if k != "traced_step"}), flush=True)
+    print("  traced step: " + json.dumps(out["traced_step"]), flush=True)
+    check(split["flash_fwd"] > 0 and split["attn_bwd_recompute"] > 0,
+          "the traced step ran the flash kernel and its recompute")
+    del mod, ex, batch
+    torch.cuda.empty_cache()
+    out["card_vs_cpu"] = train_card_vs_cpu(mx, weights, seed)
+    out["train_lm_example"] = train_example()
+    return out
+
+
+def train_card_vs_cpu(mx, weights, seed):
+    """One fp32 training step (forward and backward) at depth 2, batch 1,
+    T 512 on the card and on the CPU, with the fused and the dense head.
+    TF32 is off (phase 1). The per-token NLL must agree within 1e-4, and
+    each gradient array within 1e-3 of its own max-abs outside at most
+    TRAIN_ROWS_OFF rows (entries of a 1-d array), within 5e-2 inside them.
+
+    Why rows: a ReLU whose input lies within the two devices' rounding of
+    0 passes the gradient on one device and not on the other. The forward
+    barely moves (the unit's output is about 0 either way), but its
+    gradient does: one row of that layer's ``ff1_weight`` and one entry
+    of its bias, the token's embedding and position rows, and small shifts
+    in the arrays before it. Arrays after the last ReLU are not touched.
+    Rows past 1e-3 are allowed only where some ReLU mask differs between
+    the devices. Measured at seed 0: one such unit (in layer 1), 1.5e-2 in
+    its row of ``layer1_ff1_weight``, at most 2 rows of any array past
+    1e-3, and the arrays after it within 3.3e-6."""
+    import torch
+
+    from mxnet_tpu_torch.ops import get_op
+    from mxnet_tpu_torch.ops.flash_attention import (flash_attention,
+                                                     reset_launches)
+
+    act = get_op("Activation")
+    act_fn, masks = act.fn, []
+
+    def act_seen(ctx, attrs, data):
+        # which ReLU inputs are positive, to count where the devices differ
+        masks.append((data > 0).cpu())
+        return act_fn(ctx, attrs, data)
+
+    res = {}
+    for fused in (True, False):
+        got = {}
+        for label, ctx in (("gpu", mx.gpu(0)), ("cpu", mx.cpu())):
+            mod = lm_module(mx, 2, 1, TRAIN_CPU_SEQ, weights, ctx, None,
+                            fused)
+            batch, y = lm_batch(mx, np.random.default_rng(seed + 12), 1,
+                                TRAIN_CPU_SEQ, ctx)
+            reset_launches()
+            t0 = time.perf_counter()
+            act.fn = act_seen
+            try:
+                mod.forward(batch, is_train=True)
+            finally:
+                act.fn = act_fn
+            mod.backward()
+            out = mod.get_outputs()[0].asnumpy()
+            keep = y.reshape(-1) != -1
+            lab = y.reshape(-1)[keep].astype(int)
+            nll = out[keep] if fused else -np.log(out[keep, lab])
+            grads = {n: g.asnumpy() for n, g in
+                     mod._exec_group._executor.grad_dict.items()}
+            got[label] = (nll, grads, dict(flash_attention.launches_by_dtype),
+                          time.perf_counter() - t0)
+            del mod, batch
+        torch.cuda.empty_cache()
+        nll_err = float(np.abs(got["gpu"][0] - got["cpu"][0]).max())
+        rel, where = {}, {}
+        for n, want in got["cpu"][1].items():
+            diff = np.abs(got["gpu"][1][n] - want)
+            rel[n] = float(diff.max() / max(np.abs(want).max(), 1e-30))
+            # where an array is off: how many entries pass 1e-3 of its
+            # max-abs, and in how many rows
+            off = diff > 1e-3 * np.abs(want).max()
+            if off.any():
+                rows = off.reshape(off.shape[0], -1).any(axis=1) \
+                    if off.ndim > 1 else off
+                where[n] = [int(off.sum()), int(rows.sum())]
+        worst = max(rel, key=rel.get)
+        head = "fused" if fused else "dense"
+        flips = [int((a != b).sum()) for a, b in zip(masks[:2], masks[2:])]
+        masks.clear()
+        res[head] = {"relu_masks_differ": flips,
+                     "nll_max_abs_err": nll_err, "grad_max_rel_err": rel[worst],
+                     "grad_worst": worst,
+                     "grad_median_rel_err": float(np.median(list(rel.values()))),
+                     "grad_rel_err": rel, "entries_rows_past_1e-3": where,
+                     "launches": {k: v[2] for k, v in got.items()},
+                     "seconds": {k: v[3] for k, v in got.items()}}
+        print(f"  card vs CPU, fp32 step, {head} head: "
+              + json.dumps(res[head]), flush=True)
+    for head, r in res.items():
+        check(r["launches"]["gpu"]["float32"] == 2
+              and sum(r["launches"]["cpu"].values()) == 0,
+              f"{head}: fp32 flash launched 2 times on the card, none on "
+              "the CPU")
+        check(r["nll_max_abs_err"] <= 1e-4, f"{head}: card vs CPU NLL "
+              f"{r['nll_max_abs_err']:.3g} <= 1e-4")
+        rows = max([rw for _, rw in r["entries_rows_past_1e-3"].values()],
+                   default=0)
+        flips = sum(r["relu_masks_differ"])
+        check((rows == 0 or flips > 0) and rows <= TRAIN_ROWS_OFF
+              and r["grad_max_rel_err"] <= 5e-2,
+              f"{head}: every gradient within 1e-3 of its max-abs outside "
+              f"{rows} <= {TRAIN_ROWS_OFF} rows, which only a ReLU mask "
+              f"that differs between the devices ({flips}) may move, and "
+              f"within 5e-2 in them (worst {r['grad_worst']}: "
+              f"{r['grad_max_rel_err']:.3g})")
+    return res
+
+
+def train_example():
+    """``examples/train_lm.py`` at its defaults on the card: the
+    reference's gate, perplexity below 3.5 after 800 steps."""
+    from mxnet_tpu_torch.examples import train_lm
+
+    t0 = time.perf_counter()
+    try:
+        ppl = train_lm.main([])
+    except AssertionError as e:
+        raise CheckFailed(f"train_lm: perplexity {e} >= 3.5 after 800 steps")
+    secs = time.perf_counter() - t0
+    check(ppl < 3.5, f"train_lm on the card: perplexity {ppl:.3f} < 3.5 "
+          f"after 800 steps ({secs:.1f} s)")
+    return {"perplexity": ppl, "seconds": secs}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1019,6 +1364,7 @@ def main(argv=None):
     rtc_cases = phase_rtc_vs_plain(args.seed)
     imperative = phase_imperative(mx, weights, probs, args.seed)
     amp = phase_amp(mx, weights, args.seed)
+    train = phase_train(mx, weights, args.seed)
 
     main_case = cases["slice_fp32_causal"]
     kernels = [{
@@ -1042,7 +1388,9 @@ def main(argv=None):
         "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/flash_attention_fwd_tc.cu",
         "replaces": "mxnet_tpu/ops/flash_attention.py:47",
-        "launches": amp["launches"]["bfloat16"],
+        "launches": amp["launches"]["bfloat16"] + train["launches"],
+        "launches_by_path": {"amp_requests": amp["launches"]["bfloat16"],
+                             "training_steps": train["launches"]},
         **{k: tc_case[k] for k in KERNEL_KEYS}})
     for name, case in (("rtc_axpy", "axpy_logits_fp32"),
                        ("rtc_sgd_mom", "sgd_mom_embedding_fp32")):
@@ -1058,7 +1406,7 @@ def main(argv=None):
         json.dump({"card": card, "build": build, "cases": cases,
                    "slice": slice_out, "card_vs_cpu": parity,
                    "rtc_cases": rtc_cases, "imperative": imperative,
-                   "amp": amp,
+                   "amp": amp, "train": train,
                    "kernels": kernels,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)

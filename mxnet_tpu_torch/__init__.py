@@ -1,7 +1,7 @@
 """mxnet_tpu_torch: the PyTorch and CUDA port of mxnet_tpu.
 
-The same public names as ``mxnet_tpu`` (``nd``, ``sym``, ``Predictor``,
-contexts), over ``torch.Tensor``s. Entry points run on ``gpu(0)`` unless the
+The same public names as ``mxnet_tpu`` (``nd``, ``sym``, ``mod``, ``init``,
+``optimizer``, ``io``, ``Predictor``, contexts), over ``torch.Tensor``s. Entry points run on ``gpu(0)`` unless the
 caller passes ``mx.cpu()``; importing the package does not initialise CUDA.
 Kernels that the JAX package wrote in Pallas are hand-written CUDA here:
 ``csrc/`` built with nvcc at first use, and users' own kernels compiled at
@@ -30,6 +30,14 @@ from . import symbol as sym
 from .symbol import Symbol, Variable
 from . import executor
 from .executor import Executor
+from . import initializer
+from . import initializer as init
+from .initializer import Initializer, Uniform, Normal, Xavier, Zero, One
+from . import optimizer
+from .optimizer import Optimizer
+from . import io
+from . import module
+from . import module as mod
 from . import predictor
 from .predictor import Predictor
 from . import convert

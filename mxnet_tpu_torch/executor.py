@@ -1,16 +1,28 @@
-"""Executor: binds a Symbol to a device and evaluates it (reference:
-mxnet_tpu/executor.py, the forward part).
+"""Executor: binds a Symbol to a device, evaluates it and differentiates it
+(reference: mxnet_tpu/executor.py).
 
-The reference lowers the whole graph to one jitted XLA program. PyTorch runs
-eagerly, so ``forward`` walks the graph in topological order and calls each
-op body on the bound tensors under ``torch.inference_mode()``; the op bodies
-launch their kernels on the current CUDA stream. The reference's graph
-rewrites at bind (graphopt) do not change fp32 math and are not ported;
-backward and the fused training step wait for the training slice.
+The reference lowers the whole graph to one jitted XLA program per entry
+point. PyTorch runs eagerly, so ``forward`` walks the graph in topological
+order and calls each op body on the bound tensors; the op bodies launch
+their kernels on the current CUDA stream. The reference's graph rewrites at
+bind (graphopt) do not change fp32 math and are not ported.
+
+- ``forward(is_train=False)`` walks under ``torch.inference_mode()``.
+- ``forward(is_train=True)`` with gradients bound is the reference's fused
+  forward+backward: the walk runs under autograd, each differentiable
+  argument entering as a fresh leaf (so the optimizer's later updates of the
+  bound arrays record no graph), and backward runs at once with head
+  gradients of ones, which the loss ops ignore. The gradients wait for
+  ``backward()``, which writes them into the bound grad arrays under
+  ``grad_req`` (write, add or null).
+- ``backward(out_grads)`` runs the observed forward again with the given head
+  gradients: on the arguments bound now, the aux inputs of that forward and
+  its random-number state.
 
 ``amp_dtype`` (e.g. ``"bfloat16"``) is the reference's mixed precision: the
 bound fp32 arrays stay fp32 master copies, and each ``forward`` casts them
-to the compute dtype as they enter the graph walk (:func:`_amp_cast`).
+to the compute dtype as they enter the graph walk (:func:`_amp_cast`); the
+cast's backward brings their gradients back in fp32.
 """
 from __future__ import annotations
 
@@ -61,8 +73,24 @@ def _fed_tensor(v, device):
     return torch.from_numpy(np.ascontiguousarray(a)).to(device, copy=True)
 
 
+def _normalize(arrays, names, what, allow_missing=False):
+    """``arrays`` (a dict by name, or a list in ``names``' order, None for
+    none) as a dict by name."""
+    if isinstance(arrays, dict):
+        missing = [n for n in names if n not in arrays]
+        if missing and not allow_missing:
+            raise MXNetError(f"{what}: missing arrays for {missing}")
+        return {n: arrays[n] for n in names if n in arrays}
+    arrays = list(arrays)
+    if not allow_missing and len(arrays) != len(names):
+        raise MXNetError(f"{what}: expected {len(names)} arrays "
+                         f"({names}), got {len(arrays)}")
+    return {n: a for n, a in zip(names, arrays) if a is not None}
+
+
 class Executor:
-    def __init__(self, symbol, ctx, args, aux_states=None, amp_dtype=None):
+    def __init__(self, symbol, ctx, args, args_grad=None, grad_req="write",
+                 aux_states=None, amp_dtype=None):
         self._symbol = symbol
         self._ctx = ctx
         self._amp_dtype = None if amp_dtype is None \
@@ -70,61 +98,193 @@ class Executor:
         self.arg_names = symbol.list_arguments()
         self.aux_names = symbol.list_auxiliary_states()
         self.output_names = symbol.list_outputs()
-        self.arg_dict = self._normalize(args, self.arg_names, "args")
-        self.aux_dict = self._normalize(aux_states or [], self.aux_names,
-                                        "aux_states")
+        self.arg_dict = _normalize(args, self.arg_names, "args")
+        self.grad_dict = {} if args_grad is None else _normalize(
+            args_grad, self.arg_names, "args_grad", allow_missing=True)
+        self.aux_dict = _normalize(aux_states or [], self.aux_names,
+                                   "aux_states")
+        if isinstance(grad_req, str):
+            self.grad_req = {n: grad_req for n in self.arg_names}
+        elif isinstance(grad_req, (list, tuple)):
+            self.grad_req = dict(zip(self.arg_names, grad_req))
+        else:
+            self.grad_req = {n: grad_req.get(n, "null")
+                             for n in self.arg_names}
+        # a request on an argument with no grad array is null
+        for n in self.arg_names:
+            if n not in self.grad_dict:
+                self.grad_req[n] = "null"
+        self._diff_args = [n for n in self.arg_names
+                           if self.grad_req[n] != "null"]
         self._entries = symbol._entries()
         self._topo = symbol._nodes()
         self.outputs: list = []
+        self._pending_grads = None
+        self._last_aux = None        # aux inputs of the last train forward
+        self._last_rng_state = None  # its generator state
 
-    @staticmethod
-    def _normalize(arrays, names, what):
-        if isinstance(arrays, dict):
-            missing = [n for n in names if n not in arrays]
-            if missing:
-                raise MXNetError(f"{what}: missing arrays for {missing}")
-            return {n: arrays[n] for n in names}
-        arrays = list(arrays)
-        if len(arrays) != len(names):
-            raise MXNetError(f"{what}: expected {len(names)} arrays "
-                             f"({names}), got {len(arrays)}")
-        return dict(zip(names, arrays))
+    def _walk(self, op_ctx, arg_vals, aux_vals):
+        """Evaluate the graph on ``arg_vals``/``aux_vals`` (dicts of tensors
+        by name); returns (output tensors, new aux tensors by name). An op's
+        aux update is seen by every later reader in the same walk."""
+        vals = {}
+        new_aux = dict(aux_vals)
+        for node in self._topo:
+            if node.is_variable:
+                if node.name in arg_vals:
+                    vals[(id(node), 0)] = _amp_cast(
+                        node.name, arg_vals[node.name], self._amp_dtype)
+                elif node.name in aux_vals:
+                    vals[(id(node), 0)] = aux_vals[node.name]
+                else:
+                    raise MXNetError(f"unbound variable '{node.name}'")
+                continue
+            op = get_op(node.op)
+            ins = [vals[(id(n), i)] for n, i in node.inputs]
+            aux = [vals[(id(a), 0)] for a in node.aux_vars]
+            outs, aux_out = op.normalized_call(op_ctx, node.attrs, ins, aux)
+            for i, o in enumerate(outs):
+                vals[(id(node), i)] = o
+            for a_node, a_new in zip(node.aux_vars, aux_out):
+                new_aux[a_node.name] = a_new
+                vals[(id(a_node), 0)] = a_new
+        return [vals[(id(n), i)] for n, i in self._entries], new_aux
+
+    def _forward_backward(self, aux_vals, rng, out_grads=None):
+        """The training walk under autograd, then its backward with
+        ``out_grads`` (head gradients of ones if None). Returns (outputs,
+        new aux, gradients by differentiable argument)."""
+        import torch
+
+        args = {n: a.data for n, a in self.arg_dict.items()}
+        leaves = {}
+        for n in self._diff_args:
+            if args[n].is_floating_point():
+                leaves[n] = args[n].detach().requires_grad_()
+                args[n] = leaves[n]
+        op_ctx = OpCtx(is_train=True, rng=rng, device=self._ctx.torch_device)
+        with torch.enable_grad():
+            outs, new_aux = self._walk(op_ctx, args, aux_vals)
+        if out_grads is None:
+            out_grads = [torch.ones_like(o) for o in outs]
+        heads = [(o, g) for o, g in zip(outs, out_grads)
+                 if o.requires_grad]
+        got = torch.autograd.grad(
+            [o for o, _ in heads], list(leaves.values()),
+            [g for _, g in heads], allow_unused=True) if heads and leaves \
+            else [None] * len(leaves)
+        got = dict(zip(leaves, got))
+        # an argument the outputs do not depend on (or an integer one) gets
+        # zeros, as jax.vjp gives
+        grads = {n: got[n] if got.get(n) is not None
+                 else torch.zeros_like(self.arg_dict[n].data)
+                 for n in self._diff_args}
+        return ([o.detach() for o in outs],
+                {n: a.detach() for n, a in new_aux.items()}, grads)
 
     def forward(self, is_train=False, **kwargs):
         """Evaluate the graph; each of ``kwargs`` rebinds its bound argument
         first, as in the reference: the bound NDArray now holds the fed
         array, with the feed's dtype and shape, on the executor's device.
-        Returns the output NDArrays."""
+        With ``is_train`` and gradients bound, also computes the gradients
+        that :meth:`backward` writes. Returns the output NDArrays."""
         import torch
 
+        from . import random as _random
         from .ndarray import NDArray
 
-        if is_train:
-            raise MXNetError("forward(is_train=True): training is not yet "
-                             "ported")
         for k, v in kwargs.items():
             if k not in self.arg_dict:
                 raise MXNetError(f"forward: unknown argument {k}")
             self.arg_dict[k]._data = _fed_tensor(v, self._ctx.torch_device)
-        op_ctx = OpCtx(is_train=False, device=self._ctx.torch_device)
-        vals = {}
-        with torch.inference_mode():
-            for node in self._topo:
-                if node.is_variable:
-                    if node.name in self.arg_dict:
-                        vals[(id(node), 0)] = _amp_cast(
-                            node.name, self.arg_dict[node.name].data,
-                            self._amp_dtype)
-                    elif node.name in self.aux_dict:
-                        vals[(id(node), 0)] = self.aux_dict[node.name].data
-                    else:
-                        raise MXNetError(f"unbound variable '{node.name}'")
-                    continue
-                op = get_op(node.op)
-                ins = [vals[(id(n), i)] for n, i in node.inputs]
-                aux = [vals[(id(a), 0)] for a in node.aux_vars]
-                outs, _ = op.normalized_call(op_ctx, node.attrs, ins, aux)
-                for i, o in enumerate(outs):
-                    vals[(id(node), i)] = o
-        self.outputs = [NDArray(vals[(id(n), i)]) for n, i in self._entries]
+        aux_vals = {n: a.data for n, a in self.aux_dict.items()}
+        self._pending_grads = None
+        if not is_train:
+            op_ctx = OpCtx(is_train=False, device=self._ctx.torch_device)
+            args = {n: a.data for n, a in self.arg_dict.items()}
+            with torch.inference_mode():
+                outs, _ = self._walk(op_ctx, args, aux_vals)
+            self.outputs = [NDArray(o) for o in outs]
+            return self.outputs
+        rng = _random.generator(self._ctx.torch_device)
+        # an explicit backward(out_grads) later re-runs the forward the
+        # caller observed: the aux inputs before this forward's update, and
+        # the random numbers it drew
+        self._last_aux = aux_vals
+        self._last_rng_state = rng.get_state()
+        if self._diff_args:
+            outs, new_aux, self._pending_grads = self._forward_backward(
+                aux_vals, rng)
+        else:
+            with torch.no_grad():
+                outs, new_aux = self._walk(
+                    OpCtx(is_train=True, rng=rng,
+                          device=self._ctx.torch_device),
+                    {n: a.data for n, a in self.arg_dict.items()}, aux_vals)
+        for n in self.aux_names:
+            self.aux_dict[n]._data = new_aux[n]
+        self.outputs = [NDArray(o) for o in outs]
         return self.outputs
+
+    def backward(self, out_grads=None):
+        """Write the gradients into the bound grad arrays under grad_req
+        (reference: Executor::Backward). With ``out_grads`` (one per output,
+        NDArrays or tensors), the last train forward runs again with them
+        as head gradients."""
+        import torch
+
+        from .ndarray import NDArray
+
+        if out_grads is not None:
+            if self._last_aux is None:
+                raise MXNetError("backward(out_grads) called before "
+                                 "forward(is_train=True)")
+            if isinstance(out_grads, NDArray):
+                out_grads = [out_grads]
+            device = self._ctx.torch_device
+            rng = torch.Generator(device=device)
+            rng.set_state(self._last_rng_state)
+            heads = [(g.data if isinstance(g, NDArray) else g).to(device)
+                     for g in out_grads]
+            _, _, self._pending_grads = self._forward_backward(
+                self._last_aux, rng, heads)
+        if self._pending_grads is None:
+            raise MXNetError("backward called before forward(is_train=True)")
+        for name, g in self._pending_grads.items():
+            holder = self.grad_dict[name]
+            if self.grad_req[name] == "add":
+                holder._data = holder._data + g
+            else:
+                holder._data = g
+        self._pending_grads = None
+
+    @property
+    def grad_arrays(self):
+        return [self.grad_dict.get(n) for n in self.arg_names]
+
+    @property
+    def arg_arrays(self):
+        return [self.arg_dict[n] for n in self.arg_names]
+
+    @property
+    def aux_arrays(self):
+        return [self.aux_dict[n] for n in self.aux_names]
+
+    @property
+    def output_dict(self):
+        return dict(zip(self.output_names, self.outputs))
+
+    def copy_params_from(self, arg_params, aux_params=None,
+                         allow_extra_params=False):
+        """Copy parameter arrays into the bound ones (reference:
+        executor.py copy_params_from)."""
+        for name, arr in arg_params.items():
+            if name in self.arg_dict:
+                arr.copyto(self.arg_dict[name])
+            elif not allow_extra_params:
+                raise MXNetError(f"unknown arg param {name}")
+        for name, arr in (aux_params or {}).items():
+            if name in self.aux_dict:
+                arr.copyto(self.aux_dict[name])
+            elif not allow_extra_params:
+                raise MXNetError(f"unknown aux param {name}")

@@ -2,10 +2,11 @@
 
 Pre-norm transformer blocks whose attention is the RingAttention op,
 unsharded. Layout: data (B, T) token ids; SoftmaxOutput over the flattened
-(B*T) positions, label (B, T) next-token ids. Parameter names and shapes are
-the reference's, so its checkpoints bind directly. Only ``get_symbol`` with
-the dense softmax head is ported; the MoE, pipeline, Ulysses and fused-head
-variants and the decode symbols wait for later work.
+(B*T) positions, label (B, T) next-token ids; or, with ``fused_head``, the
+vocabulary-chunked FusedCrossEntropyHead, whose output is the per-token NLL.
+Parameter names and shapes are the reference's, so its checkpoints bind
+directly, and the two heads share ``head_weight``. The MoE, pipeline and
+Ulysses variants and the decode symbols wait for later work.
 """
 from __future__ import annotations
 
@@ -29,9 +30,10 @@ def _block(h, seq_len, hidden, heads, causal, name):
 
 
 def get_symbol(vocab_size=256, num_layers=2, hidden=64, heads=4,
-               seq_len=32, causal=True):
+               seq_len=32, causal=True, fused_head=False):
     """Token-level LM: Embedding + learned positions -> pre-norm blocks ->
-    per-position softmax head over the vocabulary."""
+    per-position softmax head over the vocabulary (``fused_head``: the
+    projection and the cross-entropy fused, output the per-token NLL)."""
     data = sym.Variable("data")
     label = sym.Variable("softmax_label")
     pos = sym.Variable("transformer_pos_weight",
@@ -43,6 +45,13 @@ def get_symbol(vocab_size=256, num_layers=2, hidden=64, heads=4,
         h = _block(h, seq_len, hidden, heads, causal, f"layer{i}")
     h = sym.LayerNorm(h, name="final_ln")
     flat_label = sym.Reshape(label, shape=(-1,))
+    if fused_head:
+        # never makes the (B*T, V) logits; the weight keeps the dense
+        # head's name and shape, so checkpoints swap between the two heads
+        return sym.FusedCrossEntropyHead(
+            data=sym.Reshape(h, shape=(-1, hidden)), label=flat_label,
+            num_classes=vocab_size, use_ignore=True, ignore_label=-1,
+            normalization="valid", name="head")
     logits = sym.FullyConnected(sym.Reshape(h, shape=(-1, hidden)),
                                 num_hidden=vocab_size, name="head")
     # ignore_label=-1: the final position has no next token

@@ -16,7 +16,13 @@ a CPU tensor takes the plain version :func:`flash_attention_reference`, and a
 ``meta`` tensor returns an empty result of the right shape for shape
 inference. Only CUDA launches count: in ``flash_attention.launches``, and
 by input dtype in ``flash_attention.launches_by_dtype``, which tells which
-of the two kernels a path ran. The backward waits for the training slice.
+of the two kernels a path ran.
+
+The gradient is the reference's ``custom_vjp`` (``bwd`` of its
+``flash_attention``) as a ``torch.autograd.Function``: the forward is the
+routed forward above, only q, k and v are saved, and the backward recomputes
+attention in fp32 through ``local_attention`` and differentiates that
+recompute. The backward launches no kernel and counts nothing.
 """
 from __future__ import annotations
 
@@ -168,9 +174,49 @@ def _launch(q, k, v, causal, scale, q_offset):
     return out
 
 
+def _forward(q, k, v, causal, scale, q_offset):
+    """The forward routed by device: the CUDA kernel on the card (or raise),
+    the plain version on the CPU, an empty result on ``meta``."""
+    if q.device.type == "meta":
+        return torch.empty_like(q)
+    if q.device.type == "cpu":
+        return flash_attention_reference(q, k, v, causal, scale,
+                                         q_offset=q_offset)
+    if q.device.type != "cuda":
+        raise MXNetError(f"flash_attention: no kernel for device {q.device}")
+    _check_cuda(q, k, v)
+    if q.numel() == 0 or k.shape[1] == 0:
+        raise MXNetError("flash_attention: empty q or k")
+    return _launch(q, k, v, causal, scale, q_offset)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The reference's ``custom_vjp`` pair: forward through :func:`_forward`,
+    backward by recomputing attention in fp32 (``local_attention``,
+    normalised by ``max(l, 1e-20)``, cast to q's dtype) and differentiating
+    the recompute, as the reference's ``bwd`` does with ``jax.vjp``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale, q_offset):
+        ctx.save_for_backward(q, k, v)
+        ctx.attrs = (causal, scale, q_offset)
+        return _forward(q, k, v, causal, scale, q_offset)
+
+    @staticmethod
+    def backward(ctx, g):
+        causal, scale, q_offset = ctx.attrs
+        leaves = [x.detach().requires_grad_() for x in ctx.saved_tensors]
+        with torch.enable_grad():
+            out = flash_attention_reference(*leaves, causal=causal,
+                                            scale=scale, q_offset=q_offset)
+            dq, dk, dv = torch.autograd.grad(out, leaves, g)
+        return dq, dk, dv, None, None, None
+
+
 def flash_attention(q, k, v, causal=False, scale=None, block_q=128,
                     block_k=128, q_offset=0):
-    """Attention over (B, T, H, D) without materializing (T, T) scores.
+    """Attention over (B, T, H, D) without materializing (T, T) scores,
+    differentiable in q, k and v.
 
     Same signature as the reference minus ``interpret``. ``block_q`` and
     ``block_k`` are the reference's tiling; the CUDA kernel uses its own
@@ -178,17 +224,8 @@ def flash_attention(q, k, v, causal=False, scale=None, block_q=128,
     _check(q, k, v, q_offset)
     if scale is None:
         scale = 1.0 / (q.shape[-1] ** 0.5)
-    if q.device.type == "meta":
-        return torch.empty_like(q)
-    if q.device.type == "cpu":
-        return flash_attention_reference(q, k, v, causal, scale, block_q,
-                                         block_k, q_offset)
-    if q.device.type != "cuda":
-        raise MXNetError(f"flash_attention: no kernel for device {q.device}")
-    _check_cuda(q, k, v)
-    if q.numel() == 0 or k.shape[1] == 0:
-        raise MXNetError("flash_attention: empty q or k")
-    return _launch(q, k, v, causal, scale, q_offset)
+    return _FlashAttention.apply(q, k, v, bool(causal), float(scale),
+                                 int(q_offset))
 
 
 def reset_launches():

@@ -1,8 +1,9 @@
 """Neural-network layer operators (reference: mxnet_tpu/ops/nn.py), the subset
-that the transformer LM's inference graph reaches. Matrix products go to
+that the transformer LM's graph reaches. Matrix products go to
 ``torch.nn.functional.linear`` (cuBLAS on the card), as the reference leaves
-them to XLA. Forward only: the loss layers' backward waits for the training
-slice.
+them to XLA. Every body is differentiable by autograd as the reference's is
+by ``jax.vjp``; ``SoftmaxOutput`` keeps the reference's loss-op protocol (its
+backward ignores the head gradient) as a ``torch.autograd.Function``.
 """
 from __future__ import annotations
 
@@ -11,7 +12,7 @@ import torch
 import torch.nn.functional as F
 
 from .registry import register_op
-from .tensor import take_fill
+from .tensor import as_int32, take_fill
 
 
 # ---------------------------------------------------------------------------
@@ -116,11 +117,56 @@ def _softmax_label_infer(attrs, shapes):
     return shapes
 
 
+class _SoftmaxOutput(torch.autograd.Function):
+    """Softmax forward; backward ``(p - onehot(label)) * scale``, with the
+    incoming head gradient ignored (the reference's ``custom_vjp``,
+    mxnet_tpu/ops/nn.py ``_softmax_output``). ``axis`` is -1 (class axis
+    last, label of the data's shape minus it) or 1 (the channel axis)."""
+
+    @staticmethod
+    def forward(ctx, data, label, axis, use_ignore, ignore_label, grad_scale,
+                norm):
+        p = torch.softmax(data, dim=axis)
+        ctx.save_for_backward(p, label)
+        ctx.attrs = (axis, use_ignore, ignore_label, grad_scale, norm)
+        return p
+
+    @staticmethod
+    def backward(ctx, g):
+        p, label = ctx.saved_tensors
+        axis, use_ignore, ignore_label, grad_scale, norm = ctx.attrs
+        li = as_int32(label)
+        classes = torch.arange(p.shape[axis], device=p.device)
+        # one_hot of an id outside [0, C) is a zero row, as jax.nn.one_hot
+        oh = (li[..., None] == classes).to(p.dtype)
+        if axis != -1:
+            oh = torch.movedim(oh, -1, 1)
+        grad = p - oh
+        valid = torch.ones(li.shape, dtype=p.dtype, device=p.device)
+        if use_ignore:
+            valid = (li != ignore_label).to(p.dtype)
+            grad = grad * valid.unsqueeze(axis)
+        scale = grad_scale
+        if norm == "batch":
+            scale = scale / p.shape[0]
+        elif norm == "valid":
+            scale = scale / torch.clamp(valid.sum(), min=1.0)
+        return grad * scale, None, None, None, None, None, None
+
+
 @register_op("SoftmaxOutput", inputs=("data", "label"), alias=("Softmax",),
              infer_param_shapes=_softmax_label_infer)
 def _softmax_output(ctx, attrs, data, label):
-    """Forward softmax in fp32 over the class axis; the label is read only
-    by the backward, which waits for the training slice."""
+    """Softmax in fp32 over the class axis; backward (p - onehot(label)) *
+    grad_scale, normalised by ``normalization`` (null, batch or valid) and
+    masked at ``ignore_label`` under ``use_ignore``, whatever the head
+    gradient (reference: src/operator/softmax_output-inl.h:104-160). Under
+    mixed precision the input is cast to fp32 first, so the gradient
+    reaches the 16-bit logits through that cast."""
     multi = bool(attrs.get("multi_output", False))
     axis = 1 if (multi or data.dim() > 2) else -1
-    return torch.softmax(data.float(), dim=axis)
+    return _SoftmaxOutput.apply(
+        data.float(), label, axis, bool(attrs.get("use_ignore", False)),
+        int(attrs.get("ignore_label", -1)),
+        float(attrs.get("grad_scale", 1.0)),
+        attrs.get("normalization", "null"))

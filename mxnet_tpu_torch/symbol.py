@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import json
 
+import numpy as np
+
 from .attribute import AttrScope
 from .base import MXNetError
 from .name import NameManager
@@ -117,6 +119,13 @@ class Symbol:
     def list_auxiliary_states(self):
         return [n.name for n in self._nodes() if n.is_variable and _is_aux(n)]
 
+    # -- attributes ----------------------------------------------------------
+    def attr_dict(self):
+        """Every node's attributes as strings, by node name; the optimizer
+        reads ``__lr_mult__``/``__wd_mult__`` here."""
+        return {n.name: {k: str(v) for k, v in n.attrs.items()}
+                for n in self._nodes() if n.attrs}
+
     # -- composition ---------------------------------------------------------
     def __add__(self, other):
         if not isinstance(other, Symbol):
@@ -141,12 +150,18 @@ class Symbol:
         for k, v in kwargs.items():
             if v is not None:
                 known[k] = tuple(v)
-        return self._infer(known)
+        return self._infer(known)[:3]
 
-    def _infer(self, known):
+    def infer_type(self, **kwargs):
+        """Infer dtypes from argument dtypes given by name (reference:
+        symbol.py infer_type): (arg_types, out_types, aux_types) as numpy
+        dtypes, or the string "bfloat16"; None where a shape is unknown."""
+        return self._infer({}, dtype_hints=kwargs)[3:]
+
+    def _infer(self, known, dtype_hints=None):
         import torch
 
-        from .ndarray import _torch_dtype
+        from .ndarray import _dtype_name, _torch_dtype
 
         def meta(shape, dtype):
             return torch.empty(shape, dtype=dtype, device="meta")
@@ -166,7 +181,8 @@ class Symbol:
                                     for d in shp)
                     if 0 in shp:
                         shp = None
-                dt = _torch_dtype(node.attrs.get("__dtype__"))
+                dt = _torch_dtype((dtype_hints or {}).get(node.name)
+                                  or node.attrs.get("__dtype__"))
                 vals[id(node)] = [meta(shp, dt) if shp is not None else None]
                 continue
             op = get_op(node.op)
@@ -207,12 +223,20 @@ class Symbol:
             t = vals[id(node)][idx]
             return None if t is None else tuple(t.shape)
 
+        def type_of(node, idx=0):
+            t = vals[id(node)][idx]
+            if t is None:
+                return None
+            name = _dtype_name(t.dtype)
+            return name if name == "bfloat16" else np.dtype(name)
+
         by_name = {n.name: n for n in nodes if n.is_variable}
-        arg_shapes = [shape_of(by_name[n]) for n in self.list_arguments()]
-        aux_shapes = [shape_of(by_name[n])
-                      for n in self.list_auxiliary_states()]
-        out_shapes = [shape_of(n, i) for n, i in self._entries()]
-        return arg_shapes, out_shapes, aux_shapes
+        args = [by_name[n] for n in self.list_arguments()]
+        auxs = [by_name[n] for n in self.list_auxiliary_states()]
+        entries = self._entries()
+        return ([shape_of(n) for n in args], [shape_of(*e) for e in entries],
+                [shape_of(n) for n in auxs], [type_of(n) for n in args],
+                [type_of(*e) for e in entries], [type_of(n) for n in auxs])
 
     # -- serialization -------------------------------------------------------
     def tojson(self):
@@ -233,15 +257,33 @@ class Symbol:
                            "heads": heads}, indent=2)
 
     # -- execution -----------------------------------------------------------
-    def bind(self, ctx, args, args_grad=None, grad_req="null",
+    def bind(self, ctx, args, args_grad=None, grad_req="write",
              aux_states=None):
-        """Bind a forward-only executor (reference: symbol.py bind). Gradients
-        wait for the training slice."""
+        """Bind an executor (reference: symbol.py bind). ``args_grad``
+        (dict or list of NDArrays) receives the gradients under
+        ``grad_req`` (write, add or null; one string, a list or a dict)."""
         from .executor import Executor
 
-        if args_grad is not None:
-            raise MXNetError("bind: gradients are not yet ported")
-        return Executor(self, ctx, args, aux_states)
+        return Executor(self, ctx, args, args_grad, grad_req, aux_states)
+
+    def simple_bind(self, ctx, grad_req="write", type_dict=None, **kwargs):
+        """Allocate zeroed argument, gradient and aux arrays from the shapes
+        inferred from ``kwargs``, then bind (reference: symbol.py
+        simple_bind). ``type_dict`` names the dtype of an argument."""
+        from . import ndarray as nd
+
+        arg_shapes, _, aux_shapes = self.infer_shape(**kwargs)
+        names = self.list_arguments()
+        if any(s is None for s in arg_shapes):
+            missing = [n for n, s in zip(names, arg_shapes) if s is None]
+            raise MXNetError(f"simple_bind: cannot infer shapes for {missing}")
+        type_dict = type_dict or {}
+        args = [nd.zeros(s, ctx, dtype=type_dict.get(n))
+                for n, s in zip(names, arg_shapes)]
+        args_grad = None if grad_req == "null" else [
+            nd.zeros(s, ctx) for s in arg_shapes]
+        aux_states = [nd.zeros(s, ctx) for s in aux_shapes]
+        return self.bind(ctx, args, args_grad, grad_req, aux_states)
 
 
 def _attr_str(v):

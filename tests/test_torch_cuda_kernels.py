@@ -144,6 +144,90 @@ def test_full_attention_launches_kernel_at_any_t(monkeypatch, flag, t):
     assert float((got - want).abs().max()) <= 1e-4
 
 
+# -- gradients: the flash autograd.Function and the fused CE head -------------
+
+def _grad_of(fn, inputs, head):
+    xs = [x.detach().requires_grad_() for x in inputs]
+    out = fn(*xs)
+    return out.detach(), torch.autograd.grad(out, xs, head)
+
+
+def _max_rel(got, want):
+    """Largest difference over the largest entry of ``want``."""
+    return float((got.float().cpu() - want.float()).abs().max()
+                 / want.float().abs().max().clamp(min=1e-30))
+
+
+@pytest.mark.gpu
+# the gradient is the same fp32 recompute on both devices, cast to the
+# input's type: fp32 to summation order; a 16-bit gradient may round one
+# step of its type apart (2^-8 of bf16's largest entries, 2^-11 of fp16's)
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 1e-2),
+                                       (torch.float16, 2e-3)])
+@pytest.mark.parametrize("d", [64, 256])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_gradient_on_card_matches_cpu(dtype, tol, d, causal):
+    """The flash Function on the card (forward: the kernel, counted once;
+    backward: the fp32 recompute, which launches nothing) against the same
+    Function on the CPU (plain forward, same recompute)."""
+    g = _cuda()
+    q, k, v, head = (torch.randn((2, 160, 3, d), generator=g, device="cuda")
+                     .to(dtype) for _ in range(4))
+    before = tfa.flash_attention.launches
+    fn = lambda *a: tfa.flash_attention(*a, causal=causal)  # noqa: E731
+    out, grads = _grad_of(fn, (q, k, v), head)
+    torch.cuda.synchronize()
+    assert tfa.flash_attention.launches == before + 1
+    want_out, want = _grad_of(fn, [x.cpu() for x in (q, k, v)], head.cpu())
+    assert all(x.dtype == dtype and x.is_cuda for x in grads)
+    fwd_tol = {torch.float32: 1e-4, torch.bfloat16: 2e-2,
+               torch.float16: 3e-3}[dtype]
+    assert float((out.float().cpu() - want_out.float()).abs().max()) \
+        <= fwd_tol
+    for got_g, want_g in zip(grads, want):
+        assert _max_rel(got_g, want_g) <= tol
+
+
+@pytest.mark.gpu
+# fp32: summation order (TF32 is off for matmuls by default); bf16: each
+# logit rounds to bf16 after sums in another order, as between the CPU and
+# the JAX package (tests/test_torch_training.py sets the same limits)
+@pytest.mark.parametrize("dtype,nll_tol,grad_tol", [
+    (torch.float32, 1e-4, 1e-4), (torch.bfloat16, 3e-2, 1.5e-2)])
+@pytest.mark.parametrize("vocab,chunk", [(1000, 256), (4096, 2048)])
+def test_fused_head_on_card_matches_cpu(dtype, nll_tol, grad_tol, vocab,
+                                        chunk):
+    """FusedCrossEntropyHead's NLL and dx, dw, db on the card against the
+    CPU, a ragged vocabulary among them."""
+    from mxnet_tpu_torch import ops as tops
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    g = _cuda()
+    n, h = 512, 128
+    x = torch.randn((n, h), generator=g, device="cuda").to(dtype)
+    w = (torch.randn((vocab, h), generator=g, device="cuda") * 0.1).to(dtype)
+    b = (torch.randn((vocab,), generator=g, device="cuda") * 0.1).to(dtype)
+    label = torch.randint(0, vocab, (n,), generator=g, device="cuda").float()
+    label[::7] = -1
+    attrs = {"num_classes": vocab, "chunk_size": chunk, "use_ignore": True,
+             "ignore_label": -1, "normalization": "valid"}
+    op = tops.get_op("FusedCrossEntropyHead")
+
+    def fn(x, w, b):
+        return op.fn(tops.OpCtx(), attrs, x, w, b, label.to(x.device))
+
+    nll, grads = _grad_of(fn, (x, w, b), torch.ones(n, device="cuda"))
+    torch.cuda.synchronize()
+    want_nll, want = _grad_of(fn, [t.cpu() for t in (x, w, b)],
+                              torch.ones(n))
+    assert nll.dtype == torch.float32 and bool(torch.isfinite(nll).all())
+    assert float((nll.cpu() - want_nll).abs().max()) <= nll_tol
+    for got_g, want_g in zip(grads, want):
+        assert got_g.dtype == dtype
+        assert _max_rel(got_g, want_g) <= grad_tol
+
+
 # -- runtime-compiled user kernels (mxnet_tpu_torch.rtc) ---------------------
 
 def _cuda():
