@@ -25,9 +25,7 @@ class Initializer:
     def __call__(self, name, arr):
         if not isinstance(name, str):
             raise TypeError("name must be a string")
-        if name.startswith("upsampling"):
-            self._init_bilinear(name, arr)
-        elif name.endswith("_bias"):
+        if name.endswith("_bias"):
             self._init_bias(name, arr)
         elif name.endswith("_gamma"):
             self._init_gamma(name, arr)
@@ -35,15 +33,6 @@ class Initializer:
             self._init_beta(name, arr)
         elif name.endswith("_weight"):
             self._init_weight(name, arr)
-        elif name.endswith("_parameters"):
-            self._init_rnn_parameters(name, arr)
-        elif name.endswith(("_moving_mean", "_moving_avg")):
-            self._init_zero(name, arr)
-        elif name.endswith("_moving_var"):
-            self._init_one(name, arr)
-        elif name.endswith(("_init_c", "_init_h", "_state", "_state_cell")) \
-                or "begin_state" in name:
-            self._init_zero(name, arr)
         else:
             self._init_default(name, arr)
 
@@ -55,17 +44,6 @@ class Initializer:
     def _normal(arr, loc, scale):
         return _random.normal(loc, scale, arr.shape, ctx=arr.context)
 
-    def _init_bilinear(self, _, arr):
-        shape = arr.shape
-        weight = np.zeros(int(np.prod(shape)), dtype=np.float32)
-        f = np.ceil(shape[3] / 2.0)
-        c = (2 * f - 1 - f % 2) / (2.0 * f)
-        for i in range(int(np.prod(shape))):
-            x = i % shape[3]
-            y = (i // shape[3]) % shape[2]
-            weight[i] = (1 - abs(x / f - c)) * (1 - abs(y / f - c))
-        arr[:] = weight.reshape(shape)
-
     def _init_zero(self, _, arr):
         arr[:] = 0.0
 
@@ -75,11 +53,6 @@ class Initializer:
     _init_bias = _init_zero
     _init_beta = _init_zero
     _init_gamma = _init_one
-
-    def _init_rnn_parameters(self, _, arr):
-        """Packed RNN weight and bias vector: the flat shape hides the
-        per-matrix fans, so the small uniform LSTM init."""
-        arr[:] = self._uniform(arr, -0.07, 0.07)
 
     def _init_weight(self, name, arr):
         raise NotImplementedError

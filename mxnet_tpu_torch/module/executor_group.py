@@ -10,9 +10,8 @@ the multi-device work.
 from __future__ import annotations
 
 from ..base import MXNetError
-from ..executor import Executor, _fed_tensor
+from ..executor import _fed_tensor
 from ..io import DataDesc
-from ..ndarray import zeros
 
 __all__ = ["DataParallelExecutorGroup"]
 
@@ -52,20 +51,8 @@ class DataParallelExecutorGroup:
 
         shapes = {d.name: d.shape
                   for d in self.data_shapes + self.label_shapes}
-        arg_shapes, _, aux_shapes = symbol.infer_shape(**shapes)
-        missing = [n for n, s in zip(self.arg_names, arg_shapes) if s is None]
-        if missing:
-            raise MXNetError(f"cannot infer shapes for arguments {missing}")
-        self.arg_shapes = dict(zip(self.arg_names, arg_shapes))
-        self.aux_shapes = dict(zip(self.aux_names, aux_shapes))
-
-        ctx = self.contexts[0]
-        args = {n: zeros(s, ctx) for n, s in self.arg_shapes.items()}
-        grads = {n: zeros(self.arg_shapes[n], ctx)
-                 for n, r in self.grad_req.items() if r != "null"}
-        auxs = {n: zeros(s, ctx) for n, s in self.aux_shapes.items()}
-        self._executor = Executor(symbol, ctx, args, grads or None,
-                                  self.grad_req, auxs, amp_dtype=amp)
+        self._executor = symbol.simple_bind(
+            self.contexts[0], grad_req=self.grad_req, amp_dtype=amp, **shapes)
         self.execs = [self._executor]
         d0 = self.data_shapes[0] if self.data_shapes else None
         self.batch_size = d0.shape[DataDesc.get_batch_axis(d0.layout)] \
@@ -74,17 +61,8 @@ class DataParallelExecutorGroup:
     # -- parameters -------------------------------------------------------------
     def set_params(self, arg_params, aux_params):
         """Copy parameters into the bound arrays (each gets its own copy)."""
-        ex = self._executor
-        for name, arr in (arg_params or {}).items():
-            if name in ex.arg_dict:
-                dst = ex.arg_dict[name]
-                if dst.shape != arr.shape:
-                    raise MXNetError(f"param {name}: shape {arr.shape} != "
-                                     f"bound {dst.shape}")
-                arr.copyto(dst)
-        for name, arr in (aux_params or {}).items():
-            if name in ex.aux_dict:
-                arr.copyto(ex.aux_dict[name])
+        self._executor.copy_params_from(arg_params, aux_params,
+                                        allow_extra_params=True)
 
     def get_params(self, arg_params, aux_params):
         """Snapshot the bound parameters into the caller's dicts."""

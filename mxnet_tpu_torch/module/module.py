@@ -115,14 +115,13 @@ class Module(BaseModule):
             return
         assert self.binded, "call bind before initializing the parameters"
         ctx = self._context[0]
+        ex = self._exec_group._executor
         if self._arg_params is None:
-            self._arg_params = {
-                n: nd.zeros(self._exec_group.arg_shapes[n], ctx)
-                for n in self._param_names}
+            self._arg_params = {n: nd.zeros(ex.arg_dict[n].shape, ctx)
+                                for n in self._param_names}
         if self._aux_params is None:
-            self._aux_params = {
-                n: nd.zeros(self._exec_group.aux_shapes[n], ctx)
-                for n in self._aux_names}
+            self._aux_params = {n: nd.zeros(ex.aux_dict[n].shape, ctx)
+                                for n in self._aux_names}
 
         def _impl(name, arr, cache):
             if cache is not None and name in cache:

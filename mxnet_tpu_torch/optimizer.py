@@ -43,18 +43,13 @@ class Optimizer:
     """Base optimizer (reference: optimizer.py ``Optimizer``)."""
 
     def __init__(self, rescale_grad=1.0, param_idx2name=None, wd=0.0,
-                 clip_gradient=None, learning_rate=0.01, lr_scheduler=None,
-                 sym=None, begin_num_update=0):
+                 clip_gradient=None, learning_rate=0.01, sym=None):
         self.rescale_grad = rescale_grad
         self.lr = learning_rate
-        self.lr_scheduler = lr_scheduler
-        if lr_scheduler is not None:
-            self.lr_scheduler.base_lr = learning_rate
         self.wd = wd
         self.lr_mult = {}
         self.wd_mult = {}
-        self.begin_num_update = begin_num_update
-        self.num_update = begin_num_update
+        self.num_update = 0
         self._index_update_count = {}
         self.clip_gradient = clip_gradient
         self.idx2name = dict(param_idx2name or {})
@@ -85,15 +80,13 @@ class Optimizer:
         self.wd_mult.update(args_wd_mult)
 
     def _update_count(self, index):
-        if index not in self._index_update_count:
-            self._index_update_count[index] = self.begin_num_update
-        self._index_update_count[index] += 1
+        self._index_update_count[index] = \
+            self._index_update_count.get(index, 0) + 1
         self.num_update = max(self._index_update_count[index],
                               self.num_update)
 
     def _get_lr(self, index):
-        lr = self.lr_scheduler(self.num_update) if self.lr_scheduler \
-            else self.lr
+        lr = self.lr
         if index in self.lr_mult:
             lr *= self.lr_mult[index]
         elif index in self.idx2name:

@@ -266,11 +266,15 @@ class Symbol:
 
         return Executor(self, ctx, args, args_grad, grad_req, aux_states)
 
-    def simple_bind(self, ctx, grad_req="write", type_dict=None, **kwargs):
+    def simple_bind(self, ctx, grad_req="write", type_dict=None,
+                    amp_dtype=None, **kwargs):
         """Allocate zeroed argument, gradient and aux arrays from the shapes
         inferred from ``kwargs``, then bind (reference: symbol.py
-        simple_bind). ``type_dict`` names the dtype of an argument."""
+        simple_bind). ``type_dict`` names the dtype of an argument; with
+        ``grad_req`` a dict, only the arguments it asks gradients of get a
+        grad array. ``amp_dtype`` is the Executor's."""
         from . import ndarray as nd
+        from .executor import Executor
 
         arg_shapes, _, aux_shapes = self.infer_shape(**kwargs)
         names = self.list_arguments()
@@ -280,10 +284,16 @@ class Symbol:
         type_dict = type_dict or {}
         args = [nd.zeros(s, ctx, dtype=type_dict.get(n))
                 for n, s in zip(names, arg_shapes)]
-        args_grad = None if grad_req == "null" else [
-            nd.zeros(s, ctx) for s in arg_shapes]
+        if isinstance(grad_req, dict):
+            args_grad = {n: nd.zeros(s, ctx)
+                         for n, s in zip(names, arg_shapes)
+                         if grad_req.get(n, "null") != "null"}
+        else:
+            args_grad = None if grad_req == "null" else [
+                nd.zeros(s, ctx) for s in arg_shapes]
         aux_states = [nd.zeros(s, ctx) for s in aux_shapes]
-        return self.bind(ctx, args, args_grad, grad_req, aux_states)
+        return Executor(self, ctx, args, args_grad, grad_req, aux_states,
+                        amp_dtype=amp_dtype)
 
 
 def _attr_str(v):

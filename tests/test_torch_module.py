@@ -38,6 +38,10 @@ LR, STEPS = 1e-3, 3
 #   (read 0.04); weights to 2 lr per step (read 4.4e-3 of 6e-3) with a mean
 #   of lr / 4 (read 6.7e-5); the dense head's probabilities to 1e-2 (read
 #   3.1e-3) and the fused head's per-token NLL to 0.1 (read 2.8e-2).
+#   Each Adam step moves a weight by about lr, so 2 lr per step is about the
+#   widest gap two runs can have: it passes a skipped update and fails a
+#   negated one by 0.1 %. ``w_mean`` is the limit that tells a right update
+#   from a wrong one (test_bf16_weight_mean_catches_a_wrong_update).
 LIMITS = {
     None: dict(out=1e-5, grad=1e-5, grad_median=1e-5, w=LR / 10,
                w_mean=LR / 10),
@@ -147,6 +151,23 @@ def test_module_matches_reference_module(fused, amp):
         assert gaps[key] <= lim[key], (key, gaps)
 
 
+@pytest.mark.parametrize("fault", ["skip", "negate"])
+def test_bf16_weight_mean_catches_a_wrong_update(monkeypatch, fault):
+    """A planted fault in the port's Adam update (no update, or the
+    gradient's sign turned) fails the bf16 ``w_mean`` limit. Read on the
+    CPU: w_mean 1.7e-3 (skip) and 3.5e-3 (negate) against 2.5e-4, while the
+    ``w`` limit passes the skipped update (3.0e-3 of 6e-3)."""
+    update = mxt.optimizer.Adam.update
+
+    def wrong(self, index, weight, grad, state):
+        if fault == "negate":
+            update(self, index, weight, grad * -1.0, state)
+
+    monkeypatch.setattr(mxt.optimizer.Adam, "update", wrong)
+    gaps = _gaps(False, "bfloat16")
+    assert gaps["w_mean"] > 2 * LIMITS["bfloat16"]["w_mean"], gaps
+
+
 def test_module_trains_on_repeated_batch():
     """The loss falls on a repeated batch (the chip phase's gate)."""
     weights = _weights(_lm(mxt, True))
@@ -179,6 +200,7 @@ def test_module_params_round_trip_and_fixed_params():
     ex = mod._exec_group._executor
     assert ex.grad_req["tok_embed_weight"] == "null"
     assert ex.grad_req["data"] == ex.grad_req["softmax_label"] == "null"
+    assert set(ex.grad_dict) == set(weights) - {"tok_embed_weight"}
     (x, y), = _batches(1)
     batch = mxt.io.DataBatch(data=[mxt.nd.array(x, mxt.cpu())],
                              label=[mxt.nd.array(y, mxt.cpu())])
