@@ -3,10 +3,11 @@
 Drives the port's main paths at the repo's accelerator width (vocab 32768,
 hidden 1024, 16 heads, 12 layers, T=2048): transformer-LM inference through
 ``Predictor`` in fp32, the imperative path, the LM through
-``Executor(amp_dtype="bfloat16")``, and its training through
-``Module(amp="bfloat16")``; holds every CUDA kernel on those paths against
-its plain PyTorch version. Phases, in order; any failed check ends
-the run with a non-zero exit and no result line:
+``Executor(amp_dtype="bfloat16")``, its training through
+``Module(amp="bfloat16")``, and ResNet-50 training through ``Module.fit``;
+holds every CUDA kernel on those paths against its plain PyTorch version.
+Phases, in order; any failed check ends the run with a non-zero exit and no
+result line:
 
 1. device: the card's name and power limit; TF32 off for fp32 parity;
 2. build: the kernels from ``mxnet_tpu_torch/csrc`` with nvcc (set-up);
@@ -60,7 +61,23 @@ the run with a non-zero exit and no result line:
    1, T 512) on the card against the CPU, fused and dense heads (NLL within
    1e-4, each gradient within 1e-3 of its max-abs); and
    ``mxnet_tpu_torch/examples/train_lm.py`` at its defaults (perplexity
-   below 3.5 after 800 steps).
+   below 3.5 after 800 steps);
+10. ResNet-50 through ``Module.fit`` at ``bench.py``'s accelerator config
+   (batch 256, 224 px, 1000 classes, bf16 amp, SGD lr 0.1 momentum 0.9 wd
+   1e-4, Xavier gaussian magnitude 2): one epoch over 8 random batches
+   from ``--seed`` with the accuracy metric (step 1 apart, the median of
+   steps 3-8 as the steady step, img/s); every moving statistic finite and
+   moved; one more batch traced into convolution forward and backward,
+   BatchNorm forward and backward, pooling, ReLU and residual adds, FC and
+   SoftmaxOutput, the amp casts, SGD, the feed's and the metric's copies and
+   the rest, beside the host's time by part, the idle share and peak
+   memory; ``score`` over 2 batches; one fp32 SGD step at batch 8, 64 px,
+   16 classes on the card against the CPU (NLL within 1e-4, gradients 1e-3
+   of max-abs, moving statistics and weights 1e-5, or no further from a
+   float64 run of the step than twice the CPU), a bf16 evaluation forward
+   card vs CPU (phase 8's log-probability limits, or no further from fp32
+   than twice the CPU), and ``mxnet_tpu_torch/examples/train_cifar10.py``
+   at its defaults (validation accuracy at least 0.9).
 
 Run from the repo root: ``python3 chip_smoke.py [--seed N]``.
 The last line of standard output is ``{"ok": true, "device": {...}}``.
@@ -1069,9 +1086,9 @@ def _kernels_under(evt):
     return out
 
 
-def traced_groups(fn):
+def traced_groups(fn, ranges=TRAIN_RANGES):
     """Device ms of ``fn`` by kernel name, and the kernels (name, ms) under
-    each host range of TRAIN_RANGES, from one profiler run."""
+    each host range of ``ranges``, from one profiler run."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1088,9 +1105,9 @@ def traced_groups(fn):
                and not getattr(e, "is_user_annotation", False)
                and not e.key.startswith("chip_smoke::")
                and e.self_device_time_total > 0}
-    groups = {g: [] for g in TRAIN_RANGES}
+    groups = {g: [] for g in ranges}
     for evt in prof.events():
-        for g, names in TRAIN_RANGES.items():
+        for g, names in ranges.items():
             if evt.name in names:
                 groups[g] += [(k.name, k.duration / 1e3)
                               for k in _kernels_under(evt)]
@@ -1335,6 +1352,538 @@ def train_example():
     return {"perplexity": ppl, "seconds": secs}
 
 
+# phase 10: bench.py's accelerator ResNet-50 config (bench.py:661-683,
+# 943-954, 981): batch 256, 224 px, 1000 classes, bf16 amp, SGD
+FIT_LAYERS, FIT_CLASSES, FIT_PX, FIT_BATCH, FIT_BATCHES = 50, 1000, 224, 256, 8
+FIT_SCORE_BATCHES = 2
+FIT_SGD = {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4}
+FIT_GFLOP_PER_IMAGE = 24.6   # forward and backward (bench.py:206)
+# the card-vs-CPU step: the docs/perf.md "Hot-loop parity" config
+FIT_CPU_BATCH, FIT_CPU_PX, FIT_CPU_CLASSES = 8, 64, 16
+# the traced batch's groups: each op's forward under a range of the script,
+# each backward under the autograd engine's node
+_NODE = "autograd::engine::evaluate_function: "
+FIT_OPS = {"conv_fwd": ("Convolution",), "bn_fwd": ("BatchNorm",),
+           "pool": ("Pooling",), "relu_add": ("Activation", "elemwise_add"),
+           "fc_softmax": ("FullyConnected", "SoftmaxOutput", "Flatten")}
+FIT_RANGES = {
+    "conv_fwd": ("chip_smoke::conv_fwd",),
+    "conv_bwd": (_NODE + "ConvolutionBackward0",),
+    "bn_fwd": ("chip_smoke::bn_fwd",),
+    "bn_bwd": (_NODE + "_BatchNormTrainBackward",),
+    "pool": ("chip_smoke::pool", _NODE + "MaxPool2DWithIndicesBackward0",
+             _NODE + "MeanBackward1"),
+    "relu_add": ("chip_smoke::relu_add", _NODE + "ReluBackward0",
+                 _NODE + "AddBackward0"),
+    "fc_softmax": ("chip_smoke::fc_softmax", _NODE + "AddmmBackward0",
+                   _NODE + "_SoftmaxOutputBackward"),
+    "amp_cast": ("chip_smoke::amp_cast", _NODE + "ToCopyBackward0"),
+    "sgd_update": ("chip_smoke::sgd_update",),
+}
+
+
+def resnet_symbol(mx, classes, px):
+    return mx.models.resnet.get_symbol(num_classes=classes,
+                                       num_layers=FIT_LAYERS,
+                                       image_shape=f"3,{px},{px}",
+                                       layout="NCHW")
+
+
+def resnet_weights(symbol, batch, px, seed):
+    """Random numpy arguments and aux states of ``symbol``: He-scaled
+    weights, gammas near 1, small betas and biases, moving means near 0 and
+    moving variances near 1."""
+    rng = np.random.default_rng(seed)
+    arg_shapes, _, aux_shapes = symbol.infer_shape(
+        data=(batch, 3, px, px), softmax_label=(batch,))
+    args = {}
+    for name, shape in zip(symbol.list_arguments(), arg_shapes):
+        if name in ("data", "softmax_label"):
+            continue
+        z = rng.standard_normal(shape, dtype=np.float32)
+        if name.endswith("_gamma"):
+            w = 1.0 + 0.1 * z
+        elif name.endswith(("_beta", "_bias")):
+            w = 0.02 * z
+        else:
+            w = z * np.sqrt(2.0 / np.prod(shape[1:]))
+        args[name] = w.astype(np.float32)
+    aux = {}
+    for name, shape in zip(symbol.list_auxiliary_states(), aux_shapes):
+        z = rng.standard_normal(shape, dtype=np.float32)
+        aux[name] = (1.0 + 0.1 * np.abs(z) if name.endswith("_var")
+                     else 0.1 * z).astype(np.float32)
+    return args, aux
+
+
+def _wrap_ops(names, label):
+    """Wrap the registered bodies of ``names`` in a profiler range; returns
+    what restores them."""
+    import torch
+
+    from mxnet_tpu_torch.ops import get_op
+
+    saved = []
+    for name in names:
+        op = get_op(name)
+        fn = op.fn
+
+        def ranged(*a, _fn=fn):
+            with torch.profiler.record_function(label):
+                return _fn(*a)
+
+        saved.append((op, fn))
+        op.fn = ranged
+    return saved
+
+
+def phase_fit(mx, seed):
+    """ResNet-50 training through Module.fit at bench.py's accelerator
+    config, the traced batch, score, and the correctness limits."""
+    import torch
+
+    from mxnet_tpu_torch import executor as texe
+    from mxnet_tpu_torch.module import executor_group as tgroup
+
+    print(f"phase 10: ResNet-{FIT_LAYERS} Module.fit (bf16 amp, SGD "
+          f"{FIT_SGD}; batch {FIT_BATCH}, {FIT_PX} px, {FIT_CLASSES} "
+          f"classes, {FIT_BATCHES} batches)", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    gpu = mx.gpu(0)
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed + 20)
+    n = FIT_BATCH * FIT_BATCHES
+    x = rng.standard_normal((n, 3, FIT_PX, FIT_PX), dtype=np.float32)
+    y = rng.integers(0, FIT_CLASSES, n).astype(np.float32)
+    out = {"batch": FIT_BATCH, "px": FIT_PX, "classes": FIT_CLASSES,
+           "layers": FIT_LAYERS, "batches": FIT_BATCHES,
+           "data_s": time.perf_counter() - t0,
+           "h2d_bytes_per_batch": x[:FIT_BATCH].nbytes,
+           "d2h_bytes_per_batch": 4 * FIT_BATCH * FIT_CLASSES}
+    train = mx.io.NDArrayIter(x, y, batch_size=FIT_BATCH)
+    mod = mx.mod.Module(resnet_symbol(mx, FIT_CLASSES, FIT_PX), context=gpu,
+                        amp="bfloat16")
+    # step 1 starts when fit has bound and initialised (the end of
+    # init_optimizer); every step ends in the metric's copy of the outputs
+    # to the host, which waits for the step's kernels
+    ready, stamps = [], []
+    init_optimizer = mod.init_optimizer
+
+    def init_optimizer_marked(*a, **k):
+        init_optimizer(*a, **k)
+        torch.cuda.synchronize()
+        ready.append(time.perf_counter())
+
+    mod.init_optimizer = init_optimizer_marked
+    metric = mx.metric.create("acc")
+    mx.random.seed(seed + 20)
+    t0 = time.perf_counter()
+    mod.fit(train, eval_metric=metric, num_epoch=1, optimizer="sgd",
+            optimizer_params=FIT_SGD,
+            initializer=mx.init.Xavier(rnd_type="gaussian",
+                                       factor_type="in", magnitude=2),
+            batch_end_callback=lambda p: stamps.append(time.perf_counter()))
+    out["fit_s"] = time.perf_counter() - t0
+    out["setup_s"] = ready[0] - t0
+    step_ms = list(np.diff(ready + stamps) * 1e3)
+    check(len(step_ms) == FIT_BATCHES, f"fit ran {len(step_ms)} == "
+          f"{FIT_BATCHES} batches")
+    steady = float(np.median(step_ms[2:]))
+    out.update(step_ms=step_ms, first_step_ms=step_ms[0],
+               steady_step_ms=steady,
+               images_per_s=FIT_BATCH / (steady / 1e3),
+               tflops_per_s=FIT_GFLOP_PER_IMAGE * FIT_BATCH / steady / 1e6,
+               train_accuracy=metric.get()[1])
+    print(f"  fit: setup {out['setup_s']:.1f} s, step 1 {step_ms[0]:.1f} ms, "
+          f"steady {steady:.1f} ms, {out['images_per_s']:.1f} img/s",
+          flush=True)
+
+    _, aux = mod.get_params()
+    aux = {n: a.asnumpy() for n, a in aux.items()}
+    bad = [n for n, a in aux.items() if not np.isfinite(a).all()
+           or not (a != (1.0 if n.endswith("_var") else 0.0)).any()]
+    check(not bad and len(aux) == 2 * 51, f"all {len(aux)} moving "
+          "statistics finite and moved from their start (mean 0, var 1)")
+
+    # one more batch, traced: the iterator's host work, the feed's copy to
+    # the card, forward and backward, the update and the metric's copy back
+    ex = mod._exec_group._executor
+    train.reset()
+    host = {}
+
+    def clock(key, fn, *a):
+        t = time.perf_counter()
+        res = fn(*a)
+        host[key] = host.get(key, 0.0) + (time.perf_counter() - t) * 1e3
+        return res
+
+    def step():
+        batch = clock("next_batch", train.next)
+        clock("forward_backward", mod.forward_backward, batch)
+        with torch.profiler.record_function("chip_smoke::sgd_update"):
+            clock("update", mod.update)
+        clock("update_metric", mod.update_metric, metric, batch.label)
+        return batch
+
+    saved = []
+    for group, names in FIT_OPS.items():
+        saved += _wrap_ops(names, "chip_smoke::" + group)
+    amp_cast = texe._amp_cast
+
+    def cast_traced(*a):
+        with torch.profiler.record_function("chip_smoke::amp_cast"):
+            return amp_cast(*a)
+
+    fed_tensor = tgroup._fed_tensor
+    texe._amp_cast = cast_traced
+    tgroup._fed_tensor = lambda *a: clock("feed_to_card", fed_tensor, *a)
+    traced = []
+    try:
+        by_name, groups = traced_groups(lambda: traced.append(timed(step)),
+                                        FIT_RANGES)
+    finally:
+        texe._amp_cast = amp_cast
+        tgroup._fed_tensor = fed_tensor
+        for op, fn in saved:
+            op.fn = fn
+    (batch, traced_ms), = traced
+    check(by_name, "the profiler recorded device events for one batch")
+    bad = [n for n, g in ex.grad_dict.items()
+           if not bool(torch.isfinite(g.data).all())]
+    check(not bad and len(ex.grad_dict) == len(mod._param_names),
+          f"all {len(ex.grad_dict)} gradients of the traced batch finite")
+    probs = mod.get_outputs()[0].asnumpy()
+    lab = batch.label[0].asnumpy().astype(int)
+    nll = float(-np.log(np.maximum(probs[np.arange(len(lab)), lab],
+                                   1e-30)).mean())
+    check(np.isfinite(nll), f"the traced batch's mean NLL {nll:.4f} finite")
+    busy = sum(by_name.values())
+    split = {g: sum(t for k, t in ks if "Memcpy" not in k)
+             for g, ks in groups.items()}
+    split["h2d_copy"] = sum(t for k, t in by_name.items() if "HtoD" in k)
+    split["d2h_copy"] = sum(t for k, t in by_name.items() if "DtoH" in k)
+    split["rest"] = busy - sum(split.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    out["traced_step"] = {
+        "host_ms": traced_ms, "host_split_ms": host,
+        "device_busy_ms": busy, "split_ms": split,
+        "copies_ms": {k: t for k, t in by_name.items() if "Mem" in k},
+        "idle_share": 1.0 - busy / steady,
+        "idle_share_traced": 1.0 - busy / traced_ms, "mean_nll": nll,
+        "device_kernels": len(by_name),
+        "top_kernels": [[k[:80], t] for k, t in top]}
+    print("  traced batch: " + json.dumps(out["traced_step"]), flush=True)
+    check(split["conv_fwd"] > 0 and split["conv_bwd"] > 0
+          and split["bn_fwd"] > 0 and split["bn_bwd"] > 0,
+          "the traced batch ran the convolutions and BatchNorms forward "
+          "and backward")
+
+    # the feed's copy of one batch from pageable host memory, alone (the
+    # profiler of a later phase does not always record it in the trace)
+    host_batch = batch.data[0].data
+    out["traced_step"]["feed_copy_ms"] = time_cuda(
+        lambda: host_batch.to(gpu.torch_device), reps=5, warmup=1)
+    score_it = mx.io.NDArrayIter(x[:FIT_SCORE_BATCHES * FIT_BATCH],
+                                 y[:FIT_SCORE_BATCHES * FIT_BATCH],
+                                 batch_size=FIT_BATCH)
+    score_s = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        acc = dict(mod.score(score_it, "acc"))["accuracy"]
+        score_s.append(time.perf_counter() - t0)
+    check(np.isfinite(acc), f"score accuracy {acc} finite")
+    out["score"] = {"accuracy": acc, "seconds": score_s,
+                    "images_per_s": FIT_SCORE_BATCHES * FIT_BATCH
+                    / score_s[-1]}
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    print("  " + json.dumps({k: v for k, v in out.items()
+                             if k != "traced_step"}), flush=True)
+    del mod, ex, train, score_it, x, y
+    torch.cuda.empty_cache()
+    out["card_vs_cpu"] = fit_card_vs_cpu(mx, seed)
+    out["card_vs_cpu_bf16"] = fit_card_vs_cpu_bf16(mx, seed)
+    out["train_cifar10_example"] = cifar_example()
+    return out
+
+
+def _cpu_batch(mx, seed, ctx):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((FIT_CPU_BATCH, 3, FIT_CPU_PX, FIT_CPU_PX),
+                            dtype=np.float32)
+    y = rng.integers(0, FIT_CPU_CLASSES, FIT_CPU_BATCH).astype(np.float32)
+    return mx.io.DataBatch(data=[mx.nd.array(x, ctx)],
+                           label=[mx.nd.array(y, ctx)]), y
+
+
+def _small_resnet(mx, ctx, amp, for_training, weights):
+    mod = mx.mod.Module(resnet_symbol(mx, FIT_CPU_CLASSES, FIT_CPU_PX),
+                        context=ctx, amp=amp)
+    mod.bind(data_shapes=[("data", (FIT_CPU_BATCH, 3, FIT_CPU_PX,
+                                    FIT_CPU_PX))],
+             label_shapes=[("softmax_label", (FIT_CPU_BATCH,))],
+             for_training=for_training)
+    args, aux = mx.convert.params_from_numpy(*weights, ctx)
+    mod.init_params(arg_params=args, aux_params=aux)
+    return mod
+
+
+def _rel(got, want):
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+
+
+def _f64_step(mx, symbol, weights, x, y):
+    """The step of :func:`fit_card_vs_cpu` in float64 on the CPU, through
+    an Executor and the Module's SGD: the yardstick of both fp32 steps'
+    accuracy."""
+    ctx = mx.cpu()
+    arg_w, aux_w = weights
+    names = [n for n in symbol.list_arguments() if n in arg_w]
+    args = {n: mx.nd.array(arg_w[n], ctx, dtype="float64") for n in names}
+    grads = {n: mx.nd.zeros(args[n].shape, ctx, dtype="float64")
+             for n in names}
+    aux = {n: mx.nd.array(aux_w[n], ctx, dtype="float64") for n in aux_w}
+    args["data"] = mx.nd.array(x, ctx, dtype="float64")
+    args["softmax_label"] = mx.nd.array(y, ctx)
+    ex = mx.executor.Executor(symbol, ctx, args, grads, "write", aux)
+    ex.forward(is_train=True)
+    ex.backward()
+    probs = ex.outputs[0].asnumpy()
+    g = {n: a.asnumpy() for n, a in grads.items()}
+    opt = mx.optimizer.create("sgd", sym=symbol,
+                              param_idx2name=dict(enumerate(names)),
+                              rescale_grad=1.0 / len(y), **FIT_SGD)
+    mx.optimizer.get_updater(opt).update_multi(
+        list(range(len(names))), [grads[n] for n in names],
+        [args[n] for n in names])
+    return probs, g, {n: a.asnumpy() for n, a in ex.aux_dict.items()}, \
+        {n: args[n].asnumpy() for n in names}
+
+
+def fit_card_vs_cpu(mx, seed):
+    """One fp32 SGD step of ResNet-50 at batch 8, 64 px, 16 classes on the
+    card and on the CPU from identical weights and aux; TF32 is off (phase
+    1). Held: the per-example NLL within 1e-4, every gradient array within
+    1e-3 of its max-abs, the moving statistics after the step and the
+    updated weights within 1e-5 of theirs.
+
+    The CPU takes the card's ReLU masks and max-pool choices, as phase 9
+    does: an input within the devices' rounding of 0, or of its window's
+    maximum, would otherwise route its gradient differently on each. The
+    units the CPU would have set otherwise are counted.
+
+    Some arrays of this step cannot be reproduced to those limits in fp32
+    at all (``mxnet_tpu_torch/tools/fp32_step_spread.py``): two runs on
+    the card (cuDNN's backward sums in no fixed order), or on the CPU with 8
+    and 1 threads, part bn0_gamma's gradient by 1.6e-3 and 1.7e-3 of its
+    max-abs (many terms that nearly cancel), and the update carries a
+    gradient's fp32 noise into a beta 60x smaller than its gradient
+    (bn_data_beta, 1.7e-5 apart between two runs on the card, one with
+    ``cudnn.deterministic``). So the same step also runs in float64 on the
+    CPU, on the same masks: an array past its limit passes when the card's
+    distance to the float64 step is at most twice the CPU's fp32 step's,
+    i.e. the card is as accurate as the CPU."""
+    import torch
+    import torch.nn.functional as F
+
+    from mxnet_tpu_torch.ops import get_op
+    from mxnet_tpu_torch.ops.nn import _pair
+
+    act, pool = get_op("Activation"), get_op("Pooling")
+    act_fn, pool_fn = act.fn, pool.fn
+    masks, argmax, flips = [], [], {"relu": [], "max_pool": []}
+
+    def window(attrs):
+        assert attrs.get("layout", "NCHW") == "NCHW"
+        return (_pair(attrs["kernel"]), _pair(attrs.get("stride")),
+                _pair(attrs.get("pad", (0, 0))))
+
+    def is_max_window(attrs):
+        return attrs.get("pool_type") == "max" \
+            and not attrs.get("global_pool")
+
+    def act_on_card(ctx, attrs, data):
+        masks.append((data > 0).cpu())
+        return act_fn(ctx, attrs, data)
+
+    def act_with_card_mask(ctx, attrs, data):
+        mask = masks[len(flips["relu"]) % len(masks)]
+        flips["relu"].append(int((mask != (data > 0)).sum()))
+        return data.masked_fill(~mask, 0.0)
+
+    def pool_on_card(ctx, attrs, data):
+        if is_max_window(attrs):
+            with torch.no_grad():
+                argmax.append(F.max_pool2d(data, *window(attrs),
+                                           return_indices=True)[1].cpu())
+        return pool_fn(ctx, attrs, data)
+
+    def pool_with_card_argmax(ctx, attrs, data):
+        if not is_max_window(attrs):
+            return pool_fn(ctx, attrs, data)
+        idx = argmax[len(flips["max_pool"]) % len(argmax)]
+        own = F.max_pool2d(data.detach(), *window(attrs),
+                           return_indices=True)[1]
+        flips["max_pool"].append(int((own != idx).sum()))
+        return data.flatten(2).gather(2, idx.flatten(2)).view(idx.shape)
+
+    symbol = resnet_symbol(mx, FIT_CPU_CLASSES, FIT_CPU_PX)
+    weights = resnet_weights(symbol, FIT_CPU_BATCH, FIT_CPU_PX, seed + 21)
+    batch_seed = seed + 22
+    got = {}
+    for label, ctx, fns in (("gpu", mx.gpu(0), (act_on_card, pool_on_card)),
+                            ("cpu", mx.cpu(), (act_with_card_mask,
+                                               pool_with_card_argmax)),
+                            ("f64", None, (act_with_card_mask,
+                                           pool_with_card_argmax))):
+        t0 = time.perf_counter()
+        try:
+            if ctx is None:
+                batch, y = _cpu_batch(mx, batch_seed, mx.cpu())
+                act.fn, pool.fn = fns
+                probs, grads, aux, args = _f64_step(
+                    mx, symbol, weights, batch.data[0].asnumpy(), y)
+            else:
+                mod = _small_resnet(mx, ctx, None, True, weights)
+                mod.init_optimizer(optimizer="sgd", optimizer_params=FIT_SGD)
+                batch, y = _cpu_batch(mx, batch_seed, ctx)
+                act.fn, pool.fn = fns
+                mod.forward(batch, is_train=True)
+                act.fn, pool.fn = act_fn, pool_fn
+                mod.backward()
+                probs = mod.get_outputs()[0].asnumpy()
+                grads = {n: g.asnumpy() for n, g in
+                         mod._exec_group._executor.grad_dict.items()}
+                mod.update()
+                args, aux = mod.get_params()
+                args = {n: a.asnumpy() for n, a in args.items()}
+                aux = {n: a.asnumpy() for n, a in aux.items()}
+                del mod, batch
+        finally:
+            act.fn, pool.fn = act_fn, pool_fn
+        nll = -np.log(probs[np.arange(len(y)), y.astype(int)])
+        got[label] = (nll, grads, aux, args, time.perf_counter() - t0)
+    torch.cuda.empty_cache()
+    gpu, cpu, f64 = got["gpu"], got["cpu"], got["f64"]
+    n_relu = sum(1 for node in symbol._nodes() if node.op == "Activation")
+    res = {"relu_masks_differ": [sum(flips["relu"][:n_relu]),
+                                 sum(flips["relu"][n_relu:])],
+           "max_pool_choices_differ": flips["max_pool"],
+           "nll_max_abs_err": float(np.abs(gpu[0] - cpu[0]).max()),
+           "seconds": {k: v[4] for k, v in got.items()}}
+    failed = []
+    for i, (key, limit) in enumerate((("grad", 1e-3), ("aux", 1e-5),
+                                      ("weight", 1e-5)), 1):
+        gap = {n: _rel(gpu[i][n], cpu[i][n]) for n in cpu[i]}
+        worst = max(gap, key=gap.get)
+        over = {n: {"card_vs_cpu": gap[n],
+                    "card_vs_f64": _rel(gpu[i][n], f64[i][n]),
+                    "cpu_vs_f64": _rel(cpu[i][n], f64[i][n])}
+                for n in gap if gap[n] > limit}
+        failed += [f"{key} {n}" for n, e in over.items()
+                   if e["card_vs_f64"] > 2 * e["cpu_vs_f64"]]
+        res[key] = {"limit": limit, "max_rel_err": gap[worst],
+                    "worst": worst,
+                    "median_rel_err": float(np.median(list(gap.values()))),
+                    "over_limit": over}
+    print(f"  card vs CPU, fp32 step at batch {FIT_CPU_BATCH}, {FIT_CPU_PX} "
+          "px: " + json.dumps(res), flush=True)
+    check(len(flips["relu"]) == 2 * n_relu and len(flips["max_pool"]) == 2,
+          f"the CPU and float64 steps took the card's {n_relu} ReLU masks "
+          "and its max-pool choices")
+    check(np.isfinite(gpu[0]).all() and res["nll_max_abs_err"] <= 1e-4,
+          f"card vs CPU per-example NLL {res['nll_max_abs_err']:.3g} <= 1e-4")
+    check(not failed, "every gradient array within 1e-3 of its max-abs, "
+          "the moving statistics and updated weights within 1e-5, or the "
+          "card no further from the float64 step than twice the CPU "
+          f"(failed: {failed})")
+    return res
+
+
+def fit_card_vs_cpu_bf16(mx, seed):
+    """An evaluation forward of ResNet-50 under bf16 amp at batch 8, 64 px,
+    16 classes, the card against the CPU on identical weights: phase 8's
+    log-probability limits (mean abs <= 5e-2, 99.9th percentile <= 0.25).
+
+    The moving statistics are the batch's own, taken by one fp32 training
+    forward on the card with every BatchNorm's momentum at 0: random ones
+    leave the activations unnormalised, their scale doubling at each
+    residual unit, and logits of that size round in bf16 by whole units of
+    log-probability (0.36 mean abs, 7.0 at the 99.9th percentile, on the
+    card and on the CPU alike)."""
+    import torch
+
+    symbol = resnet_symbol(mx, FIT_CPU_CLASSES, FIT_CPU_PX)
+    args, aux = resnet_weights(symbol, FIT_CPU_BATCH, FIT_CPU_PX, seed + 21)
+    calibrate = resnet_symbol(mx, FIT_CPU_CLASSES, FIT_CPU_PX)
+    for node in calibrate._nodes():
+        if node.op == "BatchNorm":
+            node.attrs["momentum"] = 0.0
+    mod = mx.mod.Module(calibrate, context=mx.gpu(0))
+    mod.bind(data_shapes=[("data", (FIT_CPU_BATCH, 3, FIT_CPU_PX,
+                                    FIT_CPU_PX))],
+             label_shapes=[("softmax_label", (FIT_CPU_BATCH,))],
+             for_training=False)
+    mod.init_params(arg_params=mx.convert.params_from_numpy(
+        args, {}, mx.gpu(0))[0], aux_params=mx.convert.params_from_numpy(
+            {}, aux, mx.gpu(0))[1])
+    mod.forward(_cpu_batch(mx, seed + 22, mx.gpu(0))[0], is_train=True)
+    # (the executor's: get_params() refreshes only after an update)
+    weights = (args, {n: a.asnumpy() for n, a in
+                      mod._exec_group._executor.aux_dict.items()})
+    del mod
+    logp = {}
+    for label, ctx, amp in (("gpu", mx.gpu(0), "bfloat16"),
+                            ("cpu", mx.cpu(), "bfloat16"),
+                            ("cpu_fp32", mx.cpu(), None)):
+        mod = _small_resnet(mx, ctx, amp, False, weights)
+        batch, _ = _cpu_batch(mx, seed + 22, ctx)
+        mod.forward(batch, is_train=False)
+        probs = mod.get_outputs()[0]
+        check(probs.dtype == torch.float32, f"{label}: the eval forward "
+              "gives fp32 probabilities")
+        logp[label] = np.log(np.maximum(probs.asnumpy(), 1e-30))
+        del mod
+    err = np.abs(logp["gpu"] - logp["cpu"])
+    res = {"logp_mean_abs_err": float(err.mean()),
+           "logp_p999_abs_err": float(np.percentile(err, 99.9)),
+           "argmax_agreement": float((logp["gpu"].argmax(1)
+                                      == logp["cpu"].argmax(1)).mean()),
+           # each bf16 forward's distance to the fp32 one
+           "card_vs_fp32_mean_abs": float(np.abs(
+               logp["gpu"] - logp["cpu_fp32"]).mean()),
+           "cpu_vs_fp32_mean_abs": float(np.abs(
+               logp["cpu"] - logp["cpu_fp32"]).mean())}
+    print(f"  card vs CPU, bf16 eval forward at batch {FIT_CPU_BATCH}, "
+          f"{FIT_CPU_PX} px: " + json.dumps(res), flush=True)
+    # through 50 layers the two bf16 forwards round apart by about their
+    # own distance to fp32: past phase 8's mean limit, the card passes when
+    # it is no further from the fp32 forward than twice the CPU's bf16
+    check(res["logp_mean_abs_err"] <= 5e-2
+          or res["card_vs_fp32_mean_abs"]
+          <= 2 * res["cpu_vs_fp32_mean_abs"],
+          f"bf16 mean abs log-prob err {res['logp_mean_abs_err']:.3g} <= "
+          "5e-2, or the card's distance to the fp32 forward "
+          f"{res['card_vs_fp32_mean_abs']:.3g} <= twice the CPU's "
+          f"{res['cpu_vs_fp32_mean_abs']:.3g}")
+    check(res["logp_p999_abs_err"] <= 0.25, "bf16 99.9th percentile abs "
+          f"log-prob err {res['logp_p999_abs_err']:.3g} <= 0.25")
+    return res
+
+
+def cifar_example():
+    """``examples/train_cifar10.py`` at its defaults on the card: the
+    reference's convergence gate, final validation accuracy >= 0.9."""
+    from mxnet_tpu_torch.examples import train_cifar10
+
+    t0 = time.perf_counter()
+    acc = train_cifar10.main([])
+    secs = time.perf_counter() - t0
+    check(acc >= 0.9, f"train_cifar10 on the card: validation accuracy "
+          f"{acc:.4f} >= 0.9 after 8 epochs ({secs:.1f} s)")
+    return {"accuracy": acc, "seconds": secs}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1354,6 +1903,7 @@ def main(argv=None):
     imperative = phase_imperative(mx, weights, probs, args.seed)
     amp = phase_amp(mx, weights, args.seed)
     train = phase_train(mx, weights, args.seed)
+    fit = phase_fit(mx, args.seed)
 
     main_case = cases["slice_fp32_causal"]
     kernels = [{
@@ -1395,7 +1945,7 @@ def main(argv=None):
         json.dump({"card": card, "build": build, "cases": cases,
                    "slice": slice_out, "card_vs_cpu": parity,
                    "rtc_cases": rtc_cases, "imperative": imperative,
-                   "amp": amp, "train": train,
+                   "amp": amp, "train": train, "fit": fit,
                    "kernels": kernels,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)

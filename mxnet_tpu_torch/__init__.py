@@ -1,7 +1,8 @@
 """mxnet_tpu_torch: the PyTorch and CUDA port of mxnet_tpu.
 
 The same public names as ``mxnet_tpu`` (``nd``, ``sym``, ``mod``, ``init``,
-``optimizer``, ``io``, ``Predictor``, contexts), over ``torch.Tensor``s. Entry points run on ``gpu(0)`` unless the
+``optimizer``, ``lr_scheduler``, ``metric``, ``callback``, ``model``,
+``io``, ``Predictor``, contexts), over ``torch.Tensor``s. Entry points run on ``gpu(0)`` unless the
 caller passes ``mx.cpu()``; importing the package does not initialise CUDA.
 Kernels that the JAX package wrote in Pallas are hand-written CUDA here:
 ``csrc/`` built with nvcc at first use, and users' own kernels compiled at
@@ -35,7 +36,11 @@ from . import initializer as init
 from .initializer import Initializer, Uniform, Normal, Xavier, Zero, One
 from . import optimizer
 from .optimizer import Optimizer
+from . import lr_scheduler
+from . import metric
 from . import io
+from . import model
+from . import callback
 from . import module
 from . import module as mod
 from . import predictor

@@ -3,10 +3,12 @@
 An initializer is called with a parameter's name and its NDArray and fills
 the array in place of its old value; the name decides how (the reference's
 ``__call__``): ``*_bias`` and ``*_beta`` get 0, ``*_gamma`` 1, ``*_weight``
-the initializer's own rule. Random draws come from
-:mod:`mxnet_tpu_torch.random`, the ``torch.Generator`` of the array's device,
-so one ``mx.random.seed`` gives the same weights again. They are not the
-reference's threefry draws: parity tests feed weights as numpy arrays.
+the initializer's own rule, and BatchNorm's moving statistics their start
+values (``*_moving_mean`` and ``*_moving_avg`` 0, ``*_moving_var`` 1).
+Random draws come from :mod:`mxnet_tpu_torch.random`, the
+``torch.Generator`` of the array's device, so one ``mx.random.seed`` gives
+the same weights again. They are not the reference's threefry draws:
+parity tests feed weights as numpy arrays.
 """
 from __future__ import annotations
 
@@ -33,6 +35,10 @@ class Initializer:
             self._init_beta(name, arr)
         elif name.endswith("_weight"):
             self._init_weight(name, arr)
+        elif name.endswith(("_moving_mean", "_moving_avg")):
+            self._init_zero(name, arr)
+        elif name.endswith("_moving_var"):
+            self._init_one(name, arr)
         else:
             self._init_default(name, arr)
 

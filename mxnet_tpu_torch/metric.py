@@ -1,0 +1,385 @@
+"""Evaluation metrics (reference: mxnet_tpu/metric.py, after
+python/mxnet/metric.py:22-426).
+
+A metric's ``update(labels, preds)`` takes lists of NDArrays and reads them
+on the host (``asnumpy``), as the reference does: one device-to-host copy
+of each output a batch. ``create`` finds a metric by its registered name
+(``"acc"``, ``"ce"``, ...), wraps a function, or composes a list. The
+reference's ``Torch`` and ``Caffe`` plugin metrics are not ported.
+"""
+from __future__ import annotations
+
+import numpy
+
+__all__ = ["EvalMetric", "CompositeEvalMetric", "Accuracy", "TopKAccuracy",
+           "F1", "Perplexity", "MAE", "MSE", "RMSE", "CrossEntropy", "Loss",
+           "CustomMetric", "np_metric", "create"]
+
+_REGISTRY: dict = {}
+
+
+def _register(*names):
+    """Register a metric class under its lower-cased name and ``names``."""
+    def _do(klass):
+        for name in (klass.__name__,) + names:
+            _REGISTRY[name.lower()] = klass
+        return klass
+
+    return _do
+
+
+def check_label_shapes(labels, preds, shape=0):
+    if shape == 0:
+        label_shape, pred_shape = len(labels), len(preds)
+    else:
+        label_shape, pred_shape = labels.shape, preds.shape
+    if label_shape != pred_shape:
+        raise ValueError(f"Shape of labels {label_shape} does not match shape "
+                         f"of predictions {pred_shape}")
+
+
+class EvalMetric:
+    """Base metric (reference: metric.py:22)."""
+
+    def __init__(self, name, num=None):
+        self.name = name
+        self.num = num
+        self.reset()
+
+    def update(self, labels, preds):
+        raise NotImplementedError
+
+    def reset(self):
+        if self.num is None:
+            self.num_inst = 0
+            self.sum_metric = 0.0
+        else:
+            self.num_inst = [0] * self.num
+            self.sum_metric = [0.0] * self.num
+
+    def get(self):
+        if self.num is None:
+            if self.num_inst == 0:
+                return (self.name, float("nan"))
+            return (self.name, self.sum_metric / self.num_inst)
+        names = [f"{self.name}_{i}" for i in range(self.num)]
+        values = [s / n if n != 0 else float("nan")
+                  for s, n in zip(self.sum_metric, self.num_inst)]
+        return (names, values)
+
+    def get_name_value(self):
+        name, value = self.get()
+        if not isinstance(name, list):
+            name = [name]
+        if not isinstance(value, list):
+            value = [value]
+        return list(zip(name, value))
+
+    def __str__(self):
+        return f"EvalMetric: {dict(self.get_name_value())}"
+
+
+class CompositeEvalMetric(EvalMetric):
+    """Manage multiple metrics (reference: metric.py CompositeEvalMetric)."""
+
+    def __init__(self, metrics=None, name="composite"):
+        super().__init__(name)
+        self.metrics = metrics if metrics is not None else []
+
+    def add(self, metric):
+        self.metrics.append(create(metric) if isinstance(metric, str) else metric)
+
+    def get_metric(self, index):
+        try:
+            return self.metrics[index]
+        except IndexError:
+            return ValueError(f"Metric index {index} is out of range 0 and {len(self.metrics)}")
+
+    def update(self, labels, preds):
+        for metric in self.metrics:
+            metric.update(labels, preds)
+
+    def reset(self):
+        try:
+            for metric in self.metrics:
+                metric.reset()
+        except AttributeError:
+            pass
+
+    def get(self):
+        names = []
+        results = []
+        for metric in self.metrics:
+            result = metric.get()
+            names.append(result[0])
+            results.append(result[1])
+        return (names, results)
+
+
+@_register("acc")
+class Accuracy(EvalMetric):
+    """Reference: metric.py Accuracy."""
+
+    def __init__(self):
+        super().__init__("accuracy")
+
+    def update(self, labels, preds):
+        check_label_shapes(labels, preds)
+        for label, pred_label in zip(labels, preds):
+            pred = pred_label.asnumpy()
+            if pred.ndim > 1 and pred.shape[1] > 1:
+                pred = numpy.argmax(pred, axis=1)
+            label = label.asnumpy().astype("int32").ravel()
+            pred = pred.astype("int32").ravel()
+            check_label_shapes(label, pred)
+            self.sum_metric += int((pred.flat == label.flat).sum())
+            self.num_inst += len(pred.flat)
+
+
+@_register("top_k_accuracy", "top_k_acc")
+class TopKAccuracy(EvalMetric):
+    """Reference: metric.py TopKAccuracy."""
+
+    def __init__(self, top_k=1, **kwargs):
+        super().__init__("top_k_accuracy")
+        self.top_k = kwargs.get("top_k", top_k)
+        assert self.top_k > 1, "Please use Accuracy if top_k is no more than 1"
+        self.name += f"_{self.top_k}"
+
+    def update(self, labels, preds):
+        check_label_shapes(labels, preds)
+        for label, pred_label in zip(labels, preds):
+            pred = numpy.argsort(pred_label.asnumpy().astype("float32"), axis=1)
+            label = label.asnumpy().astype("int32")
+            check_label_shapes(label, pred, shape=0)
+            num_samples = pred.shape[0]
+            num_classes = pred.shape[1]
+            top_k = min(num_classes, self.top_k)
+            for j in range(top_k):
+                self.sum_metric += int(
+                    (pred[:, num_classes - 1 - j].flat == label.flat).sum())
+            self.num_inst += num_samples
+
+
+@_register()
+class F1(EvalMetric):
+    """Binary F1 (reference: metric.py F1)."""
+
+    def __init__(self):
+        super().__init__("f1")
+
+    def update(self, labels, preds):
+        check_label_shapes(labels, preds)
+        for label, pred in zip(labels, preds):
+            pred = pred.asnumpy()
+            label = label.asnumpy().astype("int32")
+            pred_label = numpy.argmax(pred, axis=1)
+            check_label_shapes(label, pred)
+            if len(numpy.unique(label)) > 2:
+                raise ValueError("F1 currently only supports binary classification.")
+            tp = fp = fn = 0.0
+            for y_pred, y_true in zip(pred_label, label):
+                if y_pred == 1 and y_true == 1:
+                    tp += 1.0
+                elif y_pred == 1 and y_true == 0:
+                    fp += 1.0
+                elif y_pred == 0 and y_true == 1:
+                    fn += 1.0
+            precision = tp / (tp + fp) if tp + fp > 0 else 0.0
+            recall = tp / (tp + fn) if tp + fn > 0 else 0.0
+            if precision + recall > 0:
+                f1 = 2 * precision * recall / (precision + recall)
+            else:
+                f1 = 0.0
+            self.sum_metric += f1
+            self.num_inst += 1
+
+
+@_register()
+class Perplexity(EvalMetric):
+    """Reference: metric.py:226 Perplexity."""
+
+    def __init__(self, ignore_label=None, axis=-1):
+        super().__init__("Perplexity")
+        self.ignore_label = ignore_label
+        self.axis = axis
+
+    def update(self, labels, preds):
+        assert len(labels) == len(preds)
+        loss = 0.0
+        num = 0
+        for label, pred in zip(labels, preds):
+            label = label.asnumpy()
+            pred = pred.asnumpy()
+            if pred.size == label.size:
+                # per-token NLL, not probabilities (FusedCrossEntropyHead
+                # outputs the loss directly and never materializes the
+                # (N, V) probability matrix — ops/fused_ce.py); ignored
+                # positions are exact 0 there, so only the count adjusts
+                lbl = label.reshape(-1).astype("int32")
+                loss += float(numpy.sum(pred))
+                num += lbl.size
+                if self.ignore_label is not None:
+                    num -= int(numpy.sum(lbl == self.ignore_label))
+                continue
+            assert label.size == pred.size / pred.shape[self.axis], \
+                "shape mismatch between prediction and label"
+            label = label.reshape((label.size,)).astype("int32")
+            probs = numpy.take_along_axis(
+                pred.reshape(-1, pred.shape[-1]), label[:, None], axis=-1)[:, 0]
+            if self.ignore_label is not None:
+                ignore = (label == self.ignore_label).astype(probs.dtype)
+                num -= int(numpy.sum(ignore))
+                probs = probs * (1 - ignore) + ignore
+            loss -= float(numpy.sum(numpy.log(numpy.maximum(1e-10, probs))))
+            num += label.size
+        self.sum_metric += loss
+        self.num_inst += num
+
+    def get(self):
+        """exp of the pooled mean NLL (reference: metric.py Perplexity.get)."""
+        if self.num_inst == 0:
+            return (self.name, float("nan"))
+        import math
+
+        return (self.name, math.exp(self.sum_metric / self.num_inst))
+
+
+@_register()
+class MAE(EvalMetric):
+    def __init__(self):
+        super().__init__("mae")
+
+    def update(self, labels, preds):
+        check_label_shapes(labels, preds)
+        for label, pred in zip(labels, preds):
+            label = label.asnumpy()
+            pred = pred.asnumpy()
+            if len(label.shape) == 1:
+                label = label.reshape(label.shape[0], 1)
+            self.sum_metric += float(numpy.abs(label - pred).mean())
+            self.num_inst += 1
+
+
+@_register()
+class MSE(EvalMetric):
+    def __init__(self):
+        super().__init__("mse")
+
+    def update(self, labels, preds):
+        check_label_shapes(labels, preds)
+        for label, pred in zip(labels, preds):
+            label = label.asnumpy()
+            pred = pred.asnumpy()
+            if len(label.shape) == 1:
+                label = label.reshape(label.shape[0], 1)
+            self.sum_metric += float(((label - pred) ** 2.0).mean())
+            self.num_inst += 1
+
+
+@_register()
+class RMSE(EvalMetric):
+    def __init__(self):
+        super().__init__("rmse")
+
+    def update(self, labels, preds):
+        check_label_shapes(labels, preds)
+        for label, pred in zip(labels, preds):
+            label = label.asnumpy()
+            pred = pred.asnumpy()
+            if len(label.shape) == 1:
+                label = label.reshape(label.shape[0], 1)
+            self.sum_metric += float(numpy.sqrt(((label - pred) ** 2.0).mean()))
+            self.num_inst += 1
+
+
+@_register("ce")
+class CrossEntropy(EvalMetric):
+    """Reference: metric.py CrossEntropy."""
+
+    def __init__(self, eps=1e-8):
+        super().__init__("cross-entropy")
+        self.eps = eps
+
+    def update(self, labels, preds):
+        check_label_shapes(labels, preds)
+        for label, pred in zip(labels, preds):
+            label = label.asnumpy()
+            pred = pred.asnumpy()
+            label = label.ravel()
+            assert label.shape[0] == pred.shape[0]
+            prob = pred[numpy.arange(label.shape[0]), numpy.int64(label)]
+            self.sum_metric += float((-numpy.log(prob + self.eps)).sum())
+            self.num_inst += label.shape[0]
+
+
+@_register()
+class Loss(EvalMetric):
+    """Mean of the raw outputs — for MakeLoss-style nets."""
+
+    def __init__(self):
+        super().__init__("loss")
+
+    def update(self, _, preds):
+        for pred in preds:
+            self.sum_metric += float(pred.asnumpy().sum())
+            self.num_inst += pred.size
+
+
+class CustomMetric(EvalMetric):
+    """Metric from a python function (reference: metric.py CustomMetric)."""
+
+    def __init__(self, feval, name=None, allow_extra_outputs=False):
+        if name is None:
+            name = feval.__name__
+            if name.find("<") != -1:
+                name = f"custom({name})"
+        super().__init__(name)
+        self._feval = feval
+        self._allow_extra_outputs = allow_extra_outputs
+
+    def update(self, labels, preds):
+        if not self._allow_extra_outputs:
+            check_label_shapes(labels, preds)
+        for pred, label in zip(preds, labels):
+            label = label.asnumpy()
+            pred = pred.asnumpy()
+            reval = self._feval(label, pred)
+            if isinstance(reval, tuple):
+                (sum_metric, num_inst) = reval
+                self.sum_metric += sum_metric
+                self.num_inst += num_inst
+            else:
+                self.sum_metric += reval
+                self.num_inst += 1
+
+
+def np_metric(numpy_feval, name=None, allow_extra_outputs=False):
+    """Decorator wrapping a numpy feval as a metric (reference: metric.py np)."""
+
+    def feval(label, pred):
+        return numpy_feval(label, pred)
+
+    feval.__name__ = numpy_feval.__name__
+    return CustomMetric(feval, name, allow_extra_outputs)
+
+
+np = np_metric  # reference name (mx.metric.np); numpy stays importable above
+
+
+def create(metric, **kwargs):
+    """Reference: metric.py create."""
+    if callable(metric):
+        return CustomMetric(metric)
+    if isinstance(metric, EvalMetric):
+        return metric
+    if isinstance(metric, list):
+        composite = CompositeEvalMetric()
+        for child in metric:
+            composite.add(create(child, **kwargs))
+        return composite
+    cls = _REGISTRY.get(str(metric).lower())
+    if cls is None:
+        raise ValueError(f"Metric must be either callable or in "
+                         f"{sorted(_REGISTRY)}; got {metric}")
+    return cls(**kwargs)

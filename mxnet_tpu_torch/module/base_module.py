@@ -1,17 +1,53 @@
 """BaseModule: the training-loop interface (reference:
 mxnet_tpu/module/base_module.py).
 
-What a training loop calls: ``forward_backward``, ``get_params`` /
-``set_params`` and the abstract methods a module implements. ``fit``, ``score`` and ``predict`` wait for the metric
-and callback modules.
+``fit`` is the classic loop (reference :139-437): bind, ``init_params``,
+``init_optimizer``, then per epoch ``forward_backward``, ``update`` and
+``update_metric`` for each batch, the batch-end callbacks, the epoch-end
+parameters and callbacks, ``score`` on the evaluation data and
+``train_data.reset()``. ``score``, ``iter_predict`` and ``predict`` run the
+evaluation forward; ``save_params``/``load_params`` keep the parameters in
+the MXTP container, arguments under ``arg:`` and aux states under ``aux:``.
 """
 from __future__ import annotations
 
 import logging
+import os
+import time
 
+from .. import metric as _metric
+from .. import ndarray as nd
+from ..base import MXNetError
+from ..callback import BatchEndParam
+from ..context import cpu
+from ..convert import split_params
 from ..initializer import Uniform
 
 __all__ = ["BaseModule"]
+
+
+def _as_list(obj):
+    return obj if isinstance(obj, (list, tuple)) else [obj]
+
+
+def _refuse_unported(monitor, checkpoint_prefix, checkpoint_every_n_batches,
+                     resume):
+    """The reference's ``fit`` options that wait for other ports raise
+    instead of being ignored: checkpoints with optimizer states and resume
+    (and the device-loss recovery that resumes from them) wait for the
+    optimizer-state files; ``monitor``, ``MXNET_RUN_N_STEPS`` (several
+    steps in one program) and ``MXNET_DEVICE_PREFETCH`` (staging batches on
+    a side stream) for their own ports."""
+    given = [name for name, v in (
+        ("monitor", monitor), ("checkpoint_prefix", checkpoint_prefix),
+        ("checkpoint_every_n_batches", checkpoint_every_n_batches),
+        ("resume", resume)) if v]
+    if os.environ.get("MXNET_RUN_N_STEPS", "1").strip() not in ("", "1"):
+        given.append("MXNET_RUN_N_STEPS")
+    if os.environ.get("MXNET_DEVICE_PREFETCH") == "1":
+        given.append("MXNET_DEVICE_PREFETCH")
+    if given:
+        raise MXNetError(f"fit: {', '.join(given)} not ported yet")
 
 
 class BaseModule:
@@ -28,16 +64,175 @@ class BaseModule:
     def symbol(self):
         return self._symbol
 
+    # -- high level ----------------------------------------------------------
     def forward_backward(self, data_batch):
         """A training forward and its backward."""
         self.forward(data_batch, is_train=True)
         self.backward()
 
+    def score(self, eval_data, eval_metric, num_batch=None,
+              batch_end_callback=None, score_end_callback=None, reset=True,
+              epoch=0):
+        """``eval_metric`` over ``eval_data`` (at most ``num_batch``
+        batches) through the evaluation forward; returns its
+        ``get_name_value()``. As in the reference, a padded last batch
+        counts whole."""
+        assert self.binded and self.params_initialized
+        if reset:
+            eval_data.reset()
+        if not isinstance(eval_metric, _metric.EvalMetric):
+            eval_metric = _metric.create(eval_metric)
+        eval_metric.reset()
+        actual_num_batch = 0
+        for nbatch, eval_batch in enumerate(eval_data):
+            if num_batch is not None and nbatch == num_batch:
+                break
+            self.forward(eval_batch, is_train=False)
+            self.update_metric(eval_metric, eval_batch.label)
+            if batch_end_callback is not None:
+                params = BatchEndParam(epoch=epoch, nbatch=nbatch,
+                                       eval_metric=eval_metric,
+                                       locals=locals())
+                for cb in _as_list(batch_end_callback):
+                    cb(params)
+            actual_num_batch += 1
+        if score_end_callback:
+            params = BatchEndParam(epoch=epoch, nbatch=actual_num_batch,
+                                   eval_metric=eval_metric, locals=locals())
+            for cb in _as_list(score_end_callback):
+                cb(params)
+        return eval_metric.get_name_value()
+
+    def iter_predict(self, eval_data, num_batch=None, reset=True):
+        """Yield ``(outputs, nbatch, batch)`` for each batch, the padded
+        rows of a last batch dropped."""
+        assert self.binded and self.params_initialized
+        if reset:
+            eval_data.reset()
+        for nbatch, eval_batch in enumerate(eval_data):
+            if num_batch is not None and nbatch == num_batch:
+                break
+            self.forward(eval_batch, is_train=False)
+            pad = eval_batch.pad
+            outputs = [out[0:out.shape[0] - pad]
+                       for out in self.get_outputs()]
+            yield outputs, nbatch, eval_batch
+
+    def predict(self, eval_data, num_batch=None, merge_batches=True,
+                reset=True, always_output_list=False):
+        """The outputs over ``eval_data``, the padded rows dropped, merged
+        over the batches (one NDArray for one output) unless
+        ``merge_batches`` is false."""
+        assert self.binded and self.params_initialized
+        output_list = [[out.copy() for out in outputs] for outputs, _, _ in
+                       self.iter_predict(eval_data, num_batch, reset)]
+        if not output_list:
+            return output_list
+        if not merge_batches:
+            return output_list
+        num_outputs = len(output_list[0])
+        for out in output_list:
+            assert len(out) == num_outputs, \
+                "Cannot merge batches: mismatched output count"
+        merged = [nd.concatenate([out[i] for out in output_list])
+                  for i in range(num_outputs)]
+        if num_outputs == 1 and not always_output_list:
+            return merged[0]
+        return merged
+
+    def fit(self, train_data, eval_data=None, eval_metric="acc",
+            epoch_end_callback=None, batch_end_callback=None,
+            kvstore="local", optimizer="sgd",
+            optimizer_params=(("learning_rate", 0.01),),
+            eval_end_callback=None, eval_batch_end_callback=None,
+            initializer=Uniform(0.01), arg_params=None, aux_params=None,
+            allow_missing=False, force_rebind=False, force_init=False,
+            begin_epoch=0, num_epoch=None, validation_metric=None,
+            monitor=None, checkpoint_prefix=None,
+            checkpoint_every_n_batches=None, resume=False):
+        """Train for epochs ``begin_epoch`` to ``num_epoch`` (reference:
+        base_module.py ``fit``). ``eval_metric=None`` keeps no training
+        metric (and makes no per-batch host copy of the outputs).
+        ``monitor``, ``checkpoint_prefix``, ``checkpoint_every_n_batches``,
+        ``resume``, ``MXNET_RUN_N_STEPS`` and ``MXNET_DEVICE_PREFETCH``
+        raise: they are not ported yet."""
+        assert num_epoch is not None, "please specify number of epochs"
+        _refuse_unported(monitor, checkpoint_prefix,
+                         checkpoint_every_n_batches, resume)
+        self.bind(data_shapes=train_data.provide_data,
+                  label_shapes=train_data.provide_label,
+                  for_training=True, force_rebind=force_rebind)
+        self.init_params(initializer=initializer, arg_params=arg_params,
+                         aux_params=aux_params, allow_missing=allow_missing,
+                         force_init=force_init)
+        self.init_optimizer(kvstore=kvstore, optimizer=optimizer,
+                            optimizer_params=optimizer_params)
+        if validation_metric is None:
+            validation_metric = eval_metric
+        if eval_metric is not None \
+                and not isinstance(eval_metric, _metric.EvalMetric):
+            eval_metric = _metric.create(eval_metric)
+
+        for epoch in range(begin_epoch, num_epoch):
+            tic = time.time()
+            if eval_metric is not None:
+                eval_metric.reset()
+            nbatch = -1
+            for nbatch, data_batch in enumerate(train_data):
+                self.forward_backward(data_batch)
+                self.update()
+                if eval_metric is not None:
+                    self.update_metric(eval_metric, data_batch.label)
+                if batch_end_callback is not None:
+                    params = BatchEndParam(epoch=epoch, nbatch=nbatch,
+                                           eval_metric=eval_metric,
+                                           locals=locals())
+                    for cb in _as_list(batch_end_callback):
+                        cb(params)
+            if eval_metric is not None:
+                for name, val in eval_metric.get_name_value():
+                    self.logger.info("Epoch[%d] Train-%s=%f", epoch, name,
+                                     val)
+            self.logger.info("Epoch[%d] Time cost=%.3f", epoch,
+                             time.time() - tic)
+
+            arg_params, aux_params = self.get_params()
+            self.set_params(arg_params, aux_params)
+            if epoch_end_callback is not None:
+                for cb in _as_list(epoch_end_callback):
+                    cb(epoch, self.symbol, arg_params, aux_params)
+            if eval_data and validation_metric is not None:
+                res = self.score(eval_data, validation_metric,
+                                 score_end_callback=eval_end_callback,
+                                 batch_end_callback=eval_batch_end_callback,
+                                 epoch=epoch)
+                for name, val in res:
+                    self.logger.info("Epoch[%d] Validation-%s=%f", epoch,
+                                     name, val)
+            train_data.reset()
+
+    # -- parameters ------------------------------------------------------------
     def set_params(self, arg_params, aux_params, allow_missing=False,
                    force_init=True):
         self.init_params(initializer=None, arg_params=arg_params,
                          aux_params=aux_params, allow_missing=allow_missing,
                          force_init=force_init)
+
+    def save_params(self, fname):
+        """Save the parameters: ``arg:<name>`` and ``aux:<name>``."""
+        arg_params, aux_params = self.get_params()
+        save_dict = {f"arg:{k}": v for k, v in arg_params.items()}
+        save_dict.update({f"aux:{k}": v for k, v in aux_params.items()})
+        nd.save(fname, save_dict)
+
+    def load_params(self, fname):
+        """Load parameters saved by :meth:`save_params` (either package's)
+        into the bound module."""
+        saved = nd.load(fname, cpu())
+        if not isinstance(saved, dict) or not all(
+                k.startswith(("arg:", "aux:")) for k in saved):
+            raise ValueError(f"Invalid param file {fname}")
+        self.set_params(*split_params(saved))
 
     # -- to implement ----------------------------------------------------------
     def get_params(self):
@@ -60,6 +255,9 @@ class BaseModule:
         raise NotImplementedError
 
     def update(self):
+        raise NotImplementedError
+
+    def update_metric(self, eval_metric, labels):
         raise NotImplementedError
 
     def bind(self, data_shapes, label_shapes=None, for_training=True,

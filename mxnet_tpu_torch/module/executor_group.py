@@ -98,6 +98,9 @@ class DataParallelExecutorGroup:
     def get_outputs(self, merge_multi_context=True):
         return list(self._executor.outputs)
 
+    def update_metric(self, eval_metric, labels):
+        eval_metric.update(labels, self.get_outputs())
+
     def get_input_grads(self, merge_multi_context=True):
         return [self._executor.grad_dict.get(n) for n in self.data_names]
 

@@ -5,7 +5,10 @@
 with mixed precision: the parameters stay fp32 master copies, the graph
 computes in bf16, and the gradients arrive in fp32. ``forward(is_train=True)``
 computes the gradients with the outputs, ``backward()`` writes them into the
-grad arrays, and ``update()`` runs the optimizer over each parameter in turn.
+grad arrays, ``update()`` runs the optimizer over each parameter in turn,
+and ``update_metric`` hands the outputs to a metric; ``BaseModule.fit``
+drives the four. The aux states (BatchNorm's moving statistics) travel
+with the parameters through ``get_params``/``set_params`` and checkpoints.
 The reference's fused one-program step (forward, backward and update in one
 XLA program) computes the same numbers; its counterpart here, a captured
 CUDA graph, is later work. The context defaults to the card.
@@ -20,6 +23,7 @@ from ..base import MXNetError
 from ..context import Context, current_context
 from ..initializer import Uniform
 from ..io import DataDesc
+from ..model import load_checkpoint, save_checkpoint
 from .base_module import BaseModule
 from .executor_group import DataParallelExecutorGroup
 
@@ -66,6 +70,34 @@ class Module(BaseModule):
         self._exec_group = None
         self._data_shapes = None
         self._label_shapes = None
+
+    @staticmethod
+    def load(prefix, epoch, load_optimizer_states=False, **kwargs):
+        """A Module of the checkpoint's symbol whose parameters are the
+        checkpoint's (reference: module.py ``load``); ``kwargs`` go to the
+        constructor. Bind it before use."""
+        if load_optimizer_states:
+            raise MXNetError("Module.load: optimizer states are not ported "
+                             "yet")
+        ctx = kwargs.get("context")
+        if isinstance(ctx, (list, tuple)):
+            ctx = ctx[0]
+        symbol, args, auxs = load_checkpoint(prefix, epoch, ctx=ctx)
+        mod = Module(symbol=symbol, **kwargs)
+        mod._arg_params = args
+        mod._aux_params = auxs
+        mod.params_initialized = True
+        return mod
+
+    def save_checkpoint(self, prefix, epoch, save_optimizer_states=False):
+        """Write the symbol and the parameters (reference: module.py
+        ``save_checkpoint``; :func:`mxnet_tpu_torch.model.save_checkpoint`).
+        Optimizer states are not ported yet."""
+        if save_optimizer_states:
+            raise MXNetError("save_checkpoint: optimizer states are not "
+                             "ported yet")
+        save_checkpoint(prefix, epoch, self.symbol, *self.get_params(),
+                        source="module")
 
     # -- properties --------------------------------------------------------------
     @property
@@ -225,6 +257,11 @@ class Module(BaseModule):
     def get_outputs(self, merge_multi_context=True):
         assert self.binded and self.params_initialized
         return self._exec_group.get_outputs(merge_multi_context)
+
+    def update_metric(self, eval_metric, labels):
+        """``eval_metric.update(labels, outputs)`` on the last forward's
+        outputs."""
+        self._exec_group.update_metric(eval_metric, labels)
 
     def get_input_grads(self, merge_multi_context=True):
         assert self.binded and self.params_initialized \

@@ -1,9 +1,13 @@
 """Neural-network layer operators (reference: mxnet_tpu/ops/nn.py), the subset
-that the transformer LM's graph reaches. Matrix products go to
-``torch.nn.functional.linear`` (cuBLAS on the card), as the reference leaves
-them to XLA. Every body is differentiable by autograd as the reference's is
-by ``jax.vjp``; ``SoftmaxOutput`` keeps the reference's loss-op protocol (its
-backward ignores the head gradient) as a ``torch.autograd.Function``.
+that the transformer LM and ResNet graphs reach. Matrix products go to
+``torch.nn.functional.linear`` (cuBLAS on the card) and convolutions to
+``torch.nn.functional.conv2d`` (cuDNN), as the reference leaves both to XLA;
+pooling and batch normalisation are torch reductions and elementwise ops, as
+the reference's are ``lax.reduce_window`` and ``jnp``. Every body is
+differentiable by autograd as the reference's is by ``jax.vjp``;
+``SoftmaxOutput`` keeps the reference's loss-op protocol (its backward
+ignores the head gradient) and ``BatchNorm``'s training forward its
+memory-light backward, each as a ``torch.autograd.Function``.
 """
 from __future__ import annotations
 
@@ -38,6 +42,122 @@ def _fc_infer(attrs, shapes):
 def _fully_connected(ctx, attrs, data, weight, bias=None):
     x = data.reshape(data.shape[0], -1) if data.dim() > 2 else data
     return F.linear(x, weight, bias)
+
+
+def _at_least_fp32(t):
+    """``t`` in fp32, or as it is when it is float64 (whose statistics
+    would lose digits in fp32)."""
+    return t if t.dtype == torch.float64 else t.float()
+
+
+def _pair(v):
+    if v is None:
+        return (1, 1)
+    if isinstance(v, int):
+        return (v, v)
+    t = tuple(int(x) for x in v)
+    return t if len(t) > 1 else (t[0], t[0])
+
+
+# ---------------------------------------------------------------------------
+# Convolution (reference: src/operator/convolution-inl.h)
+
+
+def _conv_infer(attrs, shapes):
+    data = shapes.get("data")
+    if data is not None:
+        kh, kw = _pair(attrs["kernel"])
+        nf = int(attrs["num_filter"])
+        ng = int(attrs.get("num_group", 1))
+        if attrs.get("layout", "NCHW") == "NHWC":
+            shapes.setdefault("weight", (nf, kh, kw, data[3] // ng))
+        else:
+            shapes.setdefault("weight", (nf, data[1] // ng, kh, kw))
+        if not attrs.get("no_bias", False):
+            shapes.setdefault("bias", (nf,))
+    return shapes
+
+
+@register_op(
+    "Convolution",
+    inputs=lambda attrs: ["data", "weight"] if attrs.get("no_bias", False) else ["data", "weight", "bias"],
+    infer_param_shapes=_conv_infer,
+)
+def _convolution(ctx, attrs, data, weight, bias=None):
+    """2-D convolution, NCHW data with OIHW weights or (``layout="NHWC"``)
+    NHWC data with OHWI weights; ``stride``, ``pad``, ``dilate``,
+    ``num_group``, ``no_bias``; ``workspace`` is accepted and ignored. The
+    output keeps the data's dtype (bf16 in, bf16 out, as the reference has
+    no ``preferred_element_type``). NHWC runs as NCHW views of the same
+    memory (channels-last strides), so no copy is made around the call."""
+    nhwc = attrs.get("layout", "NCHW") == "NHWC"
+    if nhwc:
+        data = data.permute(0, 3, 1, 2)
+        weight = weight.permute(0, 3, 1, 2)
+    out = F.conv2d(data, weight, bias, stride=_pair(attrs.get("stride")),
+                   padding=_pair(attrs.get("pad", (0, 0))),
+                   dilation=_pair(attrs.get("dilate")),
+                   groups=int(attrs.get("num_group", 1)))
+    return out.permute(0, 2, 3, 1) if nhwc else out
+
+
+# ---------------------------------------------------------------------------
+# Pooling (reference: src/operator/pooling-inl.h)
+
+
+def _full_extra(dim, k, s, p):
+    """Padding added past the upper edge under ``pooling_convention="full"``
+    so that the window count rounds up: ceil((dim + 2p - k) / s) + 1
+    windows, every one kept (torch's ``ceil_mode`` drops a last window that
+    starts in the padding)."""
+    out = int(np.ceil((dim + 2 * p - k) / s)) + 1
+    return max(0, (out - 1) * s + k - dim - 2 * p)
+
+
+@register_op("Pooling")
+def _pooling(ctx, attrs, data):
+    """``max``, ``avg`` or ``sum`` pooling over the two spatial axes of NCHW
+    (or ``layout="NHWC"``) data, ``global_pool`` included (its ``sum`` is a
+    mean, as in the reference). ``avg`` always divides by ``kh * kw``, the
+    padding counted; max pooling pads with -inf (integers: their least
+    value). The ``full`` convention pads the upper edge by
+    :func:`_full_extra`."""
+    kind = attrs.get("pool_type", "max")
+    if kind not in ("max", "avg", "sum"):
+        raise ValueError(f"unknown pool_type {kind}")
+    nhwc = attrs.get("layout", "NCHW") == "NHWC"
+    if nhwc:
+        data = data.permute(0, 3, 1, 2)
+    if bool(attrs.get("global_pool", False)):
+        out = torch.amax(data, dim=(2, 3), keepdim=True) if kind == "max" \
+            else torch.mean(data, dim=(2, 3), keepdim=True)
+        return out.permute(0, 2, 3, 1) if nhwc else out
+    kh, kw = _pair(attrs["kernel"])
+    sh, sw = _pair(attrs.get("stride", (1, 1)))
+    ph, pw = _pair(attrs.get("pad", (0, 0)))
+    eh = ew = 0
+    if attrs.get("pooling_convention", "valid") == "full":
+        eh = _full_extra(data.shape[2], kh, sh, ph)
+        ew = _full_extra(data.shape[3], kw, sw, pw)
+    x, fill = data, 0.0
+    if kind == "max":
+        fill = float("-inf")
+        if not data.is_floating_point():
+            # exact for int32, jax's widest integer without 64-bit mode
+            fill, x = float(torch.iinfo(data.dtype).min), data.double()
+    pad = (ph, pw)
+    if eh or ew or ph > kh // 2 or pw > kw // 2:
+        # torch pads at most half a window, and evenly: pad here instead
+        x = F.pad(x, (pw, pw + ew, ph, ph + eh), value=fill)
+        pad = (0, 0)
+    if kind == "max":
+        # (torch's own padding leaves data in every window, so its -inf
+        # never reaches an output)
+        out = F.max_pool2d(x, (kh, kw), (sh, sw), pad).to(data.dtype)
+    else:
+        out = F.avg_pool2d(x, (kh, kw), (sh, sw), pad, count_include_pad=True,
+                           divisor_override=1 if kind == "sum" else kh * kw)
+    return out.permute(0, 2, 3, 1) if nhwc else out
 
 
 # ---------------------------------------------------------------------------
@@ -85,6 +205,99 @@ def _layer_norm(ctx, attrs, data, gamma, beta):
     shape[axis] = data.shape[axis]
     out = out * gamma.float().reshape(shape) + beta.float().reshape(shape)
     return out.to(data.dtype)
+
+
+# ---------------------------------------------------------------------------
+# BatchNorm (reference: src/operator/batch_norm-inl.h); aux moving_mean and
+# moving_var are returned updated: the body gives (outs, new_aux).
+
+
+def _bn_infer(attrs, shapes):
+    data = shapes.get("data")
+    if data is not None:
+        c = data[int(attrs.get("axis", 1))]
+        for name in ("gamma", "beta", "moving_mean", "moving_var"):
+            shapes.setdefault(name, (c,))
+    return shapes
+
+
+class _BatchNormTrain(torch.autograd.Function):
+    """The training forward on the batch's statistics, ``mean`` and ``inv``
+    (fp32, 1/sqrt(var + eps)) computed by the caller. Forward: the
+    reference's ``(data - mean) * inv * gamma + beta`` in the data's dtype.
+    Backward: the closed form of ``jax.vjp`` through that forward and its
+    statistics, in fp32, from ``data``, ``mean``, ``inv`` and ``gamma``
+    alone (the separate ops under autograd would keep several full-size
+    intermediates of every layer)."""
+
+    @staticmethod
+    def forward(ctx, data, gamma, beta, mean, inv, caxis, fix_gamma):
+        bshape = [1] * data.dim()
+        bshape[caxis] = -1
+        g = torch.ones_like(gamma) if fix_gamma else gamma
+        dt = data.dtype
+        out = (data - mean.to(dt).view(bshape)) * inv.to(dt).view(bshape)
+        out = out * g.view(bshape) + beta.view(bshape)
+        ctx.save_for_backward(data, mean, inv, g)
+        ctx.attrs = (caxis, fix_gamma, gamma.dtype, beta.dtype)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        data, mean, inv, g = ctx.saved_tensors
+        caxis, fix_gamma, g_dtype, b_dtype = ctx.attrs
+        bshape = [1] * data.dim()
+        bshape[caxis] = -1
+        axes = [i for i in range(data.dim()) if i != caxis]
+        n = data.numel() // data.shape[caxis]
+        xhat = (_at_least_fp32(data) - mean.view(bshape)) * inv.view(bshape)
+        d32 = _at_least_fp32(dout)
+        dbeta = d32.sum(axes)
+        dgamma = (d32 * xhat).sum(axes)
+        dx = (d32 - xhat * (dgamma / n).view(bshape)
+              - (dbeta / n).view(bshape)) * (g.to(inv.dtype) * inv).view(bshape)
+        return (dx.to(data.dtype), None if fix_gamma else dgamma.to(g_dtype),
+                dbeta.to(b_dtype), None, None, None, None)
+
+
+@register_op(
+    "BatchNorm",
+    inputs=("data", "gamma", "beta"),
+    aux=("moving_mean", "moving_var"),
+    infer_param_shapes=_bn_infer,
+)
+def _batch_norm(ctx, attrs, data, gamma, beta, moving_mean, moving_var):
+    """Normalise over every axis but ``axis`` (1, or 3 for NHWC): in
+    training by the batch's mean and biased variance, taken in fp32, and the
+    moving statistics become ``momentum * old + (1 - momentum) * batch``
+    (not ``F.batch_norm``'s unbiased variance and opposite momentum); in
+    evaluation, or with ``use_global_stats``, by the moving statistics,
+    which stay as they are. The normalisation runs in the data's dtype (bf16
+    under amp, the statistics cast to it); ``fix_gamma`` puts ones in
+    gamma's place, so gamma's gradient is 0."""
+    eps = float(attrs.get("eps", 1e-3))
+    momentum = float(attrs.get("momentum", 0.9))
+    fix_gamma = bool(attrs.get("fix_gamma", True))
+    caxis = int(attrs.get("axis", 1)) % data.dim()
+    if bool(attrs.get("use_global_stats", False)) or not ctx.is_train:
+        bshape = [1] * data.dim()
+        bshape[caxis] = -1
+        dt = data.dtype
+        g = torch.ones_like(gamma) if fix_gamma else gamma
+        inv = torch.rsqrt(_at_least_fp32(moving_var) + eps).to(dt)
+        out = (data - moving_mean.to(dt).view(bshape)) * inv.view(bshape)
+        out = out * g.view(bshape) + beta.view(bshape)
+        return (out,), (moving_mean, moving_var)
+    axes = [i for i in range(data.dim()) if i != caxis]
+    with torch.no_grad():
+        var, mean = torch.var_mean(_at_least_fp32(data), dim=axes,
+                                   correction=0)
+        inv = torch.rsqrt(var + eps)
+        new_mean = momentum * moving_mean + (1 - momentum) * mean
+        new_var = momentum * moving_var + (1 - momentum) * var
+    out = _BatchNormTrain.apply(data, gamma, beta, mean, inv, caxis,
+                                fix_gamma)
+    return (out,), (new_mean, new_var)
 
 
 # ---------------------------------------------------------------------------
@@ -166,7 +379,8 @@ def _softmax_output(ctx, attrs, data, label):
     multi = bool(attrs.get("multi_output", False))
     axis = 1 if (multi or data.dim() > 2) else -1
     return _SoftmaxOutput.apply(
-        data.float(), label, axis, bool(attrs.get("use_ignore", False)),
+        _at_least_fp32(data), label, axis,
+        bool(attrs.get("use_ignore", False)),
         int(attrs.get("ignore_label", -1)),
         float(attrs.get("grad_scale", 1.0)),
         attrs.get("normalization", "null"))

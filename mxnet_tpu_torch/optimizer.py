@@ -6,8 +6,9 @@ rules call the fused update ops of :mod:`mxnet_tpu_torch.ops.tensor`
 (``sgd_update``, ``sgd_mom_update``, ``adam_update``), one per parameter;
 each returns new arrays and the rule rebinds the weight and state NDArrays
 to them. lr/wd multipliers (``__lr_mult__``/``__wd_mult__`` attributes of
-the symbol, or set by name), ``param_idx2name``, ``clip_gradient`` and
-``rescale_grad`` follow the reference. The reference's one-program update
+the symbol, or set by name), ``param_idx2name``, ``clip_gradient``,
+``rescale_grad``, ``lr_scheduler`` (read at ``num_update``) and
+``begin_num_update`` follow the reference. The reference's one-program update
 of every parameter (``_tree_update``) computes the same numbers as these
 per-parameter ops; ``update_multi`` here runs them in turn.
 """
@@ -43,13 +44,18 @@ class Optimizer:
     """Base optimizer (reference: optimizer.py ``Optimizer``)."""
 
     def __init__(self, rescale_grad=1.0, param_idx2name=None, wd=0.0,
-                 clip_gradient=None, learning_rate=0.01, sym=None):
+                 clip_gradient=None, learning_rate=0.01, lr_scheduler=None,
+                 sym=None, begin_num_update=0):
         self.rescale_grad = rescale_grad
         self.lr = learning_rate
+        self.lr_scheduler = lr_scheduler
+        if lr_scheduler is not None:
+            self.lr_scheduler.base_lr = learning_rate
         self.wd = wd
         self.lr_mult = {}
         self.wd_mult = {}
-        self.num_update = 0
+        self.begin_num_update = begin_num_update
+        self.num_update = begin_num_update
         self._index_update_count = {}
         self.clip_gradient = clip_gradient
         self.idx2name = dict(param_idx2name or {})
@@ -80,13 +86,14 @@ class Optimizer:
         self.wd_mult.update(args_wd_mult)
 
     def _update_count(self, index):
-        self._index_update_count[index] = \
-            self._index_update_count.get(index, 0) + 1
+        self._index_update_count[index] = self._index_update_count.get(
+            index, self.begin_num_update) + 1
         self.num_update = max(self._index_update_count[index],
                               self.num_update)
 
     def _get_lr(self, index):
-        lr = self.lr
+        lr = self.lr_scheduler(self.num_update) if self.lr_scheduler \
+            else self.lr
         if index in self.lr_mult:
             lr *= self.lr_mult[index]
         elif index in self.idx2name:

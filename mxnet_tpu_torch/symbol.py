@@ -256,6 +256,11 @@ class Symbol:
         return json.dumps({"format": _FORMAT, "nodes": jnodes,
                            "heads": heads}, indent=2)
 
+    def save(self, fname):
+        """Write :meth:`tojson` to ``fname`` (either package loads it)."""
+        with open(fname, "w") as f:
+            f.write(self.tojson())
+
     # -- execution -----------------------------------------------------------
     def bind(self, ctx, args, args_grad=None, grad_req="write",
              aux_states=None):

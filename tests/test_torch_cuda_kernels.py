@@ -494,3 +494,112 @@ def test_index_and_cast_ops_match_cpu(name, attrs, make):
     if want.is_floating_point():
         assert torch.equal(got.cpu().isnan(), want.isnan())
     assert torch.equal(torch.nan_to_num(got.cpu()), torch.nan_to_num(want))
+
+
+# -- the ResNet ops (Convolution through cuDNN, Pooling, BatchNorm) ----------
+
+def _tied_relu(g):
+    """A ReLU output with 2x2 windows of zeros (tied maxima)."""
+    x = torch.randn((2, 3, 8, 8), generator=g, device="cuda").relu()
+    x[:, :, 0:2, 0:2] = 0.0
+    x[:, :, 2:4, 4:6] = 0.0
+    return x
+
+
+_RESNET_OP_CASES = [
+    ("Convolution", dict(kernel=(3, 3), num_filter=6, pad=(1, 1)),
+     [(2, 4, 9, 9), (6, 4, 3, 3), (6,)], True),
+    ("Convolution", dict(kernel=(3, 3), num_filter=6, stride=(2, 2),
+                         no_bias=True), [(2, 4, 9, 9), (6, 4, 3, 3)], True),
+    ("Convolution", dict(kernel=(3, 3), num_filter=6, pad=(2, 2),
+                         dilate=(2, 2)), [(2, 4, 9, 9), (6, 4, 3, 3), (6,)],
+     True),
+    ("Convolution", dict(kernel=(1, 1), num_filter=6, num_group=2,
+                         stride=(2, 2)), [(2, 4, 9, 9), (6, 2, 1, 1), (6,)],
+     True),
+    ("Convolution", dict(kernel=(3, 3), num_filter=6, pad=(1, 1),
+                         stride=(2, 2), layout="NHWC"),
+     [(2, 9, 9, 4), (6, 3, 3, 4), (6,)], True),
+    ("Convolution", dict(kernel=(7, 7), num_filter=64, pad=(3, 3),
+                         stride=(2, 2), no_bias=True),
+     [(4, 3, 64, 64), (64, 3, 7, 7)], True),
+    ("Pooling", dict(pool_type="max", kernel=(3, 3), stride=(2, 2),
+                     pad=(1, 1)), [(2, 3, 9, 9)], True),
+    ("Pooling", dict(pool_type="avg", kernel=(2, 2), stride=(2, 2),
+                     pad=(1, 1), pooling_convention="full"), [(2, 3, 5, 5)],
+     True),
+    ("Pooling", dict(pool_type="sum", kernel=(3, 3), stride=(1, 1),
+                     pad=(1, 1)), [(2, 3, 7, 7)], True),
+    ("Pooling", dict(pool_type="avg", global_pool=True, kernel=(7, 7)),
+     [(2, 3, 7, 7)], True),
+    ("Pooling", dict(pool_type="max", kernel=(3, 3), stride=(2, 2),
+                     pad=(1, 1), layout="NHWC"), [(2, 9, 9, 3)], True),
+    ("Pooling", dict(pool_type="max", kernel=(2, 2), stride=(2, 2)),
+     [_tied_relu], True),
+    ("BatchNorm", dict(fix_gamma=False, eps=2e-5), [(4, 3, 5, 5), (3,), (3,)],
+     True),
+    ("BatchNorm", dict(fix_gamma=True, eps=2e-5), [(4, 3, 5, 5), (3,), (3,)],
+     True),
+    ("BatchNorm", dict(fix_gamma=False), [(4, 3, 5, 5), (3,), (3,)], False),
+    ("BatchNorm", dict(fix_gamma=False, axis=3, momentum=0.8),
+     [(4, 5, 5, 3), (3,), (3,)], True),
+    ("BatchNorm", dict(fix_gamma=False, eps=2e-5),
+     [(32, 64, 28, 28), (64,), (64,)], True),
+]
+
+
+@pytest.mark.gpu
+# fp32 with TF32 off: summation order; bf16: each output rounds to bf16
+# after sums in another order (tests/test_torch_resnet.py holds both to the
+# JAX package at the same limits)
+@pytest.mark.parametrize("dtype,out_tol,grad_tol",
+                         [(torch.float32, 1e-5, 1e-4),
+                          (torch.bfloat16, 2e-2, 2e-2)])
+@pytest.mark.parametrize("name,attrs,shapes,is_train", _RESNET_OP_CASES,
+                         ids=[f"{c[0]}{i}" for i, c in
+                              enumerate(_RESNET_OP_CASES)])
+def test_resnet_ops_on_card_match_cpu(name, attrs, shapes, is_train, dtype,
+                                      out_tol, grad_tol, monkeypatch):
+    """Convolution (cuDNN), Pooling and BatchNorm on the card against the
+    CPU: the output, its dtype, the new moving statistics and the gradient
+    of every input for one random head gradient."""
+    from mxnet_tpu_torch import ops as tops
+
+    g = _cuda()
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    inputs = [s(g) if callable(s) else
+              torch.randn(s, generator=g, device="cuda") for s in shapes]
+    if name == "BatchNorm":
+        inputs[1] = inputs[1] + 1.0
+        aux = [torch.randn((shapes[1][0],), generator=g, device="cuda") * 0.1,
+               torch.rand((shapes[1][0],), generator=g, device="cuda") + 0.5]
+    else:
+        aux = []
+    op = tops.get_op(name)
+    head = None
+
+    def run(device):
+        nonlocal head
+        xs = [x.detach().to(device).requires_grad_() for x in inputs]
+        (out,), new_aux = op.normalized_call(
+            tops.OpCtx(is_train=is_train, device=torch.device(device)),
+            dict(attrs), [x.to(dtype) for x in xs],
+            [a.to(device) for a in aux])
+        if head is None:
+            head = torch.randn(out.shape, generator=g, device="cuda")
+        grads = torch.autograd.grad(out, xs, head.to(device, out.dtype),
+                                    allow_unused=True)
+        return out.detach(), new_aux, grads
+
+    got, got_aux, got_grads = run("cuda")
+    torch.cuda.synchronize()
+    want, want_aux, want_grads = run("cpu")
+    assert got.dtype == want.dtype == dtype and got.shape == want.shape
+    assert _max_rel(got, want) <= out_tol
+    for a, b in zip(got_aux, want_aux):
+        assert a.dtype == torch.float32 and _max_rel(a, b) <= 1e-5
+    for a, b in zip(got_grads, want_grads):
+        if b is None:
+            assert a is None
+        else:
+            assert _max_rel(a, b) <= grad_tol

@@ -271,10 +271,12 @@ def test_train_lm_example_on_cpu():
     """The training example runs on the CPU when asked and its perplexity
     falls within a few steps (the 800-step gate runs on the card)."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    # one thread: beside the other test workers, a process that spreads
+    # torch's thread pool over every core slows all of them down
     out = subprocess.run(
         [sys.executable, "-m", "mxnet_tpu_torch.examples.train_lm", "--cpu",
          "--steps", "100", "--batch", "8"], cwd=root, capture_output=True,
-        text=True, timeout=300)
+        text=True, timeout=300, env=dict(os.environ, OMP_NUM_THREADS="1"))
     assert out.returncode == 0, out.stderr[-2000:]
     ppl = [float(line.split("perplexity ")[1].split()[0])
            for line in out.stdout.splitlines() if "perplexity" in line]

@@ -120,7 +120,8 @@ def test_optimizer_registry():
 
 INIT_SHAPES = {"fc1_weight": (256, 512), "fc1_bias": (256,),
                "ln_gamma": (64,), "ln_beta": (64,),
-               "conv_weight": (64, 32, 3, 3)}
+               "conv_weight": (64, 32, 3, 3), "bn_moving_mean": (64,),
+               "bn_moving_avg": (64,), "bn_moving_var": (64,)}
 
 
 def _init_arrays(pkg, init):
@@ -144,8 +145,9 @@ def _init_arrays(pkg, init):
     lambda pkg: pkg.init.Constant(0.25),
 ])
 def test_initializer_dispatch_and_statistics(make):
-    """The name decides the rule (bias/beta 0, gamma 1, ``*_weight`` the
-    initializer's own), as in the reference;
+    """The name decides the rule (bias/beta 0, gamma 1, BatchNorm's moving
+    mean/avg 0 and moving var 1, ``*_weight`` the initializer's own), as in
+    the reference;
     random weights agree with the reference's in range, mean and standard
     deviation (within 5 % at these sizes: 131 072 and 18 432 draws)."""
     mxt.random.seed(3)
