@@ -4,7 +4,8 @@ Drives the port's main paths at the repo's accelerator width (vocab 32768,
 hidden 1024, 16 heads, 12 layers, T=2048): transformer-LM inference through
 ``Predictor`` in fp32, the imperative path, the LM through
 ``Executor(amp_dtype="bfloat16")``, its training through
-``Module(amp="bfloat16")``, and ResNet-50 training through ``Module.fit``;
+``Module(amp="bfloat16")``, ResNet-50 training through ``Module.fit``, and
+from a RecordIO file through ``train_imagenet.py``;
 holds every CUDA kernel on those paths against its plain PyTorch version.
 Phases, in order; any failed check ends the run with a non-zero exit and no
 result line:
@@ -77,7 +78,23 @@ result line:
    float64 run of the step than twice the CPU), a bf16 evaluation forward
    card vs CPU (phase 8's log-probability limits, or no further from fp32
    than twice the CPU), and ``mxnet_tpu_torch/examples/train_cifar10.py``
-   at its defaults (validation accuracy at least 0.9).
+   at its defaults (validation accuracy at least 0.9);
+11. ResNet-50 from a RecordIO file through
+   ``mxnet_tpu_torch/examples/image_classification/train_imagenet.py`` at
+   phase 10's config: a ``.rec``/``.idx`` of 3072 photo-like JPEGs (q95,
+   1000 classes, shorter edge 256, longer 256-384) packed from ``--seed``;
+   ``fit.py``'s ``--test-io`` decode rate with ``preprocess_threads`` 0 and
+   P (the cores less two); one epoch (12 batches, random crop and mirror,
+   P decode workers) without and with ``MXNET_DEVICE_PREFETCH=1`` (steady
+   step, img/s, idle share, the stager's counters, one more step traced
+   into phase 10's groups with the host's time by part); one batch's H2D
+   from pageable and pinned memory (and through ``cudaHostRegister``); 3
+   batches with and without prefetch bit-identical under deterministic
+   cuDNN; ``fit`` stopped after batch 4 of 6 and resumed from its
+   checkpoint equal to the uninterrupted run (batch 8, 64 px, fp32); which
+   route decoded every JPEG; and ``train_imagenet.py`` on 10 class
+   prototypes at 40 px (ResNet-20, 8 epochs) reaching validation accuracy
+   0.9.
 
 Run from the repo root: ``python3 chip_smoke.py [--seed N]``.
 The last line of standard output is ``{"ok": true, "device": {...}}``.
@@ -1442,9 +1459,6 @@ def phase_fit(mx, seed):
     config, the traced batch, score, and the correctness limits."""
     import torch
 
-    from mxnet_tpu_torch import executor as texe
-    from mxnet_tpu_torch.module import executor_group as tgroup
-
     print(f"phase 10: ResNet-{FIT_LAYERS} Module.fit (bf16 amp, SGD "
           f"{FIT_SGD}; batch {FIT_BATCH}, {FIT_PX} px, {FIT_CLASSES} "
           f"classes, {FIT_BATCHES} batches)", flush=True)
@@ -1509,45 +1523,7 @@ def phase_fit(mx, seed):
     # the card, forward and backward, the update and the metric's copy back
     ex = mod._exec_group._executor
     train.reset()
-    host = {}
-
-    def clock(key, fn, *a):
-        t = time.perf_counter()
-        res = fn(*a)
-        host[key] = host.get(key, 0.0) + (time.perf_counter() - t) * 1e3
-        return res
-
-    def step():
-        batch = clock("next_batch", train.next)
-        clock("forward_backward", mod.forward_backward, batch)
-        with torch.profiler.record_function("chip_smoke::sgd_update"):
-            clock("update", mod.update)
-        clock("update_metric", mod.update_metric, metric, batch.label)
-        return batch
-
-    saved = []
-    for group, names in FIT_OPS.items():
-        saved += _wrap_ops(names, "chip_smoke::" + group)
-    amp_cast = texe._amp_cast
-
-    def cast_traced(*a):
-        with torch.profiler.record_function("chip_smoke::amp_cast"):
-            return amp_cast(*a)
-
-    fed_tensor = tgroup._fed_tensor
-    texe._amp_cast = cast_traced
-    tgroup._fed_tensor = lambda *a: clock("feed_to_card", fed_tensor, *a)
-    traced = []
-    try:
-        by_name, groups = traced_groups(lambda: traced.append(timed(step)),
-                                        FIT_RANGES)
-    finally:
-        texe._amp_cast = amp_cast
-        tgroup._fed_tensor = fed_tensor
-        for op, fn in saved:
-            op.fn = fn
-    (batch, traced_ms), = traced
-    check(by_name, "the profiler recorded device events for one batch")
+    batch, traced = trace_fit_step(mx, mod, train, metric)
     bad = [n for n, g in ex.grad_dict.items()
            if not bool(torch.isfinite(g.data).all())]
     check(not bad and len(ex.grad_dict) == len(mod._param_names),
@@ -1557,26 +1533,12 @@ def phase_fit(mx, seed):
     nll = float(-np.log(np.maximum(probs[np.arange(len(lab)), lab],
                                    1e-30)).mean())
     check(np.isfinite(nll), f"the traced batch's mean NLL {nll:.4f} finite")
-    busy = sum(by_name.values())
-    split = {g: sum(t for k, t in ks if "Memcpy" not in k)
-             for g, ks in groups.items()}
-    split["h2d_copy"] = sum(t for k, t in by_name.items() if "HtoD" in k)
-    split["d2h_copy"] = sum(t for k, t in by_name.items() if "DtoH" in k)
-    split["rest"] = busy - sum(split.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
-    out["traced_step"] = {
-        "host_ms": traced_ms, "host_split_ms": host,
-        "device_busy_ms": busy, "split_ms": split,
-        "copies_ms": {k: t for k, t in by_name.items() if "Mem" in k},
-        "idle_share": 1.0 - busy / steady,
-        "idle_share_traced": 1.0 - busy / traced_ms, "mean_nll": nll,
-        "device_kernels": len(by_name),
-        "top_kernels": [[k[:80], t] for k, t in top]}
+    out["traced_step"] = dict(
+        traced, mean_nll=nll,
+        idle_share=1.0 - traced["device_busy_ms"] / steady,
+        idle_share_traced=1.0 - traced["device_busy_ms"]
+        / traced["host_ms"])
     print("  traced batch: " + json.dumps(out["traced_step"]), flush=True)
-    check(split["conv_fwd"] > 0 and split["conv_bwd"] > 0
-          and split["bn_fwd"] > 0 and split["bn_bwd"] > 0,
-          "the traced batch ran the convolutions and BatchNorms forward "
-          "and backward")
 
     # the feed's copy of one batch from pageable host memory, alone (the
     # profiler of a later phase does not always record it in the trace)
@@ -1884,6 +1846,540 @@ def cifar_example():
     return {"accuracy": acc, "seconds": secs}
 
 
+# phase 11: ResNet-50 from a RecordIO file through the port's
+# examples/image_classification/train_imagenet.py, at phase 10's config
+REC_IMAGES, REC_CLASSES, REC_SHORT, REC_LONG = 3072, 1000, 256, 384
+REC_QUALITY = 95
+REC_BATCH, REC_PX = FIT_BATCH, FIT_PX
+REC_SAME_BATCHES = 3   # the prefetch bit-identity run
+# the resume check: the "Hot-loop parity" config, 6 batches, a checkpoint
+# every 2, the first run stopped after batch 4
+RESUME_BATCH, RESUME_PX, RESUME_BATCHES = FIT_CPU_BATCH, FIT_CPU_PX, 6
+RESUME_EVERY, RESUME_STOP = 2, 4
+# the convergence gate: 10 class prototypes at 40 px, ResNet-20 at 32 px
+GATE_PX, GATE_TRAIN, GATE_VAL, GATE_CLASSES, GATE_EPOCHS = 40, 2048, 512, 10, 8
+GATE_ARGS = ["--network", "resnet", "--num-layers", "20", "--image-shape",
+             "3,32,32", "--num-classes", str(GATE_CLASSES), "--num-examples",
+             str(GATE_TRAIN), "--batch-size", "128", "--lr", "0.05",
+             "--lr-step-epochs", "30,60", "--num-epochs", str(GATE_EPOCHS),
+             "--dtype", "float32", "--disp-batches", "8"]
+
+
+def decode_pool_size():
+    """P, the decode workers: the host's cores less the training loop's
+    thread and the stager's."""
+    return max(1, (os.cpu_count() or 1) - 2)
+
+
+def _jpeg(arr, quality):
+    from io import BytesIO
+
+    from PIL import Image
+
+    buf = BytesIO()
+    Image.fromarray(arr).save(buf, format="JPEG", quality=quality)
+    return buf.getvalue()
+
+
+def photo_like(rng, protos, label, grain, short, long):
+    """One HWC uint8 image: the class's colour layout (a coarse grid,
+    smoothly upsampled) mixed with a smooth random field of its own and a
+    grain, so that it compresses like a photo. The shorter edge is
+    ``short``, the longer one from ``short`` to ``long``."""
+    from PIL import Image
+
+    edge = int(rng.integers(short, long + 1))
+    h, w = (short, edge) if rng.random() < 0.5 else (edge, short)
+    base = np.asarray(Image.fromarray(protos[label]).resize(
+        (w, h), Image.BICUBIC), np.float32)
+    field = np.asarray(Image.fromarray(rng.integers(
+        0, 256, (h // 16 + 1, w // 16 + 1, 3), dtype=np.uint8)).resize(
+        (w, h), Image.BILINEAR), np.float32)
+    y = rng.integers(0, grain.shape[0] - h + 1)
+    x = rng.integers(0, grain.shape[1] - w + 1)
+    img = 0.7 * base + 0.3 * field + grain[y:y + h, x:x + w]
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def pack_records(mx, prefix, labels, make_image, quality=REC_QUALITY):
+    """``prefix.rec``/``.idx`` of one JPEG a label, ``make_image(i)`` made
+    and encoded by a thread each core (PIL releases the interpreter lock
+    while it encodes); returns the file's bytes."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def record(i):
+        header = mx.recordio.IRHeader(0, float(labels[i]), i, 0)
+        return mx.recordio.pack(header, _jpeg(make_image(i), quality))
+
+    writer = mx.recordio.MXIndexedRecordIO(prefix + ".idx", prefix + ".rec",
+                                           "w")
+    with ThreadPoolExecutor(os.cpu_count() or 1) as pool:
+        for i, rec in enumerate(pool.map(record, range(len(labels)))):
+            writer.write_idx(i, rec)
+    writer.close()
+    return os.path.getsize(prefix + ".rec")
+
+
+def make_records(mx, tmp, seed):
+    """The phase's two record files, made from ``seed``: 3072 photo-like
+    images of 1000 classes, and the gate's class prototypes at 40 px."""
+    rng = np.random.default_rng(seed + 30)
+    protos = rng.integers(0, 256, (REC_CLASSES, 6, 8, 3), dtype=np.uint8)
+    grain = rng.normal(0, 6, (REC_LONG, REC_LONG, 3)).astype(np.float32)
+    labels = rng.integers(0, REC_CLASSES, REC_IMAGES)
+    t0 = time.perf_counter()
+    big = os.path.join(tmp, "train")
+    nbytes = pack_records(mx, big, labels, lambda i: photo_like(
+        np.random.default_rng([seed, i]), protos, labels[i], grain,
+        REC_SHORT, REC_LONG))
+    out = {"images": REC_IMAGES, "classes": REC_CLASSES,
+           "rec_bytes": nbytes, "pack_s": time.perf_counter() - t0}
+    g_protos = rng.integers(0, 256, (GATE_CLASSES, 4, 4, 3), dtype=np.uint8)
+
+    def gate_image(label, i):
+        from PIL import Image
+
+        smooth = np.asarray(Image.fromarray(g_protos[label]).resize(
+            (GATE_PX, GATE_PX), Image.BILINEAR), np.float32)
+        noise = np.random.default_rng([seed, 7, i]).normal(
+            0, 25, smooth.shape)
+        return np.clip(smooth + noise, 0, 255).astype(np.uint8)
+
+    gate = {}
+    for name, n, off in (("gate_train", GATE_TRAIN, 0),
+                         ("gate_val", GATE_VAL, GATE_TRAIN)):
+        y = rng.integers(0, GATE_CLASSES, n)
+        pack_records(mx, os.path.join(tmp, name), y,
+                     lambda i, y=y, off=off: gate_image(y[i], off + i))
+        gate[name] = os.path.join(tmp, name)
+    print(f"  packed {REC_IMAGES} JPEGs (q{REC_QUALITY}, shorter edge "
+          f"{REC_SHORT}, longer {REC_SHORT}-{REC_LONG}): {nbytes / 1e6:.1f} "
+          f"MB in {out['pack_s']:.1f} s", flush=True)
+    return big, gate, out
+
+
+def rec_args(mx, rec, extra=()):
+    """train_imagenet.py's arguments over ``rec`` at phase 10's config
+    (its defaults: ResNet-50, 1000 classes, 224 px, batch 256, bf16, SGD lr
+    0.1 momentum 0.9 wd 1e-4, random crop and mirror), one epoch."""
+    from mxnet_tpu_torch.examples.image_classification import train_imagenet
+
+    return train_imagenet.parse_args(
+        ["--data-train", rec + ".rec", "--num-examples", str(REC_IMAGES),
+         "--batch-size", str(REC_BATCH), "--num-epochs", "1",
+         "--disp-batches", "4", *extra])
+
+
+def rec_iter(mx, rec, pool, shuffle=True, augment=True, parts=1):
+    """An ImageIter over ``rec`` at the phase's batch and size: random crop
+    and mirror when ``augment`` (else the centre), ``pool`` decode
+    workers, the first of ``parts`` parts of the file."""
+    return mx.image.ImageIter(
+        batch_size=REC_BATCH, data_shape=(3, REC_PX, REC_PX),
+        path_imgrec=rec + ".rec", path_imgidx=rec + ".idx", shuffle=shuffle,
+        rand_crop=augment, rand_mirror=augment, preprocess_threads=pool,
+        num_parts=parts)
+
+
+def decode_rates(mx, rec, pool):
+    """fit.py's ``--test-io`` pass over the file: images a second with
+    ``preprocess_threads`` 0 and ``pool``; the pool's second pass has its
+    workers up."""
+    from mxnet_tpu_torch.examples.image_classification.common import fit
+
+    out = {}
+    for p in (0, pool):
+        it = rec_iter(mx, rec, p)
+        args = rec_args(mx, rec, ["--test-io", "1"])
+        passes = []
+        for _ in range(1 if p == 0 else 2):
+            n, secs = fit.fit(args, None, lambda a, kv: (it, None))
+            passes.append(n / secs)
+            it.reset()
+        it.close()
+        out[f"threads_{p}"] = {"images_per_s": passes[-1],
+                               "first_pass_images_per_s": passes[0]}
+        print(f"  decode, preprocess_threads={p}: {passes[-1]:.0f} img/s "
+              f"(first pass {passes[0]:.0f})", flush=True)
+    return out
+
+
+def trace_fit_step(mx, mod, source, metric, stager=None):
+    """One more training step of ``mod`` on the next batch of ``source``
+    (an iterator, or a DevicePrefetchIter over one), traced into
+    ``FIT_RANGES``' groups, with the host's time by part: next batch,
+    stage (the feed's copy to the card; with a ``stager``, its host time
+    for this batch, on its own thread), forward+backward, update, metric.
+    Returns the batch and the trace's numbers."""
+    import torch
+
+    from mxnet_tpu_torch import executor as texe
+    from mxnet_tpu_torch.module import executor_group as tgroup
+
+    host = {"stage": 0.0}
+
+    def clock(key, fn, *a):
+        t = time.perf_counter()
+        res = fn(*a)
+        host[key] = host.get(key, 0.0) + (time.perf_counter() - t) * 1e3
+        return res
+
+    def step():
+        staged = stager.stage_seconds if stager is not None else 0.0
+        batch = clock("next_batch", source.next)
+        clock("forward_backward", mod.forward_backward, batch)
+        with torch.profiler.record_function("chip_smoke::sgd_update"):
+            clock("update", mod.update)
+        clock("metric", mod.update_metric, metric, batch.label)
+        if stager is not None:
+            host["stage"] = (stager.stage_seconds - staged) * 1e3
+        return batch
+
+    saved = []
+    for group, names in FIT_OPS.items():
+        saved += _wrap_ops(names, "chip_smoke::" + group)
+    amp_cast, fed_tensor = texe._amp_cast, tgroup._fed_tensor
+
+    def cast_traced(*a):
+        with torch.profiler.record_function("chip_smoke::amp_cast"):
+            return amp_cast(*a)
+
+    texe._amp_cast = cast_traced
+    tgroup._fed_tensor = lambda *a: clock("stage", fed_tensor, *a)
+    traced = []
+    try:
+        by_name, groups = traced_groups(lambda: traced.append(timed(step)),
+                                        FIT_RANGES)
+    finally:
+        texe._amp_cast, tgroup._fed_tensor = amp_cast, fed_tensor
+        for op, fn in saved:
+            op.fn = fn
+    (batch, host_ms), = traced
+    check(by_name, "the profiler recorded device events for the step")
+    busy = sum(by_name.values())
+    split = {g: sum(t for k, t in ks if "Memcpy" not in k)
+             for g, ks in groups.items()}
+    split["h2d_copy"] = sum(t for k, t in by_name.items() if "HtoD" in k)
+    split["d2h_copy"] = sum(t for k, t in by_name.items() if "DtoH" in k)
+    split["rest"] = busy - sum(split.values())
+    check(split["conv_fwd"] > 0 and split["conv_bwd"] > 0
+          and split["bn_fwd"] > 0 and split["bn_bwd"] > 0,
+          "the traced step ran the convolutions and BatchNorms forward "
+          "and backward")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    return batch, {
+        "host_ms": host_ms, "host_split_ms": host, "device_busy_ms": busy,
+        "kernel_busy_ms": sum(t for k, t in by_name.items()
+                              if "Memcpy" not in k),
+        "split_ms": split,
+        "copies_ms": {k: t for k, t in by_name.items() if "Mem" in k},
+        "device_kernels": len(by_name),
+        "top_kernels": [[k[:80], t] for k, t in top]}
+
+
+def rec_fit(mx, rec, pool, prefetch, seed):
+    """One epoch of train_imagenet.py's ``fit`` over ``rec`` (12 batches of
+    256) with ``pool`` decode workers, with or without
+    ``MXNET_DEVICE_PREFETCH=1``; the steady step, img/s, the stager's
+    counters, then one traced step of the same pipeline."""
+    from mxnet_tpu_torch.examples.image_classification import train_imagenet
+
+    it = rec_iter(mx, rec, pool)
+    stamps, stager = [], []
+
+    def stamp(p):
+        stamps.append(time.perf_counter())
+        stager[:] = [p.locals["train_data"]]
+
+    os.environ["MXNET_DEVICE_PREFETCH"] = "1" if prefetch else "0"
+    mx.random.seed(seed)
+    t0 = time.perf_counter()
+    try:
+        mod = train_imagenet.main(
+            ["--data-train", rec + ".rec", "--num-examples", str(REC_IMAGES),
+             "--batch-size", str(REC_BATCH), "--num-epochs", "1",
+             "--disp-batches", "4"],
+            data_loader=lambda a, kv: (it, None),
+            batch_end_callback=[stamp])
+        secs = time.perf_counter() - t0
+        return mod, _rec_fit_report(mx, mod, it, prefetch, pool, secs,
+                                    stamps, stager)
+    finally:
+        os.environ.pop("MXNET_DEVICE_PREFETCH")
+        it.close()
+
+
+def _rec_fit_report(mx, mod, it, prefetch, pool, secs, stamps, stager):
+    import torch
+
+    steps = REC_IMAGES // REC_BATCH
+    check(len(stamps) == steps, f"fit ran {len(stamps)} == {steps} batches "
+          f"(prefetch {prefetch})")
+    step_ms = list(np.diff(stamps) * 1e3)   # steps 2..n
+    steady = float(np.median(step_ms[1:]))  # steps 3..n
+    out = {"prefetch": prefetch, "threads": pool, "fit_s": secs,
+           "step_ms": step_ms, "steady_step_ms": steady,
+           "images_per_s": REC_BATCH / (steady / 1e3)}
+    if prefetch:
+        dp = stager[0]
+        check(isinstance(dp, mx.io.DevicePrefetchIter),
+              "fit armed a DevicePrefetchIter under MXNET_DEVICE_PREFETCH=1")
+        # the stager also staged the next epoch's first batch before fit
+        # closed it
+        out.update(starved_count=dp.starved_count,
+                   staged_count=dp.staged_count,
+                   stage_ms_per_batch=dp.stage_seconds * 1e3
+                   / dp.staged_count,
+                   h2d_bytes_per_batch=dp.h2d_bytes / dp.staged_count)
+    # the traced step: the same pipeline again, two batches in
+    metric = mx.metric.create("acc")
+    it.reset()
+    dp = mod.device_prefetch(it) if prefetch else None
+    source = it if dp is None else dp
+    for _ in range(2):
+        batch = source.next()
+        mod.forward_backward(batch)
+        mod.update()
+        mod.update_metric(metric, batch.label)
+    # the restarted pool spends seconds starting its workers: trace a step
+    # of the steady pipeline, its decode window done and the stager's queue
+    # full
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < 60 and not (
+            all(f.done() for f, _ in it._pending or ())
+            and (dp is None or dp._queue.full())):
+        time.sleep(0.05)
+    out["traced_step"] = trace_fit_step(mx, mod, source, metric, dp)[1]
+    # the SMs' idle share: with prefetch the batch's copy runs on the copy
+    # engine beside the step's kernels, so copies do not count as busy
+    out["idle_share"] = 1.0 - out["traced_step"]["kernel_busy_ms"] / steady
+    if dp is not None:
+        dp.close()
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    print(f"  fit, prefetch {int(prefetch)}: steady {steady:.1f} ms, "
+          f"{out['images_per_s']:.0f} img/s, idle {out['idle_share']:.3f}; "
+          + json.dumps({k: v for k, v in out.items() if k != "step_ms"}),
+          flush=True)
+    return out
+
+
+def h2d_copies(mx, batch):
+    """The batch's H2D copy from pageable memory, from pinned memory, and
+    the two ways to a pinned source: a host copy into a pinned buffer, or
+    registering the host buffer with ``cudaHostRegister``."""
+    import torch
+
+    gpu = mx.gpu(0).torch_device
+    host = batch.data[0].data.cpu().contiguous()
+    pinned = torch.empty(host.shape, dtype=host.dtype, pin_memory=True)
+    t0 = time.perf_counter()
+    for _ in range(3):
+        pinned.copy_(host)
+    host_to_pinned = (time.perf_counter() - t0) / 3 * 1e3
+    out = {"bytes": host.numel() * host.element_size(),
+           "pageable_ms": time_cuda(lambda: host.to(gpu), reps=5, warmup=1),
+           "pinned_ms": time_cuda(lambda: pinned.to(gpu, non_blocking=True),
+                                  reps=5, warmup=1),
+           "host_to_pinned_ms": host_to_pinned}
+    cudart = torch.cuda.cudart()
+    t0 = time.perf_counter()
+    rc = cudart.cudaHostRegister(host.data_ptr(), out["bytes"], 0)
+    out["host_register_ms"] = (time.perf_counter() - t0) * 1e3
+    check(int(getattr(rc, "value", rc)) == 0,
+          f"cudaHostRegister of the batch returned {rc}")
+    try:
+        out["registered_ms"] = time_cuda(
+            lambda: host.to(gpu, non_blocking=True), reps=5, warmup=1)
+    finally:
+        torch.cuda.synchronize()
+        cudart.cudaHostUnregister(host.data_ptr())
+    print("  H2D of one batch: " + json.dumps(out), flush=True)
+    return out
+
+
+def prefetch_identity(mx, rec, pool, seed):
+    """The same 3 batches (no shuffle, no random augmentation) through
+    train_imagenet.py's ``fit`` without and with MXNET_DEVICE_PREFETCH=1,
+    from one seed, with deterministic cuDNN: the parameters, aux states
+    and the last outputs must be bit-identical."""
+    import torch
+
+    from mxnet_tpu_torch.examples.image_classification import train_imagenet
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    got = []
+    try:
+        for prefetch in (False, True):
+            it = rec_iter(mx, rec, pool, shuffle=False, augment=False,
+                          parts=REC_IMAGES // (REC_SAME_BATCHES * REC_BATCH))
+            os.environ["MXNET_DEVICE_PREFETCH"] = "1" if prefetch else "0"
+            mx.random.seed(seed + 40)
+            try:
+                mod = train_imagenet.main(
+                    ["--data-train", rec + ".rec", "--num-examples",
+                     str(REC_SAME_BATCHES * REC_BATCH), "--batch-size",
+                     str(REC_BATCH), "--num-epochs", "1",
+                     "--disp-batches", "4"],
+                    data_loader=lambda a, kv, it=it: (it, None))
+            finally:
+                os.environ.pop("MXNET_DEVICE_PREFETCH")
+                it.close()
+            args, aux = mod.get_params()
+            got.append(({n: a.asnumpy() for n, a in args.items()},
+                        {n: a.asnumpy() for n, a in aux.items()},
+                        mod.get_outputs()[0].asnumpy()))
+            del mod
+    finally:
+        torch.backends.cudnn.deterministic = False
+    (a0, x0, o0), (a1, x1, o1) = got
+    diff = [n for n in a0 if not np.array_equal(a0[n], a1[n])] \
+        + [n for n in x0 if not np.array_equal(x0[n], x1[n])]
+    check(not diff and np.array_equal(o0, o1),
+          f"{REC_SAME_BATCHES} batches with and without prefetch: all "
+          f"{len(a0)} parameters, {len(x0)} aux states and the outputs "
+          f"bit-identical (differ: {diff[:5]})")
+    return {"batches": REC_SAME_BATCHES, "bit_identical": True}
+
+
+class _Interrupt(Exception):
+    pass
+
+
+def resume_check(mx, rec, seed, tmp):
+    """Run A: ``fit`` with a checkpoint every 2 batches, stopped after
+    batch 4 by an exception in a batch-end callback, then ``resume=True``
+    to batch 6; run B: 6 batches at once. The "Hot-loop parity" config
+    (ResNet-50, batch 8, 64 px, fp32), serial decode, a seeded shuffle, no
+    random augmentation, deterministic cuDNN. A resumes at the checkpoint's
+    epoch and batch, and its weights and momenta equal B's (bit for bit,
+    else within 1e-5 of max-abs)."""
+    import random as pyrandom
+
+    import torch
+
+    gpu = mx.gpu(0)
+    symbol = resnet_symbol(mx, REC_CLASSES, RESUME_PX)
+    parts = REC_IMAGES // (RESUME_BATCH * RESUME_BATCHES)
+
+    def run(prefix, stop=None, resume=False):
+        pyrandom.seed(seed + 50)   # the shuffle
+        it = mx.image.ImageIter(
+            batch_size=RESUME_BATCH, data_shape=(3, RESUME_PX, RESUME_PX),
+            path_imgrec=rec + ".rec", path_imgidx=rec + ".idx", shuffle=True,
+            num_parts=parts, resize=RESUME_PX)
+        mod = mx.mod.Module(symbol, context=gpu)
+        seen = []
+
+        def cb(p):
+            seen.append((p.epoch, p.nbatch))
+            if stop is not None and p.nbatch + 1 == stop:
+                raise _Interrupt()
+
+        mx.random.seed(seed + 50)
+        try:
+            mod.fit(it, num_epoch=1, optimizer="sgd",
+                    optimizer_params=FIT_SGD, initializer=mx.init.Xavier(
+                        rnd_type="gaussian", factor_type="in", magnitude=2),
+                    checkpoint_prefix=prefix,
+                    checkpoint_every_n_batches=RESUME_EVERY if prefix
+                    else None, resume=resume, batch_end_callback=cb)
+        except _Interrupt:
+            pass
+        args, _ = mod.get_params()
+        moms = {mod._param_names[i]: s.asnumpy()
+                for i, s in mod._updater.states.items()}
+        return {n: a.asnumpy() for n, a in args.items()}, moms, seen
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        prefix = os.path.join(tmp, "resume")
+        _, _, seen_a1 = run(prefix, stop=RESUME_STOP)
+        manifest = mx.model.read_manifest(prefix, 0)
+        w_a, m_a, seen_a2 = run(prefix, resume=True)
+        w_b, m_b, seen_b = run(None)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    check(manifest["batch"] == RESUME_STOP and manifest["epoch"] == 0,
+          f"the checkpoint before the stop holds epoch 0, batch "
+          f"{manifest['batch']}")
+    check(seen_a1 == [(0, b) for b in range(RESUME_STOP)]
+          and seen_a2 == [(0, b) for b in range(RESUME_STOP, RESUME_BATCHES)]
+          and seen_b == [(0, b) for b in range(RESUME_BATCHES)],
+          f"run A trained batches {seen_a1} then resumed at {seen_a2}")
+    identical = all(np.array_equal(w_a[n], w_b[n]) for n in w_b) \
+        and all(np.array_equal(m_a[n], m_b[n]) for n in m_b)
+    worst = max(max(_rel(w_a[n], w_b[n]) for n in w_b),
+                max(_rel(m_a[n], m_b[n]) for n in m_b))
+    check(set(m_a) == set(m_b) and (identical or worst <= 1e-5),
+          f"resumed weights and momenta equal the uninterrupted run's "
+          f"(bit-identical {identical}, worst {worst:.3g} of max-abs)")
+    return {"bit_identical": identical, "worst_rel": worst,
+            "checkpoint": manifest}
+
+
+def rec_gate(mx, gate):
+    """train_imagenet.py on the gate's records (ResNet-20 at 32 px, random
+    crop and mirror from 40 px, 8 epochs): validation accuracy >= 0.9."""
+    from mxnet_tpu_torch.examples.image_classification import train_imagenet
+
+    t0 = time.perf_counter()
+    mod = train_imagenet.main(GATE_ARGS + [
+        "--data-train", gate["gate_train"] + ".rec",
+        "--data-val", gate["gate_val"] + ".rec"])
+    secs = time.perf_counter() - t0
+    val = mx.image.ImageIter(batch_size=128, data_shape=(3, 32, 32),
+                             path_imgrec=gate["gate_val"] + ".rec")
+    acc = dict(mod.score(val, "acc"))["accuracy"]
+    check(acc >= 0.9, f"train_imagenet.py on the record path: validation "
+          f"accuracy {acc:.4f} >= 0.9 after {GATE_EPOCHS} epochs "
+          f"({secs:.1f} s)")
+    return {"accuracy": acc, "seconds": secs}
+
+
+def phase_records(mx, seed):
+    """ResNet-50 training from a RecordIO file through the port's
+    train_imagenet.py: the data, the decode rates, two full-width runs
+    (without and with device prefetch), the copies, the prefetch
+    bit-identity, resume, and the convergence gate."""
+    import tempfile
+
+    import torch
+
+    pool = decode_pool_size()
+    route = mx.image.decode_route()
+    print(f"phase 11: ResNet-{FIT_LAYERS} from a .rec through "
+          f"train_imagenet.py (JPEG decode route {route!r}, "
+          f"{pool} decode workers of {os.cpu_count()} cores)", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_rec") as tmp:
+        rec, gate, out = make_records(mx, tmp, seed)
+        out.update(decode_route=route, decode_threads=pool,
+                   cpu_count=os.cpu_count())
+        before = sum(mx.image.ROUTES.values())
+        out["decode"] = decode_rates(mx, rec, pool)
+        runs = []
+        for prefetch in (False, True):
+            mod, run = rec_fit(mx, rec, pool, prefetch, seed)
+            runs.append(run)
+            del mod
+            torch.cuda.empty_cache()
+        out["fit"] = runs
+        it = rec_iter(mx, rec, 0, augment=False, parts=REC_IMAGES // REC_BATCH)
+        out["h2d"] = h2d_copies(mx, it.next())
+        it.close()
+        out["prefetch_identity"] = prefetch_identity(mx, rec, pool, seed)
+        out["resume"] = resume_check(mx, rec, seed, tmp)
+        routes = dict(mx.image.ROUTES)
+        check(sum(routes.values()) > before
+              and routes.get(route, 0) == sum(routes.values()),
+              f"every JPEG decoded through the {route!r} route: {routes}")
+        out["decodes_by_route"] = routes
+        out["gate"] = rec_gate(mx, gate)
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1904,6 +2400,7 @@ def main(argv=None):
     amp = phase_amp(mx, weights, args.seed)
     train = phase_train(mx, weights, args.seed)
     fit = phase_fit(mx, args.seed)
+    records = phase_records(mx, args.seed)
 
     main_case = cases["slice_fp32_causal"]
     kernels = [{
@@ -1946,6 +2443,7 @@ def main(argv=None):
                    "slice": slice_out, "card_vs_cpu": parity,
                    "rtc_cases": rtc_cases, "imperative": imperative,
                    "amp": amp, "train": train, "fit": fit,
+                   "records": records,
                    "kernels": kernels,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)

@@ -2,11 +2,12 @@
 
 The same public names as ``mxnet_tpu`` (``nd``, ``sym``, ``mod``, ``init``,
 ``optimizer``, ``lr_scheduler``, ``metric``, ``callback``, ``model``,
-``io``, ``Predictor``, contexts), over ``torch.Tensor``s. Entry points run on ``gpu(0)`` unless the
-caller passes ``mx.cpu()``; importing the package does not initialise CUDA.
-Kernels that the JAX package wrote in Pallas are hand-written CUDA here:
-``csrc/`` built with nvcc at first use, and users' own kernels compiled at
-run time through NVRTC (``rtc``).
+``io``, ``recordio``, ``image``, ``Predictor``, contexts), over
+``torch.Tensor``s. Entry points run on ``gpu(0)`` unless the caller passes
+``mx.cpu()``; importing the package does not initialise CUDA. Kernels that
+the JAX package wrote in Pallas are hand-written CUDA here: ``csrc/`` built
+with nvcc at first use, and users' own kernels compiled at run time through
+NVRTC (``rtc``).
 """
 from __future__ import annotations
 
@@ -39,6 +40,8 @@ from .optimizer import Optimizer
 from . import lr_scheduler
 from . import metric
 from . import io
+from . import recordio
+from . import image
 from . import model
 from . import callback
 from . import module

@@ -1,13 +1,22 @@
-"""Build and load the package's CUDA kernels.
+"""Build and load the package's native libraries.
 
 Each ``csrc/<name>.cu`` has a plain C interface. At first use it is compiled
 with ``nvcc`` for ``sm_90a`` into ``_build/lib<name>.so`` beside this file and
-loaded with ``ctypes``; a library newer than its source is reused. Nothing
-here runs at import, so the package imports on hosts without CUDA.
+loaded with ``ctypes``; a library newer than its source is reused.
+
+The host library (:func:`host_lib`) is the repo's RecordIO codec and JPEG
+codec, ``src/recordio.cc`` and ``src/im2rec.cc``, compiled with ``g++
+-ljpeg`` into ``_build/libmxtpu_host.so``. On a host without libjpeg it is
+built from ``recordio.cc`` alone (the ``nojpeg`` build: the record reader and
+writer, no JPEG functions), and rebuilt once libjpeg links. A sidecar holds
+the sources' hash, so a library built from other sources is rebuilt (git
+keeps no mtimes). Nothing here runs at import, so the package imports on
+hosts without CUDA or a compiler.
 """
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import shutil
 import subprocess
@@ -64,3 +73,135 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(build(name))
             _LIBS[name] = lib
         return lib
+
+
+# ------------------------------------------------------------- host library
+
+REPO_SRC = os.path.join(os.path.dirname(_HERE), "src")
+HOST_SOURCES = ("recordio.cc", "im2rec.cc")   # im2rec.cc needs libjpeg
+HOST_LIB = os.path.join(BUILD_DIR, "libmxtpu_host.so")
+_HOST = {}   # "lib": the loaded CDLL (None: no compiler or no sources)
+
+
+def _host_hash():
+    h = hashlib.sha256()
+    for name in HOST_SOURCES:
+        with open(os.path.join(REPO_SRC, name), "rb") as f:
+            h.update(name.encode())
+            h.update(f.read())
+    return h.hexdigest()
+
+
+def jpeg_linkable():
+    """Whether ``g++`` finds libjpeg's header and library here."""
+    try:
+        r = subprocess.run(
+            ["g++", "-x", "c++", "-", "-o", os.devnull, "-ljpeg"],
+            input=b"#include <cstdio>\n#include <jpeglib.h>\n"
+                  b"int main(){jpeg_std_error(nullptr);return 0;}",
+            capture_output=True, timeout=60)
+    except (FileNotFoundError, subprocess.TimeoutExpired):
+        return False
+    return r.returncode == 0
+
+
+def _host_stale():
+    try:
+        with open(HOST_LIB + ".hash") as f:
+            lines = f.read().split("\n")
+    except OSError:
+        return True
+    if lines[0].strip() != _host_hash():
+        return True
+    return "nojpeg" in lines[1:] and jpeg_linkable()
+
+
+def _build_host():
+    """Compile the host library (with libjpeg, else without im2rec.cc);
+    returns its path or None when neither build links."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    srcs = [os.path.join(REPO_SRC, n) for n in HOST_SOURCES]
+    tmp = f"{HOST_LIB}.{os.getpid()}.tmp"
+    base = ["g++", "-O2", "-shared", "-fPIC", "-std=c++17", "-o", tmp]
+    for cmd, marker in ((base + srcs + ["-ljpeg"], ""),
+                        (base + srcs[:1], "\nnojpeg")):
+        try:
+            proc = subprocess.run(cmd, capture_output=True, text=True,
+                                  timeout=300)
+        except (FileNotFoundError, subprocess.TimeoutExpired) as e:
+            BUILD_LOGS["mxtpu_host"] = str(e)
+            continue
+        BUILD_LOGS["mxtpu_host"] = proc.stdout + proc.stderr
+        if proc.returncode == 0:
+            os.replace(tmp, HOST_LIB)
+            with open(HOST_LIB + ".hash", "w") as f:
+                f.write(_host_hash() + marker)
+            return HOST_LIB
+    return None
+
+
+def _declare_host(lib):
+    c = ctypes
+    u8p = c.POINTER(c.c_uint8)
+    sigs = {
+        "mxtpu_recio_open": (c.c_void_p, [c.c_char_p]),
+        "mxtpu_recio_count": (c.c_int64, [c.c_void_p]),
+        "mxtpu_recio_get": (c.c_int64, [c.c_void_p, c.c_int64,
+                                        c.POINTER(u8p)]),
+        "mxtpu_recio_read_at": (c.c_int64, [c.c_void_p, c.c_int64,
+                                            c.POINTER(u8p)]),
+        "mxtpu_recio_close": (None, [c.c_void_p]),
+        "mxtpu_recw_open": (c.c_void_p, [c.c_char_p]),
+        "mxtpu_recw_tell": (c.c_int64, [c.c_void_p]),
+        "mxtpu_recw_write": (c.c_int, [c.c_void_p, c.c_char_p, c.c_int64]),
+        "mxtpu_recw_close": (None, [c.c_void_p]),
+        # libjpeg builds only
+        "mxtpu_jpeg_decode": (c.c_int, [c.c_char_p, c.c_int64,
+                                        c.POINTER(c.c_int),
+                                        c.POINTER(c.c_int), c.POINTER(u8p)]),
+        "mxtpu_jpeg_decode_minsize": (c.c_int, [
+            c.c_char_p, c.c_int64, c.c_int, c.POINTER(c.c_int),
+            c.POINTER(c.c_int), c.POINTER(u8p)]),
+        "mxtpu_buf_free": (None, [u8p]),
+        "mxtpu_im2rec_pack": (c.c_int64, [c.c_char_p, c.c_char_p,
+                                          c.c_char_p, c.c_char_p, c.c_int,
+                                          c.c_int, c.c_int]),
+    }
+    for name, (res, args) in sigs.items():
+        if hasattr(lib, name):
+            fn = getattr(lib, name)
+            fn.restype = res
+            fn.argtypes = args
+
+
+def host_lib():
+    """The loaded host library, built on first use; None where no build
+    links (no ``g++``). ``MXTPU_NO_NATIVE_BUILD=1`` uses a library already
+    built and builds none."""
+    with _LOCK:
+        if "lib" in _HOST:
+            return _HOST["lib"]
+        path = HOST_LIB if os.path.exists(HOST_LIB) else None
+        if os.environ.get("MXTPU_NO_NATIVE_BUILD") != "1" \
+                and (path is None or _host_stale()):
+            path = _build_host() or path
+        lib = None
+        if path is not None:
+            try:
+                lib = ctypes.CDLL(path)
+            except OSError:
+                # built on another host (a libjpeg this one lacks)
+                if os.environ.get("MXTPU_NO_NATIVE_BUILD") == "1" \
+                        or _build_host() is None:
+                    raise
+                lib = ctypes.CDLL(path)
+            _declare_host(lib)
+        _HOST["lib"] = lib
+        return lib
+
+
+def host_has_jpeg():
+    """Whether the host library decodes JPEG (it was linked with
+    libjpeg)."""
+    lib = host_lib()
+    return lib is not None and hasattr(lib, "mxtpu_jpeg_decode")

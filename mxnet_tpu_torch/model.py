@@ -1,5 +1,6 @@
-"""Checkpoints (reference: mxnet_tpu/model.py:94-275): ``save_checkpoint``,
-``load_checkpoint``, ``list_checkpoints`` and ``read_manifest``.
+"""Checkpoints (reference: mxnet_tpu/model.py:94-325): ``save_checkpoint``,
+``load_checkpoint``, ``list_checkpoints``, ``read_manifest``,
+``load_latest_checkpoint`` and ``find_resume_point``.
 
 A checkpoint is ``prefix-symbol.json``, ``prefix-NNNN.params`` (the MXTP
 container of :func:`mxnet_tpu_torch.ndarray.save`, arguments under
@@ -27,7 +28,8 @@ from .base import MXNetError
 from .convert import split_params
 
 __all__ = ["CheckpointCorrupt", "save_checkpoint", "load_checkpoint",
-           "list_checkpoints", "read_manifest", "manifest_path"]
+           "list_checkpoints", "read_manifest", "manifest_path",
+           "load_latest_checkpoint", "find_resume_point"]
 
 
 class CheckpointCorrupt(MXNetError):
@@ -145,3 +147,44 @@ def load_checkpoint(prefix, epoch, *, ctx=None):
         raise CheckpointCorrupt(param_name, "keys are not arg:/aux: names")
     arg_params, aux_params = split_params(saved)
     return symbol, arg_params, aux_params
+
+
+def load_latest_checkpoint(prefix, max_epoch=None, *, ctx=None):
+    """The newest intact checkpoint under ``prefix`` (at most
+    ``max_epoch``) as ``(epoch, symbol, arg_params, aux_params,
+    manifest)``, skipping corrupt ones (each logged). Raises
+    :class:`MXNetError` when there is none and :class:`CheckpointCorrupt`
+    when every one is corrupt."""
+    epochs = [e for e in list_checkpoints(prefix)
+              if max_epoch is None or e <= max_epoch]
+    if not epochs:
+        raise MXNetError(f"no checkpoint found for prefix '{prefix}'")
+    last_err = None
+    for epoch in reversed(epochs):
+        try:
+            symbol, args, auxs = load_checkpoint(prefix, epoch, ctx=ctx)
+        except CheckpointCorrupt as e:
+            logging.warning("skipping corrupt checkpoint: %s", e)
+            last_err = e
+            continue
+        return epoch, symbol, args, auxs, read_manifest(prefix, epoch)
+    raise last_err
+
+
+def find_resume_point(prefix, *, ctx=None):
+    """Where ``Module.fit(resume=True)`` restarts: ``(begin_epoch,
+    resume_batch, epoch, symbol, arg_params, aux_params, manifest)`` of the
+    newest intact checkpoint, or None when there is none (a fresh start).
+    A manifest with ``batch=N`` means the first N batches of its epoch are
+    done; one without means the epoch is complete."""
+    try:
+        epoch, symbol, args, auxs, manifest = load_latest_checkpoint(
+            prefix, ctx=ctx)
+    except MXNetError:   # none found, or every one corrupt
+        return None
+    if manifest is not None and manifest.get("batch") is not None:
+        begin_epoch, resume_batch = int(manifest["epoch"]), \
+            int(manifest["batch"])
+    else:
+        begin_epoch, resume_batch = epoch + 1, 0
+    return begin_epoch, resume_batch, epoch, symbol, args, auxs, manifest

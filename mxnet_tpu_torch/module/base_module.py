@@ -4,10 +4,16 @@ mxnet_tpu/module/base_module.py).
 ``fit`` is the classic loop (reference :139-437): bind, ``init_params``,
 ``init_optimizer``, then per epoch ``forward_backward``, ``update`` and
 ``update_metric`` for each batch, the batch-end callbacks, the epoch-end
-parameters and callbacks, ``score`` on the evaluation data and
-``train_data.reset()``. ``score``, ``iter_predict`` and ``predict`` run the
-evaluation forward; ``save_params``/``load_params`` keep the parameters in
-the MXTP container, arguments under ``arg:`` and aux states under ``aux:``.
+parameters, checkpoint and callbacks, ``score`` on the evaluation data and
+``train_data.reset()``. With ``checkpoint_prefix`` it saves parameters and
+optimizer states at each epoch's end (and every
+``checkpoint_every_n_batches`` batches within it); ``resume=True`` restarts
+from the newest intact checkpoint, skipping the batches it holds.
+``MXNET_DEVICE_PREFETCH=1`` stages the batches onto the card ahead of the
+step (:meth:`Module.device_prefetch`). ``score``, ``iter_predict`` and
+``predict`` run the evaluation forward; ``save_params``/``load_params``
+keep the parameters in the MXTP container, arguments under ``arg:`` and aux
+states under ``aux:``.
 """
 from __future__ import annotations
 
@@ -30,22 +36,13 @@ def _as_list(obj):
     return obj if isinstance(obj, (list, tuple)) else [obj]
 
 
-def _refuse_unported(monitor, checkpoint_prefix, checkpoint_every_n_batches,
-                     resume):
-    """The reference's ``fit`` options that wait for other ports raise
-    instead of being ignored: checkpoints with optimizer states and resume
-    (and the device-loss recovery that resumes from them) wait for the
-    optimizer-state files; ``monitor``, ``MXNET_RUN_N_STEPS`` (several
-    steps in one program) and ``MXNET_DEVICE_PREFETCH`` (staging batches on
-    a side stream) for their own ports."""
-    given = [name for name, v in (
-        ("monitor", monitor), ("checkpoint_prefix", checkpoint_prefix),
-        ("checkpoint_every_n_batches", checkpoint_every_n_batches),
-        ("resume", resume)) if v]
+def _refuse_unported(monitor):
+    """The reference's ``fit`` options that wait for their own ports raise
+    instead of being ignored: ``monitor`` and ``MXNET_RUN_N_STEPS``
+    (several steps in one program)."""
+    given = ["monitor"] if monitor else []
     if os.environ.get("MXNET_RUN_N_STEPS", "1").strip() not in ("", "1"):
         given.append("MXNET_RUN_N_STEPS")
-    if os.environ.get("MXNET_DEVICE_PREFETCH") == "1":
-        given.append("MXNET_DEVICE_PREFETCH")
     if given:
         raise MXNetError(f"fit: {', '.join(given)} not ported yet")
 
@@ -153,12 +150,37 @@ class BaseModule:
         """Train for epochs ``begin_epoch`` to ``num_epoch`` (reference:
         base_module.py ``fit``). ``eval_metric=None`` keeps no training
         metric (and makes no per-batch host copy of the outputs).
-        ``monitor``, ``checkpoint_prefix``, ``checkpoint_every_n_batches``,
-        ``resume``, ``MXNET_RUN_N_STEPS`` and ``MXNET_DEVICE_PREFETCH``
-        raise: they are not ported yet."""
+
+        ``checkpoint_prefix`` saves a checkpoint with the optimizer's states
+        at each epoch's end and, with ``checkpoint_every_n_batches=N``,
+        every N batches (its manifest's ``batch`` counts the batches of the
+        epoch inside it). ``resume=True`` restarts from the newest intact
+        checkpoint under the prefix: parameters, optimizer states and
+        position; the iterator replays the batches already trained, so it
+        must give the same batches again (a fresh start when there is no
+        checkpoint). ``monitor`` and ``MXNET_RUN_N_STEPS`` raise: they are
+        not ported yet."""
         assert num_epoch is not None, "please specify number of epochs"
-        _refuse_unported(monitor, checkpoint_prefix,
-                         checkpoint_every_n_batches, resume)
+        _refuse_unported(monitor)
+        resume_batch = 0
+        resume_states = None
+        if resume:
+            if not checkpoint_prefix:
+                raise MXNetError("fit(resume=True) needs checkpoint_prefix=")
+            from ..model import find_resume_point
+
+            found = find_resume_point(checkpoint_prefix, ctx=cpu())
+            if found is not None:
+                (begin_epoch, resume_batch, ck_epoch, _, arg_params,
+                 aux_params) = found[:6]
+                force_init = True
+                states = f"{checkpoint_prefix}-{ck_epoch:04d}.states"
+                if os.path.exists(states):
+                    resume_states = states
+                self.logger.info(
+                    "fit: resuming from checkpoint epoch %d "
+                    "(begin_epoch=%d, skipping %d batches)",
+                    ck_epoch, begin_epoch, resume_batch)
         self.bind(data_shapes=train_data.provide_data,
                   label_shapes=train_data.provide_label,
                   for_training=True, force_rebind=force_rebind)
@@ -167,49 +189,84 @@ class BaseModule:
                          force_init=force_init)
         self.init_optimizer(kvstore=kvstore, optimizer=optimizer,
                             optimizer_params=optimizer_params)
+        if resume_states is not None:
+            self.load_optimizer_states(resume_states)
         if validation_metric is None:
             validation_metric = eval_metric
         if eval_metric is not None \
                 and not isinstance(eval_metric, _metric.EvalMetric):
             eval_metric = _metric.create(eval_metric)
 
-        for epoch in range(begin_epoch, num_epoch):
-            tic = time.time()
-            if eval_metric is not None:
-                eval_metric.reset()
-            nbatch = -1
-            for nbatch, data_batch in enumerate(train_data):
-                self.forward_backward(data_batch)
-                self.update()
-                if eval_metric is not None:
-                    self.update_metric(eval_metric, data_batch.label)
-                if batch_end_callback is not None:
-                    params = BatchEndParam(epoch=epoch, nbatch=nbatch,
-                                           eval_metric=eval_metric,
-                                           locals=locals())
-                    for cb in _as_list(batch_end_callback):
-                        cb(params)
-            if eval_metric is not None:
-                for name, val in eval_metric.get_name_value():
-                    self.logger.info("Epoch[%d] Train-%s=%f", epoch, name,
-                                     val)
-            self.logger.info("Epoch[%d] Time cost=%.3f", epoch,
-                             time.time() - tic)
+        staged = None   # the DevicePrefetchIter fit made, closed at the end
+        if os.environ.get("MXNET_DEVICE_PREFETCH") == "1":
+            from ..io import DevicePrefetchIter
 
-            arg_params, aux_params = self.get_params()
-            self.set_params(arg_params, aux_params)
-            if epoch_end_callback is not None:
-                for cb in _as_list(epoch_end_callback):
-                    cb(epoch, self.symbol, arg_params, aux_params)
-            if eval_data and validation_metric is not None:
-                res = self.score(eval_data, validation_metric,
-                                 score_end_callback=eval_end_callback,
-                                 batch_end_callback=eval_batch_end_callback,
-                                 epoch=epoch)
-                for name, val in res:
-                    self.logger.info("Epoch[%d] Validation-%s=%f", epoch,
-                                     name, val)
-            train_data.reset()
+            if not isinstance(train_data, DevicePrefetchIter):
+                staged = train_data = self.device_prefetch(train_data)
+        try:
+            for epoch in range(begin_epoch, num_epoch):
+                self._fit_epoch(epoch, train_data, eval_data, eval_metric,
+                                validation_metric, epoch_end_callback,
+                                batch_end_callback, eval_end_callback,
+                                eval_batch_end_callback, checkpoint_prefix,
+                                checkpoint_every_n_batches,
+                                resume_batch if epoch == begin_epoch else 0)
+        finally:
+            if staged is not None:
+                staged.close()
+
+    def _fit_epoch(self, epoch, train_data, eval_data, eval_metric,
+                   validation_metric, epoch_end_callback, batch_end_callback,
+                   eval_end_callback, eval_batch_end_callback,
+                   checkpoint_prefix, checkpoint_every_n_batches,
+                   skip_batches):
+        """One epoch of ``fit``; the first ``skip_batches`` batches are
+        read and dropped (they are in the checkpoint resumed from)."""
+        tic = time.time()
+        if eval_metric is not None:
+            eval_metric.reset()
+        nbatch = -1
+        for nbatch, data_batch in enumerate(train_data):
+            if nbatch < skip_batches:
+                continue
+            self.forward_backward(data_batch)
+            self.update()
+            if eval_metric is not None:
+                self.update_metric(eval_metric, data_batch.label)
+            if checkpoint_prefix and checkpoint_every_n_batches \
+                    and (nbatch + 1) % checkpoint_every_n_batches == 0:
+                self.save_checkpoint(checkpoint_prefix, epoch,
+                                     save_optimizer_states=True,
+                                     batch=nbatch + 1)
+            if batch_end_callback is not None:
+                params = BatchEndParam(epoch=epoch, nbatch=nbatch,
+                                       eval_metric=eval_metric,
+                                       locals=locals())
+                for cb in _as_list(batch_end_callback):
+                    cb(params)
+        if eval_metric is not None:
+            for name, val in eval_metric.get_name_value():
+                self.logger.info("Epoch[%d] Train-%s=%f", epoch, name, val)
+        self.logger.info("Epoch[%d] Time cost=%.3f", epoch, time.time() - tic)
+
+        arg_params, aux_params = self.get_params()
+        self.set_params(arg_params, aux_params)
+        if checkpoint_prefix:
+            # no batch in the manifest: the epoch is complete
+            self.save_checkpoint(checkpoint_prefix, epoch,
+                                 save_optimizer_states=True)
+        if epoch_end_callback is not None:
+            for cb in _as_list(epoch_end_callback):
+                cb(epoch, self.symbol, arg_params, aux_params)
+        if eval_data and validation_metric is not None:
+            res = self.score(eval_data, validation_metric,
+                             score_end_callback=eval_end_callback,
+                             batch_end_callback=eval_batch_end_callback,
+                             epoch=epoch)
+            for name, val in res:
+                self.logger.info("Epoch[%d] Validation-%s=%f", epoch, name,
+                                 val)
+        train_data.reset()
 
     # -- parameters ------------------------------------------------------------
     def set_params(self, arg_params, aux_params, allow_missing=False,

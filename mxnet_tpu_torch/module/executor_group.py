@@ -10,8 +10,10 @@ the multi-device work.
 from __future__ import annotations
 
 from ..base import MXNetError
+from ..context import cpu
 from ..executor import _fed_tensor
 from ..io import DataDesc
+from ..ndarray import NDArray
 
 __all__ = ["DataParallelExecutorGroup"]
 
@@ -81,6 +83,30 @@ class DataParallelExecutorGroup:
         for name, src in zip(names, arrays):
             if name in ex.arg_dict:
                 ex.arg_dict[name]._data = _fed_tensor(src, device)
+
+    def stage_batch(self, data_batch, ring=None):
+        """Place a batch's arrays on this group's device without binding
+        them (reference: executor_group.py ``stage_batch``): each source
+        NDArray is rebound to its device tensor, so a later ``forward`` of
+        the batch finds it in place. With a :class:`~mxnet_tpu_torch.io.
+        PinnedRing` the copies go through pinned memory on its side stream;
+        returns the bytes staged and the ring's event (None without a
+        ring)."""
+        device = self.contexts[0].torch_device
+        arrays = [a for names, arrays in (
+            (self.data_names, data_batch.data or []),
+            (self.label_names, data_batch.label or []))
+            for _, a in zip(names, arrays)]
+        if ring is None:
+            staged = [_fed_tensor(a, device) for a in arrays]
+            event = None
+        else:
+            staged, event = ring.stage(
+                [_fed_tensor(a, cpu().torch_device) for a in arrays])
+        for src, t in zip(arrays, staged):
+            if isinstance(src, NDArray):
+                src._data = t
+        return sum(t.numel() * t.element_size() for t in staged), event
 
     def forward(self, data_batch, is_train=None):
         if is_train is None:

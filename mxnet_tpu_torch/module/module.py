@@ -12,10 +12,18 @@ with the parameters through ``get_params``/``set_params`` and checkpoints.
 The reference's fused one-program step (forward, backward and update in one
 XLA program) computes the same numbers; its counterpart here, a captured
 CUDA graph, is later work. The context defaults to the card.
+
+Checkpoints carry the optimizer's states (``prefix-NNNN.states``, this
+package's pickle of numpy arrays by index) when asked, written at once or
+by a background thread; ``Module.load(load_optimizer_states=True)`` restores
+them at ``init_optimizer``. ``device_prefetch`` wraps an iterator in an
+:class:`~mxnet_tpu_torch.io.DevicePrefetchIter` over the bound group.
 """
 from __future__ import annotations
 
 import logging
+import os
+import threading
 
 from .. import ndarray as nd
 from .. import optimizer as opt
@@ -28,6 +36,37 @@ from .base_module import BaseModule
 from .executor_group import DataParallelExecutorGroup
 
 __all__ = ["Module"]
+
+
+class _CheckpointHandle:
+    """A background checkpoint write: ``wait`` joins it and raises the
+    writer's exception; ``done`` is true once it finished without one."""
+
+    def __init__(self, thread, state):
+        self._thread = thread
+        self._state = state   # {"exc": BaseException | None}
+
+    @property
+    def exception(self):
+        return self._state["exc"]
+
+    @property
+    def done(self):
+        return not self._thread.is_alive() and self._state["exc"] is None
+
+    def wait(self, timeout=None):
+        """Block until the files are written (True) or ``timeout`` passes
+        (False); raises the writer's exception."""
+        self._thread.join(timeout)
+        if not self._thread.is_alive() and self._state["exc"] is not None:
+            raise self._state["exc"]
+        return not self._thread.is_alive()
+
+
+def _write_atomic(fname, data):
+    with open(fname + ".tmp", "wb") as f:
+        f.write(data)
+    os.replace(fname + ".tmp", fname)
 
 
 def _create_kvstore(kvstore):
@@ -67,6 +106,8 @@ class Module(BaseModule):
         self._optimizer = None
         self._kvstore = None
         self._updater = None
+        self._preload_opt_states = None
+        self._ckpt_thread = None
         self._exec_group = None
         self._data_shapes = None
         self._label_shapes = None
@@ -75,10 +116,8 @@ class Module(BaseModule):
     def load(prefix, epoch, load_optimizer_states=False, **kwargs):
         """A Module of the checkpoint's symbol whose parameters are the
         checkpoint's (reference: module.py ``load``); ``kwargs`` go to the
-        constructor. Bind it before use."""
-        if load_optimizer_states:
-            raise MXNetError("Module.load: optimizer states are not ported "
-                             "yet")
+        constructor. Bind it before use; with ``load_optimizer_states``,
+        ``init_optimizer`` restores ``prefix-NNNN.states``."""
         ctx = kwargs.get("context")
         if isinstance(ctx, (list, tuple)):
             ctx = ctx[0]
@@ -87,17 +126,95 @@ class Module(BaseModule):
         mod._arg_params = args
         mod._aux_params = auxs
         mod.params_initialized = True
+        if load_optimizer_states:
+            mod._preload_opt_states = f"{prefix}-{epoch:04d}.states"
         return mod
 
-    def save_checkpoint(self, prefix, epoch, save_optimizer_states=False):
-        """Write the symbol and the parameters (reference: module.py
-        ``save_checkpoint``; :func:`mxnet_tpu_torch.model.save_checkpoint`).
-        Optimizer states are not ported yet."""
+    def save_checkpoint(self, prefix, epoch, save_optimizer_states=False,
+                        background=False, batch=None, source="module.fit"):
+        """Write the symbol, the parameters, the manifest
+        (:func:`mxnet_tpu_torch.model.save_checkpoint`; ``batch`` marks a
+        save in mid-epoch) and, with ``save_optimizer_states``, the states
+        to ``prefix-NNNN.states`` (reference: module.py
+        ``save_checkpoint``). ``background=True`` snapshots the parameters
+        and states on their device now and writes them from a thread;
+        it returns a handle with ``wait``/``done`` (None otherwise). Writes
+        never overlap: each waits for the one before."""
+        if save_optimizer_states and not self.optimizer_initialized:
+            raise MXNetError("save_checkpoint: optimizer states need "
+                             "init_optimizer first")
+        prev = self._ckpt_thread
+        args, auxs = self.get_params()
+        if not background:
+            if prev is not None:
+                prev.join()
+            save_checkpoint(prefix, epoch, self.symbol, args, auxs,
+                            batch=batch, source=source)
+            if save_optimizer_states:
+                self.save_optimizer_states(f"{prefix}-{epoch:04d}.states")
+            return None
+        # the update rebinds the parameters' and states' NDArrays to new
+        # tensors, so copies of the dicts (and of the state tuples) keep
+        # this step's tensors
+        args, auxs = dict(args), dict(auxs)
+        states = None
         if save_optimizer_states:
-            raise MXNetError("save_checkpoint: optimizer states are not "
-                             "ported yet")
-        save_checkpoint(prefix, epoch, self.symbol, *self.get_params(),
-                        source="module")
+            states = opt.Updater(self._optimizer)
+            states.states = self._updater.copy_states()
+        symbol = self.symbol
+        state = {"exc": None}
+
+        def _write():
+            try:
+                if prev is not None:
+                    prev.join()
+                save_checkpoint(prefix, epoch, symbol, args, auxs,
+                                batch=batch, source=source)
+                if states is not None:
+                    _write_atomic(f"{prefix}-{epoch:04d}.states",
+                                  states.get_states())
+            except BaseException as e:   # surfaced through the handle
+                state["exc"] = e
+
+        t = threading.Thread(target=_write, name="mxtpu-ckpt-writer")
+        self._ckpt_thread = t
+        t.start()
+        return _CheckpointHandle(t, state)
+
+    def save_optimizer_states(self, fname):
+        """Write the updater's states to ``fname`` (written to a temporary
+        name and renamed into place)."""
+        if not self.optimizer_initialized:
+            raise MXNetError("save_optimizer_states: init_optimizer first")
+        _write_atomic(fname, self._updater.get_states())
+
+    def load_optimizer_states(self, fname):
+        """Restore states written by :meth:`save_optimizer_states`."""
+        if not self.optimizer_initialized:
+            raise MXNetError("load_optimizer_states: init_optimizer first")
+        with open(fname, "rb") as f:
+            raw = f.read()
+        try:
+            self._updater.set_states(raw)
+        except Exception as e:
+            from ..model import CheckpointCorrupt
+
+            raise CheckpointCorrupt(fname, f"optimizer states: {e}") from e
+
+    def device_prefetch(self, data_iter, depth=None):
+        """``data_iter`` wrapped in a :class:`~mxnet_tpu_torch.io.
+        DevicePrefetchIter` over this module's executor group; ``depth``
+        defaults to ``MXNET_DEVICE_PREFETCH_DEPTH`` (2)."""
+        assert self.binded, "bind() first: staging needs the bound device"
+        from ..io import DevicePrefetchIter
+
+        if depth is None:
+            try:
+                depth = max(1, int(os.environ.get(
+                    "MXNET_DEVICE_PREFETCH_DEPTH", "2")))
+            except ValueError:
+                depth = 2
+        return DevicePrefetchIter(data_iter, self._exec_group, depth=depth)
 
     # -- properties --------------------------------------------------------------
     @property
@@ -230,6 +347,9 @@ class Module(BaseModule):
         self._optimizer = optimizer
         self._updater = opt.get_updater(optimizer)
         self.optimizer_initialized = True
+        if self._preload_opt_states is not None:
+            self.load_optimizer_states(self._preload_opt_states)
+            self._preload_opt_states = None
 
     # -- execution ---------------------------------------------------------------
     def forward(self, data_batch, is_train=None):

@@ -686,6 +686,40 @@ def negative(data):
     return -data
 
 
+def imdecode(str_img, clip_rect=(0, 0, 0, 0), out=None, index=0,
+             channels=3, mean=None, ctx=None):
+    """Decode an encoded image to an HWC NDArray on ``ctx`` (reference:
+    ndarray.py ``imdecode``, over :func:`mxnet_tpu_torch.image.imdecode`):
+    uint8 pixels, cut to ``clip_rect`` (x0, y0, x1, y1) when it is not
+    empty, minus ``mean`` in float32 when given. With ``out``, the image is
+    written into it (at position ``index`` of a 4-d batch) in ``out``'s
+    dtype and ``out`` is returned."""
+    from . import image as _image
+
+    npy = _image.imdecode(str_img, flag=1 if channels == 3 else 0)
+    x0, y0, x1, y1 = clip_rect
+    if x1 > x0 and y1 > y0:
+        npy = npy[y0:y1, x0:x1]
+    if mean is not None:
+        npy = npy.astype(np.float32) - (mean.asnumpy()
+                                        if isinstance(mean, NDArray)
+                                        else np.asarray(mean))
+    if out is None:
+        return array(npy, ctx, dtype=npy.dtype)
+    if not out.writable:
+        raise MXNetError("imdecode: out array is not writable")
+    if out.ndim == 4:
+        out[index] = npy
+    elif tuple(out.shape) == npy.shape:
+        out[:] = npy
+    else:
+        raise MXNetError(
+            f"imdecode: out shape {out.shape} does not match decoded "
+            f"image shape {npy.shape}")
+    return out
+
+
 __all__ += ["add", "subtract", "multiply", "divide", "true_divide", "power",
             "maximum", "minimum", "equal", "not_equal", "greater",
-            "greater_equal", "lesser", "lesser_equal", "negative"]
+            "greater_equal", "lesser", "lesser_equal", "negative",
+            "imdecode"]

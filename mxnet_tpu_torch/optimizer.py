@@ -1,26 +1,35 @@
-"""Optimizers (reference: mxnet_tpu/optimizer.py, the ``Optimizer`` base, SGD
-and Adam).
+"""Optimizers (reference: mxnet_tpu/optimizer.py): SGD, ccSGD (SGD's
+alias), NAG, SGLD, DCASGD, Adam, AdaGrad, RMSProp, AdaDelta and Test.
 
-The same registry and ``Updater`` closure design as the reference. Update
-rules call the fused update ops of :mod:`mxnet_tpu_torch.ops.tensor`
-(``sgd_update``, ``sgd_mom_update``, ``adam_update``), one per parameter;
-each returns new arrays and the rule rebinds the weight and state NDArrays
-to them. lr/wd multipliers (``__lr_mult__``/``__wd_mult__`` attributes of
-the symbol, or set by name), ``param_idx2name``, ``clip_gradient``,
-``rescale_grad``, ``lr_scheduler`` (read at ``num_update``) and
-``begin_num_update`` follow the reference. The reference's one-program update
-of every parameter (``_tree_update``) computes the same numbers as these
-per-parameter ops; ``update_multi`` here runs them in turn.
+The same registry and ``Updater`` closure design as the reference. SGD and
+Adam call the fused update ops of :mod:`mxnet_tpu_torch.ops.tensor`
+(``sgd_update``, ``sgd_mom_update``, ``adam_update``), the others write the
+reference's rule in torch ops, one parameter at a time; each rule rebinds
+the weight and state NDArrays to the new tensors. SGLD draws its noise from
+a ``torch.Generator`` (its own, or the package's generator of the weight's
+device). ``Updater.get_states``/``set_states`` pickle the states as numpy
+arrays by index (the JAX package pickles its own NDArrays, which this
+package cannot read). lr/wd multipliers (``__lr_mult__``/``__wd_mult__``
+attributes of the symbol, or set by name), ``param_idx2name``,
+``clip_gradient``, ``rescale_grad``, ``lr_scheduler`` (read at
+``num_update``) and ``begin_num_update`` follow the reference. The
+reference's one-program update of every parameter (``_tree_update``)
+computes the same numbers as these per-parameter ops; ``update_multi``
+here runs them in turn.
 """
 from __future__ import annotations
 
 import math
+import pickle
+
+import numpy as np
 
 from .base import MXNetError
-from .ndarray import zeros
+from .ndarray import NDArray, array, zeros
 
-__all__ = ["Optimizer", "SGD", "Adam", "create", "register", "Updater",
-           "get_updater"]
+__all__ = ["Optimizer", "SGD", "ccSGD", "NAG", "Adam", "AdaGrad", "RMSProp",
+           "AdaDelta", "DCASGD", "SGLD", "Test", "create", "register",
+           "Updater", "get_updater"]
 
 _REGISTRY: dict = {}
 
@@ -117,6 +126,19 @@ class Optimizer:
         return dict(lr=lr, wd=wd, rescale_grad=self.rescale_grad,
                     clip_gradient=self.clip_gradient or -1.0)
 
+    def _step(self, index, grad):
+        """lr, wd and the rescaled, clipped gradient tensor of one update;
+        advances the update count."""
+        import torch
+
+        lr = self._get_lr(index)
+        wd = self._get_wd(index)
+        self._update_count(index)
+        g = grad.data * self.rescale_grad
+        if self.clip_gradient is not None:
+            g = torch.clamp(g, -self.clip_gradient, self.clip_gradient)
+        return lr, wd, g
+
     def update_multi(self, indices, weights, grads, states):
         """Update many parameters, one after another."""
         for i, w, g, s in zip(indices, weights, grads, states):
@@ -151,6 +173,81 @@ class SGD(Optimizer):
         weight._data = new_w._data
 
 
+ccSGD = SGD   # the reference's C++ SGD: the same rule
+_REGISTRY["ccsgd"] = SGD
+
+
+@register
+class NAG(SGD):
+    """Nesterov accelerated SGD (reference: optimizer.py ``NAG``)."""
+
+    def update(self, index, weight, grad, state):
+        lr, wd, g = self._step(index, grad)
+        w = weight.data
+        if state is not None:
+            mom = self.momentum * state.data + g + wd * w
+            state._data = mom
+            weight._data = w - lr * (g + self.momentum * mom + wd * w)
+        else:
+            weight._data = w - lr * (g + wd * w)
+
+
+@register
+class SGLD(Optimizer):
+    """Stochastic gradient Langevin dynamics (reference: optimizer.py
+    ``SGLD``): half a gradient step plus Gaussian noise of variance lr,
+    drawn from ``generator`` (default: the package's generator of the
+    weight's device)."""
+
+    def __init__(self, generator=None, **kwargs):
+        super().__init__(**kwargs)
+        self.generator = generator
+
+    def _normal(self, weight):
+        import torch
+
+        from . import random as _random
+
+        gen = self.generator or _random.generator(weight.data.device)
+        return torch.randn(weight.shape, generator=gen,
+                           dtype=weight.data.dtype, device=weight.data.device)
+
+    def update(self, index, weight, grad, state):
+        lr, wd, g = self._step(index, grad)
+        noise = self._normal(weight) * math.sqrt(lr)
+        w = weight.data
+        weight._data = w - lr / 2 * (g + wd * w) + noise
+
+
+@register
+class DCASGD(Optimizer):
+    """Delay-compensated asynchronous SGD (reference: optimizer.py
+    ``DCASGD``): the state is the momentum (None without) and the weight of
+    the previous update."""
+
+    def __init__(self, momentum=0.0, lamda=0.04, **kwargs):
+        super().__init__(**kwargs)
+        self.momentum = momentum
+        self.weight_previous = {}
+        self.lamda = lamda
+
+    def create_state(self, index, weight):
+        if self.momentum == 0.0:
+            return (None, weight.copy())
+        return (zeros(weight.shape, weight.context), weight.copy())
+
+    def update(self, index, weight, grad, state):
+        lr, wd, g = self._step(index, grad)
+        mon, previous = state
+        w = weight.data
+        delta = -lr * (g + wd * w + self.lamda * g * g * (w - previous.data))
+        if mon is not None:
+            mon._data = mon.data * self.momentum + delta
+            delta = mon.data
+        previous._data = w
+        weight._data = w + delta
+
+
 @register
 class Adam(Optimizer):
     """Adam (reference: optimizer.py ``Adam``): the fused ``adam_update`` op
@@ -183,25 +280,172 @@ class Adam(Optimizer):
         var._data = new_var._data
 
 
+@register
+class AdaGrad(Optimizer):
+    """AdaGrad (reference: optimizer.py ``AdaGrad``): the state is the sum
+    of squared gradients."""
+
+    def __init__(self, eps=1e-7, **kwargs):
+        super().__init__(**kwargs)
+        self.float_stable_eps = eps
+
+    def create_state(self, index, weight):
+        return zeros(weight.shape, weight.context)
+
+    def update(self, index, weight, grad, state):
+        import torch
+
+        lr, wd, g = self._step(index, grad)
+        state._data = state.data + g * g
+        w = weight.data
+        weight._data = w - lr * (
+            g / torch.sqrt(state.data + self.float_stable_eps) + wd * w)
+
+
+@register
+class RMSProp(Optimizer):
+    """RMSProp, Graves' centred form by default (reference: optimizer.py
+    ``RMSProp``): the state is (n, g, delta)."""
+
+    def __init__(self, learning_rate=0.002, gamma1=0.95, gamma2=0.9,
+                 epsilon=1e-4, centered=True, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.gamma1 = gamma1
+        self.gamma2 = gamma2
+        self.epsilon = epsilon
+        self.centered = centered
+
+    def create_state(self, index, weight):
+        return (zeros(weight.shape, weight.context),   # n
+                zeros(weight.shape, weight.context),   # g
+                zeros(weight.shape, weight.context))   # delta
+
+    def update(self, index, weight, grad, state):
+        import torch
+
+        lr, wd, g = self._step(index, grad)
+        n, g_bar, delta = state
+        g = g + wd * weight.data
+        n._data = (1 - self.gamma1) * g * g + self.gamma1 * n.data
+        if self.centered:
+            g_bar._data = (1 - self.gamma1) * g + self.gamma1 * g_bar.data
+            delta._data = self.gamma2 * delta.data - lr * g / torch.sqrt(
+                n.data - g_bar.data * g_bar.data + self.epsilon)
+        else:
+            delta._data = self.gamma2 * delta.data - lr * g / torch.sqrt(
+                n.data + self.epsilon)
+        weight._data = weight.data + delta.data
+
+
+@register
+class AdaDelta(Optimizer):
+    """AdaDelta (reference: optimizer.py ``AdaDelta``): no learning rate;
+    the state is the running means of squared gradients and updates."""
+
+    def __init__(self, rho=0.90, epsilon=1e-5, **kwargs):
+        super().__init__(**kwargs)
+        self.rho = rho
+        self.epsilon = epsilon
+
+    def create_state(self, index, weight):
+        return (zeros(weight.shape, weight.context),
+                zeros(weight.shape, weight.context))
+
+    def update(self, index, weight, grad, state):
+        import torch
+
+        _, wd, g = self._step(index, grad)
+        acc_g, acc_delta = state
+        acc_g._data = self.rho * acc_g.data + (1 - self.rho) * g * g
+        current_delta = (torch.sqrt(acc_delta.data + self.epsilon)
+                         / torch.sqrt(acc_g.data + self.epsilon)) * g
+        acc_delta._data = (self.rho * acc_delta.data + (1 - self.rho)
+                           * current_delta * current_delta)
+        w = weight.data
+        weight._data = w - current_delta - wd * w
+
+
+@register
+class Test(Optimizer):
+    """A fixed rule for plumbing tests (reference: optimizer.py ``Test``):
+    the weight adds the rescaled gradient, the state copies the weight.
+    Each update counts, as in the reference's multi-parameter update (the
+    path ``Module.update`` takes)."""
+
+    def create_state(self, index, weight):
+        return zeros(weight.shape, weight.context)
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        weight._data = weight.data + grad.data * self.rescale_grad
+        state._data = weight.data
+
+
+def _state_to_numpy(state):
+    if state is None:
+        return None
+    if isinstance(state, NDArray):
+        return state.asnumpy()
+    if isinstance(state, np.ndarray):
+        return state
+    return tuple(_state_to_numpy(s) for s in state)
+
+
+def _copy_state(state):
+    if state is None:
+        return None
+    if isinstance(state, (NDArray, np.ndarray)):
+        return state.copy()
+    return tuple(_copy_state(s) for s in state)
+
+
+def _state_from_numpy(state, ctx):
+    if state is None or isinstance(state, NDArray):
+        return state
+    if isinstance(state, np.ndarray):
+        return array(state, ctx, dtype=state.dtype)
+    return tuple(_state_from_numpy(s, ctx) for s in state)
+
+
 class Updater:
     """Applies an optimizer with per-index state (reference: optimizer.py
-    ``Updater``)."""
+    ``Updater``). States restored by ``set_states`` move to their weight's
+    device at its next update."""
 
     def __init__(self, optimizer):
         self.optimizer = optimizer
         self.states = {}
 
-    def __call__(self, index, grad, weight):
+    def _state(self, index, weight):
         if index not in self.states:
             self.states[index] = self.optimizer.create_state(index, weight)
-        self.optimizer.update(index, weight, grad, self.states[index])
+        else:
+            self.states[index] = _state_from_numpy(self.states[index],
+                                                   weight.context)
+        return self.states[index]
+
+    def __call__(self, index, grad, weight):
+        self.optimizer.update(index, weight, grad, self._state(index, weight))
 
     def update_multi(self, indices, grads, weights):
-        for i, w in zip(indices, weights):
-            if i not in self.states:
-                self.states[i] = self.optimizer.create_state(i, w)
-        self.optimizer.update_multi(indices, weights, grads,
-                                    [self.states[i] for i in indices])
+        states = [self._state(i, w) for i, w in zip(indices, weights)]
+        self.optimizer.update_multi(indices, weights, grads, states)
+
+    def copy_states(self):
+        """A copy of every state on its device (a snapshot later updates do
+        not change)."""
+        return {i: _copy_state(s) for i, s in self.states.items()}
+
+    def get_states(self):
+        """The states as bytes: a pickle of ``{index: None | array |
+        tuple}``, each array a numpy copy."""
+        return pickle.dumps({i: _state_to_numpy(s)
+                             for i, s in self.states.items()})
+
+    def set_states(self, states):
+        """Restore states written by :meth:`get_states` (this package's
+        files only: unpickling runs code, so read no file from elsewhere)."""
+        self.states = pickle.loads(states)
 
 
 def get_updater(optimizer):

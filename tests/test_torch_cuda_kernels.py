@@ -603,3 +603,138 @@ def test_resnet_ops_on_card_match_cpu(name, attrs, shapes, is_train, dtype,
             assert a is None
         else:
             assert _max_rel(a, b) <= grad_tol
+
+
+# ---------------------------------------------------------------------------
+# io.DevicePrefetchIter: pinned staging on a side stream
+
+
+class _HostBatches:
+    """``n`` host batches of (data, label) made from one numpy seed, and
+    the numpy arrays they hold."""
+
+    def __init__(self, n, shape=(64, 3, 32, 32)):
+        import numpy as np
+
+        import mxnet_tpu_torch as mx
+
+        rng = np.random.default_rng(0)
+        self.arrays = [(rng.standard_normal(shape, dtype=np.float32),
+                        rng.integers(0, 10, shape[0]).astype(np.float32))
+                       for _ in range(n)]
+        self.batch_size = shape[0]
+        self.provide_data = [mx.io.DataDesc("data", shape)]
+        self.provide_label = [mx.io.DataDesc("softmax_label", shape[:1])]
+        self.cursor = 0
+        self._mx = mx
+
+    def reset(self):
+        self.cursor = 0
+
+    def next(self):
+        if self.cursor == len(self.arrays):
+            raise StopIteration
+        x, y = self.arrays[self.cursor]
+        self.cursor += 1
+        mx = self._mx
+        return mx.io.DataBatch([mx.nd.array(x, mx.cpu())],
+                               [mx.nd.array(y, mx.cpu())])
+
+
+def _fc_module(mx, shape):
+    net = mx.sym.SoftmaxOutput(mx.sym.FullyConnected(
+        mx.sym.Flatten(mx.sym.Variable("data")), num_hidden=10, name="fc"),
+        name="softmax")
+    mod = mx.mod.Module(net, context=mx.gpu(0))
+    mod.bind(data_shapes=[("data", shape)],
+             label_shapes=[("softmax_label", shape[:1])])
+    return mod
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("depth", [1, 2, 3])
+def test_device_prefetch_orders_copies_before_use(depth):
+    """Batches staged on the side stream while the consumer's stream is
+    held back by a long kernel: each batch read on the consumer's stream
+    equals its host arrays, through a ring of depth + 1 pinned slots
+    reused many times, and the consumer's stream waited for each copy."""
+    import numpy as np
+
+    import mxnet_tpu_torch as mx
+
+    _cuda()
+    src = _HostBatches(12)
+    mod = _fc_module(mx, (64, 3, 32, 32))
+    it = mod.device_prefetch(src, depth=depth)
+    main = torch.cuda.current_stream()
+    sums = []
+    for _ in range(len(src.arrays)):
+        torch.cuda._sleep(2_000_000)   # the step the copy overlaps
+        batch = it.next()
+        data, label = batch.data[0].data, batch.label[0].data
+        assert data.is_cuda and label.is_cuda
+        sums.append((data.double().sum(), (label * 2).clone()))
+        del batch, data, label   # freed while the stream still reads them
+    with pytest.raises(StopIteration):
+        it.next()
+    main.synchronize()
+    for (s, lab), (x, y) in zip(sums, src.arrays):
+        assert float(s) == pytest.approx(float(x.astype(np.float64).sum()),
+                                         rel=1e-12)
+        np.testing.assert_array_equal(lab.cpu().numpy(), y * 2)
+    assert it.h2d_bytes == sum(x.nbytes + y.nbytes for x, y in src.arrays)
+    it.reset()
+    first = it.next().data[0].asnumpy()
+    np.testing.assert_array_equal(first, src.arrays[0][0])
+    it.close()
+
+
+@pytest.mark.gpu
+def test_pinned_ring_waits_for_a_slot_copy():
+    """A slot is refilled only after its copy's event: with two slots and
+    the side stream held by a long kernel, the third stage blocks until
+    the first copy ran, and every device copy holds its own host data."""
+    from mxnet_tpu_torch.io import PinnedRing
+
+    _cuda()
+    ring = PinnedRing(torch.device("cuda", 0), 2)
+    with torch.cuda.stream(ring.stream):
+        torch.cuda._sleep(50_000_000)
+    host = [torch.full((1 << 20,), float(i)) for i in range(5)]
+    staged = []
+    for h in host:
+        (dev,), event = ring.stage([h])
+        staged.append((dev, event))
+    for i, (dev, event) in enumerate(staged):
+        event.synchronize()
+        assert bool((dev == float(i)).all())
+
+
+@pytest.mark.gpu
+def test_fit_with_device_prefetch_is_bit_identical_on_card(monkeypatch):
+    """Three epochs of ResNet-8 through ``fit`` with and without
+    ``MXNET_DEVICE_PREFETCH=1`` from one seed, deterministic cuDNN: equal
+    parameters and aux states, bit for bit."""
+    import numpy as np
+
+    import mxnet_tpu_torch as mx
+
+    _cuda()
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", False)
+    rng = np.random.default_rng(1)
+    x = rng.standard_normal((64, 3, 16, 16), dtype=np.float32)
+    y = (np.arange(64) % 10).astype(np.float32)
+    got = []
+    for prefetch in ("0", "1"):
+        monkeypatch.setenv("MXNET_DEVICE_PREFETCH", prefetch)
+        mx.random.seed(3)
+        mod = mx.mod.Module(mx.models.resnet.get_symbol(10, 8, "3,16,16"),
+                            context=mx.gpu(0))
+        mod.fit(mx.io.NDArrayIter(x, y, batch_size=16), num_epoch=3,
+                optimizer_params={"learning_rate": 0.1, "momentum": 0.9},
+                initializer=mx.init.Xavier())
+        args, aux = mod.get_params()
+        got.append({n: a.asnumpy() for n, a in {**args, **aux}.items()})
+    for n in got[0]:
+        np.testing.assert_array_equal(got[0][n], got[1][n], err_msg=n)

@@ -2,9 +2,12 @@
 through both packages' ``Module`` (three steps by hand, then ``fit`` for two
 epochs, ``score`` and ``predict``), the metrics, the learning-rate
 schedules, ``NDArrayIter``, the callbacks, checkpoints written by one
-package and read by the other, the ``fit`` options that are not ported, and
-``examples/train_cifar10.py`` on the CPU. Weights, batches and predictions
-are made with numpy and fed to both packages.
+package and read by the other, optimizer states in checkpoints, ``fit``'s
+checkpoints and resume (an interrupted run resumed equals the uninterrupted
+one), the ``fit`` options that are not ported, ``examples/train_cifar10.py``
+and ``examples/image_classification/train_imagenet.py`` on the CPU.
+Weights, batches and predictions are made with numpy and fed to both
+packages.
 
 The reference runs as in ``test_torch_module.py`` (``MXNET_GRAPHOPT=0``,
 ``MXTPU_FUSED_GRADS=1``, no parameter donation). Where an fp32 training run
@@ -300,9 +303,7 @@ def test_score_and_predict_match_reference():
 
 
 @pytest.mark.parametrize("option", [
-    dict(monitor=True), dict(checkpoint_prefix="ck"),
-    dict(checkpoint_every_n_batches=2), dict(resume=True),
-    {"MXNET_RUN_N_STEPS": "2"}, {"MXNET_DEVICE_PREFETCH": "1"}],
+    dict(monitor=True), {"MXNET_RUN_N_STEPS": "2"}],
     ids=lambda o: list(o)[0])
 def test_fit_refuses_unported_options(option, monkeypatch):
     """Each option of the reference's ``fit`` that is not ported raises
@@ -319,6 +320,36 @@ def test_fit_refuses_unported_options(option, monkeypatch):
         mod.fit(mxt.io.NDArrayIter(x, y, batch_size=BATCH), num_epoch=1,
                 **kwargs)
     assert not mod.binded
+
+
+@pytest.mark.parametrize("option", [
+    dict(checkpoint_prefix="ck"),
+    dict(checkpoint_prefix="ck", checkpoint_every_n_batches=1),
+    dict(checkpoint_prefix="ck", resume=True),
+    {"MXNET_DEVICE_PREFETCH": "1"}], ids=lambda o: "-".join(o))
+def test_fit_runs_the_ported_options(option, monkeypatch, tmp_path):
+    """The options that ``fit`` refused before their ports: checkpoints
+    with optimizer states (at each epoch's end and every N batches),
+    ``resume`` (a fresh start without a checkpoint) and the device
+    prefetch."""
+    kwargs = {}
+    for k, v in option.items():
+        if k.startswith("MXNET_"):
+            monkeypatch.setenv(k, v)
+        else:
+            kwargs[k] = str(tmp_path / v) if k == "checkpoint_prefix" else v
+    x, y = resnet8_data(2 * BATCH)
+    mod = mxt.mod.Module(resnet8(mxt), context=mxt.cpu())
+    mod.fit(mxt.io.NDArrayIter(x, y, batch_size=BATCH), num_epoch=1,
+            optimizer_params=SGD, **kwargs)
+    if "checkpoint_prefix" in kwargs:
+        prefix = kwargs["checkpoint_prefix"]
+        assert mxt.model.list_checkpoints(prefix) == [0]
+        assert mxt.model.read_manifest(prefix, 0)["batch"] is None
+        assert os.path.exists(f"{prefix}-0000.states")
+    with pytest.raises(mxt.MXNetError, match="checkpoint_prefix"):
+        mod.fit(mxt.io.NDArrayIter(x, y, batch_size=BATCH), num_epoch=1,
+                resume=True)
 
 
 def test_fit_initializes_moving_statistics():
@@ -345,6 +376,145 @@ def test_fit_initializes_moving_statistics():
 
 # ---------------------------------------------------------------------------
 # checkpoints
+
+
+class _Stop(Exception):
+    pass
+
+
+def _resumable_fit(pkg, prefix, stop=None, resume=False, epochs=2):
+    """``fit`` of ResNet-8 over 5 batches an epoch, a checkpoint every 2
+    batches, stopped by an exception in the batch-end callback after
+    ``stop`` = (epoch, batches) when given; the weights, the momenta and the
+    (epoch, batch) of each callback."""
+    x, y = resnet8_data(5 * BATCH, seed=6)
+    args, aux = resnet8_params()
+    mod = pkg.mod.Module(resnet8(pkg), context=pkg.cpu())
+    seen = []
+
+    def cb(p):
+        seen.append((p.epoch, p.nbatch))
+        if stop == (p.epoch, p.nbatch + 1):
+            raise _Stop()
+
+    try:
+        mod.fit(pkg.io.NDArrayIter(x, y, batch_size=BATCH), num_epoch=epochs,
+                optimizer="sgd", optimizer_params=SGD,
+                arg_params=_nd(pkg, args), aux_params=_nd(pkg, aux),
+                checkpoint_prefix=prefix, checkpoint_every_n_batches=2,
+                resume=resume, batch_end_callback=cb)
+    except _Stop:
+        pass
+    arg_params, _ = mod.get_params()
+    moms = {mod._param_names[i]: st.asnumpy()
+            for i, st in mod._updater.states.items()}
+    return _numpy(arg_params), moms, seen
+
+
+@pytest.mark.parametrize("stop", [(0, 4), (1, 2), (0, 5), (1, 1)])
+def test_fit_resume_equals_the_uninterrupted_run(tmp_path, stop):
+    """A run stopped after batch 4 of epoch 0 (a checkpoint at batch 4),
+    after batch 2 of epoch 1, after the last batch of epoch 0 (before its
+    epoch-end checkpoint: batch 5 is trained again from the one at 4) or
+    after batch 1 of epoch 1 (back to epoch 0's end), then
+    ``resume=True``, against one run of two epochs: the resumed run starts
+    at the last checkpoint's epoch and batch, and its weights and momenta
+    equal the uninterrupted run's bit for bit."""
+    w, m, seen = _resumable_fit(mxt, None)
+    prefix = str(tmp_path / "ck")
+    _, _, seen1 = _resumable_fit(mxt, prefix, stop=stop)
+    epoch, done = stop[0], stop[1] // 2 * 2   # batches in the checkpoint
+    manifest = mxt.model.read_manifest(prefix, epoch if done else epoch - 1)
+    assert manifest["batch"] == (done or None)
+    w2, m2, seen2 = _resumable_fit(mxt, prefix, resume=True)
+    assert seen1 == seen[:seen.index((epoch, stop[1] - 1)) + 1]
+    assert seen2 == seen[seen.index((epoch, done)):]
+    assert set(m) == set(m2) == set(w)
+    for n in w:
+        np.testing.assert_array_equal(w2[n], w[n], err_msg=n)
+        np.testing.assert_array_equal(m2[n], m[n], err_msg=n)
+
+
+def test_fit_resume_matches_reference(tmp_path, monkeypatch):
+    """The same interrupted and resumed run through both packages (the
+    reference op by op on the port's ReLU masks): weights and momenta
+    within the fp32 limits of ``test_fit_matches_reference``."""
+    masks = SharedReluMasks(monkeypatch)
+    t_prefix, j_prefix = str(tmp_path / "port"), str(tmp_path / "ref")
+    _resumable_fit(mxt, t_prefix, stop=(0, 4))
+    t_w, t_m, t_seen = _resumable_fit(mxt, t_prefix, resume=True)
+    masks.replay(_resumable_fit, mxj, j_prefix, stop=(0, 4))
+    j_w, j_m, j_seen = masks.replay(_resumable_fit, mxj, j_prefix,
+                                    resume=True)
+    assert masks.all_used() and t_seen == j_seen
+    assert max(rel_err(t_w[n], j_w[n]) for n in j_w) <= LIMITS[None]["w"]
+    assert max(rel_err(t_m[n], j_m[n]) for n in j_m) <= LIMITS[None]["w"]
+
+
+def test_resume_point_skips_a_corrupt_checkpoint(tmp_path):
+    """``find_resume_point`` takes the newest intact checkpoint: a corrupt
+    newest one is skipped for the one before; none gives None."""
+    prefix = str(tmp_path / "ck")
+    assert mxt.model.find_resume_point(prefix) is None
+    mod = _bound(mxt)
+    mod.save_checkpoint(prefix, 0, batch=3)
+    mod.save_checkpoint(prefix, 1)
+    got = mxt.model.find_resume_point(prefix, ctx=mxt.cpu())
+    assert got[:3] == (2, 0, 1)
+    with open(f"{prefix}-0001.params", "r+b") as f:
+        f.seek(100)
+        f.write(b"\xff\xff\xff")
+    got = mxt.model.find_resume_point(prefix, ctx=mxt.cpu())
+    assert got[:3] == (0, 3, 0)
+    ref = mxj.model.find_resume_point(prefix)
+    assert ref[:3] == got[:3]
+    for n, a in got[4].items():
+        np.testing.assert_array_equal(a.asnumpy(), ref[4][n].asnumpy())
+
+
+@pytest.mark.parametrize("background", [False, True])
+def test_optimizer_states_in_checkpoints(tmp_path, background):
+    """``save_checkpoint(save_optimizer_states=True)`` (at once or from a
+    background thread) and ``Module.load(load_optimizer_states=True)``:
+    the loaded module's momenta equal the saved ones, and its next step
+    equals the original module's."""
+    prefix = str(tmp_path / "ck")
+    mod = _bound(mxt)
+    mod.init_optimizer(optimizer="sgd", optimizer_params=SGD)
+    x, y = resnet8_data(2 * BATCH, seed=8)
+    batches = [mxt.io.DataBatch(data=[mxt.nd.array(x[i:i + BATCH],
+                                                   mxt.cpu())],
+                                label=[mxt.nd.array(y[i:i + BATCH],
+                                                    mxt.cpu())])
+               for i in (0, BATCH)]
+    mod.forward_backward(batches[0])
+    mod.update()
+    handle = mod.save_checkpoint(prefix, 1, save_optimizer_states=True,
+                                 background=background)
+    if background:
+        assert handle.wait(timeout=60) and handle.done
+    else:
+        assert handle is None
+    saved = {i: st.asnumpy() for i, st in mod._updater.states.items()}
+    loaded = mxt.mod.Module.load(prefix, 1, load_optimizer_states=True,
+                                 context=mxt.cpu())
+    loaded.bind(data_shapes=[("data", (BATCH, 3, PX, PX))],
+                label_shapes=[("softmax_label", (BATCH,))])
+    loaded.init_optimizer(optimizer="sgd", optimizer_params=SGD)
+    assert set(loaded._updater.states) == set(saved)
+    for i, a in saved.items():
+        np.testing.assert_array_equal(np.asarray(loaded._updater.states[i]),
+                                      a)
+    for m in (mod, loaded):
+        m.forward_backward(batches[1])
+        m.update()
+    for n, a in mod.get_params()[0].items():
+        np.testing.assert_array_equal(loaded.get_params()[0][n].asnumpy(),
+                                      a.asnumpy())
+    with open(f"{prefix}-0001.states", "wb") as f:
+        f.write(b"not a pickle")
+    with pytest.raises(mxt.model.CheckpointCorrupt, match="states"):
+        loaded.load_optimizer_states(f"{prefix}-0001.states")
 
 
 def test_checkpoints_load_in_the_other_package(tmp_path):
@@ -600,6 +770,68 @@ def test_train_cifar10_example_on_cpu():
            for line in out.stdout.splitlines() if "final validation" in line]
     assert len(acc) == 1 and acc[0] > 0.2, out.stdout + out.stderr[-2000:]
     assert "Validation-accuracy" in out.stderr
+
+
+def _tiny_recs(tmp_path, n_train=48, n_val=16, px=40):
+    """Train and validation records of 4 class prototypes at ``px``,
+    packed with the port's ``im2rec.py`` from image files."""
+    from PIL import Image
+
+    from mxnet_tpu_torch.tools import im2rec
+
+    rng = np.random.default_rng(9)
+    protos = rng.integers(0, 256, (4, 2, 2, 3), dtype=np.uint8)
+    paths = {}
+    for split, n in (("train", n_train), ("val", n_val)):
+        root = tmp_path / split
+        lines = []
+        for i in range(n):
+            label = i % 4
+            img = np.asarray(Image.fromarray(protos[label]).resize(
+                (px, px), Image.BILINEAR), np.float32)
+            img = np.clip(img + rng.normal(0, 10, img.shape), 0, 255)
+            os.makedirs(root, exist_ok=True)
+            Image.fromarray(img.astype(np.uint8)).save(root / f"{i}.jpg",
+                                                       quality=95)
+            lines.append(f"{i}\t{label}\t{i}.jpg\n")
+        prefix = str(tmp_path / split)
+        with open(prefix + ".lst", "w") as f:
+            f.writelines(lines)
+        im2rec.main([prefix, str(root), "--pass-through"])
+        paths[split] = prefix + ".rec"
+    return paths
+
+
+def test_train_imagenet_example_on_cpu(tmp_path, caplog):
+    """``train_imagenet.py --cpu`` end to end on a tiny ``.rec``: ResNet-8
+    at 32 px for 2 epochs with validation and checkpoints, ``--load-epoch``
+    resuming from them, and the ``--test-io`` pass."""
+    from mxnet_tpu_torch.examples.image_classification import train_imagenet
+
+    recs = _tiny_recs(tmp_path)
+    argv = ["--cpu", "--network", "resnet", "--num-layers", "8",
+            "--image-shape", "3,32,32", "--num-classes", "4",
+            "--num-examples", "48", "--batch-size", "8", "--lr", "0.05",
+            "--dtype", "float32", "--disp-batches", "2",
+            "--data-train", recs["train"], "--data-val", recs["val"],
+            "--model-prefix", str(tmp_path / "model" / "r8")]
+    caplog.set_level(logging.INFO)
+    mod = train_imagenet.main(argv + ["--num-epochs", "2"])
+    assert mod.binded and mod._context == [mxt.cpu()]
+    assert mxt.model.list_checkpoints(str(tmp_path / "model" / "r8")) \
+        == [1, 2]
+    assert sum("Validation-accuracy" in r.getMessage()
+               for r in caplog.records) == 2
+    val = mxt.image.ImageIter(8, (3, 32, 32), path_imgrec=recs["val"])
+    acc = dict(mod.score(val, "acc"))["accuracy"]
+    assert 0.0 <= acc <= 1.0
+    again = train_imagenet.main(argv + ["--num-epochs", "3",
+                                        "--load-epoch", "2"])
+    assert mxt.model.list_checkpoints(str(tmp_path / "model" / "r8")) \
+        == [1, 2, 3]
+    assert again.binded
+    n, secs = train_imagenet.main(argv + ["--test-io", "1"])
+    assert n == 48 and secs > 0
 
 
 if __name__ == "__main__":
