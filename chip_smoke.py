@@ -5,7 +5,8 @@ hidden 1024, 16 heads, 12 layers, T=2048): transformer-LM inference through
 ``Predictor`` in fp32, the imperative path, the LM through
 ``Executor(amp_dtype="bfloat16")``, its training through
 ``Module(amp="bfloat16")``, ResNet-50 training through ``Module.fit``, and
-from a RecordIO file through ``train_imagenet.py``;
+from a RecordIO file through ``train_imagenet.py``, and the LSTM-PTB
+language model through ``BucketingModule`` and ``lstm_bucketing.py``;
 holds every CUDA kernel on those paths against its plain PyTorch version.
 Phases, in order; any failed check ends the run with a non-zero exit and no
 result line:
@@ -94,7 +95,27 @@ result line:
    checkpoint equal to the uninterrupted run (batch 8, 64 px, fp32); which
    route decoded every JPEG; and ``train_imagenet.py`` on 10 class
    prototypes at 40 px (ResNet-20, 8 epochs) reaching validation accuracy
-   0.9.
+   0.9;
+12. LSTM-PTB through ``BucketingModule``: the port's
+   ``mxnet_tpu_torch/examples/rnn/lstm_bucketing.py`` at its defaults (2 x
+   200 LSTM, embed 200, batch 32, buckets 10-60, SGD lr 0.01 wd 1e-5) for
+   one epoch of 2400 synthetic sentences at PTB's vocabulary (10000) from
+   ``--seed``, with the unrolled cells and with the fused ``RNN`` op
+   (cuDNN): steady step ms and first-use bind ms by bucket, tokens/s (label
+   tokens that are not padding) beside padded positions/s, peak memory;
+   one more bucket-60 step traced into FC, the cells' elementwise ops or
+   cuDNN's RNN, SoftmaxOutput, the embedding and the update, with the
+   host's time by part, the kernel launches and the idle share, and the
+   time of the whole-output copy the metric no longer makes; one SGD step a
+   bucket (5 and 8) of each variant at a small width on the card against
+   the CPU (NLL 1e-5, gradients 1e-4 of max-abs, weights 1e-5); the fused
+   op against the unrolled cells at bucket 60, hidden 200 (1e-5), its
+   cuDNN route against its step loop for each mode and bidirectional
+   (outputs and gradients, 1e-5; the tanh mode 3e-5, see
+   ``PTB_LIMITS``), cuDNN's forward and backward timed beside the loop;
+   per-node Dropout masks at (4096, 1024); and
+   ``tests/test_lstm_bucketing.py``'s gate (validation perplexity below 6)
+   with both variants.
 
 Run from the repo root: ``python3 chip_smoke.py [--seed N]``.
 The last line of standard output is ``{"ok": true, "device": {...}}``.
@@ -1103,9 +1124,10 @@ def _kernels_under(evt):
     return out
 
 
-def traced_groups(fn, ranges=TRAIN_RANGES):
+def traced_groups(fn, ranges=TRAIN_RANGES, counts=None):
     """Device ms of ``fn`` by kernel name, and the kernels (name, ms) under
-    each host range of ``ranges``, from one profiler run."""
+    each host range of ``ranges``, from one profiler run; ``counts`` (a
+    dict) gets the number of launches by kernel name."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1122,6 +1144,9 @@ def traced_groups(fn, ranges=TRAIN_RANGES):
                and not getattr(e, "is_user_annotation", False)
                and not e.key.startswith("chip_smoke::")
                and e.self_device_time_total > 0}
+    if counts is not None:
+        counts.update({e.key: e.count for e in prof.key_averages()
+                       if e.key in by_name})
     groups = {g: [] for g in ranges}
     for evt in prof.events():
         for g, names in ranges.items():
@@ -2380,6 +2405,585 @@ def phase_records(mx, seed):
     return out
 
 
+# ------------------------------------------------------------ phase 12: PTB
+
+# examples/rnn/lstm_bucketing.py's defaults, on the synthetic corpus at
+# PTB's vocabulary: 2400 sentences over buckets 10-60 (about 12 batches of
+# 32 a bucket), one epoch
+PTB_VOCAB, PTB_SENTENCES, PTB_BATCH, PTB_HIDDEN, PTB_LAYERS = \
+    10000, 2400, 32, 200, 2
+PTB_TRACE_BUCKET = 60
+# the traced step's device groups: each op's forward under a range of the
+# script, each backward under the autograd engine's node
+PTB_OPS = {
+    "fc": ("FullyConnected",),
+    "lstm_elementwise": ("Activation", "elemwise_add", "elemwise_mul",
+                         "_plus_scalar", "SliceChannel", "Concat",
+                         "expand_dims"),
+    "cudnn_rnn": ("RNN",),
+    "softmax_output": ("SoftmaxOutput",),
+    "embedding": ("Embedding",),
+}
+PTB_RANGES = {
+    "fc": ("chip_smoke::fc", _NODE + "AddmmBackward0",
+           _NODE + "MmBackward0"),
+    "lstm_elementwise": ("chip_smoke::lstm_elementwise",
+                         _NODE + "SigmoidBackward0", _NODE + "TanhBackward0",
+                         _NODE + "AddBackward0", _NODE + "AddBackward1",
+                         _NODE + "MulBackward0", _NODE + "SplitBackward0",
+                         _NODE + "CatBackward0", _NODE + "UnsqueezeBackward0"),
+    "cudnn_rnn": ("chip_smoke::cudnn_rnn", _NODE + "_CudnnRnnBackward0"),
+    "softmax_output": ("chip_smoke::softmax_output",
+                       _NODE + "_SoftmaxOutputBackward"),
+    "embedding": ("chip_smoke::embedding", _NODE + "IndexSelectBackward0",
+                  _NODE + "WhereBackward0"),
+    "update": ("chip_smoke::update",),
+}
+# card vs CPU (step 2) and the fused-vs-unrolled check (step 3)
+PTB_SMALL = dict(num_hidden=32, num_embed=16, num_layers=2, vocab_size=50)
+PTB_SMALL_BATCH, PTB_SMALL_BUCKETS = 4, (5, 8)
+PTB_LIMITS = {"nll": 1e-5, "grad": 1e-4, "weight": 1e-5, "fused": 1e-5,
+              # cuDNN's tanh RNN computes tanh about 2e-6 from float64 a
+              # step (the step loop: 1e-7); over 60 steps and 2 layers at
+              # hidden 200 its outputs read 1.0e-5 (1.3e-5 bidirectional)
+              # from the loop and from a float64 run of it, where a wiring
+              # fault (a bias, a gate order) reads 1e-2 and more
+              "route_rnn_tanh": 3e-5}
+PTB_GATE = dict(vocab=64, buckets=[8, 12, 16], hidden=64, embed=32,
+                epochs=8, lr=3e-3, ppl=6.0)
+
+
+def ptb_bind_timer(mx, binds):
+    """Wrap ``BucketingModule.bind``/``switch_bucket`` so that each bucket's
+    first use records its host ms (graph generation, shape inference, the
+    executor's arrays) in ``binds``; returns what restores them."""
+    import torch
+
+    cls = mx.mod.BucketingModule
+    bind, switch = cls.bind, cls.switch_bucket
+
+    def timed_bind(self, *a, **k):
+        t = time.perf_counter()
+        bind(self, *a, **k)
+        torch.cuda.synchronize()
+        binds[self._default_bucket_key] = (time.perf_counter() - t) * 1e3
+
+    def timed_switch(self, key, *a, **k):
+        if key in self._buckets:
+            return switch(self, key, *a, **k)
+        t = time.perf_counter()
+        switch(self, key, *a, **k)
+        torch.cuda.synchronize()
+        binds[key] = (time.perf_counter() - t) * 1e3
+
+    cls.bind, cls.switch_bucket = timed_bind, timed_switch
+    return lambda: (setattr(cls, "bind", bind),
+                    setattr(cls, "switch_bucket", switch))
+
+
+def ptb_traced_step(mx, model, data_train, bucket):
+    """Two more training steps of ``model`` on ``bucket`` batches: the
+    first with the host's time by part (next batch, the forward walk
+    ``Executor._walk``, autograd's backward inside the training forward,
+    the rest of the forward, the grad writes of ``backward``, the update
+    and the metric), the second traced into ``PTB_RANGES``' groups (the
+    profiler slows the host, so the parts come from the untraced step)."""
+    import torch
+
+    from mxnet_tpu_torch import executor as texe
+
+    host = {}
+
+    def clocked(key, fn):
+        def wrapped(*a, **k):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                host[key] = host.get(key, 0.0) \
+                    + (time.perf_counter() - t) * 1e3
+        return wrapped
+
+    # the batches' places in the epoch, so that next() gives them
+    data_train.reset()
+    places = [i for i, (b, _) in enumerate(data_train.idx)
+              if data_train.buckets[b] == bucket]
+    metric = mx.metric.Perplexity(0)
+
+    def step(place, part):
+        data_train.curr_idx = place
+        batch = part("next_batch", data_train.next)()
+        part("forward", model.forward)(batch, is_train=True)
+        part("backward", model.backward)()
+        with torch.profiler.record_function("chip_smoke::update"):
+            part("update", model.update)()
+        part("metric", model.update_metric)(metric, batch.label)
+        return batch
+
+    walk, grad = texe.Executor._walk, torch.autograd.grad
+    texe.Executor._walk = clocked("forward_walk", walk)
+    torch.autograd.grad = clocked("autograd_backward", grad)
+    try:
+        host_step_ms = timed(lambda: step(places[0], clocked))[1]
+    finally:
+        texe.Executor._walk, torch.autograd.grad = walk, grad
+    saved = []
+    for group, names in PTB_OPS.items():
+        saved += _wrap_ops(names, "chip_smoke::" + group)
+    traced, counts = [], {}
+    try:
+        by_name, groups = traced_groups(
+            lambda: traced.append(timed(lambda: step(
+                places[1], lambda key, fn: fn))), PTB_RANGES, counts)
+    finally:
+        for op, fn in saved:
+            op.fn = fn
+    (batch, host_ms), = traced
+    check(by_name, "the profiler recorded device events for the step")
+    check(batch.bucket_key == bucket, f"the traced batch is bucket {bucket}")
+    kernels = {k: t for k, t in by_name.items() if "Memcpy" not in k
+               and "Memset" not in k}
+    busy = sum(kernels.values())
+    split = {g: sum(t for k, t in ks if k in kernels)
+             for g, ks in groups.items()}
+    split["rest"] = busy - sum(split.values())
+    # the forward's feed, bucket switch and grad bookkeeping
+    host["forward_other"] = host.pop("forward") - host["forward_walk"] \
+        - host["autograd_backward"]
+    rest = dict(kernels)
+    for ks in groups.values():
+        for k, t in ks:
+            if k in rest:
+                rest[k] -= t
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    return {"host_ms": host_step_ms, "host_split_ms": host,
+            "traced_host_ms": host_ms,
+            "rest_top_kernels": [[k[:80], t] for k, t in sorted(
+                rest.items(), key=lambda kv: -kv[1])[:8]],
+            "kernel_busy_ms": busy, "split_ms": split,
+            "kernel_launches": sum(n for k, n in counts.items()
+                                   if k in kernels),
+            "copies_ms": {k: t for k, t in by_name.items() if "Mem" in k},
+            "perplexity": metric.get()[1],
+            "top_kernels": [[k[:80], t] for k, t in top]}
+
+
+def ptb_run(mx, fused, seed):
+    """The port's lstm_bucketing.py at its defaults for one epoch of the
+    synthetic corpus at PTB's vocabulary; per-bucket steady step ms, bind
+    ms, tokens/s, peak memory, and one traced bucket-60 step."""
+    import torch
+
+    from mxnet_tpu_torch.examples.rnn import lstm_bucketing
+    from mxnet_tpu_torch.ops import rnn_op
+
+    torch.cuda.reset_peak_memory_stats()
+    rnn_op.reset_launches()
+    binds, stamps = {}, []
+
+    def stamp(p):
+        b = p.locals["data_batch"]
+        lbl = b.label[0].asnumpy()
+        stamps.append((b.bucket_key, time.perf_counter(),
+                       int((lbl != lstm_bucketing.INVALID_LABEL).sum()),
+                       int(lbl.size)))
+
+    restore = ptb_bind_timer(mx, binds)
+    t0 = time.perf_counter()
+    try:
+        model, data_train, _ = lstm_bucketing.main(
+            ["--num-epochs", "1", "--vocab-size", str(PTB_VOCAB),
+             "--num-sentences", str(PTB_SENTENCES), "--seed", str(seed),
+             "--fused-rnn", str(int(fused)), "--disp-batches", "24"],
+            batch_end_callback=[stamp])
+    finally:
+        restore()
+    fit_s = time.perf_counter() - t0
+    cudnn_fit = rnn_op.cudnn_calls
+    n_steps = len(stamps)
+    check(n_steps == len(data_train.idx)
+          and {s[0] for s in stamps} == set(lstm_bucketing.BUCKETS),
+          f"one epoch of {n_steps} batches over buckets "
+          f"{sorted({s[0] for s in stamps})}")
+    # step i runs between callbacks i-1 and i; a bucket's first step binds
+    seen, by_bucket = set(), {}
+    steady_tok = steady_pos = steady_s = 0.0
+    for prev, cur in zip(stamps, stamps[1:]):
+        key, dt = cur[0], cur[1] - prev[1]
+        if key not in seen:
+            seen.add(key)
+            continue
+        by_bucket.setdefault(key, []).append(dt * 1e3)
+        steady_tok += cur[2]
+        steady_pos += cur[3]
+        steady_s += dt
+    steady = {k: float(np.median(v)) for k, v in sorted(by_bucket.items())}
+    ppl = dict(model.score(data_train, mx.metric.Perplexity(0),
+                           num_batch=4))["Perplexity"]
+    out = {"fused": bool(fused), "steps": n_steps, "fit_s": fit_s,
+           "tf32": {"cudnn": torch.backends.cudnn.allow_tf32,
+                    "matmul": torch.backends.cuda.matmul.allow_tf32},
+           "steady_step_ms_by_bucket": steady,
+           "steady_steps_by_bucket": {k: len(v)
+                                      for k, v in sorted(by_bucket.items())},
+           "bind_ms_by_bucket": {k: binds[k] for k in sorted(binds)},
+           "tokens_per_s": steady_tok / steady_s,
+           "padded_positions_per_s": steady_pos / steady_s,
+           "epoch_tokens_per_s": sum(s[2] for s in stamps) / fit_s,
+           "train_perplexity_4_batches": ppl,
+           "cudnn_calls_fit": cudnn_fit,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    check(np.isfinite(ppl) and 0.5 * PTB_VOCAB < ppl < 2 * PTB_VOCAB,
+          f"perplexity {ppl:.1f} finite and near the vocabulary "
+          f"({PTB_VOCAB}) on a corpus of uniform random tokens")
+    if fused:
+        check(cudnn_fit >= n_steps, f"cuDNN's RNN ran {cudnn_fit} times in "
+              f"the epoch's {n_steps} training steps and its evaluation")
+    else:
+        check(cudnn_fit == 0, "the unrolled cells ran no fused RNN")
+    rnn_op.reset_launches()
+    traced = ptb_traced_step(mx, model, data_train, PTB_TRACE_BUCKET)
+    traced["cudnn_calls"] = rnn_op.cudnn_calls
+    traced["idle_share"] = 1.0 - traced["kernel_busy_ms"] \
+        / steady[PTB_TRACE_BUCKET]
+    traced["host_us_per_launch"] = traced["host_ms"] * 1e3 \
+        / max(1, traced["kernel_launches"])
+    if fused:
+        check(traced["cudnn_calls"] == 2 and traced["split_ms"]["cudnn_rnn"]
+              > 0, "the two steps ran cuDNN's RNN once each")
+    else:
+        check(traced["split_ms"]["lstm_elementwise"] > 0,
+              "the traced step ran the cells' elementwise ops")
+    check(np.isfinite(traced["perplexity"]), "the traced step's perplexity "
+          "finite")
+    # the copy the metric would make without its gather on the device:
+    # the bucket-60 batch's whole (batch * T, V) output to the host
+    pred = model.get_outputs()[0]
+    traced["full_output_copy_ms"] = timed(pred.asnumpy)[1]
+    traced["full_output_mb"] = pred.size * 4 / 1e6
+    out["traced_step"] = traced
+    print("  " + json.dumps({k: v for k, v in out.items()
+                             if k != "traced_step"}), flush=True)
+    print("  traced step: " + json.dumps(traced), flush=True)
+    return out
+
+
+def _ptb_small_batches(mx, seed):
+    rng = np.random.default_rng(seed)
+    out = []
+    for t in PTB_SMALL_BUCKETS:
+        x = rng.integers(1, PTB_SMALL["vocab_size"],
+                         (PTB_SMALL_BATCH, t)).astype(np.float32)
+        y = np.roll(x, -1, axis=1)
+        y[:, -1] = 0
+        out.append((t, x, y))
+    return out
+
+
+def ptb_card_vs_cpu(mx, seed):
+    """One SGD step a bucket (5, then 8) of each variant at a small width,
+    on the card and on the CPU from the same weights and batches: NLL,
+    gradients and the updated weights."""
+    res = {}
+    for fused in (False, True):
+        factory = (mx.models.lstm_lm.fused_sym_gen_factory if fused
+                   else mx.models.lstm_lm.sym_gen_factory)(**PTB_SMALL)
+        big = max(PTB_SMALL_BUCKETS)
+        sym = factory(big)[0]
+        shapes = {"data": (PTB_SMALL_BATCH, big),
+                  "softmax_label": (PTB_SMALL_BATCH, big)}
+        rng = np.random.default_rng(seed + 30)
+        weights = {n: (rng.standard_normal(s) * 0.2).astype(np.float32)
+                   for n, s in zip(sym.list_arguments(),
+                                   sym.infer_shape(**shapes)[0])
+                   if n not in shapes}
+        runs = {}
+        for where, ctx in (("card", mx.gpu(0)), ("cpu", mx.cpu())):
+            mod = mx.mod.BucketingModule(factory, default_bucket_key=big,
+                                         context=ctx)
+            mod.bind([mx.io.DataDesc("data", shapes["data"])],
+                     [mx.io.DataDesc("softmax_label",
+                                     shapes["softmax_label"])])
+            mod.init_params(arg_params={n: mx.nd.array(w, ctx)
+                                        for n, w in weights.items()})
+            mod.init_optimizer(optimizer="sgd", optimizer_params={
+                "learning_rate": 0.1, "momentum": 0.9})
+            steps = []
+            for t, x, y in _ptb_small_batches(mx, seed + 31):
+                cpu = mx.cpu()
+                mod.forward(mx.io.DataBatch(
+                    [mx.nd.array(x, cpu)], [mx.nd.array(y, cpu)],
+                    bucket_key=t,
+                    provide_data=[mx.io.DataDesc("data", x.shape)],
+                    provide_label=[mx.io.DataDesc("softmax_label", y.shape)]),
+                    is_train=True)
+                mod.backward()
+                probs = mod.get_outputs()[0].asnumpy()
+                lab = y.reshape(-1).astype(int)
+                nll = float(-np.log(probs[np.arange(lab.size), lab]).mean())
+                ex = mod._curr_module._exec_group._executor
+                steps.append((nll, {n: ex.grad_dict[n].asnumpy()
+                                    for n in weights}))
+                mod.update()
+            args, _ = mod.get_params()
+            runs[where] = (steps, {n: args[n].asnumpy() for n in weights})
+        card, cpu = runs["card"], runs["cpu"]
+        gap = {"nll": max(abs(a[0] - b[0]) for a, b in zip(card[0], cpu[0])),
+               "grad": max(float(np.abs(a[1][n] - b[1][n]).max()
+                                 / max(np.abs(b[1][n]).max(), 1e-30))
+                           for a, b in zip(card[0], cpu[0]) for n in weights),
+               "weight": max(float(np.abs(card[1][n] - cpu[1][n]).max())
+                             for n in weights)}
+        name = "fused" if fused else "unrolled"
+        for k in ("nll", "grad", "weight"):
+            check(gap[k] <= PTB_LIMITS[k], f"{name}, card vs CPU {k} gap "
+                  f"{gap[k]:.2e} <= {PTB_LIMITS[k]}")
+        res[name] = gap
+    return res
+
+
+def _rnn_case(device, mode, layers, bi, t, n, c, h, seed):
+    import torch
+
+    from mxnet_tpu_torch.ops import rnn_op
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    d = 2 if bi else 1
+
+    def rand(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=device) * scale
+
+    # the flat vector from the initializer's ``_parameters`` rule,
+    # U(-0.07, 0.07), the distribution the op trains from
+    size = rnn_op.rnn_param_size(mode, layers, c, h, bi)
+    params = (torch.rand(size, generator=g, device=device) - 0.5) * 0.14
+    ins = [rand(t, n, c), params, rand(layers * d, n, h, scale=0.5)]
+    if mode == "lstm":
+        ins.append(rand(layers * d, n, h, scale=0.5))
+    return {"mode": mode, "num_layers": layers, "state_size": h,
+            "bidirectional": bi, "state_outputs": True}, ins
+
+
+def _rnn_fwd_bwd(attrs, ins, plain, heads=None):
+    import torch
+
+    from mxnet_tpu_torch.ops import rnn_op
+    from mxnet_tpu_torch.ops.registry import OpCtx
+
+    leaves = [x.detach().requires_grad_() for x in ins]
+    outs = rnn_op.rnn_forward(OpCtx(is_train=True, device=ins[0].device),
+                              attrs, *leaves, plain=plain)
+    if heads is None:
+        heads = [torch.ones_like(o) for o in outs]
+    grads = torch.autograd.grad(outs, leaves, heads)
+    return [o.detach() for o in outs] + list(grads)
+
+
+def ptb_fused_vs_unrolled(mx, seed):
+    """The fused op against the unrolled cells at bucket 60, hidden 200
+    (weights packed, 1.0 added to the forget bias), inference; the fused
+    op's cuDNN route against its plain route for each mode and
+    bidirectional, outputs and gradients; and the cuDNN forward+backward
+    timed at the main path's shape beside the plain route."""
+    import torch
+
+    from mxnet_tpu_torch.ops import rnn_op
+
+    t, n, h, layers = PTB_TRACE_BUCKET, PTB_BATCH, PTB_HIDDEN, PTB_LAYERS
+    rng = np.random.default_rng(seed + 40)
+    stack = mx.rnn.SequentialRNNCell()
+    for i in range(layers):
+        stack.add(mx.rnn.LSTMCell(h, prefix=f"lstm_l{i}_"))
+    unrolled, _ = stack.unroll(t, inputs=mx.sym.Variable("data"),
+                               layout="TNC", merge_outputs=True)
+    shapes = dict(zip(unrolled.list_arguments(), unrolled.infer_shape(
+        data=(t, n, h), __batch_size__=(n,))[0]))
+    arrays = {k: (rng.standard_normal(s) * (1.0 if k == "data" else 0.1))
+              .astype(np.float32) for k, s in shapes.items()}
+    flat, hs, cs = [], [], []
+    for i in range(layers):
+        b_ih = arrays[f"lstm_l{i}_i2h_bias"].copy()
+        b_ih[h:2 * h] += 1.0
+        flat += [arrays[f"lstm_l{i}_i2h_weight"].ravel(),
+                 arrays[f"lstm_l{i}_h2h_weight"].ravel(), b_ih,
+                 arrays[f"lstm_l{i}_h2h_bias"]]
+        hs.append(arrays[f"lstm_l{i}_begin_state_0"])
+        cs.append(arrays[f"lstm_l{i}_begin_state_1"])
+    gpu = mx.gpu(0)
+    got_u = unrolled.bind(gpu, {k: mx.nd.array(a, gpu)
+                                for k, a in arrays.items()}).forward()[0]
+    fused = mx.sym.RNN(mx.sym.Variable("data"), mx.sym.Variable("p"),
+                       mx.sym.Variable("s"), mx.sym.Variable("sc"),
+                       state_size=h, num_layers=layers, mode="lstm")
+    rnn_op.reset_launches()
+    got_f = fused.bind(gpu, {
+        "data": mx.nd.array(arrays["data"], gpu),
+        "p": mx.nd.array(np.concatenate(flat), gpu),
+        "s": mx.nd.array(np.stack(hs), gpu),
+        "sc": mx.nd.array(np.stack(cs), gpu)}).forward()[0]
+    check(rnn_op.cudnn_calls == 1, "the fused op ran cuDNN")
+    gap = float((got_f.data - got_u.data).abs().max())
+    check(gap <= PTB_LIMITS["fused"], f"fused (cuDNN) vs unrolled cells at "
+          f"T {t}, N {n}, hidden {h}: {gap:.2e} <= {PTB_LIMITS['fused']}")
+    out = {"fused_vs_unrolled": gap, "routes": {}}
+    for mode, bi in (("lstm", False), ("gru", False), ("rnn_tanh", False),
+                     ("rnn_relu", False), ("lstm", True), ("gru", True),
+                     ("rnn_tanh", True)):
+        attrs, ins = _rnn_case(gpu.torch_device, mode, layers, bi, t, n, h,
+                               h, seed + 41)
+        cud = _rnn_fwd_bwd(attrs, ins, None)
+        plain = _rnn_fwd_bwd(attrs, ins, True)
+        err = max(float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
+                  for a, b in zip(cud, plain))
+        name = mode + ("_bidirectional" if bi else "")
+        limit = PTB_LIMITS.get("route_" + mode, PTB_LIMITS["fused"])
+        check(err <= limit, f"cuDNN route vs plain, {name}, outputs and "
+              f"gradients: {err:.2e} <= {limit}")
+        out["routes"][name] = err
+    # the main path's fused RNN (2 layers, T 60, N 32, 200 -> 200):
+    # forward and backward
+    attrs, ins = _rnn_case(gpu.torch_device, "lstm", layers, False, t, n, h,
+                           h, seed + 42)
+    attrs["state_outputs"] = False
+    heads = [torch.ones((t, n, h), device=gpu.torch_device)]
+    ms = time_cuda(lambda: _rnn_fwd_bwd(attrs, ins, None, heads))
+    # the call waits on the device inside (time_device cannot queue it):
+    # the profiler's device time of one call, every kernel counted
+    device_ms = device_busy_ms(lambda: _rnn_fwd_bwd(attrs, ins, None, heads))
+    plain_ms = time_cuda(lambda: _rnn_fwd_bwd(attrs, ins, True, heads),
+                         reps=3, warmup=1)
+    # forward 2*T*N*4H*(C+H) a layer, backward twice that; bytes: the
+    # parameters, data, states and output read or written once each way
+    flops = 3 * layers * 2.0 * t * n * 4 * h * (h + h)
+    nbytes = 4.0 * (2 * ins[1].numel() + 2 * t * n * h * 2
+                    + 4 * layers * n * h)
+    bound, by = bytes_bound(nbytes, flops)
+    out["cudnn_fwd_bwd"] = {"ms": ms, "device_busy_ms": device_ms,
+                            "plain_ms": plain_ms, "bound_ms": bound,
+                            "bound_by": by, "shape": [t, n, h, h, layers]}
+    # where cuDNN keeps each [W_ih, W_hh, b_ih, b_hh] block of the op's
+    # flat vector at this shape, and the gather's time when they move
+    flat = ins[1]
+    idx = rnn_op._cudnn_layout("lstm", flat.device, h, h, layers, False,
+                               flat.numel())
+    starts, off = [], 0
+    for layer in range(layers):
+        for size in (4 * h * h, 4 * h * h, 4 * h, 4 * h):
+            starts.append(off if idx is None else
+                          int((idx == off).nonzero()[0, 0]))
+            off += size
+    out["cudnn_layout"] = {
+        "flat_vector_as_is": idx is None, "block_starts": starts,
+        "gather_ms": None if idx is None else time_cuda(
+            lambda: torch.cat([flat, flat.new_zeros(1)])[idx])}
+    print("  fused vs unrolled: " + json.dumps(out), flush=True)
+    return out
+
+
+def ptb_dropout(mx, seed):
+    """Per-node masks on the card at (4096, 1024): two Dropout nodes of
+    equal shape draw different masks; a node before them that draws (in
+    place of one that does not) leaves them as they were; the kept share
+    is within 4 sigma of 1 - p; backward(out_grads) reproduces the masks."""
+    import torch
+
+    shape, p = (4096, 1024), 0.5
+    gpu = mx.gpu(0)
+
+    def pair(first_random):
+        first = (mx.sym.uniform(shape=(2, 2), name="first") if first_random
+                 else mx.sym._zeros(shape=(2, 2), name="first"))
+        x = mx.sym.Variable("x")
+        net = mx.sym.Group([first, mx.sym.Dropout(x, p=p, name="da"),
+                            mx.sym.Dropout(x, p=p, name="db")])
+        ex = net.bind(gpu, {"x": mx.nd.ones(shape, gpu)},
+                      args_grad={"x": mx.nd.zeros(shape, gpu)})
+        mx.random.seed(seed)
+        outs = ex.forward(is_train=True)
+        return outs[1].data, outs[2].data, ex
+
+    a, b, ex = pair(False)
+    a2, b2, _ = pair(True)
+    differ = float((a != b).float().mean())
+    check(differ > 0.4, f"two Dropout nodes draw different masks "
+          f"({differ:.3f} of entries differ)")
+    check(bool(torch.equal(a, a2) and torch.equal(b, b2)),
+          "their masks do not change when a node before them draws")
+    kept = float((a != 0).float().mean())
+    sigma = np.sqrt(p * (1 - p) / a.numel())
+    check(abs(kept - (1 - p)) < 4 * sigma, f"kept share {kept:.5f} within "
+          f"4 sigma ({4 * sigma:.5f}) of {1 - p}")
+    ex.backward([mx.nd.zeros((2, 2), gpu), mx.nd.ones(shape, gpu),
+                 mx.nd.zeros(shape, gpu)])
+    check(bool(torch.equal(ex.grad_dict["x"].data, a)),
+          "backward(out_grads) reproduces the forward's mask")
+    return {"differ_share": differ, "kept_share": kept, "sigma": sigma}
+
+
+def _gate_corpus(n, rng):
+    sents = []
+    for _ in range(n):
+        x = int(rng.randint(1, 62))
+        s = [x]
+        for _ in range(int(rng.choice(PTB_GATE["buckets"])) - 1):
+            x = (3 * x + 7) % 61 + 1
+            s.append(x)
+        sents.append(s)
+    return sents
+
+
+def ptb_gate(mx, fused):
+    """tests/test_lstm_bucketing.py's convergence gate through the port's
+    BucketingModule on the card."""
+    rng = np.random.RandomState(7)
+    train, val = _gate_corpus(600, rng), _gate_corpus(100, rng)
+    g = PTB_GATE
+    it = mx.rnn.BucketSentenceIter(train, 32, buckets=g["buckets"],
+                                   invalid_label=0)
+    iv = mx.rnn.BucketSentenceIter(val, 32, buckets=g["buckets"],
+                                   invalid_label=0)
+    factory = (mx.models.lstm_lm.fused_sym_gen_factory if fused
+               else mx.models.lstm_lm.sym_gen_factory)
+    mod = mx.mod.BucketingModule(
+        factory(num_hidden=g["hidden"], num_embed=g["embed"], num_layers=1,
+                vocab_size=g["vocab"]),
+        default_bucket_key=it.default_bucket_key, context=mx.gpu(0))
+    t0 = time.perf_counter()
+    mod.fit(it, eval_data=iv, eval_metric=mx.metric.Perplexity(0),
+            optimizer="adam", optimizer_params={"learning_rate": g["lr"]},
+            initializer=mx.init.Xavier(factor_type="in", magnitude=2.34),
+            num_epoch=g["epochs"])
+    ppl = dict(mod.score(iv, mx.metric.Perplexity(0)))["Perplexity"]
+    name = "fused" if fused else "unrolled"
+    check(np.isfinite(ppl) and ppl < g["ppl"], f"convergence gate, {name}: "
+          f"validation perplexity {ppl:.3f} < {g['ppl']}")
+    return {"perplexity": ppl, "seconds": time.perf_counter() - t0}
+
+
+def phase_ptb(mx, seed):
+    """The LSTM-PTB slice: the port's lstm_bucketing.py at its defaults
+    (unrolled and fused), card vs CPU, fused vs unrolled and cuDNN vs the
+    plain route, per-node Dropout, and the convergence gate."""
+    import torch
+
+    print(f"phase 12: LSTM-PTB through BucketingModule (lstm_bucketing.py "
+          f"defaults: {PTB_LAYERS} x {PTB_HIDDEN}, batch {PTB_BATCH}, "
+          f"buckets 10-60; vocab {PTB_VOCAB}, {PTB_SENTENCES} synthetic "
+          f"sentences, 1 epoch; TF32 cudnn="
+          f"{torch.backends.cudnn.allow_tf32} matmul="
+          f"{torch.backends.cuda.matmul.allow_tf32})", flush=True)
+    out = {}
+    for fused in (False, True):
+        out["fused" if fused else "unrolled"] = ptb_run(mx, fused, seed)
+        torch.cuda.empty_cache()
+    out["card_vs_cpu"] = ptb_card_vs_cpu(mx, seed)
+    out["fused_vs_unrolled"] = ptb_fused_vs_unrolled(mx, seed)
+    out["dropout"] = ptb_dropout(mx, seed)
+    out["gate"] = {("fused" if f else "unrolled"): ptb_gate(mx, f)
+                   for f in (False, True)}
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2401,6 +3005,7 @@ def main(argv=None):
     train = phase_train(mx, weights, args.seed)
     fit = phase_fit(mx, args.seed)
     records = phase_records(mx, args.seed)
+    ptb = phase_ptb(mx, args.seed)
 
     main_case = cases["slice_fp32_causal"]
     kernels = [{
@@ -2443,7 +3048,7 @@ def main(argv=None):
                    "slice": slice_out, "card_vs_cpu": parity,
                    "rtc_cases": rtc_cases, "imperative": imperative,
                    "amp": amp, "train": train, "fit": fit,
-                   "records": records,
+                   "records": records, "ptb": ptb,
                    "kernels": kernels,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)

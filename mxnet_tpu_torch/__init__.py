@@ -2,7 +2,7 @@
 
 The same public names as ``mxnet_tpu`` (``nd``, ``sym``, ``mod``, ``init``,
 ``optimizer``, ``lr_scheduler``, ``metric``, ``callback``, ``model``,
-``io``, ``recordio``, ``image``, ``Predictor``, contexts), over
+``io``, ``recordio``, ``image``, ``rnn``, ``Predictor``, contexts), over
 ``torch.Tensor``s. Entry points run on ``gpu(0)`` unless the caller passes
 ``mx.cpu()``; importing the package does not initialise CUDA. Kernels that
 the JAX package wrote in Pallas are hand-written CUDA here: ``csrc/`` built
@@ -46,6 +46,7 @@ from . import model
 from . import callback
 from . import module
 from . import module as mod
+from . import rnn
 from . import predictor
 from .predictor import Predictor
 from . import convert

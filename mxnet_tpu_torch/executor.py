@@ -17,7 +17,13 @@ bind (graphopt) do not change fp32 math and are not ported.
   ``grad_req`` (write, add or null).
 - ``backward(out_grads)`` runs the observed forward again with the given head
   gradients: on the arguments bound now, the aux inputs of that forward and
-  its random-number state.
+  its random numbers.
+- Random numbers (Dropout's masks, the RNN op's, ``_sample_*``): in a
+  training walk each node draws from its own generator, seeded from one draw
+  of the device's generator for the step and the node's index in the
+  topological order (:class:`NodeRandom`; the reference's
+  ``fold_in(key, node_index)``). A node's numbers do not depend on how many
+  numbers the nodes walked before it drew.
 
 ``amp_dtype`` (e.g. ``"bfloat16"``) is the reference's mixed precision: the
 bound fp32 arrays stay fp32 master copies, and each ``forward`` casts them
@@ -73,6 +79,43 @@ def _fed_tensor(v, device):
     return torch.from_numpy(np.ascontiguousarray(a)).to(device, copy=True)
 
 
+_MASK64 = (1 << 64) - 1
+
+
+def _mix(base, index):
+    """splitmix64 of ``base`` and ``index``: a 63-bit seed."""
+    x = (base + 0x9E3779B97F4A7C15 * (index + 1)) & _MASK64
+    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return (x ^ (x >> 31)) >> 1
+
+
+class NodeRandom:
+    """The random source of one training walk: :meth:`node` gives node
+    ``i`` a generator on ``device`` seeded from the step's seed and ``i``.
+    The step's seed is one draw of the device's generator, made when the
+    first node asks (a walk without random nodes draws nothing; on the card
+    the draw reads one number back from the device). The same object
+    replays the same numbers."""
+
+    def __init__(self, device):
+        self.device = device
+        self.seed = None
+
+    def node(self, index):
+        import torch
+
+        from . import random as _random
+
+        if self.seed is None:
+            self.seed = int(torch.randint(
+                0, 2 ** 62, (1,), device=self.device,
+                generator=_random.generator(self.device)).item())
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(_mix(self.seed, index))
+        return gen
+
+
 def _normalize(arrays, names, what, allow_missing=False):
     """``arrays`` (a dict by name, or a list in ``names``' order, None for
     none) as a dict by name."""
@@ -121,7 +164,7 @@ class Executor:
         self.outputs: list = []
         self._pending_grads = None
         self._last_aux = None        # aux inputs of the last train forward
-        self._last_rng_state = None  # its generator state
+        self._last_rng = None        # its NodeRandom
 
     def _walk(self, op_ctx, arg_vals, aux_vals):
         """Evaluate the graph on ``arg_vals``/``aux_vals`` (dicts of tensors
@@ -129,7 +172,7 @@ class Executor:
         aux update is seen by every later reader in the same walk."""
         vals = {}
         new_aux = dict(aux_vals)
-        for node in self._topo:
+        for index, node in enumerate(self._topo):
             if node.is_variable:
                 if node.name in arg_vals:
                     vals[(id(node), 0)] = _amp_cast(
@@ -142,6 +185,7 @@ class Executor:
             op = get_op(node.op)
             ins = [vals[(id(n), i)] for n, i in node.inputs]
             aux = [vals[(id(a), 0)] for a in node.aux_vars]
+            op_ctx.node = index
             outs, aux_out = op.normalized_call(op_ctx, node.attrs, ins, aux)
             for i, o in enumerate(outs):
                 vals[(id(node), i)] = o
@@ -190,7 +234,6 @@ class Executor:
         that :meth:`backward` writes. Returns the output NDArrays."""
         import torch
 
-        from . import random as _random
         from .ndarray import NDArray
 
         for k, v in kwargs.items():
@@ -206,12 +249,12 @@ class Executor:
                 outs, _ = self._walk(op_ctx, args, aux_vals)
             self.outputs = [NDArray(o) for o in outs]
             return self.outputs
-        rng = _random.generator(self._ctx.torch_device)
+        rng = NodeRandom(self._ctx.torch_device)
         # an explicit backward(out_grads) later re-runs the forward the
         # caller observed: the aux inputs before this forward's update, and
         # the random numbers it drew
         self._last_aux = aux_vals
-        self._last_rng_state = rng.get_state()
+        self._last_rng = rng
         if self._diff_args:
             outs, new_aux, self._pending_grads = self._forward_backward(
                 aux_vals, rng)
@@ -242,12 +285,10 @@ class Executor:
             if isinstance(out_grads, NDArray):
                 out_grads = [out_grads]
             device = self._ctx.torch_device
-            rng = torch.Generator(device=device)
-            rng.set_state(self._last_rng_state)
             heads = [(g.data if isinstance(g, NDArray) else g).to(device)
                      for g in out_grads]
             _, _, self._pending_grads = self._forward_backward(
-                self._last_aux, rng, heads)
+                self._last_aux, self._last_rng, heads)
         if self._pending_grads is None:
             raise MXNetError("backward called before forward(is_train=True)")
         for name, g in self._pending_grads.items():

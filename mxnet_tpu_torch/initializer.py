@@ -4,7 +4,11 @@ An initializer is called with a parameter's name and its NDArray and fills
 the array in place of its old value; the name decides how (the reference's
 ``__call__``): ``*_bias`` and ``*_beta`` get 0, ``*_gamma`` 1, ``*_weight``
 the initializer's own rule, and BatchNorm's moving statistics their start
-values (``*_moving_mean`` and ``*_moving_avg`` 0, ``*_moving_var`` 1).
+values (``*_moving_mean`` and ``*_moving_avg`` 0, ``*_moving_var`` 1), the
+RNN op's flat ``*_parameters`` vector U(-0.07, 0.07) from ``np.random`` (the
+reference's draw: its flat shape hides the fans), and the RNN cells' and
+op's states (``*begin_state*``, ``*_state``, ``*_state_cell``, ``*_init_h``,
+``*_init_c``) 0.
 Random draws come from :mod:`mxnet_tpu_torch.random`, the
 ``torch.Generator`` of the array's device, so one ``mx.random.seed`` gives
 the same weights again. They are not the reference's threefry draws:
@@ -39,6 +43,11 @@ class Initializer:
             self._init_zero(name, arr)
         elif name.endswith("_moving_var"):
             self._init_one(name, arr)
+        elif name.endswith("_parameters"):
+            self._init_rnn_parameters(name, arr)
+        elif name.endswith(("_init_c", "_init_h", "_state", "_state_cell")) \
+                or "begin_state" in name:
+            self._init_zero(name, arr)
         else:
             self._init_default(name, arr)
 
@@ -55,6 +64,9 @@ class Initializer:
 
     def _init_one(self, _, arr):
         arr[:] = 1.0
+
+    def _init_rnn_parameters(self, _, arr):
+        arr[:] = np.random.uniform(-0.07, 0.07, arr.shape).astype(np.float32)
 
     _init_bias = _init_zero
     _init_beta = _init_zero

@@ -3,9 +3,11 @@ python/mxnet/metric.py:22-426).
 
 A metric's ``update(labels, preds)`` takes lists of NDArrays and reads them
 on the host (``asnumpy``), as the reference does: one device-to-host copy
-of each output a batch. ``create`` finds a metric by its registered name
-(``"acc"``, ``"ce"``, ...), wraps a function, or composes a list. The
-reference's ``Torch`` and ``Caffe`` plugin metrics are not ported.
+of each output a batch (``Perplexity`` gathers the label's probability on
+the device first and copies one value a row). ``create`` finds a metric by
+its registered name (``"acc"``, ``"ce"``, ...), wraps a function, or
+composes a list. The reference's ``Torch`` and ``Caffe`` plugin metrics
+are not ported.
 """
 from __future__ import annotations
 
@@ -195,6 +197,24 @@ class F1(EvalMetric):
             self.num_inst += 1
 
 
+def _label_probs(pred, label):
+    """``take_along_axis(pred.reshape(-1, V), label)`` (numpy's negative
+    indices included) gathered where ``pred`` lies, so that only one value
+    a row comes to the host, not the (rows, V) matrix; the values are the
+    ones ``pred.asnumpy()`` holds."""
+    import torch
+
+    from .ndarray import NDArray
+
+    v = pred.shape[-1]
+    if label.size and (label.max() >= v or label.min() < -v):
+        raise IndexError(f"label out of range for {v} classes")
+    rows = pred.data.reshape(-1, v)
+    idx = torch.from_numpy(numpy.where(label < 0, label + v, label)
+                           .astype(numpy.int64)).to(rows.device)
+    return NDArray(rows.gather(1, idx[:, None])[:, 0]).asnumpy()
+
+
 @_register()
 class Perplexity(EvalMetric):
     """Reference: metric.py:226 Perplexity."""
@@ -210,14 +230,13 @@ class Perplexity(EvalMetric):
         num = 0
         for label, pred in zip(labels, preds):
             label = label.asnumpy()
-            pred = pred.asnumpy()
             if pred.size == label.size:
                 # per-token NLL, not probabilities (FusedCrossEntropyHead
                 # outputs the loss directly and never materializes the
                 # (N, V) probability matrix — ops/fused_ce.py); ignored
                 # positions are exact 0 there, so only the count adjusts
                 lbl = label.reshape(-1).astype("int32")
-                loss += float(numpy.sum(pred))
+                loss += float(numpy.sum(pred.asnumpy()))
                 num += lbl.size
                 if self.ignore_label is not None:
                     num -= int(numpy.sum(lbl == self.ignore_label))
@@ -225,8 +244,7 @@ class Perplexity(EvalMetric):
             assert label.size == pred.size / pred.shape[self.axis], \
                 "shape mismatch between prediction and label"
             label = label.reshape((label.size,)).astype("int32")
-            probs = numpy.take_along_axis(
-                pred.reshape(-1, pred.shape[-1]), label[:, None], axis=-1)[:, 0]
+            probs = _label_probs(pred, label)
             if self.ignore_label is not None:
                 ignore = (label == self.ignore_label).astype(probs.dtype)
                 num -= int(numpy.sum(ignore))

@@ -1,9 +1,9 @@
 """Model symbol builders ported so far (reference: mxnet_tpu/models): each
 module has ``get_symbol(num_classes, ...)``, and :func:`get_model` finds one
 by the name a training script passes (``--network``)."""
-from . import resnet, transformer_lm
+from . import lstm_lm, resnet, transformer_lm
 
-__all__ = ["resnet", "transformer_lm", "get_model"]
+__all__ = ["lstm_lm", "resnet", "transformer_lm", "get_model"]
 
 _MODELS = {"resnet": resnet, "transformer_lm": transformer_lm}
 

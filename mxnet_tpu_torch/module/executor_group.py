@@ -4,16 +4,19 @@ mxnet_tpu/module/executor_group.py), on one device.
 One executor, bound with a grad array for each argument whose gradient is
 asked for. Its ``arg_dict`` NDArrays are the ones ``Module.update`` hands the
 optimizer, which rebinds them to the updated weights, so the next
-``forward`` reads those. Data-parallel groups over several devices wait for
-the multi-device work.
+``forward`` reads those. With ``shared_group`` (a bucket of a
+``BucketingModule``) every argument, gradient and aux array whose name and
+shape match the shared group's is that group's NDArray object, so the
+buckets read and update one set of parameters and nothing is copied.
+Data-parallel groups over several devices wait for the multi-device work.
 """
 from __future__ import annotations
 
 from ..base import MXNetError
 from ..context import cpu
-from ..executor import _fed_tensor
+from ..executor import Executor, _fed_tensor
 from ..io import DataDesc
-from ..ndarray import NDArray
+from ..ndarray import NDArray, zeros
 
 __all__ = ["DataParallelExecutorGroup"]
 
@@ -21,7 +24,8 @@ __all__ = ["DataParallelExecutorGroup"]
 class DataParallelExecutorGroup:
     def __init__(self, symbol, contexts, data_shapes, label_shapes,
                  param_names, for_training, inputs_need_grad,
-                 fixed_param_names=None, grad_req="write", amp=None):
+                 fixed_param_names=None, grad_req="write", amp=None,
+                 shared_group=None):
         if len(contexts) != 1:
             raise MXNetError(f"Module on {len(contexts)} devices: only one "
                              "device is ported")
@@ -53,8 +57,33 @@ class DataParallelExecutorGroup:
 
         shapes = {d.name: d.shape
                   for d in self.data_shapes + self.label_shapes}
-        self._executor = symbol.simple_bind(
-            self.contexts[0], grad_req=self.grad_req, amp_dtype=amp, **shapes)
+        if self.data_shapes:
+            # the batch of partial shapes (RNN begin states) is on the
+            # layout's N axis, not always the first
+            d0 = self.data_shapes[0]
+            shapes["__batch_size__"] = (
+                d0.shape[DataDesc.get_batch_axis(d0.layout)],)
+        arg_shapes, _, aux_shapes = symbol.infer_shape(**shapes)
+        missing = [n for n, s in zip(self.arg_names, arg_shapes) if s is None]
+        if missing:
+            raise MXNetError(f"cannot infer shapes for arguments {missing}")
+        shared = shared_group._executor if shared_group is not None else None
+
+        def _array(name, shape, kind):
+            got = getattr(shared, kind).get(name) if shared else None
+            if got is not None and got.shape == tuple(shape):
+                return got
+            return zeros(shape, self.contexts[0])
+
+        args = {n: _array(n, s, "arg_dict")
+                for n, s in zip(self.arg_names, arg_shapes)}
+        grads = {n: _array(n, s, "grad_dict")
+                 for n, s in zip(self.arg_names, arg_shapes)
+                 if self.grad_req[n] != "null"}
+        auxs = {n: _array(n, s, "aux_dict")
+                for n, s in zip(self.aux_names, aux_shapes)}
+        self._executor = Executor(symbol, self.contexts[0], args, grads,
+                                  self.grad_req, auxs, amp_dtype=amp)
         self.execs = [self._executor]
         d0 = self.data_shapes[0] if self.data_shapes else None
         self.batch_size = d0.shape[DataDesc.get_batch_axis(d0.layout)] \

@@ -16,7 +16,11 @@ CUDA graph, is later work. The context defaults to the card.
 Checkpoints carry the optimizer's states (``prefix-NNNN.states``, this
 package's pickle of numpy arrays by index) when asked, written at once or
 by a background thread; ``Module.load(load_optimizer_states=True)`` restores
-them at ``init_optimizer``. ``device_prefetch`` wraps an iterator in an
+them at ``init_optimizer``. ``bind(shared_module=...)`` binds over another
+module's parameter, gradient and aux arrays (a bucket of
+``BucketingModule``), and ``borrow_optimizer`` takes that module's optimizer
+and updater, whose states stay keyed by the shared module's parameter
+indices. ``device_prefetch`` wraps an iterator in an
 :class:`~mxnet_tpu_torch.io.DevicePrefetchIter` over the bound group.
 """
 from __future__ import annotations
@@ -97,6 +101,9 @@ class Module(BaseModule):
         inputs = self._data_names + self._label_names
         self._param_names = [n for n in symbol.list_arguments()
                              if n not in inputs]
+        # the updater's index of each parameter (the shared module's after
+        # borrow_optimizer, so states carry across buckets)
+        self._param_index = {n: i for i, n in enumerate(self._param_names)}
         self._fixed_param_names = list(fixed_param_names or [])
         self._aux_names = symbol.list_auxiliary_states()
         self._output_names = symbol.list_outputs()
@@ -299,7 +306,12 @@ class Module(BaseModule):
 
     # -- bind --------------------------------------------------------------------
     def bind(self, data_shapes, label_shapes=None, for_training=True,
-             inputs_need_grad=False, force_rebind=False, grad_req="write"):
+             inputs_need_grad=False, force_rebind=False, shared_module=None,
+             grad_req="write"):
+        """Bind the executor group (reference: module.py ``bind``). With
+        ``shared_module`` (bound, its parameters initialized) the arrays
+        whose names and shapes match are that module's, and so are the
+        parameter dicts: this module counts as initialized."""
         if force_rebind:
             self._exec_group = None
             self.binded = False
@@ -314,13 +326,24 @@ class Module(BaseModule):
                              for d in data_shapes]
         self._label_shapes = [d if isinstance(d, DataDesc) else DataDesc(*d)
                               for d in label_shapes] if label_shapes else None
+        shared_group = None
+        if shared_module is not None:
+            if not (isinstance(shared_module, Module) and shared_module.binded
+                    and shared_module.params_initialized):
+                raise MXNetError("bind: shared_module must be a bound Module "
+                                 "with initialized parameters")
+            shared_group = shared_module._exec_group
         self._exec_group = DataParallelExecutorGroup(
             self._symbol, self._context, self._data_shapes,
             self._label_shapes, self._param_names, for_training,
             inputs_need_grad, fixed_param_names=self._fixed_param_names,
-            grad_req=grad_req, amp=self._amp)
+            grad_req=grad_req, amp=self._amp, shared_group=shared_group)
         self.binded = True
-        if self.params_initialized:
+        if shared_module is not None:
+            self.params_initialized = True
+            self._arg_params = shared_module._arg_params
+            self._aux_params = shared_module._aux_params
+        elif self.params_initialized:
             self._exec_group.set_params(self._arg_params, self._aux_params)
 
     # -- optimizer ---------------------------------------------------------------
@@ -351,6 +374,23 @@ class Module(BaseModule):
             self.load_optimizer_states(self._preload_opt_states)
             self._preload_opt_states = None
 
+    def borrow_optimizer(self, shared_module):
+        """Use ``shared_module``'s optimizer and updater (reference:
+        module.py ``borrow_optimizer``), with its parameter indices."""
+        if not shared_module.optimizer_initialized:
+            raise MXNetError("borrow_optimizer: the shared module has no "
+                             "optimizer")
+        missing = [n for n in self._param_names
+                   if n not in shared_module._param_index]
+        if missing:
+            raise MXNetError(f"borrow_optimizer: parameters {missing} are "
+                             "not the shared module's")
+        self._optimizer = shared_module._optimizer
+        self._kvstore = shared_module._kvstore
+        self._updater = shared_module._updater
+        self._param_index = shared_module._param_index
+        self.optimizer_initialized = True
+
     # -- execution ---------------------------------------------------------------
     def forward(self, data_batch, is_train=None):
         assert self.binded and self.params_initialized
@@ -368,11 +408,11 @@ class Module(BaseModule):
         self._params_dirty = True
         grads = self._exec_group.get_grads()
         arg_dict = self._exec_group._executor.arg_dict
-        idxs = [i for i, n in enumerate(self._param_names) if n in grads]
-        if idxs:
+        names = [n for n in self._param_names if n in grads]
+        if names:
             self._updater.update_multi(
-                idxs, [grads[self._param_names[i]] for i in idxs],
-                [arg_dict[self._param_names[i]] for i in idxs])
+                [self._param_index[n] for n in names],
+                [grads[n] for n in names], [arg_dict[n] for n in names])
 
     def get_outputs(self, merge_multi_context=True):
         assert self.binded and self.params_initialized

@@ -15,6 +15,7 @@ from . import tensor as _tensor  # noqa: F401  (registration side effects)
 from . import nn as _nn  # noqa: F401
 from . import attention as _attention  # noqa: F401
 from . import fused_ce as _fused_ce  # noqa: F401
+from . import rnn_op as _rnn_op  # noqa: F401
 
 __all__ = ["OpCtx", "coerce_attrs", "get_op", "list_ops", "register_op",
            "imperative_invoke", "make_imperative_namespace"]

@@ -16,7 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from .registry import register_op
-from .tensor import as_int32, take_fill
+from .tensor import as_int32, op_rng, take_fill
 
 
 # ---------------------------------------------------------------------------
@@ -301,6 +301,36 @@ def _batch_norm(ctx, attrs, data, gamma, beta, moving_mean, moving_var):
 
 
 # ---------------------------------------------------------------------------
+# Dropout (reference: src/operator/dropout-inl.h), its mask from the node's
+# generator (:func:`~.tensor.op_rng`)
+
+
+def keep_mask(gen, keep, shape, device):
+    """A boolean mask of ``shape``, each entry true with probability
+    ``keep``, drawn from ``gen`` (one uniform draw an entry)."""
+    return torch.rand(shape, generator=gen, device=device) < keep
+
+
+def dropout_apply(ctx, data, p):
+    """The reference's train-mode dropout: keep with probability 1 - p and
+    scale the kept values by 1 / (1 - p)."""
+    keep = 1.0 - p
+    mask = keep_mask(op_rng(ctx, data.device), keep, data.shape, data.device)
+    return torch.where(mask, data / keep, torch.zeros((), dtype=data.dtype,
+                                                      device=data.device))
+
+
+@register_op("Dropout")
+def _dropout(ctx, attrs, data):
+    """The identity in inference or at ``p`` = 0; in training each entry is
+    kept with probability 1 - p and scaled by 1 / (1 - p)."""
+    p = float(attrs.get("p", 0.5))
+    if not ctx.is_train or p <= 0.0:
+        return data
+    return dropout_apply(ctx, data, p)
+
+
+# ---------------------------------------------------------------------------
 # Embedding (reference: src/operator/tensor/indexing_op.cc Embedding)
 
 
@@ -316,6 +346,34 @@ def _embedding(ctx, attrs, data, weight):
     a negative id in [-n, 0) wraps, and an id outside [-n, n) gives a NaN
     row (:func:`~.tensor.take_fill`)."""
     return take_fill(weight, data, 0)
+
+
+# ---------------------------------------------------------------------------
+# Concat / SliceChannel (reference: src/operator/{concat,slice_channel}-inl.h)
+
+
+@register_op("Concat", inputs=lambda attrs: [
+    f"arg{i}" for i in range(int(attrs.get("num_args", 2)))],
+    alias=("concat",))
+def _concat(ctx, attrs, *args):
+    return torch.cat(args, dim=int(attrs.get("dim", 1)))
+
+
+@register_op("SliceChannel",
+             num_outputs=lambda attrs: int(attrs.get("num_outputs", 1)),
+             alias=("split",))
+def _slice_channel(ctx, attrs, data):
+    """``num_outputs`` equal parts along ``axis`` (views of the input),
+    the axis squeezed away under ``squeeze_axis``."""
+    n = int(attrs.get("num_outputs", 1))
+    axis = int(attrs.get("axis", 1))
+    if data.shape[axis] % n:
+        raise ValueError(f"SliceChannel: axis {axis} of {tuple(data.shape)} "
+                         f"does not split into {n} equal parts")
+    parts = torch.chunk(data, n, dim=axis)
+    if attrs.get("squeeze_axis", False):
+        parts = [q.squeeze(axis) for q in parts]
+    return tuple(parts)
 
 
 # ---------------------------------------------------------------------------

@@ -29,11 +29,13 @@ class OpCtx:
     for ops that draw random numbers; ``mesh`` is the device mesh the
     enclosing program is partitioned over (None off mesh); ``device`` is the
     ``torch.device`` on which ops with no inputs create their result (None:
-    the current context's).
+    the current context's). ``node`` is the walking node's index in the
+    graph's topological order (a per-node ``rng`` seeds from it).
     """
 
     is_train: bool = False
     rng: object | None = None
+    node: int = 0
     mesh: object | None = None
     device: object | None = None
 

@@ -727,12 +727,20 @@ def _ones_like(ctx, attrs, data):
 # The two give different numbers from one seed; the distributions agree.
 
 
-def _rng(ctx, device):
-    if getattr(ctx, "rng", None) is not None:
-        return ctx.rng
-    from .. import random as _random
+def op_rng(ctx, device):
+    """The generator an op draws from: ``ctx.rng`` when it is a
+    ``torch.Generator``; the node's own generator when it is a training
+    walk's per-node source (``ctx.rng.node(ctx.node)``, see
+    :class:`~mxnet_tpu_torch.executor.NodeRandom`); else the per-device
+    generator of :mod:`mxnet_tpu_torch.random`."""
+    rng = getattr(ctx, "rng", None)
+    if rng is None:
+        from .. import random as _random
 
-    return _random.generator(device)
+        return _random.generator(device)
+    if isinstance(rng, torch.Generator):
+        return rng
+    return rng.node(ctx.node)
 
 
 @register_op("_sample_uniform", inputs=(),
@@ -742,7 +750,7 @@ def _sample_uniform(ctx, attrs):
     shape = tuple(attrs.get("shape", (1,)))
     low = float(attrs.get("low", 0.0))
     high = float(attrs.get("high", 1.0))
-    u = torch.rand(shape, generator=_rng(ctx, device), device=device,
+    u = torch.rand(shape, generator=op_rng(ctx, device), device=device,
                    dtype=_dtype(attrs.get("dtype")))
     return low + (high - low) * u
 
@@ -753,7 +761,7 @@ def _sample_normal(ctx, attrs):
     shape = tuple(attrs.get("shape", (1,)))
     loc = float(attrs.get("loc", 0.0))
     scale = float(attrs.get("scale", 1.0))
-    z = torch.randn(shape, generator=_rng(ctx, device), device=device,
+    z = torch.randn(shape, generator=op_rng(ctx, device), device=device,
                     dtype=torch.float32)
     return loc + scale * z
 

@@ -19,7 +19,7 @@ from .name import NameManager
 from .ops import get_op, list_ops
 from .ops.registry import OpCtx, coerce_attrs
 
-__all__ = ["Symbol", "Variable", "var", "load", "load_json"]
+__all__ = ["Symbol", "Variable", "var", "Group", "load", "load_json"]
 
 _FORMAT = "mxnet_tpu_v1"
 
@@ -87,6 +87,18 @@ class Symbol:
     def __repr__(self):
         return f"<Symbol {self.name or 'grouped'}>"
 
+    def __iter__(self):
+        return (self[i] for i in range(len(self.list_outputs())))
+
+    def __getitem__(self, index):
+        """One output, by position or by its name in ``list_outputs``."""
+        if isinstance(index, str):
+            outputs = self.list_outputs()
+            if index not in outputs:
+                raise MXNetError(f"no output named {index!r} in {outputs}")
+            index = outputs.index(index)
+        return Symbol([self._entries()[index]])
+
     def _entries(self):
         """Flatten heads into (node, out_idx) output entries."""
         entries = []
@@ -126,13 +138,39 @@ class Symbol:
         return {n.name: {k: str(v) for k, v in n.attrs.items()}
                 for n in self._nodes() if n.attrs}
 
-    # -- composition ---------------------------------------------------------
+    # -- composition (the reference's op names, symbol.py:177-212) -----------
+    def _binop(self, other, op_ew, op_scalar):
+        if isinstance(other, Symbol):
+            return _create(op_ew, self, other)
+        return _create(op_scalar, self, scalar=float(other))
+
     def __add__(self, other):
-        if not isinstance(other, Symbol):
-            raise MXNetError("Symbol + scalar is not yet ported")
-        return _create("elemwise_add", self, other)
+        return self._binop(other, "elemwise_add", "_plus_scalar")
 
     __radd__ = __add__
+
+    def __sub__(self, other):
+        return self._binop(other, "elemwise_sub", "_minus_scalar")
+
+    def __rsub__(self, other):
+        return _create("_rminus_scalar", self, scalar=float(other))
+
+    def __mul__(self, other):
+        return self._binop(other, "elemwise_mul", "_mul_scalar")
+
+    __rmul__ = __mul__
+
+    def __truediv__(self, other):
+        return self._binop(other, "elemwise_div", "_div_scalar")
+
+    def __rtruediv__(self, other):
+        return _create("_rdiv_scalar", self, scalar=float(other))
+
+    def __pow__(self, other):
+        return self._binop(other, "_power", "_power_scalar")
+
+    def __neg__(self):
+        return _create("_mul_scalar", self, scalar=-1.0)
 
     # -- inference -----------------------------------------------------------
     def infer_shape(self, *args, **kwargs):
@@ -167,15 +205,21 @@ class Symbol:
             return torch.empty(shape, dtype=dtype, device="meta")
 
         vals: dict[int, list] = {}   # id(node) -> [meta tensor | None]
-        default_batch = next((s[0] for s in known.values() if s and s[0]),
-                             None)
+        # MXNet partial shapes: a 0 in a declared variable shape (the RNN
+        # cells' begin states) takes the batch, ``__batch_size__`` when the
+        # caller knows it (time-major data), else the first known shape's
+        # leading dim
+        known = dict(known)
+        default_batch = known.pop("__batch_size__", (None,))[0]
+        if default_batch is None:
+            default_batch = next(
+                (s[0] for s in known.values() if s and s[0]), None)
         nodes = self._nodes()
         for node in nodes:
             if node.is_variable:
                 shp = known.get(node.name)
                 if shp is None and "__shape__" in node.attrs:
                     shp = tuple(node.attrs["__shape__"])
-                    # MXNet partial shapes: 0 is the batch dim, unknown
                     if 0 in shp and default_batch is not None:
                         shp = tuple(default_batch if d == 0 else d
                                     for d in shp)
@@ -300,6 +344,13 @@ class Symbol:
         return Executor(self, ctx, args, args_grad, grad_req, aux_states,
                         amp_dtype=amp_dtype)
 
+    def eval(self, ctx=None, **kwargs):
+        """Bind the named arrays and run one inference forward (reference:
+        symbol.py ``eval``); returns the output NDArrays."""
+        from .context import current_context
+
+        return self.bind(ctx or current_context(), kwargs).forward()
+
 
 def _attr_str(v):
     if isinstance(v, (tuple, list)):
@@ -327,6 +378,15 @@ def Variable(name, attr=None, shape=None, dtype=None, **kwargs):
 var = Variable
 
 
+def Group(symbols):
+    """One symbol whose outputs are those of ``symbols``, in order
+    (reference: symbol.py ``Group``)."""
+    heads = []
+    for s in symbols:
+        heads.extend(s._entries())
+    return Symbol(heads)
+
+
 def _create(op_name, *args, name=None, attr=None, **kwargs):
     """Create an op node (reference: symbol.py _create)."""
     op = get_op(op_name)
@@ -335,6 +395,10 @@ def _create(op_name, *args, name=None, attr=None, **kwargs):
                           if not isinstance(v, Symbol)})
     for k, v in op.attr_defaults.items():
         attrs.setdefault(k, v)
+    # variable-arity ops (Concat) count their inputs
+    probe = op.input_names(attrs)
+    if probe and probe[0] == "arg0" and "num_args" not in attrs:
+        attrs["num_args"] = len(args) + len(sym_kwargs)
     name = NameManager.current().get(name, op.name.lower().lstrip("_"))
     node_attrs = dict(attrs)
     for k, v in AttrScope.current().get(attr).items():
