@@ -6,8 +6,9 @@ hidden 1024, 16 heads, 12 layers, T=2048): transformer-LM inference through
 ``Executor(amp_dtype="bfloat16")``, its training through
 ``Module(amp="bfloat16")``, ResNet-50 training through ``Module.fit``, and
 from a RecordIO file through ``train_imagenet.py``, and the LSTM-PTB
-language model through ``BucketingModule`` and ``lstm_bucketing.py``;
-holds every CUDA kernel on those paths against its plain PyTorch version.
+language model through ``BucketingModule`` and ``lstm_bucketing.py``, then
+the training paths again with the step captured as a CUDA graph; holds
+every CUDA kernel on those paths against its plain PyTorch version.
 Phases, in order; any failed check ends the run with a non-zero exit and no
 result line:
 
@@ -115,7 +116,36 @@ result line:
    ``PTB_LIMITS``), cuDNN's forward and backward timed beside the loop;
    per-node Dropout masks at (4096, 1024); and
    ``tests/test_lstm_bucketing.py``'s gate (validation perplexity below 6)
-   with both variants.
+   with both variants;
+13. the one-program step: the module's fused step (forward, backward and
+   the optimizer's update) captured as one CUDA graph a binding and
+   replayed. (a) phase 12's lstm_bucketing.py epoch, unrolled and fused,
+   one graph a bucket; (b) ResNet-50 through train_imagenet.py at phase
+   11's config with prefetch and ``MXNET_RUN_N_STEPS`` 1 and 4; (c) phase
+   9's LM training step, six steps. Per path and bucket: ``captured`` (and
+   the rule that refused a capture), steady step ms, tokens/s or img/s,
+   one probe step's host issue ms, kernels, kernel busy ms and idle share,
+   warm-up and capture ms, peak allocated and reserved memory. The
+   kernels' wrappers count Python calls, which a replay does not make: the
+   kernels a replay ran come from its profiler trace. Checks: (a) and
+   (b)'s captured steps against the step function run eagerly from the
+   same start (bit-identical where two eager runs are, else weights within
+   1e-5 of each array's max-abs); (a)'s weights within rtol 2e-4, atol
+   2e-5 of phase 12's split path, cuDNN's RNN kernels in each fused
+   bucket's traced replay, and the gate (< 6) with both variants; (b)'s
+   losses within 1e-4 of the split path's and ``run_n_steps(4)``
+   bit-identical to four single captured steps (deterministic cuDNN); (c)
+   12 bf16 flash kernels traced in each of six steps, a falling NLL (the
+   first loss phase 9's, the first five within 1e-4 of them), and each step
+   against two eager runs started from the captured run's weights and Adam
+   states (gradients kept with ``MXTPU_FUSED_GRADS=1``): the per-token NLL
+   and every gradient and state array bit-identical where the two eager
+   runs are (else the NLL within 1e-4 and a gradient within one bf16 ulp,
+   2^-7, of its max-abs), and the captured update bit-identical to Adam's
+   rule run eagerly on the captured step's gradients and rates.
+
+Phases 9-12 run with ``MXTPU_NO_FUSED_STEP=1``: they measure the split path
+that earlier slices recorded.
 
 Run from the repo root: ``python3 chip_smoke.py [--seed N]``.
 The last line of standard output is ``{"ok": true, "device": {...}}``.
@@ -128,6 +158,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -1124,10 +1155,11 @@ def _kernels_under(evt):
     return out
 
 
-def traced_groups(fn, ranges=TRAIN_RANGES, counts=None):
+def traced_groups(fn, ranges=TRAIN_RANGES, counts=None, spans=None):
     """Device ms of ``fn`` by kernel name, and the kernels (name, ms) under
     each host range of ``ranges``, from one profiler run; ``counts`` (a
-    dict) gets the number of launches by kernel name."""
+    dict) gets the number of launches by kernel name, ``spans`` (a list)
+    each kernel's (start, end) in µs."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1147,6 +1179,11 @@ def traced_groups(fn, ranges=TRAIN_RANGES, counts=None):
     if counts is not None:
         counts.update({e.key: e.count for e in prof.key_averages()
                        if e.key in by_name})
+    if spans is not None:
+        spans += [(e.time_range.start, e.time_range.end)
+                  for e in prof.events()
+                  if e.device_type == DeviceType.CUDA
+                  and e.key in by_name and "Mem" not in e.key]
     groups = {g: [] for g in ranges}
     for evt in prof.events():
         for g, names in ranges.items():
@@ -2363,13 +2400,12 @@ def rec_gate(mx, gate):
     return {"accuracy": acc, "seconds": secs}
 
 
-def phase_records(mx, seed):
+def phase_records(mx, seed, tmp):
     """ResNet-50 training from a RecordIO file through the port's
-    train_imagenet.py: the data, the decode rates, two full-width runs
-    (without and with device prefetch), the copies, the prefetch
-    bit-identity, resume, and the convergence gate."""
-    import tempfile
-
+    train_imagenet.py: the data (written under ``tmp``, where phase 13
+    reads it too), the decode rates, two full-width runs (without and with
+    device prefetch), the copies, the prefetch bit-identity, resume, and
+    the convergence gate."""
     import torch
 
     pool = decode_pool_size()
@@ -2378,30 +2414,29 @@ def phase_records(mx, seed):
           f"train_imagenet.py (JPEG decode route {route!r}, "
           f"{pool} decode workers of {os.cpu_count()} cores)", flush=True)
     torch.cuda.reset_peak_memory_stats()
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_rec") as tmp:
-        rec, gate, out = make_records(mx, tmp, seed)
-        out.update(decode_route=route, decode_threads=pool,
-                   cpu_count=os.cpu_count())
-        before = sum(mx.image.ROUTES.values())
-        out["decode"] = decode_rates(mx, rec, pool)
-        runs = []
-        for prefetch in (False, True):
-            mod, run = rec_fit(mx, rec, pool, prefetch, seed)
-            runs.append(run)
-            del mod
-            torch.cuda.empty_cache()
-        out["fit"] = runs
-        it = rec_iter(mx, rec, 0, augment=False, parts=REC_IMAGES // REC_BATCH)
-        out["h2d"] = h2d_copies(mx, it.next())
-        it.close()
-        out["prefetch_identity"] = prefetch_identity(mx, rec, pool, seed)
-        out["resume"] = resume_check(mx, rec, seed, tmp)
-        routes = dict(mx.image.ROUTES)
-        check(sum(routes.values()) > before
-              and routes.get(route, 0) == sum(routes.values()),
-              f"every JPEG decoded through the {route!r} route: {routes}")
-        out["decodes_by_route"] = routes
-        out["gate"] = rec_gate(mx, gate)
+    rec, gate, out = make_records(mx, tmp, seed)
+    out.update(rec=rec, decode_route=route, decode_threads=pool,
+               cpu_count=os.cpu_count())
+    before = sum(mx.image.ROUTES.values())
+    out["decode"] = decode_rates(mx, rec, pool)
+    runs = []
+    for prefetch in (False, True):
+        mod, run = rec_fit(mx, rec, pool, prefetch, seed)
+        runs.append(run)
+        del mod
+        torch.cuda.empty_cache()
+    out["fit"] = runs
+    it = rec_iter(mx, rec, 0, augment=False, parts=REC_IMAGES // REC_BATCH)
+    out["h2d"] = h2d_copies(mx, it.next())
+    it.close()
+    out["prefetch_identity"] = prefetch_identity(mx, rec, pool, seed)
+    out["resume"] = resume_check(mx, rec, seed, tmp)
+    routes = dict(mx.image.ROUTES)
+    check(sum(routes.values()) > before
+          and routes.get(route, 0) == sum(routes.values()),
+          f"every JPEG decoded through the {route!r} route: {routes}")
+    out["decodes_by_route"] = routes
+    out["gate"] = rec_gate(mx, gate)
     return out
 
 
@@ -2568,10 +2603,11 @@ def ptb_traced_step(mx, model, data_train, bucket):
             "top_kernels": [[k[:80], t] for k, t in top]}
 
 
-def ptb_run(mx, fused, seed):
+def ptb_run(mx, fused, seed, keep):
     """The port's lstm_bucketing.py at its defaults for one epoch of the
     synthetic corpus at PTB's vocabulary; per-bucket steady step ms, bind
-    ms, tokens/s, peak memory, and one traced bucket-60 step."""
+    ms, tokens/s, peak memory, and one traced bucket-60 step. ``keep[fused]``
+    gets the weights after the epoch."""
     import torch
 
     from mxnet_tpu_torch.examples.rnn import lstm_bucketing
@@ -2591,14 +2627,12 @@ def ptb_run(mx, fused, seed):
     restore = ptb_bind_timer(mx, binds)
     t0 = time.perf_counter()
     try:
-        model, data_train, _ = lstm_bucketing.main(
-            ["--num-epochs", "1", "--vocab-size", str(PTB_VOCAB),
-             "--num-sentences", str(PTB_SENTENCES), "--seed", str(seed),
-             "--fused-rnn", str(int(fused)), "--disp-batches", "24"],
-            batch_end_callback=[stamp])
+        model, data_train, _ = _ptb_main(mx, fused, seed, stamp)
     finally:
         restore()
     fit_s = time.perf_counter() - t0
+    # the weights after the epoch, which phase 13 holds its steps to
+    keep[fused] = [a.cpu().numpy() for a in _bucket_arrays(model)]
     cudnn_fit = rnn_op.cudnn_calls
     n_steps = len(stamps)
     check(n_steps == len(data_train.idx)
@@ -2960,10 +2994,11 @@ def ptb_gate(mx, fused):
     return {"perplexity": ppl, "seconds": time.perf_counter() - t0}
 
 
-def phase_ptb(mx, seed):
+def phase_ptb(mx, seed, keep):
     """The LSTM-PTB slice: the port's lstm_bucketing.py at its defaults
     (unrolled and fused), card vs CPU, fused vs unrolled and cuDNN vs the
-    plain route, per-node Dropout, and the convergence gate."""
+    plain route, per-node Dropout, and the convergence gate; ``keep`` gets
+    each variant's weights after the epoch."""
     import torch
 
     print(f"phase 12: LSTM-PTB through BucketingModule (lstm_bucketing.py "
@@ -2974,13 +3009,746 @@ def phase_ptb(mx, seed):
           f"{torch.backends.cuda.matmul.allow_tf32})", flush=True)
     out = {}
     for fused in (False, True):
-        out["fused" if fused else "unrolled"] = ptb_run(mx, fused, seed)
+        out["fused" if fused else "unrolled"] = ptb_run(mx, fused, seed,
+                                                        keep)
         torch.cuda.empty_cache()
     out["card_vs_cpu"] = ptb_card_vs_cpu(mx, seed)
     out["fused_vs_unrolled"] = ptb_fused_vs_unrolled(mx, seed)
     out["dropout"] = ptb_dropout(mx, seed)
     out["gate"] = {("fused" if f else "unrolled"): ptb_gate(mx, f)
                    for f in (False, True)}
+    return out
+
+
+# ------------------------------------------------ phase 13: the one-program step
+
+# the comparison runs of (b): steps from one start, deterministic cuDNN
+GRAPH_FIT_STEPS = 4
+GRAPH_LM_STEPS = 6          # (c): phase 9's step count plus one
+GRAPH_LM_TIMED = 4          # (c): replays timed alone after them
+GRAPH_REC_EPOCHS = 2        # (b): epochs of train_imagenet.py a run
+# where two eager runs differ, the captured run is held to the phase's
+# card-vs-CPU limits (of each array's max-abs; the NLL relative): phase
+# 9's NLL and gradients, phase 10's and 12's weights
+GRAPH_NLL_LIMIT = 1e-4
+# (c) under bf16 amp every gradient is a bf16 value; where two eager runs
+# part (the embedding's bf16 scatter-add sums a repeated id's rows in any
+# order), one bf16 ulp of the array's largest element: 2^-7 of its max-abs
+GRAPH_BF16_GRAD_LIMIT = 2.0 ** -7
+GRAPH_WEIGHT_LIMIT = 1e-5
+# the reference's fused-vs-split limits (tests/test_fused_step.py:55-58)
+GRAPH_SPLIT_RTOL, GRAPH_SPLIT_ATOL = 2e-4, 2e-5
+
+
+class eager_steps:
+    """While open, every fused step built runs its function eagerly on the
+    card (the reference the captured steps are held to)."""
+
+    def __enter__(self):
+        from mxnet_tpu_torch.module import step_graph
+
+        self._init = init = step_graph.StepProgram.__init__
+
+        def eager_init(prog, *a, **k):
+            init(prog, *a, **k)
+            prog.capturable = False
+
+        step_graph.StepProgram.__init__ = eager_init
+        return self
+
+    def __exit__(self, *exc):
+        from mxnet_tpu_torch.module import step_graph
+
+        step_graph.StepProgram.__init__ = self._init
+
+
+def _module_arrays(mod):
+    """Copies of a module's parameters, aux states and optimizer states on
+    the card, in a fixed order."""
+    args, aux = mod.get_params()
+    out = [args[k].data.clone() for k in sorted(args)]
+    out += [aux[k].data.clone() for k in sorted(aux)]
+    for i in sorted(mod._updater.states):
+        out += [t.clone() for t in
+                mod._optimizer._state_leaves(mod._updater.states[i])]
+    return out
+
+
+def _max_rel(got, want):
+    """The largest gap of two lists of tensors, each over its want's
+    max-abs (at least 1)."""
+    return max(float((a.float() - b.float()).abs().max())
+               / max(1.0, float(b.float().abs().max()))
+               for a, b in zip(got, want))
+
+
+def hold_to_eager(what, captured, eager1, eager2, limits):
+    """The captured run against the eager function's from the same start;
+    each run is a dict of parts (lists of tensors). Bit-identical where the
+    two eager runs are, else each part of ``limits`` within its limit of
+    each array's max-abs (at least 1)."""
+    import torch
+
+    def same(a, b):
+        return all(len(a[k]) == len(b[k]) and all(
+            torch.equal(x, y) for x, y in zip(a[k], b[k])) for k in a)
+
+    exact, bit = same(eager1, eager2), same(captured, eager1)
+    errs = {k: 0.0 if bit else _max_rel(captured[k], eager1[k])
+            for k in captured}
+    spread = {k: _max_rel(eager2[k], eager1[k]) for k in captured}
+    if exact:
+        check(bit, f"{what}: the captured steps bit-identical to the eager "
+              f"function's (two eager runs are; gaps {errs})")
+    else:
+        check(all(errs[k] <= lim for k, lim in limits.items()),
+              f"{what}: captured vs eager {errs} within {limits} (two eager "
+              f"runs differ by {spread})")
+    return {"eager_runs_bit_identical": exact,
+            "captured_bit_identical": bit, "max_rel_err": errs,
+            "eager_spread": spread}
+
+
+def graph_step_probe(mx, model, batch, steady_ms):
+    """Two priming steps of ``model`` on ``batch`` (a warm-up and a capture
+    where the step was built anew), then one step whose issue the host
+    times (forward, backward and update return before the card is done),
+    one between two CUDA events, and one under the profiler: kernels a
+    step, kernel busy ms, the idle share against ``steady_ms``."""
+    import torch
+
+    def step():
+        model.forward(batch, is_train=True)
+        model.backward()
+        model.update()
+
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    step()
+    end.record()
+    torch.cuda.synchronize()
+    counts, spans = {}, []
+    by_name, _ = traced_groups(step, {}, counts, spans)
+    kernels = {k: t for k, t in by_name.items()
+               if "Memcpy" not in k and "Memset" not in k}
+    # cuDNN's RNN kernels: elemWiseRNNcell, LSTM_elementWise_*, RNN_*
+    rnn = sum(counts[k] for k in kernels if "RNN" in k or "LSTM" in k)
+    # kernels of a graph may run side by side: busy is the time covered by
+    # at least one kernel, beside their summed time
+    busy, end_us = 0.0, None
+    for s0, s1 in sorted(spans):
+        if end_us is None or s0 > end_us:
+            busy += s1 - s0
+            end_us = s1
+        elif s1 > end_us:
+            busy += s1 - end_us
+            end_us = s1
+    busy /= 1e3
+    return {"host_issue_ms": host_ms, "step_wall_ms": wall_ms,
+            "event_ms": start.elapsed_time(end),
+            "kernels": sum(counts[k] for k in kernels),
+            "rnn_kernels": rnn,
+            "kernel_sum_ms": sum(kernels.values()),
+            "kernel_busy_ms": busy,
+            "idle_share": 1.0 - busy / steady_ms if busy else None,
+            "copies_ms": {k: t for k, t in by_name.items() if "Mem" in k}}
+
+
+def _memory():
+    import torch
+
+    return {"peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "peak_reserved_gb": torch.cuda.max_memory_reserved() / 1e9}
+
+
+def _ptb_main(mx, fused, seed, callback=None):
+    """lstm_bucketing.py at phase 12's arguments from one start: the
+    corpus, its shuffles and the initial weights seeded."""
+    import random
+
+    from mxnet_tpu_torch.examples.rnn import lstm_bucketing
+
+    random.seed(seed)
+    np.random.seed(seed)
+    mx.random.seed(seed)
+    return lstm_bucketing.main(
+        ["--num-epochs", "1", "--vocab-size", str(PTB_VOCAB),
+         "--num-sentences", str(PTB_SENTENCES), "--seed", str(seed),
+         "--fused-rnn", str(int(fused)), "--disp-batches", "24"],
+        batch_end_callback=[callback] if callback else [])
+
+
+def _bucket_arrays(model):
+    args, _ = model.get_params()
+    return [args[k].data.clone() for k in sorted(args)]
+
+
+def graph_ptb(mx, fused, seed, split_weights):
+    """(a) one epoch of lstm_bucketing.py at its defaults with the captured
+    step: steady ms and tokens/s by bucket, each bucket's graph, a probe
+    step a bucket; held to two eager runs and to phase 12's split run."""
+    import torch
+
+    from mxnet_tpu_torch.examples.rnn import lstm_bucketing
+    from mxnet_tpu_torch.ops import rnn_op
+
+    name = "fused" if fused else "unrolled"
+    torch.cuda.reset_peak_memory_stats()
+    rnn_op.reset_launches()
+    stamps, infos = [], {}
+
+    def stamp(p):
+        b = p.locals["data_batch"]
+        lbl = b.label[0].asnumpy()
+        stamps.append((b.bucket_key, time.perf_counter(),
+                       int((lbl != lstm_bucketing.INVALID_LABEL).sum())))
+        # fit builds the steps again as it ends: read them inside it
+        infos.update(p.locals["self"].step_info())
+
+    t0 = time.perf_counter()
+    model, data_train, _ = _ptb_main(mx, fused, seed, stamp)
+    fit_s = time.perf_counter() - t0
+    captured = _bucket_arrays(model)
+    cudnn_fit = rnn_op.cudnn_calls
+    # a bucket's first step warms up, its second captures: steady from its
+    # third on
+    seen, by_bucket = {}, {}
+    tok = secs = 0.0
+    for prev, cur in zip(stamps, stamps[1:]):
+        key, dt = cur[0], cur[1] - prev[1]
+        seen[key] = seen.get(key, 0) + 1
+        if seen[key] <= 2:
+            continue
+        by_bucket.setdefault(key, []).append(dt * 1e3)
+        tok += cur[2]
+        secs += dt
+    steady = {k: float(np.median(v)) for k, v in sorted(by_bucket.items())}
+    out = {"fused": fused, "steps": len(stamps), "fit_s": fit_s,
+           "steady_step_ms_by_bucket": steady,
+           "steady_steps_by_bucket": {k: len(v)
+                                      for k, v in sorted(by_bucket.items())},
+           "tokens_per_s": tok / secs, "cudnn_calls_fit": cudnn_fit,
+           "steps_by_bucket_in_fit": {k: infos[k] for k in sorted(infos)},
+           **_memory()}
+    check(len(stamps) == len(data_train.idx), f"{name}: one epoch of "
+          f"{len(stamps)} batches")
+    refusals = {k: i["refusal"] for k, i in infos.items()
+                if i and i["refusal"]}
+    # the probe steps: one a bucket, after fit rebuilt the steps
+    data_train.reset()
+    probes = {}
+    for bucket in sorted(steady):
+        place = next(i for i, (b, _) in enumerate(data_train.idx)
+                     if data_train.buckets[b] == bucket)
+        data_train.curr_idx = place
+        batch = data_train.next()
+        probes[bucket] = graph_step_probe(mx, model, batch, steady[bucket])
+        probes[bucket].update(
+            {k: model.step_info()[bucket][k] for k in
+             ("captured", "refusal", "warmup_ms", "capture_ms")})
+    out["probe_by_bucket"] = probes
+    if fused:
+        # the RNN op's counter counts Python calls (a bucket's warm-up and
+        # capture, the evaluation); each probe step's trace shows what the
+        # card ran
+        ran = {k: p["rnn_kernels"] for k, p in probes.items()}
+        check(all(n > 0 for n in ran.values()), f"{name}: each bucket's "
+              f"traced step ran cuDNN's RNN kernels: {ran}")
+    out["memory_after_probes"] = {
+        "reserved_gb": torch.cuda.memory_reserved() / 1e9, **_memory()}
+    print(f"  (a) {name}: captured "
+          f"{sorted(k for k, i in infos.items() if i and i['captured'])}, "
+          f"refused "
+          f"{refusals}; steady ms by bucket {steady}; "
+          f"{out['tokens_per_s']:.0f} tokens/s", flush=True)
+    del model
+    torch.cuda.empty_cache()
+    eager = []
+    for _ in range(2):
+        with eager_steps():
+            m, _, _ = _ptb_main(mx, fused, seed)
+        eager.append(_bucket_arrays(m))
+        del m
+    out["vs_eager"] = hold_to_eager(
+        f"(a) {name}", {"weights": captured}, *[{"weights": e} for e in eager],
+        {"weights": PTB_LIMITS["weight"]})
+    bad = [k for k, (a, b) in enumerate(zip(captured, split_weights))
+           if not np.allclose(a.cpu().numpy(), b, rtol=GRAPH_SPLIT_RTOL,
+                              atol=GRAPH_SPLIT_ATOL)]
+    gap = max(float(np.abs(a.cpu().numpy() - b).max())
+              for a, b in zip(captured, split_weights))
+    check(len(captured) == len(split_weights) and not bad,
+          f"(a) {name}: weights after the epoch within rtol "
+          f"{GRAPH_SPLIT_RTOL}, atol {GRAPH_SPLIT_ATOL} of the split path's "
+          f"(phase 12; largest gap {gap:.2e})")
+    out["vs_split_max_abs"] = gap
+    out["gate"] = ptb_gate(mx, fused)
+    print("  " + json.dumps(out), flush=True)
+    return out
+
+
+def _fit_module(mx, seed):
+    """ResNet-50 at phase 10's config (bf16 amp, batch 256, 224 px, SGD),
+    its initial weights drawn from ``seed``."""
+    symbol = resnet_symbol(mx, FIT_CLASSES, FIT_PX)
+    args, aux = resnet_weights(symbol, FIT_BATCH, FIT_PX, seed)
+    mod = mx.mod.Module(symbol, context=mx.gpu(0), amp="bfloat16")
+    mod.bind(data_shapes=[("data", (FIT_BATCH, 3, FIT_PX, FIT_PX))],
+             label_shapes=[("softmax_label", (FIT_BATCH,))])
+    a, x_ = mx.convert.params_from_numpy(args, aux, mx.cpu())
+    mod.init_params(arg_params=a, aux_params=x_)
+    mod.init_optimizer(optimizer="sgd", optimizer_params=FIT_SGD)
+    return mod
+
+
+def _nll(probs, labels):
+    import torch
+
+    p = probs.float().gather(1, labels.long()[:, None])[:, 0]
+    return float(-torch.log(p.clamp_min(1e-30)).mean())
+
+
+def graph_fit_compare(mx, seed):
+    """(b) ResNet-50 steps from one start with deterministic cuDNN: the
+    captured steps against two eager runs and the split path's losses;
+    ``run_n_steps(4)`` against four single captured steps."""
+    import torch
+
+    gpu = mx.gpu(0)
+    n = GRAPH_FIT_STEPS
+    rng = np.random.default_rng(seed + 50)
+    y = rng.integers(0, FIT_CLASSES, (2 * n, FIT_BATCH)).astype(np.float32)
+    batches = []
+    for i in range(2 * n):
+        xb = rng.standard_normal((FIT_BATCH, 3, FIT_PX, FIT_PX),
+                                 dtype=np.float32)
+        batches.append(mx.io.DataBatch(data=[mx.nd.array(xb, mx.cpu())],
+                                       label=[mx.nd.array(y[i], mx.cpu())]))
+    labels = [torch.from_numpy(y[i]).to(gpu.torch_device)
+              for i in range(2 * n)]
+
+    def run(capture, split=False):
+        if split:
+            os.environ["MXTPU_NO_FUSED_STEP"] = "1"
+        try:
+            mod = _fit_module(mx, seed)
+        finally:
+            os.environ.pop("MXTPU_NO_FUSED_STEP", None)
+        if not split:
+            mod._fused_step_fn.capturable = capture
+        losses = []
+        for b, lab in zip(batches[:n], labels):
+            mod.forward(b, is_train=True)
+            mod.backward()
+            mod.update()
+            losses.append(_nll(mod.get_outputs()[0].data, lab))
+        arrays = _module_arrays(mod) + [mod.get_outputs()[0].data.clone()]
+        info = mod.step_info()
+        del mod
+        torch.cuda.empty_cache()
+        return arrays, losses, info
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        got, losses, info = run(True)
+        e1, _, _ = run(False)
+        e2, _, _ = run(False)
+        out = {"steps": n, "info": info, "losses": losses}
+        check(info["captured"] and info["replays"] == n - 1,
+              f"(b) the captured run replayed {info['replays']} of {n} steps")
+        out["vs_eager"] = hold_to_eager(
+            "(b) ResNet-50 bf16", {"state": got}, {"state": e1},
+            {"state": e2}, {"state": GRAPH_WEIGHT_LIMIT})
+        del got, e1, e2
+        _, split_losses, _ = run(False, split=True)
+        gap = max(abs(a - b) / abs(b) for a, b in zip(losses, split_losses))
+        check(all(np.isfinite(losses)) and gap <= GRAPH_NLL_LIMIT,
+              f"(b) captured losses {losses} within {GRAPH_NLL_LIMIT} of the "
+              f"split path's {split_losses} (gap {gap:.2e})")
+        out["split_losses"] = split_losses
+        out["vs_split_nll_gap"] = gap
+        # run_n_steps(4) against four single captured steps, both captured
+        # first on two batches
+        ends = []
+        for multi in (False, True):
+            mod = _fit_module(mx, seed)
+            metric = mx.metric.create("acc")
+            for b in batches[:2]:
+                mod.forward(b, is_train=True)
+                mod.backward()
+                mod.update()
+            if multi:
+                mod.run_n_steps(batches[n:2 * n], eval_metric=metric)
+            else:
+                for b in batches[n:2 * n]:
+                    mod.forward(b, is_train=True)
+                    mod.backward()
+                    mod.update()
+                    mod.update_metric(metric, b.label)
+            ends.append((_module_arrays(mod)
+                         + [mod.get_outputs()[0].data.clone()],
+                         metric.get()[1], mod.step_info()["replays"],
+                         mod._optimizer.num_update))
+            del mod
+            torch.cuda.empty_cache()
+        (a1, m1, r1, u1), (a4, m4, r4, u4) = ends
+        same = all(torch.equal(a, b) for a, b in zip(a1, a4))
+        check(same and m1 == m4 and r1 == r4 == n + 1 and u1 == u4 == n + 2,
+              f"(b) run_n_steps({n}) bit-identical to {n} single captured "
+              f"steps (arrays {same}, metric {m1} == {m4}, replays {r1} == "
+              f"{r4}, updates {u1} == {u4})")
+        out["run_n_steps_bit_identical"] = same
+    finally:
+        torch.backends.cudnn.deterministic = False
+    return out
+
+
+def graph_rec_fit(mx, rec, pool, run_n, seed):
+    """(b) one epoch of train_imagenet.py at phase 11's config with
+    prefetch and ``MXNET_RUN_N_STEPS=run_n``: the steady step (a super-step
+    over ``run_n``), img/s, the step's graph and a probe step."""
+    import torch
+
+    from mxnet_tpu_torch.examples.image_classification import train_imagenet
+
+    torch.cuda.reset_peak_memory_stats()
+    it = rec_iter(mx, rec, pool)
+    stamps, infos = [], []
+
+    def stamp(p):
+        stamps.append((p.nbatch, time.perf_counter()))
+        # fit builds the step again as it ends: read it inside
+        dp = p.locals["train_data"]
+        infos[:] = [p.locals["self"].step_info(),
+                    {"depth": dp._depth, "starved_count": dp.starved_count,
+                     "staged_count": dp.staged_count}]
+    os.environ["MXNET_DEVICE_PREFETCH"] = "1"
+    os.environ["MXNET_RUN_N_STEPS"] = str(run_n)
+    mx.random.seed(seed)
+    t0 = time.perf_counter()
+    try:
+        mod = train_imagenet.main(
+            ["--data-train", rec + ".rec", "--num-examples", str(REC_IMAGES),
+             "--batch-size", str(REC_BATCH), "--num-epochs",
+             str(GRAPH_REC_EPOCHS), "--disp-batches", "4"],
+            data_loader=lambda a, kv: (it, None),
+            batch_end_callback=[stamp])
+    finally:
+        os.environ.pop("MXNET_DEVICE_PREFETCH")
+        os.environ.pop("MXNET_RUN_N_STEPS")
+        it.close()
+    secs = time.perf_counter() - t0
+    steps = REC_IMAGES // REC_BATCH
+    want = list(range(run_n - 1, steps, run_n))
+    check([s[0] for s in stamps] == want * GRAPH_REC_EPOCHS,
+          f"(b) n={run_n}: callbacks at batches {[s[0] for s in stamps]}")
+    # per step: intervals between callbacks of one epoch over run_n; the
+    # first super-step (warm-up and capture) comes before the first
+    # callback, and for single steps the capture step is the first interval
+    per = []
+    for e in range(GRAPH_REC_EPOCHS):
+        at = [s[1] for s in stamps[e * len(want):(e + 1) * len(want)]]
+        gaps = list(np.diff(at) * 1e3 / run_n)
+        per += gaps[1:] if e == 0 and run_n == 1 else gaps
+    steady = float(np.median(per))
+    info, stager = infos
+    out = {"run_n_steps": run_n, "fit_s": secs, "step_ms": per,
+           "stager": stager,
+           "steady_step_ms": steady,
+           "images_per_s": REC_BATCH / (steady / 1e3), "steps_in_fit": info,
+           **_memory()}
+    check(info["captured"] and info["replays"] == GRAPH_REC_EPOCHS * steps - 1,
+          f"(b) n={run_n}: the step captured, {info['replays']} replays of "
+          f"{GRAPH_REC_EPOCHS * steps} steps")
+    probe_it = rec_iter(mx, rec, 0, augment=False,
+                        parts=REC_IMAGES // REC_BATCH)
+    batch = probe_it.next()
+    probe_it.close()
+    out["probe"] = graph_step_probe(mx, mod, batch, steady)
+    out["probe"].update({k: mod.step_info()[k] for k in
+                         ("captured", "warmup_ms", "capture_ms")})
+    out["reserved_gb"] = torch.cuda.memory_reserved() / 1e9
+    _, aux = mod.get_params()
+    check(all(np.isfinite(a.asnumpy()).all() for a in aux.values()),
+          f"(b) n={run_n}: the moving statistics finite")
+    print(f"  (b) n={run_n}: steady {steady:.1f} ms a step, "
+          f"{out['images_per_s']:.0f} img/s; " + json.dumps(out), flush=True)
+    del mod
+    torch.cuda.empty_cache()
+    return out
+
+
+def _lm_named(mod):
+    """The LM module's weights and Adam states by name (live tensors)."""
+    ex = mod._exec_group._executor
+    out = {}
+    for name, i in zip(ex._diff_args, mod._fused_indices):
+        out[name] = ex.arg_dict[name].data
+        leaves = mod._optimizer._state_leaves(mod._updater.states.get(i))
+        for k, t in enumerate(leaves):
+            out[f"{name}:state{k}"] = t
+    return out
+
+
+def _worst(got, want):
+    """The array whose gap is the largest share of its own max-abs (phase
+    9's definition), with that share, its worst element and the values
+    there and the array's max-abs."""
+    worst = None
+    for name, b in want.items():
+        a = got[name].float()
+        b = b.float()
+        diff = (a - b).abs()
+        scale = float(b.abs().max())
+        rel = float(diff.max()) / max(scale, 1e-30)
+        if worst is None or rel > worst["rel"]:
+            k = int(diff.argmax())
+            worst = {"name": name, "rel": rel, "element": k,
+                     "got": float(a.reshape(-1)[k]),
+                     "want": float(b.reshape(-1)[k]), "max_abs": scale}
+    return worst
+
+
+def _kernel_counts(fn):
+    counts = {}
+    by_name, _ = traced_groups(fn, {}, counts)
+    return {k: counts[k] for k in by_name
+            if "Memcpy" not in k and "Memset" not in k}
+
+
+def graph_lm(mx, weights, seed, split_nll):
+    """(c) phase 9's LM training step at full width, captured. The main
+    path: six steps on phase 9's repeated batch, each under the profiler,
+    which counts the bf16 flash kernels the card ran in it (the warm-up's,
+    then each replay's: the wrapper's counter sees Python calls only, the
+    warm-up's and the capture's); then steps timed alone and a probe step.
+    Then the captured step held, step by step, to two eager runs started
+    from the captured run's weights and Adam states: the per-token NLL and
+    each gradient and state array bit-identical where the two eager runs
+    are; where they part, the NLL within 1e-4 and the gradients within
+    ``GRAPH_BF16_GRAD_LIMIT`` of their max-abs, beside a stale-gradient
+    control; the captured update bit-identical to Adam's fused rule run
+    eagerly on the captured step's own gradients and rates."""
+    import torch
+
+    from mxnet_tpu_torch.ops.flash_attention import (flash_attention,
+                                                     reset_launches)
+
+    gpu = mx.gpu(0)
+    batch, y = lm_batch(mx, np.random.default_rng(seed + 11), TRAIN_BATCH,
+                        SEQ, gpu)
+    valid = torch.from_numpy(y.reshape(-1) != -1).to(gpu.torch_device)
+    tokens = TRAIN_BATCH * SEQ
+
+    def build(capture, grads=False):
+        if grads:
+            os.environ["MXTPU_FUSED_GRADS"] = "1"
+        try:
+            mod = lm_module(mx, LAYERS, TRAIN_BATCH, SEQ, weights, gpu,
+                            "bfloat16", True)
+        finally:
+            os.environ.pop("MXTPU_FUSED_GRADS", None)
+        mod._fused_step_fn.capturable = capture
+        return mod
+
+    def step(mod):
+        mod.forward(batch, is_train=True)
+        mod.backward()
+        mod.update()
+
+    def nll(mod):
+        return mod.get_outputs()[0].data[valid].float()
+
+    # the main path
+    torch.cuda.reset_peak_memory_stats()
+    mod = build(True)
+    reset_launches()
+    flash_tc, flash_f32, losses = [], [], []
+    for _ in range(GRAPH_LM_STEPS):
+        counts = _kernel_counts(lambda: step(mod))
+        flash_tc.append(sum(c for k, c in counts.items()
+                            if "flash_fwd_tc" in k))
+        flash_f32.append(sum(c for k, c in counts.items()
+                             if "flash_fwd" in k and "flash_fwd_tc" not in k))
+        losses.append(float(nll(mod).mean()))
+    calls = dict(flash_attention.launches_by_dtype)
+    info = mod.step_info()
+    step_ms = []
+    for _ in range(GRAPH_LM_TIMED):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        step(mod)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+    steady = float(np.median(step_ms))
+    out = {"losses": losses, "flash_tc_kernels_by_step": flash_tc,
+           "flash_f32_kernels_by_step": flash_f32,
+           "launches": sum(flash_tc), "wrapper_calls": calls, "info": info,
+           "step_ms": step_ms, "steady_step_ms": steady,
+           "tokens_per_s": tokens / (steady / 1e3)}
+    out["probe"] = graph_step_probe(mx, mod, batch, steady)
+    out["reserved_gb"] = torch.cuda.memory_reserved() / 1e9
+    out.update(_memory())
+    del mod
+    torch.cuda.empty_cache()
+    check(info["captured"] and (info["warmups"], info["captures"],
+                                info["replays"]) == (1, 1, GRAPH_LM_STEPS - 1),
+          f"(c) the LM step warmed up, captured and replayed: {info}")
+    check(flash_tc == [LAYERS] * GRAPH_LM_STEPS and sum(flash_f32) == 0,
+          f"(c) the card ran {LAYERS} bf16 flash kernels in each step (the "
+          f"warm-up, then each replay; traced): {flash_tc}, fp32 {flash_f32}")
+    check(calls["bfloat16"] == 2 * LAYERS and calls["float32"] == 0,
+          f"(c) the wrapper was called {2 * LAYERS} times (the warm-up and "
+          f"the capture; a replay makes no call): {calls}")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"(c) NLL finite and falling on the repeated batch: {losses}")
+    # the first step computes the split path's forward from the same
+    # weights; later ones follow a trajectory whose own run-to-run spread
+    # (the split path's nondeterministic kernels, magnified by Adam) passes
+    # 1e-4 absolute by step 5: held relative to the loss
+    gap = max(abs(a - b) / abs(b) for a, b in zip(losses, split_nll))
+    check(losses[0] == split_nll[0] and gap <= GRAPH_NLL_LIMIT,
+          f"(c) the first loss phase 9's ({losses[0]} == {split_nll[0]}), "
+          f"the first {len(split_nll)} within {GRAPH_NLL_LIMIT} of its "
+          f"(relative gap {gap:.2e})")
+    out["vs_split_nll_gap"] = gap
+
+    # step by step against the eager function, gradients kept
+    # (MXTPU_FUSED_GRADS=1)
+    cap = build(True, grads=True)
+    eager = [build(False, grads=True) for _ in range(2)]
+    steps, prev = [], None
+    for t in range(GRAPH_LM_STEPS):
+        if t:
+            src = _lm_named(cap)
+            for e in eager:
+                for name, dst in _lm_named(e).items():
+                    dst.copy_(src[name])
+        cap._fused_states()   # Adam's zero states before the first step
+        before = {k: v.clone() for k, v in _lm_named(cap).items()}
+        runs = []
+        for m in (cap, *eager):
+            if t == 1 and m is eager[0]:
+                # the first replay beside an eager step: their kernels
+                kinds = {"replay": counts_cap, "eager": _kernel_counts(
+                    lambda: step(m))}
+            elif t == 1 and m is cap:
+                counts_cap = _kernel_counts(lambda: step(m))
+            else:
+                step(m)
+            g = m._exec_group.get_grads()
+            runs.append({"nll": nll(m),
+                         "grads": {k: g[k].data for k in sorted(g)},
+                         "state": _lm_named(m)})
+        c, e1, e2 = runs
+        # the captured update against Adam's rule run eagerly on the
+        # captured step's own gradients and rates
+        prog = cap._fused_step_fn
+        redo = {}
+        with torch.no_grad():
+            for p, (name, i) in enumerate(zip(prog.names, prog.indices)):
+                w = before[name].clone()
+                leaves = tuple(
+                    before[f"{name}:state{k}"].clone() for k in range(len(
+                        cap._optimizer._state_leaves(
+                            cap._updater.states[i]))))
+                cap._optimizer._tree_update(w, c["grads"][name], leaves,
+                                            prog._lrs[p], prog._wds[p])
+                redo[name] = w
+                for k, x in enumerate(leaves):
+                    redo[f"{name}:state{k}"] = x
+        row = {"step": t + 1,
+               "update_bit_identical": all(torch.equal(redo[k], c["state"][k])
+                                           for k in redo),
+               "nll_eager_bit_identical": torch.equal(e1["nll"], e2["nll"]),
+               "nll_bit_identical": torch.equal(c["nll"], e1["nll"]),
+               "nll_abs": float((c["nll"] - e1["nll"]).abs().max()),
+               "nll_abs_eager_spread": float((e2["nll"] - e1["nll"]).abs()
+                                             .max())}
+        for part in ("grads", "state"):
+            differ = [k for k in e1[part]
+                      if not torch.equal(e1[part][k], e2[part][k])]
+            row[part] = {
+                "eager_runs_differ_in": differ,
+                "bit_identical_where_eager_is": all(
+                    torch.equal(c[part][k], e1[part][k])
+                    for k in e1[part] if k not in differ),
+                "gap": _worst({k: c[part][k] for k in differ},
+                              {k: e1[part][k] for k in differ})
+                if differ else None,
+                "eager_spread": _worst({k: e2[part][k] for k in differ},
+                                       {k: e1[part][k] for k in differ})
+                if differ else None}
+        differ = row["grads"]["eager_runs_differ_in"]
+        # a control the limit must tell apart: the same leaves' gradients
+        # one step stale
+        row["grads"]["stale_control"] = _worst(
+            prev, {k: e1["grads"][k] for k in prev}) \
+            if prev and set(prev) == set(differ) else None
+        prev = {k: e1["grads"][k].clone() for k in differ}
+        steps.append(row)
+        del runs, c, e1, e2, before, redo
+        print(f"  (c) step {t + 1}: " + json.dumps(row), flush=True)
+    del cap, eager, prev
+    torch.cuda.empty_cache()
+    out["vs_eager_by_step"] = steps
+    only = {k[:100]: [kinds["replay"].get(k, 0), kinds["eager"].get(k, 0)]
+            for k in set(kinds["replay"]) | set(kinds["eager"])
+            if kinds["replay"].get(k, 0) != kinds["eager"].get(k, 0)}
+    out["kernels_replay_vs_eager_differ"] = only
+    print(f"  (c) kernels whose count differs, [replay, eager]: "
+          f"{json.dumps(only)}", flush=True)
+    for row in steps:
+        n = row["step"]
+        check(row["update_bit_identical"], f"(c) step {n}: the captured "
+              "update bit-identical to Adam's rule on its own gradients and "
+              "rates")
+        check(row["nll_bit_identical"] if row["nll_eager_bit_identical"]
+              else row["nll_abs"] <= GRAPH_NLL_LIMIT,
+              f"(c) step {n}: the per-token NLL bit-identical to the eager "
+              f"function's where two eager runs are, else within "
+              f"{GRAPH_NLL_LIMIT} (gap {row['nll_abs']:.3g})")
+        for part in ("grads", "state"):
+            check(row[part]["bit_identical_where_eager_is"],
+                  f"(c) step {n}: every {part} array bit-identical to the "
+                  "eager function's where two eager runs are")
+        gap = row["grads"]["gap"]
+        check(gap is None or gap["rel"] <= GRAPH_BF16_GRAD_LIMIT,
+              f"(c) step {n}: the gradients the eager runs part on "
+              f"({row['grads']['eager_runs_differ_in']}) within "
+              f"{GRAPH_BF16_GRAD_LIMIT:.3g} of max-abs (worst {gap})")
+    summary = {k: v for k, v in out.items() if k != "vs_eager_by_step"}
+    print("  (c) " + json.dumps(summary), flush=True)
+    return out
+
+
+def phase_step_graph(mx, weights, seed, rec, ptb_split, train_nll):
+    """The one-program training step: (a) LSTM-PTB through
+    lstm_bucketing.py, unrolled and fused; (b) ResNet-50 from the .rec with
+    ``MXNET_RUN_N_STEPS`` 1 and 4; (c) the LM training step."""
+    import torch
+
+    print("phase 13: the one-program step (the fused step captured as one "
+          "CUDA graph a binding)", flush=True)
+    out = {"ptb": {}}
+    for fused in (False, True):
+        out["ptb"]["fused" if fused else "unrolled"] = graph_ptb(
+            mx, fused, seed, ptb_split[fused])
+        torch.cuda.empty_cache()
+    out["fit_compare"] = graph_fit_compare(mx, seed)
+    pool = decode_pool_size()
+    out["fit"] = [graph_rec_fit(mx, rec, pool, n, seed) for n in (1, 4)]
+    out["lm"] = graph_lm(mx, weights, seed, train_nll)
     return out
 
 
@@ -3002,10 +3770,19 @@ def main(argv=None):
     rtc_cases = phase_rtc_vs_plain(args.seed)
     imperative = phase_imperative(mx, weights, probs, args.seed)
     amp = phase_amp(mx, weights, args.seed)
-    train = phase_train(mx, weights, args.seed)
-    fit = phase_fit(mx, args.seed)
-    records = phase_records(mx, args.seed)
-    ptb = phase_ptb(mx, args.seed)
+    ptb_split = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_rec") as rec_dir:
+        # phases 9-12 measure the split path that PRs 7-10 recorded
+        os.environ["MXTPU_NO_FUSED_STEP"] = "1"
+        try:
+            train = phase_train(mx, weights, args.seed)
+            fit = phase_fit(mx, args.seed)
+            records = phase_records(mx, args.seed, rec_dir)
+            ptb = phase_ptb(mx, args.seed, ptb_split)
+        finally:
+            os.environ.pop("MXTPU_NO_FUSED_STEP")
+        graph = phase_step_graph(mx, weights, args.seed, records["rec"],
+                                 ptb_split, train["mean_nll"])
 
     main_case = cases["slice_fp32_causal"]
     kernels = [{
@@ -3029,9 +3806,17 @@ def main(argv=None):
         "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/flash_attention_fwd_tc.cu",
         "replaces": "mxnet_tpu/ops/flash_attention.py:47",
-        "launches": amp["launches"]["bfloat16"] + train["launches"],
-        "launches_by_path": {"amp_requests": amp["launches"]["bfloat16"],
-                             "training_steps": train["launches"]},
+        # the captured steps' launches are the kernels the card ran in them
+        # (traced); the wrapper's calls there are the warm-up's and the
+        # capture's
+        "launches": amp["launches"]["bfloat16"] + train["launches"]
+        + graph["lm"]["launches"],
+        "launches_by_path": {
+            "amp_requests": amp["launches"]["bfloat16"],
+            "training_steps": train["launches"],
+            "captured_training_steps_traced": graph["lm"]["launches"],
+            "captured_training_steps_wrapper_calls":
+                graph["lm"]["wrapper_calls"]["bfloat16"]},
         **{k: tc_case[k] for k in KERNEL_KEYS}})
     for name, case in (("rtc_axpy", "axpy_logits_fp32"),
                        ("rtc_sgd_mom", "sgd_mom_embedding_fp32")):
@@ -3048,7 +3833,7 @@ def main(argv=None):
                    "slice": slice_out, "card_vs_cpu": parity,
                    "rtc_cases": rtc_cases, "imperative": imperative,
                    "amp": amp, "train": train, "fit": fit,
-                   "records": records, "ptb": ptb,
+                   "records": records, "ptb": ptb, "step_graph": graph,
                    "kernels": kernels,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)

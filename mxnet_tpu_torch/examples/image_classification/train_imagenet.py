@@ -5,7 +5,10 @@ example/image-classification/train_imagenet.py).
 ``python -m mxnet_tpu_torch.examples.image_classification.train_imagenet
 --data-train train.rec [--data-val val.rec]`` trains ResNet-50 at 224 px
 under bf16 mixed precision on the card (``--gpus``, default gpu 0);
-``--cpu`` trains on the CPU. Pack the files with
+``--cpu`` trains on the CPU. Each step is ``fit``'s fused step, captured
+on the card as one CUDA graph and replayed, as the reference's is one
+compiled program; ``MXNET_RUN_N_STEPS=n`` runs ``n`` of them a call, and
+``MXTPU_NO_FUSED_STEP=1`` the split path. Pack the files with
 ``mxnet_tpu_torch/tools/im2rec.py``.
 """
 from __future__ import annotations

@@ -5,6 +5,10 @@ The same flags and defaults: 2 LSTM layers of 200, embedding 200, batch
 32, buckets 10-60, SGD lr 0.01 momentum 0 wd 1e-5, Xavier (factor "in",
 magnitude 2.34), ``Perplexity`` ignoring the pad label 0, ``Speedometer``.
 ``--fused-rnn 1`` runs the stack as one ``RNN`` node (cuDNN on the card).
+Each bucket's step is ``fit``'s fused step, captured on the card as one
+CUDA graph a bucket (each with a memory pool of its own) and replayed, as the
+reference's step is a compiled program; ``MXTPU_NO_FUSED_STEP=1`` runs the
+split path.
 It reads ``ptb.train.txt``/``ptb.valid.txt`` from ``--data-dir`` when they
 are there; otherwise it draws the reference's synthetic corpus
 (``--num-sentences`` sentences with lengths uniform over the buckets and

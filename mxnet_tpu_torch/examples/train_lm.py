@@ -7,6 +7,11 @@ stays high). Each context allows 3 continuations, so the perplexity floor is
 about 2.6; after 800 steps it must be below 3.5, the reference's gate.
 Reports per-token perplexity every 75 steps.
 
+Each step is the module's fused step (forward, backward and Adam in one
+function), captured on the card as one CUDA graph and replayed, as the
+reference's step is one compiled program (``MXTPU_NO_FUSED_STEP=1`` runs
+the split path).
+
 Run on the card: ``python -m mxnet_tpu_torch.examples.train_lm``; on the
 CPU: ``--cpu``. ``--seq-parallel N`` (sequence sharded over N devices) waits
 for the multi-device work and raises.

@@ -9,21 +9,26 @@ bind (graphopt) do not change fp32 math and are not ported.
 
 - ``forward(is_train=False)`` walks under ``torch.inference_mode()``.
 - ``forward(is_train=True)`` with gradients bound is the reference's fused
-  forward+backward: the walk runs under autograd, each differentiable
-  argument entering as a fresh leaf (so the optimizer's later updates of the
-  bound arrays record no graph), and backward runs at once with head
-  gradients of ones, which the loss ops ignore. The gradients wait for
-  ``backward()``, which writes them into the bound grad arrays under
-  ``grad_req`` (write, add or null).
+  forward+backward (:meth:`Executor._fwd_bwd`, a body over given tensors
+  that writes no bound array, so a module's one-program step can close
+  over it): the walk runs under autograd, each differentiable argument
+  entering as a fresh leaf (so the optimizer's later updates of the bound
+  arrays record no graph), and backward runs at once with head gradients of
+  ones, which the loss ops ignore. The gradients wait for ``backward()``,
+  which writes them into the bound grad arrays in place under ``grad_req``
+  (write, add or null); after a fused step that returned none
+  (:data:`GRADS_ELIDED`) it writes nothing.
 - ``backward(out_grads)`` runs the observed forward again with the given head
   gradients: on the arguments bound now, the aux inputs of that forward and
   its random numbers.
 - Random numbers (Dropout's masks, the RNN op's, ``_sample_*``): in a
-  training walk each node draws from its own generator, seeded from one draw
-  of the device's generator for the step and the node's index in the
-  topological order (:class:`NodeRandom`; the reference's
-  ``fold_in(key, node_index)``). A node's numbers do not depend on how many
-  numbers the nodes walked before it drew.
+  training walk each node draws from its own generator, seeded on the host
+  from the step's seed (the next of :func:`mxnet_tpu_torch.random.
+  step_seed`'s stream) and the node's index in the topological order
+  (:class:`NodeRandom`; the reference's ``fold_in(key, node_index)``). A
+  node's numbers do not depend on how many numbers the nodes walked before
+  it drew, and nothing is read back from the device.
+- ``copy_params_from`` writes into the bound arrays in place.
 
 ``amp_dtype`` (e.g. ``"bfloat16"``) is the reference's mixed precision: the
 bound fp32 arrays stay fp32 master copies, and each ``forward`` casts them
@@ -38,7 +43,11 @@ from .base import MXNetError
 from .ndarray import _torch_dtype
 from .ops import OpCtx, get_op
 
-__all__ = ["Executor"]
+__all__ = ["Executor", "GRADS_ELIDED"]
+
+# a fused training step ran and returned no gradients (no reader declared,
+# see Module's step): backward() writes nothing, get_grads raises
+GRADS_ELIDED = object()
 
 
 def _amp_cast(name, v, amp_dtype):
@@ -79,41 +88,55 @@ def _fed_tensor(v, device):
     return torch.from_numpy(np.ascontiguousarray(a)).to(device, copy=True)
 
 
-_MASK64 = (1 << 64) - 1
-
-
-def _mix(base, index):
-    """splitmix64 of ``base`` and ``index``: a 63-bit seed."""
-    x = (base + 0x9E3779B97F4A7C15 * (index + 1)) & _MASK64
-    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
-    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _MASK64
-    return (x ^ (x >> 31)) >> 1
-
-
 class NodeRandom:
-    """The random source of one training walk: :meth:`node` gives node
-    ``i`` a generator on ``device`` seeded from the step's seed and ``i``.
-    The step's seed is one draw of the device's generator, made when the
-    first node asks (a walk without random nodes draws nothing; on the card
-    the draw reads one number back from the device). The same object
-    replays the same numbers."""
+    """The random source of training walks on ``device``: :meth:`node`
+    gives node ``i`` its generator, made on first use and seeded from the
+    walk's seed and ``i``. :meth:`begin` starts a walk: it takes a seed
+    (default: the next of the host's step-seed stream) and re-seeds on the
+    host every generator made so far, so the same object replays the same
+    numbers, and a captured step that registered these generators draws a
+    replay's numbers from the seed set before it."""
 
     def __init__(self, device):
         self.device = device
         self.seed = None
+        self._gens = {}
+
+    def begin(self, seed=None):
+        from . import random as _random
+
+        self.seed = _random.step_seed() if seed is None else seed
+        for index, gen in self._gens.items():
+            gen.manual_seed(_random.mix(self.seed, index))
 
     def node(self, index):
         import torch
 
         from . import random as _random
 
-        if self.seed is None:
-            self.seed = int(torch.randint(
-                0, 2 ** 62, (1,), device=self.device,
-                generator=_random.generator(self.device)).item())
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(_mix(self.seed, index))
+        gen = self._gens.get(index)
+        if gen is None:
+            gen = torch.Generator(device=self.device)
+            gen.manual_seed(_random.mix(self.seed, index))
+            self._gens[index] = gen
         return gen
+
+    @property
+    def generators(self):
+        """The generators made so far, by node index."""
+        return dict(self._gens)
+
+
+def _write_into(holder, value):
+    """``value`` into the bound NDArray ``holder``: in place where shape and
+    dtype agree (a captured step keeps reading the same memory), else
+    ``holder`` is rebound to it."""
+    t = holder.data
+    if t.shape == value.shape and t.dtype == value.dtype \
+            and t.device == value.device:
+        t.copy_(value)
+    else:
+        holder._data = value
 
 
 def _normalize(arrays, names, what, allow_missing=False):
@@ -165,6 +188,8 @@ class Executor:
         self._pending_grads = None
         self._last_aux = None        # aux inputs of the last train forward
         self._last_rng = None        # its NodeRandom
+        self._grads_were_elided = False
+        self.walking = None          # the node the last walk reached
 
     def _walk(self, op_ctx, arg_vals, aux_vals):
         """Evaluate the graph on ``arg_vals``/``aux_vals`` (dicts of tensors
@@ -172,6 +197,7 @@ class Executor:
         aux update is seen by every later reader in the same walk."""
         vals = {}
         new_aux = dict(aux_vals)
+        self.walking = None
         for index, node in enumerate(self._topo):
             if node.is_variable:
                 if node.name in arg_vals:
@@ -183,6 +209,7 @@ class Executor:
                     raise MXNetError(f"unbound variable '{node.name}'")
                 continue
             op = get_op(node.op)
+            self.walking = node
             ins = [vals[(id(n), i)] for n, i in node.inputs]
             aux = [vals[(id(a), 0)] for a in node.aux_vars]
             op_ctx.node = index
@@ -194,13 +221,15 @@ class Executor:
                 vals[(id(a_node), 0)] = a_new
         return [vals[(id(n), i)] for n, i in self._entries], new_aux
 
-    def _forward_backward(self, aux_vals, rng, out_grads=None):
-        """The training walk under autograd, then its backward with
-        ``out_grads`` (head gradients of ones if None). Returns (outputs,
-        new aux, gradients by differentiable argument)."""
+    def _fwd_bwd(self, args, aux_vals, rng, out_grads=None):
+        """The training walk over ``args``/``aux_vals`` (tensors by name)
+        under autograd, then its backward with ``out_grads`` (head gradients
+        of ones if None); ``rng`` is the walk's :class:`NodeRandom`. Writes
+        no bound array. Returns (outputs, new aux, gradients by
+        differentiable argument)."""
         import torch
 
-        args = {n: a.data for n, a in self.arg_dict.items()}
+        args = dict(args)
         leaves = {}
         for n in self._diff_args:
             if args[n].is_floating_point():
@@ -221,7 +250,7 @@ class Executor:
         # an argument the outputs do not depend on (or an integer one) gets
         # zeros, as jax.vjp gives
         grads = {n: got[n] if got.get(n) is not None
-                 else torch.zeros_like(self.arg_dict[n].data)
+                 else torch.zeros_like(args[n])
                  for n in self._diff_args}
         return ([o.detach() for o in outs],
                 {n: a.detach() for n, a in new_aux.items()}, grads)
@@ -250,14 +279,15 @@ class Executor:
             self.outputs = [NDArray(o) for o in outs]
             return self.outputs
         rng = NodeRandom(self._ctx.torch_device)
+        rng.begin()
         # an explicit backward(out_grads) later re-runs the forward the
         # caller observed: the aux inputs before this forward's update, and
         # the random numbers it drew
         self._last_aux = aux_vals
         self._last_rng = rng
         if self._diff_args:
-            outs, new_aux, self._pending_grads = self._forward_backward(
-                aux_vals, rng)
+            outs, new_aux, self._pending_grads = self._fwd_bwd(
+                {n: a.data for n, a in self.arg_dict.items()}, aux_vals, rng)
         else:
             with torch.no_grad():
                 outs, new_aux = self._walk(
@@ -273,9 +303,8 @@ class Executor:
         """Write the gradients into the bound grad arrays under grad_req
         (reference: Executor::Backward). With ``out_grads`` (one per output,
         NDArrays or tensors), the last train forward runs again with them
-        as head gradients."""
-        import torch
-
+        as head gradients. After a fused step that returned no gradients
+        (:data:`GRADS_ELIDED`) it writes nothing."""
         from .ndarray import NDArray
 
         if out_grads is not None:
@@ -287,17 +316,22 @@ class Executor:
             device = self._ctx.torch_device
             heads = [(g.data if isinstance(g, NDArray) else g).to(device)
                      for g in out_grads]
-            _, _, self._pending_grads = self._forward_backward(
-                self._last_aux, self._last_rng, heads)
+            rng = self._last_rng
+            rng.begin(rng.seed)
+            _, _, self._pending_grads = self._fwd_bwd(
+                {n: a.data for n, a in self.arg_dict.items()},
+                self._last_aux, rng, heads)
+        if self._pending_grads is GRADS_ELIDED:
+            self._pending_grads = None
+            return
         if self._pending_grads is None:
             raise MXNetError("backward called before forward(is_train=True)")
         for name, g in self._pending_grads.items():
             holder = self.grad_dict[name]
-            if self.grad_req[name] == "add":
-                holder._data = holder._data + g
-            else:
-                holder._data = g
+            _write_into(holder, holder.data + g
+                        if self.grad_req[name] == "add" else g)
         self._pending_grads = None
+        self._grads_were_elided = False
 
     @property
     def grad_arrays(self):
@@ -317,15 +351,19 @@ class Executor:
 
     def copy_params_from(self, arg_params, aux_params=None,
                          allow_extra_params=False):
-        """Copy parameter arrays into the bound ones (reference:
-        executor.py copy_params_from)."""
-        for name, arr in arg_params.items():
-            if name in self.arg_dict:
-                arr.copyto(self.arg_dict[name])
-            elif not allow_extra_params:
-                raise MXNetError(f"unknown arg param {name}")
-        for name, arr in (aux_params or {}).items():
-            if name in self.aux_dict:
-                arr.copyto(self.aux_dict[name])
-            elif not allow_extra_params:
-                raise MXNetError(f"unknown aux param {name}")
+        """Copy parameter arrays into the bound ones, in place, each
+        keeping its dtype and device (reference: executor.py
+        copy_params_from)."""
+        for given, bound, what in ((arg_params, self.arg_dict, "arg"),
+                                   (aux_params or {}, self.aux_dict, "aux")):
+            for name, arr in given.items():
+                if name in bound:
+                    dst = bound[name]
+                    if tuple(arr.shape) != dst.shape:
+                        raise MXNetError(
+                            f"copy_params_from: {name} has shape "
+                            f"{tuple(arr.shape)}, bound {dst.shape}")
+                    dst._check_writable("copy into")
+                    dst.data.copy_(arr.data)
+                elif not allow_extra_params:
+                    raise MXNetError(f"unknown {what} param {name}")

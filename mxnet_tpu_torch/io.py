@@ -651,7 +651,8 @@ class DevicePrefetchIter(DataIter):
     ``h2d_bytes`` and ``starved_count`` (batches the consumer had to wait
     for) accumulate.
     ``Module.fit`` arms it under ``MXNET_DEVICE_PREFETCH=1``
-    (:meth:`Module.device_prefetch`)."""
+    (:meth:`Module.device_prefetch`); ``stage_superbatch`` pulls a
+    super-batch for ``Module.run_n_steps``."""
 
     def __init__(self, data_iter, exec_group, depth=2):
         super().__init__(data_iter.batch_size)
@@ -750,6 +751,21 @@ class DevicePrefetchIter(DataIter):
                 if isinstance(arr, NDArray) and arr.data.is_cuda:
                     arr.data.record_stream(stream)
         return batch
+
+    def stage_superbatch(self, n):
+        """Up to ``n`` staged batches for one ``Module.run_n_steps`` call
+        (reference: io.py ``stage_superbatch``): fewer only at the end of
+        the epoch; raises ``StopIteration`` when the epoch has no batch
+        left."""
+        batches = []
+        while len(batches) < n:
+            try:
+                batches.append(self.next())
+            except StopIteration:
+                break
+        if not batches:
+            raise StopIteration
+        return batches
 
     def iter_next(self):
         raise NotImplementedError(

@@ -10,13 +10,20 @@ optimizer states at each epoch's end (and every
 ``checkpoint_every_n_batches`` batches within it); ``resume=True`` restarts
 from the newest intact checkpoint, skipping the batches it holds.
 ``MXNET_DEVICE_PREFETCH=1`` stages the batches onto the card ahead of the
-step (:meth:`Module.device_prefetch`). ``score``, ``iter_predict`` and
+step (:meth:`Module.device_prefetch`). ``MXNET_RUN_N_STEPS=n`` runs the
+batches ``n`` at a time through ``run_n_steps``'s fused steps where the
+module has a fused step, each batch as it arrives (the steps are the
+single steps', a short last super-batch included; the metric reads the
+outputs, and the callbacks and checkpoints come, once a super-step). For its duration ``fit`` lets the
+fused step write the weights in place (donation) unless
+``MXTPU_DONATE_PARAMS=0``. ``score``, ``iter_predict`` and
 ``predict`` run the evaluation forward; ``save_params``/``load_params``
 keep the parameters in the MXTP container, arguments under ``arg:`` and aux
 states under ``aux:``.
 """
 from __future__ import annotations
 
+import itertools
 import logging
 import os
 import time
@@ -37,14 +44,34 @@ def _as_list(obj):
 
 
 def _refuse_unported(monitor):
-    """The reference's ``fit`` options that wait for their own ports raise
-    instead of being ignored: ``monitor`` and ``MXNET_RUN_N_STEPS``
-    (several steps in one program)."""
-    given = ["monitor"] if monitor else []
-    if os.environ.get("MXNET_RUN_N_STEPS", "1").strip() not in ("", "1"):
-        given.append("MXNET_RUN_N_STEPS")
-    if given:
-        raise MXNetError(f"fit: {', '.join(given)} not ported yet")
+    """The reference's ``fit`` options that wait for their ports raise
+    instead of being ignored: ``monitor``, and ``MXNET_RUN_N_STEPS`` with
+    an ``MXNET_RUN_N_STEPS_UNROLL`` other than auto or percall."""
+    if monitor:
+        raise MXNetError("fit: monitor not ported yet")
+    if _run_n_steps_env() > 1:
+        check_run_n_steps_unroll()
+
+
+def check_run_n_steps_unroll():
+    """Raise for an ``MXNET_RUN_N_STEPS_UNROLL`` other than ``auto`` (the
+    default) and ``percall``, which both run the one-step graph ``n`` times
+    (the reference's percall form); its one program of ``n`` steps is not
+    ported."""
+    v = os.environ.get("MXNET_RUN_N_STEPS_UNROLL", "") or "auto"
+    if v not in ("auto", "percall"):
+        raise MXNetError(
+            f"MXNET_RUN_N_STEPS_UNROLL={v} (with MXNET_RUN_N_STEPS): one "
+            "graph of n steps is not ported yet; auto and percall run the "
+            "one-step graph n times")
+
+
+def _run_n_steps_env():
+    """``MXNET_RUN_N_STEPS`` (default 1: one step at a time)."""
+    try:
+        return max(1, int(os.environ.get("MXNET_RUN_N_STEPS", "1") or 1))
+    except ValueError:
+        return 1
 
 
 class BaseModule:
@@ -158,8 +185,8 @@ class BaseModule:
         checkpoint under the prefix: parameters, optimizer states and
         position; the iterator replays the batches already trained, so it
         must give the same batches again (a fresh start when there is no
-        checkpoint). ``monitor`` and ``MXNET_RUN_N_STEPS`` raise: they are
-        not ported yet."""
+        checkpoint). ``monitor``, and an ``MXNET_RUN_N_STEPS_UNROLL``
+        other than auto or percall, raise: they are not ported yet."""
         assert num_epoch is not None, "please specify number of epochs"
         _refuse_unported(monitor)
         resume_batch = 0
@@ -187,54 +214,91 @@ class BaseModule:
         self.init_params(initializer=initializer, arg_params=arg_params,
                          aux_params=aux_params, allow_missing=allow_missing,
                          force_init=force_init)
-        self.init_optimizer(kvstore=kvstore, optimizer=optimizer,
-                            optimizer_params=optimizer_params)
-        if resume_states is not None:
-            self.load_optimizer_states(resume_states)
-        if validation_metric is None:
-            validation_metric = eval_metric
-        if eval_metric is not None \
-                and not isinstance(eval_metric, _metric.EvalMetric):
-            eval_metric = _metric.create(eval_metric)
-
         staged = None   # the DevicePrefetchIter fit made, closed at the end
-        if os.environ.get("MXNET_DEVICE_PREFETCH") == "1":
-            from ..io import DevicePrefetchIter
-
-            if not isinstance(train_data, DevicePrefetchIter):
-                staged = train_data = self.device_prefetch(train_data)
         try:
+            # fit drives the strict forward/backward/update protocol, so its
+            # fused step may write the weights in place (donation); the hint
+            # lasts for this call
+            self._donate_hint = True
+            self.init_optimizer(kvstore=kvstore, optimizer=optimizer,
+                                optimizer_params=optimizer_params)
+            if resume_states is not None:
+                self.load_optimizer_states(resume_states)
+            if getattr(self, "_fused_step_fn", None) is not None \
+                    and not self._fused_donate_params:
+                # initialized before fit: build the step again with donation
+                self._refresh_fused_step()
+            if validation_metric is None:
+                validation_metric = eval_metric
+            if eval_metric is not None \
+                    and not isinstance(eval_metric, _metric.EvalMetric):
+                eval_metric = _metric.create(eval_metric)
+            run_n = _run_n_steps_env()
+            if getattr(self, "_fused_step_fn", None) is None \
+                    or not hasattr(self, "run_n_steps"):
+                run_n = 1
+            if os.environ.get("MXNET_DEVICE_PREFETCH") == "1":
+                from ..io import DevicePrefetchIter
+
+                if not isinstance(train_data, DevicePrefetchIter):
+                    staged = train_data = self.device_prefetch(train_data)
             for epoch in range(begin_epoch, num_epoch):
                 self._fit_epoch(epoch, train_data, eval_data, eval_metric,
                                 validation_metric, epoch_end_callback,
                                 batch_end_callback, eval_end_callback,
                                 eval_batch_end_callback, checkpoint_prefix,
                                 checkpoint_every_n_batches,
-                                resume_batch if epoch == begin_epoch else 0)
+                                resume_batch if epoch == begin_epoch else 0,
+                                run_n)
         finally:
             if staged is not None:
                 staged.close()
+            self._donate_hint = False
+            if getattr(self, "_fused_donate_params", False):
+                self._refresh_fused_step()
 
     def _fit_epoch(self, epoch, train_data, eval_data, eval_metric,
                    validation_metric, epoch_end_callback, batch_end_callback,
                    eval_end_callback, eval_batch_end_callback,
                    checkpoint_prefix, checkpoint_every_n_batches,
-                   skip_batches):
+                   skip_batches, run_n):
         """One epoch of ``fit``; the first ``skip_batches`` batches are
-        read and dropped (they are in the checkpoint resumed from)."""
+        read and dropped (they are in the checkpoint resumed from). With
+        ``run_n`` > 1 the batches go ``run_n`` at a time through the fused
+        steps of ``run_n_steps`` (reference: base_module.py :236-320)."""
         tic = time.time()
         if eval_metric is not None:
             eval_metric.reset()
         nbatch = -1
-        for nbatch, data_batch in enumerate(train_data):
-            if nbatch < skip_batches:
+        data_src = iter(train_data)
+        while True:
+            if nbatch + 1 < skip_batches:
+                try:
+                    next(data_src)
+                except StopIteration:
+                    break
+                nbatch += 1
                 continue
-            self.forward_backward(data_batch)
-            self.update()
-            if eval_metric is not None:
-                self.update_metric(eval_metric, data_batch.label)
+            first = nbatch + 1
+            if run_n > 1:
+                # each batch runs as it arrives; the metric reads the
+                # super-step's outputs once
+                batches = self._run_steps(data_src, run_n,
+                                          eval_metric=eval_metric)
+            else:
+                batches = list(itertools.islice(data_src, 1))
+                for data_batch in batches:
+                    self.forward_backward(data_batch)
+                    self.update()
+                    if eval_metric is not None:
+                        self.update_metric(eval_metric, data_batch.label)
+            if not batches:
+                break
+            nbatch = first + len(batches) - 1
             if checkpoint_prefix and checkpoint_every_n_batches \
-                    and (nbatch + 1) % checkpoint_every_n_batches == 0:
+                    and (nbatch + 1) // checkpoint_every_n_batches \
+                    > first // checkpoint_every_n_batches:
+                # a super-step that crosses the cadence saves once, at its end
                 self.save_checkpoint(checkpoint_prefix, epoch,
                                      save_optimizer_states=True,
                                      batch=nbatch + 1)

@@ -6,8 +6,13 @@ mxnet_tpu/module/bucketing_module.py).
 first use (``switch_bucket``) over the default bucket's parameter, gradient
 and aux NDArrays (``Module.bind(shared_module=...)``) and borrows its
 optimizer, so the buckets train one set of parameters and the updater's
-states carry across buckets. The reference compiles one XLA program per
-bucket; here each bucket's executor walks its own graph eagerly.
+states carry across buckets. Each bucket's module builds its fused step
+when it takes the optimizer (:mod:`~mxnet_tpu_torch.module.step_graph`):
+one CUDA graph a bucket on the card, each with a memory pool of its own (so
+the buckets may replay in any order), each updating the default bucket's
+arrays and optimizer states in place. The reference fuses the default bucket only and
+runs the others as two compiled programs each; one graph a bucket is the
+port's counterpart of those compiled steps.
 """
 from __future__ import annotations
 
@@ -37,6 +42,7 @@ class BucketingModule(BaseModule):
         self._curr_module = None
         self._curr_bucket_key = None
         self._params_dirty = False
+        self._donate_hint = False
 
     def _reset_bind(self):
         self.binded = False
@@ -78,8 +84,30 @@ class BucketingModule(BaseModule):
 
     def _module(self, bucket_key):
         symbol, data_names, label_names = self._sym_gen(bucket_key)
-        return Module(symbol, data_names, label_names, logger=self.logger,
-                      context=self._context)
+        mod = Module(symbol, data_names, label_names, logger=self.logger,
+                     context=self._context)
+        mod._donate_hint = self._donate_hint
+        return mod
+
+    # -- the buckets' fused steps ---------------------------------------------
+    @property
+    def _fused_step_fn(self):
+        return self._curr_module._fused_step_fn if self.binded else None
+
+    @property
+    def _fused_donate_params(self):
+        return self.binded and self._curr_module._fused_donate_params
+
+    def _refresh_fused_step(self):
+        """Build every bucket's fused step again (``fit`` turns donation on
+        and off)."""
+        for mod in self._buckets.values():
+            mod._donate_hint = self._donate_hint
+            mod._refresh_fused_step()
+
+    def step_info(self):
+        """Each bound bucket's :meth:`Module.step_info`, by bucket key."""
+        return {key: mod.step_info() for key, mod in self._buckets.items()}
 
     def get_params(self):
         assert self.binded and self.params_initialized

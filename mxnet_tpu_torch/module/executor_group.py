@@ -3,8 +3,10 @@ mxnet_tpu/module/executor_group.py), on one device.
 
 One executor, bound with a grad array for each argument whose gradient is
 asked for. Its ``arg_dict`` NDArrays are the ones ``Module.update`` hands the
-optimizer, which rebinds them to the updated weights, so the next
-``forward`` reads those. With ``shared_group`` (a bucket of a
+optimizer, so the next ``forward`` reads the updated weights. A batch's
+arrays are copied into the bound input arrays in place (one that changes
+shape or dtype rebinds its input), so a captured step keeps reading the
+same memory. With ``shared_group`` (a bucket of a
 ``BucketingModule``) every argument, gradient and aux array whose name and
 shape match the shared group's is that group's NDArray object, so the
 buckets read and update one set of parameters and nothing is copied.
@@ -14,7 +16,7 @@ from __future__ import annotations
 
 from ..base import MXNetError
 from ..context import cpu
-from ..executor import Executor, _fed_tensor
+from ..executor import Executor, _fed_tensor, _write_into
 from ..io import DataDesc
 from ..ndarray import NDArray, zeros
 
@@ -106,12 +108,23 @@ class DataParallelExecutorGroup:
 
     # -- execution ---------------------------------------------------------------
     def _load_into(self, names, arrays):
-        """Rebind each named argument to its batch array, on the device."""
+        """Write each named argument's batch array into its bound array on
+        the device (:func:`~mxnet_tpu_torch.executor._write_into`: in place
+        where shape and dtype agree, else a rebind to a copy of its own)."""
         ex = self._executor
         device = self.contexts[0].torch_device
         for name, src in zip(names, arrays):
-            if name in ex.arg_dict:
-                ex.arg_dict[name]._data = _fed_tensor(src, device)
+            if name not in ex.arg_dict:
+                continue
+            holder = ex.arg_dict[name]
+            if isinstance(src, NDArray) and src.shape == holder.shape \
+                    and src.dtype == holder.dtype:
+                holder.data.copy_(src.data)
+                continue
+            t = _fed_tensor(src, device)
+            if isinstance(src, NDArray) and t is src.data:
+                t = t.clone()
+            _write_into(holder, t)
 
     def stage_batch(self, data_batch, ring=None):
         """Place a batch's arrays on this group's device without binding
@@ -160,7 +173,15 @@ class DataParallelExecutorGroup:
         return [self._executor.grad_dict.get(n) for n in self.data_names]
 
     def get_grads(self):
-        """The gradient arrays of the parameters, by name."""
+        """The gradient arrays of the parameters, by name; raises when the
+        fused step elided them."""
         ex = self._executor
+        if ex._grads_were_elided:
+            raise MXNetError(
+                "gradients were not materialized: the fused train step "
+                "returns no gradients unless a reader is declared. The step "
+                "reads its flags when built, so set MXTPU_FUSED_GRADS=1 (or "
+                "MXTPU_NO_FUSED_STEP=1) before init_optimizer, or set it and "
+                "run bind(force_rebind=True) and init_optimizer again")
         return {n: ex.grad_dict[n] for n in self.param_names
                 if n in ex.grad_dict}

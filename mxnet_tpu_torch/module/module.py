@@ -4,14 +4,31 @@
 ``Module(symbol, context=mx.gpu(0), amp="bfloat16")`` binds the executor
 with mixed precision: the parameters stay fp32 master copies, the graph
 computes in bf16, and the gradients arrive in fp32. ``forward(is_train=True)``
-computes the gradients with the outputs, ``backward()`` writes them into the
-grad arrays, ``update()`` runs the optimizer over each parameter in turn,
-and ``update_metric`` hands the outputs to a metric; ``BaseModule.fit``
-drives the four. The aux states (BatchNorm's moving statistics) travel
-with the parameters through ``get_params``/``set_params`` and checkpoints.
-The reference's fused one-program step (forward, backward and update in one
-XLA program) computes the same numbers; its counterpart here, a captured
-CUDA graph, is later work. The context defaults to the card.
+computes the outputs, ``backward()`` the gradients, ``update()`` the
+optimizer's step, and ``update_metric`` hands the outputs to a metric;
+``BaseModule.fit`` drives the four. The aux states (BatchNorm's moving
+statistics) travel with the parameters through ``get_params``/
+``set_params`` and checkpoints. The context defaults to the card.
+
+The fused step (reference: module.py ``_maybe_build_fused_step``):
+``init_optimizer`` builds a :class:`~.step_graph.StepProgram` (forward,
+backward and the optimizer's update in one function, captured on the card
+as one CUDA graph per binding) when the update is local, the optimizer has
+a fused rule (``_tree_update``), no input gradient is asked for, every
+``grad_req`` is write or null and ``MXTPU_NO_FUSED_STEP`` is not 1. A train
+``forward`` then runs the whole step: the outputs are visible at once, the
+new aux states installed, and the new weights and states staged until
+``update()`` installs them (an evaluation forward in between keeps them; a
+new train forward or ``backward(out_grads)`` drops them). The gradients are
+not kept unless ``MXTPU_FUSED_GRADS=1`` (``backward()`` then writes them;
+without it ``get_grads`` raises). ``MXTPU_DONATE_PARAMS=1``, or ``fit``
+unless it is 0, writes the new weights and states in place during the step
+(``backward(out_grads)`` then raises). On the card the outputs are the
+graph's buffers, which the next step overwrites, as an MXNet executor's
+outputs are (copy one to keep it). ``run_n_steps`` runs several steps
+with no host sync between them. Otherwise ``forward``/``backward``/
+``update`` run the split path: the executor's walk and autograd, then the
+optimizer one parameter at a time.
 
 Checkpoints carry the optimizer's states (``prefix-NNNN.states``, this
 package's pickle of numpy arrays by index) when asked, written at once or
@@ -25,6 +42,7 @@ indices. ``device_prefetch`` wraps an iterator in an
 """
 from __future__ import annotations
 
+import itertools
 import logging
 import os
 import threading
@@ -36,8 +54,9 @@ from ..context import Context, current_context
 from ..initializer import Uniform
 from ..io import DataDesc
 from ..model import load_checkpoint, save_checkpoint
-from .base_module import BaseModule
+from .base_module import BaseModule, check_run_n_steps_unroll
 from .executor_group import DataParallelExecutorGroup
+from .step_graph import StepProgram
 
 __all__ = ["Module"]
 
@@ -118,6 +137,12 @@ class Module(BaseModule):
         self._exec_group = None
         self._data_shapes = None
         self._label_shapes = None
+        self._fused_step_fn = None    # the StepProgram, when eligible
+        self._fused_pending = None
+        self._fused_indices = None
+        self._fused_want_grads = False
+        self._fused_donate_params = False
+        self._donate_hint = False     # set by fit for its duration
 
     @staticmethod
     def load(prefix, epoch, load_optimizer_states=False, **kwargs):
@@ -160,9 +185,9 @@ class Module(BaseModule):
             if save_optimizer_states:
                 self.save_optimizer_states(f"{prefix}-{epoch:04d}.states")
             return None
-        # the update rebinds the parameters' and states' NDArrays to new
-        # tensors, so copies of the dicts (and of the state tuples) keep
-        # this step's tensors
+        # get_params and copy_states hand out copies, which later updates
+        # (in place, in the fused step) do not touch; a later get_params
+        # replaces the dicts' entries, so the writer keeps its own dicts
         args, auxs = dict(args), dict(auxs)
         states = None
         if save_optimizer_states:
@@ -345,6 +370,8 @@ class Module(BaseModule):
             self._aux_params = shared_module._aux_params
         elif self.params_initialized:
             self._exec_group.set_params(self._arg_params, self._aux_params)
+        # a new executor drops the step over the old one
+        self._refresh_fused_step()
 
     # -- optimizer ---------------------------------------------------------------
     def init_optimizer(self, kvstore="local", optimizer="sgd",
@@ -370,6 +397,7 @@ class Module(BaseModule):
         self._optimizer = optimizer
         self._updater = opt.get_updater(optimizer)
         self.optimizer_initialized = True
+        self._maybe_build_fused_step()
         if self._preload_opt_states is not None:
             self.load_optimizer_states(self._preload_opt_states)
             self._preload_opt_states = None
@@ -390,22 +418,203 @@ class Module(BaseModule):
         self._updater = shared_module._updater
         self._param_index = shared_module._param_index
         self.optimizer_initialized = True
+        self._maybe_build_fused_step()
+
+    # -- the fused step ----------------------------------------------------------
+    def _drop_fused_step(self):
+        if self._fused_step_fn is not None:
+            self._fused_step_fn.drop()
+        self._fused_step_fn = None
+
+    def _refresh_fused_step(self):
+        """Drop the step (a new executor, or new flags) and build it again
+        where it is eligible (reference: module.py ``_refresh_fused_step``)."""
+        self._drop_fused_step()
+        self._fused_pending = None
+        self._fused_indices = None
+        if self.optimizer_initialized:
+            self._maybe_build_fused_step()
+
+    def _maybe_build_fused_step(self):
+        """Build the fused step where the reference's rules allow it
+        (module docstring; reference: module.py :489)."""
+        self._drop_fused_step()
+        eg = self._exec_group
+        if eg is None or not self.optimizer_initialized:
+            return
+        ex = eg._executor
+        if (os.environ.get("MXTPU_NO_FUSED_STEP") == "1"
+                or self._kvstore is not None
+                or self._updater is None
+                or self._optimizer._tree_update is None
+                or self.inputs_need_grad
+                or any(r not in ("write", "null")
+                       for r in ex.grad_req.values())
+                or any(n not in self._param_index for n in ex._diff_args)):
+            return
+        self._fused_want_grads = os.environ.get("MXTPU_FUSED_GRADS") == "1"
+        env = os.environ.get("MXTPU_DONATE_PARAMS")
+        self._fused_donate_params = env == "1" if env is not None \
+            else bool(self._donate_hint)
+        self._fused_indices = [self._param_index[n] for n in ex._diff_args]
+        self._fused_step_fn = StepProgram(
+            ex, self._updater, self._fused_indices, self._fused_want_grads,
+            self._fused_donate_params)
+
+    def step_info(self):
+        """The fused step's state: ``captured``, the reason a capture is
+        refused (None if none), warm-up and capture ms, and counts of eager
+        steps, warm-ups, captures and replays; None without a fused
+        step."""
+        if self._fused_step_fn is None:
+            return None
+        return self._fused_step_fn.info()
+
+    def _fused_states(self):
+        """Make the optimizer's states the step updates where missing, or
+        bring restored ones to the device."""
+        ex = self._exec_group._executor
+        for i, name in zip(self._fused_indices, ex._diff_args):
+            self._updater._state(i, ex.arg_dict[name])
+
+    def _fused_forward(self, data_batch, rates=None):
+        """Run the fused step on ``data_batch`` (reference: module.py
+        ``_fused_forward``); ``rates`` is a row of
+        :meth:`StepProgram.plan_rates`, else ``plan_multi`` plans them."""
+        from ..executor import GRADS_ELIDED
+        from ..ndarray import NDArray
+
+        eg = self._exec_group
+        ex = eg._executor
+        eg._load_into(eg.data_names, data_batch.data)
+        if eg.label_names and getattr(data_batch, "label", None):
+            eg._load_into(eg.label_names, data_batch.label)
+        self._fused_states()
+        step = self._fused_step_fn
+        if rates is None:
+            lrs, wds = self._optimizer.plan_multi(self._fused_indices)
+            rates = step.plan_rates([lrs], [wds])[0]
+        step.set_rates(rates)
+        res = step.run()
+        ex.outputs = [NDArray(o) for o in res.outputs]
+        # backward(out_grads) replays the forward the caller saw: the aux
+        # states before this step and its random numbers
+        if res.aux_prev is not None:
+            ex._last_aux = dict(zip(ex.aux_names, res.aux_prev))
+        ex._last_rng = step.rng
+        if res.grads is not None:
+            ex._pending_grads = dict(zip(ex._diff_args, res.grads))
+            ex._grads_were_elided = False
+        else:
+            ex._pending_grads = GRADS_ELIDED
+            ex._grads_were_elided = True
+        self._fused_pending = res.staged
+
+    def _install_fused_update(self):
+        """Install the staged weights and states (nothing to install under
+        donation) and move the update counts."""
+        import torch
+
+        staged = self._fused_pending
+        self._fused_pending = None
+        if staged:
+            ex = self._exec_group._executor
+            dst = [ex.arg_dict[n].data for n in ex._diff_args]
+            src = [w for w, _ in staged]
+            for i, (_, leaves) in zip(self._fused_indices, staged):
+                dst += self._optimizer._state_leaves(self._updater.states[i])
+                src += leaves
+            with torch.no_grad():
+                torch._foreach_copy_(dst, src)
+        self._optimizer.advance_counts(self._fused_indices)
+
+    def run_n_steps(self, batches, eval_metric=None):
+        """Run ``len(batches)`` fused steps, the one-step graph replayed on
+        each batch in turn with no host sync between them (reference:
+        module.py ``run_n_steps``, its ``percall`` form). The updates
+        install at once and the update counts and schedule advance by
+        ``n``; the outputs of the last step are the visible ones.
+        ``eval_metric`` is updated for every step from the outputs, copied
+        into one device buffer and to the host once. Bit-identical to ``n``
+        single steps."""
+        batches = list(batches)
+        if not batches:
+            return
+        self._run_steps(iter(batches), len(batches), eval_metric)
+
+    def _run_steps(self, batches, n, eval_metric=None):
+        """Up to ``n`` fused steps over the iterator ``batches``, each run as
+        its batch arrives; the rates of all ``n`` come from the host in one
+        copy. Returns the batches run (fewer than ``n`` at the iterator's
+        end)."""
+        assert self.binded and self.params_initialized \
+            and self.optimizer_initialized
+        if self._fused_step_fn is None:
+            raise MXNetError(
+                "run_n_steps needs the fused train step: it is built by "
+                "init_optimizer when the update is local, the optimizer has "
+                "a fused rule and MXTPU_NO_FUSED_STEP is unset")
+        check_run_n_steps_unroll()
+        from ..ndarray import NDArray
+
+        plan = self._fused_step_fn.plan_rates(
+            *self._optimizer.plan_multi_n(self._fused_indices, n))
+        done, outs = [], None
+        for t, batch in enumerate(itertools.islice(batches, n)):
+            self._fused_forward(batch, rates=plan[t])
+            self._install_fused_update()
+            done.append(batch)
+            if eval_metric is not None:
+                step_outs = [o.data for o in self._exec_group.get_outputs()]
+                if outs is None:
+                    outs = [o.new_empty((n,) + tuple(o.shape))
+                            for o in step_outs]
+                for buf, o in zip(outs, step_outs):
+                    buf[t].copy_(o)
+        self._params_dirty = True
+        if outs is not None:
+            host = [o[:len(done)].to("cpu") for o in outs]
+            for t, batch in enumerate(done):
+                eval_metric.update(batch.label,
+                                   [NDArray(h[t]) for h in host])
+        return done
 
     # -- execution ---------------------------------------------------------------
     def forward(self, data_batch, is_train=None):
         assert self.binded and self.params_initialized
+        if is_train is None:
+            is_train = self.for_training
+        if is_train and self._fused_step_fn is not None:
+            self._fused_forward(data_batch)
+            return
+        if is_train:
+            # a new train forward supersedes a staged fused update; an
+            # evaluation forward keeps it
+            self._fused_pending = None
         self._exec_group.forward(data_batch, is_train)
 
     def backward(self, out_grads=None):
         assert self.binded and self.params_initialized
+        if self._fused_pending is not None and out_grads is not None:
+            if self._fused_donate_params:
+                raise MXNetError(
+                    "backward(out_grads) needs the staged fused update to be "
+                    "discarded, but MXTPU_DONATE_PARAMS=1 already wrote the "
+                    "step's weights in place; unset it (or set "
+                    "MXTPU_NO_FUSED_STEP=1) for explicit head gradients")
+            self._fused_pending = None
         self._exec_group.backward(out_grads=out_grads)
 
     def update(self):
         """One optimizer update of every parameter with a gradient
-        (reference: module.py ``update``)."""
+        (reference: module.py ``update``): the fused step's staged update,
+        else the split path's per-parameter ops."""
         assert self.binded and self.params_initialized \
             and self.optimizer_initialized
         self._params_dirty = True
+        if self._fused_pending is not None:
+            self._install_fused_update()
+            return
         grads = self._exec_group.get_grads()
         arg_dict = self._exec_group._executor.arg_dict
         names = [n for n in self._param_names if n in grads]

@@ -157,13 +157,16 @@ class NDArray:
     wait_to_write = wait_to_read
 
     def asnumpy(self) -> np.ndarray:
-        """Blocking copy to host. bfloat16, which numpy lacks, comes back
-        as float32."""
+        """Blocking copy to host, never a view of the array's memory (a
+        bound array may be written in place later). bfloat16, which numpy
+        lacks, comes back as float32."""
         import torch
 
         t = self._data.detach()
         if t.dtype == torch.bfloat16:
             t = t.float()
+        if t.device.type == "cpu":
+            return t.numpy().copy()
         return t.cpu().numpy()
 
     def asscalar(self):

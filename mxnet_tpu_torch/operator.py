@@ -1,6 +1,6 @@
-"""Custom Python operators, forward (reference: mxnet_tpu/operator.py
-CustomOp, CustomOpProp, register and the ``Custom`` op; python/mxnet/
-operator.py:396,442 and src/operator/custom.cc).
+"""Custom Python operators (reference: mxnet_tpu/operator.py CustomOp,
+CustomOpProp, register and the ``Custom`` op; python/mxnet/operator.py:396,
+442 and src/operator/custom.cc).
 
 A user subclasses :class:`CustomOpProp` to declare the op's arguments,
 outputs and shapes, registers it under a name, and calls
@@ -9,11 +9,22 @@ that an ``Executor`` or ``Predictor`` runs. The JAX package calls the body
 back on the host through ``jax.pure_callback``; here the body runs on the
 tensors' own device, so a :class:`CustomOp.forward` may launch a
 runtime-compiled kernel (:mod:`mxnet_tpu_torch.rtc`) on the card. Shape
-inference builds no operator: it takes the shapes from ``infer_shape``. The
-backward and the legacy ``PythonOp``/``NumpyOp``/``NDArrayOp`` wait for the
-training slice.
+inference builds no operator: it takes the shapes from ``infer_shape``.
+
+In a training graph the op is a ``torch.autograd.Function`` whose backward
+is the reference's ``custom_vjp`` backward: a fresh operator runs the
+forward again with ``is_train=True``, then ``CustomOp.backward`` with
+``req="write"`` for every input, the head gradients as ``out_grad`` (zeros
+for an output nothing reads), the inputs and the recomputed outputs, and
+zero ``in_grad`` arrays, all NDArrays on the inputs' device. As in the
+reference, every head gradient, input and output is passed whatever
+``need_top_grad`` says (the reference has no
+``declare_backward_dependency``). The legacy ``PythonOp``/``NumpyOp``/
+``NDArrayOp`` are not ported yet.
 """
 from __future__ import annotations
+
+import torch
 
 from .base import MXNetError
 from .ndarray import NDArray
@@ -119,30 +130,62 @@ def _custom_infer(attrs, shapes):
     return shapes
 
 
-@register_op("Custom", inputs=_custom_inputs, num_outputs=_custom_num_outputs,
-             infer_param_shapes=_custom_infer)
-def _custom(ctx, attrs, *inputs):
-    """Run a registered CustomOp's forward on the inputs' device. Outputs
-    take the first input's dtype, as in the reference."""
-    import torch
-
+def _run_forward(prop, inputs, is_train):
+    """A fresh operator's forward on ``inputs``; returns the operator and
+    the output tensors (the first input's dtype, as in the reference)."""
     from .context import context_of
 
-    prop = _make_prop(attrs)
-    n_out = len(prop.list_outputs())
     in_shapes = [list(x.shape) for x in inputs]
     in_dtypes = [x.dtype for x in inputs]
     _, out_shapes, _ = prop.infer_shape(in_shapes)
     device, dtype = inputs[0].device, in_dtypes[0]
-    if device.type == "meta":
-        outs = [torch.empty(tuple(s), dtype=dtype, device=device)
+    op = prop.create_operator(context_of(device), in_shapes, in_dtypes)
+    out_nd = [NDArray(torch.zeros(tuple(s), dtype=dtype, device=device))
+              for s in out_shapes]
+    op.forward(is_train=is_train, req=["write"] * len(out_nd),
+               in_data=[NDArray(x) for x in inputs], out_data=out_nd, aux=[])
+    return op, [o.data for o in out_nd]
+
+
+class _CustomFunction(torch.autograd.Function):
+    """The reference's ``custom_vjp`` pair around the user's op."""
+
+    @staticmethod
+    def forward(ctx, prop, is_train, *inputs):
+        ctx.prop = prop
+        ctx.save_for_backward(*inputs)
+        _, outs = _run_forward(prop, inputs, is_train)
+        ctx.mark_non_differentiable(*[o for o in outs
+                                      if not o.is_floating_point()])
+        return tuple(outs)
+
+    @staticmethod
+    def backward(ctx, *out_grads):
+        inputs = ctx.saved_tensors
+        op, outs = _run_forward(ctx.prop, inputs, True)
+        heads = [NDArray(g if g is not None else torch.zeros_like(o))
+                 for g, o in zip(out_grads, outs)]
+        in_grad = [NDArray(torch.zeros_like(x)) for x in inputs]
+        op.backward(req=["write"] * len(inputs), out_grad=heads,
+                    in_data=[NDArray(x) for x in inputs],
+                    out_data=[NDArray(o) for o in outs],
+                    in_grad=in_grad, aux=[])
+        grads = [g.data.to(x.dtype) if x.is_floating_point() else None
+                 for g, x in zip(in_grad, inputs)]
+        return (None, None, *grads)
+
+
+@register_op("Custom", inputs=_custom_inputs, num_outputs=_custom_num_outputs,
+             infer_param_shapes=_custom_infer)
+def _custom(ctx, attrs, *inputs):
+    """Run a registered CustomOp on the inputs' device, differentiable
+    through its ``backward`` (module docstring)."""
+    prop = _make_prop(attrs)
+    n_out = len(prop.list_outputs())
+    if inputs[0].device.type == "meta":
+        _, out_shapes, _ = prop.infer_shape([list(x.shape) for x in inputs])
+        outs = [torch.empty(tuple(s), dtype=inputs[0].dtype, device="meta")
                 for s in out_shapes]
     else:
-        op = prop.create_operator(context_of(device), in_shapes, in_dtypes)
-        out_nd = [NDArray(torch.zeros(tuple(s), dtype=dtype, device=device))
-                  for s in out_shapes]
-        op.forward(is_train=ctx.is_train, req=["write"] * n_out,
-                   in_data=[NDArray(x) for x in inputs], out_data=out_nd,
-                   aux=[])
-        outs = [o.data for o in out_nd]
+        outs = list(_CustomFunction.apply(prop, ctx.is_train, *inputs))
     return outs if n_out > 1 else outs[0]

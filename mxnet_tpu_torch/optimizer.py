@@ -12,10 +12,20 @@ arrays by index (the JAX package pickles its own NDArrays, which this
 package cannot read). lr/wd multipliers (``__lr_mult__``/``__wd_mult__``
 attributes of the symbol, or set by name), ``param_idx2name``,
 ``clip_gradient``, ``rescale_grad``, ``lr_scheduler`` (read at
-``num_update``) and ``begin_num_update`` follow the reference. The
-reference's one-program update of every parameter (``_tree_update``)
-computes the same numbers as these per-parameter ops; ``update_multi``
-here runs them in turn.
+``num_update``) and ``begin_num_update`` follow the reference. ``update_multi`` runs the
+per-parameter ops in turn (the split path).
+
+The fused training step (:mod:`mxnet_tpu_torch.module.step_graph`) takes
+the reference's ``_tree_update`` rules instead (SGD and ccSGD, NAG, Adam,
+AdaGrad, Test; the others have none, so they keep the split path): each
+writes one parameter's weight and state in place, with the learning rate
+and weight decay as 0-d fp32 tensors on the weight's device, so a captured
+step reads new rates from the same memory. ``plan_multi`` plans the rates
+of one such update of many parameters without moving the update counts,
+``advance_counts`` moves them once the update is installed, and
+``plan_multi_n`` plans ``n`` updates in a row (each installed update then
+moves the counts), so a stepping ``lr_scheduler`` and Adam's bias
+correction see the same ``num_update`` sequence on every path.
 """
 from __future__ import annotations
 
@@ -144,6 +154,73 @@ class Optimizer:
         for i, w, g, s in zip(indices, weights, grads, states):
             self.update(i, w, g, s)
 
+    # -- the fused step's update (reference: optimizer.py:103-218) -----------
+    # ``_tree_update(w, g, s, lr, wd)`` writes the weight tensor ``w`` and the
+    # state's leaves ``s`` in place; None means no fused rule
+    _tree_update = None
+
+    def _fused_lr_scale(self, index):
+        """The learning rate's scale after the update count moved (Adam's
+        bias correction)."""
+        return 1.0
+
+    def plan_multi(self, indices):
+        """The (lrs, wds) of one fused update of ``indices``, as float32,
+        without moving the update counts: ``_get_lr`` and ``_update_count``
+        interleave as in the per-parameter loop, and the scale of
+        :meth:`_fused_lr_scale` reads the count after the increment."""
+        saved_counts = dict(self._index_update_count)
+        saved_num = self.num_update
+        base_lrs, wds = [], []
+        for i in indices:
+            base_lrs.append(self._get_lr(i))
+            wds.append(np.float32(self._get_wd(i)))
+            self._update_count(i)
+        lrs = tuple(np.float32(b * self._fused_lr_scale(i))
+                    for b, i in zip(base_lrs, indices))
+        self._index_update_count = saved_counts
+        self.num_update = saved_num
+        return lrs, tuple(wds)
+
+    def advance_counts(self, indices):
+        for i in indices:
+            self._update_count(i)
+
+    def plan_multi_n(self, indices, n):
+        """The (lrs, wds) of ``n`` fused updates in a row, as ``n`` calls of
+        :meth:`plan_multi` and :meth:`advance_counts` would see them,
+        without moving the counts: two lists of ``n`` tuples."""
+        saved_counts = dict(self._index_update_count)
+        saved_num = self.num_update
+        lrs_steps, wds_steps = [], []
+        try:
+            for _ in range(n):
+                lrs, wds = self.plan_multi(indices)
+                lrs_steps.append(lrs)
+                wds_steps.append(wds)
+                self.advance_counts(indices)
+        finally:
+            self._index_update_count = saved_counts
+            self.num_update = saved_num
+        return lrs_steps, wds_steps
+
+    def _clip(self, g):
+        import torch
+
+        if self.clip_gradient is not None:
+            return torch.clamp(g, -self.clip_gradient, self.clip_gradient)
+        return g
+
+    @staticmethod
+    def _state_leaves(state):
+        """The tensors of a ``create_state`` result (None, an NDArray or a
+        tuple of them)."""
+        if state is None:
+            return ()
+        if isinstance(state, NDArray):
+            return (state.data,)
+        return tuple(s.data for s in state)
+
 
 @register
 class SGD(Optimizer):
@@ -172,6 +249,14 @@ class SGD(Optimizer):
             new_w = imperative_invoke("sgd_update", weight, grad, **kwargs)
         weight._data = new_w._data
 
+    def _tree_update(self, w, g, s, lr, wd):
+        g = self._clip(g * self.rescale_grad) + wd * w
+        if s:
+            s[0].mul_(self.momentum).sub_(lr * g)
+            w.add_(s[0])
+        else:
+            w.sub_(lr * g)
+
 
 ccSGD = SGD   # the reference's C++ SGD: the same rule
 _REGISTRY["ccsgd"] = SGD
@@ -190,6 +275,15 @@ class NAG(SGD):
             weight._data = w - lr * (g + self.momentum * mom + wd * w)
         else:
             weight._data = w - lr * (g + wd * w)
+
+    def _tree_update(self, w, g, s, lr, wd):
+        g = self._clip(g * self.rescale_grad)
+        wdw = wd * w
+        if s:
+            s[0].mul_(self.momentum).add_(g).add_(wdw)
+            w.sub_(lr * (g + self.momentum * s[0] + wdw))
+        else:
+            w.sub_(lr * (g + wdw))
 
 
 @register
@@ -279,6 +373,19 @@ class Adam(Optimizer):
         mean._data = new_mean._data
         var._data = new_var._data
 
+    def _fused_lr_scale(self, index):
+        t = self._index_update_count[index]
+        return math.sqrt(1.0 - self.beta2 ** t) / (1.0 - self.beta1 ** t)
+
+    def _tree_update(self, w, g, s, lr, wd):
+        import torch
+
+        mean, var = s
+        g = self._clip(g * self.rescale_grad + wd * w)
+        mean.mul_(self.beta1).add_((1 - self.beta1) * g)
+        var.mul_(self.beta2).add_((1 - self.beta2) * torch.square(g))
+        w.sub_(lr * mean / (torch.sqrt(var) + self.epsilon))
+
 
 @register
 class AdaGrad(Optimizer):
@@ -300,6 +407,13 @@ class AdaGrad(Optimizer):
         w = weight.data
         weight._data = w - lr * (
             g / torch.sqrt(state.data + self.float_stable_eps) + wd * w)
+
+    def _tree_update(self, w, g, s, lr, wd):
+        import torch
+
+        g = self._clip(g * self.rescale_grad)
+        s[0].add_(g * g)
+        w.sub_(lr * (g / torch.sqrt(s[0] + self.float_stable_eps) + wd * w))
 
 
 @register
@@ -379,6 +493,10 @@ class Test(Optimizer):
         self._update_count(index)
         weight._data = weight.data + grad.data * self.rescale_grad
         state._data = weight.data
+
+    def _tree_update(self, w, g, s, lr, wd):
+        w.add_(g * self.rescale_grad)
+        s[0].copy_(w)
 
 
 def _state_to_numpy(state):

@@ -8,6 +8,11 @@ reproducible draws on every device and different devices draw independent
 streams. The ``_sample_*`` ops draw from these. PyTorch's generators
 (mt19937 on the CPU, Philox on the card) do not give JAX's threefry bits:
 the distributions agree, the values do not.
+
+:func:`step_seed` is a host-side stream of 63-bit seeds, restarted by
+:func:`seed`: each training walk takes one and seeds its random nodes'
+generators from it and their indices (:func:`mix`), so a step's random
+numbers need no read back from the device.
 """
 from __future__ import annotations
 
@@ -15,20 +20,40 @@ import threading
 
 import numpy as np
 
-__all__ = ["seed", "generator", "uniform", "normal", "randint"]
+__all__ = ["seed", "generator", "uniform", "normal", "randint",
+           "step_seed", "mix"]
 
 _LOCK = threading.Lock()
 _SEED = 0
 _GENERATORS: dict = {}   # torch.device -> torch.Generator
+_STEPS = [0]             # seeds taken from the step-seed stream
+_MASK64 = (1 << 64) - 1
 
 
 def seed(seed_state: int):
-    """Seed every device's generator (reference: mx.random.seed ->
-    MXRandomSeed). Generators are re-made from the new seed at next use."""
+    """Seed every device's generator and the step-seed stream (reference:
+    mx.random.seed -> MXRandomSeed). Generators are re-made from the new
+    seed at next use."""
     global _SEED
     with _LOCK:
         _SEED = int(seed_state)
         _GENERATORS.clear()
+        _STEPS[0] = 0
+
+
+def mix(base, index):
+    """splitmix64 of ``base`` and ``index``: a 63-bit seed."""
+    x = (base + 0x9E3779B97F4A7C15 * (index + 1)) & _MASK64
+    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return (x ^ (x >> 31)) >> 1
+
+
+def step_seed():
+    """The next seed of the host's step-seed stream."""
+    with _LOCK:
+        _STEPS[0] += 1
+        return mix(_SEED ^ 0x5EED5EED5EED5EED, _STEPS[0])
 
 
 def _device_seed(base: int, device) -> int:

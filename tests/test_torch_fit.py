@@ -303,11 +303,14 @@ def test_score_and_predict_match_reference():
 
 
 @pytest.mark.parametrize("option", [
-    dict(monitor=True), {"MXNET_RUN_N_STEPS": "2"}],
+    dict(monitor=True),
+    {"MXNET_RUN_N_STEPS": "2", "MXNET_RUN_N_STEPS_UNROLL": "4"}],
     ids=lambda o: list(o)[0])
 def test_fit_refuses_unported_options(option, monkeypatch):
     """Each option of the reference's ``fit`` that is not ported raises
-    and names itself; none is ignored."""
+    and names itself; none is ignored. ``MXNET_RUN_N_STEPS`` runs through
+    ``run_n_steps``; its one graph of n steps (an integer
+    ``MXNET_RUN_N_STEPS_UNROLL``) is not ported."""
     kwargs = {}
     for k, v in option.items():
         if k.startswith("MXNET_"):

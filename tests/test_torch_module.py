@@ -158,12 +158,20 @@ def test_bf16_weight_mean_catches_a_wrong_update(monkeypatch, fault):
     CPU: w_mean 1.7e-3 (skip) and 3.5e-3 (negate) against 2.5e-4, while the
     ``w`` limit passes the skipped update (3.0e-3 of 6e-3)."""
     update = mxt.optimizer.Adam.update
+    tree_update = mxt.optimizer.Adam._tree_update
 
     def wrong(self, index, weight, grad, state):
         if fault == "negate":
             update(self, index, weight, grad * -1.0, state)
 
+    def wrong_tree(self, w, g, s, lr, wd):
+        # the fused step's rule, which the module runs unless
+        # MXTPU_NO_FUSED_STEP=1
+        if fault == "negate":
+            tree_update(self, w, g * -1.0, s, lr, wd)
+
     monkeypatch.setattr(mxt.optimizer.Adam, "update", wrong)
+    monkeypatch.setattr(mxt.optimizer.Adam, "_tree_update", wrong_tree)
     gaps = _gaps(False, "bfloat16")
     assert gaps["w_mean"] > 2 * LIMITS["bfloat16"]["w_mean"], gaps
 
