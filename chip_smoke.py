@@ -7,12 +7,18 @@ hidden 1024, 16 heads, 12 layers, T=2048): transformer-LM inference through
 ``Module(amp="bfloat16")``, ResNet-50 training through ``Module.fit``, and
 from a RecordIO file through ``train_imagenet.py``, and the LSTM-PTB
 language model through ``BucketingModule`` and ``lstm_bucketing.py``, then
-the training paths again with the step captured as a CUDA graph; holds
-every CUDA kernel on those paths against its plain PyTorch version.
+the training paths again with the step captured as a CUDA graph, and the
+image-classification family (LeNet, AlexNet, Inception-v3, the zoo's
+scoring scripts); holds every CUDA kernel on those paths against its plain
+PyTorch version. Every evaluation forward (``Executor.forward(
+is_train=False)``) is captured as one CUDA graph a binding and replayed.
 Phases, in order; any failed check ends the run with a non-zero exit and no
 result line:
 
 1. device: the card's name and power limit; TF32 off for fp32 parity;
+   LeNet's first convolution's fp32 weight gradient at batch 8 from cuDNN
+   and from the port's Convolution (which takes it off cuDNN with TF32
+   off) against float64, the port's held to 1e-5 of max-abs;
 2. build: the kernels from ``mxnet_tpu_torch/csrc`` with nvcc (set-up);
 3. kernel vs plain: the flash-attention kernels against their plain version
    at the main path's shape, at ragged shapes with ``q_offset``, at head
@@ -22,9 +28,14 @@ result line:
    earlier slices) and on the device alone, beside the plain version and a
    library attention call, with its share of the bound;
 4. the slice: a Predictor bound at data=(2, 2048) on cuda:0 answers 4
-   requests; probabilities checked and the kernel's launches counted; one
-   more steady request under ``torch.profiler`` splits the device time into
-   the flash kernel, the GEMMs and the rest, beside the idle share;
+   requests through the captured forward (``set_input`` writes in place; a
+   warm-up, a capture, replays), each under the profiler, which counts the
+   flash kernels the card ran (12 a request; the wrapper counts the
+   warm-up's and the capture's calls only); probabilities checked; then
+   the requests again, captured and through the eager walk in turns
+   (``Executor.eager_forward``), host ms each, and the output copy's ms;
+   one more steady request under ``torch.profiler`` splits the device time
+   into the flash kernel, the GEMMs and the rest, beside the idle share;
 5. card vs CPU: the same weights at depth 2 on cuda:0 (kernel, launched
    once per layer) and on the CPU (plain versions) must agree, in
    probabilities and in log-probabilities;
@@ -45,10 +56,12 @@ result line:
    the Rtc pass reports the device's busy time beside the host's;
 8. the amp path: the phase-4 weights bound through
    ``Executor(..., amp_dtype="bfloat16")`` with int32 token ids answer 4
-   requests of 2 x 2048 tokens; probabilities checked, the tensor-core
-   kernel's launches counted (12 a request, none of the fp32 kernel); one
-   more request traced into flash, GEMMs, the amp casts and the rest, beside
-   the idle share; then bf16 on the card against bf16 on the CPU at depth 2
+   requests of 2 x 2048 tokens through the captured forward, fed through
+   ``forward(data=ids)`` (copied into the bound array), counted and timed
+   as in phase 4 (12 tensor-core kernels a request, none of the fp32
+   kernel), and timed again fed by rebinding (``arr[:] = ids``, a warm-up
+   every forward); one more request traced into flash, GEMMs, the amp
+   casts and the rest, beside the idle share; then bf16 on the card against bf16 on the CPU at depth 2
    (batch 1, T 512), and int32 ids above 256 fed into a float32-bound
    ``data`` against the same feed bound as int32 (the ids must not round
    in bf16);
@@ -74,7 +87,8 @@ result line:
    BatchNorm forward and backward, pooling, ReLU and residual adds, FC and
    SoftmaxOutput, the amp casts, SGD, the feed's and the metric's copies and
    the rest, beside the host's time by part, the idle share and peak
-   memory; ``score`` over 2 batches; one fp32 SGD step at batch 8, 64 px,
+   memory; ``score`` over 2 batches (its forwards captured: a warm-up, a
+   capture and replays); one fp32 SGD step at batch 8, 64 px,
    16 classes on the card against the CPU (NLL within 1e-4, gradients 1e-3
    of max-abs, moving statistics and weights 1e-5, or no further from a
    float64 run of the step than twice the CPU), a bf16 evaluation forward
@@ -142,7 +156,32 @@ result line:
    and every gradient and state array bit-identical where the two eager
    runs are (else the NLL within 1e-4 and a gradient within one bf16 ulp,
    2^-7, of its max-abs), and the captured update bit-identical to Adam's
-   rule run eagerly on the captured step's gradients and rates.
+   rule run eagerly on the captured step's gradients and rates;
+14. the image-classification family: (a) the port's
+   ``examples/image_classification/train_mnist.py --network lenet`` at its
+   defaults on the reference's synthetic digits, validation accuracy at
+   least 0.95; (b) AlexNet (224 px) and Inception-v3 (299 px) through
+   ``Module.fit`` at phase 10's config (batch 256, 1000 classes, bf16 amp,
+   SGD lr 0.1 momentum 0.9 wd 1e-4, Xavier gaussian magnitude 2), one epoch
+   of 8 random batches with the fused step captured: steady step (median
+   of steps 3-8), img/s, captures, peak memory, a probe step's idle share,
+   then on the same binding the split path: one step traced into
+   convolution forward and backward, BatchNorm, LRN, pooling, FC and
+   SoftmaxOutput, Dropout, ReLU and Concat, the amp casts, SGD and the
+   rest, and split steps timed for the ratio; (c) inference through
+   ``benchmark_score.py``'s binding and rate (the difference of two timed
+   runs of 12 and 50 forwards): ResNet-50, AlexNet, Inception-BN and
+   Inception-v3 at batch 1 and 32 in fp32 (TF32 off) and batch 32 in bf16,
+   the captured forward and the eager walk three times each in turns, one
+   capture a binding, the captured output bit-identical to the eager one
+   (else within 1e-4), the idle share of 10 traced captured forwards and
+   the output copy's ms; (d) one fp32 SGD step of each of the nine
+   builders at a small input on cuDNN, card against CPU to phase 10's
+   limits (the CPU on the card's ReLU masks and max-pool choices,
+   Dropout's masks shared), and LRN in bf16 at AlexNet's shapes against an fp32 plain
+   version (2e-2 of max-abs); (e) the port's ``score.py`` (accuracy at
+   least 0.95) and ``fine_tune.py`` (frozen weights move by exactly 0, the
+   new head's accuracy at least 0.9).
 
 Phases 9-12 run with ``MXTPU_NO_FUSED_STEP=1``: they measure the split path
 that earlier slices recorded.
@@ -313,7 +352,45 @@ def phase_device():
     print(f"  torch {torch.__version__} cuda {torch.version.cuda}; "
           f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
           f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}", flush=True)
+    conv_weight_grad_precision()
     return card
+
+
+def conv_weight_grad_precision():
+    """LeNet's first convolution (1 -> 20 channels, 5x5, 28 px) at batch 8
+    in fp32 on the card, TF32 off: its weight gradient from cuDNN and from
+    the port's Convolution op against float64 on the CPU (largest gap over
+    float64's max-abs). cuDNN's algorithm for this shape is not fp32-exact
+    (nor TF32: the gap is not TF32's); the port's op takes the weight
+    gradient off cuDNN, held to 1e-5."""
+    import torch
+    import torch.nn.functional as F
+
+    from mxnet_tpu_torch.ops import get_op
+    from mxnet_tpu_torch.ops.registry import OpCtx
+
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(8, 1, 28, 28, generator=gen, dtype=torch.float64)
+    w = torch.randn(20, 1, 5, 5, generator=gen, dtype=torch.float64) * 0.2
+    dy = torch.randn(8, 20, 24, 24, generator=gen, dtype=torch.float64)
+    want = torch.nn.grad.conv2d_weight(x, w.shape, dy)
+    conv = get_op("Convolution").fn
+    attrs = {"kernel": (5, 5), "num_filter": 20, "no_bias": True}
+    ctx = OpCtx(is_train=True, device=torch.device("cuda", 0))
+    gaps = {}
+    for route, fn in (("cudnn", lambda a, b: F.conv2d(a, b)),
+                      ("port", lambda a, b: conv(ctx, attrs, a, b))):
+        ww = w.float().cuda().requires_grad_()
+        got = torch.autograd.grad(fn(x.float().cuda(), ww),
+                                  ww, dy.float().cuda())[0]
+        gaps[route] = float((got.double().cpu() - want).abs().max()
+                            / want.abs().max())
+    print("  fp32 conv weight gradient vs float64 (LeNet conv1, batch 8): "
+          + json.dumps(gaps), flush=True)
+    check(gaps["port"] <= 1e-5, f"the port's fp32 convolution weight "
+          f"gradient within 1e-5 of float64's max-abs ({gaps['port']:.3g}; "
+          f"cuDNN's {gaps['cudnn']:.3g})")
+    return gaps
 
 
 def phase_build():
@@ -488,6 +565,46 @@ def lm_predictor(mx, layers, batch, weights, ctx):
     return mx.Predictor.from_arrays(symbol, arg, aux, shapes, ctx=ctx)
 
 
+def check_probs(p):
+    """A request's probabilities: fp32 of (BATCH * SEQ, VOCAB), finite,
+    rows summing to 1 within 1e-4."""
+    import torch
+
+    check(tuple(p.shape) == (BATCH * SEQ, VOCAB) and p.dtype == torch.float32,
+          f"probs {tuple(p.shape)} {p.dtype}")
+    check(bool(torch.isfinite(p).all()), "probs all finite")
+    row_err = float((p.sum(dim=1) - 1).abs().max())
+    check(row_err <= 1e-4, f"rows sum to 1 within 1e-4 ({row_err:.2e})")
+
+
+def traced_requests(batches, feed, forward, check_out, kernel):
+    """Each of ``batches`` fed in place (``feed``) and answered by the
+    captured forward (``forward``: a warm-up, a capture, replays) under the
+    profiler, which counts the kernels the card ran in it whose names
+    ``kernel`` picks (a replay calls no wrapper); ``check_out`` holds each
+    answer. Returns the counts."""
+    traced = []
+    for x in batches:
+        feed(x)
+        counts, got = {}, []
+        by_name, _ = traced_groups(lambda: got.append(forward()), {}, counts)
+        traced.append(sum(counts[k] for k in by_name if kernel(k)))
+        check_out(got[0])
+    return traced
+
+
+def timed_requests(batches, feed, forward, eager):
+    """Every batch answered untraced by the captured forward and by the
+    eager walk (``eager``) in turns; the host ms of each by mode."""
+    ms = {"captured": [], "eager": []}
+    for mode in ("captured", "eager", "eager", "captured"):
+        for x in batches:
+            feed(x)
+            ms[mode].append(timed(forward if mode == "captured"
+                                  else eager)[1])
+    return ms
+
+
 def phase_slice(mx, layers, seed):
     import torch
 
@@ -514,31 +631,41 @@ def phase_slice(mx, layers, seed):
     batches = [rng.integers(0, VOCAB, (BATCH, SEQ)).astype(np.float32)
                for _ in range(REQUESTS)]
     reset_launches()
-    request_ms = []
-    for x in batches:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        pred.forward(data=x)
-        probs = pred.get_output_nd(0).data
-        torch.cuda.synchronize()
-        request_ms.append((time.perf_counter() - t0) * 1e3)
-        check(tuple(probs.shape) == (BATCH * SEQ, VOCAB),
-              f"probs shape {tuple(probs.shape)}")
-        check(bool(torch.isfinite(probs).all()), "probs all finite")
-        row_err = float((probs.sum(dim=1) - 1).abs().max())
-        check(row_err <= 1e-4, f"rows sum to 1 within 1e-4 ({row_err:.2e})")
-    launches = flash_attention.launches
-    check(launches == layers * REQUESTS
-          and flash_attention.launches_by_dtype["float32"] == launches,
-          f"fp32 flash kernel launched {launches} == {layers} x {REQUESTS} "
-          "times, and no other")
-    steady = float(np.median(request_ms[1:]))
+    ex = pred._executor
+    def feed(x):
+        pred.set_input("data", x)
+
+    def forward():
+        return pred.forward().get_output_nd(0).data
+
+    traced = traced_requests(
+        batches, feed, forward, check_probs,
+        lambda k: "flash_fwd" in k and "flash_fwd_tc" not in k)
+    wrapper = flash_attention.launches
+    wrapper_fp32 = flash_attention.launches_by_dtype["float32"]
+    info = ex.forward_info()
+    ms = timed_requests(batches, feed, forward,
+                        lambda: ex.eager_forward()[0])
+    check(traced == [layers] * REQUESTS,
+          f"the card ran {layers} fp32 flash kernels in each captured "
+          f"request (traced: {traced})")
+    check(wrapper == 2 * layers and wrapper_fp32 == wrapper,
+          f"the fp32 flash wrapper called {wrapper} == 2 x {layers} times "
+          "(the warm-up's launches and the capture's), no other kernel")
+    check(info["captures"] == 1 and info["drops"] == 0,
+          f"one capture for the Predictor's binding ({info})")
+    request_ms = ms["captured"]
+    steady = float(np.median(request_ms))
     out = {"layers": layers, "request_ms": request_ms,
            "steady_request_ms": steady,
+           "eager_request_ms": ms["eager"],
+           "steady_eager_request_ms": float(np.median(ms["eager"])),
            "tokens_per_s": BATCH * SEQ / (steady / 1e3),
-           "launches": launches,
+           "launches": sum(traced), "launches_traced": traced,
+           "wrapper_calls": wrapper, "forward": info,
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
     print("  " + json.dumps(out), flush=True)
+    probs = pred.get_output_nd(0).data
 
     # one more steady request, traced (after the launch count was read)
     traced_ms = []
@@ -560,6 +687,8 @@ def phase_slice(mx, layers, seed):
     print("  traced request: " + json.dumps(out["traced_request"]),
           flush=True)
     check(flash_ms > 0, "the traced request ran the flash kernel")
+    static = ex._eval_program._static
+    out["output_copy_ms"] = time_cuda(lambda: [o.clone() for o in static])
     last_probs = probs.clone()
     del pred, probs
     torch.cuda.empty_cache()
@@ -969,35 +1098,55 @@ def phase_amp(mx, weights, seed):
     batches = [rng.integers(0, VOCAB, (BATCH, SEQ)).astype(np.int32)
                for _ in range(AMP_REQUESTS)]
     reset_launches()
-    request_ms = []
-    for x in batches:
-        (probs,), ms = timed(lambda: exe.forward(data=x))
-        request_ms.append(ms)
-        p = probs.data
-        check(tuple(p.shape) == (BATCH * SEQ, VOCAB)
-              and p.dtype == torch.float32,
-              f"probs {tuple(p.shape)} {p.dtype}")
-        check(bool(torch.isfinite(p).all()), "probs all finite")
-        row_err = float((p.sum(dim=1) - 1).abs().max())
-        check(row_err <= 1e-4, f"rows sum to 1 within 1e-4 ({row_err:.2e})")
+    # each request goes in as the reference feeds it, forward(data=x): the
+    # ids are copied into the bound array, so the captured forward stays
+    # valid; the eager walk gets the same copy
+    fed = []
+
+    def feed(x):
+        fed[:] = [x]
+
+    def forward():
+        return exe.forward(is_train=False, data=fed[0])[0].data
+
+    def eager():
+        exe.arg_dict["data"].data.copy_(torch.from_numpy(fed[0]))
+        return exe.eager_forward()[0]
+
+    traced = traced_requests(batches, feed, forward, check_probs,
+                             lambda k: "flash_fwd" in k)
     launches = dict(flash_attention.launches_by_dtype)
-    check(launches["bfloat16"] == LAYERS * AMP_REQUESTS
+    info = exe.forward_info()
+    ms = timed_requests(batches, feed, forward, eager)
+    check(traced == [LAYERS] * AMP_REQUESTS,
+          f"the card ran {LAYERS} flash kernels in each captured bf16 "
+          f"request (traced: {traced})")
+    check(launches["bfloat16"] == 2 * LAYERS
           and launches["float32"] == 0 and launches["float16"] == 0,
-          f"tensor-core flash kernel launched {launches['bfloat16']} == "
-          f"{LAYERS} x {AMP_REQUESTS} times (bf16), fp32 kernel "
+          f"tensor-core flash wrapper called {launches['bfloat16']} == 2 x "
+          f"{LAYERS} times (the warm-up's and the capture's), fp32 "
           f"{launches['float32']} == 0")
-    steady = float(np.median(request_ms[1:]))
+    check(info["captures"] == 1 and info["drops"] == 0,
+          f"one capture for the executor's binding ({info})")
+    request_ms = ms["captured"]
+    steady = float(np.median(request_ms))
     out = {"layers": LAYERS, "request_ms": request_ms,
-           "first_request_ms": request_ms[0], "steady_request_ms": steady,
+           "steady_request_ms": steady, "eager_request_ms": ms["eager"],
+           "steady_eager_request_ms": float(np.median(ms["eager"])),
            "tokens_per_s": BATCH * SEQ / (steady / 1e3),
-           "launches": launches}
+           "launches": sum(traced), "launches_traced": traced,
+           "wrapper_calls": launches, "forward": info}
+    probs = exe.outputs
+    static = exe._eval_program._static
+    out["output_copy_ms"] = time_cuda(lambda: [o.clone() for o in static])
+    del static
 
     # one more steady request, traced (after the launch count was read);
     # then the casts of the bound arguments, the same kernels the request
     # runs first, timed apart on the device to split them out of the rest
     traced_ms = []
     by_name = device_ms_by_kernel(lambda: traced_ms.append(
-        timed(lambda: exe.forward(data=batches[-1]))[1]))
+        timed(lambda: exe.forward(is_train=False))[1]))
     out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
     cast_ms = time_device(lambda: [_amp_cast(n, a.data, torch.bfloat16)
                                  for n, a in exe.arg_dict.items()],
@@ -1024,7 +1173,28 @@ def phase_amp(mx, weights, seed):
           flush=True)
     check(flash_ms > 0 and other_flash == 0,
           "the traced request ran the tensor-core flash kernel and no other")
-    del exe, probs, p
+
+    # a feed that rebinds the ids (``arr[:] = x`` makes a new tensor, as the
+    # reference's immutable arrays do) drops the graph: every such forward
+    # is a warm-up, the eager walk on the side stream
+    def rebound():
+        exe.arg_dict["data"][:] = fed[0]
+        return exe.forward(is_train=False)[0].data
+
+    rebound_ms = []
+    for x in batches + batches:
+        feed(x)
+        rebound_ms.append(timed(rebound)[1])
+    after = exe.forward_info()
+    out["rebound_feed_request_ms"] = rebound_ms
+    out["rebound_feed_forward"] = after
+    print(f"  requests fed by rebinding: {[round(t, 2) for t in rebound_ms]}"
+          f" ms ({after})", flush=True)
+    check(after["captures"] == 1 and after["drops"] == 1
+          and after["warmups"] == 1 + 2 * AMP_REQUESTS,
+          f"a rebound feed dropped the graph once and every such forward "
+          f"warmed up ({after})")
+    del exe, probs
     torch.cuda.empty_cache()
 
     # bf16 on the card against bf16 on the CPU, at depth 2
@@ -1469,12 +1639,16 @@ def resnet_symbol(mx, classes, px):
 
 
 def resnet_weights(symbol, batch, px, seed):
-    """Random numpy arguments and aux states of ``symbol``: He-scaled
-    weights, gammas near 1, small betas and biases, moving means near 0 and
-    moving variances near 1."""
+    return net_weights(symbol, (batch, 3, px, px), seed)
+
+
+def net_weights(symbol, data_shape, seed):
+    """Random numpy arguments and aux states of ``symbol`` for ``data``
+    of ``data_shape``: He-scaled weights, gammas near 1, small betas and
+    biases, moving means near 0 and moving variances near 1."""
     rng = np.random.default_rng(seed)
     arg_shapes, _, aux_shapes = symbol.infer_shape(
-        data=(batch, 3, px, px), softmax_label=(batch,))
+        data=data_shape, softmax_label=data_shape[:1])
     args = {}
     for name, shape in zip(symbol.list_arguments(), arg_shapes):
         if name in ("data", "softmax_label"):
@@ -1707,30 +1881,57 @@ def fit_card_vs_cpu(mx, seed):
     CPU, on the same masks: an array past its limit passes when the card's
     distance to the float64 step is at most twice the CPU's fp32 step's,
     i.e. the card is as accurate as the CPU."""
+    symbol = resnet_symbol(mx, FIT_CPU_CLASSES, FIT_CPU_PX)
+    weights = resnet_weights(symbol, FIT_CPU_BATCH, FIT_CPU_PX, seed + 21)
+    batch, y = _cpu_batch(mx, seed + 22, mx.cpu())
+    return step_card_vs_cpu(mx, symbol, weights, batch.data[0].asnumpy(), y,
+                            f"fp32 step at batch {FIT_CPU_BATCH}, "
+                            f"{FIT_CPU_PX} px")
+
+
+def step_card_vs_cpu(mx, symbol, weights, x, y, what):
+    """One fp32 SGD step (``FIT_SGD``) of ``symbol`` from the numpy
+    ``weights`` (args, aux) on the batch ``x``, ``y``, on the card, on the
+    CPU on the card's ReLU masks and max-pool choices, and in float64 on
+    the CPU on the same; every Dropout draws the same masks on all three.
+    Held as :func:`fit_card_vs_cpu` says; returns the gaps."""
     import torch
     import torch.nn.functional as F
 
-    from mxnet_tpu_torch.ops import get_op
+    from mxnet_tpu_torch.ops import get_op, nn as tnn
     from mxnet_tpu_torch.ops.nn import _pair
 
     act, pool = get_op("Activation"), get_op("Pooling")
     act_fn, pool_fn = act.fn, pool.fn
+    keep_mask = tnn.keep_mask
     masks, argmax, flips = [], [], {"relu": [], "max_pool": []}
+    drawn = []
+
+    def shared_mask(gen, keep, shape, device):
+        g = torch.Generator().manual_seed(len(drawn))
+        drawn.append(shape)
+        return (torch.rand(shape, generator=g) < keep).to(device)
 
     def window(attrs):
         assert attrs.get("layout", "NCHW") == "NCHW"
         return (_pair(attrs["kernel"]), _pair(attrs.get("stride")),
                 _pair(attrs.get("pad", (0, 0))))
 
+    def is_relu(attrs):
+        return attrs.get("act_type") == "relu"
+
     def is_max_window(attrs):
         return attrs.get("pool_type") == "max" \
             and not attrs.get("global_pool")
 
     def act_on_card(ctx, attrs, data):
-        masks.append((data > 0).cpu())
+        if is_relu(attrs):
+            masks.append((data > 0).cpu())
         return act_fn(ctx, attrs, data)
 
     def act_with_card_mask(ctx, attrs, data):
+        if not is_relu(attrs):
+            return act_fn(ctx, attrs, data)
         mask = masks[len(flips["relu"]) % len(masks)]
         flips["relu"].append(int((mask != (data > 0)).sum()))
         return data.masked_fill(~mask, 0.0)
@@ -1751,54 +1952,80 @@ def fit_card_vs_cpu(mx, seed):
         flips["max_pool"].append(int((own != idx).sum()))
         return data.flatten(2).gather(2, idx.flatten(2)).view(idx.shape)
 
-    symbol = resnet_symbol(mx, FIT_CPU_CLASSES, FIT_CPU_PX)
-    weights = resnet_weights(symbol, FIT_CPU_BATCH, FIT_CPU_PX, seed + 21)
-    batch_seed = seed + 22
     got = {}
-    for label, ctx, fns in (("gpu", mx.gpu(0), (act_on_card, pool_on_card)),
-                            ("cpu", mx.cpu(), (act_with_card_mask,
-                                               pool_with_card_argmax)),
-                            ("f64", None, (act_with_card_mask,
-                                           pool_with_card_argmax))):
-        t0 = time.perf_counter()
-        try:
-            if ctx is None:
-                batch, y = _cpu_batch(mx, batch_seed, mx.cpu())
-                act.fn, pool.fn = fns
-                probs, grads, aux, args = _f64_step(
-                    mx, symbol, weights, batch.data[0].asnumpy(), y)
-            else:
-                mod = _small_resnet(mx, ctx, None, True, weights)
-                mod.init_optimizer(optimizer="sgd", optimizer_params=FIT_SGD)
-                batch, y = _cpu_batch(mx, batch_seed, ctx)
-                act.fn, pool.fn = fns
-                mod.forward(batch, is_train=True)
+    tnn.keep_mask = shared_mask
+    try:
+        for label, ctx, fns in (
+                ("gpu", mx.gpu(0), (act_on_card, pool_on_card)),
+                ("cpu", mx.cpu(), (act_with_card_mask,
+                                   pool_with_card_argmax)),
+                ("f64", None, (act_with_card_mask, pool_with_card_argmax))):
+            t0 = time.perf_counter()
+            drawn.clear()
+            try:
+                if ctx is None:
+                    act.fn, pool.fn = fns
+                    probs, grads, aux, args = _f64_step(mx, symbol, weights,
+                                                        x, y)
+                else:
+                    mod = mx.mod.Module(symbol, context=ctx)
+                    mod.bind(data_shapes=[("data", x.shape)],
+                             label_shapes=[("softmax_label", y.shape)])
+                    a, b = mx.convert.params_from_numpy(*weights, ctx)
+                    mod.init_params(arg_params=a, aux_params=b)
+                    mod.init_optimizer(optimizer="sgd",
+                                       optimizer_params=FIT_SGD)
+                    batch = mx.io.DataBatch(data=[mx.nd.array(x, ctx)],
+                                            label=[mx.nd.array(y, ctx)])
+                    act.fn, pool.fn = fns
+                    mod.forward(batch, is_train=True)
+                    act.fn, pool.fn = act_fn, pool_fn
+                    mod.backward()
+                    probs = mod.get_outputs()[0].asnumpy()
+                    grads = {n: g.asnumpy() for n, g in
+                             mod._exec_group._executor.grad_dict.items()}
+                    mod.update()
+                    args, aux = mod.get_params()
+                    args = {n: a.asnumpy() for n, a in args.items()}
+                    aux = {n: a.asnumpy() for n, a in aux.items()}
+                    del mod, batch
+            finally:
                 act.fn, pool.fn = act_fn, pool_fn
-                mod.backward()
-                probs = mod.get_outputs()[0].asnumpy()
-                grads = {n: g.asnumpy() for n, g in
-                         mod._exec_group._executor.grad_dict.items()}
-                mod.update()
-                args, aux = mod.get_params()
-                args = {n: a.asnumpy() for n, a in args.items()}
-                aux = {n: a.asnumpy() for n, a in aux.items()}
-                del mod, batch
-        finally:
-            act.fn, pool.fn = act_fn, pool_fn
-        nll = -np.log(probs[np.arange(len(y)), y.astype(int)])
-        got[label] = (nll, grads, aux, args, time.perf_counter() - t0)
+            nll = -np.log(probs[np.arange(len(y)), y.astype(int)])
+            got[label] = (nll, grads, aux, args, time.perf_counter() - t0)
+    finally:
+        tnn.keep_mask = keep_mask
     torch.cuda.empty_cache()
     gpu, cpu, f64 = got["gpu"], got["cpu"], got["f64"]
-    n_relu = sum(1 for node in symbol._nodes() if node.op == "Activation")
+    nodes = symbol._nodes()
+    n_relu = sum(1 for node in nodes
+                 if node.op == "Activation" and is_relu(node.attrs))
+    n_max = sum(1 for node in nodes
+                if node.op == "Pooling" and is_max_window(node.attrs))
     res = {"relu_masks_differ": [sum(flips["relu"][:n_relu]),
                                  sum(flips["relu"][n_relu:])],
-           "max_pool_choices_differ": flips["max_pool"],
+           "max_pool_choices_differ": [sum(flips["max_pool"][:n_max]),
+                                       sum(flips["max_pool"][n_max:])],
+           "dropout_masks_shared": len(drawn),
            "nll_max_abs_err": float(np.abs(gpu[0] - cpu[0]).max()),
            "seconds": {k: v[4] for k, v in got.items()}}
     failed = []
+    # a gradient that is exactly 0 (a convolution's bias before a
+    # BatchNorm, which takes the mean out) is fp32 rounding noise on both
+    # devices, and its gap over its own max-abs means nothing: it passes
+    # when float64 gives it as 0 (1e-9 of the step's largest gradient) and
+    # the card's is no larger than fp32 noise (1e-5 of that)
+    scale = max(float(np.abs(g).max()) for g in f64[1].values())
+    zeros = [n for n, g in f64[1].items()
+             if float(np.abs(g).max()) <= 1e-9 * scale
+             and float(np.abs(gpu[1][n]).max()) <= 1e-5 * scale]
+    res["zero_gradients"] = zeros
     for i, (key, limit) in enumerate((("grad", 1e-3), ("aux", 1e-5),
                                       ("weight", 1e-5)), 1):
-        gap = {n: _rel(gpu[i][n], cpu[i][n]) for n in cpu[i]}
+        gap = {n: _rel(gpu[i][n], cpu[i][n]) for n in cpu[i]
+               if not (key == "grad" and n in zeros)}
+        if not gap:
+            continue
         worst = max(gap, key=gap.get)
         over = {n: {"card_vs_cpu": gap[n],
                     "card_vs_f64": _rel(gpu[i][n], f64[i][n]),
@@ -1810,16 +2037,18 @@ def fit_card_vs_cpu(mx, seed):
                     "worst": worst,
                     "median_rel_err": float(np.median(list(gap.values()))),
                     "over_limit": over}
-    print(f"  card vs CPU, fp32 step at batch {FIT_CPU_BATCH}, {FIT_CPU_PX} "
-          "px: " + json.dumps(res), flush=True)
-    check(len(flips["relu"]) == 2 * n_relu and len(flips["max_pool"]) == 2,
-          f"the CPU and float64 steps took the card's {n_relu} ReLU masks "
-          "and its max-pool choices")
+    print(f"  card vs CPU, {what}: " + json.dumps(res), flush=True)
+    check(len(flips["relu"]) == 2 * n_relu
+          and len(flips["max_pool"]) == 2 * n_max,
+          f"{what}: the CPU and float64 steps took the card's {n_relu} ReLU "
+          f"masks and its {n_max} max-pool choices")
     check(np.isfinite(gpu[0]).all() and res["nll_max_abs_err"] <= 1e-4,
-          f"card vs CPU per-example NLL {res['nll_max_abs_err']:.3g} <= 1e-4")
-    check(not failed, "every gradient array within 1e-3 of its max-abs, "
-          "the moving statistics and updated weights within 1e-5, or the "
-          "card no further from the float64 step than twice the CPU "
+          f"{what}: card vs CPU per-example NLL "
+          f"{res['nll_max_abs_err']:.3g} <= 1e-4")
+    check(not failed, f"{what}: every gradient array within 1e-3 of its "
+          "max-abs (or exactly 0 in float64, and fp32 noise on the card), "
+          "the moving statistics and updated weights within 1e-5, "
+          "or the card no further from the float64 step than twice the CPU "
           f"(failed: {failed})")
     return res
 
@@ -2066,10 +2295,14 @@ def decode_rates(mx, rec, pool):
     return out
 
 
-def trace_fit_step(mx, mod, source, metric, stager=None):
+def trace_fit_step(mx, mod, source, metric, stager=None, ops=FIT_OPS,
+                   ranges=FIT_RANGES, needed=("conv_fwd", "conv_bwd",
+                                              "bn_fwd", "bn_bwd")):
     """One more training step of ``mod`` on the next batch of ``source``
-    (an iterator, or a DevicePrefetchIter over one), traced into
-    ``FIT_RANGES``' groups, with the host's time by part: next batch,
+    (an iterator, or a DevicePrefetchIter over one), traced into the groups
+    of ``ranges`` (the ops of ``ops`` forward under a range of their group;
+    each group of ``needed`` must run kernels), with the host's time by
+    part: next batch,
     stage (the feed's copy to the card; with a ``stager``, its host time
     for this batch, on its own thread), forward+backward, update, metric.
     Returns the batch and the trace's numbers."""
@@ -2098,7 +2331,7 @@ def trace_fit_step(mx, mod, source, metric, stager=None):
         return batch
 
     saved = []
-    for group, names in FIT_OPS.items():
+    for group, names in ops.items():
         saved += _wrap_ops(names, "chip_smoke::" + group)
     amp_cast, fed_tensor = texe._amp_cast, tgroup._fed_tensor
 
@@ -2111,7 +2344,7 @@ def trace_fit_step(mx, mod, source, metric, stager=None):
     traced = []
     try:
         by_name, groups = traced_groups(lambda: traced.append(timed(step)),
-                                        FIT_RANGES)
+                                        ranges)
     finally:
         texe._amp_cast, tgroup._fed_tensor = amp_cast, fed_tensor
         for op, fn in saved:
@@ -2124,10 +2357,8 @@ def trace_fit_step(mx, mod, source, metric, stager=None):
     split["h2d_copy"] = sum(t for k, t in by_name.items() if "HtoD" in k)
     split["d2h_copy"] = sum(t for k, t in by_name.items() if "DtoH" in k)
     split["rest"] = busy - sum(split.values())
-    check(split["conv_fwd"] > 0 and split["conv_bwd"] > 0
-          and split["bn_fwd"] > 0 and split["bn_bwd"] > 0,
-          "the traced step ran the convolutions and BatchNorms forward "
-          "and backward")
+    check(all(split[g] > 0 for g in needed),
+          f"the traced step ran kernels in each of {needed}")
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     return batch, {
         "host_ms": host_ms, "host_split_ms": host, "device_busy_ms": busy,
@@ -3752,6 +3983,352 @@ def phase_step_graph(mx, weights, seed, rec, ptb_split, train_nll):
     return out
 
 
+# phase 14: the image-classification family
+ZOO_BATCH, ZOO_BATCHES, ZOO_CLASSES = FIT_BATCH, FIT_BATCHES, FIT_CLASSES
+ZOO_TRAIN = (("alexnet", {}, 224), ("inception-v3", {}, 299))
+ZOO_INFER = (("resnet", {"num_layers": 50}, 224), ("alexnet", {}, 224),
+             ("inception-bn", {}, 224), ("inception-v3", {}, 299))
+ZOO_INFER_CONFIGS = ((1, "float32"), (32, "float32"), (32, "bfloat16"))
+ZOO_SCORE_BATCHES = 50      # benchmark_score.py's num_batches (its default)
+ZOO_SCORE_ORDER = ("captured", "eager", "eager", "captured", "captured",
+                   "eager")
+ZOO_IDLE_FORWARDS = 10      # captured forwards in the traced idle window
+ZOO_SPLIT_STEPS = 2
+# the nine builders' card-vs-CPU step: phase 10's batch (8), each at a
+# small image it takes
+ZOO_SMALL = (("mlp", {}, (8, 1, 28, 28)), ("lenet", {}, (8, 1, 28, 28)),
+             ("alexnet", {}, (8, 3, 224, 224)),
+             ("vgg", {"num_layers": 11}, (8, 3, 32, 32)),
+             ("googlenet", {}, (8, 3, 64, 64)),
+             ("inception-bn", {}, (8, 3, 64, 64)),
+             ("inception-v3", {}, (8, 3, 299, 299)),
+             ("inception-resnet-v2", {}, (8, 3, 299, 299)),
+             ("resnext", {"num_layers": 50, "image_shape": "3,64,64"},
+              (8, 3, 64, 64)))
+ZOO_SMALL_CLASSES = 16
+# AlexNet's two LRNs at batch 256 (after its first two poolings)
+LRN_SHAPES = ((256, 96, 26, 26), (256, 256, 12, 12))
+LRN_ATTRS = {"alpha": 1e-4, "beta": 0.75, "knorm": 1.0, "nsize": 5}
+LRN_BF16_LIMIT = 2e-2       # of the fp32 output's max-abs (at least 1)
+ZOO_OPS = {"conv_fwd": ("Convolution",), "bn_fwd": ("BatchNorm",),
+           "pool": ("Pooling",), "lrn": ("LRN",),
+           "fc_softmax": ("FullyConnected", "SoftmaxOutput", "Flatten"),
+           "dropout": ("Dropout",), "relu_concat": ("Activation", "Concat")}
+ZOO_RANGES = {
+    "conv_fwd": ("chip_smoke::conv_fwd",),
+    "conv_bwd": (_NODE + "ConvolutionBackward0",),
+    "bn_fwd": ("chip_smoke::bn_fwd",),
+    "bn_bwd": (_NODE + "_BatchNormTrainBackward",),
+    "pool": ("chip_smoke::pool", _NODE + "MaxPool2DWithIndicesBackward0",
+             _NODE + "AvgPool2DBackward0", _NODE + "MeanBackward1"),
+    # LRN's backward is autograd's over its composition (the zoo has no
+    # other op that records these nodes)
+    "lrn": ("chip_smoke::lrn",) + tuple(_NODE + n for n in (
+        "PowBackward0", "PowBackward1", "ConstantPadNdBackward0",
+        "SliceBackward0", "MulBackward0", "AddBackward0")),
+    "fc_softmax": ("chip_smoke::fc_softmax", _NODE + "AddmmBackward0",
+                   _NODE + "_SoftmaxOutputBackward"),
+    "dropout": ("chip_smoke::dropout", _NODE + "WhereBackward0",
+                _NODE + "DivBackward0"),
+    "relu_concat": ("chip_smoke::relu_concat", _NODE + "ReluBackward0",
+                    _NODE + "CatBackward0"),
+    "amp_cast": ("chip_smoke::amp_cast", _NODE + "ToCopyBackward0"),
+    "sgd_update": ("chip_smoke::sgd_update",),
+}
+ZOO_NEEDED = {"alexnet": ("conv_fwd", "conv_bwd", "lrn", "dropout"),
+              "inception-v3": ("conv_fwd", "conv_bwd", "bn_fwd", "bn_bwd")}
+
+
+def zoo_scripts(mx, tmp):
+    """(a) and (e): the port's train_mnist.py --network lenet at its
+    defaults on the synthetic digits (no idx files), then score.py and
+    fine_tune.py, on the card, each against its gate."""
+    from mxnet_tpu_torch.examples.image_classification import (
+        fine_tune, score, train_mnist)
+
+    out = {}
+    t0 = time.perf_counter()
+    mod, acc = train_mnist.main(["--network", "lenet", "--data-dir",
+                                 os.path.join(tmp, "no_mnist")])
+    out["train_mnist_lenet"] = {
+        "validation_accuracy": acc, "seconds": time.perf_counter() - t0,
+        "eval_forward": mod._exec_group._executor.forward_info()}
+    print("  (a) train_mnist.py --network lenet: "
+          + json.dumps(out["train_mnist_lenet"]), flush=True)
+    check(acc >= 0.95, f"train_mnist.py lenet validation accuracy {acc:.4f} "
+          ">= 0.95")
+    del mod
+    t0 = time.perf_counter()
+    metrics = dict(m.get() for m in score.main(
+        ["--prefix", os.path.join(tmp, "score_demo")]))
+    out["score"] = dict(metrics, seconds=time.perf_counter() - t0)
+    check(metrics["accuracy"] >= 0.95
+          and np.isfinite(metrics["cross-entropy"]),
+          f"score.py accuracy {metrics['accuracy']:.4f} >= 0.95, "
+          f"cross-entropy {metrics['cross-entropy']:.4f} finite")
+    t0 = time.perf_counter()
+    acc, drift = fine_tune.main(["--prefix", os.path.join(tmp, "ft_base")])
+    out["fine_tune"] = {"accuracy": acc, "frozen_drift": drift,
+                        "seconds": time.perf_counter() - t0}
+    print("  (e) score.py, fine_tune.py: " + json.dumps(
+        {k: out[k] for k in ("score", "fine_tune")}), flush=True)
+    check(drift == 0.0 and acc >= 0.9, f"fine_tune.py: frozen drift {drift} "
+          f"== 0, head accuracy {acc:.3f} >= 0.9")
+    return out
+
+
+def zoo_train(mx, name, kw, px, seed):
+    """(b) ``name`` through ``Module.fit`` at phase 10's config (bench.py's
+    accelerator config) with the fused step captured: steady step and
+    img/s, the captured step's idle share, memory, captures; then the split
+    path: one step traced into ``ZOO_RANGES``' groups and steps timed."""
+    import torch
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gpu = mx.gpu(0)
+    rng = np.random.default_rng(seed + 140)
+    n = ZOO_BATCH * ZOO_BATCHES
+    x = rng.standard_normal((n, 3, px, px), dtype=np.float32)
+    y = rng.integers(0, ZOO_CLASSES, n).astype(np.float32)
+    train = mx.io.NDArrayIter(x, y, batch_size=ZOO_BATCH)
+    symbol = mx.models.get_model(name).get_symbol(
+        num_classes=ZOO_CLASSES, image_shape=f"3,{px},{px}", **kw)
+    mod = mx.mod.Module(symbol, context=gpu, amp="bfloat16")
+    ready, stamps = [], []
+    init_optimizer = mod.init_optimizer
+
+    def init_optimizer_marked(*a, **k):
+        init_optimizer(*a, **k)
+        torch.cuda.synchronize()
+        ready.append(time.perf_counter())
+
+    mod.init_optimizer = init_optimizer_marked
+    metric = mx.metric.create("acc")
+    mx.random.seed(seed + 140)
+    infos = []
+
+    def batch_end(param):
+        stamps.append(time.perf_counter())
+        # (fit's step is built anew when fit ends: read it from inside)
+        infos.append(mod.step_info())
+
+    t0 = time.perf_counter()
+    mod.fit(train, eval_metric=metric, num_epoch=1, optimizer="sgd",
+            optimizer_params=FIT_SGD,
+            initializer=mx.init.Xavier(rnd_type="gaussian",
+                                       factor_type="in", magnitude=2),
+            batch_end_callback=batch_end)
+    step_ms = list(np.diff(ready + stamps) * 1e3)
+    check(len(step_ms) == ZOO_BATCHES, f"{name}: fit ran {len(step_ms)} == "
+          f"{ZOO_BATCHES} batches")
+    steady = float(np.median(step_ms[2:]))
+    info = infos[-1]
+    out = {"batch": ZOO_BATCH, "px": px, "classes": ZOO_CLASSES,
+           "fit_s": time.perf_counter() - t0, "setup_s": ready[0] - t0,
+           "step_ms": step_ms, "steady_step_ms": steady,
+           "images_per_s": ZOO_BATCH / (steady / 1e3),
+           "train_accuracy": metric.get()[1], "step": info, **_memory()}
+    print(f"  (b) {name}: steady {steady:.2f} ms, "
+          f"{out['images_per_s']:.0f} img/s, {info}", flush=True)
+    check(info["captured"] and info["captures"] == 1
+          and info["replays"] == ZOO_BATCHES - 1,
+          f"{name}: one capture and {ZOO_BATCHES - 1} replays ({info})")
+    # the probe steps take a batch already on the card (its feed a copy on
+    # the device): the step as the card runs it, without fit's host feed
+    train.reset()
+    host_batch = train.next()
+    dev_batch = mx.io.DataBatch(
+        data=[a.as_in_context(gpu) for a in host_batch.data],
+        label=[a.as_in_context(gpu) for a in host_batch.label])
+    probe = out["probe"] = graph_step_probe(mx, mod, dev_batch, steady)
+    out["device_batch_step_ms"] = probe["event_ms"]
+    out["device_batch_images_per_s"] = ZOO_BATCH / (probe["event_ms"] / 1e3)
+    out["device_batch_idle_share"] = 1.0 - probe["kernel_busy_ms"] \
+        / probe["event_ms"]
+    out["reserved_after_probe_gb"] = torch.cuda.memory_reserved() / 1e9
+    # the split path on the same binding: its traced step splits the device
+    # time by op group (a replay has no host ranges to group by; it runs
+    # the same kernels)
+    os.environ["MXTPU_NO_FUSED_STEP"] = "1"
+    try:
+        mod._refresh_fused_step()
+        train.reset()
+        _, out["split_traced_step"] = trace_fit_step(
+            mx, mod, train, metric, ops=ZOO_OPS, ranges=ZOO_RANGES,
+            needed=ZOO_NEEDED[name])
+        split = [timed(lambda: (mod.forward(dev_batch, is_train=True),
+                                mod.backward(), mod.update()))[1]
+                 for _ in range(ZOO_SPLIT_STEPS)]
+    finally:
+        os.environ.pop("MXTPU_NO_FUSED_STEP")
+    out["split_step_ms"] = split
+    out["split_over_captured"] = float(np.median(split)) \
+        / out["device_batch_step_ms"]
+    traced = out["split_traced_step"]
+    print(f"  (b) {name} on a batch on the card: captured "
+          f"{out['device_batch_step_ms']:.2f} ms "
+          f"({out['device_batch_images_per_s']:.0f} img/s, idle "
+          f"{out['device_batch_idle_share']:.3f}), split "
+          f"{[round(t, 2) for t in split]} ms; the split step's traced "
+          f"device ms by group {json.dumps(traced['split_ms'])}; captured "
+          f"probe {json.dumps(probe)}", flush=True)
+    del mod, train, x, y
+    torch.cuda.empty_cache()
+    return out
+
+
+def zoo_infer(mx):
+    """(c) benchmark_score.py's path and bench.py's inference mode: each
+    network and config bound forward-only, its captured forward's img/s by
+    the script's method beside the eager walk's in turns, the outputs of
+    the two compared, the output copy and the idle share."""
+    import torch
+
+    from mxnet_tpu_torch.examples.image_classification import (
+        benchmark_score as bs)
+
+    rows = []
+    for name, kw, px in ZOO_INFER:
+        for b, dtype in ZOO_INFER_CONFIGS:
+            mod, batch = bs.bind_scorer(name, b, (3, px, px), dtype,
+                                        mx.gpu(0), **kw)
+            eg = mod._exec_group
+            ex = eg._executor
+            eager_out = []
+
+            def captured():
+                mod.forward(batch, is_train=False)
+
+            def eager():
+                eg._load_into(eg.data_names, batch.data)
+                eager_out[:] = ex.eager_forward()
+
+            def read_captured():
+                return float(mod.get_outputs()[0].asnumpy().ravel()[0])
+
+            def read_eager():
+                return float(eager_out[0].reshape(-1)[0])
+
+            rates = {"captured": [], "eager": []}
+            for mode in ZOO_SCORE_ORDER:
+                fn, read = (captured, read_captured) if mode == "captured" \
+                    else (eager, read_eager)
+                rates[mode].append(bs.images_per_s(fn, read, b,
+                                                   ZOO_SCORE_BATCHES))
+            captured()
+            got = mod.get_outputs()[0].data
+            want = ex.eager_forward()[0]
+            bit = torch.equal(got, want)
+            err = float((got.float() - want.float()).abs().max())
+            info = ex.forward_info()
+            static = ex._eval_program._static
+            copy_ms = time_cuda(lambda: [o.clone() for o in static])
+            fwd_ms = 1e3 * b / float(np.median(rates["captured"]))
+            # the idle share of a window of captured forwards, its device
+            # time and its host time from the same traced run
+            window = []
+            busy = device_busy_ms(lambda: window.append(timed(
+                lambda: [captured() for _ in range(ZOO_IDLE_FORWARDS)])[1]))
+            cap, eag = rates["captured"], rates["eager"]
+            row = {"network": name, "batch": b, "dtype": dtype, "px": px,
+                   "num_batches": ZOO_SCORE_BATCHES,
+                   "captured_img_s": cap, "eager_img_s": eag,
+                   "captured_over_eager": float(np.median(cap))
+                   / float(np.median(eag)),
+                   "captured_over_eager_range": [min(cap) / max(eag),
+                                                 max(cap) / min(eag)],
+                   "forward_ms": fwd_ms,
+                   "device_busy_ms": busy / ZOO_IDLE_FORWARDS
+                   if busy else None,
+                   "idle_share": 1.0 - busy / window[0] if busy else None,
+                   "output_copy_ms": copy_ms, "bit_identical": bit,
+                   "max_abs_err": err, "forward": info}
+            rows.append(row)
+            print(f"  (c) {name} batch {b} {dtype}: captured "
+                  f"{[round(r, 1) for r in rates['captured']]} img/s, eager "
+                  f"{[round(r, 1) for r in rates['eager']]}; idle "
+                  f"{row['idle_share']}; copy {copy_ms:.4f} ms; bit "
+                  f"{bit} ({err:.3g}); {info}", flush=True)
+            check(info["captured"] and info["captures"] == 1
+                  and info["drops"] == 0,
+                  f"{name} batch {b} {dtype}: one capture for the binding "
+                  f"({info})")
+            # the same kernels run eagerly and replayed: bit-identical,
+            # else phase 10's probability limit
+            check(bit or err <= 1e-4, f"{name} batch {b} {dtype}: captured "
+                  f"output bit-identical to the eager walk's, or within "
+                  f"1e-4 ({err:.3g})")
+            del mod, batch, eg, ex, static, got, want, eager_out
+            torch.cuda.empty_cache()
+    return rows
+
+
+def zoo_card_vs_cpu(mx, seed):
+    """(d) one fp32 SGD step of each of the nine builders at a small input
+    on the card against the CPU (phase 10's limits, through
+    :func:`step_card_vs_cpu`), and LRN in bf16 on the card against an fp32
+    plain version at AlexNet's shapes. The steps run as the main path
+    does, on cuDNN (whose fp32 convolution weight gradients the port's op
+    takes off cuDNN with TF32 off, phase 1)."""
+    import torch
+    import torch.nn.functional as F
+
+    from mxnet_tpu_torch.ops import get_op
+    from mxnet_tpu_torch.ops.registry import OpCtx
+
+    out = {}
+    os.environ["MXTPU_NO_FUSED_STEP"] = "1"
+    try:
+        for i, (name, kw, shape) in enumerate(ZOO_SMALL):
+            symbol = mx.models.get_model(name).get_symbol(
+                num_classes=ZOO_SMALL_CLASSES, **kw)
+            weights = net_weights(symbol, shape, seed + 150 + i)
+            rng = np.random.default_rng(seed + 170 + i)
+            x = rng.standard_normal(shape, dtype=np.float32)
+            y = rng.integers(0, ZOO_SMALL_CLASSES, shape[0]).astype(
+                np.float32)
+            out[name] = step_card_vs_cpu(mx, symbol, weights, x, y,
+                                         f"{name} fp32 step at {shape}")
+    finally:
+        os.environ.pop("MXTPU_NO_FUSED_STEP")
+    lrn = get_op("LRN")
+    ctx = OpCtx(is_train=False, device=torch.device("cuda", 0))
+    gen = torch.Generator().manual_seed(seed + 180)
+    out["lrn_bf16"] = []
+    for shape in LRN_SHAPES:
+        x = torch.randn(shape, generator=gen).cuda()
+        got = lrn.fn(ctx, LRN_ATTRS, x.bfloat16())
+        want = F.local_response_norm(
+            x, LRN_ATTRS["nsize"], alpha=LRN_ATTRS["alpha"],
+            beta=LRN_ATTRS["beta"], k=LRN_ATTRS["knorm"])
+        err = float((got.float() - want).abs().max()) \
+            / max(1.0, float(want.abs().max()))
+        out["lrn_bf16"].append({"shape": list(shape), "dtype": str(got.dtype),
+                                "max_rel_err": err})
+        check(got.dtype == torch.bfloat16 and err <= LRN_BF16_LIMIT,
+              f"LRN in bf16 at {shape} against fp32: {err:.3g} <= "
+              f"{LRN_BF16_LIMIT} of max-abs")
+    print("  (d) LRN bf16 vs fp32: " + json.dumps(out["lrn_bf16"]),
+          flush=True)
+    return out
+
+
+def phase_zoo(mx, seed, tmp):
+    """The image-classification family: (a) train_mnist.py's LeNet, (b)
+    AlexNet and Inception-v3 training, (c) inference, (d) card vs CPU, (e)
+    score.py and fine_tune.py."""
+    print("phase 14: the image-classification family", flush=True)
+    t0 = time.perf_counter()
+    out = zoo_scripts(mx, tmp)
+    out["train"] = {name: zoo_train(mx, name, kw, px, seed)
+                    for name, kw, px in ZOO_TRAIN}
+    out["infer"] = zoo_infer(mx)
+    out["card_vs_cpu"] = zoo_card_vs_cpu(mx, seed)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3783,6 +4360,7 @@ def main(argv=None):
             os.environ.pop("MXTPU_NO_FUSED_STEP")
         graph = phase_step_graph(mx, weights, args.seed, records["rec"],
                                  ptb_split, train["mean_nll"])
+        zoo = phase_zoo(mx, args.seed, rec_dir)
 
     main_case = cases["slice_fp32_causal"]
     kernels = [{
@@ -3790,7 +4368,13 @@ def main(argv=None):
         "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/flash_attention_fwd.cu",
         "replaces": "mxnet_tpu/ops/flash_attention.py:47",
+        # the captured requests' launches are the kernels the card ran in
+        # them (traced); the wrapper's calls are the warm-up's and the
+        # capture's
         "launches": slice_out["launches"],
+        "launches_by_path": {
+            "requests_traced": slice_out["launches"],
+            "requests_wrapper_calls": slice_out["wrapper_calls"]},
         "max_abs_err": main_case["max_abs_err"],
         "ms": main_case["ms"],
         "plain_ms": main_case["plain_ms"],
@@ -3809,10 +4393,11 @@ def main(argv=None):
         # the captured steps' launches are the kernels the card ran in them
         # (traced); the wrapper's calls there are the warm-up's and the
         # capture's
-        "launches": amp["launches"]["bfloat16"] + train["launches"]
+        "launches": amp["launches"] + train["launches"]
         + graph["lm"]["launches"],
         "launches_by_path": {
-            "amp_requests": amp["launches"]["bfloat16"],
+            "amp_requests_traced": amp["launches"],
+            "amp_requests_wrapper_calls": amp["wrapper_calls"]["bfloat16"],
             "training_steps": train["launches"],
             "captured_training_steps_traced": graph["lm"]["launches"],
             "captured_training_steps_wrapper_calls":
@@ -3834,6 +4419,7 @@ def main(argv=None):
                    "rtc_cases": rtc_cases, "imperative": imperative,
                    "amp": amp, "train": train, "fit": fit,
                    "records": records, "ptb": ptb, "step_graph": graph,
+                   "zoo": zoo,
                    "kernels": kernels,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)

@@ -7,7 +7,11 @@ order and calls each op body on the bound tensors; the op bodies launch
 their kernels on the current CUDA stream. The reference's graph rewrites at
 bind (graphopt) do not change fp32 math and are not ported.
 
-- ``forward(is_train=False)`` walks under ``torch.inference_mode()``.
+- ``forward(is_train=False)`` is the reference's jitted forward: the walk
+  under ``torch.inference_mode()`` (:meth:`Executor.eager_forward`), run by
+  a :class:`~mxnet_tpu_torch.module.step_graph.ForwardProgram`, which on the
+  card captures it as one CUDA graph a binding (its second forward) and
+  replays it; each forward's outputs are new tensors.
 - ``forward(is_train=True)`` with gradients bound is the reference's fused
   forward+backward (:meth:`Executor._fwd_bwd`, a body over given tensors
   that writes no bound array, so a module's one-program step can close
@@ -21,8 +25,8 @@ bind (graphopt) do not change fp32 math and are not ported.
 - ``backward(out_grads)`` runs the observed forward again with the given head
   gradients: on the arguments bound now, the aux inputs of that forward and
   its random numbers.
-- Random numbers (Dropout's masks, the RNN op's, ``_sample_*``): in a
-  training walk each node draws from its own generator, seeded on the host
+- Random numbers (Dropout's masks, the RNN op's, ``_sample_*``): in every
+  walk, training or evaluation, each node draws from its own generator, seeded on the host
   from the step's seed (the next of :func:`mxnet_tpu_torch.random.
   step_seed`'s stream) and the node's index in the topological order
   (:class:`NodeRandom`; the reference's ``fold_in(key, node_index)``). A
@@ -73,19 +77,38 @@ def _amp_cast(name, v, amp_dtype):
 _CANONICAL = {np.dtype(np.float64): np.float32, np.dtype(np.int64): np.int32}
 
 
-def _fed_tensor(v, device):
-    """A fed array (NDArray, or array-like read with ``np.asarray``, 64-bit
-    types narrowed as jax.numpy does) as a tensor on ``device``, with its
-    own dtype and shape."""
+def _as_tensor(v):
+    """A fed array as a tensor: an NDArray's own, else a CPU tensor over
+    ``np.asarray(v)`` with 64-bit types narrowed as jax.numpy does."""
     import torch
 
     from .ndarray import NDArray
 
     if isinstance(v, NDArray):
-        return v.data.to(device)
+        return v.data
     a = np.asarray(v)
     a = a.astype(_CANONICAL.get(a.dtype, a.dtype), copy=False)
-    return torch.from_numpy(np.ascontiguousarray(a)).to(device, copy=True)
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _fed_tensor(v, device):
+    """A fed array (see :func:`_as_tensor`) as a tensor on ``device``, with
+    its own dtype and shape (never a numpy array's memory)."""
+    from .ndarray import NDArray
+
+    return _as_tensor(v).to(device, copy=not isinstance(v, NDArray))
+
+
+def _feed(holder, v, device):
+    """Feed ``v`` into the bound NDArray ``holder``: copied into its tensor
+    where shape and dtype agree (a captured forward keeps reading the same
+    memory), else ``holder`` is rebound to :func:`_fed_tensor` of it."""
+    src = _as_tensor(v)
+    t = holder.data
+    if src.shape == t.shape and src.dtype == t.dtype:
+        t.copy_(src)
+    else:
+        holder._data = _fed_tensor(v, device)
 
 
 class NodeRandom:
@@ -190,6 +213,7 @@ class Executor:
         self._last_rng = None        # its NodeRandom
         self._grads_were_elided = False
         self.walking = None          # the node the last walk reached
+        self._eval_program = None    # the evaluation forward's program
 
     def _walk(self, op_ctx, arg_vals, aux_vals):
         """Evaluate the graph on ``arg_vals``/``aux_vals`` (dicts of tensors
@@ -256,9 +280,10 @@ class Executor:
                 {n: a.detach() for n, a in new_aux.items()}, grads)
 
     def forward(self, is_train=False, **kwargs):
-        """Evaluate the graph; each of ``kwargs`` rebinds its bound argument
-        first, as in the reference: the bound NDArray now holds the fed
-        array, with the feed's dtype and shape, on the executor's device.
+        """Evaluate the graph; each of ``kwargs`` is fed into its bound
+        argument first, as in the reference: the bound NDArray now holds the
+        fed values, with the feed's dtype and shape, on the executor's
+        device (copied in place where those agree, see :func:`_feed`).
         With ``is_train`` and gradients bound, also computes the gradients
         that :meth:`backward` writes. Returns the output NDArrays."""
         import torch
@@ -268,16 +293,16 @@ class Executor:
         for k, v in kwargs.items():
             if k not in self.arg_dict:
                 raise MXNetError(f"forward: unknown argument {k}")
-            self.arg_dict[k]._data = _fed_tensor(v, self._ctx.torch_device)
-        aux_vals = {n: a.data for n, a in self.aux_dict.items()}
+            _feed(self.arg_dict[k], v, self._ctx.torch_device)
         self._pending_grads = None
         if not is_train:
-            op_ctx = OpCtx(is_train=False, device=self._ctx.torch_device)
-            args = {n: a.data for n, a in self.arg_dict.items()}
-            with torch.inference_mode():
-                outs, _ = self._walk(op_ctx, args, aux_vals)
-            self.outputs = [NDArray(o) for o in outs]
+            if self._eval_program is None:
+                from .module.step_graph import ForwardProgram
+
+                self._eval_program = ForwardProgram(self)
+            self.outputs = [NDArray(o) for o in self._eval_program.run()]
             return self.outputs
+        aux_vals = {n: a.data for n, a in self.aux_dict.items()}
         rng = NodeRandom(self._ctx.torch_device)
         rng.begin()
         # an explicit backward(out_grads) later re-runs the forward the
@@ -298,6 +323,32 @@ class Executor:
             self.aux_dict[n]._data = new_aux[n]
         self.outputs = [NDArray(o) for o in outs]
         return self.outputs
+
+    def eager_forward(self, rng=None):
+        """The evaluation forward walked eagerly over the bound arrays (the
+        function the captured graph replays); returns the output tensors
+        and changes nothing bound. Random nodes draw from ``rng`` (a
+        :class:`NodeRandom`; by default a new one on the next step seed),
+        as the reference's forward folds its key into each node's index."""
+        import torch
+
+        if rng is None:
+            rng = NodeRandom(self._ctx.torch_device)
+            rng.begin()
+        op_ctx = OpCtx(is_train=False, rng=rng,
+                       device=self._ctx.torch_device)
+        args = {n: a.data for n, a in self.arg_dict.items()}
+        aux_vals = {n: a.data for n, a in self.aux_dict.items()}
+        with torch.inference_mode():
+            outs, _ = self._walk(op_ctx, args, aux_vals)
+        return outs
+
+    def forward_info(self):
+        """The evaluation forward's program state (``ForwardProgram.info``:
+        captured, the refusal, eager forwards, warm-ups, captures, replays,
+        drops); None before the first evaluation forward."""
+        prog = self._eval_program
+        return None if prog is None else prog.info()
 
     def backward(self, out_grads=None):
         """Write the gradients into the bound grad arrays under grad_req

@@ -1,29 +1,37 @@
-"""The one-program training step of a :class:`~mxnet_tpu_torch.module.Module`
-(reference: the fused step of mxnet_tpu/module/module.py,
-``_maybe_build_fused_step`` :489 and ``_fused_forward`` :751).
+"""The module's programs captured as CUDA graphs: the one-program training
+step (reference: the fused step of mxnet_tpu/module/module.py,
+``_maybe_build_fused_step`` :489 and ``_fused_forward`` :751) and the
+evaluation forward (reference: the jitted forward of mxnet_tpu/executor.py,
+``_jit_fwd`` :316-319).
 
 :class:`StepProgram` is a function that runs forward, backward and the
 optimizer's update over the arrays a module bound once: the bound inputs,
 weights, aux states and optimizer states, and a device tensor of each
 parameter's learning rate and weight decay. It writes the new aux states in
 place; the new weights and states in place under donation, else into staged
-copies that ``Module.update`` installs. On the card the first step of a
-binding runs the function eagerly on a side stream (a real step: it lets
+copies that ``Module.update`` installs. :class:`ForwardProgram` is an
+executor's evaluation forward over its bound arguments and aux states; each
+run hands out copies of the graph's outputs (one device-to-device copy), so
+outputs are new arrays every forward, as a jitted forward's are.
+
+Both run as :class:`GraphProgram` says: on the card the first run of a
+binding runs the function eagerly on a side stream (a real run: it lets
 cuBLAS, cuDNN and the RNN op's layout probe set themselves up), the next one
 captures it as one ``torch.cuda.CUDAGraph`` and replays it, and every later
-step replays it. On the CPU, or where a rule refuses the capture, the same
-function runs eagerly every step.
+run replays it. On the CPU, or where a rule refuses the capture, the same
+function runs eagerly every time.
 
-- The graph is valid for the tensors it was captured over. Each step checks
+- The graph is valid for the tensors it was captured over. Each run checks
   that every bound array still holds the same tensor object; one that was
-  rebound (a batch of another shape or dtype, restored optimizer states)
-  drops the graph, and the binding warms up and captures again.
+  rebound (a batch of another shape or dtype, a feed through
+  ``forward(**kwargs)``, restored optimizer states) drops the graph, and the
+  binding warms up and captures again.
 - Random nodes draw from the program's :class:`~mxnet_tpu_torch.executor.
   NodeRandom`: its generators are registered with the graph and re-seeded on
-  the host before each step from the host's step-seed stream, so a replay
+  the host before each run from the host's step-seed stream, so a replay
   draws what the eager function draws for the same seed.
 - The learning rates and weight decays go from pinned host memory to the
-  device tensor the graph reads before each step.
+  device tensor the step's graph reads before each step.
 - A capture that fails raises, naming the op whose body was running; it is
   never replaced by the eager function.
 - The port's kernel wrappers count their launch calls in Python, so their
@@ -41,11 +49,12 @@ import time
 from ..base import MXNetError
 from ..executor import NodeRandom
 
-__all__ = ["StepProgram", "capture_refusal"]
+__all__ = ["GraphProgram", "StepProgram", "ForwardProgram",
+           "capture_refusal"]
 
 
 def capture_refusal(symbol):
-    """Why a step over ``symbol``'s graph cannot be captured (None if it
+    """Why a program over ``symbol``'s graph cannot be captured (None if it
     can), decided from its op list: a ``Custom`` node runs the user's host
     code, which the reference embeds through ``pure_callback``."""
     for node in symbol._nodes():
@@ -53,6 +62,152 @@ def capture_refusal(symbol):
             return (f"Custom node '{node.name}': its forward and backward "
                     "are user host code")
     return None
+
+
+class GraphProgram:
+    """A function over an executor's bound arrays, run eagerly, warmed up,
+    captured and replayed as the module docstring says. A subclass gives
+    :meth:`_body` (the function) and may extend :meth:`_bindings` (the
+    tensors the graph reads and writes: here the bound arguments and aux
+    states) and :meth:`_where` (what the function was running when a
+    capture failed); :attr:`WHAT` names the program in messages."""
+
+    WHAT = "the program"
+
+    def __init__(self, executor):
+        self.ex = executor
+        self.device = executor._ctx.torch_device
+        self.rng = NodeRandom(self.device)
+        self.refusal = capture_refusal(executor._symbol)
+        self.capturable = self.device.type == "cuda" and self.refusal is None
+        self._graph = None
+        self._static = None
+        self._bound = None        # the tensors the graph was captured over
+        self._warm = None         # the tensors of the last warm-up
+        self._stream = None
+        self.replayed = False     # the last run replayed the graph
+        self.stats = {"eager_runs": 0, "warmups": 0, "captures": 0,
+                      "replays": 0, "drops": 0, "warmup_ms": None,
+                      "capture_ms": None}
+
+    # -- state ------------------------------------------------------------------
+    @property
+    def captured(self):
+        return self._graph is not None
+
+    def info(self):
+        """``captured``, the refusal's reason (None if none) and the
+        counters of :attr:`stats` (``drops`` counts graphs dropped for a
+        rebound array)."""
+        reason = self.refusal
+        if reason is None and self.device.type != "cuda":
+            reason = f"the CPU runs {self.WHAT} eagerly"
+        return {"captured": self.captured, "refusal": reason, **self.stats}
+
+    def drop(self):
+        """Forget the graph and its pool (a rebind, a new binding)."""
+        self._graph = None
+        self._static = None
+        self._bound = None
+        self._warm = None
+
+    def _bindings(self):
+        ex = self.ex
+        return [ex.arg_dict[n].data for n in ex.arg_names] \
+            + [ex.aux_dict[n].data for n in ex.aux_names]
+
+    @staticmethod
+    def _same(a, b):
+        return b is not None and len(a) == len(b) \
+            and all(x is y for x, y in zip(a, b))
+
+    def _body(self):
+        raise NotImplementedError
+
+    def _where(self):
+        node = self.ex.walking
+        if node is None:
+            return "the start of the graph walk"
+        return f"{node.op} node '{node.name}', the last node walked"
+
+    # -- running ----------------------------------------------------------------
+    def run(self):
+        """The body's result: eager, warm-up, capture and replay, or replay
+        (the graph's static result)."""
+        bound = self._bindings()
+        self.rng.begin()
+        self.replayed = False
+        if not self.capturable:
+            self.stats["eager_runs"] += 1
+            return self._body()
+        if self._graph is not None and not self._same(bound, self._bound):
+            self.drop()
+            self.stats["drops"] += 1
+        if self._graph is None:
+            if not self._same(bound, self._warm):
+                return self._warmup(bound)
+            self._capture(bound)
+        self._graph.replay()
+        self.stats["replays"] += 1
+        self.replayed = True
+        return self._static
+
+    def _side_stream(self):
+        import torch
+
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self.device)
+        self._stream.wait_stream(torch.cuda.current_stream(self.device))
+        return self._stream
+
+    def _warmup(self, bound):
+        """The body on the side stream. The first warm-up is timed between
+        two device syncs; a later one (a binding whose arrays are rebound
+        at every run never captures) only orders the streams."""
+        import torch
+
+        first = self.stats["warmups"] == 0
+        if first:
+            torch.cuda.synchronize(self.device)
+        t0 = time.perf_counter()
+        stream = self._side_stream()
+        with torch.cuda.stream(stream):
+            result = self._body()
+        torch.cuda.current_stream(self.device).wait_stream(stream)
+        if first:
+            torch.cuda.synchronize(self.device)
+            self.stats["warmup_ms"] = (time.perf_counter() - t0) * 1e3
+        self.stats["warmups"] += 1
+        self._warm = bound
+        return result
+
+    def _capture(self, bound):
+        import torch
+
+        graph = torch.cuda.CUDAGraph()
+        for gen in self.rng.generators.values():
+            graph.register_generator_state(gen)
+        where = []
+        t0 = time.perf_counter()
+        try:
+            with torch.cuda.graph(graph, stream=self._side_stream(),
+                                  capture_error_mode="thread_local"):
+                try:
+                    static = self._body()
+                except Exception:
+                    where.append(self._where())
+                    raise
+        except Exception as e:
+            raise MXNetError(
+                f"capturing {self.WHAT} failed at "
+                f"{where[0] if where else 'the end of the capture'}: {e}"
+            ) from e
+        torch.cuda.synchronize(self.device)
+        self.stats["capture_ms"] = (time.perf_counter() - t0) * 1e3
+        self.stats["captures"] += 1
+        self._graph = graph
+        self._static = static
+        self._bound = bound
 
 
 class StepResult:
@@ -69,73 +224,37 @@ class StepResult:
         self.grads = grads
 
 
-class StepProgram:
+class StepProgram(GraphProgram):
     """The fused step of one bound module (module docstring).
 
     ``indices`` are the updater's indices of ``executor._diff_args``;
     ``want_grads`` keeps the gradients as outputs; ``donate`` writes the new
     weights and states in place."""
 
+    WHAT = "the training step"
+
     def __init__(self, executor, updater, indices, want_grads, donate):
         import torch
 
-        self.ex = executor
+        super().__init__(executor)
         self.updater = updater
         self.optimizer = updater.optimizer
         self.names = list(executor._diff_args)
         self.indices = list(indices)
         self.want_grads = want_grads
         self.donate = donate
-        self.device = executor._ctx.torch_device
-        self.rng = NodeRandom(self.device)
-        self.refusal = capture_refusal(executor._symbol)
-        self.capturable = self.device.type == "cuda" and self.refusal is None
         n = len(self.names)
         self.rates = torch.zeros((2, n), dtype=torch.float32,
                                  device=self.device)
         self._lrs = [self.rates[0, p] for p in range(n)]
         self._wds = [self.rates[1, p] for p in range(n)]
         self._phase = None
-        self._graph = None
-        self._static = None
-        self._bound = None        # the tensors the graph was captured over
-        self._warm = None         # the tensors of the last warm-up
-        self._stream = None
-        self.stats = {"eager_steps": 0, "warmups": 0, "captures": 0,
-                      "replays": 0, "warmup_ms": None, "capture_ms": None}
-
-    # -- state ------------------------------------------------------------------
-    @property
-    def captured(self):
-        return self._graph is not None
-
-    def info(self):
-        """``captured``, the refusal's reason (None if none) and the
-        counters of :attr:`stats`."""
-        reason = self.refusal
-        if reason is None and self.device.type != "cuda":
-            reason = "the CPU runs the step eagerly"
-        return {"captured": self.captured, "refusal": reason, **self.stats}
-
-    def drop(self):
-        """Forget the graph and its pool (a rebind, a new binding)."""
-        self._graph = None
-        self._static = None
-        self._bound = None
-        self._warm = None
 
     def _bindings(self):
-        ex = self.ex
-        ts = [ex.arg_dict[n].data for n in ex.arg_names]
-        ts += [ex.aux_dict[n].data for n in ex.aux_names]
+        ts = super()._bindings()
         for i in self.indices:
             ts += self.optimizer._state_leaves(self.updater.states[i])
         return ts
-
-    @staticmethod
-    def _same(a, b):
-        return b is not None and len(a) == len(b) \
-            and all(x is y for x, y in zip(a, b))
 
     # -- rates ------------------------------------------------------------------
     def plan_rates(self, lrs_steps, wds_steps):
@@ -160,7 +279,7 @@ class StepProgram:
         self.rates.copy_(row)
 
     # -- the function -----------------------------------------------------------
-    def _step(self):
+    def _body(self):
         """Forward, backward and update over the bound arrays."""
         import torch
 
@@ -191,77 +310,21 @@ class StepProgram:
     def _where(self):
         if self._phase == "update":
             return f"the {type(self.optimizer).__name__} update"
-        node = self.ex.walking
-        if node is None:
-            return "the start of the graph walk"
-        return (f"{node.op} node '{node.name}' (the last node walked; the "
-                "backward runs after the walk)")
+        return super()._where() + " (the backward runs after the walk)"
+
+
+class ForwardProgram(GraphProgram):
+    """The evaluation forward of one executor (module docstring): the graph
+    walked in inference mode over the bound arguments and aux states.
+    :meth:`run` returns output tensors of the caller's own: the eager
+    function's, or copies of a replay's static outputs."""
+
+    WHAT = "the evaluation forward"
+
+    def _body(self):
+        return self.ex.eager_forward(self.rng)
 
     def run(self):
-        """One step with the rates set: eager, warm-up, capture and replay,
-        or replay (module docstring)."""
-        bound = self._bindings()
-        self.rng.begin()
-        if not self.capturable:
-            self.stats["eager_steps"] += 1
-            return self._step()
-        if self._graph is not None and not self._same(bound, self._bound):
-            self.drop()
-        if self._graph is None:
-            if not self._same(bound, self._warm):
-                return self._warmup(bound)
-            self._capture(bound)
-        self._graph.replay()
-        self.stats["replays"] += 1
-        return self._static
-
-    def _side_stream(self):
-        import torch
-
-        if self._stream is None:
-            self._stream = torch.cuda.Stream(self.device)
-        self._stream.wait_stream(torch.cuda.current_stream(self.device))
-        return self._stream
-
-    def _warmup(self, bound):
-        import torch
-
-        torch.cuda.synchronize(self.device)
-        t0 = time.perf_counter()
-        stream = self._side_stream()
-        with torch.cuda.stream(stream):
-            result = self._step()
-        torch.cuda.current_stream(self.device).wait_stream(stream)
-        torch.cuda.synchronize(self.device)
-        self.stats["warmup_ms"] = (time.perf_counter() - t0) * 1e3
-        self.stats["warmups"] += 1
-        self._warm = bound
-        return result
-
-    def _capture(self, bound):
-        import torch
-
-        graph = torch.cuda.CUDAGraph()
-        for gen in self.rng.generators.values():
-            graph.register_generator_state(gen)
-        where = []
-        t0 = time.perf_counter()
-        try:
-            with torch.cuda.graph(graph, stream=self._side_stream(),
-                                  capture_error_mode="thread_local"):
-                try:
-                    static = self._step()
-                except Exception:
-                    where.append(self._where())
-                    raise
-        except Exception as e:
-            raise MXNetError(
-                "capturing the training step failed at "
-                f"{where[0] if where else 'the end of the capture'}: {e}"
-            ) from e
-        torch.cuda.synchronize(self.device)
-        self.stats["capture_ms"] = (time.perf_counter() - t0) * 1e3
-        self.stats["captures"] += 1
-        self._graph = graph
-        self._static = static
-        self._bound = bound
+        """One evaluation forward (module docstring); new output tensors."""
+        outs = super().run()
+        return [o.clone() for o in outs] if self.replayed else outs

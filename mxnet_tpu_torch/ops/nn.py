@@ -94,11 +94,59 @@ def _convolution(ctx, attrs, data, weight, bias=None):
     if nhwc:
         data = data.permute(0, 3, 1, 2)
         weight = weight.permute(0, 3, 1, 2)
-    out = F.conv2d(data, weight, bias, stride=_pair(attrs.get("stride")),
-                   padding=_pair(attrs.get("pad", (0, 0))),
-                   dilation=_pair(attrs.get("dilate")),
-                   groups=int(attrs.get("num_group", 1)))
+    conf = (_pair(attrs.get("stride")), _pair(attrs.get("pad", (0, 0))),
+            _pair(attrs.get("dilate")), int(attrs.get("num_group", 1)))
+    if weight.is_cuda and weight.dtype == torch.float32 \
+            and weight.requires_grad and torch.is_grad_enabled() \
+            and not torch.backends.cudnn.allow_tf32:
+        out = _ConvIeeeWeightGrad.apply(data, weight, bias, conf)
+    else:
+        out = F.conv2d(data, weight, bias, *conf)
     return out.permute(0, 2, 3, 1) if nhwc else out
+
+
+class _ConvIeeeWeightGrad(torch.autograd.Function):
+    """An fp32 convolution on the card, with TF32 off, whose weight
+    gradient runs PyTorch's native CUDA convolution (im2col and a cuBLAS
+    GEMM) in place of cuDNN. The forward and the input gradient stay on
+    cuDNN. The algorithm cuDNN picks for some weight gradients is not
+    fp32-accurate even with TF32 off: LeNet's first convolution at batch 8
+    lands 1.1e-3 of max-abs from float64, not bit-equal to the TF32
+    result, where the native path lands near 1e-7 (``chip_smoke.py``
+    phase 1 reads both). With TF32 on, the caller has chosen speed over
+    fp32 accuracy and cuDNN keeps the whole convolution."""
+
+    @staticmethod
+    def forward(ctx, data, weight, bias, conf):
+        ctx.save_for_backward(data, weight)
+        ctx.conf = conf
+        ctx.has_bias = bias is not None
+        return F.conv2d(data, weight, bias, *conf)
+
+    @staticmethod
+    def backward(ctx, dy):
+        data, weight = ctx.saved_tensors
+        stride, pad, dilation, groups = ctx.conf
+        need_x, need_w, need_b = ctx.needs_input_grad[:3]
+        need_b = need_b and ctx.has_bias
+
+        def grads(mask):
+            return torch.ops.aten.convolution_backward(
+                dy, data, weight, [weight.shape[0]] if ctx.has_bias
+                else None, stride, pad, dilation, False, [0, 0], groups,
+                mask)
+
+        gx = gw = gb = None
+        if need_x or need_b:
+            gx, _, gb = grads([need_x, False, need_b])
+        if need_w:
+            was = torch.backends.cudnn.enabled
+            torch._C._set_cudnn_enabled(False)
+            try:
+                gw = grads([False, True, False])[1]
+            finally:
+                torch._C._set_cudnn_enabled(was)
+        return gx, gw, gb, None
 
 
 # ---------------------------------------------------------------------------
@@ -298,6 +346,27 @@ def _batch_norm(ctx, attrs, data, gamma, beta, moving_mean, moving_var):
     out = _BatchNormTrain.apply(data, gamma, beta, mean, inv, caxis,
                                 fix_gamma)
     return (out,), (new_mean, new_var)
+
+
+# ---------------------------------------------------------------------------
+# LRN (reference: mxnet_tpu/ops/nn.py ``_lrn``, after src/operator/lrn-inl.h)
+
+
+@register_op("LRN")
+def _lrn(ctx, attrs, data):
+    """Local response norm across channels: ``data * (knorm + alpha / nsize
+    * S) ** -beta``, where ``S`` sums the squares over ``nsize`` channels
+    from ``nsize // 2`` below, zeros past the edges. The reference's
+    composition, op for op, in the data's dtype (bf16 under amp); its
+    gradient is autograd's."""
+    nsize = int(attrs.get("nsize", 5))
+    alpha = float(attrs.get("alpha", 1e-4))
+    beta = float(attrs.get("beta", 0.75))
+    knorm = float(attrs.get("knorm", 2.0))
+    half = nsize // 2
+    pad = F.pad(data.square(), (0, 0) * (data.dim() - 2) + (half, half))
+    acc = sum(pad[:, i:i + data.shape[1]] for i in range(nsize))
+    return data * torch.pow(knorm + alpha / nsize * acc, -beta)
 
 
 # ---------------------------------------------------------------------------

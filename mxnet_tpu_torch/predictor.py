@@ -90,10 +90,18 @@ class Predictor:
         return self._symbol.bind(ctx, args, aux_states=auxs), out_shapes
 
     def set_input(self, name, data):
-        """MXPredSetInput."""
+        """MXPredSetInput: ``data`` read as float32 and written into the
+        bound input in place (broadcast to its shape, in its dtype), so the
+        captured forward keeps reading the same memory."""
+        import torch
+
         if name not in self._executor.arg_dict:
             raise MXNetError(f"unknown input {name}")
-        self._executor.arg_dict[name][:] = np.asarray(data, np.float32)
+        holder = self._executor.arg_dict[name]
+        src = torch.from_numpy(np.ascontiguousarray(
+            np.asarray(data, np.float32)))
+        holder._check_writable("write to")
+        holder.data.copy_(src.expand(holder.shape))
 
     def forward(self, **inputs):
         """MXPredForward."""

@@ -131,7 +131,34 @@ class Symbol:
     def list_auxiliary_states(self):
         return [n.name for n in self._nodes() if n.is_variable and _is_aux(n)]
 
+    def get_internals(self):
+        """Every node's outputs as one grouped Symbol, named as in
+        :meth:`list_outputs` (``<node>_output``), in topological order
+        (reference: symbol.py ``get_internals``)."""
+        return Symbol([(n, i) for n in self._nodes()
+                       for i in range(n.num_outputs())])
+
+    def get_children(self):
+        """The inputs of the heads' nodes as one grouped Symbol, None for a
+        variable (reference: symbol.py ``get_children``)."""
+        kids = [e for node, _ in self._entries() for e in node.inputs]
+        return Symbol(kids) if kids else None
+
     # -- attributes ----------------------------------------------------------
+    def attr(self, key):
+        """Attribute ``key`` of the head's node (None if unset, or if the
+        Symbol has several heads)."""
+        if len(self._heads) == 1:
+            return self._heads[0][0].attrs.get(key)
+        return None
+
+    def list_attr(self):
+        """The head's node's attributes as strings ({} for several
+        heads)."""
+        if len(self._heads) == 1:
+            return {k: str(v) for k, v in self._heads[0][0].attrs.items()}
+        return {}
+
     def attr_dict(self):
         """Every node's attributes as strings, by node name; the optimizer
         reads ``__lr_mult__``/``__wd_mult__`` here."""

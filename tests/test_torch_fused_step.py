@@ -204,7 +204,7 @@ def test_update_counts_advance_once_per_update():
         mod.backward()
         mod.update()
     assert mod._optimizer.num_update == 3
-    assert mod.step_info()["eager_steps"] == 3
+    assert mod.step_info()["eager_runs"] == 3
 
 
 def test_donate_params_matches_staged(monkeypatch):
@@ -368,7 +368,7 @@ def test_custom_node_refuses_the_capture():
                                  label=[mxt.nd.array(y, mxt.cpu())]),
                 is_train=True)
     mod.update()
-    assert mod.step_info()["eager_steps"] == 1
+    assert mod.step_info()["eager_runs"] == 1
 
 
 def test_dropout_masks_equal_the_split_path(monkeypatch):
@@ -450,7 +450,7 @@ def test_bucketing_module_steps_in_every_bucket_match_split(monkeypatch):
             steps = [m._fused_step_fn for m in mod._buckets.values()]
             assert all(s is not None for s in steps)
             assert len({id(s) for s in steps}) == len(steps)
-            assert all(i["eager_steps"] == 0 for i in infos.values()), \
+            assert all(i["eager_runs"] == 0 for i in infos.values()), \
                 "fit rebuilt the steps at its end"
             default = mod._buckets[8]
             assert mod._buckets[4]._fused_indices == [
