@@ -9,8 +9,8 @@ from a RecordIO file through ``train_imagenet.py``, and the LSTM-PTB
 language model through ``BucketingModule`` and ``lstm_bucketing.py``, then
 the training paths again with the step captured as a CUDA graph, and the
 image-classification family (LeNet, AlexNet, Inception-v3, the zoo's
-scoring scripts); holds every CUDA kernel on those paths against its plain
-PyTorch version. Every evaluation forward (``Executor.forward(
+scoring scripts), and object detection (SSD, Faster R-CNN); holds every
+CUDA kernel on those paths against its plain PyTorch version. Every evaluation forward (``Executor.forward(
 is_train=False)``) is captured as one CUDA graph a binding and replayed.
 Phases, in order; any failed check ends the run with a non-zero exit and no
 result line:
@@ -181,7 +181,39 @@ result line:
    Dropout's masks shared), and LRN in bf16 at AlexNet's shapes against an fp32 plain
    version (2e-2 of max-abs); (e) the port's ``score.py`` (accuracy at
    least 0.95) and ``fine_tune.py`` (frozen weights move by exactly 0, the
-   new head's accuracy at least 0.9).
+   new head's accuracy at least 0.9);
+15. object detection: (a) SSD through the port's
+   ``examples/ssd/evaluate.py`` ``train_and_map`` (8 epochs, batch 32, 256
+   synthetic 64 px scenes, Adam 5e-3; the fused step captured once), its
+   gates mAP@0.5 >= 0.5 and mAP@0.75 >= 0.2, the loop's steady step, and on
+   a batch on the card the captured step (kernels, idle share) against the
+   split step (traced by op group, host ms by part); ``train.py`` at its
+   defaults (mean IoU, class accuracy); (b) one fp32 Adam step at batch 8
+   card vs CPU through phase 10's shared step (TF32 off, cuDNN, the split
+   path; the CPU and a float64 step on the card's ReLU masks, max-pool
+   choices and MultiBoxTarget outputs): MultiBoxTarget on the CPU on the
+   card's inputs gives the card's targets exactly, the CPU's own targets
+   equal them but in samples at a mining near-tie, cls_prob and loc_loss
+   within 1e-4, gradients 1e-3 and weights 1e-5 of max-abs (or no further
+   from float64 than twice the CPU); the detection graph at (a)'s weights:
+   MultiBoxDetection's inputs within 1e-4, and the op on the CPU on the
+   card's inputs against the card's output as (d) holds it; (c) Faster
+   R-CNN through ``examples/rcnn/train_faster_rcnn.py`` ``train_and_eval``
+   (10 epochs of 24 steps at batch 4): accuracy >= 0.8 and mean IoU >=
+   0.5, the step split into the Custom op's host time and the rest, the
+   rule that refused its capture; ``rcnn_toy.py`` to its assertion (>
+   0.8); (d) MultiBoxTarget and MultiBoxDetection at SSD-300's 8732
+   anchors (21 classes, batch 32), Proposal at its defaults on a 38 x 63
+   map (batch 1 and 2) and at the example's shapes, ROIPooling forward and
+   gradient at the examples' shapes, each card vs CPU with per-call and
+   device ms: MultiBoxTarget's ids, masks and targets exact but in
+   samples at a mining near-tie (1e-6); MultiBoxDetection and Proposal on
+   the CPU on the card's overlap matrices equal the card's output (ids,
+   scores, batch indices exact, boxes 1e-5), and the CPU's own output
+   parts from it only in rows that overlaps on opposite sides of the NMS
+   threshold decide; ROIPooling's forward exact; and the values
+   ROIPooling's masked form would hold at VGG-16's
+   shapes.
 
 Phases 9-12 run with ``MXTPU_NO_FUSED_STEP=1``: they measure the split path
 that earlier slices recorded.
@@ -1830,10 +1862,10 @@ def _rel(got, want):
     return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
 
 
-def _f64_step(mx, symbol, weights, x, y):
-    """The step of :func:`fit_card_vs_cpu` in float64 on the CPU, through
-    an Executor and the Module's SGD: the yardstick of both fp32 steps'
-    accuracy."""
+def _f64_step(mx, symbol, weights, x, y, optimizer, label):
+    """The step of :func:`step_card_vs_cpu` in float64 on the CPU, through
+    an Executor and the Module's ``optimizer`` rule: the yardstick of both
+    fp32 steps' accuracy."""
     ctx = mx.cpu()
     arg_w, aux_w = weights
     names = [n for n in symbol.list_arguments() if n in arg_w]
@@ -1842,19 +1874,20 @@ def _f64_step(mx, symbol, weights, x, y):
              for n in names}
     aux = {n: mx.nd.array(aux_w[n], ctx, dtype="float64") for n in aux_w}
     args["data"] = mx.nd.array(x, ctx, dtype="float64")
-    args["softmax_label"] = mx.nd.array(y, ctx)
+    args[label] = mx.nd.array(y, ctx)
     ex = mx.executor.Executor(symbol, ctx, args, grads, "write", aux)
     ex.forward(is_train=True)
     ex.backward()
-    probs = ex.outputs[0].asnumpy()
+    outs = [o.asnumpy() for o in ex.outputs]
     g = {n: a.asnumpy() for n, a in grads.items()}
-    opt = mx.optimizer.create("sgd", sym=symbol,
+    name, params = optimizer
+    opt = mx.optimizer.create(name, sym=symbol,
                               param_idx2name=dict(enumerate(names)),
-                              rescale_grad=1.0 / len(y), **FIT_SGD)
+                              rescale_grad=1.0 / len(y), **params)
     mx.optimizer.get_updater(opt).update_multi(
         list(range(len(names))), [grads[n] for n in names],
         [args[n] for n in names])
-    return probs, g, {n: a.asnumpy() for n, a in ex.aux_dict.items()}, \
+    return outs, g, {n: a.asnumpy() for n, a in ex.aux_dict.items()}, \
         {n: args[n].asnumpy() for n in names}
 
 
@@ -1889,12 +1922,33 @@ def fit_card_vs_cpu(mx, seed):
                             f"{FIT_CPU_PX} px")
 
 
-def step_card_vs_cpu(mx, symbol, weights, x, y, what):
-    """One fp32 SGD step (``FIT_SGD``) of ``symbol`` from the numpy
-    ``weights`` (args, aux) on the batch ``x``, ``y``, on the card, on the
-    CPU on the card's ReLU masks and max-pool choices, and in float64 on
-    the CPU on the same; every Dropout draws the same masks on all three.
-    Held as :func:`fit_card_vs_cpu` says; returns the gaps."""
+def _nll_held(y):
+    """``step_card_vs_cpu``'s default hold on the outputs: the per-example
+    NLL of the first (class probabilities) within 1e-4."""
+    def held(gpu, cpu):
+        nll = [-np.log(o[0][np.arange(len(y)), y.astype(int)])
+               for o in (gpu, cpu)]
+        err = float(np.abs(nll[0] - nll[1]).max())
+        return ({"nll_max_abs_err": err},
+                bool(np.isfinite(nll[0]).all() and err <= 1e-4),
+                f"card vs CPU per-example NLL {err:.3g} <= 1e-4")
+    return held
+
+
+def step_card_vs_cpu(mx, symbol, weights, x, y, what,
+                     optimizer=("sgd", FIT_SGD), label="softmax_label",
+                     replay=None, held=None):
+    """One fp32 step of ``symbol`` under ``optimizer`` (a name and its
+    parameters) from the numpy ``weights`` (args, aux) on the batch ``x``,
+    ``y`` (fed as ``label``), on the card, on the CPU on the card's ReLU
+    masks and max-pool choices, and in float64 on the CPU on the same;
+    every Dropout draws the same masks on all three. ``replay`` maps op
+    names to empty dicts: each such op's outputs on the card, kept with its
+    inputs under ``"card"``, are the CPU's and the float64 step's outputs
+    too, and their own outputs are kept under ``"cpu"`` and ``"f64"``.
+    ``held(card_outputs, cpu_outputs)`` gives (report, passed, message) on
+    the graph's outputs, by default :func:`_nll_held`. Held as
+    :func:`fit_card_vs_cpu` says; returns the gaps."""
     import torch
     import torch.nn.functional as F
 
@@ -1903,10 +1957,12 @@ def step_card_vs_cpu(mx, symbol, weights, x, y, what):
 
     act, pool = get_op("Activation"), get_op("Pooling")
     act_fn, pool_fn = act.fn, pool.fn
+    replay = replay or {}
+    shared = {name: (get_op(name), get_op(name).fn) for name in replay}
+    held = held or _nll_held(y)
     keep_mask = tnn.keep_mask
     masks, argmax, flips = [], [], {"relu": [], "max_pool": []}
     drawn = []
-
     def shared_mask(gen, keep, shape, device):
         g = torch.Generator().manual_seed(len(drawn))
         drawn.append(shape)
@@ -1952,36 +2008,71 @@ def step_card_vs_cpu(mx, symbol, weights, x, y, what):
         flips["max_pool"].append(int((own != idx).sum()))
         return data.flatten(2).gather(2, idx.flatten(2)).view(idx.shape)
 
+    def record(name, fn):
+        def on_card(ctx, attrs, *ins):
+            outs = fn(ctx, attrs, *ins)
+            replay[name]["card"].append(
+                ([t.detach().cpu() for t in ins],
+                 [t.detach().cpu() for t in outs]))
+            return outs
+        return on_card
+
+    def replayed(name, fn, key, dtype):
+        def with_card_outputs(ctx, attrs, *ins):
+            replay[name][key].append([t.detach().cpu()
+                                      for t in fn(ctx, attrs, *ins)])
+            card = replay[name]["card"]
+            outs = card[(len(replay[name][key]) - 1) % len(card)][1]
+            return [o.to(dtype) if o.is_floating_point() else o
+                    for o in outs]
+        return with_card_outputs
+
+    def install(fns, key=None, dtype=None):
+        act.fn, pool.fn = fns
+        for name, (op, fn) in shared.items():
+            op.fn = record(name, fn) if key is None \
+                else replayed(name, fn, key, dtype)
+
+    def restore():
+        act.fn, pool.fn = act_fn, pool_fn
+        for op, fn in shared.values():
+            op.fn = fn
+
     got = {}
+    for name in replay:
+        replay[name].update(card=[], cpu=[], f64=[])
     tnn.keep_mask = shared_mask
     try:
-        for label, ctx, fns in (
+        for key, ctx, fns in (
                 ("gpu", mx.gpu(0), (act_on_card, pool_on_card)),
                 ("cpu", mx.cpu(), (act_with_card_mask,
                                    pool_with_card_argmax)),
                 ("f64", None, (act_with_card_mask, pool_with_card_argmax))):
             t0 = time.perf_counter()
             drawn.clear()
+            shared_key = None if key == "gpu" else key
+            dtype = torch.float64 if ctx is None else torch.float32
             try:
                 if ctx is None:
-                    act.fn, pool.fn = fns
-                    probs, grads, aux, args = _f64_step(mx, symbol, weights,
-                                                        x, y)
+                    install(fns, shared_key, dtype)
+                    outs, grads, aux, args = _f64_step(
+                        mx, symbol, weights, x, y, optimizer, label)
                 else:
-                    mod = mx.mod.Module(symbol, context=ctx)
+                    mod = mx.mod.Module(symbol, context=ctx,
+                                        label_names=(label,))
                     mod.bind(data_shapes=[("data", x.shape)],
-                             label_shapes=[("softmax_label", y.shape)])
+                             label_shapes=[(label, y.shape)])
                     a, b = mx.convert.params_from_numpy(*weights, ctx)
                     mod.init_params(arg_params=a, aux_params=b)
-                    mod.init_optimizer(optimizer="sgd",
-                                       optimizer_params=FIT_SGD)
+                    mod.init_optimizer(optimizer=optimizer[0],
+                                       optimizer_params=optimizer[1])
                     batch = mx.io.DataBatch(data=[mx.nd.array(x, ctx)],
                                             label=[mx.nd.array(y, ctx)])
-                    act.fn, pool.fn = fns
+                    install(fns, shared_key, dtype)
                     mod.forward(batch, is_train=True)
-                    act.fn, pool.fn = act_fn, pool_fn
+                    restore()
                     mod.backward()
-                    probs = mod.get_outputs()[0].asnumpy()
+                    outs = [o.asnumpy() for o in mod.get_outputs()]
                     grads = {n: g.asnumpy() for n, g in
                              mod._exec_group._executor.grad_dict.items()}
                     mod.update()
@@ -1990,9 +2081,8 @@ def step_card_vs_cpu(mx, symbol, weights, x, y, what):
                     aux = {n: a.asnumpy() for n, a in aux.items()}
                     del mod, batch
             finally:
-                act.fn, pool.fn = act_fn, pool_fn
-            nll = -np.log(probs[np.arange(len(y)), y.astype(int)])
-            got[label] = (nll, grads, aux, args, time.perf_counter() - t0)
+                restore()
+            got[key] = (outs, grads, aux, args, time.perf_counter() - t0)
     finally:
         tnn.keep_mask = keep_mask
     torch.cuda.empty_cache()
@@ -2002,12 +2092,16 @@ def step_card_vs_cpu(mx, symbol, weights, x, y, what):
                  if node.op == "Activation" and is_relu(node.attrs))
     n_max = sum(1 for node in nodes
                 if node.op == "Pooling" and is_max_window(node.attrs))
+    n_shared = {name: sum(1 for node in nodes
+                          if node.op and get_op(node.op) is op)
+                for name, (op, _) in shared.items()}
+    outputs, outputs_ok, outputs_msg = held(gpu[0], cpu[0])
     res = {"relu_masks_differ": [sum(flips["relu"][:n_relu]),
                                  sum(flips["relu"][n_relu:])],
            "max_pool_choices_differ": [sum(flips["max_pool"][:n_max]),
                                        sum(flips["max_pool"][n_max:])],
            "dropout_masks_shared": len(drawn),
-           "nll_max_abs_err": float(np.abs(gpu[0] - cpu[0]).max()),
+           **outputs,
            "seconds": {k: v[4] for k, v in got.items()}}
     failed = []
     # a gradient that is exactly 0 (a convolution's bias before a
@@ -2039,12 +2133,13 @@ def step_card_vs_cpu(mx, symbol, weights, x, y, what):
                     "over_limit": over}
     print(f"  card vs CPU, {what}: " + json.dumps(res), flush=True)
     check(len(flips["relu"]) == 2 * n_relu
-          and len(flips["max_pool"]) == 2 * n_max,
+          and len(flips["max_pool"]) == 2 * n_max
+          and all(len(replay[name][k]) == n for name, n in n_shared.items()
+                  for k in ("card", "cpu", "f64")),
           f"{what}: the CPU and float64 steps took the card's {n_relu} ReLU "
-          f"masks and its {n_max} max-pool choices")
-    check(np.isfinite(gpu[0]).all() and res["nll_max_abs_err"] <= 1e-4,
-          f"{what}: card vs CPU per-example NLL "
-          f"{res['nll_max_abs_err']:.3g} <= 1e-4")
+          f"masks, its {n_max} max-pool choices and the outputs of its "
+          f"{n_shared} shared ops")
+    check(outputs_ok, f"{what}: {outputs_msg}")
     check(not failed, f"{what}: every gradient array within 1e-3 of its "
           "max-abs (or exactly 0 in float64, and fp32 noise on the card), "
           "the moving statistics and updated weights within 1e-5, "
@@ -4329,6 +4424,753 @@ def phase_zoo(mx, seed, tmp):
     return out
 
 
+# -- phase 15: object detection (SSD and Faster R-CNN) ----------------------
+
+DET_SSD_EPOCHS = 8          # (a): evaluate.py's gate run (tests/test_ssd_example.py)
+DET_SSD_MAP = {0.5: 0.5, 0.75: 0.2}
+DET_SPLIT_STEPS = 5         # (a): split steps timed on a batch on the card
+DET_CPU_BATCH = 8           # (b)
+DET_LR = 5e-3               # train.py's Adam rate
+DET_RCNN = dict(epochs=10, batch=4, steps_per_epoch=24, seed=0)
+DET_RCNN_GATE = {"accuracy": 0.8, "mean_iou": 0.5}
+# (d): SSD-300's six maps (example/ssd/symbol/symbol_vgg16_ssd_300.py:
+# sizes and ratios per map), 8732 anchors; VOC's 20 classes and background
+SSD300_MAPS = ((38, (0.1, 0.141), (1.0, 2.0, 0.5)),
+               (19, (0.2, 0.272), (1.0, 2.0, 0.5, 3.0, 1.0 / 3)),
+               (10, (0.37, 0.447), (1.0, 2.0, 0.5, 3.0, 1.0 / 3)),
+               (5, (0.54, 0.619), (1.0, 2.0, 0.5, 3.0, 1.0 / 3)),
+               (3, (0.71, 0.79), (1.0, 2.0, 0.5)),
+               (1, (0.88, 0.961), (1.0, 2.0, 0.5)))
+SSD300_BATCH, SSD300_CLASSES, SSD300_GT = 32, 21, 16
+# Proposal at its own defaults on VGG-16's conv5 map of a 600 x 1000 image
+VGG_RPN_MAP = (38, 63)
+DET_OP_REPS = 4             # (d): calls a time_device round
+DET_OPS = {"conv_fwd": ("Convolution",), "pool": ("Pooling",),
+           "relu": ("Activation",), "prior": ("MultiBoxPrior",),
+           "target": ("MultiBoxTarget",),
+           "softmax_loss": ("SoftmaxOutput", "smooth_l1", "MakeLoss"),
+           "reshape": ("transpose", "Reshape", "Flatten", "Concat")}
+DET_RANGES = {
+    "conv_fwd": ("chip_smoke::conv_fwd",),
+    # with TF32 off the fp32 weight gradient leaves cuDNN (phase 1)
+    "conv_bwd": (_NODE + "ConvolutionBackward0",
+                 _NODE + "_ConvIeeeWeightGradBackward"),
+    "pool": ("chip_smoke::pool", _NODE + "MaxPool2DWithIndicesBackward0"),
+    "relu": ("chip_smoke::relu", _NODE + "ReluBackward0"),
+    "prior": ("chip_smoke::prior",),
+    "target": ("chip_smoke::target",),
+    "softmax_loss": ("chip_smoke::softmax_loss",
+                     _NODE + "_SoftmaxOutputBackward",
+                     _NODE + "_MakeLossBackward"),
+    "reshape": ("chip_smoke::reshape", _NODE + "PermuteBackward0",
+                _NODE + "ViewBackward0", _NODE + "CatBackward0"),
+    "adam_update": ("chip_smoke::adam_update",),
+}
+
+
+class StepClock:
+    """While installed, ``Module.update`` keeps, after each update, the
+    time, its module (the first one) and the module's ``step_info()``, and
+    calls ``then()``: the examples' loops update once a step, so the
+    stamps' differences are the steps' times."""
+
+    def __init__(self, mx, then=None):
+        self.cls, self.then = mx.mod.Module, then
+        self.update = self.cls.update
+        self.stamps, self.infos, self.modules = [], [], []
+
+    def __enter__(self):
+        update = self.update
+
+        def clocked(mod):
+            update(mod)
+            self.stamps.append(time.perf_counter())
+            self.infos.append(mod.step_info())
+            if not self.modules:
+                self.modules.append(mod)
+            if self.then is not None:
+                self.then()
+
+        self.cls.update = clocked
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.update = self.update
+
+
+def det_weights(symbol, shapes, seed):
+    """Fan-in scaled numpy weights for every argument of ``symbol`` but
+    the inputs named in ``shapes``."""
+    rng = np.random.default_rng(seed)
+    arg_shapes, _, _ = symbol.infer_shape(**shapes)
+    return {n: (rng.standard_normal(s, dtype=np.float32)
+                / np.sqrt(np.prod(s[1:]) if len(s) > 1 else 1))
+            .astype(np.float32)
+            for n, s in zip(symbol.list_arguments(), arg_shapes)
+            if n not in shapes}
+
+
+def det_split_trace(mx, mod, batch):
+    """One split step of ``mod`` on ``batch`` traced into ``DET_RANGES``'
+    groups, with the host's ms by part (forward, backward, update: the
+    time to issue each) and the step's ms with the card done."""
+    import torch
+
+    host = {}
+
+    def clock(key, fn):
+        t = time.perf_counter()
+        fn()
+        host[key] = (time.perf_counter() - t) * 1e3
+
+    def step():
+        clock("forward", lambda: mod.forward(batch, is_train=True))
+        clock("backward", mod.backward)
+        with torch.profiler.record_function("chip_smoke::adam_update"):
+            clock("update", mod.update)
+
+    saved = []
+    for group, names in DET_OPS.items():
+        saved += _wrap_ops(names, "chip_smoke::" + group)
+    traced = []
+    try:
+        by_name, groups = traced_groups(lambda: traced.append(timed(step)),
+                                        DET_RANGES)
+    finally:
+        for op, fn in saved:
+            op.fn = fn
+    check(by_name, "the profiler recorded device events for the SSD step")
+    split = {g: sum(t for k, t in ks if "Memcpy" not in k)
+             for g, ks in groups.items()}
+    busy = sum(t for k, t in by_name.items() if "Memcpy" not in k)
+    split["rest"] = busy - sum(split.values())
+    check(split["target"] > 0 and split["conv_fwd"] > 0,
+          "the traced SSD step ran MultiBoxTarget's and the convolutions' "
+          "kernels")
+    (_, wall), = traced
+    return {"host_split_ms": host, "step_ms": wall, "kernel_busy_ms": busy,
+            "idle_share": 1.0 - busy / wall, "device_ms_by_group": split,
+            "device_kernels": len(by_name),
+            "top_kernels": [[k[:80], t] for k, t in sorted(
+                by_name.items(), key=lambda kv: -kv[1])[:10]]}
+
+
+def det_ssd(mx, seed):
+    """(a) ``examples/ssd/evaluate.py``'s ``train_and_map`` on the card (the
+    fused step captured) and its mAP gate; the steady step; on a batch on
+    the card, the captured step (probe: kernels, idle share) against the
+    split step (traced by group, host ms by part); ``train.py`` at its
+    defaults. Returns the numbers and the trained weights."""
+    import torch
+
+    from mxnet_tpu_torch.examples.ssd import evaluate, train
+
+    gpu = mx.gpu(0)
+    t0 = time.perf_counter()
+    with StepClock(mx) as clock:
+        maps = evaluate.train_and_map(epochs=DET_SSD_EPOCHS, ctx=gpu,
+                                      seed=seed,
+                                      log=lambda m: print("  (a) " + m,
+                                                          flush=True))
+    total_s = time.perf_counter() - t0
+    mod = clock.modules[0]
+    step_ms = list(np.diff(clock.stamps) * 1e3)
+    steady = float(np.median(step_ms[2:]))
+    info = clock.infos[-1]
+    out = {"maps": {str(k): v for k, v in maps.items()}, "seconds": total_s,
+           "steps": len(clock.stamps), "steady_step_ms": steady,
+           "images_per_s": 32 / (steady / 1e3), "step": info}
+    print(f"  (a) SSD: mAP {maps}, {len(clock.stamps)} steps, steady "
+          f"{steady:.2f} ms (the loop's host loss and 4 output copies "
+          f"included), step {info}", flush=True)
+    for t, least in DET_SSD_MAP.items():
+        check(maps[t] >= least, f"SSD mAP@{t} {maps[t]:.3f} >= {least}")
+    check(info["captured"] and info["captures"] == 1,
+          f"SSD's fused step captured once ({info})")
+    # on a batch on the card: the captured step, then the split path on the
+    # same binding
+    x, y = train.make_dataset(32, np.random.RandomState(seed + 150))
+    batch = mx.io.DataBatch(data=[mx.nd.array(x, gpu)],
+                            label=[mx.nd.array(y, gpu)])
+    probe = out["captured_probe"] = graph_step_probe(mx, mod, batch, steady)
+    os.environ["MXTPU_NO_FUSED_STEP"] = "1"
+    try:
+        mod._refresh_fused_step()
+        for _ in range(2):
+            mod.forward(batch, is_train=True)
+            mod.backward()
+            mod.update()
+        out["split_traced"] = det_split_trace(mx, mod, batch)
+        split = [timed(lambda: (mod.forward(batch, is_train=True),
+                                mod.backward(), mod.update()))[1]
+                 for _ in range(DET_SPLIT_STEPS)]
+    finally:
+        os.environ.pop("MXTPU_NO_FUSED_STEP")
+        mod._refresh_fused_step()
+    out["split_step_ms"] = split
+    out["captured_step_ms"] = probe["event_ms"]
+    out["split_over_captured"] = float(np.median(split)) / probe["event_ms"]
+    print(f"  (a) SSD on a batch on the card: captured "
+          f"{probe['event_ms']:.3f} ms ({probe['kernels']} kernels, idle "
+          f"{1 - probe['kernel_busy_ms'] / probe['event_ms']:.3f}), split "
+          f"{[round(t, 3) for t in split]} ms; split traced "
+          f"{json.dumps(out['split_traced'])}", flush=True)
+    weights = {n: v.asnumpy() for n, v in mod.get_params()[0].items()}
+    t0 = time.perf_counter()
+    miou, acc = train.main([])
+    out["train_py"] = {"mean_iou": miou, "class_accuracy": acc,
+                       "seconds": time.perf_counter() - t0}
+    print(f"  (a) train.py at its defaults: {out['train_py']}", flush=True)
+    check(np.isfinite(miou) and 0.0 <= acc <= 1.0,
+          "train.py reports a finite mean IoU and a class accuracy")
+    del mod, clock
+    torch.cuda.empty_cache()
+    return out, weights
+
+
+def _mining_gap(probs, anchors, label, ratio=3.0, thresh=0.5):
+    """The hardness gap at each sample's keep boundary of MultiBoxTarget's
+    negative mining (numpy, from the class probabilities)."""
+    from mxnet_tpu_torch.ops.contrib_det import _iou_matrix
+
+    import torch
+
+    a = torch.from_numpy(np.ascontiguousarray(anchors)).reshape(-1, 4)
+    gaps = []
+    for b in range(label.shape[0]):
+        valid = label[b, :, 0] >= 0
+        iou = _iou_matrix(a, torch.from_numpy(label[b, :, 1:5])).numpy()
+        iou = np.where(valid[None], iou, -1.0)
+        pos = iou.max(1) >= thresh
+        pos[iou.argmax(0)[valid]] = True
+        hard = np.sort(probs[b, 1:].max(0)[~pos])[::-1]
+        keep = int(ratio * pos.sum())
+        gaps.append(float(hard[keep - 1] - hard[keep])
+                    if 0 < keep < len(hard) else None)
+    return gaps
+
+
+def _softmax_np(x, axis=1):
+    e = np.exp(x - x.max(axis=axis, keepdims=True))
+    return e / e.sum(axis=axis, keepdims=True)
+
+
+def _targets_part_at_ties(got, want, gaps, limit):
+    """MultiBoxTarget's ``got`` against ``want`` (numpy outputs, batch
+    first): the samples whose class targets or masks differ, and whether
+    each of them has its mining boundary within ``limit`` (``gaps`` from
+    :func:`_mining_gap`) and the rest of the targets match exactly."""
+    rows = (got[2] != want[2]).any(1) | (got[1] != want[1]).any(1)
+    same = ~rows
+    ok = bool((got[0][same] == want[0][same]).all() or _rel(
+        got[0][same], want[0][same]) <= 1e-5)
+    at_ties = all(gaps[i] is not None and gaps[i] <= limit
+                  for i in np.flatnonzero(rows))
+    return [int(i) for i in np.flatnonzero(rows)], ok and at_ties
+
+
+def _ssd_outputs_held(gpu, cpu):
+    """SSD's training outputs card vs CPU: cls_prob and loc_loss within
+    1e-4 (of max(1, max-abs) for the loss)."""
+    cls = float(np.abs(gpu[0] - cpu[0]).max())
+    loc = float(np.abs(gpu[1] - cpu[1]).max())
+    ok = np.isfinite(gpu[0]).all() and cls <= 1e-4 \
+        and loc <= 1e-4 * max(1.0, float(np.abs(cpu[1]).max()))
+    return ({"cls_prob_max_abs_err": cls, "loc_loss_max_abs_err": loc},
+            bool(ok), f"cls_prob {cls:.3g} and loc_loss {loc:.3g} within "
+            "1e-4")
+
+
+def det_card_vs_cpu(mx, seed, trained):
+    """(b) one fp32 Adam step of SSD's training graph at batch 8 with the
+    same weights on the card (cuDNN, TF32 off, the split path) and on the
+    CPU, through :func:`step_card_vs_cpu`: the CPU and a float64 CPU step
+    on the card's ReLU masks, max-pool choices and MultiBoxTarget outputs.
+    MultiBoxTarget on the CPU on the card's inputs must give the card's
+    targets exactly; where the CPU's own inputs give other targets, each
+    sample that differs must sit at a mining near-tie. Then the detection
+    graph at the weights trained in (a), card against CPU."""
+    import torch
+
+    from mxnet_tpu_torch.examples.ssd import symbol as ssd_symbol
+    from mxnet_tpu_torch.examples.ssd import train
+    from mxnet_tpu_torch.ops import get_op
+    from mxnet_tpu_torch.ops.registry import OpCtx
+
+    x, y = train.make_dataset(DET_CPU_BATCH, np.random.RandomState(seed + 160))
+    sym = ssd_symbol.get_ssd_train(2)
+    weights = det_weights(sym, {"data": x.shape, "label": y.shape},
+                          seed + 161)
+    targets = {"MultiBoxTarget": {}}
+    os.environ["MXTPU_NO_FUSED_STEP"] = "1"
+    try:
+        res = step_card_vs_cpu(
+            mx, sym, (weights, {}), x, y,
+            f"SSD fp32 Adam step at batch {DET_CPU_BATCH}",
+            optimizer=("adam", {"learning_rate": DET_LR}), label="label",
+            replay=targets, held=_ssd_outputs_held)
+    finally:
+        os.environ.pop("MXTPU_NO_FUSED_STEP")
+    rec = targets["MultiBoxTarget"]
+    (t_ins, t_outs), = rec["card"]
+    card = [t.numpy() for t in t_outs]
+    # MultiBoxTarget on the CPU on the card's inputs: the card's targets
+    cpu_t = get_op("MultiBoxTarget").fn(
+        OpCtx(device=torch.device("cpu")),
+        {"overlap_threshold": 0.5, "negative_mining_ratio": 3}, *t_ins)
+    res["target_on_card_inputs"] = {
+        "cls_target_equal": bool(torch.equal(cpu_t[2], t_outs[2])),
+        "loc_mask_equal": bool(torch.equal(cpu_t[1], t_outs[1])),
+        "loc_target_max_rel_err": _rel(cpu_t[0].numpy(), card[0])}
+    check(res["target_on_card_inputs"]["cls_target_equal"]
+          and res["target_on_card_inputs"]["loc_mask_equal"]
+          and res["target_on_card_inputs"]["loc_target_max_rel_err"] <= 1e-5,
+          f"MultiBoxTarget on the CPU on the card's inputs gives the card's "
+          f"targets ({res['target_on_card_inputs']})")
+    # the CPU's own targets (from its own class scores) against the card's:
+    # a sample may differ only where its mining boundary is within twice
+    # the devices' probability gap
+    own = [t.numpy() for t in rec["cpu"][0]]
+    delta = res["cls_prob_max_abs_err"]
+    gaps = _mining_gap(_softmax_np(t_ins[2].numpy()), t_ins[0].numpy(), y)
+    differ, ok = _targets_part_at_ties(own, card, gaps, 2 * delta)
+    res["own_targets"] = {"samples_differ": differ, "mining_gaps": gaps,
+                          "prob_delta": delta}
+    print("  (b) SSD targets card vs CPU: "
+          + json.dumps({k: res[k] for k in ("target_on_card_inputs",
+                                            "own_targets")}), flush=True)
+    check(ok, "the CPU's own targets equal the card's, but in samples whose "
+          f"mining boundary is a near-tie ({res['own_targets']})")
+    res["detection"] = det_detect_card_vs_cpu(mx, trained, x)
+    return res
+
+
+class Overlaps:
+    """While installed, keeps (on the CPU) every overlap matrix that the
+    IoU function ``name`` of ``module`` returns; with ``given`` (another
+    run's matrices), returns those in turn in place of its own: NMS then
+    takes that run's decisions."""
+
+    def __init__(self, module, name, given=None):
+        self.module, self.name, self.given = module, name, given
+        self.fn = getattr(module, name)
+        self.own = []
+
+    def __enter__(self):
+        def kept(*a):
+            iou = self.fn(*a)
+            self.own.append(iou.detach().cpu())
+            if self.given is None:
+                return iou
+            return self.given[len(self.own) - 1].to(iou.device, iou.dtype)
+
+        setattr(self.module, self.name, kept)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.fn)
+
+
+# the overlap function and threshold each NMS op decides on
+NMS_OVERLAPS = {"MultiBoxDetection": ("contrib_det", "_iou_matrix",
+                                      "nms_threshold", 0.5),
+                "Proposal": ("rcnn", "_iou_matrix_plus1", "threshold", 0.7)}
+
+
+def _rows_differ(op_name, got, want):
+    """The output rows of ``op_name`` that differ: a class id or score
+    that is not equal, or a box off by more than 1e-5 (MultiBoxDetection,
+    (B, A, 6)); a batch index that is not equal, or a box off by more than
+    1e-5 of the largest coordinate (Proposal, (R, 5))."""
+    if op_name == "MultiBoxDetection":
+        return (got[..., :2] != want[..., :2]).any(-1) \
+            | (np.abs(got[..., 2:] - want[..., 2:]) > 1e-5).any(-1)
+    scale = max(1.0, float(np.abs(want[:, 1:]).max()))
+    return (got[:, 0] != want[:, 0]) \
+        | (np.abs(got[:, 1:] - want[:, 1:]) > 1e-5 * scale).any(-1)
+
+
+def nms_card_vs_cpu(op_name, attrs, ins):
+    """``op_name`` (MultiBoxDetection or Proposal) on the numpy ``ins`` on
+    the card, on the CPU, and on the CPU on the card's overlap matrices.
+    The two devices' overlaps can fall on opposite sides of the NMS
+    threshold (their roundings differ), and only those pairs may decide a
+    row differently. Held: the CPU on the card's overlaps gives the card's
+    output (class ids, scores and batch indices exact, boxes within 1e-5),
+    and every row in which the CPU's own output differs from the card's is
+    one that the card's overlaps change on the CPU, i.e. one that the
+    pairs on opposite sides decide. Returns (card output, report, held)."""
+    import importlib
+
+    import torch
+
+    from mxnet_tpu_torch.ops import get_op
+    from mxnet_tpu_torch.ops.registry import OpCtx
+
+    mod_name, iou_name, key, default = NMS_OVERLAPS[op_name]
+    module = importlib.import_module("mxnet_tpu_torch.ops." + mod_name)
+    thresh = float(attrs.get(key, default))
+    fn = get_op(op_name).fn
+
+    def run(dev, given=None):
+        ts = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in ins]
+        with Overlaps(module, iou_name, given) as ov:
+            out = fn(OpCtx(device=torch.device(dev)), dict(attrs), *ts)
+        return out.cpu().numpy(), ov.own
+
+    card, card_iou = run("cuda")
+    own, cpu_iou = run("cpu")
+    shared, _ = run("cpu", given=card_iou)
+    opposite = sum(int(((g > thresh) != (c > thresh)).sum())
+                   for g, c in zip(card_iou, cpu_iou))
+    differ = _rows_differ(op_name, card, own)
+    decided = _rows_differ(op_name, shared, own)
+    res = {"overlaps_opposite_sides": opposite,
+           "overlap_max_abs_err": max(float((g - c).abs().max())
+                                      for g, c in zip(card_iou, cpu_iou)),
+           "rows": int(differ.size), "rows_differ": int(differ.sum()),
+           "rows_decided_by_opposite_pairs": int(decided.sum()),
+           "on_card_overlaps_rows_differ": int(
+               _rows_differ(op_name, card, shared).sum())}
+    if op_name == "MultiBoxDetection":
+        res["detections"] = int((card[..., 0] >= 0).sum())
+        res["boxes_max_abs_err"] = float(np.abs(card[..., 2:]
+                                                - own[..., 2:]).max())
+    else:
+        res["rois_max_rel_err"] = _rel(card[:, 1:], own[:, 1:])
+    ok = res["on_card_overlaps_rows_differ"] == 0 \
+        and len(card_iou) == len(cpu_iou) > 0 \
+        and not (differ & ~decided).any()
+    return card, res, ok
+
+
+def det_detect_card_vs_cpu(mx, weights, x):
+    """The detection graph at ``weights`` on the card and on the CPU. Held:
+    the graph's inputs to MultiBoxDetection (class probabilities and box
+    offsets) within 1e-4 on the two devices, and MultiBoxDetection on the
+    CPU on the card's inputs against the card's (B, A, 6) output as
+    :func:`nms_card_vs_cpu` holds it. The two graphs' own outputs are
+    compared row by row and reported: they part where the inputs' gap
+    moves a score by more than 1e-5 or across a decision."""
+    from mxnet_tpu_torch.examples.ssd import symbol as ssd_symbol
+    from mxnet_tpu_torch.ops import get_op
+
+    sym = ssd_symbol.get_ssd_detect(2)
+    op = get_op("MultiBoxDetection")
+    fn = op.fn
+    ins, outs = {}, {}
+    for key, ctx in (("gpu", mx.gpu(0)), ("cpu", mx.cpu())):
+        def kept(octx, attrs, *a, key=key):
+            ins[key] = ([t.detach().cpu().numpy() for t in a], dict(attrs))
+            return fn(octx, attrs, *a)
+
+        args = {n: mx.nd.array(weights[n], ctx)
+                for n in sym.list_arguments() if n != "data"}
+        op.fn = kept
+        try:
+            outs[key] = sym.eval(ctx=ctx, data=mx.nd.array(x, ctx),
+                                 **args)[0].asnumpy()
+        finally:
+            op.fn = fn
+    (g_in, attrs), (c_in, _) = ins["gpu"], ins["cpu"]
+    g, c = outs["gpu"], outs["cpu"]
+    card, shared, ok = nms_card_vs_cpu("MultiBoxDetection", attrs, g_in)
+    graph_rows = _rows_differ("MultiBoxDetection", g, c)
+    res = {"inputs": {"cls_prob_max_abs_err": float(np.abs(g_in[0]
+                                                           - c_in[0]).max()),
+                      "loc_pred_max_abs_err": float(np.abs(g_in[1]
+                                                           - c_in[1]).max())},
+           "op_on_card_inputs": shared,
+           "op_rerun_equals_graph": bool(np.array_equal(card, g)),
+           "graphs": {"rows": int(graph_rows.size),
+                      "detections": [int((g[..., 0] >= 0).sum()),
+                                     int((c[..., 0] >= 0).sum())],
+                      "rows_differ": int(graph_rows.sum()),
+                      "class_ids_differ": int((g[..., 0] != c[..., 0]).sum()),
+                      "scores_differ_over_1e-5": int(
+                          (np.abs(g[..., 1] - c[..., 1]) > 1e-5).sum()),
+                      "score_max_abs_err": float(np.abs(g[..., 1]
+                                                        - c[..., 1]).max()),
+                      "boxes_max_abs_err": float(np.abs(g[..., 2:]
+                                                        - c[..., 2:]).max())}}
+    print("  (b) SSD detection graph card vs CPU: " + json.dumps(res),
+          flush=True)
+    check(res["inputs"]["cls_prob_max_abs_err"] <= 1e-4
+          and res["inputs"]["loc_pred_max_abs_err"] <= 1e-4,
+          "SSD's detection graph: MultiBoxDetection's inputs on the card "
+          f"within 1e-4 of the CPU's ({res['inputs']})")
+    check(ok and res["op_rerun_equals_graph"] and shared["detections"] > 0,
+          "SSD's detection graph: MultiBoxDetection on the CPU on the card's "
+          "inputs gives the card's output, but in rows that overlaps on "
+          f"opposite sides of the NMS threshold decide ({shared})")
+    return res
+
+
+def det_rcnn(mx, seed):
+    """(c) ``train_faster_rcnn.train_and_eval`` at its test's arguments on
+    the card and its gate; the step's ms split into the Custom op's host
+    time (its forward, and its backward with the forward it runs again)
+    and the rest; the rule that refused the capture; then
+    ``rcnn_toy.py`` to its own assertion."""
+    from mxnet_tpu_torch import operator as toperator
+    from mxnet_tpu_torch.examples.rcnn import rcnn_toy
+    from mxnet_tpu_torch.examples.rcnn import train_faster_rcnn as frcnn
+
+    fn = toperator._CustomFunction
+    fwd, bwd = fn.forward, fn.backward
+    host = {"forward": 0.0, "backward": 0.0}
+    calls = {"forward": 0, "backward": 0}
+
+    def clocked(key, f):
+        def run(*a):
+            calls[key] += 1
+            t = time.perf_counter()
+            try:
+                return f(*a)
+            finally:
+                host[key] += (time.perf_counter() - t) * 1e3
+        return staticmethod(run)
+
+    custom = []
+    fn.forward, fn.backward = clocked("forward", fwd), clocked("backward",
+                                                               bwd)
+    t0 = time.perf_counter()
+    try:
+        with StepClock(mx, then=lambda: custom.append(dict(host))) as clock:
+            acc, miou = frcnn.train_and_eval(
+                ctx=mx.gpu(0),
+                log=lambda m: print("  (c) " + m, flush=True), **DET_RCNN)
+    finally:
+        fn.forward, fn.backward = staticmethod(fwd), staticmethod(bwd)
+    secs = time.perf_counter() - t0
+    stamps, infos = clock.stamps, clock.infos
+    step_ms = np.diff(stamps) * 1e3
+    c_fwd = np.diff([c["forward"] for c in custom])
+    c_bwd = np.diff([c["backward"] for c in custom])
+    steady = slice(2, None)
+    info = infos[-1]
+    out = {"accuracy": acc, "mean_iou": miou, "seconds": secs,
+           "steps": len(stamps),
+           "steady_step_ms": float(np.median(step_ms[steady])),
+           "custom_forward_ms": float(np.median(c_fwd[steady])),
+           "custom_backward_ms": float(np.median(c_bwd[steady])),
+           "rest_ms": float(np.median((step_ms - c_fwd - c_bwd)[steady])),
+           # the backward runs only where an input of the op needs a
+           # gradient: its ROIs and boxes need none
+           "custom_calls": calls, "step": info}
+    print(f"  (c) Faster R-CNN: {json.dumps(out)}", flush=True)
+    check(acc >= DET_RCNN_GATE["accuracy"]
+          and miou >= DET_RCNN_GATE["mean_iou"],
+          f"Faster R-CNN accuracy {acc:.3f} >= 0.8 and mean IoU "
+          f"{miou:.3f} >= 0.5")
+    check(info is not None and not info["captured"]
+          and "Custom node" in (info["refusal"] or ""),
+          f"Faster R-CNN's step refused capture for its Custom node "
+          f"({info and info['refusal']})")
+    t0 = time.perf_counter()
+    toy = rcnn_toy.main([], log=lambda m: print("  (c) rcnn_toy " + m,
+                                                flush=True))
+    out["rcnn_toy"] = {"accuracy": toy, "seconds": time.perf_counter() - t0}
+    check(toy > 0.8, f"rcnn_toy.py's ROI accuracy {toy:.3f} > 0.8")
+    return out
+
+
+def _voc_labels(rng, b, g):
+    """(B, G, 5) VOC-like rows: 1 to G/2 boxes of 20 classes a sample,
+    padded with -1."""
+    lab = np.full((b, g, 5), -1.0, np.float32)
+    for i in range(b):
+        for j in range(rng.integers(1, g // 2 + 1)):
+            x0, y0 = rng.uniform(0, 0.7, 2)
+            w, h = rng.uniform(0.05, 0.3, 2)
+            lab[i, j] = [rng.integers(0, 20), x0, y0, x0 + w, y0 + h]
+    return lab
+
+
+def _ssd300_anchors(mx):
+    from mxnet_tpu_torch.ops import get_op
+    from mxnet_tpu_torch.ops.registry import OpCtx
+
+    import torch
+
+    prior = get_op("MultiBoxPrior")
+    return torch.cat([prior.fn(OpCtx(), {"sizes": s, "ratios": r},
+                               torch.zeros(1, 1, m, m))
+                      for m, s, r in SSD300_MAPS], dim=1).numpy()
+
+
+def det_op_cases(mx, seed):
+    """(d)'s cases: (name, op, attrs, numpy inputs, differentiate)."""
+    from mxnet_tpu_torch.examples.rcnn import train_faster_rcnn as frcnn
+
+    rng = np.random.default_rng(seed + 170)
+    anchors = _ssd300_anchors(mx)
+    na = anchors.shape[1]
+    check(na == 8732, f"SSD-300's priors: {na} == 8732 anchors")
+    b, c = SSD300_BATCH, SSD300_CLASSES
+    logits = rng.standard_normal((b, c, na), dtype=np.float32) * 2
+    cases = [
+        ("MultiBoxTarget SSD-300", "MultiBoxTarget",
+         {"overlap_threshold": 0.5, "negative_mining_ratio": 3},
+         [anchors, _voc_labels(rng, b, SSD300_GT), logits], False),
+        ("MultiBoxDetection SSD-300", "MultiBoxDetection",
+         {"nms_threshold": 0.45, "nms_topk": 400, "threshold": 0.01},
+         [_softmax_np(logits).astype(np.float32),
+          (rng.standard_normal((b, na * 4), dtype=np.float32) * 0.5),
+          anchors], False)]
+    fh, fw = VGG_RPN_MAP
+    k = 9
+    rpn = rng.standard_normal((1, 2, k, fh, fw), dtype=np.float32)
+    cases.append(("Proposal VGG-16 600x1000", "Proposal", {},
+                  [_softmax_np(rpn).reshape(1, 2 * k, fh, fw)
+                   .astype(np.float32),
+                   rng.standard_normal((1, 4 * k, fh, fw),
+                                       dtype=np.float32) * 0.1,
+                   np.array([[600, 1000, 1.0]], np.float32)], False))
+    # two images a batch, the second smaller (its own clip and minimum
+    # size), so that the batch index and each image's NMS are held too
+    r2 = np.random.default_rng(seed + 171)
+    rpn = r2.standard_normal((2, 2, k, fh, fw), dtype=np.float32)
+    cases.append(("Proposal VGG-16 600x1000 batch 2", "Proposal", {},
+                  [_softmax_np(rpn).reshape(2, 2 * k, fh, fw)
+                   .astype(np.float32),
+                   r2.standard_normal((2, 4 * k, fh, fw),
+                                      dtype=np.float32) * 0.1,
+                   np.array([[600, 1000, 1.0], [540, 900, 0.9]],
+                            np.float32)], False))
+    # the examples' shapes: Faster R-CNN's test graph (batch 4) and
+    # heads, and rcnn_toy's
+    frpn = rng.standard_normal((4, 2, frcnn.K, frcnn.FEAT, frcnn.FEAT),
+                               dtype=np.float32)
+    cases.append(("Proposal Faster R-CNN example", "Proposal",
+                  dict(feature_stride=frcnn.STRIDE, scales=frcnn.SCALES,
+                       ratios=frcnn.RATIOS, rpn_pre_nms_top_n=200,
+                       rpn_post_nms_top_n=frcnn.POST_NMS, threshold=0.7,
+                       rpn_min_size=6),
+                  [_softmax_np(frpn).reshape(4, 2 * frcnn.K, frcnn.FEAT,
+                                             frcnn.FEAT).astype(np.float32),
+                   rng.standard_normal((4, 4 * frcnn.K, frcnn.FEAT,
+                                        frcnn.FEAT), dtype=np.float32) * 0.2,
+                   np.tile(np.array([frcnn.IMG, frcnn.IMG, 1.0], np.float32),
+                           (4, 1))], False))
+    for name, n, ch, hw, r, pooled, scale in (
+            ("ROIPooling Faster R-CNN example", 4, 32, frcnn.FEAT, 64,
+             (6, 6), 1.0 / frcnn.STRIDE),
+            ("ROIPooling rcnn_toy", 16, 32, 24, 128, (4, 4), 0.5)):
+        img = hw / scale
+        x0 = rng.uniform(0, img * 0.7, (r, 2))
+        wh = rng.uniform(4, img * 0.5, (r, 2))
+        rois = np.concatenate([rng.integers(0, n, (r, 1)), x0,
+                               np.minimum(x0 + wh, img - 1)], 1)
+        cases.append((name, "ROIPooling",
+                      {"pooled_size": pooled, "spatial_scale": scale},
+                      [np.maximum(rng.standard_normal((n, ch, hw, hw),
+                                                      dtype=np.float32), 0),
+                       rois.astype(np.float32)], True))
+    return cases
+
+
+def det_ops(mx, seed):
+    """(d) each op alone at the published and the examples' shapes, card
+    against CPU on the same inputs, with its time on the card (per call
+    and on the device alone). MultiBoxTarget's class ids, masks and targets
+    must match exactly, but in samples whose mining boundary is within
+    1e-6; MultiBoxDetection and Proposal as :func:`nms_card_vs_cpu` holds
+    them; ROIPooling's forward exactly, its gradient within 1e-5."""
+    import torch
+
+    from mxnet_tpu_torch.ops import get_op
+    from mxnet_tpu_torch.ops.registry import OpCtx
+
+    out = {}
+    for name, op_name, attrs, ins, diff in det_op_cases(mx, seed):
+        op = get_op(op_name)
+        res = {}
+        if op_name in NMS_OVERLAPS:
+            _, held, ok = nms_card_vs_cpu(op_name, attrs, ins)
+            res.update(held)
+        ts = [torch.from_numpy(np.ascontiguousarray(a)).to("cuda")
+              for a in ins]
+        if diff:
+            ts[0].requires_grad_(True)
+        ctx = OpCtx(is_train=diff, device=torch.device("cuda"))
+
+        def call(ts=ts, ctx=ctx):
+            return op.fn(ctx, dict(attrs), *ts)
+
+        # a call queues 20-70 kernels: 4 calls a round stay within the
+        # card's queue of pending launches, which blocks the host when full
+        res["ms"] = time_cuda(call)
+        res["device_ms"] = time_device(call, reps=DET_OP_REPS)
+        if op_name == "MultiBoxTarget":
+            g, c = ([t.cpu().numpy() for t in
+                     op.fn(OpCtx(device=torch.device(dev)), dict(attrs),
+                           *[torch.from_numpy(np.ascontiguousarray(a))
+                             .to(dev) for a in ins])]
+                    for dev in ("cuda", "cpu"))
+            res["cls_target_differ"] = int((g[2] != c[2]).sum())
+            res["loc_mask_differ"] = int((g[1] != c[1]).sum())
+            res["loc_target_max_rel_err"] = _rel(g[0], c[0])
+            gaps = _mining_gap(_softmax_np(ins[2]), ins[0], ins[1])
+            res["min_mining_gap"] = min(x for x in gaps if x is not None)
+            res["samples_differ"], ok = _targets_part_at_ties(g, c, gaps,
+                                                              1e-6)
+        elif op_name == "ROIPooling":
+            head = np.random.default_rng(seed).standard_normal(
+                tuple(call().shape), dtype=np.float32)
+            runs = {}
+            for dev in ("cuda", "cpu"):
+                t = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                     for a in ins]
+                t[0].requires_grad_(True)
+                o = op.fn(OpCtx(is_train=True, device=torch.device(dev)),
+                          dict(attrs), *t)
+                grad, = torch.autograd.grad(o, t[0],
+                                            torch.from_numpy(head).to(dev))
+                runs[dev] = (o.detach().cpu().numpy(), grad.cpu().numpy())
+
+            def fwd_bwd(ts=ts, ctx=ctx,
+                        head=torch.from_numpy(head).to("cuda")):
+                torch.autograd.grad(op.fn(ctx, dict(attrs), *ts), ts[0],
+                                    head)
+
+            res["fwd_bwd_device_ms"] = time_device(fwd_bwd,
+                                                   reps=DET_OP_REPS)
+            (g, g_grad), (c, c_grad) = runs["cuda"], runs["cpu"]
+            res["max_rel_err"] = _rel(g, c)
+            res["grad_max_rel_err"] = _rel(g_grad, c_grad)
+            ok = res["max_rel_err"] == 0.0 and res["grad_max_rel_err"] <= 1e-5
+        res["shapes"] = [list(a.shape) for a in ins]
+        print(f"  (d) {name}: {json.dumps(res)}", flush=True)
+        check(ok, f"{name}: card vs CPU ({res})")
+        out[name] = res
+    # the masked ROIPooling's values at VGG-16's shapes (300 ROIs, 7 x 7
+    # bins, 512 x 38 x 63 features): what it would hold
+    r, (ph, pw), (c, h, w) = 300, (7, 7), (512,) + VGG_RPN_MAP
+    elems = r * ph * pw * c * h * w
+    out["roi_pooling_vgg16_masked_values"] = {
+        "elements": elems, "fp32_gb": elems * 4 / 1e9}
+    print(f"  (d) ROIPooling's masked form at VGG-16's shapes would hold "
+          f"{elems} values ({elems * 4 / 1e9:.1f} GB in fp32)", flush=True)
+    return out
+
+
+def phase_detection(mx, seed):
+    """Object detection: (a) SSD through evaluate.py and train.py, (b) its
+    step card vs CPU, (c) Faster R-CNN and rcnn_toy.py, (d) the ops
+    alone."""
+    print("phase 15: object detection", flush=True)
+    t0 = time.perf_counter()
+    out, trained = det_ssd(mx, seed)
+    out = {"ssd": out}
+    out["ssd_card_vs_cpu"] = det_card_vs_cpu(mx, seed, trained)
+    out["faster_rcnn"] = det_rcnn(mx, seed)
+    out["ops"] = det_ops(mx, seed)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"  phase 15: {out['seconds']:.1f} s", flush=True)
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4361,6 +5203,7 @@ def main(argv=None):
         graph = phase_step_graph(mx, weights, args.seed, records["rec"],
                                  ptb_split, train["mean_nll"])
         zoo = phase_zoo(mx, args.seed, rec_dir)
+    detection = phase_detection(mx, args.seed)
 
     main_case = cases["slice_fp32_causal"]
     kernels = [{
@@ -4419,7 +5262,7 @@ def main(argv=None):
                    "rtc_cases": rtc_cases, "imperative": imperative,
                    "amp": amp, "train": train, "fit": fit,
                    "records": records, "ptb": ptb, "step_graph": graph,
-                   "zoo": zoo,
+                   "zoo": zoo, "detection": detection,
                    "kernels": kernels,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)

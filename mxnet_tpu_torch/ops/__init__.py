@@ -16,6 +16,9 @@ from . import nn as _nn  # noqa: F401
 from . import attention as _attention  # noqa: F401
 from . import fused_ce as _fused_ce  # noqa: F401
 from . import rnn_op as _rnn_op  # noqa: F401
+from . import contrib_det as _contrib_det  # noqa: F401
+from . import rcnn as _rcnn  # noqa: F401
+from . import vision as _vision  # noqa: F401
 
 __all__ = ["OpCtx", "coerce_attrs", "get_op", "list_ops", "register_op",
            "imperative_invoke", "make_imperative_namespace"]

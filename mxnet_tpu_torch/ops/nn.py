@@ -413,7 +413,14 @@ def _embedding(ctx, attrs, data, weight):
     """``jnp.take(weight, data.astype(int32), axis=0)``, as the reference:
     ids may arrive as floats (Predictor inputs are float32); a NaN id is 0,
     a negative id in [-n, 0) wraps, and an id outside [-n, n) gives a NaN
-    row (:func:`~.tensor.take_fill`)."""
+    row (:func:`~.tensor.take_fill`). On the card the rows are gathered by
+    ``F.embedding``, whose weight gradient sums each row's terms in a fixed
+    order, so two runs of a step give the same bits; ``index_select``'s is
+    an atomic scatter-add, whose bf16 sums differ from run to run. On the
+    CPU ``index_select``'s gradient is deterministic already, and stays."""
+    if weight.device.type == "cuda":
+        return take_fill(weight, data, 0,
+                         gather=lambda w, ids: F.embedding(ids, w))
     return take_fill(weight, data, 0)
 
 
@@ -511,3 +518,43 @@ def _softmax_output(ctx, attrs, data, label):
         int(attrs.get("ignore_label", -1)),
         float(attrs.get("grad_scale", 1.0)),
         attrs.get("normalization", "null"))
+
+
+# ---------------------------------------------------------------------------
+# SoftmaxActivation (reference: src/operator/softmax_activation-inl.h) and
+# MakeLoss (reference: src/operator/make_loss-inl.h)
+
+
+@register_op("SoftmaxActivation")
+def _softmax_activation(ctx, attrs, data):
+    """Softmax over the channel axis (``mode="channel"``) or over each
+    sample's flattened entries (``"instance"``, the default)."""
+    if attrs.get("mode", "instance") == "channel":
+        return torch.softmax(data, dim=1)
+    return torch.softmax(data.reshape(data.shape[0], -1),
+                         dim=-1).reshape(data.shape)
+
+
+class _MakeLoss(torch.autograd.Function):
+    """The identity, whose gradient is the constant ``scale`` whatever the
+    head gradient (the reference's ``custom_vjp``)."""
+
+    @staticmethod
+    def forward(ctx, data, scale):
+        ctx.scale = scale
+        return data.view_as(data)
+
+    @staticmethod
+    def backward(ctx, g):
+        return torch.full_like(g, ctx.scale), None
+
+
+@register_op("MakeLoss")
+def _make_loss(ctx, attrs, data):
+    """Forward the identity; backward ``grad_scale``, divided by the batch
+    under ``normalization="batch"`` (any other normalization is
+    ``"null"``, as in the reference)."""
+    scale = float(attrs.get("grad_scale", 1.0))
+    if attrs.get("normalization", "null") == "batch":
+        scale /= data.shape[0]
+    return _MakeLoss.apply(data, scale)

@@ -73,17 +73,20 @@ def as_int32(x):
     return x.to(torch.int32)
 
 
-def take_fill(a, indices, axis):
+def take_fill(a, indices, axis, gather=None):
     """``jnp.take(a, indices, axis)`` with its default mode: an index in
     [-n, 0) wraps, one outside [-n, n) gives the fill value (NaN for
     floats, the least value for signed integers, the largest for unsigned,
     True for bool). The gather sees clamped indices only, so no index
-    kernel is asked for a row that is not there."""
+    kernel is asked for a row that is not there. ``gather(a, flat_idx)``
+    replaces ``torch.index_select`` along ``axis``."""
     n = a.shape[axis]
     idx = as_int32(indices).to(torch.int64)
     idx = torch.where(idx < 0, idx + n, idx)
     valid = (idx >= 0) & (idx < n)
-    out = torch.index_select(a, axis, torch.where(valid, idx, 0).reshape(-1))
+    flat = torch.where(valid, idx, 0).reshape(-1)
+    out = torch.index_select(a, axis, flat) if gather is None \
+        else gather(a, flat)
     out = out.reshape(a.shape[:axis] + idx.shape + a.shape[axis + 1:])
     if a.dtype == torch.bool:
         fill = True
@@ -408,30 +411,41 @@ def _order_key(x):
     return torch.where(bits < 0, bits ^ flip, bits)
 
 
+def top_k_indices(x, k):
+    """Indices of the ``k`` largest entries along the last axis in
+    ``lax.top_k``'s order: :func:`_order_key`'s total order, and among
+    equal values the lowest index first. Value and index go into one int64
+    key for ``torch.topk`` (whose order on ties is not defined); 64-bit
+    inputs, whose values fill it alone, take a stable sort."""
+    key = _order_key(x)
+    n = x.shape[-1]
+    if key.dtype == torch.int64:
+        order = torch.sort(key, dim=-1, descending=True, stable=True)[1]
+        return order[..., :k]
+    comp = key.to(torch.int64)
+    comp <<= 32
+    comp |= torch.arange(n - 1, -1, -1, device=x.device)
+    return (n - 1) - (torch.topk(comp, k, dim=-1).values & 0xFFFFFFFF)
+
+
+def top_k(x, k):
+    """``lax.top_k(x, k)``: the values and indices of
+    :func:`top_k_indices` along the last axis."""
+    idx = top_k_indices(x, k)
+    return x.gather(-1, idx), idx
+
+
 @register_op("topk", num_outputs=lambda attrs: 2 if attrs.get(
     "ret_typ", "indices") == "both" else 1)
 def _topk(ctx, attrs, data):
     """Reference: src/operator/tensor/ordering_op.cc TopK, through
-    ``lax.top_k`` (of ``-x`` for ``is_ascend``): the total order of
-    :func:`_order_key`, and among equal values the lowest index first.
-    Value and index go into one int64 key for ``torch.topk``; 64-bit
-    inputs, whose values fill it alone, take a stable sort."""
+    ``lax.top_k`` (of ``-x`` for ``is_ascend``): :func:`top_k_indices`."""
     k = int(attrs.get("k", 1))
     axis = attrs.get("axis", -1)
     ret_typ = attrs.get("ret_typ", "indices")
     is_ascend = bool(attrs.get("is_ascend", False))
     x = torch.movedim(data, axis, -1)
-    key = _order_key(-x if is_ascend else x)
-    n = x.shape[-1]
-    if key.dtype == torch.int64:
-        raw_idx = torch.sort(key, dim=-1, descending=True,
-                             stable=True)[1][..., :k]
-    else:
-        comp = key.to(torch.int64)
-        comp <<= 32
-        comp |= torch.arange(n - 1, -1, -1, device=x.device)
-        raw_idx = (n - 1) - (torch.topk(comp, k, dim=-1).values
-                             & 0xFFFFFFFF)
+    raw_idx = top_k_indices(-x if is_ascend else x, k)
     vals = x.gather(-1, raw_idx)
     if ret_typ == "value":
         return torch.movedim(vals, -1, axis)

@@ -4,8 +4,9 @@ steps against the same step function run eagerly from the same start
 in bf16, an unrolled LSTM with Dropout (the masks of a replay are the eager
 step's) and the fused ``RNN`` op; learning rates that change between
 replays; a batch of another shape and a rebind dropping the graph; a
-capture that fails raising with the op it failed in; and the buckets of a
-``BucketingModule``, each graph in a pool of its own. This file imports no
+capture that fails raising with the op it failed in; the buckets of a
+``BucketingModule``, each graph in a pool of its own; and Embedding's bf16
+weight gradient, the same bits in two runs. This file imports no
 JAX, so it runs on a machine with only PyTorch:
 
     python -m pytest -m gpu --noconftest tests/test_torch_cuda_graph.py
@@ -19,6 +20,7 @@ import torch
 
 import mxnet_tpu_torch as mx
 from mxnet_tpu_torch.ops import get_op, rnn_op
+from mxnet_tpu_torch.ops.registry import OpCtx
 
 pytestmark = pytest.mark.gpu
 LIMIT = 1e-5
@@ -324,3 +326,35 @@ def test_bucket_switch_between_forward_and_update():
                for a, o in zip(outs, short.get_outputs()))
     assert all(torch.equal(a, t) for a, t in zip(staged, [
         t for w, leaves in short._fused_pending for t in (w, *leaves)]))
+
+
+@pytest.mark.parametrize("rows", [1024, 4096])
+def test_embedding_weight_gradient_repeats_in_bf16(rows):
+    """Embedding's weight gradient on the card sums each row's terms in a
+    fixed order: two bf16 runs give the same bits (1024 ids and 4096, each
+    size's backward kernel). The fp32 gradient is within 1e-5 of max-abs
+    of the float64 sum; the bf16 one within 2^-5 (four bf16 ulps at the
+    largest magnitude): below about 3072 ids it sums in bf16 chunks, as
+    ``index_select``'s atomic adds, which it replaced, did."""
+    rng = np.random.default_rng(rows)
+    weight = rng.standard_normal((64, 128), dtype=np.float32)
+    ids = rng.integers(0, 64, rows)
+    head = rng.standard_normal((rows, 128), dtype=np.float32)
+    want = np.zeros((64, 128))
+    np.add.at(want, ids, head.astype(np.float64))
+    op = get_op("Embedding")
+
+    def grad(dtype):
+        w = torch.from_numpy(weight).to("cuda", dtype).requires_grad_(True)
+        out = op.fn(OpCtx(device=torch.device("cuda")), {},
+                    torch.from_numpy(ids.astype(np.float32)).cuda(), w)
+        return torch.autograd.grad(out, w, torch.from_numpy(head).to(
+            "cuda", dtype))[0].double().cpu().numpy()
+
+    def gap(got):
+        return float(np.abs(got - want).max() / np.abs(want).max())
+
+    runs = [grad(torch.bfloat16) for _ in range(2)]
+    assert np.array_equal(runs[0], runs[1])
+    assert gap(runs[0]) <= 2 ** -5
+    assert gap(grad(torch.float32)) <= LIMIT
