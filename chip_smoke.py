@@ -213,7 +213,34 @@ result line:
    parts from it only in rows that overlaps on opposite sides of the NMS
    threshold decide; ROIPooling's forward exact; and the values
    ROIPooling's masked form would hold at VGG-16's
-   shapes.
+   shapes;
+16. LM decode at the LM's width: (a) ``bench.py``'s ``bench_decode``
+   through ``mxnet_tpu_torch/tools/decode_bench.py`` (vocab 32768, hidden
+   1024, 16 heads, 12 layers, cache 2048, batch 8, bf16 weights and caches
+   through ``type_dict``), 256 tokens timed captured and eager on one
+   binding: ms a token, tok/s, host issue ms, kernels a token and device
+   busy from 8 traced captured tokens, one eager token's device time by
+   group (the QKV/out/FF/head GEMMs, the cache write, scores/softmax/PV,
+   the vocab softmax, the rest), the idle share, graph drops (0), cache
+   outputs that are not the bound arrays (0), memory and the byte bound;
+   (b) ``bench_decode_scan``: ``GenerateScan`` at batch 8, prime 4,
+   gen_len 2044, bf16, one call to capture the token step and one timed:
+   tok/s, host issue ms a sequence, replays; (c) ``GenerationSession`` at
+   full width in fp32 (8 slots, max_len 2048, prefill chunk 64 under the
+   cap) over 32 requests (primes 64-512, outputs 32-128, every fourth
+   opening with one 256-token prefix) after ``warmup()``: dense, paged
+   (16-token blocks; its streams equal the dense one's), with the prefix
+   cache warmed by the shared prefix, and speculative with the target's
+   first 2 layers as the draft (spec_k 4); the warm and speculative
+   streams may part from the dense ones only at near-ties ((d)'s rule):
+   tokens/s, TTFT p50/p99, steps, the effective chunk, the probability
+   copy's ms, prefix hits, acceptance, the median top-2 gap; (d) greedy
+   streams over 64 tokens on the card and the CPU (fp32, TF32 off) at full
+   width with 2 layers and at a small size: probabilities within 1e-5, a
+   token parting only where the CPU's top-2 gap is under twice the
+   devices' largest difference at that step; (e) the port's
+   ``examples/generate.py`` at its defaults, with the step loop and with
+   ``--scan``, each above the reference's gate (0.4).
 
 Phases 9-12 run with ``MXTPU_NO_FUSED_STEP=1``: they measure the split path
 that earlier slices recorded.
@@ -5171,6 +5198,511 @@ def phase_detection(mx, seed):
     return out
 
 
+# ------------------------------------------------------------------ phase 16
+
+DEC_TOKENS = 256            # (a): tokens timed a mode (bench.py's steps)
+DEC_TRACED = 8              # (a): captured tokens traced for kernels, busy
+# (a): device-time groups of a traced eager token, by the host range that
+# launched the kernels (the script wraps the ops and the decode core's
+# functions)
+DEC_RANGES = {
+    "gemm_qkv_ff_head": ("chip_smoke::qkv_proj", "chip_smoke::out_proj",
+                         "chip_smoke::fc"),
+    "cache_write": ("chip_smoke::cache_write",),
+    "scores_softmax_pv": ("chip_smoke::scores_softmax_pv",),
+    "vocab_softmax": ("chip_smoke::vocab_softmax",),
+}
+SCAN_REPS = 1               # (b): timed sequences after the warm-up call
+# (c): GenerationSession at the LM's full width, fp32
+SESS = dict(vocab=32768, hidden=1024, heads=16, layers=12, max_len=2048,
+            slots=8, chunk=64)
+SESS_REQUESTS, SESS_PRIME, SESS_OUT, SESS_SHARED = 32, (64, 512), (32, 128), 256
+SESS_KV_BLOCK, SESS_SPEC_K, SESS_DRAFT_LAYERS = 16, 4, 2
+SESS_PREFIX_BYTES = 8 << 30
+# (d): card vs CPU, fp32 with TF32 off, greedy over 64 tokens
+DCMP_TOKENS, DCMP_PRIME, DCMP_LIMIT = 64, 4, 1e-5
+DCMP_SIZES = {
+    "full_width_2_layers": dict(vocab=32768, hidden=1024, heads=16,
+                                layers=2, seq=2048, batch=4, scale=0.02),
+    "small": dict(vocab=64, hidden=64, heads=4, layers=2, seq=96, batch=4,
+                  scale=0.2),
+}
+GEN_GATE = 0.4              # (e): the reference's legal-fraction gate
+
+
+def _wrap_funcs(module, pairs):
+    """Wrap module-level functions (looked up at call time) in profiler
+    ranges; returns what restores them."""
+    import torch
+
+    saved = []
+    for name, label in pairs:
+        fn = getattr(module, name)
+
+        def ranged(*a, _fn=fn, _label=label, **k):
+            with torch.profiler.record_function(_label):
+                return _fn(*a, **k)
+
+        saved.append((module, name, fn))
+        setattr(module, name, ranged)
+    return saved
+
+
+def dec_bench(mx):
+    """(a) bench.py's bench_decode through decode_bench.py: captured and
+    eager tokens/s on one binding, kernels and device busy of captured
+    tokens, one eager token's device time by group, the idle share, graph
+    drops, cache copies, memory and the byte bound."""
+    import torch
+
+    from mxnet_tpu_torch.ops import attention as ta
+    from mxnet_tpu_torch.ops import get_op
+    from mxnet_tpu_torch.tools import decode_bench as db
+
+    cfg = db.ACCEL
+    ctx = mx.gpu(0)
+    torch.cuda.reset_peak_memory_stats()
+    cap = db.bench_decode(ctx, DEC_TOKENS, cfg, captured=True)
+    loop = cap.pop("loop")
+    eag = db.bench_decode(ctx, DEC_TOKENS, cfg, captured=False, loop=loop)
+    eag.pop("loop")
+    capturable = cap["mode"] == "captured"
+    loop.program.capturable = capturable
+    counts = {}
+
+    def captured_tokens():
+        for _ in range(DEC_TRACED):
+            loop()
+
+    by_name, _ = traced_groups(captured_tokens, ranges={}, counts=counts)
+    kernels = sum(counts.values()) / DEC_TRACED
+    busy = sum(by_name.values()) / DEC_TRACED
+    loop.program.capturable = False
+    saved = _wrap_ops(("FullyConnected",), "chip_smoke::fc") \
+        + _wrap_ops(("SoftmaxActivation",), "chip_smoke::vocab_softmax")
+    fsaved = _wrap_funcs(ta, [("_project", "chip_smoke::qkv_proj"),
+                              ("_out_proj", "chip_smoke::out_proj"),
+                              ("_write_at", "chip_smoke::cache_write"),
+                              ("_write_rows", "chip_smoke::cache_write"),
+                              ("_scores_pv",
+                               "chip_smoke::scores_softmax_pv")])
+    try:
+        eager_by_name, groups = traced_groups(loop, ranges=DEC_RANGES)
+    finally:
+        for op, fn in saved:
+            op.fn = fn
+        for module, name, fn in fsaved:
+            setattr(module, name, fn)
+    loop.program.capturable = capturable
+    group_ms = {g: sum(ms for _n, ms in ks) for g, ks in groups.items()}
+    group_ms["rest"] = sum(eager_by_name.values()) - sum(group_ms.values())
+    ex, names = loop.ex, loop.cache_names
+    weight_bytes = sum(a.data.numel() * a.data.element_size()
+                       for n, a in ex.arg_dict.items()
+                       if n not in names and n not in ("data", "pos"))
+    row = 2 * cfg["layers"] * cfg["batch"] * cfg["hidden"] * 2  # k, v bf16
+    n1 = max(2, DEC_TOKENS // 4)
+    first = 3 + n1                        # measure(): 3 warm, n1, then n
+    mean_pos = first + (DEC_TOKENS - 1) / 2.0
+    bound_full = (weight_bytes + row * cfg["seq"]) / PEAK_BYTES * 1e3
+    bound_run = (weight_bytes + row * (mean_pos + 1)) / PEAK_BYTES * 1e3
+    out = {
+        "captured": cap, "eager": eag,
+        "kernels_per_token": kernels,
+        "device_busy_ms_per_token": busy,
+        "idle_share": 1.0 - busy / cap["ms_per_token"],
+        "eager_token_device_ms_by_group": group_ms,
+        "eager_token_device_ms": sum(eager_by_name.values()),
+        "top_kernels": sorted(eager_by_name.items(),
+                              key=lambda kv: -kv[1])[:8],
+        "reserved_gb": torch.cuda.memory_reserved() / 1e9,
+        "peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "weight_bytes": weight_bytes,
+        "bound_ms_full_cache": bound_full,
+        "bound_ms_run_positions": bound_run,
+        "bound_by": "bytes",
+    }
+    print("  (a) bench_decode: " + json.dumps(out, default=str), flush=True)
+    check(cap["forward"]["drops"] == 0 and cap["forward"]["captures"] == 1
+          and cap["cache_copies"] == 0 and eag["cache_copies"] == 0,
+          f"(a) {DEC_TOKENS + 3 + n1} captured tokens replay one graph: "
+          f"{cap['forward']}, cache copies {cap['cache_copies']}")
+    check(loop.program.stats["drops"] == 0 and loop.program.stats[
+        "captures"] == 1, "(a) the graph held through the eager and traced "
+          f"tokens: {loop.program.stats}")
+    del loop, ex
+    torch.cuda.empty_cache()
+    return out
+
+
+def dec_scan(mx):
+    """(b) bench.py's bench_decode_scan: GenerateScan at batch 8, prime 4,
+    gen_len 2044, bf16."""
+    import torch
+
+    from mxnet_tpu_torch.tools import decode_bench as db
+
+    r = db.bench_decode_scan(mx.gpu(0), SCAN_REPS, db.ACCEL)
+    toks, first = r.pop("tokens"), r.pop("first_tokens")
+    print("  (b) bench_decode_scan: " + json.dumps(r), flush=True)
+    total = db.ACCEL["seq"]
+    check(toks.shape == (db.ACCEL["batch"], total)
+          and ((toks >= 0) & (toks < db.ACCEL["vocab"])).all()
+          and np.array_equal(toks, first),
+          f"(b) GenerateScan tokens {toks.shape} in the vocabulary, the "
+          "same in the capturing call and the replayed one")
+    check(r["captures"] == 1 and r["replays"] == (SCAN_REPS + 1)
+          * (total - 1), f"(b) one token-step graph, {r['replays']} "
+          "replays")
+    torch.cuda.empty_cache()
+    return r
+
+
+def sess_weights(seed):
+    """The full-width LM's weights in get_symbol's names: randn * 0.02,
+    LayerNorm gammas 1 and betas 0, fp32."""
+    from mxnet_tpu_torch.models import transformer_lm
+
+    c = SESS
+    dsym, names = transformer_lm.get_batch_decode_symbol(
+        vocab_size=c["vocab"], num_layers=c["layers"], hidden=c["hidden"],
+        heads=c["heads"], max_len=c["max_len"])
+    shapes = {"data": (1, 1), "pos": (1,)}
+    shapes.update({n: (1, c["max_len"], c["hidden"]) for n in names})
+    arg_shapes, _, _ = dsym.infer_shape(**shapes)
+    rng = np.random.RandomState(seed)
+    out = {}
+    for n, s in zip(dsym.list_arguments(), arg_shapes):
+        if n in shapes:
+            continue
+        if n.endswith("gamma"):
+            out[n] = np.ones(s, np.float32)
+        elif n.endswith("beta"):
+            out[n] = np.zeros(s, np.float32)
+        else:
+            out[n] = (rng.randn(*s) * 0.02).astype(np.float32)
+    return out
+
+
+def sess_trace(seed):
+    """32 requests: primes of 64-512 tokens, outputs of 32-128; every
+    fourth opens with one shared 256-token prefix. Returns (trace,
+    the shared prefix)."""
+    rng = np.random.RandomState(seed + 16)
+    v = SESS["vocab"]
+    shared = [int(t) for t in rng.randint(0, v, SESS_SHARED)]
+    trace = []
+    for i in range(SESS_REQUESTS):
+        if i % 4 == 0:
+            n = int(rng.randint(SESS_SHARED + 1, SESS_PRIME[1] + 1))
+            prime = shared + [int(t) for t in
+                              rng.randint(0, v, n - SESS_SHARED)]
+        else:
+            n = int(rng.randint(SESS_PRIME[0], SESS_PRIME[1] + 1))
+            prime = [int(t) for t in rng.randint(0, v, n)]
+        trace.append((prime, int(rng.randint(SESS_OUT[0],
+                                             SESS_OUT[1] + 1))))
+    return trace, shared
+
+
+def sess_run(mx, weights, trace, label, before=None, **kw):
+    """One GenerationSession over ``trace`` on the card (8 slots, chunk 64
+    with the cap, after ``warmup()`` and the requests of ``before``),
+    submitted at once. Keeps each sampled decision's probability row by
+    (request, token index) and each request's time to first token."""
+    c = SESS
+    sess = mx.GenerationSession(
+        weights, vocab_size=c["vocab"], num_layers=c["layers"],
+        hidden=c["hidden"], heads=c["heads"], max_len=c["max_len"],
+        slots=c["slots"], ctx=mx.gpu(0), prefill_chunk=c["chunk"], **kw)
+    t0 = time.perf_counter()
+    sess.warmup()
+    for p, g in before or ():
+        sess.generate(p, g).result()
+    warm_s = time.perf_counter() - t0
+    lane = sess._target
+    step0, emit0 = lane.step, sess._emit
+    holder, rows, ttft, req_of = {}, {}, {}, {}
+    bad = []
+
+    def step(feeds, want_probs):
+        p = step0(feeds, want_probs)
+        holder["p"], holder["start"] = p, {i: s for i, _t, s in feeds}
+        return p
+
+    def emit(seq, tokens, now):
+        r = req_of.get(id(seq.future))
+        if r is not None:
+            if not seq.out:
+                ttft[r] = now - seq.t_submit
+            for i, tok in enumerate(tokens):
+                k = len(seq.out) + i
+                col = len(seq.prime) + k - 1 - holder["start"][seq.slot]
+                row = holder["p"][seq.slot, col]
+                if int(row.argmax()) != tok:
+                    bad.append((r, k))
+                rows[(r, k)] = row.copy()
+        return emit0(seq, tokens, now)
+
+    lane.step, sess._emit = step, emit
+    st0 = sess.stats()
+    d2h0 = len(lane.d2h_ms)
+    t0 = time.perf_counter()
+    with sess._cv:    # the worker admits nothing before all are mapped
+        futs = []
+        for r, (p, g) in enumerate(trace):
+            futs.append(sess.generate(p, g))
+            req_of[id(futs[-1])] = r
+    streams = [f.result() for f in futs]
+    secs = time.perf_counter() - t0
+    st = sess.stats()
+    progs = sess.programs()
+    snap = sess.metrics.snapshot()
+    d2h = sorted(lane.d2h_ms[d2h0:])
+    sess.close()
+    # device ms of each target program's step: its graph replayed on the
+    # last step's inputs (the same rows rewritten with the same values)
+    step_ms = {name: time_device(ex._eval_program._graph.replay, reps=10)
+               for name, ex in lane.executors().items()
+               if ex._eval_program is not None and ex._eval_program.captured}
+    tt = sorted(ttft.values())
+    gen_tokens = sum(g for _p, g in trace)
+    out = {
+        "seconds": secs, "warmup_s": warm_s,
+        "tokens_per_s": gen_tokens / secs,
+        "ttft_p50_ms": float(np.percentile(tt, 50)) * 1e3,
+        "ttft_p99_ms": float(np.percentile(tt, 99)) * 1e3,
+        "steps": st["steps"] - st0["steps"],
+        "chunk_steps": st["chunk_steps"] - st0["chunk_steps"],
+        "chunk_effective": st["chunk"],
+        "chunk_requested": st["chunk_requested"],
+        "d2h": len(d2h), "d2h_ms_p50": float(np.median(d2h)) if d2h
+        else None, "d2h_ms_total": float(sum(d2h)),
+        # host ms of a step (warm-up included): a sampling step waits for
+        # its probabilities, a prefill-only step returns once issued
+        "step_device_ms_by_program": step_ms,
+        "sampled_step_host_ms_p50": snap["sampled_step_p50_ms"],
+        "prefill_step_host_ms_p50": snap["prefill_step_p50_ms"],
+        "prefix_hits": (st["prefix_cache"]["hits"]
+                        - st0["prefix_cache"]["hits"])
+        if st["prefix_cache"] else None,
+        "prefix_tokens_reused": st["prefix_cache"]["tokens_reused"]
+        if st["prefix_cache"] else None,
+        "spec": st.get("spec"),
+        "programs": progs,
+        "emitted_not_argmax": len(bad),
+    }
+    print(f"  (c) {label}: " + json.dumps(out, default=str), flush=True)
+    check(not bad, f"(c) {label}: each emitted token is the argmax of the "
+          "probability row recorded for it")
+    check(all(p["drops"] == 0 and p["captured"] and p["captures"] == 1
+              for p in progs.values()),
+          f"(c) {label}: every program captured once, no drops")
+    return out, streams, rows
+
+
+def _top2_gap(row):
+    part = np.partition(row, -2)
+    return float(part[-1] - part[-2])
+
+
+def near_tie_rule(trace, want, want_rows, got, got_rows):
+    """(d)'s rule between two runs of one trace: a request's streams may
+    part only at a decision where ``want``'s top-2 gap is under twice the
+    largest difference between the two runs' probabilities there; the
+    request is compared no further after it. Returns (decisions compared,
+    near-tie partings, violations)."""
+    compared, ties, bad = 0, [], []
+    for r, (prime, g) in enumerate(trace):
+        for k in range(g):
+            a, b = int(want[r][len(prime) + k]), int(got[r][len(prime) + k])
+            compared += 1
+            if a == b:
+                continue
+            wr, gr = want_rows[(r, k)], got_rows[(r, k)]
+            gap, diff = _top2_gap(wr), float(np.abs(wr - gr).max())
+            (ties if gap < 2 * diff else bad).append(
+                {"request": r, "token": k, "gap": gap, "diff": diff})
+            break
+    return compared, ties, bad
+
+
+def dec_session(mx, seed):
+    """(c) GenerationSession at the LM's full width: dense, paged, warm
+    with the prefix cache, speculative with a 2-layer draft."""
+    import torch
+
+    from mxnet_tpu_torch.serving import PrefixKVCache
+
+    weights = sess_weights(seed)
+    trace, shared = sess_trace(seed)
+    out = {"requests": len(trace),
+           "prime_tokens": sum(len(p) for p, _g in trace),
+           "generated_tokens": sum(g for _p, g in trace)}
+    out["dense"], dense, dense_rows = sess_run(mx, weights, trace, "dense")
+    gaps = sorted(_top2_gap(r) for r in dense_rows.values())
+    out["top2_gap"] = {"median": gaps[len(gaps) // 2], "min": gaps[0],
+                       "decisions": len(gaps)}
+    torch.cuda.empty_cache()
+    out["paged"], paged, paged_rows = sess_run(
+        mx, weights, trace, "paged", kv_paged=True, kv_block=SESS_KV_BLOCK)
+    same = all(np.array_equal(a, b) for a, b in zip(paged, dense))
+    diff = max(float(np.abs(paged_rows[k] - dense_rows[k]).max())
+               for k in dense_rows) if same else None
+    out["paged"]["probs_max_abs_vs_dense"] = diff
+    check(same, "(c) the paged session's streams equal the dense one's, "
+          f"token for token (probabilities part by at most {diff})")
+    del paged_rows
+    torch.cuda.empty_cache()
+    cache = PrefixKVCache(SESS_PREFIX_BYTES, device_bytes=SESS_PREFIX_BYTES)
+    out["warm"], warm, warm_rows = sess_run(
+        mx, weights, trace, "warm prefix", before=[(shared + [1], 1)],
+        prefix_cache=cache)
+    n, ties, bad = near_tie_rule(trace, dense, dense_rows, warm, warm_rows)
+    out["warm"]["near_tie"] = {"compared": n, "ties": ties, "bad": bad}
+    check(not bad and out["warm"]["prefix_hits"] >= SESS_REQUESTS // 4,
+          f"(c) warm: {n} decisions, {len(ties)} partings at near-ties, "
+          f"none else ({bad}); {out['warm']['prefix_hits']} prefix hits")
+    del warm_rows
+    torch.cuda.empty_cache()
+    draft = {k: v for k, v in weights.items()
+             if not k.startswith("layer")
+             or int(k[5:k.index("_")]) < SESS_DRAFT_LAYERS}
+    out["speculative"], spec, spec_rows = sess_run(
+        mx, weights, trace, "speculative", draft_params=draft,
+        draft_config={"num_layers": SESS_DRAFT_LAYERS}, spec_k=SESS_SPEC_K)
+    n, ties, bad = near_tie_rule(trace, dense, dense_rows, spec, spec_rows)
+    out["speculative"]["near_tie"] = {"compared": n, "ties": ties,
+                                      "bad": bad}
+    check(not bad and out["speculative"]["spec"]["rounds"] > 0,
+          f"(c) speculative: {n} decisions, {len(ties)} partings at "
+          f"near-ties, none else ({bad}); acceptance "
+          f"{out['speculative']['spec']['acceptance']:.3f}")
+    check(all(len(s) == len(p) + g and len(s) <= SESS["max_len"]
+              for s, (p, g) in zip(dense, trace)),
+          "(c) every stream is its prime and its output, in the window")
+    torch.cuda.empty_cache()
+    return out
+
+
+def _greedy(mx, cfg, weights, prime, ctx, tokens):
+    """Greedy decode through get_decode_symbol on ``ctx``: the prime fed,
+    then ``tokens`` argmax tokens; (tokens (B, P + tokens), probs of each
+    step)."""
+    from mxnet_tpu_torch.models import transformer_lm
+
+    dsym, names = transformer_lm.get_decode_symbol(
+        vocab_size=cfg["vocab"], num_layers=cfg["layers"],
+        hidden=cfg["hidden"], heads=cfg["heads"], max_len=cfg["seq"])
+    shapes = {"data": (cfg["batch"], 1), "pos": (1,)}
+    shapes.update({n: (cfg["batch"], cfg["seq"], cfg["hidden"])
+                   for n in names})
+    ex = dsym.simple_bind(ctx, grad_req="null", **shapes)
+    for n, a in ex.arg_dict.items():
+        if n in weights:
+            a.data.copy_(torch_from(weights[n]))
+    toks = [prime[:, i] for i in range(prime.shape[1])]
+    probs = []
+    for t in range(prime.shape[1] + tokens - 1):
+        outs = ex.forward(is_train=False,
+                          data=toks[t].reshape(-1, 1).astype(np.float32),
+                          pos=np.array([t], np.float32))
+        for n, o in zip(names, outs[1:]):
+            ex.arg_dict[n].alias(o)
+        probs.append(outs[0].asnumpy())
+        if t + 1 >= prime.shape[1]:
+            toks.append(probs[-1].argmax(axis=1))
+    return np.stack(toks, axis=1), np.stack(probs)
+
+
+def torch_from(a):
+    import torch
+
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def dec_card_vs_cpu(mx, seed):
+    """(d) greedy streams over 64 tokens on the card and the CPU, fp32 with
+    TF32 off: probabilities within 1e-5 where the streams agree; a token
+    may differ only where the CPU's top-2 gap is under twice the two
+    devices' largest probability difference at that step, and its row is
+    compared no further."""
+    from mxnet_tpu_torch.models import transformer_lm
+
+    out = {}
+    for name, cfg in DCMP_SIZES.items():
+        dsym, names = transformer_lm.get_decode_symbol(
+            vocab_size=cfg["vocab"], num_layers=cfg["layers"],
+            hidden=cfg["hidden"], heads=cfg["heads"], max_len=cfg["seq"])
+        shapes = {"data": (1, 1), "pos": (1,)}
+        shapes.update({n: (1, cfg["seq"], cfg["hidden"]) for n in names})
+        arg_shapes, _, _ = dsym.infer_shape(**shapes)
+        rng = np.random.RandomState(seed + 61)
+        weights = {n: (np.ones(s, np.float32) if n.endswith("gamma") else
+                       (rng.randn(*s) * cfg["scale"]).astype(np.float32))
+                   for n, s in zip(dsym.list_arguments(), arg_shapes)
+                   if n not in shapes}
+        prime = rng.randint(0, cfg["vocab"], (cfg["batch"], DCMP_PRIME))
+        gt, gp = _greedy(mx, cfg, weights, prime, mx.gpu(0), DCMP_TOKENS)
+        ct, cp = _greedy(mx, cfg, weights, prime, mx.cpu(), DCMP_TOKENS)
+        live = np.ones(cfg["batch"], bool)
+        worst, ties, bad = 0.0, [], []
+        for t in range(gp.shape[0]):
+            for b in np.nonzero(live)[0]:
+                diff = float(np.abs(gp[t, b] - cp[t, b]).max())
+                if t + 1 < DCMP_PRIME:
+                    worst = max(worst, diff)
+                    continue
+                gap = _top2_gap(cp[t, b])
+                if gt[b, t + 1] != ct[b, t + 1]:
+                    (ties if gap < 2 * diff else bad).append(
+                        {"row": int(b), "step": t, "gap": gap,
+                         "diff": diff})
+                    live[b] = False
+                    continue
+                worst = max(worst, diff)
+        out[name] = {"max_abs_diff": worst, "near_ties": ties, "bad": bad,
+                     "rows_compared_to_end": int(live.sum()),
+                     "tokens": DCMP_TOKENS}
+        print(f"  (d) card vs CPU {name}: " + json.dumps(out[name]),
+              flush=True)
+        check(not bad and worst <= DCMP_LIMIT,
+              f"(d) {name}: probabilities within {DCMP_LIMIT} "
+              f"({worst:.3g}), {len(ties)} near-tie partings, none else")
+    return out
+
+
+def dec_example():
+    """(e) the port's examples/generate.py at its defaults on the card,
+    with the step loop and with --scan."""
+    from mxnet_tpu_torch.examples import generate
+
+    out = {}
+    for args in ([], ["--scan"]):
+        t0 = time.perf_counter()
+        frac = generate.main(args)
+        key = "scan" if args else "step_loop"
+        out[key] = {"legal_fraction": float(frac),
+                    "seconds": time.perf_counter() - t0}
+        check(frac > GEN_GATE, f"(e) generate.py {' '.join(args)}: legal "
+              f"fraction {frac:.3f} > {GEN_GATE}")
+    return out
+
+
+def phase_decode(mx, seed):
+    """LM decode: (a) bench_decode, (b) bench_decode_scan, (c) the
+    GenerationSession at full width, (d) card vs CPU, (e) generate.py."""
+    print("phase 16: LM decode", flush=True)
+    t0 = time.perf_counter()
+    out = {"bench_decode": dec_bench(mx), "bench_decode_scan": dec_scan(mx),
+           "session": dec_session(mx, seed),
+           "card_vs_cpu": dec_card_vs_cpu(mx, seed),
+           "generate_example": dec_example()}
+    out["seconds"] = time.perf_counter() - t0
+    print(f"  phase 16: {out['seconds']:.1f} s", flush=True)
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5204,6 +5736,7 @@ def main(argv=None):
                                  ptb_split, train["mean_nll"])
         zoo = phase_zoo(mx, args.seed, rec_dir)
     detection = phase_detection(mx, args.seed)
+    decode = phase_decode(mx, args.seed)
 
     main_case = cases["slice_fp32_causal"]
     kernels = [{
@@ -5263,7 +5796,7 @@ def main(argv=None):
                    "amp": amp, "train": train, "fit": fit,
                    "records": records, "ptb": ptb, "step_graph": graph,
                    "zoo": zoo, "detection": detection,
-                   "kernels": kernels,
+                   "decode": decode, "kernels": kernels,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card)

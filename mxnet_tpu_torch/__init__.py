@@ -2,7 +2,8 @@
 
 The same public names as ``mxnet_tpu`` (``nd``, ``sym``, ``mod``, ``init``,
 ``optimizer``, ``lr_scheduler``, ``metric``, ``callback``, ``model``,
-``io``, ``recordio``, ``image``, ``rnn``, ``Predictor``, contexts), over
+``io``, ``recordio``, ``image``, ``rnn``, ``Predictor``, ``serving``,
+``GenerationSession``, contexts), over
 ``torch.Tensor``s. Entry points run on ``gpu(0)`` unless the caller passes
 ``mx.cpu()``; importing the package does not initialise CUDA. Kernels that
 the JAX package wrote in Pallas are hand-written CUDA here: ``csrc/`` built
@@ -51,3 +52,5 @@ from . import predictor
 from .predictor import Predictor
 from . import convert
 from . import models
+from . import serving
+from .serving import GenerationSession

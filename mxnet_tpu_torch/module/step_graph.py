@@ -12,7 +12,10 @@ place; the new weights and states in place under donation, else into staged
 copies that ``Module.update`` installs. :class:`ForwardProgram` is an
 executor's evaluation forward over its bound arguments and aux states; each
 run hands out copies of the graph's outputs (one device-to-device copy), so
-outputs are new arrays every forward, as a jitted forward's are.
+outputs are new arrays every forward, as a jitted forward's are; an output
+that is a bound argument's own tensor (the decode ops' caches, written in
+place) is handed out as that tensor, so feeding it back with ``alias``
+keeps the graph.
 
 Both run as :class:`GraphProgram` says: on the card the first run of a
 binding runs the function eagerly on a side stream (a real run: it lets
@@ -56,11 +59,16 @@ __all__ = ["GraphProgram", "StepProgram", "ForwardProgram",
 def capture_refusal(symbol):
     """Why a program over ``symbol``'s graph cannot be captured (None if it
     can), decided from its op list: a ``Custom`` node runs the user's host
-    code, which the reference embeds through ``pure_callback``."""
+    code, which the reference embeds through ``pure_callback``; a
+    ``GenerateScan`` node captures and replays its own token step, and one
+    capture cannot hold another."""
     for node in symbol._nodes():
         if node.op == "Custom":
             return (f"Custom node '{node.name}': its forward and backward "
                     "are user host code")
+        if node.op == "GenerateScan":
+            return (f"GenerateScan node '{node.name}': it captures and "
+                    "replays its own token step")
     return None
 
 
@@ -325,6 +333,11 @@ class ForwardProgram(GraphProgram):
         return self.ex.eager_forward(self.rng)
 
     def run(self):
-        """One evaluation forward (module docstring); new output tensors."""
+        """One evaluation forward (module docstring): new output tensors,
+        but for an output that is a bound argument's tensor, which is
+        handed out as itself."""
         outs = super().run()
-        return [o.clone() for o in outs] if self.replayed else outs
+        if not self.replayed:
+            return outs
+        bound = {id(t) for t in self._bound}
+        return [o if id(o) in bound else o.clone() for o in outs]

@@ -19,6 +19,8 @@ from . import rnn_op as _rnn_op  # noqa: F401
 from . import contrib_det as _contrib_det  # noqa: F401
 from . import rcnn as _rcnn  # noqa: F401
 from . import vision as _vision  # noqa: F401
+from . import transformer_stack as _transformer_stack  # noqa: F401
+from . import generate_scan as _generate_scan  # noqa: F401
 
 __all__ = ["OpCtx", "coerce_attrs", "get_op", "list_ops", "register_op",
            "imperative_invoke", "make_imperative_namespace"]
