@@ -9,7 +9,8 @@ from a RecordIO file through ``train_imagenet.py``, and the LSTM-PTB
 language model through ``BucketingModule`` and ``lstm_bucketing.py``, then
 the training paths again with the step captured as a CUDA graph, and the
 image-classification family (LeNet, AlexNet, Inception-v3, the zoo's
-scoring scripts), and object detection (SSD, Faster R-CNN); holds every
+scoring scripts), object detection (SSD, Faster R-CNN), LM decode, and
+ResNet-50 served through ``ModelServer`` over the dependency engine; holds every
 CUDA kernel on those paths against its plain PyTorch version. Every evaluation forward (``Executor.forward(
 is_train=False)``) is captured as one CUDA graph a binding and replayed.
 Phases, in order; any failed check ends the run with a non-zero exit and no
@@ -240,7 +241,36 @@ result line:
    token parting only where the CPU's top-2 gap is under twice the
    devices' largest difference at that step; (e) the port's
    ``examples/generate.py`` at its defaults, with the step loop and with
-   ``--scan``, each above the reference's gate (0.4).
+   ``--scan``, each above the reference's gate (0.4);
+17. serving (no kernel on this path; the process's engine is the
+   ``NativeEngine`` built from ``src/engine.cc``): (a) ResNet-50 (224 px,
+   1000 classes, fp32, ``bench.py``'s Xavier weights and uniform inputs
+   from ``--seed``, saved through ``model.save_checkpoint``) served through ``ModelServer((symbol file,
+   params file), {"data": (1, 3, 224, 224)})``, max batch 32, pow2 buckets
+   (1-32), max wait 2 ms, ``prewarm(block=True)``, driven by the port's
+   ``serve_bench.py`` (32 clients, 32 requests each, rows cycling 1, 3,
+   5): img/s, requests/s, p50/p99, batches, mean rows and occupancy,
+   binds, captures and replays by bucket, evictions, the stage, forward
+   and output-copy ms, the device ms of one replayed batch a bucket, the
+   idle share over a traced window of 8 x 8 requests; binds <= buckets,
+   one capture a bind, no eviction, the first 64 responses within 1e-4 of
+   max-abs of a direct Predictor forward at their shape, and a group of 3
+   + 5 rows bit-identical to a direct (replayed) forward of its padded
+   bucket-8 batch; (b) ``swap_params`` to a second seeded weight set
+   through the engine while 8 closed-loop clients submit 24 requests
+   each: no capture, every response a
+   v1 or a v2 direct forward (1e-4), then bit-equal to a fresh server on
+   v2; (c) ``page_out`` lowers ``memory_allocated`` by at least the 102 MB
+   of weights, ``page_in`` restores the responses bit for bit with one
+   capture a cached bucket (ROADMAP C10); (d) ``serve_bench.py
+   --cold-start`` in a process of its own: the restarted server prewarms
+   from the manifest and its first request captures nothing (construct,
+   prewarm, first-response s); (e) ``serve_bench.py`` with its demo model
+   (32 clients: binds <= buckets) beside (d), and ``--scenario decode``:
+   continuous batching token-identical to FIFO, fewer steps, more
+   tokens/s; (f) a randomized workload of pushes over device tensors under
+   ``ThreadedEngine`` and ``NativeEngine`` equal to ``NaiveEngine``'s, a
+   failure raised at the next wait.
 
 Phases 9-12 run with ``MXTPU_NO_FUSED_STEP=1``: they measure the split path
 that earlier slices recorded.
@@ -5703,6 +5733,472 @@ def phase_decode(mx, seed):
     return out
 
 
+# ------------------------------------------------------------ phase 17
+
+SERVE_LAYERS = 50           # ResNet-50 at bench.py's inference width
+SERVE_PX = 224
+SERVE_CLASSES = 1000
+SERVE_MAX_BATCH = 32        # bench.py's batch-32 inference rows
+SERVE_WAIT_MS = 2.0
+SERVE_CLIENTS = 32          # serve_bench.py's defaults: 32 clients, rows
+SERVE_REQUESTS = 32         # cycling 1, 3, 5
+SERVE_SIZES = (1, 3, 5)
+SERVE_KEEP = 64             # responses held to direct forwards
+SERVE_LIMIT = 1e-4          # of max-abs (phase 14(c)'s captured vs eager)
+SERVE_GROUP = (3, 5)        # (a): the fixed group, one batch of bucket 8
+SERVE_IDLE = (8, 8)         # (a): clients, requests of the traced window
+SWAP_TRAFFIC = (8, 24)      # (b): closed-loop clients, requests each
+ENGINE_OPS = 160            # (f): pushes of the randomized workload
+
+
+def serve_weights(mx, sym, shape, seed):
+    """bench.py's inference weights (``mx.init.Xavier()``; BatchNorm's
+    gammas 1, betas 0, moving means 0 and variances 1) drawn from
+    ``seed``, as numpy (args, aux)."""
+    mx.random.seed(seed)
+    init = mx.init.Xavier()
+    arg_shapes, _, aux_shapes = sym.infer_shape(data=shape)
+    out = []
+    for names, shapes in ((sym.list_arguments(), arg_shapes),
+                          (sym.list_auxiliary_states(), aux_shapes)):
+        d = {}
+        for name, s in zip(names, shapes):
+            if name in ("data", "softmax_label"):
+                continue
+            arr = mx.nd.zeros(s, mx.cpu())
+            init(name, arr)
+            d[name] = arr.asnumpy()
+        out.append(d)
+    return tuple(out)
+
+
+def serve_checkpoint(mx, tmp, seed):
+    """ResNet-50 with bench.py's seeded weights saved through
+    ``model.save_checkpoint``; returns (symbol file, params file, v1's
+    weights as numpy (args, aux), v2's)."""
+    with mx.name.NameManager():
+        sym = mx.models.resnet.get_symbol(
+            num_classes=SERVE_CLASSES, num_layers=SERVE_LAYERS,
+            image_shape=f"3,{SERVE_PX},{SERVE_PX}")
+    shape = (1, 3, SERVE_PX, SERVE_PX)
+    v1 = serve_weights(mx, sym, shape, seed + 17)
+    v2 = serve_weights(mx, sym, shape, seed + 18)
+    prefix = os.path.join(tmp, "resnet50")
+    mx.model.save_checkpoint(
+        prefix, 0, sym, {k: mx.nd.array(v, mx.cpu()) for k, v in v1[0].items()},
+        {k: mx.nd.array(v, mx.cpu()) for k, v in v1[1].items()})
+    return f"{prefix}-symbol.json", f"{prefix}-0000.params", v1, v2
+
+
+def serve_direct(mx, sym_file, weights, x, times=1):
+    """A direct Predictor forward of ``x`` at its own shape on the card
+    (the last of ``times``; the third replays a captured graph)."""
+    pred = mx.Predictor.from_arrays(sym_file, weights[0], weights[1],
+                                    {"data": x.shape}, ctx=mx.gpu(0))
+    for _ in range(times):
+        pred.forward(data=x)
+    out = pred.get_output(0)
+    del pred
+    return out
+
+
+def _rel_err(got, want):
+    return float(np.abs(got - want).max() / max(float(np.abs(want).max()),
+                                                1e-30))
+
+
+def serve_stats(srv, wall, snap):
+    """The (a) readings of one driven run."""
+    st = srv.cache_stats()
+    spans = snap["spans"]
+    per_bucket = {str(dict(k)["data"][0]): {
+        k2: info[k2] for k2 in ("captures", "replays", "warmups",
+                                "eager_runs", "drops")}
+        for k, info in srv.cache.programs().items() if info is not None}
+    return {"img_s": snap["rows"] / wall,
+            "req_s": snap["completed"] / wall, "wall_s": wall,
+            "p50_ms": snap["p50_ms"], "p99_ms": snap["p99_ms"],
+            "batches": snap["batches"],
+            "mean_rows": snap["avg_batch_rows"],
+            "occupancy": snap["batch_occupancy"],
+            "binds": st["binds"], "captures": st["captures"],
+            "replays": st["replays"], "evictions": st["evictions"],
+            "per_bucket": per_bucket,
+            "stage_ms": spans.get("serving:stage", {}).get("mean_ms"),
+            "forward_ms": spans.get("serving:batch:forward",
+                                    {}).get("mean_ms"),
+            "device_wait_ms": spans.get("serving:device_wait",
+                                        {}).get("mean_ms"),
+            "output_copy_ms": spans.get("serving:output_copy",
+                                        {}).get("mean_ms")}
+
+
+def serve_full_width(mx, sb, sym_file, params_file, v1, seed):
+    """(a) ResNet-50 served at full width through ModelServer, driven by
+    serve_bench's clients; checks the bucket counters, the responses
+    against direct forwards and one fixed group bit for bit."""
+    import torch
+
+    srv = mx.ModelServer((sym_file, params_file),
+                         {"data": (1, 3, SERVE_PX, SERVE_PX)},
+                         max_batch_size=SERVE_MAX_BATCH,
+                         max_wait_ms=SERVE_WAIT_MS, buckets="pow2",
+                         manifest=False)
+    check(srv.buckets == [1, 2, 4, 8, 16, 32], f"buckets {srv.buckets}")
+    rep = srv.prewarm(block=True)
+    print(f"  (a) prewarm: {rep}", flush=True)
+    rng = np.random.RandomState(seed + 17)   # bench.py's rand inputs
+    payloads = {b: rng.rand(b, 3, SERVE_PX, SERVE_PX).astype(np.float32)
+                for b in SERVE_SIZES}
+    srv.metrics.reset()
+    wall, errors, kept = sb.drive(srv, "data", payloads, SERVE_CLIENTS,
+                                  SERVE_REQUESTS, list(SERVE_SIZES),
+                                  keep=SERVE_KEEP)
+    out = serve_stats(srv, wall, srv.metrics.snapshot())
+    out["prewarm"] = rep
+    check(not errors, f"(a) every request served ({errors[:2]})")
+    # the device's time of one batch a bucket: the bucket's graph replayed
+    out["device_ms_by_bucket"] = {}
+    for b in srv.buckets:
+        ex, _ = srv.cache.get({"data": (b, 3, SERVE_PX, SERVE_PX)})
+        ex.forward(is_train=False)
+        out["device_ms_by_bucket"][b] = device_busy_ms(
+            lambda: ex.forward(is_train=False))
+    # the idle share of a steady window of traffic
+    window = []
+    busy = device_busy_ms(lambda: window.append(timed(
+        lambda: sb.drive(srv, "data", payloads, *SERVE_IDLE,
+                         list(SERVE_SIZES)))[1]))
+    out["idle_share"] = 1.0 - busy / window[0] if busy else None
+    out["idle_window_ms"] = window[0]
+    refs = {b: serve_direct(mx, sym_file, v1, payloads[b])
+            for b in SERVE_SIZES}
+    errs = [_rel_err(o[0], refs[b]) for _, _, b, o in kept]
+    out["max_rel_err"] = max(errs)
+    # one group the phase fixes: 3 + 5 rows in one batch of bucket 8,
+    # against a direct forward of the same padded batch (replayed)
+    srv._batcher._max_wait = 0.5
+    f3 = srv.submit(data=payloads[SERVE_GROUP[0]])
+    f5 = srv.submit(data=payloads[SERVE_GROUP[1]])
+    group = np.concatenate([f3.result(timeout=120)[0],
+                            f5.result(timeout=120)[0]])
+    srv._batcher._max_wait = SERVE_WAIT_MS / 1e3
+    padded = np.zeros((8, 3, SERVE_PX, SERVE_PX), np.float32)
+    padded[:3], padded[3:] = payloads[3], payloads[5]
+    want = serve_direct(mx, sym_file, v1, padded, times=3)
+    out["group_bit_identical"] = bool(np.array_equal(group, want))
+    out["group_max_abs_err"] = float(np.abs(group - want).max())
+    print(f"  (a) {out['img_s']:.1f} img/s, {out['req_s']:.1f} req/s, "
+          f"p50 {out['p50_ms']:.1f} ms, p99 {out['p99_ms']:.1f} ms, "
+          f"{out['batches']} batches of {out['mean_rows']:.2f} rows "
+          f"(occupancy {out['occupancy']:.3f}); binds {out['binds']}, "
+          f"captures {out['captures']}, replays {out['replays']}, "
+          f"evictions {out['evictions']}; stage {out['stage_ms']:.3f} ms, "
+          f"forward {out['forward_ms']:.3f} ms (device wait "
+          f"{out['device_wait_ms']:.3f}), output copy "
+          f"{out['output_copy_ms']:.4f} ms; device ms by bucket "
+          f"{out['device_ms_by_bucket']}; idle {out['idle_share']}; "
+          f"per bucket {out['per_bucket']}", flush=True)
+    check(out["binds"] <= len(srv.buckets) and out["captures"] ==
+          out["binds"] and out["evictions"] == 0,
+          f"(a) binds {out['binds']} <= {len(srv.buckets)} buckets, one "
+          f"capture a bind ({out['captures']}), no eviction")
+    check(len(errs) == SERVE_KEEP and out["max_rel_err"] <= SERVE_LIMIT,
+          f"(a) the first {len(errs)} responses within {SERVE_LIMIT} of "
+          f"max-abs of a direct forward at their shape "
+          f"({out['max_rel_err']:.3g})")
+    check(out["group_bit_identical"], "(a) the group of 3 + 5 rows "
+          "bit-identical to a direct forward of its padded bucket batch "
+          f"({out['group_max_abs_err']:.3g})")
+    del refs
+    torch.cuda.empty_cache()
+    return srv, payloads, out
+
+
+def serve_swap(mx, sb, srv, payloads, sym_file, v1, v2):
+    """(b) swap_params to v2 through the engine while 8 clients submit."""
+    import threading
+
+    caps0 = srv.cache_stats()["captures"]
+    kept, errors, lock = [], [], threading.Lock()
+
+    def client(i):
+        # closed loop: each request waits for the one before, so batches
+        # keep forming while the swap waits for the params var
+        for j in range(SWAP_TRAFFIC[1]):
+            b = SERVE_SIZES[(i + j) % len(SERVE_SIZES)]
+            try:
+                o = srv.submit(data=payloads[b]).result(timeout=300)
+                with lock:
+                    kept.append((i, j, b, o))
+            except Exception as e:
+                errors.append(repr(e))
+
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(SWAP_TRAFFIC[0])]
+    for t in threads:
+        t.start()
+    time.sleep(0.1)
+    t0 = time.perf_counter()
+    nbytes = srv.swap_params(v2[0], v2[1])
+    swap_ms = (time.perf_counter() - t0) * 1e3
+    for t in threads:
+        t.join()
+    res = {"kept": kept, "errors": errors}
+    after = {b: srv.infer(data=payloads[b])[0] for b in SERVE_SIZES}
+    caps1 = srv.cache_stats()["captures"]
+    ref1 = {b: serve_direct(mx, sym_file, v1, payloads[b])
+            for b in SERVE_SIZES}
+    ref2 = {b: serve_direct(mx, sym_file, v2, payloads[b])
+            for b in SERVE_SIZES}
+    versions = []
+    for _, _, b, o in res["kept"]:
+        e1, e2 = _rel_err(o[0], ref1[b]), _rel_err(o[0], ref2[b])
+        versions.append(1 if e1 <= SERVE_LIMIT else
+                        2 if e2 <= SERVE_LIMIT else 0)
+    fresh = mx.ModelServer(
+        mx.Predictor.from_arrays(sym_file, v2[0], v2[1],
+                                 {"data": (1, 3, SERVE_PX, SERVE_PX)},
+                                 ctx=mx.gpu(0)),
+        max_batch_size=SERVE_MAX_BATCH, max_wait_ms=SERVE_WAIT_MS,
+        manifest=False)
+    try:
+        fresh.prewarm(block=True)
+        bit = all(np.array_equal(after[b], fresh.infer(data=payloads[b])[0])
+                  for b in SERVE_SIZES)
+    finally:
+        fresh.close()
+    out = {"bytes": nbytes, "swap_ms": swap_ms, "new_captures": caps1 - caps0,
+           "responses": len(versions), "v1": versions.count(1),
+           "v2": versions.count(2), "neither": versions.count(0),
+           "after_bit_equal_fresh_v2": bit}
+    print(f"  (b) swap: {out}", flush=True)
+    check(not res["errors"], f"(b) every request served ({res['errors'][:2]})")
+    check(out["new_captures"] == 0, "(b) the swap captured nothing")
+    check(out["neither"] == 0, f"(b) every response a v1 or a v2 direct "
+          f"forward within {SERVE_LIMIT} ({out['v1']} v1, {out['v2']} v2)")
+    check(bit, "(b) after the swap, responses bit-equal to a fresh server "
+          "on v2")
+    return out, after
+
+
+def serve_paging(srv, payloads, before):
+    """(c) page_out frees the weights' device memory; page_in restores the
+    responses bit for bit with one capture a cached bucket (C10)."""
+    import torch
+
+    st0 = srv.cache_stats()
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    nbytes = srv.cache.page_out()
+    out_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    mem1 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    srv.cache.page_in()
+    in_ms = (time.perf_counter() - t0) * 1e3
+    after = {b: srv.infer(data=payloads[b])[0] for b in SERVE_SIZES}
+    st1 = srv.cache_stats()
+    out = {"bytes": nbytes, "allocated_drop": mem0 - mem1,
+           "page_out_ms": out_ms, "page_in_ms": in_ms,
+           "cached": len(srv.cache),
+           "new_captures": st1["captures"] - st0["captures"],
+           "new_binds": st1["binds"] - st0["binds"],
+           "bit_identical": all(np.array_equal(after[b], before[b])
+                                for b in SERVE_SIZES)}
+    print(f"  (c) paging: {out}", flush=True)
+    check(nbytes >= 102e6 and out["allocated_drop"] >= nbytes,
+          f"(c) page_out lowered memory_allocated by {out['allocated_drop']} "
+          f">= the weights' {nbytes} bytes (>= 102 MB)")
+    check(out["bit_identical"] and out["new_binds"] == 0
+          and out["new_captures"] == out["cached"],
+          "(c) after page_in: responses bit-identical, no rebind, one "
+          f"capture a cached bucket ({out['new_captures']} of "
+          f"{out['cached']})")
+    return out
+
+
+def _serve_bench_cmd(*args):
+    return [sys.executable, "-m", "mxnet_tpu_torch.tools.serve_bench",
+            "--json", *args]
+
+
+def serve_subprocesses(sym_file, params_file, tmp):
+    """(d) the cold start and (e) the demo model, each serve_bench.py in a
+    process of its own, both started together."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.dirname(os.path.abspath(__file__))
+    cmds = {
+        "cold_start": _serve_bench_cmd(
+            "--symbol", sym_file, "--params", params_file, "--input-shape",
+            f"data:1x3x{SERVE_PX}x{SERVE_PX}", "--clients", "8",
+            "--requests", "4", "--max-batch", str(SERVE_MAX_BATCH),
+            "--max-wait-ms", str(SERVE_WAIT_MS), "--cold-start",
+            "--cache-dir", os.path.join(tmp, "serve_cache")),
+        "demo": _serve_bench_cmd("--clients", "32", "--requests", "2",
+                                 "--batch-sizes", "1,3,5", "--max-batch",
+                                 "16", "--max-wait-ms", "2")}
+    procs = {k: subprocess.Popen(c, stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True, env=env)
+             for k, c in cmds.items()}
+    docs = {}
+    try:
+        for k, p in procs.items():
+            so, se = p.communicate(timeout=600)
+            check(p.returncode == 0, f"serve_bench {k} exits 0 "
+                  f"(rc {p.returncode}: {se[-1500:]})")
+            docs[k] = json.loads(so.strip().splitlines()[-1])
+    finally:
+        # a failed check or a timeout must not leave a child running
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    cs = docs["cold_start"]["cold_start"]
+    print(f"  (d) cold start: construct {cs['construct_s']:.2f} s, prewarm "
+          f"{cs['prewarm']['seconds']:.2f} s ({cs['prewarm']}), first "
+          f"response {cs['ttfr_s'] * 1e3:.1f} ms, "
+          f"{cs['compiles_at_first_request']} programs at the first "
+          "request", flush=True)
+    check(cs["prewarm"]["source"] == "manifest"
+          and cs["prewarm"]["failed"] == []
+          and cs["compiles_at_first_request"] == 0,
+          "(d) the restarted server prewarmed from the manifest and its "
+          "first request captured nothing")
+    demo = docs["demo"]
+    print(f"  (e) demo MLP: {demo['req_per_s']:.1f} req/s, cache "
+          f"{demo['cache']}", flush=True)
+    check(demo["cache"]["binds"] <= len(demo["buckets"])
+          and demo["cache"]["binds"] == demo["cache"]["misses"]
+          and demo["metrics"]["completed"] == 64,
+          "(e) serve_bench's demo model: binds <= buckets, one a miss")
+    return {"cold_start": cs, "demo": {k: demo[k] for k in (
+        "req_per_s", "wall_s", "buckets", "cache", "metrics")}}
+
+
+def serve_decode_scenario(sb):
+    """(e) ``--scenario decode`` on the card: continuous batching against
+    FIFO re-batching (token-identical, fewer steps, more tokens/s); the
+    scenario's other gates are readings here."""
+    args = sb.build_parser().parse_args(["--scenario", "decode"])
+    doc, failures = sb.run_decode_scenario(args)
+    cont, fifo = doc["continuous"], doc["fifo"]
+    print(f"  (e) decode: continuous {cont['steps']} steps "
+          f"{cont['tokens_per_s']:.1f} tok/s vs FIFO {fifo['steps']} steps "
+          f"{fifo['tokens_per_s']:.1f}; chunked {doc['chunked']['steps']} "
+          f"steps; speculative x{doc['speculative']['speedup']:.2f}; "
+          f"gates failed: {failures}", flush=True)
+    check(not any("FIFO" in f for f in failures)
+          and cont["steps"] < fifo["steps"]
+          and cont["tokens_per_s"] > fifo["tokens_per_s"],
+          "(e) continuous batching token-identical to FIFO, fewer steps, "
+          "more tokens/s")
+    return doc
+
+
+def _engine_workload(eng, seed):
+    """Pushes that read and write device tensors in place (out = 0.5 *
+    out + sum(reads) + k, float64, each op synchronising its stream)."""
+    import random
+
+    import torch
+
+    rng = random.Random(seed)
+    variables = [eng.new_variable() for _ in range(6)]
+    data = [torch.arange(4096, dtype=torch.float64, device="cuda") * (i + 1)
+            for i in range(6)]
+    for k in range(ENGINE_OPS):
+        picks = rng.sample(range(6), rng.randint(1, 4))
+        n_w = rng.randint(1, len(picks))
+        writes, reads = picks[:n_w], picks[n_w:]
+
+        def op(k=k, writes=writes, reads=reads):
+            acc = torch.zeros(4096, dtype=torch.float64, device="cuda")
+            for r in reads:
+                acc += data[r]
+            for w in writes:
+                data[w].mul_(0.5).add_(acc + k)
+            torch.cuda.current_stream().synchronize()
+
+        eng.push(op, const_vars=[variables[i] for i in reads],
+                 mutable_vars=[variables[i] for i in writes])
+    eng.wait_for_all()
+    return [d.cpu().numpy() for d in data]
+
+
+def serve_engines(seed):
+    """(f) the randomized workload under ThreadedEngine and NativeEngine
+    (built from src/engine.cc; no fall-back) equal to NaiveEngine's; a
+    failing op raises at the next wait."""
+    from mxnet_tpu_torch import engine as eng_mod
+
+    want = _engine_workload(eng_mod.NaiveEngine(), seed)
+    out = {}
+    for cls in (eng_mod.ThreadedEngine, eng_mod.NativeEngine):
+        eng = cls(num_workers=4)
+        try:
+            t0 = time.perf_counter()
+            got = _engine_workload(eng, seed)
+            ms = (time.perf_counter() - t0) * 1e3
+            same = all(np.array_equal(a, b) for a, b in zip(got, want))
+            v = eng.new_variable()
+            eng.push(lambda: (_ for _ in ()).throw(ValueError("op failed")),
+                     mutable_vars=(v,))
+            try:
+                eng.wait_for_all()
+                raised = False
+            except ValueError:
+                raised = True
+        finally:
+            eng.shutdown()
+        out[cls.__name__] = {"equal_naive": same, "ms": ms,
+                             "error_at_wait": raised}
+        check(same and raised, f"(f) {cls.__name__}: the workload equals "
+              "NaiveEngine's, an op's failure raises at the next wait")
+    print(f"  (f) engines: {out}", flush=True)
+    return out
+
+
+def phase_serving(mx, seed):
+    """The request-batching server: (a) ResNet-50 served at full width,
+    (b) a hot swap under traffic, (c) paging, (d) the cold start, (e)
+    serve_bench's demo model and decode scenario, (f) the engines."""
+    import torch
+
+    from mxnet_tpu_torch import engine as eng_mod
+    from mxnet_tpu_torch.tools import serve_bench as sb
+
+    print("phase 17: serving", flush=True)
+    t0 = time.perf_counter()
+    out = {}
+    # the process's engine: the C++ one, built from src/engine.cc
+    eng = eng_mod.NativeEngine()
+    eng_mod.set_engine(eng)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_serve") as tmp:
+        sym_file, params_file, v1, v2 = serve_checkpoint(mx, tmp, seed)
+        srv, payloads, out["full_width"] = serve_full_width(
+            mx, sb, sym_file, params_file, v1, seed)
+        try:
+            check(type(srv._batcher._engine).__name__ == "NativeEngine",
+                  "(a) batches pushed through the NativeEngine")
+            out["swap"], after = serve_swap(mx, sb, srv, payloads,
+                                            sym_file, v1, v2)
+            out["paging"] = serve_paging(srv, payloads, after)
+        finally:
+            srv.close()
+            del srv
+            torch.cuda.empty_cache()
+        out.update(serve_subprocesses(sym_file, params_file, tmp))
+    out["decode_scenario"] = serve_decode_scenario(sb)
+    eng_mod.set_engine(None)
+    eng.shutdown()
+    out["engines"] = serve_engines(seed)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"  phase 17: {out['seconds']:.1f} s", flush=True)
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5737,6 +6233,7 @@ def main(argv=None):
         zoo = phase_zoo(mx, args.seed, rec_dir)
     detection = phase_detection(mx, args.seed)
     decode = phase_decode(mx, args.seed)
+    serving = phase_serving(mx, args.seed)
 
     main_case = cases["slice_fp32_causal"]
     kernels = [{
@@ -5796,7 +6293,8 @@ def main(argv=None):
                    "amp": amp, "train": train, "fit": fit,
                    "records": records, "ptb": ptb, "step_graph": graph,
                    "zoo": zoo, "detection": detection,
-                   "decode": decode, "kernels": kernels,
+                   "decode": decode, "serving": serving,
+                   "kernels": kernels,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card)

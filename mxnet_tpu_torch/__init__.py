@@ -3,7 +3,7 @@
 The same public names as ``mxnet_tpu`` (``nd``, ``sym``, ``mod``, ``init``,
 ``optimizer``, ``lr_scheduler``, ``metric``, ``callback``, ``model``,
 ``io``, ``recordio``, ``image``, ``rnn``, ``Predictor``, ``serving``,
-``GenerationSession``, contexts), over
+``ModelServer``, ``GenerationSession``, ``engine``, contexts), over
 ``torch.Tensor``s. Entry points run on ``gpu(0)`` unless the caller passes
 ``mx.cpu()``; importing the package does not initialise CUDA. Kernels that
 the JAX package wrote in Pallas are hand-written CUDA here: ``csrc/`` built
@@ -19,6 +19,7 @@ from .context import Context, cpu, gpu, current_context, num_gpus
 from .attribute import AttrScope
 from .name import NameManager, Prefix
 
+from . import engine
 from . import ndarray
 from . import operator  # registers Custom before nd/sym list the ops
 from .operator import CustomOp, CustomOpProp, register as register_custom_op
@@ -53,4 +54,4 @@ from .predictor import Predictor
 from . import convert
 from . import models
 from . import serving
-from .serving import GenerationSession
+from .serving import GenerationSession, ModelServer

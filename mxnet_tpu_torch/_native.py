@@ -4,11 +4,12 @@ Each ``csrc/<name>.cu`` has a plain C interface. At first use it is compiled
 with ``nvcc`` for ``sm_90a`` into ``_build/lib<name>.so`` beside this file and
 loaded with ``ctypes``; a library newer than its source is reused.
 
-The host library (:func:`host_lib`) is the repo's RecordIO codec and JPEG
-codec, ``src/recordio.cc`` and ``src/im2rec.cc``, compiled with ``g++
--ljpeg`` into ``_build/libmxtpu_host.so``. On a host without libjpeg it is
-built from ``recordio.cc`` alone (the ``nojpeg`` build: the record reader and
-writer, no JPEG functions), and rebuilt once libjpeg links. A sidecar holds
+The host library (:func:`host_lib`) is the repo's RecordIO codec, native
+dependency engine and JPEG codec, ``src/recordio.cc``, ``src/engine.cc`` and
+``src/im2rec.cc``, compiled with ``g++ -ljpeg`` into
+``_build/libmxtpu_host.so``. On a host without libjpeg it is built without
+``im2rec.cc`` (the ``nojpeg`` build: the record reader and writer and the
+engine, no JPEG functions), and rebuilt once libjpeg links. A sidecar holds
 the sources' hash, so a library built from other sources is rebuilt (git
 keeps no mtimes). Nothing here runs at import, so the package imports on
 hosts without CUDA or a compiler.
@@ -78,7 +79,10 @@ def load(name: str) -> ctypes.CDLL:
 # ------------------------------------------------------------- host library
 
 REPO_SRC = os.path.join(os.path.dirname(_HERE), "src")
-HOST_SOURCES = ("recordio.cc", "im2rec.cc")   # im2rec.cc needs libjpeg
+HOST_SOURCES = ("recordio.cc", "engine.cc", "im2rec.cc")
+JPEG_SOURCE = "im2rec.cc"   # needs libjpeg
+# the engine's callback: void (*)(void* ctx)
+ENGINE_CALLBACK = ctypes.CFUNCTYPE(None, ctypes.c_void_p)
 HOST_LIB = os.path.join(BUILD_DIR, "libmxtpu_host.so")
 _HOST = {}   # "lib": the loaded CDLL (None: no compiler or no sources)
 
@@ -117,14 +121,17 @@ def _host_stale():
 
 
 def _build_host():
-    """Compile the host library (with libjpeg, else without im2rec.cc);
+    """Compile the host library (with libjpeg, else without
+    :data:`JPEG_SOURCE`);
     returns its path or None when neither build links."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     srcs = [os.path.join(REPO_SRC, n) for n in HOST_SOURCES]
     tmp = f"{HOST_LIB}.{os.getpid()}.tmp"
-    base = ["g++", "-O2", "-shared", "-fPIC", "-std=c++17", "-o", tmp]
+    nojpeg = [s for s in srcs if not s.endswith(JPEG_SOURCE)]
+    base = ["g++", "-O2", "-shared", "-fPIC", "-std=c++17", "-pthread", "-o",
+            tmp]
     for cmd, marker in ((base + srcs + ["-ljpeg"], ""),
-                        (base + srcs[:1], "\nnojpeg")):
+                        (base + nojpeg, "\nnojpeg")):
         try:
             proc = subprocess.run(cmd, capture_output=True, text=True,
                                   timeout=300)
@@ -155,6 +162,16 @@ def _declare_host(lib):
         "mxtpu_recw_tell": (c.c_int64, [c.c_void_p]),
         "mxtpu_recw_write": (c.c_int, [c.c_void_p, c.c_char_p, c.c_int64]),
         "mxtpu_recw_close": (None, [c.c_void_p]),
+        # the dependency engine (src/engine.cc)
+        "mxtpu_engine_create": (c.c_void_p, [c.c_int]),
+        "mxtpu_engine_destroy": (None, [c.c_void_p]),
+        "mxtpu_engine_new_var": (c.c_void_p, [c.c_void_p]),
+        "mxtpu_engine_delete_var": (None, [c.c_void_p, c.c_void_p]),
+        "mxtpu_engine_push": (None, [
+            c.c_void_p, ENGINE_CALLBACK, c.c_void_p,
+            c.POINTER(c.c_void_p), c.c_int, c.POINTER(c.c_void_p),
+            c.c_int]),
+        "mxtpu_engine_wait_all": (None, [c.c_void_p]),
         # libjpeg builds only
         "mxtpu_jpeg_decode": (c.c_int, [c.c_char_p, c.c_int64,
                                         c.POINTER(c.c_int),

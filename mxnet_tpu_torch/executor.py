@@ -41,6 +41,8 @@ cast's backward brings their gradients back in fp32.
 """
 from __future__ import annotations
 
+import threading
+
 import numpy as np
 
 from .base import MXNetError
@@ -214,6 +216,10 @@ class Executor:
         self._grads_were_elided = False
         self.walking = None          # the node the last walk reached
         self._eval_program = None    # the evaluation forward's program
+        # one evaluation forward (or warm-up) of this binding at a time: a
+        # server's prewarm thread may warm a bucket traffic also reaches
+        self._eval_lock = threading.Lock()
+        self._warmed = False
 
     def _walk(self, op_ctx, arg_vals, aux_vals):
         """Evaluate the graph on ``arg_vals``/``aux_vals`` (dicts of tensors
@@ -296,11 +302,9 @@ class Executor:
             _feed(self.arg_dict[k], v, self._ctx.torch_device)
         self._pending_grads = None
         if not is_train:
-            if self._eval_program is None:
-                from .module.step_graph import ForwardProgram
-
-                self._eval_program = ForwardProgram(self)
-            self.outputs = [NDArray(o) for o in self._eval_program.run()]
+            with self._eval_lock:
+                outs = self._forward_program().run()
+            self.outputs = [NDArray(o) for o in outs]
             return self.outputs
         aux_vals = {n: a.data for n, a in self.aux_dict.items()}
         rng = NodeRandom(self._ctx.torch_device)
@@ -323,6 +327,36 @@ class Executor:
             self.aux_dict[n]._data = new_aux[n]
         self.outputs = [NDArray(o) for o in outs]
         return self.outputs
+
+    def _forward_program(self):
+        if self._eval_program is None:
+            from .module.step_graph import ForwardProgram
+
+            self._eval_program = ForwardProgram(self)
+        return self._eval_program
+
+    def warmup(self):
+        """Build the evaluation forward's program on the bound inputs
+        (reference: ``Executor.warmup``, the AOT compile trigger): on the
+        card its warm-up and its capture (and the capture's replay), so
+        the next ``forward(is_train=False)`` replays; on the CPU one eager
+        forward. ``outputs`` and the last forward's bookkeeping are left
+        alone, so a prewarm thread can warm a binding that traffic also
+        uses. Returns the wall seconds, the device's work included."""
+        import time
+
+        import torch
+
+        t0 = time.perf_counter()
+        with self._eval_lock:
+            prog = self._forward_program()
+            prog.run()
+            if prog.capturable and not prog.captured:
+                prog.run()
+            if prog.device.type == "cuda":
+                torch.cuda.current_stream(prog.device).synchronize()
+        self._warmed = True
+        return time.perf_counter() - t0
 
     def eager_forward(self, rng=None):
         """The evaluation forward walked eagerly over the bound arrays (the

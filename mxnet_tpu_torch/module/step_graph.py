@@ -44,16 +44,28 @@ function runs eagerly every time.
 - Every graph has a memory pool of its own: a bucket of a
   ``BucketingModule`` may replay in any order and its outputs and staged
   update stay valid until its own next step.
+- One capture at a time in the process (:data:`CAPTURE_LOCK`, also held
+  over a program's first warm-up, which synchronises the device): a
+  server's prewarm thread captures one bucket while the engine's workers
+  replay others, and two captures at once would share the caching
+  allocator's capture state.
+- A capture runs on the thread of the program's last warm-up: cuBLAS and
+  cuDNN make a handle a thread at its first call, which a capture may not
+  do. A run on another thread warms up again there (an engine's pool runs
+  a binding's forwards on any of its threads); replays run anywhere.
 """
 from __future__ import annotations
 
+import threading
 import time
 
 from ..base import MXNetError
 from ..executor import NodeRandom
 
 __all__ = ["GraphProgram", "StepProgram", "ForwardProgram",
-           "capture_refusal"]
+           "capture_refusal", "CAPTURE_LOCK"]
+
+CAPTURE_LOCK = threading.RLock()
 
 
 def capture_refusal(symbol):
@@ -92,6 +104,7 @@ class GraphProgram:
         self._static = None
         self._bound = None        # the tensors the graph was captured over
         self._warm = None         # the tensors of the last warm-up
+        self._warm_thread = None  # the thread of the last warm-up
         self._stream = None
         self.replayed = False     # the last run replayed the graph
         self.stats = {"eager_runs": 0, "warmups": 0, "captures": 0,
@@ -152,8 +165,12 @@ class GraphProgram:
             self.drop()
             self.stats["drops"] += 1
         if self._graph is None:
-            if not self._same(bound, self._warm):
-                return self._warmup(bound)
+            here = threading.get_ident()
+            if not self._same(bound, self._warm) \
+                    or self._warm_thread != here:
+                result = self._warmup(bound)
+                self._warm_thread = here
+                return result
             self._capture(bound)
         self._graph.replay()
         self.stats["replays"] += 1
@@ -175,21 +192,32 @@ class GraphProgram:
         import torch
 
         first = self.stats["warmups"] == 0
-        if first:
+        if not first:
+            return self._warmup_body(bound)
+        with CAPTURE_LOCK:
             torch.cuda.synchronize(self.device)
-        t0 = time.perf_counter()
+            t0 = time.perf_counter()
+            result = self._warmup_body(bound)
+            torch.cuda.synchronize(self.device)
+            self.stats["warmup_ms"] = (time.perf_counter() - t0) * 1e3
+        return result
+
+    def _warmup_body(self, bound):
+        import torch
+
         stream = self._side_stream()
         with torch.cuda.stream(stream):
             result = self._body()
         torch.cuda.current_stream(self.device).wait_stream(stream)
-        if first:
-            torch.cuda.synchronize(self.device)
-            self.stats["warmup_ms"] = (time.perf_counter() - t0) * 1e3
         self.stats["warmups"] += 1
         self._warm = bound
         return result
 
     def _capture(self, bound):
+        with CAPTURE_LOCK:
+            self._capture_locked(bound)
+
+    def _capture_locked(self, bound):
         import torch
 
         graph = torch.cuda.CUDAGraph()

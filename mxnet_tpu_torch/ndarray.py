@@ -482,10 +482,15 @@ def bulk_asnumpy(arrays):
 
 
 def waitall():
-    """Block until all queued device work completes (reference:
-    MXNDArrayWaitAll)."""
+    """Block until all pushed engine ops and all queued device work
+    complete (reference: MXNDArrayWaitAll): the engine's
+    ``wait_for_all`` (which raises an op's pending failure), then the
+    card."""
     import torch
 
+    from .engine import get_engine
+
+    get_engine().wait_for_all()
     if torch.cuda.is_available() and torch.cuda.is_initialized():
         torch.cuda.synchronize()
 

@@ -58,6 +58,7 @@ class Predictor:
         # params live on ctx once; every bind_forward shares them
         self._arg_params = {k: place(v) for k, v in arg_params.items()}
         self._aux_params = {k: place(v) for k, v in aux_params.items()}
+        self._input_shapes = {k: tuple(v) for k, v in input_shapes.items()}
         self._executor, self._out_shapes = self.bind_forward(input_shapes)
 
     def bind_forward(self, input_shapes):

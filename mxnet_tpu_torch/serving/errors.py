@@ -1,5 +1,4 @@
-"""The typed serving errors the generation session raises (reference:
-mxnet_tpu/resilience/errors.py). Each subclasses
+"""The typed serving errors (reference: mxnet_tpu/resilience/errors.py). Each subclasses
 :class:`~mxnet_tpu_torch.base.MXNetError`, so ``except MXNetError`` still
 catches them; the names are the reference's."""
 from __future__ import annotations
@@ -7,7 +6,8 @@ from __future__ import annotations
 from ..base import MXNetError
 
 __all__ = ["DeadlineExceeded", "ServerOverloaded", "ServerClosed",
-           "KVPoolExhausted", "QuotaExceeded"]
+           "KVPoolExhausted", "QuotaExceeded", "CircuitOpen",
+           "LifecycleError"]
 
 
 class DeadlineExceeded(MXNetError):
@@ -19,7 +19,7 @@ class ServerOverloaded(MXNetError):
 
 
 class ServerClosed(MXNetError):
-    """A request after ``close()``: the session is gone, not busy."""
+    """A request after ``close()``: the server is gone, not busy."""
 
 
 class KVPoolExhausted(ServerOverloaded):
@@ -40,3 +40,16 @@ class QuotaExceeded(ServerOverloaded):
     def __init__(self, msg, tenant=None):
         super().__init__(msg)
         self.tenant = tenant
+
+
+class CircuitOpen(ServerOverloaded):
+    """The serving circuit breaker is open after consecutive batch
+    failures: requests fail fast instead of feeding a broken executor.
+    A :class:`ServerOverloaded`, so clients treat both as "back off"."""
+
+
+class LifecycleError(MXNetError):
+    """An invalid weight operation: a parameter set that does not match
+    the served model (missing, extra or mis-shaped parameters) or a swap
+    while the weights are paged out. Raised before any served parameter
+    is touched: the live version keeps serving."""

@@ -586,7 +586,7 @@ class GenerationSession:
         if self._closed:
             raise ServerClosed("GenerationSession.generate after close()")
         seq = _Seq(prime, gen_len, timeout_s=timeout_s)
-        self.metrics.on_submit()
+        self.metrics.on_submit(1)
         with self._cv:
             if self._closed:
                 raise ServerClosed("generate after close()")
@@ -738,12 +738,13 @@ class GenerationSession:
                     self._cv.wait()
             for seq in expired:
                 waited = now - seq.t_submit
-                self.metrics.on_expire()
+                self.metrics.on_expire(waited)
                 _resolve(seq.future, exc=DeadlineExceeded(
                     f"decode request expired after {waited:.3f}s in the "
                     "session queue"))
             if admitted:
-                self.metrics.on_dispatch(len(admitted))
+                self.metrics.on_dispatch(len(admitted), len(admitted),
+                                         len(admitted))
             try:
                 if admitted:
                     self._seat(admitted)
@@ -904,7 +905,7 @@ class GenerationSession:
             self._slots[idx] = None
             self._cv.notify_all()
         self.kv_sheds += 1
-        self.metrics.on_shed()
+        self.metrics.on_shed("kv_pool")
         _resolve(seq.future, exc=KVPoolExhausted(
             f"decode shed at {seq.fed} fed tokens: kv pool "
             f"{pool.name!r} exhausted ({pool.available()} of "

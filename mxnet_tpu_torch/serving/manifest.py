@@ -1,0 +1,163 @@
+"""Shape manifest: the serving warm-up set (reference:
+mxnet_tpu/serving/manifest.py).
+
+A restarted replica does not know which buckets to build until traffic
+arrives, so its first request a bucket pays a bind and a capture inline.
+The manifest closes that loop: every input shape set the executor cache
+binds is recorded in a JSON document, with the observed request-rows
+histogram at close; on restart :meth:`ModelServer.prewarm` replays the
+entries (and ``buckets="auto"`` fits to the histogram), so warm-up needs no
+traffic. The document is the reference's, so a file written by either
+package loads in the other.
+
+Resolution (``MXNET_SERVING_MANIFEST``): unset -> on whenever a compile-
+cache directory is configured (``MXNET_COMPILE_CACHE_DIR``, else
+``MXTPU_COMPILE_CACHE``), at ``<dir>/serving_manifest.json``; a path ->
+that file; ``0``/``off`` -> disabled. The port has no compile cache: the
+directory only locates the manifest. Writes go to a temporary file and
+``os.replace``, so a reader never sees a torn document, and a corrupt or
+foreign file loads as an empty manifest.
+"""
+from __future__ import annotations
+
+import json
+import os
+import threading
+from collections import OrderedDict
+
+from .. import env
+from .executor_cache import shape_key
+
+__all__ = ["ShapeManifest", "default_manifest_path"]
+
+_OFF = frozenset(("0", "off", "false", "no"))
+_ON = frozenset(("1", "on", "true", "yes"))
+
+
+def default_manifest_path():
+    """Where the serving shape manifest lives, or None when disabled (see
+    module doc for the ``MXNET_SERVING_MANIFEST`` resolution rules)."""
+    spec = env.get_str("MXNET_SERVING_MANIFEST")
+    if spec:
+        s = spec.strip()
+        if s.lower() in _OFF:
+            return None
+        if s.lower() not in _ON:
+            return s  # an explicit path
+    d = env.compile_cache_dir()
+    return os.path.join(d, "serving_manifest.json") if d else None
+
+
+class ShapeManifest:
+    """Thread-safe record of bound input shape sets and the observed
+    request-rows histogram, mirrored to an atomic JSON file.
+
+    ``record`` persists at once (binds are rare: one a bucket a signature
+    a process); the histogram is folded in by ``set_histogram`` and
+    ``save`` at server close. Histograms accumulate across restarts.
+    """
+
+    VERSION = 1
+
+    def __init__(self, path):
+        self.path = str(path)
+        self._lock = threading.Lock()
+        self._entries = OrderedDict()  # shape_key -> {name: tuple(dims)}
+        self._hist_prior = {}          # loaded from disk
+        self._hist_live = {}           # this process's traffic
+        self.load_error = None
+        self._load()
+
+    # ------------------------------------------------------------------ read
+    def _load(self):
+        try:
+            with open(self.path, encoding="utf-8") as f:
+                doc = json.load(f)
+            for ent in doc.get("entries", []):
+                shapes = {str(n): tuple(int(d) for d in dims)
+                          for n, dims in ent["shapes"].items()}
+                self._entries[shape_key(shapes)] = shapes
+            self._hist_prior = {int(n): float(w)
+                                for n, w in doc.get("histogram", {}).items()
+                                if int(n) >= 1 and float(w) > 0}
+        except FileNotFoundError:
+            pass
+        except Exception as e:  # corrupt or foreign file: start empty
+            self.load_error = repr(e)
+            self._entries.clear()
+            self._hist_prior = {}
+
+    def entries(self):
+        """Bound input-shape dicts, oldest first (the prewarm replay set)."""
+        with self._lock:
+            return [dict(shapes) for shapes in self._entries.values()]
+
+    def size(self):
+        with self._lock:
+            return len(self._entries)
+
+    def histogram(self):
+        """Merged batch-size histogram: prior runs + this process."""
+        with self._lock:
+            return self._merged_hist()
+
+    def _merged_hist(self):
+        out = dict(self._hist_prior)
+        for n, w in self._hist_live.items():
+            out[n] = out.get(n, 0.0) + w
+        return out
+
+    # ----------------------------------------------------------------- write
+    def record(self, input_shapes):
+        """Note one bound shape set; returns True (and persists) when it
+        is new. The executor cache calls it after each bind."""
+        shapes = {str(n): tuple(int(d) for d in dims)
+                  for n, dims in input_shapes.items()}
+        with self._lock:
+            key = shape_key(shapes)
+            if key in self._entries:
+                return False
+            self._entries[key] = shapes
+            self._write(self._doc())
+        return True
+
+    def set_histogram(self, rows_histogram):
+        """Install this process's observed request-rows histogram (merged
+        with prior runs at save; server close passes
+        ``ServingMetrics.rows_histogram()``)."""
+        with self._lock:
+            self._hist_live = {int(n): float(w)
+                               for n, w in (rows_histogram or {}).items()
+                               if int(n) >= 1 and float(w) > 0}
+
+    def save(self):
+        with self._lock:
+            self._write(self._doc())
+
+    def _doc(self):
+        # caller holds the lock
+        import time
+
+        return {
+            "version": self.VERSION,
+            "entries": [{"shapes": {n: list(dims)
+                                    for n, dims in shapes.items()}}
+                        for shapes in self._entries.values()],
+            "histogram": {str(n): w
+                          for n, w in sorted(self._merged_hist().items())},
+            "updated_unix": time.time(),
+        }
+
+    def _write(self, doc):
+        """Temporary file and rename; a failure keeps the manifest in
+        memory only (an unwritable volume must not take down serving)."""
+        try:
+            d = os.path.dirname(self.path)
+            if d:
+                os.makedirs(d, exist_ok=True)
+            tmp = self.path + ".tmp"
+            with open(tmp, "w", encoding="utf-8") as f:
+                json.dump(doc, f, indent=1)
+            os.replace(tmp, self.path)
+        except OSError:
+            pass

@@ -1,17 +1,21 @@
-"""Serving metrics: counters, time to first token, request and step
-latencies, percentiles (reference: mxnet_tpu/serving/metrics.py).
+"""Serving metrics: QPS, queue depth, batch occupancy, latency percentiles,
+time to first token, decode step times (reference:
+mxnet_tpu/serving/metrics.py).
 
 Counters are thread-safe increments; latencies go into bounded reservoirs,
-so p50/p99 stay O(1) memory under sustained load. The reference also
-mirrors every event onto its telemetry registry and the profiler's host-op
-trace, and keeps per-tenant counts for its SLO scheduler; those wait for
-the port's telemetry and scheduler.
+so p50/p99 stay O(1) memory under sustained load. :meth:`ServingMetrics.
+span` times a serving stage (staging, the forward, the split) and keeps a
+count and total a stage name. The reference also mirrors every event onto
+its telemetry registry, stamps spans into the profiler's host-op trace and
+counts per tenant; those wait for the port's telemetry and scheduler. The
+event signatures are the reference's.
 """
 from __future__ import annotations
 
 import threading
 import time
 from collections import deque
+from contextlib import contextmanager
 
 __all__ = ["ServingMetrics", "percentile"]
 
@@ -35,10 +39,12 @@ class ServingMetrics:
     * ``qps``: completed requests a wall second since construction (or the
       last :meth:`reset`);
     * ``queue_depth``: requests submitted and not yet dispatched;
+    * ``batch_occupancy``: real rows / dispatched rows (1.0: no padding);
     * ``p50_ms``/``p99_ms``: request latency, submit to result;
     * ``ttft_p50_ms``/``ttft_p99_ms``: submit to the first sampled token;
-    * ``step_p50_ms``/``step_p99_ms``: host time of a decode step, apart
-      for steps that sampled (``sampled``) and steps that only prefilled.
+    * ``step_p50_ms`` etc.: host time of a decode step, apart for steps
+      that sampled (``sampled``) and steps that only prefilled;
+    * ``spans``: count, total and mean ms of each timed serving stage.
     """
 
     def __init__(self, reservoir=8192):
@@ -57,10 +63,16 @@ class ServingMetrics:
             self.completed = 0
             self.failed = 0
             self.batches = 0
-            self.rows = 0
+            self.rows = 0          # real request rows dispatched
+            self.padded_rows = 0   # padding rows dispatched beside them
             self.queue_depth = 0
-            self.expired = 0
-            self.shed = 0
+            self.expired = 0       # dropped at their deadline while queued
+            self.shed = 0          # rejected at admission
+            self.rows_hist = {}    # request rows -> count (auto bucketing)
+            self._spans = {}       # stage name -> [count, total seconds]
+            self.prewarm_seconds = None
+            self.first_request_compiles = None
+            self.expected_padded_waste_ratio = None
             self.prefix_hits = 0
             self.prefix_misses = 0
             self.prefix_tokens_reused = 0
@@ -68,35 +80,46 @@ class ServingMetrics:
             self.spec_accepted = 0
 
     # -- events ---------------------------------------------------------------
-    def on_submit(self):
+    def on_submit(self, rows=1):
         with self._lock:
             self.submitted += 1
             self.queue_depth += 1
+            # bounded in practice; the cap keeps a hostile client from
+            # growing it forever
+            if rows in self.rows_hist or len(self.rows_hist) < 1024:
+                self.rows_hist[rows] = self.rows_hist.get(rows, 0) + 1
 
-    def on_dispatch(self, n_requests):
-        """``n_requests`` queued requests took slots."""
+    def on_dispatch(self, n_requests, real_rows, bucket_rows):
+        """``n_requests`` queued requests of ``real_rows`` rows left the
+        queue in chunks of ``bucket_rows`` rows in all."""
         with self._lock:
             self.queue_depth -= n_requests
             self.batches += 1
-            self.rows += n_requests
+            self.rows += real_rows
+            self.padded_rows += bucket_rows - real_rows
 
     def on_drop(self):
         """A queued request left unserved (``close(drain=False)``)."""
         with self._lock:
             self.queue_depth -= 1
 
-    def on_expire(self):
-        """A queued request was shed at its deadline."""
+    def on_expire(self, waited_s, tenant=None, reason="deadline"):
+        """A queued request was shed at (or, ``reason="infeasible"``, ahead
+        of) its deadline after ``waited_s``. ``tenant`` (the reference's
+        per-tenant attribution) waits for the port's scheduler."""
         with self._lock:
             self.queue_depth -= 1
             self.expired += 1
 
-    def on_shed(self):
-        """A seated request was shed (the KV pool ran out)."""
+    def on_shed(self, reason, tenant=None):
+        """Admission refused a request (``queue_full``, ``breaker_open``,
+        ``quota``) or a seated one was shed (``kv_pool``); the queue depth
+        did not move."""
         with self._lock:
             self.shed += 1
 
-    def on_complete(self, latency_s, failed=False):
+    def on_complete(self, latency_s, failed=False, tenant=None,
+                    trace_id=None):
         with self._lock:
             if failed:
                 self.failed += 1
@@ -104,7 +127,7 @@ class ServingMetrics:
                 self.completed += 1
             self._lat.append(latency_s)
 
-    def on_ttft(self, seconds):
+    def on_ttft(self, seconds, tenant=None, trace_id=None):
         with self._lock:
             self._ttft.append(seconds)
 
@@ -128,10 +151,47 @@ class ServingMetrics:
             self.spec_proposed += proposed
             self.spec_accepted += accepted
 
+    # -- cold start -------------------------------------------------------------
+    def on_prewarm(self, seconds):
+        """A prewarm pass finished after ``seconds`` of wall time."""
+        with self._lock:
+            self.prewarm_seconds = seconds
+
+    def on_first_request(self, compiles):
+        """Programs built (warm-ups and captures in the port) between the
+        first request's submit and its completion."""
+        with self._lock:
+            self.first_request_compiles = compiles
+
+    def on_expected_waste(self, ratio):
+        """The expected padded-waste ratio of the resolved bucket set."""
+        with self._lock:
+            self.expected_padded_waste_ratio = ratio
+
+    def rows_histogram(self):
+        """Observed request-rows histogram (the shape manifest keeps it at
+        server close for ``auto`` bucketing)."""
+        with self._lock:
+            return dict(self.rows_hist)
+
+    @contextmanager
+    def span(self, name, symbolic=False):
+        """Time a serving stage into :attr:`spans`."""
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            dt = time.perf_counter() - t0
+            with self._lock:
+                acc = self._spans.setdefault(name, [0, 0.0])
+                acc[0] += 1
+                acc[1] += dt
+
     # -- snapshot ---------------------------------------------------------------
     def snapshot(self):
         with self._lock:
             elapsed = max(time.perf_counter() - self._t0, 1e-9)
+            dispatched = self.rows + self.padded_rows
             lat = sorted(self._lat)
             ttft = sorted(self._ttft)
             steps = {k: sorted(v) for k, v in self._steps.items()}
@@ -141,12 +201,25 @@ class ServingMetrics:
                 "failed": self.failed,
                 "batches": self.batches,
                 "rows": self.rows,
+                "padded_rows": self.padded_rows,
                 "queue_depth": self.queue_depth,
                 "expired": self.expired,
                 "shed": self.shed,
                 "qps": self.completed / elapsed,
+                "batch_occupancy": (self.rows / dispatched) if dispatched
+                else 0.0,
+                "avg_batch_rows": (self.rows / self.batches) if self.batches
+                else 0.0,
                 "p50_ms": percentile(lat, 50) * 1e3,
                 "p99_ms": percentile(lat, 99) * 1e3,
+                "rows_hist": dict(self.rows_hist),
+                "spans": {n: {"count": c, "total_ms": s * 1e3,
+                              "mean_ms": s * 1e3 / c}
+                          for n, (c, s) in self._spans.items()},
+                "prewarm_seconds": self.prewarm_seconds,
+                "first_request_compiles": self.first_request_compiles,
+                "expected_padded_waste_ratio":
+                    self.expected_padded_waste_ratio,
                 "ttft_p50_ms": percentile(ttft, 50) * 1e3,
                 "ttft_p99_ms": percentile(ttft, 99) * 1e3,
                 "step_p50_ms": percentile(
@@ -160,3 +233,11 @@ class ServingMetrics:
                 "spec": {"proposed": self.spec_proposed,
                          "accepted": self.spec_accepted},
             }
+
+    def format_snapshot(self):
+        s = self.snapshot()
+        return ("serving: {qps:.1f} req/s | {completed} ok / {failed} failed "
+                "/ {queue_depth} queued | {batches} batches "
+                "(occupancy {batch_occupancy:.2f}, avg {avg_batch_rows:.1f} "
+                "rows) | p50 {p50_ms:.2f} ms p99 {p99_ms:.2f} ms"
+                .format(**s))
