@@ -24,10 +24,14 @@ result line:
 3. kernel vs plain: the flash-attention kernels against their plain version
    at the main path's shape, at ragged shapes with ``q_offset``, at head
    dims 128 and 50 (the 4-byte copy path in fp32, the element-wise path of
-   the tensor-core kernel in bf16) and 256 (the split over d), in fp32
-   (CUDA cores), bf16 and fp16 (tensor cores), timed per call (as in
-   earlier slices) and on the device alone, beside the plain version and a
-   library attention call, with its share of the bound;
+   the tensor-core kernel in bf16), 256 (fp32's split over d; bf16 and
+   fp16 on the wgmma/TMA kernel), 192 (bf16 and fp16, the wgmma/TMA
+   kernel), 320 (bf16 and fp16) and 256 at an offset of one element
+   (bf16): the tensor-core split over d, in
+   fp32 (CUDA cores), bf16 and fp16 (tensor cores), each row naming the
+   kernel that ran, timed per call (as in earlier slices) and on the
+   device alone, beside the plain version and a library attention call,
+   with its share of the bound;
 4. the slice: a Predictor bound at data=(2, 2048) on cuda:0 answers 4
    requests through the captured forward (``set_input`` writes in place; a
    warm-up, a capture, replays), each under the profiler, which counts the
@@ -65,7 +69,10 @@ result line:
    casts and the rest, beside the idle share; then bf16 on the card against bf16 on the CPU at depth 2
    (batch 1, T 512), and int32 ids above 256 fed into a float32-bound
    ``data`` against the same feed bound as int32 (the ids must not round
-   in bf16);
+   in bf16); then the same LM in 4 heads of 256 (the head-dim-256 path):
+   2 requests through the captured forward, each traced (12
+   ``flash_fwd_tc_wg`` kernels a request, no other flash kernel),
+   probabilities checked, request ms captured and eager;
 9. training: ``Module(amp="bfloat16")`` over the LM with the fused head
    and Adam at lr 1e-4, batch 4 x 2048 int32 tokens, the phase-4 weights
    through ``init_params(arg_params=...)``; five steps of
@@ -268,7 +275,8 @@ result line:
    prewarm, first-response s); (e) ``serve_bench.py`` with its demo model
    (32 clients: binds <= buckets) beside (d), and ``--scenario decode``:
    continuous batching token-identical to FIFO, fewer steps, more
-   tokens/s; (f) a randomized workload of pushes over device tensors under
+   tokens/s (the median of 8 passes of each, taken in turns, ROADMAP
+   C11); (f) a randomized workload of pushes over device tensors under
    ``ThreadedEngine`` and ``NativeEngine`` equal to ``NaiveEngine``'s, a
    failure raised at the next wait.
 
@@ -313,6 +321,7 @@ GEMM_NAME = re.compile(r"gemm|gemv|nvjet|cutlass", re.IGNORECASE)
 KERNEL_LIBS = ("flash_attention_fwd", "flash_attention_fwd_tc")
 AMP_REQUESTS = 4
 AMP_CPU_SEQ = 512   # T of the card-vs-CPU check under amp
+AMP_D256_HEADS, AMP_D256_REQUESTS = 4, 2   # phase 8's head-dim-256 path
 # a kernel's numbers in the `kernels` line: `ms`, `plain_ms` and `library_ms`
 # time one call between two events (the host's dispatch where it is longer
 # than the kernel), as in every earlier slice; `device_ms` and
@@ -502,7 +511,8 @@ def phase_build():
     for name, (path, lib_s) in built.items():
         log = _native.BUILD_LOGS.get(name, "(reused)")
         for line in log.splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
+            if any(w in line for w in ("registers", "spill", "error",
+                                       "setmaxnreg", "wgmma")):
                 print(f"  ptxas {name}: " + line.strip(), flush=True)
         print(f"  built {os.path.relpath(path)} in {lib_s:.2f} s", flush=True)
         out[name + "_s"] = lib_s
@@ -526,7 +536,7 @@ def phase_kernel_vs_plain(seed):
     import torch.nn.functional as F
 
     from mxnet_tpu_torch.ops.flash_attention import (
-        flash_attention, flash_attention_reference)
+        copy_bytes, flash_attention, flash_attention_reference, launch_plan)
 
     print("phase 3: kernel vs plain", flush=True)
     cases = [
@@ -559,17 +569,34 @@ def phase_kernel_vs_plain(seed):
         # d = 50: rows of 100 bytes, the element-wise load path
         ("ragged_d50_bf16_causal", (BATCH, 1500, HEADS, 50), 1500, True, 0,
          torch.bfloat16, 2e-2),
-        # head dim 256 (hidden 1024 in 4 heads): the split-over-d kernels
+        # head dim 256 (hidden 1024 in 4 heads): fp32's split over d; bf16
+        # and fp16 on the wgmma/TMA kernel (phase 8's d = 256 path), also
+        # at d = 192 (its 192-wide instantiation)
         ("d256_fp32_causal", (BATCH, SEQ, HEADS // 4, 256), SEQ, True, 0,
          torch.float32, 1e-4),
         ("d256_bf16_causal", (BATCH, SEQ, HEADS // 4, 256), SEQ, True, 0,
          torch.bfloat16, 2e-2),
         ("d256_fp16_causal", (BATCH, SEQ, HEADS // 4, 256), SEQ, True, 0,
          torch.float16, 3e-3),
+        ("d192_bf16_causal", (BATCH, SEQ, HEADS // 4, 192), SEQ, True, 0,
+         torch.bfloat16, 2e-2),
+        ("d192_fp16_causal", (BATCH, SEQ, HEADS // 4, 192), SEQ, True, 0,
+         torch.float16, 3e-3),
+        # the routes that keep the tensor-core split over d: a head wider
+        # than 256, and views at an offset of one element (2-byte rows,
+        # element-wise loads; the last field is the offset)
+        ("d320_bf16_causal", (BATCH, SEQ, HEADS // 4, 320), SEQ, True, 0,
+         torch.bfloat16, 2e-2),
+        ("d256_bf16_causal_offset1", (BATCH, SEQ, HEADS // 4, 256), SEQ,
+         True, 0, torch.bfloat16, 2e-2, 1),
+        ("d320_fp16_causal", (BATCH, SEQ, HEADS // 4, 320), SEQ, True, 0,
+         torch.float16, 3e-3),
     ]
     results = {}
-    for i, (name, shp, t_k, causal, q_off, dtype, tol) in enumerate(cases):
-        q, k, v = _qkv(shp, t_k, dtype, seed + i)
+    for i, (name, shp, t_k, causal, q_off, dtype, tol, *offset) in \
+            enumerate(cases):
+        q, k, v = (_at_offset(x, offset[0] if offset else 0)
+                   for x in _qkv(shp, t_k, dtype, seed + i))
         got = flash_attention(q, k, v, causal=causal, q_offset=q_off)
         torch.cuda.synchronize()
         # the plain version in fp32 on the same (rounded) inputs
@@ -600,8 +627,13 @@ def phase_kernel_vs_plain(seed):
 
             library_ms = time_cuda(library)
             library_device_ms = time_device(library)
-        row = {"case": name, "q": list(shp), "t_k": t_k, "causal": causal,
-               "q_offset": q_off, "dtype": dname, "max_abs_err": err,
+        # the kernel the C entry runs for these inputs
+        kernel = launch_plan(dtype, shp[0], shp[1], shp[2], shp[3], copy_bytes(
+            shp[3], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            got.data_ptr(), itemsize=q.element_size()))[0]
+        row = {"case": name, "kernel": kernel, "q": list(shp), "t_k": t_k,
+               "causal": causal, "q_offset": q_off, "dtype": dname,
+               "offset": offset[0] if offset else 0, "max_abs_err": err,
                "tol": tol, "ms": ms, "plain_ms": plain_ms,
                "library_ms": library_ms, "device_ms": device_ms,
                "library_device_ms": library_device_ms, "bound_ms": bound_ms,
@@ -1148,13 +1180,13 @@ def phase_imperative(mx, weights, probs, seed):
 
 
 def lm_executor(mx, layers, batch, seq, weights, ctx, amp_dtype,
-                data_dtype="int32"):
+                data_dtype="int32", heads=HEADS):
     """The LM bound through ``Executor(..., amp_dtype=...)``, as the
     reference's executor group binds it under ``Module(amp=...)``: fp32
     weights (the first ``seq`` learned positions), token ids bound as
-    ``data_dtype`` and an fp32 label."""
+    ``data_dtype`` and an fp32 label. The heads split the same weights."""
     symbol = mx.models.transformer_lm.get_symbol(
-        vocab_size=VOCAB, num_layers=layers, hidden=HIDDEN, heads=HEADS,
+        vocab_size=VOCAB, num_layers=layers, hidden=HIDDEN, heads=heads,
         seq_len=seq)
     shapes = {"data": (batch, seq), "softmax_label": (batch, seq)}
     names = [n for n in symbol.list_arguments() if n not in shapes]
@@ -1361,6 +1393,85 @@ def phase_amp(mx, weights, seed):
     check(agree == 1.0 and fed["float32"][1] == "torch.int32",
           f"fed int32 ids: data rebound as {fed['float32'][1]}, argmax "
           f"agreement with the int32 binding {agree} == 1")
+    out["d256"] = amp_d256(mx, weights, seed)
+    return out
+
+
+def amp_d256(mx, weights, seed):
+    """Phase 8's head-dim-256 path: the same LM at hidden 1024 in
+    ``AMP_D256_HEADS`` heads (256-wide, as Gemma-family models have) through
+    ``Executor(..., amp_dtype="bfloat16")`` answers ``AMP_D256_REQUESTS``
+    requests of 2 x 2048 tokens through the captured forward, each under
+    the profiler, which counts the flash kernels the card ran in it (12 a
+    request, all ``flash_fwd_tc_wg``), probabilities checked; then the
+    requests captured and through the eager walk in turns, host ms each."""
+    import torch
+
+    from mxnet_tpu_torch.ops.flash_attention import (flash_attention,
+                                                     reset_launches)
+
+    heads = AMP_D256_HEADS
+    print(f"  (d256) {heads} heads of {HIDDEN // heads}: {LAYERS} layers, "
+          f"batch {BATCH}, T {SEQ}, {AMP_D256_REQUESTS} requests", flush=True)
+    t0 = time.perf_counter()
+    exe = lm_executor(mx, LAYERS, BATCH, SEQ, weights, mx.gpu(0), "bfloat16",
+                      heads=heads)
+    torch.cuda.synchronize()
+    bind_s = time.perf_counter() - t0
+    rng = np.random.default_rng(seed + 11)
+    batches = [rng.integers(0, VOCAB, (BATCH, SEQ)).astype(np.int32)
+               for _ in range(AMP_D256_REQUESTS)]
+    fed = []
+
+    def feed(x):
+        fed[:] = [x]
+
+    def forward():
+        return exe.forward(is_train=False, data=fed[0])[0].data
+
+    def eager():
+        exe.arg_dict["data"].data.copy_(torch.from_numpy(fed[0]))
+        return exe.eager_forward()[0]
+
+    reset_launches()
+    traced, traced_wg, flash_ms = [], [], []
+    for x in batches:
+        feed(x)
+        counts, got = {}, []
+        by_name, _ = traced_groups(lambda: got.append(forward()), {}, counts)
+        traced.append(sum(counts[k] for k in by_name if "flash_fwd" in k))
+        traced_wg.append(sum(counts[k] for k in by_name
+                             if "flash_fwd_tc_wg" in k))
+        flash_ms.append(sum(t for k, t in by_name.items()
+                            if "flash_fwd_tc_wg" in k))
+        check_probs(got[0])
+    by_kernel = dict(flash_attention.launches_by_kernel)
+    info = exe.forward_info()
+    ms = timed_requests(batches, feed, forward, eager)
+    steady = float(np.median(ms["captured"]))
+    out = {"heads": heads, "head_dim": HIDDEN // heads, "bind_s": bind_s,
+           "request_ms": ms["captured"], "steady_request_ms": steady,
+           "eager_request_ms": ms["eager"],
+           "steady_eager_request_ms": float(np.median(ms["eager"])),
+           "tokens_per_s": BATCH * SEQ / (steady / 1e3),
+           "launches": sum(traced_wg), "launches_traced": traced,
+           "launches_traced_wg": traced_wg,
+           "flash_device_ms_traced": flash_ms,
+           "wrapper_calls": by_kernel, "forward": info}
+    print("  (d256) " + json.dumps(out), flush=True)
+    check(traced == [LAYERS] * AMP_D256_REQUESTS and traced_wg == traced,
+          f"the card ran {LAYERS} flash kernels in each captured request at "
+          f"{heads} heads of {HIDDEN // heads}, all flash_fwd_tc_wg "
+          f"(traced: {traced}, of them flash_fwd_tc_wg: {traced_wg})")
+    check(by_kernel["flash_fwd_tc_wg"] == 2 * LAYERS
+          and sum(by_kernel.values()) == 2 * LAYERS,
+          f"the flash wrapper launched flash_fwd_tc_wg {2 * LAYERS} times "
+          f"(the warm-up's and the capture's) and no other kernel "
+          f"({by_kernel})")
+    check(info["captures"] == 1 and info["drops"] == 0,
+          f"one capture for the executor's binding ({info})")
+    del exe
+    torch.cuda.empty_cache()
     return out
 
 
@@ -1992,9 +2103,17 @@ def _nll_held(y):
     return held
 
 
-def step_card_vs_cpu(mx, symbol, weights, x, y, what,
-                     optimizer=("sgd", FIT_SGD), label="softmax_label",
-                     replay=None, held=None):
+def _is_relu(attrs):
+    return attrs.get("act_type") == "relu"
+
+
+def _is_max_window(attrs):
+    return attrs.get("pool_type") == "max" and not attrs.get("global_pool")
+
+
+def card_cpu_f64_steps(mx, symbol, weights, x, y,
+                       optimizer=("sgd", FIT_SGD), label="softmax_label",
+                       replay=None):
     """One fp32 step of ``symbol`` under ``optimizer`` (a name and its
     parameters) from the numpy ``weights`` (args, aux) on the batch ``x``,
     ``y`` (fed as ``label``), on the card, on the CPU on the card's ReLU
@@ -2003,9 +2122,10 @@ def step_card_vs_cpu(mx, symbol, weights, x, y, what,
     names to empty dicts: each such op's outputs on the card, kept with its
     inputs under ``"card"``, are the CPU's and the float64 step's outputs
     too, and their own outputs are kept under ``"cpu"`` and ``"f64"``.
-    ``held(card_outputs, cpu_outputs)`` gives (report, passed, message) on
-    the graph's outputs, by default :func:`_nll_held`. Held as
-    :func:`fit_card_vs_cpu` says; returns the gaps."""
+    Returns ``(runs, flips, drawn)``: each run's (outputs, gradients, aux,
+    weights, seconds) under ``"gpu"``, ``"cpu"`` and ``"f64"``; the ReLU
+    masks and max-pool choices of the CPU and float64 steps that differ
+    from the card's, by op in graph order; the Dropout masks' shapes."""
     import torch
     import torch.nn.functional as F
 
@@ -2016,7 +2136,6 @@ def step_card_vs_cpu(mx, symbol, weights, x, y, what,
     act_fn, pool_fn = act.fn, pool.fn
     replay = replay or {}
     shared = {name: (get_op(name), get_op(name).fn) for name in replay}
-    held = held or _nll_held(y)
     keep_mask = tnn.keep_mask
     masks, argmax, flips = [], [], {"relu": [], "max_pool": []}
     drawn = []
@@ -2030,34 +2149,27 @@ def step_card_vs_cpu(mx, symbol, weights, x, y, what,
         return (_pair(attrs["kernel"]), _pair(attrs.get("stride")),
                 _pair(attrs.get("pad", (0, 0))))
 
-    def is_relu(attrs):
-        return attrs.get("act_type") == "relu"
-
-    def is_max_window(attrs):
-        return attrs.get("pool_type") == "max" \
-            and not attrs.get("global_pool")
-
     def act_on_card(ctx, attrs, data):
-        if is_relu(attrs):
+        if _is_relu(attrs):
             masks.append((data > 0).cpu())
         return act_fn(ctx, attrs, data)
 
     def act_with_card_mask(ctx, attrs, data):
-        if not is_relu(attrs):
+        if not _is_relu(attrs):
             return act_fn(ctx, attrs, data)
         mask = masks[len(flips["relu"]) % len(masks)]
         flips["relu"].append(int((mask != (data > 0)).sum()))
         return data.masked_fill(~mask, 0.0)
 
     def pool_on_card(ctx, attrs, data):
-        if is_max_window(attrs):
+        if _is_max_window(attrs):
             with torch.no_grad():
                 argmax.append(F.max_pool2d(data, *window(attrs),
                                            return_indices=True)[1].cpu())
         return pool_fn(ctx, attrs, data)
 
     def pool_with_card_argmax(ctx, attrs, data):
-        if not is_max_window(attrs):
+        if not _is_max_window(attrs):
             return pool_fn(ctx, attrs, data)
         idx = argmax[len(flips["max_pool"]) % len(argmax)]
         own = F.max_pool2d(data.detach(), *window(attrs),
@@ -2143,15 +2255,31 @@ def step_card_vs_cpu(mx, symbol, weights, x, y, what,
     finally:
         tnn.keep_mask = keep_mask
     torch.cuda.empty_cache()
+    return got, flips, drawn
+
+
+def step_card_vs_cpu(mx, symbol, weights, x, y, what,
+                     optimizer=("sgd", FIT_SGD), label="softmax_label",
+                     replay=None, held=None):
+    """The steps of :func:`card_cpu_f64_steps` (the same arguments), the
+    card's against the CPU's. ``held(card_outputs, cpu_outputs)`` gives (report, passed, message) on
+    the graph's outputs, by default :func:`_nll_held`. Held as
+    :func:`fit_card_vs_cpu` says; returns the gaps."""
+    from mxnet_tpu_torch.ops import get_op
+
+    replay = replay or {}
+    held = held or _nll_held(y)
+    got, flips, drawn = card_cpu_f64_steps(mx, symbol, weights, x, y,
+                                           optimizer, label, replay)
     gpu, cpu, f64 = got["gpu"], got["cpu"], got["f64"]
     nodes = symbol._nodes()
     n_relu = sum(1 for node in nodes
-                 if node.op == "Activation" and is_relu(node.attrs))
+                 if node.op == "Activation" and _is_relu(node.attrs))
     n_max = sum(1 for node in nodes
-                if node.op == "Pooling" and is_max_window(node.attrs))
+                if node.op == "Pooling" and _is_max_window(node.attrs))
     n_shared = {name: sum(1 for node in nodes
                           if node.op and get_op(node.op) is op)
-                for name, (op, _) in shared.items()}
+                for name, op in ((n, get_op(n)) for n in replay)}
     outputs, outputs_ok, outputs_msg = held(gpu[0], cpu[0])
     res = {"relu_masks_differ": [sum(flips["relu"][:n_relu]),
                                  sum(flips["relu"][n_relu:])],
@@ -6079,16 +6207,20 @@ def serve_subprocesses(sym_file, params_file, tmp):
 
 def serve_decode_scenario(sb):
     """(e) ``--scenario decode`` on the card: continuous batching against
-    FIFO re-batching (token-identical, fewer steps, more tokens/s); the
-    scenario's other gates are readings here."""
+    FIFO re-batching (token-identical, fewer steps, more tokens/s: the
+    medians of passes taken in turns); the scenario's other gates are
+    readings here."""
     args = sb.build_parser().parse_args(["--scenario", "decode"])
     doc, failures = sb.run_decode_scenario(args)
     cont, fifo = doc["continuous"], doc["fifo"]
     print(f"  (e) decode: continuous {cont['steps']} steps "
           f"{cont['tokens_per_s']:.1f} tok/s vs FIFO {fifo['steps']} steps "
-          f"{fifo['tokens_per_s']:.1f}; chunked {doc['chunked']['steps']} "
-          f"steps; speculative x{doc['speculative']['speedup']:.2f}; "
-          f"gates failed: {failures}", flush=True)
+          f"{fifo['tokens_per_s']:.1f} (medians of {cont['passes']} passes "
+          f"each: {[round(r, 1) for r in cont['tokens_per_s_passes']]} vs "
+          f"{[round(r, 1) for r in fifo['tokens_per_s_passes']]}); chunked "
+          f"{doc['chunked']['steps']} steps; speculative "
+          f"x{doc['speculative']['speedup']:.2f}; gates failed: {failures}",
+          flush=True)
     check(not any("FIFO" in f for f in failures)
           and cont["steps"] < fifo["steps"]
           and cont["tokens_per_s"] > fifo["tokens_per_s"],
@@ -6276,6 +6408,20 @@ def main(argv=None):
             "captured_training_steps_wrapper_calls":
                 graph["lm"]["wrapper_calls"]["bfloat16"]},
         **{k: tc_case[k] for k in KERNEL_KEYS}})
+    wg_case = cases["d256_bf16_causal"]
+    kernels.append({
+        "name": "flash_attention_fwd_tc_wg",
+        "route": "cuda",
+        "source": "mxnet_tpu_torch/csrc/flash_attention_fwd_tc.cu",
+        "replaces": "mxnet_tpu/ops/flash_attention.py:47",
+        # phase 8's head-dim-256 requests: the kernels the card ran in them
+        # (traced); the wrapper's calls are the warm-up's and the capture's
+        "launches": amp["d256"]["launches"],
+        "launches_by_path": {
+            "amp_d256_requests_traced": amp["d256"]["launches"],
+            "amp_d256_requests_wrapper_calls":
+                amp["d256"]["wrapper_calls"]["flash_fwd_tc_wg"]},
+        **{k: wg_case[k] for k in KERNEL_KEYS}})
     for name, case in (("rtc_axpy", "axpy_logits_fp32"),
                        ("rtc_sgd_mom", "sgd_mom_embedding_fp32")):
         row = rtc_cases[case]

@@ -61,14 +61,16 @@
 //     dynamic-size attribute is set once per device and instantiation;
 //   * head dims: D=32/64/128 instantiations for each of bf16 and fp16; any
 //     d <= 128 runs in the smallest that holds it, the columns past d zero
-//     in shared memory; a d above 128 runs flash_fwd_tc_split, a split
-//     over d (below).
+//     in shared memory. Above 128: flash_fwd_tc_wg (wgmma and TMA, below)
+//     for d <= 256 with 16-byte rows, flash_fwd_tc_split (a split over d)
+//     for wider rows and for the element-wise loads.
 // Precision: S and O accumulate in fp32, as in the JAX kernel, but P is
 // rounded to the 16-bit input type before P V, where the JAX kernel keeps p
 // in fp32 (mxnet_tpu/ops/flash_attention.py:69,72). The row sum l is taken
 // over the fp32 p. Against the fp32 plain version on the same inputs the
 // error stays inside 2e-2 (bf16) and 1e-2 (fp16); see chip_smoke.py phase 3.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -422,9 +424,10 @@ flash_fwd_tc(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
   }
 }
 
-// ------------------------------------------------------ head dim > 128
+// ------------------------------------ head dim > 128: the split over d
 
-// flash_fwd_tc_split: any d > 128, split over d. The output's columns go in
+// flash_fwd_tc_split: d > 256, or d > 128 with the element-wise loads (rows
+// that are not 16-byte aligned), split over d. The output's columns go in
 // chunks of DC = 128 on gridDim.z; each block accumulates S = Q K^T over the
 // 128-wide d-chunks of Q and K, staged through shared memory one chunk at a
 // time (Q's A fragments are read again from shared memory for every
@@ -616,6 +619,561 @@ flash_fwd_tc_split(const uint16_t* __restrict__ q,
   }
 }
 
+// ------------------------------------------ head dim 129-256: wgmma + TMA
+
+// flash_fwd_tc_wg: bf16/fp16 with 128 < d <= 256 and 16-byte rows (d % 8 ==
+// 0, 16-byte aligned bases: what TMA needs). It replaces the TPU kernel
+// mxnet_tpu/ops/flash_attention.py:47 _fwd_kernel there and computes the
+// same function as flash_fwd_tc. Bound at (2, 2048, 4, 256) causal (the LM
+// at hidden 1024 in 4 heads): 17.2 GFLOP at 989 TFLOP/s, 0.0174 ms, against
+// 8.4 MB x 4 at 3.35 TB/s, 0.0100 ms: operations. Its design puts the
+// operations on Hopper's asynchronous units:
+//   * one block owns all of d: S = Q K^T is computed once per (Q tile, K
+//     tile), never per chunk of the output's columns;
+//   * each block has two consumer warpgroups of 64 Q rows and one
+//     producer warpgroup, of which one thread issues every copy. The two
+//     consumers take Q tiles i and n - 1 - i of a head, so every block of a
+//     causal launch has about the same work (n + 1 K tiles in all) and the
+//     one-wave grid ends together; launch_plan in ops/flash_attention.py
+//     gives the same grid (128 Q rows a block);
+//   * copies are TMA loads through 4-d tensor maps, (d, H, T, B) with the
+//     tensors' strides, in boxes of 64 elements (128 bytes, the widest the
+//     128-byte swizzle takes) by 64 rows: a row of d is DP / 64 boxes. Rows
+//     past T and columns past d arrive as zeros, so neither ragged T nor
+//     d < DP needs a mask on the loads (the softmax masks stay);
+//   * each consumer's Q tile is loaded once; K and V tiles of WG_BK rows go
+//     through a ring of WG_STAGES stages, each with an mbarrier for K and
+//     one for V (the producer's expect_tx and the copies' bytes), and for
+//     each consumer one for K and one for V that it arrives on when done,
+//     which the producer waits on before it refills them;
+//   * S = Q K^T is wgmma m64n64k16 with both operands in shared memory
+//     (K-major, 128-byte swizzle), fp32 accumulate: 32 registers a thread;
+//   * the online softmax runs on the accumulator in registers as in
+//     flash_fwd_tc (the wgmma accumulator is mma.sync's C layout, a warp to
+//     16 rows), and P, rounded to the 16-bit type, is the register A operand
+//     of O += P V: wgmma m64n64k16 over each 64-wide chunk of O, V from
+//     shared memory as an MN-major B operand. O is DP / 2 fp32 registers a
+//     thread (128 at DP = 256);
+//   * a consumer issues tile n's P V right behind tile n + 1's Q K^T and
+//     waits for it only after n + 1's softmax, so that its own products and
+//     softmax overlap: a paired block's longer tile runs most of its K tiles
+//     with the other consumer done. K and V of a stage are released apart,
+//     K as soon as Q K^T has read it;
+//   * the waits (mbarrier try_wait loops) sit inside asm and the
+//     warpgroup's index is made warp-uniform: a branch the compiler
+//     cannot prove convergent ahead of a wgmma makes it serialize every
+//     wgmma of the kernel (ptxas C7518);
+//   * setmaxnreg moves registers from the producer (24) to the consumers
+//     (240);
+//   * shared memory at DP = 256: Q 2 x 32 KB, K and V 2 stages x 2 x 32
+//     KB: 192 KB, one block an SM.
+// mxnet_tpu_torch/tools/flash_tile_sweep.py --kernel wg times this design
+// against alternatives it patches into a copy of this source (PERF.md).
+namespace wgk {
+
+constexpr int WG_CONSUMERS = 2;   // consumer warpgroups (q_tile pairs two)
+constexpr int WG_STAGES = 2;      // K/V ring depth
+constexpr int WG_BK = 64;         // K/V rows a tile (S is m64n64)
+constexpr int WG_BQ = 64;         // Q rows a consumer
+constexpr int WG_THREADS = 128 * (WG_CONSUMERS + 1);
+constexpr int BOX = 64;           // elements of d a TMA box (128 bytes)
+constexpr int ROW = 128;          // bytes of a box row in shared memory
+
+template <int DP>
+struct Layout {
+  static constexpr int DC = DP / BOX;            // boxes a row
+  static constexpr int Q_BYTES = WG_BQ * ROW * DC;    // a consumer's Q
+  static constexpr int KV_BYTES = WG_BK * ROW * DC;   // a K or V tile
+  static constexpr int K_OFF = WG_CONSUMERS * Q_BYTES;
+  static constexpr int V_OFF = K_OFF + WG_STAGES * KV_BYTES;
+  static constexpr int BAR_OFF = V_OFF + WG_STAGES * KV_BYTES;
+  // q_full, k_full[STAGES], v_full[STAGES], k_empty and
+  // v_empty[STAGES][CONSUMERS]
+  static constexpr int N_BARS =
+      1 + 2 * WG_STAGES + 2 * WG_STAGES * WG_CONSUMERS;
+  // 1024 bytes for aligning the base: the 128-byte swizzle repeats every
+  // 1024 bytes, and every tile starts on such a boundary
+  static constexpr size_t BYTES = BAR_OFF + 8 * N_BARS + 1024;
+};
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+// until the phase of parity `parity` has completed. The loop is inside the
+// asm, so that the compiler sees no divergent branch ahead of the wgmma
+// instructions that follow a wait (it would serialize them). Every wait
+// here ends within one tile's work; one that lasts 2^32 cycles (seconds)
+// is a fault of the kernel, and it traps, so that the launch fails instead
+// of holding the card
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .u64 t0, t1;\n"
+      "mov.u64 t0, %%clock64;\n"
+      "MXTT_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@p bra MXTT_DONE;\n"
+      "mov.u64 t1, %%clock64;\n"
+      "sub.u64 t1, t1, t0;\n"
+      "setp.lt.u64 p, t1, 4294967296;\n"
+      "@p bra MXTT_WAIT;\n"
+      "trap;\n"
+      "MXTT_DONE:\n}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// one box of the 4-d tensor map at coordinates (c0 = d, c1 = head, c2 =
+// row, c3 = batch) into shared memory, completing on `bar`
+__device__ __forceinline__ void tma_load(uint8_t* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int c0, int c1,
+                                         int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// A wgmma shared-memory descriptor under the 128-byte swizzle: the start
+// address, the leading and stride byte offsets (bytes, multiples of 16)
+__device__ __forceinline__ uint64_t desc128(uint32_t addr, uint32_t lbo,
+                                            uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
+         ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// until at most one committed group is in flight
+__device__ __forceinline__ void wgmma_wait_one() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+}
+// keeps the compiler from moving reads or writes of r across the asm
+// statements that start and finish an asynchronous wgmma
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+#define MXTT_WGMMA_SS(TY)                                                     \
+  asm volatile(                                                               \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                            \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " "             \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"                                \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), \
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), \
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]) \
+      : "l"(da), "l"(db), "r"(scale_d))
+
+#define MXTT_WGMMA_RS(TY)                                                     \
+  asm volatile(                                                               \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                            \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " "             \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"                  \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), \
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), \
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]) \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
+
+// d (+)= A B, m64n64k16: A (64 x 16) and B (16 x 64, K-major: its 64
+// columns are rows of 16 contiguous k) from shared memory; scale_d == 0
+// overwrites d
+template <typename T>
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    MXTT_WGMMA_SS("bf16");
+  } else {
+    MXTT_WGMMA_SS("f16");
+  }
+}
+
+// d += A B, m64n64k16: A from registers (mma.sync's A fragment layout, a
+// warp to 16 rows), B (16 x 64) MN-major from shared memory (its 16 rows
+// of 64 contiguous n)
+template <typename T>
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    MXTT_WGMMA_RS("bf16");
+  } else {
+    MXTT_WGMMA_RS("f16");
+  }
+}
+
+#undef MXTT_WGMMA_SS
+#undef MXTT_WGMMA_RS
+
+// K/V tiles the 64 Q rows from q0 attend to
+__device__ __forceinline__ int kv_tiles(int q0, int t_q, int t_k, int causal,
+                                        int q_offset) {
+  int n = (t_k + WG_BK - 1) / WG_BK;
+  if (causal) n = min(n, (q_offset + min(q0 + WG_BQ, t_q) - 1) / WG_BK + 1);
+  return n;
+}
+
+// the 64-row Q tile of the block's consumer w (-1: none), of nq in a head:
+// block y pairs tiles y and nq - 1 - y
+__device__ __forceinline__ int q_tile(int w, int nq) {
+  int t = w == 0 ? (int)blockIdx.y : nq - 1 - (int)blockIdx.y;
+  if (w == 1 && t == (int)blockIdx.y) t = -1;
+  return t < nq ? t : -1;
+}
+
+// O += P V for one K/V tile: k-step j reads rows 16j.. of the V tile (2048
+// bytes in); box c is O's columns 64c..64c+63. Both byte offsets are 1024
+// (the 8-row groups of a box are contiguous), so the descriptor does not
+// depend on which of the two the unit reads as the k-group stride
+template <typename T, int DC>
+__device__ __forceinline__ void issue_pv(float (&acc)[DC][32],
+                                         const uint32_t (&pa)[WG_BK / 16][4],
+                                         uint32_t v_tile) {
+#pragma unroll
+  for (int j = 0; j < WG_BK / 16; ++j)
+#pragma unroll
+    for (int c = 0; c < DC; ++c)
+      wgmma_rs<T>(acc[c], pa[j],
+                  desc128(v_tile + c * WG_BK * ROW + j * 16 * ROW, 1024,
+                          1024));
+}
+
+// The online softmax of one S tile in the log2 domain: sc (the scores of
+// keys k0.., sc[4n + e] at row g + 8 (e >> 1), column k0 + 8n + 2tq +
+// (e & 1)) becomes p; m and l are the rows' running max and this thread's
+// partial sum, corr the factor the rows' O takes
+__device__ __forceinline__ void softmax_tile(float (&sc)[WG_BK / 2],
+                                             float (&m)[2],
+                                             float (&l)[2], float (&corr)[2],
+                                             bool edge, int k0, int t_k,
+                                             int causal, int row_g, int tq,
+                                             float scale_log2) {
+  float mx[2] = {neg_inf(), neg_inf()};
+#pragma unroll
+  for (int n = 0; n < WG_BK / 8; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float x = sc[4 * n + e] * scale_log2;
+      if (edge) {
+        const int col = k0 + n * 8 + 2 * tq + (e & 1);
+        const int row = row_g + 8 * (e >> 1);
+        if (col >= t_k) {
+          x = neg_inf();   // not a key: weight 0
+        } else if (causal && row < col) {
+          x = MASKED;
+        }
+      }
+      sc[4 * n + e] = x;
+      mx[e >> 1] = fmaxf(mx[e >> 1], x);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+    const float m_new = fmaxf(m[i], mx[i]);
+    corr[i] = exp2f(m[i] - m_new);
+    m[i] = m_new;
+    l[i] *= corr[i];
+  }
+#pragma unroll
+  for (int e = 0; e < WG_BK / 2; ++e) {
+    sc[e] = exp2f(sc[e] - m[(e >> 1) & 1]);
+    l[(e >> 1) & 1] += sc[e];
+  }
+}
+
+// O *= corr by rows; P (sc) as the A operand of P V: k-step j (keys
+// 16j..16j+15) is n-tiles 2j and 2j + 1 of S, {tile 2j row g, tile 2j row
+// g+8, tile 2j+1 row g, tile 2j+1 row g+8}
+template <typename T, int DC>
+__device__ __forceinline__ void rescale_and_pack(
+    float (&acc)[DC][32], uint32_t (&pa)[WG_BK / 16][4],
+    const float (&sc)[WG_BK / 2], const float (&corr)[2]) {
+#pragma unroll
+  for (int c = 0; c < DC; ++c)
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      acc[c][4 * n] *= corr[0];
+      acc[c][4 * n + 1] *= corr[0];
+      acc[c][4 * n + 2] *= corr[1];
+      acc[c][4 * n + 3] *= corr[1];
+    }
+#pragma unroll
+  for (int j = 0; j < WG_BK / 16; ++j)
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int n = 2 * j + u;
+      pa[j][2 * u] = pack2<T>(sc[4 * n], sc[4 * n + 1]);
+      pa[j][2 * u + 1] = pack2<T>(sc[4 * n + 2], sc[4 * n + 3]);
+    }
+}
+
+// S = Q K^T over all of d into sc (overwritten: the first k-step's scale-d
+// is 0): k-step kk reads 16 columns of box kk / 4, 32 bytes into its
+// 128-byte rows (the swizzle is applied to the address, so a step inside a
+// 1024-byte atom moves the start). Issued and committed, not waited for
+template <typename T, int DP>
+__device__ __forceinline__ void issue_qk(float (&sc)[WG_BK / 2], uint32_t q_s,
+                                         uint32_t k_tile) {
+#pragma unroll
+  for (int kk = 0; kk < DP / 16; ++kk) {
+    const uint32_t off = (kk % 4) * 32;
+    wgmma_ss<T>(sc, desc128(q_s + (kk / 4) * WG_BQ * ROW + off, 16, 1024),
+                desc128(k_tile + (kk / 4) * WG_BK * ROW + off, 16, 1024),
+                kk > 0);
+  }
+  wgmma_commit();
+}
+
+template <typename T, int DP>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+flash_fwd_tc_wg(const __grid_constant__ CUtensorMap q_map,
+                const __grid_constant__ CUtensorMap k_map,
+                const __grid_constant__ CUtensorMap v_map,
+                uint16_t* __restrict__ o, int t_q, int t_k, int heads, int d,
+                float scale_log2, int causal, int q_offset) {
+  using L = Layout<DP>;
+  constexpr int DC = L::DC;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
+  uint64_t* k_full = q_full + 1;
+  uint64_t* v_full = k_full + WG_STAGES;
+  uint64_t* k_empty = v_full + WG_STAGES;   // [stage][consumer]
+  uint64_t* v_empty = k_empty + WG_STAGES * WG_CONSUMERS;
+
+  const int bh = blockIdx.x;
+  const int b = bh / heads;
+  const int h = bh % heads;
+  const int nq = (t_q + WG_BQ - 1) / WG_BQ;
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < WG_STAGES; ++s) {
+      mbar_init(k_full + s, 1);
+      mbar_init(v_full + s, 1);
+      for (int w = 0; w < WG_CONSUMERS; ++w) {
+        mbar_init(k_empty + s * WG_CONSUMERS + w, 128);
+        mbar_init(v_empty + s * WG_CONSUMERS + w, 128);
+      }
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // the warpgroup, as a value the compiler knows to be warp-uniform
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (wg == WG_CONSUMERS) {
+    // ---- producer: one thread issues every TMA load
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x % 128 == 0) {
+      int tile[WG_CONSUMERS];
+      int n_kv[WG_CONSUMERS];
+      int n_max = 0;
+      uint32_t q_bytes = 0;
+#pragma unroll
+      for (int w = 0; w < WG_CONSUMERS; ++w) {
+        tile[w] = q_tile(w, nq);
+        n_kv[w] = tile[w] < 0 ? 0
+                  : kv_tiles(tile[w] * WG_BQ, t_q, t_k, causal, q_offset);
+        n_max = max(n_max, n_kv[w]);
+        if (tile[w] >= 0) q_bytes += L::Q_BYTES;
+      }
+      mbar_expect_tx(q_full, q_bytes);
+#pragma unroll
+      for (int w = 0; w < WG_CONSUMERS; ++w) {
+        if (tile[w] < 0) continue;
+#pragma unroll
+        for (int c = 0; c < DC; ++c)
+          tma_load(smem + w * L::Q_BYTES + c * WG_BQ * ROW, &q_map, q_full,
+                   c * BOX, h, tile[w] * WG_BQ, b);
+      }
+      for (int kt = 0; kt < n_max; ++kt) {
+        const int s = kt % WG_STAGES;
+        const int use = kt / WG_STAGES;
+        uint8_t* k_dst = smem + L::K_OFF + s * L::KV_BYTES;
+        uint8_t* v_dst = smem + L::V_OFF + s * L::KV_BYTES;
+        // a stage's K (V) is free once every consumer that read the tile
+        // before is done with its K (V)
+#pragma unroll
+        for (int w = 0; w < WG_CONSUMERS; ++w)
+          if (use > 0 && kt - WG_STAGES < n_kv[w])
+            mbar_wait(k_empty + s * WG_CONSUMERS + w, (use - 1) & 1);
+        mbar_expect_tx(k_full + s, L::KV_BYTES);
+#pragma unroll
+        for (int c = 0; c < DC; ++c)
+          tma_load(k_dst + c * WG_BK * ROW, &k_map, k_full + s, c * BOX, h,
+                   kt * WG_BK, b);
+#pragma unroll
+        for (int w = 0; w < WG_CONSUMERS; ++w)
+          if (use > 0 && kt - WG_STAGES < n_kv[w])
+            mbar_wait(v_empty + s * WG_CONSUMERS + w, (use - 1) & 1);
+        mbar_expect_tx(v_full + s, L::KV_BYTES);
+#pragma unroll
+        for (int c = 0; c < DC; ++c)
+          tma_load(v_dst + c * WG_BK * ROW, &v_map, v_full + s, c * BOX, h,
+                   kt * WG_BK, b);
+      }
+    }
+  } else {
+    // ---- consumer warpgroup wg: 64 Q rows, all of d
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    const int my_tile = q_tile(wg, nq);
+    if (my_tile < 0) return;
+    const int t = threadIdx.x % 128;
+    const int warp = t >> 5;
+    const int lane = t & 31;
+    const int g = lane >> 2;
+    const int tq = lane & 3;
+    const int q0 = my_tile * WG_BQ;
+    const int n_tiles = kv_tiles(q0, t_q, t_k, causal, q_offset);
+    const uint32_t q_s = smem_addr(smem + wg * L::Q_BYTES);
+    const uint32_t k_s = smem_addr(smem + L::K_OFF);
+    const uint32_t v_s = smem_addr(smem + L::V_OFF);
+
+    float acc[DC][32];
+#pragma unroll
+    for (int c = 0; c < DC; ++c)
+#pragma unroll
+      for (int e = 0; e < 32; ++e) acc[c][e] = 0.f;
+    float m[2] = {MASKED, MASKED};
+    float l[2] = {0.f, 0.f};
+    const int row_g = q_offset + q0 + warp * 16 + g;   // key coordinates
+    // P, the A operand of P V. Tile kt's P V is issued right behind tile
+    // kt + 1's Q K^T and runs under its softmax, so P (and O) are not
+    // touched from that issue to the wait that follows the softmax, and
+    // nothing is in flight across iterations
+    uint32_t pa[WG_BK / 16][4];
+
+    mbar_wait(q_full, 0);
+    // a tile crosses the causal diagonal or T_k: masks apply
+    auto edge = [&](int k0) {
+      return k0 + WG_BK > t_k || (causal && q_offset + q0 < k0 + WG_BK - 1);
+    };
+    float sc[WG_BK / 2], corr[2];
+    // tile 0: Q K^T and its softmax alone
+    mbar_wait(k_full, 0);
+    fence_regs(sc);
+    wgmma_fence();
+    issue_qk<T, DP>(sc, q_s, k_s);
+    wgmma_wait_all();
+    fence_regs(sc);
+    mbar_arrive(k_empty + wg);
+    softmax_tile(sc, m, l, corr, edge(0), 0, t_k, causal, row_g, tq,
+                 scale_log2);
+    rescale_and_pack<T, DC>(acc, pa, sc, corr);
+    // tile kt's Q K^T, then tile kt - 1's P V behind it; the softmax of
+    // tile kt runs while P V does; nothing is in flight across iterations
+    for (int kt = 1; kt < n_tiles; ++kt) {
+      const int s = kt % WG_STAGES;
+      const int sp = (kt - 1) % WG_STAGES;
+      mbar_wait(k_full + s, (kt / WG_STAGES) & 1);
+      fence_regs(sc);
+#pragma unroll
+      for (int c = 0; c < DC; ++c) fence_regs(acc[c]);
+#pragma unroll
+      for (int j = 0; j < WG_BK / 16; ++j) fence_regs(pa[j]);
+      wgmma_fence();
+      issue_qk<T, DP>(sc, q_s, k_s + s * L::KV_BYTES);
+      mbar_wait(v_full + sp, ((kt - 1) / WG_STAGES) & 1);
+      issue_pv<T, DC>(acc, pa, v_s + sp * L::KV_BYTES);
+      wgmma_commit();
+      wgmma_wait_one();   // Q K^T is done; P V runs on
+      fence_regs(sc);
+      mbar_arrive(k_empty + s * WG_CONSUMERS + wg);
+      softmax_tile(sc, m, l, corr, edge(kt * WG_BK), kt * WG_BK, t_k,
+                   causal, row_g, tq, scale_log2);
+      wgmma_wait_all();
+#pragma unroll
+      for (int c = 0; c < DC; ++c) fence_regs(acc[c]);
+#pragma unroll
+      for (int j = 0; j < WG_BK / 16; ++j) fence_regs(pa[j]);
+      mbar_arrive(v_empty + sp * WG_CONSUMERS + wg);
+      rescale_and_pack<T, DC>(acc, pa, sc, corr);
+    }
+    // the last tile's P V
+    const int sl = (n_tiles - 1) % WG_STAGES;
+    mbar_wait(v_full + sl, ((n_tiles - 1) / WG_STAGES) & 1);
+#pragma unroll
+    for (int c = 0; c < DC; ++c) fence_regs(acc[c]);
+#pragma unroll
+    for (int j = 0; j < WG_BK / 16; ++j) fence_regs(pa[j]);
+    wgmma_fence();
+    issue_pv<T, DC>(acc, pa, v_s + sl * L::KV_BYTES);
+    wgmma_commit();
+    wgmma_wait_all();
+#pragma unroll
+    for (int c = 0; c < DC; ++c) fence_regs(acc[c]);
+    mbar_arrive(v_empty + sl * WG_CONSUMERS + wg);
+
+    // epilogue: rows g and g + 8 of this warp, columns 64c + 8n + 2tq + {0,
+    // 1}; d % 8 == 0, so col < d implies col + 1 < d
+    const int rs = heads * d;
+    uint16_t* o_bh = o + ((int64_t)b * t_q * heads + h) * d;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float li = l[i];
+      li += __shfl_xor_sync(0xffffffffu, li, 1);
+      li += __shfl_xor_sync(0xffffffffu, li, 2);
+      const int r = q0 + warp * 16 + g + 8 * i;
+      if (r >= t_q) continue;
+      const float inv = 1.f / fmaxf(li, 1e-20f);
+      uint16_t* o_row = o_bh + (int64_t)r * rs;
+#pragma unroll
+      for (int c = 0; c < DC; ++c)
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          const int col = c * BOX + n * 8 + 2 * tq;
+          if (col < d)
+            *reinterpret_cast<uint32_t*>(o_row + col) =
+                pack2<T>(acc[c][4 * n + 2 * i] * inv,
+                         acc[c][4 * n + 2 * i + 1] * inv);
+        }
+    }
+  }
+}
+
+}  // namespace wgk
+
 // ---------------------------------------------------------------- launch
 
 // Let `kernel` use `bytes` of dynamic shared memory on the current device;
@@ -672,14 +1230,106 @@ cudaError_t launch_split(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
+// cuTensorMapEncodeTiled from the driver through the runtime, so that the
+// library needs no -lcuda
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) {
+      cudaGetLastError();
+      p = nullptr;
+    }
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// The (d, H, T, B) tensor map of a contiguous (B, T, H, D) 16-bit tensor,
+// boxes of 64 elements of d by `rows` rows under the 128-byte swizzle;
+// elements outside the tensor read as zero
+template <typename T>
+cudaError_t tensor_map(CUtensorMap* map, const void* ptr, int batch, int t,
+                       int heads, int d, int rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)heads, (cuuint64_t)t,
+                              (cuuint64_t)batch};
+  const cuuint64_t strides[3] = {(cuuint64_t)d * 2,
+                                 (cuuint64_t)heads * d * 2,
+                                 (cuuint64_t)t * heads * d * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)wgk::BOX, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult r = encode(
+      map,
+      std::is_same_v<T, __nv_bfloat16> ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                       : CU_TENSOR_MAP_DATA_TYPE_FLOAT16,
+      4, const_cast<void*>(ptr), dims, strides, box, elem,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <typename T, int DP>
+cudaError_t launch_wg(const void* q, const void* k, const void* v, void* o,
+                      int batch, int t_q, int t_k, int heads, int d,
+                      float scale, int causal, int q_offset,
+                      cudaStream_t stream) {
+  using namespace wgk;
+  static std::atomic<uint64_t> smem_set{0};
+  constexpr size_t smem = Layout<DP>::BYTES;
+  cudaError_t err = allow_smem(flash_fwd_tc_wg<T, DP>, smem, smem_set);
+  if (err != cudaSuccess) return err;
+  CUtensorMap qm, km, vm;
+  if ((err = tensor_map<T>(&qm, q, batch, t_q, heads, d, WG_BQ)) !=
+          cudaSuccess ||
+      (err = tensor_map<T>(&km, k, batch, t_k, heads, d, WG_BK)) !=
+          cudaSuccess ||
+      (err = tensor_map<T>(&vm, v, batch, t_k, heads, d, WG_BK)) !=
+          cudaSuccess)
+    return err;
+  const int nq = (t_q + WG_BQ - 1) / WG_BQ;
+  dim3 grid(batch * heads, (nq + 1) / 2);   // two Q tiles a block
+  flash_fwd_tc_wg<T, DP><<<grid, WG_THREADS, smem, stream>>>(
+      qm, km, vm, static_cast<uint16_t*>(o), t_q, t_k, heads, d,
+      scale * LOG2E, causal, q_offset);
+  return cudaGetLastError();
+}
+
 template <typename T, int VEC>
 cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o,
                        int batch, int t_q, int t_k, int heads, int d,
                        float scale, int causal, int q_offset,
                        cudaStream_t stream) {
-  if (d > DC)
+  if (d > DC) {
+    // 16-byte rows up to 256 wide: the wgmma/TMA kernel (TMA needs 16-byte
+    // aligned rows and bases); wider rows or element-wise loads: the split
+    // over d
+    if constexpr (VEC == 16) {
+      if (d <= 192)
+        return launch_wg<T, 192>(q, k, v, o, batch, t_q, t_k, heads, d,
+                                 scale, causal, q_offset, stream);
+      if (d <= 256)
+        return launch_wg<T, 256>(q, k, v, o, batch, t_q, t_k, heads, d,
+                                 scale, causal, q_offset, stream);
+    }
     return launch_split<T, VEC>(q, k, v, o, batch, t_q, t_k, heads, d, scale,
                                 causal, q_offset, stream);
+  }
   if (d <= 32)
     return launch<T, 32, VEC>(q, k, v, o, batch, t_q, t_k, heads, d, scale,
                               causal, q_offset, stream);

@@ -6,7 +6,8 @@ fp32 runs on CUDA cores (``csrc/flash_attention_fwd.cu``), bf16 and fp16 on
 the tensor cores (``csrc/flash_attention_fwd_tc.cu``). Both stream K/V tiles
 through shared memory with an online softmax, so the (T, T) score matrix
 never reaches device memory. Any head dim runs: up to 128 in the tuned
-instantiations, above it in each source's split-over-d kernel
+instantiations; above it, bf16/fp16 up to 256 with 16-byte rows in a kernel
+on ``wgmma`` and TMA, everything else in each source's split-over-d kernel
 (:func:`launch_plan`). Each is built with ``nvcc`` at first use and
 called through ``ctypes``.
 
@@ -15,8 +16,9 @@ by the device of its inputs: a CUDA tensor launches the kernel (or raises),
 a CPU tensor takes the plain version :func:`flash_attention_reference`, and a
 ``meta`` tensor returns an empty result of the right shape for shape
 inference. Only CUDA launches count: in ``flash_attention.launches``, and
-by input dtype in ``flash_attention.launches_by_dtype``, which tells which
-of the two kernels a path ran.
+by input dtype in ``flash_attention.launches_by_dtype`` and by kernel (the
+names of :func:`launch_plan`) in ``flash_attention.launches_by_kernel``,
+which tell which kernel a path ran.
 
 The gradient is the reference's ``custom_vjp`` (``bwd`` of its
 ``flash_attention``) as a ``torch.autograd.Function``: the forward is the
@@ -46,7 +48,11 @@ _KERNELS = {
 }
 # the kernels' grid limits: batch * heads on x, Q tiles on y, d-chunks on z
 _MAX_GRID = (2 ** 31 - 1, 65535, 65535)
-_SPLIT_D = 128   # a head dim above this runs the split-over-d kernel
+_SPLIT_D = 128   # a head dim above this runs the split-over-d kernel,
+_WG_D = 256      # or, for bf16/fp16 with 16-byte copies, up to this the
+_WG_ROWS = 128   # wgmma/TMA kernel, whose block holds two 64-row Q tiles
+_PLANS = ("flash_fwd_f32", "flash_fwd_f32_split", "flash_fwd_tc",
+          "flash_fwd_tc_split", "flash_fwd_tc_wg")
 
 
 def use_flash(t_len: int, block: int = 128, on_accel: bool = False) -> bool:
@@ -106,22 +112,31 @@ def _check(q, k, v, q_offset):
         raise MXNetError(f"flash_attention: q_offset {q_offset} < 0")
 
 
-def launch_plan(dtype, batch, t_q, heads, d):
+def launch_plan(dtype, batch, t_q, heads, d, copy=16):
     """``(kernel, width, grid)`` of a CUDA launch, as the C entries choose
-    them: a head dim up to 128 runs the smallest instantiation (``width``
-    32, 64 or 128) that holds it, on ``(batch * heads, Q tiles, 1)``; a
-    larger one runs the split-over-d kernel (``*_split``, width 128) with
-    its 128-wide chunks of d on the grid's z. Q tiles are 128 rows in fp32
-    up to width 64 and 64 rows otherwise. Raises where a grid dimension
-    passes the card's limit (x < 2^31, y and z <= 65535)."""
+    them for copies of ``copy`` bytes (:func:`copy_bytes`): a head dim up to
+    128 runs the smallest instantiation (``width`` 32, 64 or 128) that
+    holds it, on ``(batch * heads, Q tiles, 1)``. Above 128 the route is by
+    shape: bf16/fp16 up to 256 with 16-byte copies (what TMA needs) runs
+    ``flash_fwd_tc_wg`` (width 192 or 256, all of d in one block; a block
+    holds two 64-row Q tiles, of which the causal pairing takes tiles i and
+    n - 1 - i); wider heads, fp32 and the 2-byte copies run the
+    split-over-d kernel (``*_split``, width 128) with its 128-wide chunks
+    of d on the grid's z. Q tiles are 128 rows in fp32 up to width 64 and
+    64 rows otherwise. Raises where a grid dimension passes the card's
+    limit (x < 2^31, y and z <= 65535)."""
     base = "flash_fwd_f32" if dtype == torch.float32 else "flash_fwd_tc"
-    if d > _SPLIT_D:
-        name, width, rows = base + "_split", _SPLIT_D, 64
-    else:
+    chunks = 1
+    if d <= _SPLIT_D:
         width = 32 if d <= 32 else 64 if d <= 64 else 128
         name = base
         rows = 128 if dtype == torch.float32 and width <= 64 else 64
-    grid = (batch * heads, -(-t_q // rows), -(-d // width))
+    elif base == "flash_fwd_tc" and copy == 16 and d <= _WG_D:
+        name, width, rows = base + "_wg", 192 if d <= 192 else 256, _WG_ROWS
+    else:
+        name, width, rows = base + "_split", _SPLIT_D, 64
+        chunks = -(-d // width)
+    grid = (batch * heads, -(-t_q // rows), chunks)
     for n, lim, what in zip(grid, _MAX_GRID,
                             ("batch * heads", "Q tiles", "d-chunks")):
         if n > lim:
@@ -137,8 +152,6 @@ def _check_cuda(q, k, v):
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise MXNetError("flash_attention: the CUDA kernel needs contiguous "
                          "q, k, v")
-    b, t_q, h, d = q.shape
-    launch_plan(q.dtype, b, t_q, h, d)
 
 
 def entry(lib, name="mxtt_flash_attention_fwd"):
@@ -157,20 +170,22 @@ def _launch(q, k, v, causal, scale, q_offset):
     from .. import _native
 
     lib, name, code = _KERNELS[q.dtype]
-    fn = entry(_native.load(lib), name)
     b, t_q, h, d = q.shape
     out = torch.empty_like(q)
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+    copy = copy_bytes(d, *ptrs, itemsize=q.element_size())
+    plan = launch_plan(q.dtype, b, t_q, h, d, copy)[0]
+    fn = entry(_native.load(lib), name)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(*ptrs, b, t_q, k.shape[1], h, d, float(scale),
-                 int(bool(causal)), int(q_offset), code,
-                 copy_bytes(d, *ptrs, itemsize=q.element_size()), stream)
+                 int(bool(causal)), int(q_offset), code, copy, stream)
     if err != 0:
         raise MXNetError(f"flash_attention: CUDA kernel launch failed "
                          f"(cudaError_t {err})")
     flash_attention.launches += 1
     flash_attention.launches_by_dtype[_dtype_name(q.dtype)] += 1
+    flash_attention.launches_by_kernel[plan] += 1
     return out
 
 
@@ -233,6 +248,7 @@ def reset_launches():
     flash_attention.launches = 0
     flash_attention.launches_by_dtype = {
         _dtype_name(t): 0 for t in _KERNELS}
+    flash_attention.launches_by_kernel = {name: 0 for name in _PLANS}
 
 
 reset_launches()

@@ -53,15 +53,22 @@ def _at_offset(x, offset):
     (True, 0, 127, 127, 128, 0), (True, 130, 60, 190, 64, 0),
     (True, 0, 100, 100, 16, 0), (True, 3, 96, 99, 48, 0),
     (False, 0, 150, 150, 80, 0), (True, 0, 70, 70, 50, 1),
-    # head dims above 128: the split-over-d kernels, 128-wide chunks of d
-    # (160 and 200 end in a partial chunk), causal and not, with q_offset,
-    # 130 on the tensor-core kernel's element-wise loads, and views at an
-    # offset of one element
+    # head dims above 128: fp32's split over d (128-wide chunks; 160 and
+    # 200 end in a partial chunk); bf16/fp16's wgmma/TMA kernel (all of d
+    # in a block of two 64-row Q tiles; 160 and 200 end in a partial
+    # 64-wide box, filled with zeros by TMA), causal and not, ragged T,
+    # with q_offset; 130 (rows not 16-byte aligned in 16 bits) and views at
+    # an offset of one element on the split's element-wise loads
     (True, 32, 100, 132, 160, 0), (False, 16, 90, 70, 160, 0),
     (True, 0, 129, 129, 200, 0), (False, 8, 64, 77, 200, 0),
     (True, 64, 130, 194, 256, 0), (False, 0, 70, 140, 256, 0),
     (True, 0, 100, 100, 130, 0), (True, 0, 70, 70, 200, 1),
-    (True, 5, 33, 38, 256, 1)])
+    (True, 5, 33, 38, 256, 1),
+    # d = 192 (the 192-wide instantiation), and t_q above two Q tiles: odd
+    # and even tile counts pair tiles i and n - 1 - i across blocks
+    (True, 0, 200, 200, 192, 0), (False, 3, 77, 150, 192, 0),
+    (True, 0, 333, 333, 256, 0), (True, 40, 300, 340, 160, 0),
+    (False, 0, 520, 390, 256, 0)])
 def test_cuda_kernel_matches_plain(dtype, tol, causal, q_offset, t_q, t_k, d,
                                    offset):
     if not torch.cuda.is_available():
@@ -75,9 +82,19 @@ def test_cuda_kernel_matches_plain(dtype, tol, causal, q_offset, t_q, t_k, d,
     assert tfa.copy_bytes(d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                           itemsize=item) == (16 if aligned else item)
     before = tfa.flash_attention.launches
+    plan = tfa.launch_plan(dtype, 2, t_q, 3, d, 16 if aligned else item)[0]
+    by_kernel = tfa.flash_attention.launches_by_kernel[plan]
     got = tfa.flash_attention(q, k, v, causal=causal, q_offset=q_offset)
     torch.cuda.synchronize()
     assert tfa.flash_attention.launches == before + 1
+    # the kernel of the route: above 128, bf16/fp16 with 16-byte rows up to
+    # 256 run flash_fwd_tc_wg, the rest the split over d
+    assert tfa.flash_attention.launches_by_kernel[plan] == by_kernel + 1
+    if d > 128:
+        wg = dtype != torch.float32 and aligned and d <= 256
+        assert plan == ("flash_fwd_tc_wg" if wg else
+                        "flash_fwd_f32_split" if dtype == torch.float32
+                        else "flash_fwd_tc_split")
     want = tfa.flash_attention_reference(q.float(), k.float(), v.float(),
                                          causal=causal, q_offset=q_offset)
     assert got.dtype == dtype
