@@ -2,8 +2,8 @@
 
 Drives the port's main paths at the repo's accelerator width (vocab 32768,
 hidden 1024, 16 heads, 12 layers, T=2048): transformer-LM inference through
-``Predictor`` in fp32, the imperative path, the LM through
-``Executor(amp_dtype="bfloat16")``, its training through
+``Predictor`` in fp32 (16 heads of 64, and 4 of 256), the imperative path,
+the LM through ``Executor(amp_dtype="bfloat16")``, its training through
 ``Module(amp="bfloat16")``, ResNet-50 training through ``Module.fit``, and
 from a RecordIO file through ``train_imagenet.py``, and the LSTM-PTB
 language model through ``BucketingModule`` and ``lstm_bucketing.py``, then
@@ -21,13 +21,17 @@ result line:
    and from the port's Convolution (which takes it off cuDNN with TF32
    off) against float64, the port's held to 1e-5 of max-abs;
 2. build: the kernels from ``mxnet_tpu_torch/csrc`` with nvcc (set-up);
+   ptxas's registers of ``flash_fwd_f32_wide``'s four instantiations,
+   none of which may spill;
 3. kernel vs plain: the flash-attention kernels against their plain version
    at the main path's shape, at ragged shapes with ``q_offset``, at head
    dims 128 and 50 (the 4-byte copy path in fp32, the element-wise path of
-   the tensor-core kernel in bf16), 256 (fp32's split over d; bf16 and
-   fp16 on the wgmma/TMA kernel), 192 (bf16 and fp16, the wgmma/TMA
-   kernel), 320 (bf16 and fp16) and 256 at an offset of one element
-   (bf16): the tensor-core split over d, in
+   the tensor-core kernel in bf16), 256 (fp32 on its wide kernel, causal
+   and not, and at an offset of one element; bf16 and fp16 on the
+   wgmma/TMA kernel), 192 (fp32's wide kernel; bf16 and fp16, the
+   wgmma/TMA kernel), 200 (fp32's wide kernel), 320 (each dtype's split
+   over d) and 256 at an offset of one element (bf16): the tensor-core
+   split over d, in
    fp32 (CUDA cores), bf16 and fp16 (tensor cores), each row naming the
    kernel that ran, timed per call (as in earlier slices) and on the
    device alone, beside the plain version and a library attention call,
@@ -41,9 +45,14 @@ result line:
    (``Executor.eager_forward``), host ms each, and the output copy's ms;
    one more steady request under ``torch.profiler`` splits the device time
    into the flash kernel, the GEMMs and the rest, beside the idle share;
+   4(b). the same LM and weights in 4 heads of 256 (fp32, the head-dim-256
+   path): 2 requests through the captured forward, each traced (12
+   ``flash_fwd_f32_wide`` kernels a request, no other flash kernel, and
+   their device ms), probabilities checked, request ms captured and eager;
 5. card vs CPU: the same weights at depth 2 on cuda:0 (kernel, launched
    once per layer) and on the CPU (plain versions) must agree, in
-   probabilities and in log-probabilities;
+   probabilities and in log-probabilities, in 16 heads of 64 and in 4
+   heads of 256 (``flash_fwd_f32_wide``);
 6. rtc kernel vs plain: the two user kernels compiled through NVRTC
    (``mxnet_tpu_torch/rtc_examples.py``): axpy through ``CudaKernel`` at the
    phase-4 logits shape in fp32 and bf16, at a ragged size and on inputs
@@ -517,6 +526,39 @@ def phase_build():
         print(f"  built {os.path.relpath(path)} in {lib_s:.2f} s", flush=True)
         out[name + "_s"] = lib_s
     print(f"  both in {secs:.2f} s", flush=True)
+    log = _native.BUILD_LOGS.get("flash_attention_fwd")
+    if log is None:
+        print("  flash_attention_fwd reused: its ptxas report not read",
+              flush=True)
+    else:
+        wide = ptxas_report(log, "flash_fwd_f32_wide")
+        out["ptxas_flash_fwd_f32_wide"] = wide
+        print("  ptxas flash_fwd_f32_wide: " + json.dumps(wide), flush=True)
+        check(len(wide) == 4 and all(
+            r["spill_stores"] == 0 == r["spill_loads"]
+            for r in wide.values()),
+            "ptxas: every flash_fwd_f32_wide instantiation (192 and 256 "
+            "wide, 16- and 4-byte copies) without spills")
+    return out
+
+
+def ptxas_report(log, kernel):
+    """Registers and spill bytes that ``ptxas -v`` reports for each
+    instantiation of ``kernel`` (keyed by its template arguments)."""
+    out = {}
+    for block in log.split("Compiling entry function")[1:]:
+        head = block.splitlines()[0]
+        if kernel + "I" not in head:
+            continue
+        args = re.search(kernel + r"I(.*?)EEv", head)
+        key = ",".join(re.findall(r"Li(\d+)E", args.group(1) + "E")) \
+            if args else head.strip()
+        regs = re.search(r"Used (\d+) registers", block)
+        stores = re.search(r"(\d+) bytes spill stores", block)
+        loads = re.search(r"(\d+) bytes spill loads", block)
+        out[key] = {"registers": int(regs.group(1)) if regs else None,
+                    "spill_stores": int(stores.group(1)) if stores else None,
+                    "spill_loads": int(loads.group(1)) if loads else None}
     return out
 
 
@@ -569,10 +611,24 @@ def phase_kernel_vs_plain(seed):
         # d = 50: rows of 100 bytes, the element-wise load path
         ("ragged_d50_bf16_causal", (BATCH, 1500, HEADS, 50), 1500, True, 0,
          torch.bfloat16, 2e-2),
-        # head dim 256 (hidden 1024 in 4 heads): fp32's split over d; bf16
-        # and fp16 on the wgmma/TMA kernel (phase 8's d = 256 path), also
-        # at d = 192 (its 192-wide instantiation)
+        # head dim 256 (hidden 1024 in 4 heads): fp32 on its wide kernel
+        # (phase 4(b)'s path), causal and not, 192-wide, ragged d (zero past
+        # 200 in the 256-wide instantiation) and views at an offset of one
+        # element (4-byte copies); bf16 and fp16 on the wgmma/TMA kernel
+        # (phase 8's d = 256 path), also at d = 192 (its 192-wide
+        # instantiation)
         ("d256_fp32_causal", (BATCH, SEQ, HEADS // 4, 256), SEQ, True, 0,
+         torch.float32, 1e-4),
+        ("d256_fp32_noncausal", (BATCH, SEQ, HEADS // 4, 256), SEQ, False,
+         0, torch.float32, 1e-4),
+        ("d192_fp32_causal", (BATCH, SEQ, HEADS // 4, 192), SEQ, True, 0,
+         torch.float32, 1e-4),
+        ("d200_fp32_causal", (BATCH, SEQ, HEADS // 4, 200), SEQ, True, 0,
+         torch.float32, 1e-4),
+        ("d256_fp32_causal_offset1", (BATCH, SEQ, HEADS // 4, 256), SEQ,
+         True, 0, torch.float32, 1e-4, 1),
+        # fp32 wider than 256: the split over d
+        ("d320_fp32_causal", (BATCH, SEQ, HEADS // 4, 320), SEQ, True, 0,
          torch.float32, 1e-4),
         ("d256_bf16_causal", (BATCH, SEQ, HEADS // 4, 256), SEQ, True, 0,
          torch.bfloat16, 2e-2),
@@ -619,7 +675,12 @@ def phase_kernel_vs_plain(seed):
         # not the library's, so there is no single call for that case
         library_ms = library_device_ms = None
         if not (causal and q_off):
-            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            # fp32 views 4 bytes off 16-byte alignment fault in the
+            # library's kernel (misaligned address on the card): it takes
+            # aligned copies of them
+            lib_in = [x.clone() if offset and dtype == torch.float32 else x
+                      for x in (q, k, v)]
+            qt, kt, vt = (x.transpose(1, 2) for x in lib_in)
 
             def library():
                 return F.scaled_dot_product_attention(qt, kt, vt,
@@ -675,9 +736,11 @@ def make_weights(symbol, input_shapes, seed):
     return weights
 
 
-def lm_predictor(mx, layers, batch, weights, ctx):
+def lm_predictor(mx, layers, batch, weights, ctx, heads=HEADS):
+    """The LM bound through ``Predictor`` in fp32; the heads split the
+    same weights."""
     symbol = mx.models.transformer_lm.get_symbol(
-        vocab_size=VOCAB, num_layers=layers, hidden=HIDDEN, heads=HEADS,
+        vocab_size=VOCAB, num_layers=layers, hidden=HIDDEN, heads=heads,
         seq_len=SEQ)
     shapes = {"data": (batch, SEQ), "softmax_label": (batch, SEQ)}
     names = [n for n in symbol.list_arguments() if n not in shapes]
@@ -816,27 +879,116 @@ def phase_slice(mx, layers, seed):
     return out, weights, last_probs
 
 
-def phase_card_vs_cpu(mx, weights, seed):
+def phase_slice_d256(mx, weights, seed):
+    """Phase 4(b): the same LM at hidden 1024 in ``AMP_D256_HEADS`` heads of
+    256 (the phase-4 weights; the heads only reshape them), in fp32 through
+    ``Predictor``, answers ``AMP_D256_REQUESTS`` requests of 2 x 2048
+    tokens through the captured forward, each under the profiler, which
+    counts the flash kernels the card ran in it (12 a request, all
+    ``flash_fwd_f32_wide``) and their device ms; probabilities checked;
+    then the requests captured and through the eager walk in turns, host ms
+    each."""
     import torch
 
     from mxnet_tpu_torch.ops.flash_attention import (flash_attention,
                                                      reset_launches)
 
+    heads = AMP_D256_HEADS
+    print(f"phase 4(b): the slice at {heads} heads of {HIDDEN // heads} "
+          f"(fp32; {LAYERS} layers, batch {BATCH}, T {SEQ}, "
+          f"{AMP_D256_REQUESTS} requests)", flush=True)
+    t0 = time.perf_counter()
+    pred = lm_predictor(mx, LAYERS, BATCH, weights, mx.gpu(0), heads=heads)
+    torch.cuda.synchronize()
+    bind_s = time.perf_counter() - t0
+    rng = np.random.default_rng(seed + 12)
+    batches = [rng.integers(0, VOCAB, (BATCH, SEQ)).astype(np.float32)
+               for _ in range(AMP_D256_REQUESTS)]
+    ex = pred._executor
+
+    def feed(x):
+        pred.set_input("data", x)
+
+    def forward():
+        return pred.forward().get_output_nd(0).data
+
+    reset_launches()
+    traced, traced_wide, flash_ms = [], [], []
+    for x in batches:
+        feed(x)
+        counts, got = {}, []
+        by_name, _ = traced_groups(lambda: got.append(forward()), {}, counts)
+        traced.append(sum(counts[k] for k in by_name if "flash_fwd" in k))
+        traced_wide.append(sum(counts[k] for k in by_name
+                               if "flash_fwd_f32_wide" in k))
+        flash_ms.append(sum(t for k, t in by_name.items()
+                            if "flash_fwd_f32_wide" in k))
+        check_probs(got[0])
+    by_kernel = dict(flash_attention.launches_by_kernel)
+    info = ex.forward_info()
+    ms = timed_requests(batches, feed, forward,
+                        lambda: ex.eager_forward()[0])
+    steady = float(np.median(ms["captured"]))
+    out = {"heads": heads, "head_dim": HIDDEN // heads, "bind_s": bind_s,
+           "request_ms": ms["captured"], "steady_request_ms": steady,
+           "eager_request_ms": ms["eager"],
+           "steady_eager_request_ms": float(np.median(ms["eager"])),
+           "tokens_per_s": BATCH * SEQ / (steady / 1e3),
+           "launches": sum(traced_wide), "launches_traced": traced,
+           "launches_traced_wide": traced_wide,
+           "flash_device_ms_traced": flash_ms,
+           "wrapper_calls": by_kernel, "forward": info}
+    print("  " + json.dumps(out), flush=True)
+    check(traced == [LAYERS] * AMP_D256_REQUESTS and traced_wide == traced,
+          f"the card ran {LAYERS} flash kernels in each captured request at "
+          f"{heads} heads of {HIDDEN // heads}, all flash_fwd_f32_wide "
+          f"(traced: {traced}, of them flash_fwd_f32_wide: {traced_wide})")
+    check(by_kernel["flash_fwd_f32_wide"] == 2 * LAYERS
+          and sum(by_kernel.values()) == 2 * LAYERS,
+          f"the flash wrapper launched flash_fwd_f32_wide {2 * LAYERS} times "
+          f"(the warm-up's and the capture's) and no other kernel "
+          f"({by_kernel})")
+    check(info["captures"] == 1 and info["drops"] == 0,
+          f"one capture for the Predictor's binding ({info})")
+    del pred, ex
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_card_vs_cpu(mx, weights, seed):
+    """The same weights at depth 2 (batch 1, T 2048) on the card and on the
+    CPU, in 16 heads of 64 (``flash_fwd_f32``) and in ``AMP_D256_HEADS``
+    heads of 256 (``flash_fwd_f32_wide``), under the same limits."""
     print("phase 5: card vs CPU at depth 2 (batch 1, T 2048)", flush=True)
     x = np.random.default_rng(seed + 2).integers(
         0, VOCAB, (1, SEQ)).astype(np.float32)
-    outs, launches = {}, {}
+    out = card_vs_cpu_at(mx, weights, x, HEADS, "flash_fwd_f32")
+    out["d256"] = card_vs_cpu_at(mx, weights, x, AMP_D256_HEADS,
+                                 "flash_fwd_f32_wide")
+    return out
+
+
+def card_vs_cpu_at(mx, weights, x, heads, kernel):
+    import torch
+
+    from mxnet_tpu_torch.ops.flash_attention import (flash_attention,
+                                                     reset_launches)
+
+    print(f"  {heads} heads of {HIDDEN // heads}", flush=True)
+    outs, launches, by_kernel = {}, {}, {}
     for label, ctx in (("gpu", mx.gpu(0)), ("cpu", mx.cpu())):
-        pred = lm_predictor(mx, 2, 1, weights, ctx)
+        pred = lm_predictor(mx, 2, 1, weights, ctx, heads=heads)
         reset_launches()
         pred.forward(data=x)
         outs[label] = pred.get_output(0)
         launches[label] = flash_attention.launches
+        by_kernel[label] = flash_attention.launches_by_kernel[kernel]
         del pred
     torch.cuda.empty_cache()
-    check(launches == {"gpu": 2, "cpu": 0},
-          f"flash kernel launched {launches['gpu']} == 2 times on the card "
-          f"and {launches['cpu']} == 0 on the CPU")
+    check(launches == {"gpu": 2, "cpu": 0} and by_kernel["gpu"] == 2,
+          f"flash kernel launched {launches['gpu']} == 2 times on the card, "
+          f"{by_kernel['gpu']} of them {kernel}, and {launches['cpu']} == 0 "
+          "on the CPU")
     err = float(np.abs(outs["gpu"] - outs["cpu"]).max())
     # log-probabilities hold every probability, the small ones too, to a
     # relative tolerance; underflows clamp alike on both sides
@@ -851,7 +1003,7 @@ def phase_card_vs_cpu(mx, weights, seed):
     check(log_err <= 1e-3,
           f"card vs CPU max abs log-prob err {log_err:.3g} <= 1e-3")
     check(agree >= 0.999, f"argmax agreement {agree:.5f} >= 0.999")
-    return {"max_abs_err": err, "max_abs_log_err": log_err,
+    return {"heads": heads, "max_abs_err": err, "max_abs_log_err": log_err,
             "argmax_agreement": agree, "launches": launches}
 
 
@@ -6345,6 +6497,7 @@ def main(argv=None):
     build = phase_build()
     cases = phase_kernel_vs_plain(args.seed)
     slice_out, weights, probs = phase_slice(mx, LAYERS, args.seed)
+    slice_d256 = phase_slice_d256(mx, weights, args.seed)
     parity = phase_card_vs_cpu(mx, weights, args.seed)
     rtc_cases = phase_rtc_vs_plain(args.seed)
     imperative = phase_imperative(mx, weights, probs, args.seed)
@@ -6408,6 +6561,21 @@ def main(argv=None):
             "captured_training_steps_wrapper_calls":
                 graph["lm"]["wrapper_calls"]["bfloat16"]},
         **{k: tc_case[k] for k in KERNEL_KEYS}})
+    wide_case = cases["d256_fp32_causal"]
+    kernels.append({
+        "name": "flash_attention_fwd_f32_wide",
+        "route": "cuda",
+        "source": "mxnet_tpu_torch/csrc/flash_attention_fwd.cu",
+        "replaces": "mxnet_tpu/ops/flash_attention.py:47",
+        # phase 4(b)'s requests at 4 heads of 256: the kernels the card ran
+        # in them (traced); the wrapper's calls are the warm-up's and the
+        # capture's
+        "launches": slice_d256["launches"],
+        "launches_by_path": {
+            "d256_requests_traced": slice_d256["launches"],
+            "d256_requests_wrapper_calls":
+                slice_d256["wrapper_calls"]["flash_fwd_f32_wide"]},
+        **{k: wide_case[k] for k in KERNEL_KEYS}})
     wg_case = cases["d256_bf16_causal"]
     kernels.append({
         "name": "flash_attention_fwd_tc_wg",
@@ -6434,7 +6602,8 @@ def main(argv=None):
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "build": build, "cases": cases,
-                   "slice": slice_out, "card_vs_cpu": parity,
+                   "slice": slice_out, "slice_d256": slice_d256,
+                   "card_vs_cpu": parity,
                    "rtc_cases": rtc_cases, "imperative": imperative,
                    "amp": amp, "train": train, "fit": fit,
                    "records": records, "ptb": ptb, "step_graph": graph,

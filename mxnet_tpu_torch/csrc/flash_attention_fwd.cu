@@ -56,7 +56,8 @@
 //     at every launch;
 //   * head dims: D=32/64/128 instantiations; any d <= 128 runs in the
 //     smallest that holds it, the columns past d zero in shared memory. A
-//     d above 128 runs flash_fwd_f32_split, a split over d (below).
+//     d from 129 to 256 runs flash_fwd_f32_wide (one block owns all of d,
+//     below), a d above 256 flash_fwd_f32_split (a split over d, below).
 //   The tile sizes were chosen on the card among 64/128 Q rows and 32/64
 //   keys (mxnet_tpu_torch/tools/flash_tile_sweep.py; PERF.md).
 // Measured on an H100 SXM at 700 W: 0.54-0.58 ms at the shape above, 44-48 %
@@ -118,16 +119,16 @@ __device__ __forceinline__ void cp_async(float* dst, const float* src,
 // Start copying rows [row0, row0 + ROWS) of one (batch, head) of a
 // (B, T, H, D) fp32 tensor into a ROWS x (DP + F_PAD) shared tile; rows
 // past t_len and columns past d are zero-filled.
-template <int ROWS, int DP, int VEC>
+template <int ROWS, int DP, int VEC, int THREADS = F_THREADS>
 __device__ __forceinline__ void stage_tile(float* dst, const float* src,
                                            int row0, int t_len,
                                            int row_stride, int d) {
   constexpr int W = VEC / 4;          // floats per copy
   constexpr int PER_ROW = DP / W;
-  static_assert(ROWS * PER_ROW % F_THREADS == 0, "whole copies per thread");
+  static_assert(ROWS * PER_ROW % THREADS == 0, "whole copies per thread");
 #pragma unroll 8
-  for (int it = 0; it < ROWS * PER_ROW / F_THREADS; ++it) {
-    const int e = it * F_THREADS + threadIdx.x;
+  for (int it = 0; it < ROWS * PER_ROW / THREADS; ++it) {
+    const int e = it * THREADS + threadIdx.x;
     const int r = e / PER_ROW;
     const int c = (e % PER_ROW) * W;
     const int row = row0 + r;
@@ -338,17 +339,359 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// ------------------------------------------------- fp32, head dim > 128
+// --------------------------------------------- fp32, head dim 129-256
 
-// flash_fwd_f32_split: any d > 128, split over d. The output's columns go
+// flash_fwd_f32_wide: d from 129 to 256, all of d in one block, so that
+// S = Q K^T is computed once per K tile (the split below computes it once
+// per 128-wide chunk of the output's columns, 1.5x the work at d = 256).
+// Bound at (2, 2048, 4, 256) fp32 causal: the same 17.2 GFLOP as the LM's
+// shape above (B*H*d is equal), 0.257 ms at 67 TFLOP/s.
+//   * one block of 256 threads (8 warps) per (Q-tile pair, batch*head):
+//     instantiations at widths 192 and 256, the columns past d zero in
+//     shared memory; 64 Q rows a tile, 8 a warp; K/V tiles of 32 rows;
+//   * causal balance: block y takes Q tiles n - 1 - y and y of its head one
+//     after the other (an odd count leaves the middle tile alone), so every
+//     block does the same number of K tiles: at (2, 2048, 4, 256) 128 blocks
+//     of 66 K tiles each, one wave on 132 SMs (one tile a block, heaviest
+//     first, reads 3 % faster there: the card's scheduler balances the
+//     256 blocks as well, on all 132 SMs);
+//   * Q is staged once per Q tile; K and V tiles go through a two-stage
+//     cp.async ring, tile n + 1 in flight while tile n computes, as in
+//     flash_fwd_f32, with 16- or 4-byte copies (VEC) and zero-fill past T
+//     and d;
+//   * what sets the pace is shared memory: a warp's LDS.128 delivers 512
+//     bytes, 4 of the SM's 128-byte clocks, broadcast or not, while the SM
+//     issues 4 warp FMAs a clock. A first design with flash_fwd_f32's
+//     layout at 256 threads (8 scores and 2 x 32 outputs a thread: 5.3 and
+//     7.5 FMAs per LDS.128) read 0.747 ms, the time that count predicts.
+//     So the register tiles are as large as 64 x 32 scores over 8 warps
+//     allow:
+//     - Q K^T: warp w takes rows 8w..8w+7 against all 32 keys; lane
+//       (x, ds) = (lane / W_SPLIT, lane % W_SPLIT) sums keys
+//       W_SPLIT x + j (j < W_SPLIT) of its 8 rows over d's float4 chunks
+//       4 ds + 4 W_SPLIT k, a 8 x 8 tile: per float4 chunk, 8 Q and 8 K
+//       LDS.128 (a quarter-warp reads 8 consecutive chunks of one row: no
+//       conflict) for 256 FMAs, 16 per LDS. The 8 lanes' partial sums go
+//       to one lane each by a reduce-scatter of shuffles (56 a tile),
+//       which leaves each lane one row x 8 keys for the softmax. A split
+//       over 4 lanes (8 x 4, 10.7 FMAs per LDS) read 0.546 ms against
+//       0.544 (tools/flash_tile_sweep.py --kernel f32wide);
+//     - P V: thread (ry, cx) owns output rows RM ry + i x columns 4 cx +
+//       4 CT g: 8 rows x 2 float4 groups at width 256 (16 FMAs per LDS),
+//       4 x 3 at 192 (12). Its rows are its warp's, so P, the rows'
+//       corrections and sums pass through shared memory under a
+//       __syncwarp; a K tile needs one __syncthreads (its copy landed,
+//       and every warp is done with the stage the next copy overwrites);
+//   * shared memory (dynamic only): Q 66.6 KB, 2 stages of K and V 133.1 KB,
+//     P 9.2 KB and 64 row values, 209.2 KB at width 256 (160.0 KB at 192):
+//     one block an SM; __launch_bounds__(256, 1) leaves up to 255
+//     registers a thread.
+// Measured on an H100 SXM at 700 W (tools/flash_tile_sweep.py --kernel
+// f32wide; chip_smoke.py phase 3, PERF.md): 0.544 ms at (2, 2048, 4, 256)
+// causal, 47 % of the bound, against 0.587 for scaled_dot_product_attention
+// and 0.912 for the split; 0.430 at d = 192 against 0.529. What it leaves on
+// the table: no tensor cores (3xTF32, ROADMAP B1c); one block an SM, so a
+// barrier's wait is not covered by another block's work; the Q K^T loop
+// not unrolled (unrolled fully it read 0.507 but spilled).
+constexpr int W_THREADS = 256;   // 8 warps, 8 Q rows each
+constexpr int W_BQ = 64;         // Q rows a tile; a block takes two tiles
+constexpr int W_D = 256;         // widest head dim of the kernel
+constexpr int W_SPLIT = 8;       // lanes that split d for one score tile
+constexpr int W_PS = F_BK + 4;   // P row stride: adjacent rows 4 banks apart
+
+// the P V thread tile at width DP: CG float4 column groups, CT threads
+// along the columns, RM rows a thread
+template <int DP>
+struct WideTile {
+  static_assert(DP == 192 || DP == 256, "widths 192 and 256");
+  static_assert(W_SPLIT == 4 || W_SPLIT == 8, "d splits over 4 or 8 lanes");
+  static constexpr int CG = DP == 256 ? 2 : 3;
+  static constexpr int CT = DP / (4 * CG);
+  static constexpr int RM = W_BQ * CT / W_THREADS;
+};
+
+// Round R of the reduce-scatter of 8 rows of partial scores over the
+// SPLIT lanes of a key group: the lane keeps half of its rows (its bit
+// SPLIT >> (R + 1) picks which) and adds the partner's partial sums of
+// them. After the last round s[e] holds row 8 / SPLIT * ds + e. Every
+// index is a constant, so s stays in registers.
+template <int R, int SPLIT, int KPT>
+__device__ __forceinline__ void reduce_scatter(float (&s)[8][KPT], int ds) {
+  if constexpr ((SPLIT >> (R + 1)) > 0) {
+    constexpr int bit = SPLIT >> (R + 1);
+    constexpr int half = 4 >> R;
+    const bool hi = ds & bit;
+#pragma unroll
+    for (int i = 0; i < half; ++i)
+#pragma unroll
+      for (int j = 0; j < KPT; ++j) {
+        const float send = hi ? s[i][j] : s[i + half][j];
+        const float keep = hi ? s[i + half][j] : s[i][j];
+        s[i][j] = keep + __shfl_xor_sync(0xffffffffu, send, bit);
+      }
+    reduce_scatter<R + 1, SPLIT, KPT>(s, ds);
+  }
+}
+
+template <int DP>
+constexpr size_t f32_wide_smem_bytes() {
+  return sizeof(float) * ((size_t)(W_BQ + 4 * F_BK) * (DP + F_PAD) +
+                          (size_t)W_BQ * W_PS + W_BQ);
+}
+
+template <int DP, int VEC>
+__global__ void __launch_bounds__(W_THREADS, 1)
+flash_fwd_f32_wide(const float* __restrict__ q, const float* __restrict__ k,
+                   const float* __restrict__ v, float* __restrict__ o,
+                   int t_q, int t_k, int heads, int d, float scale_log2,
+                   int causal, int q_offset) {
+  using L = WideTile<DP>;
+  constexpr int DS = DP + F_PAD;        // shared row stride of Q, K, V
+  constexpr int STAGE = 2 * F_BK * DS;
+  constexpr int KPT = F_BK * W_SPLIT / 32;   // keys a lane sums
+  constexpr int RPL = 8 / W_SPLIT;      // rows a lane owns in the softmax
+  extern __shared__ float4 smem4[];
+  float* q_s = reinterpret_cast<float*>(smem4);  // W_BQ x DS
+  float* kv_s = q_s + W_BQ * DS;   // 2 stages of [K tile, V tile], F_BK x DS
+  float* p_s = kv_s + 2 * STAGE;   // W_BQ x W_PS
+  float* r_s = p_s + W_BQ * W_PS;  // a row's correction, then its sum
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int ds = lane % W_SPLIT;    // Q K^T: d's float4 chunks 4 ds + ...
+  const int x = lane / W_SPLIT;     // ... for keys KPT x + j
+  const int cx = threadIdx.x % L::CT;   // P V: columns 4 cx + 4 CT g
+  const int ry = threadIdx.x / L::CT;   // rows RM ry + i
+  const int bh = blockIdx.x;
+  const int b = bh / heads;
+  const int h = bh % heads;
+  const int rs = heads * d;         // row stride of (B, T, H, D)
+  const int n_q = (t_q + W_BQ - 1) / W_BQ;
+
+  const float* q_bh = q + ((int64_t)b * t_q * heads + h) * d;
+  const float* k_bh = k + ((int64_t)b * t_k * heads + h) * d;
+  const float* v_bh = v + ((int64_t)b * t_k * heads + h) * d;
+  float* o_bh = o + ((int64_t)b * t_q * heads + h) * d;
+
+  // Q tile n_q - 1 - y (the longer under the causal mask), then tile y
+#pragma unroll 1
+  for (int pass = 0; pass < 2; ++pass) {
+    if (pass == 1) {
+      if (2 * (int)blockIdx.y + 1 >= n_q) break;   // the middle tile, alone
+      // every thread is done with the first tile's Q, K/V stages and P
+      __syncthreads();
+    }
+    const int q_tile =
+        pass == 0 ? n_q - 1 - (int)blockIdx.y : (int)blockIdx.y;
+    const int q0 = q_tile * W_BQ;
+    int n_tiles = (t_k + F_BK - 1) / F_BK;
+    if (causal) {
+      // last query row of this tile, in key coordinates
+      const int last = q_offset + min(q0 + W_BQ, t_q) - 1;
+      n_tiles = min(n_tiles, last / F_BK + 1);
+    }
+
+    stage_tile<W_BQ, DP, VEC, W_THREADS>(q_s, q_bh, q0, t_q, rs, d);
+    stage_tile<F_BK, DP, VEC, W_THREADS>(kv_s, k_bh, 0, t_k, rs, d);
+    stage_tile<F_BK, DP, VEC, W_THREADS>(kv_s + F_BK * DS, v_bh, 0, t_k, rs,
+                                         d);
+    cp_async_commit();
+
+    float acc[L::RM][L::CG][4];
+    float m[RPL], l[RPL];   // l: this lane's partial sums of its rows
+#pragma unroll
+    for (int e = 0; e < RPL; ++e) {
+      m[e] = MASKED;
+      l[e] = 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < L::RM; ++i)
+#pragma unroll
+      for (int g = 0; g < L::CG; ++g)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][g][e] = 0.f;
+
+    for (int kt = 0; kt < n_tiles; ++kt) {
+      const int k0 = kt * F_BK;
+      const float* k_s = kv_s + (kt & 1) * STAGE;
+      const float* v_s = k_s + F_BK * DS;
+      cp_async_wait_all();
+      // tile kt is in for every thread, and every thread is done with
+      // tile kt - 1's stage
+      __syncthreads();
+      if (kt + 1 < n_tiles) {
+        float* nxt = kv_s + ((kt + 1) & 1) * STAGE;
+        stage_tile<F_BK, DP, VEC, W_THREADS>(nxt, k_bh, k0 + F_BK, t_k, rs,
+                                             d);
+        stage_tile<F_BK, DP, VEC, W_THREADS>(nxt + F_BK * DS, v_bh,
+                                             k0 + F_BK, t_k, rs, d);
+        cp_async_commit();
+      }
+
+      // S = Q K^T over this lane's chunks of d: per float4 chunk, KPT K
+      // and 8 Q LDS.128 for 32 KPT FMAs (not unrolled: unrolled by 2 or
+      // fully, the kernel spills at 255 registers)
+      float s[8][KPT];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < KPT; ++j) s[i][j] = 0.f;
+#pragma unroll 1
+      for (int kk = 0; kk < DP / (4 * W_SPLIT); ++kk) {
+        const int c = 4 * (ds + W_SPLIT * kk);
+        float4 kv[KPT];
+#pragma unroll
+        for (int j = 0; j < KPT; ++j)
+          kv[j] = *reinterpret_cast<const float4*>(
+              k_s + (KPT * x + j) * DS + c);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const float4 qv = *reinterpret_cast<const float4*>(
+              q_s + (8 * warp + i) * DS + c);
+#pragma unroll
+          for (int j = 0; j < KPT; ++j) {
+            s[i][j] = fmaf(qv.x, kv[j].x, s[i][j]);
+            s[i][j] = fmaf(qv.y, kv[j].y, s[i][j]);
+            s[i][j] = fmaf(qv.z, kv[j].z, s[i][j]);
+            s[i][j] = fmaf(qv.w, kv[j].w, s[i][j]);
+          }
+        }
+      }
+      reduce_scatter<0, W_SPLIT>(s, ds);
+
+      // online softmax in the log2 domain, as in flash_fwd_f32; the row's
+      // max reduces over its key groups, the lanes W_SPLIT apart
+      const bool edge =
+          k0 + F_BK > t_k || (causal && q_offset + q0 < k0 + F_BK - 1);
+#pragma unroll
+      for (int e = 0; e < RPL; ++e) {
+        const int r = 8 * warp + RPL * ds + e;   // row in the tile
+        const int row = q_offset + q0 + r;
+        float mx = __int_as_float(0xff800000);
+#pragma unroll
+        for (int j = 0; j < KPT; ++j) {
+          float xs = s[e][j] * scale_log2;
+          if (edge) {
+            const int col = k0 + KPT * x + j;
+            if (col >= t_k) {
+              xs = __int_as_float(0xff800000);  // -inf: not a key, weight 0
+            } else if (causal && row < col) {
+              xs = MASKED;
+            }
+          }
+          s[e][j] = xs;
+          mx = fmaxf(mx, xs);
+        }
+#pragma unroll
+        for (int w = W_SPLIT; w < 32; w *= 2)
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, w));
+        const float m_new = fmaxf(m[e], mx);
+        const float corr = exp2f(m[e] - m_new);
+        m[e] = m_new;
+        float sum = 0.f;
+#pragma unroll
+        for (int j = 0; j < KPT; j += 4) {
+          float4 p;
+          p.x = exp2f(s[e][j] - m_new);
+          p.y = exp2f(s[e][j + 1] - m_new);
+          p.z = exp2f(s[e][j + 2] - m_new);
+          p.w = exp2f(s[e][j + 3] - m_new);
+          sum += (p.x + p.y) + (p.z + p.w);
+          *reinterpret_cast<float4*>(p_s + r * W_PS + KPT * x + j) = p;
+        }
+        l[e] = l[e] * corr + sum;
+        if (x == 0) r_s[r] = corr;
+      }
+      // the warp's own rows of P and their corrections are in
+      __syncwarp();
+
+      // O += P V: per 4 keys, RM P and 4 CG V LDS.128 for 16 RM CG FMAs
+#pragma unroll
+      for (int i = 0; i < L::RM; ++i) {
+        const float corr = r_s[L::RM * ry + i];
+#pragma unroll
+        for (int g = 0; g < L::CG; ++g)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][g][e] *= corr;
+      }
+#pragma unroll 2
+      for (int j = 0; j < F_BK; j += 4) {
+        float4 pv[L::RM];
+#pragma unroll
+        for (int i = 0; i < L::RM; ++i)
+          pv[i] = *reinterpret_cast<const float4*>(
+              p_s + (L::RM * ry + i) * W_PS + j);
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+#pragma unroll
+          for (int g = 0; g < L::CG; ++g) {
+            const float4 vv = *reinterpret_cast<const float4*>(
+                v_s + (j + u) * DS + 4 * cx + 4 * L::CT * g);
+#pragma unroll
+            for (int i = 0; i < L::RM; ++i) {
+              const float p = u == 0 ? pv[i].x
+                            : u == 1 ? pv[i].y
+                            : u == 2 ? pv[i].z
+                                     : pv[i].w;
+              acc[i][g][0] = fmaf(p, vv.x, acc[i][g][0]);
+              acc[i][g][1] = fmaf(p, vv.y, acc[i][g][1]);
+              acc[i][g][2] = fmaf(p, vv.z, acc[i][g][2]);
+              acc[i][g][3] = fmaf(p, vv.w, acc[i][g][3]);
+            }
+          }
+        }
+      }
+    }
+
+    // each row's sum over its key groups, passed to the lanes that write
+    // the row (every lane of the warp is done reading the corrections)
+    __syncwarp();
+#pragma unroll
+    for (int e = 0; e < RPL; ++e) {
+      float li = l[e];
+#pragma unroll
+      for (int w = W_SPLIT; w < 32; w *= 2)
+        li += __shfl_xor_sync(0xffffffffu, li, w);
+      if (x == 0) r_s[8 * warp + RPL * ds + e] = li;
+    }
+    __syncwarp();
+#pragma unroll
+    for (int i = 0; i < L::RM; ++i) {
+      const int r = q0 + L::RM * ry + i;
+      if (r >= t_q) continue;
+      const float inv = 1.f / fmaxf(r_s[L::RM * ry + i], 1e-20f);
+      float* o_row = o_bh + (int64_t)r * rs;
+#pragma unroll
+      for (int g = 0; g < L::CG; ++g) {
+        const int col = 4 * cx + 4 * L::CT * g;
+        if constexpr (VEC == 16) {
+          if (col < d)
+            *reinterpret_cast<float4*>(o_row + col) =
+                make_float4(acc[i][g][0] * inv, acc[i][g][1] * inv,
+                            acc[i][g][2] * inv, acc[i][g][3] * inv);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (col + e < d) o_row[col + e] = acc[i][g][e] * inv;
+        }
+      }
+    }
+  }
+}
+
+// ------------------------------------------------- fp32, head dim > 256
+
+// flash_fwd_f32_split: any d above 256 (flash_fwd_f32_wide takes 129-256),
+// split over d. The output's columns go
 // in chunks of S_DC = 128 on gridDim.z; each block accumulates S = Q K^T
 // over the 128-wide d-chunks of Q and K, staged through shared memory one
 // chunk at a time, then adds P V for its own chunk of V's columns. The
 // thread layout, online softmax and masks are flash_fwd_f32's at 64 Q rows
 // and 128 columns. Each of the ceil(d / 128) column chunks computes S
 // again, and the copies of a K/V tile do not overlap its compute: this
-// path is right for any d, not tuned. Shared memory: Q, K and V chunks and
-// P, 77.8 KB.
+// path is right for any d, not tuned (it was the route of d 129-256 until
+// flash_fwd_f32_wide: 0.912 ms at (2, 2048, 4, 256) causal on an H100 SXM
+// at 700 W, PERF.md). Shared memory: Q, K and V chunks and P, 77.8 KB.
 constexpr int S_DC = 128;   // d-chunk width
 constexpr int S_BQ = 64;    // Q rows per block
 
@@ -603,14 +946,39 @@ cudaError_t launch_f32_split(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+template <int DP, int VEC>
+cudaError_t launch_f32_wide(const void* q, const void* k, const void* v,
+                            void* o, int batch, int t_q, int t_k, int heads,
+                            int d, float scale, int causal, int q_offset,
+                            cudaStream_t stream) {
+  static std::atomic<uint64_t> smem_set{0};
+  constexpr size_t smem = f32_wide_smem_bytes<DP>();
+  cudaError_t err = allow_smem(flash_fwd_f32_wide<DP, VEC>, smem, smem_set);
+  if (err != cudaSuccess) return err;
+  // block y takes Q tiles y and n - 1 - y
+  const int n_q = (t_q + W_BQ - 1) / W_BQ;
+  dim3 grid(batch * heads, (n_q + 1) / 2);
+  flash_fwd_f32_wide<DP, VEC><<<grid, W_THREADS, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), t_q, t_k, heads,
+      d, scale * LOG2E, causal, q_offset);
+  return cudaGetLastError();
+}
+
 template <int VEC>
 cudaError_t dispatch_f32(const void* q, const void* k, const void* v, void* o,
                          int batch, int t_q, int t_k, int heads, int d,
                          float scale, int causal, int q_offset,
                          cudaStream_t stream) {
-  if (d > S_DC)
+  if (d > W_D)
     return launch_f32_split<VEC>(q, k, v, o, batch, t_q, t_k, heads, d, scale,
                                  causal, q_offset, stream);
+  if (d > 192)
+    return launch_f32_wide<256, VEC>(q, k, v, o, batch, t_q, t_k, heads, d,
+                                     scale, causal, q_offset, stream);
+  if (d > S_DC)
+    return launch_f32_wide<192, VEC>(q, k, v, o, batch, t_q, t_k, heads, d,
+                                     scale, causal, q_offset, stream);
   if (d <= 32)
     return launch_f32<32, VEC>(q, k, v, o, batch, t_q, t_k, heads, d, scale,
                                causal, q_offset, stream);
@@ -634,11 +1002,14 @@ extern "C" int mxtt_flash_attention_fwd(const void* q, const void* k,
                                         float scale, int causal, int q_offset,
                                         int dtype, int copy_bytes,
                                         void* stream) {
-  // grid: batch * heads on x (< 2^31), Q tiles of at least 64 rows on y and
-  // 128-wide d-chunks on z (each <= 65535)
+  // grid: batch * heads on x (< 2^31); on y Q tiles of at least 64 rows,
+  // or pairs of 64-row tiles (flash_fwd_f32_wide, d 129-256); on z the
+  // split's 128-wide d-chunks (each <= 65535)
+  const bool wide = d > S_DC && d <= W_D;
+  const int64_t rows = wide ? 2 * W_BQ : 64;
   if (batch <= 0 || t_q <= 0 || t_k <= 0 || heads <= 0 || d <= 0 ||
       q_offset < 0 || dtype != 0 || (int64_t)batch * heads > INT32_MAX ||
-      (t_q + 63) / 64 > 65535 || (d + S_DC - 1) / S_DC > 65535 ||
+      (t_q + rows - 1) / rows > 65535 || (d + S_DC - 1) / S_DC > 65535 ||
       (copy_bytes != 16 && copy_bytes != 4))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -6,10 +6,10 @@ fp32 runs on CUDA cores (``csrc/flash_attention_fwd.cu``), bf16 and fp16 on
 the tensor cores (``csrc/flash_attention_fwd_tc.cu``). Both stream K/V tiles
 through shared memory with an online softmax, so the (T, T) score matrix
 never reaches device memory. Any head dim runs: up to 128 in the tuned
-instantiations; above it, bf16/fp16 up to 256 with 16-byte rows in a kernel
-on ``wgmma`` and TMA, everything else in each source's split-over-d kernel
-(:func:`launch_plan`). Each is built with ``nvcc`` at first use and
-called through ``ctypes``.
+instantiations; from 129 to 256 in a kernel whose block owns all of d (fp32
+on CUDA cores; bf16/fp16 with 16-byte rows on ``wgmma`` and TMA);
+everything else in each source's split-over-d kernel (:func:`launch_plan`).
+Each is built with ``nvcc`` at first use and called through ``ctypes``.
 
 Layout is (B, T, H, D), as in the reference. :func:`flash_attention` routes
 by the device of its inputs: a CUDA tensor launches the kernel (or raises),
@@ -48,11 +48,12 @@ _KERNELS = {
 }
 # the kernels' grid limits: batch * heads on x, Q tiles on y, d-chunks on z
 _MAX_GRID = (2 ** 31 - 1, 65535, 65535)
-_SPLIT_D = 128   # a head dim above this runs the split-over-d kernel,
-_WG_D = 256      # or, for bf16/fp16 with 16-byte copies, up to this the
-_WG_ROWS = 128   # wgmma/TMA kernel, whose block holds two 64-row Q tiles
-_PLANS = ("flash_fwd_f32", "flash_fwd_f32_split", "flash_fwd_tc",
-          "flash_fwd_tc_split", "flash_fwd_tc_wg")
+# a head dim above _SPLIT_D runs the split-over-d kernel or, up to _WG_D,
+# a kernel whose block owns all of d and two 64-row Q tiles (fp32's wide
+# kernel; bf16/fp16 with 16-byte copies on wgmma/TMA)
+_SPLIT_D, _WG_D, _WG_ROWS = 128, 256, 128
+_PLANS = ("flash_fwd_f32", "flash_fwd_f32_split", "flash_fwd_f32_wide",
+          "flash_fwd_tc", "flash_fwd_tc_split", "flash_fwd_tc_wg")
 
 
 def use_flash(t_len: int, block: int = 128, on_accel: bool = False) -> bool:
@@ -116,23 +117,24 @@ def launch_plan(dtype, batch, t_q, heads, d, copy=16):
     """``(kernel, width, grid)`` of a CUDA launch, as the C entries choose
     them for copies of ``copy`` bytes (:func:`copy_bytes`): a head dim up to
     128 runs the smallest instantiation (``width`` 32, 64 or 128) that
-    holds it, on ``(batch * heads, Q tiles, 1)``. Above 128 the route is by
-    shape: bf16/fp16 up to 256 with 16-byte copies (what TMA needs) runs
-    ``flash_fwd_tc_wg`` (width 192 or 256, all of d in one block; a block
-    holds two 64-row Q tiles, of which the causal pairing takes tiles i and
-    n - 1 - i); wider heads, fp32 and the 2-byte copies run the
-    split-over-d kernel (``*_split``, width 128) with its 128-wide chunks
-    of d on the grid's z. Q tiles are 128 rows in fp32 up to width 64 and
-    64 rows otherwise. Raises where a grid dimension passes the card's
-    limit (x < 2^31, y and z <= 65535)."""
+    holds it, on ``(batch * heads, Q tiles, 1)``. From 129 to 256 all of d
+    runs in one block (width 192 or 256), which holds two 64-row Q tiles,
+    i and n - 1 - i, so that causal blocks carry equal work: fp32 in
+    ``flash_fwd_f32_wide`` (CUDA cores, copies of 16 or 4 bytes), bf16/fp16
+    with 16-byte copies (what TMA needs) in ``flash_fwd_tc_wg``. Wider
+    heads and the 2-byte copies run the split-over-d kernel (``*_split``,
+    width 128) with its 128-wide chunks of d on the grid's z. Q tiles are
+    128 rows in fp32 up to width 64 and 64 rows otherwise. Raises where a
+    grid dimension passes the card's limit (x < 2^31, y and z <= 65535)."""
     base = "flash_fwd_f32" if dtype == torch.float32 else "flash_fwd_tc"
     chunks = 1
     if d <= _SPLIT_D:
         width = 32 if d <= 32 else 64 if d <= 64 else 128
         name = base
         rows = 128 if dtype == torch.float32 and width <= 64 else 64
-    elif base == "flash_fwd_tc" and copy == 16 and d <= _WG_D:
-        name, width, rows = base + "_wg", 192 if d <= 192 else 256, _WG_ROWS
+    elif d <= _WG_D and (base == "flash_fwd_f32" or copy == 16):
+        name = base + ("_wide" if base == "flash_fwd_f32" else "_wg")
+        width, rows = 192 if d <= 192 else 256, _WG_ROWS
     else:
         name, width, rows = base + "_split", _SPLIT_D, 64
         chunks = -(-d // width)

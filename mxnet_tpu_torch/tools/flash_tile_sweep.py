@@ -11,18 +11,25 @@ differ from ``flash_fwd_tc_wg`` (the bf16/fp16 kernel for head dims
 its consumers' loop without P V under the next tile's softmax, adjacent Q
 tiles a block in place of the causal pairing, and two diagnostics that skip
 the arithmetic or the loads; and times each at the LM's shape at hidden
-1024 in 4 heads, causal and not, and at d = 192.
+1024 in 4 heads, causal and not, and at d = 192. ``--kernel f32wide``
+builds variants of ``flash_attention_fwd.cu`` that differ from
+``flash_fwd_f32_wide`` (the fp32 kernel for head dims 129-256) by the
+patches of ``WIDE_PATCHES``: one Q tile a block in place of the causal
+pairing, d split over 4 lanes (8 x 4 scores a lane) in place of 8, and
+other unroll counts of its Q K^T and P V loops; and times each at the
+same three shapes in fp32 and at d = 256 causal at batch 1.
 Each variant but the diagnostics is checked against the plain version
-first, and timed on the device alone (``chip_smoke.time_device``) in
-turns (variant order reversed every round). Run from the repo root on a
-machine with an NVIDIA GPU:
+first, and timed on the device alone (``chip_smoke.time_device``; ``f32``
+per call, ``chip_smoke.time_cuda``) in turns (variant order reversed every
+round). Run from the repo root on a machine with an NVIDIA GPU:
 
-    python3 mxnet_tpu_torch/tools/flash_tile_sweep.py [--kernel wg]
-        [--rounds 3]
+    python3 mxnet_tpu_torch/tools/flash_tile_sweep.py
+        [--kernel f32|wg|f32wide] [--rounds 3]
 
 Prints one JSON line per variant (median ms of each round, registers and
-spills from ptxas) and writes them to ``flash_tile_sweep.json`` (``f32``) or
-``flash_tile_sweep_wg.json`` in ``chip_smoke.py``'s output directory.
+spills from ptxas) and writes them to ``flash_tile_sweep_<kernel>.json``
+(``flash_tile_sweep.json`` for ``f32``) in ``chip_smoke.py``'s output
+directory.
 """
 from __future__ import annotations
 
@@ -132,6 +139,38 @@ WG_CASES = {   # name: (q shape, t_k, causal), bf16
     "d256_noncausal": ((2, 2048, 4, 256), 2048, False),
     "d192_causal": ((2, 2048, 4, 192), 2048, True),
 }
+# flash_fwd_f32_wide: (pattern, replacement, matches) of each patch
+WIDE_PATCHES = {
+    # one Q tile a block, the heaviest causal tiles first
+    "unpaired": [(r"if \(2 \* \(int\)blockIdx\.y \+ 1 >= n_q\) break;",
+                  "break;", 1),
+                 (r"dim3 grid\(batch \* heads, \(n_q \+ 1\) / 2\);",
+                  "dim3 grid(batch * heads, n_q);", 1)],
+    # d split over 4 lanes: 8 rows x 4 keys a lane (the source: 8 lanes,
+    # 8 x 8)
+    "split4": [(r"constexpr int W_SPLIT = 8;", "constexpr int W_SPLIT = 4;",
+                1)],
+    # Q K^T's loop over d unrolled by 2 or fully (the source: not
+    # unrolled; both spill)
+    "qk_unroll2": [(r"#pragma unroll 1\n(      for \(int kk = 0;)",
+                    "#pragma unroll 2\n\\1", 1)],
+    "qk_unroll_all": [(r"#pragma unroll 1\n(      for \(int kk = 0;)",
+                       "#pragma unroll\n\\1", 1)],
+    # P V's loop over keys unrolled fully (the source: 2)
+    "pv_unroll_all": [(r"#pragma unroll 2\n(      for \(int j = 0; j < F_BK)",
+                       "#pragma unroll\n\\1", 1)],
+}
+WIDE_VARIANTS = {   # name: patches
+    "committed": (),
+    "unpaired": ("unpaired",),
+    "split4": ("split4",),
+    "qk_unroll2": ("qk_unroll2",),
+    "qk_unroll_all": ("qk_unroll_all",),
+    "pv_unroll_all": ("pv_unroll_all",),
+}
+# flash_fwd_f32_wide's cases: the wg kernel's, and batch 1, where the
+# paired grid has 64 blocks for 132 SMs
+WIDE_CASES = dict(WG_CASES, d256_causal_b1=((1, 2048, 4, 256), 2048, True))
 
 
 def variant_source(src, bq, bq128, bk, min_blocks):
@@ -147,9 +186,9 @@ def variant_source(src, bq, bq128, bk, min_blocks):
     return src
 
 
-def wg_variant_source(src, *patches):
+def wg_variant_source(src, *patches, table=WG_PATCHES):
     for patch in patches:
-        for pat, new, count in WG_PATCHES[patch]:
+        for pat, new, count in table[patch]:
             src, n = re.subn(pat, new, src, flags=re.DOTALL)
             if n != count:
                 raise RuntimeError(f"{patch}: pattern {pat!r} matched {n} "
@@ -157,12 +196,23 @@ def wg_variant_source(src, *patches):
     return src
 
 
+def wide_variant_source(src, *patches):
+    return wg_variant_source(src, *patches, table=WIDE_PATCHES)
+
+
+# kernel: (source, variants, make a variant's source, ptxas marker)
+KERNELS = {
+    "f32": ("flash_attention_fwd.cu", VARIANTS, variant_source,
+            "flash_fwd_f32ILi64ELi16E"),
+    "wg": ("flash_attention_fwd_tc.cu", WG_VARIANTS, wg_variant_source,
+           "flash_fwd_tc_wgI13__nv_bfloat16Li256E"),
+    "f32wide": ("flash_attention_fwd.cu", WIDE_VARIANTS, wide_variant_source,
+                "flash_fwd_f32_wideILi256ELi16E"),
+}
+
+
 def build_all(out_dir, kernel="f32"):
-    source, variants, make, marker = (
-        ("flash_attention_fwd.cu", VARIANTS, variant_source,
-         "flash_fwd_f32ILi64ELi16E") if kernel == "f32" else
-        ("flash_attention_fwd_tc.cu", WG_VARIANTS, wg_variant_source,
-         "flash_fwd_tc_wgI13__nv_bfloat16Li256E"))
+    source, variants, make, marker = KERNELS[kernel]
     with open(os.path.join(_native.CSRC_DIR, source)) as f:
         src = f.read()
     procs = {}
@@ -193,8 +243,8 @@ def build_all(out_dir, kernel="f32"):
             ptxas[name] = (ptxas.get(name) or "") + " | " + " | ".join(notes)
         fns[name] = entry(ctypes.CDLL(
             os.path.join(out_dir, f"libsweep_{name}.so")),
-            "mxtt_flash_attention_fwd" if kernel == "f32"
-            else "mxtt_flash_attention_fwd_tc")
+            "mxtt_flash_attention_fwd_tc" if kernel == "wg"
+            else "mxtt_flash_attention_fwd")
     return fns, ptxas
 
 
@@ -216,17 +266,18 @@ def call(fn, q, k, v, causal):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rounds", type=int, default=3)
-    ap.add_argument("--kernel", choices=("f32", "wg"), default="f32")
+    ap.add_argument("--kernel", choices=tuple(KERNELS), default="f32")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("needs an NVIDIA GPU")
-    wg = args.kernel == "wg"
     out_dir = os.path.join(_native.BUILD_DIR, "sweep_" + args.kernel)
     os.makedirs(out_dir, exist_ok=True)
     fns, ptxas = build_all(out_dir, args.kernel)
-    cases, dtype, tol, timer = (
-        (WG_CASES, torch.bfloat16, 2e-2, time_device) if wg
-        else (CASES, torch.float32, 1e-4, time_cuda))
+    cases, dtype, tol, timer = {
+        "f32": (CASES, torch.float32, 1e-4, time_cuda),
+        "wg": (WG_CASES, torch.bfloat16, 2e-2, time_device),
+        "f32wide": (WIDE_CASES, torch.float32, 1e-4,
+                    time_device)}[args.kernel]
     g = torch.Generator(device="cuda").manual_seed(0)
     data = {}
     for case, (shp, t_k, causal) in cases.items():
@@ -251,13 +302,14 @@ def main(argv=None):
             for case, (q, k, v, causal) in data.items():
                 ms[name][case].append(timer(
                     lambda: call(fns[name], q, k, v, causal)))
-    variants = WG_VARIANTS if wg else VARIANTS
+    variants = KERNELS[args.kernel][1]
     rows = [{"variant": n, "params": variants[n], "ptxas": ptxas.get(n),
              "timer": timer.__name__, "ms": ms[n]} for n in order]
     for row in rows:
         print(json.dumps(row), flush=True)
     os.makedirs(os.path.join(ROOT, OUT_DIR), exist_ok=True)
-    name = "flash_tile_sweep.json" if not wg else "flash_tile_sweep_wg.json"
+    name = ("flash_tile_sweep.json" if args.kernel == "f32"
+            else f"flash_tile_sweep_{args.kernel}.json")
     with open(os.path.join(ROOT, OUT_DIR, name), "w") as f:
         json.dump(rows, f, indent=1)
 

@@ -53,12 +53,13 @@ def _at_offset(x, offset):
     (True, 0, 127, 127, 128, 0), (True, 130, 60, 190, 64, 0),
     (True, 0, 100, 100, 16, 0), (True, 3, 96, 99, 48, 0),
     (False, 0, 150, 150, 80, 0), (True, 0, 70, 70, 50, 1),
-    # head dims above 128: fp32's split over d (128-wide chunks; 160 and
-    # 200 end in a partial chunk); bf16/fp16's wgmma/TMA kernel (all of d
-    # in a block of two 64-row Q tiles; 160 and 200 end in a partial
-    # 64-wide box, filled with zeros by TMA), causal and not, ragged T,
-    # with q_offset; 130 (rows not 16-byte aligned in 16 bits) and views at
-    # an offset of one element on the split's element-wise loads
+    # head dims above 128: fp32's wide kernel (all of d in a block of two
+    # 64-row Q tiles, widths 192 and 256; 160 and 200 zero-filled past d);
+    # bf16/fp16's wgmma/TMA kernel (the same blocks; 160 and 200 end in a
+    # partial 64-wide box, filled with zeros by TMA), causal and not,
+    # ragged T, with q_offset; 130 (rows not 16-byte aligned in 16 bits)
+    # and views at an offset of one element: fp32's 4-byte copies, the
+    # tensor-core split's element-wise loads
     (True, 32, 100, 132, 160, 0), (False, 16, 90, 70, 160, 0),
     (True, 0, 129, 129, 200, 0), (False, 8, 64, 77, 200, 0),
     (True, 64, 130, 194, 256, 0), (False, 0, 70, 140, 256, 0),
@@ -68,7 +69,13 @@ def _at_offset(x, offset):
     # and even tile counts pair tiles i and n - 1 - i across blocks
     (True, 0, 200, 200, 192, 0), (False, 3, 77, 150, 192, 0),
     (True, 0, 333, 333, 256, 0), (True, 40, 300, 340, 160, 0),
-    (False, 0, 520, 390, 256, 0)])
+    (False, 0, 520, 390, 256, 0),
+    # t_q above two Q tiles with q_offset: an even tile count (4, 8, the
+    # last at a 4-byte offset) and an odd one (5, 9); 300, wider than 256,
+    # on each dtype's split over d
+    (True, 24, 256, 280, 256, 0), (True, 7, 450, 457, 200, 1),
+    (True, 13, 270, 283, 256, 1), (True, 64, 520, 584, 192, 0),
+    (True, 0, 150, 150, 300, 0), (False, 9, 100, 130, 300, 0)])
 def test_cuda_kernel_matches_plain(dtype, tol, causal, q_offset, t_q, t_k, d,
                                    offset):
     if not torch.cuda.is_available():
@@ -87,14 +94,17 @@ def test_cuda_kernel_matches_plain(dtype, tol, causal, q_offset, t_q, t_k, d,
     got = tfa.flash_attention(q, k, v, causal=causal, q_offset=q_offset)
     torch.cuda.synchronize()
     assert tfa.flash_attention.launches == before + 1
-    # the kernel of the route: above 128, bf16/fp16 with 16-byte rows up to
-    # 256 run flash_fwd_tc_wg, the rest the split over d
+    # the kernel of the route: from 129 to 256, fp32 runs flash_fwd_f32_wide
+    # (either copy width) and bf16/fp16 with 16-byte rows flash_fwd_tc_wg;
+    # the rest the split over d
     assert tfa.flash_attention.launches_by_kernel[plan] == by_kernel + 1
     if d > 128:
-        wg = dtype != torch.float32 and aligned and d <= 256
-        assert plan == ("flash_fwd_tc_wg" if wg else
-                        "flash_fwd_f32_split" if dtype == torch.float32
-                        else "flash_fwd_tc_split")
+        if dtype == torch.float32:
+            route = "flash_fwd_f32_wide" if d <= 256 else "flash_fwd_f32_split"
+        else:
+            route = ("flash_fwd_tc_wg" if aligned and d <= 256
+                     else "flash_fwd_tc_split")
+        assert plan == route
     want = tfa.flash_attention_reference(q.float(), k.float(), v.float(),
                                          causal=causal, q_offset=q_offset)
     assert got.dtype == dtype
@@ -182,20 +192,26 @@ def _max_rel(got, want):
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 1e-2),
                                        (torch.float16, 2e-3)])
-@pytest.mark.parametrize("d", [64, 256])
+@pytest.mark.parametrize("d", [64, 200, 256])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_gradient_on_card_matches_cpu(dtype, tol, d, causal):
-    """The flash Function on the card (forward: the kernel, counted once;
-    backward: the fp32 recompute, which launches nothing) against the same
-    Function on the CPU (plain forward, same recompute)."""
+    """The flash Function on the card (forward: the kernel of the route,
+    counted once, at d 200 and 256 fp32's wide kernel; backward: the fp32
+    recompute, which launches nothing) against the same Function on the
+    CPU (plain forward, same recompute)."""
     g = _cuda()
     q, k, v, head = (torch.randn((2, 160, 3, d), generator=g, device="cuda")
                      .to(dtype) for _ in range(4))
     before = tfa.flash_attention.launches
+    plan = tfa.launch_plan(dtype, 2, 160, 3, d)[0]
+    if dtype == torch.float32 and d > 128:
+        assert plan == "flash_fwd_f32_wide"
+    by_kernel = tfa.flash_attention.launches_by_kernel[plan]
     fn = lambda *a: tfa.flash_attention(*a, causal=causal)  # noqa: E731
     out, grads = _grad_of(fn, (q, k, v), head)
     torch.cuda.synchronize()
     assert tfa.flash_attention.launches == before + 1
+    assert tfa.flash_attention.launches_by_kernel[plan] == by_kernel + 1
     want_out, want = _grad_of(fn, [x.cpu() for x in (q, k, v)], head.cpu())
     assert all(x.dtype == dtype and x.is_cuda for x in grads)
     fwd_tol = {torch.float32: 1e-4, torch.bfloat16: 2e-2,

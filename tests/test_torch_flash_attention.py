@@ -133,8 +133,13 @@ def test_copy_bytes_rule(d, offset, want):
     (torch.float32, 64, ("flash_fwd_f32", 64, (6, 2, 1))),
     (torch.float32, 100, ("flash_fwd_f32", 128, (6, 4, 1))),
     (torch.float32, 128, ("flash_fwd_f32", 128, (6, 4, 1))),
-    (torch.float32, 129, ("flash_fwd_f32_split", 128, (6, 4, 2))),
-    (torch.float32, 256, ("flash_fwd_f32_split", 128, (6, 4, 2))),
+    # fp32 from 129 to 256: the wide kernel, all of d in one block of two
+    # 64-row Q tiles (4 tiles of 200 rows: 2 blocks), widths 192 and 256
+    (torch.float32, 129, ("flash_fwd_f32_wide", 192, (6, 2, 1))),
+    (torch.float32, 160, ("flash_fwd_f32_wide", 192, (6, 2, 1))),
+    (torch.float32, 192, ("flash_fwd_f32_wide", 192, (6, 2, 1))),
+    (torch.float32, 200, ("flash_fwd_f32_wide", 256, (6, 2, 1))),
+    (torch.float32, 256, ("flash_fwd_f32_wide", 256, (6, 2, 1))),
     (torch.float32, 300, ("flash_fwd_f32_split", 128, (6, 4, 3))),
     (torch.bfloat16, 64, ("flash_fwd_tc", 64, (6, 4, 1))),
     (torch.bfloat16, 128, ("flash_fwd_tc", 128, (6, 4, 1))),
@@ -153,9 +158,10 @@ def test_copy_bytes_rule(d, offset, want):
 def test_launch_plan_by_head_dim(dtype, d, want):
     """Which kernel each head dim runs with 16-byte copies (t_q 200, batch
     2, heads 3): the smallest of the 32/64/128 instantiations up to 128;
-    above it, bf16/fp16 up to 256 in the wgmma/TMA kernel, the rest in the
-    split over d, one 128-wide chunk of the output's columns on each grid
-    z. fp32 Q tiles are 128 rows up to width 64, else 64."""
+    from 129 to 256 fp32's wide kernel and bf16/fp16's wgmma/TMA kernel,
+    wider heads in the split over d, one 128-wide chunk of the output's
+    columns on each grid z. fp32 Q tiles are 128 rows up to width 64, else
+    64."""
     assert tfa.launch_plan(dtype, 2, 200, 3, d) == want
     assert tfa.launch_plan(dtype, 2, 200, 3, d, 16) == want
 
@@ -167,11 +173,14 @@ def test_launch_plan_by_head_dim(dtype, d, want):
     (torch.bfloat16, 130, 2, ("flash_fwd_tc_split", 128, (6, 4, 2))),
     (torch.bfloat16, 1000, 2, ("flash_fwd_tc_split", 128, (6, 4, 8))),
     (torch.bfloat16, 64, 2, ("flash_fwd_tc", 64, (6, 4, 1))),
-    (torch.float32, 256, 4, ("flash_fwd_f32_split", 128, (6, 4, 2)))])
+    (torch.float32, 256, 4, ("flash_fwd_f32_wide", 256, (6, 2, 1))),
+    (torch.float32, 200, 4, ("flash_fwd_f32_wide", 256, (6, 2, 1))),
+    (torch.float32, 130, 4, ("flash_fwd_f32_wide", 192, (6, 2, 1))),
+    (torch.float32, 300, 4, ("flash_fwd_f32_split", 128, (6, 4, 3)))])
 def test_launch_plan_by_copy_width(dtype, d, copy, want):
     """The element-wise (2-byte) path of the tensor-core kernels keeps the
     split over d above 128 (TMA needs 16-byte rows); fp32's 4-byte copies
-    change no route."""
+    change no route: the wide kernel copies 4 bytes at a time too."""
     assert tfa.launch_plan(dtype, 2, 200, 3, d, copy) == want
 
 
@@ -187,6 +196,22 @@ def test_launch_plan_wg_grid_pairs_q_tiles():
         == 65535
     with pytest.raises(MXNetError, match="Q tiles"):
         tfa.launch_plan(torch.bfloat16, 1, 128 * 65535 + 1, 1, 256)
+
+
+@pytest.mark.parametrize("d,width", [(129, 192), (192, 192), (256, 256)])
+def test_launch_plan_f32_wide_grid_pairs_q_tiles(d, width):
+    """fp32's wide kernel: one block for each two 64-row Q tiles of a head
+    (tiles y and n - 1 - y; an odd count leaves the middle tile alone), at
+    either copy width, and its y capped like the other kernels'."""
+    for t_q, blocks in ((1, 1), (64, 1), (65, 1), (128, 1), (129, 2),
+                        (192, 2), (2048, 16), (2049, 17), (2111, 17)):
+        for copy in (16, 4):
+            assert tfa.launch_plan(torch.float32, 2, t_q, 4, d, copy) \
+                == ("flash_fwd_f32_wide", width, (8, blocks, 1))
+    assert tfa.launch_plan(torch.float32, 1, 128 * 65535, 1, d)[2][1] \
+        == 65535
+    with pytest.raises(MXNetError, match="Q tiles"):
+        tfa.launch_plan(torch.float32, 1, 128 * 65535 + 1, 1, d)
 
 
 @pytest.mark.parametrize("batch,heads,ok", [
@@ -213,11 +238,11 @@ def test_launch_plan_q_tiles_and_chunks_capped():
         tfa.launch_plan(torch.float32, 1, 64, 1, 128 * 65535 + 1)
 
 
-@pytest.mark.parametrize("d", [160, 192, 256])
+@pytest.mark.parametrize("d", [160, 192, 200, 256])
 @pytest.mark.parametrize("causal", [False, True])
 def test_head_dim_above_128_matches_pallas_interpret(monkeypatch, d, causal):
-    """Head dims the CUDA path runs in its wgmma/TMA kernel (or its split
-    over d): the port's wrapper
+    """Head dims the CUDA path runs in its kernels that own all of d
+    (fp32's wide kernel, bf16/fp16's wgmma/TMA one): the port's wrapper
     (its plain version on the CPU) against the JAX kernel in interpret mode,
     as the JAX package's own tests run it (T a multiple of its 128 block),
     with q_offset on the causal case."""

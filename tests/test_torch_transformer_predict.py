@@ -18,9 +18,9 @@ VOCAB, LAYERS, HIDDEN, HEADS, SEQ, BATCH = 64, 2, 32, 4, 32, 2
 SHAPES = {"data": (BATCH, SEQ), "softmax_label": (BATCH, SEQ)}
 
 
-def _symbols():
-    kw = dict(vocab_size=VOCAB, num_layers=LAYERS, hidden=HIDDEN,
-              heads=HEADS, seq_len=SEQ)
+def _symbols(hidden=HIDDEN, heads=HEADS):
+    kw = dict(vocab_size=VOCAB, num_layers=LAYERS, hidden=hidden,
+              heads=heads, seq_len=SEQ)
     return (mxj.models.transformer_lm.get_symbol(**kw),
             mxt.models.transformer_lm.get_symbol(**kw))
 
@@ -45,7 +45,19 @@ def flash_on(monkeypatch):
 
 
 def test_lm_probs_match_jax_predictor(flash_on, monkeypatch):
-    sj, st = _symbols()
+    _lm_probs_match_jax_predictor(monkeypatch, HIDDEN, HEADS)
+
+
+def test_lm_probs_match_jax_predictor_at_head_dim_256(flash_on,
+                                                      monkeypatch):
+    """2 heads of 256 (hidden 512): on the card fp32 attention at this head
+    dim runs flash_fwd_f32_wide; here the same wrapper takes its plain
+    version."""
+    _lm_probs_match_jax_predictor(monkeypatch, 512, 2)
+
+
+def _lm_probs_match_jax_predictor(monkeypatch, hidden, heads):
+    sj, st = _symbols(hidden, heads)
     params = _weights(st)
     tokens = np.random.default_rng(1).integers(
         0, VOCAB, (BATCH, SEQ)).astype(np.float32)
