@@ -21,12 +21,15 @@ result line:
    and from the port's Convolution (which takes it off cuDNN with TF32
    off) against float64, the port's held to 1e-5 of max-abs;
 2. build: the kernels from ``mxnet_tpu_torch/csrc`` with nvcc (set-up);
-   ptxas's registers of ``flash_fwd_f32_wide``'s four instantiations,
-   none of which may spill;
+   ptxas's registers of ``flash_fwd_f32_wide``'s four instantiations and
+   of ``flash_fwd_tc_wg``'s eight (bf16 and fp16 at widths 64, 128, 192
+   and 256), none of which may spill, and no wgmma that ptxas serialized;
 3. kernel vs plain: the flash-attention kernels against their plain version
-   at the main path's shape, at ragged shapes with ``q_offset``, at head
-   dims 128 and 50 (the 4-byte copy path in fp32, the element-wise path of
-   the tensor-core kernel in bf16), 256 (fp32 on its wide kernel, causal
+   at the main path's shape (bf16/fp16 with 16-byte rows on the wgmma/TMA
+   kernel at every head dim up to 256; causal and not), at ragged shapes
+   with ``q_offset``, at head dims 128, 96 and 50 (the 4-byte copy path in
+   fp32, the element-wise kernel in bf16, also at d 64 at an offset of one
+   element), 256 (fp32 on its wide kernel, causal
    and not, and at an offset of one element; bf16 and fp16 on the
    wgmma/TMA kernel), 192 (fp32's wide kernel; bf16 and fp16, the
    wgmma/TMA kernel), 200 (fp32's wide kernel), 320 (each dtype's split
@@ -35,7 +38,8 @@ result line:
    fp32 (CUDA cores), bf16 and fp16 (tensor cores), each row naming the
    kernel that ran, timed per call (as in earlier slices) and on the
    device alone, beside the plain version and a library attention call,
-   with its share of the bound;
+   with its share of the bound; each launch's kernel, by the wrapper's
+   count, must be the route's;
 4. the slice: a Predictor bound at data=(2, 2048) on cuda:0 answers 4
    requests through the captured forward (``set_input`` writes in place; a
    warm-up, a capture, replays), each under the profiler, which counts the
@@ -72,16 +76,18 @@ result line:
    ``Executor(..., amp_dtype="bfloat16")`` with int32 token ids answer 4
    requests of 2 x 2048 tokens through the captured forward, fed through
    ``forward(data=ids)`` (copied into the bound array), counted and timed
-   as in phase 4 (12 tensor-core kernels a request, none of the fp32
-   kernel), and timed again fed by rebinding (``arr[:] = ids``, a warm-up
+   as in phase 4 (12 ``flash_fwd_tc_wg`` kernels a request, by exact name,
+   and no other flash kernel), and timed again fed by rebinding
+   (``arr[:] = ids``, a warm-up
    every forward); one more request traced into flash, GEMMs, the amp
    casts and the rest, beside the idle share; then bf16 on the card against bf16 on the CPU at depth 2
    (batch 1, T 512), and int32 ids above 256 fed into a float32-bound
    ``data`` against the same feed bound as int32 (the ids must not round
-   in bf16); then the same LM in 4 heads of 256 (the head-dim-256 path):
-   2 requests through the captured forward, each traced (12
-   ``flash_fwd_tc_wg`` kernels a request, no other flash kernel),
-   probabilities checked, request ms captured and eager;
+   in bf16); then the same LM in 4 heads of 256 and in 8 heads of 128
+   (the head-dim-256 and -128 paths): 2 requests each through the captured
+   forward, each traced (12 ``flash_fwd_tc_wg`` kernels a request, no
+   other flash kernel), probabilities checked, request ms captured and
+   eager;
 9. training: ``Module(amp="bfloat16")`` over the LM with the fused head
    and Adam at lr 1e-4, batch 4 x 2048 int32 tokens, the phase-4 weights
    through ``init_params(arg_params=...)``; five steps of
@@ -327,10 +333,14 @@ OUT_DIR = "chiprun_out"
 # device kernels counted as matrix products in the traced request (cuBLAS
 # and CUTLASS kernel names; cuBLAS's Hopper bf16 kernels are named nvjet_*)
 GEMM_NAME = re.compile(r"gemm|gemv|nvjet|cutlass", re.IGNORECASE)
+# the flash forward kernel a device event names, demangled or not
+# ("...wgk::flash_fwd_tc_wg<__nv_bfloat16, 64>(...)": flash_fwd_tc_wg)
+FLASH_NAME = re.compile(r"(flash_fwd[a-z0-9_]*)(?:<|I\d|\()")
 KERNEL_LIBS = ("flash_attention_fwd", "flash_attention_fwd_tc")
 AMP_REQUESTS = 4
 AMP_CPU_SEQ = 512   # T of the card-vs-CPU check under amp
 AMP_D256_HEADS, AMP_D256_REQUESTS = 4, 2   # phase 8's head-dim-256 path
+AMP_D128_HEADS = 8                         # and its head-dim-128 path
 # a kernel's numbers in the `kernels` line: `ms`, `plain_ms` and `library_ms`
 # time one call between two events (the host's dispatch where it is longer
 # than the kernel), as in every earlier slice; `device_ms` and
@@ -418,6 +428,14 @@ def attention_bound(b, t_q, t_k, h, d, causal, q_offset, dtype_name):
     t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def flash_kernel(name):
+    """The flash forward kernel (``flash_fwd_tc_wg``, ``flash_fwd_f32``,
+    ...) a profiler event's name is of, by its exact name; None for any
+    other kernel."""
+    m = FLASH_NAME.search(name)
+    return m.group(1) if m else None
 
 
 def hbm_bytes_per_s(card):
@@ -539,12 +557,30 @@ def phase_build():
             for r in wide.values()),
             "ptxas: every flash_fwd_f32_wide instantiation (192 and 256 "
             "wide, 16- and 4-byte copies) without spills")
+    log = _native.BUILD_LOGS.get("flash_attention_fwd_tc")
+    if log is None:
+        print("  flash_attention_fwd_tc reused: its ptxas report not read",
+              flush=True)
+    else:
+        wg = ptxas_report(log, "flash_fwd_tc_wg")
+        serialized = [line.strip() for line in log.splitlines()
+                      if "serialized" in line]
+        out["ptxas_flash_fwd_tc_wg"] = wg
+        out["ptxas_serialized"] = serialized
+        print("  ptxas flash_fwd_tc_wg: " + json.dumps(wg), flush=True)
+        check(len(wg) == 8 and all(
+            r["spill_stores"] == 0 == r["spill_loads"] for r in wg.values()),
+            "ptxas: every flash_fwd_tc_wg instantiation (bf16 and fp16, "
+            "64, 128, 192 and 256 wide) without spills")
+        check(not serialized, "ptxas serialized no wgmma in the tensor-core "
+              f"library ({serialized[:2]})")
     return out
 
 
 def ptxas_report(log, kernel):
     """Registers and spill bytes that ``ptxas -v`` reports for each
-    instantiation of ``kernel`` (keyed by its template arguments)."""
+    instantiation of ``kernel`` (keyed by its template arguments: its
+    16-bit type, if any, and its integers)."""
     out = {}
     for block in log.split("Compiling entry function")[1:]:
         head = block.splitlines()[0]
@@ -553,6 +589,9 @@ def ptxas_report(log, kernel):
         args = re.search(kernel + r"I(.*?)EEv", head)
         key = ",".join(re.findall(r"Li(\d+)E", args.group(1) + "E")) \
             if args else head.strip()
+        for mangled, short in (("__nv_bfloat16", "bf16"), ("__half", "fp16")):
+            if args and mangled in args.group(1):
+                key = short + "," + key
         regs = re.search(r"Used (\d+) registers", block)
         stores = re.search(r"(\d+) bytes spill stores", block)
         loads = re.search(r"(\d+) bytes spill loads", block)
@@ -578,9 +617,11 @@ def phase_kernel_vs_plain(seed):
     import torch.nn.functional as F
 
     from mxnet_tpu_torch.ops.flash_attention import (
-        copy_bytes, flash_attention, flash_attention_reference, launch_plan)
+        copy_bytes, flash_attention, flash_attention_reference, launch_plan,
+        reset_launches)
 
     print("phase 3: kernel vs plain", flush=True)
+    reset_launches()
     cases = [
         # name, q shape, t_k, causal, q_offset, dtype, tolerance
         ("slice_fp32_causal", (BATCH, SEQ, HEADS, HIDDEN // HEADS), SEQ,
@@ -647,14 +688,30 @@ def phase_kernel_vs_plain(seed):
          True, 0, torch.bfloat16, 2e-2, 1),
         ("d320_fp16_causal", (BATCH, SEQ, HEADS // 4, 320), SEQ, True, 0,
          torch.float16, 3e-3),
+        # 16-byte rows up to d 128 on the wgmma/TMA kernel: the serving
+        # shape without the mask, d 128 in fp16, d 96 (width 128, zeros
+        # past d); and d 64 at an offset of one element, which stays on the
+        # element-wise flash_fwd_tc
+        ("slice_bf16_noncausal", (BATCH, SEQ, HEADS, HIDDEN // HEADS), SEQ,
+         False, 0, torch.bfloat16, 2e-2),
+        ("d128_fp16_causal", (BATCH, SEQ, HEADS // 2, 128), SEQ, True, 0,
+         torch.float16, 3e-3),
+        ("d96_bf16_causal", (BATCH, SEQ, HEADS // 2, 96), SEQ, True, 0,
+         torch.bfloat16, 2e-2),
+        ("d64_bf16_causal_offset1", (BATCH, SEQ, HEADS, HIDDEN // HEADS),
+         SEQ, True, 0, torch.bfloat16, 2e-2, 1),
     ]
     results = {}
     for i, (name, shp, t_k, causal, q_off, dtype, tol, *offset) in \
             enumerate(cases):
         q, k, v = (_at_offset(x, offset[0] if offset else 0)
                    for x in _qkv(shp, t_k, dtype, seed + i))
+        before = dict(flash_attention.launches_by_kernel)
         got = flash_attention(q, k, v, causal=causal, q_offset=q_off)
         torch.cuda.synchronize()
+        # the kernel the wrapper launched, by its count
+        ran = [n for n, c in flash_attention.launches_by_kernel.items()
+               if c != before[n]]
         # the plain version in fp32 on the same (rounded) inputs
         want = flash_attention_reference(q.float(), k.float(), v.float(),
                                          causal=causal, q_offset=q_off)
@@ -692,7 +749,8 @@ def phase_kernel_vs_plain(seed):
         kernel = launch_plan(dtype, shp[0], shp[1], shp[2], shp[3], copy_bytes(
             shp[3], q.data_ptr(), k.data_ptr(), v.data_ptr(),
             got.data_ptr(), itemsize=q.element_size()))[0]
-        row = {"case": name, "kernel": kernel, "q": list(shp), "t_k": t_k,
+        row = {"case": name, "kernel": kernel, "ran": ran, "q": list(shp),
+               "t_k": t_k,
                "causal": causal, "q_offset": q_off, "dtype": dname,
                "offset": offset[0] if offset else 0, "max_abs_err": err,
                "tol": tol, "ms": ms, "plain_ms": plain_ms,
@@ -703,9 +761,21 @@ def phase_kernel_vs_plain(seed):
         print("  " + json.dumps(row), flush=True)
         check(np.isfinite(err) and err <= tol,
               f"{name}: max abs err {err:.3g} <= {tol}")
+        check(ran == [kernel], f"{name}: the wrapper launched {ran} == the "
+              f"route's [{kernel}]")
         results[name] = row
         del q, k, v, got, want
     torch.cuda.empty_cache()
+    # the bf16/fp16 main paths' shapes on the wgmma/TMA kernel; the
+    # element-wise kernel keeps the rows that are not 16-byte aligned
+    on_wg = ("slice_bf16_causal", "slice_fp16_causal", "train_bf16_causal",
+             "d128_bf16_causal", "d128_fp16_causal", "d96_bf16_causal",
+             "slice_bf16_noncausal")
+    check(all(results[n]["ran"] == ["flash_fwd_tc_wg"] for n in on_wg)
+          and results["d64_bf16_causal_offset1"]["ran"] == ["flash_fwd_tc"]
+          and results["ragged_d50_bf16_causal"]["ran"] == ["flash_fwd_tc"],
+          "16-byte rows up to d 128 ran flash_fwd_tc_wg, 2-byte rows "
+          "flash_fwd_tc")
     return results
 
 
@@ -766,15 +836,22 @@ def traced_requests(batches, feed, forward, check_out, kernel):
     captured forward (``forward``: a warm-up, a capture, replays) under the
     profiler, which counts the kernels the card ran in it whose names
     ``kernel`` picks (a replay calls no wrapper); ``check_out`` holds each
-    answer. Returns the counts."""
-    traced = []
+    answer. Returns the counts, and each request's flash forward kernels
+    by exact name (:func:`flash_kernel`)."""
+    traced, flash = [], []
     for x in batches:
         feed(x)
         counts, got = {}, []
         by_name, _ = traced_groups(lambda: got.append(forward()), {}, counts)
         traced.append(sum(counts[k] for k in by_name if kernel(k)))
+        by_flash = {}
+        for k in by_name:
+            if flash_kernel(k):
+                by_flash[flash_kernel(k)] = by_flash.get(flash_kernel(k), 0) \
+                    + counts[k]
+        flash.append(by_flash)
         check_out(got[0])
-    return traced
+    return traced, flash
 
 
 def timed_requests(batches, feed, forward, eager):
@@ -822,9 +899,9 @@ def phase_slice(mx, layers, seed):
     def forward():
         return pred.forward().get_output_nd(0).data
 
-    traced = traced_requests(
+    traced, _ = traced_requests(
         batches, feed, forward, check_probs,
-        lambda k: "flash_fwd" in k and "flash_fwd_tc" not in k)
+        lambda k: flash_kernel(k) == "flash_fwd_f32")
     wrapper = flash_attention.launches
     wrapper_fp32 = flash_attention.launches_by_dtype["float32"]
     info = ex.forward_info()
@@ -856,9 +933,9 @@ def phase_slice(mx, layers, seed):
     by_name = device_ms_by_kernel(lambda: traced_ms.append(
         timed(lambda: pred.forward(data=batches[-1]))[1]))
     check(by_name, "the profiler recorded device events for one request")
-    flash_ms = sum(t for n, t in by_name.items() if "flash_fwd" in n)
+    flash_ms = sum(t for n, t in by_name.items() if flash_kernel(n))
     gemm_ms = sum(t for n, t in by_name.items()
-                  if "flash_fwd" not in n and GEMM_NAME.search(n))
+                  if not flash_kernel(n) and GEMM_NAME.search(n))
     busy = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     out["traced_request"] = {
@@ -918,11 +995,11 @@ def phase_slice_d256(mx, weights, seed):
         feed(x)
         counts, got = {}, []
         by_name, _ = traced_groups(lambda: got.append(forward()), {}, counts)
-        traced.append(sum(counts[k] for k in by_name if "flash_fwd" in k))
+        traced.append(sum(counts[k] for k in by_name if flash_kernel(k)))
         traced_wide.append(sum(counts[k] for k in by_name
-                               if "flash_fwd_f32_wide" in k))
+                               if flash_kernel(k) == "flash_fwd_f32_wide"))
         flash_ms.append(sum(t for k, t in by_name.items()
-                            if "flash_fwd_f32_wide" in k))
+                            if flash_kernel(k) == "flash_fwd_f32_wide"))
         check_probs(got[0])
     by_kernel = dict(flash_attention.launches_by_kernel)
     info = ex.forward_info()
@@ -1386,19 +1463,23 @@ def phase_amp(mx, weights, seed):
         exe.arg_dict["data"].data.copy_(torch.from_numpy(fed[0]))
         return exe.eager_forward()[0]
 
-    traced = traced_requests(batches, feed, forward, check_probs,
-                             lambda k: "flash_fwd" in k)
+    traced, flash = traced_requests(
+        batches, feed, forward, check_probs,
+        lambda k: flash_kernel(k) == "flash_fwd_tc_wg")
     launches = dict(flash_attention.launches_by_dtype)
+    by_kernel = dict(flash_attention.launches_by_kernel)
     info = exe.forward_info()
     ms = timed_requests(batches, feed, forward, eager)
-    check(traced == [LAYERS] * AMP_REQUESTS,
-          f"the card ran {LAYERS} flash kernels in each captured bf16 "
-          f"request (traced: {traced})")
+    check(traced == [LAYERS] * AMP_REQUESTS
+          and flash == [{"flash_fwd_tc_wg": LAYERS}] * AMP_REQUESTS,
+          f"the card ran {LAYERS} flash_fwd_tc_wg kernels in each captured "
+          f"bf16 request and no other flash kernel (traced: {flash})")
     check(launches["bfloat16"] == 2 * LAYERS
-          and launches["float32"] == 0 and launches["float16"] == 0,
+          and launches["float32"] == 0 and launches["float16"] == 0
+          and by_kernel["flash_fwd_tc_wg"] == 2 * LAYERS,
           f"tensor-core flash wrapper called {launches['bfloat16']} == 2 x "
-          f"{LAYERS} times (the warm-up's and the capture's), fp32 "
-          f"{launches['float32']} == 0")
+          f"{LAYERS} times (the warm-up's and the capture's), all "
+          f"flash_fwd_tc_wg ({by_kernel}), fp32 {launches['float32']} == 0")
     check(info["captures"] == 1 and info["drops"] == 0,
           f"one capture for the executor's binding ({info})")
     request_ms = ms["captured"]
@@ -1408,7 +1489,8 @@ def phase_amp(mx, weights, seed):
            "steady_eager_request_ms": float(np.median(ms["eager"])),
            "tokens_per_s": BATCH * SEQ / (steady / 1e3),
            "launches": sum(traced), "launches_traced": traced,
-           "wrapper_calls": launches, "forward": info}
+           "flash_traced": flash, "wrapper_calls": launches,
+           "wrapper_calls_by_kernel": by_kernel, "forward": info}
     probs = exe.outputs
     static = exe._eval_program._static
     out["output_copy_ms"] = time_cuda(lambda: [o.clone() for o in static])
@@ -1425,11 +1507,12 @@ def phase_amp(mx, weights, seed):
                                  for n, a in exe.arg_dict.items()],
                         reps=3, warmup=1)
     check(by_name, "the profiler recorded device events for one request")
-    flash_ms = sum(t for n, t in by_name.items() if "flash_fwd_tc" in n)
+    flash_ms = sum(t for n, t in by_name.items()
+                   if flash_kernel(n) == "flash_fwd_tc_wg")
     other_flash = sum(t for n, t in by_name.items()
-                      if "flash_fwd" in n and "flash_fwd_tc" not in n)
+                      if flash_kernel(n) not in (None, "flash_fwd_tc_wg"))
     gemm_ms = sum(t for n, t in by_name.items()
-                  if "flash_fwd" not in n and GEMM_NAME.search(n))
+                  if not flash_kernel(n) and GEMM_NAME.search(n))
     busy = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     out["traced_request"] = {
@@ -1445,7 +1528,7 @@ def phase_amp(mx, weights, seed):
     print("  traced request: " + json.dumps(out["traced_request"]),
           flush=True)
     check(flash_ms > 0 and other_flash == 0,
-          "the traced request ran the tensor-core flash kernel and no other")
+          "the traced request ran flash_fwd_tc_wg and no other flash kernel")
 
     # a feed that rebinds the ids (``arr[:] = x`` makes a new tensor, as the
     # reference's immutable arrays do) drops the graph: every such forward
@@ -1545,26 +1628,32 @@ def phase_amp(mx, weights, seed):
     check(agree == 1.0 and fed["float32"][1] == "torch.int32",
           f"fed int32 ids: data rebound as {fed['float32'][1]}, argmax "
           f"agreement with the int32 binding {agree} == 1")
-    out["d256"] = amp_d256(mx, weights, seed)
+    out["d256"] = amp_heads(mx, weights, seed, AMP_D256_HEADS)
+    out["d128"] = amp_heads(mx, weights, seed, AMP_D128_HEADS)
     return out
 
 
-def amp_d256(mx, weights, seed):
-    """Phase 8's head-dim-256 path: the same LM at hidden 1024 in
-    ``AMP_D256_HEADS`` heads (256-wide, as Gemma-family models have) through
-    ``Executor(..., amp_dtype="bfloat16")`` answers ``AMP_D256_REQUESTS``
-    requests of 2 x 2048 tokens through the captured forward, each under
-    the profiler, which counts the flash kernels the card ran in it (12 a
-    request, all ``flash_fwd_tc_wg``), probabilities checked; then the
-    requests captured and through the eager walk in turns, host ms each."""
+def amp_heads(mx, weights, seed, heads):
+    """Phase 8's paths at other head widths: the same LM at hidden 1024 in
+    ``heads`` heads (``AMP_D256_HEADS``: 256-wide, as Gemma-family models
+    have; ``AMP_D128_HEADS``: 128-wide, as most public decoder LMs,
+    Llama-family ones among them, have), the weights reshaped from phase
+    4's, through ``Executor(..., amp_dtype="bfloat16")`` answers
+    ``AMP_D256_REQUESTS`` requests of 2 x 2048 tokens through the captured
+    forward, each under the profiler, which counts the flash kernels the
+    card ran in it (12 a request, all ``flash_fwd_tc_wg``), probabilities
+    checked; then the requests captured and through the eager walk in
+    turns, host ms each."""
     import torch
 
     from mxnet_tpu_torch.ops.flash_attention import (flash_attention,
                                                      reset_launches)
 
-    heads = AMP_D256_HEADS
-    print(f"  (d256) {heads} heads of {HIDDEN // heads}: {LAYERS} layers, "
-          f"batch {BATCH}, T {SEQ}, {AMP_D256_REQUESTS} requests", flush=True)
+    t_path = time.perf_counter()
+    tag = f"(d{HIDDEN // heads})"
+    print(f"  {tag} {heads} heads of {HIDDEN // heads}: {LAYERS} layers, "
+          f"batch {BATCH}, T {SEQ}, {AMP_D256_REQUESTS} requests",
+          flush=True)
     t0 = time.perf_counter()
     exe = lm_executor(mx, LAYERS, BATCH, SEQ, weights, mx.gpu(0), "bfloat16",
                       heads=heads)
@@ -1591,11 +1680,11 @@ def amp_d256(mx, weights, seed):
         feed(x)
         counts, got = {}, []
         by_name, _ = traced_groups(lambda: got.append(forward()), {}, counts)
-        traced.append(sum(counts[k] for k in by_name if "flash_fwd" in k))
+        traced.append(sum(counts[k] for k in by_name if flash_kernel(k)))
         traced_wg.append(sum(counts[k] for k in by_name
-                             if "flash_fwd_tc_wg" in k))
+                             if flash_kernel(k) == "flash_fwd_tc_wg"))
         flash_ms.append(sum(t for k, t in by_name.items()
-                            if "flash_fwd_tc_wg" in k))
+                            if flash_kernel(k) == "flash_fwd_tc_wg"))
         check_probs(got[0])
     by_kernel = dict(flash_attention.launches_by_kernel)
     info = exe.forward_info()
@@ -1610,7 +1699,7 @@ def amp_d256(mx, weights, seed):
            "launches_traced_wg": traced_wg,
            "flash_device_ms_traced": flash_ms,
            "wrapper_calls": by_kernel, "forward": info}
-    print("  (d256) " + json.dumps(out), flush=True)
+    print(f"  {tag} " + json.dumps(out), flush=True)
     check(traced == [LAYERS] * AMP_D256_REQUESTS and traced_wg == traced,
           f"the card ran {LAYERS} flash kernels in each captured request at "
           f"{heads} heads of {HIDDEN // heads}, all flash_fwd_tc_wg "
@@ -1624,6 +1713,8 @@ def amp_d256(mx, weights, seed):
           f"one capture for the executor's binding ({info})")
     del exe
     torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_path
+    print(f"  {tag} {out['seconds']:.1f} s", flush=True)
     return out
 
 
@@ -1771,11 +1862,14 @@ def phase_train(mx, weights, seed):
             check(not bad and len(ex.grad_dict) == len(mod._param_names),
                   f"all {len(ex.grad_dict)} gradients of step 1 finite")
     launches = dict(flash_attention.launches_by_dtype)
+    by_kernel = dict(flash_attention.launches_by_kernel)
     check(all(np.isfinite(losses)), f"mean NLL finite: {losses}")
     check(per_step == [LAYERS] * TRAIN_STEPS
-          and launches["float32"] == 0 and launches["float16"] == 0,
+          and launches["float32"] == 0 and launches["float16"] == 0
+          and by_kernel["flash_fwd_tc_wg"] == LAYERS * TRAIN_STEPS
+          and sum(by_kernel.values()) == LAYERS * TRAIN_STEPS,
           f"bf16 flash kernel launched {per_step} times a step == "
-          f"{LAYERS}, no other")
+          f"{LAYERS}, all flash_fwd_tc_wg ({by_kernel})")
     check(losses[-1] < losses[0], f"mean NLL on the repeated batch at step "
           f"{TRAIN_STEPS} {losses[-1]:.4f} < step 1's {losses[0]:.4f}")
     steady = float(np.median(step_ms[1:]))
@@ -1815,7 +1909,9 @@ def phase_train(mx, weights, seed):
     check(not bad, "all gradients of the traced step finite")
     busy = sum(by_name.values())
     split = {"flash_fwd": sum(t for n, t in by_name.items()
-                              if "flash_fwd_tc" in n)}
+                              if flash_kernel(n) == "flash_fwd_tc_wg")}
+    other_flash = [n for n in by_name
+                   if flash_kernel(n) not in (None, "flash_fwd_tc_wg")]
     for g, ks in groups.items():
         split[g] = sum(t for _, t in ks)
     # GEMMs of the forward and the backward outside those groups (the
@@ -1836,8 +1932,10 @@ def phase_train(mx, weights, seed):
     print("  " + json.dumps({k: v for k, v in out.items()
                              if k != "traced_step"}), flush=True)
     print("  traced step: " + json.dumps(out["traced_step"]), flush=True)
-    check(split["flash_fwd"] > 0 and split["attn_bwd_recompute"] > 0,
-          "the traced step ran the flash kernel and its recompute")
+    check(split["flash_fwd"] > 0 and split["attn_bwd_recompute"] > 0
+          and not other_flash,
+          "the traced step ran flash_fwd_tc_wg and its recompute, and no "
+          f"other flash kernel ({other_flash})")
     del mod, ex, batch
     torch.cuda.empty_cache()
     out["card_vs_cpu"] = train_card_vs_cpu(mx, weights, seed)
@@ -4236,13 +4334,14 @@ def graph_lm(mx, weights, seed, split_nll):
     torch.cuda.reset_peak_memory_stats()
     mod = build(True)
     reset_launches()
-    flash_tc, flash_f32, losses = [], [], []
+    flash_wg, flash_other, losses = [], [], []
     for _ in range(GRAPH_LM_STEPS):
         counts = _kernel_counts(lambda: step(mod))
-        flash_tc.append(sum(c for k, c in counts.items()
-                            if "flash_fwd_tc" in k))
-        flash_f32.append(sum(c for k, c in counts.items()
-                             if "flash_fwd" in k and "flash_fwd_tc" not in k))
+        flash_wg.append(sum(c for k, c in counts.items()
+                            if flash_kernel(k) == "flash_fwd_tc_wg"))
+        flash_other.append(sum(
+            c for k, c in counts.items()
+            if flash_kernel(k) not in (None, "flash_fwd_tc_wg")))
         losses.append(float(nll(mod).mean()))
     calls = dict(flash_attention.launches_by_dtype)
     info = mod.step_info()
@@ -4254,9 +4353,9 @@ def graph_lm(mx, weights, seed, split_nll):
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t) * 1e3)
     steady = float(np.median(step_ms))
-    out = {"losses": losses, "flash_tc_kernels_by_step": flash_tc,
-           "flash_f32_kernels_by_step": flash_f32,
-           "launches": sum(flash_tc), "wrapper_calls": calls, "info": info,
+    out = {"losses": losses, "flash_wg_kernels_by_step": flash_wg,
+           "flash_other_kernels_by_step": flash_other,
+           "launches": sum(flash_wg), "wrapper_calls": calls, "info": info,
            "step_ms": step_ms, "steady_step_ms": steady,
            "tokens_per_s": tokens / (steady / 1e3)}
     out["probe"] = graph_step_probe(mx, mod, batch, steady)
@@ -4267,9 +4366,10 @@ def graph_lm(mx, weights, seed, split_nll):
     check(info["captured"] and (info["warmups"], info["captures"],
                                 info["replays"]) == (1, 1, GRAPH_LM_STEPS - 1),
           f"(c) the LM step warmed up, captured and replayed: {info}")
-    check(flash_tc == [LAYERS] * GRAPH_LM_STEPS and sum(flash_f32) == 0,
-          f"(c) the card ran {LAYERS} bf16 flash kernels in each step (the "
-          f"warm-up, then each replay; traced): {flash_tc}, fp32 {flash_f32}")
+    check(flash_wg == [LAYERS] * GRAPH_LM_STEPS and sum(flash_other) == 0,
+          f"(c) the card ran {LAYERS} flash_fwd_tc_wg kernels in each step "
+          f"(the warm-up, then each replay; traced): {flash_wg}, and no "
+          f"other flash kernel: {flash_other}")
     check(calls["bfloat16"] == 2 * LAYERS and calls["float32"] == 0,
           f"(c) the wrapper was called {2 * LAYERS} times (the warm-up and "
           f"the capture; a replay makes no call): {calls}")
@@ -6493,32 +6593,42 @@ def main(argv=None):
     import mxnet_tpu_torch as mx
 
     t_start = time.perf_counter()
-    card = phase_device()
-    build = phase_build()
-    cases = phase_kernel_vs_plain(args.seed)
-    slice_out, weights, probs = phase_slice(mx, LAYERS, args.seed)
-    slice_d256 = phase_slice_d256(mx, weights, args.seed)
-    parity = phase_card_vs_cpu(mx, weights, args.seed)
-    rtc_cases = phase_rtc_vs_plain(args.seed)
-    imperative = phase_imperative(mx, weights, probs, args.seed)
-    amp = phase_amp(mx, weights, args.seed)
+    phase_s = {}   # wall seconds of each phase
+
+    def run(name, fn, *a):
+        t = time.perf_counter()
+        res = fn(*a)
+        phase_s[name] = time.perf_counter() - t
+        return res
+
+    card = run("1", phase_device)
+    build = run("2", phase_build)
+    cases = run("3", phase_kernel_vs_plain, args.seed)
+    slice_out, weights, probs = run("4", phase_slice, mx, LAYERS, args.seed)
+    slice_d256 = run("4b", phase_slice_d256, mx, weights, args.seed)
+    parity = run("5", phase_card_vs_cpu, mx, weights, args.seed)
+    rtc_cases = run("6", phase_rtc_vs_plain, args.seed)
+    imperative = run("7", phase_imperative, mx, weights, probs, args.seed)
+    amp = run("8", phase_amp, mx, weights, args.seed)
     ptb_split = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_rec") as rec_dir:
         # phases 9-12 measure the split path that PRs 7-10 recorded
         os.environ["MXTPU_NO_FUSED_STEP"] = "1"
         try:
-            train = phase_train(mx, weights, args.seed)
-            fit = phase_fit(mx, args.seed)
-            records = phase_records(mx, args.seed, rec_dir)
-            ptb = phase_ptb(mx, args.seed, ptb_split)
+            train = run("9", phase_train, mx, weights, args.seed)
+            fit = run("10", phase_fit, mx, args.seed)
+            records = run("11", phase_records, mx, args.seed, rec_dir)
+            ptb = run("12", phase_ptb, mx, args.seed, ptb_split)
         finally:
             os.environ.pop("MXTPU_NO_FUSED_STEP")
-        graph = phase_step_graph(mx, weights, args.seed, records["rec"],
-                                 ptb_split, train["mean_nll"])
-        zoo = phase_zoo(mx, args.seed, rec_dir)
-    detection = phase_detection(mx, args.seed)
-    decode = phase_decode(mx, args.seed)
-    serving = phase_serving(mx, args.seed)
+        graph = run("13", phase_step_graph, mx, weights, args.seed,
+                    records["rec"], ptb_split, train["mean_nll"])
+        zoo = run("14", phase_zoo, mx, args.seed, rec_dir)
+    detection = run("15", phase_detection, mx, args.seed)
+    decode = run("16", phase_decode, mx, args.seed)
+    serving = run("17", phase_serving, mx, args.seed)
+    print("phase seconds: " + json.dumps(
+        {k: round(v, 1) for k, v in phase_s.items()}), flush=True)
 
     main_case = cases["slice_fp32_causal"]
     kernels = [{
@@ -6542,24 +6652,20 @@ def main(argv=None):
         "device_ms": main_case["device_ms"],
         "library_device_ms": main_case["library_device_ms"],
     }]
-    tc_case = cases["slice_bf16_causal"]
+    # the element-wise kernel: rows that are not 16-byte aligned (a view at
+    # an offset of one element here); no main path makes such rows, so its
+    # main-path launches are 0 and phase 3 holds it to its plain version
+    tc_case = cases["d64_bf16_causal_offset1"]
     kernels.append({
         "name": "flash_attention_fwd_tc",
         "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/flash_attention_fwd_tc.cu",
         "replaces": "mxnet_tpu/ops/flash_attention.py:47",
-        # the captured steps' launches are the kernels the card ran in them
-        # (traced); the wrapper's calls there are the warm-up's and the
-        # capture's
-        "launches": amp["launches"] + train["launches"]
-        + graph["lm"]["launches"],
+        "launches": 0,
         "launches_by_path": {
-            "amp_requests_traced": amp["launches"],
-            "amp_requests_wrapper_calls": amp["wrapper_calls"]["bfloat16"],
-            "training_steps": train["launches"],
-            "captured_training_steps_traced": graph["lm"]["launches"],
-            "captured_training_steps_wrapper_calls":
-                graph["lm"]["wrapper_calls"]["bfloat16"]},
+            "main_paths": 0,
+            "phase3_cases": [n for n, c in cases.items()
+                             if c["ran"] == ["flash_fwd_tc"]]},
         **{k: tc_case[k] for k in KERNEL_KEYS}})
     wide_case = cases["d256_fp32_causal"]
     kernels.append({
@@ -6576,20 +6682,37 @@ def main(argv=None):
             "d256_requests_wrapper_calls":
                 slice_d256["wrapper_calls"]["flash_fwd_f32_wide"]},
         **{k: wide_case[k] for k in KERNEL_KEYS}})
-    wg_case = cases["d256_bf16_causal"]
+    wg_case = cases["slice_bf16_causal"]
     kernels.append({
         "name": "flash_attention_fwd_tc_wg",
         "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/flash_attention_fwd_tc.cu",
         "replaces": "mxnet_tpu/ops/flash_attention.py:47",
-        # phase 8's head-dim-256 requests: the kernels the card ran in them
-        # (traced); the wrapper's calls are the warm-up's and the capture's
-        "launches": amp["d256"]["launches"],
+        # the bf16 main paths: phase 8's requests at 16 heads of 64, 8 of
+        # 128 and 4 of 256 and phase 13's captured steps (the kernels the
+        # card ran in them, traced; the wrapper's calls are the warm-up's
+        # and the capture's), and phase 9's steps
+        "launches": amp["launches"] + amp["d128"]["launches"]
+        + amp["d256"]["launches"] + train["launches"]
+        + graph["lm"]["launches"],
         "launches_by_path": {
+            "amp_requests_traced": amp["launches"],
+            "amp_requests_wrapper_calls": amp["wrapper_calls"]["bfloat16"],
+            "amp_d128_requests_traced": amp["d128"]["launches"],
+            "amp_d128_requests_wrapper_calls":
+                amp["d128"]["wrapper_calls"]["flash_fwd_tc_wg"],
             "amp_d256_requests_traced": amp["d256"]["launches"],
             "amp_d256_requests_wrapper_calls":
-                amp["d256"]["wrapper_calls"]["flash_fwd_tc_wg"]},
-        **{k: wg_case[k] for k in KERNEL_KEYS}})
+                amp["d256"]["wrapper_calls"]["flash_fwd_tc_wg"],
+            "training_steps": train["launches"],
+            "captured_training_steps_traced": graph["lm"]["launches"],
+            "captured_training_steps_wrapper_calls":
+                graph["lm"]["wrapper_calls"]["bfloat16"]},
+        **{k: wg_case[k] for k in KERNEL_KEYS},
+        # its other widths' and the training shape's numbers, from phase 3
+        "other_shapes": {n: {k: cases[n][k] for k in KERNEL_KEYS}
+                         for n in ("train_bf16_causal", "d128_bf16_causal",
+                                   "d256_bf16_causal")}})
     for name, case in (("rtc_axpy", "axpy_logits_fp32"),
                        ("rtc_sgd_mom", "sgd_mom_embedding_fp32")):
         row = rtc_cases[case]
@@ -6609,7 +6732,7 @@ def main(argv=None):
                    "records": records, "ptb": ptb, "step_graph": graph,
                    "zoo": zoo, "detection": detection,
                    "decode": decode, "serving": serving,
-                   "kernels": kernels,
+                   "kernels": kernels, "phase_seconds": phase_s,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card)

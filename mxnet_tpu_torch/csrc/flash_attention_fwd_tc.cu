@@ -11,16 +11,29 @@
 // and o / max(l, 1e-20) written in q's dtype. Columns past T_k have weight 0.
 // The scores never leave the registers.
 //
+// Three kernels, routed by the rows' alignment and the head dim (the C
+// entry at the end; ops/flash_attention.py::launch_plan names the same):
+//   * flash_fwd_tc_wg: 16-byte rows (d % 8 == 0 and 16-byte aligned bases,
+//     what TMA needs) at every d <= 256, in widths 64, 128, 192 and 256
+//     (the smallest that holds d; columns past d arrive as zeros). The
+//     tensor cores are reached through wgmma, fed by TMA, at every width:
+//     the only way to the card's full tensor-core rate. Its design is
+//     below, before the kernel;
+//   * flash_fwd_tc: the element-wise path, rows that are not 16-byte
+//     aligned (d not a multiple of 8, a view at a 2-byte offset) at d <=
+//     128, on mma.sync;
+//   * flash_fwd_tc_split: wider than 256, and 2-byte rows wider than 128.
+//
 // Bound on an H100 SXM at the transformer LM's shape, q/k/v (2, 2048, 16, 64)
 // bf16 causal, per forward and layer: B*H*T*(T+1)/2 = 6.7e7 causal pairs,
 // each 2*D flops for Q K^T and 2*D for P V, so 17.2 GFLOP; the bytes are q,
 // k, v read once and o written once, 4 * 8.4 MB = 34 MB. At 989 TFLOP/s
 // (dense bf16/fp16 tensor cores) and 3.35 TB/s that is 0.0174 ms against
-// 0.0100 ms: the kernel is bound by operations. mma.sync issues from one
-// warp at a time and reaches at most about two thirds of that peak; the
-// warpgroup form (wgmma, fed by TMA) that lifts it is later work.
+// 0.0100 ms: the kernels are bound by operations.
 //
-// Design (FlashAttention-2 form):
+// flash_fwd_tc, the element-wise path (FlashAttention-2 form on
+// mma.sync; it once ran the 16-byte rows up to d 128 too, through
+// cp.async, at 19-21 % of the bound: PERF.md keeps its times):
 //   * one block of 4 warps (128 threads) per (batch*head, 64-row Q tile);
 //     each warp owns 16 Q rows. The grid is (batch*head, Q tile) and Q tiles
 //     run from the last, so the first blocks the card schedules are the
@@ -28,15 +41,12 @@
 //   * Q, K and V stay row-major in shared memory, rows padded by 8 elements
 //     (16 bytes), so that the 8 rows an ldmatrix phase reads start in 8
 //     distinct 4-bank groups: no bank conflicts;
-//   * K/V tiles of 64 rows go through a two-stage cp.async ring: tile n+1 is
-//     copied while tile n is computed, one barrier per tile. Copies are 16
-//     bytes when d % 8 == 0 and the base pointers are 16-byte aligned (the
-//     VEC template parameter, picked by ops/flash_attention.py::copy_bytes
-//     and checked again by the entry); rows past T and columns past d are
-//     zero-filled with src-size 0. Otherwise (d = 50, a view at a 2-byte
-//     offset) the same ring is filled by element-wise loads, which cannot
-//     overlap the compute of their own warp. V rows past T_k must be zeros:
-//     a masked p = 0 times a NaN left in shared memory would be NaN;
+//   * K/V tiles of 64 rows go through a two-stage ring filled by
+//     element-wise loads (2 bytes from device memory, 4 into shared memory;
+//     any d and alignment): tile n+1 is loaded after tile n's barrier, one
+//     barrier per tile. Rows past T and columns past d are zero. V rows past
+//     T_k must be zeros: a masked p = 0 times a NaN left in shared memory
+//     would be NaN;
 //   * each warp loads its Q fragment once (ldmatrix.x4, the A operand of
 //     D/16 k-steps) and keeps it in registers;
 //   * S = Q K^T with mma.sync.m16n8k16 (.bf16 or .f16 in, fp32 accumulate):
@@ -61,14 +71,13 @@
 //     dynamic-size attribute is set once per device and instantiation;
 //   * head dims: D=32/64/128 instantiations for each of bf16 and fp16; any
 //     d <= 128 runs in the smallest that holds it, the columns past d zero
-//     in shared memory. Above 128: flash_fwd_tc_wg (wgmma and TMA, below)
-//     for d <= 256 with 16-byte rows, flash_fwd_tc_split (a split over d)
-//     for wider rows and for the element-wise loads.
+//     in shared memory.
 // Precision: S and O accumulate in fp32, as in the JAX kernel, but P is
 // rounded to the 16-bit input type before P V, where the JAX kernel keeps p
 // in fp32 (mxnet_tpu/ops/flash_attention.py:69,72). The row sum l is taken
 // over the fp32 p. Against the fp32 plain version on the same inputs the
-// error stays inside 2e-2 (bf16) and 1e-2 (fp16); see chip_smoke.py phase 3.
+// error stays inside 2e-2 (bf16) and 3e-3 (fp16); see chip_smoke.py phase 3.
+// All three kernels round P so.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -222,7 +231,7 @@ __device__ __forceinline__ uint16_t to_bits(float x) {
   }
 }
 
-template <typename T, int DP, int VEC>
+template <typename T, int DP>
 __global__ void __launch_bounds__(THREADS, 2)
 flash_fwd_tc(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
              const uint16_t* __restrict__ v, uint16_t* __restrict__ o,
@@ -261,10 +270,9 @@ flash_fwd_tc(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
     n_tiles = min(n_tiles, last / BK + 1);
   }
 
-  stage_tile<BQ, DP, VEC>(q_s, q_bh, q0, t_q, rs, d);
-  stage_tile<BK, DP, VEC>(kv_s, k_bh, 0, t_k, rs, d);
-  stage_tile<BK, DP, VEC>(kv_s + TILE, v_bh, 0, t_k, rs, d);
-  cp_async_commit();
+  stage_tile<BQ, DP, 2>(q_s, q_bh, q0, t_q, rs, d);
+  stage_tile<BK, DP, 2>(kv_s, k_bh, 0, t_k, rs, d);
+  stage_tile<BK, DP, 2>(kv_s + TILE, v_bh, 0, t_k, rs, d);
 
   // ldmatrix row addresses of this lane: x4 matrices 0-3 take their row
   // addresses from lanes 0-7, 8-15, 16-23, 24-31
@@ -288,7 +296,6 @@ flash_fwd_tc(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
     const int k0 = kt * BK;
     const uint16_t* k_s = kv_s + (kt & 1) * 2 * TILE;
     const uint16_t* v_s = k_s + TILE;
-    cp_async_wait_all();
     // tile kt is in for every thread, and every thread is done with
     // tile kt - 1's stage
     __syncthreads();
@@ -302,9 +309,8 @@ flash_fwd_tc(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
     }
     if (kt + 1 < n_tiles) {
       uint16_t* nxt = kv_s + ((kt + 1) & 1) * 2 * TILE;
-      stage_tile<BK, DP, VEC>(nxt, k_bh, k0 + BK, t_k, rs, d);
-      stage_tile<BK, DP, VEC>(nxt + TILE, v_bh, k0 + BK, t_k, rs, d);
-      cp_async_commit();
+      stage_tile<BK, DP, 2>(nxt, k_bh, k0 + BK, t_k, rs, d);
+      stage_tile<BK, DP, 2>(nxt + TILE, v_bh, k0 + BK, t_k, rs, d);
     }
 
     // S = Q K^T: B fragments of two n-tiles per ldmatrix.x4 (matrix 0 keys
@@ -410,16 +416,8 @@ flash_fwd_tc(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
 #pragma unroll
     for (int n = 0; n < NO; ++n) {
       const int col = n * 8 + 2 * tq;
-      const float x0 = acc[n][2 * i] * inv;
-      const float x1 = acc[n][2 * i + 1] * inv;
-      if constexpr (VEC == 16) {
-        // d % 8 == 0 and aligned rows: col < d implies col + 1 < d
-        if (col < d)
-          *reinterpret_cast<uint32_t*>(o_row + col) = pack2<T>(x0, x1);
-      } else {
-        if (col < d) o_row[col] = to_bits<T>(x0);
-        if (col + 1 < d) o_row[col + 1] = to_bits<T>(x1);
-      }
+      if (col < d) o_row[col] = to_bits<T>(acc[n][2 * i] * inv);
+      if (col + 1 < d) o_row[col + 1] = to_bits<T>(acc[n][2 * i + 1] * inv);
     }
   }
 }
@@ -619,35 +617,38 @@ flash_fwd_tc_split(const uint16_t* __restrict__ q,
   }
 }
 
-// ------------------------------------------ head dim 129-256: wgmma + TMA
+// ------------------------------ 16-byte rows, d <= 256: wgmma + TMA
 
-// flash_fwd_tc_wg: bf16/fp16 with 128 < d <= 256 and 16-byte rows (d % 8 ==
-// 0, 16-byte aligned bases: what TMA needs). It replaces the TPU kernel
-// mxnet_tpu/ops/flash_attention.py:47 _fwd_kernel there and computes the
-// same function as flash_fwd_tc. Bound at (2, 2048, 4, 256) causal (the LM
-// at hidden 1024 in 4 heads): 17.2 GFLOP at 989 TFLOP/s, 0.0174 ms, against
-// 8.4 MB x 4 at 3.35 TB/s, 0.0100 ms: operations. Its design puts the
-// operations on Hopper's asynchronous units:
+// flash_fwd_tc_wg: bf16/fp16 with d <= 256 and 16-byte rows (d % 8 == 0,
+// 16-byte aligned bases: what TMA needs), in widths 64, 128, 192 and 256.
+// It replaces the TPU kernel mxnet_tpu/ops/flash_attention.py:47
+// _fwd_kernel there and computes the same function as flash_fwd_tc. Its
+// design puts the operations on Hopper's asynchronous units:
 //   * one block owns all of d: S = Q K^T is computed once per (Q tile, K
 //     tile), never per chunk of the output's columns;
-//   * each block has two consumer warpgroups of 64 Q rows and one
-//     producer warpgroup, of which one thread issues every copy. The two
-//     consumers take Q tiles i and n - 1 - i of a head, so every block of a
-//     causal launch has about the same work (n + 1 K tiles in all) and the
-//     one-wave grid ends together; launch_plan in ops/flash_attention.py
-//     gives the same grid (128 Q rows a block);
+//   * each block has consumer warpgroups of 64 Q rows and one producer
+//     warpgroup, of which one thread issues every copy. With two consumers
+//     at widths 192 and 256 (PAIRED) they take Q tiles i and n - 1 - i of
+//     a head, so every block of a causal launch has about the same work
+//     (n + 1 64-row K tiles in all) and the grid ends together. At widths
+//     64 and 128 a block's consumers take adjacent tiles, the last blocks'
+//     first (the heaviest causal blocks start first): they then have the
+//     same K/V tiles, loaded once for all of them, and run side by side to
+//     the end. launch_plan in ops/flash_attention.py gives the same grids;
 //   * copies are TMA loads through 4-d tensor maps, (d, H, T, B) with the
 //     tensors' strides, in boxes of 64 elements (128 bytes, the widest the
-//     128-byte swizzle takes) by 64 rows: a row of d is DP / 64 boxes. Rows
-//     past T and columns past d arrive as zeros, so neither ragged T nor
-//     d < DP needs a mask on the loads (the softmax masks stay);
-//   * each consumer's Q tile is loaded once; K and V tiles of WG_BK rows go
-//     through a ring of WG_STAGES stages, each with an mbarrier for K and
-//     one for V (the producer's expect_tx and the copies' bytes), and for
-//     each consumer one for K and one for V that it arrives on when done,
-//     which the producer waits on before it refills them;
-//   * S = Q K^T is wgmma m64n64k16 with both operands in shared memory
-//     (K-major, 128-byte swizzle), fp32 accumulate: 32 registers a thread;
+//     128-byte swizzle takes) by the tile's rows: a row of d is DP / 64
+//     boxes. Rows past T and columns past d arrive as zeros, so neither
+//     ragged T nor d < DP needs a mask on the loads (the softmax masks
+//     stay);
+//   * each consumer's Q tile is loaded once; K and V tiles of BK rows go
+//     through a ring of STAGES stages, each with an mbarrier for K and one
+//     for V (the producer's expect_tx and the copies' bytes), and for each
+//     consumer one for K and one for V that it arrives on when done, which
+//     the producer waits on before it refills them;
+//   * S = Q K^T is wgmma m64n<BK>k16 with both operands in shared memory
+//     (K-major, 128-byte swizzle), fp32 accumulate: BK / 2 registers a
+//     thread;
 //   * the online softmax runs on the accumulator in registers as in
 //     flash_fwd_tc (the wgmma accumulator is mma.sync's C layout, a warp to
 //     16 rows), and P, rounded to the 16-bit type, is the register A operand
@@ -656,44 +657,126 @@ flash_fwd_tc_split(const uint16_t* __restrict__ q,
 //     thread (128 at DP = 256);
 //   * a consumer issues tile n's P V right behind tile n + 1's Q K^T and
 //     waits for it only after n + 1's softmax, so that its own products and
-//     softmax overlap: a paired block's longer tile runs most of its K tiles
-//     with the other consumer done. K and V of a stage are released apart,
-//     K as soon as Q K^T has read it;
+//     softmax overlap. K and V of a stage are released apart, K as soon as
+//     Q K^T has read it;
+//   * ping-pong (PINGPONG): the consumers also take turns to issue their
+//     products, each turn ended by the arrival of the consumer's 128
+//     threads on the next consumer's turn mbarrier, so that one consumer's
+//     softmax runs while the other's products hold the tensor cores
+//     (mbarriers and not named barriers: their waits trap when a fault
+//     keeps them waiting, where bar.sync would hold the card);
 //   * the waits (mbarrier try_wait loops) sit inside asm and the
 //     warpgroup's index is made warp-uniform: a branch the compiler
 //     cannot prove convergent ahead of a wgmma makes it serialize every
-//     wgmma of the kernel (ptxas C7518);
+//     wgmma of the kernel (ptxas C7518). For the same reason the first
+//     turn's arrival is predicated inside its asm, not branched around;
 //   * setmaxnreg moves registers from the producer (24) to the consumers
-//     (240);
-//   * shared memory at DP = 256: Q 2 x 32 KB, K and V 2 stages x 2 x 32
-//     KB: 192 KB, one block an SM.
-// mxnet_tpu_torch/tools/flash_tile_sweep.py --kernel wg times this design
+//     (240 with two, 112 with four).
+//
+// Widths 192 and 256 (Tiles<192>, Tiles<256>): K/V tiles of 64
+// rows (S m64n64), two consumers, two stages, no ping-pong; shared memory
+// at DP = 256: Q 2 x 32 KB, K and V 2 stages x 2 x 32 KB: 192 KB, one
+// block an SM; 168 registers at launch. Bound at (2, 2048, 4, 256) causal
+// (the LM at hidden 1024 in 4 heads): 17.2 GFLOP at 989 TFLOP/s, 0.0174
+// ms, against 8.4 MB x 4 at 3.35 TB/s, 0.0100 ms: operations.
+//
+// Widths 64 and 128 (Tiles<64>, Tiles<128>). At d 64 the
+// exponentials of the softmax are as much work as the products (about
+// 69 M ex2 at the serving shape, 16 a clock an SM: 0.017 ms, the tensor
+// cores' 0.0174 ms), at d 256 a quarter, and the sweep reads the kernel
+// bound by its arithmetic, not its loads: at width 64 "arithmetic alone"
+// is within 5 % of the whole, "loads alone" half of it. A consumer's
+// softmax is a chain of dependent instructions that its own products
+// cannot hide, so what helps is more consumer warps an SM and fewer
+// instructions; a deeper ring buys 1-2 %:
+//   * width 64: four consumers (256 Q rows a block, 112 registers a
+//     consumer thread), K/V tiles of 64 rows (S m64n64: 32 registers, where
+//     m64n128 does not fit beside O and P in 112), three stages, no
+//     ping-pong (with four consumers the turns only add waits);
+//   * width 128: two consumers (128 Q rows, 240 registers), K/V tiles of
+//     128 rows (S m64n128k16: 6 KB of shared memory read for 64 tensor
+//     clocks, where m64n64k16 reads 4 KB for 32, all of the SM's rate),
+//     ping-pong on;
+//   * both: exponentials as ex2.approx.ftz, and the rows' max and sum over
+//     a tile as two partials each;
+//   * shared memory at DP = 64: Q 4 x 8 KB, K and V 3 stages x 2 x 8 KB:
+//     80 KB; at DP = 128: Q 2 x 16 KB, K and V 2 x 2 x 32 KB: 160 KB. One
+//     block an SM (the registers).
+//   Device ms on an H100 SXM at 700 W (flash_tile_sweep.py --kernel wg,
+//   PERF.md; the library's scaled_dot_product_attention in the same
+//   turns), bf16 causal: (2, 2048, 16, 64) 0.0594 (library 0.0583;
+//   flash_fwd_tc on mma.sync 0.0907), (4, 2048, 16, 64) 0.115 (0.099),
+//   (2, 2048, 8, 128) 0.0487 (0.0506). At width 64 the arithmetic alone
+//   takes 0.0606 and the loads alone 0.0244. Left on the table:
+//   non-causal at d 64 (0.098 against the library's 0.078); the latency
+//   of each consumer's chain (its Q K^T's wait is exposed: a second S
+//   tile in flight needs registers four consumers do not have); a
+//   persistent grid that would hide each block's start and epilogue.
+// mxnet_tpu_torch/tools/flash_tile_sweep.py --kernel wg times these tiles
 // against alternatives it patches into a copy of this source (PERF.md).
 namespace wgk {
 
-constexpr int WG_CONSUMERS = 2;   // consumer warpgroups (q_tile pairs two)
-constexpr int WG_STAGES = 2;      // K/V ring depth
-constexpr int WG_BK = 64;         // K/V rows a tile (S is m64n64)
 constexpr int WG_BQ = 64;         // Q rows a consumer
-constexpr int WG_THREADS = 128 * (WG_CONSUMERS + 1);
 constexpr int BOX = 64;           // elements of d a TMA box (128 bytes)
 constexpr int ROW = 128;          // bytes of a box row in shared memory
 
+// A width's tiles: K/V rows a tile (S is m64n<BK>), consumer warpgroups,
+// ring stages, whether the consumers take turns (ping-pong), whether the
+// softmax's exponentials are ex2.approx.ftz (one MUFU.EX2; exp2f adds the
+// instructions that keep subnormal results, which P rounded to 16 bits
+// cannot hold anyway) with its sums split for more independent
+// instructions, and whether two consumers take Q tiles i and n - 1 - i
+// (PAIRED) or adjacent ones
+template <int BK_, int CONSUMERS_, int STAGES_, int PINGPONG_, int EX2_,
+          int PAIRED_>
+struct TilesOf {
+  static constexpr int BK = BK_;
+  static constexpr int CONSUMERS = CONSUMERS_;
+  static constexpr int STAGES = STAGES_;
+  static constexpr bool PINGPONG = PINGPONG_ != 0;
+  static constexpr bool EX2 = EX2_ != 0;
+  static constexpr bool PAIRED = PAIRED_ != 0 && CONSUMERS == 2;
+  static constexpr int THREADS = 128 * (CONSUMERS + 1);
+  // setmaxnreg: the block's registers at launch (the SM's 65536 over its
+  // threads, one block an SM, a multiple of 8) less the producer's 24 a
+  // thread, over the consumers: 240 for two consumers, 160 for three, 112
+  // for four
+  static constexpr int LAUNCH_REGS = 65536 / THREADS / 8 * 8;
+  static constexpr int CONSUMER_REGS =
+      (THREADS * LAUNCH_REGS - 128 * 24) / (128 * CONSUMERS) / 8 * 8;
+  static_assert(BK == 64 || BK == 128, "S is m64n64 or m64n128");
+  static_assert(CONSUMERS >= 2 && CONSUMERS <= 4, "2 to 4 consumers");
+};
+template <int DP>
+struct Tiles;
+// BK, consumers, stages, ping-pong, ex2.approx.ftz, paired
+template <>
+struct Tiles<64> : TilesOf<64, 4, 3, 0, 1, 0> {};
+template <>
+struct Tiles<128> : TilesOf<128, 2, 2, 1, 1, 0> {};
+template <>
+struct Tiles<192> : TilesOf<64, 2, 2, 0, 0, 1> {};
+template <>
+struct Tiles<256> : TilesOf<64, 2, 2, 0, 0, 1> {};
+
 template <int DP>
 struct Layout {
-  static constexpr int DC = DP / BOX;            // boxes a row
+  using C = Tiles<DP>;
+  static constexpr int DC = DP / BOX;                 // boxes a row
   static constexpr int Q_BYTES = WG_BQ * ROW * DC;    // a consumer's Q
-  static constexpr int KV_BYTES = WG_BK * ROW * DC;   // a K or V tile
-  static constexpr int K_OFF = WG_CONSUMERS * Q_BYTES;
-  static constexpr int V_OFF = K_OFF + WG_STAGES * KV_BYTES;
-  static constexpr int BAR_OFF = V_OFF + WG_STAGES * KV_BYTES;
+  static constexpr int KV_BYTES = C::BK * ROW * DC;   // a K or V tile
+  static constexpr int K_OFF = C::CONSUMERS * Q_BYTES;
+  static constexpr int V_OFF = K_OFF + C::STAGES * KV_BYTES;
+  static constexpr int BAR_OFF = V_OFF + C::STAGES * KV_BYTES;
   // q_full, k_full[STAGES], v_full[STAGES], k_empty and
-  // v_empty[STAGES][CONSUMERS]
-  static constexpr int N_BARS =
-      1 + 2 * WG_STAGES + 2 * WG_STAGES * WG_CONSUMERS;
+  // v_empty[STAGES][CONSUMERS], with ping-pong turn[CONSUMERS]
+  static constexpr int N_BARS = 1 + 2 * C::STAGES +
+                                2 * C::STAGES * C::CONSUMERS +
+                                (C::PINGPONG ? C::CONSUMERS : 0);
   // 1024 bytes for aligning the base: the 128-byte swizzle repeats every
   // 1024 bytes, and every tile starts on such a boundary
   static constexpr size_t BYTES = BAR_OFF + 8 * N_BARS + 1024;
+  static_assert(BYTES <= 232448, "a block's shared memory on an H100");
 };
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
@@ -735,6 +818,17 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
       "trap;\n"
       "MXTT_DONE:\n}\n" ::"r"(smem_addr(bar)),
       "r"(parity)
+      : "memory");
+}
+
+// mbar_arrive where `pred` != 0: a predicate inside the asm, not a branch
+// ahead of the next wgmma
+__device__ __forceinline__ void mbar_arrive_if(uint64_t* bar, int pred) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %1, 0;\n"
+      "@p mbarrier.arrive.shared::cta.b64 _, [%0];\n}\n" ::"r"(
+          smem_addr(bar)),
+      "r"(pred)
       : "memory");
 }
 
@@ -800,6 +894,35 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[4]) {
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]) \
       : "l"(da), "l"(db), "r"(scale_d))
 
+#define MXTT_WGMMA_SS_N128(TY)                                                \
+  asm volatile(                                                               \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"                            \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " "            \
+      "{"                                                                     \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "    \
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "    \
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "    \
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "    \
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63"                     \
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"                                     \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), \
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), \
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), \
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), \
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), \
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), \
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), \
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), \
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), \
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), \
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]) \
+      : "l"(da), "l"(db), "r"(scale_d))
+
 #define MXTT_WGMMA_RS(TY)                                                     \
   asm volatile(                                                               \
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                            \
@@ -815,16 +938,25 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[4]) {
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]) \
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
 
-// d (+)= A B, m64n64k16: A (64 x 16) and B (16 x 64, K-major: its 64
+// d (+)= A B, m64n<N>k16: A (64 x 16) and B (16 x N, K-major: its N
 // columns are rows of 16 contiguous k) from shared memory; scale_d == 0
 // overwrites d
-template <typename T>
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
+template <typename T, int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
                                          uint64_t db, int scale_d) {
-  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
-    MXTT_WGMMA_SS("bf16");
+  if constexpr (N == 64) {
+    if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+      MXTT_WGMMA_SS("bf16");
+    } else {
+      MXTT_WGMMA_SS("f16");
+    }
   } else {
-    MXTT_WGMMA_SS("f16");
+    static_assert(N == 128, "S is m64n64 or m64n128");
+    if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+      MXTT_WGMMA_SS_N128("bf16");
+    } else {
+      MXTT_WGMMA_SS_N128("f16");
+    }
   }
 }
 
@@ -842,54 +974,79 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
 }
 
 #undef MXTT_WGMMA_SS
+#undef MXTT_WGMMA_SS_N128
 #undef MXTT_WGMMA_RS
 
-// K/V tiles the 64 Q rows from q0 attend to
+// K/V tiles of BK rows the 64 Q rows from q0 attend to
+template <int BK>
 __device__ __forceinline__ int kv_tiles(int q0, int t_q, int t_k, int causal,
                                         int q_offset) {
-  int n = (t_k + WG_BK - 1) / WG_BK;
-  if (causal) n = min(n, (q_offset + min(q0 + WG_BQ, t_q) - 1) / WG_BK + 1);
+  int n = (t_k + BK - 1) / BK;
+  if (causal) n = min(n, (q_offset + min(q0 + WG_BQ, t_q) - 1) / BK + 1);
   return n;
 }
 
 // the 64-row Q tile of the block's consumer w (-1: none), of nq in a head:
-// block y pairs tiles y and nq - 1 - y
+// PAIRED, block y pairs tiles y and nq - 1 - y; else block y takes
+// CONSUMERS adjacent tiles, the last blocks' first
+template <int CONSUMERS, bool PAIRED>
 __device__ __forceinline__ int q_tile(int w, int nq) {
-  int t = w == 0 ? (int)blockIdx.y : nq - 1 - (int)blockIdx.y;
-  if (w == 1 && t == (int)blockIdx.y) t = -1;
-  return t < nq ? t : -1;
+  if constexpr (PAIRED) {
+    int t = w == 0 ? (int)blockIdx.y : nq - 1 - (int)blockIdx.y;
+    if (w == 1 && t == (int)blockIdx.y) t = -1;
+    return t < nq ? t : -1;
+  } else {
+    const int t = ((int)gridDim.y - 1 - (int)blockIdx.y) * CONSUMERS + w;
+    return t < nq ? t : -1;
+  }
 }
 
 // O += P V for one K/V tile: k-step j reads rows 16j.. of the V tile (2048
 // bytes in); box c is O's columns 64c..64c+63. Both byte offsets are 1024
 // (the 8-row groups of a box are contiguous), so the descriptor does not
 // depend on which of the two the unit reads as the k-group stride
-template <typename T, int DC>
+template <typename T, int DC, int BK>
 __device__ __forceinline__ void issue_pv(float (&acc)[DC][32],
-                                         const uint32_t (&pa)[WG_BK / 16][4],
+                                         const uint32_t (&pa)[BK / 16][4],
                                          uint32_t v_tile) {
 #pragma unroll
-  for (int j = 0; j < WG_BK / 16; ++j)
+  for (int j = 0; j < BK / 16; ++j)
 #pragma unroll
     for (int c = 0; c < DC; ++c)
       wgmma_rs<T>(acc[c], pa[j],
-                  desc128(v_tile + c * WG_BK * ROW + j * 16 * ROW, 1024,
-                          1024));
+                  desc128(v_tile + c * BK * ROW + j * 16 * ROW, 1024, 1024));
+}
+
+// 2^x as one MUFU.EX2, subnormal results flushed to 0
+__device__ __forceinline__ float ex2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // The online softmax of one S tile in the log2 domain: sc (the scores of
 // keys k0.., sc[4n + e] at row g + 8 (e >> 1), column k0 + 8n + 2tq +
 // (e & 1)) becomes p; m and l are the rows' running max and this thread's
-// partial sum, corr the factor the rows' O takes
-__device__ __forceinline__ void softmax_tile(float (&sc)[WG_BK / 2],
+// partial sum, corr the factor the rows' O takes. EX2: 2^x by ex2_ftz, and
+// each row's max and sum over the tile taken as two partials (even and odd
+// n), so that a chain of dependent instructions is half as long (two
+// consumer warps an SM sub-partition hide little latency); else exp2f and
+// one chain
+template <int BK, bool EX2>
+__device__ __forceinline__ void softmax_tile(float (&sc)[BK / 2],
                                              float (&m)[2],
                                              float (&l)[2], float (&corr)[2],
                                              bool edge, int k0, int t_k,
                                              int causal, int row_g, int tq,
                                              float scale_log2) {
-  float mx[2] = {neg_inf(), neg_inf()};
+  constexpr int P = EX2 ? 2 : 1;   // partials a row
+  float mx[2][P];
 #pragma unroll
-  for (int n = 0; n < WG_BK / 8; ++n) {
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int u = 0; u < P; ++u) mx[i][u] = neg_inf();
+#pragma unroll
+  for (int n = 0; n < BK / 8; ++n) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       float x = sc[4 * n + e] * scale_log2;
@@ -903,32 +1060,53 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[WG_BK / 2],
         }
       }
       sc[4 * n + e] = x;
-      mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      mx[e >> 1][n % P] = fmaxf(mx[e >> 1][n % P], x);
     }
   }
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-    const float m_new = fmaxf(m[i], mx[i]);
-    corr[i] = exp2f(m[i] - m_new);
+    float r = mx[i][0];
+#pragma unroll
+    for (int u = 1; u < P; ++u) r = fmaxf(r, mx[i][u]);
+    r = fmaxf(r, __shfl_xor_sync(0xffffffffu, r, 1));
+    r = fmaxf(r, __shfl_xor_sync(0xffffffffu, r, 2));
+    const float m_new = fmaxf(m[i], r);
+    corr[i] = EX2 ? ex2_ftz(m[i] - m_new) : exp2f(m[i] - m_new);
     m[i] = m_new;
     l[i] *= corr[i];
   }
+  float ls[2][P];
 #pragma unroll
-  for (int e = 0; e < WG_BK / 2; ++e) {
-    sc[e] = exp2f(sc[e] - m[(e >> 1) & 1]);
-    l[(e >> 1) & 1] += sc[e];
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int u = 0; u < P; ++u) ls[i][u] = 0.f;
+#pragma unroll
+  for (int e = 0; e < BK / 2; ++e) {
+    const int i = (e >> 1) & 1;
+    const float x = sc[e] - m[i];
+    sc[e] = EX2 ? ex2_ftz(x) : exp2f(x);
+    if constexpr (EX2) {
+      ls[i][(e >> 2) % P] += sc[e];
+    } else {
+      l[i] += sc[e];
+    }
+  }
+  if constexpr (EX2) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+#pragma unroll
+      for (int u = 0; u < P; ++u) l[i] += ls[i][u];
+    }
   }
 }
 
 // O *= corr by rows; P (sc) as the A operand of P V: k-step j (keys
 // 16j..16j+15) is n-tiles 2j and 2j + 1 of S, {tile 2j row g, tile 2j row
 // g+8, tile 2j+1 row g, tile 2j+1 row g+8}
-template <typename T, int DC>
+template <typename T, int DC, int BK>
 __device__ __forceinline__ void rescale_and_pack(
-    float (&acc)[DC][32], uint32_t (&pa)[WG_BK / 16][4],
-    const float (&sc)[WG_BK / 2], const float (&corr)[2]) {
+    float (&acc)[DC][32], uint32_t (&pa)[BK / 16][4],
+    const float (&sc)[BK / 2], const float (&corr)[2]) {
 #pragma unroll
   for (int c = 0; c < DC; ++c)
 #pragma unroll
@@ -939,7 +1117,7 @@ __device__ __forceinline__ void rescale_and_pack(
       acc[c][4 * n + 3] *= corr[1];
     }
 #pragma unroll
-  for (int j = 0; j < WG_BK / 16; ++j)
+  for (int j = 0; j < BK / 16; ++j)
 #pragma unroll
     for (int u = 0; u < 2; ++u) {
       const int n = 2 * j + u;
@@ -952,28 +1130,32 @@ __device__ __forceinline__ void rescale_and_pack(
 // is 0): k-step kk reads 16 columns of box kk / 4, 32 bytes into its
 // 128-byte rows (the swizzle is applied to the address, so a step inside a
 // 1024-byte atom moves the start). Issued and committed, not waited for
-template <typename T, int DP>
-__device__ __forceinline__ void issue_qk(float (&sc)[WG_BK / 2], uint32_t q_s,
+template <typename T, int DP, int BK>
+__device__ __forceinline__ void issue_qk(float (&sc)[BK / 2], uint32_t q_s,
                                          uint32_t k_tile) {
 #pragma unroll
   for (int kk = 0; kk < DP / 16; ++kk) {
     const uint32_t off = (kk % 4) * 32;
-    wgmma_ss<T>(sc, desc128(q_s + (kk / 4) * WG_BQ * ROW + off, 16, 1024),
-                desc128(k_tile + (kk / 4) * WG_BK * ROW + off, 16, 1024),
-                kk > 0);
+    wgmma_ss<T, BK>(sc, desc128(q_s + (kk / 4) * WG_BQ * ROW + off, 16, 1024),
+                    desc128(k_tile + (kk / 4) * BK * ROW + off, 16, 1024),
+                    kk > 0);
   }
   wgmma_commit();
 }
 
 template <typename T, int DP>
-__global__ void __launch_bounds__(WG_THREADS, 1)
+__global__ void __launch_bounds__(Tiles<DP>::THREADS, 1)
 flash_fwd_tc_wg(const __grid_constant__ CUtensorMap q_map,
                 const __grid_constant__ CUtensorMap k_map,
                 const __grid_constant__ CUtensorMap v_map,
                 uint16_t* __restrict__ o, int t_q, int t_k, int heads, int d,
                 float scale_log2, int causal, int q_offset) {
   using L = Layout<DP>;
+  using C = Tiles<DP>;
   constexpr int DC = L::DC;
+  constexpr int BK = C::BK;
+  constexpr int WG_CONSUMERS = C::CONSUMERS;
+  constexpr int WG_STAGES = C::STAGES;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
   uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
@@ -981,6 +1163,7 @@ flash_fwd_tc_wg(const __grid_constant__ CUtensorMap q_map,
   uint64_t* v_full = k_full + WG_STAGES;
   uint64_t* k_empty = v_full + WG_STAGES;   // [stage][consumer]
   uint64_t* v_empty = k_empty + WG_STAGES * WG_CONSUMERS;
+  uint64_t* turn_bar = v_empty + WG_STAGES * WG_CONSUMERS;   // [consumer]
 
   const int bh = blockIdx.x;
   const int b = bh / heads;
@@ -996,6 +1179,8 @@ flash_fwd_tc_wg(const __grid_constant__ CUtensorMap q_map,
         mbar_init(v_empty + s * WG_CONSUMERS + w, 128);
       }
     }
+    if constexpr (C::PINGPONG)
+      for (int w = 0; w < WG_CONSUMERS; ++w) mbar_init(turn_bar + w, 128);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
@@ -1012,9 +1197,9 @@ flash_fwd_tc_wg(const __grid_constant__ CUtensorMap q_map,
       uint32_t q_bytes = 0;
 #pragma unroll
       for (int w = 0; w < WG_CONSUMERS; ++w) {
-        tile[w] = q_tile(w, nq);
+        tile[w] = q_tile<WG_CONSUMERS, C::PAIRED>(w, nq);
         n_kv[w] = tile[w] < 0 ? 0
-                  : kv_tiles(tile[w] * WG_BQ, t_q, t_k, causal, q_offset);
+                  : kv_tiles<BK>(tile[w] * WG_BQ, t_q, t_k, causal, q_offset);
         n_max = max(n_max, n_kv[w]);
         if (tile[w] >= 0) q_bytes += L::Q_BYTES;
       }
@@ -1041,8 +1226,8 @@ flash_fwd_tc_wg(const __grid_constant__ CUtensorMap q_map,
         mbar_expect_tx(k_full + s, L::KV_BYTES);
 #pragma unroll
         for (int c = 0; c < DC; ++c)
-          tma_load(k_dst + c * WG_BK * ROW, &k_map, k_full + s, c * BOX, h,
-                   kt * WG_BK, b);
+          tma_load(k_dst + c * BK * ROW, &k_map, k_full + s, c * BOX, h,
+                   kt * BK, b);
 #pragma unroll
         for (int w = 0; w < WG_CONSUMERS; ++w)
           if (use > 0 && kt - WG_STAGES < n_kv[w])
@@ -1050,22 +1235,62 @@ flash_fwd_tc_wg(const __grid_constant__ CUtensorMap q_map,
         mbar_expect_tx(v_full + s, L::KV_BYTES);
 #pragma unroll
         for (int c = 0; c < DC; ++c)
-          tma_load(v_dst + c * WG_BK * ROW, &v_map, v_full + s, c * BOX, h,
-                   kt * WG_BK, b);
+          tma_load(v_dst + c * BK * ROW, &v_map, v_full + s, c * BOX, h,
+                   kt * BK, b);
       }
     }
   } else {
     // ---- consumer warpgroup wg: 64 Q rows, all of d
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
-    const int my_tile = q_tile(wg, nq);
-    if (my_tile < 0) return;
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+                     C::CONSUMER_REGS)
+                 : "memory");
+    const int my_tile = q_tile<WG_CONSUMERS, C::PAIRED>(wg, nq);
+    // ping-pong: the consumers issue their products in turns, 0, 1, ...:
+    // consumer w's turn k starts when phase k of turn_bar[w] completes,
+    // on the arrival of consumer w - 1 at the end of its turn (consumer 0's
+    // first, on the last consumer's arrival here). A consumer's turns are
+    // its K/V tiles and one (the last P V); one with fewer than the block's
+    // most takes empty ones at its end, so that the turns alternate to the
+    // end and no phase completes twice unseen
+    int turn = 0, turns = 0;
+    if constexpr (C::PINGPONG) {
+#pragma unroll
+      for (int w = 0; w < WG_CONSUMERS; ++w) {
+        const int tw = q_tile<WG_CONSUMERS, C::PAIRED>(w, nq);
+        if (tw >= 0)
+          turns = max(turns, kv_tiles<BK>(tw * WG_BQ, t_q, t_k, causal,
+                                           q_offset) + 1);
+      }
+      mbar_arrive_if(turn_bar, wg == WG_CONSUMERS - 1);
+    }
+    auto take_turn = [&] {
+      if constexpr (C::PINGPONG) mbar_wait(turn_bar + wg, turn & 1);
+    };
+    auto end_turn = [&] {
+      if constexpr (C::PINGPONG) {
+        mbar_arrive(turn_bar + (wg + 1) % WG_CONSUMERS);
+        ++turn;
+      }
+    };
+    auto empty_turns = [&] {
+      if constexpr (C::PINGPONG) {
+        while (turn < turns) {
+          take_turn();
+          end_turn();
+        }
+      }
+    };
+    if (my_tile < 0) {
+      empty_turns();
+      return;
+    }
     const int t = threadIdx.x % 128;
     const int warp = t >> 5;
     const int lane = t & 31;
     const int g = lane >> 2;
     const int tq = lane & 3;
     const int q0 = my_tile * WG_BQ;
-    const int n_tiles = kv_tiles(q0, t_q, t_k, causal, q_offset);
+    const int n_tiles = kv_tiles<BK>(q0, t_q, t_k, causal, q_offset);
     const uint32_t q_s = smem_addr(smem + wg * L::Q_BYTES);
     const uint32_t k_s = smem_addr(smem + L::K_OFF);
     const uint32_t v_s = smem_addr(smem + L::V_OFF);
@@ -1082,25 +1307,27 @@ flash_fwd_tc_wg(const __grid_constant__ CUtensorMap q_map,
     // kt + 1's Q K^T and runs under its softmax, so P (and O) are not
     // touched from that issue to the wait that follows the softmax, and
     // nothing is in flight across iterations
-    uint32_t pa[WG_BK / 16][4];
+    uint32_t pa[BK / 16][4];
 
     mbar_wait(q_full, 0);
     // a tile crosses the causal diagonal or T_k: masks apply
     auto edge = [&](int k0) {
-      return k0 + WG_BK > t_k || (causal && q_offset + q0 < k0 + WG_BK - 1);
+      return k0 + BK > t_k || (causal && q_offset + q0 < k0 + BK - 1);
     };
-    float sc[WG_BK / 2], corr[2];
+    float sc[BK / 2], corr[2];
     // tile 0: Q K^T and its softmax alone
     mbar_wait(k_full, 0);
     fence_regs(sc);
+    take_turn();
     wgmma_fence();
-    issue_qk<T, DP>(sc, q_s, k_s);
+    issue_qk<T, DP, BK>(sc, q_s, k_s);
+    end_turn();
     wgmma_wait_all();
     fence_regs(sc);
     mbar_arrive(k_empty + wg);
-    softmax_tile(sc, m, l, corr, edge(0), 0, t_k, causal, row_g, tq,
-                 scale_log2);
-    rescale_and_pack<T, DC>(acc, pa, sc, corr);
+    softmax_tile<BK, C::EX2>(sc, m, l, corr, edge(0), 0, t_k, causal, row_g,
+                             tq, scale_log2);
+    rescale_and_pack<T, DC, BK>(acc, pa, sc, corr);
     // tile kt's Q K^T, then tile kt - 1's P V behind it; the softmax of
     // tile kt runs while P V does; nothing is in flight across iterations
     for (int kt = 1; kt < n_tiles; ++kt) {
@@ -1111,24 +1338,26 @@ flash_fwd_tc_wg(const __grid_constant__ CUtensorMap q_map,
 #pragma unroll
       for (int c = 0; c < DC; ++c) fence_regs(acc[c]);
 #pragma unroll
-      for (int j = 0; j < WG_BK / 16; ++j) fence_regs(pa[j]);
+      for (int j = 0; j < BK / 16; ++j) fence_regs(pa[j]);
+      take_turn();
       wgmma_fence();
-      issue_qk<T, DP>(sc, q_s, k_s + s * L::KV_BYTES);
+      issue_qk<T, DP, BK>(sc, q_s, k_s + s * L::KV_BYTES);
       mbar_wait(v_full + sp, ((kt - 1) / WG_STAGES) & 1);
-      issue_pv<T, DC>(acc, pa, v_s + sp * L::KV_BYTES);
+      issue_pv<T, DC, BK>(acc, pa, v_s + sp * L::KV_BYTES);
       wgmma_commit();
+      end_turn();
       wgmma_wait_one();   // Q K^T is done; P V runs on
       fence_regs(sc);
       mbar_arrive(k_empty + s * WG_CONSUMERS + wg);
-      softmax_tile(sc, m, l, corr, edge(kt * WG_BK), kt * WG_BK, t_k,
-                   causal, row_g, tq, scale_log2);
+      softmax_tile<BK, C::EX2>(sc, m, l, corr, edge(kt * BK), kt * BK, t_k,
+                               causal, row_g, tq, scale_log2);
       wgmma_wait_all();
 #pragma unroll
       for (int c = 0; c < DC; ++c) fence_regs(acc[c]);
 #pragma unroll
-      for (int j = 0; j < WG_BK / 16; ++j) fence_regs(pa[j]);
+      for (int j = 0; j < BK / 16; ++j) fence_regs(pa[j]);
       mbar_arrive(v_empty + sp * WG_CONSUMERS + wg);
-      rescale_and_pack<T, DC>(acc, pa, sc, corr);
+      rescale_and_pack<T, DC, BK>(acc, pa, sc, corr);
     }
     // the last tile's P V
     const int sl = (n_tiles - 1) % WG_STAGES;
@@ -1136,14 +1365,17 @@ flash_fwd_tc_wg(const __grid_constant__ CUtensorMap q_map,
 #pragma unroll
     for (int c = 0; c < DC; ++c) fence_regs(acc[c]);
 #pragma unroll
-    for (int j = 0; j < WG_BK / 16; ++j) fence_regs(pa[j]);
+    for (int j = 0; j < BK / 16; ++j) fence_regs(pa[j]);
+    take_turn();
     wgmma_fence();
-    issue_pv<T, DC>(acc, pa, v_s + sl * L::KV_BYTES);
+    issue_pv<T, DC, BK>(acc, pa, v_s + sl * L::KV_BYTES);
     wgmma_commit();
+    end_turn();
     wgmma_wait_all();
 #pragma unroll
     for (int c = 0; c < DC; ++c) fence_regs(acc[c]);
     mbar_arrive(v_empty + sl * WG_CONSUMERS + wg);
+    empty_turns();
 
     // epilogue: rows g and g + 8 of this warp, columns 64c + 8n + 2tq + {0,
     // 1}; d % 8 == 0, so col < d implies col + 1 < d
@@ -1197,16 +1429,21 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes,
   return err;
 }
 
-template <typename T, int DP, int VEC>
+// grid y and z: at most 65535 each (x: batch * heads, checked by the entry)
+constexpr int MAX_GRID_YZ = 65535;
+
+template <typename T, int DP>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int batch, int t_q, int t_k, int heads, int d, float scale,
                    int causal, int q_offset, cudaStream_t stream) {
   static std::atomic<uint64_t> smem_set{0};
   constexpr size_t smem = smem_bytes<DP>();
-  cudaError_t err = allow_smem(flash_fwd_tc<T, DP, VEC>, smem, smem_set);
+  const int n_q = (t_q + BQ - 1) / BQ;
+  if (n_q > MAX_GRID_YZ) return cudaErrorInvalidValue;
+  cudaError_t err = allow_smem(flash_fwd_tc<T, DP>, smem, smem_set);
   if (err != cudaSuccess) return err;
-  dim3 grid(batch * heads, (t_q + BQ - 1) / BQ);
-  flash_fwd_tc<T, DP, VEC><<<grid, THREADS, smem, stream>>>(
+  dim3 grid(batch * heads, n_q);
+  flash_fwd_tc<T, DP><<<grid, THREADS, smem, stream>>>(
       static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(k),
       static_cast<const uint16_t*>(v), static_cast<uint16_t*>(o), t_q, t_k,
       heads, d, scale * LOG2E, causal, q_offset);
@@ -1220,9 +1457,11 @@ cudaError_t launch_split(const void* q, const void* k, const void* v, void* o,
                          cudaStream_t stream) {
   static std::atomic<uint64_t> smem_set{0};
   constexpr size_t smem = split_smem_bytes();
+  const int n_q = (t_q + BQ - 1) / BQ, n_dc = (d + DC - 1) / DC;
+  if (n_q > MAX_GRID_YZ || n_dc > MAX_GRID_YZ) return cudaErrorInvalidValue;
   cudaError_t err = allow_smem(flash_fwd_tc_split<T, VEC>, smem, smem_set);
   if (err != cudaSuccess) return err;
-  dim3 grid(batch * heads, (t_q + BQ - 1) / BQ, (d + DC - 1) / DC);
+  dim3 grid(batch * heads, n_q, n_dc);
   flash_fwd_tc_split<T, VEC><<<grid, THREADS, smem, stream>>>(
       static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(k),
       static_cast<const uint16_t*>(v), static_cast<uint16_t*>(o), t_q, t_k,
@@ -1290,88 +1529,89 @@ cudaError_t launch_wg(const void* q, const void* k, const void* v, void* o,
                       float scale, int causal, int q_offset,
                       cudaStream_t stream) {
   using namespace wgk;
+  using C = Tiles<DP>;
   static std::atomic<uint64_t> smem_set{0};
   constexpr size_t smem = Layout<DP>::BYTES;
+  // CONSUMERS 64-row Q tiles a block
+  const int nq = (t_q + WG_BQ - 1) / WG_BQ;
+  const int blocks = (nq + C::CONSUMERS - 1) / C::CONSUMERS;
+  if (blocks > MAX_GRID_YZ) return cudaErrorInvalidValue;
   cudaError_t err = allow_smem(flash_fwd_tc_wg<T, DP>, smem, smem_set);
   if (err != cudaSuccess) return err;
   CUtensorMap qm, km, vm;
   if ((err = tensor_map<T>(&qm, q, batch, t_q, heads, d, WG_BQ)) !=
           cudaSuccess ||
-      (err = tensor_map<T>(&km, k, batch, t_k, heads, d, WG_BK)) !=
+      (err = tensor_map<T>(&km, k, batch, t_k, heads, d, C::BK)) !=
           cudaSuccess ||
-      (err = tensor_map<T>(&vm, v, batch, t_k, heads, d, WG_BK)) !=
+      (err = tensor_map<T>(&vm, v, batch, t_k, heads, d, C::BK)) !=
           cudaSuccess)
     return err;
-  const int nq = (t_q + WG_BQ - 1) / WG_BQ;
-  dim3 grid(batch * heads, (nq + 1) / 2);   // two Q tiles a block
-  flash_fwd_tc_wg<T, DP><<<grid, WG_THREADS, smem, stream>>>(
+  dim3 grid(batch * heads, blocks);
+  flash_fwd_tc_wg<T, DP><<<grid, C::THREADS, smem, stream>>>(
       qm, km, vm, static_cast<uint16_t*>(o), t_q, t_k, heads, d,
       scale * LOG2E, causal, q_offset);
   return cudaGetLastError();
 }
 
-template <typename T, int VEC>
-cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o,
-                       int batch, int t_q, int t_k, int heads, int d,
-                       float scale, int causal, int q_offset,
-                       cudaStream_t stream) {
-  if (d > DC) {
-    // 16-byte rows up to 256 wide: the wgmma/TMA kernel (TMA needs 16-byte
-    // aligned rows and bases); wider rows or element-wise loads: the split
-    // over d
-    if constexpr (VEC == 16) {
-      if (d <= 192)
-        return launch_wg<T, 192>(q, k, v, o, batch, t_q, t_k, heads, d,
-                                 scale, causal, q_offset, stream);
-      if (d <= 256)
-        return launch_wg<T, 256>(q, k, v, o, batch, t_q, t_k, heads, d,
-                                 scale, causal, q_offset, stream);
-    }
-    return launch_split<T, VEC>(q, k, v, o, batch, t_q, t_k, heads, d, scale,
-                                causal, q_offset, stream);
+// 16-byte rows up to 256 wide: the wgmma/TMA kernel at the smallest width
+// that holds d (TMA needs 16-byte aligned rows and bases); wider 16-byte
+// rows: the split over d. 2-byte rows: the element-wise kernel up to 128,
+// the split over d above
+template <typename T>
+cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
+                     int batch, int t_q, int t_k, int heads, int d,
+                     float scale, int causal, int q_offset, int copy_bytes,
+                     cudaStream_t stream) {
+  if (copy_bytes == 16) {
+    if (d <= 64)
+      return launch_wg<T, 64>(q, k, v, o, batch, t_q, t_k, heads, d, scale,
+                              causal, q_offset, stream);
+    if (d <= 128)
+      return launch_wg<T, 128>(q, k, v, o, batch, t_q, t_k, heads, d, scale,
+                               causal, q_offset, stream);
+    if (d <= 192)
+      return launch_wg<T, 192>(q, k, v, o, batch, t_q, t_k, heads, d, scale,
+                               causal, q_offset, stream);
+    if (d <= 256)
+      return launch_wg<T, 256>(q, k, v, o, batch, t_q, t_k, heads, d, scale,
+                               causal, q_offset, stream);
+    return launch_split<T, 16>(q, k, v, o, batch, t_q, t_k, heads, d, scale,
+                               causal, q_offset, stream);
   }
   if (d <= 32)
-    return launch<T, 32, VEC>(q, k, v, o, batch, t_q, t_k, heads, d, scale,
-                              causal, q_offset, stream);
+    return launch<T, 32>(q, k, v, o, batch, t_q, t_k, heads, d, scale,
+                         causal, q_offset, stream);
   if (d <= 64)
-    return launch<T, 64, VEC>(q, k, v, o, batch, t_q, t_k, heads, d, scale,
-                              causal, q_offset, stream);
-  return launch<T, 128, VEC>(q, k, v, o, batch, t_q, t_k, heads, d, scale,
-                             causal, q_offset, stream);
-}
-
-template <typename T>
-cudaError_t dispatch_vec(const void* q, const void* k, const void* v, void* o,
-                         int batch, int t_q, int t_k, int heads, int d,
-                         float scale, int causal, int q_offset,
-                         int copy_bytes, cudaStream_t stream) {
-  if (copy_bytes == 16)
-    return dispatch_d<T, 16>(q, k, v, o, batch, t_q, t_k, heads, d, scale,
-                             causal, q_offset, stream);
-  return dispatch_d<T, 2>(q, k, v, o, batch, t_q, t_k, heads, d, scale,
+    return launch<T, 64>(q, k, v, o, batch, t_q, t_k, heads, d, scale,
+                         causal, q_offset, stream);
+  if (d <= DC)
+    return launch<T, 128>(q, k, v, o, batch, t_q, t_k, heads, d, scale,
                           causal, q_offset, stream);
+  return launch_split<T, 2>(q, k, v, o, batch, t_q, t_k, heads, d, scale,
+                            causal, q_offset, stream);
 }
 
 }  // namespace
 
 // q: (batch, t_q, heads, d), k/v: (batch, t_k, heads, d), o like q; all
 // contiguous, on the current device. dtype 1 is bfloat16, 2 is float16 (0,
-// float32, is flash_attention_fwd.cu's). copy_bytes is 16 (cp.async of 8
-// elements: needs d % 8 == 0 and 16-byte aligned q, k, v and o) or 2
-// (element-wise loads, any d and alignment). Returns the cudaError_t of the
-// launch (0 on success).
+// float32, is flash_attention_fwd.cu's). copy_bytes is 16 (TMA, or cp.async
+// of 8 elements above d 256: needs d % 8 == 0 and 16-byte aligned q, k, v
+// and o) or 2 (element-wise loads, any d and alignment). Returns the
+// cudaError_t of the launch (0 on success; cudaErrorInvalidValue where the
+// kernel's grid would pass the card's limits).
 extern "C" int mxtt_flash_attention_fwd_tc(const void* q, const void* k,
                                            const void* v, void* o, int batch,
                                            int t_q, int t_k, int heads, int d,
                                            float scale, int causal,
                                            int q_offset, int dtype,
                                            int copy_bytes, void* stream) {
-  // grid: batch * heads on x (< 2^31), 64-row Q tiles on y and 128-wide
-  // d-chunks on z (each <= 65535)
+  // grid: batch * heads on x (< 2^31); each launcher checks its y (Q
+  // tiles, or pairs of them) and z (d-chunks)
   if (batch <= 0 || t_q <= 0 || t_k <= 0 || heads <= 0 || d <= 0 ||
       q_offset < 0 || (dtype != 1 && dtype != 2) ||
-      (int64_t)batch * heads > INT32_MAX || (t_q + BQ - 1) / BQ > 65535 ||
-      (d + DC - 1) / DC > 65535 || (copy_bytes != 16 && copy_bytes != 2))
+      (int64_t)batch * heads > INT32_MAX ||
+      (copy_bytes != 16 && copy_bytes != 2))
     return (int)cudaErrorInvalidValue;
   const uintptr_t any = reinterpret_cast<uintptr_t>(q) |
                         reinterpret_cast<uintptr_t>(k) |
@@ -1381,9 +1621,9 @@ extern "C" int mxtt_flash_attention_fwd_tc(const void* q, const void* k,
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
-    return (int)dispatch_vec<__nv_bfloat16>(q, k, v, o, batch, t_q, t_k,
-                                            heads, d, scale, causal, q_offset,
-                                            copy_bytes, s);
-  return (int)dispatch_vec<__half>(q, k, v, o, batch, t_q, t_k, heads, d,
-                                   scale, causal, q_offset, copy_bytes, s);
+    return (int)dispatch<__nv_bfloat16>(q, k, v, o, batch, t_q, t_k, heads,
+                                        d, scale, causal, q_offset,
+                                        copy_bytes, s);
+  return (int)dispatch<__half>(q, k, v, o, batch, t_q, t_k, heads, d, scale,
+                               causal, q_offset, copy_bytes, s);
 }

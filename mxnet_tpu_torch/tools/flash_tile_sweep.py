@@ -6,12 +6,19 @@ kernel's tile constants (Q rows per block below and at D=128, K/V rows per
 tile, blocks an SM in ``__launch_bounds__``) and times each at the
 transformer LM's attention shape and at D=128 and d=50. ``--kernel wg``
 builds variants of ``mxnet_tpu_torch/csrc/flash_attention_fwd_tc.cu`` that
-differ from ``flash_fwd_tc_wg`` (the bf16/fp16 kernel for head dims
-129-256) by the patches of ``WG_PATCHES``, applied to a copy of the source:
-its consumers' loop without P V under the next tile's softmax, adjacent Q
-tiles a block in place of the causal pairing, and two diagnostics that skip
-the arithmetic or the loads; and times each at the LM's shape at hidden
-1024 in 4 heads, causal and not, and at d = 192. ``--kernel f32wide``
+differ from ``flash_fwd_tc_wg`` (the bf16/fp16 kernel for 16-byte rows up
+to d 256) by the patches of ``WG_PATCHES``, applied to a copy of the
+source: at widths 64 and 128 (``Tiles<64>``, ``Tiles<128>``) the other S
+tile (m64n64 or m64n128: K/V tiles of 64 or 128 rows), another ring
+depth (2 stages at width 64, 3 at 128), other consumer counts,
+ping-pong flipped, exp2f in place of
+ex2.approx.ftz, and the tiles of widths 192 and 256; at every width its
+consumers' loop without P V under the next tile's softmax; at widths 192
+and 256 adjacent Q tiles a block in place of the causal pairing; and two
+diagnostics that skip the arithmetic or the loads; and times each, beside
+the library's attention call in the same turns, at the LM's shapes: 16
+heads of 64 (serving, causal and not; training, batch 4), 8 heads of 128,
+and 4 heads of 256 (causal and not) and of 192. ``--kernel f32wide``
 builds variants of ``flash_attention_fwd.cu`` that differ from
 ``flash_fwd_f32_wide`` (the fp32 kernel for head dims 129-256) by the
 patches of ``WIDE_PATCHES``: one Q tile a block in place of the causal
@@ -26,8 +33,8 @@ round). Run from the repo root on a machine with an NVIDIA GPU:
     python3 mxnet_tpu_torch/tools/flash_tile_sweep.py
         [--kernel f32|wg|f32wide] [--rounds 3]
 
-Prints one JSON line per variant (median ms of each round, registers and
-spills from ptxas) and writes them to ``flash_tile_sweep_<kernel>.json``
+Prints the card's name and power limit, then one JSON line per variant
+(median ms of each round, registers and spills from ptxas) and writes them to ``flash_tile_sweep_<kernel>.json``
 (``flash_tile_sweep.json`` for ``f32``) in ``chip_smoke.py``'s output
 directory.
 """
@@ -42,6 +49,7 @@ import subprocess
 import sys
 
 import torch
+import torch.nn.functional as F
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -74,20 +82,20 @@ _SERIAL_LOOP = """\
       mbar_wait(k_full + s, parity);
       fence_regs(sc);
       wgmma_fence();
-      issue_qk<T, DP>(sc, q_s, k_s + s * L::KV_BYTES);
+      issue_qk<T, DP, BK>(sc, q_s, k_s + s * L::KV_BYTES);
       wgmma_wait_all();
       fence_regs(sc);
       mbar_arrive(k_empty + s * WG_CONSUMERS + wg);
-      softmax_tile(sc, m, l, corr, edge(kt * WG_BK), kt * WG_BK, t_k,
-                   causal, row_g, tq, scale_log2);
-      rescale_and_pack<T, DC>(acc, pa, sc, corr);
+      softmax_tile<BK, C::EX2>(sc, m, l, corr, edge(kt * BK), kt * BK, t_k,
+                               causal, row_g, tq, scale_log2);
+      rescale_and_pack<T, DC, BK>(acc, pa, sc, corr);
       mbar_wait(v_full + s, parity);
 #pragma unroll
       for (int c = 0; c < DC; ++c) fence_regs(acc[c]);
 #pragma unroll
-      for (int j = 0; j < WG_BK / 16; ++j) fence_regs(pa[j]);
+      for (int j = 0; j < BK / 16; ++j) fence_regs(pa[j]);
       wgmma_fence();
-      issue_pv<T, DC>(acc, pa, v_s + s * L::KV_BYTES);
+      issue_pv<T, DC, BK>(acc, pa, v_s + s * L::KV_BYTES);
       wgmma_commit();
       wgmma_wait_all();
 #pragma unroll
@@ -107,10 +115,41 @@ _LOADS_ONLY_LOOP = """\
     }
 """
 # (pattern, replacement, matches) of each patch; a pattern must match the
-# source that many times
+# source that many times. The serial and loads-only loops take no
+# ping-pong turn: their consumers take all of theirs, empty, after the loop
 _CONSUMER_LOOP = (r"    // tile 0: Q K\^T and its softmax alone\n.*?"
                   r"    mbar_arrive\(v_empty \+ sl \* WG_CONSUMERS \+ wg\);\n")
+
+
+def _tiles(field, value, widths=(64, 128)):
+    """A patch of field ``field`` (0: BK, 1: consumers, 2: stages, 3:
+    ping-pong, 4: ex2.approx.ftz, 5: paired) of ``TilesOf`` at
+    ``widths``."""
+    pat = (r"(struct Tiles<(?:" + "|".join(map(str, widths))
+           + r")> : TilesOf<" + r"\d+, " * field + r")\d+")
+    return [(pat, "\\g<1>" + str(value), len(widths))]
+
+
 WG_PATCHES = {
+    # width 64 (committed: K/V tiles of 64 rows, four consumers, three
+    # stages, no ping-pong)
+    "d64_bk128": _tiles(0, 128, (64,)),    # S m64n128
+    "d64_consumers2": _tiles(1, 2, (64,)),
+    "d64_consumers3": _tiles(1, 3, (64,)),
+    "d64_stages2": _tiles(2, 2, (64,)),
+    "d64_pingpong": _tiles(3, 1, (64,)),
+    # width 128 (committed: K/V tiles of 128 rows, two consumers,
+    # ping-pong)
+    "d128_bk64": _tiles(0, 64, (128,)),    # S m64n64
+    "d128_consumers3": _tiles(1, 3, (128,)),
+    "d128_stages3": _tiles(2, 3, (128,)),
+    "d128_pingpong_off": _tiles(3, 0, (128,)),
+    # both: exp2f and one chain a row's max and sum
+    "exp2f": _tiles(4, 0),
+    # widths 192 and 256's tiles at widths 64 and 128: K/V tiles of 64
+    # rows, two consumers on Q tiles i and n - 1 - i, no ping-pong, exp2f
+    "wide_tiles": [(r"(struct Tiles<(?:64|128)> : TilesOf<)[\d, ]+>",
+                    "\\g<1>64, 2, 2, 0, 0, 1>", 2)],
     "serial": [(_CONSUMER_LOOP, _SERIAL_LOOP, 1)],
     # block y's consumers take Q tiles 2 (ny - 1 - y) and the next: the
     # heaviest blocks first
@@ -121,13 +160,24 @@ WG_PATCHES = {
     # after the first WG_STAGES tiles the producer arrives on a stage's
     # barrier without loading it
     "no_loads": [(r"(        mbar_expect_tx\((k|v)_full \+ s, L::KV_BYTES\);\n"
-                  r".*?kt \* WG_BK, b\);\n)",
+                  r".*?kt \* BK, b\);\n)",
                   "        if (use > 0) {\n          mbar_arrive(\\2_full + s);\n"
                   "        } else {\n\\1        }\n", 2)],
 }
 # flash_fwd_tc_wg: name: patches
 WG_VARIANTS = {
     "committed": (),
+    "d64_consumers2_bk128": ("d64_consumers2", "d64_bk128"),
+    "d64_consumers2": ("d64_consumers2",),
+    "d64_consumers3": ("d64_consumers3",),
+    "d64_stages2": ("d64_stages2",),
+    "d64_pingpong": ("d64_pingpong",),
+    "d128_bk64": ("d128_bk64",),
+    "d128_consumers3_bk64": ("d128_consumers3", "d128_bk64"),
+    "d128_stages3": ("d128_stages3",),
+    "d128_pingpong_off": ("d128_pingpong_off",),
+    "exp2f": ("exp2f",),
+    "wide_tiles": ("wide_tiles",),
     "serial": ("serial",),
     "adjacent": ("adjacent",),
     "loads_only": ("loads_only",),
@@ -135,6 +185,10 @@ WG_VARIANTS = {
 }
 WG_DIAGNOSTICS = ("loads_only", "no_loads")   # timing only: wrong results
 WG_CASES = {   # name: (q shape, t_k, causal), bf16
+    "d64_causal": ((2, 2048, 16, 64), 2048, True),
+    "d64_noncausal": ((2, 2048, 16, 64), 2048, False),
+    "d64_train_causal": ((4, 2048, 16, 64), 2048, True),
+    "d128_causal": ((2, 2048, 8, 128), 2048, True),
     "d256_causal": ((2, 2048, 4, 256), 2048, True),
     "d256_noncausal": ((2, 2048, 4, 256), 2048, False),
     "d192_causal": ((2, 2048, 4, 192), 2048, True),
@@ -168,9 +222,10 @@ WIDE_VARIANTS = {   # name: patches
     "qk_unroll_all": ("qk_unroll_all",),
     "pv_unroll_all": ("pv_unroll_all",),
 }
-# flash_fwd_f32_wide's cases: the wg kernel's, and batch 1, where the
-# paired grid has 64 blocks for 132 SMs
-WIDE_CASES = dict(WG_CASES, d256_causal_b1=((1, 2048, 4, 256), 2048, True))
+# flash_fwd_f32_wide's cases: the wg kernel's at 4 heads, and batch 1,
+# where the paired grid has 64 blocks for 132 SMs
+WIDE_CASES = dict({n: c for n, c in WG_CASES.items() if c[0][3] > 128},
+                  d256_causal_b1=((1, 2048, 4, 256), 2048, True))
 
 
 def variant_source(src, bq, bq128, bk, min_blocks):
@@ -200,19 +255,20 @@ def wide_variant_source(src, *patches):
     return wg_variant_source(src, *patches, table=WIDE_PATCHES)
 
 
-# kernel: (source, variants, make a variant's source, ptxas marker)
+# kernel: (source, variants, make a variant's source, ptxas markers)
 KERNELS = {
     "f32": ("flash_attention_fwd.cu", VARIANTS, variant_source,
-            "flash_fwd_f32ILi64ELi16E"),
+            ("flash_fwd_f32ILi64ELi16E",)),
     "wg": ("flash_attention_fwd_tc.cu", WG_VARIANTS, wg_variant_source,
-           "flash_fwd_tc_wgI13__nv_bfloat16Li256E"),
+           tuple(f"flash_fwd_tc_wgI13__nv_bfloat16Li{w}E"
+                 for w in (64, 128, 256))),
     "f32wide": ("flash_attention_fwd.cu", WIDE_VARIANTS, wide_variant_source,
-                "flash_fwd_f32_wideILi256ELi16E"),
+                ("flash_fwd_f32_wideILi256ELi16E",)),
 }
 
 
 def build_all(out_dir, kernel="f32"):
-    source, variants, make, marker = KERNELS[kernel]
+    source, variants, make, markers = KERNELS[kernel]
     with open(os.path.join(_native.CSRC_DIR, source)) as f:
         src = f.read()
     procs = {}
@@ -230,17 +286,20 @@ def build_all(out_dir, kernel="f32"):
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name}:\n{log}")
         # ptxas -v: a "Compiling entry function" line, then the kernel's
-        # spills and registers
-        for block in log.split("Compiling entry function")[1:]:
-            if marker in block.splitlines()[0]:
-                ptxas[name] = " | ".join(
-                    x.split(":", 1)[-1].strip() for x in block.splitlines()
-                    if "spill" in x or "registers" in x)
-        # ptxas's notes on the kernel, such as wgmma serialized
-        notes = [x.split(":", 1)[-1].strip()[:160] for x in log.splitlines()
-                 if "Performance Loss" in x and marker in x]
-        if notes:
-            ptxas[name] = (ptxas.get(name) or "") + " | " + " | ".join(notes)
+        # spills and registers; then ptxas's notes on the kernel, such as
+        # wgmma serialized
+        report = []
+        for marker in markers:
+            for block in log.split("Compiling entry function")[1:]:
+                if marker in block.splitlines()[0]:
+                    report.append(marker + ": " + " | ".join(
+                        x.split(":", 1)[-1].strip()
+                        for x in block.splitlines()
+                        if "spill" in x or "registers" in x))
+            report += [x.split(":", 1)[-1].strip()[:160]
+                       for x in log.splitlines()
+                       if "Performance Loss" in x and marker in x]
+        ptxas[name] = " || ".join(report)
         fns[name] = entry(ctypes.CDLL(
             os.path.join(out_dir, f"libsweep_{name}.so")),
             "mxtt_flash_attention_fwd_tc" if kernel == "wg"
@@ -270,6 +329,12 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("needs an NVIDIA GPU")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 \
+        and smi.stdout.strip() else "nvidia-smi unavailable"
+    print(card, flush=True)
     out_dir = os.path.join(_native.BUILD_DIR, "sweep_" + args.kernel)
     os.makedirs(out_dir, exist_ok=True)
     fns, ptxas = build_all(out_dir, args.kernel)
@@ -295,16 +360,27 @@ def main(argv=None):
             if not err <= tol:
                 raise SystemExit(f"{name} {case}: max abs err {err}")
         data[case] = (q, k, v, causal)
+    # the library's attention call on the same inputs, timed in the same
+    # turns (a yardstick: the port never calls it)
+    fns["library"] = None
     ms = {n: {c: [] for c in cases} for n in fns}
     order = list(fns)
+
+    def run(name, q, k, v, causal):
+        if name == "library":
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            return lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                          is_causal=causal)
+        return lambda: call(fns[name], q, k, v, causal)
+
     for r in range(args.rounds):
         for name in order if r % 2 == 0 else order[::-1]:
             for case, (q, k, v, causal) in data.items():
-                ms[name][case].append(timer(
-                    lambda: call(fns[name], q, k, v, causal)))
-    variants = KERNELS[args.kernel][1]
+                ms[name][case].append(timer(run(name, q, k, v, causal)))
+    variants = dict(KERNELS[args.kernel][1], library=())
     rows = [{"variant": n, "params": variants[n], "ptxas": ptxas.get(n),
-             "timer": timer.__name__, "ms": ms[n]} for n in order]
+             "timer": timer.__name__, "card": card, "ms": ms[n]}
+            for n in order]
     for row in rows:
         print(json.dumps(row), flush=True)
     os.makedirs(os.path.join(ROOT, OUT_DIR), exist_ok=True)

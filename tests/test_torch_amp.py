@@ -39,9 +39,9 @@ LOGP_LIMITS = {"bfloat16": (1.5e-2, 1e-1), "float16": (2e-3, 1.5e-2),
 ARGMAX_FLOOR = 0.95                  # 62 of 64 rows; the readings 63-64
 
 
-def _lm(pkg):
+def _lm(pkg, hidden=HIDDEN, heads=HEADS):
     return pkg.models.transformer_lm.get_symbol(
-        vocab_size=VOCAB, num_layers=LAYERS, hidden=HIDDEN, heads=HEADS,
+        vocab_size=VOCAB, num_layers=LAYERS, hidden=hidden, heads=heads,
         seq_len=SEQ)
 
 
@@ -64,7 +64,7 @@ def _tokens(seed=1):
         0, VOCAB, (BATCH, SEQ)).astype(np.int32)
 
 
-def _port_probs(weights, tokens, amp_dtype):
+def _port_probs(weights, tokens, amp_dtype, **width):
     """The port's Executor on the LM, and each op's output dtypes in its
     graph walk: under amp every op computes in the amp dtype, except the
     fp32 softmax and the reshape of the fp32 label."""
@@ -83,7 +83,7 @@ def _port_probs(weights, tokens, amp_dtype):
                 _dtype_name(o.dtype) for o in outs)
             return outs, aux
 
-    symbol = _lm(mxt)
+    symbol = _lm(mxt, **width)
     args, _ = mxt.convert.params_from_numpy(weights, {}, mxt.cpu())
     args["data"] = mxt.nd.array(tokens, mxt.cpu(), dtype=np.int32)
     args["softmax_label"] = mxt.nd.zeros(SHAPES["softmax_label"], mxt.cpu())
@@ -102,11 +102,11 @@ def _port_probs(weights, tokens, amp_dtype):
     return out.asnumpy()
 
 
-def _jax_probs(weights, tokens, amp_dtype):
+def _jax_probs(weights, tokens, amp_dtype, **width):
     args = {n: mxj.nd.array(w) for n, w in weights.items()}
     args["data"] = mxj.nd.array(tokens, dtype=np.int32)
     args["softmax_label"] = mxj.nd.zeros(SHAPES["softmax_label"])
-    return JExecutor(_lm(mxj), mxj.cpu(), args,
+    return JExecutor(_lm(mxj, **width), mxj.cpu(), args,
                      amp_dtype=amp_dtype).forward()[0].asnumpy()
 
 
@@ -137,16 +137,45 @@ def test_amp_executor_matches_jax_executor(monkeypatch):
     _assert_logp_close(got, want, "bfloat16")
 
 
+# 2 heads of 128 (hidden 256): the head width of most public decoder LMs,
+# which the port's 16-bit kernel runs at its width 128 on the card
+D128 = dict(hidden=256, heads=2)
+
+
+def test_amp_executor_matches_jax_executor_at_head_dim_128(monkeypatch):
+    """As test_amp_executor_matches_jax_executor, with the LM in 2 heads
+    of 128, at the same limits."""
+    monkeypatch.delenv("MXTPU_FLASH_ATTENTION", raising=False)
+    weights, tokens = _weights(_lm(mxt, **D128)), _tokens()
+    want = _jax_probs(weights, tokens, "bfloat16", **D128)
+    got = _port_probs(weights, tokens, "bfloat16", **D128)
+    assert got.shape == want.shape == (BATCH * SEQ, VOCAB)
+    np.testing.assert_allclose(got.sum(1), 1.0, atol=1e-5)
+    _assert_logp_close(got, want, "bfloat16")
+
+
+def _tracks_fp32(amp, **width):
+    weights, tokens = _weights(_lm(mxt, **width), seed=2), _tokens(seed=3)
+    full = _port_probs(weights, tokens, None, **width)
+    _assert_logp_close(full, _jax_probs(weights, tokens, None, **width),
+                       None)
+    half = _port_probs(weights, tokens, amp, **width)
+    _assert_logp_close(half, full, amp)
+
+
 @pytest.mark.parametrize("amp", ["bfloat16", "float16"])
 def test_amp_tracks_fp32(amp):
     """The port's 16-bit run stays within its type's measured gap of its
     fp32 run (the reference's check_consistency-across-dtypes pattern),
     and that fp32 run within 1e-4 of the reference's fp32 Executor."""
-    weights, tokens = _weights(_lm(mxt), seed=2), _tokens(seed=3)
-    full = _port_probs(weights, tokens, None)
-    _assert_logp_close(full, _jax_probs(weights, tokens, None), None)
-    half = _port_probs(weights, tokens, amp)
-    _assert_logp_close(half, full, amp)
+    _tracks_fp32(amp)
+
+
+@pytest.mark.parametrize("amp", ["bfloat16", "float16"])
+def test_amp_tracks_fp32_at_head_dim_128(amp):
+    """As test_amp_tracks_fp32, with the LM in 2 heads of 128, at the same
+    limits."""
+    _tracks_fp32(amp, **D128)
 
 
 # a feed through Executor.forward(data=...) into a float32-bound ``data``,
@@ -355,18 +384,21 @@ def test_cpu_16bit_flash_does_not_count_launches():
 
 
 if __name__ == "__main__":
-    # the readings LOGP_LIMITS was set from: (mean, max, argmax share)
-    for w_seed, t_seed in ((0, 1), (2, 3)):
-        weights = _weights(_lm(mxt), seed=w_seed)
+    # the readings LOGP_LIMITS was set from: (mean, max, argmax share), in
+    # 4 heads of 16 and in 2 heads of 128
+    for width, (w_seed, t_seed) in ((w, s) for w in ({}, D128)
+                                    for s in ((0, 1), (2, 3))):
+        weights = _weights(_lm(mxt, **width), seed=w_seed)
         tokens = _tokens(seed=t_seed)
-        port = {a: _port_probs(weights, tokens, a)
+        port = {a: _port_probs(weights, tokens, a, **width)
                 for a in (None, "bfloat16", "float16")}
-        ref = {a: _jax_probs(weights, tokens, a) for a in (None, "bfloat16")}
+        ref = {a: _jax_probs(weights, tokens, a, **width)
+               for a in (None, "bfloat16")}
         for name, got, want in (
                 ("port bf16 vs jax bf16", port["bfloat16"], ref["bfloat16"]),
                 ("port bf16 vs port fp32", port["bfloat16"], port[None]),
                 ("jax bf16 vs jax fp32", ref["bfloat16"], ref[None]),
                 ("port fp16 vs port fp32", port["float16"], port[None]),
                 ("port fp32 vs jax fp32", port[None], ref[None])):
-            print(f"seed {w_seed}: {name}: "
+            print(f"{width or 'heads 4 of 16'} seed {w_seed}: {name}: "
                   + " ".join(f"{x:.3g}" for x in _logp_gap(got, want)))

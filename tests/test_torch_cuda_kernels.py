@@ -75,7 +75,19 @@ def _at_offset(x, offset):
     # on each dtype's split over d
     (True, 24, 256, 280, 256, 0), (True, 7, 450, 457, 200, 1),
     (True, 13, 270, 283, 256, 1), (True, 64, 520, 584, 192, 0),
-    (True, 0, 150, 150, 300, 0), (False, 9, 100, 130, 300, 0)])
+    (True, 0, 150, 150, 300, 0), (False, 9, 100, 130, 300, 0),
+    # bf16/fp16 with 16-byte rows up to 128 on the wgmma/TMA kernel (width
+    # 64: blocks of four 64-row Q tiles, 64-row K/V tiles; width 128: two
+    # Q tiles, 128-row K/V tiles): d 32, 40 and 96 (a 64-element box over
+    # fewer columns reads zeros past d), t_q below one Q tile, odd and even
+    # tile counts a block (5-8 tiles), t_k > t_q with q_offset, non-causal;
+    # and d 64 at an offset of one element, which stays on flash_fwd_tc
+    (True, 0, 40, 40, 96, 0), (False, 0, 50, 90, 96, 0),
+    (True, 0, 90, 90, 40, 0), (True, 0, 448, 448, 64, 0),
+    (True, 0, 512, 512, 64, 0), (True, 0, 384, 384, 128, 0),
+    (True, 0, 320, 320, 128, 0), (True, 50, 300, 350, 32, 0),
+    (True, 77, 333, 410, 96, 0), (False, 0, 300, 200, 128, 0),
+    (False, 0, 260, 260, 64, 0), (False, 0, 150, 170, 64, 1)])
 def test_cuda_kernel_matches_plain(dtype, tol, causal, q_offset, t_q, t_k, d,
                                    offset):
     if not torch.cuda.is_available():
@@ -94,17 +106,18 @@ def test_cuda_kernel_matches_plain(dtype, tol, causal, q_offset, t_q, t_k, d,
     got = tfa.flash_attention(q, k, v, causal=causal, q_offset=q_offset)
     torch.cuda.synchronize()
     assert tfa.flash_attention.launches == before + 1
-    # the kernel of the route: from 129 to 256, fp32 runs flash_fwd_f32_wide
-    # (either copy width) and bf16/fp16 with 16-byte rows flash_fwd_tc_wg;
-    # the rest the split over d
+    # the kernel of the route: bf16/fp16 with 16-byte rows up to d 256 run
+    # flash_fwd_tc_wg, 2-byte rows flash_fwd_tc up to 128; fp32 runs
+    # flash_fwd_f32 up to 128 and flash_fwd_f32_wide (either copy width)
+    # from 129 to 256; the rest the split over d
     assert tfa.flash_attention.launches_by_kernel[plan] == by_kernel + 1
-    if d > 128:
-        if dtype == torch.float32:
-            route = "flash_fwd_f32_wide" if d <= 256 else "flash_fwd_f32_split"
-        else:
-            route = ("flash_fwd_tc_wg" if aligned and d <= 256
-                     else "flash_fwd_tc_split")
-        assert plan == route
+    if dtype == torch.float32:
+        route = ("flash_fwd_f32" if d <= 128 else "flash_fwd_f32_wide"
+                 if d <= 256 else "flash_fwd_f32_split")
+    else:
+        route = ("flash_fwd_tc_wg" if aligned and d <= 256 else
+                 "flash_fwd_tc" if d <= 128 else "flash_fwd_tc_split")
+    assert plan == route
     want = tfa.flash_attention_reference(q.float(), k.float(), v.float(),
                                          causal=causal, q_offset=q_offset)
     assert got.dtype == dtype
@@ -196,7 +209,8 @@ def _max_rel(got, want):
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_gradient_on_card_matches_cpu(dtype, tol, d, causal):
     """The flash Function on the card (forward: the kernel of the route,
-    counted once, at d 200 and 256 fp32's wide kernel; backward: the fp32
+    counted once, at d 200 and 256 fp32's wide kernel, bf16/fp16's
+    wgmma/TMA kernel at every d; backward: the fp32
     recompute, which launches nothing) against the same Function on the
     CPU (plain forward, same recompute)."""
     g = _cuda()
@@ -206,6 +220,8 @@ def test_flash_gradient_on_card_matches_cpu(dtype, tol, d, causal):
     plan = tfa.launch_plan(dtype, 2, 160, 3, d)[0]
     if dtype == torch.float32 and d > 128:
         assert plan == "flash_fwd_f32_wide"
+    if dtype != torch.float32:
+        assert plan == "flash_fwd_tc_wg"
     by_kernel = tfa.flash_attention.launches_by_kernel[plan]
     fn = lambda *a: tfa.flash_attention(*a, causal=causal)  # noqa: E731
     out, grads = _grad_of(fn, (q, k, v), head)

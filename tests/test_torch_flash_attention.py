@@ -141,10 +141,11 @@ def test_copy_bytes_rule(d, offset, want):
     (torch.float32, 200, ("flash_fwd_f32_wide", 256, (6, 2, 1))),
     (torch.float32, 256, ("flash_fwd_f32_wide", 256, (6, 2, 1))),
     (torch.float32, 300, ("flash_fwd_f32_split", 128, (6, 4, 3))),
-    (torch.bfloat16, 64, ("flash_fwd_tc", 64, (6, 4, 1))),
-    (torch.bfloat16, 128, ("flash_fwd_tc", 128, (6, 4, 1))),
-    # bf16/fp16 above 128 with 16-byte copies: the wgmma/TMA kernel, all of
-    # d in one block of two 64-row Q tiles (4 tiles of 200 rows: 2 blocks)
+    # bf16/fp16 with 16-byte copies: the wgmma/TMA kernel at every d up to
+    # 256, all of d in a block of four 64-row Q tiles at width 64 (the 4
+    # tiles of 200 rows: 1 block) and of two at 128 and above (2 blocks)
+    (torch.bfloat16, 64, ("flash_fwd_tc_wg", 64, (6, 1, 1))),
+    (torch.bfloat16, 128, ("flash_fwd_tc_wg", 128, (6, 2, 1))),
     (torch.float16, 160, ("flash_fwd_tc_wg", 192, (6, 2, 1))),
     (torch.bfloat16, 256, ("flash_fwd_tc_wg", 256, (6, 2, 1))),
     (torch.bfloat16, 1000, ("flash_fwd_tc_split", 128, (6, 4, 8))),
@@ -154,14 +155,21 @@ def test_copy_bytes_rule(d, offset, want):
     (torch.float16, 200, ("flash_fwd_tc_wg", 256, (6, 2, 1))),
     (torch.float16, 256, ("flash_fwd_tc_wg", 256, (6, 2, 1))),
     # wider than 256: the split over d
-    (torch.bfloat16, 264, ("flash_fwd_tc_split", 128, (6, 4, 3)))])
+    (torch.bfloat16, 264, ("flash_fwd_tc_split", 128, (6, 4, 3))),
+    # d up to 64 at width 64, 65-128 at width 128 (columns past d zero)
+    (torch.bfloat16, 32, ("flash_fwd_tc_wg", 64, (6, 1, 1))),
+    (torch.bfloat16, 40, ("flash_fwd_tc_wg", 64, (6, 1, 1))),
+    (torch.bfloat16, 96, ("flash_fwd_tc_wg", 128, (6, 2, 1))),
+    (torch.bfloat16, 120, ("flash_fwd_tc_wg", 128, (6, 2, 1))),
+    (torch.float16, 64, ("flash_fwd_tc_wg", 64, (6, 1, 1))),
+    (torch.float16, 128, ("flash_fwd_tc_wg", 128, (6, 2, 1)))])
 def test_launch_plan_by_head_dim(dtype, d, want):
     """Which kernel each head dim runs with 16-byte copies (t_q 200, batch
-    2, heads 3): the smallest of the 32/64/128 instantiations up to 128;
-    from 129 to 256 fp32's wide kernel and bf16/fp16's wgmma/TMA kernel,
-    wider heads in the split over d, one 128-wide chunk of the output's
-    columns on each grid z. fp32 Q tiles are 128 rows up to width 64, else
-    64."""
+    2, heads 3): fp32 the smallest of the 32/64/128 instantiations up to
+    128 and its wide kernel from 129 to 256; bf16/fp16 the wgmma/TMA kernel
+    at the smallest of widths 64, 128, 192 and 256 that holds d; wider
+    heads the split over d, one 128-wide chunk of the output's columns on
+    each grid z. fp32 Q tiles are 128 rows up to width 64, else 64."""
     assert tfa.launch_plan(dtype, 2, 200, 3, d) == want
     assert tfa.launch_plan(dtype, 2, 200, 3, d, 16) == want
 
@@ -176,26 +184,32 @@ def test_launch_plan_by_head_dim(dtype, d, want):
     (torch.float32, 256, 4, ("flash_fwd_f32_wide", 256, (6, 2, 1))),
     (torch.float32, 200, 4, ("flash_fwd_f32_wide", 256, (6, 2, 1))),
     (torch.float32, 130, 4, ("flash_fwd_f32_wide", 192, (6, 2, 1))),
-    (torch.float32, 300, 4, ("flash_fwd_f32_split", 128, (6, 4, 3)))])
+    (torch.float32, 300, 4, ("flash_fwd_f32_split", 128, (6, 4, 3))),
+    (torch.bfloat16, 128, 2, ("flash_fwd_tc", 128, (6, 4, 1))),
+    (torch.bfloat16, 50, 2, ("flash_fwd_tc", 64, (6, 4, 1)))])
 def test_launch_plan_by_copy_width(dtype, d, copy, want):
-    """The element-wise (2-byte) path of the tensor-core kernels keeps the
-    split over d above 128 (TMA needs 16-byte rows); fp32's 4-byte copies
-    change no route: the wide kernel copies 4 bytes at a time too."""
+    """The element-wise (2-byte) path of the tensor-core kernels runs
+    flash_fwd_tc up to d 128 (64-row Q tiles) and the split over d above
+    (TMA needs 16-byte rows); fp32's 4-byte copies change no route: the
+    wide kernel copies 4 bytes at a time too."""
     assert tfa.launch_plan(dtype, 2, 200, 3, d, copy) == want
 
 
 def test_launch_plan_wg_grid_pairs_q_tiles():
     """The wgmma/TMA kernel's grid: one block for each two 64-row Q tiles
-    of a head (an odd count leaves one block with one tile), and its y
-    capped like the other kernels'."""
-    for t_q, blocks in ((1, 1), (64, 1), (65, 1), (128, 1), (129, 2),
-                        (2048, 16), (2049, 17)):
-        assert tfa.launch_plan(torch.bfloat16, 2, t_q, 4, 256)[2] \
-            == (8, blocks, 1)
-    assert tfa.launch_plan(torch.bfloat16, 1, 128 * 65535, 1, 256)[2][1] \
-        == 65535
-    with pytest.raises(MXNetError, match="Q tiles"):
-        tfa.launch_plan(torch.bfloat16, 1, 128 * 65535 + 1, 1, 256)
+    of a head at widths 128, 192 and 256 and each four at width 64 (a
+    count that does not divide leaves the last block with fewer tiles),
+    and its y capped like the other kernels'."""
+    for d, width, tiles in ((256, 256, 2), (192, 192, 2), (128, 128, 2),
+                            (96, 128, 2), (64, 64, 4), (32, 64, 4)):
+        rows = 64 * tiles
+        for t_q in (1, 64, 65, 128, 129, 192, 256, 257, 2048, 2049):
+            assert tfa.launch_plan(torch.bfloat16, 2, t_q, 4, d) == (
+                "flash_fwd_tc_wg", width, (8, -(-t_q // rows), 1))
+        assert tfa.launch_plan(torch.float16, 1, rows * 65535, 1, d)[2][1] \
+            == 65535
+        with pytest.raises(MXNetError, match="Q tiles"):
+            tfa.launch_plan(torch.bfloat16, 1, rows * 65535 + 1, 1, d)
 
 
 @pytest.mark.parametrize("d,width", [(129, 192), (192, 192), (256, 256)])
@@ -229,11 +243,17 @@ def test_launch_plan_batch_heads(batch, heads, ok):
 
 
 def test_launch_plan_q_tiles_and_chunks_capped():
-    """Q tiles (grid y) and d-chunks (grid z) stay within 65535."""
-    assert tfa.launch_plan(torch.bfloat16, 1, 64 * 65535, 1, 64)[2][1] \
+    """Q tiles (grid y) and d-chunks (grid z) stay within 65535: bf16 at
+    d 64 runs four 64-row Q tiles a block (256 rows), the element-wise
+    kernel one."""
+    assert tfa.launch_plan(torch.bfloat16, 1, 256 * 65535, 1, 64)[2][1] \
         == 65535
     with pytest.raises(MXNetError, match="Q tiles"):
-        tfa.launch_plan(torch.bfloat16, 1, 64 * 65535 + 1, 1, 64)
+        tfa.launch_plan(torch.bfloat16, 1, 256 * 65535 + 1, 1, 64)
+    assert tfa.launch_plan(torch.bfloat16, 1, 64 * 65535, 1, 64, 2)[2][1] \
+        == 65535
+    with pytest.raises(MXNetError, match="Q tiles"):
+        tfa.launch_plan(torch.bfloat16, 1, 64 * 65535 + 1, 1, 64, 2)
     with pytest.raises(MXNetError, match="d-chunks"):
         tfa.launch_plan(torch.float32, 1, 64, 1, 128 * 65535 + 1)
 
