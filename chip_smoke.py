@@ -22,24 +22,27 @@ result line:
    off) against float64, the port's held to 1e-5 of max-abs;
 2. build: the kernels from ``mxnet_tpu_torch/csrc`` with nvcc (set-up);
    ptxas's registers of ``flash_fwd_f32_wide``'s four instantiations and
-   of ``flash_fwd_tc_wg``'s eight (bf16 and fp16 at widths 64, 128, 192
-   and 256), none of which may spill, and no wgmma that ptxas serialized;
+   of ``flash_fwd_tc_wg``'s and ``flash_fwd_tc_wg_ldg``'s eight each (bf16
+   and fp16 at widths 64, 128, 192 and 256), none of which may spill, no
+   wgmma that ptxas serialized, and the consumers' registers (setmaxnreg)
+   of both routes, 112 at width 64;
 3. kernel vs plain: the flash-attention kernels against their plain version
-   at the main path's shape (bf16/fp16 with 16-byte rows on the wgmma/TMA
-   kernel at every head dim up to 256; causal and not), at ragged shapes
-   with ``q_offset``, at head dims 128, 96 and 50 (the 4-byte copy path in
-   fp32, the element-wise kernel in bf16, also at d 64 at an offset of one
-   element), 256 (fp32 on its wide kernel, causal
-   and not, and at an offset of one element; bf16 and fp16 on the
-   wgmma/TMA kernel), 192 (fp32's wide kernel; bf16 and fp16, the
-   wgmma/TMA kernel), 200 (fp32's wide kernel), 320 (each dtype's split
-   over d) and 256 at an offset of one element (bf16): the tensor-core
-   split over d, in
-   fp32 (CUDA cores), bf16 and fp16 (tensor cores), each row naming the
-   kernel that ran, timed per call (as in earlier slices) and on the
-   device alone, beside the plain version and a library attention call,
-   with its share of the bound; each launch's kernel, by the wrapper's
-   count, must be the route's;
+   at the main path's shape (bf16/fp16 on wgmma at every head dim up to
+   256: 16-byte rows through TMA, the others through the LDG producer;
+   causal and not), at ragged shapes with ``q_offset``, at head dims 128,
+   96, 97 and 50 (the 4-byte copy path in fp32, the LDG producer in bf16,
+   also at d 64 and 128 at an offset of one element), 256 (fp32 on its
+   wide kernel, causal and not, and at an offset of one element; bf16 and
+   fp16 on the wgmma kernel, TMA or LDG at an offset of one element), 192
+   (fp32's wide kernel; bf16 and fp16, the wgmma/TMA kernel), 200 and 250
+   (fp32's wide kernel; 500-byte bf16 rows, LDG), 320 (each dtype's split
+   over d, bf16 also at an offset of one element), in fp32 (CUDA cores),
+   bf16 and fp16 (tensor cores), each row naming the kernel that ran, timed
+   per call (as in earlier slices) and on the device alone, beside the
+   plain version and a library attention call, with its share of the
+   bound; each launch's kernel, by the wrapper's count, must be the
+   route's, and each LDG case whose d is a multiple of 8 must be
+   bit-identical to the TMA route on aligned copies of its inputs;
 4. the slice: a Predictor bound at data=(2, 2048) on cuda:0 answers 4
    requests through the captured forward (``set_input`` writes in place; a
    warm-up, a capture, replays), each under the profiler, which counts the
@@ -574,7 +577,40 @@ def phase_build():
             "64, 128, 192 and 256 wide) without spills")
         check(not serialized, "ptxas serialized no wgmma in the tensor-core "
               f"library ({serialized[:2]})")
+        ldg = ptxas_report(log, "flash_fwd_tc_wg_ldg")
+        out["ptxas_flash_fwd_tc_wg_ldg"] = ldg
+        print("  ptxas flash_fwd_tc_wg_ldg: " + json.dumps(ldg), flush=True)
+        check(len(ldg) == 8 and all(
+            r["spill_stores"] == 0 == r["spill_loads"]
+            and r["registers"] == wg[key]["registers"]
+            for key, r in ldg.items()),
+            "ptxas: every flash_fwd_tc_wg_ldg instantiation (bf16 and fp16, "
+            "64, 128, 192 and 256 wide) without spills, at the TMA route's "
+            "registers at launch")
+    regs = setmaxnreg_counts()
+    out["setmaxnreg"] = regs
+    print("  setmaxnreg (producer, consumers) by width: "
+          + json.dumps(regs), flush=True)
+    check(regs["tma"]["64"][1] == 112 == regs["ldg"]["64"][1],
+          "the width-64 consumers keep 112 registers on both routes")
     return out
+
+
+def setmaxnreg_counts():
+    """The producer's and the consumers' registers (setmaxnreg) of the
+    wgmma kernel at each width, for each producer (TMA and LDG), as the
+    library's C entry reports them."""
+    import ctypes
+
+    from mxnet_tpu_torch import _native
+
+    lib = _native.load("flash_attention_fwd_tc")
+    fn = lib.mxtt_flash_attention_fwd_tc_regs
+    fn.argtypes = [ctypes.c_int] * 3
+    fn.restype = ctypes.c_int
+    return {route: {str(w): [fn(w, ldg, 0), fn(w, ldg, 1)]
+                    for w in (64, 128, 192, 256)}
+            for route, ldg in (("tma", 0), ("ldg", 1))}
 
 
 def ptxas_report(log, kernel):
@@ -649,7 +685,7 @@ def phase_kernel_vs_plain(seed):
          SEQ, True, 0, torch.bfloat16, 2e-2),
         ("d128_bf16_causal", (BATCH, SEQ, HEADS // 2, 128), SEQ, True, 0,
          torch.bfloat16, 2e-2),
-        # d = 50: rows of 100 bytes, the element-wise load path
+        # d = 50: rows of 100 bytes, which TMA refuses: the LDG producer
         ("ragged_d50_bf16_causal", (BATCH, 1500, HEADS, 50), 1500, True, 0,
          torch.bfloat16, 2e-2),
         # head dim 256 (hidden 1024 in 4 heads): fp32 on its wide kernel
@@ -679,27 +715,43 @@ def phase_kernel_vs_plain(seed):
          torch.bfloat16, 2e-2),
         ("d192_fp16_causal", (BATCH, SEQ, HEADS // 4, 192), SEQ, True, 0,
          torch.float16, 3e-3),
-        # the routes that keep the tensor-core split over d: a head wider
-        # than 256, and views at an offset of one element (2-byte rows,
-        # element-wise loads; the last field is the offset)
+        # heads wider than 256: the tensor-core split over d, with 16-byte
+        # copies and, at an offset of one element, 2-byte loads (the last
+        # field is the offset)
         ("d320_bf16_causal", (BATCH, SEQ, HEADS // 4, 320), SEQ, True, 0,
          torch.bfloat16, 2e-2),
-        ("d256_bf16_causal_offset1", (BATCH, SEQ, HEADS // 4, 256), SEQ,
-         True, 0, torch.bfloat16, 2e-2, 1),
         ("d320_fp16_causal", (BATCH, SEQ, HEADS // 4, 320), SEQ, True, 0,
          torch.float16, 3e-3),
+        ("d320_bf16_causal_offset1", (BATCH, SEQ, HEADS // 4, 320), SEQ,
+         True, 0, torch.bfloat16, 2e-2, 1),
         # 16-byte rows up to d 128 on the wgmma/TMA kernel: the serving
         # shape without the mask, d 128 in fp16, d 96 (width 128, zeros
-        # past d); and d 64 at an offset of one element, which stays on the
-        # element-wise flash_fwd_tc
+        # past d)
         ("slice_bf16_noncausal", (BATCH, SEQ, HEADS, HIDDEN // HEADS), SEQ,
          False, 0, torch.bfloat16, 2e-2),
         ("d128_fp16_causal", (BATCH, SEQ, HEADS // 2, 128), SEQ, True, 0,
          torch.float16, 3e-3),
         ("d96_bf16_causal", (BATCH, SEQ, HEADS // 2, 96), SEQ, True, 0,
          torch.bfloat16, 2e-2),
+        # rows TMA refuses, up to d 256, on the wgmma kernel's LDG producer:
+        # views at an offset of one element at widths 64, 128 (fp16) and
+        # 256, odd d 97 (width 128, 2-byte stores), d 250 on an aligned base
+        # (500-byte rows, width 256), d 50 without the mask, and a ragged T
+        # with q_offset
         ("d64_bf16_causal_offset1", (BATCH, SEQ, HEADS, HIDDEN // HEADS),
          SEQ, True, 0, torch.bfloat16, 2e-2, 1),
+        ("d128_fp16_causal_offset1", (BATCH, SEQ, HEADS // 2, 128), SEQ,
+         True, 0, torch.float16, 3e-3, 1),
+        ("d256_bf16_causal_offset1", (BATCH, SEQ, HEADS // 4, 256), SEQ,
+         True, 0, torch.bfloat16, 2e-2, 1),
+        ("d97_bf16_causal", (BATCH, SEQ, HEADS // 2, 97), SEQ, True, 0,
+         torch.bfloat16, 2e-2),
+        ("d250_bf16_causal", (BATCH, SEQ, HEADS // 4, 250), SEQ, True, 0,
+         torch.bfloat16, 2e-2),
+        ("d50_bf16_noncausal", (BATCH, 1500, HEADS, 50), 1500, False, 0,
+         torch.bfloat16, 2e-2),
+        ("ragged_d50_bf16_causal_qoff", (1, 200, 3, 50), 264, True, 64,
+         torch.bfloat16, 2e-2),
     ]
     results = {}
     for i, (name, shp, t_k, causal, q_off, dtype, tol, *offset) in \
@@ -733,9 +785,11 @@ def phase_kernel_vs_plain(seed):
         library_ms = library_device_ms = None
         if not (causal and q_off):
             # fp32 views 4 bytes off 16-byte alignment fault in the
-            # library's kernel (misaligned address on the card): it takes
-            # aligned copies of them
-            lib_in = [x.clone() if offset and dtype == torch.float32 else x
+            # library's kernel (misaligned address on the card), and it
+            # refuses 16-bit views at d 320 ("query_ptr is not correctly
+            # aligned"): it takes aligned copies of them
+            lib_in = [x.clone() if offset and (dtype == torch.float32
+                                               or shp[3] > 256) else x
                       for x in (q, k, v)]
             qt, kt, vt = (x.transpose(1, 2) for x in lib_in)
 
@@ -749,6 +803,20 @@ def phase_kernel_vs_plain(seed):
         kernel = launch_plan(dtype, shp[0], shp[1], shp[2], shp[3], copy_bytes(
             shp[3], q.data_ptr(), k.data_ptr(), v.data_ptr(),
             got.data_ptr(), itemsize=q.element_size()))[0]
+        # the LDG producer writes the bytes TMA would have: where d % 8 ==
+        # 0 the TMA route on aligned copies of the same inputs (each a
+        # fresh allocation) must give the same bits
+        tma_equal = None
+        if kernel == "flash_fwd_tc_wg_ldg" and shp[3] % 8 == 0:
+            before_tma = flash_attention.launches_by_kernel["flash_fwd_tc_wg"]
+            tma = flash_attention(q.clone(), k.clone(), v.clone(),
+                                  causal=causal, q_offset=q_off)
+            torch.cuda.synchronize()
+            check(flash_attention.launches_by_kernel["flash_fwd_tc_wg"]
+                  == before_tma + 1, f"{name}: the aligned copies ran "
+                  "flash_fwd_tc_wg")
+            tma_equal = bool(torch.equal(tma, got))
+            del tma
         row = {"case": name, "kernel": kernel, "ran": ran, "q": list(shp),
                "t_k": t_k,
                "causal": causal, "q_offset": q_off, "dtype": dname,
@@ -757,25 +825,38 @@ def phase_kernel_vs_plain(seed):
                "library_ms": library_ms, "device_ms": device_ms,
                "library_device_ms": library_device_ms, "bound_ms": bound_ms,
                "bound_by": bound_by, "frac_of_bound": bound_ms / device_ms,
-               "vs_library": ms / library_ms if library_ms else None}
+               "vs_library": ms / library_ms if library_ms else None,
+               "device_vs_library": device_ms / library_device_ms
+               if library_device_ms else None,
+               "bit_identical_to_tma": tma_equal}
         print("  " + json.dumps(row), flush=True)
         check(np.isfinite(err) and err <= tol,
               f"{name}: max abs err {err:.3g} <= {tol}")
         check(ran == [kernel], f"{name}: the wrapper launched {ran} == the "
               f"route's [{kernel}]")
+        if tma_equal is not None:
+            check(tma_equal, f"{name}: bit-identical to flash_fwd_tc_wg on "
+                  "aligned copies")
         results[name] = row
         del q, k, v, got, want
     torch.cuda.empty_cache()
-    # the bf16/fp16 main paths' shapes on the wgmma/TMA kernel; the
-    # element-wise kernel keeps the rows that are not 16-byte aligned
+    # the bf16/fp16 main paths' shapes on the wgmma/TMA kernel; the rows
+    # TMA refuses up to d 256 on its LDG producer, wider ones on the split
     on_wg = ("slice_bf16_causal", "slice_fp16_causal", "train_bf16_causal",
              "d128_bf16_causal", "d128_fp16_causal", "d96_bf16_causal",
              "slice_bf16_noncausal")
+    on_ldg = ("d64_bf16_causal_offset1", "d128_fp16_causal_offset1",
+              "d256_bf16_causal_offset1", "ragged_d50_bf16_causal",
+              "d97_bf16_causal", "d250_bf16_causal", "d50_bf16_noncausal",
+              "ragged_d50_bf16_causal_qoff")
     check(all(results[n]["ran"] == ["flash_fwd_tc_wg"] for n in on_wg)
-          and results["d64_bf16_causal_offset1"]["ran"] == ["flash_fwd_tc"]
-          and results["ragged_d50_bf16_causal"]["ran"] == ["flash_fwd_tc"],
-          "16-byte rows up to d 128 ran flash_fwd_tc_wg, 2-byte rows "
-          "flash_fwd_tc")
+          and all(results[n]["ran"] == ["flash_fwd_tc_wg_ldg"]
+                  for n in on_ldg)
+          and results["d320_bf16_causal_offset1"]["ran"]
+          == ["flash_fwd_tc_split"],
+          "16-byte rows up to d 256 ran flash_fwd_tc_wg, the other rows up "
+          "to d 256 flash_fwd_tc_wg_ldg, 2-byte rows at d 320 "
+          "flash_fwd_tc_split")
     return results
 
 
@@ -6652,12 +6733,13 @@ def main(argv=None):
         "device_ms": main_case["device_ms"],
         "library_device_ms": main_case["library_device_ms"],
     }]
-    # the element-wise kernel: rows that are not 16-byte aligned (a view at
-    # an offset of one element here); no main path makes such rows, so its
-    # main-path launches are 0 and phase 3 holds it to its plain version
-    tc_case = cases["d64_bf16_causal_offset1"]
+    # the wgmma kernel's LDG producer: rows TMA refuses (a view at an
+    # offset of one element, d not a multiple of 8); no main path makes such
+    # rows, so its main-path launches are 0 and phase 3 holds it to its
+    # plain version and, where d % 8 == 0, to the TMA route's bits
+    ldg_case = cases["d64_bf16_causal_offset1"]
     kernels.append({
-        "name": "flash_attention_fwd_tc",
+        "name": "flash_attention_fwd_tc_wg_ldg",
         "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/flash_attention_fwd_tc.cu",
         "replaces": "mxnet_tpu/ops/flash_attention.py:47",
@@ -6665,8 +6747,13 @@ def main(argv=None):
         "launches_by_path": {
             "main_paths": 0,
             "phase3_cases": [n for n, c in cases.items()
-                             if c["ran"] == ["flash_fwd_tc"]]},
-        **{k: tc_case[k] for k in KERNEL_KEYS}})
+                             if c["ran"] == ["flash_fwd_tc_wg_ldg"]]},
+        **{k: ldg_case[k] for k in KERNEL_KEYS},
+        # its other widths' and shapes' numbers, from phase 3
+        "other_shapes": {n: {k: cases[n][k] for k in KERNEL_KEYS}
+                         for n in ("d256_bf16_causal_offset1",
+                                   "ragged_d50_bf16_causal",
+                                   "d128_fp16_causal_offset1")}})
     wide_case = cases["d256_fp32_causal"]
     kernels.append({
         "name": "flash_attention_fwd_f32_wide",

@@ -11,18 +11,21 @@
 // and o / max(l, 1e-20) written in q's dtype. Columns past T_k have weight 0.
 // The scores never leave the registers.
 //
-// Three kernels, routed by the rows' alignment and the head dim (the C
-// entry at the end; ops/flash_attention.py::launch_plan names the same):
+// Three routes, by the rows' alignment and the head dim (the C entry at
+// the end; ops/flash_attention.py::launch_plan names the same):
 //   * flash_fwd_tc_wg: 16-byte rows (d % 8 == 0 and 16-byte aligned bases,
 //     what TMA needs) at every d <= 256, in widths 64, 128, 192 and 256
 //     (the smallest that holds d; columns past d arrive as zeros). The
 //     tensor cores are reached through wgmma, fed by TMA, at every width:
 //     the only way to the card's full tensor-core rate. Its design is
 //     below, before the kernel;
-//   * flash_fwd_tc: the element-wise path, rows that are not 16-byte
-//     aligned (d not a multiple of 8, a view at a 2-byte offset) at d <=
-//     128, on mma.sync;
-//   * flash_fwd_tc_split: wider than 256, and 2-byte rows wider than 128.
+//   * flash_fwd_tc_wg_ldg: the same consumers, widths and grid for rows that
+//     TMA refuses (d not a multiple of 8, a view at a 2-byte offset), up to
+//     d 256. Only its producer differs: it copies each row's aligned 16-byte
+//     words into a staging ring with cp.async (16 bytes a thread) and
+//     shifts them into the bytes TMA would have written (design below,
+//     before the producer);
+//   * flash_fwd_tc_split: wider than 256, on mma.sync.
 //
 // Bound on an H100 SXM at the transformer LM's shape, q/k/v (2, 2048, 16, 64)
 // bf16 causal, per forward and layer: B*H*T*(T+1)/2 = 6.7e7 causal pairs,
@@ -31,53 +34,12 @@
 // (dense bf16/fp16 tensor cores) and 3.35 TB/s that is 0.0174 ms against
 // 0.0100 ms: the kernels are bound by operations.
 //
-// flash_fwd_tc, the element-wise path (FlashAttention-2 form on
-// mma.sync; it once ran the 16-byte rows up to d 128 too, through
-// cp.async, at 19-21 % of the bound: PERF.md keeps its times):
-//   * one block of 4 warps (128 threads) per (batch*head, 64-row Q tile);
-//     each warp owns 16 Q rows. The grid is (batch*head, Q tile) and Q tiles
-//     run from the last, so the first blocks the card schedules are the
-//     heaviest causal tiles of every head;
-//   * Q, K and V stay row-major in shared memory, rows padded by 8 elements
-//     (16 bytes), so that the 8 rows an ldmatrix phase reads start in 8
-//     distinct 4-bank groups: no bank conflicts;
-//   * K/V tiles of 64 rows go through a two-stage ring filled by
-//     element-wise loads (2 bytes from device memory, 4 into shared memory;
-//     any d and alignment): tile n+1 is loaded after tile n's barrier, one
-//     barrier per tile. Rows past T and columns past d are zero. V rows past
-//     T_k must be zeros: a masked p = 0 times a NaN left in shared memory
-//     would be NaN;
-//   * each warp loads its Q fragment once (ldmatrix.x4, the A operand of
-//     D/16 k-steps) and keeps it in registers;
-//   * S = Q K^T with mma.sync.m16n8k16 (.bf16 or .f16 in, fp32 accumulate):
-//     K row-major in shared memory is already the "col" B operand, so a
-//     plain ldmatrix loads it. A warp's S patch is 16 x 64: 32 fp32
-//     registers a thread, two rows (g, g + 8) of 16 columns each;
-//   * online softmax in registers: log2(e) is folded into the scale and
-//     exp2f used; the row max reduces over the 4 lanes of a quad with two
-//     shuffles, the row sum stays a per-thread partial until the end. Masks
-//     apply only on tiles that cross the diagonal or T_k, and K tiles wholly
-//     above the diagonal are skipped (their contribution is exactly 0 in the
-//     reference, since column 0 is never masked for q_offset >= 0);
-//   * P V without a shared-memory round trip: the C fragments of two
-//     adjacent 8-column n-tiles of S are, element for element, the A fragment
-//     of one m16n8k16 k-step, so P is rounded to bf16/fp16 pairs in
-//     registers and fed to mma.sync directly; V is the B operand through
-//     ldmatrix.trans;
-//   * O accumulates in fp32 registers (32 a thread at D=64, 64 at D=128);
-//     the epilogue divides by max(l, 1e-20) and stores in q's dtype;
-//   * shared memory: Q and two stages of K and V, 5 tiles of 64 x (D + 8):
-//     23 KB at D=32, 45 KB at D=64, 85 KB at D=128 (two blocks an SM). The
-//     dynamic-size attribute is set once per device and instantiation;
-//   * head dims: D=32/64/128 instantiations for each of bf16 and fp16; any
-//     d <= 128 runs in the smallest that holds it, the columns past d zero
-//     in shared memory.
 // Precision: S and O accumulate in fp32, as in the JAX kernel, but P is
 // rounded to the 16-bit input type before P V, where the JAX kernel keeps p
 // in fp32 (mxnet_tpu/ops/flash_attention.py:69,72). The row sum l is taken
 // over the fp32 p. Against the fp32 plain version on the same inputs the
 // error stays inside 2e-2 (bf16) and 3e-3 (fp16); see chip_smoke.py phase 3.
-// All three kernels round P so.
+// Every route rounds P so.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -100,11 +62,6 @@ constexpr float LOG2E = 1.4426950408889634f;
 
 __device__ __forceinline__ float neg_inf() {
   return __int_as_float(0xff800000);
-}
-
-template <int DP>
-constexpr size_t smem_bytes() {
-  return sizeof(uint16_t) * (size_t)(BQ + 4 * BK) * (DP + PAD);
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -231,209 +188,30 @@ __device__ __forceinline__ uint16_t to_bits(float x) {
   }
 }
 
-template <typename T, int DP>
-__global__ void __launch_bounds__(THREADS, 2)
-flash_fwd_tc(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
-             const uint16_t* __restrict__ v, uint16_t* __restrict__ o,
-             int t_q, int t_k, int heads, int d, float scale_log2, int causal,
-             int q_offset) {
-  constexpr int DS = DP + PAD;   // shared row stride, elements
-  constexpr int KS = DP / 16;    // k-steps of Q K^T
-  constexpr int NS = BK / 8;     // 8-column n-tiles of S
-  constexpr int NO = DP / 8;     // 8-column n-tiles of O
-  constexpr int TILE = BK * DS;
-  extern __shared__ uint4 smem16[];
-  uint16_t* q_s = reinterpret_cast<uint16_t*>(smem16);  // BQ x DS
-  uint16_t* kv_s = q_s + BQ * DS;  // 2 stages of [K tile, V tile]
-
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int g = lane >> 2;   // fragment row (and row + 8)
-  const int tq = lane & 3;   // fragment column pair
-  const int bh = blockIdx.x;
-  const int q_tile = gridDim.y - 1 - blockIdx.y;   // heaviest causal first
-  const int b = bh / heads;
-  const int h = bh % heads;
-  const int q0 = q_tile * BQ;
-  const int rs = heads * d;   // row stride of (B, T, H, D)
-
-  // (b, row, h, :) lives at ((b * T + row) * H + h) * D
-  const uint16_t* q_bh = q + ((int64_t)b * t_q * heads + h) * d;
-  const uint16_t* k_bh = k + ((int64_t)b * t_k * heads + h) * d;
-  const uint16_t* v_bh = v + ((int64_t)b * t_k * heads + h) * d;
-  uint16_t* o_bh = o + ((int64_t)b * t_q * heads + h) * d;
-
-  int n_tiles = (t_k + BK - 1) / BK;
-  if (causal) {
-    // last query row of this tile, in key coordinates
-    const int last = q_offset + min(q0 + BQ, t_q) - 1;
-    n_tiles = min(n_tiles, last / BK + 1);
-  }
-
-  stage_tile<BQ, DP, 2>(q_s, q_bh, q0, t_q, rs, d);
-  stage_tile<BK, DP, 2>(kv_s, k_bh, 0, t_k, rs, d);
-  stage_tile<BK, DP, 2>(kv_s + TILE, v_bh, 0, t_k, rs, d);
-
-  // ldmatrix row addresses of this lane: x4 matrices 0-3 take their row
-  // addresses from lanes 0-7, 8-15, 16-23, 24-31
-  const int lr = lane & 7;
-  const int l8 = (lane >> 3) & 1;   // matrices 1 and 3
-  const int l16 = lane >> 4;        // matrices 2 and 3
-
-  uint32_t qf[KS][4];
-  float acc[NO][4];
-#pragma unroll
-  for (int n = 0; n < NO; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-  // rows g and g + 8 of this warp: running max (log2 domain) and this
-  // thread's partial sum
-  float m[2] = {MASKED, MASKED};
-  float l[2] = {0.f, 0.f};
-  const int row_g = q_offset + q0 + warp * 16 + g;   // key coordinates
-
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * BK;
-    const uint16_t* k_s = kv_s + (kt & 1) * 2 * TILE;
-    const uint16_t* v_s = k_s + TILE;
-    // tile kt is in for every thread, and every thread is done with
-    // tile kt - 1's stage
-    __syncthreads();
-    if (kt == 0) {
-      // A fragments of Q: matrix 0 rows 0-7 cols 0-7, 1 rows 8-15 cols 0-7,
-      // 2 rows 0-7 cols 8-15, 3 rows 8-15 cols 8-15 of each k-step
-#pragma unroll
-      for (int ks = 0; ks < KS; ++ks)
-        ldmatrix_x4(qf[ks], smem_addr(q_s + (warp * 16 + lr + 8 * l8) * DS +
-                                      ks * 16 + 8 * l16));
-    }
-    if (kt + 1 < n_tiles) {
-      uint16_t* nxt = kv_s + ((kt + 1) & 1) * 2 * TILE;
-      stage_tile<BK, DP, 2>(nxt, k_bh, k0 + BK, t_k, rs, d);
-      stage_tile<BK, DP, 2>(nxt + TILE, v_bh, k0 + BK, t_k, rs, d);
-    }
-
-    // S = Q K^T: B fragments of two n-tiles per ldmatrix.x4 (matrix 0 keys
-    // 0-7 d 0-7, 1 keys 0-7 d 8-15, 2 keys 8-15 d 0-7, 3 keys 8-15 d 8-15)
-    float s[NS][4];
-#pragma unroll
-    for (int n = 0; n < NS; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < KS; ++ks) {
-#pragma unroll
-      for (int n = 0; n < NS; n += 2) {
-        uint32_t kf[4];
-        ldmatrix_x4(kf, smem_addr(k_s + (n * 8 + lr + 8 * l16) * DS +
-                                  ks * 16 + 8 * l8));
-        mma16816<T>(s[n], qf[ks], kf[0], kf[1]);
-        mma16816<T>(s[n + 1], qf[ks], kf[2], kf[3]);
-      }
-    }
-
-    // online softmax in the log2 domain; s[n][0..1] are row g, columns
-    // k0 + 8n + 2tq + {0, 1}; s[n][2..3] row g + 8, the same columns
-    const bool edge = k0 + BK > t_k || (causal && q_offset + q0 < k0 + BK - 1);
-    float mx[2] = {neg_inf(), neg_inf()};
-#pragma unroll
-    for (int n = 0; n < NS; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = s[n][e] * scale_log2;
-        if (edge) {
-          const int col = k0 + n * 8 + 2 * tq + (e & 1);
-          const int row = row_g + 8 * (e >> 1);
-          if (col >= t_k) {
-            x = neg_inf();   // not a key: weight 0
-          } else if (causal && row < col) {
-            x = MASKED;
-          }
-        }
-        s[n][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
-      }
-    }
-    float corr[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      const float m_new = fmaxf(m[i], mx[i]);
-      corr[i] = exp2f(m[i] - m_new);
-      m[i] = m_new;
-      l[i] *= corr[i];
-    }
-#pragma unroll
-    for (int n = 0; n < NO; ++n) {
-      acc[n][0] *= corr[0];
-      acc[n][1] *= corr[0];
-      acc[n][2] *= corr[1];
-      acc[n][3] *= corr[1];
-    }
-
-    // P V: k-step j covers keys 16j..16j+15, i.e. S n-tiles 2j and 2j + 1,
-    // whose C fragments are the A fragment {a0, a1, a2, a3} =
-    // {tile 2j rows g, tile 2j rows g+8, tile 2j+1 rows g, tile 2j+1 rows g+8}
-#pragma unroll
-    for (int j = 0; j < BK / 16; ++j) {
-      uint32_t pf[4];
-#pragma unroll
-      for (int t = 0; t < 2; ++t) {
-        const float p0 = exp2f(s[2 * j + t][0] - m[0]);
-        const float p1 = exp2f(s[2 * j + t][1] - m[0]);
-        const float p2 = exp2f(s[2 * j + t][2] - m[1]);
-        const float p3 = exp2f(s[2 * j + t][3] - m[1]);
-        l[0] += p0 + p1;
-        l[1] += p2 + p3;
-        pf[2 * t] = pack2<T>(p0, p1);
-        pf[2 * t + 1] = pack2<T>(p2, p3);
-      }
-      // B fragments of V through ldmatrix.trans: matrix 0 keys 0-7 cols
-      // 0-7, 1 keys 8-15 cols 0-7, 2 keys 0-7 cols 8-15, 3 keys 8-15
-      // cols 8-15
-#pragma unroll
-      for (int n = 0; n < NO; n += 2) {
-        uint32_t vf[4];
-        ldmatrix_x4_trans(vf, smem_addr(v_s + (j * 16 + lr + 8 * l8) * DS +
-                                        n * 8 + 8 * l16));
-        mma16816<T>(acc[n], pf, vf[0], vf[1]);
-        mma16816<T>(acc[n + 1], pf, vf[2], vf[3]);
-      }
-    }
-  }
-
-  // epilogue: rows g and g + 8 of this warp, columns 8n + 2tq + {0, 1}
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    float li = l[i];
-    li += __shfl_xor_sync(0xffffffffu, li, 1);
-    li += __shfl_xor_sync(0xffffffffu, li, 2);
-    const int r = q0 + warp * 16 + g + 8 * i;
-    if (r >= t_q) continue;
-    const float inv = 1.f / fmaxf(li, 1e-20f);
-    uint16_t* o_row = o_bh + (int64_t)r * rs;
-#pragma unroll
-    for (int n = 0; n < NO; ++n) {
-      const int col = n * 8 + 2 * tq;
-      if (col < d) o_row[col] = to_bits<T>(acc[n][2 * i] * inv);
-      if (col + 1 < d) o_row[col + 1] = to_bits<T>(acc[n][2 * i + 1] * inv);
-    }
-  }
-}
-
 // ------------------------------------ head dim > 128: the split over d
 
-// flash_fwd_tc_split: d > 256, or d > 128 with the element-wise loads (rows
-// that are not 16-byte aligned), split over d. The output's columns go in
-// chunks of DC = 128 on gridDim.z; each block accumulates S = Q K^T over the
-// 128-wide d-chunks of Q and K, staged through shared memory one chunk at a
-// time (Q's A fragments are read again from shared memory for every
-// chunk), then adds P V for its own chunk of V's columns. Warps, fragments,
-// online softmax and masks are flash_fwd_tc's at D=128. Each of the
-// ceil(d / 128) column chunks computes S again, and the copies of a K/V
-// tile do not overlap its compute: this path is right for any d, not
-// tuned. Shared memory: Q, K and V chunks, 51 KB.
+// flash_fwd_tc_split: d > 256, split over d, on mma.sync (FlashAttention-2
+// form). The output's columns go in chunks of DC = 128 on gridDim.z; each
+// block (4 warps, 16 of its 64 Q rows each; the grid's y runs the Q tiles
+// from the last, so the heaviest causal tiles start first) accumulates S =
+// Q K^T over the 128-wide d-chunks of Q and K, staged through shared memory
+// one chunk at a time (rows padded by 8 elements, so an ldmatrix phase's 8
+// rows start in 8 distinct 4-bank groups; cp.async of 16 bytes, or 2-byte
+// loads for rows TMA refuses; rows past T and columns past d zero), then
+// adds P V for its own chunk of V's columns:
+//   * S = Q K^T with mma.sync.m16n8k16 (fp32 accumulate), K row-major in
+//     shared memory as the "col" B operand (ldmatrix), a warp's S patch 16 x
+//     64;
+//   * online softmax in registers: log2(e) folded into the scale, exp2f,
+//     the row max over a quad with two shuffles; masks only on tiles that
+//     cross the diagonal or T_k;
+//   * P V without a shared-memory round trip: the C fragments of two
+//     adjacent 8-column n-tiles of S are the A fragment of one k-step, so P
+//     is rounded to the 16-bit type in registers; V is the B operand through
+//     ldmatrix.trans.
+// Each of the ceil(d / 128) column chunks computes S again, and the copies
+// of a K/V tile do not overlap its compute: this path is right for any d,
+// not tuned. Shared memory: Q, K and V chunks, 51 KB.
 constexpr int DC = 128;   // d-chunk width
 
 constexpr size_t split_smem_bytes() {
@@ -528,7 +306,7 @@ flash_fwd_tc_split(const uint16_t* __restrict__ q,
       }
     }
 
-    // online softmax in the log2 domain, as in flash_fwd_tc
+    // online softmax in the log2 domain
     const bool edge = k0 + BK > t_k || (causal && q_offset + q0 < k0 + BK - 1);
     float mx[2] = {neg_inf(), neg_inf()};
 #pragma unroll
@@ -622,7 +400,7 @@ flash_fwd_tc_split(const uint16_t* __restrict__ q,
 // flash_fwd_tc_wg: bf16/fp16 with d <= 256 and 16-byte rows (d % 8 == 0,
 // 16-byte aligned bases: what TMA needs), in widths 64, 128, 192 and 256.
 // It replaces the TPU kernel mxnet_tpu/ops/flash_attention.py:47
-// _fwd_kernel there and computes the same function as flash_fwd_tc. Its
+// _fwd_kernel there and computes the same function as the split. Its
 // design puts the operations on Hopper's asynchronous units:
 //   * one block owns all of d: S = Q K^T is computed once per (Q tile, K
 //     tile), never per chunk of the output's columns;
@@ -650,7 +428,7 @@ flash_fwd_tc_split(const uint16_t* __restrict__ q,
 //     (K-major, 128-byte swizzle), fp32 accumulate: BK / 2 registers a
 //     thread;
 //   * the online softmax runs on the accumulator in registers as in
-//     flash_fwd_tc (the wgmma accumulator is mma.sync's C layout, a warp to
+//     the split (the wgmma accumulator is mma.sync's C layout, a warp to
 //     16 rows), and P, rounded to the 16-bit type, is the register A operand
 //     of O += P V: wgmma m64n64k16 over each 64-wide chunk of O, V from
 //     shared memory as an MN-major B operand. O is DP / 2 fp32 registers a
@@ -705,7 +483,7 @@ flash_fwd_tc_split(const uint16_t* __restrict__ q,
 //   Device ms on an H100 SXM at 700 W (flash_tile_sweep.py --kernel wg,
 //   PERF.md; the library's scaled_dot_product_attention in the same
 //   turns), bf16 causal: (2, 2048, 16, 64) 0.0594 (library 0.0583;
-//   flash_fwd_tc on mma.sync 0.0907), (4, 2048, 16, 64) 0.115 (0.099),
+//   the former mma.sync kernel 0.0907), (4, 2048, 16, 64) 0.115 (0.099),
 //   (2, 2048, 8, 128) 0.0487 (0.0506). At width 64 the arithmetic alone
 //   takes 0.0606 and the loads alone 0.0244. Left on the table:
 //   non-causal at d 64 (0.098 against the library's 0.078); the latency
@@ -742,8 +520,16 @@ struct TilesOf {
   // thread, over the consumers: 240 for two consumers, 160 for three, 112
   // for four
   static constexpr int LAUNCH_REGS = 65536 / THREADS / 8 * 8;
+  static constexpr int PRODUCER_REGS = 24;   // the TMA route's
   static constexpr int CONSUMER_REGS =
-      (THREADS * LAUNCH_REGS - 128 * 24) / (128 * CONSUMERS) / 8 * 8;
+      (THREADS * LAUNCH_REGS - 128 * PRODUCER_REGS) / (128 * CONSUMERS) / 8 *
+      8;
+  // what the consumers leave the producer: 32 a thread with four
+  // consumers, 24 with two (the LDG route's default, Ldg below)
+  static constexpr int LDG_PRODUCER_REGS =
+      (THREADS * LAUNCH_REGS - 128 * CONSUMERS * CONSUMER_REGS) / 128 / 8 *
+      8;
+  static_assert(LDG_PRODUCER_REGS >= 24, "setmaxnreg takes 24 to 256");
   static_assert(BK == 64 || BK == 128, "S is m64n64 or m64n128");
   static_assert(CONSUMERS >= 2 && CONSUMERS <= 4, "2 to 4 consumers");
 };
@@ -759,7 +545,45 @@ struct Tiles<192> : TilesOf<64, 2, 2, 0, 0, 1> {};
 template <>
 struct Tiles<256> : TilesOf<64, 2, 2, 0, 0, 1> {};
 
+// The LDG route's producer (flash_fwd_tc_wg_ldg): every thread of the
+// producer warpgroup copies and shifts the pieces (SR rows of a tile) in NB
+// staging buffers, each row the RAW bytes of the aligned 16-byte words that
+// hold up to DP elements at any 2-byte offset
+constexpr int LDG_THREADS = 128;
+template <int SR_, int NB_, int REGS_>
+struct LdgOf {
+  static constexpr int SR = SR_;
+  static constexpr int NB = NB_;
+  static constexpr int PRODUCER_REGS_ = REGS_;
+  static_assert(NB >= 2, "a piece in flight while one is shifted");
+};
+// rows a piece, staging buffers, and the producer's registers (0: what the
+// consumers leave it at Tiles<DP>'s count; 40 leaves two consumers 232)
 template <int DP>
+struct LdgTraits;
+template <>
+struct LdgTraits<64> : LdgOf<64, 4, 0> {};
+template <>
+struct LdgTraits<128> : LdgOf<64, 3, 40> {};
+template <>
+struct LdgTraits<192> : LdgOf<64, 3, 40> {};
+template <>
+struct LdgTraits<256> : LdgOf<32, 2, 40> {};
+// the producer's and the consumers' registers (setmaxnreg) on the LDG route
+template <int DP>
+struct Ldg : LdgTraits<DP> {
+  using C = Tiles<DP>;
+  static constexpr int PRODUCER_REGS = LdgTraits<DP>::PRODUCER_REGS_
+                                           ? LdgTraits<DP>::PRODUCER_REGS_
+                                           : C::LDG_PRODUCER_REGS;
+  static constexpr int CONSUMER_REGS =
+      (C::THREADS * C::LAUNCH_REGS - 128 * PRODUCER_REGS) /
+      (128 * C::CONSUMERS) / 8 * 8;
+  static_assert(PRODUCER_REGS >= 24 && PRODUCER_REGS % 8 == 0,
+                "setmaxnreg takes multiples of 8 from 24");
+};
+
+template <int DP, bool LDG = false>
 struct Layout {
   using C = Tiles<DP>;
   static constexpr int DC = DP / BOX;                 // boxes a row
@@ -767,7 +591,11 @@ struct Layout {
   static constexpr int KV_BYTES = C::BK * ROW * DC;   // a K or V tile
   static constexpr int K_OFF = C::CONSUMERS * Q_BYTES;
   static constexpr int V_OFF = K_OFF + C::STAGES * KV_BYTES;
-  static constexpr int BAR_OFF = V_OFF + C::STAGES * KV_BYTES;
+  static constexpr int RAW = 2 * DP + 16;             // bytes a staged row
+  static constexpr int STG_OFF = V_OFF + C::STAGES * KV_BYTES;
+  static constexpr int STG_BYTES =
+      LDG ? Ldg<DP>::NB * Ldg<DP>::SR * RAW : 0;
+  static constexpr int BAR_OFF = STG_OFF + STG_BYTES;
   // q_full, k_full[STAGES], v_full[STAGES], k_empty and
   // v_empty[STAGES][CONSUMERS], with ping-pong turn[CONSUMERS]
   static constexpr int N_BARS = 1 + 2 * C::STAGES +
@@ -1143,6 +971,193 @@ __device__ __forceinline__ void issue_qk(float (&sc)[BK / 2], uint32_t q_s,
   wgmma_commit();
 }
 
+// Consumer warpgroup wg of either route: 64 Q rows, all of d, with REGS
+// registers a thread. The tiles lie at Layout<DP>'s offsets on both routes;
+// the barriers are the block's. ANY_D: the epilogue takes any d (the LDG
+// route)
+template <typename T, int DP, bool ANY_D, int REGS>
+__device__ __forceinline__ void consume(
+    uint8_t* smem, uint64_t* q_full, uint64_t* k_full, uint64_t* v_full,
+    uint64_t* k_empty, uint64_t* v_empty, uint64_t* turn_bar, int wg,
+    uint16_t* __restrict__ o, int b, int h, int nq, int t_q, int t_k,
+    int heads, int d, float scale_log2, int causal, int q_offset) {
+  using L = Layout<DP>;
+  using C = Tiles<DP>;
+  constexpr int DC = L::DC;
+  constexpr int BK = C::BK;
+  constexpr int WG_CONSUMERS = C::CONSUMERS;
+  constexpr int WG_STAGES = C::STAGES;
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(REGS)
+               : "memory");
+  const int my_tile = q_tile<WG_CONSUMERS, C::PAIRED>(wg, nq);
+  // ping-pong: the consumers issue their products in turns, 0, 1, ...:
+  // consumer w's turn k starts when phase k of turn_bar[w] completes,
+  // on the arrival of consumer w - 1 at the end of its turn (consumer 0's
+  // first, on the last consumer's arrival here). A consumer's turns are
+  // its K/V tiles and one (the last P V); one with fewer than the block's
+  // most takes empty ones at its end, so that the turns alternate to the
+  // end and no phase completes twice unseen
+  int turn = 0, turns = 0;
+  if constexpr (C::PINGPONG) {
+#pragma unroll
+    for (int w = 0; w < WG_CONSUMERS; ++w) {
+      const int tw = q_tile<WG_CONSUMERS, C::PAIRED>(w, nq);
+      if (tw >= 0)
+        turns = max(turns, kv_tiles<BK>(tw * WG_BQ, t_q, t_k, causal,
+                                         q_offset) + 1);
+    }
+    mbar_arrive_if(turn_bar, wg == WG_CONSUMERS - 1);
+  }
+  auto take_turn = [&] {
+    if constexpr (C::PINGPONG) mbar_wait(turn_bar + wg, turn & 1);
+  };
+  auto end_turn = [&] {
+    if constexpr (C::PINGPONG) {
+      mbar_arrive(turn_bar + (wg + 1) % WG_CONSUMERS);
+      ++turn;
+    }
+  };
+  auto empty_turns = [&] {
+    if constexpr (C::PINGPONG) {
+      while (turn < turns) {
+        take_turn();
+        end_turn();
+      }
+    }
+  };
+  if (my_tile < 0) {
+    empty_turns();
+    return;
+  }
+  const int t = threadIdx.x % 128;
+  const int warp = t >> 5;
+  const int lane = t & 31;
+  const int g = lane >> 2;
+  const int tq = lane & 3;
+  const int q0 = my_tile * WG_BQ;
+  const int n_tiles = kv_tiles<BK>(q0, t_q, t_k, causal, q_offset);
+  const uint32_t q_s = smem_addr(smem + wg * L::Q_BYTES);
+  const uint32_t k_s = smem_addr(smem + L::K_OFF);
+  const uint32_t v_s = smem_addr(smem + L::V_OFF);
+
+  float acc[DC][32];
+#pragma unroll
+  for (int c = 0; c < DC; ++c)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) acc[c][e] = 0.f;
+  float m[2] = {MASKED, MASKED};
+  float l[2] = {0.f, 0.f};
+  const int row_g = q_offset + q0 + warp * 16 + g;   // key coordinates
+  // P, the A operand of P V. Tile kt's P V is issued right behind tile
+  // kt + 1's Q K^T and runs under its softmax, so P (and O) are not
+  // touched from that issue to the wait that follows the softmax, and
+  // nothing is in flight across iterations
+  uint32_t pa[BK / 16][4];
+
+  mbar_wait(q_full, 0);
+  // a tile crosses the causal diagonal or T_k: masks apply
+  auto edge = [&](int k0) {
+    return k0 + BK > t_k || (causal && q_offset + q0 < k0 + BK - 1);
+  };
+  float sc[BK / 2], corr[2];
+  // tile 0: Q K^T and its softmax alone
+  mbar_wait(k_full, 0);
+  fence_regs(sc);
+  take_turn();
+  wgmma_fence();
+  issue_qk<T, DP, BK>(sc, q_s, k_s);
+  end_turn();
+  wgmma_wait_all();
+  fence_regs(sc);
+  mbar_arrive(k_empty + wg);
+  softmax_tile<BK, C::EX2>(sc, m, l, corr, edge(0), 0, t_k, causal, row_g,
+                           tq, scale_log2);
+  rescale_and_pack<T, DC, BK>(acc, pa, sc, corr);
+  // tile kt's Q K^T, then tile kt - 1's P V behind it; the softmax of
+  // tile kt runs while P V does; nothing is in flight across iterations
+  for (int kt = 1; kt < n_tiles; ++kt) {
+    const int s = kt % WG_STAGES;
+    const int sp = (kt - 1) % WG_STAGES;
+    mbar_wait(k_full + s, (kt / WG_STAGES) & 1);
+    fence_regs(sc);
+#pragma unroll
+    for (int c = 0; c < DC; ++c) fence_regs(acc[c]);
+#pragma unroll
+    for (int j = 0; j < BK / 16; ++j) fence_regs(pa[j]);
+    take_turn();
+    wgmma_fence();
+    issue_qk<T, DP, BK>(sc, q_s, k_s + s * L::KV_BYTES);
+    mbar_wait(v_full + sp, ((kt - 1) / WG_STAGES) & 1);
+    issue_pv<T, DC, BK>(acc, pa, v_s + sp * L::KV_BYTES);
+    wgmma_commit();
+    end_turn();
+    wgmma_wait_one();   // Q K^T is done; P V runs on
+    fence_regs(sc);
+    mbar_arrive(k_empty + s * WG_CONSUMERS + wg);
+    softmax_tile<BK, C::EX2>(sc, m, l, corr, edge(kt * BK), kt * BK, t_k,
+                             causal, row_g, tq, scale_log2);
+    wgmma_wait_all();
+#pragma unroll
+    for (int c = 0; c < DC; ++c) fence_regs(acc[c]);
+#pragma unroll
+    for (int j = 0; j < BK / 16; ++j) fence_regs(pa[j]);
+    mbar_arrive(v_empty + sp * WG_CONSUMERS + wg);
+    rescale_and_pack<T, DC, BK>(acc, pa, sc, corr);
+  }
+  // the last tile's P V
+  const int sl = (n_tiles - 1) % WG_STAGES;
+  mbar_wait(v_full + sl, ((n_tiles - 1) / WG_STAGES) & 1);
+#pragma unroll
+  for (int c = 0; c < DC; ++c) fence_regs(acc[c]);
+#pragma unroll
+  for (int j = 0; j < BK / 16; ++j) fence_regs(pa[j]);
+  take_turn();
+  wgmma_fence();
+  issue_pv<T, DC, BK>(acc, pa, v_s + sl * L::KV_BYTES);
+  wgmma_commit();
+  end_turn();
+  wgmma_wait_all();
+#pragma unroll
+  for (int c = 0; c < DC; ++c) fence_regs(acc[c]);
+  mbar_arrive(v_empty + sl * WG_CONSUMERS + wg);
+  empty_turns();
+
+  // epilogue: rows g and g + 8 of this warp, columns 64c + 8n + 2tq + {0,
+  // 1}, stored as 4-byte pairs: d % 8 == 0 on the TMA route, so col < d
+  // implies col + 1 < d. ANY_D (the LDG route): pairs where d is even and o
+  // 4-byte aligned (o is a fresh tensor in the wrapper), else 2 bytes an
+  // element
+  const int rs = heads * d;
+  uint16_t* o_bh = o + ((int64_t)b * t_q * heads + h) * d;
+  const bool pairs =
+      !ANY_D || ((d | (int)(reinterpret_cast<uintptr_t>(o) >> 1)) & 1) == 0;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float li = l[i];
+    li += __shfl_xor_sync(0xffffffffu, li, 1);
+    li += __shfl_xor_sync(0xffffffffu, li, 2);
+    const int r = q0 + warp * 16 + g + 8 * i;
+    if (r >= t_q) continue;
+    const float inv = 1.f / fmaxf(li, 1e-20f);
+    uint16_t* o_row = o_bh + (int64_t)r * rs;
+#pragma unroll
+    for (int c = 0; c < DC; ++c)
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const int col = c * BOX + n * 8 + 2 * tq;
+        const float x0 = acc[c][4 * n + 2 * i] * inv;
+        const float x1 = acc[c][4 * n + 2 * i + 1] * inv;
+        if (pairs) {
+          if (col < d)
+            *reinterpret_cast<uint32_t*>(o_row + col) = pack2<T>(x0, x1);
+        } else {
+          if (col < d) o_row[col] = to_bits<T>(x0);
+          if (col + 1 < d) o_row[col + 1] = to_bits<T>(x1);
+        }
+      }
+  }
+}
+
 template <typename T, int DP>
 __global__ void __launch_bounds__(Tiles<DP>::THREADS, 1)
 flash_fwd_tc_wg(const __grid_constant__ CUtensorMap q_map,
@@ -1189,7 +1204,9 @@ flash_fwd_tc_wg(const __grid_constant__ CUtensorMap q_map,
   const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
   if (wg == WG_CONSUMERS) {
     // ---- producer: one thread issues every TMA load
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+                     C::PRODUCER_REGS)
+                 : "memory");
     if (threadIdx.x % 128 == 0) {
       int tile[WG_CONSUMERS];
       int n_kv[WG_CONSUMERS];
@@ -1240,167 +1257,418 @@ flash_fwd_tc_wg(const __grid_constant__ CUtensorMap q_map,
       }
     }
   } else {
-    // ---- consumer warpgroup wg: 64 Q rows, all of d
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
-                     C::CONSUMER_REGS)
+    consume<T, DP, false, C::CONSUMER_REGS>(
+        smem, q_full, k_full, v_full, k_empty, v_empty, turn_bar, wg, o, b, h,
+        nq, t_q, t_k, heads, d, scale_log2, causal, q_offset);
+  }
+}
+
+// ------------------------- rows TMA refuses, d <= 256: the LDG producer
+
+// flash_fwd_tc_wg_ldg: bf16/fp16 rows that TMA refuses (d not a multiple of
+// 8, or a base that is not 16-byte aligned, such as a view at a 2-byte
+// offset) at every d <= 256. Its consumers, widths, tiles, grid and the
+// shared-memory layout of Q, K and V are flash_fwd_tc_wg's: TMA only puts
+// bytes into shared memory under the 128-byte swizzle, and the consumers do
+// not care how they got there. Its producer writes the same bytes:
+//   * each Q, K or V tile is cut into pieces of SR rows. For a piece, the
+//     loading threads copy the aligned 16-byte words that hold each row's d
+//     elements into one of NB staging buffers with cp.async (16 bytes a
+//     copy; thread t takes word t % 8 of every 8 of rows t / 8, t / 8 + 16,
+//     ...), one cp.async group a piece. A warp copies exactly the rows it
+//     later shifts, so the staged rows are its own: a thread waits for its
+//     piece's group and then for its warp (__syncwarp), and no barrier
+//     crosses warps. NB - 1 pieces are in flight while one is shifted,
+//     ahead of the ring's empty waits. No register holds a byte in flight;
+//   * memory safety: an aligned 16-byte word that holds a byte of the
+//     tensor lies in the same 256-byte aligned segment as that byte, and
+//     CUDA allocations are 256-byte aligned and mapped in whole pages, so
+//     the words past a row's ends that a copy reads stay inside the
+//     allocation (every word copied holds a byte of its row);
+//   * the loading warps then move each 16-byte chunk of a row into place:
+//     its 8 elements start sh + 2 col0 bytes into the row's staged words
+//     (sh: the row's address mod 16, a multiple of 2), so one or two
+//     aligned 16-byte shared loads and a shift by sh give them. Where 2
+//     heads d is a multiple of 16 every row of a tensor has its base's sh,
+//     and a piece branches once to straight-line code for that shift
+//     (shift_row<SH>); else each chunk shifts by its row's sh with
+//     selects. Columns past d and rows past T are written as zeros, as TMA
+//     fills them. The 16 bytes go where the 128-byte swizzle puts them:
+//     chunk j of tile row r at 16 (j ^ (r & 7)) in its 128-byte row, box c
+//     at c * rows * 128;
+//   * visibility: those stores go through the generic proxy and wgmma reads
+//     through the async proxy, so each loading thread issues
+//     fence.proxy.async.shared::cta after its stores and before it arrives
+//     on the tile's full mbarrier, which counts the loading threads'
+//     arrivals (no expect_tx). A staging buffer is refilled once its warp
+//     is done with it (__syncwarp), after the fence;
+//   * the epilogue writes 4-byte pairs for even d (o is a fresh tensor)
+//     and 2 bytes an element for odd d.
+// Its bound is the TMA route's (operations: 0.0174 ms at (2, 2048, 16, 64)
+// causal). Its cost beside TMA is the producer: the staged bytes cross
+// shared memory three times (the copy's write, the shift's reads, its
+// write) where TMA's cross it once, each chunk is a dependent load, shift
+// and store, and at width 256 the shared memory left holds one piece of
+// lookahead. Device ms on an H100 SXM at 700 W (chip_smoke.py phase 3 and
+// flash_tile_sweep.py --kernel wg_ldg, PERF.md), bf16 causal at an offset
+// of one element: (2, 2048, 16, 64) 0.106 (library 0.059; the element-wise
+// mma.sync kernel before it 0.279), (2, 2048, 4, 256) 0.167 (0.052; the
+// split 1.031); (2, 1500, 16, 50) 0.071 (0.119; 0.148).
+
+// 16 bytes of shared memory at a 16-byte aligned address
+__device__ __forceinline__ uint4 lds128(uint32_t addr) {
+  uint4 r;
+  asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r.x), "=r"(r.y), "=r"(r.z), "=r"(r.w)
+               : "r"(addr)
+               : "memory");
+  return r;
+}
+__device__ __forceinline__ void sts128(uint32_t addr, uint4 x) {
+  asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr),
+               "r"(x.x), "r"(x.y), "r"(x.z), "r"(x.w)
+               : "memory");
+}
+
+// The 16 bytes that start SH bytes (even, below 16) into the 32 bytes {w0,
+// w1}: words SH / 4 on, funnel-shifted by 16 bits where SH % 4 == 2
+template <int SH>
+__device__ __forceinline__ uint4 shift_chunk(uint4 w0, uint4 w1) {
+  const uint32_t w[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+  constexpr int Q = SH / 4;
+  uint32_t r[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    r[i] = SH % 4 ? __funnelshift_r(w[Q + i], w[Q + i + 1], 16) : w[Q + i];
+  return make_uint4(r[0], r[1], r[2], r[3]);
+}
+
+// The same for a shift sh known only at run time: shifts by 8 and 4 bytes,
+// each taken where sh has that bit, then by 0 or 16 bits
+__device__ __forceinline__ uint4 shift_chunk(uint4 w0, uint4 w1,
+                                             uint32_t sh) {
+  uint32_t w[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+#pragma unroll
+  for (int i = 0; i < 6; ++i) w[i] = (sh & 8) ? w[i + 2] : w[i];
+#pragma unroll
+  for (int i = 0; i < 5; ++i) w[i] = (sh & 4) ? w[i + 1] : w[i];
+  uint32_t r[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    r[i] = __funnelshift_r(w[i], w[i + 1], (sh & 2) * 8);
+  return make_uint4(r[0], r[1], r[2], r[3]);
+}
+
+// x with its elements at and past n (of 8) zero
+__device__ __forceinline__ uint4 keep_first(uint4 x, int n) {
+  uint32_t r[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    r[i] &= n > 2 * i + 1 ? 0xffffffffu : n > 2 * i ? 0xffffu : 0u;
+  return make_uint4(r[0], r[1], r[2], r[3]);
+}
+
+// One thread's chunks of a row, jc + 8c for c < DC, into the tile: chunk c
+// holds the row's elements 64c + 8jc on, n0 - 64c of them (none where the
+// row is past T: in is false), which start sh + 16 (jc + 8c) bytes into the
+// row's staged words (words: the shared address of word jc; sh: the row's
+// address mod 16; SH, where it is known at compile time, else -1); box c
+// of the tile row lies box_bytes from box c - 1. The second word is read
+// only where the chunk's bytes reach it, so that every word read holds a
+// byte of the row
+template <int SH, int DC>
+__device__ __forceinline__ void shift_row(uint32_t words, uint32_t sh,
+                                          uint32_t dst, uint32_t box_bytes,
+                                          int n0, bool in) {
+  // one chunk at a time at width 256, where four fill the producer's
+  // registers
+#pragma unroll(DC > 3 ? 1 : DC)
+  for (int c = 0; c < DC; ++c) {
+    const int n = n0 - c * BOX;
+    uint4 y = make_uint4(0u, 0u, 0u, 0u);
+    if (in && n > 0) {
+      const int first = SH >= 0 ? SH : (int)sh;
+      const uint4 w0 = lds128(words + c * 128);
+      const uint4 w1 = first + 2 * min(n, 8) > 16
+                           ? lds128(words + c * 128 + 16)
+                           : make_uint4(0u, 0u, 0u, 0u);
+      if constexpr (SH >= 0) {
+        y = shift_chunk<SH>(w0, w1);
+      } else {
+        y = shift_chunk(w0, w1, sh);
+      }
+      if (n < 8) y = keep_first(y, n);
+    }
+    sts128(dst + c * box_bytes, y);
+  }
+}
+
+template <int V>
+using Int = std::integral_constant<int, V>;
+
+template <int DP>
+struct Pieces {
+  using C = Tiles<DP>;
+  static constexpr int SR = Ldg<DP>::SR;
+  static constexpr int QP = WG_BQ / SR;   // pieces a Q tile
+  static constexpr int KP = C::BK / SR;   // pieces a K or V tile
+  static_assert(WG_BQ % SR == 0 && C::BK % SR == 0, "whole pieces a tile");
+};
+
+// Piece i's rows: the first (of the tensor's (b, h) rows), their tensor
+// and count, and where its tile lies (shared address) with its rows and
+// the piece's first row in it
+struct PieceAt {
+  const uint16_t* src;
+  int t_len, row0, rows, r0;
+  uint32_t tile;
+};
+
+template <int DP>
+__device__ __forceinline__ PieceAt piece_at(
+    int i, int q_pieces, uint32_t base, const uint16_t* q_bh,
+    const uint16_t* k_bh, const uint16_t* v_bh, int nq, int t_q, int t_k) {
+  using L = Layout<DP, true>;
+  using C = Tiles<DP>;
+  using P = Pieces<DP>;
+  PieceAt x;
+  if (i < q_pieces) {
+    const int w = i / P::QP;
+    x.r0 = (i % P::QP) * P::SR;
+    x.src = q_bh;
+    x.t_len = t_q;
+    x.row0 = q_tile<C::CONSUMERS, C::PAIRED>(w, nq) * WG_BQ + x.r0;
+    x.tile = base + w * L::Q_BYTES;
+    x.rows = WG_BQ;
+  } else {
+    const int j = i - q_pieces;
+    const int kt = j / (2 * P::KP);
+    const int p = j % (2 * P::KP);
+    x.r0 = (p % P::KP) * P::SR;
+    x.src = p < P::KP ? k_bh : v_bh;
+    x.t_len = t_k;
+    x.row0 = kt * C::BK + x.r0;
+    x.tile = base + (p < P::KP ? L::K_OFF : L::V_OFF) +
+             (kt % C::STAGES) * L::KV_BYTES;
+    x.rows = C::BK;
+  }
+  return x;
+}
+
+// 16 bytes from 16-byte aligned device memory to shared memory, in the
+// thread's next cp.async group
+__device__ __forceinline__ void cp_async16_to(uint32_t dst, uint64_t src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(src)
+               : "memory");
+}
+
+template <typename T, int DP>
+__device__ __forceinline__ void produce_ldg(
+    uint8_t* smem, const uint16_t* __restrict__ q,
+    const uint16_t* __restrict__ k, const uint16_t* __restrict__ v,
+    uint64_t* q_full, uint64_t* k_full, uint64_t* v_full, uint64_t* k_empty,
+    uint64_t* v_empty, int b, int h, int nq, int t_q, int t_k, int heads,
+    int d, int causal, int q_offset) {
+  using L = Layout<DP, true>;
+  using C = Tiles<DP>;
+  using G = Ldg<DP>;
+  using P = Pieces<DP>;
+  constexpr int CONS = C::CONSUMERS;
+  constexpr int SR = P::SR;
+  constexpr int KP = P::KP;
+  constexpr int DC = L::DC;
+  constexpr int RG = LDG_THREADS / 8;   // rows a pass of them takes
+  constexpr int PIECE = SR * L::RAW;    // staged bytes a piece
+  static_assert(SR % RG == 0, "whole rows a loading thread");
+  const int t = threadIdx.x % 128;
+  // a loading thread takes 16-byte column jc of every 8 (chunk jc of each
+  // 64-wide box, staged word jc of each 8) of rows rq, rq + RG, ... of a
+  // piece, in its copies and in its shifts
+  const int jc = t % 8;
+  const int rq = t / 8;
+  const int rs = heads * d;
+  const uint16_t* q_bh = q + ((int64_t)b * t_q * heads + h) * d;
+  const uint16_t* k_bh = k + ((int64_t)b * t_k * heads + h) * d;
+  const uint16_t* v_bh = v + ((int64_t)b * t_k * heads + h) * d;
+  // the consumers with a Q tile are the first nv; n_max K/V tiles in all
+  int nv = 0, n_max = 0;
+#pragma unroll
+  for (int w = 0; w < CONS; ++w) {
+    const int tw = q_tile<CONS, C::PAIRED>(w, nq);
+    if (tw >= 0) {
+      ++nv;
+      n_max = max(n_max, kv_tiles<C::BK>(tw * WG_BQ, t_q, t_k, causal,
+                                         q_offset));
+    }
+  }
+  const int q_pieces = nv * P::QP;
+  const int total = q_pieces + n_max * 2 * KP;
+  const uint32_t base = smem_addr(smem);
+  const uint32_t stg = base + L::STG_OFF;
+  // the copies of piece i into its staging buffer (row r's words at r *
+  // RAW): of each of its rows, the aligned 16-byte words that hold the
+  // row's d elements, which are the words below sh + 2d (sh: the row's
+  // address mod 16); then an arrival once they are in
+  auto issue = [&](int i) {
+    const PieceAt x =
+        piece_at<DP>(i, q_pieces, base, q_bh, k_bh, v_bh, nq, t_q, t_k);
+    const uint32_t dst = stg + (i % G::NB) * PIECE + jc * 16;
+#pragma unroll(DC > 2 ? 1 : SR / RG)
+    for (int u = 0; u < SR / RG; ++u) {
+      const int r = rq + u * RG;
+      const int row = x.row0 + r;
+      if (row < x.t_len) {
+        const uint64_t a =
+            reinterpret_cast<uint64_t>(x.src + (int64_t)row * rs);
+        const uint64_t from = (a & ~uint64_t{15}) + jc * 16;
+        const int end = (int)(a & 15) + 2 * d;   // bytes from the first word
+#pragma unroll
+        for (int m = 0; m <= DC; ++m)
+          if (jc * 16 + m * 128 < end)
+            cp_async16_to(dst + r * L::RAW + m * 128, from + m * 128);
+      }
+    }
+  };
+  // one cp.async group a piece (an empty one past the last), so that piece
+  // i's group is complete once at most NB - 1 groups are pending
+  for (int i = 0; i < G::NB; ++i) {
+    if (i < total) issue(i);
+    cp_async_commit();
+  }
+  for (int i = 0; i < total; ++i) {
+    const int buf = i % G::NB;
+    const PieceAt x =
+        piece_at<DP>(i, q_pieces, base, q_bh, k_bh, v_bh, nq, t_q, t_k);
+    // a K (V) tile's first piece: its stage is free once every consumer
+    // that read the tile before is done with its K (V)
+    const int j = i - q_pieces;
+    const int kt = j / (2 * KP);
+    const int p = j % (2 * KP);
+    const int s = kt % C::STAGES;
+    if (j >= 0 && p % KP == 0 && kt >= C::STAGES) {
+      const int use = kt / C::STAGES;
+#pragma unroll
+      for (int w = 0; w < CONS; ++w) {
+        const int tw = q_tile<CONS, C::PAIRED>(w, nq);
+        if (tw >= 0 && kt - C::STAGES < kv_tiles<C::BK>(tw * WG_BQ, t_q, t_k,
+                                                         causal, q_offset))
+          mbar_wait((p < KP ? k_empty : v_empty) + s * CONS + w,
+                    (use - 1) & 1);
+      }
+    }
+    // this thread's copies of piece i are in, then its warp's: a warp
+    // copies the rows it shifts, so its staged rows are its own
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(G::NB - 1) : "memory");
+    __syncwarp();
+    // each of the thread's rows of the piece: its address mod 16 (the low
+    // bits of its 64-bit address), then its chunks at that shift, SH at
+    // compile time or -1
+    const uint32_t lo = (uint32_t)reinterpret_cast<uint64_t>(x.src);
+    auto rows = [&](auto shift) {
+      constexpr int SH = decltype(shift)::value;
+      // one row at a time at widths 192 and 256, where more fill the
+      // producer's registers
+#pragma unroll(DC > 2 ? 1 : SR / RG)
+      for (int u = 0; u < SR / RG; ++u) {
+        const int r = rq + u * RG;
+        const int rt = x.r0 + r;   // row of the tile
+        const int row = x.row0 + r;
+        const uint32_t sh = (lo + 2u * (uint32_t)row * (uint32_t)rs) & 15u;
+        const uint32_t dst = x.tile + rt * ROW + ((jc ^ (rt & 7)) << 4);
+        shift_row<SH, DC>(stg + buf * PIECE + r * L::RAW + jc * 16, sh, dst,
+                          x.rows * ROW, d - jc * 8, row < x.t_len);
+      }
+    };
+    // where 2 heads d is a multiple of 16 every row of the tensor lies at
+    // its base's address mod 16: one branch a piece to straight-line code
+    // for that shift; else each row's own, at run time
+    if (rs % 8 == 0) {
+      switch (lo & 15u) {
+        case 0: rows(Int<0>{}); break;
+        case 2: rows(Int<2>{}); break;
+        case 4: rows(Int<4>{}); break;
+        case 6: rows(Int<6>{}); break;
+        case 8: rows(Int<8>{}); break;
+        case 10: rows(Int<10>{}); break;
+        case 12: rows(Int<12>{}); break;
+        default: rows(Int<14>{}); break;
+      }
+    } else {
+      rows(Int<-1>{});
+    }
+    __syncwarp();   // the warp is done with buf
+    // a tile's last piece: its stores made visible to wgmma, then the
+    // tile's full barrier
+    uint64_t* full = i == q_pieces - 1 ? q_full
+                     : j >= 0 && p == KP - 1 ? k_full + s
+                     : j >= 0 && p == 2 * KP - 1 ? v_full + s
+                                                   : nullptr;
+    if (full) {
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      mbar_arrive(full);
+    }
+    // then refill the buffer piece i left: NB - 1 pieces in flight while
+    // one is shifted, none issued ahead of a fence
+    if (i + G::NB < total) issue(i + G::NB);
+    cp_async_commit();
+  }
+}
+
+template <typename T, int DP>
+__global__ void __launch_bounds__(Tiles<DP>::THREADS, 1)
+flash_fwd_tc_wg_ldg(const uint16_t* __restrict__ q,
+                    const uint16_t* __restrict__ k,
+                    const uint16_t* __restrict__ v, uint16_t* __restrict__ o,
+                    int t_q, int t_k, int heads, int d, float scale_log2,
+                    int causal, int q_offset) {
+  using L = Layout<DP, true>;
+  using C = Tiles<DP>;
+  using G = Ldg<DP>;
+  constexpr int CONS = C::CONSUMERS;
+  constexpr int STAGES = C::STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
+  uint64_t* k_full = q_full + 1;
+  uint64_t* v_full = k_full + STAGES;
+  uint64_t* k_empty = v_full + STAGES;   // [stage][consumer]
+  uint64_t* v_empty = k_empty + STAGES * CONS;
+  uint64_t* turn_bar = v_empty + STAGES * CONS;   // [consumer]
+
+  const int bh = blockIdx.x;
+  const int b = bh / heads;
+  const int h = bh % heads;
+  const int nq = (t_q + WG_BQ - 1) / WG_BQ;
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, LDG_THREADS);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(k_full + s, LDG_THREADS);
+      mbar_init(v_full + s, LDG_THREADS);
+      for (int w = 0; w < CONS; ++w) {
+        mbar_init(k_empty + s * CONS + w, 128);
+        mbar_init(v_empty + s * CONS + w, 128);
+      }
+    }
+    if constexpr (C::PINGPONG)
+      for (int w = 0; w < CONS; ++w) mbar_init(turn_bar + w, 128);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // the warpgroup, as a value the compiler knows to be warp-uniform
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (wg == CONS) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+                     G::PRODUCER_REGS)
                  : "memory");
-    const int my_tile = q_tile<WG_CONSUMERS, C::PAIRED>(wg, nq);
-    // ping-pong: the consumers issue their products in turns, 0, 1, ...:
-    // consumer w's turn k starts when phase k of turn_bar[w] completes,
-    // on the arrival of consumer w - 1 at the end of its turn (consumer 0's
-    // first, on the last consumer's arrival here). A consumer's turns are
-    // its K/V tiles and one (the last P V); one with fewer than the block's
-    // most takes empty ones at its end, so that the turns alternate to the
-    // end and no phase completes twice unseen
-    int turn = 0, turns = 0;
-    if constexpr (C::PINGPONG) {
-#pragma unroll
-      for (int w = 0; w < WG_CONSUMERS; ++w) {
-        const int tw = q_tile<WG_CONSUMERS, C::PAIRED>(w, nq);
-        if (tw >= 0)
-          turns = max(turns, kv_tiles<BK>(tw * WG_BQ, t_q, t_k, causal,
-                                           q_offset) + 1);
-      }
-      mbar_arrive_if(turn_bar, wg == WG_CONSUMERS - 1);
-    }
-    auto take_turn = [&] {
-      if constexpr (C::PINGPONG) mbar_wait(turn_bar + wg, turn & 1);
-    };
-    auto end_turn = [&] {
-      if constexpr (C::PINGPONG) {
-        mbar_arrive(turn_bar + (wg + 1) % WG_CONSUMERS);
-        ++turn;
-      }
-    };
-    auto empty_turns = [&] {
-      if constexpr (C::PINGPONG) {
-        while (turn < turns) {
-          take_turn();
-          end_turn();
-        }
-      }
-    };
-    if (my_tile < 0) {
-      empty_turns();
-      return;
-    }
-    const int t = threadIdx.x % 128;
-    const int warp = t >> 5;
-    const int lane = t & 31;
-    const int g = lane >> 2;
-    const int tq = lane & 3;
-    const int q0 = my_tile * WG_BQ;
-    const int n_tiles = kv_tiles<BK>(q0, t_q, t_k, causal, q_offset);
-    const uint32_t q_s = smem_addr(smem + wg * L::Q_BYTES);
-    const uint32_t k_s = smem_addr(smem + L::K_OFF);
-    const uint32_t v_s = smem_addr(smem + L::V_OFF);
-
-    float acc[DC][32];
-#pragma unroll
-    for (int c = 0; c < DC; ++c)
-#pragma unroll
-      for (int e = 0; e < 32; ++e) acc[c][e] = 0.f;
-    float m[2] = {MASKED, MASKED};
-    float l[2] = {0.f, 0.f};
-    const int row_g = q_offset + q0 + warp * 16 + g;   // key coordinates
-    // P, the A operand of P V. Tile kt's P V is issued right behind tile
-    // kt + 1's Q K^T and runs under its softmax, so P (and O) are not
-    // touched from that issue to the wait that follows the softmax, and
-    // nothing is in flight across iterations
-    uint32_t pa[BK / 16][4];
-
-    mbar_wait(q_full, 0);
-    // a tile crosses the causal diagonal or T_k: masks apply
-    auto edge = [&](int k0) {
-      return k0 + BK > t_k || (causal && q_offset + q0 < k0 + BK - 1);
-    };
-    float sc[BK / 2], corr[2];
-    // tile 0: Q K^T and its softmax alone
-    mbar_wait(k_full, 0);
-    fence_regs(sc);
-    take_turn();
-    wgmma_fence();
-    issue_qk<T, DP, BK>(sc, q_s, k_s);
-    end_turn();
-    wgmma_wait_all();
-    fence_regs(sc);
-    mbar_arrive(k_empty + wg);
-    softmax_tile<BK, C::EX2>(sc, m, l, corr, edge(0), 0, t_k, causal, row_g,
-                             tq, scale_log2);
-    rescale_and_pack<T, DC, BK>(acc, pa, sc, corr);
-    // tile kt's Q K^T, then tile kt - 1's P V behind it; the softmax of
-    // tile kt runs while P V does; nothing is in flight across iterations
-    for (int kt = 1; kt < n_tiles; ++kt) {
-      const int s = kt % WG_STAGES;
-      const int sp = (kt - 1) % WG_STAGES;
-      mbar_wait(k_full + s, (kt / WG_STAGES) & 1);
-      fence_regs(sc);
-#pragma unroll
-      for (int c = 0; c < DC; ++c) fence_regs(acc[c]);
-#pragma unroll
-      for (int j = 0; j < BK / 16; ++j) fence_regs(pa[j]);
-      take_turn();
-      wgmma_fence();
-      issue_qk<T, DP, BK>(sc, q_s, k_s + s * L::KV_BYTES);
-      mbar_wait(v_full + sp, ((kt - 1) / WG_STAGES) & 1);
-      issue_pv<T, DC, BK>(acc, pa, v_s + sp * L::KV_BYTES);
-      wgmma_commit();
-      end_turn();
-      wgmma_wait_one();   // Q K^T is done; P V runs on
-      fence_regs(sc);
-      mbar_arrive(k_empty + s * WG_CONSUMERS + wg);
-      softmax_tile<BK, C::EX2>(sc, m, l, corr, edge(kt * BK), kt * BK, t_k,
-                               causal, row_g, tq, scale_log2);
-      wgmma_wait_all();
-#pragma unroll
-      for (int c = 0; c < DC; ++c) fence_regs(acc[c]);
-#pragma unroll
-      for (int j = 0; j < BK / 16; ++j) fence_regs(pa[j]);
-      mbar_arrive(v_empty + sp * WG_CONSUMERS + wg);
-      rescale_and_pack<T, DC, BK>(acc, pa, sc, corr);
-    }
-    // the last tile's P V
-    const int sl = (n_tiles - 1) % WG_STAGES;
-    mbar_wait(v_full + sl, ((n_tiles - 1) / WG_STAGES) & 1);
-#pragma unroll
-    for (int c = 0; c < DC; ++c) fence_regs(acc[c]);
-#pragma unroll
-    for (int j = 0; j < BK / 16; ++j) fence_regs(pa[j]);
-    take_turn();
-    wgmma_fence();
-    issue_pv<T, DC, BK>(acc, pa, v_s + sl * L::KV_BYTES);
-    wgmma_commit();
-    end_turn();
-    wgmma_wait_all();
-#pragma unroll
-    for (int c = 0; c < DC; ++c) fence_regs(acc[c]);
-    mbar_arrive(v_empty + sl * WG_CONSUMERS + wg);
-    empty_turns();
-
-    // epilogue: rows g and g + 8 of this warp, columns 64c + 8n + 2tq + {0,
-    // 1}; d % 8 == 0, so col < d implies col + 1 < d
-    const int rs = heads * d;
-    uint16_t* o_bh = o + ((int64_t)b * t_q * heads + h) * d;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      float li = l[i];
-      li += __shfl_xor_sync(0xffffffffu, li, 1);
-      li += __shfl_xor_sync(0xffffffffu, li, 2);
-      const int r = q0 + warp * 16 + g + 8 * i;
-      if (r >= t_q) continue;
-      const float inv = 1.f / fmaxf(li, 1e-20f);
-      uint16_t* o_row = o_bh + (int64_t)r * rs;
-#pragma unroll
-      for (int c = 0; c < DC; ++c)
-#pragma unroll
-        for (int n = 0; n < 8; ++n) {
-          const int col = c * BOX + n * 8 + 2 * tq;
-          if (col < d)
-            *reinterpret_cast<uint32_t*>(o_row + col) =
-                pack2<T>(acc[c][4 * n + 2 * i] * inv,
-                         acc[c][4 * n + 2 * i + 1] * inv);
-        }
-    }
+    produce_ldg<T, DP>(smem, q, k, v, q_full, k_full, v_full, k_empty,
+                       v_empty, b, h, nq, t_q, t_k, heads, d, causal,
+                       q_offset);
+  } else {
+    consume<T, DP, true, G::CONSUMER_REGS>(
+        smem, q_full, k_full, v_full, k_empty, v_empty, turn_bar, wg, o, b, h,
+        nq, t_q, t_k, heads, d, scale_log2, causal, q_offset);
   }
 }
 
@@ -1431,24 +1699,6 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes,
 
 // grid y and z: at most 65535 each (x: batch * heads, checked by the entry)
 constexpr int MAX_GRID_YZ = 65535;
-
-template <typename T, int DP>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int batch, int t_q, int t_k, int heads, int d, float scale,
-                   int causal, int q_offset, cudaStream_t stream) {
-  static std::atomic<uint64_t> smem_set{0};
-  constexpr size_t smem = smem_bytes<DP>();
-  const int n_q = (t_q + BQ - 1) / BQ;
-  if (n_q > MAX_GRID_YZ) return cudaErrorInvalidValue;
-  cudaError_t err = allow_smem(flash_fwd_tc<T, DP>, smem, smem_set);
-  if (err != cudaSuccess) return err;
-  dim3 grid(batch * heads, n_q);
-  flash_fwd_tc<T, DP><<<grid, THREADS, smem, stream>>>(
-      static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(k),
-      static_cast<const uint16_t*>(v), static_cast<uint16_t*>(o), t_q, t_k,
-      heads, d, scale * LOG2E, causal, q_offset);
-  return cudaGetLastError();
-}
 
 template <typename T, int VEC>
 cudaError_t launch_split(const void* q, const void* k, const void* v, void* o,
@@ -1553,40 +1803,65 @@ cudaError_t launch_wg(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
-// 16-byte rows up to 256 wide: the wgmma/TMA kernel at the smallest width
-// that holds d (TMA needs 16-byte aligned rows and bases); wider 16-byte
-// rows: the split over d. 2-byte rows: the element-wise kernel up to 128,
-// the split over d above
+// The LDG route: flash_fwd_tc_wg's grid, plain pointers in place of tensor
+// maps
+template <typename T, int DP>
+cudaError_t launch_wg_ldg(const void* q, const void* k, const void* v,
+                          void* o, int batch, int t_q, int t_k, int heads,
+                          int d, float scale, int causal, int q_offset,
+                          cudaStream_t stream) {
+  using namespace wgk;
+  using C = Tiles<DP>;
+  static std::atomic<uint64_t> smem_set{0};
+  constexpr size_t smem = Layout<DP, true>::BYTES;
+  const int nq = (t_q + WG_BQ - 1) / WG_BQ;
+  const int blocks = (nq + C::CONSUMERS - 1) / C::CONSUMERS;
+  if (blocks > MAX_GRID_YZ) return cudaErrorInvalidValue;
+  cudaError_t err = allow_smem(flash_fwd_tc_wg_ldg<T, DP>, smem, smem_set);
+  if (err != cudaSuccess) return err;
+  dim3 grid(batch * heads, blocks);
+  flash_fwd_tc_wg_ldg<T, DP><<<grid, C::THREADS, smem, stream>>>(
+      static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(k),
+      static_cast<const uint16_t*>(v), static_cast<uint16_t*>(o), t_q, t_k,
+      heads, d, scale * LOG2E, causal, q_offset);
+  return cudaGetLastError();
+}
+
+// Up to d 256 the wgmma kernel at the smallest width that holds d: 16-byte
+// rows through TMA, the others (2-byte copies) through the LDG producer;
+// wider heads the split over d, with 16- or 2-byte copies
+template <typename T, int WIDTH>
+cudaError_t launch_width(const void* q, const void* k, const void* v,
+                         void* o, int batch, int t_q, int t_k, int heads,
+                         int d, float scale, int causal, int q_offset,
+                         int copy_bytes, cudaStream_t stream) {
+  return copy_bytes == 16
+             ? launch_wg<T, WIDTH>(q, k, v, o, batch, t_q, t_k, heads, d,
+                                   scale, causal, q_offset, stream)
+             : launch_wg_ldg<T, WIDTH>(q, k, v, o, batch, t_q, t_k, heads, d,
+                                       scale, causal, q_offset, stream);
+}
+
 template <typename T>
 cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
                      int batch, int t_q, int t_k, int heads, int d,
                      float scale, int causal, int q_offset, int copy_bytes,
                      cudaStream_t stream) {
-  if (copy_bytes == 16) {
-    if (d <= 64)
-      return launch_wg<T, 64>(q, k, v, o, batch, t_q, t_k, heads, d, scale,
-                              causal, q_offset, stream);
-    if (d <= 128)
-      return launch_wg<T, 128>(q, k, v, o, batch, t_q, t_k, heads, d, scale,
-                               causal, q_offset, stream);
-    if (d <= 192)
-      return launch_wg<T, 192>(q, k, v, o, batch, t_q, t_k, heads, d, scale,
-                               causal, q_offset, stream);
-    if (d <= 256)
-      return launch_wg<T, 256>(q, k, v, o, batch, t_q, t_k, heads, d, scale,
-                               causal, q_offset, stream);
+  if (d <= 64)
+    return launch_width<T, 64>(q, k, v, o, batch, t_q, t_k, heads, d, scale,
+                               causal, q_offset, copy_bytes, stream);
+  if (d <= 128)
+    return launch_width<T, 128>(q, k, v, o, batch, t_q, t_k, heads, d,
+                                scale, causal, q_offset, copy_bytes, stream);
+  if (d <= 192)
+    return launch_width<T, 192>(q, k, v, o, batch, t_q, t_k, heads, d,
+                                scale, causal, q_offset, copy_bytes, stream);
+  if (d <= 256)
+    return launch_width<T, 256>(q, k, v, o, batch, t_q, t_k, heads, d,
+                                scale, causal, q_offset, copy_bytes, stream);
+  if (copy_bytes == 16)
     return launch_split<T, 16>(q, k, v, o, batch, t_q, t_k, heads, d, scale,
                                causal, q_offset, stream);
-  }
-  if (d <= 32)
-    return launch<T, 32>(q, k, v, o, batch, t_q, t_k, heads, d, scale,
-                         causal, q_offset, stream);
-  if (d <= 64)
-    return launch<T, 64>(q, k, v, o, batch, t_q, t_k, heads, d, scale,
-                         causal, q_offset, stream);
-  if (d <= DC)
-    return launch<T, 128>(q, k, v, o, batch, t_q, t_k, heads, d, scale,
-                          causal, q_offset, stream);
   return launch_split<T, 2>(q, k, v, o, batch, t_q, t_k, heads, d, scale,
                             causal, q_offset, stream);
 }
@@ -1597,9 +1872,10 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
 // contiguous, on the current device. dtype 1 is bfloat16, 2 is float16 (0,
 // float32, is flash_attention_fwd.cu's). copy_bytes is 16 (TMA, or cp.async
 // of 8 elements above d 256: needs d % 8 == 0 and 16-byte aligned q, k, v
-// and o) or 2 (element-wise loads, any d and alignment). Returns the
-// cudaError_t of the launch (0 on success; cudaErrorInvalidValue where the
-// kernel's grid would pass the card's limits).
+// and o) or 2 (any d and 2-byte alignment: the LDG producer up to d 256,
+// element-wise loads above). Returns the cudaError_t of the launch (0 on
+// success; cudaErrorInvalidValue where the kernel's grid would pass the
+// card's limits).
 extern "C" int mxtt_flash_attention_fwd_tc(const void* q, const void* k,
                                            const void* v, void* o, int batch,
                                            int t_q, int t_k, int heads, int d,
@@ -1626,4 +1902,25 @@ extern "C" int mxtt_flash_attention_fwd_tc(const void* q, const void* k,
                                         copy_bytes, s);
   return (int)dispatch<__half>(q, k, v, o, batch, t_q, t_k, heads, d, scale,
                                causal, q_offset, copy_bytes, s);
+}
+
+// The registers a thread (setmaxnreg) of the wgmma kernel's producer
+// (consumer == 0) or consumers (consumer == 1) at width 64, 128, 192 or 256,
+// on the TMA route (ldg == 0) or the LDG route; -1 for another width
+extern "C" int mxtt_flash_attention_fwd_tc_regs(int width, int ldg,
+                                                int consumer) {
+  using namespace wgk;
+  auto pick = [&](auto c, auto g) {
+    using C = decltype(c);
+    using G = decltype(g);
+    if (ldg) return consumer ? G::CONSUMER_REGS : G::PRODUCER_REGS;
+    return consumer ? C::CONSUMER_REGS : C::PRODUCER_REGS;
+  };
+  switch (width) {
+    case 64: return pick(Tiles<64>{}, Ldg<64>{});
+    case 128: return pick(Tiles<128>{}, Ldg<128>{});
+    case 192: return pick(Tiles<192>{}, Ldg<192>{});
+    case 256: return pick(Tiles<256>{}, Ldg<256>{});
+    default: return -1;
+  }
 }

@@ -44,6 +44,10 @@ function runs eagerly every time.
 - Every graph has a memory pool of its own: a bucket of a
   ``BucketingModule`` may replay in any order and its outputs and staged
   update stay valid until its own next step.
+- No automatic Python collection runs while a capture is under way
+  (:func:`~mxnet_tpu_torch.storage.no_collection`): a dropped binding's
+  executor and program hold each other, so only a collection frees its
+  graph, and a graph destroyed during a capture invalidates it.
 - One capture at a time in the process (:data:`CAPTURE_LOCK`, also held
   over a program's first warm-up, which synchronises the device): a
   server's prewarm thread captures one bucket while the engine's workers
@@ -61,6 +65,7 @@ import time
 
 from ..base import MXNetError
 from ..executor import NodeRandom
+from ..storage import no_collection
 
 __all__ = ["GraphProgram", "StepProgram", "ForwardProgram",
            "capture_refusal", "CAPTURE_LOCK"]
@@ -226,8 +231,9 @@ class GraphProgram:
         where = []
         t0 = time.perf_counter()
         try:
-            with torch.cuda.graph(graph, stream=self._side_stream(),
-                                  capture_error_mode="thread_local"):
+            with no_collection(), \
+                    torch.cuda.graph(graph, stream=self._side_stream(),
+                                     capture_error_mode="thread_local"):
                 try:
                     static = self._body()
                 except Exception:

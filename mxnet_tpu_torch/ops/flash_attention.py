@@ -6,12 +6,12 @@ fp32 runs on CUDA cores (``csrc/flash_attention_fwd.cu``), bf16 and fp16 on
 the tensor cores (``csrc/flash_attention_fwd_tc.cu``). Both stream K/V tiles
 through shared memory with an online softmax, so the (T, T) score matrix
 never reaches device memory. Any head dim runs (:func:`launch_plan`):
-bf16/fp16 with 16-byte rows up to 256 on ``wgmma`` fed by TMA
-(``flash_fwd_tc_wg``), 2-byte rows up to 128 in the element-wise
-``flash_fwd_tc``; fp32 up to 128 in ``flash_fwd_f32`` and from 129 to 256
-in a kernel whose block owns all of d; everything else in each source's
-split-over-d kernel. Each is built with ``nvcc`` at first use and called
-through ``ctypes``.
+bf16/fp16 up to 256 on ``wgmma``, fed by TMA where the rows are 16-byte
+aligned (``flash_fwd_tc_wg``) and by a producer without TMA where they are
+not (``flash_fwd_tc_wg_ldg``); fp32 up to 128 in ``flash_fwd_f32`` and from
+129 to 256 in a kernel whose block owns all of d; wider heads in each
+source's split-over-d kernel. Each is built with ``nvcc`` at first use and
+called through ``ctypes``.
 
 Layout is (B, T, H, D), as in the reference. :func:`flash_attention` routes
 by the device of its inputs: a CUDA tensor launches the kernel (or raises),
@@ -50,16 +50,16 @@ _KERNELS = {
 }
 # the kernels' grid limits: batch * heads on x, Q tiles on y, d-chunks on z
 _MAX_GRID = (2 ** 31 - 1, 65535, 65535)
-# fp32 (and 2-byte bf16/fp16 rows) above _SPLIT_D runs the split-over-d
-# kernel or, in fp32 up to _WG_D, a kernel whose block owns all of d and two
-# 64-row Q tiles; bf16/fp16 with 16-byte copies up to _WG_D run on
-# wgmma/TMA at the smallest width of _WG_ROWS that holds d, its value the Q
-# rows a block (Tiles<width> in csrc/flash_attention_fwd_tc.cu: 64-row
-# consumer warpgroups, four at width 64, two at the others)
+# fp32 above _SPLIT_D runs, up to _WG_D, a kernel whose block owns all of d
+# and two 64-row Q tiles, and the split-over-d kernel above; bf16/fp16 up to
+# _WG_D run on wgmma at the smallest width of _WG_ROWS that holds d, its
+# value the Q rows a block (Tiles<width> in csrc/flash_attention_fwd_tc.cu:
+# 64-row consumer warpgroups, four at width 64, two at the others), with
+# either producer, and the split over d above
 _SPLIT_D, _WG_D = 128, 256
 _WG_ROWS = {64: 256, 128: 128, 192: 128, 256: 128}
 _PLANS = ("flash_fwd_f32", "flash_fwd_f32_split", "flash_fwd_f32_wide",
-          "flash_fwd_tc", "flash_fwd_tc_split", "flash_fwd_tc_wg")
+          "flash_fwd_tc_split", "flash_fwd_tc_wg", "flash_fwd_tc_wg_ldg")
 
 
 def use_flash(t_len: int, block: int = 128, on_accel: bool = False) -> bool:
@@ -95,9 +95,10 @@ def copy_bytes(d: int, *ptrs: int, itemsize: int = 4) -> int:
     ``d`` elements starts 16-byte aligned (``d * itemsize % 16 == 0`` and
     each base pointer a multiple of 16), else ``itemsize``. The fp32 kernel
     then copies 4 bytes with ``cp.async``; the tensor-core kernels (2-byte
-    types) load element by element, since neither TMA nor ``cp.async``
-    takes rows that are not 16-byte aligned; with 16 they copy through
-    TMA (and ``cp.async`` in the split over d).
+    types) take such rows, which TMA refuses, through ``cp.async`` copies
+    of their aligned 16-byte words and a shift in shared memory
+    (``flash_fwd_tc_wg_ldg``; element by element in the split over d);
+    with 16 they copy through TMA (and ``cp.async`` in the split over d).
     A contiguous view at an offset of one element (``buf[1:].view(...)``)
     takes the narrow path."""
     aligned = d * itemsize % 16 == 0 and all(p % 16 == 0 for p in ptrs)
@@ -123,38 +124,41 @@ def _check(q, k, v, q_offset):
 
 def launch_plan(dtype, batch, t_q, heads, d, copy=16):
     """``(kernel, width, grid)`` of a CUDA launch, as the C entries choose
-    them for copies of ``copy`` bytes (:func:`copy_bytes`). bf16/fp16 with
-    16-byte copies (what TMA needs) up to d 256 run ``flash_fwd_tc_wg``
-    (wgmma fed by TMA) at the smallest ``width`` of 64, 128, 192 and 256
+    them for copies of ``copy`` bytes (:func:`copy_bytes`). bf16/fp16 up
+    to d 256 run on wgmma at the smallest ``width`` of 64, 128, 192 and 256
     that holds d, on ``(batch * heads, blocks, 1)``: a block holds four
     adjacent 64-row Q tiles at width 64 (the last blocks' first, so the
     heaviest causal blocks start first), two adjacent ones at 128, and two
     at 192 and 256, tiles i and n - 1 - i, so that causal blocks carry
-    equal work. Otherwise a head dim up to 128 runs
-    the smallest instantiation (``width`` 32, 64 or 128) of ``flash_fwd_f32``
-    or of the element-wise ``flash_fwd_tc`` (2-byte copies) that holds it,
-    on ``(batch * heads, Q tiles, 1)``; fp32 from 129 to 256 runs all of d
-    in one block of two 64-row Q tiles (width 192 or 256,
-    ``flash_fwd_f32_wide``, copies of 16 or 4 bytes). Wider heads and the
-    2-byte copies above 128 run the split-over-d kernel (``*_split``, width
-    128) with its 128-wide chunks of d on the grid's z. Q tiles are 128
-    rows in fp32 up to width 64 and 64 rows otherwise. Raises where a grid
-    dimension passes the card's limit (x < 2^31, y and z <= 65535)."""
-    base = "flash_fwd_f32" if dtype == torch.float32 else "flash_fwd_tc"
+    equal work. 16-byte copies (what TMA needs) run ``flash_fwd_tc_wg``,
+    2-byte ones ``flash_fwd_tc_wg_ldg``, the same consumers and grid fed
+    by a producer that needs no TMA. fp32 up to 128 runs the smallest
+    instantiation (``width`` 32, 64 or 128) of ``flash_fwd_f32`` that
+    holds it, on
+    ``(batch * heads, Q tiles, 1)`` (128-row Q tiles up to width 64, 64
+    above); from 129 to 256 all of d in one block of two 64-row Q tiles
+    (width 192 or 256, ``flash_fwd_f32_wide``, copies of 16 or 4 bytes).
+    Wider heads run the split-over-d kernel (``*_split``, width 128,
+    64-row Q tiles) with its 128-wide chunks of d on the grid's z. Raises
+    where a grid dimension passes the card's limit (x < 2^31, y and z <=
+    65535)."""
     chunks = 1
-    if base == "flash_fwd_tc" and copy == 16 and d <= _WG_D:
-        name = "flash_fwd_tc_wg"
+    if dtype != torch.float32 and d <= _WG_D:
+        name = "flash_fwd_tc_wg" if copy == 16 else "flash_fwd_tc_wg_ldg"
         width = min(w for w in _WG_ROWS if w >= d)
         rows = _WG_ROWS[width]
+    elif dtype != torch.float32:
+        name, width, rows = "flash_fwd_tc_split", _SPLIT_D, 64
+        chunks = -(-d // width)
     elif d <= _SPLIT_D:
+        name = "flash_fwd_f32"
         width = 32 if d <= 32 else 64 if d <= 64 else 128
-        name = base
-        rows = 128 if dtype == torch.float32 and width <= 64 else 64
-    elif d <= _WG_D and base == "flash_fwd_f32":
+        rows = 128 if width <= 64 else 64
+    elif d <= _WG_D:
         name = "flash_fwd_f32_wide"
         width, rows = 192 if d <= 192 else 256, 128
     else:
-        name, width, rows = base + "_split", _SPLIT_D, 64
+        name, width, rows = "flash_fwd_f32_split", _SPLIT_D, 64
         chunks = -(-d // width)
     grid = (batch * heads, -(-t_q // rows), chunks)
     for n, lim, what in zip(grid, _MAX_GRID,

@@ -20,6 +20,7 @@ from collections import OrderedDict
 import torch
 
 from ..base import MXNetError
+from ..storage import no_collection
 from .attention import cached_attention_core
 from .registry import register_op
 from .tensor import as_int32, op_rng
@@ -145,8 +146,9 @@ class _Scan:
                 graph = torch.cuda.CUDAGraph()
                 if self.gen is not None:
                     graph.register_generator_state(self.gen)
-                with torch.cuda.graph(graph, stream=self.stream,
-                                      capture_error_mode="thread_local"):
+                with no_collection(), \
+                        torch.cuda.graph(graph, stream=self.stream,
+                                         capture_error_mode="thread_local"):
                     self.step()
                 self.graph = graph
                 stats["captures"] += 1

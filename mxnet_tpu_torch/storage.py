@@ -10,7 +10,10 @@ tensors, each storage counted once.
 """
 from __future__ import annotations
 
-__all__ = ["memory_info", "live_bytes", "live_bytes_per_device", "gc"]
+import contextlib
+
+__all__ = ["memory_info", "live_bytes", "live_bytes_per_device", "gc",
+           "no_collection"]
 
 
 def _devices():
@@ -112,3 +115,23 @@ def gc():
     _pygc.collect()
     if torch.cuda.is_available() and torch.cuda.is_initialized():
         torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def no_collection():
+    """No automatic Python collection in any thread while the block runs (a
+    CUDA graph's capture). A collection runs the finalizers of whatever it
+    frees on the thread that triggered it: a dropped binding's CUDA graph,
+    its pool and its tensors. A graph destroyed on the capturing thread
+    while the capture is under way invalidates the capture, and PyTorch's
+    destructor only warns, so the capture fails later at an unrelated op.
+    The garbage is collected after the block, at the next collection."""
+    import gc as _pygc
+
+    was = _pygc.isenabled()
+    _pygc.disable()
+    try:
+        yield
+    finally:
+        if was:
+            _pygc.enable()

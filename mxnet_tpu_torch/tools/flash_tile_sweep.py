@@ -25,13 +25,28 @@ patches of ``WIDE_PATCHES``: one Q tile a block in place of the causal
 pairing, d split over 4 lanes (8 x 4 scores a lane) in place of 8, and
 other unroll counts of its Q K^T and P V loops; and times each at the
 same three shapes in fp32 and at d = 256 causal at batch 1.
+``--kernel wg_ldg`` builds variants of ``flash_attention_fwd_tc.cu`` that
+differ from ``flash_fwd_tc_wg_ldg`` (the wgmma kernel's producer for the
+bf16/fp16 rows TMA refuses) by the patches of ``WG_LDG_PATCHES``: its
+``LdgTraits`` (rows a staged piece, staging buffers, the producer's
+registers), 2 loading warps in place of 4, words read straight into
+registers from device memory in place of the staging, four ring stages
+at width 64, the unrolling of its rows and chunks, and diagnostics: the
+proxy fence left out, and consumers that only wait and release
+(``loads_only``, also without the producer's copies, its shifts, both,
+or its fence); and times each at
+bf16 views at an offset of one element ((2, 2048, 4, 256), (2, 2048, 16,
+64), (2, 2048, 8, 128), (2, 2048, 4, 192), causal) and at (2, 1500, 16,
+50), beside the library and, as a yardstick, the views staged into
+aligned copies with d padded to a multiple of 8 (``staged_copy``, the
+copies alone) and the TMA route on them (``staged_tma``).
 Each variant but the diagnostics is checked against the plain version
 first, and timed on the device alone (``chip_smoke.time_device``; ``f32``
 per call, ``chip_smoke.time_cuda``) in turns (variant order reversed every
 round). Run from the repo root on a machine with an NVIDIA GPU:
 
     python3 mxnet_tpu_torch/tools/flash_tile_sweep.py
-        [--kernel f32|wg|f32wide] [--rounds 3]
+        [--kernel f32|wg|wg_ldg|f32wide] [--rounds 3]
 
 Prints the card's name and power limit, then one JSON line per variant
 (median ms of each round, registers and spills from ptxas) and writes them to ``flash_tile_sweep_<kernel>.json``
@@ -55,7 +70,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 sys.path.insert(0, ROOT)
 
-from chip_smoke import OUT_DIR, time_cuda, time_device  # noqa: E402
+from chip_smoke import (  # noqa: E402
+    OUT_DIR, _at_offset, time_cuda, time_device)
 from mxnet_tpu_torch import _native  # noqa: E402
 from mxnet_tpu_torch.ops.flash_attention import (  # noqa: E402
     copy_bytes, entry, flash_attention_reference)
@@ -76,49 +92,49 @@ CASES = {   # name: (q shape, t_k, causal)
 # turn, nothing in flight between them (the source's loop issues tile n's
 # P V behind tile n + 1's Q K^T)
 _SERIAL_LOOP = """\
-    for (int kt = 0; kt < n_tiles; ++kt) {
-      const int s = kt % WG_STAGES;
-      const uint32_t parity = (kt / WG_STAGES) & 1;
-      mbar_wait(k_full + s, parity);
-      fence_regs(sc);
-      wgmma_fence();
-      issue_qk<T, DP, BK>(sc, q_s, k_s + s * L::KV_BYTES);
-      wgmma_wait_all();
-      fence_regs(sc);
-      mbar_arrive(k_empty + s * WG_CONSUMERS + wg);
-      softmax_tile<BK, C::EX2>(sc, m, l, corr, edge(kt * BK), kt * BK, t_k,
-                               causal, row_g, tq, scale_log2);
-      rescale_and_pack<T, DC, BK>(acc, pa, sc, corr);
-      mbar_wait(v_full + s, parity);
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    const int s = kt % WG_STAGES;
+    const uint32_t parity = (kt / WG_STAGES) & 1;
+    mbar_wait(k_full + s, parity);
+    fence_regs(sc);
+    wgmma_fence();
+    issue_qk<T, DP, BK>(sc, q_s, k_s + s * L::KV_BYTES);
+    wgmma_wait_all();
+    fence_regs(sc);
+    mbar_arrive(k_empty + s * WG_CONSUMERS + wg);
+    softmax_tile<BK, C::EX2>(sc, m, l, corr, edge(kt * BK), kt * BK, t_k,
+                             causal, row_g, tq, scale_log2);
+    rescale_and_pack<T, DC, BK>(acc, pa, sc, corr);
+    mbar_wait(v_full + s, parity);
 #pragma unroll
-      for (int c = 0; c < DC; ++c) fence_regs(acc[c]);
+    for (int c = 0; c < DC; ++c) fence_regs(acc[c]);
 #pragma unroll
-      for (int j = 0; j < BK / 16; ++j) fence_regs(pa[j]);
-      wgmma_fence();
-      issue_pv<T, DC, BK>(acc, pa, v_s + s * L::KV_BYTES);
-      wgmma_commit();
-      wgmma_wait_all();
+    for (int j = 0; j < BK / 16; ++j) fence_regs(pa[j]);
+    wgmma_fence();
+    issue_pv<T, DC, BK>(acc, pa, v_s + s * L::KV_BYTES);
+    wgmma_commit();
+    wgmma_wait_all();
 #pragma unroll
-      for (int c = 0; c < DC; ++c) fence_regs(acc[c]);
-      mbar_arrive(v_empty + s * WG_CONSUMERS + wg);
-    }
+    for (int c = 0; c < DC; ++c) fence_regs(acc[c]);
+    mbar_arrive(v_empty + s * WG_CONSUMERS + wg);
+  }
 """
 # a diagnostic consumer loop: waits for each tile and releases it
 _LOADS_ONLY_LOOP = """\
-    for (int kt = 0; kt < n_tiles; ++kt) {
-      const int s = kt % WG_STAGES;
-      const uint32_t parity = (kt / WG_STAGES) & 1;
-      mbar_wait(k_full + s, parity);
-      mbar_arrive(k_empty + s * WG_CONSUMERS + wg);
-      mbar_wait(v_full + s, parity);
-      mbar_arrive(v_empty + s * WG_CONSUMERS + wg);
-    }
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    const int s = kt % WG_STAGES;
+    const uint32_t parity = (kt / WG_STAGES) & 1;
+    mbar_wait(k_full + s, parity);
+    mbar_arrive(k_empty + s * WG_CONSUMERS + wg);
+    mbar_wait(v_full + s, parity);
+    mbar_arrive(v_empty + s * WG_CONSUMERS + wg);
+  }
 """
 # (pattern, replacement, matches) of each patch; a pattern must match the
 # source that many times. The serial and loads-only loops take no
 # ping-pong turn: their consumers take all of theirs, empty, after the loop
-_CONSUMER_LOOP = (r"    // tile 0: Q K\^T and its softmax alone\n.*?"
-                  r"    mbar_arrive\(v_empty \+ sl \* WG_CONSUMERS \+ wg\);\n")
+_CONSUMER_LOOP = (r"  // tile 0: Q K\^T and its softmax alone\n.*?"
+                  r"  mbar_arrive\(v_empty \+ sl \* WG_CONSUMERS \+ wg\);\n")
 
 
 def _tiles(field, value, widths=(64, 128)):
@@ -183,7 +199,10 @@ WG_VARIANTS = {
     "loads_only": ("loads_only",),
     "no_loads": ("no_loads",),
 }
-WG_DIAGNOSTICS = ("loads_only", "no_loads")   # timing only: wrong results
+# timing only: wrong results
+WG_DIAGNOSTICS = ("loads_only", "no_loads", "loads_only_no_copy",
+                  "loads_only_no_shift", "loads_only_neither", "no_fence",
+                  "loads_only_no_fence")
 WG_CASES = {   # name: (q shape, t_k, causal), bf16
     "d64_causal": ((2, 2048, 16, 64), 2048, True),
     "d64_noncausal": ((2, 2048, 16, 64), 2048, False),
@@ -192,6 +211,118 @@ WG_CASES = {   # name: (q shape, t_k, causal), bf16
     "d256_causal": ((2, 2048, 4, 256), 2048, True),
     "d256_noncausal": ((2, 2048, 4, 256), 2048, False),
     "d192_causal": ((2, 2048, 4, 192), 2048, True),
+}
+
+
+def _ldg(widths, **fields):
+    """A patch of ``LdgTraits<width>``'s fields (sr: rows a piece, nb:
+    staging buffers, regs: the producer's registers, 0 for what the
+    consumers leave) at ``widths``: those not named keep the source's
+    values."""
+    names = ("sr", "nb", "regs")
+    pat = (r"(struct LdgTraits<(" + "|".join(map(str, widths))
+           + r")> : LdgOf<)" + ", ".join([r"(\d+)"] * len(names)) + ">")
+
+    def sub(m):
+        vals = [str(fields.get(n, m.group(3 + i))) for i, n in
+                enumerate(names)]
+        return m.group(1) + ", ".join(vals) + ">"
+
+    return [(pat, sub, len(widths))]
+
+
+# 16 bytes of device memory at a 16-byte aligned address, read-only (the
+# direct variant's loads)
+_LDG128 = r"""__device__ __forceinline__ uint4 ldg128(uint64_t addr) {
+  uint4 r;
+  asm volatile("ld.global.nc.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r.x), "=r"(r.y), "=r"(r.z), "=r"(r.w)
+               : "l"(addr));
+  return r;
+}
+"""
+_ALL = (64, 128, 192, 256)
+_TWO = (128, 192, 256)   # the widths with two consumers
+# flash_fwd_tc_wg_ldg: name: patches (a patch's replacement may be a
+# function of the match)
+WG_LDG_PATCHES = {
+    # more, smaller pieces in the same or more shared memory: more in
+    # flight, more barrier round trips
+    "deep": _ldg((64,), nb=8) + _ldg((128, 192), sr=32, nb=6)
+    + _ldg((256,), sr=16, nb=4),
+    "sr16": _ldg((64,), sr=16, nb=16) + _ldg((128, 192), sr=16, nb=12)
+    + _ldg((256,), sr=16, nb=4),
+    # two of the producer's four warps load (the others leave at once)
+    "warps2": [(r"constexpr int LDG_THREADS = 128;",
+                "constexpr int LDG_THREADS = 64;", 1),
+               (r"(  const int t = threadIdx\.x % 128;\n)"
+                r"(  // a loading thread takes)",
+                "\\1  if (t >= LDG_THREADS) return;\n\\2", 1)],
+    # each loading thread reads its chunks' words from device memory into
+    # registers (read-only loads), no copies into the staging
+    "direct": [(r"(// 16 bytes of shared memory at a 16-byte aligned "
+                r"address\n)", lambda m: _LDG128 + m.group(1), 1),
+               (r"shift_row\(uint32_t words,", "shift_row(uint64_t words,", 1),
+               (r"lds128\(words \+ ", "ldg128(words + ", 2),
+               (r"shift_row<SH, DC>\(stg \+ buf \* PIECE \+ r \* L::RAW "
+                r"\+ jc \* 16, sh, dst,",
+                "shift_row<SH, DC>((reinterpret_cast<uint64_t>(x.src + "
+                "(int64_t)row * rs) & ~uint64_t{15}) + jc * 16, sh, dst,", 1),
+               (r"cp_async16_to\(dst \+ r \* L::RAW \+ m \* 128, "
+                r"from \+ m \* 128\);", "{}", 1)],
+    # the producer at what the two consumers at 240 leave it, 24 registers
+    # (committed: 40, the consumers at 232)
+    "regs24": _ldg(_TWO, regs=0),
+    # four ring stages at width 64 (three committed)
+    "d64_stages4": _tiles(2, 4, (64,)),
+    # the producer at 48 registers at width 256 (its consumers at 224)
+    "d256_regs48": _ldg((256,), regs=48),
+    # a thread's rows of a piece, and its chunks of a row, unrolled at
+    # every width (committed: one row at a time at widths 192 and 256, one
+    # chunk at a time at 256)
+    "rows_unrolled": [(r"#pragma unroll\(DC > 2 \? 1 : SR / RG\)",
+                       "#pragma unroll", 2)],
+    "chunks_unrolled": [(r"#pragma unroll\(DC > 3 \? 1 : DC\)",
+                         "#pragma unroll", 1)],
+    "loads_only": WG_PATCHES["loads_only"],
+    # diagnostics beside loads_only: the producer without its copies, or
+    # without its shifts
+    "no_copy": [(r"cp_async16_to\(dst \+ r \* L::RAW \+ m \* 128, "
+                 r"from \+ m \* 128\);", "{}", 1)],
+    "no_shift": [(r"for \(int u = 0; u < SR / RG; \+\+u\) \{\n"
+                  r"( +const int r = rq \+ u \* RG;\n +const int rt)",
+                  "for (int u = 0; u < 0; ++u) {\n\\1", 1)],
+    # a diagnostic: no proxy fence ahead of a tile's full barrier
+    "no_fence": [(r'asm volatile\("fence\.proxy\.async\.shared::cta;\\n" '
+                  r'::: "memory"\);', "", 1)],
+}
+WG_LDG_VARIANTS = {
+    "committed": (),
+    "regs24": ("regs24",),
+    "deep": ("deep",),
+    "sr16": ("sr16",),
+    "warps2": ("warps2",),
+    "direct": ("direct",),
+    "d64_stages4": ("d64_stages4",),
+    "d256_regs48": ("d256_regs48",),
+    "rows_unrolled": ("rows_unrolled",),
+    "chunks_unrolled": ("chunks_unrolled",),
+    "unrolled_d256_regs48": ("rows_unrolled", "chunks_unrolled",
+                             "d256_regs48"),
+    "loads_only": ("loads_only",),
+    "loads_only_no_copy": ("loads_only", "no_copy"),
+    "loads_only_no_shift": ("loads_only", "no_shift"),
+    "loads_only_neither": ("loads_only", "no_copy", "no_shift"),
+    "no_fence": ("no_fence",),
+    "loads_only_no_fence": ("loads_only", "no_fence"),
+}
+# bf16 rows that TMA refuses: (q shape, t_k, causal, offset in elements)
+WG_LDG_CASES = {
+    "d256_causal_offset1": ((2, 2048, 4, 256), 2048, True, 1),
+    "d64_causal_offset1": ((2, 2048, 16, 64), 2048, True, 1),
+    "d50_causal": ((2, 1500, 16, 50), 1500, True, 0),
+    "d128_causal_offset1": ((2, 2048, 8, 128), 2048, True, 1),
+    "d192_causal_offset1": ((2, 2048, 4, 192), 2048, True, 1),
 }
 # flash_fwd_f32_wide: (pattern, replacement, matches) of each patch
 WIDE_PATCHES = {
@@ -255,6 +386,10 @@ def wide_variant_source(src, *patches):
     return wg_variant_source(src, *patches, table=WIDE_PATCHES)
 
 
+def wg_ldg_variant_source(src, *patches):
+    return wg_variant_source(src, *patches, table=WG_LDG_PATCHES)
+
+
 # kernel: (source, variants, make a variant's source, ptxas markers)
 KERNELS = {
     "f32": ("flash_attention_fwd.cu", VARIANTS, variant_source,
@@ -264,6 +399,10 @@ KERNELS = {
                  for w in (64, 128, 256))),
     "f32wide": ("flash_attention_fwd.cu", WIDE_VARIANTS, wide_variant_source,
                 ("flash_fwd_f32_wideILi256ELi16E",)),
+    "wg_ldg": ("flash_attention_fwd_tc.cu", WG_LDG_VARIANTS,
+               wg_ldg_variant_source,
+               tuple(f"flash_fwd_tc_wg_ldgI13__nv_bfloat16Li{w}E"
+                     for w in (64, 128, 192, 256))),
 }
 
 
@@ -302,19 +441,20 @@ def build_all(out_dir, kernel="f32"):
         ptxas[name] = " || ".join(report)
         fns[name] = entry(ctypes.CDLL(
             os.path.join(out_dir, f"libsweep_{name}.so")),
-            "mxtt_flash_attention_fwd_tc" if kernel == "wg"
+            "mxtt_flash_attention_fwd_tc" if kernel in ("wg", "wg_ldg")
             else "mxtt_flash_attention_fwd")
     return fns, ptxas
 
 
-def call(fn, q, k, v, causal):
+def call(fn, q, k, v, causal, scale=None):
     """One launch straight through the C entry, without the wrapper's
     checks, so that the events time the kernel alone."""
     out = torch.empty_like(q)
     b, t_q, h, d = q.shape
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
     code = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}[q.dtype]
-    err = fn(*ptrs, b, t_q, k.shape[1], h, d, d ** -0.5, int(causal), 0, code,
+    scale = d ** -0.5 if scale is None else scale
+    err = fn(*ptrs, b, t_q, k.shape[1], h, d, scale, int(causal), 0, code,
              copy_bytes(d, *ptrs, itemsize=q.element_size()),
              torch.cuda.current_stream().cuda_stream)
     if err:
@@ -341,15 +481,18 @@ def main(argv=None):
     cases, dtype, tol, timer = {
         "f32": (CASES, torch.float32, 1e-4, time_cuda),
         "wg": (WG_CASES, torch.bfloat16, 2e-2, time_device),
+        "wg_ldg": (WG_LDG_CASES, torch.bfloat16, 2e-2, time_device),
         "f32wide": (WIDE_CASES, torch.float32, 1e-4,
                     time_device)}[args.kernel]
     g = torch.Generator(device="cuda").manual_seed(0)
     data = {}
-    for case, (shp, t_k, causal) in cases.items():
+    for case, (shp, t_k, causal, *offset) in cases.items():
         q = torch.randn(shp, generator=g, device="cuda").to(dtype)
         k = torch.randn((shp[0], t_k) + shp[2:], generator=g,
                         device="cuda").to(dtype)
         v = torch.randn_like(k)
+        q, k, v = (_at_offset(x, offset[0] if offset else 0)
+                   for x in (q, k, v))
         want = flash_attention_reference(q.float(), k.float(), v.float(),
                                          causal=causal)
         for name, fn in fns.items():
@@ -361,23 +504,50 @@ def main(argv=None):
                 raise SystemExit(f"{name} {case}: max abs err {err}")
         data[case] = (q, k, v, causal)
     # the library's attention call on the same inputs, timed in the same
-    # turns (a yardstick: the port never calls it)
-    fns["library"] = None
+    # turns (a yardstick: the port never calls it); for wg_ldg also the
+    # views staged into aligned copies, d padded with zeros to a multiple of
+    # 8 (the copies alone, and the TMA route on them)
+    extra = ["library"]
+    if args.kernel == "wg_ldg":
+        extra += ["staged_copy", "staged_tma"]
+        staged = {}
+        for case, (q, k, v, causal) in data.items():
+            d = q.shape[-1]
+            stage = (lambda x, p=-d % 8: F.pad(x, (0, p)) if p
+                     else x.clone())
+            qs, ks, vs = (stage(x) for x in (q, k, v))
+            got = call(fns["committed"], qs, ks, vs, causal,
+                       scale=d ** -0.5)[..., :d].float()
+            want = flash_attention_reference(q.float(), k.float(), v.float(),
+                                             causal=causal)
+            if not float((got - want).abs().max()) <= tol:
+                raise SystemExit(f"staged_tma {case}: wrong")
+            staged[case] = (stage, qs, ks, vs, d)
+    for name in extra:
+        fns[name] = None
     ms = {n: {c: [] for c in cases} for n in fns}
     order = list(fns)
 
-    def run(name, q, k, v, causal):
+    def run(name, case, q, k, v, causal):
         if name == "library":
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
             return lambda: F.scaled_dot_product_attention(qt, kt, vt,
                                                           is_causal=causal)
+        if name == "staged_copy":
+            stage = staged[case][0]
+            return lambda: [stage(x) for x in (q, k, v)]
+        if name == "staged_tma":
+            _, qs, ks, vs, d = staged[case]
+            return lambda: call(fns["committed"], qs, ks, vs, causal,
+                                scale=d ** -0.5)
         return lambda: call(fns[name], q, k, v, causal)
 
     for r in range(args.rounds):
         for name in order if r % 2 == 0 else order[::-1]:
             for case, (q, k, v, causal) in data.items():
-                ms[name][case].append(timer(run(name, q, k, v, causal)))
-    variants = dict(KERNELS[args.kernel][1], library=())
+                ms[name][case].append(timer(run(name, case, q, k, v,
+                                                causal)))
+    variants = dict(KERNELS[args.kernel][1], **{n: () for n in extra})
     rows = [{"variant": n, "params": variants[n], "ptxas": ptxas.get(n),
              "timer": timer.__name__, "card": card, "ms": ms[n]}
             for n in order]

@@ -87,7 +87,16 @@ def _at_offset(x, offset):
     (True, 0, 512, 512, 64, 0), (True, 0, 384, 384, 128, 0),
     (True, 0, 320, 320, 128, 0), (True, 50, 300, 350, 32, 0),
     (True, 77, 333, 410, 96, 0), (False, 0, 300, 200, 128, 0),
-    (False, 0, 260, 260, 64, 0), (False, 0, 150, 170, 64, 1)])
+    (False, 0, 260, 260, 64, 0), (False, 0, 150, 170, 64, 1),
+    # rows TMA refuses on the wgmma kernel's LDG producer (bf16/fp16):
+    # views at an offset of one element at widths 192 and 256 (64 and 128
+    # above), more Q tiles than a block takes at width 64, odd d at every
+    # width (1, 33, 97, 255), d 250 (500-byte rows), ragged T with
+    # q_offset, non-causal
+    (True, 0, 300, 300, 160, 1), (False, 0, 300, 300, 255, 1),
+    (True, 0, 513, 513, 64, 1), (True, 0, 1, 1, 1, 0),
+    (True, 0, 257, 257, 33, 0), (False, 0, 129, 129, 97, 0),
+    (True, 64, 200, 264, 97, 0), (True, 9, 333, 342, 250, 0)])
 def test_cuda_kernel_matches_plain(dtype, tol, causal, q_offset, t_q, t_k, d,
                                    offset):
     if not torch.cuda.is_available():
@@ -106,17 +115,17 @@ def test_cuda_kernel_matches_plain(dtype, tol, causal, q_offset, t_q, t_k, d,
     got = tfa.flash_attention(q, k, v, causal=causal, q_offset=q_offset)
     torch.cuda.synchronize()
     assert tfa.flash_attention.launches == before + 1
-    # the kernel of the route: bf16/fp16 with 16-byte rows up to d 256 run
-    # flash_fwd_tc_wg, 2-byte rows flash_fwd_tc up to 128; fp32 runs
-    # flash_fwd_f32 up to 128 and flash_fwd_f32_wide (either copy width)
-    # from 129 to 256; the rest the split over d
+    # the kernel of the route: bf16/fp16 up to d 256 run the wgmma kernel,
+    # flash_fwd_tc_wg with 16-byte rows, flash_fwd_tc_wg_ldg with the
+    # others; fp32 runs flash_fwd_f32 up to 128 and flash_fwd_f32_wide
+    # (either copy width) from 129 to 256; the rest the split over d
     assert tfa.flash_attention.launches_by_kernel[plan] == by_kernel + 1
     if dtype == torch.float32:
         route = ("flash_fwd_f32" if d <= 128 else "flash_fwd_f32_wide"
                  if d <= 256 else "flash_fwd_f32_split")
     else:
-        route = ("flash_fwd_tc_wg" if aligned and d <= 256 else
-                 "flash_fwd_tc" if d <= 128 else "flash_fwd_tc_split")
+        route = ("flash_fwd_tc_split" if d > 256 else "flash_fwd_tc_wg"
+                 if aligned else "flash_fwd_tc_wg_ldg")
     assert plan == route
     want = tfa.flash_attention_reference(q.float(), k.float(), v.float(),
                                          causal=causal, q_offset=q_offset)
@@ -142,6 +151,57 @@ def test_batch_heads_above_65535(dtype, tol):
     want = tfa.flash_attention_reference(q.float(), k.float(), v.float(),
                                          causal=True, q_offset=3)
     assert float((got.float() - want).abs().max()) <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2),
+                                       (torch.float16, 3e-3)])
+def test_batch_heads_above_65535_on_the_ldg_route(dtype, tol):
+    """65 600 heads in one launch of the LDG producer's kernel (views at an
+    offset of one element)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc; runs on the card")
+    g = torch.Generator(device="cuda").manual_seed(3)
+    q, k, v = (_at_offset(torch.randn((16400, 9, 4, 16), generator=g,
+                                      device="cuda").to(dtype), 1)
+               for _ in range(3))
+    assert tfa.launch_plan(dtype, 16400, 9, 4, 16, 2) == (
+        "flash_fwd_tc_wg_ldg", 64, (65600, 1, 1))
+    before = tfa.flash_attention.launches_by_kernel["flash_fwd_tc_wg_ldg"]
+    got = tfa.flash_attention(q, k, v, causal=True, q_offset=3)
+    torch.cuda.synchronize()
+    assert tfa.flash_attention.launches_by_kernel["flash_fwd_tc_wg_ldg"] \
+        == before + 1
+    want = tfa.flash_attention_reference(q.float(), k.float(), v.float(),
+                                         causal=True, q_offset=3)
+    assert float((got.float() - want).abs().max()) <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d", [64, 128, 192, 256])
+@pytest.mark.parametrize("causal,q_offset,t_q,t_k", [
+    (True, 0, 300, 300), (True, 40, 200, 240), (False, 0, 130, 333)])
+def test_ldg_route_bit_identical_to_tma(dtype, d, causal, q_offset, t_q,
+                                        t_k):
+    """The LDG producer writes the bytes TMA would have: on views at an
+    offset of one element it gives the same bits as flash_fwd_tc_wg on
+    aligned copies of the same inputs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc; runs on the card")
+    g = torch.Generator(device="cuda").manual_seed(d)
+    q, k, v = (_at_offset(torch.randn((2, t, 3, d), generator=g,
+                                      device="cuda").to(dtype), 1)
+               for t in (t_q, t_k, t_k))
+    counts = tfa.flash_attention.launches_by_kernel
+    before = dict(counts)
+    got = tfa.flash_attention(q, k, v, causal=causal, q_offset=q_offset)
+    want = tfa.flash_attention(q.clone(), k.clone(), v.clone(),
+                               causal=causal, q_offset=q_offset)
+    torch.cuda.synchronize()
+    assert counts["flash_fwd_tc_wg_ldg"] == before["flash_fwd_tc_wg_ldg"] + 1
+    assert counts["flash_fwd_tc_wg"] == before["flash_fwd_tc_wg"] + 1
+    assert torch.equal(got, want)
 
 
 @pytest.mark.gpu
@@ -205,23 +265,27 @@ def _max_rel(got, want):
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 1e-2),
                                        (torch.float16, 2e-3)])
-@pytest.mark.parametrize("d", [64, 200, 256])
+@pytest.mark.parametrize("d", [64, 97, 200, 256])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_gradient_on_card_matches_cpu(dtype, tol, d, causal):
     """The flash Function on the card (forward: the kernel of the route,
-    counted once, at d 200 and 256 fp32's wide kernel, bf16/fp16's
-    wgmma/TMA kernel at every d; backward: the fp32
-    recompute, which launches nothing) against the same Function on the
-    CPU (plain forward, same recompute)."""
+    counted once, at d 200 and 256 fp32's wide kernel, bf16/fp16's wgmma
+    kernel at every d, through TMA or, at the odd d 97, the LDG producer;
+    backward: the fp32 recompute, which launches nothing) against the same
+    Function on the CPU (plain forward, same recompute)."""
     g = _cuda()
     q, k, v, head = (torch.randn((2, 160, 3, d), generator=g, device="cuda")
                      .to(dtype) for _ in range(4))
     before = tfa.flash_attention.launches
-    plan = tfa.launch_plan(dtype, 2, 160, 3, d)[0]
+    item = q.element_size()
+    copy = tfa.copy_bytes(d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                          itemsize=item)
+    plan = tfa.launch_plan(dtype, 2, 160, 3, d, copy)[0]
     if dtype == torch.float32 and d > 128:
         assert plan == "flash_fwd_f32_wide"
     if dtype != torch.float32:
-        assert plan == "flash_fwd_tc_wg"
+        assert plan == ("flash_fwd_tc_wg" if d % 8 == 0
+                        else "flash_fwd_tc_wg_ldg")
     by_kernel = tfa.flash_attention.launches_by_kernel[plan]
     fn = lambda *a: tfa.flash_attention(*a, causal=causal)  # noqa: E731
     out, grads = _grad_of(fn, (q, k, v), head)

@@ -175,23 +175,36 @@ def test_launch_plan_by_head_dim(dtype, d, want):
 
 
 @pytest.mark.parametrize("dtype,d,copy,want", [
-    (torch.float16, 160, 2, ("flash_fwd_tc_split", 128, (6, 4, 2))),
-    (torch.bfloat16, 200, 2, ("flash_fwd_tc_split", 128, (6, 4, 2))),
-    (torch.bfloat16, 256, 2, ("flash_fwd_tc_split", 128, (6, 4, 2))),
-    (torch.bfloat16, 130, 2, ("flash_fwd_tc_split", 128, (6, 4, 2))),
+    (torch.float16, 160, 2, ("flash_fwd_tc_wg_ldg", 192, (6, 2, 1))),
+    (torch.bfloat16, 200, 2, ("flash_fwd_tc_wg_ldg", 256, (6, 2, 1))),
+    (torch.bfloat16, 256, 2, ("flash_fwd_tc_wg_ldg", 256, (6, 2, 1))),
+    (torch.bfloat16, 130, 2, ("flash_fwd_tc_wg_ldg", 192, (6, 2, 1))),
     (torch.bfloat16, 1000, 2, ("flash_fwd_tc_split", 128, (6, 4, 8))),
-    (torch.bfloat16, 64, 2, ("flash_fwd_tc", 64, (6, 4, 1))),
+    (torch.bfloat16, 64, 2, ("flash_fwd_tc_wg_ldg", 64, (6, 1, 1))),
     (torch.float32, 256, 4, ("flash_fwd_f32_wide", 256, (6, 2, 1))),
     (torch.float32, 200, 4, ("flash_fwd_f32_wide", 256, (6, 2, 1))),
     (torch.float32, 130, 4, ("flash_fwd_f32_wide", 192, (6, 2, 1))),
     (torch.float32, 300, 4, ("flash_fwd_f32_split", 128, (6, 4, 3))),
-    (torch.bfloat16, 128, 2, ("flash_fwd_tc", 128, (6, 4, 1))),
-    (torch.bfloat16, 50, 2, ("flash_fwd_tc", 64, (6, 4, 1)))])
+    (torch.bfloat16, 128, 2, ("flash_fwd_tc_wg_ldg", 128, (6, 2, 1))),
+    (torch.bfloat16, 50, 2, ("flash_fwd_tc_wg_ldg", 64, (6, 1, 1))),
+    # odd d: 2-byte rows at every width
+    (torch.bfloat16, 1, 2, ("flash_fwd_tc_wg_ldg", 64, (6, 1, 1))),
+    (torch.bfloat16, 49, 2, ("flash_fwd_tc_wg_ldg", 64, (6, 1, 1))),
+    (torch.float16, 97, 2, ("flash_fwd_tc_wg_ldg", 128, (6, 2, 1))),
+    (torch.bfloat16, 129, 2, ("flash_fwd_tc_wg_ldg", 192, (6, 2, 1))),
+    (torch.bfloat16, 255, 2, ("flash_fwd_tc_wg_ldg", 256, (6, 2, 1))),
+    # 2-byte rows at d 129-256 (250: 500-byte rows)
+    (torch.float16, 250, 2, ("flash_fwd_tc_wg_ldg", 256, (6, 2, 1))),
+    (torch.bfloat16, 192, 2, ("flash_fwd_tc_wg_ldg", 192, (6, 2, 1))),
+    # 2-byte rows wider than 256: the split over d
+    (torch.bfloat16, 257, 2, ("flash_fwd_tc_split", 128, (6, 4, 3))),
+    (torch.float16, 320, 2, ("flash_fwd_tc_split", 128, (6, 4, 3)))])
 def test_launch_plan_by_copy_width(dtype, d, copy, want):
-    """The element-wise (2-byte) path of the tensor-core kernels runs
-    flash_fwd_tc up to d 128 (64-row Q tiles) and the split over d above
-    (TMA needs 16-byte rows); fp32's 4-byte copies change no route: the
-    wide kernel copies 4 bytes at a time too."""
+    """2-byte rows (what TMA refuses: d not a multiple of 8, or a base that
+    is not 16-byte aligned) run flash_fwd_tc_wg_ldg up to d 256, at the TMA
+    route's width and grid, and the split over d above; fp32's 4-byte
+    copies change no route: the wide kernel copies 4 bytes at a time
+    too."""
     assert tfa.launch_plan(dtype, 2, 200, 3, d, copy) == want
 
 
@@ -210,6 +223,24 @@ def test_launch_plan_wg_grid_pairs_q_tiles():
             == 65535
         with pytest.raises(MXNetError, match="Q tiles"):
             tfa.launch_plan(torch.bfloat16, 1, rows * 65535 + 1, 1, d)
+
+
+@pytest.mark.parametrize("d", [256, 250, 192, 130, 128, 97, 64, 50, 1])
+def test_launch_plan_ldg_route_takes_the_tma_grid(d):
+    """2-byte rows up to d 256 run flash_fwd_tc_wg_ldg at the width and on
+    the grid the TMA route takes for the same shape, capped alike."""
+    width = min(w for w in (64, 128, 192, 256) if w >= d)
+    for t_q in (1, 64, 65, 129, 257, 2049):
+        for dtype in (torch.bfloat16, torch.float16):
+            tma = tfa.launch_plan(dtype, 2, t_q, 4, 256 if d > 192 else
+                                  192 if d > 128 else 128 if d > 64 else 64)
+            assert tfa.launch_plan(dtype, 2, t_q, 4, d, 2) == (
+                "flash_fwd_tc_wg_ldg", width, tma[2])
+    rows = 256 if width == 64 else 128
+    assert tfa.launch_plan(torch.bfloat16, 1, rows * 65535, 1, d,
+                           2)[2][1] == 65535
+    with pytest.raises(MXNetError, match="Q tiles"):
+        tfa.launch_plan(torch.bfloat16, 1, rows * 65535 + 1, 1, d, 2)
 
 
 @pytest.mark.parametrize("d,width", [(129, 192), (192, 192), (256, 256)])
@@ -244,16 +275,17 @@ def test_launch_plan_batch_heads(batch, heads, ok):
 
 def test_launch_plan_q_tiles_and_chunks_capped():
     """Q tiles (grid y) and d-chunks (grid z) stay within 65535: bf16 at
-    d 64 runs four 64-row Q tiles a block (256 rows), the element-wise
-    kernel one."""
-    assert tfa.launch_plan(torch.bfloat16, 1, 256 * 65535, 1, 64)[2][1] \
+    d 64 runs four 64-row Q tiles a block (256 rows) with either producer,
+    the split over d one."""
+    for copy in (16, 2):
+        assert tfa.launch_plan(torch.bfloat16, 1, 256 * 65535, 1, 64,
+                               copy)[2][1] == 65535
+        with pytest.raises(MXNetError, match="Q tiles"):
+            tfa.launch_plan(torch.bfloat16, 1, 256 * 65535 + 1, 1, 64, copy)
+    assert tfa.launch_plan(torch.bfloat16, 1, 64 * 65535, 1, 300, 2)[2][1] \
         == 65535
     with pytest.raises(MXNetError, match="Q tiles"):
-        tfa.launch_plan(torch.bfloat16, 1, 256 * 65535 + 1, 1, 64)
-    assert tfa.launch_plan(torch.bfloat16, 1, 64 * 65535, 1, 64, 2)[2][1] \
-        == 65535
-    with pytest.raises(MXNetError, match="Q tiles"):
-        tfa.launch_plan(torch.bfloat16, 1, 64 * 65535 + 1, 1, 64, 2)
+        tfa.launch_plan(torch.bfloat16, 1, 64 * 65535 + 1, 1, 300, 2)
     with pytest.raises(MXNetError, match="d-chunks"):
         tfa.launch_plan(torch.float32, 1, 64, 1, 128 * 65535 + 1)
 
@@ -271,3 +303,48 @@ def test_head_dim_above_128_matches_pallas_interpret(monkeypatch, d, causal):
     kw = dict(causal=causal, q_offset=128 if causal else 0)
     got, want = _both(q, k, v, **kw)
     np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+
+
+def _view_at_offset_one(a, dtype):
+    """``a`` in ``dtype`` as a contiguous view one element into a buffer:
+    its base is not 16-byte aligned, so the card takes its 2-byte route."""
+    t = torch.from_numpy(a).to(dtype)
+    buf = torch.zeros(t.numel() + 1, dtype=dtype)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+# fp32: the reference's own limits; bf16: both sides compute in fp32 (so
+# they part by fp32's limits) and round to bf16 once, so they part by at
+# most one step of bf16 more (2^-7 of the value)
+@pytest.mark.parametrize("dtype,rtol,atol", [(torch.float32, RTOL, ATOL),
+                                             (torch.bfloat16, 2 ** -7, ATOL)])
+@pytest.mark.parametrize("d", [49, 97, 250])
+@pytest.mark.parametrize("causal", [False, True])
+def test_rows_tma_refuses_match_pallas_interpret(dtype, rtol, atol, d,
+                                                 causal):
+    """Rows that TMA refuses (odd d, and views at an offset of one element)
+    run flash_fwd_tc_wg_ldg on the card up to d 256 in bf16/fp16: the
+    port's wrapper (its plain version on the CPU) on such views against the
+    JAX kernel in interpret mode on the same values, with q_offset on the
+    causal case."""
+    q, k, v = _inputs(11, [(1, 128, 2, d), (1, 256, 2, d), (1, 256, 2, d)])
+    tq, tk, tv = (_view_at_offset_one(a, dtype) for a in (q, k, v))
+    assert tq.is_contiguous() and tq.data_ptr() % 16 != 0
+    item = tq.element_size()
+    copy = tfa.copy_bytes(d, tq.data_ptr(), tk.data_ptr(), tv.data_ptr(),
+                          itemsize=item)
+    assert copy == item
+    if dtype == torch.bfloat16:
+        assert tfa.launch_plan(dtype, 1, 128, 2, d, copy)[0] \
+            == "flash_fwd_tc_wg_ldg"
+    kw = dict(causal=causal, q_offset=128 if causal else 0)
+    got = tfa.flash_attention(tq, tk, tv, **kw)
+    want = jax_flash(*(jnp.asarray(x.float().numpy()).astype(
+        jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32)
+        for x in (tq, tk, tv)), interpret=True, **kw)
+    assert got.dtype == dtype
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want).astype(np.float32),
+                               rtol=rtol, atol=atol)

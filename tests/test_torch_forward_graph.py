@@ -9,18 +9,20 @@ so the program's rules run here: outputs new at every forward,
 ``predict(merge_batches=True)`` equal to forwards one batch at a time, a
 ``Custom`` node refusing the capture with its reason, a feed through
 ``forward(**kwargs)`` copied in place (and one of another shape dropping
-the graph; captures and drops counted), and a sampling node drawing anew at
-every forward.
+the graph; captures and drops counted), a sampling node drawing anew at
+every forward, and ``storage.no_collection`` holding off the collector.
 
 The card tests (marked ``gpu``, skipped without a card) hold the captured
 forward bit-identical to the eager walk (LeNet, a small ResNet, the
 transformer LM at depth 2 through ``Predictor``), a sampling node's replays,
 ``forward(data=x)`` feeds, one capture a binding through ``score``, an
-evaluation forward between fused training steps, and bucket switches under
-evaluation. This file imports no JAX:
+evaluation forward between fused training steps, bucket switches under
+evaluation, and no collection while a capture is under way. This file imports no JAX:
 
     python -m pytest -m gpu --noconftest tests/test_torch_forward_graph.py
 """
+import gc
+
 import numpy as np
 import pytest
 import torch
@@ -277,6 +279,47 @@ def test_predictor_feeds_in_place(host_graphs):
         np.testing.assert_array_equal(o, mod.get_outputs()[0].asnumpy())
 
 
+def test_no_collection_pauses_the_collector():
+    """No automatic collection runs inside ``no_collection``, however low
+    the threshold, and the collector's state comes back after it (also
+    where it was off, and after an exception)."""
+    seen = []
+
+    def watch(phase, info):
+        if phase == "start":
+            seen.append(inside[0])
+
+    inside = [False]
+    thresholds = gc.get_threshold()
+    gc.set_threshold(1, 1, 1)
+    gc.callbacks.append(watch)
+    try:
+        with mx.storage.no_collection():
+            inside[0] = True
+            assert not gc.isenabled()
+            junk = [[] for _ in range(1000)]
+            for j in junk:
+                j.append(j)
+            del junk
+            inside[0] = False
+        assert gc.isenabled()
+        junk = [[] for _ in range(1000)]
+        del junk
+        with pytest.raises(ValueError):
+            with mx.storage.no_collection():
+                raise ValueError
+        assert gc.isenabled()
+        gc.disable()
+        with mx.storage.no_collection():
+            pass
+        assert not gc.isenabled()
+    finally:
+        gc.enable()
+        gc.callbacks.remove(watch)
+        gc.set_threshold(*thresholds)
+    assert seen and not any(seen)
+
+
 # -- on the card ----------------------------------------------------------------
 
 @pytest.fixture
@@ -467,3 +510,32 @@ def test_bucket_switches_under_evaluation(card):
     for key in (4, 8):
         info = mod._buckets[key]._exec_group._executor.forward_info()
         assert info["captured"] and info["captures"] == 1, (key, info)
+
+
+@pytest.mark.gpu
+def test_no_collection_during_a_capture(card):
+    """A dropped binding's executor and program hold each other, so only a
+    collection frees its graph; one that ran on the capturing thread during
+    a capture would destroy that graph there and invalidate the capture.
+    With the collector at its lowest threshold, none runs while a capture
+    is under way and the capture holds."""
+    seen = []
+
+    def watch(phase, info):
+        if phase == "start":
+            seen.append(torch.cuda.is_current_stream_capturing())
+
+    for _ in range(3):
+        old = _lenet_module(card, batch=8)
+        _captured_equals_eager(old, _batches(2, batch=8, ctx=card))
+    del old
+    thresholds = gc.get_threshold()
+    gc.set_threshold(1, 1, 1)
+    gc.callbacks.append(watch)
+    try:
+        mod = _lenet_module(card, batch=8)
+        _captured_equals_eager(mod, _batches(3, batch=8, ctx=card))
+    finally:
+        gc.callbacks.remove(watch)
+        gc.set_threshold(*thresholds)
+    assert seen and not any(seen)
