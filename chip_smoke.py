@@ -2,8 +2,9 @@
 
 Drives the port's main paths at the repo's accelerator width (vocab 32768,
 hidden 1024, 16 heads, 12 layers, T=2048): transformer-LM inference through
-``Predictor`` in fp32 (16 heads of 64, and 4 of 256), the imperative path,
-the LM through ``Executor(amp_dtype="bfloat16")``, its training through
+``Predictor`` in fp32 (16 heads of 64, 4 of 256 and 2 of 512), the
+imperative path, the LM through ``Executor(amp_dtype="bfloat16")``, its
+training through
 ``Module(amp="bfloat16")``, ResNet-50 training through ``Module.fit``, and
 from a RecordIO file through ``train_imagenet.py``, and the LSTM-PTB
 language model through ``BucketingModule`` and ``lstm_bucketing.py``, then
@@ -21,8 +22,9 @@ result line:
    and from the port's Convolution (which takes it off cuDNN with TF32
    off) against float64, the port's held to 1e-5 of max-abs;
 2. build: the kernels from ``mxnet_tpu_torch/csrc`` with nvcc (set-up);
-   ptxas's registers of ``flash_fwd_f32_wide``'s four instantiations and
-   of ``flash_fwd_tc_wg``'s and ``flash_fwd_tc_wg_ldg``'s eight each (bf16
+   ptxas's registers of ``flash_fwd_f32_wide``'s four instantiations, of
+   ``flash_fwd_f32_cluster``'s two (16- and 4-byte copies) and of
+   ``flash_fwd_tc_wg``'s and ``flash_fwd_tc_wg_ldg``'s eight each (bf16
    and fp16 at widths 64, 128, 192 and 256), none of which may spill, no
    wgmma that ptxas serialized, and the consumers' registers (setmaxnreg)
    of both routes, 112 at width 64;
@@ -35,8 +37,13 @@ result line:
    wide kernel, causal and not, and at an offset of one element; bf16 and
    fp16 on the wgmma kernel, TMA or LDG at an offset of one element), 192
    (fp32's wide kernel; bf16 and fp16, the wgmma/TMA kernel), 200 and 250
-   (fp32's wide kernel; 500-byte bf16 rows, LDG), 320 (each dtype's split
-   over d, bf16 also at an offset of one element), in fp32 (CUDA cores),
+   (fp32's wide kernel; 500-byte bf16 rows, LDG), 320 (fp32's cluster
+   kernel, causal and not; bf16/fp16's split over d, bf16 also at an
+   offset of one element), 512 (fp32's cluster kernel: phase 4(c)'s shape,
+   causal and not, at an offset of one element, at batch 1, and a ragged T
+   with ``q_offset``), 500 and 1000 (the cluster kernel: zero past d in its
+   last chunk; clusters of 8 blocks), 1100 (fp32's split over d), in fp32
+   (CUDA cores),
    bf16 and fp16 (tensor cores), each row naming the kernel that ran, timed
    per call (as in earlier slices) and on the device alone, beside the
    plain version and a library attention call, with its share of the
@@ -56,10 +63,13 @@ result line:
    path): 2 requests through the captured forward, each traced (12
    ``flash_fwd_f32_wide`` kernels a request, no other flash kernel, and
    their device ms), probabilities checked, request ms captured and eager;
+   4(c). the same in 2 heads of 512 (the head-dim-512 path: 12
+   ``flash_fwd_f32_cluster`` kernels a request, no other flash kernel);
 5. card vs CPU: the same weights at depth 2 on cuda:0 (kernel, launched
    once per layer) and on the CPU (plain versions) must agree, in
-   probabilities and in log-probabilities, in 16 heads of 64 and in 4
-   heads of 256 (``flash_fwd_f32_wide``);
+   probabilities and in log-probabilities, in 16 heads of 64, in 4 heads
+   of 256 (``flash_fwd_f32_wide``) and in 2 heads of 512
+   (``flash_fwd_f32_cluster``);
 6. rtc kernel vs plain: the two user kernels compiled through NVRTC
    (``mxnet_tpu_torch/rtc_examples.py``): axpy through ``CudaKernel`` at the
    phase-4 logits shape in fp32 and bf16, at a ragged size and on inputs
@@ -343,6 +353,7 @@ KERNEL_LIBS = ("flash_attention_fwd", "flash_attention_fwd_tc")
 AMP_REQUESTS = 4
 AMP_CPU_SEQ = 512   # T of the card-vs-CPU check under amp
 AMP_D256_HEADS, AMP_D256_REQUESTS = 4, 2   # phase 8's head-dim-256 path
+D512_HEADS = 2                             # phase 4(c)'s head-dim-512 path
 AMP_D128_HEADS = 8                         # and its head-dim-128 path
 # a kernel's numbers in the `kernels` line: `ms`, `plain_ms` and `library_ms`
 # time one call between two events (the host's dispatch where it is longer
@@ -560,6 +571,21 @@ def phase_build():
             for r in wide.values()),
             "ptxas: every flash_fwd_f32_wide instantiation (192 and 256 "
             "wide, 16- and 4-byte copies) without spills")
+        cluster = ptxas_report(log, "flash_fwd_f32_cluster")
+        out["ptxas_flash_fwd_f32_cluster"] = cluster
+        print("  ptxas flash_fwd_f32_cluster: " + json.dumps(cluster),
+              flush=True)
+        check(len(cluster) == 2 and all(
+            r["spill_stores"] == 0 == r["spill_loads"]
+            for r in cluster.values()),
+            "ptxas: both flash_fwd_f32_cluster instantiations (16- and "
+            "4-byte copies) without spills")
+    clusters = cluster_counts()
+    out["f32_clusters_at_once"] = clusters
+    print("  flash_fwd_f32_cluster: clusters the card holds at once, by "
+          "blocks a cluster: " + json.dumps(clusters), flush=True)
+    check(all(n >= 1 for n in clusters.values()),
+          "the card places flash_fwd_f32_cluster's clusters of 3-8 blocks")
     log = _native.BUILD_LOGS.get("flash_attention_fwd_tc")
     if log is None:
         print("  flash_attention_fwd_tc reused: its ptxas report not read",
@@ -594,6 +620,20 @@ def phase_build():
     check(regs["tma"]["64"][1] == 112 == regs["ldg"]["64"][1],
           "the width-64 consumers keep 112 registers on both routes")
     return out
+
+
+def cluster_counts():
+    """How many clusters of ``flash_fwd_f32_cluster`` the card holds at
+    once, by blocks a cluster (3-8: d 257-1024), as the library's C entry
+    reports them (cudaOccupancyMaxActiveClusters)."""
+    import ctypes
+
+    from mxnet_tpu_torch import _native
+
+    fn = _native.load("flash_attention_fwd").mxtt_flash_attention_fwd_clusters
+    fn.argtypes = [ctypes.c_int]
+    fn.restype = ctypes.c_int
+    return {str(c): fn(c) for c in range(3, 9)}
 
 
 def setmaxnreg_counts():
@@ -704,8 +744,32 @@ def phase_kernel_vs_plain(seed):
          torch.float32, 1e-4),
         ("d256_fp32_causal_offset1", (BATCH, SEQ, HEADS // 4, 256), SEQ,
          True, 0, torch.float32, 1e-4, 1),
-        # fp32 wider than 256: the split over d
+        # fp32 from 257 to 1024: a cluster of blocks a Q tile, each a
+        # 128-wide chunk of d: phase 4(c)'s shape (2 heads of 512), causal
+        # and not; 4 heads of 320 (three chunks, the last half empty),
+        # causal and not; a ragged d (500: zero past d in the last chunk);
+        # d 1000 (clusters of 8 blocks); a view at an offset of one element
+        # (4-byte copies); batch 1; a ragged T with q_offset. Above 1024:
+        # the split over d
+        ("d512_fp32_causal", (BATCH, SEQ, D512_HEADS, 512), SEQ, True, 0,
+         torch.float32, 1e-4),
+        ("d512_fp32_noncausal", (BATCH, SEQ, D512_HEADS, 512), SEQ, False,
+         0, torch.float32, 1e-4),
         ("d320_fp32_causal", (BATCH, SEQ, HEADS // 4, 320), SEQ, True, 0,
+         torch.float32, 1e-4),
+        ("d320_fp32_noncausal", (BATCH, SEQ, HEADS // 4, 320), SEQ, False,
+         0, torch.float32, 1e-4),
+        ("d500_fp32_causal", (BATCH, SEQ, D512_HEADS, 500), SEQ, True, 0,
+         torch.float32, 1e-4),
+        ("d1000_fp32_causal", (BATCH, SEQ, 1, 1000), SEQ, True, 0,
+         torch.float32, 1e-4),
+        ("d512_fp32_causal_offset1", (BATCH, SEQ, D512_HEADS, 512), SEQ,
+         True, 0, torch.float32, 1e-4, 1),
+        ("d512_fp32_causal_b1", (1, SEQ, D512_HEADS, 512), SEQ, True, 0,
+         torch.float32, 1e-4),
+        ("ragged_d512_fp32_causal_qoff", (1, 200, D512_HEADS, 512), 264,
+         True, 64, torch.float32, 1e-4),
+        ("d1100_fp32_causal", (BATCH, SEQ, 1, 1100), SEQ, True, 0,
          torch.float32, 1e-4),
         ("d256_bf16_causal", (BATCH, SEQ, HEADS // 4, 256), SEQ, True, 0,
          torch.bfloat16, 2e-2),
@@ -857,6 +921,16 @@ def phase_kernel_vs_plain(seed):
           "16-byte rows up to d 256 ran flash_fwd_tc_wg, the other rows up "
           "to d 256 flash_fwd_tc_wg_ldg, 2-byte rows at d 320 "
           "flash_fwd_tc_split")
+    on_cluster = ("d512_fp32_causal", "d512_fp32_noncausal",
+                  "d320_fp32_causal", "d320_fp32_noncausal",
+                  "d500_fp32_causal", "d1000_fp32_causal",
+                  "d512_fp32_causal_offset1", "d512_fp32_causal_b1",
+                  "ragged_d512_fp32_causal_qoff")
+    check(all(results[n]["ran"] == ["flash_fwd_f32_cluster"]
+              for n in on_cluster)
+          and results["d1100_fp32_causal"]["ran"] == ["flash_fwd_f32_split"],
+          "fp32 at d 257-1024 ran flash_fwd_f32_cluster, at d 1100 "
+          "flash_fwd_f32_split")
     return results
 
 
@@ -1046,20 +1120,37 @@ def phase_slice_d256(mx, weights, seed):
     ``flash_fwd_f32_wide``) and their device ms; probabilities checked;
     then the requests captured and through the eager walk in turns, host ms
     each."""
+    return slice_at_heads(mx, weights, seed + 12, "4(b)", AMP_D256_HEADS,
+                          "flash_fwd_f32_wide")
+
+
+def phase_slice_d512(mx, weights, seed):
+    """Phase 4(c): as phase 4(b) in ``D512_HEADS`` heads of 512, each
+    request's 12 flash kernels all ``flash_fwd_f32_cluster``."""
+    return slice_at_heads(mx, weights, seed + 13, "4(c)", D512_HEADS,
+                          "flash_fwd_f32_cluster")
+
+
+def slice_at_heads(mx, weights, seed, phase, heads, kernel):
+    """The LM in fp32 through ``Predictor`` at ``heads`` heads of the same
+    weights, ``AMP_D256_REQUESTS`` traced requests through the captured
+    forward, each of whose flash kernels must be ``kernel`` by exact name
+    (12 a request), and the wrapper's launches (the warm-up's and the
+    capture's) all ``kernel``; then the requests timed captured and
+    eager."""
     import torch
 
     from mxnet_tpu_torch.ops.flash_attention import (flash_attention,
                                                      reset_launches)
 
-    heads = AMP_D256_HEADS
-    print(f"phase 4(b): the slice at {heads} heads of {HIDDEN // heads} "
+    print(f"phase {phase}: the slice at {heads} heads of {HIDDEN // heads} "
           f"(fp32; {LAYERS} layers, batch {BATCH}, T {SEQ}, "
           f"{AMP_D256_REQUESTS} requests)", flush=True)
     t0 = time.perf_counter()
     pred = lm_predictor(mx, LAYERS, BATCH, weights, mx.gpu(0), heads=heads)
     torch.cuda.synchronize()
     bind_s = time.perf_counter() - t0
-    rng = np.random.default_rng(seed + 12)
+    rng = np.random.default_rng(seed)
     batches = [rng.integers(0, VOCAB, (BATCH, SEQ)).astype(np.float32)
                for _ in range(AMP_D256_REQUESTS)]
     ex = pred._executor
@@ -1071,41 +1162,41 @@ def phase_slice_d256(mx, weights, seed):
         return pred.forward().get_output_nd(0).data
 
     reset_launches()
-    traced, traced_wide, flash_ms = [], [], []
+    traced, traced_route, flash_ms = [], [], []
     for x in batches:
         feed(x)
         counts, got = {}, []
         by_name, _ = traced_groups(lambda: got.append(forward()), {}, counts)
         traced.append(sum(counts[k] for k in by_name if flash_kernel(k)))
-        traced_wide.append(sum(counts[k] for k in by_name
-                               if flash_kernel(k) == "flash_fwd_f32_wide"))
+        traced_route.append(sum(counts[k] for k in by_name
+                                if flash_kernel(k) == kernel))
         flash_ms.append(sum(t for k, t in by_name.items()
-                            if flash_kernel(k) == "flash_fwd_f32_wide"))
+                            if flash_kernel(k) == kernel))
         check_probs(got[0])
     by_kernel = dict(flash_attention.launches_by_kernel)
     info = ex.forward_info()
     ms = timed_requests(batches, feed, forward,
                         lambda: ex.eager_forward()[0])
     steady = float(np.median(ms["captured"]))
-    out = {"heads": heads, "head_dim": HIDDEN // heads, "bind_s": bind_s,
+    out = {"heads": heads, "head_dim": HIDDEN // heads, "kernel": kernel,
+           "bind_s": bind_s,
            "request_ms": ms["captured"], "steady_request_ms": steady,
            "eager_request_ms": ms["eager"],
            "steady_eager_request_ms": float(np.median(ms["eager"])),
            "tokens_per_s": BATCH * SEQ / (steady / 1e3),
-           "launches": sum(traced_wide), "launches_traced": traced,
-           "launches_traced_wide": traced_wide,
+           "launches": sum(traced_route), "launches_traced": traced,
+           "launches_traced_route": traced_route,
            "flash_device_ms_traced": flash_ms,
            "wrapper_calls": by_kernel, "forward": info}
     print("  " + json.dumps(out), flush=True)
-    check(traced == [LAYERS] * AMP_D256_REQUESTS and traced_wide == traced,
+    check(traced == [LAYERS] * AMP_D256_REQUESTS and traced_route == traced,
           f"the card ran {LAYERS} flash kernels in each captured request at "
-          f"{heads} heads of {HIDDEN // heads}, all flash_fwd_f32_wide "
-          f"(traced: {traced}, of them flash_fwd_f32_wide: {traced_wide})")
-    check(by_kernel["flash_fwd_f32_wide"] == 2 * LAYERS
+          f"{heads} heads of {HIDDEN // heads}, all {kernel} (traced: "
+          f"{traced}, of them {kernel}: {traced_route})")
+    check(by_kernel[kernel] == 2 * LAYERS
           and sum(by_kernel.values()) == 2 * LAYERS,
-          f"the flash wrapper launched flash_fwd_f32_wide {2 * LAYERS} times "
-          f"(the warm-up's and the capture's) and no other kernel "
-          f"({by_kernel})")
+          f"the flash wrapper launched {kernel} {2 * LAYERS} times (the "
+          f"warm-up's and the capture's) and no other kernel ({by_kernel})")
     check(info["captures"] == 1 and info["drops"] == 0,
           f"one capture for the Predictor's binding ({info})")
     del pred, ex
@@ -1115,14 +1206,17 @@ def phase_slice_d256(mx, weights, seed):
 
 def phase_card_vs_cpu(mx, weights, seed):
     """The same weights at depth 2 (batch 1, T 2048) on the card and on the
-    CPU, in 16 heads of 64 (``flash_fwd_f32``) and in ``AMP_D256_HEADS``
-    heads of 256 (``flash_fwd_f32_wide``), under the same limits."""
+    CPU, in 16 heads of 64 (``flash_fwd_f32``), in ``AMP_D256_HEADS`` heads
+    of 256 (``flash_fwd_f32_wide``) and in ``D512_HEADS`` heads of 512
+    (``flash_fwd_f32_cluster``), under the same limits."""
     print("phase 5: card vs CPU at depth 2 (batch 1, T 2048)", flush=True)
     x = np.random.default_rng(seed + 2).integers(
         0, VOCAB, (1, SEQ)).astype(np.float32)
     out = card_vs_cpu_at(mx, weights, x, HEADS, "flash_fwd_f32")
     out["d256"] = card_vs_cpu_at(mx, weights, x, AMP_D256_HEADS,
                                  "flash_fwd_f32_wide")
+    out["d512"] = card_vs_cpu_at(mx, weights, x, D512_HEADS,
+                                 "flash_fwd_f32_cluster")
     return out
 
 
@@ -6687,6 +6781,7 @@ def main(argv=None):
     cases = run("3", phase_kernel_vs_plain, args.seed)
     slice_out, weights, probs = run("4", phase_slice, mx, LAYERS, args.seed)
     slice_d256 = run("4b", phase_slice_d256, mx, weights, args.seed)
+    slice_d512 = run("4c", phase_slice_d512, mx, weights, args.seed)
     parity = run("5", phase_card_vs_cpu, mx, weights, args.seed)
     rtc_cases = run("6", phase_rtc_vs_plain, args.seed)
     imperative = run("7", phase_imperative, mx, weights, probs, args.seed)
@@ -6769,6 +6864,24 @@ def main(argv=None):
             "d256_requests_wrapper_calls":
                 slice_d256["wrapper_calls"]["flash_fwd_f32_wide"]},
         **{k: wide_case[k] for k in KERNEL_KEYS}})
+    cluster_case = cases["d512_fp32_causal"]
+    kernels.append({
+        "name": "flash_attention_fwd_f32_cluster",
+        "route": "cuda",
+        "source": "mxnet_tpu_torch/csrc/flash_attention_fwd.cu",
+        "replaces": "mxnet_tpu/ops/flash_attention.py:47",
+        # phase 4(c)'s requests at 2 heads of 512: the kernels the card ran
+        # in them (traced); the wrapper's calls are the warm-up's and the
+        # capture's
+        "launches": slice_d512["launches"],
+        "launches_by_path": {
+            "d512_requests_traced": slice_d512["launches"],
+            "d512_requests_wrapper_calls":
+                slice_d512["wrapper_calls"]["flash_fwd_f32_cluster"]},
+        **{k: cluster_case[k] for k in KERNEL_KEYS},
+        # 4 heads of 320 (three chunks, the last half empty), from phase 3
+        "other_shapes": {n: {k: cases[n][k] for k in KERNEL_KEYS}
+                         for n in ("d320_fp32_causal",)}})
     wg_case = cases["slice_bf16_causal"]
     kernels.append({
         "name": "flash_attention_fwd_tc_wg",
@@ -6813,6 +6926,7 @@ def main(argv=None):
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "build": build, "cases": cases,
                    "slice": slice_out, "slice_d256": slice_d256,
+                   "slice_d512": slice_d512,
                    "card_vs_cpu": parity,
                    "rtc_cases": rtc_cases, "imperative": imperative,
                    "amp": amp, "train": train, "fit": fit,

@@ -57,7 +57,9 @@
 //   * head dims: D=32/64/128 instantiations; any d <= 128 runs in the
 //     smallest that holds it, the columns past d zero in shared memory. A
 //     d from 129 to 256 runs flash_fwd_f32_wide (one block owns all of d,
-//     below), a d above 256 flash_fwd_f32_split (a split over d, below).
+//     below), from 257 to 1024 flash_fwd_f32_cluster (a thread-block
+//     cluster whose blocks each own a 128-wide chunk of d, below), a d
+//     above 1024 flash_fwd_f32_split (a split over d, below).
 //   The tile sizes were chosen on the card among 64/128 Q rows and 32/64
 //   keys (mxnet_tpu_torch/tools/flash_tile_sweep.py; PERF.md).
 // Measured on an H100 SXM at 700 W: 0.54-0.58 ms at the shape above, 44-48 %
@@ -679,19 +681,400 @@ flash_fwd_f32_wide(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// ------------------------------------------------- fp32, head dim > 256
+// --------------------------------------------- fp32, head dim 257-1024
 
-// flash_fwd_f32_split: any d above 256 (flash_fwd_f32_wide takes 129-256),
-// split over d. The output's columns go
-// in chunks of S_DC = 128 on gridDim.z; each block accumulates S = Q K^T
+// flash_fwd_f32_cluster: d from 257 to C_W * C_MAX = 1024, where Q and two
+// K/V stages at all of d do not fit one SM's shared memory (Q alone is 132
+// KB at d 512). Bound at (2, 2048, 2, 512) fp32 causal: the same 17.2 GFLOP
+// as flash_fwd_f32's shape (B*H*d is equal), 0.257 ms at 67 TFLOP/s.
+//   * one thread-block cluster of C = ceil(d / C_W) blocks along z per
+//     (64-row Q tile, batch*head); block r (its rank in the cluster) owns
+//     columns [r C_W, (r + 1) C_W) of d. The Q tiles run from the last, so
+//     the heaviest causal clusters start first. The card holds 62
+//     clusters of 4 blocks at once (79 of 3, 30 of 8; phase 2 of
+//     chip_smoke.py asks), so 128 equal non-causal clusters run in three
+//     waves, the last nearly empty;
+//   * per K tile each block computes only its chunk's partial
+//     S_r = Q_r K_r^T (64 x 32, flash_fwd_f32's register tiling at D = 128:
+//     4 rows x 4 keys a thread), so the cluster computes S once. The
+//     partials meet through distributed shared memory: each block stores
+//     its own, thread-major (a thread's 4 float4 at stride 128 threads), in
+//     one of two buffers; one cluster barrier (arrive.release /
+//     wait.acquire) a K tile; then each thread reads its 16 values from
+//     every rank (mapa, ld.shared::cluster; two ranks' loads in flight)
+//     and adds them in rank order, so that S, the row max m, the sum l and
+//     P are bit-identical in every block and every column chunk is
+//     normalised by the same l. The
+//     second buffer lets tile n + 1's partials go in while a slow peer
+//     still reads tile n's: a block writes a buffer again only after the
+//     next barrier, which every peer reaches after its reads;
+//   * then the online softmax of flash_fwd_f32 (log2 domain, masks only on
+//     tiles that cross the diagonal or T_k, causal K tiles past the
+//     diagonal skipped) and P V over the block's own chunk of V; each block
+//     writes its own columns of O as o / max(l, 1e-20);
+//   * each block stages its Q chunk once per Q tile; K chunks through a
+//     two-stage cp.async ring (tile n + 1 in flight while tile n
+//     computes), V through one buffer (V of tile n + 1 is copied from the
+//     end of tile n's P V, in flight under tile n + 1's Q K^T, exchange
+//     and softmax), copies of 16 or 4 bytes (VEC), rows past
+//     T and columns past d zero-filled, so the last, ragged chunk adds
+//     exact zeros;
+//   * shared memory: Q chunk 33.8 KB, 2 K and 1 V buffer 50.7 KB, P 10.2 KB,
+//     two partial buffers 16.4 KB: 111.1 KB, two blocks an SM;
+//   * the launch (cudaLaunchKernelEx, cluster dimension (1, 1, C) at run
+//     time) first asks cudaOccupancyMaxActiveClusters, once per device and
+//     C, whether such a cluster can be placed, and returns an error if not;
+//     every block ends on a cluster barrier, so that none exits while a
+//     peer still reads its partials.
+// The tile constants were chosen on the card among chunk widths 64 and
+// 128, K/V tiles of 32 and 64 rows, one or two V buffers and blocks an SM,
+// and this exchange (an all-gather of the partials) against a
+// reduce-scatter of S's rows with an all-gather of P, which adds a
+// second barrier a tile (tools/flash_tile_sweep.py --kernel f32cluster;
+// PERF.md).
+// Measured on an H100 SXM at 700 W (chip_smoke.py phase 3, device time):
+// 0.651 ms at (2, 2048, 2, 512) causal, 39 % of the bound, against 0.824
+// for scaled_dot_product_attention and 2.31 for the split; 0.996 at
+// (2, 2048, 4, 320) causal (the split 2.319, the library 0.818); 0.795
+// at (2, 2048, 1, 1000) (1.109). The same arithmetic without the exchange
+// and barrier reads 0.575, and flash_fwd_f32 at (2, 2048, 8, 128), the
+// same operations, 0.522. What it leaves on the table: non-causal, 1.64
+// against the library's 0.91, runs 128 clusters in three waves of 62;
+// d 320 pads its last chunk to 128 columns (64-wide chunks read 7 % less
+// there, 43 % more at d 512); no tensor cores (ROADMAP B1c).
+constexpr int C_W = 128;        // d-chunk width: a block's columns of d
+constexpr int C_BQ = 64;        // Q rows a cluster
+constexpr int C_BK = 32;        // K/V rows a tile
+constexpr int C_BLOCKS = 2;     // blocks an SM (__launch_bounds__)
+constexpr int C_MAX = 8;        // blocks a cluster: the portable limit
+constexpr int C_NJ = C_BK / 8;  // score columns a thread
+constexpr int C_PS = C_BK + 8;  // P row stride
+
+constexpr size_t f32_cluster_smem_bytes() {
+  return sizeof(float) *
+         ((size_t)(C_BQ + 3 * C_BK) * (C_W + F_PAD) +
+          (size_t)C_BQ * C_PS + 2 * (size_t)C_BQ * C_BK);
+}
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ uint32_t cluster_blocks() {
+  uint32_t n;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(n));
+  return n;
+}
+// the shared address `addr` of this block mapped into block `rank` of the
+// cluster
+__device__ __forceinline__ uint32_t map_rank(uint32_t addr, uint32_t rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(out)
+               : "r"(addr), "r"(rank));
+  return out;
+}
+__device__ __forceinline__ float4 ld_cluster(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+template <int VEC>
+__global__ void __launch_bounds__(F_THREADS, C_BLOCKS)
+flash_fwd_f32_cluster(const float* __restrict__ q,
+                      const float* __restrict__ k,
+                      const float* __restrict__ v, float* __restrict__ o,
+                      int t_q, int t_k, int heads, int d, float scale_log2,
+                      int causal, int q_offset) {
+  constexpr int MI = C_BQ / 16;         // score and output rows a thread
+  constexpr int NG = C_W / 32;          // float4 output column groups
+  constexpr int DS = C_W + F_PAD;       // shared row stride of Q, K, V
+  constexpr int XE = MI * C_NJ / 4;     // float4 partials a thread
+  constexpr int XB = XE * F_THREADS;    // float4 a partial buffer
+  extern __shared__ float4 smem4[];
+  float* q_s = reinterpret_cast<float*>(smem4);   // C_BQ x DS
+  float* k_s = q_s + C_BQ * DS;            // 2 stages, C_BK x DS
+  float* v_s = k_s + 2 * C_BK * DS;        // C_BK x DS
+  float* p_s = v_s + C_BK * DS;            // C_BQ x C_PS
+  float4* x_s = reinterpret_cast<float4*>(p_s + C_BQ * C_PS);   // 2 x XB
+
+  const int tid = threadIdx.x;
+  const int tx = tid & 7;    // score columns tx + 8j; output 32g + 4tx
+  const int ty = tid >> 3;   // rows ty + 16i
+  const int bh = blockIdx.x;
+  const int q_tile = gridDim.y - 1 - blockIdx.y;   // heaviest causal first
+  const uint32_t rank = cluster_rank();
+  const uint32_t n_ranks = cluster_blocks();
+  const int c0 = (int)blockIdx.z * C_W;   // the block's first column of d
+  const int dc = d - c0;                  // its columns that lie in d
+  const int b = bh / heads;
+  const int h = bh % heads;
+  const int q0 = q_tile * C_BQ;
+  const int rs = heads * d;
+
+  const float* q_bh = q + ((int64_t)b * t_q * heads + h) * d + c0;
+  const float* k_bh = k + ((int64_t)b * t_k * heads + h) * d + c0;
+  const float* v_bh = v + ((int64_t)b * t_k * heads + h) * d + c0;
+  float* o_bh = o + ((int64_t)b * t_q * heads + h) * d;
+
+  // every block of the cluster has the same Q tile, so the same K tiles
+  int n_tiles = (t_k + C_BK - 1) / C_BK;
+  if (causal) {
+    const int last = q_offset + min(q0 + C_BQ, t_q) - 1;
+    n_tiles = min(n_tiles, last / C_BK + 1);
+  }
+
+  // cp.async groups, in order: Q and K(0), V(0), then K(n + 1) from the
+  // start of tile n and V(n + 1) from its end; empty groups keep the count
+  stage_tile<C_BQ, C_W, VEC>(q_s, q_bh, q0, t_q, rs, dc);
+  stage_tile<C_BK, C_W, VEC>(k_s, k_bh, 0, t_k, rs, dc);
+  cp_async_commit();
+  stage_tile<C_BK, C_W, VEC>(v_s, v_bh, 0, t_k, rs, dc);
+  cp_async_commit();
+
+  float acc[MI][NG][4];
+  float m[MI], l[MI];   // l: this thread's partial row sums
+#pragma unroll
+  for (int i = 0; i < MI; ++i) {
+    m[i] = MASKED;
+    l[i] = 0.f;
+#pragma unroll
+    for (int g = 0; g < NG; ++g)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][g][e] = 0.f;
+  }
+
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    const int k0 = kt * C_BK;
+    const float* kc = k_s + (kt & 1) * C_BK * DS;
+    cp_async_wait<1>();   // K(kt) is in (V(kt) may still be in flight)
+    // K(kt) is in for every thread, and every thread is done with the
+    // buffers the next copies overwrite
+    __syncthreads();
+    if (kt + 1 < n_tiles)
+      stage_tile<C_BK, C_W, VEC>(k_s + ((kt + 1) & 1) * C_BK * DS, k_bh,
+                                 k0 + C_BK, t_k, rs, dc);
+    cp_async_commit();
+
+    // this block's partial S over its C_W columns of d
+    float s[MI][C_NJ];
+#pragma unroll
+    for (int i = 0; i < MI; ++i)
+#pragma unroll
+      for (int j = 0; j < C_NJ; ++j) s[i][j] = 0.f;
+#pragma unroll
+    for (int c = 0; c < C_W; c += 4) {
+      float4 qv[MI];
+#pragma unroll
+      for (int i = 0; i < MI; ++i)
+        qv[i] = *reinterpret_cast<const float4*>(q_s + (ty + 16 * i) * DS + c);
+#pragma unroll
+      for (int j = 0; j < C_NJ; ++j) {
+        const float4 kv =
+            *reinterpret_cast<const float4*>(kc + (tx + 8 * j) * DS + c);
+#pragma unroll
+        for (int i = 0; i < MI; ++i) {
+          s[i][j] = fmaf(qv[i].x, kv.x, s[i][j]);
+          s[i][j] = fmaf(qv[i].y, kv.y, s[i][j]);
+          s[i][j] = fmaf(qv[i].z, kv.z, s[i][j]);
+          s[i][j] = fmaf(qv[i].w, kv.w, s[i][j]);
+        }
+      }
+    }
+
+    // S = the cluster's partials summed in rank order
+    float4* xb = x_s + (kt & 1) * XB;
+#pragma unroll
+    for (int i = 0; i < MI; ++i)
+#pragma unroll
+      for (int jj = 0; jj < C_NJ / 4; ++jj)
+        xb[(i * (C_NJ / 4) + jj) * F_THREADS + tid] =
+            make_float4(s[i][4 * jj], s[i][4 * jj + 1], s[i][4 * jj + 2],
+                        s[i][4 * jj + 3]);
+    cluster_arrive();
+    cluster_wait();
+    const uint32_t xa =
+        static_cast<uint32_t>(__cvta_generic_to_shared(xb + tid));
+    float4 sum[XE];
+    // two ranks' loads in flight (unrolled further, the kernel spills)
+#pragma unroll 2
+    for (uint32_t r = 0; r < n_ranks; ++r) {
+      float4 p[XE];
+      if (r == rank) {
+#pragma unroll
+        for (int e = 0; e < XE; ++e) {
+          const int i = e / (C_NJ / 4), j = 4 * (e % (C_NJ / 4));
+          p[e] = make_float4(s[i][j], s[i][j + 1], s[i][j + 2], s[i][j + 3]);
+        }
+      } else {
+        const uint32_t ra = map_rank(xa, r);
+#pragma unroll
+        for (int e = 0; e < XE; ++e)
+          p[e] = ld_cluster(ra + e * F_THREADS * 16);   // 16: a float4
+      }
+#pragma unroll
+      for (int e = 0; e < XE; ++e) {
+        if (r == 0) {
+          sum[e] = p[e];
+        } else {
+          sum[e].x += p[e].x;
+          sum[e].y += p[e].y;
+          sum[e].z += p[e].z;
+          sum[e].w += p[e].w;
+        }
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < XE; ++e) {
+      const int i = e / (C_NJ / 4), j = 4 * (e % (C_NJ / 4));
+      s[i][j] = sum[e].x;
+      s[i][j + 1] = sum[e].y;
+      s[i][j + 2] = sum[e].z;
+      s[i][j + 3] = sum[e].w;
+    }
+
+    // online softmax in the log2 domain, as in flash_fwd_f32
+    const bool edge =
+        k0 + C_BK > t_k || (causal && q_offset + q0 < k0 + C_BK - 1);
+#pragma unroll
+    for (int i = 0; i < MI; ++i) {
+      const int row = q_offset + q0 + ty + 16 * i;
+      float mx = __int_as_float(0xff800000);
+#pragma unroll
+      for (int j = 0; j < C_NJ; ++j) {
+        float x = s[i][j] * scale_log2;
+        if (edge) {
+          const int col = k0 + tx + 8 * j;
+          if (col >= t_k) {
+            x = __int_as_float(0xff800000);   // -inf: not a key, weight 0
+          } else if (causal && row < col) {
+            x = MASKED;
+          }
+        }
+        s[i][j] = x;
+        mx = fmaxf(mx, x);
+      }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+      const float m_new = fmaxf(m[i], mx);
+      const float corr = exp2f(m[i] - m_new);
+      m[i] = m_new;
+      float rsum = 0.f;
+#pragma unroll
+      for (int j = 0; j < C_NJ; ++j) {
+        const float p = exp2f(s[i][j] - m_new);
+        rsum += p;
+        p_s[(ty + 16 * i) * C_PS + tx + 8 * j] = p;
+      }
+      l[i] = l[i] * corr + rsum;
+#pragma unroll
+      for (int g = 0; g < NG; ++g)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][g][e] *= corr;
+    }
+    cp_async_wait<1>();   // V(kt) is in (K(kt + 1) may still be in flight)
+    __syncthreads();   // P and V(kt) are in for every thread
+
+    // O += P V over this block's columns
+#pragma unroll
+    for (int j = 0; j < C_BK; j += 4) {
+      float4 pv[MI];
+#pragma unroll
+      for (int i = 0; i < MI; ++i)
+        pv[i] = *reinterpret_cast<const float4*>(p_s + (ty + 16 * i) * C_PS +
+                                                 j);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+#pragma unroll
+        for (int g = 0; g < NG; ++g) {
+          const float4 vv = *reinterpret_cast<const float4*>(
+              v_s + (j + u) * DS + 32 * g + 4 * tx);
+#pragma unroll
+          for (int i = 0; i < MI; ++i) {
+            const float p = u == 0 ? pv[i].x
+                          : u == 1 ? pv[i].y
+                          : u == 2 ? pv[i].z
+                                   : pv[i].w;
+            acc[i][g][0] = fmaf(p, vv.x, acc[i][g][0]);
+            acc[i][g][1] = fmaf(p, vv.y, acc[i][g][1]);
+            acc[i][g][2] = fmaf(p, vv.z, acc[i][g][2]);
+            acc[i][g][3] = fmaf(p, vv.w, acc[i][g][3]);
+          }
+        }
+      }
+    }
+    __syncthreads();   // every thread is done with V(kt) and P
+    if (kt + 1 < n_tiles)
+      stage_tile<C_BK, C_W, VEC>(v_s, v_bh, k0 + C_BK, t_k, rs, dc);
+    cp_async_commit();
+  }
+
+  float row_l[MI];   // each row's sum
+#pragma unroll
+  for (int i = 0; i < MI; ++i) {
+    row_l[i] = l[i];
+    row_l[i] += __shfl_xor_sync(0xffffffffu, row_l[i], 1);
+    row_l[i] += __shfl_xor_sync(0xffffffffu, row_l[i], 2);
+    row_l[i] += __shfl_xor_sync(0xffffffffu, row_l[i], 4);
+  }
+  // no block leaves while a peer may still read its last partials
+  cluster_arrive();
+#pragma unroll
+  for (int i = 0; i < MI; ++i) {
+    const int r = q0 + ty + 16 * i;
+    if (r >= t_q) continue;
+    const float inv = 1.f / fmaxf(row_l[i], 1e-20f);
+    float* o_row = o_bh + (int64_t)r * rs;
+#pragma unroll
+    for (int g = 0; g < NG; ++g) {
+      const int col = c0 + 32 * g + 4 * tx;
+      if constexpr (VEC == 16) {
+        if (col < d)
+          *reinterpret_cast<float4*>(o_row + col) =
+              make_float4(acc[i][g][0] * inv, acc[i][g][1] * inv,
+                          acc[i][g][2] * inv, acc[i][g][3] * inv);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (col + e < d) o_row[col + e] = acc[i][g][e] * inv;
+      }
+    }
+  }
+  cluster_wait();
+}
+
+// ------------------------------------------------ fp32, head dim > 1024
+
+// flash_fwd_f32_split: any d above 1024 (flash_fwd_f32_cluster takes
+// 257-1024, where a cluster would pass 8 blocks), split over d. The
+// output's columns go in chunks of S_DC = 128 on gridDim.z; each block
+// accumulates S = Q K^T
 // over the 128-wide d-chunks of Q and K, staged through shared memory one
 // chunk at a time, then adds P V for its own chunk of V's columns. The
 // thread layout, online softmax and masks are flash_fwd_f32's at 64 Q rows
 // and 128 columns. Each of the ceil(d / 128) column chunks computes S
 // again, and the copies of a K/V tile do not overlap its compute: this
 // path is right for any d, not tuned (it was the route of d 129-256 until
-// flash_fwd_f32_wide: 0.912 ms at (2, 2048, 4, 256) causal on an H100 SXM
-// at 700 W, PERF.md). Shared memory: Q, K and V chunks and P, 77.8 KB.
+// flash_fwd_f32_wide and of 257-1024 until flash_fwd_f32_cluster: 0.912
+// ms at (2, 2048, 4, 256) and 2.319 at (2, 2048, 4, 320) causal on an H100
+// SXM at 700 W; 4.79 at (2, 2048, 1, 1100), PERF.md). Shared memory: Q, K
+// and V chunks and P, 77.8 KB.
 constexpr int S_DC = 128;   // d-chunk width
 constexpr int S_BQ = 64;    // Q rows per block
 
@@ -946,6 +1329,82 @@ cudaError_t launch_f32_split(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// Whether a cluster of `config`'s size can be placed on the current
+// device at `kernel`'s shared memory and registers; asked once per device
+// (the caller keeps one `done` per kernel and cluster size).
+template <typename Kernel>
+cudaError_t cluster_placeable(Kernel kernel, const cudaLaunchConfig_t& config,
+                              std::atomic<uint64_t>& done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const uint64_t bit = dev < 64 ? uint64_t{1} << dev : 0;
+  if (bit && (done.load(std::memory_order_acquire) & bit)) return cudaSuccess;
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(
+      &clusters, reinterpret_cast<const void*>(kernel), &config);
+  if (err != cudaSuccess) {
+    cudaGetLastError();   // returned here; not left for a later launch
+    return err;
+  }
+  if (clusters < 1) return cudaErrorInvalidConfiguration;
+  done.fetch_or(bit, std::memory_order_release);
+  return cudaSuccess;
+}
+
+// The launch of flash_fwd_f32_cluster<VEC> over (x, y) clusters of
+// `blocks` blocks: its config (pointing at `cluster`), after the kernel's
+// dynamic shared memory has been allowed on the current device.
+template <int VEC>
+cudaError_t cluster_config(int x, int y, int blocks, cudaStream_t stream,
+                           cudaLaunchAttribute& cluster,
+                           cudaLaunchConfig_t& config) {
+  static std::atomic<uint64_t> smem_set{0};
+  cudaError_t err = allow_smem(flash_fwd_f32_cluster<VEC>,
+                               f32_cluster_smem_bytes(), smem_set);
+  if (err != cudaSuccess) return err;
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = 1;
+  cluster.val.clusterDim.y = 1;
+  cluster.val.clusterDim.z = blocks;
+  config = {};
+  config.gridDim = dim3(x, y, blocks);
+  config.blockDim = dim3(F_THREADS);
+  config.dynamicSmemBytes = f32_cluster_smem_bytes();
+  config.stream = stream;
+  config.attrs = &cluster;
+  config.numAttrs = 1;
+  return cudaSuccess;
+}
+
+template <int VEC>
+cudaError_t launch_f32_cluster(const void* q, const void* k, const void* v,
+                               void* o, int batch, int t_q, int t_k,
+                               int heads, int d, float scale, int causal,
+                               int q_offset, cudaStream_t stream) {
+  static std::atomic<uint64_t> placed[C_MAX + 1];   // by cluster size
+  const auto kernel = flash_fwd_f32_cluster<VEC>;
+  const int blocks = (d + C_W - 1) / C_W;   // a cluster, one a d-chunk
+  if (blocks > C_MAX) return cudaErrorInvalidValue;
+  cudaLaunchAttribute cluster;
+  cudaLaunchConfig_t config;
+  cudaError_t err = cluster_config<VEC>(batch * heads, (t_q + C_BQ - 1) / C_BQ,
+                                        blocks, stream, cluster, config);
+  if (err != cudaSuccess) return err;
+  err = cluster_placeable(kernel, config, placed[blocks]);
+  if (err != cudaSuccess) return err;
+  err = cudaLaunchKernelEx(&config, kernel, static_cast<const float*>(q),
+                           static_cast<const float*>(k),
+                           static_cast<const float*>(v),
+                           static_cast<float*>(o), t_q, t_k, heads, d,
+                           scale * LOG2E, causal, q_offset);
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return err;
+  }
+  return cudaGetLastError();
+}
+
 template <int DP, int VEC>
 cudaError_t launch_f32_wide(const void* q, const void* k, const void* v,
                             void* o, int batch, int t_q, int t_k, int heads,
@@ -970,9 +1429,12 @@ cudaError_t dispatch_f32(const void* q, const void* k, const void* v, void* o,
                          int batch, int t_q, int t_k, int heads, int d,
                          float scale, int causal, int q_offset,
                          cudaStream_t stream) {
-  if (d > W_D)
+  if (d > C_W * C_MAX)
     return launch_f32_split<VEC>(q, k, v, o, batch, t_q, t_k, heads, d, scale,
                                  causal, q_offset, stream);
+  if (d > W_D)
+    return launch_f32_cluster<VEC>(q, k, v, o, batch, t_q, t_k, heads, d,
+                                   scale, causal, q_offset, stream);
   if (d > 192)
     return launch_f32_wide<256, VEC>(q, k, v, o, batch, t_q, t_k, heads, d,
                                      scale, causal, q_offset, stream);
@@ -991,6 +1453,26 @@ cudaError_t dispatch_f32(const void* q, const void* k, const void* v, void* o,
 
 }  // namespace
 
+// How many clusters of `blocks` blocks of flash_fwd_f32_cluster (16-byte
+// copies) the current device holds at once (cudaOccupancyMaxActiveClusters),
+// or minus the cudaError_t of the query.
+extern "C" int mxtt_flash_attention_fwd_clusters(int blocks) {
+  if (blocks < 1 || blocks > C_MAX) return -(int)cudaErrorInvalidValue;
+  cudaLaunchAttribute cluster;
+  cudaLaunchConfig_t config;
+  cudaError_t err = cluster_config<16>(1, 1, blocks, nullptr, cluster, config);
+  int clusters = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveClusters(
+        &clusters, reinterpret_cast<const void*>(flash_fwd_f32_cluster<16>),
+        &config);
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return -(int)err;
+  }
+  return clusters;
+}
+
 // q: (batch, t_q, heads, d), k/v: (batch, t_k, heads, d), o like q; all
 // contiguous, on the current device. dtype must be 0, float32 (1 and 2,
 // bfloat16 and float16, are flash_attention_fwd_tc.cu's). copy_bytes (16 or
@@ -1004,7 +1486,8 @@ extern "C" int mxtt_flash_attention_fwd(const void* q, const void* k,
                                         void* stream) {
   // grid: batch * heads on x (< 2^31); on y Q tiles of at least 64 rows,
   // or pairs of 64-row tiles (flash_fwd_f32_wide, d 129-256); on z the
-  // split's 128-wide d-chunks (each <= 65535)
+  // 128-wide d-chunks of flash_fwd_f32_cluster (d 257-1024, a cluster's
+  // blocks) and of the split (each <= 65535)
   const bool wide = d > S_DC && d <= W_D;
   const int64_t rows = wide ? 2 * W_BQ : 64;
   if (batch <= 0 || t_q <= 0 || t_k <= 0 || heads <= 0 || d <= 0 ||

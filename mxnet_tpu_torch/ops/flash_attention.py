@@ -8,10 +8,13 @@ through shared memory with an online softmax, so the (T, T) score matrix
 never reaches device memory. Any head dim runs (:func:`launch_plan`):
 bf16/fp16 up to 256 on ``wgmma``, fed by TMA where the rows are 16-byte
 aligned (``flash_fwd_tc_wg``) and by a producer without TMA where they are
-not (``flash_fwd_tc_wg_ldg``); fp32 up to 128 in ``flash_fwd_f32`` and from
-129 to 256 in a kernel whose block owns all of d; wider heads in each
-source's split-over-d kernel. Each is built with ``nvcc`` at first use and
-called through ``ctypes``.
+not (``flash_fwd_tc_wg_ldg``); fp32 up to 128 in ``flash_fwd_f32``, from
+129 to 256 in a kernel whose block owns all of d, and from 257 to 1024 in a
+thread-block cluster whose blocks each own a 128-wide chunk of d and sum
+their partial scores through distributed shared memory
+(``flash_fwd_f32_cluster``); wider heads in each source's split-over-d
+kernel. Each is built with ``nvcc`` at first use and called through
+``ctypes``.
 
 Layout is (B, T, H, D), as in the reference. :func:`flash_attention` routes
 by the device of its inputs: a CUDA tensor launches the kernel (or raises),
@@ -50,16 +53,21 @@ _KERNELS = {
 }
 # the kernels' grid limits: batch * heads on x, Q tiles on y, d-chunks on z
 _MAX_GRID = (2 ** 31 - 1, 65535, 65535)
+# flash_fwd_f32_cluster runs d up to _CLUSTER_D: one block a 128-wide
+# chunk of d, and 8 blocks is the portable cluster limit
+_CLUSTER_D = 1024
 # fp32 above _SPLIT_D runs, up to _WG_D, a kernel whose block owns all of d
-# and two 64-row Q tiles, and the split-over-d kernel above; bf16/fp16 up to
+# and two 64-row Q tiles, up to _CLUSTER_D the cluster kernel, and the
+# split-over-d kernel above; bf16/fp16 up to
 # _WG_D run on wgmma at the smallest width of _WG_ROWS that holds d, its
 # value the Q rows a block (Tiles<width> in csrc/flash_attention_fwd_tc.cu:
 # 64-row consumer warpgroups, four at width 64, two at the others), with
 # either producer, and the split over d above
 _SPLIT_D, _WG_D = 128, 256
 _WG_ROWS = {64: 256, 128: 128, 192: 128, 256: 128}
-_PLANS = ("flash_fwd_f32", "flash_fwd_f32_split", "flash_fwd_f32_wide",
-          "flash_fwd_tc_split", "flash_fwd_tc_wg", "flash_fwd_tc_wg_ldg")
+_PLANS = ("flash_fwd_f32", "flash_fwd_f32_cluster", "flash_fwd_f32_split",
+          "flash_fwd_f32_wide", "flash_fwd_tc_split", "flash_fwd_tc_wg",
+          "flash_fwd_tc_wg_ldg")
 
 
 def use_flash(t_len: int, block: int = 128, on_accel: bool = False) -> bool:
@@ -137,11 +145,14 @@ def launch_plan(dtype, batch, t_q, heads, d, copy=16):
     holds it, on
     ``(batch * heads, Q tiles, 1)`` (128-row Q tiles up to width 64, 64
     above); from 129 to 256 all of d in one block of two 64-row Q tiles
-    (width 192 or 256, ``flash_fwd_f32_wide``, copies of 16 or 4 bytes).
-    Wider heads run the split-over-d kernel (``*_split``, width 128,
-    64-row Q tiles) with its 128-wide chunks of d on the grid's z. Raises
-    where a grid dimension passes the card's limit (x < 2^31, y and z <=
-    65535)."""
+    (width 192 or 256, ``flash_fwd_f32_wide``, copies of 16 or 4 bytes);
+    from 257 to 1024 one cluster of ceil(d / 128) blocks per 64-row Q tile,
+    each block a 128-wide chunk of d (width 128, ``flash_fwd_f32_cluster``:
+    the cluster's blocks on the grid's z; 8 blocks, the portable cluster
+    limit, end its range). Wider heads run the split-over-d kernel
+    (``*_split``, width 128, 64-row Q tiles) with its 128-wide chunks of d
+    on the grid's z. Raises where a grid dimension passes the card's limit
+    (x < 2^31, y and z <= 65535)."""
     chunks = 1
     if dtype != torch.float32 and d <= _WG_D:
         name = "flash_fwd_tc_wg" if copy == 16 else "flash_fwd_tc_wg_ldg"
@@ -157,6 +168,9 @@ def launch_plan(dtype, batch, t_q, heads, d, copy=16):
     elif d <= _WG_D:
         name = "flash_fwd_f32_wide"
         width, rows = 192 if d <= 192 else 256, 128
+    elif d <= _CLUSTER_D:
+        name, width, rows = "flash_fwd_f32_cluster", _SPLIT_D, 64
+        chunks = -(-d // width)
     else:
         name, width, rows = "flash_fwd_f32_split", _SPLIT_D, 64
         chunks = -(-d // width)

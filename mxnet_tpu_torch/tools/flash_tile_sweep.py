@@ -25,6 +25,14 @@ patches of ``WIDE_PATCHES``: one Q tile a block in place of the causal
 pairing, d split over 4 lanes (8 x 4 scores a lane) in place of 8, and
 other unroll counts of its Q K^T and P V loops; and times each at the
 same three shapes in fp32 and at d = 256 causal at batch 1.
+``--kernel f32cluster`` builds variants of ``flash_attention_fwd.cu`` that
+differ from ``flash_fwd_f32_cluster`` (the fp32 kernel for head dims
+257-1024) by the patches of ``CLUSTER_PATCHES``: 64-wide chunks of d,
+64-row K/V tiles, one block an SM, a second V buffer, one rank's loads in
+flight, the split over d, the exchange as a reduce-scatter of S's rows,
+and diagnostics without the exchange, or without it and the barrier; and
+times each at fp32 (2, 2048, 2, 512) causal and not and (2, 2048, 4, 320),
+beside ``flash_fwd_f32`` at (2, 2048, 8, 128), the same operations.
 ``--kernel wg_ldg`` builds variants of ``flash_attention_fwd_tc.cu`` that
 differ from ``flash_fwd_tc_wg_ldg`` (the wgmma kernel's producer for the
 bf16/fp16 rows TMA refuses) by the patches of ``WG_LDG_PATCHES``: its
@@ -46,7 +54,7 @@ per call, ``chip_smoke.time_cuda``) in turns (variant order reversed every
 round). Run from the repo root on a machine with an NVIDIA GPU:
 
     python3 mxnet_tpu_torch/tools/flash_tile_sweep.py
-        [--kernel f32|wg|wg_ldg|f32wide] [--rounds 3]
+        [--kernel f32|wg|wg_ldg|f32wide|f32cluster] [--rounds 3]
 
 Prints the card's name and power limit, then one JSON line per variant
 (median ms of each round, registers and spills from ptxas) and writes them to ``flash_tile_sweep_<kernel>.json``
@@ -199,10 +207,6 @@ WG_VARIANTS = {
     "loads_only": ("loads_only",),
     "no_loads": ("no_loads",),
 }
-# timing only: wrong results
-WG_DIAGNOSTICS = ("loads_only", "no_loads", "loads_only_no_copy",
-                  "loads_only_no_shift", "loads_only_neither", "no_fence",
-                  "loads_only_no_fence")
 WG_CASES = {   # name: (q shape, t_k, causal), bf16
     "d64_causal": ((2, 2048, 16, 64), 2048, True),
     "d64_noncausal": ((2, 2048, 16, 64), 2048, False),
@@ -345,6 +349,236 @@ WIDE_PATCHES = {
     "pv_unroll_all": [(r"#pragma unroll 2\n(      for \(int j = 0; j < F_BK)",
                        "#pragma unroll\n\\1", 1)],
 }
+# flash_fwd_f32_cluster's exchange as a reduce-scatter: the 8 threads of a
+# row group ty own its rows in block ty % C, sum the cluster's partials of
+# them in rank order and run their softmax; a second cluster barrier a K
+# tile, then the other blocks read those rows' P and corrections (and at
+# the end their sums) from the owner. Partials read a tile: 1/C of the
+# all-gather's, plus P
+_CLUSTER_RS = """\
+    // the cluster's partials, reduce-scattered by row group
+    static_assert(C_BK == 32, "a row of P is one float4 a thread");
+    float4* corr_s = x_s + XB;   // C_BQ corrections, one float4 a row
+    const bool own = ty % n_ranks == rank;
+    const uint32_t owner = ty % n_ranks;
+#pragma unroll
+    for (int i = 0; i < MI; ++i)
+#pragma unroll
+      for (int jj = 0; jj < C_NJ / 4; ++jj)
+        x_s[(i * (C_NJ / 4) + jj) * F_THREADS + tid] =
+            make_float4(s[i][4 * jj], s[i][4 * jj + 1], s[i][4 * jj + 2],
+                        s[i][4 * jj + 3]);
+    cluster_arrive();
+    cluster_wait();
+    if (own) {
+      const uint32_t xa =
+          static_cast<uint32_t>(__cvta_generic_to_shared(x_s + tid));
+      float4 sum[XE];
+#pragma unroll 2
+      for (uint32_t r = 0; r < n_ranks; ++r) {
+        float4 p[XE];
+        if (r == rank) {
+#pragma unroll
+          for (int e = 0; e < XE; ++e) {
+            const int i = e / (C_NJ / 4), j = 4 * (e % (C_NJ / 4));
+            p[e] = make_float4(s[i][j], s[i][j + 1], s[i][j + 2],
+                               s[i][j + 3]);
+          }
+        } else {
+          const uint32_t ra = map_rank(xa, r);
+#pragma unroll
+          for (int e = 0; e < XE; ++e)
+            p[e] = ld_cluster(ra + e * F_THREADS * 16);
+        }
+#pragma unroll
+        for (int e = 0; e < XE; ++e) {
+          if (r == 0) {
+            sum[e] = p[e];
+          } else {
+            sum[e].x += p[e].x;
+            sum[e].y += p[e].y;
+            sum[e].z += p[e].z;
+            sum[e].w += p[e].w;
+          }
+        }
+      }
+#pragma unroll
+      for (int e = 0; e < XE; ++e) {
+        const int i = e / (C_NJ / 4), j = 4 * (e % (C_NJ / 4));
+        s[i][j] = sum[e].x;
+        s[i][j + 1] = sum[e].y;
+        s[i][j + 2] = sum[e].z;
+        s[i][j + 3] = sum[e].w;
+      }
+    }
+    const bool edge =
+        k0 + C_BK > t_k || (causal && q_offset + q0 < k0 + C_BK - 1);
+    float corr[MI];
+#pragma unroll
+    for (int i = 0; i < MI; ++i) {
+      const int row = q_offset + q0 + ty + 16 * i;
+      float mx = __int_as_float(0xff800000);
+#pragma unroll
+      for (int j = 0; j < C_NJ; ++j) {
+        float x = s[i][j] * scale_log2;
+        if (edge) {
+          const int col = k0 + tx + 8 * j;
+          if (col >= t_k) {
+            x = __int_as_float(0xff800000);
+          } else if (causal && row < col) {
+            x = MASKED;
+          }
+        }
+        s[i][j] = x;
+        mx = fmaxf(mx, x);
+      }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+      const float m_new = fmaxf(m[i], mx);
+      corr[i] = exp2f(m[i] - m_new);
+      float rsum = 0.f;
+#pragma unroll
+      for (int j = 0; j < C_NJ; ++j) {
+        const float p = exp2f(s[i][j] - m_new);
+        rsum += p;
+        if (own) p_s[(ty + 16 * i) * C_PS + tx + 8 * j] = p;
+      }
+      if (own) {
+        m[i] = m_new;
+        l[i] = l[i] * corr[i] + rsum;
+        if (tx == 0) corr_s[ty + 16 * i] = make_float4(corr[i], 0.f, 0.f, 0.f);
+      }
+    }
+    cluster_arrive();
+    cluster_wait();   // every owner's P and corrections are in
+    if (!own) {
+#pragma unroll
+      for (int i = 0; i < MI; ++i) {
+        const int r = ty + 16 * i;
+        float* pr = p_s + r * C_PS + 4 * tx;
+        *reinterpret_cast<float4*>(pr) = ld_cluster(map_rank(
+            static_cast<uint32_t>(__cvta_generic_to_shared(pr)), owner));
+        corr[i] = ld_cluster(map_rank(
+            static_cast<uint32_t>(__cvta_generic_to_shared(corr_s + r)),
+            owner)).x;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < MI; ++i)
+#pragma unroll
+      for (int g = 0; g < NG; ++g)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][g][e] *= corr[i];
+"""
+# ... and the rows' sums from their owners at the end
+_CLUSTER_RS_END = """\
+  {
+    float4* l_s = x_s + XB + C_BQ;   // C_BQ row sums, one float4 a row
+    const bool own = ty % n_ranks == rank;
+    if (own && tx == 0) {
+#pragma unroll
+      for (int i = 0; i < MI; ++i)
+        l_s[ty + 16 * i] = make_float4(row_l[i], 0.f, 0.f, 0.f);
+    }
+    cluster_arrive();
+    cluster_wait();
+    if (!own) {
+#pragma unroll
+      for (int i = 0; i < MI; ++i)
+        row_l[i] = ld_cluster(map_rank(static_cast<uint32_t>(
+            __cvta_generic_to_shared(l_s + ty + 16 * i)), ty % n_ranks)).x;
+    }
+  }
+  // no block leaves while a peer may still read its last partials
+  cluster_arrive();
+"""
+# flash_fwd_f32_cluster with a second V buffer: V(n + 1) goes into buffer
+# (n + 1) % 2 from the start of tile n, behind K(n + 1), so P V waits for
+# all but two copy groups and the end of a tile stages nothing
+_V2_STAGE = """\
+    if (kt + 1 < n_tiles)
+      stage_tile<C_BK, C_W, VEC>(v_s + ((kt + 1) & 1) * C_BK * DS, v_bh,
+                                 k0 + C_BK, t_k, rs, dc);
+    cp_async_commit();
+"""
+_CLUSTER_V2 = [
+    (r"\(C_BQ \+ 3 \* C_BK\)", "(C_BQ + 4 * C_BK)", 1),
+    (r"float\* p_s = v_s \+ C_BK \* DS;", "float* p_s = v_s + 2 * C_BK * DS;",
+     1),
+    (r"k_s \+ \(\(kt \+ 1\) & 1\) \* C_BK \* DS, k_bh,\n"
+     r" +k0 \+ C_BK, t_k, rs, dc\);\n    cp_async_commit\(\);\n",
+     lambda m: m.group(0) + _V2_STAGE, 1),
+    (r"cp_async_wait<1>\(\);   // V\(kt\) is in[^\n]*",
+     "cp_async_wait<2>();   // V(kt) is in", 1),
+    (r"(    // O \+= P V over this block's columns\n.*?)"
+     r"v_s \+ \(j \+ u\) \* DS",
+     lambda m: m.group(1) + "v_s + (kt & 1) * C_BK * DS + (j + u) * DS", 1),
+    (r"    __syncthreads\(\);   // every thread is done with V\(kt\) and P\n"
+     r".*?cp_async_commit\(\);\n", "", 1),
+    (r"constexpr int C_BLOCKS = 2;", "constexpr int C_BLOCKS = 1;", 1),
+]
+# flash_fwd_f32_cluster: (pattern, replacement, matches) of each patch
+CLUSTER_PATCHES = {
+    # 64-wide d-chunks: twice the blocks a cluster (d 320: 5 equal chunks
+    # in place of 3 with the last half empty; d 512: 8), half the work a
+    # block, the same partials to exchange
+    "w64": [(r"constexpr int C_W = 128;", "constexpr int C_W = 64;", 1)],
+    # K/V tiles of 64 rows: half the barriers and exchanges, partials of
+    # 64 x 64; 186 KB of shared memory, one block an SM
+    "bk64": [(r"constexpr int C_BK = 32;", "constexpr int C_BK = 64;", 1),
+             (r"constexpr int C_BLOCKS = 2;", "constexpr int C_BLOCKS = 1;",
+              1)],
+    # one block an SM: the same code with 20 KB more shared memory asked
+    # at launch
+    "one_block": [(r"2 \* \(size_t\)C_BQ \* C_BK\);",
+                   "2 * (size_t)C_BQ * C_BK + 5120);", 1)],
+    # two V buffers (V of tile n + 1 copied from the start of tile n, one
+    # __syncthreads a tile fewer): 128 KB, one block an SM
+    "v2": _CLUSTER_V2,
+    # the split over d (each 128-wide chunk computes all of S) at d 257-1024
+    "split": [(r"if \(d > C_W \* C_MAX\)", "if (d > W_D)", 1)],
+    # the loop over ranks not unrolled: one rank's loads in flight (the
+    # source: two)
+    "ranks_serial": [(r"#pragma unroll 2\n(    for \(uint32_t r = 0;)",
+                      "#pragma unroll 1\n\\1", 1)],
+    # the exchange as a reduce-scatter of S's rows and an all-gather of P
+    "rs": [(r"    // S = the cluster's partials summed in rank order\n.*?"
+            r"(?=    cp_async_wait<1>\(\);   // V\(kt\) is in)",
+            lambda m: _CLUSTER_RS, 1),
+           (r"  // no block leaves while a peer may still read its last "
+            r"partials\n  cluster_arrive\(\);\n",
+            lambda m: _CLUSTER_RS_END, 1)],
+    # diagnostics (wrong results): each block sums only its own partial
+    # (the cluster barrier stays), and also without the barrier
+    "no_exchange": [(r"const uint32_t n_ranks = cluster_blocks\(\);",
+                     "const uint32_t n_ranks = 1;", 1),
+                    (r"if \(r == rank\) \{", "if (r == r) {", 1)],
+    "no_barrier": [(r"    cluster_arrive\(\);\n    cluster_wait\(\);\n",
+                    "", 1)],
+}
+CLUSTER_VARIANTS = {   # name: patches
+    "committed": (),
+    "w64": ("w64",),
+    "bk64": ("bk64",),
+    "one_block": ("one_block",),
+    "v2": ("v2",),
+    "split": ("split",),
+    "ranks_serial": ("ranks_serial",),
+    "rs": ("rs",),
+    "rs_w64": ("rs", "w64"),
+    "no_exchange": ("no_exchange",),
+    "compute_alone": ("no_exchange", "no_barrier"),
+}
+# fp32: the LM at 2 heads of 512 (causal and not), the split's old row at
+# 4 heads of 320, and flash_fwd_f32 at 8 heads of 128 (the same operations
+# as 2 heads of 512; no variant changes its kernel) as a yardstick
+CLUSTER_CASES = {
+    "d512_causal": ((2, 2048, 2, 512), 2048, True),
+    "d320_causal": ((2, 2048, 4, 320), 2048, True),
+    "d512_noncausal": ((2, 2048, 2, 512), 2048, False),
+    "d128_f32_causal": ((2, 2048, 8, 128), 2048, True),
+}
 WIDE_VARIANTS = {   # name: patches
     "committed": (),
     "unpaired": ("unpaired",),
@@ -390,6 +624,17 @@ def wg_ldg_variant_source(src, *patches):
     return wg_variant_source(src, *patches, table=WG_LDG_PATCHES)
 
 
+def cluster_variant_source(src, *patches):
+    return wg_variant_source(src, *patches, table=CLUSTER_PATCHES)
+
+
+# each kernel's diagnostics: variants timed only, their results wrong
+DIAGNOSTICS = {
+    "wg": ("loads_only", "no_loads"),
+    "wg_ldg": ("loads_only", "loads_only_no_copy", "loads_only_no_shift",
+               "loads_only_neither", "no_fence", "loads_only_no_fence"),
+    "f32cluster": ("no_exchange", "compute_alone"),
+}
 # kernel: (source, variants, make a variant's source, ptxas markers)
 KERNELS = {
     "f32": ("flash_attention_fwd.cu", VARIANTS, variant_source,
@@ -399,6 +644,9 @@ KERNELS = {
                  for w in (64, 128, 256))),
     "f32wide": ("flash_attention_fwd.cu", WIDE_VARIANTS, wide_variant_source,
                 ("flash_fwd_f32_wideILi256ELi16E",)),
+    "f32cluster": ("flash_attention_fwd.cu", CLUSTER_VARIANTS,
+                   cluster_variant_source,
+                   ("flash_fwd_f32_clusterILi16E",)),
     "wg_ldg": ("flash_attention_fwd_tc.cu", WG_LDG_VARIANTS,
                wg_ldg_variant_source,
                tuple(f"flash_fwd_tc_wg_ldgI13__nv_bfloat16Li{w}E"
@@ -482,8 +730,9 @@ def main(argv=None):
         "f32": (CASES, torch.float32, 1e-4, time_cuda),
         "wg": (WG_CASES, torch.bfloat16, 2e-2, time_device),
         "wg_ldg": (WG_LDG_CASES, torch.bfloat16, 2e-2, time_device),
-        "f32wide": (WIDE_CASES, torch.float32, 1e-4,
-                    time_device)}[args.kernel]
+        "f32wide": (WIDE_CASES, torch.float32, 1e-4, time_device),
+        "f32cluster": (CLUSTER_CASES, torch.float32, 1e-4,
+                       time_device)}[args.kernel]
     g = torch.Generator(device="cuda").manual_seed(0)
     data = {}
     for case, (shp, t_k, causal, *offset) in cases.items():
@@ -496,7 +745,7 @@ def main(argv=None):
         want = flash_attention_reference(q.float(), k.float(), v.float(),
                                          causal=causal)
         for name, fn in fns.items():
-            if name in WG_DIAGNOSTICS:
+            if name in DIAGNOSTICS.get(args.kernel, ()):
                 continue   # a diagnostic: its results are wrong
             got = call(fn, q, k, v, causal).float()
             err = float((got - want).abs().max())

@@ -117,12 +117,14 @@ def test_cuda_kernel_matches_plain(dtype, tol, causal, q_offset, t_q, t_k, d,
     assert tfa.flash_attention.launches == before + 1
     # the kernel of the route: bf16/fp16 up to d 256 run the wgmma kernel,
     # flash_fwd_tc_wg with 16-byte rows, flash_fwd_tc_wg_ldg with the
-    # others; fp32 runs flash_fwd_f32 up to 128 and flash_fwd_f32_wide
-    # (either copy width) from 129 to 256; the rest the split over d
+    # others; fp32 runs flash_fwd_f32 up to 128, flash_fwd_f32_wide
+    # (either copy width) from 129 to 256 and flash_fwd_f32_cluster from 257
+    # to 1024; the rest the split over d
     assert tfa.flash_attention.launches_by_kernel[plan] == by_kernel + 1
     if dtype == torch.float32:
         route = ("flash_fwd_f32" if d <= 128 else "flash_fwd_f32_wide"
-                 if d <= 256 else "flash_fwd_f32_split")
+                 if d <= 256 else "flash_fwd_f32_cluster" if d <= 1024
+                 else "flash_fwd_f32_split")
     else:
         route = ("flash_fwd_tc_split" if d > 256 else "flash_fwd_tc_wg"
                  if aligned else "flash_fwd_tc_wg_ldg")
@@ -131,6 +133,56 @@ def test_cuda_kernel_matches_plain(dtype, tol, causal, q_offset, t_q, t_k, d,
                                          causal=causal, q_offset=q_offset)
     assert got.dtype == dtype
     assert float((got.float() - want).abs().max()) <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch,t_q,t_k,heads,d,causal,q_offset,offset", [
+    # d 320 (three 128-wide chunks, the last half empty) and 512 (four),
+    # causal and not, at T above one Q tile
+    (2, 300, 300, 2, 320, True, 0, 0), (2, 300, 300, 2, 320, False, 0, 0),
+    (2, 260, 260, 2, 512, True, 0, 0), (2, 200, 333, 2, 512, False, 0, 0),
+    # ragged d (columns past d zero in the last chunk), d 1000 and 1024
+    # (clusters of 8 blocks), d 257 (the narrowest)
+    (2, 190, 190, 3, 300, True, 0, 0), (2, 150, 150, 2, 500, True, 0, 0),
+    (2, 130, 130, 1, 1000, True, 0, 0), (1, 70, 70, 1, 1024, False, 0, 0),
+    (2, 129, 129, 2, 257, True, 0, 0),
+    # views at an offset of one element: 4-byte copies
+    (2, 200, 200, 2, 512, True, 0, 1), (2, 77, 90, 3, 1024, True, 13, 1),
+    (1, 100, 100, 2, 767, False, 0, 1),
+    # batch 1; ragged T with q_offset; t_q of 1 and below one Q tile
+    (1, 256, 256, 2, 512, True, 0, 0), (1, 200, 264, 2, 512, True, 64, 0),
+    (1, 100, 180, 2, 320, False, 9, 0), (2, 1, 1, 3, 384, True, 0, 0),
+    (2, 1, 40, 2, 512, True, 39, 0), (2, 33, 33, 2, 640, True, 0, 0),
+    # above 1024: the split over d
+    (2, 65, 65, 2, 1100, True, 0, 0)])
+def test_f32_cluster_matches_plain(batch, t_q, t_k, heads, d, causal,
+                                   q_offset, offset):
+    """fp32 head dims 257-1024 on flash_fwd_f32_cluster (above 1024 the
+    split), each launch counted by exact name, held to the plain version
+    within 1e-4; the blocks of a cluster sum their partial scores in rank
+    order, so a second run gives the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc; runs on the card")
+    g = torch.Generator(device="cuda").manual_seed(d + t_q)
+    q, k, v = (_at_offset(torch.randn((batch, t, heads, d), generator=g,
+                                      device="cuda"), offset)
+               for t in (t_q, t_k, t_k))
+    copy = tfa.copy_bytes(d, q.data_ptr(), k.data_ptr(), v.data_ptr())
+    assert copy == (4 if offset or d % 4 else 16)
+    plan = tfa.launch_plan(torch.float32, batch, t_q, heads, d, copy)
+    assert plan[0] == ("flash_fwd_f32_cluster" if d <= 1024
+                       else "flash_fwd_f32_split")
+    assert plan[2][2] == -(-d // 128)
+    counts = tfa.flash_attention.launches_by_kernel
+    before = counts[plan[0]]
+    got = tfa.flash_attention(q, k, v, causal=causal, q_offset=q_offset)
+    again = tfa.flash_attention(q, k, v, causal=causal, q_offset=q_offset)
+    torch.cuda.synchronize()
+    assert counts[plan[0]] == before + 2
+    want = tfa.flash_attention_reference(q, k, v, causal=causal,
+                                         q_offset=q_offset)
+    assert float((got - want).abs().max()) <= 1e-4
+    assert torch.equal(got, again)
 
 
 @pytest.mark.gpu

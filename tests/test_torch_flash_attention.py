@@ -140,7 +140,16 @@ def test_copy_bytes_rule(d, offset, want):
     (torch.float32, 192, ("flash_fwd_f32_wide", 192, (6, 2, 1))),
     (torch.float32, 200, ("flash_fwd_f32_wide", 256, (6, 2, 1))),
     (torch.float32, 256, ("flash_fwd_f32_wide", 256, (6, 2, 1))),
-    (torch.float32, 300, ("flash_fwd_f32_split", 128, (6, 4, 3))),
+    # fp32 from 257 to 1024: a cluster of ceil(d / 128) blocks a 64-row Q
+    # tile, each a 128-wide chunk of d (the blocks on the grid's z); the
+    # split over d above
+    (torch.float32, 300, ("flash_fwd_f32_cluster", 128, (6, 4, 3))),
+    (torch.float32, 257, ("flash_fwd_f32_cluster", 128, (6, 4, 3))),
+    (torch.float32, 320, ("flash_fwd_f32_cluster", 128, (6, 4, 3))),
+    (torch.float32, 512, ("flash_fwd_f32_cluster", 128, (6, 4, 4))),
+    (torch.float32, 1000, ("flash_fwd_f32_cluster", 128, (6, 4, 8))),
+    (torch.float32, 1024, ("flash_fwd_f32_cluster", 128, (6, 4, 8))),
+    (torch.float32, 1025, ("flash_fwd_f32_split", 128, (6, 4, 9))),
     # bf16/fp16 with 16-byte copies: the wgmma/TMA kernel at every d up to
     # 256, all of d in a block of four 64-row Q tiles at width 64 (the 4
     # tiles of 200 rows: 1 block) and of two at 128 and above (2 blocks)
@@ -169,7 +178,9 @@ def test_launch_plan_by_head_dim(dtype, d, want):
     128 and its wide kernel from 129 to 256; bf16/fp16 the wgmma/TMA kernel
     at the smallest of widths 64, 128, 192 and 256 that holds d; wider
     heads the split over d, one 128-wide chunk of the output's columns on
-    each grid z. fp32 Q tiles are 128 rows up to width 64, else 64."""
+    each grid z, but fp32 from 257 to 1024, which runs a cluster of blocks,
+    one a 128-wide chunk of d, on the grid's z. fp32 Q tiles are 128 rows
+    up to width 64, else 64."""
     assert tfa.launch_plan(dtype, 2, 200, 3, d) == want
     assert tfa.launch_plan(dtype, 2, 200, 3, d, 16) == want
 
@@ -184,7 +195,9 @@ def test_launch_plan_by_head_dim(dtype, d, want):
     (torch.float32, 256, 4, ("flash_fwd_f32_wide", 256, (6, 2, 1))),
     (torch.float32, 200, 4, ("flash_fwd_f32_wide", 256, (6, 2, 1))),
     (torch.float32, 130, 4, ("flash_fwd_f32_wide", 192, (6, 2, 1))),
-    (torch.float32, 300, 4, ("flash_fwd_f32_split", 128, (6, 4, 3))),
+    (torch.float32, 300, 4, ("flash_fwd_f32_cluster", 128, (6, 4, 3))),
+    (torch.float32, 512, 4, ("flash_fwd_f32_cluster", 128, (6, 4, 4))),
+    (torch.float32, 1100, 4, ("flash_fwd_f32_split", 128, (6, 4, 9))),
     (torch.bfloat16, 128, 2, ("flash_fwd_tc_wg_ldg", 128, (6, 2, 1))),
     (torch.bfloat16, 50, 2, ("flash_fwd_tc_wg_ldg", 64, (6, 1, 1))),
     # odd d: 2-byte rows at every width
@@ -203,8 +216,8 @@ def test_launch_plan_by_copy_width(dtype, d, copy, want):
     """2-byte rows (what TMA refuses: d not a multiple of 8, or a base that
     is not 16-byte aligned) run flash_fwd_tc_wg_ldg up to d 256, at the TMA
     route's width and grid, and the split over d above; fp32's 4-byte
-    copies change no route: the wide kernel copies 4 bytes at a time
-    too."""
+    copies change no route: the wide and cluster kernels copy 4 bytes at a
+    time too."""
     assert tfa.launch_plan(dtype, 2, 200, 3, d, copy) == want
 
 
@@ -259,6 +272,24 @@ def test_launch_plan_f32_wide_grid_pairs_q_tiles(d, width):
         tfa.launch_plan(torch.float32, 1, 128 * 65535 + 1, 1, d)
 
 
+@pytest.mark.parametrize("d,blocks", [(257, 3), (320, 3), (384, 3),
+                                      (385, 4), (512, 4), (1000, 8),
+                                      (1024, 8)])
+def test_launch_plan_f32_cluster_grid(d, blocks):
+    """fp32's cluster kernel: one cluster of ceil(d / 128) blocks for each
+    64-row Q tile of a head, its blocks on the grid's z, at either copy
+    width, and its y capped like the other kernels'."""
+    for t_q, tiles in ((1, 1), (64, 1), (65, 2), (200, 4), (2048, 32),
+                       (2049, 33)):
+        for copy in (16, 4):
+            assert tfa.launch_plan(torch.float32, 2, t_q, 4, d, copy) \
+                == ("flash_fwd_f32_cluster", 128, (8, tiles, blocks))
+    assert tfa.launch_plan(torch.float32, 1, 64 * 65535, 1, d)[2][1] \
+        == 65535
+    with pytest.raises(MXNetError, match="Q tiles"):
+        tfa.launch_plan(torch.float32, 1, 64 * 65535 + 1, 1, d)
+
+
 @pytest.mark.parametrize("batch,heads,ok", [
     (1, 65535, True), (16400, 4, True), (4100, 16, True),
     (2 ** 16, 2 ** 15 - 1, True), (2 ** 16, 2 ** 15, False)])
@@ -290,11 +321,12 @@ def test_launch_plan_q_tiles_and_chunks_capped():
         tfa.launch_plan(torch.float32, 1, 64, 1, 128 * 65535 + 1)
 
 
-@pytest.mark.parametrize("d", [160, 192, 200, 256])
+@pytest.mark.parametrize("d", [160, 192, 200, 256, 320, 512])
 @pytest.mark.parametrize("causal", [False, True])
 def test_head_dim_above_128_matches_pallas_interpret(monkeypatch, d, causal):
     """Head dims the CUDA path runs in its kernels that own all of d
-    (fp32's wide kernel, bf16/fp16's wgmma/TMA one): the port's wrapper
+    (fp32's wide kernel, bf16/fp16's wgmma/TMA one) and, at 320 and 512,
+    in fp32's cluster of blocks that split d: the port's wrapper
     (its plain version on the CPU) against the JAX kernel in interpret mode,
     as the JAX package's own tests run it (T a multiple of its 128 block),
     with q_offset on the causal case."""

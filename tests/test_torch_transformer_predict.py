@@ -56,6 +56,14 @@ def test_lm_probs_match_jax_predictor_at_head_dim_256(flash_on,
     _lm_probs_match_jax_predictor(monkeypatch, 512, 2)
 
 
+def test_lm_probs_match_jax_predictor_at_head_dim_512(flash_on,
+                                                      monkeypatch):
+    """2 heads of 512 (hidden 1024): on the card fp32 attention at this head
+    dim runs flash_fwd_f32_cluster (a cluster of four blocks, each a
+    128-wide chunk of d); here the same wrapper takes its plain version."""
+    _lm_probs_match_jax_predictor(monkeypatch, 1024, 2)
+
+
 def _lm_probs_match_jax_predictor(monkeypatch, hidden, heads):
     sj, st = _symbols(hidden, heads)
     params = _weights(st)
