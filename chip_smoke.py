@@ -25,9 +25,12 @@ result line:
    ptxas's registers of ``flash_fwd_f32_wide``'s four instantiations, of
    ``flash_fwd_f32_cluster``'s two (16- and 4-byte copies) and of
    ``flash_fwd_tc_wg``'s and ``flash_fwd_tc_wg_ldg``'s eight each (bf16
-   and fp16 at widths 64, 128, 192 and 256), none of which may spill, no
-   wgmma that ptxas serialized, and the consumers' registers (setmaxnreg)
-   of both routes, 112 at width 64;
+   and fp16 at widths 64, 128, 192 and 256) and ``flash_fwd_tc_cluster``'s
+   and ``flash_fwd_tc_cluster_ldg``'s ten each (bf16 and fp16 at clusters
+   of 2-6 blocks), none of which may spill (the cluster kernels at most 64
+   bytes), no wgmma that ptxas serialized, the consumers' registers
+   (setmaxnreg) of both routes, 112 at width 64, and the clusters of each
+   cluster kernel the card places at once;
 3. kernel vs plain: the flash-attention kernels against their plain version
    at the main path's shape (bf16/fp16 on wgmma at every head dim up to
    256: 16-byte rows through TMA, the others through the LDG producer;
@@ -38,12 +41,14 @@ result line:
    fp16 on the wgmma kernel, TMA or LDG at an offset of one element), 192
    (fp32's wide kernel; bf16 and fp16, the wgmma/TMA kernel), 200 and 250
    (fp32's wide kernel; 500-byte bf16 rows, LDG), 320 (fp32's cluster
-   kernel, causal and not; bf16/fp16's split over d, bf16 also at an
-   offset of one element), 512 (fp32's cluster kernel: phase 4(c)'s shape,
-   causal and not, at an offset of one element, at batch 1, and a ragged T
-   with ``q_offset``), 500 and 1000 (the cluster kernel: zero past d in its
-   last chunk; clusters of 8 blocks), 1100 (fp32's split over d), in fp32
-   (CUDA cores),
+   kernel, causal and not; bf16/fp16's cluster kernel, bf16 also at an
+   offset of one element on its LDG route), 512 (fp32's cluster kernel:
+   phase 4(c)'s shape, causal and not, at an offset of one element, at
+   batch 1, and a ragged T with ``q_offset``; bf16's cluster kernel, phase
+   8's d = 512 shape, causal and not, fp16 at an offset of one element),
+   500 and 1000 (the cluster kernels: zero past d in the last chunk;
+   clusters of 8 blocks in fp32, 6 in bf16), 1100 (each dtype's split over
+   d), in fp32 (CUDA cores),
    bf16 and fp16 (tensor cores), each row naming the kernel that ran, timed
    per call (as in earlier slices) and on the device alone, beside the
    plain version and a library attention call, with its share of the
@@ -96,11 +101,11 @@ result line:
    casts and the rest, beside the idle share; then bf16 on the card against bf16 on the CPU at depth 2
    (batch 1, T 512), and int32 ids above 256 fed into a float32-bound
    ``data`` against the same feed bound as int32 (the ids must not round
-   in bf16); then the same LM in 4 heads of 256 and in 8 heads of 128
-   (the head-dim-256 and -128 paths): 2 requests each through the captured
-   forward, each traced (12 ``flash_fwd_tc_wg`` kernels a request, no
-   other flash kernel), probabilities checked, request ms captured and
-   eager;
+   in bf16); then the same LM in 4 heads of 256, in 8 heads of 128 and in
+   2 heads of 512 (the head-dim-256, -128 and -512 paths): 2 requests each
+   through the captured forward, each traced (12 ``flash_fwd_tc_wg``
+   kernels a request, ``flash_fwd_tc_cluster`` at 2 heads of 512, no other
+   flash kernel), probabilities checked, request ms captured and eager;
 9. training: ``Module(amp="bfloat16")`` over the LM with the fused head
    and Adam at lr 1e-4, batch 4 x 2048 int32 tokens, the phase-4 weights
    through ``init_params(arg_params=...)``; five steps of
@@ -350,11 +355,14 @@ GEMM_NAME = re.compile(r"gemm|gemv|nvjet|cutlass", re.IGNORECASE)
 # ("...wgk::flash_fwd_tc_wg<__nv_bfloat16, 64>(...)": flash_fwd_tc_wg)
 FLASH_NAME = re.compile(r"(flash_fwd[a-z0-9_]*)(?:<|I\d|\()")
 KERNEL_LIBS = ("flash_attention_fwd", "flash_attention_fwd_tc")
+# the 16-bit kernels for head dims 257-1024: a cluster of blocks that split d
+TC_CLUSTER_KERNELS = ("flash_fwd_tc_cluster", "flash_fwd_tc_cluster_ldg")
 AMP_REQUESTS = 4
 AMP_CPU_SEQ = 512   # T of the card-vs-CPU check under amp
 AMP_D256_HEADS, AMP_D256_REQUESTS = 4, 2   # phase 8's head-dim-256 path
 D512_HEADS = 2                             # phase 4(c)'s head-dim-512 path
-AMP_D128_HEADS = 8                         # and its head-dim-128 path
+AMP_D128_HEADS = 8                         # phase 8's head-dim-128 path
+AMP_D512_HEADS = 2                         # and its head-dim-512 path
 # a kernel's numbers in the `kernels` line: `ms`, `plain_ms` and `library_ms`
 # time one call between two events (the host's dispatch where it is longer
 # than the kernel), as in every earlier slice; `device_ms` and
@@ -613,12 +621,32 @@ def phase_build():
             "ptxas: every flash_fwd_tc_wg_ldg instantiation (bf16 and fp16, "
             "64, 128, 192 and 256 wide) without spills, at the TMA route's "
             "registers at launch")
+        for kernel in TC_CLUSTER_KERNELS:
+            report = ptxas_report(log, kernel)
+            out["ptxas_" + kernel] = report
+            print(f"  ptxas {kernel}: " + json.dumps(report), flush=True)
+            # the exchange beside O: every tile shape tried at 240
+            # registers spills a little at 3 ranks or more (PERF.md); held
+            # so that a change that spills the 600 bytes of 256-wide chunks
+            # fails here
+            check(len(report) == 10 and all(
+                r["spill_stores"] <= 64 for r in report.values()),
+                f"ptxas: every {kernel} instantiation (bf16 and fp16, "
+                "clusters of 2-6 blocks) spills at most 64 bytes")
     regs = setmaxnreg_counts()
     out["setmaxnreg"] = regs
-    print("  setmaxnreg (producer, consumers) by width: "
-          + json.dumps(regs), flush=True)
+    print("  setmaxnreg (producer, consumers) by width (cluster: the "
+          "cluster kernels'): " + json.dumps(regs), flush=True)
     check(regs["tma"]["64"][1] == 112 == regs["ldg"]["64"][1],
           "the width-64 consumers keep 112 registers on both routes")
+    tc_clusters = tc_cluster_counts()
+    out["tc_clusters_at_once"] = tc_clusters
+    print("  flash_fwd_tc_cluster (tma) and _ldg: clusters the card holds "
+          "at once, by blocks a cluster: " + json.dumps(tc_clusters),
+          flush=True)
+    check(all(n >= 1 for by in tc_clusters.values() for n in by.values()),
+          "the card places the 16-bit cluster kernels' clusters of 2-6 "
+          "blocks on both routes")
     return out
 
 
@@ -636,10 +664,28 @@ def cluster_counts():
     return {str(c): fn(c) for c in range(3, 9)}
 
 
+def tc_cluster_counts():
+    """How many clusters of the 16-bit cluster kernels the card holds at
+    once, by route (``tma``: flash_fwd_tc_cluster, ``ldg``:
+    flash_fwd_tc_cluster_ldg) and blocks a cluster (2-6: d 257-1024), as the
+    library's C entry reports them (cudaOccupancyMaxActiveClusters)."""
+    import ctypes
+
+    from mxnet_tpu_torch import _native
+
+    fn = _native.load("flash_attention_fwd_tc") \
+        .mxtt_flash_attention_fwd_tc_clusters
+    fn.argtypes = [ctypes.c_int] * 2
+    fn.restype = ctypes.c_int
+    return {route: {str(c): fn(c, ldg) for c in range(2, 7)}
+            for route, ldg in (("tma", 0), ("ldg", 1))}
+
+
 def setmaxnreg_counts():
     """The producer's and the consumers' registers (setmaxnreg) of the
-    wgmma kernel at each width, for each producer (TMA and LDG), as the
-    library's C entry reports them."""
+    wgmma kernel at each width, and of the cluster kernels (``cluster``),
+    for each producer (TMA and LDG), as the library's C entry reports
+    them."""
     import ctypes
 
     from mxnet_tpu_torch import _native
@@ -648,8 +694,9 @@ def setmaxnreg_counts():
     fn = lib.mxtt_flash_attention_fwd_tc_regs
     fn.argtypes = [ctypes.c_int] * 3
     fn.restype = ctypes.c_int
-    return {route: {str(w): [fn(w, ldg, 0), fn(w, ldg, 1)]
-                    for w in (64, 128, 192, 256)}
+    return {route: {("cluster" if w == 0 else str(w)):
+                    [fn(w, ldg, 0), fn(w, ldg, 1)]
+                    for w in (64, 128, 192, 256, 0)}
             for route, ldg in (("tma", 0), ("ldg", 1))}
 
 
@@ -779,15 +826,28 @@ def phase_kernel_vs_plain(seed):
          torch.bfloat16, 2e-2),
         ("d192_fp16_causal", (BATCH, SEQ, HEADS // 4, 192), SEQ, True, 0,
          torch.float16, 3e-3),
-        # heads wider than 256: the tensor-core split over d, with 16-byte
-        # copies and, at an offset of one element, 2-byte loads (the last
-        # field is the offset)
+        # bf16/fp16 heads from 257 to 1024: a cluster of blocks, each a
+        # 192-wide chunk of d, with 16-byte rows (TMA) and, at an offset of
+        # one element (the last field), the LDG producer: 4 heads of 320
+        # (two chunks, the second 128 columns of d), phase 8's 2 heads of
+        # 512, causal and not, d 1000 (clusters of 6 blocks); above 1024
+        # the split over d
         ("d320_bf16_causal", (BATCH, SEQ, HEADS // 4, 320), SEQ, True, 0,
          torch.bfloat16, 2e-2),
         ("d320_fp16_causal", (BATCH, SEQ, HEADS // 4, 320), SEQ, True, 0,
          torch.float16, 3e-3),
         ("d320_bf16_causal_offset1", (BATCH, SEQ, HEADS // 4, 320), SEQ,
          True, 0, torch.bfloat16, 2e-2, 1),
+        ("d512_bf16_causal", (BATCH, SEQ, AMP_D512_HEADS, 512), SEQ, True, 0,
+         torch.bfloat16, 2e-2),
+        ("d512_bf16_noncausal", (BATCH, SEQ, AMP_D512_HEADS, 512), SEQ,
+         False, 0, torch.bfloat16, 2e-2),
+        ("d512_fp16_causal_offset1", (BATCH, SEQ, AMP_D512_HEADS, 512), SEQ,
+         True, 0, torch.float16, 3e-3, 1),
+        ("d1000_bf16_causal", (BATCH, SEQ, 1, 1000), SEQ, True, 0,
+         torch.bfloat16, 2e-2),
+        ("d1100_bf16_causal", (BATCH, SEQ, 1, 1100), SEQ, True, 0,
+         torch.bfloat16, 2e-2),
         # 16-byte rows up to d 128 on the wgmma/TMA kernel: the serving
         # shape without the mask, d 128 in fp16, d 96 (width 128, zeros
         # past d)
@@ -820,6 +880,7 @@ def phase_kernel_vs_plain(seed):
     results = {}
     for i, (name, shp, t_k, causal, q_off, dtype, tol, *offset) in \
             enumerate(cases):
+        t_row = time.perf_counter()
         q, k, v = (_at_offset(x, offset[0] if offset else 0)
                    for x in _qkv(shp, t_k, dtype, seed + i))
         before = dict(flash_attention.launches_by_kernel)
@@ -892,7 +953,8 @@ def phase_kernel_vs_plain(seed):
                "vs_library": ms / library_ms if library_ms else None,
                "device_vs_library": device_ms / library_device_ms
                if library_device_ms else None,
-               "bit_identical_to_tma": tma_equal}
+               "bit_identical_to_tma": tma_equal,
+               "seconds": time.perf_counter() - t_row}
         print("  " + json.dumps(row), flush=True)
         check(np.isfinite(err) and err <= tol,
               f"{name}: max abs err {err:.3g} <= {tol}")
@@ -905,7 +967,8 @@ def phase_kernel_vs_plain(seed):
         del q, k, v, got, want
     torch.cuda.empty_cache()
     # the bf16/fp16 main paths' shapes on the wgmma/TMA kernel; the rows
-    # TMA refuses up to d 256 on its LDG producer, wider ones on the split
+    # TMA refuses up to d 256 on its LDG producer; d 257-1024 on the
+    # cluster kernels, wider on the split
     on_wg = ("slice_bf16_causal", "slice_fp16_causal", "train_bf16_causal",
              "d128_bf16_causal", "d128_fp16_causal", "d96_bf16_causal",
              "slice_bf16_noncausal")
@@ -913,14 +976,23 @@ def phase_kernel_vs_plain(seed):
               "d256_bf16_causal_offset1", "ragged_d50_bf16_causal",
               "d97_bf16_causal", "d250_bf16_causal", "d50_bf16_noncausal",
               "ragged_d50_bf16_causal_qoff")
+    on_tc_cluster = ("d320_bf16_causal", "d320_fp16_causal",
+                     "d512_bf16_causal", "d512_bf16_noncausal",
+                     "d1000_bf16_causal")
+    on_tc_cluster_ldg = ("d320_bf16_causal_offset1",
+                         "d512_fp16_causal_offset1")
     check(all(results[n]["ran"] == ["flash_fwd_tc_wg"] for n in on_wg)
           and all(results[n]["ran"] == ["flash_fwd_tc_wg_ldg"]
                   for n in on_ldg)
-          and results["d320_bf16_causal_offset1"]["ran"]
-          == ["flash_fwd_tc_split"],
+          and all(results[n]["ran"] == ["flash_fwd_tc_cluster"]
+                  for n in on_tc_cluster)
+          and all(results[n]["ran"] == ["flash_fwd_tc_cluster_ldg"]
+                  for n in on_tc_cluster_ldg)
+          and results["d1100_bf16_causal"]["ran"] == ["flash_fwd_tc_split"],
           "16-byte rows up to d 256 ran flash_fwd_tc_wg, the other rows up "
-          "to d 256 flash_fwd_tc_wg_ldg, 2-byte rows at d 320 "
-          "flash_fwd_tc_split")
+          "to d 256 flash_fwd_tc_wg_ldg; from 257 to 1024 16-byte rows "
+          "flash_fwd_tc_cluster, 2-byte rows flash_fwd_tc_cluster_ldg; d "
+          "1100 flash_fwd_tc_split")
     on_cluster = ("d512_fp32_causal", "d512_fp32_noncausal",
                   "d320_fp32_causal", "d320_fp32_noncausal",
                   "d500_fp32_causal", "d1000_fp32_causal",
@@ -1803,22 +1875,26 @@ def phase_amp(mx, weights, seed):
     check(agree == 1.0 and fed["float32"][1] == "torch.int32",
           f"fed int32 ids: data rebound as {fed['float32'][1]}, argmax "
           f"agreement with the int32 binding {agree} == 1")
-    out["d256"] = amp_heads(mx, weights, seed, AMP_D256_HEADS)
-    out["d128"] = amp_heads(mx, weights, seed, AMP_D128_HEADS)
+    out["d256"] = amp_heads(mx, weights, seed, AMP_D256_HEADS,
+                            "flash_fwd_tc_wg")
+    out["d128"] = amp_heads(mx, weights, seed, AMP_D128_HEADS,
+                            "flash_fwd_tc_wg")
+    out["d512"] = amp_heads(mx, weights, seed, AMP_D512_HEADS,
+                            "flash_fwd_tc_cluster")
     return out
 
 
-def amp_heads(mx, weights, seed, heads):
+def amp_heads(mx, weights, seed, heads, kernel):
     """Phase 8's paths at other head widths: the same LM at hidden 1024 in
     ``heads`` heads (``AMP_D256_HEADS``: 256-wide, as Gemma-family models
     have; ``AMP_D128_HEADS``: 128-wide, as most public decoder LMs,
-    Llama-family ones among them, have), the weights reshaped from phase
-    4's, through ``Executor(..., amp_dtype="bfloat16")`` answers
-    ``AMP_D256_REQUESTS`` requests of 2 x 2048 tokens through the captured
-    forward, each under the profiler, which counts the flash kernels the
-    card ran in it (12 a request, all ``flash_fwd_tc_wg``), probabilities
-    checked; then the requests captured and through the eager walk in
-    turns, host ms each."""
+    Llama-family ones among them, have; ``AMP_D512_HEADS``: 512-wide, the
+    cluster kernel's path), the weights reshaped from phase 4's, through
+    ``Executor(..., amp_dtype="bfloat16")`` answers ``AMP_D256_REQUESTS``
+    requests of 2 x 2048 tokens through the captured forward, each under the
+    profiler, which counts the flash kernels the card ran in it (12 a
+    request, all ``kernel``, by exact name), probabilities checked; then the
+    requests captured and through the eager walk in turns, host ms each."""
     import torch
 
     from mxnet_tpu_torch.ops.flash_attention import (flash_attention,
@@ -1850,16 +1926,16 @@ def amp_heads(mx, weights, seed, heads):
         return exe.eager_forward()[0]
 
     reset_launches()
-    traced, traced_wg, flash_ms = [], [], []
+    traced, traced_route, flash_ms = [], [], []
     for x in batches:
         feed(x)
         counts, got = {}, []
         by_name, _ = traced_groups(lambda: got.append(forward()), {}, counts)
         traced.append(sum(counts[k] for k in by_name if flash_kernel(k)))
-        traced_wg.append(sum(counts[k] for k in by_name
-                             if flash_kernel(k) == "flash_fwd_tc_wg"))
+        traced_route.append(sum(counts[k] for k in by_name
+                                if flash_kernel(k) == kernel))
         flash_ms.append(sum(t for k, t in by_name.items()
-                            if flash_kernel(k) == "flash_fwd_tc_wg"))
+                            if flash_kernel(k) == kernel))
         check_probs(got[0])
     by_kernel = dict(flash_attention.launches_by_kernel)
     info = exe.forward_info()
@@ -1870,20 +1946,20 @@ def amp_heads(mx, weights, seed, heads):
            "eager_request_ms": ms["eager"],
            "steady_eager_request_ms": float(np.median(ms["eager"])),
            "tokens_per_s": BATCH * SEQ / (steady / 1e3),
-           "launches": sum(traced_wg), "launches_traced": traced,
-           "launches_traced_wg": traced_wg,
+           "kernel": kernel, "launches": sum(traced_route),
+           "launches_traced": traced,
+           "launches_traced_route": traced_route,
            "flash_device_ms_traced": flash_ms,
            "wrapper_calls": by_kernel, "forward": info}
     print(f"  {tag} " + json.dumps(out), flush=True)
-    check(traced == [LAYERS] * AMP_D256_REQUESTS and traced_wg == traced,
+    check(traced == [LAYERS] * AMP_D256_REQUESTS and traced_route == traced,
           f"the card ran {LAYERS} flash kernels in each captured request at "
-          f"{heads} heads of {HIDDEN // heads}, all flash_fwd_tc_wg "
-          f"(traced: {traced}, of them flash_fwd_tc_wg: {traced_wg})")
-    check(by_kernel["flash_fwd_tc_wg"] == 2 * LAYERS
+          f"{heads} heads of {HIDDEN // heads}, all {kernel} (traced: "
+          f"{traced}, of them {kernel}: {traced_route})")
+    check(by_kernel[kernel] == 2 * LAYERS
           and sum(by_kernel.values()) == 2 * LAYERS,
-          f"the flash wrapper launched flash_fwd_tc_wg {2 * LAYERS} times "
-          f"(the warm-up's and the capture's) and no other kernel "
-          f"({by_kernel})")
+          f"the flash wrapper launched {kernel} {2 * LAYERS} times (the "
+          f"warm-up's and the capture's) and no other kernel ({by_kernel})")
     check(info["captures"] == 1 and info["drops"] == 0,
           f"one capture for the executor's binding ({info})")
     del exe
@@ -3962,7 +4038,7 @@ def phase_ptb(mx, seed, keep):
 GRAPH_FIT_STEPS = 4
 GRAPH_LM_STEPS = 6          # (c): phase 9's step count plus one
 GRAPH_LM_TIMED = 4          # (c): replays timed alone after them
-GRAPH_REC_EPOCHS = 2        # (b): epochs of train_imagenet.py a run
+GRAPH_REC_EPOCHS = 1        # (b): epochs of train_imagenet.py a run
 # where two eager runs differ, the captured run is held to the phase's
 # card-vs-CPU limits (of each array's max-abs; the NLL relative): phase
 # 9's NLL and gradients, phase 10's and 12's weights
@@ -4697,8 +4773,7 @@ ZOO_INFER = (("resnet", {"num_layers": 50}, 224), ("alexnet", {}, 224),
              ("inception-bn", {}, 224), ("inception-v3", {}, 299))
 ZOO_INFER_CONFIGS = ((1, "float32"), (32, "float32"), (32, "bfloat16"))
 ZOO_SCORE_BATCHES = 50      # benchmark_score.py's num_batches (its default)
-ZOO_SCORE_ORDER = ("captured", "eager", "eager", "captured", "captured",
-                   "eager")
+ZOO_SCORE_ORDER = ("captured", "eager", "eager", "captured")
 ZOO_IDLE_FORWARDS = 10      # captured forwards in the traced idle window
 ZOO_SPLIT_STEPS = 2
 # the nine builders' card-vs-CPU step: phase 10's batch (8), each at a
@@ -6913,6 +6988,41 @@ def main(argv=None):
         "other_shapes": {n: {k: cases[n][k] for k in KERNEL_KEYS}
                          for n in ("train_bf16_causal", "d128_bf16_causal",
                                    "d256_bf16_causal")}})
+    # the 16-bit cluster kernels (d 257-1024): phase 8's requests at 2 heads
+    # of 512 (the kernels the card ran in them, traced; the wrapper's calls
+    # are the warm-up's and the capture's); the LDG route's rows (views at
+    # an offset of one element) come from no main path, so its main-path
+    # launches are 0 and phase 3 holds it to its plain version
+    tc_cluster_case = cases["d512_bf16_causal"]
+    kernels.append({
+        "name": "flash_attention_fwd_tc_cluster",
+        "route": "cuda",
+        "source": "mxnet_tpu_torch/csrc/flash_attention_fwd_tc.cu",
+        "replaces": "mxnet_tpu/ops/flash_attention.py:47",
+        "launches": amp["d512"]["launches"],
+        "launches_by_path": {
+            "amp_d512_requests_traced": amp["d512"]["launches"],
+            "amp_d512_requests_wrapper_calls":
+                amp["d512"]["wrapper_calls"]["flash_fwd_tc_cluster"]},
+        **{k: tc_cluster_case[k] for k in KERNEL_KEYS},
+        "other_shapes": {n: {k: cases[n][k] for k in KERNEL_KEYS}
+                         for n in ("d320_bf16_causal", "d320_fp16_causal",
+                                   "d512_bf16_noncausal",
+                                   "d1000_bf16_causal")}})
+    tc_cluster_ldg_case = cases["d320_bf16_causal_offset1"]
+    kernels.append({
+        "name": "flash_attention_fwd_tc_cluster_ldg",
+        "route": "cuda",
+        "source": "mxnet_tpu_torch/csrc/flash_attention_fwd_tc.cu",
+        "replaces": "mxnet_tpu/ops/flash_attention.py:47",
+        "launches": 0,
+        "launches_by_path": {
+            "main_paths": 0,
+            "phase3_cases": [n for n, c in cases.items()
+                             if c["ran"] == ["flash_fwd_tc_cluster_ldg"]]},
+        **{k: tc_cluster_ldg_case[k] for k in KERNEL_KEYS},
+        "other_shapes": {n: {k: cases[n][k] for k in KERNEL_KEYS}
+                         for n in ("d512_fp16_causal_offset1",)}})
     for name, case in (("rtc_axpy", "axpy_logits_fp32"),
                        ("rtc_sgd_mom", "sgd_mom_embedding_fp32")):
         row = rtc_cases[case]

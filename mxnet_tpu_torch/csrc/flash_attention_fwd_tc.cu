@@ -11,7 +11,7 @@
 // and o / max(l, 1e-20) written in q's dtype. Columns past T_k have weight 0.
 // The scores never leave the registers.
 //
-// Three routes, by the rows' alignment and the head dim (the C entry at
+// Five routes, by the rows' alignment and the head dim (the C entry at
 // the end; ops/flash_attention.py::launch_plan names the same):
 //   * flash_fwd_tc_wg: 16-byte rows (d % 8 == 0 and 16-byte aligned bases,
 //     what TMA needs) at every d <= 256, in widths 64, 128, 192 and 256
@@ -25,7 +25,15 @@
 //     words into a staging ring with cp.async (16 bytes a thread) and
 //     shifts them into the bytes TMA would have written (design below,
 //     before the producer);
-//   * flash_fwd_tc_split: wider than 256, on mma.sync.
+//   * flash_fwd_tc_cluster: 16-byte rows at d 257-1024, a thread-block
+//     cluster of ceil(d / 192) blocks, each flash_fwd_tc_wg's producer and
+//     consumers over its own 192-wide chunk of d, the partial scores summed
+//     through
+//     distributed shared memory so that S is computed once a tile (design
+//     below, before the kernel);
+//   * flash_fwd_tc_cluster_ldg: the same cluster and consumers for the rows
+//     TMA refuses at d 257-1024, each block's producer the LDG one;
+//   * flash_fwd_tc_split: wider than 1024, on mma.sync.
 //
 // Bound on an H100 SXM at the transformer LM's shape, q/k/v (2, 2048, 16, 64)
 // bf16 causal, per forward and layer: B*H*T*(T+1)/2 = 6.7e7 causal pairs,
@@ -49,6 +57,7 @@
 
 #include <atomic>
 #include <type_traits>
+#include <utility>
 
 namespace {
 
@@ -190,8 +199,9 @@ __device__ __forceinline__ uint16_t to_bits(float x) {
 
 // ------------------------------------ head dim > 128: the split over d
 
-// flash_fwd_tc_split: d > 256, split over d, on mma.sync (FlashAttention-2
-// form). The output's columns go in chunks of DC = 128 on gridDim.z; each
+// flash_fwd_tc_split: d > 1024 (d 257-1024 until flash_fwd_tc_cluster),
+// split over d, on mma.sync (FlashAttention-2 form). The output's columns
+// go in chunks of DC = 128 on gridDim.z; each
 // block (4 warps, 16 of its 64 Q rows each; the grid's y runs the Q tiles
 // from the last, so the heaviest causal tiles start first) accumulates S =
 // Q K^T over the 128-wide d-chunks of Q and K, staged through shared memory
@@ -530,12 +540,17 @@ struct TilesOf {
       (THREADS * LAUNCH_REGS - 128 * CONSUMERS * CONSUMER_REGS) / 128 / 8 *
       8;
   static_assert(LDG_PRODUCER_REGS >= 24, "setmaxnreg takes 24 to 256");
-  static_assert(BK == 64 || BK == 128, "S is m64n64 or m64n128");
+  static_assert(BK == 32 || BK == 64 || BK == 128,
+                "S is m64n32, m64n64 or m64n128");
   static_assert(CONSUMERS >= 2 && CONSUMERS <= 4, "2 to 4 consumers");
 };
-template <int DP>
-struct Tiles;
+// XP > 0: the blocks of the cluster kernel (flash_fwd_tc_cluster; XP its
+// exchange pieces a K tile), ClusterTiles at any width: S m64n32 (see the
+// kernel's design for why), two consumers on Q tiles i and n - 1 - i
 // BK, consumers, stages, ping-pong, ex2.approx.ftz, paired
+struct ClusterTiles : TilesOf<32, 2, 2, 0, 1, 1> {};
+template <int DP, int XP = 0>
+struct Tiles : ClusterTiles {};
 template <>
 struct Tiles<64> : TilesOf<64, 4, 3, 0, 1, 0> {};
 template <>
@@ -558,9 +573,10 @@ struct LdgOf {
   static_assert(NB >= 2, "a piece in flight while one is shifted");
 };
 // rows a piece, staging buffers, and the producer's registers (0: what the
-// consumers leave it at Tiles<DP>'s count; 40 leaves two consumers 232)
-template <int DP>
-struct LdgTraits;
+// consumers leave it at Tiles<DP>'s count; 40 leaves two consumers 232);
+// XP > 0: flash_fwd_tc_cluster_ldg's, at any width
+template <int DP, int XP = 0>
+struct LdgTraits : LdgOf<32, 2, 40> {};
 template <>
 struct LdgTraits<64> : LdgOf<64, 4, 0> {};
 template <>
@@ -570,11 +586,11 @@ struct LdgTraits<192> : LdgOf<64, 3, 40> {};
 template <>
 struct LdgTraits<256> : LdgOf<32, 2, 40> {};
 // the producer's and the consumers' registers (setmaxnreg) on the LDG route
-template <int DP>
-struct Ldg : LdgTraits<DP> {
-  using C = Tiles<DP>;
-  static constexpr int PRODUCER_REGS = LdgTraits<DP>::PRODUCER_REGS_
-                                           ? LdgTraits<DP>::PRODUCER_REGS_
+template <int DP, int XP = 0>
+struct Ldg : LdgTraits<DP, XP> {
+  using C = Tiles<DP, XP>;
+  static constexpr int PRODUCER_REGS = LdgTraits<DP, XP>::PRODUCER_REGS_
+                                           ? LdgTraits<DP, XP>::PRODUCER_REGS_
                                            : C::LDG_PRODUCER_REGS;
   static constexpr int CONSUMER_REGS =
       (C::THREADS * C::LAUNCH_REGS - 128 * PRODUCER_REGS) /
@@ -583,9 +599,12 @@ struct Ldg : LdgTraits<DP> {
                 "setmaxnreg takes multiples of 8 from 24");
 };
 
-template <int DP, bool LDG = false>
+// XP: the cluster kernel's exchange pieces a K/V tile (0: no cluster),
+// each consumer's two buffers a piece of its partial S each (BK / 2 / XP
+// floats a thread), after the staging
+template <int DP, bool LDG = false, int XP = 0>
 struct Layout {
-  using C = Tiles<DP>;
+  using C = Tiles<DP, XP>;
   static constexpr int DC = DP / BOX;                 // boxes a row
   static constexpr int Q_BYTES = WG_BQ * ROW * DC;    // a consumer's Q
   static constexpr int KV_BYTES = C::BK * ROW * DC;   // a K or V tile
@@ -594,13 +613,17 @@ struct Layout {
   static constexpr int RAW = 2 * DP + 16;             // bytes a staged row
   static constexpr int STG_OFF = V_OFF + C::STAGES * KV_BYTES;
   static constexpr int STG_BYTES =
-      LDG ? Ldg<DP>::NB * Ldg<DP>::SR * RAW : 0;
-  static constexpr int BAR_OFF = STG_OFF + STG_BYTES;
+      LDG ? Ldg<DP, XP>::NB * Ldg<DP, XP>::SR * RAW : 0;
+  static constexpr int X_OFF = STG_OFF + STG_BYTES;
+  static constexpr int X_BYTES = XP ? 2 * 128 * (C::BK / 2 / XP) * 4 : 0;
+  static constexpr int BAR_OFF = X_OFF + C::CONSUMERS * X_BYTES;
   // q_full, k_full[STAGES], v_full[STAGES], k_empty and
-  // v_empty[STAGES][CONSUMERS], with ping-pong turn[CONSUMERS]
+  // v_empty[STAGES][CONSUMERS], with ping-pong turn[CONSUMERS], in a
+  // cluster x_full and x_empty[CONSUMERS]
   static constexpr int N_BARS = 1 + 2 * C::STAGES +
                                 2 * C::STAGES * C::CONSUMERS +
-                                (C::PINGPONG ? C::CONSUMERS : 0);
+                                (C::PINGPONG ? C::CONSUMERS : 0) +
+                                (XP ? 2 * C::CONSUMERS : 0);
   // 1024 bytes for aligning the base: the 128-byte swizzle repeats every
   // 1024 bytes, and every tile starts on such a boundary
   static constexpr size_t BYTES = BAR_OFF + 8 * N_BARS + 1024;
@@ -722,6 +745,18 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[4]) {
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]) \
       : "l"(da), "l"(db), "r"(scale_d))
 
+#define MXTT_WGMMA_SS_N32(TY)                                                 \
+  asm volatile(                                                               \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"                            \
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32." TY "." TY " "             \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "    \
+      "%15}, %16, %17, p, 1, 1, 0, 0;\n}\n"                                   \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), \
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]) \
+      : "l"(da), "l"(db), "r"(scale_d))
+
 #define MXTT_WGMMA_SS_N128(TY)                                                \
   asm volatile(                                                               \
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"                            \
@@ -772,14 +807,20 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[4]) {
 template <typename T, int N>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
                                          uint64_t db, int scale_d) {
-  if constexpr (N == 64) {
+  if constexpr (N == 32) {
+    if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+      MXTT_WGMMA_SS_N32("bf16");
+    } else {
+      MXTT_WGMMA_SS_N32("f16");
+    }
+  } else if constexpr (N == 64) {
     if constexpr (std::is_same_v<T, __nv_bfloat16>) {
       MXTT_WGMMA_SS("bf16");
     } else {
       MXTT_WGMMA_SS("f16");
     }
   } else {
-    static_assert(N == 128, "S is m64n64 or m64n128");
+    static_assert(N == 128, "S is m64n32, m64n64 or m64n128");
     if constexpr (std::is_same_v<T, __nv_bfloat16>) {
       MXTT_WGMMA_SS_N128("bf16");
     } else {
@@ -802,6 +843,7 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
 }
 
 #undef MXTT_WGMMA_SS
+#undef MXTT_WGMMA_SS_N32
 #undef MXTT_WGMMA_SS_N128
 #undef MXTT_WGMMA_RS
 
@@ -971,18 +1013,30 @@ __device__ __forceinline__ void issue_qk(float (&sc)[BK / 2], uint32_t q_s,
   wgmma_commit();
 }
 
-// Consumer warpgroup wg of either route: 64 Q rows, all of d, with REGS
-// registers a thread. The tiles lie at Layout<DP>'s offsets on both routes;
-// the barriers are the block's. ANY_D: the epilogue takes any d (the LDG
-// route)
-template <typename T, int DP, bool ANY_D, int REGS>
+// No exchange: a block owns all of d (flash_fwd_tc_wg and its LDG route)
+struct NoExchange {
+  static constexpr int XP = 0;
+  template <int N>
+  __device__ __forceinline__ void operator()(float (&)[N], int) {}
+  __device__ __forceinline__ void finish(int) {}
+};
+
+// Consumer warpgroup wg of either route: 64 Q rows, DP columns of d from c0
+// (all of d, c0 = 0, but in a cluster), with REGS registers a thread. The
+// tiles lie at Layout<DP, *, X::XP>'s offsets on both routes; the
+// barriers are the block's. ANY_D: the epilogue takes any d (the LDG
+// route). xchg(sc, kt) turns tile kt's partial S into the cluster's sum
+// (flash_fwd_tc_cluster), and finish(n_tiles) waits until no peer reads
+// this consumer's buffers any more
+template <typename T, int DP, bool ANY_D, int REGS, class X = NoExchange>
 __device__ __forceinline__ void consume(
     uint8_t* smem, uint64_t* q_full, uint64_t* k_full, uint64_t* v_full,
     uint64_t* k_empty, uint64_t* v_empty, uint64_t* turn_bar, int wg,
     uint16_t* __restrict__ o, int b, int h, int nq, int t_q, int t_k,
-    int heads, int d, float scale_log2, int causal, int q_offset) {
-  using L = Layout<DP>;
-  using C = Tiles<DP>;
+    int heads, int d, float scale_log2, int causal, int q_offset, int c0 = 0,
+    X xchg = X{}) {
+  using L = Layout<DP, false, X::XP>;
+  using C = Tiles<DP, X::XP>;
   constexpr int DC = L::DC;
   constexpr int BK = C::BK;
   constexpr int WG_CONSUMERS = C::CONSUMERS;
@@ -1036,6 +1090,11 @@ __device__ __forceinline__ void consume(
   const int tq = lane & 3;
   const int q0 = my_tile * WG_BQ;
   const int n_tiles = kv_tiles<BK>(q0, t_q, t_k, causal, q_offset);
+  // the epilogue's rows of O, columns c0 + 64c + 8n + 2tq + {0, 1} (dv: the
+  // block's columns that lie in d)
+  const int rs = heads * d;
+  const int dv = d - c0;
+  uint16_t* const o_bh = o + ((int64_t)b * t_q * heads + h) * d + c0;
   const uint32_t q_s = smem_addr(smem + wg * L::Q_BYTES);
   const uint32_t k_s = smem_addr(smem + L::K_OFF);
   const uint32_t v_s = smem_addr(smem + L::V_OFF);
@@ -1070,6 +1129,7 @@ __device__ __forceinline__ void consume(
   wgmma_wait_all();
   fence_regs(sc);
   mbar_arrive(k_empty + wg);
+  xchg(sc, 0);
   softmax_tile<BK, C::EX2>(sc, m, l, corr, edge(0), 0, t_k, causal, row_g,
                            tq, scale_log2);
   rescale_and_pack<T, DC, BK>(acc, pa, sc, corr);
@@ -1094,6 +1154,7 @@ __device__ __forceinline__ void consume(
     wgmma_wait_one();   // Q K^T is done; P V runs on
     fence_regs(sc);
     mbar_arrive(k_empty + s * WG_CONSUMERS + wg);
+    xchg(sc, kt);
     softmax_tile<BK, C::EX2>(sc, m, l, corr, edge(kt * BK), kt * BK, t_k,
                              causal, row_g, tq, scale_log2);
     wgmma_wait_all();
@@ -1122,13 +1183,10 @@ __device__ __forceinline__ void consume(
   mbar_arrive(v_empty + sl * WG_CONSUMERS + wg);
   empty_turns();
 
-  // epilogue: rows g and g + 8 of this warp, columns 64c + 8n + 2tq + {0,
-  // 1}, stored as 4-byte pairs: d % 8 == 0 on the TMA route, so col < d
-  // implies col + 1 < d. ANY_D (the LDG route): pairs where d is even and o
-  // 4-byte aligned (o is a fresh tensor in the wrapper), else 2 bytes an
-  // element
-  const int rs = heads * d;
-  uint16_t* o_bh = o + ((int64_t)b * t_q * heads + h) * d;
+  // epilogue: rows g and g + 8 of this warp, stored as 4-byte pairs: d % 8
+  // == 0 on the TMA route, so col < dv implies col + 1 < dv. ANY_D (the LDG
+  // route): pairs where d is even and o 4-byte aligned (o is a fresh tensor
+  // in the wrapper; c0 is even), else 2 bytes an element
   const bool pairs =
       !ANY_D || ((d | (int)(reinterpret_cast<uintptr_t>(o) >> 1)) & 1) == 0;
 #pragma unroll
@@ -1148,13 +1206,124 @@ __device__ __forceinline__ void consume(
         const float x0 = acc[c][4 * n + 2 * i] * inv;
         const float x1 = acc[c][4 * n + 2 * i + 1] * inv;
         if (pairs) {
-          if (col < d)
+          if (col < dv)
             *reinterpret_cast<uint32_t*>(o_row + col) = pack2<T>(x0, x1);
         } else {
-          if (col < d) o_row[col] = to_bits<T>(x0);
-          if (col + 1 < d) o_row[col + 1] = to_bits<T>(x1);
+          if (col < dv) o_row[col] = to_bits<T>(x0);
+          if (col + 1 < dv) o_row[col + 1] = to_bits<T>(x1);
         }
       }
+  }
+  xchg.finish(n_tiles);
+}
+
+// A block's mbarriers, from Layout's BAR_OFF on: q_full, k_full[STAGES],
+// v_full[STAGES], k_empty and v_empty[STAGES][CONSUMERS], with ping-pong
+// turn[CONSUMERS], in a cluster of `ranks` blocks x_full and
+// x_empty[CONSUMERS]. Thread 0 initialises them: a full barrier counts
+// `loaders` arrivals (the TMA thread's expect_tx, or each LDG loading
+// thread), an empty or turn barrier a consumer's 128 threads, an exchange
+// barrier the 4 warps of the same consumer in each of the ranks. The caller
+// then syncs the block (the cluster) before any arrival
+template <int DP, int XP = 0>
+struct Bars {
+  using C = Tiles<DP, XP>;
+  uint64_t *q_full, *k_full, *v_full, *k_empty, *v_empty, *turn, *x_full,
+      *x_empty;
+  __device__ __forceinline__ Bars(uint8_t* base, uint32_t loaders,
+                                  uint32_t ranks = 0) {
+    q_full = reinterpret_cast<uint64_t*>(base);
+    k_full = q_full + 1;
+    v_full = k_full + C::STAGES;
+    k_empty = v_full + C::STAGES;   // [stage][consumer]
+    v_empty = k_empty + C::STAGES * C::CONSUMERS;
+    turn = v_empty + C::STAGES * C::CONSUMERS;   // [consumer]
+    x_full = turn + (C::PINGPONG ? C::CONSUMERS : 0);   // [consumer]
+    x_empty = x_full + C::CONSUMERS;
+    if (threadIdx.x != 0) return;
+    mbar_init(q_full, loaders);
+    for (int s = 0; s < C::STAGES; ++s) {
+      mbar_init(k_full + s, loaders);
+      mbar_init(v_full + s, loaders);
+      for (int w = 0; w < C::CONSUMERS; ++w) {
+        mbar_init(k_empty + s * C::CONSUMERS + w, 128);
+        mbar_init(v_empty + s * C::CONSUMERS + w, 128);
+      }
+    }
+    if constexpr (C::PINGPONG)
+      for (int w = 0; w < C::CONSUMERS; ++w) mbar_init(turn + w, 128);
+    if constexpr (XP > 0)
+      for (int w = 0; w < C::CONSUMERS; ++w) {
+        mbar_init(x_full + w, 4 * ranks);
+        mbar_init(x_empty + w, 4 * ranks);
+      }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+};
+
+// The TMA route's producer: one thread of the producer warpgroup issues
+// every copy, each consumer's Q tile once, then the K and V tiles through
+// the ring; a row's DP / 64 boxes from column c0 (the block's chunk of d in
+// a cluster, else 0)
+template <int DP, int XP = 0>
+__device__ __forceinline__ void produce_tma(
+    uint8_t* smem, const CUtensorMap* q_map, const CUtensorMap* k_map,
+    const CUtensorMap* v_map, uint64_t* q_full, uint64_t* k_full,
+    uint64_t* v_full, uint64_t* k_empty, uint64_t* v_empty, int b, int h,
+    int nq, int t_q, int t_k, int causal, int q_offset, int c0 = 0) {
+  using L = Layout<DP, false, XP>;
+  using C = Tiles<DP, XP>;
+  constexpr int DC = L::DC;
+  constexpr int BK = C::BK;
+  constexpr int WG_CONSUMERS = C::CONSUMERS;
+  constexpr int WG_STAGES = C::STAGES;
+  if (threadIdx.x % 128 != 0) return;
+  int tile[WG_CONSUMERS];
+  int n_kv[WG_CONSUMERS];
+  int n_max = 0;
+  uint32_t q_bytes = 0;
+#pragma unroll
+  for (int w = 0; w < WG_CONSUMERS; ++w) {
+    tile[w] = q_tile<WG_CONSUMERS, C::PAIRED>(w, nq);
+    n_kv[w] = tile[w] < 0 ? 0
+              : kv_tiles<BK>(tile[w] * WG_BQ, t_q, t_k, causal, q_offset);
+    n_max = max(n_max, n_kv[w]);
+    if (tile[w] >= 0) q_bytes += L::Q_BYTES;
+  }
+  mbar_expect_tx(q_full, q_bytes);
+#pragma unroll
+  for (int w = 0; w < WG_CONSUMERS; ++w) {
+    if (tile[w] < 0) continue;
+#pragma unroll
+    for (int c = 0; c < DC; ++c)
+      tma_load(smem + w * L::Q_BYTES + c * WG_BQ * ROW, q_map, q_full,
+               c0 + c * BOX, h, tile[w] * WG_BQ, b);
+  }
+  for (int kt = 0; kt < n_max; ++kt) {
+    const int s = kt % WG_STAGES;
+    const int use = kt / WG_STAGES;
+    uint8_t* k_dst = smem + L::K_OFF + s * L::KV_BYTES;
+    uint8_t* v_dst = smem + L::V_OFF + s * L::KV_BYTES;
+    // a stage's K (V) is free once every consumer that read the tile
+    // before is done with its K (V)
+#pragma unroll
+    for (int w = 0; w < WG_CONSUMERS; ++w)
+      if (use > 0 && kt - WG_STAGES < n_kv[w])
+        mbar_wait(k_empty + s * WG_CONSUMERS + w, (use - 1) & 1);
+    mbar_expect_tx(k_full + s, L::KV_BYTES);
+#pragma unroll
+    for (int c = 0; c < DC; ++c)
+      tma_load(k_dst + c * BK * ROW, k_map, k_full + s, c0 + c * BOX, h,
+               kt * BK, b);
+#pragma unroll
+    for (int w = 0; w < WG_CONSUMERS; ++w)
+      if (use > 0 && kt - WG_STAGES < n_kv[w])
+        mbar_wait(v_empty + s * WG_CONSUMERS + w, (use - 1) & 1);
+    mbar_expect_tx(v_full + s, L::KV_BYTES);
+#pragma unroll
+    for (int c = 0; c < DC; ++c)
+      tma_load(v_dst + c * BK * ROW, v_map, v_full + s, c0 + c * BOX, h,
+               kt * BK, b);
   }
 }
 
@@ -1167,99 +1336,28 @@ flash_fwd_tc_wg(const __grid_constant__ CUtensorMap q_map,
                 float scale_log2, int causal, int q_offset) {
   using L = Layout<DP>;
   using C = Tiles<DP>;
-  constexpr int DC = L::DC;
-  constexpr int BK = C::BK;
-  constexpr int WG_CONSUMERS = C::CONSUMERS;
-  constexpr int WG_STAGES = C::STAGES;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
-  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
-  uint64_t* k_full = q_full + 1;
-  uint64_t* v_full = k_full + WG_STAGES;
-  uint64_t* k_empty = v_full + WG_STAGES;   // [stage][consumer]
-  uint64_t* v_empty = k_empty + WG_STAGES * WG_CONSUMERS;
-  uint64_t* turn_bar = v_empty + WG_STAGES * WG_CONSUMERS;   // [consumer]
-
-  const int bh = blockIdx.x;
-  const int b = bh / heads;
-  const int h = bh % heads;
-  const int nq = (t_q + WG_BQ - 1) / WG_BQ;
-  if (threadIdx.x == 0) {
-    mbar_init(q_full, 1);
-    for (int s = 0; s < WG_STAGES; ++s) {
-      mbar_init(k_full + s, 1);
-      mbar_init(v_full + s, 1);
-      for (int w = 0; w < WG_CONSUMERS; ++w) {
-        mbar_init(k_empty + s * WG_CONSUMERS + w, 128);
-        mbar_init(v_empty + s * WG_CONSUMERS + w, 128);
-      }
-    }
-    if constexpr (C::PINGPONG)
-      for (int w = 0; w < WG_CONSUMERS; ++w) mbar_init(turn_bar + w, 128);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
+  const Bars<DP> bar(smem + L::BAR_OFF, 1);
   __syncthreads();
 
+  const int b = blockIdx.x / heads;
+  const int h = blockIdx.x % heads;
+  const int nq = (t_q + WG_BQ - 1) / WG_BQ;
   // the warpgroup, as a value the compiler knows to be warp-uniform
   const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
-  if (wg == WG_CONSUMERS) {
-    // ---- producer: one thread issues every TMA load
+  if (wg == C::CONSUMERS) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
                      C::PRODUCER_REGS)
                  : "memory");
-    if (threadIdx.x % 128 == 0) {
-      int tile[WG_CONSUMERS];
-      int n_kv[WG_CONSUMERS];
-      int n_max = 0;
-      uint32_t q_bytes = 0;
-#pragma unroll
-      for (int w = 0; w < WG_CONSUMERS; ++w) {
-        tile[w] = q_tile<WG_CONSUMERS, C::PAIRED>(w, nq);
-        n_kv[w] = tile[w] < 0 ? 0
-                  : kv_tiles<BK>(tile[w] * WG_BQ, t_q, t_k, causal, q_offset);
-        n_max = max(n_max, n_kv[w]);
-        if (tile[w] >= 0) q_bytes += L::Q_BYTES;
-      }
-      mbar_expect_tx(q_full, q_bytes);
-#pragma unroll
-      for (int w = 0; w < WG_CONSUMERS; ++w) {
-        if (tile[w] < 0) continue;
-#pragma unroll
-        for (int c = 0; c < DC; ++c)
-          tma_load(smem + w * L::Q_BYTES + c * WG_BQ * ROW, &q_map, q_full,
-                   c * BOX, h, tile[w] * WG_BQ, b);
-      }
-      for (int kt = 0; kt < n_max; ++kt) {
-        const int s = kt % WG_STAGES;
-        const int use = kt / WG_STAGES;
-        uint8_t* k_dst = smem + L::K_OFF + s * L::KV_BYTES;
-        uint8_t* v_dst = smem + L::V_OFF + s * L::KV_BYTES;
-        // a stage's K (V) is free once every consumer that read the tile
-        // before is done with its K (V)
-#pragma unroll
-        for (int w = 0; w < WG_CONSUMERS; ++w)
-          if (use > 0 && kt - WG_STAGES < n_kv[w])
-            mbar_wait(k_empty + s * WG_CONSUMERS + w, (use - 1) & 1);
-        mbar_expect_tx(k_full + s, L::KV_BYTES);
-#pragma unroll
-        for (int c = 0; c < DC; ++c)
-          tma_load(k_dst + c * BK * ROW, &k_map, k_full + s, c * BOX, h,
-                   kt * BK, b);
-#pragma unroll
-        for (int w = 0; w < WG_CONSUMERS; ++w)
-          if (use > 0 && kt - WG_STAGES < n_kv[w])
-            mbar_wait(v_empty + s * WG_CONSUMERS + w, (use - 1) & 1);
-        mbar_expect_tx(v_full + s, L::KV_BYTES);
-#pragma unroll
-        for (int c = 0; c < DC; ++c)
-          tma_load(v_dst + c * BK * ROW, &v_map, v_full + s, c * BOX, h,
-                   kt * BK, b);
-      }
-    }
+    produce_tma<DP>(smem, &q_map, &k_map, &v_map, bar.q_full, bar.k_full,
+                    bar.v_full, bar.k_empty, bar.v_empty, b, h, nq, t_q, t_k,
+                    causal, q_offset);
   } else {
     consume<T, DP, false, C::CONSUMER_REGS>(
-        smem, q_full, k_full, v_full, k_empty, v_empty, turn_bar, wg, o, b, h,
-        nq, t_q, t_k, heads, d, scale_log2, causal, q_offset);
+        smem, bar.q_full, bar.k_full, bar.v_full, bar.k_empty, bar.v_empty,
+        bar.turn, wg, o, b, h, nq, t_q, t_k, heads, d, scale_log2, causal,
+        q_offset);
   }
 }
 
@@ -1406,10 +1504,10 @@ __device__ __forceinline__ void shift_row(uint32_t words, uint32_t sh,
 template <int V>
 using Int = std::integral_constant<int, V>;
 
-template <int DP>
+template <int DP, int XP = 0>
 struct Pieces {
-  using C = Tiles<DP>;
-  static constexpr int SR = Ldg<DP>::SR;
+  using C = Tiles<DP, XP>;
+  static constexpr int SR = Ldg<DP, XP>::SR;
   static constexpr int QP = WG_BQ / SR;   // pieces a Q tile
   static constexpr int KP = C::BK / SR;   // pieces a K or V tile
   static_assert(WG_BQ % SR == 0 && C::BK % SR == 0, "whole pieces a tile");
@@ -1424,13 +1522,13 @@ struct PieceAt {
   uint32_t tile;
 };
 
-template <int DP>
+template <int DP, int XP>
 __device__ __forceinline__ PieceAt piece_at(
     int i, int q_pieces, uint32_t base, const uint16_t* q_bh,
     const uint16_t* k_bh, const uint16_t* v_bh, int nq, int t_q, int t_k) {
-  using L = Layout<DP, true>;
-  using C = Tiles<DP>;
-  using P = Pieces<DP>;
+  using L = Layout<DP, true, XP>;
+  using C = Tiles<DP, XP>;
+  using P = Pieces<DP, XP>;
   PieceAt x;
   if (i < q_pieces) {
     const int w = i / P::QP;
@@ -1463,17 +1561,19 @@ __device__ __forceinline__ void cp_async16_to(uint32_t dst, uint64_t src) {
                : "memory");
 }
 
-template <typename T, int DP>
+// The LDG route's producer over a row's DP elements from column c0 (the
+// block's chunk of d in a cluster, else 0); XP as in Layout
+template <typename T, int DP, int XP = 0>
 __device__ __forceinline__ void produce_ldg(
     uint8_t* smem, const uint16_t* __restrict__ q,
     const uint16_t* __restrict__ k, const uint16_t* __restrict__ v,
     uint64_t* q_full, uint64_t* k_full, uint64_t* v_full, uint64_t* k_empty,
     uint64_t* v_empty, int b, int h, int nq, int t_q, int t_k, int heads,
-    int d, int causal, int q_offset) {
-  using L = Layout<DP, true>;
-  using C = Tiles<DP>;
-  using G = Ldg<DP>;
-  using P = Pieces<DP>;
+    int d, int causal, int q_offset, int c0 = 0) {
+  using L = Layout<DP, true, XP>;
+  using C = Tiles<DP, XP>;
+  using G = Ldg<DP, XP>;
+  using P = Pieces<DP, XP>;
   constexpr int CONS = C::CONSUMERS;
   constexpr int SR = P::SR;
   constexpr int KP = P::KP;
@@ -1488,9 +1588,10 @@ __device__ __forceinline__ void produce_ldg(
   const int jc = t % 8;
   const int rq = t / 8;
   const int rs = heads * d;
-  const uint16_t* q_bh = q + ((int64_t)b * t_q * heads + h) * d;
-  const uint16_t* k_bh = k + ((int64_t)b * t_k * heads + h) * d;
-  const uint16_t* v_bh = v + ((int64_t)b * t_k * heads + h) * d;
+  const int dv = min(d - c0, DP);   // the row's elements the tile holds
+  const uint16_t* q_bh = q + ((int64_t)b * t_q * heads + h) * d + c0;
+  const uint16_t* k_bh = k + ((int64_t)b * t_k * heads + h) * d + c0;
+  const uint16_t* v_bh = v + ((int64_t)b * t_k * heads + h) * d + c0;
   // the consumers with a Q tile are the first nv; n_max K/V tiles in all
   int nv = 0, n_max = 0;
 #pragma unroll
@@ -1508,11 +1609,11 @@ __device__ __forceinline__ void produce_ldg(
   const uint32_t stg = base + L::STG_OFF;
   // the copies of piece i into its staging buffer (row r's words at r *
   // RAW): of each of its rows, the aligned 16-byte words that hold the
-  // row's d elements, which are the words below sh + 2d (sh: the row's
+  // row's dv elements, which are the words below sh + 2 dv (sh: the row's
   // address mod 16); then an arrival once they are in
   auto issue = [&](int i) {
     const PieceAt x =
-        piece_at<DP>(i, q_pieces, base, q_bh, k_bh, v_bh, nq, t_q, t_k);
+        piece_at<DP, XP>(i, q_pieces, base, q_bh, k_bh, v_bh, nq, t_q, t_k);
     const uint32_t dst = stg + (i % G::NB) * PIECE + jc * 16;
 #pragma unroll(DC > 2 ? 1 : SR / RG)
     for (int u = 0; u < SR / RG; ++u) {
@@ -1522,7 +1623,7 @@ __device__ __forceinline__ void produce_ldg(
         const uint64_t a =
             reinterpret_cast<uint64_t>(x.src + (int64_t)row * rs);
         const uint64_t from = (a & ~uint64_t{15}) + jc * 16;
-        const int end = (int)(a & 15) + 2 * d;   // bytes from the first word
+        const int end = (int)(a & 15) + 2 * dv;   // bytes from the first word
 #pragma unroll
         for (int m = 0; m <= DC; ++m)
           if (jc * 16 + m * 128 < end)
@@ -1539,7 +1640,7 @@ __device__ __forceinline__ void produce_ldg(
   for (int i = 0; i < total; ++i) {
     const int buf = i % G::NB;
     const PieceAt x =
-        piece_at<DP>(i, q_pieces, base, q_bh, k_bh, v_bh, nq, t_q, t_k);
+        piece_at<DP, XP>(i, q_pieces, base, q_bh, k_bh, v_bh, nq, t_q, t_k);
     // a K (V) tile's first piece: its stage is free once every consumer
     // that read the tile before is done with its K (V)
     const int j = i - q_pieces;
@@ -1577,7 +1678,7 @@ __device__ __forceinline__ void produce_ldg(
         const uint32_t sh = (lo + 2u * (uint32_t)row * (uint32_t)rs) & 15u;
         const uint32_t dst = x.tile + rt * ROW + ((jc ^ (rt & 7)) << 4);
         shift_row<SH, DC>(stg + buf * PIECE + r * L::RAW + jc * 16, sh, dst,
-                          x.rows * ROW, d - jc * 8, row < x.t_len);
+                          x.rows * ROW, dv - jc * 8, row < x.t_len);
       }
     };
     // where 2 heads d is a multiple of 16 every row of the tensor lies at
@@ -1625,50 +1726,339 @@ flash_fwd_tc_wg_ldg(const uint16_t* __restrict__ q,
   using L = Layout<DP, true>;
   using C = Tiles<DP>;
   using G = Ldg<DP>;
-  constexpr int CONS = C::CONSUMERS;
-  constexpr int STAGES = C::STAGES;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
-  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
-  uint64_t* k_full = q_full + 1;
-  uint64_t* v_full = k_full + STAGES;
-  uint64_t* k_empty = v_full + STAGES;   // [stage][consumer]
-  uint64_t* v_empty = k_empty + STAGES * CONS;
-  uint64_t* turn_bar = v_empty + STAGES * CONS;   // [consumer]
-
-  const int bh = blockIdx.x;
-  const int b = bh / heads;
-  const int h = bh % heads;
-  const int nq = (t_q + WG_BQ - 1) / WG_BQ;
-  if (threadIdx.x == 0) {
-    mbar_init(q_full, LDG_THREADS);
-    for (int s = 0; s < STAGES; ++s) {
-      mbar_init(k_full + s, LDG_THREADS);
-      mbar_init(v_full + s, LDG_THREADS);
-      for (int w = 0; w < CONS; ++w) {
-        mbar_init(k_empty + s * CONS + w, 128);
-        mbar_init(v_empty + s * CONS + w, 128);
-      }
-    }
-    if constexpr (C::PINGPONG)
-      for (int w = 0; w < CONS; ++w) mbar_init(turn_bar + w, 128);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
+  const Bars<DP> bar(smem + L::BAR_OFF, LDG_THREADS);
   __syncthreads();
 
+  const int b = blockIdx.x / heads;
+  const int h = blockIdx.x % heads;
+  const int nq = (t_q + WG_BQ - 1) / WG_BQ;
   // the warpgroup, as a value the compiler knows to be warp-uniform
   const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
-  if (wg == CONS) {
+  if (wg == C::CONSUMERS) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
                      G::PRODUCER_REGS)
                  : "memory");
-    produce_ldg<T, DP>(smem, q, k, v, q_full, k_full, v_full, k_empty,
-                       v_empty, b, h, nq, t_q, t_k, heads, d, causal,
-                       q_offset);
+    produce_ldg<T, DP>(smem, q, k, v, bar.q_full, bar.k_full, bar.v_full,
+                       bar.k_empty, bar.v_empty, b, h, nq, t_q, t_k, heads, d,
+                       causal, q_offset);
   } else {
     consume<T, DP, true, G::CONSUMER_REGS>(
-        smem, q_full, k_full, v_full, k_empty, v_empty, turn_bar, wg, o, b, h,
-        nq, t_q, t_k, heads, d, scale_log2, causal, q_offset);
+        smem, bar.q_full, bar.k_full, bar.v_full, bar.k_empty, bar.v_empty,
+        bar.turn, wg, o, b, h, nq, t_q, t_k, heads, d, scale_log2, causal,
+        q_offset);
+  }
+}
+
+// --------------------- d 257-1024: a thread-block cluster that splits d
+
+// flash_fwd_tc_cluster: bf16/fp16 with 16-byte rows at d 257 to 1024,
+// where a consumer's O at all of d does not fit its registers and Q with two
+// K/V stages does not fit an SM's shared memory (at d 512 Q alone is 64 KB
+// a consumer). It replaces the TPU kernel
+// mxnet_tpu/ops/flash_attention.py:47 _fwd_kernel there and computes what
+// flash_fwd_tc_wg computes; flash_fwd_tc_split took these head dims
+// before, recomputing S for each 128-wide chunk of the output. Design:
+//   * one thread-block cluster of CL = ceil(d / CW) blocks along the grid's
+//     z a pair of 64-row Q tiles (two consumers on a head's tiles i and n -
+//     1 - i, flash_fwd_tc_wg's grid at widths 192 and 256); block r (its
+//     rank) owns columns [r CW, (r + 1) CW) of d. Each block runs
+//     flash_fwd_tc_wg's producer and consumers at width CW over its own
+//     chunk (ClusterTiles: 32-row K/V tiles, two stages): the tensor maps'
+//     boxes start at column r CW, and TMA fills the columns past d with
+//     zeros, so the last chunk's padding adds exact zeros;
+//   * per K tile each consumer computes only its chunk's partial S_r = Q_r
+//     K_r^T on wgmma. The partials meet through distributed shared memory
+//     (ClusterExchange): each consumer stores its accumulator thread-major
+//     in one of its two buffers, arrives on the same consumer's x_full in
+//     every rank (one elected lane a warp, a cluster-scope fence after the
+//     warp's stores), waits for its own, and reads each rank's buffer at its
+//     thread's offsets (mapa, ld.shared::cluster; up to X_LOADS in
+//     flight), summing in rank order,
+//     so that S, the row max m, the sum l and P are bit-identical in every
+//     block and every chunk of O is normalised by the same l. x_empty
+//     keeps each phase of x_full to its round (ClusterExchange). All of it
+//     runs while the tile before's P V holds the tensor cores;
+//   * each block then runs P V over its own chunk of V and writes its own
+//     columns of O as o / max(l, 1e-20);
+//   * the launch (cudaLaunchKernelEx, cluster dimension (1, 1, CL) at run
+//     time; CL a template argument, so that the exchange is straight-line
+//     code) first asks cudaOccupancyMaxActiveClusters, once per device and
+//     CL, whether such a cluster can be placed, and returns an error if
+//     not. The blocks sync the cluster once after their barriers are
+//     initialised; a consumer leaves only once every rank has read its last
+//     partial, and no peer arrives on its barriers after that.
+// What it costs and why these tiles (tools/flash_tile_sweep.py --kernel
+// tccluster, PERF.md): the exchange, not the arithmetic. Every chunk reads
+// its peers' partials, C (C - 1) 4-byte reads a (query, key) pair in all,
+// at what distributed shared memory carries (about 2-3 TB/s on the card),
+// and every round pays a cluster-scope fence and a wait for the slowest
+// rank. Wider chunks mean fewer ranks, but a consumer at 240 registers
+// holds O (CW / 2 a thread) beside S, P and the exchange: at 256-wide
+// chunks ptxas spills 600 bytes and serializes every wgmma, at 192 with
+// 64-row K/V tiles still serializes them; at 192 with 32-row K/V tiles (S
+// m64n32: 24 registers fewer for S and P) it serializes none and spills
+// at most 88 bytes (clusters of 3 or more). 192 also pads d 320 to 384,
+// not 512. Shared memory at CW 192: Q 2 x 24 KB, K and V 2 stages x 2 x
+// 12 KB, the partials 2 x 2 x 8 KB: 128 KB, one block an SM (the
+// registers).
+// Bound at (2, 2048, 2, 512) causal: 17.2 GFLOP at 989 TFLOP/s, 0.0174 ms
+// against 8.4 MB x 4 at 3.35 TB/s: operations.
+//
+// flash_fwd_tc_cluster_ldg: the rows TMA refuses (d not a multiple of 8, a
+// view at a 2-byte offset) at the same head dims: the same cluster and
+// consumers, each block's producer flash_fwd_tc_wg_ldg's over its own
+// chunk (its staging 25 KB more).
+// tools/flash_tile_sweep.py --kernel tccluster times these choices against
+// alternatives it patches into a copy of this source (PERF.md).
+constexpr int CW = 192;              // d-chunk width: a block's columns
+constexpr int CLUSTER_D = 1024;      // the widest head the cluster takes
+constexpr int CL_MIN = 256 / CW + 1;                    // blocks a cluster
+constexpr int CL_MAX = (CLUSTER_D + CW - 1) / CW;       // (d 257-1024)
+constexpr int XP_TMA = 1;    // exchange pieces a K tile on the TMA route
+constexpr int XP_LDG = 1;    // and on the LDG route
+constexpr int X_LOADS = 8;   // loads from the cluster in flight a thread
+
+// the shared address `addr` of this block mapped into block `rank` of the
+// cluster
+__device__ __forceinline__ uint32_t map_rank(uint32_t addr, uint32_t rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(out)
+               : "r"(addr), "r"(rank));
+  return out;
+}
+__device__ __forceinline__ float4 ld_cluster(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+// Where `pred` != 0 (a predicate inside the asm, not a branch ahead of the
+// next wgmma): with FENCE, the calling warp's earlier shared-memory stores
+// and loads (ordered before this thread by a __syncwarp) released at
+// cluster scope; then an arrival on the mbarrier at `addr` of the same
+// offset in each of the cluster's CL blocks (map_rank). One fence for the
+// CL arrivals: a release on each arrival costs a fence of its own
+template <int CL, bool FENCE>
+__device__ __forceinline__ void release_arrive_all_if(uint32_t addr,
+                                                      int pred) {
+  if constexpr (FENCE)
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %0, 0;\n"
+        "@p fence.acq_rel.cluster;\n}\n" ::"r"(pred)
+        : "memory");
+#pragma unroll
+  for (int r = 0; r < CL; ++r)
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %1, 0;\n"
+        "@p mbarrier.arrive.relaxed.cluster.shared::cluster.b64 _, [%0];\n}\n"
+        ::"r"(map_rank(addr, r)), "r"(pred)
+        : "memory");
+}
+// mbar_wait on the mbarrier at shared address `bar`, with acquire at
+// cluster scope: the peers' arrivals release their stores and reads
+__device__ __forceinline__ void mbar_wait_cluster(uint32_t bar,
+                                                  uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .u64 t0, t1;\n"
+      "mov.u64 t0, %%clock64;\n"
+      "MXTT_XWAIT:\n"
+      "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%0], "
+      "%1;\n"
+      "@p bra MXTT_XDONE;\n"
+      "mov.u64 t1, %%clock64;\n"
+      "sub.u64 t1, t1, t0;\n"
+      "setp.lt.u64 p, t1, 4294967296;\n"
+      "@p bra MXTT_XWAIT;\n"
+      "trap;\n"
+      "MXTT_XDONE:\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+// every thread of the cluster: each block's earlier shared-memory writes
+// (its barriers' initialisation) visible to the others
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" :::
+          "memory");
+}
+
+// the largest power of 2 not above n (1 for n < 2)
+constexpr int pow2_floor(int n) { return n < 2 ? 1 : 2 * pow2_floor(n / 2); }
+
+// A consumer's exchange of its partial S (BK / 2 floats a thread: the
+// wgmma accumulator) with the same consumer of the cluster's CL blocks, in
+// XP pieces a tile, a round each, through two buffers that the rounds take
+// in turn:
+//   1. wait x_empty (every rank has passed the last round's x_full), so
+//      that no rank's phase of x_full gets this round's arrivals early;
+//   2. store the piece thread-major in this round's buffer (its last
+//      readers, two rounds back, are done: each fenced its reads before it
+//      arrived on the round between);
+//   3. each warp: __syncwarp, then its lead lane fences at cluster scope
+//      (the warp's stores, and its reads of two rounds back) and arrives on
+//      x_full of every rank;
+//   4. wait x_full, then arrive on x_empty of every rank (a signal only,
+//      relaxed);
+//   5. load the piece from every rank's buffer, G float4 of each in flight,
+//      and sum them in rank order.
+// sc is indexed at compile-time offsets only, so that it all stays in
+// registers beside O and P
+template <int CL, int BK, int XP_, int CONSUMERS>
+struct ClusterExchange {
+  static constexpr int XP = XP_;
+  static constexpr int PF = BK / 2 / XP;   // a thread's floats a piece
+  static constexpr int NF = PF / 4;        // ... as float4
+  static constexpr int BUF = NF * 128 * 16;   // bytes a buffer
+  // float4 of a piece loaded together from all ranks: G x CL of them in
+  // flight, at most X_LOADS (G a power of 2, so that it divides NF)
+  static constexpr int G = pow2_floor(X_LOADS / CL < NF ? X_LOADS / CL : NF);
+  static_assert(G >= 1 && NF % G == 0, "whole groups a piece");
+  uint32_t buf;    // the consumer's two buffers (BUF bytes each), shared
+  uint32_t full;   // its x_full; x_empty lies CONSUMERS barriers on
+
+  // the exchange of tile kt: rounds kt XP + p
+  __device__ __forceinline__ void operator()(float (&sc)[BK / 2], int kt) {
+    const int t = threadIdx.x % 128;
+    const int lead = (t & 31) == 0;
+    const uint32_t empty = full + 8 * CONSUMERS;
+#pragma unroll
+    for (int p = 0; p < XP; ++p) {
+      const int round = kt * XP + p;
+      const uint32_t mine = buf + (round & 1) * BUF + t * 16;
+      mbar_wait_cluster(empty, (round & 1) ^ 1);
+#pragma unroll
+      for (int e = 0; e < NF; ++e) {
+        const int i = p * PF + 4 * e;
+        sts128(mine + e * 128 * 16,
+               make_uint4(__float_as_uint(sc[i]), __float_as_uint(sc[i + 1]),
+                          __float_as_uint(sc[i + 2]),
+                          __float_as_uint(sc[i + 3])));
+      }
+      __syncwarp();   // the warp's stores, then its lead lane's release
+      release_arrive_all_if<CL, true>(full, lead);
+      mbar_wait_cluster(full, round & 1);
+      release_arrive_all_if<CL, false>(empty, lead);
+      // each float4 summed in rank order; the loads of G of them from
+      // every rank in flight together
+#pragma unroll
+      for (int e0 = 0; e0 < NF; e0 += G) {
+        float4 y[G][CL];
+#pragma unroll
+        for (int e = 0; e < G; ++e)
+#pragma unroll
+          for (int r = 0; r < CL; ++r)
+            y[e][r] = ld_cluster(map_rank(mine, r) + (e0 + e) * 128 * 16);
+#pragma unroll
+        for (int e = 0; e < G; ++e) {
+          const int i = p * PF + 4 * (e0 + e);
+          sc[i] = y[e][0].x;
+          sc[i + 1] = y[e][0].y;
+          sc[i + 2] = y[e][0].z;
+          sc[i + 3] = y[e][0].w;
+#pragma unroll
+          for (int r = 1; r < CL; ++r) {
+            sc[i] += y[e][r].x;
+            sc[i + 1] += y[e][r].y;
+            sc[i + 2] += y[e][r].z;
+            sc[i + 3] += y[e][r].w;
+          }
+        }
+      }
+    }
+  }
+  // after the last of n_tiles tiles: one more round without data, its
+  // arrivals fenced after this consumer's last reads, so that once it
+  // completes no peer reads this block's shared memory or arrives on its
+  // barriers any more
+  __device__ __forceinline__ void finish(int n_tiles) {
+    const int lead = (threadIdx.x & 31) == 0;
+    const int round = n_tiles * XP;
+    mbar_wait_cluster(full + 8 * CONSUMERS, (round & 1) ^ 1);
+    __syncwarp();   // the warp's reads, then its lead lane's release
+    release_arrive_all_if<CL, true>(full, lead);
+    mbar_wait_cluster(full, round & 1);
+  }
+};
+
+template <typename T, int CL>
+__global__ void __launch_bounds__(Tiles<CW, XP_TMA>::THREADS, 1)
+flash_fwd_tc_cluster(const __grid_constant__ CUtensorMap q_map,
+                     const __grid_constant__ CUtensorMap k_map,
+                     const __grid_constant__ CUtensorMap v_map,
+                     uint16_t* __restrict__ o, int t_q, int t_k, int heads,
+                     int d, float scale_log2, int causal, int q_offset) {
+  using L = Layout<CW, false, XP_TMA>;
+  using C = Tiles<CW, XP_TMA>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  const Bars<CW, XP_TMA> bar(smem + L::BAR_OFF, 1, CL);
+  cluster_sync();
+
+  const int b = blockIdx.x / heads;
+  const int h = blockIdx.x % heads;
+  const int nq = (t_q + WG_BQ - 1) / WG_BQ;
+  const int c0 = (int)blockIdx.z * CW;   // rank z's chunk of d
+  // the warpgroup, as a value the compiler knows to be warp-uniform
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (wg == C::CONSUMERS) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+                     C::PRODUCER_REGS)
+                 : "memory");
+    produce_tma<CW, XP_TMA>(smem, &q_map, &k_map, &v_map, bar.q_full,
+                            bar.k_full, bar.v_full, bar.k_empty, bar.v_empty,
+                            b, h, nq, t_q, t_k, causal, q_offset, c0);
+  } else {
+    const ClusterExchange<CL, C::BK, XP_TMA, C::CONSUMERS> x{
+        smem_addr(smem + L::X_OFF + wg * L::X_BYTES),
+        smem_addr(bar.x_full + wg)};
+    consume<T, CW, false, C::CONSUMER_REGS>(
+        smem, bar.q_full, bar.k_full, bar.v_full, bar.k_empty, bar.v_empty,
+        bar.turn, wg, o, b, h, nq, t_q, t_k, heads, d, scale_log2, causal,
+        q_offset, c0, x);
+  }
+}
+
+template <typename T, int CL>
+__global__ void __launch_bounds__(Tiles<CW, XP_LDG>::THREADS, 1)
+flash_fwd_tc_cluster_ldg(const uint16_t* __restrict__ q,
+                         const uint16_t* __restrict__ k,
+                         const uint16_t* __restrict__ v,
+                         uint16_t* __restrict__ o, int t_q, int t_k,
+                         int heads, int d, float scale_log2, int causal,
+                         int q_offset) {
+  using L = Layout<CW, true, XP_LDG>;
+  using C = Tiles<CW, XP_LDG>;
+  using G = Ldg<CW, XP_LDG>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  const Bars<CW, XP_LDG> bar(smem + L::BAR_OFF, LDG_THREADS, CL);
+  cluster_sync();
+
+  const int b = blockIdx.x / heads;
+  const int h = blockIdx.x % heads;
+  const int nq = (t_q + WG_BQ - 1) / WG_BQ;
+  const int c0 = (int)blockIdx.z * CW;
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (wg == C::CONSUMERS) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+                     G::PRODUCER_REGS)
+                 : "memory");
+    produce_ldg<T, CW, XP_LDG>(smem, q, k, v, bar.q_full, bar.k_full,
+                               bar.v_full, bar.k_empty, bar.v_empty, b, h, nq,
+                               t_q, t_k, heads, d, causal, q_offset, c0);
+  } else {
+    const ClusterExchange<CL, C::BK, XP_LDG, C::CONSUMERS> x{
+        smem_addr(smem + L::X_OFF + wg * L::X_BYTES),
+        smem_addr(bar.x_full + wg)};
+    consume<T, CW, true, G::CONSUMER_REGS>(
+        smem, bar.q_full, bar.k_full, bar.v_full, bar.k_empty, bar.v_empty,
+        bar.turn, wg, o, b, h, nq, t_q, t_k, heads, d, scale_log2, causal,
+        q_offset, c0, x);
   }
 }
 
@@ -1827,9 +2217,159 @@ cudaError_t launch_wg_ldg(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// Whether a cluster of `config`'s size can be placed on the current
+// device at `kernel`'s shared memory and registers; asked once per device
+// (the caller keeps one `done` per kernel and cluster size).
+template <typename Kernel>
+cudaError_t cluster_placeable(Kernel kernel, const cudaLaunchConfig_t& config,
+                              std::atomic<uint64_t>& done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const uint64_t bit = dev < 64 ? uint64_t{1} << dev : 0;
+  if (bit && (done.load(std::memory_order_acquire) & bit)) return cudaSuccess;
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(
+      &clusters, reinterpret_cast<const void*>(kernel), &config);
+  if (err != cudaSuccess) {
+    cudaGetLastError();   // returned here; not left for a later launch
+    return err;
+  }
+  if (clusters < 1) return cudaErrorInvalidConfiguration;
+  done.fetch_or(bit, std::memory_order_release);
+  return cudaSuccess;
+}
+
+// The cluster kernel of the route (LDG: the rows TMA refuses) for clusters
+// of CL blocks, its shared memory and its launch over (x, y) clusters
+// (pointing at `cluster`), after the kernel's dynamic shared memory has
+// been allowed on the current device
+template <typename T, bool LDG, int CL>
+struct ClusterLaunch {
+  static constexpr size_t SMEM =
+      LDG ? wgk::Layout<wgk::CW, true, wgk::XP_LDG>::BYTES
+          : wgk::Layout<wgk::CW, false, wgk::XP_TMA>::BYTES;
+  static auto kernel() {
+    if constexpr (LDG) {
+      return wgk::flash_fwd_tc_cluster_ldg<T, CL>;
+    } else {
+      return wgk::flash_fwd_tc_cluster<T, CL>;
+    }
+  }
+  static cudaError_t config(int x, int y, cudaStream_t stream,
+                            cudaLaunchAttribute& cluster,
+                            cudaLaunchConfig_t& config) {
+    static std::atomic<uint64_t> smem_set{0};
+    cudaError_t err = allow_smem(kernel(), SMEM, smem_set);
+    if (err != cudaSuccess) return err;
+    cluster.id = cudaLaunchAttributeClusterDimension;
+    cluster.val.clusterDim.x = 1;
+    cluster.val.clusterDim.y = 1;
+    cluster.val.clusterDim.z = CL;
+    config = {};
+    config.gridDim = dim3(x, y, CL);
+    config.blockDim = dim3(wgk::Tiles<wgk::CW, wgk::XP_TMA>::THREADS);
+    config.dynamicSmemBytes = SMEM;
+    config.stream = stream;
+    config.attrs = &cluster;
+    config.numAttrs = 1;
+    return cudaSuccess;
+  }
+};
+
+// flash_fwd_tc_cluster (TMA) or flash_fwd_tc_cluster_ldg at CL blocks a
+// cluster: flash_fwd_tc_wg's grid at width CW on x and y
+template <typename T, bool LDG, int CL>
+cudaError_t launch_cluster_at(const void* q, const void* k, const void* v,
+                              void* o, int batch, int t_q, int t_k,
+                              int heads, int d, float scale, int causal,
+                              int q_offset, cudaStream_t stream) {
+  using namespace wgk;
+  using X = ClusterLaunch<T, LDG, CL>;
+  using C = Tiles<CW, XP_TMA>;
+  static std::atomic<uint64_t> placed{0};
+  const int nq = (t_q + WG_BQ - 1) / WG_BQ;
+  const int blocks = (nq + C::CONSUMERS - 1) / C::CONSUMERS;
+  if (blocks > MAX_GRID_YZ) return cudaErrorInvalidValue;
+  cudaLaunchAttribute cluster;
+  cudaLaunchConfig_t config;
+  cudaError_t err = X::config(batch * heads, blocks, stream, cluster, config);
+  if (err != cudaSuccess) return err;
+  err = cluster_placeable(X::kernel(), config, placed);
+  if (err != cudaSuccess) return err;
+  const float scale_log2 = scale * LOG2E;
+  uint16_t* out = static_cast<uint16_t*>(o);
+  if constexpr (LDG) {
+    err = cudaLaunchKernelEx(&config, X::kernel(),
+                             static_cast<const uint16_t*>(q),
+                             static_cast<const uint16_t*>(k),
+                             static_cast<const uint16_t*>(v), out, t_q, t_k,
+                             heads, d, scale_log2, causal, q_offset);
+  } else {
+    CUtensorMap qm, km, vm;
+    if ((err = tensor_map<T>(&qm, q, batch, t_q, heads, d, WG_BQ)) !=
+            cudaSuccess ||
+        (err = tensor_map<T>(&km, k, batch, t_k, heads, d, C::BK)) !=
+            cudaSuccess ||
+        (err = tensor_map<T>(&vm, v, batch, t_k, heads, d, C::BK)) !=
+            cudaSuccess)
+      return err;
+    err = cudaLaunchKernelEx(&config, X::kernel(), qm, km, vm, out, t_q, t_k,
+                             heads, d, scale_log2, causal, q_offset);
+  }
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return err;
+  }
+  return cudaGetLastError();
+}
+
+// cudaOccupancyMaxActiveClusters of the bf16 cluster kernel of the route at
+// `blocks` blocks a cluster
+template <bool LDG, int... I>
+cudaError_t clusters_at(int blocks, int* clusters,
+                        std::integer_sequence<int, I...>) {
+  cudaError_t err = cudaErrorInvalidValue;
+  auto ask = [&](auto launch) {
+    using X = decltype(launch);
+    cudaLaunchAttribute cluster;
+    cudaLaunchConfig_t config;
+    err = X::config(1, 1, nullptr, cluster, config);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveClusters(
+          clusters, reinterpret_cast<const void*>(X::kernel()), &config);
+  };
+  ((blocks == wgk::CL_MIN + I
+        ? ask(ClusterLaunch<__nv_bfloat16, LDG, wgk::CL_MIN + I>{})
+        : (void)0),
+   ...);
+  return err;
+}
+
+// d 257-1024: a cluster of ceil(d / CW) blocks, one instantiation a size
+template <typename T, bool LDG, int... I>
+cudaError_t launch_cluster(const void* q, const void* k, const void* v,
+                           void* o, int batch, int t_q, int t_k, int heads,
+                           int d, float scale, int causal, int q_offset,
+                           cudaStream_t stream,
+                           std::integer_sequence<int, I...>) {
+  const int blocks = (d + wgk::CW - 1) / wgk::CW;
+  cudaError_t err = cudaErrorInvalidValue;
+  ((blocks == wgk::CL_MIN + I
+        ? (void)(err = launch_cluster_at<T, LDG, wgk::CL_MIN + I>(
+              q, k, v, o, batch, t_q, t_k, heads, d, scale, causal, q_offset,
+              stream))
+        : (void)0),
+   ...);
+  return err;
+}
+using ClusterSizes =
+    std::make_integer_sequence<int, wgk::CL_MAX - wgk::CL_MIN + 1>;
+
 // Up to d 256 the wgmma kernel at the smallest width that holds d: 16-byte
 // rows through TMA, the others (2-byte copies) through the LDG producer;
-// wider heads the split over d, with 16- or 2-byte copies
+// from 257 to 1024 the cluster kernel of the same producer; wider heads the
+// split over d, with 16- or 2-byte copies
 template <typename T, int WIDTH>
 cudaError_t launch_width(const void* q, const void* k, const void* v,
                          void* o, int batch, int t_q, int t_k, int heads,
@@ -1859,6 +2399,14 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
   if (d <= 256)
     return launch_width<T, 256>(q, k, v, o, batch, t_q, t_k, heads, d,
                                 scale, causal, q_offset, copy_bytes, stream);
+  if (d <= wgk::CLUSTER_D && copy_bytes == 16)
+    return launch_cluster<T, false>(q, k, v, o, batch, t_q, t_k, heads, d,
+                                    scale, causal, q_offset, stream,
+                                    ClusterSizes{});
+  if (d <= wgk::CLUSTER_D)
+    return launch_cluster<T, true>(q, k, v, o, batch, t_q, t_k, heads, d,
+                                   scale, causal, q_offset, stream,
+                                   ClusterSizes{});
   if (copy_bytes == 16)
     return launch_split<T, 16>(q, k, v, o, batch, t_q, t_k, heads, d, scale,
                                causal, q_offset, stream);
@@ -1871,11 +2419,14 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
 // q: (batch, t_q, heads, d), k/v: (batch, t_k, heads, d), o like q; all
 // contiguous, on the current device. dtype 1 is bfloat16, 2 is float16 (0,
 // float32, is flash_attention_fwd.cu's). copy_bytes is 16 (TMA, or cp.async
-// of 8 elements above d 256: needs d % 8 == 0 and 16-byte aligned q, k, v
-// and o) or 2 (any d and 2-byte alignment: the LDG producer up to d 256,
-// element-wise loads above). Returns the cudaError_t of the launch (0 on
-// success; cudaErrorInvalidValue where the kernel's grid would pass the
-// card's limits).
+// of 8 elements above d 1024: needs d % 8 == 0 and 16-byte aligned q, k, v
+// and o) or 2 (any d and 2-byte alignment: the LDG producer up to d 1024,
+// element-wise loads above). Up to d 256 flash_fwd_tc_wg (16) or
+// flash_fwd_tc_wg_ldg (2), from 257 to 1024 flash_fwd_tc_cluster or
+// flash_fwd_tc_cluster_ldg (cudaErrorInvalidConfiguration where the card
+// cannot place the cluster), wider flash_fwd_tc_split. Returns the
+// cudaError_t of the launch (0 on success; cudaErrorInvalidValue where the
+// kernel's grid would pass the card's limits).
 extern "C" int mxtt_flash_attention_fwd_tc(const void* q, const void* k,
                                            const void* v, void* o, int batch,
                                            int t_q, int t_k, int heads, int d,
@@ -1906,7 +2457,9 @@ extern "C" int mxtt_flash_attention_fwd_tc(const void* q, const void* k,
 
 // The registers a thread (setmaxnreg) of the wgmma kernel's producer
 // (consumer == 0) or consumers (consumer == 1) at width 64, 128, 192 or 256,
-// on the TMA route (ldg == 0) or the LDG route; -1 for another width
+// on the TMA route (ldg == 0) or the LDG route; width 0: the cluster
+// kernel's (flash_fwd_tc_cluster, flash_fwd_tc_cluster_ldg); -1 for another
+// width
 extern "C" int mxtt_flash_attention_fwd_tc_regs(int width, int ldg,
                                                 int consumer) {
   using namespace wgk;
@@ -1917,10 +2470,27 @@ extern "C" int mxtt_flash_attention_fwd_tc_regs(int width, int ldg,
     return consumer ? C::CONSUMER_REGS : C::PRODUCER_REGS;
   };
   switch (width) {
+    case 0: return pick(Tiles<CW, XP_TMA>{}, Ldg<CW, XP_LDG>{});
     case 64: return pick(Tiles<64>{}, Ldg<64>{});
     case 128: return pick(Tiles<128>{}, Ldg<128>{});
     case 192: return pick(Tiles<192>{}, Ldg<192>{});
     case 256: return pick(Tiles<256>{}, Ldg<256>{});
     default: return -1;
   }
+}
+
+// How many clusters of `blocks` blocks of the 16-bit cluster kernel (bf16;
+// ldg != 0: flash_fwd_tc_cluster_ldg) the current device holds at once
+// (cudaOccupancyMaxActiveClusters), or minus the cudaError_t of the query
+// (cudaErrorInvalidValue: no such cluster size)
+extern "C" int mxtt_flash_attention_fwd_tc_clusters(int blocks, int ldg) {
+  int clusters = 0;
+  const cudaError_t err =
+      ldg ? clusters_at<true>(blocks, &clusters, ClusterSizes{})
+          : clusters_at<false>(blocks, &clusters, ClusterSizes{});
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return -(int)err;
+  }
+  return clusters;
 }

@@ -8,12 +8,14 @@ through shared memory with an online softmax, so the (T, T) score matrix
 never reaches device memory. Any head dim runs (:func:`launch_plan`):
 bf16/fp16 up to 256 on ``wgmma``, fed by TMA where the rows are 16-byte
 aligned (``flash_fwd_tc_wg``) and by a producer without TMA where they are
-not (``flash_fwd_tc_wg_ldg``); fp32 up to 128 in ``flash_fwd_f32``, from
-129 to 256 in a kernel whose block owns all of d, and from 257 to 1024 in a
-thread-block cluster whose blocks each own a 128-wide chunk of d and sum
-their partial scores through distributed shared memory
-(``flash_fwd_f32_cluster``); wider heads in each source's split-over-d
-kernel. Each is built with ``nvcc`` at first use and called through
+not (``flash_fwd_tc_wg_ldg``), and from 257 to 1024 in a thread-block
+cluster of such blocks, each over a 192-wide chunk of d
+(``flash_fwd_tc_cluster``, ``flash_fwd_tc_cluster_ldg``); fp32 up to 128
+in ``flash_fwd_f32``, from 129 to 256 in a kernel whose block owns all of
+d, and from 257 to 1024 in a cluster whose blocks each own a 128-wide chunk
+of d (``flash_fwd_f32_cluster``). The blocks of a cluster sum their partial
+scores through distributed shared memory. Wider heads run each source's
+split-over-d kernel. Each is built with ``nvcc`` at first use and called through
 ``ctypes``.
 
 Layout is (B, T, H, D), as in the reference. :func:`flash_attention` routes
@@ -53,20 +55,24 @@ _KERNELS = {
 }
 # the kernels' grid limits: batch * heads on x, Q tiles on y, d-chunks on z
 _MAX_GRID = (2 ** 31 - 1, 65535, 65535)
-# flash_fwd_f32_cluster runs d up to _CLUSTER_D: one block a 128-wide
-# chunk of d, and 8 blocks is the portable cluster limit
-_CLUSTER_D = 1024
+# the cluster kernels run d up to _CLUSTER_D: fp32's one block a 128-wide
+# chunk of d (8 blocks is the portable cluster limit), bf16/fp16's one block
+# a _TC_CLUSTER_W-wide chunk and two 64-row Q tiles (CW and ClusterTiles in
+# csrc/flash_attention_fwd_tc.cu)
+_CLUSTER_D, _TC_CLUSTER_W, _TC_CLUSTER_ROWS = 1024, 192, 128
 # fp32 above _SPLIT_D runs, up to _WG_D, a kernel whose block owns all of d
 # and two 64-row Q tiles, up to _CLUSTER_D the cluster kernel, and the
 # split-over-d kernel above; bf16/fp16 up to
 # _WG_D run on wgmma at the smallest width of _WG_ROWS that holds d, its
 # value the Q rows a block (Tiles<width> in csrc/flash_attention_fwd_tc.cu:
 # 64-row consumer warpgroups, four at width 64, two at the others), with
-# either producer, and the split over d above
+# either producer, the cluster kernels up to _CLUSTER_D and the split over d
+# above
 _SPLIT_D, _WG_D = 128, 256
 _WG_ROWS = {64: 256, 128: 128, 192: 128, 256: 128}
 _PLANS = ("flash_fwd_f32", "flash_fwd_f32_cluster", "flash_fwd_f32_split",
-          "flash_fwd_f32_wide", "flash_fwd_tc_split", "flash_fwd_tc_wg",
+          "flash_fwd_f32_wide", "flash_fwd_tc_cluster",
+          "flash_fwd_tc_cluster_ldg", "flash_fwd_tc_split", "flash_fwd_tc_wg",
           "flash_fwd_tc_wg_ldg")
 
 
@@ -105,8 +111,9 @@ def copy_bytes(d: int, *ptrs: int, itemsize: int = 4) -> int:
     then copies 4 bytes with ``cp.async``; the tensor-core kernels (2-byte
     types) take such rows, which TMA refuses, through ``cp.async`` copies
     of their aligned 16-byte words and a shift in shared memory
-    (``flash_fwd_tc_wg_ldg``; element by element in the split over d);
-    with 16 they copy through TMA (and ``cp.async`` in the split over d).
+    (``flash_fwd_tc_wg_ldg``, ``flash_fwd_tc_cluster_ldg``; element by
+    element in the split over d); with 16 they copy through TMA (and
+    ``cp.async`` in the split over d).
     A contiguous view at an offset of one element (``buf[1:].view(...)``)
     takes the narrow path."""
     aligned = d * itemsize % 16 == 0 and all(p % 16 == 0 for p in ptrs)
@@ -140,11 +147,14 @@ def launch_plan(dtype, batch, t_q, heads, d, copy=16):
     at 192 and 256, tiles i and n - 1 - i, so that causal blocks carry
     equal work. 16-byte copies (what TMA needs) run ``flash_fwd_tc_wg``,
     2-byte ones ``flash_fwd_tc_wg_ldg``, the same consumers and grid fed
-    by a producer that needs no TMA. fp32 up to 128 runs the smallest
-    instantiation (``width`` 32, 64 or 128) of ``flash_fwd_f32`` that
-    holds it, on
-    ``(batch * heads, Q tiles, 1)`` (128-row Q tiles up to width 64, 64
-    above); from 129 to 256 all of d in one block of two 64-row Q tiles
+    by a producer that needs no TMA. From 257 to 1024 bf16/fp16 run one
+    cluster of ceil(d / 192) blocks for each two 64-row Q tiles, i and n -
+    1 - i (width 192: each block a 192-wide chunk of d, the cluster's
+    blocks on the grid's z; ``flash_fwd_tc_cluster`` with 16-byte copies,
+    ``flash_fwd_tc_cluster_ldg`` with 2-byte ones). fp32 up to 128 runs the
+    smallest instantiation (``width`` 32, 64 or 128) of ``flash_fwd_f32``
+    that holds it, on ``(batch * heads, Q tiles, 1)`` (128-row Q tiles up
+    to width 64, 64 above); from 129 to 256 all of d in one block of two 64-row Q tiles
     (width 192 or 256, ``flash_fwd_f32_wide``, copies of 16 or 4 bytes);
     from 257 to 1024 one cluster of ceil(d / 128) blocks per 64-row Q tile,
     each block a 128-wide chunk of d (width 128, ``flash_fwd_f32_cluster``:
@@ -158,6 +168,11 @@ def launch_plan(dtype, batch, t_q, heads, d, copy=16):
         name = "flash_fwd_tc_wg" if copy == 16 else "flash_fwd_tc_wg_ldg"
         width = min(w for w in _WG_ROWS if w >= d)
         rows = _WG_ROWS[width]
+    elif dtype != torch.float32 and d <= _CLUSTER_D:
+        name = ("flash_fwd_tc_cluster" if copy == 16
+                else "flash_fwd_tc_cluster_ldg")
+        width, rows = _TC_CLUSTER_W, _TC_CLUSTER_ROWS
+        chunks = -(-d // width)
     elif dtype != torch.float32:
         name, width, rows = "flash_fwd_tc_split", _SPLIT_D, 64
         chunks = -(-d // width)

@@ -33,6 +33,17 @@ flight, the split over d, the exchange as a reduce-scatter of S's rows,
 and diagnostics without the exchange, or without it and the barrier; and
 times each at fp32 (2, 2048, 2, 512) causal and not and (2, 2048, 4, 320),
 beside ``flash_fwd_f32`` at (2, 2048, 8, 128), the same operations.
+``--kernel tccluster`` builds variants of ``flash_attention_fwd_tc.cu``
+that differ from ``flash_fwd_tc_cluster`` (the bf16/fp16 kernels for head
+dims 257-1024) by the patches of ``TC_CLUSTER_PATCHES``: 128- and 256-wide
+chunks of d, ``ClusterTiles``'s other K/V rows, stages, exponentials and
+ping-pong, the partials exchanged in two pieces a tile, other counts of
+loads in flight, a fence for each arrival, the split over d, and
+diagnostics with every load from the block's own buffer, or without any
+exchange; and times each at bf16 (2, 2048, 2, 512) causal and not,
+(2, 2048, 4, 320), (2, 2048, 1, 1000), d 320 at an offset of one element
+(its LDG route), beside ``flash_fwd_tc_wg`` at (2, 2048, 4, 256), the same
+operations as 2 heads of 512.
 ``--kernel wg_ldg`` builds variants of ``flash_attention_fwd_tc.cu`` that
 differ from ``flash_fwd_tc_wg_ldg`` (the wgmma kernel's producer for the
 bf16/fp16 rows TMA refuses) by the patches of ``WG_LDG_PATCHES``: its
@@ -54,12 +65,15 @@ per call, ``chip_smoke.time_cuda``) in turns (variant order reversed every
 round). Run from the repo root on a machine with an NVIDIA GPU:
 
     python3 mxnet_tpu_torch/tools/flash_tile_sweep.py
-        [--kernel f32|wg|wg_ldg|f32wide|f32cluster] [--rounds 3]
+        [--kernel f32|wg|wg_ldg|f32wide|f32cluster|tccluster] [--rounds 3]
+        [--only VARIANT,...] [--tag SUFFIX]
 
 Prints the card's name and power limit, then one JSON line per variant
-(median ms of each round, registers and spills from ptxas) and writes them to ``flash_tile_sweep_<kernel>.json``
-(``flash_tile_sweep.json`` for ``f32``) in ``chip_smoke.py``'s output
-directory.
+(median ms of each round, registers and spills from ptxas) and writes them
+to ``flash_tile_sweep_<kernel><tag>.json`` (``flash_tile_sweep<tag>.json``
+for ``f32``) in ``chip_smoke.py``'s output directory. ``--only`` builds and
+times the variants named (a diagnostic that faults on the card ends the
+process, so time diagnostics in a run of their own).
 """
 from __future__ import annotations
 
@@ -110,6 +124,7 @@ _SERIAL_LOOP = """\
     wgmma_wait_all();
     fence_regs(sc);
     mbar_arrive(k_empty + s * WG_CONSUMERS + wg);
+    xchg(sc, kt);
     softmax_tile<BK, C::EX2>(sc, m, l, corr, edge(kt * BK), kt * BK, t_k,
                              causal, row_g, tq, scale_log2);
     rescale_and_pack<T, DC, BK>(acc, pa, sc, corr);
@@ -183,10 +198,10 @@ WG_PATCHES = {
     "loads_only": [(_CONSUMER_LOOP, _LOADS_ONLY_LOOP, 1)],
     # after the first WG_STAGES tiles the producer arrives on a stage's
     # barrier without loading it
-    "no_loads": [(r"(        mbar_expect_tx\((k|v)_full \+ s, L::KV_BYTES\);\n"
+    "no_loads": [(r"(    mbar_expect_tx\((k|v)_full \+ s, L::KV_BYTES\);\n"
                   r".*?kt \* BK, b\);\n)",
-                  "        if (use > 0) {\n          mbar_arrive(\\2_full + s);\n"
-                  "        } else {\n\\1        }\n", 2)],
+                  "    if (use > 0) {\n      mbar_arrive(\\2_full + s);\n"
+                  "    } else {\n\\1    }\n", 2)],
 }
 # flash_fwd_tc_wg: name: patches
 WG_VARIANTS = {
@@ -579,6 +594,107 @@ CLUSTER_CASES = {
     "d512_noncausal": ((2, 2048, 2, 512), 2048, False),
     "d128_f32_causal": ((2, 2048, 8, 128), 2048, True),
 }
+def _cluster_tiles(**fields):
+    """A patch of ``ClusterTiles``'s fields (bk: K/V rows a tile, stages,
+    pingpong, ex2) in the tensor-core source: those not named keep the
+    source's values."""
+    names = ("bk", "consumers", "stages", "pingpong", "ex2", "paired")
+    pat = (r"(struct ClusterTiles : TilesOf<)"
+           + ", ".join([r"(\d+)"] * len(names)) + ">")
+
+    def sub(m):
+        vals = [str(fields.get(n, m.group(2 + i))) for i, n in
+                enumerate(names)]
+        return m.group(1) + ", ".join(vals) + ">"
+
+    return [(pat, sub, 1)]
+
+
+def _cw(width):
+    """A patch of the cluster kernel's d-chunk width."""
+    return [(r"constexpr int CW = 192;", f"constexpr int CW = {width};", 1)]
+
+
+# on the LDG route the partials in two pieces and a staging of 16-row
+# pieces: what fits beside 256-wide tiles or 64-row K/V tiles
+_LDG_SMALL = [(r"constexpr int XP_LDG = 1;", "constexpr int XP_LDG = 2;", 1),
+              (r"(struct LdgTraits : LdgOf<)32(, 2, 40>)", "\\g<1>16\\2", 1)]
+# flash_fwd_tc_cluster: (pattern, replacement, matches) of each patch
+TC_CLUSTER_PATCHES = {
+    # 128-wide chunks with 64-row K/V tiles: clusters of 3-8 blocks, O 64
+    # registers a thread, twice the partials to read at d 512
+    "w128": _cw(128) + _cluster_tiles(bk=64),
+    # 256-wide chunks: clusters of 2-4 blocks, O 128 registers a thread,
+    # the fewest partials to read; ptxas spills and serializes the wgmma.
+    # Two stages, and the partials in two pieces (four on the LDG route,
+    # its staging of 16-row pieces), to fit
+    "w256": _cw(256) + _cluster_tiles(bk=64, stages=2)
+    + [(r"constexpr int XP_TMA = 1;", "constexpr int XP_TMA = 2;", 1),
+       (r"constexpr int XP_LDG = 1;", "constexpr int XP_LDG = 4;", 1),
+       (r"(struct LdgTraits : LdgOf<)32(, 2, 40>)", "\\g<1>16\\2", 1)],
+    "w256_bk32": _cw(256),
+    # K/V tiles of 64 rows (S m64n64: half the exchanges, each twice the
+    # size), two stages to fit
+    "bk64": _cluster_tiles(bk=64, stages=2) + _LDG_SMALL,
+    # three or four ring stages (two committed)
+    "stages3": _cluster_tiles(stages=3),
+    "stages4": _cluster_tiles(stages=4),
+    # exp2f and one chain a row's max and sum (ex2.approx.ftz committed)
+    "exp2f": _cluster_tiles(ex2=0),
+    # the consumers take turns to issue their products
+    "pingpong": _cluster_tiles(pingpong=1),
+    # the partials in two pieces a tile, an exchange each
+    "xp2": [(r"constexpr int XP_TMA = 1;", "constexpr int XP_TMA = 2;", 1)],
+    # 4 or 16 loads from the cluster in flight a thread (8 committed)
+    "loads4": [(r"constexpr int X_LOADS = 8;", "constexpr int X_LOADS = 4;",
+                1)],
+    "loads16": [(r"constexpr int X_LOADS = 8;",
+                 "constexpr int X_LOADS = 16;", 1)],
+    # each arrival released at cluster scope on its own (a fence each, on
+    # x_empty too) in place of one fence before relaxed arrivals
+    "release_each": [(r"@p fence\.acq_rel\.cluster;", "", 1),
+                     (r"mbarrier\.arrive\.relaxed\.cluster",
+                      "mbarrier.arrive.release.cluster", 1)],
+    # d 257-1024 on the split over d (PR 6's kernel)
+    "split": [(r"if \(d <= wgk::CLUSTER_D", "if (d < 0", 2)],
+    # diagnostics (wrong results): each block's loads all read its own
+    # buffer (the stores and barriers stay), and no exchange at all
+    "no_exchange": [(r"ld_cluster\(map_rank\(mine, r\)",
+                     "ld_cluster(map_rank(mine, blockIdx.z)", 1)],
+    "compute_alone": [(r" +xchg\(sc, (?:kt|0)\);\n", "", 2),
+                      (r" +xchg\.finish\(n_tiles\);\n", "", 1)],
+}
+TC_CLUSTER_VARIANTS = {   # name: patches
+    "committed": (),
+    "w128": ("w128",),
+    "w256": ("w256",),
+    "w256_bk32": ("w256_bk32",),
+    "bk64": ("bk64",),
+    "stages3": ("stages3",),
+    "stages4": ("stages4",),
+    "exp2f": ("exp2f",),
+    "pingpong": ("pingpong",),
+    "xp2": ("xp2",),
+    "loads4": ("loads4",),
+    "loads16": ("loads16",),
+    "release_each": ("release_each",),
+    "split": ("split",),
+    "no_exchange": ("no_exchange",),
+    "compute_alone": ("compute_alone",),
+}
+# bf16: the LM at 2 heads of 512 (causal and not), the split's old row at 4
+# heads of 320, d 1000 (clusters of 4 blocks), d 320 at an offset of one
+# element (the LDG route), and flash_fwd_tc_wg at 4 heads of 256 (the same
+# operations as 2 heads of 512; no variant changes its kernel) as a
+# yardstick
+TC_CLUSTER_CASES = {
+    "d512_causal": ((2, 2048, 2, 512), 2048, True),
+    "d320_causal": ((2, 2048, 4, 320), 2048, True),
+    "d512_noncausal": ((2, 2048, 2, 512), 2048, False),
+    "d1000_causal": ((2, 2048, 1, 1000), 2048, True),
+    "d320_causal_offset1": ((2, 2048, 4, 320), 2048, True, 1),
+    "d256_wg_causal": ((2, 2048, 4, 256), 2048, True),
+}
 WIDE_VARIANTS = {   # name: patches
     "committed": (),
     "unpaired": ("unpaired",),
@@ -628,12 +744,17 @@ def cluster_variant_source(src, *patches):
     return wg_variant_source(src, *patches, table=CLUSTER_PATCHES)
 
 
+def tc_cluster_variant_source(src, *patches):
+    return wg_variant_source(src, *patches, table=TC_CLUSTER_PATCHES)
+
+
 # each kernel's diagnostics: variants timed only, their results wrong
 DIAGNOSTICS = {
     "wg": ("loads_only", "no_loads"),
     "wg_ldg": ("loads_only", "loads_only_no_copy", "loads_only_no_shift",
                "loads_only_neither", "no_fence", "loads_only_no_fence"),
     "f32cluster": ("no_exchange", "compute_alone"),
+    "tccluster": ("no_exchange", "compute_alone"),
 }
 # kernel: (source, variants, make a variant's source, ptxas markers)
 KERNELS = {
@@ -651,11 +772,17 @@ KERNELS = {
                wg_ldg_variant_source,
                tuple(f"flash_fwd_tc_wg_ldgI13__nv_bfloat16Li{w}E"
                      for w in (64, 128, 192, 256))),
+    "tccluster": ("flash_attention_fwd_tc.cu", TC_CLUSTER_VARIANTS,
+                  tc_cluster_variant_source,
+                  tuple(f"flash_fwd_tc_cluster{r}I13__nv_bfloat16Li{c}E"
+                        for r in ("", "_ldg") for c in (2, 3, 4, 8))),
 }
 
 
-def build_all(out_dir, kernel="f32"):
+def build_all(out_dir, kernel="f32", only=None):
     source, variants, make, markers = KERNELS[kernel]
+    if only:
+        variants = {n: variants[n] for n in only}
     with open(os.path.join(_native.CSRC_DIR, source)) as f:
         src = f.read()
     procs = {}
@@ -689,7 +816,8 @@ def build_all(out_dir, kernel="f32"):
         ptxas[name] = " || ".join(report)
         fns[name] = entry(ctypes.CDLL(
             os.path.join(out_dir, f"libsweep_{name}.so")),
-            "mxtt_flash_attention_fwd_tc" if kernel in ("wg", "wg_ldg")
+            "mxtt_flash_attention_fwd_tc"
+            if kernel in ("wg", "wg_ldg", "tccluster")
             else "mxtt_flash_attention_fwd")
     return fns, ptxas
 
@@ -714,6 +842,12 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rounds", type=int, default=3)
     ap.add_argument("--kernel", choices=tuple(KERNELS), default="f32")
+    ap.add_argument("--only", default="",
+                    help="comma-separated variants to build and time "
+                    "(default: all); a diagnostic that faults ends the "
+                    "process, so time diagnostics apart")
+    ap.add_argument("--tag", default="",
+                    help="appended to the output file's name")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("needs an NVIDIA GPU")
@@ -725,14 +859,17 @@ def main(argv=None):
     print(card, flush=True)
     out_dir = os.path.join(_native.BUILD_DIR, "sweep_" + args.kernel)
     os.makedirs(out_dir, exist_ok=True)
-    fns, ptxas = build_all(out_dir, args.kernel)
+    only = [n for n in args.only.split(",") if n]
+    fns, ptxas = build_all(out_dir, args.kernel, only)
     cases, dtype, tol, timer = {
         "f32": (CASES, torch.float32, 1e-4, time_cuda),
         "wg": (WG_CASES, torch.bfloat16, 2e-2, time_device),
         "wg_ldg": (WG_LDG_CASES, torch.bfloat16, 2e-2, time_device),
         "f32wide": (WIDE_CASES, torch.float32, 1e-4, time_device),
         "f32cluster": (CLUSTER_CASES, torch.float32, 1e-4,
-                       time_device)}[args.kernel]
+                       time_device),
+        "tccluster": (TC_CLUSTER_CASES, torch.bfloat16, 2e-2,
+                      time_device)}[args.kernel]
     g = torch.Generator(device="cuda").manual_seed(0)
     data = {}
     for case, (shp, t_k, causal, *offset) in cases.items():
@@ -779,7 +916,11 @@ def main(argv=None):
 
     def run(name, case, q, k, v, causal):
         if name == "library":
-            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            # it refuses 16-bit views at d 320 ("query_ptr is not correctly
+            # aligned"): it takes aligned copies of them
+            qt, kt, vt = (
+                (x.clone() if x.data_ptr() % 16 else x).transpose(1, 2)
+                for x in (q, k, v))
             return lambda: F.scaled_dot_product_attention(qt, kt, vt,
                                                           is_causal=causal)
         if name == "staged_copy":
@@ -803,8 +944,8 @@ def main(argv=None):
     for row in rows:
         print(json.dumps(row), flush=True)
     os.makedirs(os.path.join(ROOT, OUT_DIR), exist_ok=True)
-    name = ("flash_tile_sweep.json" if args.kernel == "f32"
-            else f"flash_tile_sweep_{args.kernel}.json")
+    name = ("flash_tile_sweep" if args.kernel == "f32"
+            else f"flash_tile_sweep_{args.kernel}") + args.tag + ".json"
     with open(os.path.join(ROOT, OUT_DIR, name), "w") as f:
         json.dump(rows, f, indent=1)
 

@@ -154,6 +154,23 @@ def test_amp_executor_matches_jax_executor_at_head_dim_128(monkeypatch):
     _assert_logp_close(got, want, "bfloat16")
 
 
+# 2 heads of 512 (hidden 1024): the width of the LM that the port's 16-bit
+# cluster kernel serves on the card (flash_fwd_tc_cluster)
+D512 = dict(hidden=1024, heads=2)
+
+
+def test_amp_executor_matches_jax_executor_at_head_dim_512(monkeypatch):
+    """As test_amp_executor_matches_jax_executor, with the LM at hidden 1024
+    in 2 heads of 512, at the same limits."""
+    monkeypatch.delenv("MXTPU_FLASH_ATTENTION", raising=False)
+    weights, tokens = _weights(_lm(mxt, **D512)), _tokens()
+    want = _jax_probs(weights, tokens, "bfloat16", **D512)
+    got = _port_probs(weights, tokens, "bfloat16", **D512)
+    assert got.shape == want.shape == (BATCH * SEQ, VOCAB)
+    np.testing.assert_allclose(got.sum(1), 1.0, atol=1e-5)
+    _assert_logp_close(got, want, "bfloat16")
+
+
 def _tracks_fp32(amp, **width):
     weights, tokens = _weights(_lm(mxt, **width), seed=2), _tokens(seed=3)
     full = _port_probs(weights, tokens, None, **width)
@@ -344,6 +361,29 @@ def test_16bit_flash_matches_pallas_interpret(dtype, tol, causal, q_offset,
     rng = np.random.default_rng(5)
     q, k, v = (torch.from_numpy(rng.standard_normal((1, t, 2, 16)).astype(
         np.float32)).to(getattr(torch, dtype)) for t in (t_q, t_k, t_k))
+    want = jax_flash(*(jnp.asarray(x.float().numpy()).astype(dtype)
+                       for x in (q, k, v)),
+                     causal=causal, q_offset=q_offset, interpret=True)
+    got = tfa.flash_attention(q, k, v, causal=causal, q_offset=q_offset)
+    assert str(want.dtype) == dtype and got.dtype == getattr(torch, dtype)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want.astype(jnp.float32)),
+                               rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("dtype,tol", [("bfloat16", 2e-2), ("float16", 1e-2)])
+@pytest.mark.parametrize("d", [320, 512])
+@pytest.mark.parametrize("causal,q_offset,t_q,t_k", [
+    (True, 8, 37, 45), (False, 3, 21, 50)])
+def test_16bit_flash_wide_heads_match_pallas_interpret(dtype, tol, d, causal,
+                                                       q_offset, t_q, t_k):
+    """As test_16bit_flash_matches_pallas_interpret at head dims 320 and
+    512, which the card runs in a cluster of blocks that split d
+    (flash_fwd_tc_cluster), at the same limits."""
+    rng = np.random.default_rng(d)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, t, 2, d)).astype(
+        np.float32)).to(getattr(torch, dtype)) for t in (t_q, t_k, t_k))
+    assert tfa.launch_plan(q.dtype, 1, t_q, 2, d)[0] == "flash_fwd_tc_cluster"
     want = jax_flash(*(jnp.asarray(x.float().numpy()).astype(dtype)
                        for x in (q, k, v)),
                      causal=causal, q_offset=q_offset, interpret=True)

@@ -72,7 +72,7 @@ def _at_offset(x, offset):
     (False, 0, 520, 390, 256, 0),
     # t_q above two Q tiles with q_offset: an even tile count (4, 8, the
     # last at a 4-byte offset) and an odd one (5, 9); 300, wider than 256,
-    # on each dtype's split over d
+    # on each dtype's cluster kernel
     (True, 24, 256, 280, 256, 0), (True, 7, 450, 457, 200, 1),
     (True, 13, 270, 283, 256, 1), (True, 64, 520, 584, 192, 0),
     (True, 0, 150, 150, 300, 0), (False, 9, 100, 130, 300, 0),
@@ -117,17 +117,19 @@ def test_cuda_kernel_matches_plain(dtype, tol, causal, q_offset, t_q, t_k, d,
     assert tfa.flash_attention.launches == before + 1
     # the kernel of the route: bf16/fp16 up to d 256 run the wgmma kernel,
     # flash_fwd_tc_wg with 16-byte rows, flash_fwd_tc_wg_ldg with the
-    # others; fp32 runs flash_fwd_f32 up to 128, flash_fwd_f32_wide
-    # (either copy width) from 129 to 256 and flash_fwd_f32_cluster from 257
-    # to 1024; the rest the split over d
+    # others, and from 257 to 1024 its cluster, flash_fwd_tc_cluster and
+    # flash_fwd_tc_cluster_ldg; fp32 runs flash_fwd_f32 up to 128,
+    # flash_fwd_f32_wide (either copy width) from 129 to 256 and
+    # flash_fwd_f32_cluster from 257 to 1024; the rest the split over d
     assert tfa.flash_attention.launches_by_kernel[plan] == by_kernel + 1
     if dtype == torch.float32:
         route = ("flash_fwd_f32" if d <= 128 else "flash_fwd_f32_wide"
                  if d <= 256 else "flash_fwd_f32_cluster" if d <= 1024
                  else "flash_fwd_f32_split")
     else:
-        route = ("flash_fwd_tc_split" if d > 256 else "flash_fwd_tc_wg"
-                 if aligned else "flash_fwd_tc_wg_ldg")
+        route = ("flash_fwd_tc_split" if d > 1024 else
+                 "flash_fwd_tc_cluster" if d > 256 else "flash_fwd_tc_wg")
+        route += "" if aligned or d > 1024 else "_ldg"
     assert plan == route
     want = tfa.flash_attention_reference(q.float(), k.float(), v.float(),
                                          causal=causal, q_offset=q_offset)
@@ -182,6 +184,67 @@ def test_f32_cluster_matches_plain(batch, t_q, t_k, heads, d, causal,
     want = tfa.flash_attention_reference(q, k, v, causal=causal,
                                          q_offset=q_offset)
     assert float((got - want).abs().max()) <= 1e-4
+    assert torch.equal(got, again)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2),
+                                       (torch.float16, 3e-3)])
+@pytest.mark.parametrize("batch,t_q,t_k,heads,d,causal,q_offset,offset", [
+    # d 320 (two 192-wide chunks, the second 128 columns of d), 512 and
+    # 1000 (three and six chunks, zero past d in the last), causal and not,
+    # at T above a block's two Q tiles; d 264 and 1024 near the range's
+    # ends, and 768 (four chunks)
+    (2, 300, 300, 2, 320, True, 0, 0), (2, 300, 300, 2, 320, False, 0, 0),
+    (2, 260, 260, 2, 512, True, 0, 0), (2, 200, 333, 2, 512, False, 0, 0),
+    (2, 130, 130, 1, 1000, True, 0, 0), (1, 70, 70, 1, 1000, False, 0, 0),
+    (2, 129, 129, 2, 264, True, 0, 0), (1, 64, 64, 1, 1024, True, 0, 0),
+    (2, 65, 65, 3, 768, True, 0, 0),
+    # rows TMA refuses, on the LDG producer: views at an offset of one
+    # element (d 257, the narrowest, among them), and d 300 and 767 (rows
+    # not 16-byte aligned)
+    (2, 300, 300, 2, 320, True, 0, 1), (2, 200, 333, 2, 512, False, 0, 1),
+    (2, 77, 90, 3, 1000, True, 13, 1), (1, 100, 100, 2, 767, False, 0, 0),
+    (2, 190, 190, 3, 300, True, 0, 0), (1, 130, 130, 1, 257, False, 0, 1),
+    # batch 1; ragged T with q_offset; t_q of 1 and below one Q tile
+    (1, 256, 256, 2, 512, True, 0, 0), (1, 200, 264, 2, 512, True, 64, 0),
+    (1, 100, 180, 2, 320, False, 9, 0), (2, 1, 1, 3, 384, True, 0, 0),
+    (2, 1, 40, 2, 512, True, 39, 0), (2, 33, 33, 2, 640, True, 0, 0),
+    (1, 200, 264, 2, 1000, True, 64, 1),
+    # above 1024: the split over d, both copy widths
+    (2, 65, 65, 2, 1100, True, 0, 0), (2, 65, 65, 2, 1100, True, 0, 1)])
+def test_tc_cluster_matches_plain(dtype, tol, batch, t_q, t_k, heads, d,
+                                  causal, q_offset, offset):
+    """bf16/fp16 head dims 257-1024 on flash_fwd_tc_cluster (16-byte rows)
+    and flash_fwd_tc_cluster_ldg (the others; above 1024 the split), each
+    launch counted by exact name, held to the fp32 plain version on the same
+    inputs at the 16-bit limits; the blocks of a cluster sum their partial
+    scores in rank order, so a second run gives the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc; runs on the card")
+    g = torch.Generator(device="cuda").manual_seed(d + t_q)
+    q, k, v = (_at_offset(torch.randn((batch, t, heads, d), generator=g,
+                                      device="cuda").to(dtype), offset)
+               for t in (t_q, t_k, t_k))
+    copy = tfa.copy_bytes(d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                          itemsize=2)
+    assert copy == (2 if offset or d % 8 else 16)
+    plan = tfa.launch_plan(dtype, batch, t_q, heads, d, copy)
+    assert plan[0] == ("flash_fwd_tc_split" if d > 1024 else
+                       "flash_fwd_tc_cluster" if copy == 16 else
+                       "flash_fwd_tc_cluster_ldg")
+    assert plan[2][2] == -(-d // (128 if d > 1024 else 192))
+    counts = tfa.flash_attention.launches_by_kernel
+    before = dict(counts)
+    got = tfa.flash_attention(q, k, v, causal=causal, q_offset=q_offset)
+    again = tfa.flash_attention(q, k, v, causal=causal, q_offset=q_offset)
+    torch.cuda.synchronize()
+    assert {n: c - before[n] for n, c in counts.items() if c != before[n]} \
+        == {plan[0]: 2}
+    want = tfa.flash_attention_reference(q.float(), k.float(), v.float(),
+                                         causal=causal, q_offset=q_offset)
+    assert got.dtype == dtype
+    assert float((got.float() - want).abs().max()) <= tol
     assert torch.equal(got, again)
 
 

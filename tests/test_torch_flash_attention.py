@@ -157,14 +157,23 @@ def test_copy_bytes_rule(d, offset, want):
     (torch.bfloat16, 128, ("flash_fwd_tc_wg", 128, (6, 2, 1))),
     (torch.float16, 160, ("flash_fwd_tc_wg", 192, (6, 2, 1))),
     (torch.bfloat16, 256, ("flash_fwd_tc_wg", 256, (6, 2, 1))),
-    (torch.bfloat16, 1000, ("flash_fwd_tc_split", 128, (6, 4, 8))),
+    (torch.bfloat16, 1000, ("flash_fwd_tc_cluster", 192, (6, 2, 6))),
     (torch.bfloat16, 160, ("flash_fwd_tc_wg", 192, (6, 2, 1))),
     (torch.bfloat16, 192, ("flash_fwd_tc_wg", 192, (6, 2, 1))),
     (torch.bfloat16, 200, ("flash_fwd_tc_wg", 256, (6, 2, 1))),
     (torch.float16, 200, ("flash_fwd_tc_wg", 256, (6, 2, 1))),
     (torch.float16, 256, ("flash_fwd_tc_wg", 256, (6, 2, 1))),
-    # wider than 256: the split over d
-    (torch.bfloat16, 264, ("flash_fwd_tc_split", 128, (6, 4, 3))),
+    # from 257 to 1024: a cluster of ceil(d / 192) blocks for each two
+    # 64-row Q tiles, each block a 192-wide chunk of d (on the grid's z);
+    # the split over d above
+    (torch.bfloat16, 264, ("flash_fwd_tc_cluster", 192, (6, 2, 2))),
+    (torch.bfloat16, 257, ("flash_fwd_tc_cluster", 192, (6, 2, 2))),
+    (torch.float16, 257, ("flash_fwd_tc_cluster", 192, (6, 2, 2))),
+    (torch.float16, 512, ("flash_fwd_tc_cluster", 192, (6, 2, 3))),
+    (torch.bfloat16, 1024, ("flash_fwd_tc_cluster", 192, (6, 2, 6))),
+    (torch.float16, 1024, ("flash_fwd_tc_cluster", 192, (6, 2, 6))),
+    (torch.bfloat16, 1025, ("flash_fwd_tc_split", 128, (6, 4, 9))),
+    (torch.float16, 1025, ("flash_fwd_tc_split", 128, (6, 4, 9))),
     # d up to 64 at width 64, 65-128 at width 128 (columns past d zero)
     (torch.bfloat16, 32, ("flash_fwd_tc_wg", 64, (6, 1, 1))),
     (torch.bfloat16, 40, ("flash_fwd_tc_wg", 64, (6, 1, 1))),
@@ -176,11 +185,11 @@ def test_launch_plan_by_head_dim(dtype, d, want):
     """Which kernel each head dim runs with 16-byte copies (t_q 200, batch
     2, heads 3): fp32 the smallest of the 32/64/128 instantiations up to
     128 and its wide kernel from 129 to 256; bf16/fp16 the wgmma/TMA kernel
-    at the smallest of widths 64, 128, 192 and 256 that holds d; wider
-    heads the split over d, one 128-wide chunk of the output's columns on
-    each grid z, but fp32 from 257 to 1024, which runs a cluster of blocks,
-    one a 128-wide chunk of d, on the grid's z. fp32 Q tiles are 128 rows
-    up to width 64, else 64."""
+    at the smallest of widths 64, 128, 192 and 256 that holds d; from 257
+    to 1024 a cluster of blocks on the grid's z, each a 128-wide chunk of
+    d in fp32 and a 192-wide one in bf16/fp16; wider heads the split over d,
+    one 128-wide chunk of the output's columns on each grid z. fp32 Q tiles
+    are 128 rows up to width 64, else 64."""
     assert tfa.launch_plan(dtype, 2, 200, 3, d) == want
     assert tfa.launch_plan(dtype, 2, 200, 3, d, 16) == want
 
@@ -190,7 +199,7 @@ def test_launch_plan_by_head_dim(dtype, d, want):
     (torch.bfloat16, 200, 2, ("flash_fwd_tc_wg_ldg", 256, (6, 2, 1))),
     (torch.bfloat16, 256, 2, ("flash_fwd_tc_wg_ldg", 256, (6, 2, 1))),
     (torch.bfloat16, 130, 2, ("flash_fwd_tc_wg_ldg", 192, (6, 2, 1))),
-    (torch.bfloat16, 1000, 2, ("flash_fwd_tc_split", 128, (6, 4, 8))),
+    (torch.bfloat16, 1000, 2, ("flash_fwd_tc_cluster_ldg", 192, (6, 2, 6))),
     (torch.bfloat16, 64, 2, ("flash_fwd_tc_wg_ldg", 64, (6, 1, 1))),
     (torch.float32, 256, 4, ("flash_fwd_f32_wide", 256, (6, 2, 1))),
     (torch.float32, 200, 4, ("flash_fwd_f32_wide", 256, (6, 2, 1))),
@@ -209,15 +218,21 @@ def test_launch_plan_by_head_dim(dtype, d, want):
     # 2-byte rows at d 129-256 (250: 500-byte rows)
     (torch.float16, 250, 2, ("flash_fwd_tc_wg_ldg", 256, (6, 2, 1))),
     (torch.bfloat16, 192, 2, ("flash_fwd_tc_wg_ldg", 192, (6, 2, 1))),
-    # 2-byte rows wider than 256: the split over d
-    (torch.bfloat16, 257, 2, ("flash_fwd_tc_split", 128, (6, 4, 3))),
-    (torch.float16, 320, 2, ("flash_fwd_tc_split", 128, (6, 4, 3)))])
+    # 2-byte rows from 257 to 1024: the cluster kernel's LDG route; wider,
+    # the split over d
+    (torch.bfloat16, 257, 2, ("flash_fwd_tc_cluster_ldg", 192, (6, 2, 2))),
+    (torch.float16, 320, 2, ("flash_fwd_tc_cluster_ldg", 192, (6, 2, 2))),
+    (torch.float16, 257, 2, ("flash_fwd_tc_cluster_ldg", 192, (6, 2, 2))),
+    (torch.bfloat16, 1024, 2, ("flash_fwd_tc_cluster_ldg", 192, (6, 2, 6))),
+    (torch.float16, 1023, 2, ("flash_fwd_tc_cluster_ldg", 192, (6, 2, 6))),
+    (torch.bfloat16, 1025, 2, ("flash_fwd_tc_split", 128, (6, 4, 9))),
+    (torch.float16, 1100, 2, ("flash_fwd_tc_split", 128, (6, 4, 9)))])
 def test_launch_plan_by_copy_width(dtype, d, copy, want):
     """2-byte rows (what TMA refuses: d not a multiple of 8, or a base that
-    is not 16-byte aligned) run flash_fwd_tc_wg_ldg up to d 256, at the TMA
-    route's width and grid, and the split over d above; fp32's 4-byte
-    copies change no route: the wide and cluster kernels copy 4 bytes at a
-    time too."""
+    is not 16-byte aligned) run flash_fwd_tc_wg_ldg up to d 256 and
+    flash_fwd_tc_cluster_ldg from 257 to 1024, at the TMA route's width and
+    grid, and the split over d above; fp32's 4-byte copies change no route:
+    the wide and cluster kernels copy 4 bytes at a time too."""
     assert tfa.launch_plan(dtype, 2, 200, 3, d, copy) == want
 
 
@@ -290,6 +305,29 @@ def test_launch_plan_f32_cluster_grid(d, blocks):
         tfa.launch_plan(torch.float32, 1, 64 * 65535 + 1, 1, d)
 
 
+@pytest.mark.parametrize("d,blocks", [(257, 2), (320, 2), (384, 2),
+                                      (385, 3), (512, 3), (576, 3),
+                                      (577, 4), (768, 4), (769, 5),
+                                      (960, 5), (961, 6), (1024, 6)])
+def test_launch_plan_tc_cluster_grid(d, blocks):
+    """bf16/fp16's cluster kernels: one cluster of ceil(d / 192) blocks for
+    each two 64-row Q tiles of a head (tiles i and n - 1 - i, as
+    flash_fwd_tc_wg's grid at widths 192 and 256), its blocks on the grid's
+    z, the same grid at either copy width, and its y capped like the other
+    kernels'."""
+    for t_q, tiles in ((1, 1), (64, 1), (65, 1), (128, 1), (129, 2),
+                       (200, 2), (2048, 16), (2049, 17)):
+        for dtype in (torch.bfloat16, torch.float16):
+            for copy, name in ((16, "flash_fwd_tc_cluster"),
+                               (2, "flash_fwd_tc_cluster_ldg")):
+                assert tfa.launch_plan(dtype, 2, t_q, 4, d, copy) \
+                    == (name, 192, (8, tiles, blocks))
+    assert tfa.launch_plan(torch.bfloat16, 1, 128 * 65535, 1, d)[2][1] \
+        == 65535
+    with pytest.raises(MXNetError, match="Q tiles"):
+        tfa.launch_plan(torch.float16, 1, 128 * 65535 + 1, 1, d, 2)
+
+
 @pytest.mark.parametrize("batch,heads,ok", [
     (1, 65535, True), (16400, 4, True), (4100, 16, True),
     (2 ** 16, 2 ** 15 - 1, True), (2 ** 16, 2 ** 15, False)])
@@ -313,10 +351,10 @@ def test_launch_plan_q_tiles_and_chunks_capped():
                                copy)[2][1] == 65535
         with pytest.raises(MXNetError, match="Q tiles"):
             tfa.launch_plan(torch.bfloat16, 1, 256 * 65535 + 1, 1, 64, copy)
-    assert tfa.launch_plan(torch.bfloat16, 1, 64 * 65535, 1, 300, 2)[2][1] \
+    assert tfa.launch_plan(torch.bfloat16, 1, 64 * 65535, 1, 1100, 2)[2][1] \
         == 65535
     with pytest.raises(MXNetError, match="Q tiles"):
-        tfa.launch_plan(torch.bfloat16, 1, 64 * 65535 + 1, 1, 300, 2)
+        tfa.launch_plan(torch.bfloat16, 1, 64 * 65535 + 1, 1, 1100, 2)
     with pytest.raises(MXNetError, match="d-chunks"):
         tfa.launch_plan(torch.float32, 1, 64, 1, 128 * 65535 + 1)
 

@@ -70,3 +70,35 @@ def test_cluster_v2_variant_stages_v_from_the_start_of_a_tile():
     assert "cp_async_wait<2>();" in out
     assert "(v_s, v_bh, k0 + C_BK," not in out
     assert "constexpr int C_BLOCKS = 1;" in out
+
+
+def test_tc_cluster_variants_patch_the_exchange_and_the_chunks():
+    """flash_fwd_tc_cluster's no_exchange diagnostic loads only from its
+    own block's buffer and keeps the exchange's barriers; compute_alone calls
+    no exchange at all, nor its last wait; w256 takes 256-wide chunks, so
+    clusters of 2-4 blocks, with 64-row K/V tiles in two stages, the
+    partials in pieces and the LDG route's smaller staging; split sends
+    both routes of d 257-1024 to the split over d."""
+    with open(os.path.join(_native.CSRC_DIR,
+                           "flash_attention_fwd_tc.cu")) as f:
+        src = f.read()
+    make = sweep.tc_cluster_variant_source
+    out = make(src, *sweep.TC_CLUSTER_VARIANTS["no_exchange"])
+    assert "map_rank(mine, blockIdx.z)" in out
+    assert out.count("mbar_wait_cluster(full, round & 1);") == src.count(
+        "mbar_wait_cluster(full, round & 1);")
+    assert out.count("release_arrive_all_if<CL>(") == src.count(
+        "release_arrive_all_if<CL>(")
+    out = make(src, *sweep.TC_CLUSTER_VARIANTS["compute_alone"])
+    assert "xchg(sc, kt);" not in out and "xchg(sc, 0);" not in out
+    assert "xchg.finish(n_tiles);" not in out
+    out = make(src, *sweep.TC_CLUSTER_VARIANTS["w256"])
+    assert "constexpr int CW = 256;" in out
+    assert "CL_MIN = 256 / CW + 1;" in out
+    assert "CL_MAX = (CLUSTER_D + CW - 1) / CW;" in out
+    assert "struct ClusterTiles : TilesOf<64, 2, 2, " in out
+    assert "constexpr int XP_TMA = 2;" in out
+    assert "constexpr int XP_LDG = 4;" in out
+    assert "struct LdgTraits : LdgOf<16, 2, 40>" in out
+    out = make(src, *sweep.TC_CLUSTER_VARIANTS["split"])
+    assert "if (d <= wgk::CLUSTER_D" not in out
