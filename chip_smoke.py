@@ -26,11 +26,12 @@ result line:
    ``flash_fwd_f32_cluster``'s two (16- and 4-byte copies) and of
    ``flash_fwd_tc_wg``'s and ``flash_fwd_tc_wg_ldg``'s eight each (bf16
    and fp16 at widths 64, 128, 192 and 256) and ``flash_fwd_tc_cluster``'s
-   and ``flash_fwd_tc_cluster_ldg``'s ten each (bf16 and fp16 at clusters
-   of 2-6 blocks), none of which may spill (the cluster kernels at most 64
-   bytes), no wgmma that ptxas serialized, the consumers' registers
-   (setmaxnreg) of both routes, 112 at width 64, and the clusters of each
-   cluster kernel the card places at once;
+   and ``flash_fwd_tc_cluster_ldg``'s fourteen each (bf16 and fp16 at
+   clusters of 2-8 blocks), none of which may spill (the 16-bit cluster
+   kernels at most 64 bytes), no wgmma that ptxas serialized, the
+   consumers' registers (setmaxnreg) of both routes, 112 at width 64, and
+   the clusters of each cluster kernel the card places at once, at every
+   size (and, in fp32, Q chunks a block) it launches;
 3. kernel vs plain: the flash-attention kernels against their plain version
    at the main path's shape (bf16/fp16 on wgmma at every head dim up to
    256: 16-byte rows through TMA, the others through the LDG producer;
@@ -47,8 +48,11 @@ result line:
    batch 1, and a ragged T with ``q_offset``; bf16's cluster kernel, phase
    8's d = 512 shape, causal and not, fp16 at an offset of one element),
    500 and 1000 (the cluster kernels: zero past d in the last chunk;
-   clusters of 8 blocks in fp32, 6 in bf16), 1100 (each dtype's split over
-   d), in fp32 (CUDA cores),
+   clusters of 8 blocks in fp32, 6 in bf16), 1100 (fp32's clusters of 9
+   blocks, bf16's of 6 on the LDG route: 2200-byte rows), 2048 (fp32's of
+   16), 2100 and 8300 (fp32's groups of clusters), 1400 (bf16's of 8) and
+   1600 (bf16's split over d), in
+   fp32 (CUDA cores),
    bf16 and fp16 (tensor cores), each row naming the kernel that ran, timed
    per call (as in earlier slices) and on the device alone, beside the
    plain version and a library attention call, with its share of the
@@ -211,9 +215,9 @@ result line:
    SoftmaxOutput, Dropout, ReLU and Concat, the amp casts, SGD and the
    rest, and split steps timed for the ratio; (c) inference through
    ``benchmark_score.py``'s binding and rate (the difference of two timed
-   runs of 12 and 50 forwards): ResNet-50, AlexNet, Inception-BN and
+   runs of 10 and 40 forwards): ResNet-50, AlexNet, Inception-BN and
    Inception-v3 at batch 1 and 32 in fp32 (TF32 off) and batch 32 in bf16,
-   the captured forward and the eager walk three times each in turns, one
+   the captured forward and the eager walk twice each in turns, one
    capture a binding, the captured output bit-identical to the eager one
    (else within 1e-4), the idle share of 10 traced captured forwards and
    the output copy's ms; (d) one fp32 SGD step of each of the nine
@@ -258,7 +262,7 @@ result line:
 16. LM decode at the LM's width: (a) ``bench.py``'s ``bench_decode``
    through ``mxnet_tpu_torch/tools/decode_bench.py`` (vocab 32768, hidden
    1024, 16 heads, 12 layers, cache 2048, batch 8, bf16 weights and caches
-   through ``type_dict``), 256 tokens timed captured and eager on one
+   through ``type_dict``), 128 tokens timed captured and eager on one
    binding: ms a token, tok/s, host issue ms, kernels a token and device
    busy from 8 traced captured tokens, one eager token's device time by
    group (the QKV/out/FF/head GEMMs, the cache write, scores/softmax/PV,
@@ -379,6 +383,26 @@ def check(cond, what):
     if not cond:
         raise CheckFailed(what)
     print(f"  ok: {what}", flush=True)
+
+
+# the flash wrapper's launches by kernel in each main path's counted run
+# (the counts set to 0 just before it and read just after), by path
+MAIN_PATH_LAUNCHES = {}
+
+
+def note_main_path(path):
+    """Keep the flash wrapper's launches by kernel of main path ``path``,
+    read just after its counted run."""
+    from mxnet_tpu_torch.ops.flash_attention import flash_attention
+
+    MAIN_PATH_LAUNCHES[path] = dict(flash_attention.launches_by_kernel)
+
+
+def main_path_launches(kernel):
+    """``(total, by path)`` of ``kernel``'s launches in the main paths'
+    counted runs."""
+    by_path = {p: c[kernel] for p, c in MAIN_PATH_LAUNCHES.items()}
+    return sum(by_path.values()), by_path
 
 
 # ---------------------------------------------------------------- measuring
@@ -590,10 +614,12 @@ def phase_build():
             "4-byte copies) without spills")
     clusters = cluster_counts()
     out["f32_clusters_at_once"] = clusters
-    print("  flash_fwd_f32_cluster: clusters the card holds at once, by "
-          "blocks a cluster: " + json.dumps(clusters), flush=True)
-    check(all(n >= 1 for n in clusters.values()),
-          "the card places flash_fwd_f32_cluster's clusters of 3-8 blocks")
+    print("  flash_fwd_f32_cluster: clusters the card holds at once, by Q "
+          "chunks a block holds and blocks a cluster: "
+          + json.dumps(clusters), flush=True)
+    check(all(n >= 1 for by in clusters.values() for n in by.values()),
+          "the card places flash_fwd_f32_cluster's clusters of every size "
+          "and Q slots it launches")
     log = _native.BUILD_LOGS.get("flash_attention_fwd_tc")
     if log is None:
         print("  flash_attention_fwd_tc reused: its ptxas report not read",
@@ -629,10 +655,10 @@ def phase_build():
             # registers spills a little at 3 ranks or more (PERF.md); held
             # so that a change that spills the 600 bytes of 256-wide chunks
             # fails here
-            check(len(report) == 10 and all(
+            check(len(report) == 14 and all(
                 r["spill_stores"] <= 64 for r in report.values()),
                 f"ptxas: every {kernel} instantiation (bf16 and fp16, "
-                "clusters of 2-6 blocks) spills at most 64 bytes")
+                "clusters of 2-8 blocks) spills at most 64 bytes")
     regs = setmaxnreg_counts()
     out["setmaxnreg"] = regs
     print("  setmaxnreg (producer, consumers) by width (cluster: the "
@@ -645,29 +671,43 @@ def phase_build():
           "at once, by blocks a cluster: " + json.dumps(tc_clusters),
           flush=True)
     check(all(n >= 1 for by in tc_clusters.values() for n in by.values()),
-          "the card places the 16-bit cluster kernels' clusters of 2-6 "
+          "the card places the 16-bit cluster kernels' clusters of 2-8 "
           "blocks on both routes")
     return out
 
 
 def cluster_counts():
     """How many clusters of ``flash_fwd_f32_cluster`` the card holds at
-    once, by blocks a cluster (3-8: d 257-1024), as the library's C entry
-    reports them (cudaOccupancyMaxActiveClusters)."""
+    once, by Q chunks a block holds (its shared memory) and blocks a
+    cluster, at every pair a head dim launches, as the library's C entry
+    reports them (cudaOccupancyMaxActiveClusters). The pairs come from the
+    plan's own schedule at every chunk count from 3 (d 257) to
+    ``most * (qres + 1)``; more chunks launch no other pair (blocks stream
+    their Q in a ring of two, as in groups of clusters of 9 blocks and
+    more at 17-32 chunks)."""
     import ctypes
 
     from mxnet_tpu_torch import _native
+    from mxnet_tpu_torch.ops.flash_attention import (
+        _F32_CLUSTER_MAX as most, _F32_CLUSTER_QRES as qres,
+        _cluster_groups, _cluster_q_slots)
 
     fn = _native.load("flash_attention_fwd").mxtt_flash_attention_fwd_clusters
-    fn.argtypes = [ctypes.c_int]
+    fn.argtypes = [ctypes.c_int] * 2
     fn.restype = ctypes.c_int
-    return {str(c): fn(c) for c in range(3, 9)}
+    out = {}
+    for n in range(3, most * (qres + 1) + 1):
+        _, blocks, chunks = _cluster_groups(n, most)
+        by_blocks = out.setdefault(str(_cluster_q_slots(chunks)), {})
+        if str(blocks) not in by_blocks:
+            by_blocks[str(blocks)] = fn(blocks, _cluster_q_slots(chunks))
+    return out
 
 
 def tc_cluster_counts():
     """How many clusters of the 16-bit cluster kernels the card holds at
     once, by route (``tma``: flash_fwd_tc_cluster, ``ldg``:
-    flash_fwd_tc_cluster_ldg) and blocks a cluster (2-6: d 257-1024), as the
+    flash_fwd_tc_cluster_ldg) and blocks a cluster (2-8: d 257-1536), as the
     library's C entry reports them (cudaOccupancyMaxActiveClusters)."""
     import ctypes
 
@@ -677,7 +717,7 @@ def tc_cluster_counts():
         .mxtt_flash_attention_fwd_tc_clusters
     fn.argtypes = [ctypes.c_int] * 2
     fn.restype = ctypes.c_int
-    return {route: {str(c): fn(c, ldg) for c in range(2, 7)}
+    return {route: {str(c): fn(c, ldg) for c in range(2, 9)}
             for route, ldg in (("tma", 0), ("ldg", 1))}
 
 
@@ -796,8 +836,12 @@ def phase_kernel_vs_plain(seed):
         # and not; 4 heads of 320 (three chunks, the last half empty),
         # causal and not; a ragged d (500: zero past d in the last chunk);
         # d 1000 (clusters of 8 blocks); a view at an offset of one element
-        # (4-byte copies); batch 1; a ragged T with q_offset. Above 1024:
-        # the split over d
+        # (4-byte copies); batch 1; a ragged T with q_offset. Above 1024
+        # more blocks a cluster: d 1100 (9 blocks, past the portable 8) and
+        # 2048 (16, one cluster); above 16 chunks groups of clusters, each
+        # computing S once: d 2100 (two groups of 9 blocks, a ragged last
+        # chunk and an idle 18th) and d 8300 (five of 13, each block
+        # streaming its 5 Q chunks)
         ("d512_fp32_causal", (BATCH, SEQ, D512_HEADS, 512), SEQ, True, 0,
          torch.float32, 1e-4),
         ("d512_fp32_noncausal", (BATCH, SEQ, D512_HEADS, 512), SEQ, False,
@@ -818,6 +862,12 @@ def phase_kernel_vs_plain(seed):
          True, 64, torch.float32, 1e-4),
         ("d1100_fp32_causal", (BATCH, SEQ, 1, 1100), SEQ, True, 0,
          torch.float32, 1e-4),
+        ("d2048_fp32_causal", (BATCH, SEQ, 1, 2048), SEQ, True, 0,
+         torch.float32, 1e-4),
+        ("d2100_fp32_causal", (1, SEQ, 1, 2100), SEQ, True, 0,
+         torch.float32, 1e-4),
+        ("d8300_fp32_causal", (1, 256, 1, 8300), 256, True, 0,
+         torch.float32, 1e-4),
         ("d256_bf16_causal", (BATCH, SEQ, HEADS // 4, 256), SEQ, True, 0,
          torch.bfloat16, 2e-2),
         ("d256_fp16_causal", (BATCH, SEQ, HEADS // 4, 256), SEQ, True, 0,
@@ -830,8 +880,9 @@ def phase_kernel_vs_plain(seed):
         # 192-wide chunk of d, with 16-byte rows (TMA) and, at an offset of
         # one element (the last field), the LDG producer: 4 heads of 320
         # (two chunks, the second 128 columns of d), phase 8's 2 heads of
-        # 512, causal and not, d 1000 (clusters of 6 blocks); above 1024
-        # the split over d
+        # 512, causal and not, d 1000 (clusters of 6 blocks), 1400 (8, the
+        # portable limit) and 1100 (6; its 2200-byte rows, not a multiple
+        # of 16 bytes, on the LDG route); above 1536 the split over d
         ("d320_bf16_causal", (BATCH, SEQ, HEADS // 4, 320), SEQ, True, 0,
          torch.bfloat16, 2e-2),
         ("d320_fp16_causal", (BATCH, SEQ, HEADS // 4, 320), SEQ, True, 0,
@@ -847,6 +898,10 @@ def phase_kernel_vs_plain(seed):
         ("d1000_bf16_causal", (BATCH, SEQ, 1, 1000), SEQ, True, 0,
          torch.bfloat16, 2e-2),
         ("d1100_bf16_causal", (BATCH, SEQ, 1, 1100), SEQ, True, 0,
+         torch.bfloat16, 2e-2),
+        ("d1400_bf16_causal", (BATCH, SEQ, 1, 1400), SEQ, True, 0,
+         torch.bfloat16, 2e-2),
+        ("d1600_bf16_causal", (BATCH, SEQ, 1, 1600), SEQ, True, 0,
          torch.bfloat16, 2e-2),
         # 16-byte rows up to d 128 on the wgmma/TMA kernel: the serving
         # shape without the mask, d 128 in fp16, d 96 (width 128, zeros
@@ -967,7 +1022,7 @@ def phase_kernel_vs_plain(seed):
         del q, k, v, got, want
     torch.cuda.empty_cache()
     # the bf16/fp16 main paths' shapes on the wgmma/TMA kernel; the rows
-    # TMA refuses up to d 256 on its LDG producer; d 257-1024 on the
+    # TMA refuses up to d 256 on its LDG producer; d 257-1536 on the
     # cluster kernels, wider on the split
     on_wg = ("slice_bf16_causal", "slice_fp16_causal", "train_bf16_causal",
              "d128_bf16_causal", "d128_fp16_causal", "d96_bf16_causal",
@@ -978,9 +1033,9 @@ def phase_kernel_vs_plain(seed):
               "ragged_d50_bf16_causal_qoff")
     on_tc_cluster = ("d320_bf16_causal", "d320_fp16_causal",
                      "d512_bf16_causal", "d512_bf16_noncausal",
-                     "d1000_bf16_causal")
+                     "d1000_bf16_causal", "d1400_bf16_causal")
     on_tc_cluster_ldg = ("d320_bf16_causal_offset1",
-                         "d512_fp16_causal_offset1")
+                         "d512_fp16_causal_offset1", "d1100_bf16_causal")
     check(all(results[n]["ran"] == ["flash_fwd_tc_wg"] for n in on_wg)
           and all(results[n]["ran"] == ["flash_fwd_tc_wg_ldg"]
                   for n in on_ldg)
@@ -988,21 +1043,21 @@ def phase_kernel_vs_plain(seed):
                   for n in on_tc_cluster)
           and all(results[n]["ran"] == ["flash_fwd_tc_cluster_ldg"]
                   for n in on_tc_cluster_ldg)
-          and results["d1100_bf16_causal"]["ran"] == ["flash_fwd_tc_split"],
+          and results["d1600_bf16_causal"]["ran"] == ["flash_fwd_tc_split"],
           "16-byte rows up to d 256 ran flash_fwd_tc_wg, the other rows up "
-          "to d 256 flash_fwd_tc_wg_ldg; from 257 to 1024 16-byte rows "
+          "to d 256 flash_fwd_tc_wg_ldg; from 257 to 1536 16-byte rows "
           "flash_fwd_tc_cluster, 2-byte rows flash_fwd_tc_cluster_ldg; d "
-          "1100 flash_fwd_tc_split")
+          "1600 flash_fwd_tc_split")
     on_cluster = ("d512_fp32_causal", "d512_fp32_noncausal",
                   "d320_fp32_causal", "d320_fp32_noncausal",
                   "d500_fp32_causal", "d1000_fp32_causal",
                   "d512_fp32_causal_offset1", "d512_fp32_causal_b1",
-                  "ragged_d512_fp32_causal_qoff")
+                  "ragged_d512_fp32_causal_qoff", "d1100_fp32_causal",
+                  "d2048_fp32_causal", "d2100_fp32_causal",
+                  "d8300_fp32_causal")
     check(all(results[n]["ran"] == ["flash_fwd_f32_cluster"]
-              for n in on_cluster)
-          and results["d1100_fp32_causal"]["ran"] == ["flash_fwd_f32_split"],
-          "fp32 at d 257-1024 ran flash_fwd_f32_cluster, at d 1100 "
-          "flash_fwd_f32_split")
+              for n in on_cluster),
+          "fp32 at every d above 256 ran flash_fwd_f32_cluster")
     return results
 
 
@@ -1131,6 +1186,7 @@ def phase_slice(mx, layers, seed):
         lambda k: flash_kernel(k) == "flash_fwd_f32")
     wrapper = flash_attention.launches
     wrapper_fp32 = flash_attention.launches_by_dtype["float32"]
+    note_main_path("4")
     info = ex.forward_info()
     ms = timed_requests(batches, feed, forward,
                         lambda: ex.eager_forward()[0])
@@ -1246,6 +1302,7 @@ def slice_at_heads(mx, weights, seed, phase, heads, kernel):
                             if flash_kernel(k) == kernel))
         check_probs(got[0])
     by_kernel = dict(flash_attention.launches_by_kernel)
+    note_main_path(phase)
     info = ex.forward_info()
     ms = timed_requests(batches, feed, forward,
                         lambda: ex.eager_forward()[0])
@@ -1715,6 +1772,7 @@ def phase_amp(mx, weights, seed):
         lambda k: flash_kernel(k) == "flash_fwd_tc_wg")
     launches = dict(flash_attention.launches_by_dtype)
     by_kernel = dict(flash_attention.launches_by_kernel)
+    note_main_path("8")
     info = exe.forward_info()
     ms = timed_requests(batches, feed, forward, eager)
     check(traced == [LAYERS] * AMP_REQUESTS
@@ -1938,6 +1996,7 @@ def amp_heads(mx, weights, seed, heads, kernel):
                             if flash_kernel(k) == kernel))
         check_probs(got[0])
     by_kernel = dict(flash_attention.launches_by_kernel)
+    note_main_path(f"8 {tag}")
     info = exe.forward_info()
     ms = timed_requests(batches, feed, forward, eager)
     steady = float(np.median(ms["captured"]))
@@ -2114,6 +2173,7 @@ def phase_train(mx, weights, seed):
                   f"all {len(ex.grad_dict)} gradients of step 1 finite")
     launches = dict(flash_attention.launches_by_dtype)
     by_kernel = dict(flash_attention.launches_by_kernel)
+    note_main_path("9")
     check(all(np.isfinite(losses)), f"mean NLL finite: {losses}")
     check(per_step == [LAYERS] * TRAIN_STEPS
           and launches["float32"] == 0 and launches["float16"] == 0
@@ -4595,6 +4655,7 @@ def graph_lm(mx, weights, seed, split_nll):
             if flash_kernel(k) not in (None, "flash_fwd_tc_wg")))
         losses.append(float(nll(mod).mean()))
     calls = dict(flash_attention.launches_by_dtype)
+    note_main_path("13")
     info = mod.step_info()
     step_ms = []
     for _ in range(GRAPH_LM_TIMED):
@@ -4772,7 +4833,7 @@ ZOO_TRAIN = (("alexnet", {}, 224), ("inception-v3", {}, 299))
 ZOO_INFER = (("resnet", {"num_layers": 50}, 224), ("alexnet", {}, 224),
              ("inception-bn", {}, 224), ("inception-v3", {}, 299))
 ZOO_INFER_CONFIGS = ((1, "float32"), (32, "float32"), (32, "bfloat16"))
-ZOO_SCORE_BATCHES = 50      # benchmark_score.py's num_batches (its default)
+ZOO_SCORE_BATCHES = 40      # of benchmark_score.py's default num_batches, 50
 ZOO_SCORE_ORDER = ("captured", "eager", "eager", "captured")
 ZOO_IDLE_FORWARDS = 10      # captured forwards in the traced idle window
 ZOO_SPLIT_STEPS = 2
@@ -5860,7 +5921,7 @@ def phase_detection(mx, seed):
 
 # ------------------------------------------------------------------ phase 16
 
-DEC_TOKENS = 256            # (a): tokens timed a mode (bench.py's steps)
+DEC_TOKENS = 128            # (a): tokens timed a mode (bench.py's 256 halved)
 DEC_TRACED = 8              # (a): captured tokens traced for kernels, busy
 # (a): device-time groups of a traced eager token, by the host range that
 # launched the kernels (the script wraps the ops and the decode core's
@@ -6881,6 +6942,15 @@ def main(argv=None):
     print("phase seconds: " + json.dumps(
         {k: round(v, 1) for k, v in phase_s.items()}), flush=True)
 
+    # the kernels that no main path runs: their launches in the main paths'
+    # counted runs, held to 0; phase 3 holds each to its plain version
+    unlaunched = {}
+    for kernel in ("flash_fwd_tc_wg_ldg", "flash_fwd_tc_cluster_ldg",
+                   "flash_fwd_tc_split"):
+        unlaunched[kernel] = main_path_launches(kernel)
+        check(unlaunched[kernel][0] == 0,
+              f"no main path launched {kernel} (by path: "
+              f"{unlaunched[kernel][1]})")
     main_case = cases["slice_fp32_causal"]
     kernels = [{
         "name": "flash_attention_fwd",
@@ -6905,17 +6975,17 @@ def main(argv=None):
     }]
     # the wgmma kernel's LDG producer: rows TMA refuses (a view at an
     # offset of one element, d not a multiple of 8); no main path makes such
-    # rows, so its main-path launches are 0 and phase 3 holds it to its
-    # plain version and, where d % 8 == 0, to the TMA route's bits
+    # rows, and phase 3 holds it to its plain version and, where d % 8 ==
+    # 0, to the TMA route's bits
     ldg_case = cases["d64_bf16_causal_offset1"]
     kernels.append({
         "name": "flash_attention_fwd_tc_wg_ldg",
         "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/flash_attention_fwd_tc.cu",
         "replaces": "mxnet_tpu/ops/flash_attention.py:47",
-        "launches": 0,
+        "launches": unlaunched["flash_fwd_tc_wg_ldg"][0],
         "launches_by_path": {
-            "main_paths": 0,
+            "main_paths": unlaunched["flash_fwd_tc_wg_ldg"][1],
             "phase3_cases": [n for n, c in cases.items()
                              if c["ran"] == ["flash_fwd_tc_wg_ldg"]]},
         **{k: ldg_case[k] for k in KERNEL_KEYS},
@@ -6954,9 +7024,12 @@ def main(argv=None):
             "d512_requests_wrapper_calls":
                 slice_d512["wrapper_calls"]["flash_fwd_f32_cluster"]},
         **{k: cluster_case[k] for k in KERNEL_KEYS},
-        # 4 heads of 320 (three chunks, the last half empty), from phase 3
+        # 4 heads of 320 (three chunks, the last half empty), d 1100 (9
+        # blocks), 2048 (16) and 2100 (two groups of 9), from phase 3
         "other_shapes": {n: {k: cases[n][k] for k in KERNEL_KEYS}
-                         for n in ("d320_fp32_causal",)}})
+                         for n in ("d320_fp32_causal", "d1100_fp32_causal",
+                                   "d2048_fp32_causal",
+                                   "d2100_fp32_causal")}})
     wg_case = cases["slice_bf16_causal"]
     kernels.append({
         "name": "flash_attention_fwd_tc_wg",
@@ -6988,11 +7061,11 @@ def main(argv=None):
         "other_shapes": {n: {k: cases[n][k] for k in KERNEL_KEYS}
                          for n in ("train_bf16_causal", "d128_bf16_causal",
                                    "d256_bf16_causal")}})
-    # the 16-bit cluster kernels (d 257-1024): phase 8's requests at 2 heads
+    # the 16-bit cluster kernels (d 257-1536): phase 8's requests at 2 heads
     # of 512 (the kernels the card ran in them, traced; the wrapper's calls
     # are the warm-up's and the capture's); the LDG route's rows (views at
-    # an offset of one element) come from no main path, so its main-path
-    # launches are 0 and phase 3 holds it to its plain version
+    # an offset of one element) come from no main path, and phase 3 holds
+    # it to its plain version
     tc_cluster_case = cases["d512_bf16_causal"]
     kernels.append({
         "name": "flash_attention_fwd_tc_cluster",
@@ -7008,21 +7081,37 @@ def main(argv=None):
         "other_shapes": {n: {k: cases[n][k] for k in KERNEL_KEYS}
                          for n in ("d320_bf16_causal", "d320_fp16_causal",
                                    "d512_bf16_noncausal",
-                                   "d1000_bf16_causal")}})
+                                   "d1000_bf16_causal",
+                                   "d1400_bf16_causal")}})
     tc_cluster_ldg_case = cases["d320_bf16_causal_offset1"]
     kernels.append({
         "name": "flash_attention_fwd_tc_cluster_ldg",
         "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/flash_attention_fwd_tc.cu",
         "replaces": "mxnet_tpu/ops/flash_attention.py:47",
-        "launches": 0,
+        "launches": unlaunched["flash_fwd_tc_cluster_ldg"][0],
         "launches_by_path": {
-            "main_paths": 0,
+            "main_paths": unlaunched["flash_fwd_tc_cluster_ldg"][1],
             "phase3_cases": [n for n, c in cases.items()
                              if c["ran"] == ["flash_fwd_tc_cluster_ldg"]]},
         **{k: tc_cluster_ldg_case[k] for k in KERNEL_KEYS},
         "other_shapes": {n: {k: cases[n][k] for k in KERNEL_KEYS}
-                         for n in ("d512_fp16_causal_offset1",)}})
+                         for n in ("d512_fp16_causal_offset1",
+                                   "d1100_bf16_causal")}})
+    # the 16-bit split over d, above d 1536: no main path has such heads,
+    # and phase 3 holds it to its plain version
+    tc_split_case = cases["d1600_bf16_causal"]
+    kernels.append({
+        "name": "flash_attention_fwd_tc_split",
+        "route": "cuda",
+        "source": "mxnet_tpu_torch/csrc/flash_attention_fwd_tc.cu",
+        "replaces": "mxnet_tpu/ops/flash_attention.py:47",
+        "launches": unlaunched["flash_fwd_tc_split"][0],
+        "launches_by_path": {
+            "main_paths": unlaunched["flash_fwd_tc_split"][1],
+            "phase3_cases": [n for n, c in cases.items()
+                             if c["ran"] == ["flash_fwd_tc_split"]]},
+        **{k: tc_split_case[k] for k in KERNEL_KEYS}})
     for name, case in (("rtc_axpy", "axpy_logits_fp32"),
                        ("rtc_sgd_mom", "sgd_mom_embedding_fp32")):
         row = rtc_cases[case]

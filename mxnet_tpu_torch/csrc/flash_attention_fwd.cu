@@ -57,9 +57,8 @@
 //   * head dims: D=32/64/128 instantiations; any d <= 128 runs in the
 //     smallest that holds it, the columns past d zero in shared memory. A
 //     d from 129 to 256 runs flash_fwd_f32_wide (one block owns all of d,
-//     below), from 257 to 1024 flash_fwd_f32_cluster (a thread-block
-//     cluster whose blocks each own a 128-wide chunk of d, below), a d
-//     above 1024 flash_fwd_f32_split (a split over d, below).
+//     below), any wider d flash_fwd_f32_cluster (thread-block clusters
+//     whose blocks each own a 128-wide chunk of d of the output, below).
 //   The tile sizes were chosen on the card among 64/128 Q rows and 32/64
 //   keys (mxnet_tpu_torch/tools/flash_tile_sweep.py; PERF.md).
 // Measured on an H100 SXM at 700 W: 0.54-0.58 ms at the shape above, 44-48 %
@@ -344,7 +343,7 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 // --------------------------------------------- fp32, head dim 129-256
 
 // flash_fwd_f32_wide: d from 129 to 256, all of d in one block, so that
-// S = Q K^T is computed once per K tile (the split below computes it once
+// S = Q K^T is computed once per K tile (a split over d computes it once
 // per 128-wide chunk of the output's columns, 1.5x the work at d = 256).
 // Bound at (2, 2048, 4, 256) fp32 causal: the same 17.2 GFLOP as the LM's
 // shape above (B*H*d is equal), 0.257 ms at 67 TFLOP/s.
@@ -391,10 +390,10 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 // Measured on an H100 SXM at 700 W (tools/flash_tile_sweep.py --kernel
 // f32wide; chip_smoke.py phase 3, PERF.md): 0.544 ms at (2, 2048, 4, 256)
 // causal, 47 % of the bound, against 0.587 for scaled_dot_product_attention
-// and 0.912 for the split; 0.430 at d = 192 against 0.529. What it leaves on
-// the table: no tensor cores (3xTF32, ROADMAP B1c); one block an SM, so a
-// barrier's wait is not covered by another block's work; the Q K^T loop
-// not unrolled (unrolled fully it read 0.507 but spilled).
+// and 0.912 for a split over d; 0.430 at d = 192 against 0.529. What it
+// leaves on the table: no tensor cores (3xTF32, ROADMAP B1c); one block an
+// SM, so a barrier's wait is not covered by another block's work; the Q
+// K^T loop not unrolled (unrolled fully it read 0.507 but spilled).
 constexpr int W_THREADS = 256;   // 8 warps, 8 Q rows each
 constexpr int W_BQ = 64;         // Q rows a tile; a block takes two tiles
 constexpr int W_D = 256;         // widest head dim of the kernel
@@ -681,79 +680,120 @@ flash_fwd_f32_wide(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// --------------------------------------------- fp32, head dim 257-1024
+// ------------------------------------------------- fp32, head dim > 256
 
-// flash_fwd_f32_cluster: d from 257 to C_W * C_MAX = 1024, where Q and two
-// K/V stages at all of d do not fit one SM's shared memory (Q alone is 132
-// KB at d 512). Bound at (2, 2048, 2, 512) fp32 causal: the same 17.2 GFLOP
-// as flash_fwd_f32's shape (B*H*d is equal), 0.257 ms at 67 TFLOP/s.
-//   * one thread-block cluster of C = ceil(d / C_W) blocks along z per
-//     (64-row Q tile, batch*head); block r (its rank in the cluster) owns
-//     columns [r C_W, (r + 1) C_W) of d. The Q tiles run from the last, so
-//     the heaviest causal clusters start first. The card holds 62
-//     clusters of 4 blocks at once (79 of 3, 30 of 8; phase 2 of
-//     chip_smoke.py asks), so 128 equal non-causal clusters run in three
-//     waves, the last nearly empty;
-//   * per K tile each block computes only its chunk's partial
+// flash_fwd_f32_cluster: every d above 256, where Q and two K/V stages at
+// all of d do not fit one SM's shared memory (Q alone is 132 KB at d 512).
+// Bound at (2, 2048, 2, 512) fp32 causal: the same 17.2 GFLOP as
+// flash_fwd_f32's shape (B*H*d is equal), 0.257 ms at 67 TFLOP/s.
+//   * d splits into n = ceil(d / C_W) chunks of 128 columns. Up to C_MAX
+//     chunks one thread-block cluster of C = n blocks along z per (64-row
+//     Q tile, batch*head); above, G = ceil(n / C_MAX) groups of C =
+//     ceil(n / G) blocks, G C blocks on the grid's z, the cluster
+//     dimension (1, 1, C) (cluster_shape). Block z, rank r = z % C of
+//     group z / C, writes columns [z C_W, (z + 1) C_W) of O (none where
+//     z >= n) and reduces the partial S of chunks r, r + C, r + 2C, ...
+//     (kc = ceil(n / C) of them, the ones at or past n zero), so that each
+//     group covers all of d and S is computed once a group: once up to
+//     d = C_W C_MAX, G times above (a split over d computes it n times).
+//     Clusters of more than 8 blocks are the card's non-portable sizes,
+//     allowed on the kernel once per device. The Q tiles run from the
+//     last, so the heaviest causal clusters start first. The card holds
+//     62 clusters of 4 blocks at once (79 of 3, 30 of 8, 14 of 16; at 2-4
+//     Q chunks a block 9 of 9 blocks, 7 of 10-16; phase 2 of chip_smoke.py
+//     asks for every size), so 128 equal non-causal clusters of 4 run in
+//     three waves, the last nearly empty;
+//   * per K tile each block computes only its chunks' partial
 //     S_r = Q_r K_r^T (64 x 32, flash_fwd_f32's register tiling at D = 128:
-//     4 rows x 4 keys a thread), so the cluster computes S once. The
-//     partials meet through distributed shared memory: each block stores
-//     its own, thread-major (a thread's 4 float4 at stride 128 threads), in
-//     one of two buffers; one cluster barrier (arrive.release /
-//     wait.acquire) a K tile; then each thread reads its 16 values from
-//     every rank (mapa, ld.shared::cluster; two ranks' loads in flight)
-//     and adds them in rank order, so that S, the row max m, the sum l and
-//     P are bit-identical in every block and every column chunk is
-//     normalised by the same l. The
-//     second buffer lets tile n + 1's partials go in while a slow peer
-//     still reads tile n's: a block writes a buffer again only after the
-//     next barrier, which every peer reaches after its reads;
+//     4 rows x 4 keys a thread; a block's chunks added in order into the
+//     same registers), so the cluster computes S once. The partials meet
+//     through distributed shared memory: each block stores its own,
+//     thread-major (a thread's 4 float4 at stride 128 threads), in one of
+//     two buffers; one cluster barrier (arrive.release / wait.acquire) a K
+//     tile; then each thread reads its 16 values from every rank (mapa,
+//     ld.shared::cluster; two ranks' loads in flight) and adds them in
+//     rank order, so that S, the row max m, the sum l and P are
+//     bit-identical in every block of every group (each group's rank r
+//     reduces the same chunks in the same order), and every column chunk
+//     is normalised by the same l. The second buffer lets tile n + 1's
+//     partials go in while a slow peer still reads tile n's: a block
+//     writes a buffer again only after the next barrier, which every peer
+//     reaches after its reads;
 //   * then the online softmax of flash_fwd_f32 (log2 domain, masks only on
 //     tiles that cross the diagonal or T_k, causal K tiles past the
 //     diagonal skipped) and P V over the block's own chunk of V; each block
 //     writes its own columns of O as o / max(l, 1e-20);
-//   * each block stages its Q chunk once per Q tile; K chunks through a
-//     two-stage cp.async ring (tile n + 1 in flight while tile n
-//     computes), V through one buffer (V of tile n + 1 is copied from the
-//     end of tile n's P V, in flight under tile n + 1's Q K^T, exchange
-//     and softmax), copies of 16 or 4 bytes (VEC), rows past
-//     T and columns past d zero-filled, so the last, ragged chunk adds
-//     exact zeros;
-//   * shared memory: Q chunk 33.8 KB, 2 K and 1 V buffer 50.7 KB, P 10.2 KB,
-//     two partial buffers 16.4 KB: 111.1 KB, two blocks an SM;
+//   * a block stages its kc Q chunks once per Q tile where they fit (kc <=
+//     C_QRES: every d up to C_W C_MAX C_QRES), else it streams each
+//     chunk's Q beside its K through a ring of two Q slots; K chunks go
+//     through a two-stage cp.async ring, a step (K tile, chunk) at a time,
+//     step n + 1 in flight while step n computes; V through one buffer (V
+//     of tile n + 1 is copied from the end of tile n's P V, in flight under
+//     tile n + 1's Q K^T, exchange and softmax); copies of 16 or 4 bytes
+//     (VEC), rows past T and columns past d zero-filled, so the last,
+//     ragged chunk and the chunks past n add exact zeros;
+//   * shared memory: a Q chunk 33.8 KB, 2 K and 1 V buffer 50.7 KB, P 10.2
+//     KB, two partial buffers 16.4 KB: 111.1 KB at one Q chunk, two blocks
+//     an SM; 144.9-212.5 KB at 2-4 chunks (or a ring of 2), one block;
 //   * the launch (cudaLaunchKernelEx, cluster dimension (1, 1, C) at run
-//     time) first asks cudaOccupancyMaxActiveClusters, once per device and
-//     C, whether such a cluster can be placed, and returns an error if not;
-//     every block ends on a cluster barrier, so that none exits while a
-//     peer still reads its partials.
+//     time) first asks cudaOccupancyMaxActiveClusters, once per device, C
+//     and Q slots, whether such a cluster can be placed, and returns an
+//     error if not; every block ends on a cluster barrier, so that none
+//     exits while a peer still reads its partials.
 // The tile constants were chosen on the card among chunk widths 64 and
 // 128, K/V tiles of 32 and 64 rows, one or two V buffers and blocks an SM,
-// and this exchange (an all-gather of the partials) against a
-// reduce-scatter of S's rows with an all-gather of P, which adds a
-// second barrier a tile (tools/flash_tile_sweep.py --kernel f32cluster;
-// PERF.md).
-// Measured on an H100 SXM at 700 W (chip_smoke.py phase 3, device time):
-// 0.651 ms at (2, 2048, 2, 512) causal, 39 % of the bound, against 0.824
-// for scaled_dot_product_attention and 2.31 for the split; 0.996 at
-// (2, 2048, 4, 320) causal (the split 2.319, the library 0.818); 0.795
-// at (2, 2048, 1, 1000) (1.109). The same arithmetic without the exchange
-// and barrier reads 0.575, and flash_fwd_f32 at (2, 2048, 8, 128), the
-// same operations, 0.522. What it leaves on the table: non-causal, 1.64
-// against the library's 0.91, runs 128 clusters in three waves of 62;
-// d 320 pads its last chunk to 128 columns (64-wide chunks read 7 % less
-// there, 43 % more at d 512); no tensor cores (ROADMAP B1c).
+// clusters of at most 16 or 8 blocks, Q chunks kept or streamed, and this
+// exchange (an all-gather of the partials) against a reduce-scatter of
+// S's rows with an all-gather of P, which adds a second barrier a tile
+// (tools/flash_tile_sweep.py --kernel f32cluster; PERF.md).
+// Measured on an H100 SXM at 700 W (chip_smoke.py phase 3 and the sweep,
+// device time): 0.639-0.651 ms at (2, 2048, 2, 512) causal, 39 % of the
+// bound, against 0.824 for scaled_dot_product_attention and 2.31 for a
+// split over d; 0.996 at (2, 2048, 4, 320) causal (the split 2.319, the
+// library 0.818); 0.795 at (2, 2048, 1, 1000) (1.109); 1.144 at (2, 2048,
+// 1, 1100), 9 blocks (1.234; the split 4.79; two groups of 5 at C_MAX 8
+// 2.11); 2.744 at (2, 2048, 1, 2048), 16 blocks (2.25); 3.02 at (1, 2048,
+// 1, 2100), two groups of 9 (2.22; streamed Q chunks 3.35). The same
+// arithmetic without the exchange and barrier reads 0.575 at d 512, and
+// flash_fwd_f32 at (2, 2048, 8, 128), the same operations, 0.522. What it
+// leaves on the table: the exchange at 16 blocks (each reads 15 peers'
+// partials a tile; the reduce-scatter reads 1.88 there, but 0.755 at d
+// 512); non-causal, 1.64 against the library's 0.91, runs 128 clusters
+// in three waves of 62; d 320 pads its last chunk to 128 columns (64-wide
+// chunks read 7 % less there, 43 % more at d 512); no tensor cores
+// (ROADMAP B1c).
 constexpr int C_W = 128;        // d-chunk width: a block's columns of d
 constexpr int C_BQ = 64;        // Q rows a cluster
 constexpr int C_BK = 32;        // K/V rows a tile
 constexpr int C_BLOCKS = 2;     // blocks an SM (__launch_bounds__)
-constexpr int C_MAX = 8;        // blocks a cluster: the portable limit
+constexpr int C_MAX = 16;       // blocks a cluster: the card's largest
+constexpr int C_QRES = 4;       // Q chunks a block keeps for a Q tile
+constexpr int C_SLOTS = C_QRES > 2 ? C_QRES : 2;   // Q slots at most
 constexpr int C_NJ = C_BK / 8;  // score columns a thread
 constexpr int C_PS = C_BK + 8;  // P row stride
 
-constexpr size_t f32_cluster_smem_bytes() {
+// shared memory of a block that holds `q_slots` Q chunks
+constexpr size_t f32_cluster_smem_bytes(int q_slots) {
   return sizeof(float) *
-         ((size_t)(C_BQ + 3 * C_BK) * (C_W + F_PAD) +
+         ((size_t)(q_slots * C_BQ + 3 * C_BK) * (C_W + F_PAD) +
           (size_t)C_BQ * C_PS + 2 * (size_t)C_BQ * C_BK);
+}
+
+// The clusters of head dim d: `groups` of `blocks` blocks, each block
+// reducing `chunks` 128-wide chunks of d
+struct ClusterShape {
+  int groups, blocks, chunks;
+};
+inline ClusterShape cluster_shape(int d) {
+  const int n = (d - 1) / C_W + 1;
+  const int g = (n - 1) / C_MAX + 1;
+  const int c = (n - 1) / g + 1;
+  return {g, c, (n - 1) / c + 1};
+}
+// the Q chunks a block holds: all of its chunks where they fit, else a
+// ring of two
+constexpr int cluster_q_slots(int chunks) {
+  return chunks <= C_QRES ? chunks : 2;
 }
 
 __device__ __forceinline__ uint32_t cluster_rank() {
@@ -800,15 +840,20 @@ flash_fwd_f32_cluster(const float* __restrict__ q,
                       const float* __restrict__ k,
                       const float* __restrict__ v, float* __restrict__ o,
                       int t_q, int t_k, int heads, int d, float scale_log2,
-                      int causal, int q_offset) {
+                      int causal, int q_offset, int kc, int q_slots) {
   constexpr int MI = C_BQ / 16;         // score and output rows a thread
   constexpr int NG = C_W / 32;          // float4 output column groups
   constexpr int DS = C_W + F_PAD;       // shared row stride of Q, K, V
   constexpr int XE = MI * C_NJ / 4;     // float4 partials a thread
   constexpr int XB = XE * F_THREADS;    // float4 a partial buffer
+  const uint32_t rank = cluster_rank();
+  const uint32_t n_ranks = cluster_blocks();
+  // the block reduces the kc chunks of d rank + u n_ranks, u < kc
+  // (cluster_shape), and holds q_slots of their Q chunks
+  const bool resident = kc <= C_QRES;   // every Q chunk staged once
   extern __shared__ float4 smem4[];
-  float* q_s = reinterpret_cast<float*>(smem4);   // C_BQ x DS
-  float* k_s = q_s + C_BQ * DS;            // 2 stages, C_BK x DS
+  float* q_s = reinterpret_cast<float*>(smem4);   // q_slots x C_BQ x DS
+  float* k_s = q_s + q_slots * C_BQ * DS;  // 2 stages, C_BK x DS
   float* v_s = k_s + 2 * C_BK * DS;        // C_BK x DS
   float* p_s = v_s + C_BK * DS;            // C_BQ x C_PS
   float4* x_s = reinterpret_cast<float4*>(p_s + C_BQ * C_PS);   // 2 x XB
@@ -818,19 +863,20 @@ flash_fwd_f32_cluster(const float* __restrict__ q,
   const int ty = tid >> 3;   // rows ty + 16i
   const int bh = blockIdx.x;
   const int q_tile = gridDim.y - 1 - blockIdx.y;   // heaviest causal first
-  const uint32_t rank = cluster_rank();
-  const uint32_t n_ranks = cluster_blocks();
-  const int c0 = (int)blockIdx.z * C_W;   // the block's first column of d
-  const int dc = d - c0;                  // its columns that lie in d
+  const int c_out = (int)blockIdx.z * C_W;   // the block's output columns
   const int b = bh / heads;
   const int h = bh % heads;
   const int q0 = q_tile * C_BQ;
   const int rs = heads * d;
 
-  const float* q_bh = q + ((int64_t)b * t_q * heads + h) * d + c0;
-  const float* k_bh = k + ((int64_t)b * t_k * heads + h) * d + c0;
-  const float* v_bh = v + ((int64_t)b * t_k * heads + h) * d + c0;
+  const float* q_bh = q + ((int64_t)b * t_q * heads + h) * d;
+  const float* k_bh = k + ((int64_t)b * t_k * heads + h) * d;
+  const float* v_bh = v + ((int64_t)b * t_k * heads + h) * d + c_out;
   float* o_bh = o + ((int64_t)b * t_q * heads + h) * d;
+  // the first column of d of the block's chunk u
+  const auto chunk_col = [&](int u) {
+    return ((int)rank + u * (int)n_ranks) * C_W;
+  };
 
   // every block of the cluster has the same Q tile, so the same K tiles
   int n_tiles = (t_k + C_BK - 1) / C_BK;
@@ -838,13 +884,18 @@ flash_fwd_f32_cluster(const float* __restrict__ q,
     const int last = q_offset + min(q0 + C_BQ, t_q) - 1;
     n_tiles = min(n_tiles, last / C_BK + 1);
   }
+  const int n_steps = n_tiles * kc;   // step kt kc + u: K tile kt, chunk u
 
-  // cp.async groups, in order: Q and K(0), V(0), then K(n + 1) from the
-  // start of tile n and V(n + 1) from its end; empty groups keep the count
-  stage_tile<C_BQ, C_W, VEC>(q_s, q_bh, q0, t_q, rs, dc);
-  stage_tile<C_BK, C_W, VEC>(k_s, k_bh, 0, t_k, rs, dc);
+  // cp.async groups, in order: Q and K(step 0), V(0), then the K (and,
+  // streamed, the Q) of step n + 1 from the start of step n and V(kt + 1)
+  // from the end of tile kt; empty groups keep the count
+  for (int u = 0; u < (resident ? kc : 1); ++u)
+    stage_tile<C_BQ, C_W, VEC>(q_s + u * C_BQ * DS, q_bh + chunk_col(u), q0,
+                               t_q, rs, d - chunk_col(u));
+  stage_tile<C_BK, C_W, VEC>(k_s, k_bh + chunk_col(0), 0, t_k, rs,
+                             d - chunk_col(0));
   cp_async_commit();
-  stage_tile<C_BK, C_W, VEC>(v_s, v_bh, 0, t_k, rs, dc);
+  stage_tile<C_BK, C_W, VEC>(v_s, v_bh, 0, t_k, rs, d - c_out);
   cp_async_commit();
 
   float acc[MI][NG][4];
@@ -861,38 +912,56 @@ flash_fwd_f32_cluster(const float* __restrict__ q,
 
   for (int kt = 0; kt < n_tiles; ++kt) {
     const int k0 = kt * C_BK;
-    const float* kc = k_s + (kt & 1) * C_BK * DS;
-    cp_async_wait<1>();   // K(kt) is in (V(kt) may still be in flight)
-    // K(kt) is in for every thread, and every thread is done with the
-    // buffers the next copies overwrite
-    __syncthreads();
-    if (kt + 1 < n_tiles)
-      stage_tile<C_BK, C_W, VEC>(k_s + ((kt + 1) & 1) * C_BK * DS, k_bh,
-                                 k0 + C_BK, t_k, rs, dc);
-    cp_async_commit();
-
-    // this block's partial S over its C_W columns of d
+    // this block's partial S over its chunks of d
     float s[MI][C_NJ];
 #pragma unroll
     for (int i = 0; i < MI; ++i)
 #pragma unroll
       for (int j = 0; j < C_NJ; ++j) s[i][j] = 0.f;
+#pragma unroll 1
+    for (int u = 0; u < kc; ++u) {
+      const int step = kt * kc + u;
+      // the step's K (and Q) are in: at a tile's first step V(kt), the
+      // group after them, may still be in flight
+      if (u == 0) {
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      // ... for every thread, and every thread is done with the buffers
+      // the next copies overwrite
+      __syncthreads();
+      if (step + 1 < n_steps) {
+        const int nu = u + 1 < kc ? u + 1 : 0;
+        const int nk = u + 1 < kc ? k0 : k0 + C_BK;
+        const int slot = (step + 1) & 1;
+        const int c = chunk_col(nu);
+        stage_tile<C_BK, C_W, VEC>(k_s + slot * C_BK * DS, k_bh + c, nk, t_k,
+                                   rs, d - c);
+        if (!resident)
+          stage_tile<C_BQ, C_W, VEC>(q_s + slot * C_BQ * DS, q_bh + c, q0,
+                                     t_q, rs, d - c);
+      }
+      cp_async_commit();
+      const float* qc = q_s + (resident ? u : step & 1) * C_BQ * DS;
+      const float* kc_s = k_s + (step & 1) * C_BK * DS;
 #pragma unroll
-    for (int c = 0; c < C_W; c += 4) {
-      float4 qv[MI];
+      for (int c = 0; c < C_W; c += 4) {
+        float4 qv[MI];
 #pragma unroll
-      for (int i = 0; i < MI; ++i)
-        qv[i] = *reinterpret_cast<const float4*>(q_s + (ty + 16 * i) * DS + c);
+        for (int i = 0; i < MI; ++i)
+          qv[i] = *reinterpret_cast<const float4*>(qc + (ty + 16 * i) * DS + c);
 #pragma unroll
-      for (int j = 0; j < C_NJ; ++j) {
-        const float4 kv =
-            *reinterpret_cast<const float4*>(kc + (tx + 8 * j) * DS + c);
+        for (int j = 0; j < C_NJ; ++j) {
+          const float4 kv =
+              *reinterpret_cast<const float4*>(kc_s + (tx + 8 * j) * DS + c);
 #pragma unroll
-        for (int i = 0; i < MI; ++i) {
-          s[i][j] = fmaf(qv[i].x, kv.x, s[i][j]);
-          s[i][j] = fmaf(qv[i].y, kv.y, s[i][j]);
-          s[i][j] = fmaf(qv[i].z, kv.z, s[i][j]);
-          s[i][j] = fmaf(qv[i].w, kv.w, s[i][j]);
+          for (int i = 0; i < MI; ++i) {
+            s[i][j] = fmaf(qv[i].x, kv.x, s[i][j]);
+            s[i][j] = fmaf(qv[i].y, kv.y, s[i][j]);
+            s[i][j] = fmaf(qv[i].z, kv.z, s[i][j]);
+            s[i][j] = fmaf(qv[i].w, kv.w, s[i][j]);
+          }
         }
       }
     }
@@ -1021,7 +1090,7 @@ flash_fwd_f32_cluster(const float* __restrict__ q,
     }
     __syncthreads();   // every thread is done with V(kt) and P
     if (kt + 1 < n_tiles)
-      stage_tile<C_BK, C_W, VEC>(v_s, v_bh, k0 + C_BK, t_k, rs, dc);
+      stage_tile<C_BK, C_W, VEC>(v_s, v_bh, k0 + C_BK, t_k, rs, d - c_out);
     cp_async_commit();
   }
 
@@ -1043,7 +1112,7 @@ flash_fwd_f32_cluster(const float* __restrict__ q,
     float* o_row = o_bh + (int64_t)r * rs;
 #pragma unroll
     for (int g = 0; g < NG; ++g) {
-      const int col = c0 + 32 * g + 4 * tx;
+      const int col = c_out + 32 * g + 4 * tx;
       if constexpr (VEC == 16) {
         if (col < d)
           *reinterpret_cast<float4*>(o_row + col) =
@@ -1059,240 +1128,34 @@ flash_fwd_f32_cluster(const float* __restrict__ q,
   cluster_wait();
 }
 
-// ------------------------------------------------ fp32, head dim > 1024
-
-// flash_fwd_f32_split: any d above 1024 (flash_fwd_f32_cluster takes
-// 257-1024, where a cluster would pass 8 blocks), split over d. The
-// output's columns go in chunks of S_DC = 128 on gridDim.z; each block
-// accumulates S = Q K^T
-// over the 128-wide d-chunks of Q and K, staged through shared memory one
-// chunk at a time, then adds P V for its own chunk of V's columns. The
-// thread layout, online softmax and masks are flash_fwd_f32's at 64 Q rows
-// and 128 columns. Each of the ceil(d / 128) column chunks computes S
-// again, and the copies of a K/V tile do not overlap its compute: this
-// path is right for any d, not tuned (it was the route of d 129-256 until
-// flash_fwd_f32_wide and of 257-1024 until flash_fwd_f32_cluster: 0.912
-// ms at (2, 2048, 4, 256) and 2.319 at (2, 2048, 4, 320) causal on an H100
-// SXM at 700 W; 4.79 at (2, 2048, 1, 1100), PERF.md). Shared memory: Q, K
-// and V chunks and P, 77.8 KB.
-constexpr int S_DC = 128;   // d-chunk width
-constexpr int S_BQ = 64;    // Q rows per block
-
-constexpr size_t f32_split_smem_bytes() {
-  return sizeof(float) * ((size_t)(S_BQ + 2 * F_BK) * (S_DC + F_PAD) +
-                          (size_t)S_BQ * P_STRIDE);
-}
-
-template <int VEC>
-__global__ void __launch_bounds__(F_THREADS)
-flash_fwd_f32_split(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v, float* __restrict__ o,
-                    int t_q, int t_k, int heads, int d, float scale_log2,
-                    int causal, int q_offset) {
-  constexpr int MI = S_BQ / 16;   // score and output rows per thread
-  constexpr int DS = S_DC + F_PAD;
-  constexpr int NG = S_DC / 32;   // float4 output column groups per thread
-  extern __shared__ float4 smem4[];
-  float* q_s = reinterpret_cast<float*>(smem4);  // S_BQ x DS, one d-chunk
-  float* k_s = q_s + S_BQ * DS;    // F_BK x DS, one d-chunk
-  float* v_s = k_s + F_BK * DS;    // F_BK x DS, this block's columns
-  float* p_s = v_s + F_BK * DS;    // S_BQ x P_STRIDE
-
-  const int tx = threadIdx.x & 7;
-  const int ty = threadIdx.x >> 3;
-  const int bh = blockIdx.x;
-  const int q_tile = gridDim.y - 1 - blockIdx.y;   // heaviest causal first
-  const int c_out = blockIdx.z * S_DC;   // first output column of the block
-  const int b = bh / heads;
-  const int h = bh % heads;
-  const int q0 = q_tile * S_BQ;
-  const int rs = heads * d;
-  const int n_dc = (d + S_DC - 1) / S_DC;
-
-  const float* q_bh = q + ((int64_t)b * t_q * heads + h) * d;
-  const float* k_bh = k + ((int64_t)b * t_k * heads + h) * d;
-  const float* v_bh = v + ((int64_t)b * t_k * heads + h) * d;
-  float* o_bh = o + ((int64_t)b * t_q * heads + h) * d;
-
-  int n_tiles = (t_k + F_BK - 1) / F_BK;
-  if (causal) {
-    const int last = q_offset + min(q0 + S_BQ, t_q) - 1;
-    n_tiles = min(n_tiles, last / F_BK + 1);
-  }
-
-  float acc[MI][NG][4];
-  float m[MI], l[MI];
-#pragma unroll
-  for (int i = 0; i < MI; ++i) {
-    m[i] = MASKED;
-    l[i] = 0.f;
-#pragma unroll
-    for (int g = 0; g < NG; ++g)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][g][e] = 0.f;
-  }
-
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * F_BK;
-    float s[MI][NJ];
-#pragma unroll
-    for (int i = 0; i < MI; ++i)
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) s[i][j] = 0.f;
-    for (int dc = 0; dc < n_dc; ++dc) {
-      const int c0 = dc * S_DC;
-      // every thread is done with the last chunk, and with the last
-      // tile's V and P
-      __syncthreads();
-      stage_tile<S_BQ, S_DC, VEC>(q_s, q_bh + c0, q0, t_q, rs, d - c0);
-      stage_tile<F_BK, S_DC, VEC>(k_s, k_bh + c0, k0, t_k, rs, d - c0);
-      if (dc == 0)
-        stage_tile<F_BK, S_DC, VEC>(v_s, v_bh + c_out, k0, t_k, rs,
-                                    d - c_out);
-      cp_async_commit();
-      cp_async_wait_all();
-      __syncthreads();
-#pragma unroll 4
-      for (int c = 0; c < S_DC; c += 4) {
-        float4 qv[MI];
-#pragma unroll
-        for (int i = 0; i < MI; ++i)
-          qv[i] =
-              *reinterpret_cast<const float4*>(q_s + (ty + 16 * i) * DS + c);
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) {
-          const float4 kv =
-              *reinterpret_cast<const float4*>(k_s + (tx + 8 * j) * DS + c);
-#pragma unroll
-          for (int i = 0; i < MI; ++i) {
-            s[i][j] = fmaf(qv[i].x, kv.x, s[i][j]);
-            s[i][j] = fmaf(qv[i].y, kv.y, s[i][j]);
-            s[i][j] = fmaf(qv[i].z, kv.z, s[i][j]);
-            s[i][j] = fmaf(qv[i].w, kv.w, s[i][j]);
-          }
-        }
-      }
-    }
-
-    // online softmax in the log2 domain, as in flash_fwd_f32
-    const bool edge =
-        k0 + F_BK > t_k || (causal && q_offset + q0 < k0 + F_BK - 1);
-#pragma unroll
-    for (int i = 0; i < MI; ++i) {
-      const int row = q_offset + q0 + ty + 16 * i;
-      float mx = __int_as_float(0xff800000);
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        float x = s[i][j] * scale_log2;
-        if (edge) {
-          const int col = k0 + tx + 8 * j;
-          if (col >= t_k) {
-            x = __int_as_float(0xff800000);
-          } else if (causal && row < col) {
-            x = MASKED;
-          }
-        }
-        s[i][j] = x;
-        mx = fmaxf(mx, x);
-      }
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
-      const float m_new = fmaxf(m[i], mx);
-      const float corr = exp2f(m[i] - m_new);
-      m[i] = m_new;
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const float p = exp2f(s[i][j] - m_new);
-        sum += p;
-        p_s[(ty + 16 * i) * P_STRIDE + tx + 8 * j] = p;
-      }
-      l[i] = l[i] * corr + sum;
-#pragma unroll
-      for (int g = 0; g < NG; ++g)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][g][e] *= corr;
-    }
-    __syncthreads();   // P is in
-
-#pragma unroll
-    for (int j = 0; j < F_BK; j += 4) {
-      float4 pv[MI];
-#pragma unroll
-      for (int i = 0; i < MI; ++i)
-        pv[i] = *reinterpret_cast<const float4*>(
-            p_s + (ty + 16 * i) * P_STRIDE + j);
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-#pragma unroll
-        for (int g = 0; g < NG; ++g) {
-          const float4 vv = *reinterpret_cast<const float4*>(
-              v_s + (j + u) * DS + 32 * g + 4 * tx);
-#pragma unroll
-          for (int i = 0; i < MI; ++i) {
-            const float p = u == 0 ? pv[i].x
-                          : u == 1 ? pv[i].y
-                          : u == 2 ? pv[i].z
-                                   : pv[i].w;
-            acc[i][g][0] = fmaf(p, vv.x, acc[i][g][0]);
-            acc[i][g][1] = fmaf(p, vv.y, acc[i][g][1]);
-            acc[i][g][2] = fmaf(p, vv.z, acc[i][g][2]);
-            acc[i][g][3] = fmaf(p, vv.w, acc[i][g][3]);
-          }
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < MI; ++i) {
-    float li = l[i];
-    li += __shfl_xor_sync(0xffffffffu, li, 1);
-    li += __shfl_xor_sync(0xffffffffu, li, 2);
-    li += __shfl_xor_sync(0xffffffffu, li, 4);
-    const int r = q0 + ty + 16 * i;
-    if (r >= t_q) continue;
-    const float inv = 1.f / fmaxf(li, 1e-20f);
-    float* o_row = o_bh + (int64_t)r * rs;
-#pragma unroll
-    for (int g = 0; g < NG; ++g) {
-      const int col = c_out + 32 * g + 4 * tx;
-      if constexpr (VEC == 16) {
-        if (col < d)
-          *reinterpret_cast<float4*>(o_row + col) =
-              make_float4(acc[i][g][0] * inv, acc[i][g][1] * inv,
-                          acc[i][g][2] * inv, acc[i][g][3] * inv);
-      } else {
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          if (col + e < d) o_row[col + e] = acc[i][g][e] * inv;
-      }
-    }
-  }
-}
-
 // ---------------------------------------------------------------- launch
 
-// Let `kernel` use `bytes` of dynamic shared memory on the current device;
-// the attribute is set once per device and kernel (one static per
-// instantiation of the caller), not at every launch.
+// Set `attr` of `kernel` to `value` on the current device, once per device
+// and kernel (one static `done` per instantiation of the caller), not at
+// every launch.
 template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t bytes,
-                       std::atomic<uint64_t>& done) {
+cudaError_t set_once(Kernel kernel, cudaFuncAttribute attr, int value,
+                     std::atomic<uint64_t>& done) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   const uint64_t bit = dev < 64 ? uint64_t{1} << dev : 0;
   if (bit && (done.load(std::memory_order_acquire) & bit)) return cudaSuccess;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)bytes);
+  err = cudaFuncSetAttribute(kernel, attr, value);
   if (err == cudaSuccess) {
     done.fetch_or(bit, std::memory_order_release);
   } else {
     cudaGetLastError();   // returned here; not left for a later launch
   }
   return err;
+}
+
+// Let `kernel` use `bytes` of dynamic shared memory on the current device
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes,
+                       std::atomic<uint64_t>& done) {
+  return set_once(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                  (int)bytes, done);
 }
 
 template <int DP, int VEC>
@@ -1306,23 +1169,6 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
   if (err != cudaSuccess) return err;
   dim3 grid(batch * heads, (t_q + f32_bq<DP>() - 1) / f32_bq<DP>());
   flash_fwd_f32<DP, VEC><<<grid, F_THREADS, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), t_q, t_k, heads,
-      d, scale * LOG2E, causal, q_offset);
-  return cudaGetLastError();
-}
-
-template <int VEC>
-cudaError_t launch_f32_split(const void* q, const void* k, const void* v,
-                             void* o, int batch, int t_q, int t_k, int heads,
-                             int d, float scale, int causal, int q_offset,
-                             cudaStream_t stream) {
-  static std::atomic<uint64_t> smem_set{0};
-  constexpr size_t smem = f32_split_smem_bytes();
-  cudaError_t err = allow_smem(flash_fwd_f32_split<VEC>, smem, smem_set);
-  if (err != cudaSuccess) return err;
-  dim3 grid(batch * heads, (t_q + S_BQ - 1) / S_BQ, (d + S_DC - 1) / S_DC);
-  flash_fwd_f32_split<VEC><<<grid, F_THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), t_q, t_k, heads,
       d, scale * LOG2E, causal, q_offset);
@@ -1353,24 +1199,30 @@ cudaError_t cluster_placeable(Kernel kernel, const cudaLaunchConfig_t& config,
 }
 
 // The launch of flash_fwd_f32_cluster<VEC> over (x, y) clusters of
-// `blocks` blocks: its config (pointing at `cluster`), after the kernel's
-// dynamic shared memory has been allowed on the current device.
+// `blocks` blocks, `groups` of them along z, each block holding `slots` Q
+// chunks: its config (pointing at `cluster`), after the kernel's largest
+// dynamic shared memory and clusters of up to C_MAX blocks (past 8, the
+// card's non-portable sizes) have been allowed on the current device.
 template <int VEC>
-cudaError_t cluster_config(int x, int y, int blocks, cudaStream_t stream,
-                           cudaLaunchAttribute& cluster,
+cudaError_t cluster_config(int x, int y, int groups, int blocks, int slots,
+                           cudaStream_t stream, cudaLaunchAttribute& cluster,
                            cudaLaunchConfig_t& config) {
-  static std::atomic<uint64_t> smem_set{0};
-  cudaError_t err = allow_smem(flash_fwd_f32_cluster<VEC>,
-                               f32_cluster_smem_bytes(), smem_set);
+  static std::atomic<uint64_t> smem_set{0}, size_set{0};
+  const auto kernel = flash_fwd_f32_cluster<VEC>;
+  cudaError_t err =
+      allow_smem(kernel, f32_cluster_smem_bytes(C_SLOTS), smem_set);
+  if (err == cudaSuccess)
+    err = set_once(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed,
+                   1, size_set);
   if (err != cudaSuccess) return err;
   cluster.id = cudaLaunchAttributeClusterDimension;
   cluster.val.clusterDim.x = 1;
   cluster.val.clusterDim.y = 1;
   cluster.val.clusterDim.z = blocks;
   config = {};
-  config.gridDim = dim3(x, y, blocks);
+  config.gridDim = dim3(x, y, groups * blocks);
   config.blockDim = dim3(F_THREADS);
-  config.dynamicSmemBytes = f32_cluster_smem_bytes();
+  config.dynamicSmemBytes = f32_cluster_smem_bytes(slots);
   config.stream = stream;
   config.attrs = &cluster;
   config.numAttrs = 1;
@@ -1382,22 +1234,25 @@ cudaError_t launch_f32_cluster(const void* q, const void* k, const void* v,
                                void* o, int batch, int t_q, int t_k,
                                int heads, int d, float scale, int causal,
                                int q_offset, cudaStream_t stream) {
-  static std::atomic<uint64_t> placed[C_MAX + 1];   // by cluster size
+  // by cluster size and Q slots
+  static std::atomic<uint64_t> placed[C_MAX + 1][C_SLOTS + 1];
   const auto kernel = flash_fwd_f32_cluster<VEC>;
-  const int blocks = (d + C_W - 1) / C_W;   // a cluster, one a d-chunk
-  if (blocks > C_MAX) return cudaErrorInvalidValue;
+  const ClusterShape shape = cluster_shape(d);
+  const int slots = cluster_q_slots(shape.chunks);
   cudaLaunchAttribute cluster;
   cudaLaunchConfig_t config;
-  cudaError_t err = cluster_config<VEC>(batch * heads, (t_q + C_BQ - 1) / C_BQ,
-                                        blocks, stream, cluster, config);
+  cudaError_t err = cluster_config<VEC>(
+      batch * heads, (t_q + C_BQ - 1) / C_BQ, shape.groups, shape.blocks,
+      slots, stream, cluster, config);
   if (err != cudaSuccess) return err;
-  err = cluster_placeable(kernel, config, placed[blocks]);
+  err = cluster_placeable(kernel, config, placed[shape.blocks][slots]);
   if (err != cudaSuccess) return err;
   err = cudaLaunchKernelEx(&config, kernel, static_cast<const float*>(q),
                            static_cast<const float*>(k),
                            static_cast<const float*>(v),
                            static_cast<float*>(o), t_q, t_k, heads, d,
-                           scale * LOG2E, causal, q_offset);
+                           scale * LOG2E, causal, q_offset, shape.chunks,
+                           slots);
   if (err != cudaSuccess) {
     cudaGetLastError();
     return err;
@@ -1429,16 +1284,13 @@ cudaError_t dispatch_f32(const void* q, const void* k, const void* v, void* o,
                          int batch, int t_q, int t_k, int heads, int d,
                          float scale, int causal, int q_offset,
                          cudaStream_t stream) {
-  if (d > C_W * C_MAX)
-    return launch_f32_split<VEC>(q, k, v, o, batch, t_q, t_k, heads, d, scale,
-                                 causal, q_offset, stream);
   if (d > W_D)
     return launch_f32_cluster<VEC>(q, k, v, o, batch, t_q, t_k, heads, d,
                                    scale, causal, q_offset, stream);
   if (d > 192)
     return launch_f32_wide<256, VEC>(q, k, v, o, batch, t_q, t_k, heads, d,
                                      scale, causal, q_offset, stream);
-  if (d > S_DC)
+  if (d > 128)
     return launch_f32_wide<192, VEC>(q, k, v, o, batch, t_q, t_k, heads, d,
                                      scale, causal, q_offset, stream);
   if (d <= 32)
@@ -1454,13 +1306,18 @@ cudaError_t dispatch_f32(const void* q, const void* k, const void* v, void* o,
 }  // namespace
 
 // How many clusters of `blocks` blocks of flash_fwd_f32_cluster (16-byte
-// copies) the current device holds at once (cudaOccupancyMaxActiveClusters),
-// or minus the cudaError_t of the query.
-extern "C" int mxtt_flash_attention_fwd_clusters(int blocks) {
-  if (blocks < 1 || blocks > C_MAX) return -(int)cudaErrorInvalidValue;
+// copies), each block holding `slots` Q chunks, the current device holds at
+// once (cudaOccupancyMaxActiveClusters), or minus the cudaError_t of the
+// query. A head dim d launches cluster_shape(d).blocks blocks at
+// cluster_q_slots(cluster_shape(d).chunks) slots: 1 slot up to d
+// 128 C_MAX, 2 to C_SLOTS above.
+extern "C" int mxtt_flash_attention_fwd_clusters(int blocks, int slots) {
+  if (blocks < 1 || blocks > C_MAX || slots < 1 || slots > C_SLOTS)
+    return -(int)cudaErrorInvalidValue;
   cudaLaunchAttribute cluster;
   cudaLaunchConfig_t config;
-  cudaError_t err = cluster_config<16>(1, 1, blocks, nullptr, cluster, config);
+  cudaError_t err =
+      cluster_config<16>(1, 1, 1, blocks, slots, nullptr, cluster, config);
   int clusters = 0;
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveClusters(
@@ -1486,13 +1343,14 @@ extern "C" int mxtt_flash_attention_fwd(const void* q, const void* k,
                                         void* stream) {
   // grid: batch * heads on x (< 2^31); on y Q tiles of at least 64 rows,
   // or pairs of 64-row tiles (flash_fwd_f32_wide, d 129-256); on z the
-  // 128-wide d-chunks of flash_fwd_f32_cluster (d 257-1024, a cluster's
-  // blocks) and of the split (each <= 65535)
-  const bool wide = d > S_DC && d <= W_D;
+  // blocks of flash_fwd_f32_cluster's groups of clusters (d > 256, each
+  // <= 65535)
+  const bool wide = d > 128 && d <= W_D;
   const int64_t rows = wide ? 2 * W_BQ : 64;
   if (batch <= 0 || t_q <= 0 || t_k <= 0 || heads <= 0 || d <= 0 ||
       q_offset < 0 || dtype != 0 || (int64_t)batch * heads > INT32_MAX ||
-      (t_q + rows - 1) / rows > 65535 || (d + S_DC - 1) / S_DC > 65535 ||
+      (t_q + rows - 1) / rows > 65535 ||
+      (int64_t)cluster_shape(d).groups * cluster_shape(d).blocks > 65535 ||
       (copy_bytes != 16 && copy_bytes != 4))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

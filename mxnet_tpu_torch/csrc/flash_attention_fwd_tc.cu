@@ -25,15 +25,15 @@
 //     words into a staging ring with cp.async (16 bytes a thread) and
 //     shifts them into the bytes TMA would have written (design below,
 //     before the producer);
-//   * flash_fwd_tc_cluster: 16-byte rows at d 257-1024, a thread-block
+//   * flash_fwd_tc_cluster: 16-byte rows at d 257-1536, a thread-block
 //     cluster of ceil(d / 192) blocks, each flash_fwd_tc_wg's producer and
 //     consumers over its own 192-wide chunk of d, the partial scores summed
 //     through
 //     distributed shared memory so that S is computed once a tile (design
 //     below, before the kernel);
 //   * flash_fwd_tc_cluster_ldg: the same cluster and consumers for the rows
-//     TMA refuses at d 257-1024, each block's producer the LDG one;
-//   * flash_fwd_tc_split: wider than 1024, on mma.sync.
+//     TMA refuses at d 257-1536, each block's producer the LDG one;
+//   * flash_fwd_tc_split: wider than 1536, on mma.sync.
 //
 // Bound on an H100 SXM at the transformer LM's shape, q/k/v (2, 2048, 16, 64)
 // bf16 causal, per forward and layer: B*H*T*(T+1)/2 = 6.7e7 causal pairs,
@@ -199,7 +199,7 @@ __device__ __forceinline__ uint16_t to_bits(float x) {
 
 // ------------------------------------ head dim > 128: the split over d
 
-// flash_fwd_tc_split: d > 1024 (d 257-1024 until flash_fwd_tc_cluster),
+// flash_fwd_tc_split: d > 1536 (d 257-1536 until flash_fwd_tc_cluster),
 // split over d, on mma.sync (FlashAttention-2 form). The output's columns
 // go in chunks of DC = 128 on gridDim.z; each
 // block (4 warps, 16 of its 64 Q rows each; the grid's y runs the Q tiles
@@ -1751,9 +1751,9 @@ flash_fwd_tc_wg_ldg(const uint16_t* __restrict__ q,
   }
 }
 
-// --------------------- d 257-1024: a thread-block cluster that splits d
+// --------------------- d 257-1536: a thread-block cluster that splits d
 
-// flash_fwd_tc_cluster: bf16/fp16 with 16-byte rows at d 257 to 1024,
+// flash_fwd_tc_cluster: bf16/fp16 with 16-byte rows at d 257 to 1536,
 // where a consumer's O at all of d does not fit its registers and Q with two
 // K/V stages does not fit an SM's shared memory (at d 512 Q alone is 64 KB
 // a consumer). It replaces the TPU kernel
@@ -1783,8 +1783,9 @@ flash_fwd_tc_wg_ldg(const uint16_t* __restrict__ q,
 //   * each block then runs P V over its own chunk of V and writes its own
 //     columns of O as o / max(l, 1e-20);
 //   * the launch (cudaLaunchKernelEx, cluster dimension (1, 1, CL) at run
-//     time; CL a template argument, so that the exchange is straight-line
-//     code) first asks cudaOccupancyMaxActiveClusters, once per device and
+//     time; CL a template argument, 2-8, so that the exchange is
+//     straight-line code; 8 blocks, the portable limit, reach CLUSTER_D =
+//     1536) first asks cudaOccupancyMaxActiveClusters, once per device and
 //     CL, whether such a cluster can be placed, and returns an error if
 //     not. The blocks sync the cluster once after their barriers are
 //     initialised; a consumer leaves only once every rank has read its last
@@ -1813,9 +1814,9 @@ flash_fwd_tc_wg_ldg(const uint16_t* __restrict__ q,
 // tools/flash_tile_sweep.py --kernel tccluster times these choices against
 // alternatives it patches into a copy of this source (PERF.md).
 constexpr int CW = 192;              // d-chunk width: a block's columns
-constexpr int CLUSTER_D = 1024;      // the widest head the cluster takes
+constexpr int CLUSTER_D = 1536;      // the widest head the cluster takes
 constexpr int CL_MIN = 256 / CW + 1;                    // blocks a cluster
-constexpr int CL_MAX = (CLUSTER_D + CW - 1) / CW;       // (d 257-1024)
+constexpr int CL_MAX = (CLUSTER_D + CW - 1) / CW;       // (d 257-1536)
 constexpr int XP_TMA = 1;    // exchange pieces a K tile on the TMA route
 constexpr int XP_LDG = 1;    // and on the LDG route
 constexpr int X_LOADS = 8;   // loads from the cluster in flight a thread
@@ -2346,7 +2347,7 @@ cudaError_t clusters_at(int blocks, int* clusters,
   return err;
 }
 
-// d 257-1024: a cluster of ceil(d / CW) blocks, one instantiation a size
+// d 257-1536: a cluster of ceil(d / CW) blocks, one instantiation a size
 template <typename T, bool LDG, int... I>
 cudaError_t launch_cluster(const void* q, const void* k, const void* v,
                            void* o, int batch, int t_q, int t_k, int heads,
@@ -2368,7 +2369,7 @@ using ClusterSizes =
 
 // Up to d 256 the wgmma kernel at the smallest width that holds d: 16-byte
 // rows through TMA, the others (2-byte copies) through the LDG producer;
-// from 257 to 1024 the cluster kernel of the same producer; wider heads the
+// from 257 to 1536 the cluster kernel of the same producer; wider heads the
 // split over d, with 16- or 2-byte copies
 template <typename T, int WIDTH>
 cudaError_t launch_width(const void* q, const void* k, const void* v,
@@ -2419,10 +2420,10 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
 // q: (batch, t_q, heads, d), k/v: (batch, t_k, heads, d), o like q; all
 // contiguous, on the current device. dtype 1 is bfloat16, 2 is float16 (0,
 // float32, is flash_attention_fwd.cu's). copy_bytes is 16 (TMA, or cp.async
-// of 8 elements above d 1024: needs d % 8 == 0 and 16-byte aligned q, k, v
-// and o) or 2 (any d and 2-byte alignment: the LDG producer up to d 1024,
+// of 8 elements above d 1536: needs d % 8 == 0 and 16-byte aligned q, k, v
+// and o) or 2 (any d and 2-byte alignment: the LDG producer up to d 1536,
 // element-wise loads above). Up to d 256 flash_fwd_tc_wg (16) or
-// flash_fwd_tc_wg_ldg (2), from 257 to 1024 flash_fwd_tc_cluster or
+// flash_fwd_tc_wg_ldg (2), from 257 to 1536 flash_fwd_tc_cluster or
 // flash_fwd_tc_cluster_ldg (cudaErrorInvalidConfiguration where the card
 // cannot place the cluster), wider flash_fwd_tc_split. Returns the
 // cudaError_t of the launch (0 on success; cudaErrorInvalidValue where the

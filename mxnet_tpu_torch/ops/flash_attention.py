@@ -8,14 +8,15 @@ through shared memory with an online softmax, so the (T, T) score matrix
 never reaches device memory. Any head dim runs (:func:`launch_plan`):
 bf16/fp16 up to 256 on ``wgmma``, fed by TMA where the rows are 16-byte
 aligned (``flash_fwd_tc_wg``) and by a producer without TMA where they are
-not (``flash_fwd_tc_wg_ldg``), and from 257 to 1024 in a thread-block
-cluster of such blocks, each over a 192-wide chunk of d
-(``flash_fwd_tc_cluster``, ``flash_fwd_tc_cluster_ldg``); fp32 up to 128
-in ``flash_fwd_f32``, from 129 to 256 in a kernel whose block owns all of
-d, and from 257 to 1024 in a cluster whose blocks each own a 128-wide chunk
-of d (``flash_fwd_f32_cluster``). The blocks of a cluster sum their partial
-scores through distributed shared memory. Wider heads run each source's
-split-over-d kernel. Each is built with ``nvcc`` at first use and called through
+not (``flash_fwd_tc_wg_ldg``), from 257 to 1536 in a thread-block cluster
+of such blocks, each over a 192-wide chunk of d (``flash_fwd_tc_cluster``,
+``flash_fwd_tc_cluster_ldg``), and wider in a split-over-d kernel
+(``flash_fwd_tc_split``); fp32 up to 128 in ``flash_fwd_f32``, from 129 to
+256 in a kernel whose block owns all of d, and above 256 in clusters whose
+blocks each own a 128-wide chunk of d (``flash_fwd_f32_cluster``; past 16
+chunks in groups of clusters, each group computing the scores once). The
+blocks of a cluster sum their partial scores through distributed shared
+memory. Each is built with ``nvcc`` at first use and called through
 ``ctypes``.
 
 Layout is (B, T, H, D), as in the reference. :func:`flash_attention` routes
@@ -42,8 +43,9 @@ import torch
 from ..base import MXNetError
 from ..ndarray import _dtype_name
 
-__all__ = ["copy_bytes", "flash_attention", "flash_attention_reference",
-           "launch_plan", "reset_launches", "use_flash"]
+__all__ = ["cluster_groups", "copy_bytes", "flash_attention",
+           "flash_attention_reference", "launch_plan", "reset_launches",
+           "use_flash"]
 
 # dtype -> (library, C entry, the entry's dtype code)
 _KERNELS = {
@@ -55,25 +57,27 @@ _KERNELS = {
 }
 # the kernels' grid limits: batch * heads on x, Q tiles on y, d-chunks on z
 _MAX_GRID = (2 ** 31 - 1, 65535, 65535)
-# the cluster kernels run d up to _CLUSTER_D: fp32's one block a 128-wide
-# chunk of d (8 blocks is the portable cluster limit), bf16/fp16's one block
-# a _TC_CLUSTER_W-wide chunk and two 64-row Q tiles (CW and ClusterTiles in
-# csrc/flash_attention_fwd_tc.cu)
-_CLUSTER_D, _TC_CLUSTER_W, _TC_CLUSTER_ROWS = 1024, 192, 128
+# bf16/fp16's cluster kernels run d up to _CLUSTER_D, one block a
+# _TC_CLUSTER_W-wide chunk and two 64-row Q tiles (CLUSTER_D, CW and
+# ClusterTiles in csrc/flash_attention_fwd_tc.cu: 8 blocks, the portable
+# cluster limit); fp32's cluster kernel any d above _WG_D, one block a
+# _F32_CLUSTER_W-wide chunk of d and a 64-row Q tile, clusters of at most
+# _F32_CLUSTER_MAX blocks, each keeping up to _F32_CLUSTER_QRES Q chunks
+# (C_W, C_MAX and C_QRES in csrc/flash_attention_fwd.cu)
+_CLUSTER_D, _TC_CLUSTER_W, _TC_CLUSTER_ROWS = 1536, 192, 128
+_F32_CLUSTER_W, _F32_CLUSTER_MAX, _F32_CLUSTER_QRES = 128, 16, 4
 # fp32 above _SPLIT_D runs, up to _WG_D, a kernel whose block owns all of d
-# and two 64-row Q tiles, up to _CLUSTER_D the cluster kernel, and the
-# split-over-d kernel above; bf16/fp16 up to
+# and two 64-row Q tiles, and the cluster kernel above; bf16/fp16 up to
 # _WG_D run on wgmma at the smallest width of _WG_ROWS that holds d, its
 # value the Q rows a block (Tiles<width> in csrc/flash_attention_fwd_tc.cu:
 # 64-row consumer warpgroups, four at width 64, two at the others), with
 # either producer, the cluster kernels up to _CLUSTER_D and the split over d
-# above
+# (128-wide chunks of the output) above
 _SPLIT_D, _WG_D = 128, 256
 _WG_ROWS = {64: 256, 128: 128, 192: 128, 256: 128}
-_PLANS = ("flash_fwd_f32", "flash_fwd_f32_cluster", "flash_fwd_f32_split",
-          "flash_fwd_f32_wide", "flash_fwd_tc_cluster",
-          "flash_fwd_tc_cluster_ldg", "flash_fwd_tc_split", "flash_fwd_tc_wg",
-          "flash_fwd_tc_wg_ldg")
+_PLANS = ("flash_fwd_f32", "flash_fwd_f32_cluster", "flash_fwd_f32_wide",
+          "flash_fwd_tc_cluster", "flash_fwd_tc_cluster_ldg",
+          "flash_fwd_tc_split", "flash_fwd_tc_wg", "flash_fwd_tc_wg_ldg")
 
 
 def use_flash(t_len: int, block: int = 128, on_accel: bool = False) -> bool:
@@ -137,6 +141,34 @@ def _check(q, k, v, q_offset):
         raise MXNetError(f"flash_attention: q_offset {q_offset} < 0")
 
 
+def cluster_groups(d):
+    """``(groups, blocks, chunks)`` of ``flash_fwd_f32_cluster`` at head dim
+    ``d`` (``cluster_shape`` in csrc/flash_attention_fwd.cu): d splits
+    into n = ceil(d / 128) chunks; up to 16 chunks one cluster of n
+    blocks, above ceil(n / 16) groups of ceil(n / groups) blocks each.
+    Block r of a group reduces the partial scores of chunks r, r + blocks,
+    r + 2 blocks, ... (``chunks`` of them, those at or past n zero), so
+    that every group computes S over all of d once, and block z of the
+    grid's groups * blocks writes output chunk z (none past n)."""
+    return _cluster_groups(-(-d // _F32_CLUSTER_W), _F32_CLUSTER_MAX)
+
+
+def _cluster_groups(n, most):
+    """:func:`cluster_groups` of n chunks in clusters of at most ``most``
+    blocks."""
+    groups = -(-n // most)
+    blocks = -(-n // groups)
+    return groups, blocks, -(-n // blocks)
+
+
+def _cluster_q_slots(chunks):
+    """The Q chunks a block of ``flash_fwd_f32_cluster`` holds in shared
+    memory when it reduces ``chunks`` chunks of d (``cluster_q_slots`` in
+    csrc/flash_attention_fwd.cu): all of them where they fit, else a ring
+    of two."""
+    return chunks if chunks <= _F32_CLUSTER_QRES else 2
+
+
 def launch_plan(dtype, batch, t_q, heads, d, copy=16):
     """``(kernel, width, grid)`` of a CUDA launch, as the C entries choose
     them for copies of ``copy`` bytes (:func:`copy_bytes`). bf16/fp16 up
@@ -147,22 +179,23 @@ def launch_plan(dtype, batch, t_q, heads, d, copy=16):
     at 192 and 256, tiles i and n - 1 - i, so that causal blocks carry
     equal work. 16-byte copies (what TMA needs) run ``flash_fwd_tc_wg``,
     2-byte ones ``flash_fwd_tc_wg_ldg``, the same consumers and grid fed
-    by a producer that needs no TMA. From 257 to 1024 bf16/fp16 run one
+    by a producer that needs no TMA. From 257 to 1536 bf16/fp16 run one
     cluster of ceil(d / 192) blocks for each two 64-row Q tiles, i and n -
     1 - i (width 192: each block a 192-wide chunk of d, the cluster's
     blocks on the grid's z; ``flash_fwd_tc_cluster`` with 16-byte copies,
-    ``flash_fwd_tc_cluster_ldg`` with 2-byte ones). fp32 up to 128 runs the
+    ``flash_fwd_tc_cluster_ldg`` with 2-byte ones; 8 blocks, the portable
+    cluster limit, end the range at 1536). Wider bf16/fp16 heads run the
+    split over d (``flash_fwd_tc_split``, width 128, 64-row Q tiles) with
+    its 128-wide chunks of d on the grid's z. fp32 up to 128 runs the
     smallest instantiation (``width`` 32, 64 or 128) of ``flash_fwd_f32``
     that holds it, on ``(batch * heads, Q tiles, 1)`` (128-row Q tiles up
-    to width 64, 64 above); from 129 to 256 all of d in one block of two 64-row Q tiles
-    (width 192 or 256, ``flash_fwd_f32_wide``, copies of 16 or 4 bytes);
-    from 257 to 1024 one cluster of ceil(d / 128) blocks per 64-row Q tile,
-    each block a 128-wide chunk of d (width 128, ``flash_fwd_f32_cluster``:
-    the cluster's blocks on the grid's z; 8 blocks, the portable cluster
-    limit, end its range). Wider heads run the split-over-d kernel
-    (``*_split``, width 128, 64-row Q tiles) with its 128-wide chunks of d
-    on the grid's z. Raises where a grid dimension passes the card's limit
-    (x < 2^31, y and z <= 65535)."""
+    to width 64, 64 above); from 129 to 256 all of d in one block of two
+    64-row Q tiles (width 192 or 256, ``flash_fwd_f32_wide``, copies of 16
+    or 4 bytes); above 256 clusters of blocks per 64-row Q tile, each block
+    a 128-wide chunk of d (width 128, ``flash_fwd_f32_cluster``): up to d
+    2048 one cluster of ceil(d / 128) blocks, wider :func:`cluster_groups`'
+    groups of clusters, all their blocks on the grid's z. Raises where a
+    grid dimension passes the card's limit (x < 2^31, y and z <= 65535)."""
     chunks = 1
     if dtype != torch.float32 and d <= _WG_D:
         name = "flash_fwd_tc_wg" if copy == 16 else "flash_fwd_tc_wg_ldg"
@@ -183,12 +216,10 @@ def launch_plan(dtype, batch, t_q, heads, d, copy=16):
     elif d <= _WG_D:
         name = "flash_fwd_f32_wide"
         width, rows = 192 if d <= 192 else 256, 128
-    elif d <= _CLUSTER_D:
-        name, width, rows = "flash_fwd_f32_cluster", _SPLIT_D, 64
-        chunks = -(-d // width)
     else:
-        name, width, rows = "flash_fwd_f32_split", _SPLIT_D, 64
-        chunks = -(-d // width)
+        name, width, rows = "flash_fwd_f32_cluster", _F32_CLUSTER_W, 64
+        groups, blocks, _ = cluster_groups(d)
+        chunks = groups * blocks
     grid = (batch * heads, -(-t_q // rows), chunks)
     for n, lim, what in zip(grid, _MAX_GRID,
                             ("batch * heads", "Q tiles", "d-chunks")):

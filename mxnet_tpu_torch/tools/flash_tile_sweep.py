@@ -26,13 +26,16 @@ pairing, d split over 4 lanes (8 x 4 scores a lane) in place of 8, and
 other unroll counts of its Q K^T and P V loops; and times each at the
 same three shapes in fp32 and at d = 256 causal at batch 1.
 ``--kernel f32cluster`` builds variants of ``flash_attention_fwd.cu`` that
-differ from ``flash_fwd_f32_cluster`` (the fp32 kernel for head dims
-257-1024) by the patches of ``CLUSTER_PATCHES``: 64-wide chunks of d,
+differ from ``flash_fwd_f32_cluster`` (the fp32 kernel for head dims above
+256) by the patches of ``CLUSTER_PATCHES``: 64-wide chunks of d,
 64-row K/V tiles, one block an SM, a second V buffer, one rank's loads in
-flight, the split over d, the exchange as a reduce-scatter of S's rows,
-and diagnostics without the exchange, or without it and the barrier; and
-times each at fp32 (2, 2048, 2, 512) causal and not and (2, 2048, 4, 320),
-beside ``flash_fwd_f32`` at (2, 2048, 8, 128), the same operations.
+flight, clusters of at most 8 blocks (the portable limit, so groups of
+clusters from d 1025), every grouped block streaming its Q chunks, the
+exchange as a reduce-scatter of S's rows, and diagnostics without the
+exchange, or without it and the barrier; and times each at fp32 (2, 2048,
+2, 512) causal and not, (2, 2048, 4, 320), (2, 2048, 1, 1100), (2, 2048,
+1, 2048) and (1, 2048, 1, 2100) causal, beside ``flash_fwd_f32`` at (2,
+2048, 8, 128), the same operations as 2 heads of 512.
 ``--kernel tccluster`` builds variants of ``flash_attention_fwd_tc.cu``
 that differ from ``flash_fwd_tc_cluster`` (the bf16/fp16 kernels for head
 dims 257-1024) by the patches of ``TC_CLUSTER_PATCHES``: 128- and 256-wide
@@ -509,23 +512,23 @@ _CLUSTER_RS_END = """\
   cluster_arrive();
 """
 # flash_fwd_f32_cluster with a second V buffer: V(n + 1) goes into buffer
-# (n + 1) % 2 from the start of tile n, behind K(n + 1), so P V waits for
-# all but two copy groups and the end of a tile stages nothing
+# (n + 1) % 2 from the start of tile n, beside the copies of its first
+# step's successor, so every step waits for all its copy groups, P V for
+# none, and the end of a tile stages nothing
 _V2_STAGE = """\
-    if (kt + 1 < n_tiles)
-      stage_tile<C_BK, C_W, VEC>(v_s + ((kt + 1) & 1) * C_BK * DS, v_bh,
-                                 k0 + C_BK, t_k, rs, dc);
-    cp_async_commit();
+        if (u == 0 && kt + 1 < n_tiles)
+          stage_tile<C_BK, C_W, VEC>(v_s + ((kt + 1) & 1) * C_BK * DS, v_bh,
+                                     k0 + C_BK, t_k, rs, d - c_out);
 """
 _CLUSTER_V2 = [
-    (r"\(C_BQ \+ 3 \* C_BK\)", "(C_BQ + 4 * C_BK)", 1),
+    (r"\(q_slots \* C_BQ \+ 3 \* C_BK\)", "(q_slots * C_BQ + 4 * C_BK)", 1),
     (r"float\* p_s = v_s \+ C_BK \* DS;", "float* p_s = v_s + 2 * C_BK * DS;",
      1),
-    (r"k_s \+ \(\(kt \+ 1\) & 1\) \* C_BK \* DS, k_bh,\n"
-     r" +k0 \+ C_BK, t_k, rs, dc\);\n    cp_async_commit\(\);\n",
-     lambda m: m.group(0) + _V2_STAGE, 1),
-    (r"cp_async_wait<1>\(\);   // V\(kt\) is in[^\n]*",
-     "cp_async_wait<2>();   // V(kt) is in", 1),
+    (r" +t_q, rs, d - c\);\n", lambda m: m.group(0) + _V2_STAGE, 1),
+    (r"      if \(u == 0\) \{\n        cp_async_wait<1>\(\);\n"
+     r"      \} else \{\n        cp_async_wait<0>\(\);\n      \}\n",
+     "      cp_async_wait<0>();\n", 1),
+    (r"    cp_async_wait<1>\(\);   // V\(kt\) is in[^\n]*\n", "", 1),
     (r"(    // O \+= P V over this block's columns\n.*?)"
      r"v_s \+ \(j \+ u\) \* DS",
      lambda m: m.group(1) + "v_s + (kt & 1) * C_BK * DS + (j + u) * DS", 1),
@@ -551,8 +554,13 @@ CLUSTER_PATCHES = {
     # two V buffers (V of tile n + 1 copied from the start of tile n, one
     # __syncthreads a tile fewer): 128 KB, one block an SM
     "v2": _CLUSTER_V2,
-    # the split over d (each 128-wide chunk computes all of S) at d 257-1024
-    "split": [(r"if \(d > C_W \* C_MAX\)", "if (d > W_D)", 1)],
+    # clusters of at most 8 blocks, the portable limit: from 9 chunks
+    # (d 1025) groups of clusters, each computing S again
+    "c8": [(r"constexpr int C_MAX = 16;", "constexpr int C_MAX = 8;", 1)],
+    # every block of grouped clusters streams its Q chunks beside its K
+    # (the source keeps up to 4 of them for a Q tile)
+    "qstream": [(r"constexpr int C_QRES = 4;", "constexpr int C_QRES = 1;",
+                 1)],
     # the loop over ranks not unrolled: one rank's loads in flight (the
     # source: two)
     "ranks_serial": [(r"#pragma unroll 2\n(    for \(uint32_t r = 0;)",
@@ -566,8 +574,8 @@ CLUSTER_PATCHES = {
             lambda m: _CLUSTER_RS_END, 1)],
     # diagnostics (wrong results): each block sums only its own partial
     # (the cluster barrier stays), and also without the barrier
-    "no_exchange": [(r"const uint32_t n_ranks = cluster_blocks\(\);",
-                     "const uint32_t n_ranks = 1;", 1),
+    "no_exchange": [(r"for \(uint32_t r = 0; r < n_ranks; \+\+r\)",
+                     "for (uint32_t r = 0; r < 1; ++r)", 1),
                     (r"if \(r == rank\) \{", "if (r == r) {", 1)],
     "no_barrier": [(r"    cluster_arrive\(\);\n    cluster_wait\(\);\n",
                     "", 1)],
@@ -578,20 +586,26 @@ CLUSTER_VARIANTS = {   # name: patches
     "bk64": ("bk64",),
     "one_block": ("one_block",),
     "v2": ("v2",),
-    "split": ("split",),
+    "c8": ("c8",),
+    "qstream": ("qstream",),
     "ranks_serial": ("ranks_serial",),
     "rs": ("rs",),
     "rs_w64": ("rs", "w64"),
     "no_exchange": ("no_exchange",),
     "compute_alone": ("no_exchange", "no_barrier"),
 }
-# fp32: the LM at 2 heads of 512 (causal and not), the split's old row at
-# 4 heads of 320, and flash_fwd_f32 at 8 heads of 128 (the same operations
-# as 2 heads of 512; no variant changes its kernel) as a yardstick
+# fp32: the LM at 2 heads of 512 (causal and not), 4 heads of 320, one
+# head of 1100 (9 chunks: a cluster of 9 blocks, or two groups of 5 at
+# c8), of 2048 (16 chunks) and of 2100 (17: two groups of 9, or three of
+# 6 at c8), and flash_fwd_f32 at 8 heads of 128 (the same operations as 2
+# heads of 512; no variant changes its kernel) as a yardstick
 CLUSTER_CASES = {
     "d512_causal": ((2, 2048, 2, 512), 2048, True),
     "d320_causal": ((2, 2048, 4, 320), 2048, True),
     "d512_noncausal": ((2, 2048, 2, 512), 2048, False),
+    "d1100_causal": ((2, 2048, 1, 1100), 2048, True),
+    "d2048_causal": ((2, 2048, 1, 2048), 2048, True),
+    "d2100_causal": ((1, 2048, 1, 2100), 2048, True),
     "d128_f32_causal": ((2, 2048, 8, 128), 2048, True),
 }
 def _cluster_tiles(**fields):

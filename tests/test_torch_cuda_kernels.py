@@ -117,19 +117,18 @@ def test_cuda_kernel_matches_plain(dtype, tol, causal, q_offset, t_q, t_k, d,
     assert tfa.flash_attention.launches == before + 1
     # the kernel of the route: bf16/fp16 up to d 256 run the wgmma kernel,
     # flash_fwd_tc_wg with 16-byte rows, flash_fwd_tc_wg_ldg with the
-    # others, and from 257 to 1024 its cluster, flash_fwd_tc_cluster and
-    # flash_fwd_tc_cluster_ldg; fp32 runs flash_fwd_f32 up to 128,
-    # flash_fwd_f32_wide (either copy width) from 129 to 256 and
-    # flash_fwd_f32_cluster from 257 to 1024; the rest the split over d
+    # others, from 257 to 1536 its cluster, flash_fwd_tc_cluster and
+    # flash_fwd_tc_cluster_ldg, and wider the split over d; fp32 runs
+    # flash_fwd_f32 up to 128, flash_fwd_f32_wide (either copy width) from
+    # 129 to 256 and flash_fwd_f32_cluster above
     assert tfa.flash_attention.launches_by_kernel[plan] == by_kernel + 1
     if dtype == torch.float32:
         route = ("flash_fwd_f32" if d <= 128 else "flash_fwd_f32_wide"
-                 if d <= 256 else "flash_fwd_f32_cluster" if d <= 1024
-                 else "flash_fwd_f32_split")
+                 if d <= 256 else "flash_fwd_f32_cluster")
     else:
-        route = ("flash_fwd_tc_split" if d > 1024 else
+        route = ("flash_fwd_tc_split" if d > 1536 else
                  "flash_fwd_tc_cluster" if d > 256 else "flash_fwd_tc_wg")
-        route += "" if aligned or d > 1024 else "_ldg"
+        route += "" if aligned or d > 1536 else "_ldg"
     assert plan == route
     want = tfa.flash_attention_reference(q.float(), k.float(), v.float(),
                                          causal=causal, q_offset=q_offset)
@@ -155,14 +154,19 @@ def test_cuda_kernel_matches_plain(dtype, tol, causal, q_offset, t_q, t_k, d,
     (1, 256, 256, 2, 512, True, 0, 0), (1, 200, 264, 2, 512, True, 64, 0),
     (1, 100, 180, 2, 320, False, 9, 0), (2, 1, 1, 3, 384, True, 0, 0),
     (2, 1, 40, 2, 512, True, 39, 0), (2, 33, 33, 2, 640, True, 0, 0),
-    # above 1024: the split over d
-    (2, 65, 65, 2, 1100, True, 0, 0)])
+    # above 1024: clusters of 9-16 blocks (1100, 2048), and past 16 chunks
+    # groups of clusters: 2100 (two groups of 9, a ragged last chunk and
+    # an idle 18th block), also at 4-byte copies with q_offset, 4097
+    # (three of 11, Q chunks kept), 8300 (five of 13, Q chunks streamed)
+    (2, 65, 65, 2, 1100, True, 0, 0), (1, 70, 70, 1, 2048, False, 0, 0),
+    (1, 130, 130, 1, 2100, True, 0, 0), (2, 77, 90, 1, 2100, True, 13, 1),
+    (1, 100, 100, 1, 4097, False, 0, 0), (1, 70, 70, 1, 8300, True, 0, 0)])
 def test_f32_cluster_matches_plain(batch, t_q, t_k, heads, d, causal,
                                    q_offset, offset):
-    """fp32 head dims 257-1024 on flash_fwd_f32_cluster (above 1024 the
-    split), each launch counted by exact name, held to the plain version
-    within 1e-4; the blocks of a cluster sum their partial scores in rank
-    order, so a second run gives the same bits."""
+    """fp32 head dims above 256 on flash_fwd_f32_cluster (past 16 chunks
+    in groups of clusters), each launch counted by exact name, held to the
+    plain version within 1e-4; the blocks of a cluster sum their partial
+    scores in rank order, so a second run gives the same bits."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU and nvcc; runs on the card")
     g = torch.Generator(device="cuda").manual_seed(d + t_q)
@@ -172,9 +176,9 @@ def test_f32_cluster_matches_plain(batch, t_q, t_k, heads, d, causal,
     copy = tfa.copy_bytes(d, q.data_ptr(), k.data_ptr(), v.data_ptr())
     assert copy == (4 if offset or d % 4 else 16)
     plan = tfa.launch_plan(torch.float32, batch, t_q, heads, d, copy)
-    assert plan[0] == ("flash_fwd_f32_cluster" if d <= 1024
-                       else "flash_fwd_f32_split")
-    assert plan[2][2] == -(-d // 128)
+    assert plan[0] == "flash_fwd_f32_cluster"
+    groups, blocks, _ = tfa.cluster_groups(d)
+    assert plan[2][2] == groups * blocks >= -(-d // 128)
     counts = tfa.flash_attention.launches_by_kernel
     before = counts[plan[0]]
     got = tfa.flash_attention(q, k, v, causal=causal, q_offset=q_offset)
@@ -211,12 +215,16 @@ def test_f32_cluster_matches_plain(batch, t_q, t_k, heads, d, causal,
     (1, 100, 180, 2, 320, False, 9, 0), (2, 1, 1, 3, 384, True, 0, 0),
     (2, 1, 40, 2, 512, True, 39, 0), (2, 33, 33, 2, 640, True, 0, 0),
     (1, 200, 264, 2, 1000, True, 64, 1),
-    # above 1024: the split over d, both copy widths
-    (2, 65, 65, 2, 1100, True, 0, 0), (2, 65, 65, 2, 1100, True, 0, 1)])
+    # 1100 (6 blocks), 1344 and 1200 (7), 1400 and 1536 (8, the portable
+    # limit), both routes; above 1536: the split over d, both copy widths
+    (2, 65, 65, 2, 1100, True, 0, 0), (2, 65, 65, 2, 1100, True, 0, 1),
+    (1, 130, 130, 1, 1344, True, 0, 0), (2, 77, 90, 1, 1200, False, 13, 1),
+    (1, 130, 130, 1, 1400, True, 0, 0), (1, 70, 90, 1, 1536, True, 20, 1),
+    (2, 65, 65, 2, 1600, True, 0, 0), (1, 70, 70, 1, 1600, False, 0, 1)])
 def test_tc_cluster_matches_plain(dtype, tol, batch, t_q, t_k, heads, d,
                                   causal, q_offset, offset):
-    """bf16/fp16 head dims 257-1024 on flash_fwd_tc_cluster (16-byte rows)
-    and flash_fwd_tc_cluster_ldg (the others; above 1024 the split), each
+    """bf16/fp16 head dims 257-1536 on flash_fwd_tc_cluster (16-byte rows)
+    and flash_fwd_tc_cluster_ldg (the others; above 1536 the split), each
     launch counted by exact name, held to the fp32 plain version on the same
     inputs at the 16-bit limits; the blocks of a cluster sum their partial
     scores in rank order, so a second run gives the same bits."""
@@ -230,10 +238,10 @@ def test_tc_cluster_matches_plain(dtype, tol, batch, t_q, t_k, heads, d,
                           itemsize=2)
     assert copy == (2 if offset or d % 8 else 16)
     plan = tfa.launch_plan(dtype, batch, t_q, heads, d, copy)
-    assert plan[0] == ("flash_fwd_tc_split" if d > 1024 else
+    assert plan[0] == ("flash_fwd_tc_split" if d > 1536 else
                        "flash_fwd_tc_cluster" if copy == 16 else
                        "flash_fwd_tc_cluster_ldg")
-    assert plan[2][2] == -(-d // (128 if d > 1024 else 192))
+    assert plan[2][2] == -(-d // (128 if d > 1536 else 192))
     counts = tfa.flash_attention.launches_by_kernel
     before = dict(counts)
     got = tfa.flash_attention(q, k, v, causal=causal, q_offset=q_offset)

@@ -3,6 +3,8 @@ the JAX package's Pallas kernel run in interpret mode, on the same inputs
 made with numpy. On the CPU the port's wrapper takes its plain version; the
 CUDA kernel itself is held against that plain version on the card by
 tests/test_torch_cuda_kernels.py and chip_smoke.py."""
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -140,16 +142,22 @@ def test_copy_bytes_rule(d, offset, want):
     (torch.float32, 192, ("flash_fwd_f32_wide", 192, (6, 2, 1))),
     (torch.float32, 200, ("flash_fwd_f32_wide", 256, (6, 2, 1))),
     (torch.float32, 256, ("flash_fwd_f32_wide", 256, (6, 2, 1))),
-    # fp32 from 257 to 1024: a cluster of ceil(d / 128) blocks a 64-row Q
-    # tile, each a 128-wide chunk of d (the blocks on the grid's z); the
-    # split over d above
+    # fp32 above 256: a cluster of ceil(d / 128) blocks a 64-row Q tile,
+    # each a 128-wide chunk of d (the blocks on the grid's z), up to 16
+    # blocks (d 2048); past 16 chunks groups of clusters of up to 16 blocks,
+    # all on the grid's z (2049: two groups of 9; 4097: three of 11)
     (torch.float32, 300, ("flash_fwd_f32_cluster", 128, (6, 4, 3))),
     (torch.float32, 257, ("flash_fwd_f32_cluster", 128, (6, 4, 3))),
     (torch.float32, 320, ("flash_fwd_f32_cluster", 128, (6, 4, 3))),
     (torch.float32, 512, ("flash_fwd_f32_cluster", 128, (6, 4, 4))),
     (torch.float32, 1000, ("flash_fwd_f32_cluster", 128, (6, 4, 8))),
     (torch.float32, 1024, ("flash_fwd_f32_cluster", 128, (6, 4, 8))),
-    (torch.float32, 1025, ("flash_fwd_f32_split", 128, (6, 4, 9))),
+    (torch.float32, 1025, ("flash_fwd_f32_cluster", 128, (6, 4, 9))),
+    (torch.float32, 1100, ("flash_fwd_f32_cluster", 128, (6, 4, 9))),
+    (torch.float32, 2048, ("flash_fwd_f32_cluster", 128, (6, 4, 16))),
+    (torch.float32, 2049, ("flash_fwd_f32_cluster", 128, (6, 4, 18))),
+    (torch.float32, 4096, ("flash_fwd_f32_cluster", 128, (6, 4, 32))),
+    (torch.float32, 4097, ("flash_fwd_f32_cluster", 128, (6, 4, 33))),
     # bf16/fp16 with 16-byte copies: the wgmma/TMA kernel at every d up to
     # 256, all of d in a block of four 64-row Q tiles at width 64 (the 4
     # tiles of 200 rows: 1 block) and of two at 128 and above (2 blocks)
@@ -163,17 +171,21 @@ def test_copy_bytes_rule(d, offset, want):
     (torch.bfloat16, 200, ("flash_fwd_tc_wg", 256, (6, 2, 1))),
     (torch.float16, 200, ("flash_fwd_tc_wg", 256, (6, 2, 1))),
     (torch.float16, 256, ("flash_fwd_tc_wg", 256, (6, 2, 1))),
-    # from 257 to 1024: a cluster of ceil(d / 192) blocks for each two
-    # 64-row Q tiles, each block a 192-wide chunk of d (on the grid's z);
-    # the split over d above
+    # from 257 to 1536: a cluster of ceil(d / 192) blocks for each two
+    # 64-row Q tiles, each block a 192-wide chunk of d (on the grid's z),
+    # 8 blocks (the portable limit) at the most; the split over d above
     (torch.bfloat16, 264, ("flash_fwd_tc_cluster", 192, (6, 2, 2))),
     (torch.bfloat16, 257, ("flash_fwd_tc_cluster", 192, (6, 2, 2))),
     (torch.float16, 257, ("flash_fwd_tc_cluster", 192, (6, 2, 2))),
     (torch.float16, 512, ("flash_fwd_tc_cluster", 192, (6, 2, 3))),
     (torch.bfloat16, 1024, ("flash_fwd_tc_cluster", 192, (6, 2, 6))),
     (torch.float16, 1024, ("flash_fwd_tc_cluster", 192, (6, 2, 6))),
-    (torch.bfloat16, 1025, ("flash_fwd_tc_split", 128, (6, 4, 9))),
-    (torch.float16, 1025, ("flash_fwd_tc_split", 128, (6, 4, 9))),
+    (torch.bfloat16, 1025, ("flash_fwd_tc_cluster", 192, (6, 2, 6))),
+    (torch.float16, 1025, ("flash_fwd_tc_cluster", 192, (6, 2, 6))),
+    (torch.bfloat16, 1152, ("flash_fwd_tc_cluster", 192, (6, 2, 6))),
+    (torch.bfloat16, 1153, ("flash_fwd_tc_cluster", 192, (6, 2, 7))),
+    (torch.float16, 1536, ("flash_fwd_tc_cluster", 192, (6, 2, 8))),
+    (torch.bfloat16, 1537, ("flash_fwd_tc_split", 128, (6, 4, 13))),
     # d up to 64 at width 64, 65-128 at width 128 (columns past d zero)
     (torch.bfloat16, 32, ("flash_fwd_tc_wg", 64, (6, 1, 1))),
     (torch.bfloat16, 40, ("flash_fwd_tc_wg", 64, (6, 1, 1))),
@@ -185,11 +197,12 @@ def test_launch_plan_by_head_dim(dtype, d, want):
     """Which kernel each head dim runs with 16-byte copies (t_q 200, batch
     2, heads 3): fp32 the smallest of the 32/64/128 instantiations up to
     128 and its wide kernel from 129 to 256; bf16/fp16 the wgmma/TMA kernel
-    at the smallest of widths 64, 128, 192 and 256 that holds d; from 257
-    to 1024 a cluster of blocks on the grid's z, each a 128-wide chunk of
-    d in fp32 and a 192-wide one in bf16/fp16; wider heads the split over d,
-    one 128-wide chunk of the output's columns on each grid z. fp32 Q tiles
-    are 128 rows up to width 64, else 64."""
+    at the smallest of widths 64, 128, 192 and 256 that holds d; above 256
+    clusters of blocks on the grid's z, each a 128-wide chunk of d in fp32
+    (past 16 chunks in groups) and a 192-wide one in bf16/fp16 up to 1536;
+    wider bf16/fp16 heads the split over d, one 128-wide chunk of the
+    output's columns on each grid z. fp32 Q tiles are 128 rows up to width
+    64, else 64."""
     assert tfa.launch_plan(dtype, 2, 200, 3, d) == want
     assert tfa.launch_plan(dtype, 2, 200, 3, d, 16) == want
 
@@ -206,7 +219,8 @@ def test_launch_plan_by_head_dim(dtype, d, want):
     (torch.float32, 130, 4, ("flash_fwd_f32_wide", 192, (6, 2, 1))),
     (torch.float32, 300, 4, ("flash_fwd_f32_cluster", 128, (6, 4, 3))),
     (torch.float32, 512, 4, ("flash_fwd_f32_cluster", 128, (6, 4, 4))),
-    (torch.float32, 1100, 4, ("flash_fwd_f32_split", 128, (6, 4, 9))),
+    (torch.float32, 1100, 4, ("flash_fwd_f32_cluster", 128, (6, 4, 9))),
+    (torch.float32, 2100, 4, ("flash_fwd_f32_cluster", 128, (6, 4, 18))),
     (torch.bfloat16, 128, 2, ("flash_fwd_tc_wg_ldg", 128, (6, 2, 1))),
     (torch.bfloat16, 50, 2, ("flash_fwd_tc_wg_ldg", 64, (6, 1, 1))),
     # odd d: 2-byte rows at every width
@@ -218,19 +232,21 @@ def test_launch_plan_by_head_dim(dtype, d, want):
     # 2-byte rows at d 129-256 (250: 500-byte rows)
     (torch.float16, 250, 2, ("flash_fwd_tc_wg_ldg", 256, (6, 2, 1))),
     (torch.bfloat16, 192, 2, ("flash_fwd_tc_wg_ldg", 192, (6, 2, 1))),
-    # 2-byte rows from 257 to 1024: the cluster kernel's LDG route; wider,
+    # 2-byte rows from 257 to 1536: the cluster kernel's LDG route; wider,
     # the split over d
     (torch.bfloat16, 257, 2, ("flash_fwd_tc_cluster_ldg", 192, (6, 2, 2))),
     (torch.float16, 320, 2, ("flash_fwd_tc_cluster_ldg", 192, (6, 2, 2))),
     (torch.float16, 257, 2, ("flash_fwd_tc_cluster_ldg", 192, (6, 2, 2))),
     (torch.bfloat16, 1024, 2, ("flash_fwd_tc_cluster_ldg", 192, (6, 2, 6))),
     (torch.float16, 1023, 2, ("flash_fwd_tc_cluster_ldg", 192, (6, 2, 6))),
-    (torch.bfloat16, 1025, 2, ("flash_fwd_tc_split", 128, (6, 4, 9))),
-    (torch.float16, 1100, 2, ("flash_fwd_tc_split", 128, (6, 4, 9)))])
+    (torch.bfloat16, 1025, 2, ("flash_fwd_tc_cluster_ldg", 192, (6, 2, 6))),
+    (torch.float16, 1100, 2, ("flash_fwd_tc_cluster_ldg", 192, (6, 2, 6))),
+    (torch.bfloat16, 1535, 2, ("flash_fwd_tc_cluster_ldg", 192, (6, 2, 8))),
+    (torch.float16, 1537, 2, ("flash_fwd_tc_split", 128, (6, 4, 13)))])
 def test_launch_plan_by_copy_width(dtype, d, copy, want):
     """2-byte rows (what TMA refuses: d not a multiple of 8, or a base that
     is not 16-byte aligned) run flash_fwd_tc_wg_ldg up to d 256 and
-    flash_fwd_tc_cluster_ldg from 257 to 1024, at the TMA route's width and
+    flash_fwd_tc_cluster_ldg from 257 to 1536, at the TMA route's width and
     grid, and the split over d above; fp32's 4-byte copies change no route:
     the wide and cluster kernels copy 4 bytes at a time too."""
     assert tfa.launch_plan(dtype, 2, 200, 3, d, copy) == want
@@ -289,11 +305,14 @@ def test_launch_plan_f32_wide_grid_pairs_q_tiles(d, width):
 
 @pytest.mark.parametrize("d,blocks", [(257, 3), (320, 3), (384, 3),
                                       (385, 4), (512, 4), (1000, 8),
-                                      (1024, 8)])
+                                      (1024, 8), (1025, 9), (1100, 9),
+                                      (2048, 16), (2049, 18), (2100, 18),
+                                      (4096, 32), (4097, 33), (8300, 65)])
 def test_launch_plan_f32_cluster_grid(d, blocks):
-    """fp32's cluster kernel: one cluster of ceil(d / 128) blocks for each
-    64-row Q tile of a head, its blocks on the grid's z, at either copy
-    width, and its y capped like the other kernels'."""
+    """fp32's cluster kernel: for each 64-row Q tile of a head one cluster
+    of ceil(d / 128) blocks up to 16, past 16 chunks groups of clusters,
+    all their blocks on the grid's z, at either copy width, and its y
+    capped like the other kernels'."""
     for t_q, tiles in ((1, 1), (64, 1), (65, 2), (200, 4), (2048, 32),
                        (2049, 33)):
         for copy in (16, 4):
@@ -308,7 +327,9 @@ def test_launch_plan_f32_cluster_grid(d, blocks):
 @pytest.mark.parametrize("d,blocks", [(257, 2), (320, 2), (384, 2),
                                       (385, 3), (512, 3), (576, 3),
                                       (577, 4), (768, 4), (769, 5),
-                                      (960, 5), (961, 6), (1024, 6)])
+                                      (960, 5), (961, 6), (1024, 6),
+                                      (1152, 6), (1153, 7), (1344, 7),
+                                      (1345, 8), (1536, 8)])
 def test_launch_plan_tc_cluster_grid(d, blocks):
     """bf16/fp16's cluster kernels: one cluster of ceil(d / 192) blocks for
     each two 64-row Q tiles of a head (tiles i and n - 1 - i, as
@@ -345,16 +366,22 @@ def test_launch_plan_batch_heads(batch, heads, ok):
 def test_launch_plan_q_tiles_and_chunks_capped():
     """Q tiles (grid y) and d-chunks (grid z) stay within 65535: bf16 at
     d 64 runs four 64-row Q tiles a block (256 rows) with either producer,
-    the split over d one."""
+    the split over d one; fp32's groups of clusters put all their blocks
+    on z."""
     for copy in (16, 2):
         assert tfa.launch_plan(torch.bfloat16, 1, 256 * 65535, 1, 64,
                                copy)[2][1] == 65535
         with pytest.raises(MXNetError, match="Q tiles"):
             tfa.launch_plan(torch.bfloat16, 1, 256 * 65535 + 1, 1, 64, copy)
-    assert tfa.launch_plan(torch.bfloat16, 1, 64 * 65535, 1, 1100, 2)[2][1] \
+    assert tfa.launch_plan(torch.bfloat16, 1, 64 * 65535, 1, 1600, 2)[2][1] \
         == 65535
     with pytest.raises(MXNetError, match="Q tiles"):
-        tfa.launch_plan(torch.bfloat16, 1, 64 * 65535 + 1, 1, 1100, 2)
+        tfa.launch_plan(torch.bfloat16, 1, 64 * 65535 + 1, 1, 1600, 2)
+    # 65520 chunks: 4095 groups of 16 blocks; 65521: 4096 groups of 16
+    assert tfa.launch_plan(torch.float32, 1, 64, 1, 128 * 65520)[2][2] \
+        == 65520
+    with pytest.raises(MXNetError, match="d-chunks"):
+        tfa.launch_plan(torch.float32, 1, 64, 1, 128 * 65520 + 1)
     with pytest.raises(MXNetError, match="d-chunks"):
         tfa.launch_plan(torch.float32, 1, 64, 1, 128 * 65535 + 1)
 
@@ -418,3 +445,124 @@ def test_rows_tma_refuses_match_pallas_interpret(dtype, rtol, atol, d,
     np.testing.assert_allclose(got.float().numpy(),
                                np.asarray(want).astype(np.float32),
                                rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("d", [257, 1024, 1025, 1100, 2048, 2049, 2100, 4096,
+                               4097, 6144, 8192, 8193, 8300, 100000])
+def test_cluster_groups_cover_every_chunk_once(d):
+    """fp32's groups of clusters: at most 16 blocks a cluster; one cluster
+    up to 16 chunks of d, and past them the fewest groups; in every group
+    the blocks' chunks (rank r: r, r + blocks, ...) cover each chunk of d
+    once, so S is computed once a group; the grid's groups * blocks output
+    chunks cover the n of d, idle past n in fewer blocks than there are
+    groups."""
+    n = -(-d // 128)
+    groups, blocks, chunks = tfa.cluster_groups(d)
+    assert blocks <= 16 and groups == -(-n // 16)
+    assert (groups == 1) == (n <= 16)
+    covered = sorted(r + u * blocks for r in range(blocks)
+                     for u in range(chunks))
+    assert [c for c in covered if c < n] == list(range(n))
+    assert n <= groups * blocks < n + groups
+
+
+def _group_schedule(q, k, v, causal, q_offset, width, most, block_k=32):
+    """flash_fwd_f32_cluster's schedule in torch, at chunk width ``width``
+    and clusters of at most ``most`` blocks (:func:`cluster_groups`): for
+    each group and K tile, block r's partial S over its chunks r, r +
+    blocks, ... (zero past d) in order, the blocks' partials summed in
+    rank order; then the online softmax of that S and P V for each output
+    chunk of the group's blocks, normalised by the same l. Checks that every
+    group covers each chunk of d once and computes the same S bits, and
+    that each output chunk is written once."""
+    b, t_q, h, d = q.shape
+    t_k = k.shape[1]
+    n = -(-d // width)
+    groups, blocks, chunks = tfa._cluster_groups(n, most)
+    pad = groups * blocks * width - d
+    qp, kp, vp = (torch.nn.functional.pad(x, (0, pad)) for x in (q, k, v))
+
+    def cols(x, c):
+        return x[..., c * width:(c + 1) * width]
+
+    rows = q_offset + torch.arange(t_q)
+    out = torch.zeros_like(qp)
+    written = [0] * (groups * blocks)
+    scores = []
+    for g in range(groups):
+        reduced = [r + u * blocks for r in range(blocks)
+                   for u in range(chunks)]
+        assert sorted(c for c in reduced if c < n) == list(range(n))
+        outs = range(g * blocks, (g + 1) * blocks)
+        m = torch.full((b, h, t_q), float("-inf"))
+        l = torch.zeros(b, h, t_q)
+        acc = {z: torch.zeros(b, h, t_q, width) for z in outs}
+        group_scores = []
+        for k0 in range(0, t_k, block_k):
+            kt, vt = kp[:, k0:k0 + block_k], vp[:, k0:k0 + block_k]
+            s = None
+            for r in range(blocks):
+                part = 0
+                for u in range(chunks):
+                    c = r + u * blocks
+                    part = part + torch.einsum("bqhd,bkhd->bhqk",
+                                               cols(qp, c), cols(kt, c))
+                s = part if s is None else s + part
+            group_scores.append(s)
+            x = s * d ** -0.5
+            if causal:
+                keys = k0 + torch.arange(kt.shape[1])
+                x = torch.where(rows[:, None] < keys[None, :],
+                                torch.tensor(-1e30), x)
+            m_new = torch.maximum(m, x.amax(-1))
+            corr = torch.exp(m - m_new)
+            p = torch.exp(x - m_new[..., None])
+            l = l * corr + p.sum(-1)
+            m = m_new
+            for z in outs:
+                acc[z] = acc[z] * corr[..., None] + torch.einsum(
+                    "bhqk,bkhd->bhqd", p, cols(vt, z))
+        scores.append(group_scores)
+        for z in outs:
+            if z < n:
+                o = acc[z] / l.clamp(min=1e-20)[..., None]
+                out[..., z * width:(z + 1) * width] = o.transpose(1, 2)
+                written[z] += 1
+    assert all(torch.equal(a, b) for other in scores[1:]
+               for a, b in zip(scores[0], other))
+    assert written == [1] * n + [0] * (groups * blocks - n)
+    return out[..., :d]
+
+
+# d 64: one cluster of 4 chunks; 100: 7 chunks, two groups of 4 (chunk 7
+# past d: rank 3 reduces chunks 3 and 7, output chunk 7 is idle); 150: 10
+# chunks, three groups of 4
+@pytest.mark.parametrize("d", [64, 100, 150])
+@pytest.mark.parametrize("causal", [False, True])
+def test_group_schedule_matches_pallas_interpret(d, causal):
+    """The group schedule of flash_fwd_f32_cluster, emulated in torch at
+    16-wide chunks and clusters of at most 4 blocks, against the JAX
+    kernel in interpret mode on the same inputs, within 1e-5, with
+    q_offset on the causal case."""
+    q, k, v = _inputs(13, [(1, 128, 2, d), (1, 256, 2, d), (1, 256, 2, d)])
+    kw = dict(causal=causal, q_offset=128 if causal else 0)
+    want = np.asarray(jax_flash(*(jnp.asarray(a) for a in (q, k, v)),
+                                interpret=True, **kw))
+    got = _group_schedule(*(torch.from_numpy(a) for a in (q, k, v)),
+                          width=16, most=4, **kw)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5)
+
+
+def test_plan_constants_match_the_kernel_sources():
+    """The plan's chunk widths and cluster limits are the kernels' own."""
+    def source(name):
+        with open(os.path.join(_native.CSRC_DIR, name)) as f:
+            return f.read()
+
+    fp32 = source("flash_attention_fwd.cu")
+    tc = source("flash_attention_fwd_tc.cu")
+    assert f"constexpr int C_W = {tfa._F32_CLUSTER_W};" in fp32
+    assert f"constexpr int C_MAX = {tfa._F32_CLUSTER_MAX};" in fp32
+    assert f"constexpr int C_QRES = {tfa._F32_CLUSTER_QRES};" in fp32
+    assert f"constexpr int CW = {tfa._TC_CLUSTER_W};" in tc
+    assert f"constexpr int CLUSTER_D = {tfa._CLUSTER_D};" in tc

@@ -57,19 +57,37 @@ def test_sweep_diagnostics_are_variants_of_their_kernel():
 
 def test_cluster_v2_variant_stages_v_from_the_start_of_a_tile():
     """The two-V-buffer variant of flash_fwd_f32_cluster copies V(n + 1)
-    into buffer (n + 1) % 2 behind K(n + 1), reads tile n's V from buffer
-    n % 2, waits for all but two copy groups before P V, and stages nothing
-    at the end of a tile."""
+    into buffer (n + 1) % 2 beside the copies the first step of tile n
+    starts, reads tile n's V from buffer n % 2, waits for every copy group
+    at the start of a step and for none before P V, and stages nothing at
+    the end of a tile."""
     with open(os.path.join(_native.CSRC_DIR, "flash_attention_fwd.cu")) as f:
         src = f.read()
     out = sweep.cluster_variant_source(src, *sweep.CLUSTER_VARIANTS["v2"])
-    assert "(C_BQ + 4 * C_BK)" in out
+    assert "(q_slots * C_BQ + 4 * C_BK)" in out
     assert "float* p_s = v_s + 2 * C_BK * DS;" in out
     assert out.count("v_s + ((kt + 1) & 1) * C_BK * DS, v_bh,") == 1
+    assert out.count("if (u == 0 && kt + 1 < n_tiles)") == 1
     assert "v_s + (kt & 1) * C_BK * DS + (j + u) * DS" in out
-    assert "cp_async_wait<2>();" in out
+    assert "cp_async_wait<1>" not in out
+    assert out.count("cp_async_wait<0>();") == 1
     assert "(v_s, v_bh, k0 + C_BK," not in out
     assert "constexpr int C_BLOCKS = 1;" in out
+
+
+def test_cluster_group_variants_patch_their_limits():
+    """c8 caps flash_fwd_f32_cluster's clusters at the portable 8 blocks
+    (groups of clusters from 9 chunks), qstream streams the Q chunks of
+    every grouped block, and no_exchange keeps the cluster's size for the
+    chunks a block reduces while it sums only its own partial."""
+    with open(os.path.join(_native.CSRC_DIR, "flash_attention_fwd.cu")) as f:
+        src = f.read()
+    make = sweep.cluster_variant_source
+    assert "constexpr int C_MAX = 8;" in make(src, "c8")
+    assert "constexpr int C_QRES = 1;" in make(src, "qstream")
+    out = make(src, "no_exchange")
+    assert "const uint32_t n_ranks = cluster_blocks();" in out
+    assert "for (uint32_t r = 0; r < 1; ++r)" in out
 
 
 def test_tc_cluster_variants_patch_the_exchange_and_the_chunks():
