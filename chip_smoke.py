@@ -26,12 +26,13 @@ result line:
    ``flash_fwd_f32_cluster``'s two (16- and 4-byte copies) and of
    ``flash_fwd_tc_wg``'s and ``flash_fwd_tc_wg_ldg``'s eight each (bf16
    and fp16 at widths 64, 128, 192 and 256) and ``flash_fwd_tc_cluster``'s
-   and ``flash_fwd_tc_cluster_ldg``'s fourteen each (bf16 and fp16 at
-   clusters of 2-8 blocks), none of which may spill (the 16-bit cluster
-   kernels at most 64 bytes), no wgmma that ptxas serialized, the
-   consumers' registers (setmaxnreg) of both routes, 112 at width 64, and
-   the clusters of each cluster kernel the card places at once, at every
-   size (and, in fp32, Q chunks a block) it launches;
+   and ``flash_fwd_tc_cluster_ldg``'s twenty-two each (bf16 and fp16, one
+   cluster of 2-8 blocks and groups of clusters of 5-8), none of which may
+   spill (the 16-bit cluster kernels at most 64 bytes), no wgmma that
+   ptxas serialized, the consumers' registers (setmaxnreg) of both routes,
+   112 at width 64, and the clusters of each cluster kernel the card
+   places at once, at every size (and, in fp32, Q chunks a block; in
+   16 bits, form) it launches;
 3. kernel vs plain: the flash-attention kernels against their plain version
    at the main path's shape (bf16/fp16 on wgmma at every head dim up to
    256: 16-byte rows through TMA, the others through the LDG producer;
@@ -50,9 +51,11 @@ result line:
    500 and 1000 (the cluster kernels: zero past d in the last chunk;
    clusters of 8 blocks in fp32, 6 in bf16), 1100 (fp32's clusters of 9
    blocks, bf16's of 6 on the LDG route: 2200-byte rows), 2048 (fp32's of
-   16), 2100 and 8300 (fp32's groups of clusters), 1400 (bf16's of 8) and
-   1600 (bf16's split over d), in
-   fp32 (CUDA cores),
+   16), 2100 and 8300 (fp32's groups of clusters), 1400 (bf16's of 8),
+   1600 (bf16's groups of clusters, two of 5; fp16 at an offset of one
+   element on the LDG route, bit-identical to the TMA route on aligned
+   copies), 2048 (bf16's two groups of 6) and 3300 at T 256 (bf16's three
+   groups of 6, Q streamed; LDG), in fp32 (CUDA cores),
    bf16 and fp16 (tensor cores), each row naming the kernel that ran, timed
    per call (as in earlier slices) and on the device alone, beside the
    plain version and a library attention call, with its share of the
@@ -359,7 +362,7 @@ GEMM_NAME = re.compile(r"gemm|gemv|nvjet|cutlass", re.IGNORECASE)
 # ("...wgk::flash_fwd_tc_wg<__nv_bfloat16, 64>(...)": flash_fwd_tc_wg)
 FLASH_NAME = re.compile(r"(flash_fwd[a-z0-9_]*)(?:<|I\d|\()")
 KERNEL_LIBS = ("flash_attention_fwd", "flash_attention_fwd_tc")
-# the 16-bit kernels for head dims 257-1024: a cluster of blocks that split d
+# the 16-bit kernels for head dims above 256: clusters of blocks that split d
 TC_CLUSTER_KERNELS = ("flash_fwd_tc_cluster", "flash_fwd_tc_cluster_ldg")
 AMP_REQUESTS = 4
 AMP_CPU_SEQ = 512   # T of the card-vs-CPU check under amp
@@ -654,11 +657,13 @@ def phase_build():
             # the exchange beside O: every tile shape tried at 240
             # registers spills a little at 3 ranks or more (PERF.md); held
             # so that a change that spills the 600 bytes of 256-wide chunks
-            # fails here
-            check(len(report) == 14 and all(
+            # fails here. Keys: type, blocks a cluster, form (0: one
+            # cluster of 2-8 blocks, 1: groups of clusters of 5-8)
+            check(len(report) == 22 and all(
                 r["spill_stores"] <= 64 for r in report.values()),
-                f"ptxas: every {kernel} instantiation (bf16 and fp16, "
-                "clusters of 2-8 blocks) spills at most 64 bytes")
+                f"ptxas: every {kernel} instantiation (bf16 and fp16, one "
+                "cluster of 2-8 blocks, groups of clusters of 5-8) spills "
+                "at most 64 bytes")
     regs = setmaxnreg_counts()
     out["setmaxnreg"] = regs
     print("  setmaxnreg (producer, consumers) by width (cluster: the "
@@ -668,11 +673,12 @@ def phase_build():
     tc_clusters = tc_cluster_counts()
     out["tc_clusters_at_once"] = tc_clusters
     print("  flash_fwd_tc_cluster (tma) and _ldg: clusters the card holds "
-          "at once, by blocks a cluster: " + json.dumps(tc_clusters),
-          flush=True)
-    check(all(n >= 1 for by in tc_clusters.values() for n in by.values()),
-          "the card places the 16-bit cluster kernels' clusters of 2-8 "
-          "blocks on both routes")
+          "at once, by form (one cluster, groups) and blocks a cluster: "
+          + json.dumps(tc_clusters), flush=True)
+    check(all(n >= 1 for by_form in tc_clusters.values()
+              for by in by_form.values() for n in by.values()),
+          "the card places the 16-bit cluster kernels' clusters of every "
+          "size and form a head dim launches, on both routes")
     return out
 
 
@@ -707,18 +713,32 @@ def cluster_counts():
 def tc_cluster_counts():
     """How many clusters of the 16-bit cluster kernels the card holds at
     once, by route (``tma``: flash_fwd_tc_cluster, ``ldg``:
-    flash_fwd_tc_cluster_ldg) and blocks a cluster (2-8: d 257-1536), as the
-    library's C entry reports them (cudaOccupancyMaxActiveClusters)."""
+    flash_fwd_tc_cluster_ldg), form (``one``: one cluster a Q-tile pair,
+    d 257-1536; ``groups``: groups of clusters above) and blocks a cluster,
+    at every pair a head dim launches, as the library's C entry reports
+    them (cudaOccupancyMaxActiveClusters). The pairs come from the plan's
+    own schedule at every chunk count from 2 (d 257) to 4 times the
+    largest cluster; more chunks launch no other pair."""
     import ctypes
 
     from mxnet_tpu_torch import _native
+    from mxnet_tpu_torch.ops.flash_attention import (
+        _TC_CLUSTER_MAX as most, _cluster_groups)
 
     fn = _native.load("flash_attention_fwd_tc") \
         .mxtt_flash_attention_fwd_tc_clusters
-    fn.argtypes = [ctypes.c_int] * 2
+    fn.argtypes = [ctypes.c_int] * 3
     fn.restype = ctypes.c_int
-    return {route: {str(c): fn(c, ldg) for c in range(2, 9)}
-            for route, ldg in (("tma", 0), ("ldg", 1))}
+    out = {}
+    for route, ldg in (("tma", 0), ("ldg", 1)):
+        for n in range(2, 4 * most + 1):
+            groups, blocks, _ = _cluster_groups(n, most)
+            form = int(groups > 1)
+            by_blocks = out.setdefault(route, {}).setdefault(
+                ("one", "groups")[form], {})
+            if str(blocks) not in by_blocks:
+                by_blocks[str(blocks)] = fn(blocks, ldg, form)
+    return out
 
 
 def setmaxnreg_counts():
@@ -876,13 +896,16 @@ def phase_kernel_vs_plain(seed):
          torch.bfloat16, 2e-2),
         ("d192_fp16_causal", (BATCH, SEQ, HEADS // 4, 192), SEQ, True, 0,
          torch.float16, 3e-3),
-        # bf16/fp16 heads from 257 to 1024: a cluster of blocks, each a
-        # 192-wide chunk of d, with 16-byte rows (TMA) and, at an offset of
-        # one element (the last field), the LDG producer: 4 heads of 320
-        # (two chunks, the second 128 columns of d), phase 8's 2 heads of
-        # 512, causal and not, d 1000 (clusters of 6 blocks), 1400 (8, the
+        # bf16/fp16 heads above 256: a cluster of blocks, each a 192-wide
+        # chunk of d, with 16-byte rows (TMA) and, at an offset of one
+        # element (the last field), the LDG producer: 4 heads of 320 (two
+        # chunks, the second 128 columns of d), phase 8's 2 heads of 512,
+        # causal and not, d 1000 (clusters of 6 blocks), 1400 (8, the
         # portable limit) and 1100 (6; its 2200-byte rows, not a multiple
-        # of 16 bytes, on the LDG route); above 1536 the split over d
+        # of 16 bytes, on the LDG route); above 1536 groups of clusters,
+        # each computing S once: d 1600 (two groups of 5; in fp16 at an
+        # offset of one element, LDG), 2048 (two of 6) and 3300 at T 256
+        # (three of 6, Q streamed beside K; 6600-byte rows, LDG)
         ("d320_bf16_causal", (BATCH, SEQ, HEADS // 4, 320), SEQ, True, 0,
          torch.bfloat16, 2e-2),
         ("d320_fp16_causal", (BATCH, SEQ, HEADS // 4, 320), SEQ, True, 0,
@@ -902,6 +925,12 @@ def phase_kernel_vs_plain(seed):
         ("d1400_bf16_causal", (BATCH, SEQ, 1, 1400), SEQ, True, 0,
          torch.bfloat16, 2e-2),
         ("d1600_bf16_causal", (BATCH, SEQ, 1, 1600), SEQ, True, 0,
+         torch.bfloat16, 2e-2),
+        ("d1600_fp16_causal_offset1", (BATCH, SEQ, 1, 1600), SEQ, True, 0,
+         torch.float16, 3e-3, 1),
+        ("d2048_bf16_causal", (BATCH, SEQ, 1, 2048), SEQ, True, 0,
+         torch.bfloat16, 2e-2),
+        ("d3300_bf16_causal", (1, 256, 1, 3300), 256, True, 0,
          torch.bfloat16, 2e-2),
         # 16-byte rows up to d 128 on the wgmma/TMA kernel: the serving
         # shape without the mask, d 128 in fp16, d 96 (width 128, zeros
@@ -987,14 +1016,15 @@ def phase_kernel_vs_plain(seed):
         # 0 the TMA route on aligned copies of the same inputs (each a
         # fresh allocation) must give the same bits
         tma_equal = None
-        if kernel == "flash_fwd_tc_wg_ldg" and shp[3] % 8 == 0:
-            before_tma = flash_attention.launches_by_kernel["flash_fwd_tc_wg"]
+        if kernel.endswith("_ldg") and shp[3] % 8 == 0:
+            tma_kernel = kernel[:-len("_ldg")]
+            before_tma = flash_attention.launches_by_kernel[tma_kernel]
             tma = flash_attention(q.clone(), k.clone(), v.clone(),
                                   causal=causal, q_offset=q_off)
             torch.cuda.synchronize()
-            check(flash_attention.launches_by_kernel["flash_fwd_tc_wg"]
+            check(flash_attention.launches_by_kernel[tma_kernel]
                   == before_tma + 1, f"{name}: the aligned copies ran "
-                  "flash_fwd_tc_wg")
+                  f"{tma_kernel}")
             tma_equal = bool(torch.equal(tma, got))
             del tma
         row = {"case": name, "kernel": kernel, "ran": ran, "q": list(shp),
@@ -1016,14 +1046,14 @@ def phase_kernel_vs_plain(seed):
         check(ran == [kernel], f"{name}: the wrapper launched {ran} == the "
               f"route's [{kernel}]")
         if tma_equal is not None:
-            check(tma_equal, f"{name}: bit-identical to flash_fwd_tc_wg on "
+            check(tma_equal, f"{name}: bit-identical to the TMA route on "
                   "aligned copies")
         results[name] = row
         del q, k, v, got, want
     torch.cuda.empty_cache()
     # the bf16/fp16 main paths' shapes on the wgmma/TMA kernel; the rows
-    # TMA refuses up to d 256 on its LDG producer; d 257-1536 on the
-    # cluster kernels, wider on the split
+    # TMA refuses up to d 256 on its LDG producer; above 256 the cluster
+    # kernels, past 1536 in groups of clusters
     on_wg = ("slice_bf16_causal", "slice_fp16_causal", "train_bf16_causal",
              "d128_bf16_causal", "d128_fp16_causal", "d96_bf16_causal",
              "slice_bf16_noncausal")
@@ -1033,21 +1063,22 @@ def phase_kernel_vs_plain(seed):
               "ragged_d50_bf16_causal_qoff")
     on_tc_cluster = ("d320_bf16_causal", "d320_fp16_causal",
                      "d512_bf16_causal", "d512_bf16_noncausal",
-                     "d1000_bf16_causal", "d1400_bf16_causal")
+                     "d1000_bf16_causal", "d1400_bf16_causal",
+                     "d1600_bf16_causal", "d2048_bf16_causal")
     on_tc_cluster_ldg = ("d320_bf16_causal_offset1",
-                         "d512_fp16_causal_offset1", "d1100_bf16_causal")
+                         "d512_fp16_causal_offset1", "d1100_bf16_causal",
+                         "d1600_fp16_causal_offset1", "d3300_bf16_causal")
     check(all(results[n]["ran"] == ["flash_fwd_tc_wg"] for n in on_wg)
           and all(results[n]["ran"] == ["flash_fwd_tc_wg_ldg"]
                   for n in on_ldg)
           and all(results[n]["ran"] == ["flash_fwd_tc_cluster"]
                   for n in on_tc_cluster)
           and all(results[n]["ran"] == ["flash_fwd_tc_cluster_ldg"]
-                  for n in on_tc_cluster_ldg)
-          and results["d1600_bf16_causal"]["ran"] == ["flash_fwd_tc_split"],
+                  for n in on_tc_cluster_ldg),
           "16-byte rows up to d 256 ran flash_fwd_tc_wg, the other rows up "
-          "to d 256 flash_fwd_tc_wg_ldg; from 257 to 1536 16-byte rows "
-          "flash_fwd_tc_cluster, 2-byte rows flash_fwd_tc_cluster_ldg; d "
-          "1600 flash_fwd_tc_split")
+          "to d 256 flash_fwd_tc_wg_ldg; above 256 16-byte rows "
+          "flash_fwd_tc_cluster, 2-byte rows flash_fwd_tc_cluster_ldg, one "
+          "cluster up to d 1536 and groups of clusters above")
     on_cluster = ("d512_fp32_causal", "d512_fp32_noncausal",
                   "d320_fp32_causal", "d320_fp32_noncausal",
                   "d500_fp32_causal", "d1000_fp32_causal",
@@ -6945,8 +6976,7 @@ def main(argv=None):
     # the kernels that no main path runs: their launches in the main paths'
     # counted runs, held to 0; phase 3 holds each to its plain version
     unlaunched = {}
-    for kernel in ("flash_fwd_tc_wg_ldg", "flash_fwd_tc_cluster_ldg",
-                   "flash_fwd_tc_split"):
+    for kernel in ("flash_fwd_tc_wg_ldg", "flash_fwd_tc_cluster_ldg"):
         unlaunched[kernel] = main_path_launches(kernel)
         check(unlaunched[kernel][0] == 0,
               f"no main path launched {kernel} (by path: "
@@ -7061,11 +7091,12 @@ def main(argv=None):
         "other_shapes": {n: {k: cases[n][k] for k in KERNEL_KEYS}
                          for n in ("train_bf16_causal", "d128_bf16_causal",
                                    "d256_bf16_causal")}})
-    # the 16-bit cluster kernels (d 257-1536): phase 8's requests at 2 heads
+    # the 16-bit cluster kernels (d > 256): phase 8's requests at 2 heads
     # of 512 (the kernels the card ran in them, traced; the wrapper's calls
-    # are the warm-up's and the capture's); the LDG route's rows (views at
-    # an offset of one element) come from no main path, and phase 3 holds
-    # it to its plain version
+    # are the warm-up's and the capture's); their groups of clusters (d >
+    # 1536) and the LDG route's rows (views at an offset of one element,
+    # rows not 16-byte aligned) come from no main path, and phase 3 holds
+    # them to their plain version
     tc_cluster_case = cases["d512_bf16_causal"]
     kernels.append({
         "name": "flash_attention_fwd_tc_cluster",
@@ -7082,7 +7113,9 @@ def main(argv=None):
                          for n in ("d320_bf16_causal", "d320_fp16_causal",
                                    "d512_bf16_noncausal",
                                    "d1000_bf16_causal",
-                                   "d1400_bf16_causal")}})
+                                   "d1400_bf16_causal",
+                                   "d1600_bf16_causal",
+                                   "d2048_bf16_causal")}})
     tc_cluster_ldg_case = cases["d320_bf16_causal_offset1"]
     kernels.append({
         "name": "flash_attention_fwd_tc_cluster_ldg",
@@ -7097,21 +7130,9 @@ def main(argv=None):
         **{k: tc_cluster_ldg_case[k] for k in KERNEL_KEYS},
         "other_shapes": {n: {k: cases[n][k] for k in KERNEL_KEYS}
                          for n in ("d512_fp16_causal_offset1",
-                                   "d1100_bf16_causal")}})
-    # the 16-bit split over d, above d 1536: no main path has such heads,
-    # and phase 3 holds it to its plain version
-    tc_split_case = cases["d1600_bf16_causal"]
-    kernels.append({
-        "name": "flash_attention_fwd_tc_split",
-        "route": "cuda",
-        "source": "mxnet_tpu_torch/csrc/flash_attention_fwd_tc.cu",
-        "replaces": "mxnet_tpu/ops/flash_attention.py:47",
-        "launches": unlaunched["flash_fwd_tc_split"][0],
-        "launches_by_path": {
-            "main_paths": unlaunched["flash_fwd_tc_split"][1],
-            "phase3_cases": [n for n, c in cases.items()
-                             if c["ran"] == ["flash_fwd_tc_split"]]},
-        **{k: tc_split_case[k] for k in KERNEL_KEYS}})
+                                   "d1100_bf16_causal",
+                                   "d1600_fp16_causal_offset1",
+                                   "d3300_bf16_causal")}})
     for name, case in (("rtc_axpy", "axpy_logits_fp32"),
                        ("rtc_sgd_mom", "sgd_mom_embedding_fp32")):
         row = rtc_cases[case]

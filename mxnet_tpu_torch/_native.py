@@ -2,7 +2,10 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface. At first use it is compiled
 with ``nvcc`` for ``sm_90a`` into ``_build/lib<name>.so`` beside this file and
-loaded with ``ctypes``; a library newer than its source is reused.
+loaded with ``ctypes``; a library newer than its source is reused. Every
+library compiles as objects, one ``nvcc -c`` each for ``MXTT_PART`` = 0, 1,
+... (one for a library not in ``PARTS``), all started together, then linked
+(:func:`compile_library`).
 
 The host library (:func:`host_lib`) is the repo's RecordIO codec, native
 dependency engine and JPEG codec, ``src/recordio.cc``, ``src/engine.cc`` and
@@ -29,7 +32,11 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas=-v"]
+
+# objects a library builds as (one where not listed): the source says what
+# each MXTT_PART instantiates
+PARTS = {"flash_attention_fwd_tc": 2}
 
 _LOCK = threading.Lock()
 _LIBS: dict = {}
@@ -48,6 +55,33 @@ def _nvcc():
     return path
 
 
+def compile_library(src: str, out: str, parts: int = 1):
+    """Compile ``src`` into the shared library ``out``: ``parts`` objects,
+    one ``nvcc -c`` each with ``-DMXTT_PART`` = 0, 1, ..., all started
+    together, then linked. Returns (ok, nvcc's and ptxas's output); ``out``
+    is replaced only where every step succeeded."""
+    tmp = f"{out}.{os.getpid()}.{threading.get_ident()}.tmp"
+    objs = [f"{tmp}.{k}.o" for k in range(parts)]
+    procs = [subprocess.Popen(
+        [_nvcc(), *NVCC_FLAGS, "-c", f"-DMXTT_PART={k}", "-o", obj, src],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for k, obj in enumerate(objs)]
+    logs = [p.communicate()[0] for p in procs]
+    ok = all(p.returncode == 0 for p in procs)
+    if ok:
+        link = subprocess.run(
+            [_nvcc(), "-shared", "-Xcompiler", "-fPIC", "-o", tmp, *objs],
+            capture_output=True, text=True)
+        logs.append(link.stdout + link.stderr)
+        ok = link.returncode == 0
+    for obj in objs:
+        if os.path.exists(obj):
+            os.remove(obj)
+    if ok:
+        os.replace(tmp, out)
+    return ok, "".join(logs)
+
+
 def build(name: str) -> str:
     """Compile ``csrc/<name>.cu`` unless an up-to-date library exists;
     returns the library's path."""
@@ -56,13 +90,9 @@ def build(name: str) -> str:
     if os.path.exists(out) and os.path.getmtime(out) >= os.path.getmtime(src):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
-                          capture_output=True, text=True)
-    BUILD_LOGS[name] = proc.stdout + proc.stderr
-    if proc.returncode != 0:
+    ok, BUILD_LOGS[name] = compile_library(src, out, PARTS.get(name, 1))
+    if not ok:
         raise MXNetError(f"nvcc failed for {src}:\n{BUILD_LOGS[name]}")
-    os.replace(tmp, out)
     return out
 
 

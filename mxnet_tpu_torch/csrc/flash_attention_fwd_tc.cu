@@ -11,7 +11,7 @@
 // and o / max(l, 1e-20) written in q's dtype. Columns past T_k have weight 0.
 // The scores never leave the registers.
 //
-// Five routes, by the rows' alignment and the head dim (the C entry at
+// Four routes, by the rows' alignment and the head dim (the C entry at
 // the end; ops/flash_attention.py::launch_plan names the same):
 //   * flash_fwd_tc_wg: 16-byte rows (d % 8 == 0 and 16-byte aligned bases,
 //     what TMA needs) at every d <= 256, in widths 64, 128, 192 and 256
@@ -25,15 +25,14 @@
 //     words into a staging ring with cp.async (16 bytes a thread) and
 //     shifts them into the bytes TMA would have written (design below,
 //     before the producer);
-//   * flash_fwd_tc_cluster: 16-byte rows at d 257-1536, a thread-block
-//     cluster of ceil(d / 192) blocks, each flash_fwd_tc_wg's producer and
-//     consumers over its own 192-wide chunk of d, the partial scores summed
-//     through
-//     distributed shared memory so that S is computed once a tile (design
-//     below, before the kernel);
-//   * flash_fwd_tc_cluster_ldg: the same cluster and consumers for the rows
-//     TMA refuses at d 257-1536, each block's producer the LDG one;
-//   * flash_fwd_tc_split: wider than 1536, on mma.sync.
+//   * flash_fwd_tc_cluster: 16-byte rows at every d above 256, thread-block
+//     clusters of flash_fwd_tc_wg's producer and consumers over 192-wide
+//     chunks of d, the partial scores summed through distributed shared
+//     memory so that S is computed once a tile: up to d 1536 one cluster of
+//     ceil(d / 192) blocks, above groups of clusters of at most 8, each
+//     group computing S once (design below, before the kernel);
+//   * flash_fwd_tc_cluster_ldg: the same clusters and consumers for the rows
+//     TMA refuses above d 256, each block's producer the LDG one.
 //
 // Bound on an H100 SXM at the transformer LM's shape, q/k/v (2, 2048, 16, 64)
 // bf16 causal, per forward and layer: B*H*T*(T+1)/2 = 6.7e7 causal pairs,
@@ -61,11 +60,6 @@
 
 namespace {
 
-constexpr int BQ = 64;           // Q rows per block
-constexpr int BK = 64;           // K/V rows per tile
-constexpr int WARPS = 4;         // 16 Q rows each
-constexpr int THREADS = 32 * WARPS;
-constexpr int PAD = 8;           // elements of padding per shared row
 constexpr float MASKED = -1e30f; // the reference's masked score
 constexpr float LOG2E = 1.4426950408889634f;
 
@@ -79,98 +73,6 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// 16 bytes from global src to shared dst asynchronously; with valid == false
-// nothing is read and dst is zero-filled (src-size 0).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-// Rows [row0, row0 + ROWS) of one (batch, head) of a (B, T, H, D) 16-bit
-// tensor into a ROWS x (DP + PAD) shared tile; rows past t_len and columns
-// past d are zero. VEC == 16: cp.async of 8 elements (needs d % 8 == 0 and
-// 16-byte aligned rows); VEC == 2: element-wise loads, any d and alignment.
-template <int ROWS, int DP, int VEC>
-__device__ __forceinline__ void stage_tile(uint16_t* dst, const uint16_t* src,
-                                           int row0, int t_len,
-                                           int row_stride, int d) {
-  constexpr int DS = DP + PAD;
-  if constexpr (VEC == 16) {
-    constexpr int PER_ROW = DP / 8;
-    static_assert(ROWS * PER_ROW % THREADS == 0, "whole copies per thread");
-#pragma unroll
-    for (int it = 0; it < ROWS * PER_ROW / THREADS; ++it) {
-      const int e = it * THREADS + threadIdx.x;
-      const int r = e / PER_ROW;
-      const int c = (e % PER_ROW) * 8;
-      const int row = row0 + r;
-      const bool ok = row < t_len && c < d;
-      cp_async16(dst + r * DS + c,
-                 ok ? src + (int64_t)row * row_stride + c : src, ok);
-    }
-  } else {
-    static_assert(VEC == 2, "copies are 16 or 2 bytes");
-    static_assert(ROWS * DP % (2 * THREADS) == 0, "whole pairs per thread");
-    // each thread writes 2 adjacent columns, so the shared stores are 4
-    // bytes; the global loads are 2 bytes each (any alignment)
-    constexpr int PAIRS = DP / 2;
-#pragma unroll 8
-    for (int it = 0; it < ROWS * PAIRS / THREADS; ++it) {
-      const int e = it * THREADS + threadIdx.x;
-      const int r = e / PAIRS;
-      const int c = (e % PAIRS) * 2;
-      const int row = row0 + r;
-      uint32_t lo = 0, hi = 0;
-      if (row < t_len) {
-        const uint16_t* s = src + (int64_t)row * row_stride + c;
-        if (c < d) lo = s[0];
-        if (c + 1 < d) hi = s[1];
-      }
-      *reinterpret_cast<uint32_t*>(dst + r * DS + c) = lo | (hi << 16);
-    }
-  }
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// c += a b for one m16n8k16 tile; T is __nv_bfloat16 or __half
-template <typename T>
-__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  } else {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
 }
 
 // Two floats as one register of two T (lo in the low half), rounded to
@@ -197,220 +99,12 @@ __device__ __forceinline__ uint16_t to_bits(float x) {
   }
 }
 
-// ------------------------------------ head dim > 128: the split over d
-
-// flash_fwd_tc_split: d > 1536 (d 257-1536 until flash_fwd_tc_cluster),
-// split over d, on mma.sync (FlashAttention-2 form). The output's columns
-// go in chunks of DC = 128 on gridDim.z; each
-// block (4 warps, 16 of its 64 Q rows each; the grid's y runs the Q tiles
-// from the last, so the heaviest causal tiles start first) accumulates S =
-// Q K^T over the 128-wide d-chunks of Q and K, staged through shared memory
-// one chunk at a time (rows padded by 8 elements, so an ldmatrix phase's 8
-// rows start in 8 distinct 4-bank groups; cp.async of 16 bytes, or 2-byte
-// loads for rows TMA refuses; rows past T and columns past d zero), then
-// adds P V for its own chunk of V's columns:
-//   * S = Q K^T with mma.sync.m16n8k16 (fp32 accumulate), K row-major in
-//     shared memory as the "col" B operand (ldmatrix), a warp's S patch 16 x
-//     64;
-//   * online softmax in registers: log2(e) folded into the scale, exp2f,
-//     the row max over a quad with two shuffles; masks only on tiles that
-//     cross the diagonal or T_k;
-//   * P V without a shared-memory round trip: the C fragments of two
-//     adjacent 8-column n-tiles of S are the A fragment of one k-step, so P
-//     is rounded to the 16-bit type in registers; V is the B operand through
-//     ldmatrix.trans.
-// Each of the ceil(d / 128) column chunks computes S again, and the copies
-// of a K/V tile do not overlap its compute: this path is right for any d,
-// not tuned. Shared memory: Q, K and V chunks, 51 KB.
-constexpr int DC = 128;   // d-chunk width
-
-constexpr size_t split_smem_bytes() {
-  return sizeof(uint16_t) * (size_t)(BQ + 2 * BK) * (DC + PAD);
-}
-
-template <typename T, int VEC>
-__global__ void __launch_bounds__(THREADS)
-flash_fwd_tc_split(const uint16_t* __restrict__ q,
-                   const uint16_t* __restrict__ k,
-                   const uint16_t* __restrict__ v, uint16_t* __restrict__ o,
-                   int t_q, int t_k, int heads, int d, float scale_log2,
-                   int causal, int q_offset) {
-  constexpr int DS = DC + PAD;   // shared row stride, elements
-  constexpr int KS = DC / 16;    // k-steps of Q K^T per d-chunk
-  constexpr int NS = BK / 8;     // 8-column n-tiles of S
-  constexpr int NO = DC / 8;     // 8-column n-tiles of this block's O
-  extern __shared__ uint4 smem16[];
-  uint16_t* q_s = reinterpret_cast<uint16_t*>(smem16);  // BQ x DS, a chunk
-  uint16_t* k_s = q_s + BQ * DS;   // BK x DS, a chunk
-  uint16_t* v_s = k_s + BK * DS;   // BK x DS, this block's columns
-
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int g = lane >> 2;
-  const int tq = lane & 3;
-  const int bh = blockIdx.x;
-  const int q_tile = gridDim.y - 1 - blockIdx.y;   // heaviest causal first
-  const int c_out = blockIdx.z * DC;   // first output column of the block
-  const int b = bh / heads;
-  const int h = bh % heads;
-  const int q0 = q_tile * BQ;
-  const int rs = heads * d;
-  const int n_dc = (d + DC - 1) / DC;
-
-  const uint16_t* q_bh = q + ((int64_t)b * t_q * heads + h) * d;
-  const uint16_t* k_bh = k + ((int64_t)b * t_k * heads + h) * d;
-  const uint16_t* v_bh = v + ((int64_t)b * t_k * heads + h) * d;
-  uint16_t* o_bh = o + ((int64_t)b * t_q * heads + h) * d;
-
-  int n_tiles = (t_k + BK - 1) / BK;
-  if (causal) {
-    const int last = q_offset + min(q0 + BQ, t_q) - 1;
-    n_tiles = min(n_tiles, last / BK + 1);
-  }
-
-  const int lr = lane & 7;
-  const int l8 = (lane >> 3) & 1;
-  const int l16 = lane >> 4;
-
-  float acc[NO][4];
-#pragma unroll
-  for (int n = 0; n < NO; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-  float m[2] = {MASKED, MASKED};
-  float l[2] = {0.f, 0.f};
-  const int row_g = q_offset + q0 + warp * 16 + g;
-
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * BK;
-    float s[NS][4];
-#pragma unroll
-    for (int n = 0; n < NS; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
-    for (int dc = 0; dc < n_dc; ++dc) {
-      const int c0 = dc * DC;
-      // every thread is done with the last chunk, and with the last
-      // tile's V
-      __syncthreads();
-      stage_tile<BQ, DC, VEC>(q_s, q_bh + c0, q0, t_q, rs, d - c0);
-      stage_tile<BK, DC, VEC>(k_s, k_bh + c0, k0, t_k, rs, d - c0);
-      if (dc == 0)
-        stage_tile<BK, DC, VEC>(v_s, v_bh + c_out, k0, t_k, rs, d - c_out);
-      cp_async_commit();
-      cp_async_wait_all();
-      __syncthreads();
-#pragma unroll
-      for (int ks = 0; ks < KS; ++ks) {
-        uint32_t qf[4];
-        ldmatrix_x4(qf, smem_addr(q_s + (warp * 16 + lr + 8 * l8) * DS +
-                                  ks * 16 + 8 * l16));
-#pragma unroll
-        for (int n = 0; n < NS; n += 2) {
-          uint32_t kf[4];
-          ldmatrix_x4(kf, smem_addr(k_s + (n * 8 + lr + 8 * l16) * DS +
-                                    ks * 16 + 8 * l8));
-          mma16816<T>(s[n], qf, kf[0], kf[1]);
-          mma16816<T>(s[n + 1], qf, kf[2], kf[3]);
-        }
-      }
-    }
-
-    // online softmax in the log2 domain
-    const bool edge = k0 + BK > t_k || (causal && q_offset + q0 < k0 + BK - 1);
-    float mx[2] = {neg_inf(), neg_inf()};
-#pragma unroll
-    for (int n = 0; n < NS; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = s[n][e] * scale_log2;
-        if (edge) {
-          const int col = k0 + n * 8 + 2 * tq + (e & 1);
-          const int row = row_g + 8 * (e >> 1);
-          if (col >= t_k) {
-            x = neg_inf();
-          } else if (causal && row < col) {
-            x = MASKED;
-          }
-        }
-        s[n][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
-      }
-    }
-    float corr[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      const float m_new = fmaxf(m[i], mx[i]);
-      corr[i] = exp2f(m[i] - m_new);
-      m[i] = m_new;
-      l[i] *= corr[i];
-    }
-#pragma unroll
-    for (int n = 0; n < NO; ++n) {
-      acc[n][0] *= corr[0];
-      acc[n][1] *= corr[0];
-      acc[n][2] *= corr[1];
-      acc[n][3] *= corr[1];
-    }
-
-#pragma unroll
-    for (int j = 0; j < BK / 16; ++j) {
-      uint32_t pf[4];
-#pragma unroll
-      for (int t = 0; t < 2; ++t) {
-        const float p0 = exp2f(s[2 * j + t][0] - m[0]);
-        const float p1 = exp2f(s[2 * j + t][1] - m[0]);
-        const float p2 = exp2f(s[2 * j + t][2] - m[1]);
-        const float p3 = exp2f(s[2 * j + t][3] - m[1]);
-        l[0] += p0 + p1;
-        l[1] += p2 + p3;
-        pf[2 * t] = pack2<T>(p0, p1);
-        pf[2 * t + 1] = pack2<T>(p2, p3);
-      }
-#pragma unroll
-      for (int n = 0; n < NO; n += 2) {
-        uint32_t vf[4];
-        ldmatrix_x4_trans(vf, smem_addr(v_s + (j * 16 + lr + 8 * l8) * DS +
-                                        n * 8 + 8 * l16));
-        mma16816<T>(acc[n], pf, vf[0], vf[1]);
-        mma16816<T>(acc[n + 1], pf, vf[2], vf[3]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    float li = l[i];
-    li += __shfl_xor_sync(0xffffffffu, li, 1);
-    li += __shfl_xor_sync(0xffffffffu, li, 2);
-    const int r = q0 + warp * 16 + g + 8 * i;
-    if (r >= t_q) continue;
-    const float inv = 1.f / fmaxf(li, 1e-20f);
-    uint16_t* o_row = o_bh + (int64_t)r * rs;
-#pragma unroll
-    for (int n = 0; n < NO; ++n) {
-      const int col = c_out + n * 8 + 2 * tq;
-      const float x0 = acc[n][2 * i] * inv;
-      const float x1 = acc[n][2 * i + 1] * inv;
-      if constexpr (VEC == 16) {
-        if (col < d)
-          *reinterpret_cast<uint32_t*>(o_row + col) = pack2<T>(x0, x1);
-      } else {
-        if (col < d) o_row[col] = to_bits<T>(x0);
-        if (col + 1 < d) o_row[col + 1] = to_bits<T>(x1);
-      }
-    }
-  }
-}
-
 // ------------------------------ 16-byte rows, d <= 256: wgmma + TMA
 
 // flash_fwd_tc_wg: bf16/fp16 with d <= 256 and 16-byte rows (d % 8 == 0,
 // 16-byte aligned bases: what TMA needs), in widths 64, 128, 192 and 256.
 // It replaces the TPU kernel mxnet_tpu/ops/flash_attention.py:47
-// _fwd_kernel there and computes the same function as the split. Its
+// _fwd_kernel there and computes the function that kernel computes. Its
 // design puts the operations on Hopper's asynchronous units:
 //   * one block owns all of d: S = Q K^T is computed once per (Q tile, K
 //     tile), never per chunk of the output's columns;
@@ -437,9 +131,8 @@ flash_fwd_tc_split(const uint16_t* __restrict__ q,
 //   * S = Q K^T is wgmma m64n<BK>k16 with both operands in shared memory
 //     (K-major, 128-byte swizzle), fp32 accumulate: BK / 2 registers a
 //     thread;
-//   * the online softmax runs on the accumulator in registers as in
-//     the split (the wgmma accumulator is mma.sync's C layout, a warp to
-//     16 rows), and P, rounded to the 16-bit type, is the register A operand
+//   * the online softmax runs on the accumulator in registers (the wgmma
+//     accumulator is mma.sync's C layout, a warp to 16 rows), and P, rounded to the 16-bit type, is the register A operand
 //     of O += P V: wgmma m64n64k16 over each 64-wide chunk of O, V from
 //     shared memory as an MN-major B operand. O is DP / 2 fp32 registers a
 //     thread (128 at DP = 256);
@@ -601,14 +294,15 @@ struct Ldg : LdgTraits<DP, XP> {
 
 // XP: the cluster kernel's exchange pieces a K/V tile (0: no cluster),
 // each consumer's two buffers a piece of its partial S each (BK / 2 / XP
-// floats a thread), after the staging
-template <int DP, bool LDG = false, int XP = 0>
+// floats a thread), after the staging; QS: Q tiles a consumer holds (slot
+// s of consumer w at (QS w + s) Q_BYTES; two in a group of clusters)
+template <int DP, bool LDG = false, int XP = 0, int QS = 1>
 struct Layout {
   using C = Tiles<DP, XP>;
   static constexpr int DC = DP / BOX;                 // boxes a row
   static constexpr int Q_BYTES = WG_BQ * ROW * DC;    // a consumer's Q
   static constexpr int KV_BYTES = C::BK * ROW * DC;   // a K or V tile
-  static constexpr int K_OFF = C::CONSUMERS * Q_BYTES;
+  static constexpr int K_OFF = C::CONSUMERS * QS * Q_BYTES;
   static constexpr int V_OFF = K_OFF + C::STAGES * KV_BYTES;
   static constexpr int RAW = 2 * DP + 16;             // bytes a staged row
   static constexpr int STG_OFF = V_OFF + C::STAGES * KV_BYTES;
@@ -871,6 +565,32 @@ __device__ __forceinline__ int q_tile(int w, int nq) {
   }
 }
 
+// The consumers with a Q tile (the first nv of them: consumer 0 always has
+// one), each one's K/V tiles (0 without a Q tile) and the most of them
+template <int CONS, bool PAIRED, int BK>
+struct BlockTiles {
+  int tile[CONS], n_kv[CONS], nv = 0, n_max = 0;
+  __device__ __forceinline__ BlockTiles(int nq, int t_q, int t_k, int causal,
+                                        int q_offset) {
+#pragma unroll
+    for (int w = 0; w < CONS; ++w) {
+      tile[w] = q_tile<CONS, PAIRED>(w, nq);
+      n_kv[w] = tile[w] < 0 ? 0
+                : kv_tiles<BK>(tile[w] * WG_BQ, t_q, t_k, causal, q_offset);
+      n_max = max(n_max, n_kv[w]);
+      nv += tile[w] >= 0;
+    }
+  }
+  // tile[w] for a w known only at run time, by selects (an index into the
+  // array would put it in local memory)
+  __device__ __forceinline__ int tile_of(int w) const {
+    int t = tile[0];
+#pragma unroll
+    for (int c = 1; c < CONS; ++c) t = w == c ? tile[c] : t;
+    return t;
+  }
+};
+
 // O += P V for one K/V tile: k-step j reads rows 16j.. of the V tile (2048
 // bytes in); box c is O's columns 64c..64c+63. Both byte offsets are 1024
 // (the 8-row groups of a box are contiguous), so the descriptor does not
@@ -997,18 +717,20 @@ __device__ __forceinline__ void rescale_and_pack(
 }
 
 // S = Q K^T over all of d into sc (overwritten: the first k-step's scale-d
-// is 0): k-step kk reads 16 columns of box kk / 4, 32 bytes into its
-// 128-byte rows (the swizzle is applied to the address, so a step inside a
-// 1024-byte atom moves the start). Issued and committed, not waited for
+// is 0, unless `accumulate`, which adds this chunk's product to sc): k-step
+// kk reads 16 columns of box kk / 4, 32 bytes into its 128-byte rows (the
+// swizzle is applied to the address, so a step inside a 1024-byte atom
+// moves the start). Issued and committed, not waited for
 template <typename T, int DP, int BK>
 __device__ __forceinline__ void issue_qk(float (&sc)[BK / 2], uint32_t q_s,
-                                         uint32_t k_tile) {
+                                         uint32_t k_tile,
+                                         int accumulate = 0) {
 #pragma unroll
   for (int kk = 0; kk < DP / 16; ++kk) {
     const uint32_t off = (kk % 4) * 32;
     wgmma_ss<T, BK>(sc, desc128(q_s + (kk / 4) * WG_BQ * ROW + off, 16, 1024),
                     desc128(k_tile + (kk / 4) * BK * ROW + off, 16, 1024),
-                    kk > 0);
+                    kk > 0 || accumulate);
   }
   wgmma_commit();
 }
@@ -1278,28 +1000,18 @@ __device__ __forceinline__ void produce_tma(
   constexpr int WG_CONSUMERS = C::CONSUMERS;
   constexpr int WG_STAGES = C::STAGES;
   if (threadIdx.x % 128 != 0) return;
-  int tile[WG_CONSUMERS];
-  int n_kv[WG_CONSUMERS];
-  int n_max = 0;
-  uint32_t q_bytes = 0;
+  const BlockTiles<WG_CONSUMERS, C::PAIRED, BK> bt(nq, t_q, t_k, causal,
+                                                   q_offset);
+  mbar_expect_tx(q_full, bt.nv * L::Q_BYTES);
 #pragma unroll
   for (int w = 0; w < WG_CONSUMERS; ++w) {
-    tile[w] = q_tile<WG_CONSUMERS, C::PAIRED>(w, nq);
-    n_kv[w] = tile[w] < 0 ? 0
-              : kv_tiles<BK>(tile[w] * WG_BQ, t_q, t_k, causal, q_offset);
-    n_max = max(n_max, n_kv[w]);
-    if (tile[w] >= 0) q_bytes += L::Q_BYTES;
-  }
-  mbar_expect_tx(q_full, q_bytes);
-#pragma unroll
-  for (int w = 0; w < WG_CONSUMERS; ++w) {
-    if (tile[w] < 0) continue;
+    if (bt.tile[w] < 0) continue;
 #pragma unroll
     for (int c = 0; c < DC; ++c)
       tma_load(smem + w * L::Q_BYTES + c * WG_BQ * ROW, q_map, q_full,
-               c0 + c * BOX, h, tile[w] * WG_BQ, b);
+               c0 + c * BOX, h, bt.tile[w] * WG_BQ, b);
   }
-  for (int kt = 0; kt < n_max; ++kt) {
+  for (int kt = 0; kt < bt.n_max; ++kt) {
     const int s = kt % WG_STAGES;
     const int use = kt / WG_STAGES;
     uint8_t* k_dst = smem + L::K_OFF + s * L::KV_BYTES;
@@ -1308,7 +1020,7 @@ __device__ __forceinline__ void produce_tma(
     // before is done with its K (V)
 #pragma unroll
     for (int w = 0; w < WG_CONSUMERS; ++w)
-      if (use > 0 && kt - WG_STAGES < n_kv[w])
+      if (use > 0 && kt - WG_STAGES < bt.n_kv[w])
         mbar_wait(k_empty + s * WG_CONSUMERS + w, (use - 1) & 1);
     mbar_expect_tx(k_full + s, L::KV_BYTES);
 #pragma unroll
@@ -1317,7 +1029,7 @@ __device__ __forceinline__ void produce_tma(
                kt * BK, b);
 #pragma unroll
     for (int w = 0; w < WG_CONSUMERS; ++w)
-      if (use > 0 && kt - WG_STAGES < n_kv[w])
+      if (use > 0 && kt - WG_STAGES < bt.n_kv[w])
         mbar_wait(v_empty + s * WG_CONSUMERS + w, (use - 1) & 1);
     mbar_expect_tx(v_full + s, L::KV_BYTES);
 #pragma unroll
@@ -1411,7 +1123,7 @@ flash_fwd_tc_wg(const __grid_constant__ CUtensorMap q_map,
 // flash_tile_sweep.py --kernel wg_ldg, PERF.md), bf16 causal at an offset
 // of one element: (2, 2048, 16, 64) 0.106 (library 0.059; the element-wise
 // mma.sync kernel before it 0.279), (2, 2048, 4, 256) 0.167 (0.052; the
-// split 1.031); (2, 1500, 16, 50) 0.071 (0.119; 0.148).
+// split over d before it 1.031); (2, 1500, 16, 50) 0.071 (0.119; 0.148).
 
 // 16 bytes of shared memory at a 16-byte aligned address
 __device__ __forceinline__ uint4 lds128(uint32_t addr) {
@@ -1513,23 +1225,26 @@ struct Pieces {
   static_assert(WG_BQ % SR == 0 && C::BK % SR == 0, "whole pieces a tile");
 };
 
-// Piece i's rows: the first (of the tensor's (b, h) rows), their tensor
-// and count, and where its tile lies (shared address) with its rows and
+// Piece i's rows: the first (of the tensor's (b, h) rows, from the piece's
+// first column of d), their tensor and count, the row's elements the tile
+// holds (dv), and where its tile lies (shared address) with its rows and
 // the piece's first row in it
 struct PieceAt {
   const uint16_t* src;
-  int t_len, row0, rows, r0;
+  int t_len, row0, rows, r0, dv;
   uint32_t tile;
 };
 
 template <int DP, int XP>
 __device__ __forceinline__ PieceAt piece_at(
     int i, int q_pieces, uint32_t base, const uint16_t* q_bh,
-    const uint16_t* k_bh, const uint16_t* v_bh, int nq, int t_q, int t_k) {
+    const uint16_t* k_bh, const uint16_t* v_bh, int nq, int t_q, int t_k,
+    int dv) {
   using L = Layout<DP, true, XP>;
   using C = Tiles<DP, XP>;
   using P = Pieces<DP, XP>;
   PieceAt x;
+  x.dv = dv;
   if (i < q_pieces) {
     const int w = i / P::QP;
     x.r0 = (i % P::QP) * P::SR;
@@ -1561,8 +1276,124 @@ __device__ __forceinline__ void cp_async16_to(uint32_t dst, uint64_t src) {
                : "memory");
 }
 
+// The loop of produce_ldg_steps over a block's `total` pieces (produce_ldg
+// has it written out): piece i is at(i) (a PieceAt); wait_free(i) waits,
+// before its stores, until its stage is free; full(i), after them, is the
+// barrier its tile completes (nullptr: none yet). rs: the tensors' row
+// stride, elements
+template <int DP, int XP, int QS, class At, class Free, class Full>
+__device__ __forceinline__ void ldg_pieces(uint8_t* smem, int rs, int total,
+                                           At at, Free wait_free,
+                                           Full full) {
+  using L = Layout<DP, true, XP, QS>;
+  using G = Ldg<DP, XP>;
+  constexpr int SR = Pieces<DP, XP>::SR;
+  constexpr int DC = L::DC;
+  constexpr int RG = LDG_THREADS / 8;   // rows a pass of them takes
+  constexpr int PIECE = SR * L::RAW;    // staged bytes a piece
+  static_assert(SR % RG == 0, "whole rows a loading thread");
+  const int t = threadIdx.x % 128;
+  // a loading thread takes 16-byte column jc of every 8 (chunk jc of each
+  // 64-wide box, staged word jc of each 8) of rows rq, rq + RG, ... of a
+  // piece, in its copies and in its shifts
+  const int jc = t % 8;
+  const int rq = t / 8;
+  const uint32_t stg = smem_addr(smem) + L::STG_OFF;
+  // the copies of piece i into its staging buffer (row r's words at r *
+  // RAW): of each of its rows, the aligned 16-byte words that hold the
+  // row's dv elements, which are the words below sh + 2 dv (sh: the row's
+  // address mod 16); then an arrival once they are in
+  auto issue = [&](int i) {
+    const PieceAt x = at(i);
+    const uint32_t dst = stg + (i % G::NB) * PIECE + jc * 16;
+#pragma unroll(DC > 2 ? 1 : SR / RG)
+    for (int u = 0; u < SR / RG; ++u) {
+      const int r = rq + u * RG;
+      const int row = x.row0 + r;
+      if (row < x.t_len) {
+        const uint64_t a =
+            reinterpret_cast<uint64_t>(x.src + (int64_t)row * rs);
+        const uint64_t from = (a & ~uint64_t{15}) + jc * 16;
+        const int end = (int)(a & 15) + 2 * x.dv;   // bytes from word 0
+#pragma unroll
+        for (int m = 0; m <= DC; ++m)
+          if (jc * 16 + m * 128 < end)
+            cp_async16_to(dst + r * L::RAW + m * 128, from + m * 128);
+      }
+    }
+  };
+  // one cp.async group a piece (an empty one past the last), so that piece
+  // i's group is complete once at most NB - 1 groups are pending
+  for (int i = 0; i < G::NB; ++i) {
+    if (i < total) issue(i);
+    cp_async_commit();
+  }
+  for (int i = 0; i < total; ++i) {
+    const int buf = i % G::NB;
+    const PieceAt x = at(i);
+    wait_free(i);
+    // this thread's copies of piece i are in, then its warp's: a warp
+    // copies the rows it shifts, so its staged rows are its own
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(G::NB - 1) : "memory");
+    __syncwarp();
+    // each of the thread's rows of the piece: its address mod 16 (the low
+    // bits of its 64-bit address), then its chunks at that shift, SH at
+    // compile time or -1
+    const uint32_t lo = (uint32_t)reinterpret_cast<uint64_t>(x.src);
+    auto rows = [&](auto shift) {
+      constexpr int SH = decltype(shift)::value;
+      // one row at a time at widths 192 and 256, where more fill the
+      // producer's registers
+#pragma unroll(DC > 2 ? 1 : SR / RG)
+      for (int u = 0; u < SR / RG; ++u) {
+        const int r = rq + u * RG;
+        const int rt = x.r0 + r;   // row of the tile
+        const int row = x.row0 + r;
+        const uint32_t sh = (lo + 2u * (uint32_t)row * (uint32_t)rs) & 15u;
+        const uint32_t dst = x.tile + rt * ROW + ((jc ^ (rt & 7)) << 4);
+        shift_row<SH, DC>(stg + buf * PIECE + r * L::RAW + jc * 16, sh, dst,
+                          x.rows * ROW, x.dv - jc * 8, row < x.t_len);
+      }
+    };
+    // where 2 heads d is a multiple of 16 every row of the tensor lies at
+    // its base's address mod 16: one branch a piece to straight-line code
+    // for that shift; else each row's own, at run time
+    if (rs % 8 == 0) {
+      switch (lo & 15u) {
+        case 0: rows(Int<0>{}); break;
+        case 2: rows(Int<2>{}); break;
+        case 4: rows(Int<4>{}); break;
+        case 6: rows(Int<6>{}); break;
+        case 8: rows(Int<8>{}); break;
+        case 10: rows(Int<10>{}); break;
+        case 12: rows(Int<12>{}); break;
+        default: rows(Int<14>{}); break;
+      }
+    } else {
+      rows(Int<-1>{});
+    }
+    __syncwarp();   // the warp is done with buf
+    // a tile's last piece: its stores made visible to wgmma, then the
+    // tile's full barrier
+    uint64_t* bar = full(i);
+    if (bar) {
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      mbar_arrive(bar);
+    }
+    // then refill the buffer piece i left: NB - 1 pieces in flight while
+    // one is shifted, none issued ahead of a fence
+    if (i + G::NB < total) issue(i + G::NB);
+    cp_async_commit();
+  }
+}
+
 // The LDG route's producer over a row's DP elements from column c0 (the
-// block's chunk of d in a cluster, else 0); XP as in Layout
+// block's chunk of d in a cluster, else 0); XP as in Layout. Its loop is
+// ldg_pieces's written out, and it counts its consumers' tiles as it goes
+// (not in a BlockTiles): run through both, ptxas spilled
+// flash_fwd_tc_wg_ldg at width 192 and the kernel read 5.7 % slower (bf16
+// (2, 2048, 4, 192) causal at an offset of one element, 0.1249 against
+// 0.1181 device ms, NVIDIA H100 80GB HBM3, 700.00 W)
 template <typename T, int DP, int XP = 0>
 __device__ __forceinline__ void produce_ldg(
     uint8_t* smem, const uint16_t* __restrict__ q,
@@ -1613,7 +1444,8 @@ __device__ __forceinline__ void produce_ldg(
   // address mod 16); then an arrival once they are in
   auto issue = [&](int i) {
     const PieceAt x =
-        piece_at<DP, XP>(i, q_pieces, base, q_bh, k_bh, v_bh, nq, t_q, t_k);
+        piece_at<DP, XP>(i, q_pieces, base, q_bh, k_bh, v_bh, nq, t_q, t_k,
+                         dv);
     const uint32_t dst = stg + (i % G::NB) * PIECE + jc * 16;
 #pragma unroll(DC > 2 ? 1 : SR / RG)
     for (int u = 0; u < SR / RG; ++u) {
@@ -1640,7 +1472,8 @@ __device__ __forceinline__ void produce_ldg(
   for (int i = 0; i < total; ++i) {
     const int buf = i % G::NB;
     const PieceAt x =
-        piece_at<DP, XP>(i, q_pieces, base, q_bh, k_bh, v_bh, nq, t_q, t_k);
+        piece_at<DP, XP>(i, q_pieces, base, q_bh, k_bh, v_bh, nq, t_q, t_k,
+                         dv);
     // a K (V) tile's first piece: its stage is free once every consumer
     // that read the tile before is done with its K (V)
     const int j = i - q_pieces;
@@ -1751,43 +1584,66 @@ flash_fwd_tc_wg_ldg(const uint16_t* __restrict__ q,
   }
 }
 
-// --------------------- d 257-1536: a thread-block cluster that splits d
+// ------------------------ d > 256: thread-block clusters that split d
 
-// flash_fwd_tc_cluster: bf16/fp16 with 16-byte rows at d 257 to 1536,
+// flash_fwd_tc_cluster: bf16/fp16 with 16-byte rows at every d above 256,
 // where a consumer's O at all of d does not fit its registers and Q with two
 // K/V stages does not fit an SM's shared memory (at d 512 Q alone is 64 KB
 // a consumer). It replaces the TPU kernel
 // mxnet_tpu/ops/flash_attention.py:47 _fwd_kernel there and computes what
-// flash_fwd_tc_wg computes; flash_fwd_tc_split took these head dims
-// before, recomputing S for each 128-wide chunk of the output. Design:
-//   * one thread-block cluster of CL = ceil(d / CW) blocks along the grid's
-//     z a pair of 64-row Q tiles (two consumers on a head's tiles i and n -
-//     1 - i, flash_fwd_tc_wg's grid at widths 192 and 256); block r (its
-//     rank) owns columns [r CW, (r + 1) CW) of d. Each block runs
-//     flash_fwd_tc_wg's producer and consumers at width CW over its own
-//     chunk (ClusterTiles: 32-row K/V tiles, two stages): the tensor maps'
-//     boxes start at column r CW, and TMA fills the columns past d with
-//     zeros, so the last chunk's padding adds exact zeros;
-//   * per K tile each consumer computes only its chunk's partial S_r = Q_r
-//     K_r^T on wgmma. The partials meet through distributed shared memory
+// flash_fwd_tc_wg computes; a split over d took these head dims before,
+// recomputing S for each 128-wide chunk of the output. Design:
+//   * d splits into n = ceil(d / CW) chunks of 192 columns. Up to CL_MOST
+//     = 8 chunks (d 1536; 8 blocks, the portable limit) one thread-block
+//     cluster of CL = n blocks along the grid's z for each pair of 64-row
+//     Q tiles (two consumers on a head's tiles i and n - 1 - i,
+//     flash_fwd_tc_wg's grid at widths 192 and 256): block r (its rank)
+//     owns columns [r CW, (r + 1) CW) of d. Above, G = ceil(n / 8) groups
+//     of CL = ceil(n / G) blocks, G CL blocks on z, the cluster dimension
+//     (1, 1, CL) (cluster_shape, the twin of flash_attention_fwd.cu's):
+//     block z, rank r = z % CL of group z / CL, reduces chunks r, r + CL,
+//     r + 2 CL, ... below n (kb of them) and writes output chunk z, none
+//     where z >= n. Every group covers all of d, so S is computed once a
+//     group (d 1600: two groups of 5, each block reducing 2 chunks but the
+//     last; 3072: two of 8; 3300: three of 6, 3 chunks a block);
+//   * each block runs flash_fwd_tc_wg's producer and consumers at width CW
+//     (ClusterTiles: 32-row K/V tiles, two stages). The tensor maps' boxes
+//     start at the chunk's column, and TMA fills the columns past d with
+//     zeros, so the last chunk's padding adds exact zeros; a chunk that
+//     starts past d is not a block's;
+//   * per K tile each consumer computes only its chunks' partial S_r =
+//     sum_u Q_u K_u^T on wgmma, the chunks added in order into the same
+//     accumulator. The partials meet through distributed shared memory
 //     (ClusterExchange): each consumer stores its accumulator thread-major
 //     in one of its two buffers, arrives on the same consumer's x_full in
-//     every rank (one elected lane a warp, a cluster-scope fence after the
-//     warp's stores), waits for its own, and reads each rank's buffer at its
-//     thread's offsets (mapa, ld.shared::cluster; up to X_LOADS in
-//     flight), summing in rank order,
-//     so that S, the row max m, the sum l and P are bit-identical in every
-//     block and every chunk of O is normalised by the same l. x_empty
-//     keeps each phase of x_full to its round (ClusterExchange). All of it
-//     runs while the tile before's P V holds the tensor cores;
-//   * each block then runs P V over its own chunk of V and writes its own
+//     every rank of its cluster (one elected lane a warp, a cluster-scope
+//     fence after the warp's stores), waits for its own, and reads each
+//     rank's buffer at its thread's offsets (mapa, ld.shared::cluster; up
+//     to X_LOADS in flight), summing in rank order, so that S, the row max
+//     m, the sum l and P are bit-identical in every block of every group
+//     (each group's rank r reduces the same chunks in the same order) and
+//     every chunk of O is normalised by the same l. x_empty keeps each
+//     phase of x_full to its round (ClusterExchange). Groups never
+//     exchange. All of it runs while the tile before's P V holds the
+//     tensor cores;
+//   * each block then runs P V over its output chunk of V and writes those
 //     columns of O as o / max(l, 1e-20);
+//   * one cluster (form 0): the Q tile of a consumer once, K and V through
+//     rings of two tiles; 128 KB of shared memory at CW 192 (Q 2 x 24 KB,
+//     K and V 2 stages x 2 x 12 KB, the partials 2 x 2 x 8 KB). Groups
+//     (form 1, consume_steps): two Q slots a consumer; K goes through a
+//     ring of two (K tile, chunk) steps, a step's K stage released once its
+//     product is done, V through a ring of two tiles. Where a group's
+//     blocks reduce at most Q_KEEP = 2 chunks (d <= 3072) a block keeps
+//     its chunks' Q for the Q tile (slot u); above, each step's Q chunk
+//     rides beside its K in slot step % 2 (streamed). 176 KB on the TMA
+//     route, 202 KB on the LDG one (its staging), one block an SM;
 //   * the launch (cudaLaunchKernelEx, cluster dimension (1, 1, CL) at run
-//     time; CL a template argument, 2-8, so that the exchange is
-//     straight-line code; 8 blocks, the portable limit, reach CLUSTER_D =
-//     1536) first asks cudaOccupancyMaxActiveClusters, once per device and
-//     CL, whether such a cluster can be placed, and returns an error if
-//     not. The blocks sync the cluster once after their barriers are
+//     time; CL and the form template arguments, so that the exchange is
+//     straight-line code: CL 2-8 in form 0, 5-8 in form 1) first asks
+//     cudaOccupancyMaxActiveClusters, once per device, CL and form,
+//     whether such a cluster can be placed, and returns an error if not.
+//     The blocks sync the cluster once after their barriers are
 //     initialised; a consumer leaves only once every rank has read its last
 //     partial, and no peer arrives on its barriers after that.
 // What it costs and why these tiles (tools/flash_tile_sweep.py --kernel
@@ -1800,23 +1656,43 @@ flash_fwd_tc_wg_ldg(const uint16_t* __restrict__ q,
 // chunks ptxas spills 600 bytes and serializes every wgmma, at 192 with
 // 64-row K/V tiles still serializes them; at 192 with 32-row K/V tiles (S
 // m64n32: 24 registers fewer for S and P) it serializes none and spills
-// at most 88 bytes (clusters of 3 or more). 192 also pads d 320 to 384,
-// not 512. Shared memory at CW 192: Q 2 x 24 KB, K and V 2 stages x 2 x
-// 12 KB, the partials 2 x 2 x 8 KB: 128 KB, one block an SM (the
-// registers).
+// at most 56 bytes (clusters of 3 or more). 192 also pads d 320 to 384,
+// not 512. Groups of at most 8 blocks rather than one non-portable
+// cluster of 9-16: each block reads CL - 1 peers' partials a tile, so
+// two groups of 5 read 4 peers where one cluster of 9 would read 8.
 // Bound at (2, 2048, 2, 512) causal: 17.2 GFLOP at 989 TFLOP/s, 0.0174 ms
 // against 8.4 MB x 4 at 3.35 TB/s: operations.
+// Measured on "NVIDIA H100 80GB HBM3, 700.00 W" (flash_tile_sweep.py
+// --kernel tccluster, device ms, medians of 3 rounds in turns; PERF.md),
+// bf16 causal, the library's scaled_dot_product_attention in parentheses:
+// (2, 2048, 1, 1600), two groups of 5, 0.605 (0.580; the split over d it
+// replaced 1.594); (2, 2048, 1, 2048), two of 6, 0.889 (0.756); (1, 2048,
+// 1, 3300), three of 6 on the LDG route, Q streamed, 4.465 (1.426). One
+// non-portable cluster of 9 at d 1600 read 1.221, and streaming Q at 2
+// chunks a block 0.673. In a group a step's product is waited for before
+// the next step is issued: with one in flight across the step loop's back
+// edge ptxas serializes every wgmma of the kernel (C7515). Left on the
+// table: the streamed form on the LDG route, where each step copies and
+// shifts both consumers' Q chunks (3.1x the library at d 3300); the
+// exchange's rounds, as in one cluster; the steps' products in series.
+// Why two forms: the groups' kernels run the one-cluster shapes as one
+// group (the sweep's form1) with the same bits, at 0.95-1.02x form 0 on
+// the TMA route (d 512 causal 0.212 against 0.219, not causal 0.314
+// against 0.331, d 320 0.195 against 0.192, d 1000 0.425 against 0.419,
+// d 1400 0.763 against 0.778) but 1.69x on the LDG route (d 320 at an
+// offset of one element, 0.384 against 0.227), so form 0 keeps d <= 1536.
 //
 // flash_fwd_tc_cluster_ldg: the rows TMA refuses (d not a multiple of 8, a
-// view at a 2-byte offset) at the same head dims: the same cluster and
-// consumers, each block's producer flash_fwd_tc_wg_ldg's over its own
-// chunk (its staging 25 KB more).
+// view at a 2-byte offset) at the same head dims: the same clusters, groups
+// and consumers, each block's producer flash_fwd_tc_wg_ldg's over its
+// chunks (its staging 25 KB more).
 // tools/flash_tile_sweep.py --kernel tccluster times these choices against
 // alternatives it patches into a copy of this source (PERF.md).
-constexpr int CW = 192;              // d-chunk width: a block's columns
-constexpr int CLUSTER_D = 1536;      // the widest head the cluster takes
-constexpr int CL_MIN = 256 / CW + 1;                    // blocks a cluster
-constexpr int CL_MAX = (CLUSTER_D + CW - 1) / CW;       // (d 257-1536)
+constexpr int CW = 192;        // d-chunk width: a block's columns
+constexpr int CL_MOST = 8;     // blocks a cluster at most
+constexpr int CL_MIN = 256 / CW + 1;     // one cluster: CL_MIN..CL_MOST
+constexpr int GL_MIN = CL_MOST / 2 + 1;  // groups: GL_MIN..CL_MOST blocks
+constexpr int Q_KEEP = 2;      // Q chunks a grouped block keeps at most
 constexpr int XP_TMA = 1;    // exchange pieces a K tile on the TMA route
 constexpr int XP_LDG = 1;    // and on the LDG route
 constexpr int X_LOADS = 8;   // loads from the cluster in flight a thread
@@ -1986,14 +1862,377 @@ struct ClusterExchange {
   }
 };
 
-template <typename T, int CL>
+// A block's part in a group of clusters of CL blocks (form 1): its rank,
+// its chunks of d rank + u CL below n (kb of them), whether the group's
+// blocks keep their chunks' Q (each reduces at most Q_KEEP), and its
+// output chunk, blockIdx.z (none at or past n)
+template <int CL>
+struct GroupPart {
+  int rank, kb, c_out;
+  bool kept, out;
+  __device__ __forceinline__ explicit GroupPart(int d) {
+    const int n = (d + CW - 1) / CW;
+    rank = (int)blockIdx.z % CL;
+    kb = (n - rank + CL - 1) / CL;
+    kept = (n + CL - 1) / CL <= Q_KEEP;
+    c_out = (int)blockIdx.z * CW;
+    out = (int)blockIdx.z < n;
+  }
+  // the first column of d of the block's chunk u
+  __device__ __forceinline__ int col(int u) const {
+    return (rank + u * CL) * CW;
+  }
+};
+
+// consume's epilogue for consume_steps (consume keeps its own copy inline:
+// the same code through this function moved ptxas's register allocation
+// and cost the one-cluster kernels 2-3 % at d 512 and 1000, PERF.md): rows
+// r0 (this thread's first: the warp's row g) and r0 + 8 of O / max(l,
+// 1e-20), l summed over the quad, at columns 64c + 8n + 2tq + {0, 1} of
+// o_bh below dv, stored as 4-byte pairs: d % 8 == 0 on the TMA route, so
+// col < dv implies col + 1 < dv. ANY_D (the LDG route): pairs where d is
+// even and o 4-byte aligned (o is a fresh tensor in the wrapper; a chunk's
+// first column is even), else 2 bytes an element
+template <typename T, int DC, bool ANY_D>
+__device__ __forceinline__ void store_o(const float (&acc)[DC][32],
+                                        const float (&l)[2], const void* o,
+                                        uint16_t* o_bh, int r0, int t_q,
+                                        int rs, int d, int dv, int tq) {
+  const bool pairs =
+      !ANY_D || ((d | (int)(reinterpret_cast<uintptr_t>(o) >> 1)) & 1) == 0;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float li = l[i];
+    li += __shfl_xor_sync(0xffffffffu, li, 1);
+    li += __shfl_xor_sync(0xffffffffu, li, 2);
+    const int r = r0 + 8 * i;
+    if (r >= t_q) continue;
+    const float inv = 1.f / fmaxf(li, 1e-20f);
+    uint16_t* o_row = o_bh + (int64_t)r * rs;
+#pragma unroll
+    for (int c = 0; c < DC; ++c)
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const int col = c * BOX + n * 8 + 2 * tq;
+        const float x0 = acc[c][4 * n + 2 * i] * inv;
+        const float x1 = acc[c][4 * n + 2 * i + 1] * inv;
+        if (pairs) {
+          if (col < dv)
+            *reinterpret_cast<uint32_t*>(o_row + col) = pack2<T>(x0, x1);
+        } else {
+          if (col < dv) o_row[col] = to_bits<T>(x0);
+          if (col + 1 < dv) o_row[col + 1] = to_bits<T>(x1);
+        }
+      }
+  }
+}
+
+// The consumer warpgroup wg of a block in a group of clusters: consume's
+// tiles and exchange, but S sums the block's kb chunks, a step (K tile,
+// chunk) at a time through the K ring: chunk u's Q lies in slot u (kept) or
+// in slot step % 2 beside its K (streamed). A step's K stage is released
+// once its product is done: step u - 2's before step u waits for its K (at
+// most one product in flight), the tile's last two after its products.
+// Without an output chunk the block takes part in the exchange only: no V,
+// no P V, no O
+template <typename T, bool ANY_D, int REGS, int CL, class X>
+__device__ __forceinline__ void consume_steps(
+    uint8_t* smem, const Bars<CW, X::XP>& bar, int wg,
+    uint16_t* __restrict__ o, int b, int h, int nq, int t_q, int t_k,
+    int heads, int d, float scale_log2, int causal, int q_offset,
+    const GroupPart<CL>& part, X xchg) {
+  using L = Layout<CW, false, X::XP, 2>;
+  using C = Tiles<CW, X::XP>;
+  constexpr int DC = L::DC;
+  constexpr int BK = C::BK;
+  constexpr int CONS = C::CONSUMERS;
+  static_assert(C::STAGES == 2 && !C::PINGPONG, "rings of two, no turns");
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(REGS)
+               : "memory");
+  const int my_tile = q_tile<CONS, C::PAIRED>(wg, nq);
+  if (my_tile < 0) return;
+  const int t = threadIdx.x % 128;
+  const int warp = t >> 5;
+  const int lane = t & 31;
+  const int g = lane >> 2;
+  const int tq = lane & 3;
+  const int q0 = my_tile * WG_BQ;
+  const int n_tiles = kv_tiles<BK>(q0, t_q, t_k, causal, q_offset);
+  const int kb = part.kb;
+  const uint32_t q_s = smem_addr(smem + 2 * wg * L::Q_BYTES);   // slot 0
+  const uint32_t k_s = smem_addr(smem + L::K_OFF);
+  const uint32_t v_s = smem_addr(smem + L::V_OFF);
+
+  float acc[DC][32];
+#pragma unroll
+  for (int c = 0; c < DC; ++c)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) acc[c][e] = 0.f;
+  float m[2] = {MASKED, MASKED};
+  float l[2] = {0.f, 0.f};
+  const int row_g = q_offset + q0 + warp * 16 + g;   // key coordinates
+  uint32_t pa[BK / 16][4];   // P, the A operand of P V
+
+  mbar_wait(bar.q_full, 0);
+  auto edge = [&](int k0) {
+    return k0 + BK > t_k || (causal && q_offset + q0 < k0 + BK - 1);
+  };
+  float sc[BK / 2], corr[2];
+  // tile kt's products into sc, a step at a time: each step's Q K^T
+  // committed and waited for, so that no product is in flight across the
+  // loop's back edge, then its K stage released
+  auto products = [&](int kt) {
+    for (int u = 0; u < kb; ++u) {
+      const int step = kt * kb + u;
+      const int s = step & 1;
+      mbar_wait(bar.k_full + s, (step >> 1) & 1);
+      fence_regs(sc);
+      wgmma_fence();
+      issue_qk<T, CW, BK>(sc, q_s + (part.kept ? u : s) * L::Q_BYTES,
+                          k_s + s * L::KV_BYTES, u);
+      wgmma_wait_all();
+      fence_regs(sc);
+      mbar_arrive(bar.k_empty + s * CONS + wg);
+    }
+  };
+  // tile 0: its products and softmax alone
+  products(0);
+  xchg(sc, 0);
+  softmax_tile<BK, C::EX2>(sc, m, l, corr, edge(0), 0, t_k, causal, row_g,
+                           tq, scale_log2);
+  rescale_and_pack<T, DC, BK>(acc, pa, sc, corr);
+  // tile kt's products, then tile kt - 1's P V (none without an output
+  // chunk), which runs under tile kt's exchange and softmax
+  for (int kt = 1; kt < n_tiles; ++kt) {
+    const int sp = (kt - 1) & 1;
+    products(kt);
+    if (part.out) {
+      mbar_wait(bar.v_full + sp, ((kt - 1) >> 1) & 1);
+#pragma unroll
+      for (int c = 0; c < DC; ++c) fence_regs(acc[c]);
+#pragma unroll
+      for (int j = 0; j < BK / 16; ++j) fence_regs(pa[j]);
+      wgmma_fence();
+      issue_pv<T, DC, BK>(acc, pa, v_s + sp * L::KV_BYTES);
+      wgmma_commit();
+    }
+    xchg(sc, kt);
+    softmax_tile<BK, C::EX2>(sc, m, l, corr, edge(kt * BK), kt * BK, t_k,
+                             causal, row_g, tq, scale_log2);
+    wgmma_wait_all();
+#pragma unroll
+    for (int c = 0; c < DC; ++c) fence_regs(acc[c]);
+#pragma unroll
+    for (int j = 0; j < BK / 16; ++j) fence_regs(pa[j]);
+    mbar_arrive_if(bar.v_empty + sp * CONS + wg, part.out);
+    rescale_and_pack<T, DC, BK>(acc, pa, sc, corr);
+  }
+  // the last tile's P V and the block's columns of O
+  if (part.out) {
+    const int sl = (n_tiles - 1) & 1;
+    mbar_wait(bar.v_full + sl, ((n_tiles - 1) >> 1) & 1);
+#pragma unroll
+    for (int c = 0; c < DC; ++c) fence_regs(acc[c]);
+#pragma unroll
+    for (int j = 0; j < BK / 16; ++j) fence_regs(pa[j]);
+    wgmma_fence();
+    issue_pv<T, DC, BK>(acc, pa, v_s + sl * L::KV_BYTES);
+    wgmma_commit();
+    wgmma_wait_all();
+#pragma unroll
+    for (int c = 0; c < DC; ++c) fence_regs(acc[c]);
+    mbar_arrive(bar.v_empty + sl * CONS + wg);
+    store_o<T, DC, ANY_D>(
+        acc, l, o, o + ((int64_t)b * t_q * heads + h) * d + part.c_out,
+        q0 + warp * 16 + g, t_q, heads * d, d, d - part.c_out, tq);
+  }
+  xchg.finish(n_tiles);
+}
+
+// The TMA producer of a block in a group of clusters (one thread): each
+// consumer's Q chunks once (kept) or each beside its step's K (streamed),
+// the K chunks a step at a time through the K ring, V of the output chunk a
+// tile at a time through the V ring (none without an output chunk)
+template <int CL, int XP>
+__device__ __forceinline__ void produce_tma_steps(
+    uint8_t* smem, const CUtensorMap* q_map, const CUtensorMap* k_map,
+    const CUtensorMap* v_map, const Bars<CW, XP>& bar, int b, int h, int nq,
+    int t_q, int t_k, int causal, int q_offset, const GroupPart<CL>& part) {
+  using L = Layout<CW, false, XP, 2>;
+  using C = Tiles<CW, XP>;
+  constexpr int DC = L::DC;
+  constexpr int BK = C::BK;
+  constexpr int CONS = C::CONSUMERS;
+  if (threadIdx.x % 128 != 0) return;
+  const BlockTiles<CONS, C::PAIRED, BK> bt(nq, t_q, t_k, causal, q_offset);
+  const int kb = part.kb;
+  // each consumer's Q chunk u into its slot, completing on `full`
+  auto load_q = [&](int u, int slot, uint64_t* full) {
+#pragma unroll
+    for (int w = 0; w < CONS; ++w)
+      if (w < bt.nv)
+#pragma unroll
+        for (int c = 0; c < DC; ++c)
+          tma_load(smem + (2 * w + slot) * L::Q_BYTES + c * WG_BQ * ROW,
+                   q_map, full, part.col(u) + c * BOX, h,
+                   bt.tile[w] * WG_BQ, b);
+  };
+  mbar_expect_tx(bar.q_full, part.kept ? bt.nv * kb * L::Q_BYTES : 0);
+  if (part.kept)
+    for (int u = 0; u < kb; ++u) load_q(u, u, bar.q_full);
+  for (int kt = 0; kt < bt.n_max; ++kt) {
+    for (int u = 0; u < kb; ++u) {
+      const int step = kt * kb + u;
+      const int s = step & 1;
+      const int use = step >> 1;
+      // the stage is free once every consumer that read step - 2 is done
+      // with it
+#pragma unroll
+      for (int w = 0; w < CONS; ++w)
+        if (use > 0 && (step - 2) / kb < bt.n_kv[w])
+          mbar_wait(bar.k_empty + s * CONS + w, (use - 1) & 1);
+      mbar_expect_tx(bar.k_full + s,
+                     L::KV_BYTES + (part.kept ? 0 : bt.nv * L::Q_BYTES));
+#pragma unroll
+      for (int c = 0; c < DC; ++c)
+        tma_load(smem + L::K_OFF + s * L::KV_BYTES + c * BK * ROW, k_map,
+                 bar.k_full + s, part.col(u) + c * BOX, h, kt * BK, b);
+      if (!part.kept) load_q(u, s, bar.k_full + s);
+    }
+    if (part.out) {
+      const int s = kt & 1;
+      const int use = kt >> 1;
+#pragma unroll
+      for (int w = 0; w < CONS; ++w)
+        if (use > 0 && kt - 2 < bt.n_kv[w])
+          mbar_wait(bar.v_empty + s * CONS + w, (use - 1) & 1);
+      mbar_expect_tx(bar.v_full + s, L::KV_BYTES);
+#pragma unroll
+      for (int c = 0; c < DC; ++c)
+        tma_load(smem + L::V_OFF + s * L::KV_BYTES + c * BK * ROW, v_map,
+                 bar.v_full + s, part.c_out + c * BOX, h, kt * BK, b);
+    }
+  }
+}
+
+// The LDG producer of a block in a group of clusters, in pieces: first
+// each consumer's kb Q chunks (kept; consumer w's chunk u in its slot u),
+// then for each K/V tile its kb steps, each the step's Q chunks (streamed,
+// into slot step % 2) and its K chunk, then the tile's V (with an output
+// chunk)
+template <typename T, int CL, int XP>
+__device__ __forceinline__ void produce_ldg_steps(
+    uint8_t* smem, const uint16_t* __restrict__ q,
+    const uint16_t* __restrict__ k, const uint16_t* __restrict__ v,
+    const Bars<CW, XP>& bar, int b, int h, int nq, int t_q, int t_k,
+    int heads, int d, int causal, int q_offset, const GroupPart<CL>& part) {
+  using L = Layout<CW, true, XP, 2>;
+  using C = Tiles<CW, XP>;
+  using P = Pieces<CW, XP>;
+  constexpr int CONS = C::CONSUMERS;
+  constexpr int BK = C::BK;
+  const int rs = heads * d;
+  const uint16_t* q_bh = q + ((int64_t)b * t_q * heads + h) * d;
+  const uint16_t* k_bh = k + ((int64_t)b * t_k * heads + h) * d;
+  const uint16_t* v_bh = v + ((int64_t)b * t_k * heads + h) * d;
+  const BlockTiles<CONS, C::PAIRED, BK> bt(nq, t_q, t_k, causal, q_offset);
+  const int kb = part.kb;
+  const int q_pieces = part.kept ? bt.nv * kb * P::QP : 0;
+  const int sq = part.kept ? 0 : bt.nv * P::QP;   // Q pieces a step
+  const int per_step = sq + P::KP;
+  const int per_tile = kb * per_step + (part.out ? P::KP : 0);
+  const uint32_t base = smem_addr(smem);
+  // piece e of consumer w's Q chunk u, into its slot
+  auto q_piece = [&](int w, int u, int slot, int e) {
+    PieceAt x;
+    x.src = q_bh + part.col(u);
+    x.t_len = t_q;
+    x.r0 = e * P::SR;
+    x.row0 = bt.tile_of(w) * WG_BQ + x.r0;
+    x.rows = WG_BQ;
+    x.dv = min(d - part.col(u), CW);
+    x.tile = base + (2 * w + slot) * L::Q_BYTES;
+    return x;
+  };
+  auto at = [&](int i) -> PieceAt {
+    if (i < q_pieces) {
+      const int e = i % (kb * P::QP);
+      return q_piece(i / (kb * P::QP), e / P::QP, e / P::QP, e % P::QP);
+    }
+    const int j = i - q_pieces;
+    const int kt = j / per_tile;
+    const int p = j % per_tile;
+    PieceAt x;
+    if (p < kb * per_step) {
+      const int u = p / per_step;
+      const int e = p % per_step;
+      const int s = (kt * kb + u) & 1;
+      if (e < sq) return q_piece(e / P::QP, u, s, e % P::QP);
+      x.r0 = (e - sq) * P::SR;
+      x.src = k_bh + part.col(u);
+      x.dv = min(d - part.col(u), CW);
+      x.tile = base + L::K_OFF + s * L::KV_BYTES;
+    } else {
+      x.r0 = (p - kb * per_step) * P::SR;
+      x.src = v_bh + part.c_out;
+      x.dv = min(d - part.c_out, CW);
+      x.tile = base + L::V_OFF + (kt & 1) * L::KV_BYTES;
+    }
+    x.t_len = t_k;
+    x.row0 = kt * BK + x.r0;
+    x.rows = BK;
+    return x;
+  };
+  // a step's (a V tile's) first piece: its stage is free once every
+  // consumer that read step - 2 (tile kt - 2) is done with it
+  auto wait_free = [&](int i) {
+    const int j = i - q_pieces;
+    if (j < 0) return;
+    const int kt = j / per_tile;
+    const int p = j % per_tile;
+    if (p < kb * per_step) {
+      const int step = kt * kb + p / per_step;
+      if (p % per_step != 0 || step < 2) return;
+#pragma unroll
+      for (int w = 0; w < CONS; ++w)
+        if ((step - 2) / kb < bt.n_kv[w])
+          mbar_wait(bar.k_empty + (step & 1) * CONS + w,
+                    ((step >> 1) - 1) & 1);
+    } else if (p == kb * per_step && kt >= 2) {
+#pragma unroll
+      for (int w = 0; w < CONS; ++w)
+        if (kt - 2 < bt.n_kv[w])
+          mbar_wait(bar.v_empty + (kt & 1) * CONS + w, ((kt >> 1) - 1) & 1);
+    }
+  };
+  auto full = [&](int i) -> uint64_t* {
+    if (i == q_pieces - 1) return bar.q_full;
+    const int j = i - q_pieces;
+    if (j < 0) return nullptr;
+    const int kt = j / per_tile;
+    const int p = j % per_tile;
+    if (p < kb * per_step)
+      return p % per_step == per_step - 1
+                 ? bar.k_full + ((kt * kb + p / per_step) & 1)
+                 : nullptr;
+    return p == per_tile - 1 ? bar.v_full + (kt & 1) : nullptr;
+  };
+  // streamed: q_full completes on the loading threads' arrivals alone
+  if (!part.kept) mbar_arrive(bar.q_full);
+  ldg_pieces<CW, XP, 2>(smem, rs, q_pieces + bt.n_max * per_tile, at,
+                        wait_free, full);
+}
+
+// FORM 0: one cluster of CL blocks, block z owning chunk z of d; FORM 1:
+// groups of clusters of CL blocks (GroupPart)
+template <typename T, int CL, int FORM>
 __global__ void __launch_bounds__(Tiles<CW, XP_TMA>::THREADS, 1)
 flash_fwd_tc_cluster(const __grid_constant__ CUtensorMap q_map,
                      const __grid_constant__ CUtensorMap k_map,
                      const __grid_constant__ CUtensorMap v_map,
                      uint16_t* __restrict__ o, int t_q, int t_k, int heads,
                      int d, float scale_log2, int causal, int q_offset) {
-  using L = Layout<CW, false, XP_TMA>;
+  using L = Layout<CW, false, XP_TMA, FORM ? 2 : 1>;
   using C = Tiles<CW, XP_TMA>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
@@ -2003,28 +2242,41 @@ flash_fwd_tc_cluster(const __grid_constant__ CUtensorMap q_map,
   const int b = blockIdx.x / heads;
   const int h = blockIdx.x % heads;
   const int nq = (t_q + WG_BQ - 1) / WG_BQ;
-  const int c0 = (int)blockIdx.z * CW;   // rank z's chunk of d
+  const int c0 = (int)blockIdx.z * CW;   // rank z's chunk of d (form 0)
   // the warpgroup, as a value the compiler knows to be warp-uniform
   const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
   if (wg == C::CONSUMERS) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
                      C::PRODUCER_REGS)
                  : "memory");
-    produce_tma<CW, XP_TMA>(smem, &q_map, &k_map, &v_map, bar.q_full,
-                            bar.k_full, bar.v_full, bar.k_empty, bar.v_empty,
-                            b, h, nq, t_q, t_k, causal, q_offset, c0);
+    if constexpr (FORM) {
+      produce_tma_steps<CL, XP_TMA>(smem, &q_map, &k_map, &v_map, bar, b, h,
+                                    nq, t_q, t_k, causal, q_offset,
+                                    GroupPart<CL>(d));
+    } else {
+      produce_tma<CW, XP_TMA>(smem, &q_map, &k_map, &v_map, bar.q_full,
+                              bar.k_full, bar.v_full, bar.k_empty,
+                              bar.v_empty, b, h, nq, t_q, t_k, causal,
+                              q_offset, c0);
+    }
   } else {
     const ClusterExchange<CL, C::BK, XP_TMA, C::CONSUMERS> x{
         smem_addr(smem + L::X_OFF + wg * L::X_BYTES),
         smem_addr(bar.x_full + wg)};
-    consume<T, CW, false, C::CONSUMER_REGS>(
-        smem, bar.q_full, bar.k_full, bar.v_full, bar.k_empty, bar.v_empty,
-        bar.turn, wg, o, b, h, nq, t_q, t_k, heads, d, scale_log2, causal,
-        q_offset, c0, x);
+    if constexpr (FORM) {
+      consume_steps<T, false, C::CONSUMER_REGS>(
+          smem, bar, wg, o, b, h, nq, t_q, t_k, heads, d, scale_log2, causal,
+          q_offset, GroupPart<CL>(d), x);
+    } else {
+      consume<T, CW, false, C::CONSUMER_REGS>(
+          smem, bar.q_full, bar.k_full, bar.v_full, bar.k_empty, bar.v_empty,
+          bar.turn, wg, o, b, h, nq, t_q, t_k, heads, d, scale_log2, causal,
+          q_offset, c0, x);
+    }
   }
 }
 
-template <typename T, int CL>
+template <typename T, int CL, int FORM>
 __global__ void __launch_bounds__(Tiles<CW, XP_LDG>::THREADS, 1)
 flash_fwd_tc_cluster_ldg(const uint16_t* __restrict__ q,
                          const uint16_t* __restrict__ k,
@@ -2032,7 +2284,7 @@ flash_fwd_tc_cluster_ldg(const uint16_t* __restrict__ q,
                          uint16_t* __restrict__ o, int t_q, int t_k,
                          int heads, int d, float scale_log2, int causal,
                          int q_offset) {
-  using L = Layout<CW, true, XP_LDG>;
+  using L = Layout<CW, true, XP_LDG, FORM ? 2 : 1>;
   using C = Tiles<CW, XP_LDG>;
   using G = Ldg<CW, XP_LDG>;
   extern __shared__ uint8_t smem_raw[];
@@ -2049,17 +2301,30 @@ flash_fwd_tc_cluster_ldg(const uint16_t* __restrict__ q,
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
                      G::PRODUCER_REGS)
                  : "memory");
-    produce_ldg<T, CW, XP_LDG>(smem, q, k, v, bar.q_full, bar.k_full,
-                               bar.v_full, bar.k_empty, bar.v_empty, b, h, nq,
-                               t_q, t_k, heads, d, causal, q_offset, c0);
+    if constexpr (FORM) {
+      produce_ldg_steps<T, CL, XP_LDG>(smem, q, k, v, bar, b, h, nq, t_q,
+                                       t_k, heads, d, causal, q_offset,
+                                       GroupPart<CL>(d));
+    } else {
+      produce_ldg<T, CW, XP_LDG>(smem, q, k, v, bar.q_full, bar.k_full,
+                                 bar.v_full, bar.k_empty, bar.v_empty, b, h,
+                                 nq, t_q, t_k, heads, d, causal, q_offset,
+                                 c0);
+    }
   } else {
     const ClusterExchange<CL, C::BK, XP_LDG, C::CONSUMERS> x{
         smem_addr(smem + L::X_OFF + wg * L::X_BYTES),
         smem_addr(bar.x_full + wg)};
-    consume<T, CW, true, G::CONSUMER_REGS>(
-        smem, bar.q_full, bar.k_full, bar.v_full, bar.k_empty, bar.v_empty,
-        bar.turn, wg, o, b, h, nq, t_q, t_k, heads, d, scale_log2, causal,
-        q_offset, c0, x);
+    if constexpr (FORM) {
+      consume_steps<T, true, G::CONSUMER_REGS>(
+          smem, bar, wg, o, b, h, nq, t_q, t_k, heads, d, scale_log2, causal,
+          q_offset, GroupPart<CL>(d), x);
+    } else {
+      consume<T, CW, true, G::CONSUMER_REGS>(
+          smem, bar.q_full, bar.k_full, bar.v_full, bar.k_empty, bar.v_empty,
+          bar.turn, wg, o, b, h, nq, t_q, t_k, heads, d, scale_log2, causal,
+          q_offset, c0, x);
+    }
   }
 }
 
@@ -2090,25 +2355,6 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes,
 
 // grid y and z: at most 65535 each (x: batch * heads, checked by the entry)
 constexpr int MAX_GRID_YZ = 65535;
-
-template <typename T, int VEC>
-cudaError_t launch_split(const void* q, const void* k, const void* v, void* o,
-                         int batch, int t_q, int t_k, int heads, int d,
-                         float scale, int causal, int q_offset,
-                         cudaStream_t stream) {
-  static std::atomic<uint64_t> smem_set{0};
-  constexpr size_t smem = split_smem_bytes();
-  const int n_q = (t_q + BQ - 1) / BQ, n_dc = (d + DC - 1) / DC;
-  if (n_q > MAX_GRID_YZ || n_dc > MAX_GRID_YZ) return cudaErrorInvalidValue;
-  cudaError_t err = allow_smem(flash_fwd_tc_split<T, VEC>, smem, smem_set);
-  if (err != cudaSuccess) return err;
-  dim3 grid(batch * heads, n_q, n_dc);
-  flash_fwd_tc_split<T, VEC><<<grid, THREADS, smem, stream>>>(
-      static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(k),
-      static_cast<const uint16_t*>(v), static_cast<uint16_t*>(o), t_q, t_k,
-      heads, d, scale * LOG2E, causal, q_offset);
-  return cudaGetLastError();
-}
 
 // cuTensorMapEncodeTiled from the driver through the runtime, so that the
 // library needs no -lcuda
@@ -2241,23 +2487,40 @@ cudaError_t cluster_placeable(Kernel kernel, const cudaLaunchConfig_t& config,
   return cudaSuccess;
 }
 
+// The clusters of head dim d > 256, the twin of flash_attention_fwd.cu's
+// cluster_shape at chunk width CW: n = ceil(d / CW) chunks; up to CL_MOST
+// one cluster of n blocks (form 0), above `groups` = ceil(n / CL_MOST) of
+// `blocks` = ceil(n / groups) blocks each (form 1), each block reducing at
+// most `chunks` = ceil(n / blocks) chunks
+struct ClusterShape {
+  int groups, blocks, chunks;
+};
+inline ClusterShape cluster_shape(int d) {
+  const int n = (d - 1) / wgk::CW + 1;
+  const int g = (n - 1) / wgk::CL_MOST + 1;
+  const int c = (n - 1) / g + 1;
+  return {g, c, (n - 1) / c + 1};
+}
+
 // The cluster kernel of the route (LDG: the rows TMA refuses) for clusters
-// of CL blocks, its shared memory and its launch over (x, y) clusters
-// (pointing at `cluster`), after the kernel's dynamic shared memory has
-// been allowed on the current device
-template <typename T, bool LDG, int CL>
+// of CL blocks in form FORM, its shared memory and its launch over (x, y)
+// pairs of Q tiles and `groups` clusters on z (pointing at `cluster`),
+// after the kernel's dynamic shared memory has been allowed on the current
+// device
+template <typename T, bool LDG, int CL, int FORM>
 struct ClusterLaunch {
+  static constexpr int QS = FORM ? 2 : 1;
   static constexpr size_t SMEM =
-      LDG ? wgk::Layout<wgk::CW, true, wgk::XP_LDG>::BYTES
-          : wgk::Layout<wgk::CW, false, wgk::XP_TMA>::BYTES;
+      LDG ? wgk::Layout<wgk::CW, true, wgk::XP_LDG, QS>::BYTES
+          : wgk::Layout<wgk::CW, false, wgk::XP_TMA, QS>::BYTES;
   static auto kernel() {
     if constexpr (LDG) {
-      return wgk::flash_fwd_tc_cluster_ldg<T, CL>;
+      return wgk::flash_fwd_tc_cluster_ldg<T, CL, FORM>;
     } else {
-      return wgk::flash_fwd_tc_cluster<T, CL>;
+      return wgk::flash_fwd_tc_cluster<T, CL, FORM>;
     }
   }
-  static cudaError_t config(int x, int y, cudaStream_t stream,
+  static cudaError_t config(int x, int y, int groups, cudaStream_t stream,
                             cudaLaunchAttribute& cluster,
                             cudaLaunchConfig_t& config) {
     static std::atomic<uint64_t> smem_set{0};
@@ -2268,7 +2531,7 @@ struct ClusterLaunch {
     cluster.val.clusterDim.y = 1;
     cluster.val.clusterDim.z = CL;
     config = {};
-    config.gridDim = dim3(x, y, CL);
+    config.gridDim = dim3(x, y, groups * CL);
     config.blockDim = dim3(wgk::Tiles<wgk::CW, wgk::XP_TMA>::THREADS);
     config.dynamicSmemBytes = SMEM;
     config.stream = stream;
@@ -2279,22 +2542,25 @@ struct ClusterLaunch {
 };
 
 // flash_fwd_tc_cluster (TMA) or flash_fwd_tc_cluster_ldg at CL blocks a
-// cluster: flash_fwd_tc_wg's grid at width CW on x and y
-template <typename T, bool LDG, int CL>
+// cluster in form FORM, `groups` clusters on z: flash_fwd_tc_wg's grid at
+// width CW on x and y
+template <typename T, bool LDG, int CL, int FORM>
 cudaError_t launch_cluster_at(const void* q, const void* k, const void* v,
                               void* o, int batch, int t_q, int t_k,
                               int heads, int d, float scale, int causal,
-                              int q_offset, cudaStream_t stream) {
+                              int q_offset, int groups, cudaStream_t stream) {
   using namespace wgk;
-  using X = ClusterLaunch<T, LDG, CL>;
+  using X = ClusterLaunch<T, LDG, CL, FORM>;
   using C = Tiles<CW, XP_TMA>;
   static std::atomic<uint64_t> placed{0};
   const int nq = (t_q + WG_BQ - 1) / WG_BQ;
   const int blocks = (nq + C::CONSUMERS - 1) / C::CONSUMERS;
-  if (blocks > MAX_GRID_YZ) return cudaErrorInvalidValue;
+  if (blocks > MAX_GRID_YZ || (int64_t)groups * CL > MAX_GRID_YZ)
+    return cudaErrorInvalidValue;
   cudaLaunchAttribute cluster;
   cudaLaunchConfig_t config;
-  cudaError_t err = X::config(batch * heads, blocks, stream, cluster, config);
+  cudaError_t err =
+      X::config(batch * heads, blocks, groups, stream, cluster, config);
   if (err != cudaSuccess) return err;
   err = cluster_placeable(X::kernel(), config, placed);
   if (err != cudaSuccess) return err;
@@ -2325,52 +2591,51 @@ cudaError_t launch_cluster_at(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-// cudaOccupancyMaxActiveClusters of the bf16 cluster kernel of the route at
-// `blocks` blocks a cluster
-template <bool LDG, int... I>
-cudaError_t clusters_at(int blocks, int* clusters,
-                        std::integer_sequence<int, I...>) {
-  cudaError_t err = cudaErrorInvalidValue;
-  auto ask = [&](auto launch) {
-    using X = decltype(launch);
-    cudaLaunchAttribute cluster;
-    cudaLaunchConfig_t config;
-    err = X::config(1, 1, nullptr, cluster, config);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveClusters(
-          clusters, reinterpret_cast<const void*>(X::kernel()), &config);
-  };
-  ((blocks == wgk::CL_MIN + I
-        ? ask(ClusterLaunch<__nv_bfloat16, LDG, wgk::CL_MIN + I>{})
-        : (void)0),
+// The cluster sizes of each form, one instantiation a size: form 0
+// CL_MIN..CL_MOST (d 257 to CW CL_MOST), form 1 GL_MIN..CL_MOST (the
+// blocks of ceil(n / CL_MOST) groups of n chunks past CL_MOST)
+using OneSizes =
+    std::make_integer_sequence<int, wgk::CL_MOST - wgk::CL_MIN + 1>;
+using GroupSizes =
+    std::make_integer_sequence<int, wgk::CL_MOST - wgk::GL_MIN + 1>;
+
+// f(Int<c>{}, Int<FORM>{}) for the size c == blocks of form FORM
+template <int FORM, class F, int... I>
+void at_size(int blocks, F f, std::integer_sequence<int, I...>) {
+  constexpr int FIRST = FORM ? wgk::GL_MIN : wgk::CL_MIN;
+  ((blocks == FIRST + I ? f(wgk::Int<FIRST + I>{}, wgk::Int<FORM>{})
+                        : (void)0),
    ...);
-  return err;
+}
+template <class F>
+void at_shape(int blocks, int form, F f) {
+  if (form) {
+    at_size<1>(blocks, f, GroupSizes{});
+  } else {
+    at_size<0>(blocks, f, OneSizes{});
+  }
 }
 
-// d 257-1536: a cluster of ceil(d / CW) blocks, one instantiation a size
-template <typename T, bool LDG, int... I>
+// d > 256: cluster_shape(d)'s clusters
+template <typename T, bool LDG>
 cudaError_t launch_cluster(const void* q, const void* k, const void* v,
                            void* o, int batch, int t_q, int t_k, int heads,
                            int d, float scale, int causal, int q_offset,
-                           cudaStream_t stream,
-                           std::integer_sequence<int, I...>) {
-  const int blocks = (d + wgk::CW - 1) / wgk::CW;
+                           cudaStream_t stream) {
+  const ClusterShape shape = cluster_shape(d);
   cudaError_t err = cudaErrorInvalidValue;
-  ((blocks == wgk::CL_MIN + I
-        ? (void)(err = launch_cluster_at<T, LDG, wgk::CL_MIN + I>(
-              q, k, v, o, batch, t_q, t_k, heads, d, scale, causal, q_offset,
-              stream))
-        : (void)0),
-   ...);
+  at_shape(shape.blocks, shape.groups > 1, [&](auto cl, auto form) {
+    err = launch_cluster_at<T, LDG, decltype(cl)::value,
+                            decltype(form)::value>(
+        q, k, v, o, batch, t_q, t_k, heads, d, scale, causal, q_offset,
+        shape.groups, stream);
+  });
   return err;
 }
-using ClusterSizes =
-    std::make_integer_sequence<int, wgk::CL_MAX - wgk::CL_MIN + 1>;
 
 // Up to d 256 the wgmma kernel at the smallest width that holds d: 16-byte
 // rows through TMA, the others (2-byte copies) through the LDG producer;
-// from 257 to 1536 the cluster kernel of the same producer; wider heads the
-// split over d, with 16- or 2-byte copies
+// above, the cluster kernel of the same producer
 template <typename T, int WIDTH>
 cudaError_t launch_width(const void* q, const void* k, const void* v,
                          void* o, int batch, int t_q, int t_k, int heads,
@@ -2400,34 +2665,49 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
   if (d <= 256)
     return launch_width<T, 256>(q, k, v, o, batch, t_q, t_k, heads, d,
                                 scale, causal, q_offset, copy_bytes, stream);
-  if (d <= wgk::CLUSTER_D && copy_bytes == 16)
-    return launch_cluster<T, false>(q, k, v, o, batch, t_q, t_k, heads, d,
-                                    scale, causal, q_offset, stream,
-                                    ClusterSizes{});
-  if (d <= wgk::CLUSTER_D)
-    return launch_cluster<T, true>(q, k, v, o, batch, t_q, t_k, heads, d,
-                                   scale, causal, q_offset, stream,
-                                   ClusterSizes{});
   if (copy_bytes == 16)
-    return launch_split<T, 16>(q, k, v, o, batch, t_q, t_k, heads, d, scale,
-                               causal, q_offset, stream);
-  return launch_split<T, 2>(q, k, v, o, batch, t_q, t_k, heads, d, scale,
-                            causal, q_offset, stream);
+    return launch_cluster<T, false>(q, k, v, o, batch, t_q, t_k, heads, d,
+                                    scale, causal, q_offset, stream);
+  return launch_cluster<T, true>(q, k, v, o, batch, t_q, t_k, heads, d,
+                                 scale, causal, q_offset, stream);
 }
 
 }  // namespace
 
+// The library builds in two parts, one nvcc each, started together
+// (_native.PARTS): part 0 (MXTT_PART 0) instantiates the bf16 kernels and
+// holds the C entries, part 1 the fp16 kernels, reached through
+// mxtt_tc_dispatch_fp16.
+#if !defined(MXTT_PART) || (MXTT_PART != 0 && MXTT_PART != 1)
+#error "MXTT_PART (0 or 1) names the part of the library an object holds"
+#endif
+cudaError_t mxtt_tc_dispatch_fp16(const void* q, const void* k,
+                                  const void* v, void* o, int batch, int t_q,
+                                  int t_k, int heads, int d, float scale,
+                                  int causal, int q_offset, int copy_bytes,
+                                  cudaStream_t stream);
+#if MXTT_PART == 1
+cudaError_t mxtt_tc_dispatch_fp16(const void* q, const void* k,
+                                  const void* v, void* o, int batch, int t_q,
+                                  int t_k, int heads, int d, float scale,
+                                  int causal, int q_offset, int copy_bytes,
+                                  cudaStream_t stream) {
+  return dispatch<__half>(q, k, v, o, batch, t_q, t_k, heads, d, scale,
+                          causal, q_offset, copy_bytes, stream);
+}
+#endif
+#if MXTT_PART == 0
+
 // q: (batch, t_q, heads, d), k/v: (batch, t_k, heads, d), o like q; all
 // contiguous, on the current device. dtype 1 is bfloat16, 2 is float16 (0,
-// float32, is flash_attention_fwd.cu's). copy_bytes is 16 (TMA, or cp.async
-// of 8 elements above d 1536: needs d % 8 == 0 and 16-byte aligned q, k, v
-// and o) or 2 (any d and 2-byte alignment: the LDG producer up to d 1536,
-// element-wise loads above). Up to d 256 flash_fwd_tc_wg (16) or
-// flash_fwd_tc_wg_ldg (2), from 257 to 1536 flash_fwd_tc_cluster or
+// float32, is flash_attention_fwd.cu's). copy_bytes is 16 (TMA: needs d % 8
+// == 0 and 16-byte aligned q, k, v and o) or 2 (any d and 2-byte
+// alignment: the LDG producer). Up to d 256 flash_fwd_tc_wg (16) or
+// flash_fwd_tc_wg_ldg (2), above flash_fwd_tc_cluster or
 // flash_fwd_tc_cluster_ldg (cudaErrorInvalidConfiguration where the card
-// cannot place the cluster), wider flash_fwd_tc_split. Returns the
-// cudaError_t of the launch (0 on success; cudaErrorInvalidValue where the
-// kernel's grid would pass the card's limits).
+// cannot place the cluster). Returns the cudaError_t of the launch (0 on
+// success; cudaErrorInvalidValue where the kernel's grid would pass the
+// card's limits).
 extern "C" int mxtt_flash_attention_fwd_tc(const void* q, const void* k,
                                            const void* v, void* o, int batch,
                                            int t_q, int t_k, int heads, int d,
@@ -2435,7 +2715,7 @@ extern "C" int mxtt_flash_attention_fwd_tc(const void* q, const void* k,
                                            int q_offset, int dtype,
                                            int copy_bytes, void* stream) {
   // grid: batch * heads on x (< 2^31); each launcher checks its y (Q
-  // tiles, or pairs of them) and z (d-chunks)
+  // tiles, or pairs of them) and z (the blocks of the groups of clusters)
   if (batch <= 0 || t_q <= 0 || t_k <= 0 || heads <= 0 || d <= 0 ||
       q_offset < 0 || (dtype != 1 && dtype != 2) ||
       (int64_t)batch * heads > INT32_MAX ||
@@ -2452,8 +2732,8 @@ extern "C" int mxtt_flash_attention_fwd_tc(const void* q, const void* k,
     return (int)dispatch<__nv_bfloat16>(q, k, v, o, batch, t_q, t_k, heads,
                                         d, scale, causal, q_offset,
                                         copy_bytes, s);
-  return (int)dispatch<__half>(q, k, v, o, batch, t_q, t_k, heads, d, scale,
-                               causal, q_offset, copy_bytes, s);
+  return (int)mxtt_tc_dispatch_fp16(q, k, v, o, batch, t_q, t_k, heads, d,
+                                    scale, causal, q_offset, copy_bytes, s);
 }
 
 // The registers a thread (setmaxnreg) of the wgmma kernel's producer
@@ -2480,18 +2760,36 @@ extern "C" int mxtt_flash_attention_fwd_tc_regs(int width, int ldg,
   }
 }
 
-// How many clusters of `blocks` blocks of the 16-bit cluster kernel (bf16;
-// ldg != 0: flash_fwd_tc_cluster_ldg) the current device holds at once
-// (cudaOccupancyMaxActiveClusters), or minus the cudaError_t of the query
-// (cudaErrorInvalidValue: no such cluster size)
-extern "C" int mxtt_flash_attention_fwd_tc_clusters(int blocks, int ldg) {
+// How many clusters of `blocks` blocks in form `form` (0: one cluster a
+// Q-tile pair, blocks 2-8; 1: groups of clusters, blocks 5-8) of the 16-bit
+// cluster kernel (bf16; ldg != 0: flash_fwd_tc_cluster_ldg) the current
+// device holds at once (cudaOccupancyMaxActiveClusters), or minus the
+// cudaError_t of the query (cudaErrorInvalidValue: no such cluster size)
+extern "C" int mxtt_flash_attention_fwd_tc_clusters(int blocks, int ldg,
+                                                    int form) {
   int clusters = 0;
-  const cudaError_t err =
-      ldg ? clusters_at<true>(blocks, &clusters, ClusterSizes{})
-          : clusters_at<false>(blocks, &clusters, ClusterSizes{});
+  cudaError_t err = cudaErrorInvalidValue;
+  auto ask = [&](auto launch) {
+    using X = decltype(launch);
+    cudaLaunchAttribute cluster;
+    cudaLaunchConfig_t config;
+    err = X::config(1, 1, 1, nullptr, cluster, config);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveClusters(
+          &clusters, reinterpret_cast<const void*>(X::kernel()), &config);
+  };
+  at_shape(blocks, form != 0, [&](auto cl, auto f) {
+    constexpr int CL = decltype(cl)::value, FORM = decltype(f)::value;
+    if (ldg) {
+      ask(ClusterLaunch<__nv_bfloat16, true, CL, FORM>{});
+    } else {
+      ask(ClusterLaunch<__nv_bfloat16, false, CL, FORM>{});
+    }
+  });
   if (err != cudaSuccess) {
     cudaGetLastError();
     return -(int)err;
   }
   return clusters;
 }
+#endif

@@ -8,10 +8,11 @@ through shared memory with an online softmax, so the (T, T) score matrix
 never reaches device memory. Any head dim runs (:func:`launch_plan`):
 bf16/fp16 up to 256 on ``wgmma``, fed by TMA where the rows are 16-byte
 aligned (``flash_fwd_tc_wg``) and by a producer without TMA where they are
-not (``flash_fwd_tc_wg_ldg``), from 257 to 1536 in a thread-block cluster
-of such blocks, each over a 192-wide chunk of d (``flash_fwd_tc_cluster``,
-``flash_fwd_tc_cluster_ldg``), and wider in a split-over-d kernel
-(``flash_fwd_tc_split``); fp32 up to 128 in ``flash_fwd_f32``, from 129 to
+not (``flash_fwd_tc_wg_ldg``), and above 256 in thread-block clusters of
+such blocks, each over a 192-wide chunk of d (``flash_fwd_tc_cluster``,
+``flash_fwd_tc_cluster_ldg``; past 8 chunks in groups of clusters, each
+group computing the scores once); fp32 up to 128 in ``flash_fwd_f32``,
+from 129 to
 256 in a kernel whose block owns all of d, and above 256 in clusters whose
 blocks each own a 128-wide chunk of d (``flash_fwd_f32_cluster``; past 16
 chunks in groups of clusters, each group computing the scores once). The
@@ -45,7 +46,7 @@ from ..ndarray import _dtype_name
 
 __all__ = ["cluster_groups", "copy_bytes", "flash_attention",
            "flash_attention_reference", "launch_plan", "reset_launches",
-           "use_flash"]
+           "tc_cluster_groups", "use_flash"]
 
 # dtype -> (library, C entry, the entry's dtype code)
 _KERNELS = {
@@ -57,27 +58,27 @@ _KERNELS = {
 }
 # the kernels' grid limits: batch * heads on x, Q tiles on y, d-chunks on z
 _MAX_GRID = (2 ** 31 - 1, 65535, 65535)
-# bf16/fp16's cluster kernels run d up to _CLUSTER_D, one block a
-# _TC_CLUSTER_W-wide chunk and two 64-row Q tiles (CLUSTER_D, CW and
-# ClusterTiles in csrc/flash_attention_fwd_tc.cu: 8 blocks, the portable
-# cluster limit); fp32's cluster kernel any d above _WG_D, one block a
-# _F32_CLUSTER_W-wide chunk of d and a 64-row Q tile, clusters of at most
-# _F32_CLUSTER_MAX blocks, each keeping up to _F32_CLUSTER_QRES Q chunks
-# (C_W, C_MAX and C_QRES in csrc/flash_attention_fwd.cu)
-_CLUSTER_D, _TC_CLUSTER_W, _TC_CLUSTER_ROWS = 1536, 192, 128
+# bf16/fp16's cluster kernels run any d above _WG_D, one block a
+# _TC_CLUSTER_W-wide chunk and two 64-row Q tiles, clusters of at most
+# _TC_CLUSTER_MAX blocks (CW, CL_MOST and ClusterTiles in
+# csrc/flash_attention_fwd_tc.cu: 8, the portable cluster limit); fp32's
+# cluster kernel any d above _WG_D, one block a _F32_CLUSTER_W-wide chunk
+# of d and a 64-row Q tile, clusters of at most _F32_CLUSTER_MAX blocks,
+# each keeping up to _F32_CLUSTER_QRES Q chunks (C_W, C_MAX and C_QRES in
+# csrc/flash_attention_fwd.cu)
+_TC_CLUSTER_W, _TC_CLUSTER_MAX, _TC_CLUSTER_ROWS = 192, 8, 128
 _F32_CLUSTER_W, _F32_CLUSTER_MAX, _F32_CLUSTER_QRES = 128, 16, 4
 # fp32 above _SPLIT_D runs, up to _WG_D, a kernel whose block owns all of d
 # and two 64-row Q tiles, and the cluster kernel above; bf16/fp16 up to
 # _WG_D run on wgmma at the smallest width of _WG_ROWS that holds d, its
 # value the Q rows a block (Tiles<width> in csrc/flash_attention_fwd_tc.cu:
 # 64-row consumer warpgroups, four at width 64, two at the others), with
-# either producer, the cluster kernels up to _CLUSTER_D and the split over d
-# (128-wide chunks of the output) above
+# either producer, and the cluster kernels above
 _SPLIT_D, _WG_D = 128, 256
 _WG_ROWS = {64: 256, 128: 128, 192: 128, 256: 128}
 _PLANS = ("flash_fwd_f32", "flash_fwd_f32_cluster", "flash_fwd_f32_wide",
           "flash_fwd_tc_cluster", "flash_fwd_tc_cluster_ldg",
-          "flash_fwd_tc_split", "flash_fwd_tc_wg", "flash_fwd_tc_wg_ldg")
+          "flash_fwd_tc_wg", "flash_fwd_tc_wg_ldg")
 
 
 def use_flash(t_len: int, block: int = 128, on_accel: bool = False) -> bool:
@@ -115,9 +116,8 @@ def copy_bytes(d: int, *ptrs: int, itemsize: int = 4) -> int:
     then copies 4 bytes with ``cp.async``; the tensor-core kernels (2-byte
     types) take such rows, which TMA refuses, through ``cp.async`` copies
     of their aligned 16-byte words and a shift in shared memory
-    (``flash_fwd_tc_wg_ldg``, ``flash_fwd_tc_cluster_ldg``; element by
-    element in the split over d); with 16 they copy through TMA (and
-    ``cp.async`` in the split over d).
+    (``flash_fwd_tc_wg_ldg``, ``flash_fwd_tc_cluster_ldg``); with 16 they
+    copy through TMA.
     A contiguous view at an offset of one element (``buf[1:].view(...)``)
     takes the narrow path."""
     aligned = d * itemsize % 16 == 0 and all(p % 16 == 0 for p in ptrs)
@@ -153,6 +153,17 @@ def cluster_groups(d):
     return _cluster_groups(-(-d // _F32_CLUSTER_W), _F32_CLUSTER_MAX)
 
 
+def tc_cluster_groups(d):
+    """``(groups, blocks, chunks)`` of ``flash_fwd_tc_cluster`` and
+    ``flash_fwd_tc_cluster_ldg`` at head dim ``d`` > 256 (``cluster_shape``
+    in csrc/flash_attention_fwd_tc.cu): :func:`cluster_groups`' rule at
+    192-wide chunks and clusters of at most 8 blocks, the portable limit.
+    Up to 8 chunks (d 1536) one cluster of n blocks; above, groups of 5-8
+    blocks, block r of a group reducing the partial scores of chunks r, r +
+    blocks, ... below n (at most ``chunks`` of them)."""
+    return _cluster_groups(-(-d // _TC_CLUSTER_W), _TC_CLUSTER_MAX)
+
+
 def _cluster_groups(n, most):
     """:func:`cluster_groups` of n chunks in clusters of at most ``most``
     blocks."""
@@ -179,14 +190,13 @@ def launch_plan(dtype, batch, t_q, heads, d, copy=16):
     at 192 and 256, tiles i and n - 1 - i, so that causal blocks carry
     equal work. 16-byte copies (what TMA needs) run ``flash_fwd_tc_wg``,
     2-byte ones ``flash_fwd_tc_wg_ldg``, the same consumers and grid fed
-    by a producer that needs no TMA. From 257 to 1536 bf16/fp16 run one
-    cluster of ceil(d / 192) blocks for each two 64-row Q tiles, i and n -
-    1 - i (width 192: each block a 192-wide chunk of d, the cluster's
-    blocks on the grid's z; ``flash_fwd_tc_cluster`` with 16-byte copies,
-    ``flash_fwd_tc_cluster_ldg`` with 2-byte ones; 8 blocks, the portable
-    cluster limit, end the range at 1536). Wider bf16/fp16 heads run the
-    split over d (``flash_fwd_tc_split``, width 128, 64-row Q tiles) with
-    its 128-wide chunks of d on the grid's z. fp32 up to 128 runs the
+    by a producer that needs no TMA. Above 256 bf16/fp16 run clusters of
+    blocks for each two 64-row Q tiles, i and n - 1 - i (width 192: each
+    block a 192-wide chunk of d; ``flash_fwd_tc_cluster`` with 16-byte
+    copies, ``flash_fwd_tc_cluster_ldg`` with 2-byte ones): up to d 1536
+    one cluster of ceil(d / 192) blocks (8, the portable cluster limit),
+    wider :func:`tc_cluster_groups`' groups of clusters, all their blocks
+    on the grid's z. fp32 up to 128 runs the
     smallest instantiation (``width`` 32, 64 or 128) of ``flash_fwd_f32``
     that holds it, on ``(batch * heads, Q tiles, 1)`` (128-row Q tiles up
     to width 64, 64 above); from 129 to 256 all of d in one block of two
@@ -201,14 +211,12 @@ def launch_plan(dtype, batch, t_q, heads, d, copy=16):
         name = "flash_fwd_tc_wg" if copy == 16 else "flash_fwd_tc_wg_ldg"
         width = min(w for w in _WG_ROWS if w >= d)
         rows = _WG_ROWS[width]
-    elif dtype != torch.float32 and d <= _CLUSTER_D:
+    elif dtype != torch.float32:
         name = ("flash_fwd_tc_cluster" if copy == 16
                 else "flash_fwd_tc_cluster_ldg")
         width, rows = _TC_CLUSTER_W, _TC_CLUSTER_ROWS
-        chunks = -(-d // width)
-    elif dtype != torch.float32:
-        name, width, rows = "flash_fwd_tc_split", _SPLIT_D, 64
-        chunks = -(-d // width)
+        groups, blocks, _ = tc_cluster_groups(d)
+        chunks = groups * blocks
     elif d <= _SPLIT_D:
         name = "flash_fwd_f32"
         width = 32 if d <= 32 else 64 if d <= 64 else 128

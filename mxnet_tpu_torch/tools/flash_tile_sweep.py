@@ -38,15 +38,20 @@ exchange, or without it and the barrier; and times each at fp32 (2, 2048,
 2048, 8, 128), the same operations as 2 heads of 512.
 ``--kernel tccluster`` builds variants of ``flash_attention_fwd_tc.cu``
 that differ from ``flash_fwd_tc_cluster`` (the bf16/fp16 kernels for head
-dims 257-1024) by the patches of ``TC_CLUSTER_PATCHES``: 128- and 256-wide
-chunks of d, ``ClusterTiles``'s other K/V rows, stages, exponentials and
-ping-pong, the partials exchanged in two pieces a tile, other counts of
-loads in flight, a fence for each arrival, the split over d, and
-diagnostics with every load from the block's own buffer, or without any
-exchange; and times each at bf16 (2, 2048, 2, 512) causal and not,
-(2, 2048, 4, 320), (2, 2048, 1, 1000), d 320 at an offset of one element
-(its LDG route), beside ``flash_fwd_tc_wg`` at (2, 2048, 4, 256), the same
-operations as 2 heads of 512.
+dims above 256) by the patches of ``TC_CLUSTER_PATCHES``: 128- and 256-wide
+chunks of d, ``ClusterTiles``'s other K/V rows, stages and ping-pong (these
+built without the groups of clusters, so only up to the largest cluster),
+exp2f, the partials exchanged in two pieces a tile, other counts of loads
+in flight, a fence for each arrival, clusters of up to 16 blocks (the
+card's non-portable sizes: one cluster of 9 at d 1600), grouped blocks that
+stream their Q at 2 chunks, the one-cluster shapes on the groups' kernels,
+and diagnostics with every load from the block's own buffer, or without
+any exchange; and times each at bf16 (2, 2048, 2, 512) causal and not,
+(2, 2048, 4, 320), (2, 2048, 1, 1000) and (2, 2048, 1, 1400), d 320 at an
+offset of one element (its LDG route), the groups of clusters at (2, 2048,
+1, 1600), (2, 2048, 1, 2048) and (1, 2048, 1, 3300), beside
+``flash_fwd_tc_wg`` at (2, 2048, 4, 256), the same operations as 2 heads of
+512.
 ``--kernel wg_ldg`` builds variants of ``flash_attention_fwd_tc.cu`` that
 differ from ``flash_fwd_tc_wg_ldg`` (the wgmma kernel's producer for the
 bf16/fp16 rows TMA refuses) by the patches of ``WG_LDG_PATCHES``: its
@@ -87,6 +92,7 @@ import os
 import re
 import subprocess
 import sys
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
 import torch.nn.functional as F
@@ -267,6 +273,9 @@ _ALL = (64, 128, 192, 256)
 _TWO = (128, 192, 256)   # the widths with two consumers
 # flash_fwd_tc_wg_ldg: name: patches (a patch's replacement may be a
 # function of the match)
+# the LDG route has its loop twice, in produce_ldg (flash_fwd_tc_wg_ldg's
+# and one cluster's producer) and in ldg_pieces (the groups'): a patch of
+# the loop changes both, as a patch of LDG_THREADS or shift_row must
 WG_LDG_PATCHES = {
     # more, smaller pieces in the same or more shared memory: more in
     # flight, more barrier round trips
@@ -279,7 +288,7 @@ WG_LDG_PATCHES = {
                 "constexpr int LDG_THREADS = 64;", 1),
                (r"(  const int t = threadIdx\.x % 128;\n)"
                 r"(  // a loading thread takes)",
-                "\\1  if (t >= LDG_THREADS) return;\n\\2", 1)],
+                "\\1  if (t >= LDG_THREADS) return;\n\\2", 2)],
     # each loading thread reads its chunks' words from device memory into
     # registers (read-only loads), no copies into the staging
     "direct": [(r"(// 16 bytes of shared memory at a 16-byte aligned "
@@ -289,9 +298,9 @@ WG_LDG_PATCHES = {
                (r"shift_row<SH, DC>\(stg \+ buf \* PIECE \+ r \* L::RAW "
                 r"\+ jc \* 16, sh, dst,",
                 "shift_row<SH, DC>((reinterpret_cast<uint64_t>(x.src + "
-                "(int64_t)row * rs) & ~uint64_t{15}) + jc * 16, sh, dst,", 1),
+                "(int64_t)row * rs) & ~uint64_t{15}) + jc * 16, sh, dst,", 2),
                (r"cp_async16_to\(dst \+ r \* L::RAW \+ m \* 128, "
-                r"from \+ m \* 128\);", "{}", 1)],
+                r"from \+ m \* 128\);", "{}", 2)],
     # the producer at what the two consumers at 240 leave it, 24 registers
     # (committed: 40, the consumers at 232)
     "regs24": _ldg(_TWO, regs=0),
@@ -303,20 +312,20 @@ WG_LDG_PATCHES = {
     # every width (committed: one row at a time at widths 192 and 256, one
     # chunk at a time at 256)
     "rows_unrolled": [(r"#pragma unroll\(DC > 2 \? 1 : SR / RG\)",
-                       "#pragma unroll", 2)],
+                       "#pragma unroll", 4)],
     "chunks_unrolled": [(r"#pragma unroll\(DC > 3 \? 1 : DC\)",
                          "#pragma unroll", 1)],
     "loads_only": WG_PATCHES["loads_only"],
     # diagnostics beside loads_only: the producer without its copies, or
     # without its shifts
     "no_copy": [(r"cp_async16_to\(dst \+ r \* L::RAW \+ m \* 128, "
-                 r"from \+ m \* 128\);", "{}", 1)],
+                 r"from \+ m \* 128\);", "{}", 2)],
     "no_shift": [(r"for \(int u = 0; u < SR / RG; \+\+u\) \{\n"
                   r"( +const int r = rq \+ u \* RG;\n +const int rt)",
-                  "for (int u = 0; u < 0; ++u) {\n\\1", 1)],
+                  "for (int u = 0; u < 0; ++u) {\n\\1", 2)],
     # a diagnostic: no proxy fence ahead of a tile's full barrier
     "no_fence": [(r'asm volatile\("fence\.proxy\.async\.shared::cta;\\n" '
-                  r'::: "memory"\);', "", 1)],
+                  r'::: "memory"\);', "", 2)],
 }
 WG_LDG_VARIANTS = {
     "committed": (),
@@ -633,30 +642,38 @@ def _cw(width):
 # pieces: what fits beside 256-wide tiles or 64-row K/V tiles
 _LDG_SMALL = [(r"constexpr int XP_LDG = 1;", "constexpr int XP_LDG = 2;", 1),
               (r"(struct LdgTraits : LdgOf<)32(, 2, 40>)", "\\g<1>16\\2", 1)]
+# no groups of clusters (form 1) instantiated: its layout, with a second Q
+# slot a consumer and rings of two, fits beside none of the tiles of the
+# variants that take this; they run the one-cluster shapes only, and the
+# sweep leaves out the cases past them (their launch is refused)
+_ONE_CLUSTER = [(r"constexpr int GL_MIN = CL_MOST / 2 \+ 1;",
+                 "constexpr int GL_MIN = CL_MOST + 1;", 1)]
 # flash_fwd_tc_cluster: (pattern, replacement, matches) of each patch
 TC_CLUSTER_PATCHES = {
     # 128-wide chunks with 64-row K/V tiles: clusters of 3-8 blocks, O 64
     # registers a thread, twice the partials to read at d 512
     "w128": _cw(128) + _cluster_tiles(bk=64),
-    # 256-wide chunks: clusters of 2-4 blocks, O 128 registers a thread,
+    # 256-wide chunks: clusters of 2-8 blocks, O 128 registers a thread,
     # the fewest partials to read; ptxas spills and serializes the wgmma.
     # Two stages, and the partials in two pieces (four on the LDG route,
     # its staging of 16-row pieces), to fit
-    "w256": _cw(256) + _cluster_tiles(bk=64, stages=2)
+    "w256": _cw(256) + _cluster_tiles(bk=64, stages=2) + _ONE_CLUSTER
     + [(r"constexpr int XP_TMA = 1;", "constexpr int XP_TMA = 2;", 1),
        (r"constexpr int XP_LDG = 1;", "constexpr int XP_LDG = 4;", 1),
        (r"(struct LdgTraits : LdgOf<)32(, 2, 40>)", "\\g<1>16\\2", 1)],
-    "w256_bk32": _cw(256),
+    "w256_bk32": _cw(256) + _ONE_CLUSTER,
     # K/V tiles of 64 rows (S m64n64: half the exchanges, each twice the
     # size), two stages to fit
-    "bk64": _cluster_tiles(bk=64, stages=2) + _LDG_SMALL,
-    # three or four ring stages (two committed)
-    "stages3": _cluster_tiles(stages=3),
-    "stages4": _cluster_tiles(stages=4),
+    "bk64": _cluster_tiles(bk=64, stages=2) + _LDG_SMALL + _ONE_CLUSTER,
+    # three or four ring stages (two committed; the groups' rings are of
+    # two)
+    "stages3": _cluster_tiles(stages=3) + _ONE_CLUSTER,
+    "stages4": _cluster_tiles(stages=4) + _ONE_CLUSTER,
     # exp2f and one chain a row's max and sum (ex2.approx.ftz committed)
     "exp2f": _cluster_tiles(ex2=0),
-    # the consumers take turns to issue their products
-    "pingpong": _cluster_tiles(pingpong=1),
+    # the consumers take turns to issue their products (the groups' do
+    # not)
+    "pingpong": _cluster_tiles(pingpong=1) + _ONE_CLUSTER,
     # the partials in two pieces a tile, an exchange each
     "xp2": [(r"constexpr int XP_TMA = 1;", "constexpr int XP_TMA = 2;", 1)],
     # 4 or 16 loads from the cluster in flight a thread (8 committed)
@@ -669,14 +686,33 @@ TC_CLUSTER_PATCHES = {
     "release_each": [(r"@p fence\.acq_rel\.cluster;", "", 1),
                      (r"mbarrier\.arrive\.relaxed\.cluster",
                       "mbarrier.arrive.release.cluster", 1)],
-    # d 257-1024 on the split over d (PR 6's kernel)
-    "split": [(r"if \(d <= wgk::CLUSTER_D", "if (d < 0", 2)],
+    # clusters of up to 16 blocks, the card's non-portable sizes (allowed
+    # on the kernel at every launch past 8): one cluster of 9 at d 1600,
+    # groups only past 16 chunks
+    "c16": [(r"constexpr int CL_MOST = 8;", "constexpr int CL_MOST = 16;", 1),
+            (r"(    cudaError_t err = allow_smem\(kernel\(\), SMEM, "
+             r"smem_set\);\n)",
+             "\\1    if (err == cudaSuccess && CL > 8)\n"
+             "      err = cudaFuncSetAttribute(\n"
+             "          kernel(), "
+             "cudaFuncAttributeNonPortableClusterSizeAllowed, 1);\n", 1)],
+    # grouped blocks that reduce 2 chunks stream their Q beside K, as
+    # those past 2 do (committed: they keep it for the Q tile)
+    "qstream2": [(r"constexpr int Q_KEEP = 2;", "constexpr int Q_KEEP = 1;",
+                  1)],
+    # the one-cluster shapes (d <= 1536) on the groups' kernels as one
+    # group (form 1 at G = 1: consume_steps and the step producers, a
+    # second Q slot): what keeping form 0 beside form 1 is worth
+    "form1": [(r"constexpr int GL_MIN = CL_MOST / 2 \+ 1;",
+               "constexpr int GL_MIN = CL_MIN;", 1),
+              (r"at_shape\(shape\.blocks, shape\.groups > 1,",
+               "at_shape(shape.blocks, 1,", 1)],
     # diagnostics (wrong results): each block's loads all read its own
     # buffer (the stores and barriers stay), and no exchange at all
     "no_exchange": [(r"ld_cluster\(map_rank\(mine, r\)",
-                     "ld_cluster(map_rank(mine, blockIdx.z)", 1)],
-    "compute_alone": [(r" +xchg\(sc, (?:kt|0)\);\n", "", 2),
-                      (r" +xchg\.finish\(n_tiles\);\n", "", 1)],
+                     "ld_cluster(map_rank(mine, blockIdx.z % CL)", 1)],
+    "compute_alone": [(r" +xchg\(sc, (?:kt|0)\);\n", "", 4),
+                      (r" +xchg\.finish\(n_tiles\);\n", "", 2)],
 }
 TC_CLUSTER_VARIANTS = {   # name: patches
     "committed": (),
@@ -692,21 +728,28 @@ TC_CLUSTER_VARIANTS = {   # name: patches
     "loads4": ("loads4",),
     "loads16": ("loads16",),
     "release_each": ("release_each",),
-    "split": ("split",),
+    "c16": ("c16",),
+    "qstream2": ("qstream2",),
+    "form1": ("form1",),
     "no_exchange": ("no_exchange",),
     "compute_alone": ("compute_alone",),
 }
-# bf16: the LM at 2 heads of 512 (causal and not), the split's old row at 4
-# heads of 320, d 1000 (clusters of 4 blocks), d 320 at an offset of one
-# element (the LDG route), and flash_fwd_tc_wg at 4 heads of 256 (the same
-# operations as 2 heads of 512; no variant changes its kernel) as a
-# yardstick
+# bf16: the LM at 2 heads of 512 (causal and not), 4 heads of 320, d 1000
+# and 1400 (clusters of 6 and 8 blocks), d 320 at an offset of one element
+# (the LDG route), the groups of clusters at d 1600 (two of 5), 2048 (two
+# of 6) and 3300 (three of 6, Q streamed), and flash_fwd_tc_wg at 4 heads
+# of 256 (the same operations as 2 heads of 512; no variant changes its
+# kernel) as a yardstick
 TC_CLUSTER_CASES = {
     "d512_causal": ((2, 2048, 2, 512), 2048, True),
     "d320_causal": ((2, 2048, 4, 320), 2048, True),
     "d512_noncausal": ((2, 2048, 2, 512), 2048, False),
     "d1000_causal": ((2, 2048, 1, 1000), 2048, True),
+    "d1400_causal": ((2, 2048, 1, 1400), 2048, True),
     "d320_causal_offset1": ((2, 2048, 4, 320), 2048, True, 1),
+    "d1600_causal": ((2, 2048, 1, 1600), 2048, True),
+    "d2048_causal": ((2, 2048, 1, 2048), 2048, True),
+    "d3300_causal": ((1, 2048, 1, 3300), 2048, True),
     "d256_wg_causal": ((2, 2048, 4, 256), 2048, True),
 }
 WIDE_VARIANTS = {   # name: patches
@@ -770,6 +813,13 @@ DIAGNOSTICS = {
     "f32cluster": ("no_exchange", "compute_alone"),
     "tccluster": ("no_exchange", "compute_alone"),
 }
+# each kernel's variants built without groups of clusters (_ONE_CLUSTER):
+# a case whose launch they refuse is left out of their rows
+ONE_CLUSTER = {
+    "tccluster": tuple(n for n, p in TC_CLUSTER_VARIANTS.items()
+                       if any(_ONE_CLUSTER[0] in TC_CLUSTER_PATCHES[x]
+                              for x in p)),
+}
 # kernel: (source, variants, make a variant's source, ptxas markers)
 KERNELS = {
     "f32": ("flash_attention_fwd.cu", VARIANTS, variant_source,
@@ -799,19 +849,22 @@ def build_all(out_dir, kernel="f32", only=None):
         variants = {n: variants[n] for n in only}
     with open(os.path.join(_native.CSRC_DIR, source)) as f:
         src = f.read()
-    procs = {}
-    for name, params in variants.items():
-        cu = os.path.join(out_dir, f"sweep_{name}.cu")
-        with open(cu, "w") as f:
-            f.write(make(src, *params))
-        procs[name] = subprocess.Popen(
-            [_native._nvcc(), *_native.NVCC_FLAGS, "-o",
-             os.path.join(out_dir, f"libsweep_{name}.so"), cu],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    # every variant built as the library is (_native.compile_library, in
+    # its parts), all at once
+    parts = _native.PARTS.get(source[:-len(".cu")], 1)
+    jobs = {}
+    with ThreadPoolExecutor(max_workers=len(variants)) as pool:
+        for name, params in variants.items():
+            cu = os.path.join(out_dir, f"sweep_{name}.cu")
+            with open(cu, "w") as f:
+                f.write(make(src, *params))
+            jobs[name] = pool.submit(
+                _native.compile_library, cu,
+                os.path.join(out_dir, f"libsweep_{name}.so"), parts)
     fns, ptxas = {}, {}
-    for name, proc in procs.items():
-        log = proc.communicate()[0]
-        if proc.returncode != 0:
+    for name, job in jobs.items():
+        ok, log = job.result()
+        if not ok:
             raise RuntimeError(f"nvcc failed for {name}:\n{log}")
         # ptxas -v: a "Compiling entry function" line, then the kernel's
         # spills and registers; then ptxas's notes on the kernel, such as
@@ -886,6 +939,7 @@ def main(argv=None):
                       time_device)}[args.kernel]
     g = torch.Generator(device="cuda").manual_seed(0)
     data = {}
+    refused = set()   # (variant, case) a one-cluster variant cannot run
     for case, (shp, t_k, causal, *offset) in cases.items():
         q = torch.randn(shp, generator=g, device="cuda").to(dtype)
         k = torch.randn((shp[0], t_k) + shp[2:], generator=g,
@@ -898,7 +952,13 @@ def main(argv=None):
         for name, fn in fns.items():
             if name in DIAGNOSTICS.get(args.kernel, ()):
                 continue   # a diagnostic: its results are wrong
-            got = call(fn, q, k, v, causal).float()
+            try:
+                got = call(fn, q, k, v, causal).float()
+            except RuntimeError:
+                if name not in ONE_CLUSTER.get(args.kernel, ()):
+                    raise
+                refused.add((name, case))
+                continue
             err = float((got - want).abs().max())
             if not err <= tol:
                 raise SystemExit(f"{name} {case}: max abs err {err}")
@@ -949,8 +1009,9 @@ def main(argv=None):
     for r in range(args.rounds):
         for name in order if r % 2 == 0 else order[::-1]:
             for case, (q, k, v, causal) in data.items():
-                ms[name][case].append(timer(run(name, case, q, k, v,
-                                                causal)))
+                if (name, case) not in refused:
+                    ms[name][case].append(timer(run(name, case, q, k, v,
+                                                    causal)))
     variants = dict(KERNELS[args.kernel][1], **{n: () for n in extra})
     rows = [{"variant": n, "params": variants[n], "ptxas": ptxas.get(n),
              "timer": timer.__name__, "card": card, "ms": ms[n]}

@@ -59,7 +59,7 @@ def _at_offset(x, offset):
     # partial 64-wide box, filled with zeros by TMA), causal and not,
     # ragged T, with q_offset; 130 (rows not 16-byte aligned in 16 bits)
     # and views at an offset of one element: fp32's 4-byte copies, the
-    # tensor-core split's element-wise loads
+    # tensor-core kernel's LDG producer
     (True, 32, 100, 132, 160, 0), (False, 16, 90, 70, 160, 0),
     (True, 0, 129, 129, 200, 0), (False, 8, 64, 77, 200, 0),
     (True, 64, 130, 194, 256, 0), (False, 0, 70, 140, 256, 0),
@@ -117,18 +117,17 @@ def test_cuda_kernel_matches_plain(dtype, tol, causal, q_offset, t_q, t_k, d,
     assert tfa.flash_attention.launches == before + 1
     # the kernel of the route: bf16/fp16 up to d 256 run the wgmma kernel,
     # flash_fwd_tc_wg with 16-byte rows, flash_fwd_tc_wg_ldg with the
-    # others, from 257 to 1536 its cluster, flash_fwd_tc_cluster and
-    # flash_fwd_tc_cluster_ldg, and wider the split over d; fp32 runs
-    # flash_fwd_f32 up to 128, flash_fwd_f32_wide (either copy width) from
-    # 129 to 256 and flash_fwd_f32_cluster above
+    # others, and above its clusters, flash_fwd_tc_cluster and
+    # flash_fwd_tc_cluster_ldg; fp32 runs flash_fwd_f32 up to 128,
+    # flash_fwd_f32_wide (either copy width) from 129 to 256 and
+    # flash_fwd_f32_cluster above
     assert tfa.flash_attention.launches_by_kernel[plan] == by_kernel + 1
     if dtype == torch.float32:
         route = ("flash_fwd_f32" if d <= 128 else "flash_fwd_f32_wide"
                  if d <= 256 else "flash_fwd_f32_cluster")
     else:
-        route = ("flash_fwd_tc_split" if d > 1536 else
-                 "flash_fwd_tc_cluster" if d > 256 else "flash_fwd_tc_wg")
-        route += "" if aligned or d > 1536 else "_ldg"
+        route = "flash_fwd_tc_cluster" if d > 256 else "flash_fwd_tc_wg"
+        route += "" if aligned else "_ldg"
     assert plan == route
     want = tfa.flash_attention_reference(q.float(), k.float(), v.float(),
                                          causal=causal, q_offset=q_offset)
@@ -216,18 +215,27 @@ def test_f32_cluster_matches_plain(batch, t_q, t_k, heads, d, causal,
     (2, 1, 40, 2, 512, True, 39, 0), (2, 33, 33, 2, 640, True, 0, 0),
     (1, 200, 264, 2, 1000, True, 64, 1),
     # 1100 (6 blocks), 1344 and 1200 (7), 1400 and 1536 (8, the portable
-    # limit), both routes; above 1536: the split over d, both copy widths
+    # limit), both routes; above 1536 groups of clusters, each computing S
+    # once: 1600 (two groups of 5, block 9 without an output chunk, the
+    # last rank reducing one chunk), both routes, 2048 (two of 6), 3072
+    # (two of 8, the widest that keeps its Q chunks), 3300 at a small T
+    # (three of 6, Q streamed beside K), and 2-byte rows above 1536 (1601,
+    # and 1600 at an offset of one element)
     (2, 65, 65, 2, 1100, True, 0, 0), (2, 65, 65, 2, 1100, True, 0, 1),
     (1, 130, 130, 1, 1344, True, 0, 0), (2, 77, 90, 1, 1200, False, 13, 1),
     (1, 130, 130, 1, 1400, True, 0, 0), (1, 70, 90, 1, 1536, True, 20, 1),
-    (2, 65, 65, 2, 1600, True, 0, 0), (1, 70, 70, 1, 1600, False, 0, 1)])
+    (2, 65, 65, 2, 1600, True, 0, 0), (1, 70, 70, 1, 1600, False, 0, 1),
+    (1, 200, 264, 1, 2048, True, 64, 0), (2, 130, 130, 1, 3072, True, 0, 0),
+    (1, 70, 70, 1, 3300, True, 0, 0), (1, 100, 130, 1, 3300, False, 0, 1),
+    (1, 129, 129, 2, 1601, True, 0, 0)])
 def test_tc_cluster_matches_plain(dtype, tol, batch, t_q, t_k, heads, d,
                                   causal, q_offset, offset):
-    """bf16/fp16 head dims 257-1536 on flash_fwd_tc_cluster (16-byte rows)
-    and flash_fwd_tc_cluster_ldg (the others; above 1536 the split), each
-    launch counted by exact name, held to the fp32 plain version on the same
-    inputs at the 16-bit limits; the blocks of a cluster sum their partial
-    scores in rank order, so a second run gives the same bits."""
+    """bf16/fp16 head dims above 256 on flash_fwd_tc_cluster (16-byte rows)
+    and flash_fwd_tc_cluster_ldg (the others), past 1536 in groups of
+    clusters, each launch counted by exact name, held to the fp32 plain
+    version on the same inputs at the 16-bit limits; the blocks of a
+    cluster sum their partial scores in rank order, so a second run gives
+    the same bits."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU and nvcc; runs on the card")
     g = torch.Generator(device="cuda").manual_seed(d + t_q)
@@ -238,10 +246,11 @@ def test_tc_cluster_matches_plain(dtype, tol, batch, t_q, t_k, heads, d,
                           itemsize=2)
     assert copy == (2 if offset or d % 8 else 16)
     plan = tfa.launch_plan(dtype, batch, t_q, heads, d, copy)
-    assert plan[0] == ("flash_fwd_tc_split" if d > 1536 else
-                       "flash_fwd_tc_cluster" if copy == 16 else
+    assert plan[0] == ("flash_fwd_tc_cluster" if copy == 16 else
                        "flash_fwd_tc_cluster_ldg")
-    assert plan[2][2] == -(-d // (128 if d > 1536 else 192))
+    groups, blocks, _ = tfa.tc_cluster_groups(d)
+    assert plan[2][2] == groups * blocks >= -(-d // 192)
+    assert (groups > 1) == (d > 1536)
     counts = tfa.flash_attention.launches_by_kernel
     before = dict(counts)
     got = tfa.flash_attention(q, k, v, causal=causal, q_offset=q_offset)
@@ -324,6 +333,38 @@ def test_ldg_route_bit_identical_to_tma(dtype, d, causal, q_offset, t_q,
     torch.cuda.synchronize()
     assert counts["flash_fwd_tc_wg_ldg"] == before["flash_fwd_tc_wg_ldg"] + 1
     assert counts["flash_fwd_tc_wg"] == before["flash_fwd_tc_wg"] + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d,causal,q_offset,t_q,t_k", [
+    # one cluster (d 320, 1536) and groups of clusters (1600: two of 5;
+    # 2048: two of 6; 3304: three of 6, Q streamed)
+    (320, True, 0, 300, 300), (1536, False, 0, 130, 130),
+    (1600, True, 40, 200, 240), (2048, False, 0, 130, 333),
+    (3304, True, 0, 70, 70)])
+def test_cluster_ldg_route_bit_identical_to_tma(dtype, d, causal, q_offset,
+                                                t_q, t_k):
+    """The cluster kernels' LDG producer writes the bytes TMA would have, in
+    one cluster and in groups of clusters: on views at an offset of one
+    element it gives the same bits as flash_fwd_tc_cluster on aligned
+    copies of the same inputs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc; runs on the card")
+    g = torch.Generator(device="cuda").manual_seed(d)
+    q, k, v = (_at_offset(torch.randn((1, t, 2, d), generator=g,
+                                      device="cuda").to(dtype), 1)
+               for t in (t_q, t_k, t_k))
+    counts = tfa.flash_attention.launches_by_kernel
+    before = dict(counts)
+    got = tfa.flash_attention(q, k, v, causal=causal, q_offset=q_offset)
+    want = tfa.flash_attention(q.clone(), k.clone(), v.clone(),
+                               causal=causal, q_offset=q_offset)
+    torch.cuda.synchronize()
+    assert {n: c - before[n] for n, c in counts.items()
+            if c != before[n]} == {"flash_fwd_tc_cluster_ldg": 1,
+                                   "flash_fwd_tc_cluster": 1}
     assert torch.equal(got, want)
 
 

@@ -173,7 +173,8 @@ def test_copy_bytes_rule(d, offset, want):
     (torch.float16, 256, ("flash_fwd_tc_wg", 256, (6, 2, 1))),
     # from 257 to 1536: a cluster of ceil(d / 192) blocks for each two
     # 64-row Q tiles, each block a 192-wide chunk of d (on the grid's z),
-    # 8 blocks (the portable limit) at the most; the split over d above
+    # 8 blocks (the portable limit) at the most; above, groups of clusters
+    # (d 1537: 9 chunks, two groups of 5 blocks)
     (torch.bfloat16, 264, ("flash_fwd_tc_cluster", 192, (6, 2, 2))),
     (torch.bfloat16, 257, ("flash_fwd_tc_cluster", 192, (6, 2, 2))),
     (torch.float16, 257, ("flash_fwd_tc_cluster", 192, (6, 2, 2))),
@@ -185,7 +186,7 @@ def test_copy_bytes_rule(d, offset, want):
     (torch.bfloat16, 1152, ("flash_fwd_tc_cluster", 192, (6, 2, 6))),
     (torch.bfloat16, 1153, ("flash_fwd_tc_cluster", 192, (6, 2, 7))),
     (torch.float16, 1536, ("flash_fwd_tc_cluster", 192, (6, 2, 8))),
-    (torch.bfloat16, 1537, ("flash_fwd_tc_split", 128, (6, 4, 13))),
+    (torch.bfloat16, 1537, ("flash_fwd_tc_cluster", 192, (6, 2, 10))),
     # d up to 64 at width 64, 65-128 at width 128 (columns past d zero)
     (torch.bfloat16, 32, ("flash_fwd_tc_wg", 64, (6, 1, 1))),
     (torch.bfloat16, 40, ("flash_fwd_tc_wg", 64, (6, 1, 1))),
@@ -199,10 +200,9 @@ def test_launch_plan_by_head_dim(dtype, d, want):
     128 and its wide kernel from 129 to 256; bf16/fp16 the wgmma/TMA kernel
     at the smallest of widths 64, 128, 192 and 256 that holds d; above 256
     clusters of blocks on the grid's z, each a 128-wide chunk of d in fp32
-    (past 16 chunks in groups) and a 192-wide one in bf16/fp16 up to 1536;
-    wider bf16/fp16 heads the split over d, one 128-wide chunk of the
-    output's columns on each grid z. fp32 Q tiles are 128 rows up to width
-    64, else 64."""
+    (past 16 chunks in groups) and a 192-wide one in bf16/fp16 (past 8
+    chunks in groups). fp32 Q tiles are 128 rows up to width 64, else
+    64."""
     assert tfa.launch_plan(dtype, 2, 200, 3, d) == want
     assert tfa.launch_plan(dtype, 2, 200, 3, d, 16) == want
 
@@ -232,8 +232,8 @@ def test_launch_plan_by_head_dim(dtype, d, want):
     # 2-byte rows at d 129-256 (250: 500-byte rows)
     (torch.float16, 250, 2, ("flash_fwd_tc_wg_ldg", 256, (6, 2, 1))),
     (torch.bfloat16, 192, 2, ("flash_fwd_tc_wg_ldg", 192, (6, 2, 1))),
-    # 2-byte rows from 257 to 1536: the cluster kernel's LDG route; wider,
-    # the split over d
+    # 2-byte rows above 256: the cluster kernel's LDG route, past 1536 in
+    # groups of clusters
     (torch.bfloat16, 257, 2, ("flash_fwd_tc_cluster_ldg", 192, (6, 2, 2))),
     (torch.float16, 320, 2, ("flash_fwd_tc_cluster_ldg", 192, (6, 2, 2))),
     (torch.float16, 257, 2, ("flash_fwd_tc_cluster_ldg", 192, (6, 2, 2))),
@@ -242,13 +242,14 @@ def test_launch_plan_by_head_dim(dtype, d, want):
     (torch.bfloat16, 1025, 2, ("flash_fwd_tc_cluster_ldg", 192, (6, 2, 6))),
     (torch.float16, 1100, 2, ("flash_fwd_tc_cluster_ldg", 192, (6, 2, 6))),
     (torch.bfloat16, 1535, 2, ("flash_fwd_tc_cluster_ldg", 192, (6, 2, 8))),
-    (torch.float16, 1537, 2, ("flash_fwd_tc_split", 128, (6, 4, 13)))])
+    (torch.float16, 1537, 2, ("flash_fwd_tc_cluster_ldg", 192, (6, 2, 10))),
+    (torch.bfloat16, 1601, 2, ("flash_fwd_tc_cluster_ldg", 192, (6, 2, 10)))])
 def test_launch_plan_by_copy_width(dtype, d, copy, want):
     """2-byte rows (what TMA refuses: d not a multiple of 8, or a base that
     is not 16-byte aligned) run flash_fwd_tc_wg_ldg up to d 256 and
-    flash_fwd_tc_cluster_ldg from 257 to 1536, at the TMA route's width and
-    grid, and the split over d above; fp32's 4-byte copies change no route:
-    the wide and cluster kernels copy 4 bytes at a time too."""
+    flash_fwd_tc_cluster_ldg above, at the TMA route's width and grid;
+    fp32's 4-byte copies change no route: the wide and cluster kernels copy
+    4 bytes at a time too."""
     assert tfa.launch_plan(dtype, 2, 200, 3, d, copy) == want
 
 
@@ -366,17 +367,22 @@ def test_launch_plan_batch_heads(batch, heads, ok):
 def test_launch_plan_q_tiles_and_chunks_capped():
     """Q tiles (grid y) and d-chunks (grid z) stay within 65535: bf16 at
     d 64 runs four 64-row Q tiles a block (256 rows) with either producer,
-    the split over d one; fp32's groups of clusters put all their blocks
-    on z."""
+    its groups of clusters at d 1600 two; the groups of clusters of both
+    put all their blocks on z."""
     for copy in (16, 2):
         assert tfa.launch_plan(torch.bfloat16, 1, 256 * 65535, 1, 64,
                                copy)[2][1] == 65535
         with pytest.raises(MXNetError, match="Q tiles"):
             tfa.launch_plan(torch.bfloat16, 1, 256 * 65535 + 1, 1, 64, copy)
-    assert tfa.launch_plan(torch.bfloat16, 1, 64 * 65535, 1, 1600, 2)[2][1] \
-        == 65535
+    assert tfa.launch_plan(torch.bfloat16, 1, 128 * 65535, 1, 1600,
+                           2)[2][1] == 65535
     with pytest.raises(MXNetError, match="Q tiles"):
-        tfa.launch_plan(torch.bfloat16, 1, 64 * 65535 + 1, 1, 1600, 2)
+        tfa.launch_plan(torch.bfloat16, 1, 128 * 65535 + 1, 1, 1600, 2)
+    # 65528 chunks of 192: 8191 groups of 8 blocks; 65529: 8192 groups of 8
+    assert tfa.launch_plan(torch.float16, 1, 64, 1, 192 * 65528)[2][2] \
+        == 65528
+    with pytest.raises(MXNetError, match="d-chunks"):
+        tfa.launch_plan(torch.float16, 1, 64, 1, 192 * 65528 + 1, 2)
     # 65520 chunks: 4095 groups of 16 blocks; 65521: 4096 groups of 16
     assert tfa.launch_plan(torch.float32, 1, 64, 1, 128 * 65520)[2][2] \
         == 65520
@@ -466,15 +472,64 @@ def test_cluster_groups_cover_every_chunk_once(d):
     assert n <= groups * blocks < n + groups
 
 
+@pytest.mark.parametrize("d", [257, 1536, 1537, 1600, 2048, 3072, 3073, 3300,
+                               8300, 100000])
+def test_tc_cluster_groups_cover_every_chunk_once(d):
+    """bf16/fp16's groups of clusters: at most 8 blocks a cluster (the
+    portable limit); one cluster up to 8 chunks of 192 columns, and past
+    them ceil(n / 8) groups; in every group the blocks' chunks (rank r: r,
+    r + blocks, ...) cover each chunk of d once, so S is computed once a
+    group; the grid's groups * blocks output chunks cover the n of d."""
+    n = -(-d // 192)
+    groups, blocks, chunks = tfa.tc_cluster_groups(d)
+    assert blocks <= 8 and groups == -(-n // 8)
+    assert (groups == 1) == (n <= 8) == (d <= 1536)
+    assert groups > 1 or chunks == 1
+    assert groups == 1 or blocks >= 5
+    covered = sorted(r + u * blocks for r in range(blocks)
+                     for u in range(chunks))
+    assert [c for c in covered if c < n] == list(range(n))
+    assert n <= groups * blocks < n + groups
+
+
+@pytest.mark.parametrize("d,z", [(1537, 10), (1600, 10), (1601, 10),
+                                 (2048, 12), (2304, 12), (2305, 14),
+                                 (3072, 16), (3073, 18), (3300, 18),
+                                 (8300, 48)])
+def test_launch_plan_tc_cluster_groups_grid(d, z):
+    """bf16/fp16 above d 1536: the cluster kernels' groups of clusters for
+    each two 64-row Q tiles of a head, all their blocks (groups * blocks)
+    on the grid's z, the same grid at either copy width, and its y capped
+    like the other kernels'."""
+    groups, blocks, _ = tfa.tc_cluster_groups(d)
+    assert groups * blocks == z
+    for t_q, tiles in ((1, 1), (128, 1), (129, 2), (2048, 16), (2049, 17)):
+        for dtype in (torch.bfloat16, torch.float16):
+            for copy, name in ((16, "flash_fwd_tc_cluster"),
+                               (2, "flash_fwd_tc_cluster_ldg")):
+                assert tfa.launch_plan(dtype, 2, t_q, 4, d, copy) \
+                    == (name, 192, (8, tiles, z))
+    assert tfa.launch_plan(torch.bfloat16, 1, 128 * 65535, 1, d)[2][1] \
+        == 65535
+    with pytest.raises(MXNetError, match="Q tiles"):
+        tfa.launch_plan(torch.float16, 1, 128 * 65535 + 1, 1, d, 2)
+
+
 def _group_schedule(q, k, v, causal, q_offset, width, most, block_k=32):
-    """flash_fwd_f32_cluster's schedule in torch, at chunk width ``width``
-    and clusters of at most ``most`` blocks (:func:`cluster_groups`): for
-    each group and K tile, block r's partial S over its chunks r, r +
-    blocks, ... (zero past d) in order, the blocks' partials summed in
-    rank order; then the online softmax of that S and P V for each output
-    chunk of the group's blocks, normalised by the same l. Checks that every
-    group covers each chunk of d once and computes the same S bits, and
-    that each output chunk is written once."""
+    """The schedule of the groups of clusters (flash_fwd_f32_cluster's,
+    and flash_fwd_tc_cluster's past 8 chunks) in torch, at chunk width
+    ``width`` and clusters of at most ``most`` blocks
+    (:func:`cluster_groups`): for each group and K tile, block r's partial
+    S over its chunks r, r + blocks, ... (zero past d) in order, the
+    blocks' partials summed in rank order; then the online softmax of that
+    S and P V for each output chunk of the group's blocks, normalised by
+    the same l. S, m, l and O are fp32; with 16-bit inputs P is rounded to
+    their type before P V, as the tensor-core kernels do, and the output
+    is rounded to it. Checks that every group covers each chunk of d once
+    and computes the same S bits, and that each output chunk is written
+    once."""
+    dtype = q.dtype
+    q, k, v = q.float(), k.float(), v.float()
     b, t_q, h, d = q.shape
     t_k = k.shape[1]
     n = -(-d // width)
@@ -519,9 +574,10 @@ def _group_schedule(q, k, v, causal, q_offset, width, most, block_k=32):
             p = torch.exp(x - m_new[..., None])
             l = l * corr + p.sum(-1)
             m = m_new
+            p_v = p.to(dtype).float()   # P as P V takes it
             for z in outs:
                 acc[z] = acc[z] * corr[..., None] + torch.einsum(
-                    "bhqk,bkhd->bhqd", p, cols(vt, z))
+                    "bhqk,bkhd->bhqd", p_v, cols(vt, z))
         scores.append(group_scores)
         for z in outs:
             if z < n:
@@ -531,26 +587,33 @@ def _group_schedule(q, k, v, causal, q_offset, width, most, block_k=32):
     assert all(torch.equal(a, b) for other in scores[1:]
                for a, b in zip(scores[0], other))
     assert written == [1] * n + [0] * (groups * blocks - n)
-    return out[..., :d]
+    return out[..., :d].to(dtype)
 
 
 # d 64: one cluster of 4 chunks; 100: 7 chunks, two groups of 4 (chunk 7
 # past d: rank 3 reduces chunks 3 and 7, output chunk 7 is idle); 150: 10
-# chunks, three groups of 4
+# chunks, three groups of 4. fp32 as flash_fwd_f32_cluster computes it;
+# bf16 as the tensor-core cluster kernels do (P rounded to bf16 before P
+# V), held at their limit on the card
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-5),
+                                        (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("d", [64, 100, 150])
 @pytest.mark.parametrize("causal", [False, True])
-def test_group_schedule_matches_pallas_interpret(d, causal):
-    """The group schedule of flash_fwd_f32_cluster, emulated in torch at
+def test_group_schedule_matches_pallas_interpret(dtype, atol, d, causal):
+    """The schedule of the groups of clusters, emulated in torch at
     16-wide chunks and clusters of at most 4 blocks, against the JAX
-    kernel in interpret mode on the same inputs, within 1e-5, with
-    q_offset on the causal case."""
-    q, k, v = _inputs(13, [(1, 128, 2, d), (1, 256, 2, d), (1, 256, 2, d)])
+    kernel in interpret mode on the same inputs (rounded to ``dtype``),
+    with q_offset on the causal case."""
+    q, k, v = (torch.from_numpy(a).to(dtype) for a in _inputs(
+        13, [(1, 128, 2, d), (1, 256, 2, d), (1, 256, 2, d)]))
     kw = dict(causal=causal, q_offset=128 if causal else 0)
-    want = np.asarray(jax_flash(*(jnp.asarray(a) for a in (q, k, v)),
-                                interpret=True, **kw))
-    got = _group_schedule(*(torch.from_numpy(a) for a in (q, k, v)),
-                          width=16, most=4, **kw)
-    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5)
+    jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    want = np.asarray(jax_flash(*(jnp.asarray(x.float().numpy()).astype(jdt)
+                                  for x in (q, k, v)),
+                                interpret=True, **kw)).astype(np.float32)
+    got = _group_schedule(q, k, v, width=16, most=4, **kw)
+    assert got.dtype == dtype
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=0, atol=atol)
 
 
 def test_plan_constants_match_the_kernel_sources():
@@ -565,4 +628,4 @@ def test_plan_constants_match_the_kernel_sources():
     assert f"constexpr int C_MAX = {tfa._F32_CLUSTER_MAX};" in fp32
     assert f"constexpr int C_QRES = {tfa._F32_CLUSTER_QRES};" in fp32
     assert f"constexpr int CW = {tfa._TC_CLUSTER_W};" in tc
-    assert f"constexpr int CLUSTER_D = {tfa._CLUSTER_D};" in tc
+    assert f"constexpr int CL_MOST = {tfa._TC_CLUSTER_MAX};" in tc

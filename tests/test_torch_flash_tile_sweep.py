@@ -44,7 +44,8 @@ def test_ldg_warps2_variant_returns_the_idle_warps():
         src = f.read()
     out = sweep.wg_ldg_variant_source(src, *sweep.WG_LDG_VARIANTS["warps2"])
     assert "constexpr int LDG_THREADS = 64;" in out
-    assert out.count("if (t >= LDG_THREADS) return;") == 1
+    # once in each of the LDG route's loops (produce_ldg, ldg_pieces)
+    assert out.count("if (t >= LDG_THREADS) return;") == 2
 
 
 def test_sweep_diagnostics_are_variants_of_their_kernel():
@@ -92,31 +93,50 @@ def test_cluster_group_variants_patch_their_limits():
 
 def test_tc_cluster_variants_patch_the_exchange_and_the_chunks():
     """flash_fwd_tc_cluster's no_exchange diagnostic loads only from its
-    own block's buffer and keeps the exchange's barriers; compute_alone calls
-    no exchange at all, nor its last wait; w256 takes 256-wide chunks, so
-    clusters of 2-4 blocks, with 64-row K/V tiles in two stages, the
-    partials in pieces and the LDG route's smaller staging; split sends
-    both routes of d 257-1024 to the split over d."""
+    own block's buffer (its rank in the cluster, in one cluster or in
+    groups) and keeps the exchange's barriers; compute_alone calls no
+    exchange at all, nor its last wait, in either form; c16 takes clusters
+    of up to 16 blocks and allows the card's non-portable sizes past 8 on
+    the kernel before it asks to place them; qstream2 streams the Q chunks
+    of every grouped block. w256 takes 256-wide chunks, so clusters of 2-8
+    blocks, with 64-row K/V tiles in two stages, the partials in pieces and
+    the LDG route's smaller staging, and like the other variants whose
+    tiles leave no room for a second Q slot it instantiates no groups of
+    clusters (the sweep leaves out the cases past one cluster); form1 runs
+    the one-cluster shapes on the groups' kernels."""
     with open(os.path.join(_native.CSRC_DIR,
                            "flash_attention_fwd_tc.cu")) as f:
         src = f.read()
     make = sweep.tc_cluster_variant_source
     out = make(src, *sweep.TC_CLUSTER_VARIANTS["no_exchange"])
-    assert "map_rank(mine, blockIdx.z)" in out
+    assert "map_rank(mine, blockIdx.z % CL)" in out
     assert out.count("mbar_wait_cluster(full, round & 1);") == src.count(
         "mbar_wait_cluster(full, round & 1);")
-    assert out.count("release_arrive_all_if<CL>(") == src.count(
-        "release_arrive_all_if<CL>(")
+    assert out.count("release_arrive_all_if<CL, true>(") == src.count(
+        "release_arrive_all_if<CL, true>(")
     out = make(src, *sweep.TC_CLUSTER_VARIANTS["compute_alone"])
     assert "xchg(sc, kt);" not in out and "xchg(sc, 0);" not in out
     assert "xchg.finish(n_tiles);" not in out
+    out = make(src, *sweep.TC_CLUSTER_VARIANTS["c16"])
+    assert "constexpr int CL_MOST = 16;" in out
+    assert "GL_MIN = CL_MOST / 2 + 1;" in out
+    allow = out.index("cudaFuncAttributeNonPortableClusterSizeAllowed")
+    assert out.index("allow_smem(kernel(), SMEM, smem_set);") < allow \
+        < out.index("cluster_placeable(X::kernel(), config, placed)")
+    out = make(src, *sweep.TC_CLUSTER_VARIANTS["qstream2"])
+    assert "constexpr int Q_KEEP = 1;" in out
     out = make(src, *sweep.TC_CLUSTER_VARIANTS["w256"])
     assert "constexpr int CW = 256;" in out
     assert "CL_MIN = 256 / CW + 1;" in out
-    assert "CL_MAX = (CLUSTER_D + CW - 1) / CW;" in out
     assert "struct ClusterTiles : TilesOf<64, 2, 2, " in out
     assert "constexpr int XP_TMA = 2;" in out
     assert "constexpr int XP_LDG = 4;" in out
     assert "struct LdgTraits : LdgOf<16, 2, 40>" in out
-    out = make(src, *sweep.TC_CLUSTER_VARIANTS["split"])
-    assert "if (d <= wgk::CLUSTER_D" not in out
+    assert set(sweep.ONE_CLUSTER["tccluster"]) == {
+        "w256", "w256_bk32", "bk64", "stages3", "stages4", "pingpong"}
+    for name in sweep.ONE_CLUSTER["tccluster"]:
+        out = make(src, *sweep.TC_CLUSTER_VARIANTS[name])
+        assert "constexpr int GL_MIN = CL_MOST + 1;" in out, name
+    out = make(src, *sweep.TC_CLUSTER_VARIANTS["form1"])
+    assert "constexpr int GL_MIN = CL_MIN;" in out
+    assert "at_shape(shape.blocks, 1," in out
