@@ -11,7 +11,8 @@ language model through ``BucketingModule`` and ``lstm_bucketing.py``, then
 the training paths again with the step captured as a CUDA graph, and the
 image-classification family (LeNet, AlexNet, Inception-v3, the zoo's
 scoring scripts), object detection (SSD, Faster R-CNN), LM decode, and
-ResNet-50 served through ``ModelServer`` over the dependency engine; holds every
+ResNet-50 served through ``ModelServer`` over the dependency engine, and
+the KVStore and distributed training (``dist_sync`` over NCCL); holds every
 CUDA kernel on those paths against its plain PyTorch version. Every evaluation forward (``Executor.forward(
 is_train=False)``) is captured as one CUDA graph a binding and replayed.
 Phases, in order; any failed check ends the run with a non-zero exit and no
@@ -218,7 +219,7 @@ result line:
    SoftmaxOutput, Dropout, ReLU and Concat, the amp casts, SGD and the
    rest, and split steps timed for the ratio; (c) inference through
    ``benchmark_score.py``'s binding and rate (the difference of two timed
-   runs of 10 and 40 forwards): ResNet-50, AlexNet, Inception-BN and
+   runs of 5 and 20 forwards): ResNet-50, AlexNet, Inception-BN and
    Inception-v3 at batch 1 and 32 in fp32 (TF32 off) and batch 32 in bf16,
    the captured forward and the eager walk twice each in turns, one
    capture a binding, the captured output bit-identical to the eager one
@@ -265,7 +266,7 @@ result line:
 16. LM decode at the LM's width: (a) ``bench.py``'s ``bench_decode``
    through ``mxnet_tpu_torch/tools/decode_bench.py`` (vocab 32768, hidden
    1024, 16 heads, 12 layers, cache 2048, batch 8, bf16 weights and caches
-   through ``type_dict``), 128 tokens timed captured and eager on one
+   through ``type_dict``), 64 tokens timed captured and eager on one
    binding: ms a token, tok/s, host issue ms, kernels a token and device
    busy from 8 traced captured tokens, one eager token's device time by
    group (the QKV/out/FF/head GEMMs, the cache write, scores/softmax/PV,
@@ -318,7 +319,27 @@ result line:
    tokens/s (the median of 8 passes of each, taken in turns, ROADMAP
    C11); (f) a randomized workload of pushes over device tensors under
    ``ThreadedEngine`` and ``NativeEngine`` equal to ``NaiveEngine``'s, a
-   failure raised at the next wait.
+   failure raised at the next wait;
+18. KVStore and distributed training (no kernel on this path: the store's
+   sums are torch adds, the all-reduce NCCL's; run after phase 14, inside
+   phase 11's record directory, so cuDNN's choices of phase 10 hold), the
+   card's name and power limit on its lines: (a) the ten cases of the
+   reference's ``tests/test_kvstore.py`` on CUDA arrays (the server role's
+   process exits 0 at import, the worker's proceeds), then a ``device``
+   store over ResNet-50's 157 parameter arrays (25.5 M), 4 CUDA shards a
+   push summed bit for bit as the plain sums: ms a round of pushes and of
+   pulls beside their byte bounds; (b) ``distributed.init`` at world size
+   1 over NCCL, then phase 10's config (ResNet-50, batch 256, 224 px, bf16
+   amp, SGD with momentum, the split path) for 4 steps on the same batches
+   three times, with no store, ``mx.kv.create("device")`` and
+   ``"dist_sync"``: the final weights and moving statistics bit-identical
+   (else, where two runs without a store differ too, within 1e-5 of each
+   array's max-abs), the step ms of each run, and NCCL's device ms,
+   launches and the all-reduces issued in a traced ``dist_sync`` step
+   (one a parameter); ``destroy_process_group`` after; (c)
+   ``tools/launch.py -n 1 -- python -m ...train_imagenet --kv-store
+   dist_sync`` over phase 11's ``.rec`` (one epoch, a checkpoint): exit
+   0, ``Node[0]`` in its log, its checkpoint's NLL on a batch finite.
 
 Phases 9-12 run with ``MXTPU_NO_FUSED_STEP=1``: they measure the split path
 that earlier slices recorded.
@@ -3622,9 +3643,9 @@ def ptb_bind_timer(mx, binds):
 def ptb_traced_step(mx, model, data_train, bucket):
     """Two more training steps of ``model`` on ``bucket`` batches: the
     first with the host's time by part (next batch, the forward walk
-    ``Executor._walk``, autograd's backward inside the training forward,
-    the rest of the forward, the grad writes of ``backward``, the update
-    and the metric), the second traced into ``PTB_RANGES``' groups (the
+    ``Executor._walk_replicas``, autograd's backward inside the training
+    forward, the rest of the forward, the grad writes of ``backward``, the
+    update and the metric), the second traced into ``PTB_RANGES``' groups (the
     profiler slows the host, so the parts come from the untraced step)."""
     import torch
 
@@ -3658,13 +3679,13 @@ def ptb_traced_step(mx, model, data_train, bucket):
         part("metric", model.update_metric)(metric, batch.label)
         return batch
 
-    walk, grad = texe.Executor._walk, torch.autograd.grad
-    texe.Executor._walk = clocked("forward_walk", walk)
+    walk, grad = texe.Executor._walk_replicas, torch.autograd.grad
+    texe.Executor._walk_replicas = clocked("forward_walk", walk)
     torch.autograd.grad = clocked("autograd_backward", grad)
     try:
         host_step_ms = timed(lambda: step(places[0], clocked))[1]
     finally:
-        texe.Executor._walk, torch.autograd.grad = walk, grad
+        texe.Executor._walk_replicas, torch.autograd.grad = walk, grad
     saved = []
     for group, names in PTB_OPS.items():
         saved += _wrap_ops(names, "chip_smoke::" + group)
@@ -4864,7 +4885,7 @@ ZOO_TRAIN = (("alexnet", {}, 224), ("inception-v3", {}, 299))
 ZOO_INFER = (("resnet", {"num_layers": 50}, 224), ("alexnet", {}, 224),
              ("inception-bn", {}, 224), ("inception-v3", {}, 299))
 ZOO_INFER_CONFIGS = ((1, "float32"), (32, "float32"), (32, "bfloat16"))
-ZOO_SCORE_BATCHES = 40      # of benchmark_score.py's default num_batches, 50
+ZOO_SCORE_BATCHES = 20      # of benchmark_score.py's default num_batches, 50
 ZOO_SCORE_ORDER = ("captured", "eager", "eager", "captured")
 ZOO_IDLE_FORWARDS = 10      # captured forwards in the traced idle window
 ZOO_SPLIT_STEPS = 2
@@ -5952,7 +5973,7 @@ def phase_detection(mx, seed):
 
 # ------------------------------------------------------------------ phase 16
 
-DEC_TOKENS = 128            # (a): tokens timed a mode (bench.py's 256 halved)
+DEC_TOKENS = 64             # (a): tokens timed a mode (a quarter of bench.py's 256)
 DEC_TRACED = 8              # (a): captured tokens traced for kernels, busy
 # (a): device-time groups of a traced eager token, by the host range that
 # launched the kernels (the script wraps the ops and the decode core's
@@ -6137,8 +6158,8 @@ def sess_weights(seed):
 
 
 def sess_trace(seed):
-    """32 requests: primes of 64-512 tokens, outputs of 32-128; every
-    fourth opens with one shared 256-token prefix. Returns (trace,
+    """SESS_REQUESTS requests: primes of 64-512 tokens, outputs of 32-128;
+    every fourth opens with one shared 256-token prefix. Returns (trace,
     the shared prefix)."""
     rng = np.random.RandomState(seed + 16)
     v = SESS["vocab"]
@@ -6924,6 +6945,374 @@ def phase_serving(mx, seed):
     print(f"  phase 17: {out['seconds']:.1f} s", flush=True)
     return out
 
+# ------------------------------------------------- phase 18: kvstore, dist
+
+KV_SHAPE, KV_KEYS, KV_SHARDS, KV_ROUNDS = (4, 4), (5, 7, 11), 4, 5
+DP_STEPS = 4                 # (b): steps of each of the three runs
+DP_LIMIT = GRAPH_WEIGHT_LIMIT   # (b)'s fallback where cuDNN's runs differ
+NCCL_NAME = re.compile(r"nccl", re.IGNORECASE)
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def kv_patterns(mx):
+    """The reference's ten KVStore cases (tests/test_kvstore.py) on CUDA
+    arrays, each value held exactly to the reference test's."""
+    import torch
+
+    def init_kv(kind="local"):
+        kv = mx.kv.create(kind)
+        kv.init(3, mx.nd.zeros(KV_SHAPE))
+        kv.init(list(KV_KEYS), [mx.nd.zeros(KV_SHAPE)] * len(KV_KEYS))
+        return kv
+
+    def pulled(kv, key):
+        out = mx.nd.empty(KV_SHAPE)
+        kv.pull(key, out=out)
+        check(out.data.is_cuda, f"key {key} pulled into a CUDA array")
+        return out.asnumpy()
+
+    ones = np.ones(KV_SHAPE, np.float32)
+    done = []
+    kv = init_kv()
+    kv.push(3, mx.nd.ones(KV_SHAPE) * 4)
+    check((pulled(kv, 3) == 4 * ones).all(), "single_kv_pair: 4")
+    done.append("single_kv_pair")
+    kv = init_kv()
+    kv.push(list(KV_KEYS), [mx.nd.ones(KV_SHAPE) * 4] * len(KV_KEYS))
+    check(all((pulled(kv, k) == 4 * ones).all() for k in KV_KEYS),
+          "list_kv_pair: 4 at every key")
+    done.append("list_kv_pair")
+    kv = init_kv()
+    kv.push(3, [mx.nd.ones(KV_SHAPE) for _ in range(4)])
+    kv.push(list(KV_KEYS), [[mx.nd.ones(KV_SHAPE) * 2.0] * 4]
+            * len(KV_KEYS))
+    check((pulled(kv, 3) == 4 * ones).all()
+          and all((pulled(kv, k) == 8 * ones).all() for k in KV_KEYS),
+          "aggregator: 4 shards of 1 sum to 4, of 2 to 8")
+    done.append("aggregator")
+    kv, keys = init_kv(), []
+
+    def updater(key, recv, local):
+        keys.append(key)
+        local += recv
+
+    kv._set_updater(updater)
+    kv.push(3, mx.nd.ones(KV_SHAPE))
+    kv.push(3, mx.nd.ones(KV_SHAPE))
+    check((pulled(kv, 3) == 2 * ones).all() and keys == [3, 3],
+          "updater_hook: 2, called with keys [3, 3]")
+    done.append("updater_hook")
+    kv = init_kv()
+    kv.set_optimizer(mx.optimizer.Test(rescale_grad=1.0))
+    kv.push(3, mx.nd.ones(KV_SHAPE))
+    check((pulled(kv, 3) == ones).all(), "set_optimizer: 1")
+    done.append("set_optimizer")
+    kv = mx.kv.create("dist_sync")
+    check((kv.type, kv.rank, kv.num_workers) == ("dist_sync", 0, 1),
+          "get_type_rank: dist_sync, rank 0 of 1")
+    done.append("get_type_rank")
+    kv = init_kv()
+    kv.push(3, mx.nd.ones(KV_SHAPE))
+    kv.init(3, mx.nd.zeros(KV_SHAPE))
+    check((pulled(kv, 3) == ones).all(), "init_twice_ignored: 1")
+    done.append("init_twice_ignored")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_kv") as tmp:
+        kv = init_kv()
+        kv.set_optimizer(mx.optimizer.SGD(momentum=0.9))
+        kv.push(3, mx.nd.ones(KV_SHAPE))
+        saved = kv._updater.states[3].asnumpy()
+        kv.save_optimizer_states(os.path.join(tmp, "states"))
+        kv.push(3, mx.nd.ones(KV_SHAPE))
+        kv.load_optimizer_states(os.path.join(tmp, "states"))
+        check(np.array_equal(np.asarray(kv._updater.states[3]), saved),
+              "optimizer_states_save_load: the saved momentum restored")
+    done.append("optimizer_states_save_load")
+    for role, want in (("server", 0), ("worker", 7)):
+        r = subprocess.run(
+            [sys.executable, "-c", "import mxnet_tpu_torch; "
+             "raise SystemExit(7)"], capture_output=True, text=True,
+            timeout=120, env=dict(os.environ, DMLC_ROLE=role),
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+        check(r.returncode == want, f"{role} role: import exits "
+              f"{r.returncode} (want {want})")
+        done.append(f"{role}_role")
+    torch.cuda.synchronize()
+    return done
+
+
+def kv_device_rounds(mx, seed):
+    """A ``device`` store over ResNet-50's parameter arrays: each round
+    pushes KV_SHARDS CUDA shards of every array (summed on the first
+    shard's card) and pulls every sum back; ms a round of pushes and of
+    pulls, held to the plain sum in the same order."""
+    import torch
+
+    sym = resnet_symbol(mx, FIT_CLASSES, FIT_PX)
+    args, _ = resnet_weights(sym, 2, FIT_PX, seed)
+    gpu = mx.gpu(0).torch_device
+    gen = torch.Generator(device=gpu).manual_seed(seed)
+    shards = {k: [mx.NDArray(torch.randn(v.shape, device=gpu,
+                                         generator=gen))
+                  for _ in range(KV_SHARDS)] for k, v in args.items()}
+    outs = {k: mx.nd.empty(v.shape) for k, v in args.items()}
+    kv = mx.kv.create("device")
+    for k, v in args.items():
+        kv.init(k, mx.nd.array(v))
+    keys = sorted(args)
+    push_ms, pull_ms = [], []
+    for _ in range(KV_ROUNDS + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for k in keys:
+            kv.push(k, shards[k])
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for k in keys:
+            kv.pull(k, out=outs[k])
+        torch.cuda.synchronize()
+        push_ms.append((t1 - t0) * 1e3)
+        pull_ms.append((time.perf_counter() - t1) * 1e3)
+    bad = []
+    for k in keys:
+        want = shards[k][0].data
+        for sh in shards[k][1:]:
+            want = want + sh.data
+        if not torch.equal(outs[k].data, want):
+            bad.append(k)
+    params = sum(int(np.prod(v.shape)) for v in args.values())
+    check(not bad, f"device store: {len(keys)} keys' pulled sums of "
+          f"{KV_SHARDS} shards equal the plain sums bit for bit")
+    nbytes = params * 4 * (KV_SHARDS + 1)
+    out = {"keys": len(keys), "params": params, "shards": KV_SHARDS,
+           "push_ms": float(np.median(push_ms[1:])),
+           "pull_ms": float(np.median(pull_ms[1:])),
+           "push_bound_ms": nbytes / PEAK_BYTES * 1e3,
+           "pull_bound_ms": params * 8 / PEAK_BYTES * 1e3}
+    print(f"  device store, {len(keys)} keys, {params / 1e6:.2f} M params, "
+          f"{KV_SHARDS} shards: push {out['push_ms']:.3f} ms (bound "
+          f"{out['push_bound_ms']:.3f}), pull {out['pull_ms']:.3f} ms "
+          f"(bound {out['pull_bound_ms']:.3f})", flush=True)
+    return out
+
+
+def nccl_trace(fn):
+    """NCCL's kernels (device ms and launches by name) and the collectives
+    the host issued (``all_reduce`` calls) in one profiled call of
+    ``fn``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
+            as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    kernels = {e.key: {"ms": e.self_device_time_total / 1e3,
+                       "launches": e.count} for e in events
+               if e.device_type == DeviceType.CUDA and NCCL_NAME.search(e.key)}
+    calls = {e.key: e.count for e in events
+             if e.device_type == DeviceType.CPU
+             and "allreduce" in e.key.lower().replace("_", "")}
+    return {"kernels": kernels, "all_reduce_events": calls,
+            "device_ms": sum(k["ms"] for k in kernels.values()),
+            "launches": sum(k["launches"] for k in kernels.values())}
+
+
+def dp_run(mx, kvstore, weights, batches, trace=False):
+    """Phase 10's config (ResNet-50, bf16 amp, SGD with momentum, the split
+    path) for DP_STEPS steps on ``batches`` from ``weights`` with
+    ``kvstore``; the step ms, the final weights and moving statistics, and
+    with ``trace`` the last step's NCCL kernels from a profiler trace."""
+    import torch
+
+    args, aux = weights
+    mod = mx.mod.Module(resnet_symbol(mx, FIT_CLASSES, FIT_PX),
+                        context=mx.gpu(0), amp="bfloat16")
+    mod.bind(data_shapes=[("data", (FIT_BATCH, 3, FIT_PX, FIT_PX))],
+             label_shapes=[("softmax_label", (FIT_BATCH,))])
+    mod.init_params(arg_params={k: mx.nd.array(v) for k, v in args.items()},
+                    aux_params={k: mx.nd.array(v) for k, v in aux.items()})
+    mod.init_optimizer(kvstore=kvstore, optimizer="sgd",
+                       optimizer_params=FIT_SGD)
+    check(mod._fused_step_fn is None, "the split path (no fused step)")
+
+    def step(batch):
+        mod.forward(batch, is_train=True)
+        mod.backward()
+        mod.update()
+
+    step_ms, nccl = [], None   # the last step of a traced run: traced
+    for i, batch in enumerate(batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if trace and i == len(batches) - 1:
+            nccl = nccl_trace(lambda: step(batch))
+        else:
+            step(batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    a, x = mod.get_params()
+    final = {k: v.asnumpy() for k, v in {**a, **x}.items()}
+    del mod
+    torch.cuda.empty_cache()
+    return step_ms, final, nccl
+
+
+def dp_three_runs(mx, seed):
+    """The same DP_STEPS steps three times, with no store, a ``device``
+    store and ``dist_sync`` over NCCL at world size 1: the final weights
+    and moving statistics bit-identical (else, where two runs without a
+    store differ too, within DP_LIMIT of each array's max-abs)."""
+    sym = resnet_symbol(mx, FIT_CLASSES, FIT_PX)
+    weights = resnet_weights(sym, FIT_BATCH, FIT_PX, seed + 60)
+    rng = np.random.default_rng(seed + 61)
+    batches = [mx.io.DataBatch(
+        [mx.nd.array(rng.standard_normal((FIT_BATCH, 3, FIT_PX, FIT_PX),
+                                         dtype=np.float32))],
+        [mx.nd.array(rng.integers(0, FIT_CLASSES, FIT_BATCH)
+                     .astype(np.float32))]) for _ in range(DP_STEPS)]
+    mx.distributed.init(f"127.0.0.1:{_free_port()}", 1, 0, ctx=mx.gpu(0),
+                        timeout=120)
+    # no store would build the fused step: every run takes the split path
+    os.environ["MXTPU_NO_FUSED_STEP"] = "1"
+    try:
+        check(mx.distributed.backend() == "nccl",
+              f"distributed.init at world size 1: backend "
+              f"{mx.distributed.backend()!r}")
+        runs = {}
+        for name, kv in (("none", None), ("device", "device"),
+                         ("dist_sync", "dist_sync")):
+            store = mx.kv.create(kv) if kv else None
+            step_ms, final, nccl = dp_run(mx, store, weights, batches,
+                                          trace=kv == "dist_sync")
+            runs[name] = {"step_ms": step_ms, "final": final, "nccl": nccl,
+                          # steps 2 and 3: after the first, before a trace
+                          "steady_ms": float(np.median(step_ms[1:-1]))}
+            print(f"  kvstore={name}: step ms {[round(t, 2) for t in step_ms]}"
+                  + (f"; the traced step's NCCL: {nccl}"
+                     if nccl is not None else ""), flush=True)
+    finally:
+        os.environ.pop("MXTPU_NO_FUSED_STEP")
+        mx.distributed.shutdown()
+    check(not mx.distributed.is_initialized(),
+          "destroy_process_group after the runs")
+    base = runs["none"]["final"]
+    out = {name: {k: v for k, v in r.items() if k != "final"}
+           for name, r in runs.items()}
+    for name in ("device", "dist_sync"):
+        got = runs[name]["final"]
+        same = all(np.array_equal(got[k], base[k]) for k in base)
+        out[name]["bit_identical"] = same
+        if not same:
+            os.environ["MXTPU_NO_FUSED_STEP"] = "1"
+            try:
+                again = dp_run(mx, None, weights, batches)[1]
+            finally:
+                os.environ.pop("MXTPU_NO_FUSED_STEP")
+            repeatable = all(np.array_equal(again[k], base[k]) for k in base)
+            worst = max(float(np.abs(got[k] - base[k]).max()
+                              / max(float(np.abs(base[k]).max()), 1e-30))
+                        for k in base)
+            out[name].update(no_store_repeatable=repeatable, worst=worst)
+            check(not repeatable and worst <= DP_LIMIT,
+                  f"kvstore={name}: not bit-identical to no store; two "
+                  f"runs without a store differ too ({not repeatable}) and "
+                  f"the worst array is {worst:.2e} <= {DP_LIMIT} of its "
+                  f"max-abs")
+        else:
+            check(True, f"kvstore={name}: final weights and moving "
+                  f"statistics bit-identical to no store ({len(base)} "
+                  f"arrays)")
+    nccl = runs["dist_sync"]["nccl"]
+    out["nccl_device_ms_per_step"] = nccl["device_ms"]
+    out["nccl_launches_per_step"] = nccl["launches"]
+    issued = max(nccl["all_reduce_events"].values(), default=0)
+    check(issued >= len(weights[0]),
+          f"dist_sync's traced step issued {issued} all-reduces, at least "
+          f"one a parameter ({len(weights[0])}; host events "
+          f"{nccl['all_reduce_events']})")
+    return out
+
+
+def dp_launcher(mx, rec, tmp):
+    """``tools/launch.py -n 1 -- python -m ...train_imagenet --kv-store
+    dist_sync`` over phase 11's .rec (one epoch at phase 10's config, with
+    a checkpoint): exit 0, ``Node[0]`` in its log, and the checkpoint's NLL
+    on a batch of the file finite."""
+    import torch
+
+    torch.cuda.empty_cache()
+    root = os.path.dirname(os.path.abspath(__file__))
+    prefix = os.path.join(tmp, "dist_sync")
+    cmd = [sys.executable, os.path.join(root, "tools", "launch.py"), "-n",
+           "1", "--port", str(_free_port()), "--", sys.executable, "-m",
+           "mxnet_tpu_torch.examples.image_classification.train_imagenet",
+           "--data-train", rec + ".rec", "--num-examples", str(REC_IMAGES),
+           "--batch-size", str(REC_BATCH), "--num-epochs", "1",
+           "--disp-batches", "4", "--kv-store", "dist_sync",
+           "--model-prefix", prefix]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                       cwd=root, env=dict(os.environ, PYTHONPATH=root))
+    secs = time.perf_counter() - t0
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "phase18_launch.log"), "w") as f:
+        f.write(r.stdout + r.stderr)
+    check(r.returncode == 0, f"train_imagenet.py --kv-store dist_sync "
+          f"through tools/launch.py -n 1 exits {r.returncode} in "
+          f"{secs:.1f} s (log: {OUT_DIR}/phase18_launch.log)")
+    log = r.stdout + r.stderr
+    check("Node[0]" in log and "Epoch[0]" in log,
+          "Node[0] and the epoch's lines in the worker's log")
+    mod = mx.mod.Module.load(prefix, 1, context=mx.gpu(0))
+    it = rec_iter(mx, rec, 0, augment=False)
+    batch = it.next()
+    it.close()
+    mod.bind(data_shapes=it.provide_data, label_shapes=it.provide_label,
+             for_training=False)
+    mod.forward(batch, is_train=False)
+    probs = mod.get_outputs()[0].asnumpy()
+    lab = batch.label[0].asnumpy().astype(int)
+    nll = float(-np.log(np.maximum(probs[np.arange(len(lab)), lab],
+                                   1e-30)).mean())
+    check(np.isfinite(nll), f"the launched run's checkpoint: mean NLL "
+          f"{nll:.4f} on a batch of the file, finite")
+    del mod
+    torch.cuda.empty_cache()
+    return {"seconds": secs, "nll": nll,
+            "node_lines": sum("Node[0]" in ln for ln in log.splitlines())}
+
+
+def phase_kvstore(mx, seed, rec, tmp, card):
+    """KVStore and distributed training: (a) the store on the card, (b) the
+    same steps with no store, ``device`` and ``dist_sync`` over NCCL, (c)
+    the entry point through the launcher."""
+    print(f"phase 18: KVStore and distributed training ({card})",
+          flush=True)
+    out = {"card": card}
+    with mx.gpu(0):
+        out["patterns"] = kv_patterns(mx)
+        out["device_store"] = kv_device_rounds(mx, seed)
+    out["three_runs"] = dp_three_runs(mx, seed)
+    out["launcher"] = dp_launcher(mx, rec, tmp)
+    print(f"  phase 18 ({card}): " + json.dumps(
+        {"push_ms": out["device_store"]["push_ms"],
+         "pull_ms": out["device_store"]["pull_ms"],
+         "steady_step_ms": {k: out["three_runs"][k]["steady_ms"]
+                            for k in ("none", "device", "dist_sync")},
+         "nccl_device_ms_per_step":
+             out["three_runs"]["nccl_device_ms_per_step"],
+         "launcher_s": out["launcher"]["seconds"]}), flush=True)
+    return out
+
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -6967,6 +7356,8 @@ def main(argv=None):
         graph = run("13", phase_step_graph, mx, weights, args.seed,
                     records["rec"], ptb_split, train["mean_nll"])
         zoo = run("14", phase_zoo, mx, args.seed, rec_dir)
+        kvstore = run("18", phase_kvstore, mx, args.seed, records["rec"],
+                      rec_dir, card)
     detection = run("15", phase_detection, mx, args.seed)
     decode = run("16", phase_decode, mx, args.seed)
     serving = run("17", phase_serving, mx, args.seed)
@@ -7153,6 +7544,7 @@ def main(argv=None):
                    "records": records, "ptb": ptb, "step_graph": graph,
                    "zoo": zoo, "detection": detection,
                    "decode": decode, "serving": serving,
+                   "kvstore": kvstore,
                    "kernels": kernels, "phase_seconds": phase_s,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)

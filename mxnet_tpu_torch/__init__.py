@@ -3,12 +3,12 @@
 The same public names as ``mxnet_tpu`` (``nd``, ``sym``, ``mod``, ``init``,
 ``optimizer``, ``lr_scheduler``, ``metric``, ``callback``, ``model``,
 ``io``, ``recordio``, ``image``, ``rnn``, ``Predictor``, ``serving``,
-``ModelServer``, ``GenerationSession``, ``engine``, contexts), over
-``torch.Tensor``s. Entry points run on ``gpu(0)`` unless the caller passes
-``mx.cpu()``; importing the package does not initialise CUDA. Kernels that
-the JAX package wrote in Pallas are hand-written CUDA here: ``csrc/`` built
-with nvcc at first use, and users' own kernels compiled at run time through
-NVRTC (``rtc``).
+``ModelServer``, ``GenerationSession``, ``engine``, ``kv``,
+``distributed``, contexts), over ``torch.Tensor``s. Entry points run on
+``gpu(0)`` unless the caller passes ``mx.cpu()``; importing the package
+does not initialise CUDA. Kernels that the JAX package wrote in Pallas are
+hand-written CUDA here: ``csrc/`` built with nvcc at first use, and users'
+own kernels compiled at run time through NVRTC (``rtc``).
 """
 from __future__ import annotations
 
@@ -41,6 +41,10 @@ from . import optimizer
 from .optimizer import Optimizer
 from . import lr_scheduler
 from . import metric
+from . import kvstore
+from . import kvstore as kv
+from . import kvstore_server  # exits server- and scheduler-role processes
+from . import distributed
 from . import io
 from . import recordio
 from . import image

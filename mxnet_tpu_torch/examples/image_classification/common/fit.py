@@ -71,13 +71,16 @@ def _load_model(args):
     return sym, arg_params, aux_params
 
 
-def _save_model(args):
+def _save_model(args, rank=0):
+    """Checkpoints under ``--model-prefix`` (worker r > 0 of a distributed
+    job under ``<prefix>-<r>``)."""
     if args.model_prefix is None:
         return None
     dst_dir = os.path.dirname(args.model_prefix)
     if dst_dir and not os.path.isdir(dst_dir):
         os.makedirs(dst_dir)
-    return mx.callback.do_checkpoint(args.model_prefix)
+    return mx.callback.do_checkpoint(
+        args.model_prefix if rank == 0 else f"{args.model_prefix}-{rank}")
 
 
 def devices(args):
@@ -109,20 +112,27 @@ def read_once(args, train):
 
 def fit(args, network, data_loader, **kwargs):
     """Train ``network`` on the iterators of ``data_loader(args, kv)``
-    (reference: fit.py ``fit``): SGD or NAG with momentum, a
+    (reference: fit.py ``fit``); ``--kv-store dist_*`` joins the job of
+    ``tools/launch.py`` and shards the data by the store's rank (the log
+    lines say ``Node[rank]``): SGD or NAG with momentum, a
     MultiFactorScheduler over ``--lr-step-epochs``, Xavier initialisation,
     the accuracy metric (and top-k), a Speedometer and checkpoints under
     ``--model-prefix`` from ``--load-epoch``. ``kwargs`` go to
     ``Module.fit`` over these. Returns the Module, or with ``--test-io`` the
     images and seconds of one pass over the training data."""
+    devs = devices(args)
+    kv = None
     if "dist" in args.kv_store:
-        raise mx.MXNetError(f"kvstore {args.kv_store!r}: distributed "
-                            "kvstores are not ported yet")
+        # the worker joins the launcher's job (NCCL on the cards, gloo with
+        # --cpu) and reads its shard of the data
+        mx.distributed.init(ctx=devs[0])
+        kv = mx.kv.create(args.kv_store)
+    rank = kv.rank if kv else 0
     logging.basicConfig(level=logging.INFO,
-                        format="%(asctime)-15s Node[0] %(message)s")
+                        format=f"%(asctime)-15s Node[{rank}] %(message)s")
     logging.info("start with arguments %s", args)
 
-    train, val = data_loader(args, None)
+    train, val = data_loader(args, kv)
     if args.test_io:
         return read_once(args, train)
 
@@ -130,9 +140,9 @@ def fit(args, network, data_loader, **kwargs):
     if sym is not None:
         network = sym
     epoch_size = getattr(args, "num_examples", 50000) // args.batch_size
-    lr, lr_scheduler = _get_lr_scheduler(args, None, epoch_size)
+    lr, lr_scheduler = _get_lr_scheduler(args, kv, epoch_size)
     model = mx.mod.Module(
-        context=devices(args), symbol=network,
+        context=devs, symbol=network,
         amp=None if args.dtype == "float32" else args.dtype)
     optimizer_params = {"learning_rate": lr, "wd": args.wd,
                         "lr_scheduler": lr_scheduler}
@@ -144,14 +154,15 @@ def fit(args, network, data_loader, **kwargs):
                                              top_k=args.top_k))
     fit_args = dict(
         begin_epoch=args.load_epoch or 0, num_epoch=args.num_epochs,
-        eval_data=val, eval_metric=eval_metrics, kvstore=args.kv_store,
+        eval_data=val, eval_metric=eval_metrics,
+        kvstore=kv if kv is not None else args.kv_store,
         optimizer=args.optimizer, optimizer_params=optimizer_params,
         initializer=mx.init.Xavier(rnd_type="gaussian", factor_type="in",
                                    magnitude=2),
         arg_params=arg_params, aux_params=aux_params,
         batch_end_callback=[mx.callback.Speedometer(args.batch_size,
                                                     args.disp_batches)],
-        epoch_end_callback=_save_model(args), allow_missing=True)
+        epoch_end_callback=_save_model(args, rank), allow_missing=True)
     fit_args.update(kwargs)
     model.fit(train, **fit_args)
     return model

@@ -16,7 +16,8 @@ are there; otherwise it draws the reference's synthetic corpus
 validation).
 
 Run on the card: ``python -m mxnet_tpu_torch.examples.rnn.lstm_bucketing``
-(``--gpus 0``); on the CPU: ``--cpu``.
+(``--gpus 0``; ``--gpus 0,1`` trains data-parallel over two cards, the
+split path); on the CPU: ``--cpu``.
 """
 from __future__ import annotations
 
@@ -44,7 +45,8 @@ def parser():
     ap.add_argument("--wd", type=float, default=1e-5)
     ap.add_argument("--optimizer", type=str, default="sgd")
     ap.add_argument("--gpus", type=str, default="0",
-                    help="the card to train on (one device is ported)")
+                    help="the cards to train on, e.g. 0,1 (each takes an "
+                         "even slice of the batch)")
     ap.add_argument("--cpu", action="store_true",
                     help="train on the CPU instead of the card")
     ap.add_argument("--disp-batches", type=int, default=50)
@@ -113,10 +115,8 @@ def main(argv=None, batch_end_callback=()):
                else mx.models.lstm_lm.sym_gen_factory)
     sym_gen = factory(num_hidden=args.num_hidden, num_embed=args.num_embed,
                       num_layers=args.num_layers, vocab_size=vocab_size)
-    gpus = [int(i) for i in args.gpus.split(",")]
-    if not args.cpu and len(gpus) != 1:
-        raise SystemExit("--gpus: one device is ported")
-    ctx = mx.cpu() if args.cpu else mx.gpu(gpus[0])
+    ctx = [mx.cpu()] if args.cpu \
+        else [mx.gpu(int(i)) for i in args.gpus.split(",")]
     model = mx.mod.BucketingModule(
         sym_gen=sym_gen, default_bucket_key=data_train.default_bucket_key,
         context=ctx)

@@ -225,31 +225,50 @@ class Executor:
         """Evaluate the graph on ``arg_vals``/``aux_vals`` (dicts of tensors
         by name); returns (output tensors, new aux tensors by name). An op's
         aux update is seen by every later reader in the same walk."""
-        vals = {}
-        new_aux = dict(aux_vals)
+        outs, new_aux = self._walk_replicas([op_ctx], [arg_vals], [aux_vals])
+        return outs[0], new_aux[0]
+
+    def _walk_replicas(self, op_ctxs, arg_vals, aux_vals):
+        """:meth:`_walk` for the replicas of a data-parallel group (executors
+        of this graph, each on its own device and slice of the batch) in
+        lockstep: a node runs for every replica before the next node, and an
+        op with a replica body (``OpDef.replica_fn``: BatchNorm) runs once
+        over all of them. One list entry a replica in, and in each result."""
+        count = len(op_ctxs)
+        vals = [{} for _ in range(count)]
+        new_aux = [dict(a) for a in aux_vals]
         self.walking = None
         for index, node in enumerate(self._topo):
+            key = (id(node), 0)
             if node.is_variable:
-                if node.name in arg_vals:
-                    vals[(id(node), 0)] = _amp_cast(
-                        node.name, arg_vals[node.name], self._amp_dtype)
-                elif node.name in aux_vals:
-                    vals[(id(node), 0)] = aux_vals[node.name]
-                else:
-                    raise MXNetError(f"unbound variable '{node.name}'")
+                for r in range(count):
+                    if node.name in arg_vals[r]:
+                        vals[r][key] = _amp_cast(
+                            node.name, arg_vals[r][node.name], self._amp_dtype)
+                    elif node.name in aux_vals[r]:
+                        vals[r][key] = aux_vals[r][node.name]
+                    else:
+                        raise MXNetError(f"unbound variable '{node.name}'")
                 continue
             op = get_op(node.op)
             self.walking = node
-            ins = [vals[(id(n), i)] for n, i in node.inputs]
-            aux = [vals[(id(a), 0)] for a in node.aux_vars]
-            op_ctx.node = index
-            outs, aux_out = op.normalized_call(op_ctx, node.attrs, ins, aux)
-            for i, o in enumerate(outs):
-                vals[(id(node), i)] = o
-            for a_node, a_new in zip(node.aux_vars, aux_out):
-                new_aux[a_node.name] = a_new
-                vals[(id(a_node), 0)] = a_new
-        return [vals[(id(n), i)] for n, i in self._entries], new_aux
+            ins = [[v[(id(n), i)] for n, i in node.inputs] for v in vals]
+            aux = [[v[(id(a), 0)] for a in node.aux_vars] for v in vals]
+            for op_ctx in op_ctxs:
+                op_ctx.node = index
+            if count > 1 and op.replica_fn is not None:
+                results = op.replica_fn(op_ctxs, node.attrs, ins, aux)
+            else:
+                results = [op.normalized_call(c, node.attrs, i, a)
+                           for c, i, a in zip(op_ctxs, ins, aux)]
+            for v, na, (outs, aux_out) in zip(vals, new_aux, results):
+                for i, o in enumerate(outs):
+                    v[(id(node), i)] = o
+                for a_node, a_new in zip(node.aux_vars, aux_out):
+                    na[a_node.name] = a_new
+                    v[(id(a_node), 0)] = a_new
+        outs = [[v[(id(n), i)] for n, i in self._entries] for v in vals]
+        return outs, new_aux
 
     def _fwd_bwd(self, args, aux_vals, rng, out_grads=None):
         """The training walk over ``args``/``aux_vals`` (tensors by name)
@@ -257,33 +276,9 @@ class Executor:
         of ones if None); ``rng`` is the walk's :class:`NodeRandom`. Writes
         no bound array. Returns (outputs, new aux, gradients by
         differentiable argument)."""
-        import torch
-
-        args = dict(args)
-        leaves = {}
-        for n in self._diff_args:
-            if args[n].is_floating_point():
-                leaves[n] = args[n].detach().requires_grad_()
-                args[n] = leaves[n]
-        op_ctx = OpCtx(is_train=True, rng=rng, device=self._ctx.torch_device)
-        with torch.enable_grad():
-            outs, new_aux = self._walk(op_ctx, args, aux_vals)
-        if out_grads is None:
-            out_grads = [torch.ones_like(o) for o in outs]
-        heads = [(o, g) for o, g in zip(outs, out_grads)
-                 if o.requires_grad]
-        got = torch.autograd.grad(
-            [o for o, _ in heads], list(leaves.values()),
-            [g for _, g in heads], allow_unused=True) if heads and leaves \
-            else [None] * len(leaves)
-        got = dict(zip(leaves, got))
-        # an argument the outputs do not depend on (or an integer one) gets
-        # zeros, as jax.vjp gives
-        grads = {n: got[n] if got.get(n) is not None
-                 else torch.zeros_like(args[n])
-                 for n in self._diff_args}
-        return ([o.detach() for o in outs],
-                {n: a.detach() for n, a in new_aux.items()}, grads)
+        return fwd_bwd_replicas(
+            [self], [args], [aux_vals], [rng],
+            None if out_grads is None else [out_grads])[0]
 
     def forward(self, is_train=False, **kwargs):
         """Evaluate the graph; each of ``kwargs`` is fed into its bound
@@ -292,8 +287,6 @@ class Executor:
         device (copied in place where those agree, see :func:`_feed`).
         With ``is_train`` and gradients bound, also computes the gradients
         that :meth:`backward` writes. Returns the output NDArrays."""
-        import torch
-
         from .ndarray import NDArray
 
         for k, v in kwargs.items():
@@ -306,26 +299,7 @@ class Executor:
                 outs = self._forward_program().run()
             self.outputs = [NDArray(o) for o in outs]
             return self.outputs
-        aux_vals = {n: a.data for n, a in self.aux_dict.items()}
-        rng = NodeRandom(self._ctx.torch_device)
-        rng.begin()
-        # an explicit backward(out_grads) later re-runs the forward the
-        # caller observed: the aux inputs before this forward's update, and
-        # the random numbers it drew
-        self._last_aux = aux_vals
-        self._last_rng = rng
-        if self._diff_args:
-            outs, new_aux, self._pending_grads = self._fwd_bwd(
-                {n: a.data for n, a in self.arg_dict.items()}, aux_vals, rng)
-        else:
-            with torch.no_grad():
-                outs, new_aux = self._walk(
-                    OpCtx(is_train=True, rng=rng,
-                          device=self._ctx.torch_device),
-                    {n: a.data for n, a in self.arg_dict.items()}, aux_vals)
-        for n in self.aux_names:
-            self.aux_dict[n]._data = new_aux[n]
-        self.outputs = [NDArray(o) for o in outs]
+        train_replicas([self])
         return self.outputs
 
     def _forward_program(self):
@@ -393,19 +367,12 @@ class Executor:
         from .ndarray import NDArray
 
         if out_grads is not None:
-            if self._last_aux is None:
-                raise MXNetError("backward(out_grads) called before "
-                                 "forward(is_train=True)")
             if isinstance(out_grads, NDArray):
                 out_grads = [out_grads]
             device = self._ctx.torch_device
-            heads = [(g.data if isinstance(g, NDArray) else g).to(device)
-                     for g in out_grads]
-            rng = self._last_rng
-            rng.begin(rng.seed)
-            _, _, self._pending_grads = self._fwd_bwd(
-                {n: a.data for n, a in self.arg_dict.items()},
-                self._last_aux, rng, heads)
+            rerun_replicas([self], [[
+                (g.data if isinstance(g, NDArray) else g).to(device)
+                for g in out_grads]])
         if self._pending_grads is GRADS_ELIDED:
             self._pending_grads = None
             return
@@ -452,3 +419,116 @@ class Executor:
                     dst.data.copy_(arr.data)
                 elif not allow_extra_params:
                     raise MXNetError(f"unknown {what} param {name}")
+
+
+def _train_ctxs(execs, rngs):
+    """The training walk's :class:`OpCtx` of each executor of ``execs``,
+    sharing one :class:`~mxnet_tpu_torch.ops.registry.Replicas` when there
+    are several."""
+    from .ops.registry import Replicas
+
+    replicas = Replicas(len(execs)) if len(execs) > 1 else None
+    return [OpCtx(is_train=True, rng=rng, device=ex._ctx.torch_device,
+                  replicas=replicas, replica=r)
+            for r, (ex, rng) in enumerate(zip(execs, rngs))]
+
+
+def fwd_bwd_replicas(execs, args, aux_vals, rngs, out_grads=None):
+    """:meth:`Executor._fwd_bwd` over the replicas of a data-parallel group
+    (executors of one graph, one a device and slice of the batch): their
+    training walks in lockstep (:meth:`Executor._walk_replicas`, sharing a
+    :class:`~mxnet_tpu_torch.ops.registry.Replicas`), then one backward
+    through all of them, so a cross-replica op's gradient reaches every
+    replica. One list entry a replica in; returns each replica's (outputs,
+    new aux, gradients by differentiable argument)."""
+    import torch
+
+    ex0 = execs[0]
+    args = [dict(a) for a in args]
+    leaves = []   # (replica, argument name, leaf tensor)
+    for r, a in enumerate(args):
+        for n in ex0._diff_args:
+            if a[n].is_floating_point():
+                a[n] = a[n].detach().requires_grad_()
+                leaves.append((r, n, a[n]))
+    with torch.enable_grad():
+        outs, new_aux = ex0._walk_replicas(_train_ctxs(execs, rngs), args,
+                                           aux_vals)
+    if out_grads is None:
+        out_grads = [[torch.ones_like(o) for o in os_] for os_ in outs]
+    heads = [(o, g) for os_, gs in zip(outs, out_grads)
+             for o, g in zip(os_, gs) if o.requires_grad]
+    got = torch.autograd.grad(
+        [o for o, _ in heads], [t for _, _, t in leaves],
+        [g for _, g in heads], allow_unused=True) if heads and leaves \
+        else [None] * len(leaves)
+    got = {(r, n): g for (r, n, _), g in zip(leaves, got)}
+    result = []
+    for r, a in enumerate(args):
+        # an argument the outputs do not depend on (or an integer one) gets
+        # zeros, as jax.vjp gives
+        grads = {n: got[(r, n)] if got.get((r, n)) is not None
+                 else torch.zeros_like(a[n]) for n in ex0._diff_args}
+        result.append(([o.detach() for o in outs[r]],
+                       {n: t.detach() for n, t in new_aux[r].items()},
+                       grads))
+    return result
+
+
+def train_replicas(execs):
+    """``forward(is_train=True)`` of each executor of ``execs`` (one, or the
+    replicas of a data-parallel group): the walks in lockstep on the bound
+    arrays, each replica drawing from its own :class:`NodeRandom` (the
+    first on the next step seed, replica r on ``mix(seed, r)``); the new aux
+    states installed, the outputs set and the gradients kept for
+    ``backward()``."""
+    import torch
+
+    from . import random as _random
+    from .ndarray import NDArray
+
+    rngs = []
+    for r, ex in enumerate(execs):
+        rng = NodeRandom(ex._ctx.torch_device)
+        rng.begin(None if r == 0 else _random.mix(rngs[0].seed, r))
+        rngs.append(rng)
+    aux_vals = [{n: a.data for n, a in ex.aux_dict.items()} for ex in execs]
+    args = [{n: a.data for n, a in ex.arg_dict.items()} for ex in execs]
+    for ex, aux, rng in zip(execs, aux_vals, rngs):
+        # an explicit backward(out_grads) later re-runs the forward the
+        # caller observed: the aux inputs before this forward's update, and
+        # the random numbers it drew
+        ex._pending_grads = None
+        ex._last_aux = aux
+        ex._last_rng = rng
+    if execs[0]._diff_args:
+        results = fwd_bwd_replicas(execs, args, aux_vals, rngs)
+        for ex, (_, _, grads) in zip(execs, results):
+            ex._pending_grads = grads
+    else:
+        with torch.no_grad():
+            outs, new_aux = execs[0]._walk_replicas(
+                _train_ctxs(execs, rngs), args, aux_vals)
+        results = list(zip(outs, new_aux, [None] * len(execs)))
+    for ex, (outs, new_aux, _) in zip(execs, results):
+        for n in ex.aux_names:
+            ex.aux_dict[n]._data = new_aux[n]
+        ex.outputs = [NDArray(o) for o in outs]
+
+
+def rerun_replicas(execs, out_grads):
+    """``backward(out_grads)``'s re-run of the last training forward of each
+    executor of ``execs`` with the given head gradients (one list a
+    replica, on its device): the arguments bound now, that forward's aux
+    inputs and random numbers; the gradients are kept for the write."""
+    if any(ex._last_aux is None for ex in execs):
+        raise MXNetError("backward(out_grads) called before "
+                         "forward(is_train=True)")
+    rngs = [ex._last_rng for ex in execs]
+    for rng in rngs:
+        rng.begin(rng.seed)
+    results = fwd_bwd_replicas(
+        execs, [{n: a.data for n, a in ex.arg_dict.items()} for ex in execs],
+        [ex._last_aux for ex in execs], rngs, out_grads)
+    for ex, (_, _, grads) in zip(execs, results):
+        ex._pending_grads = grads

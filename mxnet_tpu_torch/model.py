@@ -1,6 +1,8 @@
 """Checkpoints (reference: mxnet_tpu/model.py:94-325): ``save_checkpoint``,
 ``load_checkpoint``, ``list_checkpoints``, ``read_manifest``,
-``load_latest_checkpoint`` and ``find_resume_point``.
+``load_latest_checkpoint`` and ``find_resume_point``; and the kvstore choice
+of ``Module.init_optimizer`` (reference: model.py:38-73,
+``_create_kvstore`` and ``_initialize_kvstore``).
 
 A checkpoint is ``prefix-symbol.json``, ``prefix-NNNN.params`` (the MXTP
 container of :func:`mxnet_tpu_torch.ndarray.save`, arguments under
@@ -29,7 +31,41 @@ from .convert import split_params
 
 __all__ = ["CheckpointCorrupt", "save_checkpoint", "load_checkpoint",
            "list_checkpoints", "read_manifest", "manifest_path",
-           "load_latest_checkpoint", "find_resume_point"]
+           "load_latest_checkpoint", "find_resume_point",
+           "_create_kvstore", "_initialize_kvstore"]
+
+
+def _create_kvstore(kvstore, num_device, arg_params):
+    """The store and ``update_on_kvstore`` (reference: model.py
+    ``_create_kvstore``): None, and the strings ``local`` and ``device``,
+    mean no store (several contexts sum their gradients in the executor
+    group and the optimizer runs locally); a ``dist*`` string creates that
+    store; a :class:`~mxnet_tpu_torch.kvstore.KVStore` is used as given. The
+    update runs on the store whenever there is one."""
+    from . import kvstore as kvs
+
+    if kvstore is None:
+        kv = None
+    elif isinstance(kvstore, kvs.KVStore):
+        kv = kvstore
+    elif isinstance(kvstore, str):
+        kv = kvs.create(kvstore) if "dist" in kvstore else None
+    else:
+        raise TypeError("kvstore must be KVStore, str or None")
+    return kv, kv is not None
+
+
+def _initialize_kvstore(kvstore, param_names, arg_params, update_on_kvstore,
+                        param_arrays=None):
+    """Initialise a key a parameter from ``arg_params`` (reference: model.py
+    ``_initialize_kvstore``); with ``update_on_kvstore`` and
+    ``param_arrays`` (a list of arrays a parameter, one a context), pull
+    each key back into them, so every worker starts from rank 0's values."""
+    for idx, name in enumerate(param_names):
+        if name in arg_params:
+            kvstore.init(name, arg_params[name])
+            if update_on_kvstore and param_arrays is not None:
+                kvstore.pull(name, param_arrays[idx], priority=-idx)
 
 
 class CheckpointCorrupt(MXNetError):

@@ -16,7 +16,9 @@ module has a fused step, each batch as it arrives (the steps are the
 single steps', a short last super-batch included; the metric reads the
 outputs, and the callbacks and checkpoints come, once a super-step). For its duration ``fit`` lets the
 fused step write the weights in place (donation) unless
-``MXTPU_DONATE_PARAMS=0``. ``score``, ``iter_predict`` and
+``MXTPU_DONATE_PARAMS=0``. ``kvstore`` goes to ``init_optimizer``; a
+store's ``sync_weights`` (dist_async's averaging) runs at each epoch's end
+and every ``sync_interval`` batches. ``score``, ``iter_predict`` and
 ``predict`` run the evaluation forward; ``save_params``/``load_params``
 keep the parameters in the MXTP container, arguments under ``arg:`` and aux
 states under ``aux:``.
@@ -290,6 +292,12 @@ class BaseModule:
                 for data_batch in batches:
                     self.forward_backward(data_batch)
                     self.update()
+                    kv = getattr(self, "_kvstore", None)
+                    if kv is not None and kv.sync_interval \
+                            and (first + 1) % kv.sync_interval == 0:
+                        # dist_async's bound in mid-epoch: a batch index is
+                        # an aligned point when the shards are equal
+                        kv.sync_weights()
                     if eval_metric is not None:
                         self.update_metric(eval_metric, data_batch.label)
             if not batches:
@@ -313,6 +321,11 @@ class BaseModule:
                 self.logger.info("Epoch[%d] Train-%s=%f", epoch, name, val)
         self.logger.info("Epoch[%d] Time cost=%.3f", epoch, time.time() - tic)
 
+        # dist_async: the epoch's end is an aligned point of every worker,
+        # whatever each pushed within the epoch
+        kv = getattr(self, "_kvstore", None)
+        if kv is not None:
+            kv.sync_weights()
         arg_params, aux_params = self.get_params()
         self.set_params(arg_params, aux_params)
         if checkpoint_prefix:

@@ -12,7 +12,10 @@ one CUDA graph a bucket on the card, each with a memory pool of its own (so
 the buckets may replay in any order), each updating the default bucket's
 arrays and optimizer states in place. The reference fuses the default bucket only and
 runs the others as two compiled programs each; one graph a bucket is the
-port's counterpart of those compiled steps.
+port's counterpart of those compiled steps. Over several contexts every
+bucket binds one replica a context over the default bucket's replicas
+(the split path; ``work_load_list`` is accepted and, as in the reference,
+the batch splits evenly).
 """
 from __future__ import annotations
 
@@ -32,9 +35,7 @@ class BucketingModule(BaseModule):
         super().__init__(logger=logger)
         if default_bucket_key is None:
             raise MXNetError("BucketingModule needs a default_bucket_key")
-        if work_load_list is not None:
-            raise MXNetError("BucketingModule: work_load_list needs several "
-                             "devices, not ported yet")
+        self._work_load_list = work_load_list
         self._default_bucket_key = default_bucket_key
         self._sym_gen = sym_gen
         self._context = context
@@ -85,7 +86,8 @@ class BucketingModule(BaseModule):
     def _module(self, bucket_key):
         symbol, data_names, label_names = self._sym_gen(bucket_key)
         mod = Module(symbol, data_names, label_names, logger=self.logger,
-                     context=self._context)
+                     context=self._context,
+                     work_load_list=self._work_load_list)
         mod._donate_hint = self._donate_hint
         return mod
 

@@ -1,5 +1,5 @@
-"""Module: a symbol, its executor group and an optimizer, on one device
-(reference: mxnet_tpu/module/module.py).
+"""Module: a symbol, its executor group and an optimizer (reference:
+mxnet_tpu/module/module.py).
 
 ``Module(symbol, context=mx.gpu(0), amp="bfloat16")`` binds the executor
 with mixed precision: the parameters stay fp32 master copies, the graph
@@ -39,6 +39,18 @@ module's parameter, gradient and aux arrays (a bucket of
 and updater, whose states stay keyed by the shared module's parameter
 indices. ``device_prefetch`` wraps an iterator in an
 :class:`~mxnet_tpu_torch.io.DevicePrefetchIter` over the bound group.
+
+Several contexts (``context=[mx.gpu(0), mx.gpu(1)]``, or ``cpu(i)`` on the
+host) bind one replica each over an even slice of the batch
+(:mod:`~.executor_group`); they run the split path: the replicas' forward
+and backward in lockstep, the gradients summed, one update, the weights
+copied back to every replica. A kvstore (``init_optimizer(kvstore=...)``,
+:func:`~mxnet_tpu_torch.model._create_kvstore`'s rules: ``local`` and
+``device`` strings mean none, ``dist*`` strings and ``KVStore`` objects
+one) turns the fused step off and runs the update on the store: ``update``
+pushes each parameter's gradients (one a replica) and pulls the new weights
+into every replica; under ``dist_sync`` the learning rate's batch is every
+worker's batch.
 """
 from __future__ import annotations
 
@@ -53,7 +65,8 @@ from ..base import MXNetError
 from ..context import Context, current_context
 from ..initializer import Uniform
 from ..io import DataDesc
-from ..model import load_checkpoint, save_checkpoint
+from ..model import (_create_kvstore, _initialize_kvstore, load_checkpoint,
+                     save_checkpoint)
 from .base_module import BaseModule, check_run_n_steps_unroll
 from .executor_group import DataParallelExecutorGroup
 from .step_graph import StepProgram
@@ -92,28 +105,18 @@ def _write_atomic(fname, data):
     os.replace(fname + ".tmp", fname)
 
 
-def _create_kvstore(kvstore):
-    """The reference's kvstore choice (mxnet_tpu/model.py
-    ``_create_kvstore``) on one device: ``local`` and ``device`` mean no
-    kvstore, the optimizer runs through the local updater."""
-    if kvstore is None or (isinstance(kvstore, str)
-                           and "dist" not in kvstore):
-        return None
-    raise MXNetError(f"kvstore {kvstore!r}: distributed kvstores are not "
-                     "ported yet")
-
-
 class Module(BaseModule):
     def __init__(self, symbol, data_names=("data",),
                  label_names=("softmax_label",), logger=logging, context=None,
-                 fixed_param_names=None, amp=None):
+                 work_load_list=None, fixed_param_names=None, amp=None):
         super().__init__(logger=logger)
         self._amp = amp
         if context is None:
             context = [current_context()]
         if isinstance(context, Context):
             context = [context]
-        self._context = context
+        self._context = list(context)
+        self._work_load_list = work_load_list
         self._symbol = symbol
         self._data_names = list(data_names or [])
         self._label_names = list(label_names or [])
@@ -131,6 +134,7 @@ class Module(BaseModule):
         self._params_dirty = False
         self._optimizer = None
         self._kvstore = None
+        self._update_on_kvstore = False
         self._updater = None
         self._preload_opt_states = None
         self._ckpt_thread = None
@@ -190,7 +194,10 @@ class Module(BaseModule):
         # replaces the dicts' entries, so the writer keeps its own dicts
         args, auxs = dict(args), dict(auxs)
         states = None
-        if save_optimizer_states:
+        if save_optimizer_states and self._update_on_kvstore:
+            # the store holds the states: saved now, the rest in background
+            self.save_optimizer_states(f"{prefix}-{epoch:04d}.states")
+        elif save_optimizer_states:
             states = opt.Updater(self._optimizer)
             states.states = self._updater.copy_states()
         symbol = self.symbol
@@ -214,16 +221,23 @@ class Module(BaseModule):
         return _CheckpointHandle(t, state)
 
     def save_optimizer_states(self, fname):
-        """Write the updater's states to ``fname`` (written to a temporary
-        name and renamed into place)."""
+        """Write the updater's states (the kvstore's when it runs the
+        update) to ``fname`` (written to a temporary name and renamed into
+        place)."""
         if not self.optimizer_initialized:
             raise MXNetError("save_optimizer_states: init_optimizer first")
+        if self._update_on_kvstore:
+            self._kvstore.save_optimizer_states(fname)
+            return
         _write_atomic(fname, self._updater.get_states())
 
     def load_optimizer_states(self, fname):
         """Restore states written by :meth:`save_optimizer_states`."""
         if not self.optimizer_initialized:
             raise MXNetError("load_optimizer_states: init_optimizer first")
+        if self._update_on_kvstore:
+            self._kvstore.load_optimizer_states(fname)
+            return
         with open(fname, "rb") as f:
             raw = f.read()
         try:
@@ -298,7 +312,8 @@ class Module(BaseModule):
         ctx = self._context[0]
         ex = self._exec_group._executor
         if self._arg_params is None:
-            self._arg_params = {n: nd.zeros(ex.arg_dict[n].shape, ctx)
+            shapes = self._exec_group.arg_shapes
+            self._arg_params = {n: nd.zeros(shapes[n], ctx)
                                 for n in self._param_names}
         if self._aux_params is None:
             self._aux_params = {n: nd.zeros(ex.aux_dict[n].shape, ctx)
@@ -362,7 +377,8 @@ class Module(BaseModule):
             self._symbol, self._context, self._data_shapes,
             self._label_shapes, self._param_names, for_training,
             inputs_need_grad, fixed_param_names=self._fixed_param_names,
-            grad_req=grad_req, amp=self._amp, shared_group=shared_group)
+            grad_req=grad_req, amp=self._amp, shared_group=shared_group,
+            workload=self._work_load_list)
         self.binded = True
         if shared_module is not None:
             self.params_initialized = True
@@ -377,25 +393,47 @@ class Module(BaseModule):
     def init_optimizer(self, kvstore="local", optimizer="sgd",
                        optimizer_params=(("learning_rate", 0.01),),
                        force_init=False):
-        """An optimizer by name (with ``rescale_grad`` 1/batch unless given)
-        or an :class:`~mxnet_tpu_torch.optimizer.Optimizer`."""
+        """An optimizer by name (with ``rescale_grad`` 1/batch unless given;
+        under a synchronous ``dist*`` store, whose push sums every worker's
+        gradients, the batch of every worker) or an
+        :class:`~mxnet_tpu_torch.optimizer.Optimizer`; with a kvstore
+        (reference: module.py ``init_optimizer``) each parameter's key is
+        initialised from rank 0's value and pulled into every replica, and
+        the store runs the optimizer."""
         assert self.binded and self.params_initialized
         if self.optimizer_initialized and not force_init:
             self.logger.warning("optimizer already initialized, ignoring...")
             return
-        self._kvstore = _create_kvstore(kvstore)
+        kv, update_on_kvstore = _create_kvstore(
+            kvstore, len(self._context), self._arg_params)
+        batch_size = self._exec_group.batch_size
+        if kv is not None and kv._is_dist and not kv._is_async:
+            batch_size *= kv.num_workers
         if isinstance(optimizer, str):
             idx2name = dict(enumerate(self._param_names))
             optimizer_params = dict(optimizer_params)
-            optimizer_params.setdefault(
-                "rescale_grad", 1.0 / self._exec_group.batch_size)
+            optimizer_params.setdefault("rescale_grad", 1.0 / batch_size)
             optimizer = opt.create(optimizer, sym=self._symbol,
                                    param_idx2name=idx2name,
                                    **optimizer_params)
         elif not isinstance(optimizer, opt.Optimizer):
             raise MXNetError("optimizer must be a name or an Optimizer")
         self._optimizer = optimizer
-        self._updater = opt.get_updater(optimizer)
+        self._kvstore = kv
+        self._update_on_kvstore = update_on_kvstore
+        self._updater = None
+        if kv is not None:
+            # every worker starts from rank 0's weights, in every replica
+            eg = self._exec_group
+            targets = eg.update_targets(self._param_names)
+            _initialize_kvstore(kv, self._param_names, self._arg_params,
+                                update_on_kvstore, param_arrays=targets)
+            eg.scatter_params(self._param_names, targets)
+            self._params_dirty = True
+        if update_on_kvstore:
+            kv.set_optimizer(self._optimizer)
+        else:
+            self._updater = opt.get_updater(optimizer)
         self.optimizer_initialized = True
         self._maybe_build_fused_step()
         if self._preload_opt_states is not None:
@@ -415,6 +453,7 @@ class Module(BaseModule):
                              "not the shared module's")
         self._optimizer = shared_module._optimizer
         self._kvstore = shared_module._kvstore
+        self._update_on_kvstore = shared_module._update_on_kvstore
         self._updater = shared_module._updater
         self._param_index = shared_module._param_index
         self.optimizer_initialized = True
@@ -445,6 +484,7 @@ class Module(BaseModule):
         ex = eg._executor
         if (os.environ.get("MXTPU_NO_FUSED_STEP") == "1"
                 or self._kvstore is not None
+                or len(eg.execs) > 1
                 or self._updater is None
                 or self._optimizer._tree_update is None
                 or self.inputs_need_grad
@@ -607,21 +647,34 @@ class Module(BaseModule):
 
     def update(self):
         """One optimizer update of every parameter with a gradient
-        (reference: module.py ``update``): the fused step's staged update,
-        else the split path's per-parameter ops."""
+        (reference: module.py ``update``): the fused step's staged update;
+        else through the kvstore, a push of each parameter's gradients and a
+        pull of its weights into every replica; else the split path's
+        per-parameter ops on the replicas' summed gradients."""
         assert self.binded and self.params_initialized \
             and self.optimizer_initialized
         self._params_dirty = True
         if self._fused_pending is not None:
             self._install_fused_update()
             return
-        grads = self._exec_group.get_grads()
-        arg_dict = self._exec_group._executor.arg_dict
+        eg = self._exec_group
+        if self._update_on_kvstore:
+            grads = eg.grad_lists()
+            names = [n for n in self._param_names if n in grads]
+            targets = eg.update_targets(names)
+            for idx, (name, target) in enumerate(zip(names, targets)):
+                self._kvstore.push(name, grads[name], priority=-idx)
+                self._kvstore.pull(name, target, priority=-idx)
+            eg.scatter_params(names, targets)
+            return
+        grads = eg.get_grads()
         names = [n for n in self._param_names if n in grads]
         if names:
+            targets = eg.update_targets(names)
             self._updater.update_multi(
                 [self._param_index[n] for n in names],
-                [grads[n] for n in names], [arg_dict[n] for n in names])
+                [grads[n] for n in names], targets)
+            eg.scatter_params(names, targets)
 
     def get_outputs(self, merge_multi_context=True):
         assert self.binded and self.params_initialized

@@ -66,7 +66,7 @@ def _mm_f32(a, b):
 class _FusedCE(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w, b, label, num_classes, chunk, use_ignore,
-                ignore_label, grad_scale, norm):
+                ignore_label, grad_scale, norm, batches, valid_total):
         n = x.shape[0]
         b32 = b.float()
         li = as_int32(label.reshape(-1)).to(torch.int64)
@@ -90,24 +90,25 @@ class _FusedCE(torch.autograd.Function):
             nll = torch.where(li == ignore_label, 0.0, nll)
         ctx.save_for_backward(x, w, b, lse, label)
         ctx.attrs = (num_classes, chunk, use_ignore, ignore_label, grad_scale,
-                     norm)
+                     norm, batches, valid_total)
         return nll
 
     @staticmethod
     def backward(ctx, g):
         # g, the head gradient, is unused: this op is the loss
         x, w, b, lse, label = ctx.saved_tensors
-        num_classes, chunk, use_ignore, ignore_label, grad_scale, norm = \
-            ctx.attrs
+        (num_classes, chunk, use_ignore, ignore_label, grad_scale, norm,
+         batches, valid_total) = ctx.attrs
         n = x.shape[0]
         b32 = b.float()
         li = as_int32(label.reshape(-1)).to(torch.int64)
         keep = (li != ignore_label).float() if use_ignore \
             else torch.ones(n, dtype=torch.float32, device=x.device)
         if norm == "batch":
-            scale = keep * (grad_scale / n)
+            scale = keep * (grad_scale / (n * batches))
         elif norm == "valid":
-            scale = keep * (grad_scale / torch.clamp(keep.sum(), min=1.0))
+            count = valid_total(x.device) if valid_total else keep.sum()
+            scale = keep * (grad_scale / torch.clamp(count, min=1.0))
         else:
             scale = keep * grad_scale
         dx = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
@@ -126,7 +127,7 @@ class _FusedCE(torch.autograd.Function):
             dx += _mm_f32(slab, wc)
             dw[c0:c1] = torch.matmul(slab.T, x).to(w.dtype)
             db[c0:c1] = slab32.sum(dim=0).to(b.dtype)
-        return (dx.to(x.dtype), dw, db) + (None,) * 7
+        return (dx.to(x.dtype), dw, db) + (None,) * 9
 
 
 @register_op(
@@ -148,9 +149,16 @@ def _fused_ce_head(ctx, attrs, data, weight, *rest):
         bias, label = rest
     if data.dim() != 2:
         data = data.reshape(-1, data.shape[-1])
+    use_ignore = bool(attrs.get("use_ignore", False))
+    ignore_label = int(attrs.get("ignore_label", -1))
+    norm = attrs.get("normalization", "null")
+    valid_total = None
+    if ctx.replicas is not None and norm == "valid":
+        li = as_int32(label.reshape(-1))
+        valid_total = ctx.replicas.put_count(
+            ctx, (li != ignore_label).sum().float() if use_ignore
+            else torch.tensor(float(li.numel())))
     return _FusedCE.apply(
-        data, weight, bias, label, num_classes, chunk,
-        bool(attrs.get("use_ignore", False)),
-        int(attrs.get("ignore_label", -1)),
-        float(attrs.get("grad_scale", 1.0)),
-        attrs.get("normalization", "null"))
+        data, weight, bias, label, num_classes, chunk, use_ignore,
+        ignore_label, float(attrs.get("grad_scale", 1.0)), norm,
+        ctx.replica_count, valid_total)

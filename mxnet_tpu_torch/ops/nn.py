@@ -8,6 +8,13 @@ differentiable by autograd as the reference's is by ``jax.vjp``;
 ``SoftmaxOutput`` keeps the reference's loss-op protocol (its backward
 ignores the head gradient) and ``BatchNorm``'s training forward its
 memory-light backward, each as a ``torch.autograd.Function``.
+
+Over the replicas of a data-parallel walk (several contexts, one slice of
+the batch each) the ops see the global batch where the reference's one
+program over the whole batch does: ``BatchNorm`` trains on the global
+batch's statistics (:func:`_batch_norm_replicas`, also its one-device
+body), and the losses' ``batch`` and ``valid`` normalisations divide by the
+global batch and the global count of valid labels.
 """
 from __future__ import annotations
 
@@ -15,7 +22,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .registry import register_op
+from .registry import register_op, register_replica_fn
 from .tensor import as_int32, op_rng, take_fill
 
 
@@ -105,16 +112,49 @@ def _convolution(ctx, attrs, data, weight, bias=None):
     return out.permute(0, 2, 3, 1) if nhwc else out
 
 
+def _native_weight_grad(dy, x, w, stride, pad, dilation, groups):
+    """The weight gradient of a convolution through PyTorch's native
+    convolution (im2col and a GEMM), called directly: one
+    ``_slow_conv2d_backward`` a group on contiguous slices, which is what
+    ``convolution_backward`` runs with cuDNN switched off. Switching cuDNN
+    off is a process-wide flag, which the autograd engine's device threads
+    would race on when several cards run a backward at once (the
+    data-parallel group). A dilated kernel, which no model of the repo
+    has, takes ``F.unfold`` and one product a group."""
+    kernel = list(w.shape[2:])
+    parts = []
+    for g in range(groups):
+        xg = x.narrow(1, g * (x.shape[1] // groups),
+                      x.shape[1] // groups).contiguous()
+        wg = w.narrow(0, g * (w.shape[0] // groups),
+                      w.shape[0] // groups).contiguous()
+        dg = dy.narrow(1, g * (dy.shape[1] // groups),
+                       dy.shape[1] // groups).contiguous()
+        if tuple(dilation) == (1, 1):
+            parts.append(torch.ops.aten._slow_conv2d_backward.output_mask(
+                dg, xg, wg, kernel, list(stride), list(pad),
+                [False, True, False])[1])
+        else:
+            cols = F.unfold(xg, kernel, dilation=dilation, padding=pad,
+                            stride=stride)
+            d = dg.reshape(dg.shape[0], dg.shape[1], -1)
+            parts.append(torch.einsum("nol,nkl->ok", d, cols)
+                         .reshape(wg.shape))
+    return parts[0] if groups == 1 else torch.cat(parts, 0)
+
+
 class _ConvIeeeWeightGrad(torch.autograd.Function):
     """An fp32 convolution on the card, with TF32 off, whose weight
     gradient runs PyTorch's native CUDA convolution (im2col and a cuBLAS
-    GEMM) in place of cuDNN. The forward and the input gradient stay on
-    cuDNN. The algorithm cuDNN picks for some weight gradients is not
-    fp32-accurate even with TF32 off: LeNet's first convolution at batch 8
-    lands 1.1e-3 of max-abs from float64, not bit-equal to the TF32
-    result, where the native path lands near 1e-7 (``chip_smoke.py``
-    phase 1 reads both). With TF32 on, the caller has chosen speed over
-    fp32 accuracy and cuDNN keeps the whole convolution."""
+    GEMM, :func:`_native_weight_grad`) in place of cuDNN. The forward and
+    the input gradient stay on cuDNN. The algorithm cuDNN picks for some
+    weight gradients is not fp32-accurate even with TF32 off: LeNet's first
+    convolution at batch 8 lands 1.1e-3 of max-abs from float64, not
+    bit-equal to the TF32 result, where the native path lands near 1e-7
+    (``chip_smoke.py`` phase 1 reads both). With TF32 on, the caller has
+    chosen speed over fp32 accuracy and cuDNN keeps the whole convolution.
+    On CPU tensors (the tests) the weight gradient is
+    ``convolution_backward``'s, which has no cuDNN there."""
 
     @staticmethod
     def forward(ctx, data, weight, bias, conf):
@@ -140,12 +180,9 @@ class _ConvIeeeWeightGrad(torch.autograd.Function):
         if need_x or need_b:
             gx, _, gb = grads([need_x, False, need_b])
         if need_w:
-            was = torch.backends.cudnn.enabled
-            torch._C._set_cudnn_enabled(False)
-            try:
-                gw = grads([False, True, False])[1]
-            finally:
-                torch._C._set_cudnn_enabled(was)
+            gw = _native_weight_grad(dy, data, weight, stride, pad,
+                                     dilation, groups) if dy.is_cuda \
+                else grads([False, True, False])[1]
         return gx, gw, gb, None
 
 
@@ -270,42 +307,70 @@ def _bn_infer(attrs, shapes):
 
 
 class _BatchNormTrain(torch.autograd.Function):
-    """The training forward on the batch's statistics, ``mean`` and ``inv``
-    (fp32, 1/sqrt(var + eps)) computed by the caller. Forward: the
-    reference's ``(data - mean) * inv * gamma + beta`` in the data's dtype.
-    Backward: the closed form of ``jax.vjp`` through that forward and its
-    statistics, in fp32, from ``data``, ``mean``, ``inv`` and ``gamma``
-    alone (the separate ops under autograd would keep several full-size
-    intermediates of every layer)."""
+    """The training forward over the R replicas of a walk (1 off a
+    data-parallel walk) on the batch's statistics, ``mean`` and ``inv``
+    (fp32, 1/sqrt(var + eps)) computed by the caller, each replica's a copy
+    of the global batch's. Forward: the reference's ``(data - mean) * inv *
+    gamma + beta`` in the data's dtype. Backward: the closed form of
+    ``jax.vjp`` through that forward and its statistics, in fp32, from
+    ``data``, ``mean``, ``inv`` and ``gamma`` alone (the separate ops under
+    autograd would keep several full-size intermediates of every layer);
+    the replicas' ``dbeta`` and ``dgamma`` are summed (on the first
+    replica's device, in replica order) and divided by the global count
+    before each replica's ``dx``, and gamma's and beta's gradients are each
+    replica's own sums, which the executor group adds with the other
+    gradients. Inputs: ``caxis``, ``fix_gamma``, R, then R each of data,
+    gamma, beta, mean and inv."""
 
     @staticmethod
-    def forward(ctx, data, gamma, beta, mean, inv, caxis, fix_gamma):
-        bshape = [1] * data.dim()
-        bshape[caxis] = -1
-        g = torch.ones_like(gamma) if fix_gamma else gamma
-        dt = data.dtype
-        out = (data - mean.to(dt).view(bshape)) * inv.to(dt).view(bshape)
-        out = out * g.view(bshape) + beta.view(bshape)
-        ctx.save_for_backward(data, mean, inv, g)
-        ctx.attrs = (caxis, fix_gamma, gamma.dtype, beta.dtype)
-        return out
+    def forward(ctx, caxis, fix_gamma, count, *flat):
+        data, gamma, beta, mean, inv = (flat[i * count:(i + 1) * count]
+                                        for i in range(5))
+        outs, gs = [], []
+        for x, gm, b, m, v in zip(data, gamma, beta, mean, inv):
+            bshape = [1] * x.dim()
+            bshape[caxis] = -1
+            g = torch.ones_like(gm) if fix_gamma else gm
+            dt = x.dtype
+            out = (x - m.to(dt).view(bshape)) * v.to(dt).view(bshape)
+            outs.append(out * g.view(bshape) + b.view(bshape))
+            gs.append(g)
+        ctx.save_for_backward(*data, *mean, *inv, *gs)
+        ctx.attrs = (caxis, fix_gamma, count, gamma[0].dtype, beta[0].dtype)
+        return tuple(outs)
 
     @staticmethod
-    def backward(ctx, dout):
-        data, mean, inv, g = ctx.saved_tensors
-        caxis, fix_gamma, g_dtype, b_dtype = ctx.attrs
-        bshape = [1] * data.dim()
-        bshape[caxis] = -1
-        axes = [i for i in range(data.dim()) if i != caxis]
-        n = data.numel() // data.shape[caxis]
-        xhat = (_at_least_fp32(data) - mean.view(bshape)) * inv.view(bshape)
-        d32 = _at_least_fp32(dout)
-        dbeta = d32.sum(axes)
-        dgamma = (d32 * xhat).sum(axes)
-        dx = (d32 - xhat * (dgamma / n).view(bshape)
-              - (dbeta / n).view(bshape)) * (g.to(inv.dtype) * inv).view(bshape)
-        return (dx.to(data.dtype), None if fix_gamma else dgamma.to(g_dtype),
-                dbeta.to(b_dtype), None, None, None, None)
+    def backward(ctx, *douts):
+        caxis, fix_gamma, count, g_dtype, b_dtype = ctx.attrs
+        saved = ctx.saved_tensors
+        data, mean, inv, gs = (saved[i * count:(i + 1) * count]
+                               for i in range(4))
+        home = data[0].device
+        parts = []
+        for x, m, v, d in zip(data, mean, inv, douts):
+            bshape = [1] * x.dim()
+            bshape[caxis] = -1
+            axes = [i for i in range(x.dim()) if i != caxis]
+            xhat = (_at_least_fp32(x) - m.view(bshape)) * v.view(bshape)
+            d32 = _at_least_fp32(d)
+            parts.append((xhat, d32, bshape, d32.sum(axes),
+                          (d32 * xhat).sum(axes)))
+        n = sum(x.numel() // x.shape[caxis] for x in data)
+        dbeta = parts[0][3].to(home)
+        dgamma = parts[0][4].to(home)
+        for p in parts[1:]:
+            dbeta = dbeta + p[3].to(home)
+            dgamma = dgamma + p[4].to(home)
+        dx, dg, db = [], [], []
+        for x, v, g, (xhat, d32, bshape, b_r, g_r) in zip(data, inv, gs,
+                                                          parts):
+            dev = x.device
+            dx.append(((d32 - xhat * (dgamma.to(dev) / n).view(bshape)
+                        - (dbeta.to(dev) / n).view(bshape))
+                       * (g.to(v.dtype) * v).view(bshape)).to(x.dtype))
+            dg.append(None if fix_gamma else g_r.to(g_dtype))
+            db.append(b_r.to(b_dtype))
+        return (None, None, None, *dx, *dg, *db) + (None,) * (2 * count)
 
 
 @register_op(
@@ -315,37 +380,68 @@ class _BatchNormTrain(torch.autograd.Function):
     infer_param_shapes=_bn_infer,
 )
 def _batch_norm(ctx, attrs, data, gamma, beta, moving_mean, moving_var):
-    """Normalise over every axis but ``axis`` (1, or 3 for NHWC): in
-    training by the batch's mean and biased variance, taken in fp32, and the
-    moving statistics become ``momentum * old + (1 - momentum) * batch``
-    (not ``F.batch_norm``'s unbiased variance and opposite momentum); in
-    evaluation, or with ``use_global_stats``, by the moving statistics,
-    which stay as they are. The normalisation runs in the data's dtype (bf16
-    under amp, the statistics cast to it); ``fix_gamma`` puts ones in
-    gamma's place, so gamma's gradient is 0."""
+    """BatchNorm on one device: :func:`_batch_norm_replicas` over one
+    replica."""
+    ((outs, new_aux),) = _batch_norm_replicas(
+        [ctx], attrs, [(data, gamma, beta)], [(moving_mean, moving_var)])
+    return outs, tuple(new_aux)
+
+
+@register_replica_fn("BatchNorm")
+def _batch_norm_replicas(ctxs, attrs, inputs, aux):
+    """BatchNorm over the replicas of a walk (one off a data-parallel
+    walk), each replica's ``(outs, new_aux)``. Normalise over every axis but
+    ``axis`` (1, or 3 for NHWC): in training by the global batch's mean and
+    biased variance, taken in fp32 (``torch.var_mean`` on one replica; on
+    several, two passes over every replica's slice summed on the first
+    replica's device), and every replica's moving statistics become the
+    same ``momentum * old + (1 - momentum) * batch`` (not ``F.batch_norm``'s
+    unbiased variance and opposite momentum); in evaluation, or with
+    ``use_global_stats``, each replica by the moving statistics, which stay
+    as they are. The normalisation runs in the data's dtype (bf16 under
+    amp, the statistics cast to it); ``fix_gamma`` puts ones in gamma's
+    place, so gamma's gradient is 0."""
     eps = float(attrs.get("eps", 1e-3))
     momentum = float(attrs.get("momentum", 0.9))
     fix_gamma = bool(attrs.get("fix_gamma", True))
-    caxis = int(attrs.get("axis", 1)) % data.dim()
-    if bool(attrs.get("use_global_stats", False)) or not ctx.is_train:
-        bshape = [1] * data.dim()
-        bshape[caxis] = -1
-        dt = data.dtype
-        g = torch.ones_like(gamma) if fix_gamma else gamma
-        inv = torch.rsqrt(_at_least_fp32(moving_var) + eps).to(dt)
-        out = (data - moving_mean.to(dt).view(bshape)) * inv.view(bshape)
-        out = out * g.view(bshape) + beta.view(bshape)
-        return (out,), (moving_mean, moving_var)
-    axes = [i for i in range(data.dim()) if i != caxis]
+    data = [i[0] for i in inputs]
+    caxis = int(attrs.get("axis", 1)) % data[0].dim()
+    bshape = [1] * data[0].dim()
+    bshape[caxis] = -1
+    if bool(attrs.get("use_global_stats", False)) or not ctxs[0].is_train:
+        results = []
+        for (x, gamma, beta), (moving_mean, moving_var) in zip(inputs, aux):
+            dt = x.dtype
+            g = torch.ones_like(gamma) if fix_gamma else gamma
+            inv = torch.rsqrt(_at_least_fp32(moving_var) + eps).to(dt)
+            out = (x - moving_mean.to(dt).view(bshape)) * inv.view(bshape)
+            out = out * g.view(bshape) + beta.view(bshape)
+            results.append(((out,), [moving_mean, moving_var]))
+        return results
+    axes = [i for i in range(data[0].dim()) if i != caxis]
+    home = data[0].device
     with torch.no_grad():
-        var, mean = torch.var_mean(_at_least_fp32(data), dim=axes,
-                                   correction=0)
+        if len(data) == 1:
+            var, mean = torch.var_mean(_at_least_fp32(data[0]), dim=axes,
+                                       correction=0)
+        else:
+            n = sum(x.numel() // x.shape[caxis] for x in data)
+            total = sum(_at_least_fp32(x).sum(axes).to(home) for x in data)
+            mean = total / n
+            sq = sum(((_at_least_fp32(x) - mean.to(x.device).view(bshape))
+                      ** 2).sum(axes).to(home) for x in data)
+            var = sq / n
         inv = torch.rsqrt(var + eps)
+        moving_mean, moving_var = aux[0]
         new_mean = momentum * moving_mean + (1 - momentum) * mean
         new_var = momentum * moving_var + (1 - momentum) * var
-    out = _BatchNormTrain.apply(data, gamma, beta, mean, inv, caxis,
-                                fix_gamma)
-    return (out,), (new_mean, new_var)
+    devs = [x.device for x in data]
+    outs = _BatchNormTrain.apply(
+        caxis, fix_gamma, len(data), *data, *(i[1] for i in inputs),
+        *(i[2] for i in inputs), *(mean.to(d) for d in devs),
+        *(inv.to(d) for d in devs))
+    return [((out,), [new_mean.to(d), new_var.to(d)])
+            for out, d in zip(outs, devs)]
 
 
 # ---------------------------------------------------------------------------
@@ -472,16 +568,18 @@ class _SoftmaxOutput(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, data, label, axis, use_ignore, ignore_label, grad_scale,
-                norm):
+                norm, batches, valid_total):
         p = torch.softmax(data, dim=axis)
         ctx.save_for_backward(p, label)
-        ctx.attrs = (axis, use_ignore, ignore_label, grad_scale, norm)
+        ctx.attrs = (axis, use_ignore, ignore_label, grad_scale, norm,
+                     batches, valid_total)
         return p
 
     @staticmethod
     def backward(ctx, g):
         p, label = ctx.saved_tensors
-        axis, use_ignore, ignore_label, grad_scale, norm = ctx.attrs
+        (axis, use_ignore, ignore_label, grad_scale, norm, batches,
+         valid_total) = ctx.attrs
         li = as_int32(label)
         classes = torch.arange(p.shape[axis], device=p.device)
         # one_hot of an id outside [0, C) is a zero row, as jax.nn.one_hot
@@ -495,10 +593,11 @@ class _SoftmaxOutput(torch.autograd.Function):
             grad = grad * valid.unsqueeze(axis)
         scale = grad_scale
         if norm == "batch":
-            scale = scale / p.shape[0]
+            scale = scale / (p.shape[0] * batches)
         elif norm == "valid":
-            scale = scale / torch.clamp(valid.sum(), min=1.0)
-        return grad * scale, None, None, None, None, None, None
+            count = valid_total(p.device) if valid_total else valid.sum()
+            scale = scale / torch.clamp(count, min=1.0)
+        return grad * scale, None, None, None, None, None, None, None, None
 
 
 @register_op("SoftmaxOutput", inputs=("data", "label"), alias=("Softmax",),
@@ -512,12 +611,19 @@ def _softmax_output(ctx, attrs, data, label):
     reaches the 16-bit logits through that cast."""
     multi = bool(attrs.get("multi_output", False))
     axis = 1 if (multi or data.dim() > 2) else -1
+    use_ignore = bool(attrs.get("use_ignore", False))
+    ignore_label = int(attrs.get("ignore_label", -1))
+    norm = attrs.get("normalization", "null")
+    valid_total = None
+    if ctx.replicas is not None and norm == "valid":
+        li = as_int32(label)
+        valid_total = ctx.replicas.put_count(
+            ctx, (li != ignore_label).sum().float() if use_ignore
+            else torch.tensor(float(li.numel())))
     return _SoftmaxOutput.apply(
-        _at_least_fp32(data), label, axis,
-        bool(attrs.get("use_ignore", False)),
-        int(attrs.get("ignore_label", -1)),
-        float(attrs.get("grad_scale", 1.0)),
-        attrs.get("normalization", "null"))
+        _at_least_fp32(data), label, axis, use_ignore, ignore_label,
+        float(attrs.get("grad_scale", 1.0)), norm, ctx.replica_count,
+        valid_total)
 
 
 # ---------------------------------------------------------------------------
@@ -556,5 +662,5 @@ def _make_loss(ctx, attrs, data):
     ``"null"``, as in the reference)."""
     scale = float(attrs.get("grad_scale", 1.0))
     if attrs.get("normalization", "null") == "batch":
-        scale /= data.shape[0]
+        scale /= data.shape[0] * ctx.replica_count
     return _MakeLoss.apply(data, scale)

@@ -17,7 +17,36 @@ from typing import Callable, Sequence
 
 from ..base import MXNetError
 
-__all__ = ["OpCtx", "OpDef", "register_op", "get_op", "list_ops", "coerce_attrs"]
+__all__ = ["OpCtx", "OpDef", "Replicas", "register_op", "register_replica_fn",
+           "get_op", "list_ops", "coerce_attrs"]
+
+
+class Replicas:
+    """The replicas of one data-parallel training walk: ``count`` executors
+    of one graph, each on its slice of the global batch, walked node by node
+    together (``Executor._walk_replicas``). A loss op that normalises by
+    the global count of valid labels records each replica's count during
+    its forward (:meth:`put_count`); its backward, which runs once every
+    forward has, reads their total."""
+
+    def __init__(self, count):
+        self.count = count
+        self._counts = {}
+
+    def put_count(self, ctx, count):
+        """Record replica ``ctx.replica``'s ``count`` under its node; return
+        the function of a device that sums every replica's count there (in
+        replica order)."""
+        parts = self._counts.setdefault(ctx.node, {})
+        parts[ctx.replica] = count
+
+        def total(device):
+            out = parts[0].to(device)
+            for r in range(1, self.count):
+                out = out + parts[r].to(device)
+            return out
+
+        return total
 
 
 @dataclass
@@ -31,6 +60,8 @@ class OpCtx:
     ``torch.device`` on which ops with no inputs create their result (None:
     the current context's). ``node`` is the walking node's index in the
     graph's topological order (a per-node ``rng`` seeds from it).
+    ``replicas`` is the :class:`Replicas` of a data-parallel walk (None
+    for one device) and ``replica`` this walk's index in it.
     """
 
     is_train: bool = False
@@ -38,6 +69,14 @@ class OpCtx:
     node: int = 0
     mesh: object | None = None
     device: object | None = None
+    replicas: Replicas | None = None
+    replica: int = 0
+
+    @property
+    def replica_count(self):
+        """How many slices the global batch is split into (1 off a
+        data-parallel walk)."""
+        return 1 if self.replicas is None else self.replicas.count
 
 
 @dataclass
@@ -50,6 +89,10 @@ class OpDef:
     infer_param_shapes: Callable | None = None  # (attrs, shapes: dict[str, tuple|None]) -> dict
     attr_defaults: dict = field(default_factory=dict)
     alias: Sequence[str] = ()
+    # replica_fn(ctxs, attrs, inputs, aux) -> [(outs, new_aux)] a replica:
+    # the op over every replica of a data-parallel walk at once, where its
+    # result depends on the whole batch (BatchNorm's statistics)
+    replica_fn: Callable | None = None
 
     def normalized_call(self, ctx, attrs, inputs, aux):
         """Run the body; always return (list_of_outputs, list_of_new_aux)."""
@@ -99,6 +142,19 @@ def register_op(
         _OPS[name] = op
         for a in alias:
             _OPS[a] = op
+        return fn
+
+    return _do
+
+
+def register_replica_fn(name):
+    """Decorator: ``fn(ctxs, attrs, inputs, aux)`` runs op ``name`` over
+    the replicas of a data-parallel walk together (lists a replica of
+    :class:`OpCtx`s, inputs and aux), returning each replica's ``(outs,
+    new_aux)``."""
+
+    def _do(fn):
+        get_op(name).replica_fn = fn
         return fn
 
     return _do

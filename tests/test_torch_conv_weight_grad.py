@@ -17,7 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from mxnet_tpu_torch.ops import get_op
-from mxnet_tpu_torch.ops.nn import _ConvIeeeWeightGrad
+from mxnet_tpu_torch.ops.nn import _ConvIeeeWeightGrad, _native_weight_grad
 from mxnet_tpu_torch.ops.registry import OpCtx
 
 CASES = [
@@ -51,6 +51,29 @@ def test_function_equals_autograd_of_conv2d(case, dtype):
     for a, e in zip(torch.autograd.grad(got, leaves, dy),
                     torch.autograd.grad(want, leaves, dy)):
         assert torch.equal(a, e)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", CASES)
+def test_native_weight_grad_equals_autograd(case, dtype):
+    """The card's weight gradient (``_native_weight_grad``: the native
+    convolution called directly, no process-wide cuDNN switch), run here on
+    CPU tensors, against autograd's weight gradient of ``F.conv2d``: within
+    the dtype's rounding (fp32 1e-6, fp64 1e-13 of max-abs; read 3.2e-7
+    and 6.4e-16, exact without groups or dilation)."""
+    c, f, k, stride, pad, dil, groups, bias = case
+    x, w, b = _inputs(c, f, k, groups, bias, dtype)
+    conf = (stride, pad, dil, groups)
+    y = F.conv2d(x, w, b, *conf)
+    dy = torch.randn_like(y)
+    (want,) = torch.autograd.grad(y, [w], dy)
+    got = _native_weight_grad(dy, x.detach(), w.detach(), stride, pad, dil,
+                              groups)
+    limit = 1e-6 if dtype == torch.float32 else 1e-13
+    assert float((got - want).abs().max()) <= limit * float(
+        want.abs().max())
+    if groups == 1 and dil == (1, 1):
+        assert torch.equal(got, want)
 
 
 def test_function_gradcheck():
@@ -122,6 +145,30 @@ def test_tf32_off_weight_gradient_is_fp32_exact_on_the_card(card):
     gap, route = _lenet_conv1_weight_grad(False)
     assert route == "_ConvIeeeWeightGradBackward"
     assert gap <= 1e-5, gap
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", CASES)
+def test_native_weight_grad_is_convolution_backward_without_cudnn(card,
+                                                                  case):
+    """On the card the direct call gives ``convolution_backward``'s weight
+    gradient with cuDNN off bit for bit (the dilated case, through
+    ``F.unfold``, within 1e-6 of max-abs), and it leaves cuDNN on."""
+    c, f, k, stride, pad, dil, groups, bias = case
+    x, w, b = (t.detach().cuda() if t is not None else None
+               for t in _inputs(c, f, k, groups, bias, torch.float32))
+    dy = torch.randn_like(F.conv2d(x, w, b, stride, pad, dil, groups))
+    got = _native_weight_grad(dy, x, w, stride, pad, dil, groups)
+    assert torch.backends.cudnn.enabled
+    with torch.backends.cudnn.flags(enabled=False):
+        want = torch.ops.aten.convolution_backward(
+            dy, x, w, None, stride, pad, dil, False, [0, 0], groups,
+            [False, True, False])[1]
+    if dil == (1, 1):
+        assert torch.equal(got, want)
+    else:
+        assert float((got - want).abs().max()) <= 1e-6 * float(
+            want.abs().max())
 
 
 @pytest.mark.gpu

@@ -314,9 +314,8 @@ def test_no_fused_step_env_and_kvstore(monkeypatch):
     monkeypatch.delenv("MXTPU_NO_FUSED_STEP")
     mod._refresh_fused_step()
     assert mod._fused_step_fn is not None
-    # a kvstore makes the update non-local (the port refuses distributed
-    # kvstores at init_optimizer, so a stand-in object plays one)
-    mod._kvstore = object()
+    # a kvstore makes the update non-local
+    mod._kvstore = mxt.kv.create("local")
     mod._refresh_fused_step()
     assert mod._fused_step_fn is None
 

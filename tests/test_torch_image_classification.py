@@ -4,7 +4,7 @@ checkpoint written by the JAX package's ``score.py`` flow scored by the
 port's ``score.py`` to the JAX accuracy and cross-entropy (1e-5),
 ``fine_tune.py``'s frozen body (drift 0) and gate, and ``benchmark.py`` and
 ``benchmark_score.py`` at tiny sizes printing the reference's formats;
-``benchmark.py`` over several devices raises."""
+``benchmark.py`` sweeps data-parallel degrees (its ``--tp`` raises)."""
 import importlib.util
 import os
 import re
@@ -131,11 +131,27 @@ def test_benchmark_prints_the_reference_csv(capsys):
         assert re.fullmatch(rf"{net},1,1,{bs},\d+\.\d,1\.00", line), line
 
 
-@pytest.mark.parametrize("argv", [["--devices", "1,2"], ["--tp", "2"],
+@pytest.mark.parametrize("argv", [["--devices", "1,2", "--tp", "2"],
+                                  ["--tp", "2"],
                                   ["--devices", "4", "--tp", "2"]])
 def test_benchmark_over_several_devices_is_not_ported(argv):
+    """Model parallelism (``--tp`` above 1) is not ported; data parallelism
+    over several devices is (the test below)."""
     with pytest.raises(mxt.MXNetError, match="not ported"):
         benchmark.main(["--cpu", "--networks", "lenet"] + argv)
+
+
+def test_benchmark_sweeps_data_parallel_degrees(capsys):
+    """``--devices 1,2`` times each batch over one context and over two
+    (``cpu(0)``, ``cpu(1)``), the speedup over one device beside it; a
+    batch that two contexts do not divide is skipped."""
+    rows = benchmark.main(["--cpu", "--networks", "lenet", "--devices",
+                           "1,2", "--batch-sizes", "3,4", "--steps", "1"])
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert [r[:4] for r in rows] == [("lenet", 1, 1, 3), ("lenet", 1, 1, 4),
+                                     ("lenet", 2, 1, 4)]
+    assert len(lines) == 4 and rows[2][5] == rows[2][4] / rows[1][4]
+    assert re.fullmatch(r"lenet,2,1,4,\d+\.\d,\d+\.\d\d", lines[3]), lines
 
 
 class _ForwardClock:

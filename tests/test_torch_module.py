@@ -267,12 +267,18 @@ def test_module_defaults_to_the_card(monkeypatch):
 
 def test_local_kvstore_on_one_device_is_none():
     """``kvstore="local"`` (or "device") on one device means no kvstore, as
-    in the reference; a distributed store is refused until it is ported."""
-    create = mxt.mod.module._create_kvstore
-    assert create("local") is None and create("device") is None
-    assert create(None) is None
-    with pytest.raises(mxt.MXNetError):
-        create("dist_sync")
+    in the reference (``model._create_kvstore``); a ``dist*`` string makes
+    a store that runs the update, and so does a store given as an object."""
+    create = mxt.model._create_kvstore
+    assert create("local", 1, {}) == (None, False)
+    assert create("device", 1, {}) == (None, False)
+    assert create(None, 1, {}) == (None, False)
+    kv, on_kv = create("dist_sync", 1, {})
+    assert isinstance(kv, mxt.kv.KVStore) and kv.type == "dist_sync" and on_kv
+    local = mxt.kv.create("local")
+    assert create(local, 1, {}) == (local, True)
+    with pytest.raises(TypeError):
+        create(1, 1, {})
 
 
 def test_train_lm_example_on_cpu():
